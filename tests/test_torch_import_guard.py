@@ -1,0 +1,145 @@
+"""The PyTorch port stands alone: it imports nothing of JAX or of the JAX
+package, and it never drifts onto the CPU when the card is asked for."""
+
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
+           "elasticdl_tpu", "model_zoo")
+
+# A meta-path finder that refuses the blocked top-level packages; run
+# first in a fresh interpreter, before anything else is imported.
+BLOCKER = textwrap.dedent(
+    """
+    import sys
+
+    BLOCKED = %r
+
+    class _Block:
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top in BLOCKED:
+                raise ImportError("blocked import of %%s" %% name)
+            return None
+
+    sys.meta_path.insert(0, _Block())
+    """
+) % (BLOCKED,)
+
+
+def _run_blocked(body, cwd=REPO, env=None):
+    code = BLOCKER + textwrap.dedent(body)
+    return subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=cwd,
+        capture_output=True,
+        text=True,
+        timeout=240,
+        env=env,
+    )
+
+
+def test_every_port_module_imports_without_jax():
+    proc = _run_blocked(
+        """
+        import importlib, pkgutil
+        sys.path.insert(0, %r)
+        import elasticdl_tpu_torch
+        names = ["elasticdl_tpu_torch"]
+        for info in pkgutil.walk_packages(
+            elasticdl_tpu_torch.__path__, "elasticdl_tpu_torch."
+        ):
+            names.append(info.name)
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        leaked = sorted(
+            m for m in sys.modules if m.split(".")[0] in BLOCKED
+        )
+        assert not leaked, leaked
+        print("imported", len(names))
+        """
+        % REPO
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    count = int(proc.stdout.split()[-1])
+    assert count >= 20  # every module of the slice, packages included
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _build_cuda_scorer(tmp_path):
+    from elasticdl_tpu_torch.common.args import parse_scorer_args
+    from elasticdl_tpu_torch.serving.main import build_scorer
+
+    return build_scorer(
+        parse_scorer_args(["--export_dir", str(tmp_path), "--device", "cuda"])
+    )
+
+
+def _cuda_scorer_model(tmp_path):
+    from elasticdl_tpu_torch.serving.scorer import ScorerModel
+
+    return ScorerModel(str(tmp_path), device="cuda")
+
+
+def _resolve_cuda(tmp_path):
+    from elasticdl_tpu_torch.common.device import resolve_device
+
+    return resolve_device("cuda")
+
+
+@pytest.mark.parametrize(
+    "entry", [_resolve_cuda, _build_cuda_scorer, _cuda_scorer_model]
+)
+def test_cuda_without_a_card_raises(no_card, tmp_path, entry):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry(tmp_path)
+
+
+def test_cpu_is_taken_only_when_named():
+    from elasticdl_tpu_torch.common.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+
+
+def test_chip_smoke_without_a_card_prints_no_result():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = _run_blocked(
+        """
+        sys.argv = ["chip_smoke.py"]
+        sys.path.insert(0, %r)
+        import chip_smoke
+        sys.exit(chip_smoke.main([]))
+        """
+        % REPO,
+        env=env,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"],
+        cwd=tmp_path,
+        capture_output=True,
+        text=True,
+        timeout=240,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
