@@ -11,15 +11,27 @@ Phases, each printing JSON lines; any failure exits non-zero:
 2. build   — every kernel under ``elasticdl_tpu_torch/ops/csrc`` built
    from source with nvcc for sm_90a, all at once (ptxas report printed).
 3. kernels — each kernel against its plain PyTorch version on the card,
-   at the listed shapes, with times, the bound and the library yardstick.
+   at the listed shapes, with times, the bound and the library yardstick:
+   flash_fwd, then flash_bwd_dq and flash_bwd_dkv (with and without an
+   lse cotangent), then a long-sequence check that the backward
+   allocates no (L, L) buffer. Each output and gradient is held
+   elementwise and by its relative L2 distance, and each case shows
+   that a planted fault (a mask one tile off, a 10 % scale error) fails.
 4. slice   — the 110M transformer LM (bf16, random weights from a seed)
    exported, then served through the scorer's entry points
    (build_scorer -> ScorerServicer -> MicroBatcher -> Scorer) on
    concurrent 1024-token requests. Replies are checked against solo
    scoring and against the model with attention swapped for the plain
-   version; kernel launches are counted over the served requests alone.
-   Then a torch.profiler breakdown of one batched forward.
-5. summary — the kernels line, the card line, then the result line.
+   version; kernel launches are counted over the served requests alone
+   (12 forward, 0 backward per forward). Then a torch.profiler breakdown
+   of one batched forward.
+5. train   — the same model trained through AllReduceTrainer.train_step
+   (AdamW, 16 x 1024-token batches): finite losses, a finite, nonzero
+   gradient for every parameter, 12 launches of each kernel per step;
+   gradients against the plain-attention model and against
+   plain_flash_bwd on the same forward; one rematerialized step; step
+   time, tokens/s, MFU, peak memory and a profiler breakdown of one step.
+6. summary — the kernels line, the card line, then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -47,10 +59,22 @@ KERNEL_SHAPES = [  # (B, H, D, L)
     (4, 16, 96, 1024),
     (2, 12, 64, 2048),
 ]
+TRAIN_SHAPE = (16, 12, 64, 1024)  # the training slice's attention
 TOL = {  # dtype -> (rtol, atol) against the plain version in float32
     "float32": (2e-4, 2e-5),
     "bfloat16": (0.0, 2e-2),
 }
+# gradients: the reference's own tolerances (tests/test_flash_attention.py)
+BWD_TOL = {"float32": (3e-4, 3e-4), "bfloat16": (0.1, 0.1)}
+# Per tensor (out, dq, dk, dv), relative L2 distance from the plain
+# version in float32. At L >= 1024 an output or a gradient of random
+# inputs is ~0.05 per element, no larger than the elementwise limits
+# above, so this is the gate that sees a wrong tile; each case also
+# shows that a planted fault (a mask one tile off, a 10 % scale error)
+# lies beyond it. PERF.md section 6 has the readings.
+REL_L2 = {"float32": 1e-5, "bfloat16": 2e-2}
+FAULT_TILE = 64  # the kernels' tile: the planted mask fault is one tile off
+MEM_SHAPE = (1, 12, 64, 8192)  # the backward's no-(L, L) check, bf16
 
 # The repo's headline transformer_lm width (bench.py's 110M config).
 SLICE_CFG = dict(
@@ -65,8 +89,35 @@ REPLY_ATOL = 0.1  # bf16 logits: batched vs solo, kernel vs plain attention
 SEED = 0
 DEVICE = "cuda"
 
-FLASH_SOURCE = "elasticdl_tpu_torch/ops/csrc/flash_fwd.cu"
-FLASH_REPLACES = "elasticdl_tpu/ops/flash_attention.py:39"
+# training (bench.py's headline step: b16 x L1024, AdamW at 3e-3)
+TRAIN_BATCH = 16
+TRAIN_STEPS = 10  # timed, after one warm-up step
+LR = 3e-3
+GRAD_CHECK_BATCH = 4  # kernel vs plain-attention gradients
+GRAD_REL_L2 = 5e-2  # per tensor, bf16 compute, from the seeded init
+# (PERF.md says why; after training on random tokens the q/k gradients
+# shrink until the reference's bf16 delta dominates them: reported only)
+# Per tensor, the kernels against plain_flash_bwd's own formula (same
+# forward, same delta, float32) from the seeded init and from the
+# trained weights: what the backward kernels alone add (read 0.011 and
+# 0.0046 on an H100, PERF.md section 6).
+FORMULA_REL_L2 = 2e-2
+REMAT_LOSS_RTOL = 1e-3
+
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "flash_fwd": (
+        "elasticdl_tpu_torch/ops/csrc/flash_fwd.cu",
+        "elasticdl_tpu/ops/flash_attention.py:39",
+    ),
+    "flash_bwd_dq": (
+        "elasticdl_tpu_torch/ops/csrc/flash_bwd.cu",
+        "elasticdl_tpu/ops/flash_attention.py:128",
+    ),
+    "flash_bwd_dkv": (
+        "elasticdl_tpu_torch/ops/csrc/flash_bwd.cu",
+        "elasticdl_tpu/ops/flash_attention.py:175",
+    ),
+}
 
 
 def emit(obj):
@@ -142,6 +193,21 @@ def time_ms(torch, fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def _pairs(lq, lk, causal):
+    """Visible (query, key) pairs of one head."""
+    if causal:
+        return sum(min(i + 1, lk) for i in range(lq))
+    return lq * lk
+
+
+def _bound(nbytes, ops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes"
+    return t_ops, "operations"
+
+
 def flash_bound(b, h, d, lq, lk, dtype, causal):
     """(bound_ms, bound_by): the larger of the bytes the function must
     move (q, k, v read once, out and lse written once) over HBM
@@ -149,16 +215,68 @@ def flash_bound(b, h, d, lq, lk, dtype, causal):
     Causal work counts only the visible (query, key) pairs."""
     elem = 2 if dtype == "bfloat16" else 4
     nbytes = (2 * b * lq * h * d + 2 * b * lk * h * d) * elem + b * h * lq * 4
-    if causal:
-        pairs = sum(min(i + 1, lk) for i in range(lq))
+    ops = 4.0 * b * h * d * _pairs(lq, lk, causal)
+    return _bound(nbytes, ops, dtype)
+
+
+def bwd_bound(kernel, b, h, d, lq, lk, dtype, causal):
+    """(bound_ms, bound_by) of one backward kernel. flash_bwd_dq reads q,
+    k, v, dO and writes dq, and does three products (S, dP, dQ: 6 D
+    operations per visible pair); flash_bwd_dkv reads q, k, v, dO and
+    writes dk, dv, and does four (S, dP, dV, dK: 8 D). Both read lse and
+    delta (float32, one per query row)."""
+    elem = 2 if dtype == "bfloat16" else 4
+    q_side, k_side = b * lq * h * d, b * lk * h * d
+    if kernel == "flash_bwd_dq":
+        tensors, per_pair = 3 * q_side + 2 * k_side, 6
     else:
-        pairs = lq * lk
-    ops = 4.0 * b * h * d * pairs
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes"
-    return t_ops, "operations"
+        tensors, per_pair = 2 * q_side + 4 * k_side, 8
+    nbytes = tensors * elem + 2 * b * h * lq * 4
+    ops = float(per_pair) * b * h * d * _pairs(lq, lk, causal)
+    return _bound(nbytes, ops, dtype)
+
+
+def _rel_l2(torch, got, want):
+    return float(
+        torch.linalg.vector_norm(got.float() - want.float())
+        / torch.linalg.vector_norm(want.float()).clamp_min(1e-30)
+    )
+
+
+def _fault_mask(torch, lq, lk, causal, device):
+    """(Lq, Lk) visible pairs with one key tile wrong, as a kernel whose
+    tile loop is off by one would see them: under causal masking, keys up
+    to one tile past the diagonal; otherwise the last key tile dropped."""
+    q_pos = torch.arange(lq, device=device)[:, None]
+    k_pos = torch.arange(lk, device=device)[None, :]
+    if causal:
+        return k_pos <= q_pos + FAULT_TILE
+    return (k_pos < lk - FAULT_TILE).expand(lq, lk)
+
+
+def _masked_attention(torch, q, k, v, visible):
+    """Softmax attention over ``visible`` pairs, in float32."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    s = (s * q.shape[-1] ** -0.5).masked_fill(~visible, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v.float())
+
+
+def _masked_bwd(torch, q, k, v, out, lse, g, g_lse, visible):
+    """``plain_flash_bwd``'s formula over ``visible`` pairs, with the lse
+    and delta of the correct forward -> (dq, dk, dv) in float32."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    scale = q.shape[-1] ** -0.5
+    delta = fa.flash_delta(out, g, g_lse)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse[..., None]).masked_fill(~visible, 0.0)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", gf, vf) - delta[..., None])
+    return (
+        torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale,
+        torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale,
+        torch.einsum("bhqk,bqhd->bkhd", p, gf),
+    )
 
 
 def check_flash_case(torch, b, h, d, l, dtype, causal, seed):
@@ -180,10 +298,23 @@ def check_flash_case(torch, b, h, d, l, dtype, causal, seed):
     rtol, atol = TOL[dtype]
     err_out = (out.float() - ref_out).abs()
     err_lse = (lse - ref_lse).abs()
+    rel = _rel_l2(torch, out, ref_out)
+    faults = {
+        "out*0.9": _rel_l2(torch, 0.9 * out.float(), ref_out),
+        "mask one tile off": _rel_l2(
+            torch,
+            _masked_attention(
+                torch, q, k, v, _fault_mask(torch, l, l, causal, q.device)
+            ),
+            ref_out,
+        ),
+    }
+    limit = REL_L2[dtype]
     ok = bool(
         torch.isfinite(out).all()
         and (err_out <= atol + rtol * ref_out.abs()).all()
         and (err_lse <= atol + rtol * ref_lse.abs()).all()
+        and rel <= limit
     )
     bound_ms, bound_by = flash_bound(b, h, d, l, l, dtype, causal)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -198,6 +329,9 @@ def check_flash_case(torch, b, h, d, l, dtype, causal, seed):
         "max_abs_err_lse": float(err_lse.max()),
         "rtol": rtol,
         "atol": atol,
+        "rel_l2": rel,
+        "rel_l2_limit": limit,
+        "fault_rel_l2": faults,
         "ok": ok,
         "bound_ms": bound_ms,
         "bound_us": bound_ms * 1e3,
@@ -217,6 +351,10 @@ def check_flash_case(torch, b, h, d, l, dtype, causal, seed):
         raise PhaseError(
             "flash_fwd disagrees with its plain version at %s" % rec
         )
+    if min(faults.values()) <= limit:
+        raise PhaseError(
+            "the flash_fwd check cannot see a planted fault at %s" % rec
+        )
     return rec
 
 
@@ -224,7 +362,7 @@ def phase_kernels(torch):
     """Every (shape, dtype, causal) case; returns the records."""
     records = []
     seed = 0
-    for b, h, d, l in KERNEL_SHAPES:
+    for b, h, d, l in KERNEL_SHAPES + [TRAIN_SHAPE]:
         for dtype in ("float32", "bfloat16"):
             for causal in (False, True):
                 seed += 1
@@ -232,6 +370,194 @@ def phase_kernels(torch):
                     check_flash_case(torch, b, h, d, l, dtype, causal, seed)
                 )
     return records
+
+
+def check_bwd_case(torch, b, h, d, l, dtype, causal, with_lse, seed):
+    """Both backward kernels against ``plain_flash_bwd`` in float32 from
+    the same inputs (the forward kernel's out and lse), with or without
+    an lse cotangent; times each kernel, the plain version and SDPA's
+    backward (its forward-and-backward time less its forward time) when
+    ``with_lse`` is off. Returns one record per kernel."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    tdtype = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g = (
+        torch.randn(
+            (b, l, h, d), generator=gen, device="cuda", dtype=torch.float32
+        ).to(tdtype)
+        for _ in range(4)
+    )
+    g_lse = (
+        torch.randn((b, h, l), generator=gen, device="cuda")
+        if with_lse
+        else None
+    )
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal)
+    delta = fa.flash_delta(out, g, g_lse)
+    dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    want = fa.plain_flash_bwd(
+        q.float(), k.float(), v.float(), out.float(), lse, g.float(),
+        causal, g_lse,
+    )
+    rtol, atol = BWD_TOL[dtype]
+    limit = REL_L2[dtype]
+    planted = _masked_bwd(
+        torch, q, k, v, out, lse, g, g_lse,
+        _fault_mask(torch, l, l, causal, q.device),
+    )
+    errs, rels, faults = {}, {}, {}
+    ok = True
+    for name, got, ref, bad in zip(
+        ("dq", "dk", "dv"), (dq, dk, dv), want, planted
+    ):
+        err = (got.float() - ref).abs()
+        errs[name] = float(err.max())
+        rels[name] = _rel_l2(torch, got, ref)
+        faults[name] = {
+            name + "*0.9": _rel_l2(torch, 0.9 * got.float(), ref),
+            "mask one tile off": _rel_l2(torch, bad, ref),
+        }
+        ok = ok and bool(
+            torch.isfinite(got).all()
+            and (err <= atol + rtol * ref.abs()).all()
+            and rels[name] <= limit
+        )
+    del planted
+    timed = {}
+    if not with_lse:
+        timed["flash_bwd_dq"] = time_ms(
+            torch, lambda: fa.flash_bwd_dq(q, k, v, g, lse, delta, causal), 20
+        )
+        timed["flash_bwd_dkv"] = time_ms(
+            torch, lambda: fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal),
+            20,
+        )
+        plain_ms = time_ms(
+            torch,
+            lambda: fa.plain_flash_bwd(q, k, v, out, lse, g, causal),
+            3, 1,
+        )
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (
+            x.transpose(1, 2).detach().requires_grad_(True)
+            for x in (q, k, v)
+        )
+        gt = g.transpose(1, 2)
+        sdpa_fwd = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal),
+                           50)
+        sdpa_both = time_ms(
+            torch,
+            lambda: torch.autograd.grad(
+                sdpa(qt, kt, vt, is_causal=causal), (qt, kt, vt), gt
+            ),
+            50,
+        )
+    records = []
+    for kernel, names in (("flash_bwd_dq", ("dq",)),
+                          ("flash_bwd_dkv", ("dk", "dv"))):
+        bound_ms, bound_by = bwd_bound(kernel, b, h, d, l, l, dtype, causal)
+        rec = {
+            "phase": "kernels",
+            "kernel": kernel,
+            "shape": [b, l, h, d],
+            "dtype": dtype,
+            "causal": causal,
+            "g_lse": with_lse,
+            "max_abs_err": max(errs[n] for n in names),
+            "max_abs_err_by_grad": {n: errs[n] for n in names},
+            "rtol": rtol,
+            "atol": atol,
+            "rel_l2": max(rels[n] for n in names),
+            "rel_l2_by_grad": {n: rels[n] for n in names},
+            "rel_l2_limit": limit,
+            "fault_rel_l2": {n: faults[n] for n in names},
+            "ok": ok,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        if timed:
+            rec.update(
+                kernel_ms=timed[kernel],
+                plain_ms=plain_ms,  # both gradients, the whole function
+                library_ms=sdpa_both - sdpa_fwd,  # SDPA backward, dq+dk+dv
+            )
+        emit(rec)
+        records.append(rec)
+    if not ok:
+        raise PhaseError(
+            "flash backward disagrees with its plain version at %s %s "
+            "causal=%s g_lse=%s: max abs %s, rel L2 %s" % (
+                [b, l, h, d], dtype, causal, with_lse, errs, rels
+            )
+        )
+    unseen = {
+        n: f for n, f in faults.items() if min(f.values()) <= limit
+    }
+    if unseen:
+        raise PhaseError(
+            "the backward check cannot see a planted fault at %s %s "
+            "causal=%s: %s (limit %g)" % ([b, l, h, d], dtype, causal,
+                                          unseen, limit)
+        )
+    return records
+
+
+def phase_bwd_kernels(torch):
+    """Every (shape, dtype, causal, lse cotangent) case of both backward
+    kernels; returns the records."""
+    records = []
+    seed = 100
+    for b, h, d, l in KERNEL_SHAPES + [TRAIN_SHAPE]:
+        for dtype in ("float32", "bfloat16"):
+            for causal in (False, True):
+                for with_lse in (False, True):
+                    seed += 1
+                    records += check_bwd_case(
+                        torch, b, h, d, l, dtype, causal, with_lse, seed
+                    )
+    return records
+
+
+def phase_bwd_memory(torch):
+    """The backward at a long sequence (bf16, causal) allocates no
+    (L, L) buffer: the rise of the allocator's peak over the backward
+    stays below one head's (L, L) float32 scores. What it must allocate
+    is dq, dk, dv, delta and one float32 copy of dO."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    b, h, d, l = MEM_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, g = (
+        torch.randn((b, l, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16
+        )
+        for _ in range(4)
+    )
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    out, _ = fa.flash_attention_with_lse(q, k, v, True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    one_head_scores = l * l * 4
+    rec = {
+        "phase": "bwd_memory",
+        "shape": [b, l, h, d],
+        "dtype": "bfloat16",
+        "backward_peak_rise_bytes": int(rise),
+        "one_head_LxL_f32_bytes": one_head_scores,
+        "grads_bytes": int(sum(x.numel() * x.element_size() for x in grads)),
+        "finite": all(bool(torch.isfinite(x).all()) for x in grads),
+    }
+    emit(rec)
+    if not (rise < one_head_scores and rec["finite"]):
+        raise PhaseError("backward memory check failed: %s" % rec)
+    return rec
 
 
 def _make_artifact(torch, export_root):
@@ -336,22 +662,20 @@ def _check_reply(torch, reply, i):
         )
 
 
-def _profile_forward(torch, model, tokens):
-    """Device time by kernel over one batched forward (torch.profiler);
-    an empty breakdown says the profiler saw no device time."""
+def _profile(torch, label, fn, **fields):
+    """Device time by kernel over one call of ``fn`` (torch.profiler,
+    after one unprofiled call); an empty breakdown says the profiler saw
+    no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        model({"tokens": tokens})
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        ) as prof:
-            t0 = time.perf_counter()
-            model({"tokens": tokens})
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for evt in prof.key_averages():
         # device-side events only: a CPU op's device total repeats the
@@ -365,19 +689,47 @@ def _profile_forward(torch, model, tokens):
             rows.append((dev_us, evt.key, evt.count))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    emit(
-        {
-            "phase": "profile",
-            "rows": int(tokens.shape[0]),
-            "wall_ms": wall_ms,
-            "device_busy_ms": busy_ms,
-            "idle_share": (1 - busy_ms / wall_ms) if rows else None,
-            "top": [
-                {"kernel": k[:90], "ms": us / 1e3, "calls": n}
-                for us, k, n in rows[:12]
-            ],
-        }
+    rec = dict(
+        fields,
+        phase="profile",
+        of=label,
+        wall_ms=wall_ms,
+        device_busy_ms=busy_ms,
+        idle_share=(1 - busy_ms / wall_ms) if rows else None,
+        top=[
+            {"kernel": k[:90], "ms": us / 1e3, "calls": n}
+            for us, k, n in rows[:15]
+        ],
     )
+    emit(rec)
+    return rec
+
+
+def _profile_forward(torch, model, tokens):
+    def forward():
+        with torch.inference_mode():
+            model({"tokens": tokens})
+
+    _profile(torch, "forward", forward, rows=int(tokens.shape[0]))
+
+
+def _reset_counters():
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    for counter in (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches):
+        counter.reset()
+
+
+def _counts():
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    return {
+        "flash_fwd": (fa.launches.count, fa.launches.shapes()),
+        "flash_bwd_dq": (fa.bwd_dq_launches.count, fa.bwd_dq_launches.shapes()),
+        "flash_bwd_dkv": (
+            fa.bwd_dkv_launches.count, fa.bwd_dkv_launches.shapes()
+        ),
+    }
 
 
 def phase_slice(torch, tmp):
@@ -422,10 +774,12 @@ def phase_slice(torch, tmp):
         ok = _counter("edl_scorer_requests_total")
         forwards0 = ok.value(outcome="ok")
         forward_s0 = _forward_seconds()
-        fa.launches.reset()
+        _reset_counters()
         replies, latency, wall = _fire(servicer, requests)
         launches = fa.launches.count
         shapes = fa.launches.shapes()
+        bwd_launches = fa.bwd_dq_launches.count + fa.bwd_dkv_launches.count
+        counts = _counts()
         forwards = int(ok.value(outcome="ok") - forwards0)
         forward_s = _forward_seconds() - forward_s0
         peak = torch.cuda.max_memory_allocated()
@@ -435,10 +789,11 @@ def phase_slice(torch, tmp):
     for i, reply in enumerate(replies):
         _check_reply(torch, reply, i)
     layers = SLICE_CFG["num_layers"]
-    if forwards < 1 or launches != layers * forwards:
+    if forwards < 1 or launches != layers * forwards or bwd_launches:
         raise PhaseError(
-            "flash_fwd launched %d times over %d forwards; expected %d "
-            "per forward" % (launches, forwards, layers)
+            "flash_fwd launched %d times over %d forwards (expected %d "
+            "per forward), the backward kernels %d times (expected 0)"
+            % (launches, forwards, layers, bwd_launches)
         )
 
     # checks (not counted): each reply against its request scored solo,
@@ -482,6 +837,7 @@ def phase_slice(torch, tmp):
         "forward_ms_mean": forward_s / forwards * 1e3,
         "flash_launches": launches,
         "flash_launches_per_forward": launches / forwards,
+        "flash_bwd_launches": bwd_launches,
         "latency_p50_ms": float(np.percentile(lat_ms, 50)),
         "latency_p99_ms": float(np.percentile(lat_ms, 99)),
         "wall_s": wall,
@@ -498,47 +854,363 @@ def phase_slice(torch, tmp):
             "(atol %g)" % (solo_err, plain_err, REPLY_ATOL)
         )
     _profile_forward(torch, model, np.concatenate(requests[:MAX_BATCH]))
-    return {"launches": launches, "shapes": shapes}
+    return counts
 
 
-def kernels_line(torch, records, served):
-    """The contract line: each kernel at the shape the main path
-    launched it at most, with its launches from that run."""
-    shape, _ = max(served["shapes"].items(), key=lambda kv: kv[1])
-    b, lq, _lk, h, d, dtype, causal = shape
-    rec = next(
-        (
-            r for r in records
-            if r["shape"] == [b, lq, h, d]
-            and r["dtype"] == dtype
-            and r["causal"] == causal
-        ),
-        None,
+def _n_params(named):
+    return sum(p.numel() for p in named.values())
+
+
+def train_flops(n_params, batch, seq):
+    """bench.py's model FLOPs of one step: 6 per parameter per token
+    (forward and backward products; the tied head is inside n_params)
+    plus causal attention, 3.5 x 2 b l^2 h d / 2 per layer."""
+    cfg = SLICE_CFG
+    attn = (
+        3.5 * 2 * batch * seq * seq * cfg["num_heads"] * cfg["head_dim"] / 2
+        * cfg["num_layers"]
     )
-    if rec is None:
-        rec = check_flash_case(torch, b, h, d, lq, dtype, causal, 1000)
+    return 6.0 * n_params * batch * seq + attn
+
+
+def _clone_state(torch, ts, optimizer):
+    """An independent copy of a train state (parameters and AdamW
+    moments), for a check step that must not touch the trainer's."""
+    import copy
+
+    from elasticdl_tpu_torch.training.step import TrainState
+
+    params = {
+        n: p.detach().clone().requires_grad_(True)
+        for n, p in ts.params.items()
+    }
+    opt = optimizer(list(params.values()))
+    opt.load_state_dict(copy.deepcopy(ts.opt_state.state_dict()))
+    return TrainState(params, dict(ts.state), opt, ts.version)
+
+
+def _formula_attention(torch, f32_out=False):
+    """Causal attention through the forward kernel, differentiated by
+    ``plain_flash_bwd`` in float32 from the kernel's own out and lse: the
+    function the backward kernels compute, without their bf16 products.
+    With ``f32_out`` the backward takes delta from an output computed in
+    float32 instead of the kernel's rounded one: what that rounding
+    costs."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    class KernelFwdPlainBwd(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            out, lse = fa._flash_fwd_kernel(q, k, v, True)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, out, lse = ctx.saved_tensors
+            if f32_out:
+                out = fa.plain_flash_with_lse(
+                    q.float(), k.float(), v.float(), True
+                )[0]
+            return fa.plain_flash_bwd(q, k, v, out, lse, g, True)
+
+    return KernelFwdPlainBwd.apply
+
+
+def _grad_checks(torch, model, loss_fn, weights, tokens):
+    """Gradients of one batch from ``weights`` through the kernels
+    (``make_grad_fn``, the training path) against (1) the model with
+    ``use_flash=False`` (plain attention) and (2) the same forward kernel
+    with ``plain_flash_bwd`` as the backward; and (3) that backward with
+    a float32 delta against plain attention. Per comparison, the losses
+    and the worst and median per-tensor relative L2 difference."""
+    from torch.func import functional_call
+
+    from elasticdl_tpu_torch.training.step import make_grad_fn
+
+    grad_fn = make_grad_fn(model, loss_fn)
+    feats = {"tokens": tokens}
+    kernel = grad_fn(weights, {}, feats, tokens)[:2]
+    model.use_flash = False
+    try:
+        plain = grad_fn(weights, {}, feats, tokens)[:2]
+    finally:
+        model.use_flash = True
+
+    def formula(f32_out):
+        leaves = {
+            n: w.detach().requires_grad_(True) for n, w in weights.items()
+        }
+        out = functional_call(
+            model, leaves, (feats,),
+            {"attention_fn": _formula_attention(torch, f32_out)},
+        )
+        loss = loss_fn(out, tokens)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
+    def compare(a, b):
+        (loss_a, grads_a), (loss_b, grads_b) = a, b
+        rel = {n: _rel_l2(torch, grads_a[n], grads_b[n]) for n in grads_a}
+        worst = max(rel, key=rel.get)
+        return {
+            "loss": float(loss_a),
+            "loss_other": float(loss_b),
+            "max_rel_l2": rel[worst],
+            "worst_tensor": worst,
+            "median_rel_l2": float(sorted(rel.values())[len(rel) // 2]),
+        }
+
     return {
-        "kernels": [
+        "plain_attention": compare(kernel, plain),
+        "plain_flash_bwd": compare(kernel, formula(False)),
+        "f32_delta_vs_plain_attention": compare(formula(True), plain),
+    }
+
+
+def _check_counts(counts, want, what):
+    got = {name: n for name, (n, _) in counts.items()}
+    if got != want:
+        raise PhaseError(
+            "%s launched %s; expected %s" % (what, got, want)
+        )
+
+
+def phase_train(torch):
+    """Train the 110M LM through ``AllReduceTrainer.train_step``; returns
+    the launch counts of the timed steps (the main path)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.model_zoo.transformer_lm import (
+        transformer_lm as zoo,
+    )
+    from elasticdl_tpu_torch.parallel.trainer import AllReduceTrainer
+    from elasticdl_tpu_torch.training import step as tstep
+
+    layers = SLICE_CFG["num_layers"]
+    vocab = SLICE_CFG["vocab_size"]
+    with torch.device("meta"):
+        model = zoo.custom_model(**SLICE_CFG)
+    optimizer = zoo.optimizer(LR)
+    trainer = AllReduceTrainer(
+        model, zoo.loss, optimizer, seed=SEED, device=DEVICE
+    )
+    rng = np.random.default_rng(SEED)
+    batches = [
+        rng.integers(0, vocab, (TRAIN_BATCH, SEQ_LEN), dtype=np.int32)
+        for _ in range(1 + TRAIN_STEPS)
+    ]
+
+    def step(tokens):
+        return trainer.train_step({"tokens": tokens}, tokens)
+
+    t0 = time.perf_counter()
+    trainer.init_from_batch(batches[0])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_weights = {
+        n: p.detach().clone() for n, p in trainer.train_state.params.items()
+    }
+    t0 = time.perf_counter()
+    warm_loss = float(step(batches[0]))  # warm-up, not timed
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    step_ms, losses = [], []
+    for tokens in batches[1:]:
+        t0 = time.perf_counter()
+        losses.append(step(tokens))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [warm_loss] + [float(x) for x in losses]
+    ts = trainer.train_state
+    params = ts.params
+    n_params = _n_params(params)
+
+    # the main path's checks
+    if not all(np.isfinite(losses)):
+        raise PhaseError("non-finite training loss: %s" % losses)
+    if trainer.version != 1 + TRAIN_STEPS:
+        raise PhaseError(
+            "version %d after %d steps" % (trainer.version, 1 + TRAIN_STEPS)
+        )
+    _check_counts(
+        counts,
+        {k: layers * TRAIN_STEPS for k in KERNELS},
+        "%d train steps" % TRAIN_STEPS,
+    )
+    # the step leaves each parameter's gradient in .grad (a parameter
+    # the loss does not reach gets zeros): every one finite and nonzero
+    bad_grad = [
+        n for n, p in params.items() if not bool(torch.isfinite(p.grad).all())
+    ]
+    zero_grad = [
+        n for n, p in params.items() if not float(p.grad.abs().max()) > 0
+    ]
+    if bad_grad or zero_grad:
+        raise PhaseError(
+            "gradients: non-finite for %s, zero for %s" % (bad_grad, zero_grad)
+        )
+
+    # checks (not counted): kernel gradients against plain attention
+    # (gated from the seeded init, reported from the trained weights) and
+    # against plain_flash_bwd on the same forward (gated from both), then
+    # one rematerialized step from the trained state, on one batch
+    tokens = rng.integers(0, vocab, (GRAD_CHECK_BATCH, SEQ_LEN),
+                          dtype=np.int32)
+    init_check = _grad_checks(torch, model, zoo.loss, init_weights, tokens)
+    del init_weights
+    trained_check = _grad_checks(
+        torch, model, zoo.loss,
+        {n: p.detach() for n, p in params.items()}, tokens,
+    )
+    loss_k = trained_check["plain_attention"]["loss"]
+    remat = {}
+    for on in (False, True):
+        clone = _clone_state(torch, ts, optimizer)
+        check_step = tstep.make_train_step(model, zoo.loss, remat=on)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        loss = check_step(clone, {"tokens": tokens}, tokens)[1]
+        remat[on] = {
+            "loss": float(loss),
+            "launches": {k: v[0] for k, v in _counts().items()},
+            "peak_rise_bytes": int(
+                torch.cuda.max_memory_allocated() - base
+            ),
+        }
+        del clone
+    for on, fwd in ((False, layers), (True, 2 * layers)):
+        _check_counts(
+            {k: (n, None) for k, n in remat[on]["launches"].items()},
+            {"flash_fwd": fwd, "flash_bwd_dq": layers,
+             "flash_bwd_dkv": layers},
+            "one step with remat=%s" % on,
+        )
+
+    med = float(np.median(step_ms))
+    tokens_per_step = TRAIN_BATCH * SEQ_LEN
+    flops = train_flops(n_params, TRAIN_BATCH, SEQ_LEN)
+    rec = {
+        "phase": "train",
+        "model": dict(SLICE_CFG, params="float32", n_params=n_params),
+        "optimizer": "AdamW lr %g wd 1e-4" % LR,
+        "batch": TRAIN_BATCH,
+        "seq_len": SEQ_LEN,
+        "steps_timed": TRAIN_STEPS,
+        "init_s": init_s,
+        "warmup_s": warm_s,
+        "step_ms": step_ms,
+        "step_ms_median": med,
+        "tokens_per_s": tokens_per_step / med * 1e3,
+        "flops_per_step": flops,
+        "mfu": flops / (med / 1e3) / PEAK_OPS_PER_S["bfloat16"],
+        "max_memory_allocated": int(peak),
+        "losses": losses,
+        "version": trainer.version,
+        "launches": {k: v[0] for k, v in counts.items()},
+        "grad_check": {
+            "batch": GRAD_CHECK_BATCH,
+            "vs_plain_attention": {
+                "seeded_init": init_check["plain_attention"],
+                "trained": trained_check["plain_attention"],
+                "rel_l2_limit": GRAD_REL_L2,
+                "gated": "seeded_init",
+            },
+            "vs_plain_flash_bwd": {
+                "seeded_init": init_check["plain_flash_bwd"],
+                "trained": trained_check["plain_flash_bwd"],
+                "rel_l2_limit": FORMULA_REL_L2,
+                "gated": "both",
+            },
+            "plain_flash_bwd_f32_delta_vs_plain_attention": {
+                "seeded_init": init_check["f32_delta_vs_plain_attention"],
+                "trained": trained_check["f32_delta_vs_plain_attention"],
+                "gated": "neither (says what the bf16 delta costs)",
+            },
+            "trained_after_steps": 1 + TRAIN_STEPS,
+        },
+        "remat": dict(remat[True], batch=GRAD_CHECK_BATCH),
+        "no_remat": dict(remat[False], batch=GRAD_CHECK_BATCH),
+    }
+    emit(rec)
+    gated = [(init_check["plain_attention"], GRAD_REL_L2)] + [
+        (check["plain_flash_bwd"], FORMULA_REL_L2)
+        for check in (init_check, trained_check)
+    ]
+    for got, limit in gated:
+        if got["max_rel_l2"] > limit or not np.isclose(
+            got["loss"], got["loss_other"], rtol=limit
+        ):
+            raise PhaseError(
+                "kernel gradients disagree: %s (limit %g)" % (got, limit)
+            )
+    for on in (False, True):
+        if abs(remat[on]["loss"] - loss_k) > REMAT_LOSS_RTOL * abs(loss_k):
+            raise PhaseError(
+                "remat=%s step loss %r differs from %r"
+                % (on, remat[on]["loss"], loss_k)
+            )
+    _profile(
+        torch, "train_step", lambda: float(step(batches[-1])),
+        batch=TRAIN_BATCH, seq_len=SEQ_LEN,
+    )
+    return counts
+
+
+def _record_at(records, kernel, key):
+    b, lq, _lk, h, d, dtype, causal = key
+    return next(
+        r for r in records
+        if r["kernel"] == kernel
+        and r["shape"] == [b, lq, h, d]
+        and r["dtype"] == dtype
+        and r["causal"] == causal
+        and "kernel_ms" in r
+    )
+
+
+def kernels_line(records, paths):
+    """The contract line: each kernel with its launches summed over the
+    main paths (``paths``: {path: counts}), at the shape those paths
+    launched it at most, with that shape's checked record."""
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        by_path = {path: c[name][0] for path, c in paths.items()}
+        shapes = {}
+        for c in paths.values():
+            for key, n in c[name][1].items():
+                shapes[key] = shapes.get(key, 0) + n
+        key = max(shapes, key=shapes.get)
+        rec = _record_at(records, name, key)
+        kernels.append(
             {
-                "name": "flash_fwd",
+                "name": name,
                 "route": "cuda",
-                "source": FLASH_SOURCE,
-                "replaces": FLASH_REPLACES,
-                "launches": served["launches"],
-                "shape": [b, lq, h, d],
-                "dtype": dtype,
-                "causal": causal,
+                "source": source,
+                "replaces": replaces,
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "shape": rec["shape"],
+                "dtype": rec["dtype"],
+                "causal": rec["causal"],
                 "max_abs_err": rec["max_abs_err"],
+                "rel_l2": rec["rel_l2"],
                 "ms": rec["kernel_ms"],
                 "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"],
-                "checked_cases": len(records),
+                "checked_cases": sum(1 for r in records if r["kernel"] == name),
                 "ok": True,
             }
-        ]
-    }
+        )
+    return {"kernels": kernels}
 
 
 def main(argv=None):
@@ -569,9 +1241,12 @@ def main(argv=None):
         card = phase_device(torch)
         phase_build()
         records = phase_kernels(torch)
+        records += phase_bwd_kernels(torch)
+        phase_bwd_memory(torch)
         with tempfile.TemporaryDirectory() as tmp:
             served = phase_slice(torch, tmp)
-        line = kernels_line(torch, records, served)
+        trained = phase_train(torch)
+        line = kernels_line(records, {"serve": served, "train": trained})
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback
 

@@ -15,6 +15,13 @@ Layouts:
 - ``heads_out``: a ``DenseGeneral`` kernel ``(E, H, D)`` (q/k/v
   projections) is ``(H*D, E)`` once its head axes are flattened.
 - ``heads_in``: the output projection's ``(H, D, E)`` is ``(E, H*D)``.
+
+Gradients and Adam moments have their parameter's layout, so they cross
+by the same rules. :func:`load_adam_state` and :func:`adam_state_named`
+carry optax's Adam state (``mu``, ``nu``, ``count``) into a torch
+``AdamW``'s (``exp_avg``, ``exp_avg_sq``, ``step``) and back, so a
+reference train state converts into the port's
+(:func:`to_train_state`) and back (:func:`from_train_state`).
 """
 
 import re
@@ -104,3 +111,66 @@ def to_named(state_dict, num_heads, head_dim):
             t = t.T
         named[ref.format(**fields)] = t.contiguous()
     return named
+
+
+def load_adam_state(opt, params, mu, nu, count):
+    """Set the torch Adam/AdamW ``opt`` (bound to ``params``, {state_dict
+    key: tensor}) to optax's Adam state: ``mu`` and ``nu`` as {reference
+    path: array}, ``count`` the step count."""
+    mu, nu = to_state_dict(mu), to_state_dict(nu)
+    for key, p in params.items():
+        opt.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[key].to(device=p.device, dtype=p.dtype),
+            "exp_avg_sq": nu[key].to(device=p.device, dtype=p.dtype),
+        }
+
+
+def adam_state_named(opt, params, num_heads, head_dim):
+    """The torch Adam/AdamW state of ``params`` as optax's: ``(mu, nu,
+    count)`` with the moments as {reference path: CPU tensor}. A
+    parameter the optimizer has not stepped yet has zero moments."""
+    mu, nu, count = {}, {}, 0
+    for key, p in params.items():
+        st = opt.state.get(p)
+        if st:
+            mu[key], nu[key] = st["exp_avg"], st["exp_avg_sq"]
+            count = int(st["step"])
+        else:
+            mu[key] = nu[key] = torch.zeros_like(p)
+    return (
+        to_named(mu, num_heads, head_dim),
+        to_named(nu, num_heads, head_dim),
+        count,
+    )
+
+
+def to_train_state(named_params, optimizer, adam=None, version=0,
+                   device="cpu"):
+    """A reference train state -> the port's ``TrainState`` on
+    ``device``: ``named_params`` {reference path: array}, ``optimizer``
+    the zoo's factory, ``adam`` optional ``(mu, nu, count)``."""
+    from elasticdl_tpu_torch.training.step import TrainState
+
+    params = {
+        k: v.to(device) for k, v in to_state_dict(named_params).items()
+    }
+    ts = TrainState.create(params, {}, optimizer, version=version)
+    if adam is not None:
+        load_adam_state(ts.opt_state, ts.params, *adam)
+    return ts
+
+
+def from_train_state(ts, num_heads, head_dim):
+    """The port's ``TrainState`` -> ``{"params", "mu", "nu", "count",
+    "version"}`` in the reference's names and layouts."""
+    mu, nu, count = adam_state_named(
+        ts.opt_state, ts.params, num_heads, head_dim
+    )
+    return {
+        "params": to_named(ts.params, num_heads, head_dim),
+        "mu": mu,
+        "nu": nu,
+        "count": count,
+        "version": ts.version,
+    }

@@ -1,9 +1,10 @@
 """Model-zoo loading and the checkpoint file codec.
 
-The counterpart of ``elasticdl_tpu/common/model_utils.py``, for the parts
-serving needs: ``--model_params`` parsing, resolving a dotted
-``model_def`` to a model, and the ``EDLC`` checkpoint codec (``model.chkpt``
-in every export artifact) that both packages read and write.
+The counterpart of ``elasticdl_tpu/common/model_utils.py``:
+``--model_params`` parsing, resolving a dotted ``model_def`` to a model,
+the zoo's training contract as a :class:`ModelSpec`, and the ``EDLC``
+checkpoint codec (``model.chkpt`` in every export artifact) that both
+packages read and write.
 
 A ``model_def`` such as ``transformer_lm.transformer_lm.custom_model``
 resolves against the port's own zoo (``elasticdl_tpu_torch.model_zoo``)
@@ -77,6 +78,78 @@ def build_model(model_def, model_params=None, model_zoo=None):
             "Cannot find the model definition %s in the module" % model_def
         )
     return fn(**(get_dict_from_params_str(model_params) or {}))
+
+
+def _get_spec_value(spec_key, model_zoo, default_module, required=False):
+    """Resolve a spec key to a symbol: a single name in the model-def
+    module, a dotted key in its own module."""
+    parts = spec_key.split(".")
+    if len(parts) == 1:
+        module = default_module
+    else:
+        module = load_zoo_module(spec_key, model_zoo)
+    value = getattr(module, parts[-1], None)
+    if required and value is None:
+        raise ValueError(
+            "Missing required spec key %s in the module: %s"
+            % (parts[-1], spec_key)
+        )
+    return value
+
+
+class ModelSpec:
+    """The resolved user contract for one job."""
+
+    def __init__(
+        self,
+        model,
+        dataset_fn,
+        loss,
+        optimizer,
+        eval_metrics_fn,
+        prediction_outputs_processor,
+    ):
+        self.model = model
+        self.dataset_fn = dataset_fn
+        self.loss = loss
+        self.optimizer = optimizer
+        self.eval_metrics_fn = eval_metrics_fn
+        self.prediction_outputs_processor = prediction_outputs_processor
+
+
+def get_model_spec(
+    model_zoo,
+    model_def,
+    model_params=None,
+    dataset_fn="dataset_fn",
+    loss="loss",
+    optimizer="optimizer",
+    eval_metrics_fn="eval_metrics_fn",
+    prediction_outputs_processor="PredictionOutputsProcessor",
+):
+    """Resolve the full model spec from the port's zoo (``model_zoo``
+    empty) or a zoo directory. ``optimizer`` resolves to the zoo's
+    ``optimizer(lr)``, which returns a factory ``params -> Optimizer``."""
+    default_module = load_zoo_module(model_def, model_zoo)
+    model = build_model(model_def, model_params, model_zoo)
+    pop = _get_spec_value(
+        prediction_outputs_processor, model_zoo, default_module
+    )
+    return ModelSpec(
+        model=model,
+        dataset_fn=_get_spec_value(
+            dataset_fn, model_zoo, default_module, required=True
+        ),
+        loss=_get_spec_value(loss, model_zoo, default_module, required=True),
+        optimizer=_get_spec_value(
+            optimizer, model_zoo, default_module, required=True
+        ),
+        eval_metrics_fn=_get_spec_value(
+            eval_metrics_fn, model_zoo, default_module, required=True
+        ),
+        # a class or an instance in the zoo module
+        prediction_outputs_processor=pop() if isinstance(pop, type) else pop,
+    )
 
 
 # ---------------------------------------------------------------------------

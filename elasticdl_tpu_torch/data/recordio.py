@@ -1,0 +1,159 @@
+"""Indexed record file format ("EDLR"), byte for byte that of
+``elasticdl_tpu/data/recordio.py``:
+
+    file   := "EDLR" u32 version  record*  index  tail
+    record := u32 payload_len, u32 crc32(payload), payload bytes
+    index  := u64 count, u64 record_offset[count]
+    tail   := u64 index_offset, "EDLX"
+
+Writers append records and emit the offset index at close; readers mmap
+the file, jump to the index via the fixed-size tail, and slice records
+in [start, end) without scanning. The JAX package's C++ reader is not
+ported: this module is the reader and the writer.
+"""
+
+import mmap
+import os
+import struct
+import zlib
+
+_MAGIC = b"EDLR"
+_TAIL_MAGIC = b"EDLX"
+_VERSION = 1
+_HEADER = struct.Struct("<4sI")
+_REC = struct.Struct("<II")
+_TAIL = struct.Struct("<Q4s")
+
+
+class RecordIOWriter:
+    """Append-only writer; ``close()`` finalizes the index."""
+
+    def __init__(self, path):
+        self._f = open(path, "wb")
+        self._f.write(_HEADER.pack(_MAGIC, _VERSION))
+        self._offsets = []
+        self._closed = False
+
+    def write(self, payload):
+        if self._closed:
+            raise ValueError("writer is closed")
+        if not isinstance(payload, (bytes, bytearray, memoryview)):
+            raise TypeError("record payload must be bytes")
+        payload = bytes(payload)
+        self._offsets.append(self._f.tell())
+        self._f.write(_REC.pack(len(payload), zlib.crc32(payload)))
+        self._f.write(payload)
+
+    @property
+    def num_records(self):
+        return len(self._offsets)
+
+    def close(self):
+        if self._closed:
+            return
+        index_offset = self._f.tell()
+        self._f.write(struct.pack("<Q", len(self._offsets)))
+        for off in self._offsets:
+            self._f.write(struct.pack("<Q", off))
+        self._f.write(_TAIL.pack(index_offset, _TAIL_MAGIC))
+        self._f.close()
+        self._closed = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is not None:
+            # error path: do not finalize — a tail-less file is rejected
+            # by every reader as truncated, where a finalized partial
+            # shard would silently serve incomplete data
+            self._f.close()
+            self._closed = True
+            return
+        self.close()
+
+
+class RecordIOReader:
+    """Random-access reader over an EDLR file (mmap-backed)."""
+
+    def __init__(self, path):
+        self._path = path
+        self._f = open(path, "rb")
+        try:
+            size = os.fstat(self._f.fileno()).st_size
+            if size < _HEADER.size + _TAIL.size:
+                raise ValueError("not an EDLR file (too small): %s" % path)
+            self._mm = mmap.mmap(self._f.fileno(), 0, access=mmap.ACCESS_READ)
+        except (OSError, ValueError):
+            self._f.close()
+            raise
+        magic, version = _HEADER.unpack_from(self._mm, 0)
+        if magic != _MAGIC:
+            self.close()
+            raise ValueError("bad EDLR magic in %s" % path)
+        if version != _VERSION:
+            self.close()
+            raise ValueError("unsupported EDLR version %d" % version)
+        index_offset, tail_magic = _TAIL.unpack_from(
+            self._mm, size - _TAIL.size
+        )
+        if tail_magic != _TAIL_MAGIC:
+            self.close()
+            raise ValueError("bad EDLR tail in %s (truncated write?)" % path)
+        (count,) = struct.unpack_from("<Q", self._mm, index_offset)
+        self._offsets = struct.unpack_from(
+            "<%dQ" % count, self._mm, index_offset + 8
+        )
+
+    def __len__(self):
+        return len(self._offsets)
+
+    def read(self, i, validate=False):
+        """Return payload bytes of record i."""
+        off = self._offsets[i]
+        length, crc = _REC.unpack_from(self._mm, off)
+        start = off + _REC.size
+        payload = self._mm[start : start + length]
+        if validate and zlib.crc32(payload) != crc:
+            raise ValueError(
+                "crc mismatch at record %d of %s" % (i, self._path)
+            )
+        return payload
+
+    def read_range(self, start, end):
+        """Yield payloads of records [start, end) — the task read path."""
+        end = min(end, len(self._offsets))
+        for i in range(max(start, 0), end):
+            yield self.read(i)
+
+    def __iter__(self):
+        return self.read_range(0, len(self))
+
+    def close(self):
+        if getattr(self, "_mm", None) is not None:
+            self._mm.close()
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def write_recordio(path, payloads):
+    """Write an iterable of bytes records; returns the count."""
+    with RecordIOWriter(path) as w:
+        for p in payloads:
+            w.write(p)
+        return w.num_records
+
+
+def create_recordio(path):
+    """Writer factory (the reference's picks its C++ writer when built)."""
+    return RecordIOWriter(path)
+
+
+def open_recordio(path):
+    """Reader factory (the reference's picks its C++ reader when built)."""
+    return RecordIOReader(path)

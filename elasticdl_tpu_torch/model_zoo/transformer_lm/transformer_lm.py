@@ -11,16 +11,23 @@ dtype, to which weights are cast at use, as flax's ``promote_dtype``
 does — so a bf16 model returns bf16 logits.
 
 ``state_dict`` keys map to the reference's parameter paths through
-common/convert.py. Not ported yet: mixture-of-experts MLPs, the mesh and
-sequence-parallel (ring) forms, the pipelined model, and the training
-contract (loss, optimizer, dataset_fn).
+common/convert.py. The training contract is the reference's: ``loss``
+(next-token cross entropy on the model's output dtype, so on bf16 logits
+for a bf16 model), ``optimizer`` (AdamW with optax's defaults: weight
+decay 1e-4 on every parameter), ``dataset_fn`` (64-token records) and
+``eval_metrics_fn``. Not ported yet: mixture-of-experts MLPs, the mesh
+and sequence-parallel (ring) forms, and the pipelined model.
 """
+
+import functools
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from elasticdl_tpu_torch.common.constants import Mode
+from elasticdl_tpu_torch.data.example import FixedLenFeature, parse_example
 from elasticdl_tpu_torch.ops.flash_attention import pick_causal_attention
 
 
@@ -140,6 +147,11 @@ class TransformerLM(nn.Module):
         # weight-tied head
         return F.linear(x, table)
 
+    def init_parameters(self, generator):
+        """Seeded weights (see :func:`init_parameters`); the hook
+        ``nn/model_api.init_variables`` calls."""
+        return init_parameters(self, generator)
+
 
 def init_parameters(model, generator):
     """Random weights from ``generator`` at the reference's init scales:
@@ -202,3 +214,60 @@ def custom_model(
         dtype=getattr(torch, dtype) if isinstance(dtype, str) else dtype,
         use_flash=use_flash,
     )
+
+
+def loss(output, labels):
+    """Next-token cross entropy; position 0 predicts token 1, etc. Runs
+    in the output's dtype (optax's ``softmax_cross_entropy_with_integer_
+    labels`` on the output as it comes)."""
+    logits = output[:, :-1]
+    if not isinstance(labels, torch.Tensor):
+        labels = torch.from_numpy(np.asarray(labels))
+    targets = labels.to(device=output.device, dtype=torch.long)[:, 1:]
+    return F.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), targets.reshape(-1)
+    )
+
+
+def _adamw(params, lr):
+    return torch.optim.AdamW(
+        params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4
+    )
+
+
+def optimizer(lr=3e-3):
+    """A factory ``params -> AdamW`` with ``optax.adamw(lr)``'s settings:
+    b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4 on every parameter
+    (norm scales and biases included; torch's own default is 1e-2)."""
+    return functools.partial(_adamw, lr=lr)
+
+
+def dataset_fn(dataset, mode, _):
+    def _parse_data(record):
+        r = parse_example(record, {"tokens": FixedLenFeature([64], np.int64)})
+        tokens = r["tokens"].astype(np.int32)
+        features = {"tokens": tokens}
+        if mode == Mode.PREDICTION:
+            return features
+        return features, tokens
+
+    dataset = dataset.map(_parse_data)
+    if mode == Mode.TRAINING:
+        dataset = dataset.shuffle(buffer_size=1024)
+    return dataset
+
+
+def _numpy(x):
+    if isinstance(x, torch.Tensor):
+        x = x.detach().to("cpu")
+        return (x.float() if x.is_floating_point() else x).numpy()
+    return np.asarray(x)
+
+
+def eval_metrics_fn():
+    def _token_accuracy(labels, predictions):
+        pred = np.argmax(_numpy(predictions)[:, :-1], axis=-1)
+        tgt = _numpy(labels)[:, 1:]
+        return (pred == tgt).reshape(-1)
+
+    return {"token_accuracy": _token_accuracy}

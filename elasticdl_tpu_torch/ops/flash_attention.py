@@ -1,5 +1,5 @@
-"""Flash attention forward: a hand-written Hopper kernel and its plain
-PyTorch twin.
+"""Flash attention, forward and backward: hand-written Hopper kernels
+and their plain PyTorch twins.
 
 The counterpart of ``elasticdl_tpu/ops/flash_attention.py``. Same public
 names and contract: ``(B, L, H, D)`` tensors, ``flash_attention_with_lse``
@@ -8,13 +8,18 @@ lengths that do not divide the block sizes rejected with ``ValueError``,
 and :func:`pick_causal_attention` choosing the kernel from ``L >= 1024``
 with 128-divisible lengths, plain attention otherwise.
 
-- On a CUDA tensor the wrapper launches ``csrc/flash_fwd.cu`` (built at
-  first use, see ``ops/build.py``) or raises; it never falls back.
-- On a CPU tensor it computes :func:`plain_flash_with_lse`, the same
-  function as masked softmax attention in float32 — the tests' path.
+Both public functions go through one ``torch.autograd.Function``
+(:class:`_FlashWithLse`, the counterpart of the reference's
+``custom_vjp``): the forward saves ``q, k, v, out, lse`` and never an
+(L, L) tensor; the backward computes ``delta = rowsum(dO * O) - g_lse``
+and then dQ, and dK with dV, blockwise.
 
-Only the forward is ported: the blockwise backward kernels serve
-training, a later slice of the port.
+- On CUDA tensors the forward launches ``csrc/flash_fwd.cu`` and the
+  backward the two kernels of ``csrc/flash_bwd.cu`` (built at first use,
+  see ``ops/build.py``), or raises; nothing falls back.
+- On CPU tensors they compute :func:`plain_flash_with_lse` and
+  :func:`plain_flash_bwd`, the same functions in float32 — the tests'
+  path, through the same Function.
 """
 
 import ctypes
@@ -56,27 +61,52 @@ class LaunchCounter:
             self._shapes = {}
 
 
-launches = LaunchCounter()
+launches = LaunchCounter()  # flash_fwd
+bwd_dq_launches = LaunchCounter()  # flash_bwd_dq
+bwd_dkv_launches = LaunchCounter()  # flash_bwd_dkv
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SOURCE = "flash_fwd.cu"
 
 
-def _library():
+def _kernel(source, symbol, n_pointers):
+    """The C entry ``symbol`` of ``csrc/<source>``: ``n_pointers`` device
+    pointers, then dims, strides, dtype, causal, scale and the stream."""
     from elasticdl_tpu_torch.ops.build import load_library
 
-    lib = load_library(_SOURCE)
-    fn = lib.edl_flash_fwd
+    fn = getattr(load_library(source), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p] * n_pointers + [
             ctypes.POINTER(ctypes.c_longlong),
             ctypes.POINTER(ctypes.c_longlong),
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(name, fn, tensors, dims, strided, dtype, causal, scale):
+    """Call ``fn`` on the current stream of the tensors' card; raise on a
+    refused launch."""
+    device = tensors[0].device
+    dims = (ctypes.c_longlong * len(dims))(*dims)
+    strides = [s for t in strided for s in t.stride()[:3]]
+    strides = (ctypes.c_longlong * len(strides))(*strides)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            *(t.data_ptr() for t in tensors), dims, strides,
+            _DTYPE_CODES[dtype], int(bool(causal)), scale, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            "%s kernel launch failed: cudaError %d (%s)"
+            % (name, err, torch.cuda.get_device_name(device))
+        )
+
+
+def _shape_key(q, lk, causal):
+    b, lq, h, d = q.shape
+    return (b, lq, lk, h, d, str(q.dtype).replace("torch.", ""), bool(causal))
 
 
 def plain_flash_with_lse(q, k, v, causal=False):
@@ -99,6 +129,44 @@ def plain_flash_with_lse(q, k, v, causal=False):
     )
     lse = (m + torch.log(l)).squeeze(-1)
     return out.to(q.dtype), lse
+
+
+def flash_delta(out, g, g_lse=None):
+    """``rowsum(dO * O) - g_lse`` as (B, H, L) float32, dO cast to the
+    output's dtype first (the reference's ``_flash_bwd`` preamble). An
+    lse cotangent folds in here: d lse / d s = p, so
+    ``ds = p * (dp - delta + g_lse)``."""
+    # one float32 copy of dO, multiplied by O in place (exact products)
+    prod = g.to(out.dtype).to(torch.float32, copy=True).mul_(out)
+    delta = prod.sum(-1).permute(0, 2, 1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta.contiguous()
+
+
+def plain_flash_bwd(q, k, v, out, lse, g, causal=False, g_lse=None):
+    """Both backward kernels' function in plain PyTorch, in float32:
+    ``p = exp(s * scale - lse)`` recomputed from the inputs, ``dp = dO
+    V^T``, ``ds = p * (dp - delta)``, then ``dq = ds K * scale``, ``dk =
+    ds^T Q * scale`` and ``dv = p^T dO``, each cast to its input's
+    dtype."""
+    d = q.shape[-1]
+    scale = d ** -0.5
+    delta = flash_delta(out, g, g_lse)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    gf = g.to(q.dtype).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        q_pos = torch.arange(q.shape[1], device=q.device)[:, None]
+        k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = torch.where(q_pos >= k_pos, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_kernel_inputs(q, k, v):
@@ -142,27 +210,93 @@ def _flash_fwd_kernel(q, k, v, causal):
     lk = k.shape[1]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    fn = _library()
-    dims = (ctypes.c_longlong * 5)(b, h, lq, lk, d)
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, out) for s in t.stride()[:3])
+    _launch(
+        "flash_fwd", _kernel("flash_fwd.cu", "edl_flash_fwd", 5),
+        (q, k, v, out, lse), (b, h, lq, lk, d), (q, k, v, out), q.dtype,
+        causal, d ** -0.5,
     )
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), dims, strides, _DTYPE_CODES[q.dtype],
-            int(bool(causal)), d ** -0.5, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            "flash_fwd kernel launch failed: cudaError %d (%s)"
-            % (err, torch.cuda.get_device_name(q.device))
-        )
-    launches.add(
-        (b, lq, lk, h, d, str(q.dtype).replace("torch.", ""), bool(causal))
-    )
+    launches.add(_shape_key(q, lk, causal))
     return out, lse
+
+
+def _bwd_inputs(q, k, v, g, lse):
+    """Checked kernel inputs of the backward: dO in q's dtype with a
+    unit-stride head dim, lse contiguous."""
+    _check_kernel_inputs(q, k, v)
+    g = g.to(q.dtype)
+    if g.shape != q.shape:
+        raise ValueError(
+            "dO shape %s does not match q %s"
+            % (tuple(g.shape), tuple(q.shape))
+        )
+    if g.stride(3) != 1:
+        g = g.contiguous()
+    return g, lse.contiguous()
+
+
+def flash_bwd_dq(q, k, v, g, lse, delta, causal):
+    """dq by ``csrc/flash_bwd.cu``'s first kernel, on the current
+    stream; ``delta`` from :func:`flash_delta`."""
+    g, lse = _bwd_inputs(q, k, v, g, lse)
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _launch(
+        "flash_bwd_dq", _kernel("flash_bwd.cu", "edl_flash_bwd_dq", 7),
+        (q, k, v, g, lse, delta, dq), (b, h, lq, lk, d), (q, k, v, g, dq),
+        q.dtype, causal, d ** -0.5,
+    )
+    bwd_dq_launches.add(_shape_key(q, lk, causal))
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, g, lse, delta, causal):
+    """(dk, dv) by ``csrc/flash_bwd.cu``'s second kernel, on the current
+    stream."""
+    g, lse = _bwd_inputs(q, k, v, g, lse)
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    _launch(
+        "flash_bwd_dkv", _kernel("flash_bwd.cu", "edl_flash_bwd_dkv", 8),
+        (q, k, v, g, lse, delta, dk, dv), (b, h, lq, lk, d),
+        (q, k, v, g, dk, dv), q.dtype, causal, d ** -0.5,
+    )
+    bwd_dkv_launches.add(_shape_key(q, lk, causal))
+    return dk, dv
+
+
+class _FlashWithLse(torch.autograd.Function):
+    """(out, lse) with the blockwise backward; an lse cotangent (a z-loss,
+    a ring merge) propagates through ``delta``. Autograd passes ``None``
+    for an output the loss did not use: it counts as zero."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.device.type == "cpu":
+            out, lse = plain_flash_with_lse(q, k, v, causal)
+        else:
+            out, lse = _flash_fwd_kernel(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g is None:
+            g = torch.zeros_like(out)
+        if q.device.type == "cpu":
+            dq, dk, dv = plain_flash_bwd(
+                q, k, v, out, lse, g, ctx.causal, g_lse
+            )
+        else:
+            delta = flash_delta(out, g, g_lse)
+            dq = flash_bwd_dq(q, k, v, g, lse, delta, ctx.causal)
+            dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, ctx.causal)
+        return dq, dk, dv, None
 
 
 def divisible(lq, lk, block_q, block_k):
@@ -202,19 +336,18 @@ def flash_attention_with_lse(
 ):
     """(B, L, H, D) attention returning (out, lse (B, H, L) float32).
 
-    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    CUDA tensors launch the kernels; CPU tensors take the plain versions.
+    Differentiable in q, k and v, through both outputs.
     """
     block_q, block_k = auto_blocks(
         q.shape[1], k.shape[1], block_q, block_k
     )
     _block_sizes(q.shape[1], k.shape[1], block_q, block_k)
-    if q.device.type == "cpu":
-        return plain_flash_with_lse(q, k, v, causal)
-    return _flash_fwd_kernel(q, k, v, causal)
+    return _FlashWithLse.apply(q, k, v, bool(causal))
 
 
 def flash_attention(q, k, v, causal=False, block_q=None, block_k=None):
-    """(B, L, H, D) attention through the flash forward."""
+    """(B, L, H, D) attention; trains with the blockwise backward."""
     out, _ = flash_attention_with_lse(q, k, v, causal, block_q, block_k)
     return out
 

@@ -162,3 +162,129 @@ def test_kernel_input_checks_reject_what_the_kernel_does_not_take():
 def test_jax_interpret_mode_is_what_runs_here():
     assert jax.default_backend() == "cpu"
     assert jfa._use_interpret()
+
+
+def _jax_grads(fn, arrays, dtype):
+    return jax.grad(fn, argnums=(0, 1, 2))(*_to_jax(arrays, dtype))
+
+
+def _port_grads(fn, arrays, dtype):
+    qkv = [t.requires_grad_(True) for t in _to_torch(arrays, dtype)]
+    return torch.autograd.grad(fn(*qkv), qkv)
+
+
+GRAD_TOL = {"float32": dict(rtol=3e-4, atol=3e-4),
+            "bfloat16": dict(rtol=0.1, atol=0.1)}
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=["d16", "d96"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_gradients_match_jax(shape, causal, dtype):
+    """dq, dk, dv of the port's autograd Function (the plain backward on
+    the CPU) against jax.grad through the Pallas kernels (interpret)."""
+    arrays = _qkv(**shape)
+
+    def j_loss(q, k, v):
+        out = jfa.flash_attention(q, k, v, causal, 16, 16)
+        return (out.astype(jnp.float32) ** 2).sum()
+
+    def t_loss(q, k, v):
+        return (tfa.flash_attention(q, k, v, causal, 16, 16).float() ** 2).sum()
+
+    want = _jax_grads(j_loss, arrays, getattr(jnp, dtype))
+    got = _port_grads(t_loss, arrays, getattr(torch, dtype))
+    for g, w in zip(got, want):
+        assert str(g.dtype) == "torch." + dtype
+        np.testing.assert_allclose(_np(g), _np(w), **GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_lse_cotangent_matches_jax(causal):
+    """A loss on the lse output (a z-loss) propagates through delta, as
+    in the reference (tests/test_flash_attention.py's lse case)."""
+    arrays = _qkv(l=32)
+
+    def j_loss(q, k, v):
+        out, lse = jfa.flash_attention_with_lse(q, k, v, causal, 16, 16)
+        return (out ** 2).sum() + 0.1 * (lse ** 2).sum()
+
+    def t_loss(q, k, v):
+        out, lse = tfa.flash_attention_with_lse(q, k, v, causal, 16, 16)
+        return (out ** 2).sum() + 0.1 * (lse ** 2).sum()
+
+    want = _jax_grads(j_loss, arrays, jnp.float32)
+    got = _port_grads(t_loss, arrays, torch.float32)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), **GRAD_TOL["float32"])
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_function_gradients_equal_autograd_through_the_plain_forward(
+    dtype, causal, with_lse
+):
+    arrays = _qkv()
+
+    def loss(fn):
+        def f(q, k, v):
+            out, lse = fn(q, k, v)
+            total = (out.float() ** 2).sum()
+            return total + 0.1 * (lse ** 2).sum() if with_lse else total
+
+        return f
+
+    got = _port_grads(
+        loss(lambda q, k, v: tfa.flash_attention_with_lse(q, k, v, causal)),
+        arrays, getattr(torch, dtype),
+    )
+    want = _port_grads(
+        loss(lambda q, k, v: tfa.plain_flash_with_lse(q, k, v, causal)),
+        arrays, getattr(torch, dtype),
+    )
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), **GRAD_TOL[dtype])
+
+
+def test_plain_flash_bwd_is_the_function_backward():
+    q, k, v, g = _to_torch(_qkv() + (_qkv(seed=1)[0],), torch.float32)
+    out, lse = tfa.plain_flash_with_lse(q, k, v, True)
+    g_lse = torch.from_numpy(
+        np.random.default_rng(2).standard_normal(lse.shape).astype(np.float32)
+    )
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out2, lse2 = tfa.flash_attention_with_lse(*qkv, True)
+    got = torch.autograd.grad((out2, lse2), qkv, (g, g_lse))
+    want = tfa.plain_flash_bwd(q, k, v, out, lse, g, True, g_lse)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_backward_saves_no_dense_scores():
+    """The Function saves q, k, v, out and lse: nothing with two
+    sequence-length dims (the reference pins the same of its jaxpr)."""
+    length = 64
+    q, k, v = (
+        t.requires_grad_(True) for t in _to_torch(_qkv(l=length), torch.float32)
+    )
+    shapes = []
+
+    def pack(t):
+        shapes.append(tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = tfa.flash_attention(q, k, v, True, 16, 16)
+    assert shapes and all(s.count(length) < 2 for s in shapes), shapes
+    out.sum().backward()
+    assert all(t.grad is not None for t in (q, k, v))
+
+
+def test_plain_backward_is_not_counted_as_a_kernel_launch():
+    tfa.bwd_dq_launches.reset()
+    tfa.bwd_dkv_launches.reset()
+    q, k, v = (t.requires_grad_(True) for t in _to_torch(_qkv(), torch.float32))
+    tfa.flash_attention(q, k, v, True).sum().backward()
+    assert tfa.bwd_dq_launches.count == 0
+    assert tfa.bwd_dkv_launches.count == 0

@@ -100,8 +100,18 @@ def _resolve_cuda(tmp_path):
     return resolve_device("cuda")
 
 
+def _cuda_trainer(tmp_path):
+    from elasticdl_tpu_torch.model_zoo.transformer_lm import (
+        transformer_lm as zoo,
+    )
+    from elasticdl_tpu_torch.parallel.trainer import AllReduceTrainer
+
+    return AllReduceTrainer(zoo.custom_model(), zoo.loss, zoo.optimizer())
+
+
 @pytest.mark.parametrize(
-    "entry", [_resolve_cuda, _build_cuda_scorer, _cuda_scorer_model]
+    "entry",
+    [_resolve_cuda, _build_cuda_scorer, _cuda_scorer_model, _cuda_trainer],
 )
 def test_cuda_without_a_card_raises(no_card, tmp_path, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
