@@ -9,12 +9,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 1. device  — the card, its power limit, the CUDA toolkit.
 2. build   — every kernel under ``elasticdl_tpu_torch/ops/csrc`` built
-   from source with nvcc for sm_90a, all at once (ptxas report printed).
+   from source with nvcc for sm_90a, all at once (the ptxas report kept
+   beside each library is printed; a spill in a bf16 backward kernel, or
+   a report that does not list them, fails).
 3. kernels — each kernel against its plain PyTorch version on the card,
    at the listed shapes, with times, the bound and the library yardstick:
    flash_fwd, then flash_bwd_dq and flash_bwd_dkv (with and without an
-   lse cotangent), then a long-sequence check that the backward
-   allocates no (L, L) buffer. Each output and gradient is held
+   lse cotangent, also at a ragged length and at Lq != Lk; two launches
+   must agree bitwise), then a long-sequence check that the
+   backward allocates no (L, L) buffer. Each output and gradient is held
    elementwise and by its relative L2 distance, and each case shows
    that a planted fault (a mask one tile off, a 10 % scale error) fails.
 4. slice   — the 110M transformer LM (bf16, random weights from a seed)
@@ -60,6 +63,14 @@ KERNEL_SHAPES = [  # (B, H, D, L)
     (2, 12, 64, 2048),
 ]
 TRAIN_SHAPE = (16, 12, 64, 1024)  # the training slice's attention
+# backward-only cases (B, H, D, Lq, Lk): a length below one tile of the
+# kernels' owned rows (zero-filled copies, store masks) and Lq != Lk (the
+# causal start and stop of the loops, at absolute positions)
+BWD_EXTRA_CASES = [
+    (2, 12, 64, 96, 96),
+    (2, 12, 64, 512, 1024),
+]
+TIMED_LAUNCHES = 50  # kernels and SDPA, per timing
 TOL = {  # dtype -> (rtol, atol) against the plain version in float32
     "float32": (2e-4, 2e-5),
     "bfloat16": (0.0, 2e-2),
@@ -160,21 +171,68 @@ def phase_device(torch):
     return smi[0] if smi else ""
 
 
+def ptxas_summary(log):
+    """{kernel symbol: {"registers", "spill_bytes"}} from a ``-Xptxas
+    -v`` report."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(
+            r"(?:Compiling entry function '|Function properties for )"
+            r"'?([\w$]+)", line
+        )
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
+    """Every source built at once; fails on a spill in a bf16 backward
+    kernel, read from the ptxas report kept beside each library (so a
+    cached build is gated as a fresh one is)."""
     from elasticdl_tpu_torch.ops import build
 
     t0 = time.perf_counter()
     built = build.build_all()
+    reports = {s: build.ptxas_report(s) for s in built}
+    summary = {s: ptxas_summary(log) for s, log in reports.items()}
     emit(
         {
             "phase": "build",
             "seconds": time.perf_counter() - t0,
             "libraries": {s: os.path.basename(p) for s, p in built.items()},
+            "ptxas": summary,
         }
     )
-    for source, log in sorted(build.build_logs.items()):
+    for source, log in sorted(reports.items()):
         print("ptxas report for %s:" % source)
         print(log.strip())
+    bf16_bwd = {
+        sym: info for sym, info in summary["flash_bwd.cu"].items()
+        if "bf16" in sym
+    }
+    for kernel in ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"):
+        if not any(kernel in sym and "spill_bytes" in info
+                   for sym, info in bf16_bwd.items()):
+            raise PhaseError(
+                "the ptxas report of flash_bwd.cu gives no spill count for "
+                "%s: %s" % (kernel, sorted(bf16_bwd))
+            )
+    spills = {sym: i["spill_bytes"] for sym, i in bf16_bwd.items()
+              if i.get("spill_bytes")}
+    if spills:
+        raise PhaseError("bf16 backward kernels spill: %s" % spills)
 
 
 def time_ms(torch, fn, iters, warmup=3):
@@ -323,6 +381,7 @@ def check_flash_case(torch, b, h, d, l, dtype, causal, seed):
         "phase": "kernels",
         "kernel": "flash_fwd",
         "shape": [b, l, h, d],
+        "lk": l,
         "dtype": dtype,
         "causal": causal,
         "max_abs_err": float(err_out.max()),
@@ -372,32 +431,49 @@ def phase_kernels(torch):
     return records
 
 
-def check_bwd_case(torch, b, h, d, l, dtype, causal, with_lse, seed):
-    """Both backward kernels against ``plain_flash_bwd`` in float32 from
-    the same inputs (the forward kernel's out and lse), with or without
-    an lse cotangent; times each kernel, the plain version and SDPA's
-    backward (its forward-and-backward time less its forward time) when
-    ``with_lse`` is off. Returns one record per kernel."""
-    from elasticdl_tpu_torch.ops import flash_attention as fa
-
+def _bwd_inputs(torch, b, h, d, lq, lk, dtype, with_lse, seed):
+    """Seeded q, k, v, dO (and an lse cotangent) on the card."""
     tdtype = getattr(torch, dtype)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, g = (
-        torch.randn(
-            (b, l, h, d), generator=gen, device="cuda", dtype=torch.float32
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def randn(length):
+        return torch.randn(
+            (b, length, h, d), generator=gen, device=DEVICE,
+            dtype=torch.float32,
         ).to(tdtype)
-        for _ in range(4)
-    )
+
+    q, k, v, g = randn(lq), randn(lk), randn(lk), randn(lq)
     g_lse = (
-        torch.randn((b, h, l), generator=gen, device="cuda")
+        torch.randn((b, h, lq), generator=gen, device=DEVICE)
         if with_lse
         else None
+    )
+    return q, k, v, g, g_lse
+
+
+def check_bwd_case(torch, b, h, d, lq, lk, dtype, causal, with_lse, seed,
+                   timed):
+    """Both backward kernels against ``plain_flash_bwd`` in float32 from
+    the same inputs (the forward kernel's out and lse), with or without
+    an lse cotangent; a second launch of each must give bitwise the same
+    gradients. With ``timed``, times each kernel, the plain version and
+    SDPA's backward. Returns one record per kernel."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g, g_lse = _bwd_inputs(
+        torch, b, h, d, lq, lk, dtype, with_lse, seed
     )
     out, lse = fa.flash_attention_with_lse(q, k, v, causal)
     delta = fa.flash_delta(out, g, g_lse)
     dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, causal)
     dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
+    again = (fa.flash_bwd_dq(q, k, v, g, lse, delta, causal),
+             *fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal))
     torch.cuda.synchronize()
+    bitwise = all(
+        torch.equal(x, y) for x, y in zip((dq, dk, dv), again)
+    )
+    del again
     want = fa.plain_flash_bwd(
         q.float(), k.float(), v.float(), out.float(), lse, g.float(),
         causal, g_lse,
@@ -406,10 +482,10 @@ def check_bwd_case(torch, b, h, d, l, dtype, causal, with_lse, seed):
     limit = REL_L2[dtype]
     planted = _masked_bwd(
         torch, q, k, v, out, lse, g, g_lse,
-        _fault_mask(torch, l, l, causal, q.device),
+        _fault_mask(torch, lq, lk, causal, q.device),
     )
     errs, rels, faults = {}, {}, {}
-    ok = True
+    ok = bitwise
     for name, got, ref, bad in zip(
         ("dq", "dk", "dv"), (dq, dk, dv), want, planted
     ):
@@ -426,46 +502,35 @@ def check_bwd_case(torch, b, h, d, l, dtype, causal, with_lse, seed):
             and rels[name] <= limit
         )
     del planted
-    timed = {}
-    if not with_lse:
-        timed["flash_bwd_dq"] = time_ms(
-            torch, lambda: fa.flash_bwd_dq(q, k, v, g, lse, delta, causal), 20
+    timed_ms = {}
+    if timed:
+        timed_ms["flash_bwd_dq"] = time_ms(
+            torch, lambda: fa.flash_bwd_dq(q, k, v, g, lse, delta, causal),
+            TIMED_LAUNCHES,
         )
-        timed["flash_bwd_dkv"] = time_ms(
+        timed_ms["flash_bwd_dkv"] = time_ms(
             torch, lambda: fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal),
-            20,
+            TIMED_LAUNCHES,
         )
         plain_ms = time_ms(
             torch,
             lambda: fa.plain_flash_bwd(q, k, v, out, lse, g, causal),
             3, 1,
         )
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        qt, kt, vt = (
-            x.transpose(1, 2).detach().requires_grad_(True)
-            for x in (q, k, v)
-        )
-        gt = g.transpose(1, 2)
-        sdpa_fwd = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal),
-                           50)
-        sdpa_both = time_ms(
-            torch,
-            lambda: torch.autograd.grad(
-                sdpa(qt, kt, vt, is_causal=causal), (qt, kt, vt), gt
-            ),
-            50,
-        )
+        sdpa_bwd = _sdpa_bwd_ms(torch, q, k, v, g, causal)
     records = []
     for kernel, names in (("flash_bwd_dq", ("dq",)),
                           ("flash_bwd_dkv", ("dk", "dv"))):
-        bound_ms, bound_by = bwd_bound(kernel, b, h, d, l, l, dtype, causal)
+        bound_ms, bound_by = bwd_bound(kernel, b, h, d, lq, lk, dtype, causal)
         rec = {
             "phase": "kernels",
             "kernel": kernel,
-            "shape": [b, l, h, d],
+            "shape": [b, lq, h, d],
+            "lk": lk,
             "dtype": dtype,
             "causal": causal,
             "g_lse": with_lse,
+            "bitwise_repeat": bitwise,
             "max_abs_err": max(errs[n] for n in names),
             "max_abs_err_by_grad": {n: errs[n] for n in names},
             "rtol": rtol,
@@ -478,19 +543,21 @@ def check_bwd_case(torch, b, h, d, l, dtype, causal, with_lse, seed):
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
-        if timed:
+        if timed_ms:
             rec.update(
-                kernel_ms=timed[kernel],
+                kernel_ms=timed_ms[kernel],
                 plain_ms=plain_ms,  # both gradients, the whole function
-                library_ms=sdpa_both - sdpa_fwd,  # SDPA backward, dq+dk+dv
+                library_ms=sdpa_bwd,  # SDPA's backward: dq, dk and dv
             )
         emit(rec)
         records.append(rec)
     if not ok:
         raise PhaseError(
-            "flash backward disagrees with its plain version at %s %s "
-            "causal=%s g_lse=%s: max abs %s, rel L2 %s" % (
-                [b, l, h, d], dtype, causal, with_lse, errs, rels
+            "flash backward disagrees with its plain version (or with its "
+            "own second launch: bitwise %s) at %s lk=%d %s causal=%s "
+            "g_lse=%s: max abs %s, rel L2 %s" % (
+                bitwise, [b, lq, h, d], lk, dtype, causal, with_lse, errs,
+                rels,
             )
         )
     unseen = {
@@ -498,25 +565,44 @@ def check_bwd_case(torch, b, h, d, l, dtype, causal, with_lse, seed):
     }
     if unseen:
         raise PhaseError(
-            "the backward check cannot see a planted fault at %s %s "
-            "causal=%s: %s (limit %g)" % ([b, l, h, d], dtype, causal,
+            "the backward check cannot see a planted fault at %s lk=%d %s "
+            "causal=%s: %s (limit %g)" % ([b, lq, h, d], lk, dtype, causal,
                                           unseen, limit)
         )
     return records
 
 
+def _sdpa_bwd_ms(torch, q, k, v, g, causal):
+    """SDPA's backward alone (dq, dk and dv from one retained forward of
+    (B, H, L, D) views of the same inputs), per launch."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (
+        x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)
+    )
+    out = sdpa(qt, kt, vt, is_causal=causal)
+    gt = g.transpose(1, 2)
+    return time_ms(
+        torch,
+        lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True),
+        TIMED_LAUNCHES,
+    )
+
+
 def phase_bwd_kernels(torch):
     """Every (shape, dtype, causal, lse cotangent) case of both backward
-    kernels; returns the records."""
+    kernels, timed where there is no lse cotangent and the shape is
+    square; returns the records."""
     records = []
     seed = 100
-    for b, h, d, l in KERNEL_SHAPES + [TRAIN_SHAPE]:
+    cases = [(b, h, d, l, l) for b, h, d, l in KERNEL_SHAPES + [TRAIN_SHAPE]]
+    for b, h, d, lq, lk in cases + BWD_EXTRA_CASES:
         for dtype in ("float32", "bfloat16"):
             for causal in (False, True):
                 for with_lse in (False, True):
                     seed += 1
                     records += check_bwd_case(
-                        torch, b, h, d, l, dtype, causal, with_lse, seed
+                        torch, b, h, d, lq, lk, dtype, causal, with_lse,
+                        seed, timed=not with_lse and lq == lk,
                     )
     return records
 
@@ -1164,11 +1250,12 @@ def phase_train(torch):
 
 
 def _record_at(records, kernel, key):
-    b, lq, _lk, h, d, dtype, causal = key
+    b, lq, lk, h, d, dtype, causal = key
     return next(
         r for r in records
         if r["kernel"] == kernel
         and r["shape"] == [b, lq, h, d]
+        and r["lk"] == lk
         and r["dtype"] == dtype
         and r["causal"] == causal
         and "kernel_ms" in r

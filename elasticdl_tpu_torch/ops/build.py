@@ -3,9 +3,12 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Builds happen at first use,
-into ``ops/_build/`` (git-ignored), keyed by a hash of the source and
-the flags: an edited source rebuilds, an unchanged one loads the
-library already there. A missing ``nvcc`` or a failed build raises.
+into ``ops/_build/`` (git-ignored), keyed by a hash of the source, of
+every shared header (``csrc/*.cuh``) and of the flags: an edited source
+or header rebuilds, an unchanged one loads the library already there.
+Each library keeps its ptxas report (registers, shared memory, spills)
+beside it, so a cached build still answers :func:`ptxas_report`. A
+missing ``nvcc`` or a failed build raises.
 """
 
 import ctypes
@@ -26,7 +29,6 @@ NVCC_FLAGS = (
 
 _mu = threading.Lock()
 _loaded = {}  # source name -> ctypes.CDLL
-build_logs = {}  # source name -> ptxas report of the build that made it
 
 
 def find_nvcc():
@@ -42,9 +44,16 @@ def find_nvcc():
     return nvcc
 
 
+def headers():
+    return sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+
+
 def _library_path(source):
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read())
+    digest = hashlib.sha256()
+    # the source, then every header it may include, each under its name
+    for name in [source] + headers():
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read() + b"\0")
     digest.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(
@@ -52,12 +61,16 @@ def _library_path(source):
     )
 
 
+def _report_path(library):
+    return library + ".ptxas"
+
+
 def compile_source(source):
-    """Compile ``csrc/<source>`` unless its library exists; returns the
-    library path. The ptxas report (registers, shared memory, spills)
-    of a fresh build lands in ``build_logs[source]``."""
+    """Compile ``csrc/<source>`` unless its library and that library's
+    ptxas report both exist; returns the library path."""
     path = _library_path(source)
-    if os.path.exists(path):
+    report = _report_path(path)
+    if os.path.exists(path) and os.path.exists(report):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (path, os.getpid())
@@ -69,9 +82,20 @@ def compile_source(source):
             "nvcc failed on %s (rc=%d):\n%s"
             % (source, proc.returncode, proc.stderr[-8000:])
         )
-    os.replace(tmp, path)  # concurrent builds converge on one file
-    build_logs[source] = proc.stderr
+    # the report first: a library never stands without its report, and
+    # concurrent builds converge on one file each
+    with open(report + ".%d.tmp" % os.getpid(), "w") as f:
+        f.write(proc.stderr)
+    os.replace(report + ".%d.tmp" % os.getpid(), report)
+    os.replace(tmp, path)
     return path
+
+
+def ptxas_report(source):
+    """The ptxas report of the library ``csrc/<source>`` loads now;
+    ``FileNotFoundError`` when it has not been built."""
+    with open(_report_path(_library_path(source))) as f:
+        return f.read()
 
 
 def sources():

@@ -159,6 +159,57 @@ def test_kernel_input_checks_reject_what_the_kernel_does_not_take():
         tfa._check_kernel_inputs(q, q, q)
 
 
+def _offset_view(shape, dtype, offset):
+    flat = torch.zeros(int(np.prod(shape)) + offset, dtype=dtype)
+    return flat[offset:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_a_contiguous_input_is_16_byte_aligned(dtype):
+    assert tfa.aligned_16(torch.zeros(2, 64, 2, 16, dtype=dtype))
+    assert tfa.aligned_16(_offset_view((2, 64, 2, 16), dtype, 16))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_a_view_at_an_offset_of_one_element_is_not_aligned(dtype):
+    view = _offset_view((2, 64, 2, 16), dtype, 1)
+    assert view.is_contiguous()
+    assert not tfa.aligned_16(view)
+
+
+def test_a_row_stride_off_the_8_element_grid_is_not_aligned():
+    sliced = torch.zeros(2, 64, 1, 20, dtype=torch.bfloat16)[..., :16]
+    assert sliced.stride(3) == 1 and sliced.stride(1) == 20
+    assert not tfa.aligned_16(sliced)
+    # the same slice at a row stride of 24 elements (48 bytes) passes
+    assert tfa.aligned_16(
+        torch.zeros(2, 64, 1, 24, dtype=torch.bfloat16)[..., :16]
+    )
+
+
+def test_the_model_s_head_views_are_aligned():
+    """q/k/v as the model makes them: a (B, L, H*D) projection viewed as
+    (B, L, H, D) heads."""
+    proj = torch.zeros(2, 64, 2 * 16, dtype=torch.bfloat16)
+    assert tfa.aligned_16(proj.view(2, 64, 2, 16))
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_an_unaligned_bf16_input_is_refused_by_name(which):
+    qkv = {n: torch.zeros(2, 64, 2, 16, dtype=torch.bfloat16)
+           for n in ("q", "k", "v")}
+    qkv[which] = _offset_view((2, 64, 2, 16), torch.bfloat16, 1)
+    with pytest.raises(ValueError, match=r"read %s in 16-byte" % which):
+        tfa.check_bwd_alignment(qkv["q"], qkv["k"], qkv["v"])
+
+
+def test_an_unaligned_f32_input_is_accepted():
+    """The f32 kernels load scalars: an offset of one element is fine."""
+    view = _offset_view((2, 64, 2, 16), torch.float32, 1)
+    assert not tfa.aligned_16(view)
+    tfa.check_bwd_alignment(view, view, view)
+
+
 def test_jax_interpret_mode_is_what_runs_here():
     assert jax.default_backend() == "cpu"
     assert jfa._use_interpret()
