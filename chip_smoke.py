@@ -10,16 +10,20 @@ Phases, each printing JSON lines; any failure exits non-zero:
 1. device  — the card, its power limit, the CUDA toolkit.
 2. build   — every kernel under ``elasticdl_tpu_torch/ops/csrc`` built
    from source with nvcc for sm_90a, all at once (the ptxas report kept
-   beside each library is printed; a spill in a bf16 backward kernel, or
-   a report that does not list them, fails).
+   beside each library is printed; a spill in a bf16 kernel, or a report
+   that does not list them, fails).
 3. kernels — each kernel against its plain PyTorch version on the card,
    at the listed shapes, with times, the bound and the library yardstick:
    flash_fwd, then flash_bwd_dq and flash_bwd_dkv (with and without an
-   lse cotangent, also at a ragged length and at Lq != Lk; two launches
-   must agree bitwise), then a long-sequence check that the
-   backward allocates no (L, L) buffer. Each output and gradient is held
-   elementwise and by its relative L2 distance, and each case shows
+   lse cotangent), each also at a ragged length and at Lq != Lk, two
+   launches of each case bitwise equal; then a long-sequence check that
+   the backward allocates no (L, L) buffer. Each output and gradient is
+   held elementwise and by its relative L2 distance, and each case shows
    that a planted fault (a mask one tile off, a 10 % scale error) fails.
+   Forward times are taken twice: CUDA events around 50 calls of the
+   autograd wrapper, and the device time per call from torch.profiler
+   (the kernel's own, even where the host's enqueue time per call nears
+   it), both for SDPA too.
 4. slice   — the 110M transformer LM (bf16, random weights from a seed)
    exported, then served through the scorer's entry points
    (build_scorer -> ScorerServicer -> MicroBatcher -> Scorer) on
@@ -63,10 +67,11 @@ KERNEL_SHAPES = [  # (B, H, D, L)
     (2, 12, 64, 2048),
 ]
 TRAIN_SHAPE = (16, 12, 64, 1024)  # the training slice's attention
-# backward-only cases (B, H, D, Lq, Lk): a length below one tile of the
-# kernels' owned rows (zero-filled copies, store masks) and Lq != Lk (the
-# causal start and stop of the loops, at absolute positions)
-BWD_EXTRA_CASES = [
+# untimed cases of every kernel (B, H, D, Lq, Lk): a length below one tile
+# of the kernels' owned rows (zero-filled copies, store masks, a tile that
+# straddles the end) and Lq != Lk (the causal start and stop of the
+# loops, at absolute positions)
+EXTRA_CASES = [
     (2, 12, 64, 96, 96),
     (2, 12, 64, 512, 1024),
 ]
@@ -197,10 +202,17 @@ def ptxas_summary(log):
     return out
 
 
+# the bf16 kernels the spill gate holds, by source
+BF16_KERNELS = {
+    "flash_fwd.cu": ("flash_fwd_bf16",),
+    "flash_bwd.cu": ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"),
+}
+
+
 def phase_build():
-    """Every source built at once; fails on a spill in a bf16 backward
-    kernel, read from the ptxas report kept beside each library (so a
-    cached build is gated as a fresh one is)."""
+    """Every source built at once; fails on a spill in a bf16 kernel,
+    read from the ptxas report kept beside each library (so a cached
+    build is gated as a fresh one is)."""
     from elasticdl_tpu_torch.ops import build
 
     t0 = time.perf_counter()
@@ -218,21 +230,23 @@ def phase_build():
     for source, log in sorted(reports.items()):
         print("ptxas report for %s:" % source)
         print(log.strip())
-    bf16_bwd = {
-        sym: info for sym, info in summary["flash_bwd.cu"].items()
-        if "bf16" in sym
-    }
-    for kernel in ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"):
-        if not any(kernel in sym and "spill_bytes" in info
-                   for sym, info in bf16_bwd.items()):
-            raise PhaseError(
-                "the ptxas report of flash_bwd.cu gives no spill count for "
-                "%s: %s" % (kernel, sorted(bf16_bwd))
-            )
-    spills = {sym: i["spill_bytes"] for sym, i in bf16_bwd.items()
-              if i.get("spill_bytes")}
+    spills = {}
+    for source, kernels in BF16_KERNELS.items():
+        bf16 = {
+            sym: info for sym, info in summary[source].items()
+            if "bf16" in sym
+        }
+        for kernel in kernels:
+            if not any(kernel in sym and "spill_bytes" in info
+                       for sym, info in bf16.items()):
+                raise PhaseError(
+                    "the ptxas report of %s gives no spill count for %s: %s"
+                    % (source, kernel, sorted(bf16))
+                )
+        spills.update({sym: i["spill_bytes"] for sym, i in bf16.items()
+                       if i.get("spill_bytes")})
     if spills:
-        raise PhaseError("bf16 backward kernels spill: %s" % spills)
+        raise PhaseError("bf16 kernels spill: %s" % spills)
 
 
 def time_ms(torch, fn, iters, warmup=3):
@@ -249,6 +263,51 @@ def time_ms(torch, fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_rows(prof):
+    """[(device us, kernel name, calls)] of a torch.profiler run, largest
+    first: device-side events only (a CPU op's device total repeats the
+    time of the kernels it launched)."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us, evt.key, evt.count))
+    rows.sort(reverse=True)
+    return rows
+
+
+def per_call_ms(torch, fn, iters):
+    """(device ms, host ms) per call of ``fn()``: the device time of the
+    kernels it launched, summed by torch.profiler over ``iters`` calls,
+    and the host's time to issue one call (no sync, outside the
+    profiler); both after a warm-up. None for the device time when the
+    profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    device_ms = sum(r[0] for r in rows) / 1e3 / iters if rows else None
+    return device_ms, host_ms
 
 
 def _pairs(lq, lk, causal):
@@ -337,19 +396,26 @@ def _masked_bwd(torch, q, k, v, out, lse, g, g_lse, visible):
     )
 
 
-def check_flash_case(torch, b, h, d, l, dtype, causal, seed):
+def check_flash_case(torch, b, h, d, lq, lk, dtype, causal, seed, timed):
+    """The forward kernel against ``plain_flash_with_lse`` in float32 from
+    the same inputs; a second launch must give bitwise the same out and
+    lse. With ``timed``, times the kernel, the plain version and SDPA."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
 
     tdtype = getattr(torch, dtype)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
     q, k, v = (
         torch.randn(
-            (b, l, h, d), generator=gen, device="cuda", dtype=torch.float32
+            (b, length, h, d), generator=gen, device=DEVICE,
+            dtype=torch.float32,
         ).to(tdtype)
-        for _ in range(3)
+        for length in (lq, lk, lk)
     )
     out, lse = fa.flash_attention_with_lse(q, k, v, causal)
+    again = fa.flash_attention_with_lse(q, k, v, causal)
     torch.cuda.synchronize()
+    bitwise = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    del again
     ref_out, ref_lse = fa.plain_flash_with_lse(
         q.float(), k.float(), v.float(), causal
     )
@@ -362,28 +428,28 @@ def check_flash_case(torch, b, h, d, l, dtype, causal, seed):
         "mask one tile off": _rel_l2(
             torch,
             _masked_attention(
-                torch, q, k, v, _fault_mask(torch, l, l, causal, q.device)
+                torch, q, k, v, _fault_mask(torch, lq, lk, causal, q.device)
             ),
             ref_out,
         ),
     }
     limit = REL_L2[dtype]
     ok = bool(
-        torch.isfinite(out).all()
+        bitwise
+        and torch.isfinite(out).all()
         and (err_out <= atol + rtol * ref_out.abs()).all()
         and (err_lse <= atol + rtol * ref_lse.abs()).all()
         and rel <= limit
     )
-    bound_ms, bound_by = flash_bound(b, h, d, l, l, dtype, causal)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    bound_ms, bound_by = flash_bound(b, h, d, lq, lk, dtype, causal)
     rec = {
         "phase": "kernels",
         "kernel": "flash_fwd",
-        "shape": [b, l, h, d],
-        "lk": l,
+        "shape": [b, lq, h, d],
+        "lk": lk,
         "dtype": dtype,
         "causal": causal,
+        "bitwise_repeat": bitwise,
         "max_abs_err": float(err_out.max()),
         "max_abs_err_lse": float(err_lse.max()),
         "rtol": rtol,
@@ -395,20 +461,35 @@ def check_flash_case(torch, b, h, d, l, dtype, causal, seed):
         "bound_ms": bound_ms,
         "bound_us": bound_ms * 1e3,
         "bound_by": bound_by,
-        "kernel_ms": time_ms(
-            torch, lambda: fa.flash_attention_with_lse(q, k, v, causal), 50
-        ),
-        "plain_ms": time_ms(
-            torch, lambda: fa.plain_flash_with_lse(q, k, v, causal), 5, 1
-        ),
-        "library_ms": time_ms(
-            torch, lambda: sdpa(qt, kt, vt, is_causal=causal), 50
-        ),
     }
+    if timed:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def kernel():
+            return fa.flash_attention_with_lse(q, k, v, causal)
+
+        def library():
+            return sdpa(qt, kt, vt, is_causal=causal)
+
+        rec.update(
+            kernel_ms=time_ms(torch, kernel, TIMED_LAUNCHES),
+            plain_ms=time_ms(
+                torch, lambda: fa.plain_flash_with_lse(q, k, v, causal), 5, 1
+            ),
+            library_ms=time_ms(torch, library, TIMED_LAUNCHES),
+        )
+        rec["kernel_device_ms"], rec["kernel_host_ms"] = per_call_ms(
+            torch, kernel, TIMED_LAUNCHES
+        )
+        rec["library_device_ms"], rec["library_host_ms"] = per_call_ms(
+            torch, library, TIMED_LAUNCHES
+        )
     emit(rec)
     if not ok:
         raise PhaseError(
-            "flash_fwd disagrees with its plain version at %s" % rec
+            "flash_fwd disagrees with its plain version (or with its own "
+            "second launch: bitwise %s) at %s" % (bitwise, rec)
         )
     if min(faults.values()) <= limit:
         raise PhaseError(
@@ -418,15 +499,20 @@ def check_flash_case(torch, b, h, d, l, dtype, causal, seed):
 
 
 def phase_kernels(torch):
-    """Every (shape, dtype, causal) case; returns the records."""
+    """Every (shape, dtype, causal) case of the forward kernel, timed
+    where the shape is square; returns the records."""
     records = []
     seed = 0
-    for b, h, d, l in KERNEL_SHAPES + [TRAIN_SHAPE]:
+    cases = [(b, h, d, l, l) for b, h, d, l in KERNEL_SHAPES + [TRAIN_SHAPE]]
+    for b, h, d, lq, lk in cases + EXTRA_CASES:
         for dtype in ("float32", "bfloat16"):
             for causal in (False, True):
                 seed += 1
                 records.append(
-                    check_flash_case(torch, b, h, d, l, dtype, causal, seed)
+                    check_flash_case(
+                        torch, b, h, d, lq, lk, dtype, causal, seed,
+                        timed=(b, h, d, lq, lk) in cases,
+                    )
                 )
     return records
 
@@ -595,7 +681,7 @@ def phase_bwd_kernels(torch):
     records = []
     seed = 100
     cases = [(b, h, d, l, l) for b, h, d, l in KERNEL_SHAPES + [TRAIN_SHAPE]]
-    for b, h, d, lq, lk in cases + BWD_EXTRA_CASES:
+    for b, h, d, lq, lk in cases + EXTRA_CASES:
         for dtype in ("float32", "bfloat16"):
             for causal in (False, True):
                 for with_lse in (False, True):
@@ -752,7 +838,6 @@ def _profile(torch, label, fn, **fields):
     """Device time by kernel over one call of ``fn`` (torch.profiler,
     after one unprofiled call); an empty breakdown says the profiler saw
     no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -762,18 +847,7 @@ def _profile(torch, label, fn, **fields):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for evt in prof.key_averages():
-        # device-side events only: a CPU op's device total repeats the
-        # time of the kernels it launched
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us, evt.key, evt.count))
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     busy_ms = sum(r[0] for r in rows) / 1e3
     rec = dict(
         fields,
@@ -1293,6 +1367,8 @@ def kernels_line(records, paths):
                 "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"],
+                "device_ms": rec.get("kernel_device_ms"),
+                "library_device_ms": rec.get("library_device_ms"),
                 "checked_cases": sum(1 for r in records if r["kernel"] == name),
                 "ok": True,
             }

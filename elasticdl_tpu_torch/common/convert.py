@@ -29,6 +29,8 @@ import re
 import numpy as np
 import torch
 
+from elasticdl_tpu_torch.common.device import resolve_device
+
 _RULES = (  # (reference path, state_dict key, layout)
     ("embed/embedding", "embed.weight", None),
     ("block_{i}/RMSNorm_0/scale", "blocks.{i}.attn_norm.weight", None),
@@ -146,12 +148,15 @@ def adam_state_named(opt, params, num_heads, head_dim):
 
 
 def to_train_state(named_params, optimizer, adam=None, version=0,
-                   device="cpu"):
+                   device="cuda"):
     """A reference train state -> the port's ``TrainState`` on
-    ``device``: ``named_params`` {reference path: array}, ``optimizer``
-    the zoo's factory, ``adam`` optional ``(mu, nu, count)``."""
+    ``device`` (the card unless the caller names the CPU; raises where
+    there is no card): ``named_params`` {reference path: array},
+    ``optimizer`` the zoo's factory, ``adam`` optional ``(mu, nu,
+    count)``."""
     from elasticdl_tpu_torch.training.step import TrainState
 
+    device = resolve_device(device)
     params = {
         k: v.to(device) for k, v in to_state_dict(named_params).items()
     }

@@ -52,7 +52,7 @@
 // 3. Tiles. A block owns BM rows, one warp per 16, so a staged tile
 //    serves BM rows: kDqRows = 128 (8 warps) for dQ and kDkvRows = 64
 //    (4 warps) for dK/dV, each the faster of 64 and 128 at the training
-//    shape on an H100 (scripts/torch_flash_bwd_ab.py --tile-rows times
+//    shape on an H100 (scripts/torch_flash_ab.py --tile-rows times
 //    the other shape; PERF.md has the times). dQ's 124 registers let two
 //    256-thread blocks share an SM; dK/dV's two D-wide accumulators need
 //    ~160 registers, so three 128-thread blocks (12 warps) share an SM

@@ -206,6 +206,7 @@ def _check_kernel_inputs(q, k, v):
 def _flash_fwd_kernel(q, k, v, causal):
     """Launch ``csrc/flash_fwd.cu`` on the current stream."""
     _check_kernel_inputs(q, k, v)
+    check_alignment(q, k, v)
     b, lq, h, d = q.shape
     lk = k.shape[1]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -220,25 +221,26 @@ def _flash_fwd_kernel(q, k, v, causal):
 
 
 def aligned_16(t):
-    """True when 16-byte copies can read ``t`` as the backward kernels
-    read their (B, L, H, D) inputs: its data pointer and every stride but
-    the head dim's (the last) are multiples of 16 bytes."""
+    """True when 16-byte copies can read ``t`` as the bf16 kernels read
+    their (B, L, H, D) inputs: its data pointer and every stride but the
+    head dim's (the last) are multiples of 16 bytes."""
     item = t.element_size()
     return t.data_ptr() % 16 == 0 and all(
         s * item % 16 == 0 for s in t.stride()[:-1]
     )
 
 
-def check_bwd_alignment(q, k, v):
+def check_alignment(q, k, v):
     """Raise ``ValueError`` for bf16 q, k or v that is not
-    :func:`aligned_16`: the bf16 backward kernels read them in 16-byte
-    copies. The f32 kernels load scalars and take any such view."""
+    :func:`aligned_16`: the bf16 forward and backward kernels read them
+    in 16-byte copies. The f32 kernels load scalars and take any such
+    view."""
     if q.dtype != torch.bfloat16:
         return
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not aligned_16(t):
             raise ValueError(
-                "bf16 flash backward kernels read %s in 16-byte copies: "
+                "bf16 flash kernels read %s in 16-byte copies: "
                 "its data pointer and its batch, sequence and head "
                 "strides must be multiples of 16 bytes (pointer %% 16 = "
                 "%d, strides %s of 2-byte elements)"
@@ -247,11 +249,11 @@ def check_bwd_alignment(q, k, v):
 
 
 def _bwd_inputs(q, k, v, g, lse):
-    """Checked kernel inputs of the backward (:func:`check_bwd_alignment`):
+    """Checked kernel inputs of the backward (:func:`check_alignment`):
     dO in q's dtype with a unit-stride head dim, in bf16 copied where
     16-byte copies cannot read it; lse contiguous."""
     _check_kernel_inputs(q, k, v)
-    check_bwd_alignment(q, k, v)
+    check_alignment(q, k, v)
     g = g.to(q.dtype)
     if g.shape != q.shape:
         raise ValueError(

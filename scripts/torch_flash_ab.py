@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
-"""A/B of the port's flash-attention backward kernels on one CUDA card.
+"""A/B of the port's flash-attention kernels on one CUDA card.
 
-Runs ``flash_bwd_dq`` and ``flash_bwd_dkv`` through the package's own
-wrappers twice on the same seeded inputs: once built from this
-checkout's ``elasticdl_tpu_torch/ops/csrc`` and once from another
-version of that directory, each built by ``ops/build.py`` as usual. The
-other version is either another checkout's sources (``--other-csrc``,
-for example a parent commit's, unpacked with ``git archive``) or this
+Runs each of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` whose
+build differs between two versions of ``elasticdl_tpu_torch/ops/csrc``
+(its source or a shared header) through the package's own wrappers,
+once per version, on the same seeded inputs: this checkout's sources and
+another version, each built by ``ops/build.py`` as usual. The other
+version is either another checkout's sources (``--other-csrc``, for
+example a parent commit's, unpacked with ``git archive``) or this
 checkout's with the bf16 kernels' owned-tile rows changed
-(``--tile-rows DQ DKV``). Prints the card, then one JSON line per case:
+(``--tile-rows``, constants of ``TILE_CONSTANTS``). Prints the card and
+the kernels compared, then one JSON line per case:
 whether the two agree bitwise, their relative L2 distance, and each
-side's time over 50 launches, taken in turns (other, this, this,
-other); then each side's ptxas report. Run from the root of a checkout:
+side's time over 50 launches, taken in turns (other, this, this, other);
+then each side's ptxas reports. Run from the root of a checkout:
 
     git archive HEAD~1 elasticdl_tpu_torch/ops/csrc | tar -x -C parent
-    python3 scripts/torch_flash_bwd_ab.py \\
+    python3 scripts/torch_flash_ab.py \\
         --other-csrc parent/elasticdl_tpu_torch/ops/csrc
-    python3 scripts/torch_flash_bwd_ab.py --tile-rows 64 128
+    python3 scripts/torch_flash_ab.py --tile-rows kFwdRows=64
 """
 
 import argparse
@@ -30,29 +32,49 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CASES = [  # (B, H, D, L): the training shape and a D = 96 shape
+CASES = [  # (B, H, D, L): the training and serving shapes, a D = 96 shape
     (16, 12, 64, 1024),
+    (8, 12, 64, 1024),
     (4, 16, 96, 1024),
 ]
 LAUNCHES = 50
-TILE_CONSTANTS = ("kDqRows", "kDkvRows")  # flash_bwd.cu, bf16 owned rows
+KERNELS = {  # name -> its source
+    "flash_fwd": "flash_fwd.cu",
+    "flash_bwd_dq": "flash_bwd.cu",
+    "flash_bwd_dkv": "flash_bwd.cu",
+}
+TILE_CONSTANTS = {  # the bf16 kernels' owned rows, by constant -> source
+    "kFwdRows": "flash_fwd.cu",
+    "kDqRows": "flash_bwd.cu",
+    "kDkvRows": "flash_bwd.cu",
+}
 
 
-def tile_rows_copy(build, rows, into):
-    """A copy of this checkout's csrc/ under ``into`` whose flash_bwd.cu
-    owns ``rows`` = (dq, dkv) rows per bf16 block."""
+def tile_setting(text):
+    """``NAME=ROWS`` -> (NAME, ROWS), NAME one of TILE_CONSTANTS."""
+    name, _, rows = text.partition("=")
+    if name not in TILE_CONSTANTS or not rows.isdigit():
+        raise argparse.ArgumentTypeError(
+            "expected NAME=ROWS with NAME in %s" % sorted(TILE_CONSTANTS)
+        )
+    return name, int(rows)
+
+
+def tile_rows_copy(build, settings, into):
+    """A copy of this checkout's csrc/ under ``into`` with each
+    ``(constant, rows)`` of ``settings`` set."""
     csrc = os.path.join(into, "csrc")
     shutil.copytree(build.CSRC_DIR, csrc)
-    path = os.path.join(csrc, "flash_bwd.cu")
-    with open(path) as f:
-        src = f.read()
-    for name, n in zip(TILE_CONSTANTS, rows):
+    for name, n in settings:
+        path = os.path.join(csrc, TILE_CONSTANTS[name])
+        with open(path) as f:
+            src = f.read()
         src, hits = re.subn(r"(constexpr int %s = )\d+;" % name,
                             r"\g<1>%d;" % n, src)
         if hits != 1:
-            raise RuntimeError("flash_bwd.cu has no single %s" % name)
-    with open(path, "w") as f:
-        f.write(src)
+            raise RuntimeError("%s has no single %s" % (path, name))
+        with open(path, "w") as f:
+            f.write(src)
     return csrc
 
 
@@ -87,8 +109,8 @@ def main(argv=None):
     other = parser.add_mutually_exclusive_group(required=True)
     other.add_argument("--other-csrc",
                        help="another version of elasticdl_tpu_torch/ops/csrc")
-    other.add_argument("--tile-rows", type=int, nargs=2,
-                       metavar=("DQ", "DKV"),
+    other.add_argument("--tile-rows", type=tile_setting, nargs="+",
+                       metavar="NAME=ROWS",
                        help="this checkout's sources with these owned rows")
     args = parser.parse_args(argv)
     import torch
@@ -113,9 +135,20 @@ def main(argv=None):
             else tile_rows_copy(build, args.tile_rows, tmp)
         )}
         loaded = {"this": {}, "other": {}}
+        kernels = []
+        for kernel, source in KERNELS.items():
+            libraries = set()
+            for side in csrc:
+                with built_from(build, csrc[side], loaded[side]):
+                    libraries.add(build._library_path(source))
+            if len(libraries) > 1:
+                kernels.append(kernel)
+        print("kernels whose build differs: %s" % kernels, flush=True)
 
         def run(side, kernel, inputs):
             with built_from(build, csrc[side], loaded[side]):
+                if kernel == "flash_fwd":
+                    return fa._flash_fwd_kernel(*inputs[:3], inputs[-1])
                 if kernel == "flash_bwd_dq":
                     return (fa.flash_bwd_dq(*inputs),)
                 return fa.flash_bwd_dkv(*inputs)
@@ -132,7 +165,7 @@ def main(argv=None):
                     out, lse = fa.flash_attention_with_lse(q, k, v, causal)
                     delta = fa.flash_delta(out, g)
                     inputs = (q, k, v, g, lse, delta, causal)
-                    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+                    for kernel in kernels:
                         got = {s: run(s, kernel, inputs)
                                for s in ("other", "this")}
                         torch.cuda.synchronize()
@@ -161,8 +194,9 @@ def main(argv=None):
                         }, sort_keys=True), flush=True)
         for side in ("other", "this"):
             with built_from(build, csrc[side], loaded[side]):
-                print("ptxas report (%s):" % side)
-                print(build.ptxas_report("flash_bwd.cu").strip(), flush=True)
+                for source in sorted({KERNELS[k] for k in kernels}):
+                    print("ptxas report for %s (%s):" % (source, side))
+                    print(build.ptxas_report(source).strip(), flush=True)
     return 0
 
 

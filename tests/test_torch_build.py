@@ -31,6 +31,17 @@ def test_an_edited_header_changes_the_library_path(csrc):
     assert build._library_path("flash_bwd.cu") != before
 
 
+def test_the_forward_includes_the_shared_header(csrc):
+    assert '#include "hopper_tiles.cuh"' in (csrc / "flash_fwd.cu").read_text()
+
+
+def test_an_edited_header_changes_the_forward_library_path(csrc):
+    before = build._library_path("flash_fwd.cu")
+    with open(csrc / "hopper_tiles.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert build._library_path("flash_fwd.cu") != before
+
+
 def test_a_new_header_changes_the_library_path(csrc):
     before = build._library_path("flash_bwd.cu")
     (csrc / "more_tiles.cuh").write_text("#pragma once\n")

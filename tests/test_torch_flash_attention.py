@@ -200,14 +200,51 @@ def test_an_unaligned_bf16_input_is_refused_by_name(which):
            for n in ("q", "k", "v")}
     qkv[which] = _offset_view((2, 64, 2, 16), torch.bfloat16, 1)
     with pytest.raises(ValueError, match=r"read %s in 16-byte" % which):
-        tfa.check_bwd_alignment(qkv["q"], qkv["k"], qkv["v"])
+        tfa.check_alignment(qkv["q"], qkv["k"], qkv["v"])
 
 
 def test_an_unaligned_f32_input_is_accepted():
     """The f32 kernels load scalars: an offset of one element is fine."""
     view = _offset_view((2, 64, 2, 16), torch.float32, 1)
     assert not tfa.aligned_16(view)
-    tfa.check_bwd_alignment(view, view, view)
+    tfa.check_alignment(view, view, view)
+
+
+@pytest.fixture
+def fwd_launches(monkeypatch):
+    """``_flash_fwd_kernel`` on CPU tensors, its device check and its
+    launch stubbed out: each launch it would make is recorded instead."""
+    made = []
+    monkeypatch.setattr(tfa, "_check_kernel_inputs", lambda q, k, v: None)
+    monkeypatch.setattr(tfa, "_kernel", lambda *args: None)
+    monkeypatch.setattr(tfa, "_launch", lambda name, *args: made.append(name))
+    monkeypatch.setattr(tfa, "launches", tfa.LaunchCounter())
+    return made
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_the_forward_refuses_an_unaligned_bf16_input_before_launching(
+    which, fwd_launches
+):
+    qkv = {n: torch.zeros(2, 64, 2, 16, dtype=torch.bfloat16)
+           for n in ("q", "k", "v")}
+    qkv[which] = _offset_view((2, 64, 2, 16), torch.bfloat16, 1)
+    with pytest.raises(ValueError, match=r"read %s in 16-byte" % which):
+        tfa._flash_fwd_kernel(qkv["q"], qkv["k"], qkv["v"], True)
+    assert fwd_launches == [] and tfa.launches.count == 0
+
+
+@pytest.mark.parametrize(
+    "dtype,offset", [(torch.float32, 1), (torch.bfloat16, 0)]
+)
+def test_the_forward_launches_on_an_unaligned_f32_or_aligned_bf16_view(
+    dtype, offset, fwd_launches
+):
+    view = _offset_view((2, 64, 2, 16), dtype, offset)
+    out, lse = tfa._flash_fwd_kernel(view, view, view, True)
+    assert fwd_launches == ["flash_fwd"] and tfa.launches.count == 1
+    assert out.shape == view.shape and out.dtype == dtype
+    assert tuple(lse.shape) == (2, 2, 64) and lse.dtype == torch.float32
 
 
 def test_jax_interpret_mode_is_what_runs_here():

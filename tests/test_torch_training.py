@@ -113,7 +113,7 @@ def _run_both(dtype, branch, steps, **step_kwargs):
     opt = jzoo.optimizer()
     j_ts = jstep.TrainState.create(params, {}, opt)
     j_step = jstep.make_train_step(jm, jzoo.loss, opt, **step_kwargs)
-    t_ts = convert.to_train_state(named0, tzoo.optimizer())
+    t_ts = convert.to_train_state(named0, tzoo.optimizer(), device="cpu")
     t_step = tstep.make_train_step(tm, tzoo.loss, **step_kwargs)
     j_losses, t_losses = [], []
     for i in range(steps):
@@ -171,7 +171,7 @@ def test_remat_equals_no_remat(branch):
     tokens = _tokens(length, batch)
     states = []
     for remat in (False, True):
-        ts = convert.to_train_state(named0, tzoo.optimizer())
+        ts = convert.to_train_state(named0, tzoo.optimizer(), device="cpu")
         step = tstep.make_train_step(tm, tzoo.loss, remat=remat)
         ts, loss = step(ts, {"tokens": tokens}, tokens)
         states.append((float(loss), ts))
@@ -217,7 +217,7 @@ def test_local_update_fn_matches_jax():
     opt = jzoo.optimizer()
     j_params, j_opt = params, opt.init(params)
     update = jstep.make_local_update_fn(opt)
-    t_ts = convert.to_train_state(named0, tzoo.optimizer())
+    t_ts = convert.to_train_state(named0, tzoo.optimizer(), device="cpu")
     t_update = tstep.make_local_update_fn()
     t_grads = convert.to_state_dict(pytree_to_named_arrays(grads))
     for _ in range(2):
@@ -240,7 +240,9 @@ def test_allreduce_trainer_matches_jax(branch):
     t_trainer = AllReduceTrainer(
         tm, tzoo.loss, tzoo.optimizer(), device="cpu"
     )
-    t_trainer.load_state(convert.to_train_state(named0, tzoo.optimizer()))
+    t_trainer.load_state(
+        convert.to_train_state(named0, tzoo.optimizer(), device="cpu")
+    )
     for i in range(2):
         tokens = _tokens(length, batch, seed=10 + i)
         j_loss = j_trainer.train_step({"tokens": tokens}, tokens)
@@ -340,3 +342,14 @@ def test_init_variables_is_seeded_and_needs_the_hook():
         torch.testing.assert_close(value, b["params"][name], rtol=0, atol=0)
     with pytest.raises(TypeError, match="init_parameters"):
         model_api.init_variables(torch.nn.Linear(2, 2), 0)
+
+
+def test_to_train_state_defaults_to_the_card(monkeypatch):
+    """No device argument means the card; where torch sees none it
+    raises rather than building the state on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, params, _ = _init("float32")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        convert.to_train_state(
+            pytree_to_named_arrays(params), tzoo.optimizer()
+        )
