@@ -38,7 +38,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
    gradients against the plain-attention model and against
    plain_flash_bwd on the same forward; one rematerialized step; step
    time, tokens/s, MFU, peak memory and a profiler breakdown of one step.
-6. summary — the kernels line, the card line, then the result line.
+6. job     — bench.py's fused ResNet-50 step (b128, 224x224, bf16, SGD
+   with momentum, data resident on the card): step time, examples/s,
+   MFU, peak memory. Then the single-process ALLREDUCE job through the
+   port's command line in this process (master -> task dispatcher ->
+   AllReduceWorker -> RecordIO reader) on 896 synthetic ImageNet-shaped
+   records from the seed: the dispatcher finishes at version 14, every
+   loss and parameter finite, every batch statistic moved, the newest
+   checkpoint restores bitwise into a fresh trainer, the export manifest
+   exists; the bf16 model held against the f32 one on one batch; the
+   job's examples/s over its steps after the first and its ratio to the
+   fused step; a torch.profiler breakdown of a few steps of a second run
+   (idle share, top device ops, the largest device-idle gaps). ResNet-50
+   launches none of the flash kernels: the kernels line says so
+   (``launches_by_path.job`` = 0).
+7. summary — the kernels line, the card line, then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -1323,6 +1337,491 @@ def phase_train(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the single-process ALLREDUCE job (ResNet-50)
+# ---------------------------------------------------------------------------
+
+JOB_MODEL_DEF = "imagenet_resnet50.imagenet_resnet50.custom_model"
+JOB_RECORDS = 896  # synthetic ImageNet-shaped records (bench.py's shape)
+JOB_IMAGE = 224
+JOB_CLASSES = 1000
+JOB_MODEL_PARAMS = ""  # the zoo's defaults (bf16) at JOB_CLASSES classes
+JOB_BATCH = 64
+JOB_MINIBATCHES_PER_TASK = 2
+JOB_CKPT_STEPS = 4
+# the profiled job's windows, steps [first, last) from 0: three steps
+# between checkpoints, then the step before the v8 checkpoint, the
+# checkpoint and the step after it (a window ends as its last step
+# starts, so the checkpoint written before step 8 lies inside)
+JOB_PROFILE_WINDOWS = {"steps": (4, 7), "checkpoint": (7, 9)}
+FUSED_BATCH = 128  # bench.py's bench_resnet step
+FUSED_STEPS = 20  # timed, after warm-up
+FUSED_WARMUP = 3
+# bf16 against f32 from one seeded init on one batch: the outputs by
+# relative L2 and the first step's loss, relatively. bf16 keeps 8
+# mantissa bits (2^-8 = 0.4 % per rounding) and the network rounds its
+# activations at ~100 convolutions and norms; as independent errors that
+# is ~4 %, so 5e-2 passes a sound bf16 path and fails a wrong one (a
+# missing 1/255 or a swapped layout moves the outputs by O(1)).
+BF16_OUT_REL_L2 = 5e-2
+BF16_LOSS_RTOL = 1e-2
+
+
+def write_job_records(torch, data_dir):
+    """JOB_RECORDS synthetic records from SEED (uint8 images, labels 1..
+    JOB_CLASSES) as one RecordIO file; returns the seconds it took."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.data.example import encode_example
+    from elasticdl_tpu_torch.data.recordio import RecordIOWriter
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    os.makedirs(data_dir, exist_ok=True)
+    with RecordIOWriter(os.path.join(data_dir, "train-0")) as w:
+        for _ in range(JOB_RECORDS):
+            w.write(
+                encode_example(
+                    {
+                        "image": rng.integers(
+                            0, 256, (JOB_IMAGE, JOB_IMAGE, 3), dtype=np.uint8
+                        ),
+                        "label": np.array(
+                            [rng.integers(1, JOB_CLASSES + 1)], np.int64
+                        ),
+                    }
+                )
+            )
+    return time.perf_counter() - t0
+
+
+def job_argv(data_dir, ckpt_dir, out_dir=None):
+    argv = [
+        "train",
+        "--job_name", "chip-smoke-resnet50",
+        "--distribution_strategy", "AllreduceStrategy",
+        "--num_workers", "0",
+        "--model_zoo", os.path.join(REPO, "elasticdl_tpu_torch", "model_zoo"),
+        "--model_def", JOB_MODEL_DEF,
+        "--model_params", JOB_MODEL_PARAMS or "num_classes=%d" % JOB_CLASSES,
+        "--training_data", data_dir,
+        "--minibatch_size", str(JOB_BATCH),
+        "--num_minibatches_per_task", str(JOB_MINIBATCHES_PER_TASK),
+        "--num_epochs", "1",
+        "--checkpoint_dir", ckpt_dir,
+        "--checkpoint_steps", str(JOB_CKPT_STEPS),
+        "--device", DEVICE,
+        "--log_level", "WARNING",
+    ]
+    if out_dir:
+        argv += ["--output", out_dir]
+    return argv
+
+
+class _StepClock:
+    """Times every ``AllReduceWorker._train_batch`` (a step ends in the
+    worker's own ``float(loss)``, a device sync) while installed; calls
+    ``on_step(i)`` before step i (from 0)."""
+
+    def __init__(self, on_step=None):
+        from elasticdl_tpu_torch.worker.allreduce_worker import (
+            AllReduceWorker,
+        )
+
+        self._cls = AllReduceWorker
+        self._orig = AllReduceWorker._train_batch
+        self.spans = []  # (start, end) perf_counter seconds
+        self._on_step = on_step
+
+    def __enter__(self):
+        clock, orig = self, self._orig
+
+        def timed(worker, batch):
+            if clock._on_step is not None:
+                clock._on_step(len(clock.spans))
+            t0 = time.perf_counter()
+            try:
+                return orig(worker, batch)
+            finally:
+                clock.spans.append((t0, time.perf_counter()))
+
+        self._cls._train_batch = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._train_batch = self._orig
+        return False
+
+
+def resnet_flops_per_image(torch, model):
+    """Model FLOPs of one training image: 3 x the forward's
+    multiply-adds x 2 over every convolution and the dense head (the
+    backward does two products per forward product), from the layer
+    shapes of one JOB_IMAGE forward."""
+    from elasticdl_tpu_torch.nn.layers import Conv
+
+    fwd = []
+
+    def conv_hook(m, inputs, out):
+        cout, cin, kh, kw = m.weight.shape
+        fwd.append(2.0 * kh * kw * cin * cout * out.shape[2] * out.shape[3])
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.modules()
+             if isinstance(m, Conv)]
+    try:
+        with torch.no_grad():
+            model.eval()
+            model({"image": torch.zeros(
+                (1, JOB_IMAGE, JOB_IMAGE, 3), dtype=torch.uint8,
+                device=model.head.weight.device,
+            )})
+    finally:
+        for h in hooks:
+            h.remove()
+    fwd.append(2.0 * model.head.in_features * model.head.out_features)
+    return 3.0 * sum(fwd), sum(fwd)
+
+
+def phase_fused_step(torch, card):
+    """bench.py's fused ResNet-50 step: b128 at 224x224, uint8 images and
+    labels resident on the card, bf16 compute, SGD with momentum, through
+    ``AllReduceTrainer.train_step``; FUSED_STEPS timed after warm-up."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.model_zoo.imagenet_resnet50 import (
+        imagenet_resnet50 as zoo,
+    )
+    from elasticdl_tpu_torch.parallel.trainer import AllReduceTrainer
+
+    model = zoo.custom_model(num_classes=JOB_CLASSES)
+    trainer = AllReduceTrainer(
+        model, zoo.loss, zoo.optimizer(), seed=SEED, device=DEVICE
+    )
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    images = torch.randint(
+        0, 256, (FUSED_BATCH, JOB_IMAGE, JOB_IMAGE, 3), generator=gen,
+        device=DEVICE, dtype=torch.uint8,
+    )
+    labels = torch.randint(
+        0, JOB_CLASSES, (FUSED_BATCH, 1), generator=gen, device=DEVICE,
+        dtype=torch.int32,
+    )
+    feats = {"image": images}
+    trainer.init_from_batch((feats, labels))
+    flops, fwd_flops = resnet_flops_per_image(torch, model)
+    for _ in range(FUSED_WARMUP):
+        trainer.train_step(feats, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for _ in range(FUSED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(feats, labels))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise PhaseError("fused step: non-finite loss %s" % losses)
+    med = float(np.median(step_ms))
+    rec = {
+        "phase": "fused_step",
+        "card": card,
+        "model": "imagenet_resnet50 bf16 (params float32), %d classes"
+        % JOB_CLASSES,
+        "batch": FUSED_BATCH,
+        "image": JOB_IMAGE,
+        "optimizer": "SGD lr 0.02 momentum 0.9",
+        "steps_timed": FUSED_STEPS,
+        "step_ms": step_ms,
+        "step_ms_median": med,
+        "examples_per_s": FUSED_BATCH / med * 1e3,
+        "model_flops_per_image": flops,
+        "forward_flops_per_image": fwd_flops,
+        "mfu": flops * FUSED_BATCH / (med / 1e3) / PEAK_OPS_PER_S["bfloat16"],
+        "max_memory_allocated": int(peak),
+        "losses": losses,
+    }
+    emit(rec)
+    return rec
+
+
+def _bf16_vs_f32(torch, data_dir):
+    """One batch of the job's records through the bf16 and the f32 model
+    from one seeded init: the eval outputs (relative L2) and the first
+    training step's loss."""
+    from elasticdl_tpu_torch.common.constants import Mode
+    from elasticdl_tpu_torch.data.data_reader import create_data_reader
+    from elasticdl_tpu_torch.data.dataset import create_dataset_from_tasks
+    from elasticdl_tpu_torch.master.task_dispatcher import Task
+    from elasticdl_tpu_torch.model_zoo.imagenet_resnet50 import (
+        imagenet_resnet50 as zoo,
+    )
+    from elasticdl_tpu_torch.nn.model_api import init_variables
+    from elasticdl_tpu_torch.training.step import make_forward_fn, make_grad_fn
+
+    reader = create_data_reader(data_dir)
+    shard = next(iter(reader.create_shards()))
+    ds = zoo.dataset_fn(
+        create_dataset_from_tasks(
+            [Task(shard, 0, JOB_BATCH, 0)], reader
+        ),
+        Mode.EVALUATION,
+        None,
+    )
+    features, labels = next(iter(ds.batch(JOB_BATCH).device_prefetch(DEVICE)))
+    out, loss = {}, {}
+    weights = None
+    for dtype in ("float32", "bfloat16"):
+        model = zoo.custom_model(num_classes=JOB_CLASSES, dtype=dtype).to(
+            DEVICE
+        )
+        if weights is None:
+            variables = init_variables(model, SEED)
+            weights = {k: v.detach().clone() for k, v in
+                       {**variables["params"], **variables["state"]}.items()}
+        params = {k: weights[k] for k, _ in model.named_parameters()}
+        state = {k: weights[k] for k, _ in model.named_buffers()}
+        out[dtype] = make_forward_fn(model)(params, state, features)
+        loss[dtype] = float(
+            make_grad_fn(model, zoo.loss)(params, state, features, labels)[0]
+        )
+    reader.close()
+    rel = _rel_l2(torch, out["bfloat16"], out["float32"])
+    loss_rel = abs(loss["bfloat16"] - loss["float32"]) / abs(loss["float32"])
+    return {
+        "batch": JOB_BATCH,
+        "out_rel_l2": rel,
+        "out_rel_l2_limit": BF16_OUT_REL_L2,
+        "out_max_abs_err": float(
+            (out["bfloat16"] - out["float32"]).abs().max()
+        ),
+        "loss_bf16": loss["bfloat16"],
+        "loss_f32": loss["float32"],
+        "loss_rel": loss_rel,
+        "loss_rtol": BF16_LOSS_RTOL,
+        "ok": rel <= BF16_OUT_REL_L2 and loss_rel <= BF16_LOSS_RTOL,
+    }
+
+
+def _device_intervals(prof):
+    """[(start us, end us, name)] of the device's kernels and copies."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            out.append((evt.time_range.start, evt.time_range.end, evt.name))
+    return sorted(out)
+
+
+def _window_record(torch, prof, wall_ms):
+    """Device busy (the union of kernel and copy intervals) against the
+    host's wall, the top device ops and the largest device-idle gaps of
+    one profiled window."""
+    spans = _device_intervals(prof)
+    busy_us, gaps, end = 0.0, [], None
+    for start, stop, name in spans:
+        if end is None or start > end:
+            if end is not None:
+                gaps.append(((start - end) / 1e3, name))
+            busy_us += stop - start
+            end = stop
+        elif stop > end:
+            busy_us += stop - end
+            end = stop
+    busy_ms = busy_us / 1e3
+    gaps.sort(reverse=True)
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if spans else None,
+        "idle_share": (1 - busy_ms / wall_ms) if spans else None,
+        "device_gap_ms_total": sum(g for g, _ in gaps),
+        "largest_gaps": [{"ms": g, "before": n[:90]} for g, n in gaps[:8]],
+        "top": [
+            {"kernel": k[:90], "ms": us / 1e3, "calls": n}
+            for us, k, n in _device_rows(prof)[:15]
+        ],
+    }
+
+
+def _profile_job(torch, data_dir, ckpt_dir, card):
+    """A second job run with torch.profiler on over each window of
+    JOB_PROFILE_WINDOWS (from the start of its first step to the start
+    of its last), one record each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from elasticdl_tpu_torch import cli
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    profs = {w: profile(activities=activities) for w in JOB_PROFILE_WINDOWS}
+    marks = {}
+
+    def on_step(i):
+        for window, (first, last) in JOB_PROFILE_WINDOWS.items():
+            if i in (first, last):
+                torch.cuda.synchronize()
+                marks[window, i] = time.perf_counter()
+                if i == first:
+                    profs[window].start()
+                else:
+                    profs[window].stop()
+
+    with _StepClock(on_step):
+        rc = cli.main(job_argv(data_dir, ckpt_dir))
+    out = {}
+    for window, (first, last) in JOB_PROFILE_WINDOWS.items():
+        if rc != 0 or (window, last) not in marks:
+            raise PhaseError("the profiled job ended rc=%s before step %d"
+                             % (rc, last))
+        wall_ms = (marks[window, last] - marks[window, first]) * 1e3
+        out[window] = rec = dict(
+            _window_record(torch, profs[window], wall_ms),
+            phase="profile",
+            of="job_%s" % window,
+            steps=[first, last],
+            batch=JOB_BATCH,
+            card=card,
+        )
+        emit(rec)
+    return out
+
+
+def phase_job(torch, tmp, fused, card):
+    """The single-process ALLREDUCE job through the port's command line
+    in this process: master -> task dispatcher -> AllReduceWorker ->
+    RecordIO reader, ResNet-50 (bf16, 1000 classes) on JOB_RECORDS
+    synthetic records. Returns the flash kernels' launch counts of the
+    job (ResNet-50 launches none)."""
+    import glob
+
+    import numpy as np
+
+    from elasticdl_tpu_torch import cli
+    from elasticdl_tpu_torch.model_zoo.imagenet_resnet50 import (
+        imagenet_resnet50 as zoo,
+    )
+    from elasticdl_tpu_torch.parallel.trainer import AllReduceTrainer
+
+    data_dir = os.path.join(tmp, "job-data")
+    ckpt_dir = os.path.join(tmp, "job-ckpt")
+    out_dir = os.path.join(tmp, "job-export")
+    write_s = write_job_records(torch, data_dir)
+    jobs = []
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    with _StepClock() as clock:
+        rc = cli.main(job_argv(data_dir, ckpt_dir, out_dir), jobs=jobs)
+    job_s = time.perf_counter() - t0
+    counts = _counts()
+    job = jobs[0]
+    trainer = job.worker.trainer
+    steps = JOB_RECORDS // JOB_BATCH
+    losses = job.losses or []
+
+    # the job's outcome
+    problems = []
+    if rc != 0:
+        problems.append("exit code %s" % rc)
+    if not job.master.task_d.finished():
+        problems.append("the dispatcher has tasks left")
+    if trainer.version != steps:
+        problems.append("version %d, expected %d" % (trainer.version, steps))
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        problems.append("losses %s" % losses)
+    ts = trainer.train_state
+    bad = [n for n, p in ts.params.items()
+           if not bool(torch.isfinite(p).all())]
+    if bad:
+        problems.append("non-finite params %s" % bad)
+    moved = sum(
+        1 for n, b in ts.state.items()
+        if not torch.equal(
+            b, torch.zeros_like(b) if n.endswith("mean") else
+            torch.ones_like(b)
+        )
+    )
+    if moved != len(ts.state):
+        problems.append("%d of %d batch statistics never moved"
+                        % (len(ts.state) - moved, len(ts.state)))
+    ckpts = sorted(glob.glob(os.path.join(ckpt_dir, "ckpt_v*")))
+    newest = max(ckpts, key=lambda d: int(d.rsplit("_v", 1)[1]),
+                 default=None)
+    restored_equal = False
+    if newest is None:
+        problems.append("no ckpt_v* directory")
+    else:
+        fresh = AllReduceTrainer(
+            zoo.custom_model(num_classes=JOB_CLASSES), zoo.loss,
+            zoo.optimizer(), seed=SEED + 1, device=DEVICE,
+        )
+        fresh.init_from_batch(None)
+        version = fresh.restore_sharded(newest)
+        rs = fresh.train_state
+        restored_equal = (
+            version == trainer.version
+            and all(torch.equal(rs.params[n], p) for n, p in ts.params.items())
+            and all(torch.equal(rs.state[n], b) for n, b in ts.state.items())
+        )
+        if not restored_equal:
+            problems.append("restoring %s is not bitwise the final state"
+                            % newest)
+        del fresh, rs
+    manifests = glob.glob(os.path.join(out_dir, "*", "MANIFEST.json"))
+    if not manifests:
+        problems.append("no export manifest under %s" % out_dir)
+    bf16 = _bf16_vs_f32(torch, data_dir)
+    if not bf16["ok"]:
+        problems.append("bf16 against f32: %s" % bf16)
+
+    # timed steps: the first excluded (it waits for the whole shuffle
+    # buffer: the zoo shuffles 1024 records, more than the job has)
+    spans = clock.spans
+    timed_s = spans[-1][1] - spans[0][1] if len(spans) > 1 else float("nan")
+    in_step_s = sum(e - s for s, e in spans[1:])
+    job_eps = (len(spans) - 1) * JOB_BATCH / timed_s
+    stats = job.worker.input_stats.snapshot()
+    rec = {
+        "phase": "job",
+        "card": card,
+        "model": JOB_MODEL_DEF + " (bf16, params float32)",
+        "records": JOB_RECORDS,
+        "image": JOB_IMAGE,
+        "batch": JOB_BATCH,
+        "records_per_task": JOB_BATCH * JOB_MINIBATCHES_PER_TASK,
+        "checkpoint_steps": JOB_CKPT_STEPS,
+        "write_records_s": write_s,
+        "job_s": job_s,
+        "first_step_end_s": spans[0][1] - t0 if spans else None,
+        "steps": len(spans),
+        "version": trainer.version,
+        "losses": losses,
+        "step_ms": [(e - s) * 1e3 for s, e in spans],
+        "timed_steps": len(spans) - 1,
+        "timed_s": timed_s,
+        "timed_in_step_s": in_step_s,
+        "timed_between_steps_s": timed_s - in_step_s,
+        "examples_per_s": job_eps,
+        "fused_examples_per_s": fused["examples_per_s"],
+        "job_over_fused": job_eps / fused["examples_per_s"],
+        "input_stats": stats,
+        "checkpoints": [os.path.basename(d) for d in ckpts],
+        "restore_bitwise": restored_equal,
+        "export_manifests": len(manifests),
+        "bf16_vs_f32": bf16,
+        "launches": {k: v[0] for k, v in counts.items()},
+    }
+    emit(rec)
+    if problems:
+        raise PhaseError("job: " + "; ".join(problems))
+    del job, trainer, ts, jobs
+    _profile_job(
+        torch, data_dir, os.path.join(tmp, "job-ckpt-profiled"), card
+    )
+    return counts
+
+
 def _record_at(records, kernel, key):
     b, lq, lk, h, d, dtype, causal = key
     return next(
@@ -1409,7 +1908,13 @@ def main(argv=None):
         with tempfile.TemporaryDirectory() as tmp:
             served = phase_slice(torch, tmp)
         trained = phase_train(torch)
-        line = kernels_line(records, {"serve": served, "train": trained})
+        fused = phase_fused_step(torch, card)
+        with tempfile.TemporaryDirectory() as tmp:
+            job = phase_job(torch, tmp, fused, card)
+        _check_counts(job, {k: 0 for k in KERNELS}, "the ResNet-50 job")
+        line = kernels_line(
+            records, {"serve": served, "train": trained, "job": job}
+        )
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback
 

@@ -5,8 +5,18 @@ The reference names a parameter by its ``/``-joined flax path
 ``(768, 12, 64)``); export artifacts and checkpoints carry those names.
 The port's modules hold ``nn.Linear`` weights as ``(out, in)`` under
 ``state_dict`` keys. :func:`to_state_dict` and :func:`to_named` map one
-to the other for the transformer LM, so one set of weights feeds both
-packages and artifacts cross between them unchanged.
+to the other for the transformer LM and the convolutional zoo models
+(ResNet-50, the MNIST CNN), so one set of weights feeds both packages and
+artifacts cross between them unchanged.
+
+flax names a layer by its creation order: ResNet-50's stem is
+``Conv_0``/``BatchNorm_0``, its blocks ``BottleneckBlock_{0..15}`` with
+``Conv_{0..3}``/``BatchNorm_{0..3}`` inside (in a projection block the
+shortcut is ``Conv_3``/``BatchNorm_3``), its head ``Dense_0``; the port
+names them ``conv{j}``/``norm{j}``, ``blocks.{i}`` and ``head``. BatchNorm
+``scale``/``bias`` are the norm's weight and bias, and the ``batch_stats``
+``mean``/``var`` (model state, named ``batch_stats/...``) its
+``running_mean``/``running_var`` buffers.
 
 Layouts:
 
@@ -15,13 +25,18 @@ Layouts:
 - ``heads_out``: a ``DenseGeneral`` kernel ``(E, H, D)`` (q/k/v
   projections) is ``(H*D, E)`` once its head axes are flattened.
 - ``heads_in``: the output projection's ``(H, D, E)`` is ``(E, H*D)``.
+- ``conv``: a ``Conv`` kernel ``(kh, kw, in, out)`` is the ``(out, in, kh,
+  kw)`` convolution weight.
 
-Gradients and Adam moments have their parameter's layout, so they cross
-by the same rules. :func:`load_adam_state` and :func:`adam_state_named`
-carry optax's Adam state (``mu``, ``nu``, ``count``) into a torch
-``AdamW``'s (``exp_avg``, ``exp_avg_sq``, ``step``) and back, so a
-reference train state converts into the port's
-(:func:`to_train_state`) and back (:func:`from_train_state`).
+Gradients, Adam moments and the SGD momentum trace have their parameter's
+layout, so they cross by the same rules. :func:`load_adam_state` and
+:func:`adam_state_named` carry optax's Adam state (``mu``, ``nu``,
+``count``) into a torch ``AdamW``'s (``exp_avg``, ``exp_avg_sq``,
+``step``) and back; :func:`load_sgd_state` and :func:`sgd_state_named`
+carry ``optax.sgd``'s momentum ``trace`` into SGD's ``momentum_buffer``
+and back. So a reference train state (params, batch statistics and the
+optimizer's state) converts into the port's (:func:`to_train_state`) and
+back (:func:`from_train_state`).
 """
 
 import re
@@ -40,9 +55,29 @@ _RULES = (  # (reference path, state_dict key, layout)
     ("block_{i}/{mlp}/kernel", "blocks.{i}.{mlp}.weight", "dense"),
     ("block_{i}/{mlp}/bias", "blocks.{i}.{mlp}.bias", None),
     ("RMSNorm_0/scale", "norm.weight", None),
+    # the convolutional models (ResNet-50, the MNIST CNN)
+    ("Conv_{j}/kernel", "conv{j}.weight", "conv"),
+    ("Conv_{j}/bias", "conv{j}.bias", None),
+    ("BatchNorm_{j}/scale", "norm{j}.weight", None),
+    ("BatchNorm_{j}/bias", "norm{j}.bias", None),
+    ("BottleneckBlock_{i}/Conv_{j}/kernel", "blocks.{i}.conv{j}.weight",
+     "conv"),
+    ("BottleneckBlock_{i}/BatchNorm_{j}/scale", "blocks.{i}.norm{j}.weight",
+     None),
+    ("BottleneckBlock_{i}/BatchNorm_{j}/bias", "blocks.{i}.norm{j}.bias",
+     None),
+    ("GroupNorm_0/scale", "group_norm.weight", None),
+    ("GroupNorm_0/bias", "group_norm.bias", None),
+    ("Dense_0/kernel", "head.weight", "dense"),
+    ("Dense_0/bias", "head.bias", None),
+    ("batch_stats/BatchNorm_{j}/{stat}", "norm{j}.running_{stat}", None),
+    ("batch_stats/BottleneckBlock_{i}/BatchNorm_{j}/{stat}",
+     "blocks.{i}.norm{j}.running_{stat}", None),
 )
 _FIELDS = {
     "i": r"(?P<i>\d+)",
+    "j": r"(?P<j>\d+)",
+    "stat": r"(?P<stat>mean|var)",
     "proj": r"(?P<proj>query|key|value)",
     "mlp": r"(?P<mlp>mlp_up|mlp_down)",
 }
@@ -94,11 +129,13 @@ def to_state_dict(named):
             t = t.reshape(-1, t.shape[-1]).T
         elif layout == "dense":
             t = t.T
+        elif layout == "conv":
+            t = t.permute(3, 2, 0, 1)
         state[key.format(**fields)] = t.contiguous()
     return state
 
 
-def to_named(state_dict, num_heads, head_dim):
+def to_named(state_dict, num_heads=None, head_dim=None):
     """{state_dict key: tensor} -> {reference path: CPU torch tensor in
     the reference's layout}."""
     named = {}
@@ -111,6 +148,8 @@ def to_named(state_dict, num_heads, head_dim):
             t = t.T.reshape(num_heads, head_dim, t.shape[0])
         elif layout == "dense":
             t = t.T
+        elif layout == "conv":
+            t = t.permute(2, 3, 1, 0)
         named[ref.format(**fields)] = t.contiguous()
     return named
 
@@ -128,7 +167,7 @@ def load_adam_state(opt, params, mu, nu, count):
         }
 
 
-def adam_state_named(opt, params, num_heads, head_dim):
+def adam_state_named(opt, params, num_heads=None, head_dim=None):
     """The torch Adam/AdamW state of ``params`` as optax's: ``(mu, nu,
     count)`` with the moments as {reference path: CPU tensor}. A
     parameter the optimizer has not stepped yet has zero moments."""
@@ -147,35 +186,66 @@ def adam_state_named(opt, params, num_heads, head_dim):
     )
 
 
+def load_sgd_state(opt, params, trace):
+    """Set the torch SGD ``opt`` (bound to ``params``, {state_dict key:
+    tensor}) to ``optax.sgd``'s momentum ``trace`` ({reference path:
+    array})."""
+    trace = to_state_dict(trace)
+    for key, p in params.items():
+        opt.state[p] = {
+            "momentum_buffer": trace[key].to(device=p.device, dtype=p.dtype)
+        }
+
+
+def sgd_state_named(opt, params):
+    """The torch SGD momentum buffers of ``params`` as optax's ``trace``
+    ({reference path: CPU tensor}); zeros for a parameter not stepped
+    yet, as optax initializes it."""
+    trace = {}
+    for key, p in params.items():
+        buf = (opt.state.get(p) or {}).get("momentum_buffer")
+        trace[key] = torch.zeros_like(p) if buf is None else buf
+    return to_named(trace)
+
+
 def to_train_state(named_params, optimizer, adam=None, version=0,
-                   device="cuda"):
+                   device="cuda", batch_stats=None, trace=None):
     """A reference train state -> the port's ``TrainState`` on
     ``device`` (the card unless the caller names the CPU; raises where
     there is no card): ``named_params`` {reference path: array},
     ``optimizer`` the zoo's factory, ``adam`` optional ``(mu, nu,
-    count)``."""
+    count)``, ``batch_stats`` the model state ({``batch_stats/...`` path:
+    array}), ``trace`` optax.sgd's momentum trace."""
     from elasticdl_tpu_torch.training.step import TrainState
 
     device = resolve_device(device)
     params = {
         k: v.to(device) for k, v in to_state_dict(named_params).items()
     }
-    ts = TrainState.create(params, {}, optimizer, version=version)
+    state = {
+        k: v.to(device) for k, v in to_state_dict(batch_stats or {}).items()
+    }
+    ts = TrainState.create(params, state, optimizer, version=version)
     if adam is not None:
         load_adam_state(ts.opt_state, ts.params, *adam)
+    if trace is not None:
+        load_sgd_state(ts.opt_state, ts.params, trace)
     return ts
 
 
-def from_train_state(ts, num_heads, head_dim):
-    """The port's ``TrainState`` -> ``{"params", "mu", "nu", "count",
-    "version"}`` in the reference's names and layouts."""
-    mu, nu, count = adam_state_named(
-        ts.opt_state, ts.params, num_heads, head_dim
-    )
-    return {
+def from_train_state(ts, num_heads=None, head_dim=None):
+    """The port's ``TrainState`` -> ``{"params", "batch_stats", "version"}``
+    plus the optimizer's state in the reference's names and layouts:
+    ``"trace"`` for SGD, ``"mu"``, ``"nu"`` and ``"count"`` for Adam."""
+    out = {
         "params": to_named(ts.params, num_heads, head_dim),
-        "mu": mu,
-        "nu": nu,
-        "count": count,
+        "batch_stats": to_named(ts.state or {}),
         "version": ts.version,
     }
+    if isinstance(ts.opt_state, torch.optim.SGD):
+        out["trace"] = sgd_state_named(ts.opt_state, ts.params)
+    else:
+        out["mu"], out["nu"], out["count"] = adam_state_named(
+            ts.opt_state, ts.params, num_heads, head_dim
+        )
+    return out

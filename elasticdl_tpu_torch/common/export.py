@@ -12,6 +12,13 @@ falls back to ``model.chkpt`` when ``params`` is null — so artifacts cross
 between the packages both ways. Arrays are named by the reference's
 ``/``-joined parameter paths (``block_0/query/kernel``);
 common/convert.py maps them to a module's ``state_dict``.
+
+:func:`export_train_state` is the training half: the SAVE_MODEL task's
+export of a train state. As in the reference, ``model.chkpt`` carries the
+parameters only; the reference bakes a BatchNorm model's running
+statistics into its ``serving_fn.jaxexport`` member, which has no
+counterpart here, so a BatchNorm model's artifact from the port has no
+running statistics.
 """
 
 import json
@@ -71,6 +78,20 @@ def export_model(export_dir, named, version, metadata=None):
     os.replace(tmp, os.path.join(export_dir, MANIFEST_NAME))
     logger.info("exported model v%d to %s", version, export_dir)
     return manifest
+
+
+def export_train_state(export_dir, ts, model=None, metadata=None):
+    """Write an artifact of train state ``ts`` (its parameters, under the
+    reference's names, at its version); ``model`` supplies the head
+    layout a transformer's attention weights need."""
+    from elasticdl_tpu_torch.common.convert import to_named
+
+    named = to_named(
+        ts.params,
+        getattr(model, "num_heads", None),
+        getattr(model, "head_dim", None),
+    )
+    return export_model(export_dir, named, ts.version, metadata=metadata)
 
 
 def export_provenance(model_zoo, model_def, model_params):

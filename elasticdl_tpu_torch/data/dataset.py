@@ -5,8 +5,17 @@ The fluent surface a zoo ``dataset_fn(dataset, mode, metadata)`` uses —
 plain Python iterators of numpy-structured elements (dicts/tuples of
 arrays). ``batch`` stacks leaf-wise; ``prefetch`` runs the upstream
 pipeline in a daemon thread. A seeded ``shuffle`` draws the same order as
-the reference's. Not ported yet: ``device_prefetch`` (a pinned-memory,
-side-stream copy belongs to the job slice) and the input-plane stats.
+the reference's. A Dataset can carry an ``input_stats.InputPlaneStats``:
+every transform passes it on and charges its own stage (``map`` parse
+time, ``batch`` assembly, ``prefetch`` consumer starvation,
+``device_prefetch`` the host side of its copies).
+
+``device_prefetch(device)`` moves batches to the card ahead of their
+use: each leaf is copied into pinned host memory and from there, without
+blocking, on a side CUDA stream; the consuming stream waits on the
+copy's event, and each batch is marked as used by that stream so the
+caching allocator does not hand its memory out early. On the CPU, which
+the caller must name, it is a plain conversion to tensors.
 """
 
 import collections
@@ -14,8 +23,12 @@ import concurrent.futures
 import queue
 import random as _random
 import threading
+import time
 
 import numpy as np
+import torch
+
+from elasticdl_tpu_torch.common.device import resolve_device
 
 
 def _tree_stack(elements):
@@ -81,13 +94,14 @@ def _tree_assemble(elements):
 class Dataset:
     """Lazily-evaluated record stream; each transform returns a new Dataset."""
 
-    def __init__(self, gen_factory):
+    def __init__(self, gen_factory, stats=None):
         self._gen_factory = gen_factory
+        self._stats = stats
 
     @staticmethod
-    def from_generator(gen_factory):
+    def from_generator(gen_factory, stats=None):
         """gen_factory: zero-arg callable returning a fresh iterator."""
-        return Dataset(gen_factory)
+        return Dataset(gen_factory, stats=stats)
 
     @staticmethod
     def from_tensors(elements):
@@ -99,15 +113,32 @@ class Dataset:
         thread pool, merged back in input order (an exception raised on
         element i surfaces after element i-1). An abandoned consumer stops
         the pool from pulling more of the source."""
+        stats = self._stats
+        # parse time accumulates in locals and reaches the (locked) stats
+        # once per iteration, not per record
         if not num_parallel_calls or num_parallel_calls <= 1:
 
             def gen():
-                for x in self._gen_factory():
-                    yield fn(x)
+                parse_s = 0.0
+                perf = time.perf_counter
+                try:
+                    for x in self._gen_factory():
+                        t0 = perf()
+                        out = fn(x)
+                        parse_s += perf() - t0
+                        yield out
+                finally:
+                    if stats is not None:
+                        stats.add("parse_s", parse_s)
 
-            return Dataset(gen)
+            return Dataset(gen, stats=stats)
 
         window = 2 * num_parallel_calls
+
+        def timed(x):
+            t0 = time.perf_counter()
+            out = fn(x)
+            return time.perf_counter() - t0, out
 
         def gen():
             pool = concurrent.futures.ThreadPoolExecutor(
@@ -115,17 +146,27 @@ class Dataset:
                 thread_name_prefix="edl-map",
             )
             pending = collections.deque()
+            parse_s = 0.0
+
+            def resolve(future):
+                nonlocal parse_s
+                dt, out = future.result()
+                parse_s += dt
+                return out
+
             try:
                 for x in self._gen_factory():
-                    pending.append(pool.submit(fn, x))
+                    pending.append(pool.submit(timed, x))
                     if len(pending) >= window:
-                        yield pending.popleft().result()
+                        yield resolve(pending.popleft())
                 while pending:
-                    yield pending.popleft().result()
+                    yield resolve(pending.popleft())
             finally:
                 pool.shutdown(wait=False, cancel_futures=True)
+                if stats is not None:
+                    stats.add("parse_s", parse_s)
 
-        return Dataset(gen)
+        return Dataset(gen, stats=stats)
 
     def filter(self, pred):
         def gen():
@@ -133,7 +174,7 @@ class Dataset:
                 if pred(x):
                     yield x
 
-        return Dataset(gen)
+        return Dataset(gen, stats=self._stats)
 
     def shuffle(self, buffer_size, seed=None, reshuffle_each_iteration=True):
         """Streaming buffer shuffle with tf.data semantics: a seeded
@@ -161,25 +202,34 @@ class Dataset:
             rng.shuffle(buf)
             yield from buf
 
-        return Dataset(gen)
+        return Dataset(gen, stats=self._stats)
 
     def batch(self, batch_size, drop_remainder=False, vectorized=True):
         """Group ``batch_size`` elements into one stacked tree;
         ``vectorized`` fills preallocated per-leaf buffers, False stacks
         with ``np.stack`` (identical arrays for numeric trees)."""
         assemble = _tree_assemble if vectorized else _tree_stack
+        stats = self._stats
+
+        def emit(batch):
+            t0 = time.perf_counter()
+            out = assemble(batch)
+            if stats is not None:
+                stats.add("batch_s", time.perf_counter() - t0)
+                stats.count("batches")
+            return out
 
         def gen():
             batch = []
             for x in self._gen_factory():
                 batch.append(x)
                 if len(batch) == batch_size:
-                    yield assemble(batch)
+                    yield emit(batch)
                     batch = []
             if batch and not drop_remainder:
-                yield assemble(batch)
+                yield emit(batch)
 
-        return Dataset(gen)
+        return Dataset(gen, stats=stats)
 
     def repeat(self, count=None):
         def gen():
@@ -193,7 +243,7 @@ class Dataset:
                     return
                 n += 1
 
-        return Dataset(gen)
+        return Dataset(gen, stats=self._stats)
 
     def take(self, n):
         def gen():
@@ -202,7 +252,7 @@ class Dataset:
                     return
                 yield x
 
-        return Dataset(gen)
+        return Dataset(gen, stats=self._stats)
 
     def prefetch(self, buffer_size=1):
         """Run the upstream pipeline in a background thread. The producer
@@ -233,9 +283,17 @@ class Dataset:
                     put_or_cancel(e)
 
             threading.Thread(target=produce, daemon=True).start()
+            stats = self._stats
             try:
                 while True:
+                    # a consumer blocked here is starved: the device
+                    # outran the host's input pipeline
+                    t0 = time.perf_counter()
                     item = q.get()
+                    if stats is not None:
+                        stats.add(
+                            "consumer_starved_s", time.perf_counter() - t0
+                        )
                     if item is end:
                         return
                     if isinstance(item, BaseException):
@@ -244,13 +302,80 @@ class Dataset:
             finally:
                 cancel.set()
 
-        return Dataset(gen)
+        return Dataset(gen, stats=self._stats)
+
+    def device_prefetch(self, device, buffer_size=2):
+        """Elements as tensors on ``device``, copied ``buffer_size`` ahead
+        of their use (call it last in the pipeline). On CUDA each numpy
+        leaf is staged in pinned host memory and copied without blocking
+        on a side stream, so the copy of batch N+1 overlaps the compute on
+        batch N; the consumer's stream waits on the copy's event before
+        it sees the batch, and ``record_stream`` keeps the allocator from
+        reusing the batch's memory while that stream may still read it.
+        On the CPU (named by the caller) it is a plain conversion."""
+        device = resolve_device(device)
+        stats = self._stats
+
+        def gen():
+            if device.type != "cuda":
+                for x in self._gen_factory():
+                    yield tree_map(_host_tensor, x)
+                return
+            side = torch.cuda.Stream(device=device)
+            buf = collections.deque()
+
+            def put(x):
+                t0 = time.perf_counter()
+                pinned = tree_map(
+                    lambda leaf: _host_tensor(leaf).pin_memory(), x
+                )
+                with torch.cuda.stream(side):
+                    on_card = tree_map(
+                        lambda t: t.to(device, non_blocking=True), pinned
+                    )
+                    done = torch.cuda.Event()
+                    done.record(side)
+                if stats is not None:
+                    stats.add("h2d_s", time.perf_counter() - t0)
+                return on_card, done
+
+            def take(item):
+                on_card, done = item
+                consumer = torch.cuda.current_stream(device)
+                consumer.wait_event(done)
+                tree_map(lambda t: t.record_stream(consumer), on_card)
+                return on_card
+
+            for x in self._gen_factory():
+                buf.append(put(x))
+                if len(buf) > max(1, buffer_size):
+                    yield take(buf.popleft())
+            while buf:
+                yield take(buf.popleft())
+
+        return Dataset(gen, stats=stats)
 
     def __iter__(self):
         return iter(self._gen_factory())
 
     def as_numpy_iterator(self):
         return iter(self)
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a dict/tuple/list tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _host_tensor(leaf):
+    """A numpy leaf as an owned CPU tensor (a tensor passes through)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    return torch.from_numpy(np.array(leaf))
 
 
 def create_dataset_from_tasks(tasks, data_reader):

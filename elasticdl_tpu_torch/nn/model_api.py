@@ -10,6 +10,15 @@ name -> tensor dicts, the reference's two pytrees:
 :func:`apply_model` runs the module through ``torch.func.functional_call``
 over those dicts, so a step can hand it parameters cast to the compute
 dtype inside the differentiated function.
+
+State is functional, as flax's mutable collections are: a layer never
+writes the buffers it was handed. A training forward's new values
+(BatchNorm's running statistics) go to the collector that
+:func:`apply_model` installs on every module with a ``_state_collector``
+attribute for the length of the call, and come back as ``new_state``; the
+state passed in is left as it was. A rematerialized forward that runs
+again during the backward finds no collector installed by the first
+call, so the statistics move once per step.
 """
 
 import contextlib
@@ -73,17 +82,38 @@ def _forked_rng(rng, module):
     return seeded()
 
 
+def _stateful_modules(module):
+    """[(buffer-name prefix, submodule)] of the layers that collect state
+    updates."""
+    return [
+        (name + "." if name else "", m)
+        for name, m in module.named_modules()
+        if hasattr(m, "_state_collector")
+    ]
+
+
 def apply_model(module, params, state, features, training=False, rng=None):
     """Forward pass over the given tensors. Returns ``(output,
     new_state)``.
 
-    ``training`` sets the module's mode for the call; buffers a training
-    forward updates in place (BatchNorm statistics) come back in
-    ``new_state``. ``rng`` (an int) seeds the forward's random draws
-    (dropout) without touching the caller's generator."""
+    ``training`` sets the module's mode for the call; the buffers a
+    training forward moves (BatchNorm statistics) come back in
+    ``new_state``, a new dict, with ``state`` untouched. ``rng`` (an int)
+    seeds the forward's random draws (dropout) without touching the
+    caller's generator."""
     module.train(training)
-    with _forked_rng(rng, module):
-        output = functional_call(
-            module, merge_variables(params, state), (features,)
-        )
+    updates = {}
+    owners = _stateful_modules(module) if training else []
+    for prefix, m in owners:
+        m._state_collector = (prefix, updates)
+    try:
+        with _forked_rng(rng, module):
+            output = functional_call(
+                module, merge_variables(params, state), (features,)
+            )
+    finally:
+        for _, m in owners:
+            m._state_collector = None
+    if updates:
+        state = {**(state or {}), **updates}
     return output, state

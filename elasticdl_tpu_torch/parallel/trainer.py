@@ -7,10 +7,12 @@ which stays on the card between steps and is updated in place. The step
 seed follows the reference's scheme (one draw per host step under the
 trainer's seed).
 
+``save_sharded``/``restore_sharded`` write and read the sharded
+checkpoint layout (common/sharded_checkpoint.py): params, model state,
+the optimizer's per-parameter state and the version.
+
 Not ported yet: more than one device (``resize``, sharded placement via
-``param_specs`` or ``mesh``) and sharded checkpoints
-(``save_sharded``/``restore_sharded``); each raises
-``NotImplementedError``.
+``param_specs`` or ``mesh``); each raises ``NotImplementedError``.
 """
 
 import numpy as np
@@ -119,18 +121,23 @@ class AllReduceTrainer:
         state): its tensors move to this trainer's device, and its
         optimizer is rebuilt over the moved parameters with its state
         carried over."""
+        self._adopt(
+            ts.params, ts.state, ts.opt_state.state_dict(), ts.version
+        )
+
+    def _adopt(self, params, state, opt_state_dict, version):
         self._place_module()
         params = {
             n: p.detach().to(self._device).requires_grad_(True)
-            for n, p in ts.params.items()
+            for n, p in params.items()
         }
         opt = self._optimizer(list(params.values()))
-        opt.load_state_dict(ts.opt_state.state_dict())
+        opt.load_state_dict(opt_state_dict)
         self._ts = TrainState(
             params=params,
-            state={n: b.to(self._device) for n, b in ts.state.items()},
+            state={n: b.to(self._device) for n, b in state.items()},
             opt_state=opt,
-            version=ts.version,
+            version=version,
         )
 
     def train_step(self, features, labels):
@@ -170,7 +177,49 @@ class AllReduceTrainer:
         )
 
     def save_sharded(self, directory):
-        raise _not_ported("save_sharded (sharded checkpoints)")
+        """Write the train state as one sharded checkpoint directory."""
+        from elasticdl_tpu_torch.common.sharded_checkpoint import (
+            save_sharded,
+            train_state_leaves,
+        )
+
+        save_sharded(directory, train_state_leaves(self._ts), self.version)
 
     def restore_sharded(self, directory):
-        raise _not_ported("restore_sharded (sharded checkpoints)")
+        """Adopt the checkpoint in ``directory`` (the state must exist,
+        e.g. from ``init_from_batch``: its optimizer settings are kept);
+        returns the restored version. Raises, leaving the state as it
+        was, when the checkpoint does not cover this model."""
+        from elasticdl_tpu_torch.common.sharded_checkpoint import (
+            load_sharded_to_host,
+            split_train_state_leaves,
+        )
+
+        _, leaves = load_sharded_to_host(directory)
+        params, state, opt, version = split_train_state_leaves(
+            leaves, list(self._ts.params)
+        )
+        for what, got, want in (
+            ("params", params, self._ts.params),
+            ("state", state, self._ts.state),
+        ):
+            if sorted(got) != sorted(want):
+                raise KeyError(
+                    "checkpoint %s has %s %s, the model %s"
+                    % (directory, what, sorted(got), sorted(want))
+                )
+            for name, value in got.items():
+                if tuple(value.shape) != tuple(want[name].shape):
+                    raise ValueError(
+                        "checkpoint %s: %s %s has shape %s, the model %s"
+                        % (directory, what, name, tuple(value.shape),
+                           tuple(want[name].shape))
+                    )
+        groups = self._ts.opt_state.state_dict()["param_groups"]
+        self._adopt(
+            {n: params[n] for n in self._ts.params},
+            state,
+            {"state": opt, "param_groups": groups},
+            version,
+        )
+        return version

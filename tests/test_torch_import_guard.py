@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports nothing of JAX or of the JAX
-package, and it never drifts onto the CPU when the card is asked for."""
+package (and the job path nothing of gRPC, which the card's machine
+lacks), and it never drifts onto the CPU when the card is asked for."""
 
 import os
 import shutil
@@ -13,7 +14,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
-           "elasticdl_tpu", "model_zoo")
+           "elasticdl_tpu", "model_zoo", "grpc")
 
 # A meta-path finder that refuses the blocked top-level packages; run
 # first in a fresh interpreter, before anything else is imported.
@@ -71,7 +72,52 @@ def test_every_port_module_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     count = int(proc.stdout.split()[-1])
-    assert count >= 20  # every module of the slice, packages included
+    # every module of the slices, packages included (master/, worker/
+    # and the zoo's ResNet-50 and MNIST modules among them)
+    assert count >= 50
+
+
+def test_the_job_runs_with_jax_and_grpc_blocked(tmp_path):
+    """A CPU mnist job through the command-line entry, in a fresh
+    interpreter where jax, grpc and the JAX package cannot be imported."""
+    proc = _run_blocked(
+        """
+        import os
+        import numpy as np
+        sys.path.insert(0, %r)
+        from elasticdl_tpu_torch import cli
+        from elasticdl_tpu_torch.data.example import encode_example
+        from elasticdl_tpu_torch.data.recordio import RecordIOWriter
+        data = os.path.join(%r, "data")
+        os.makedirs(data)
+        rng = np.random.default_rng(0)
+        with RecordIOWriter(os.path.join(data, "f0")) as w:
+            for _ in range(32):
+                w.write(encode_example({
+                    "image": rng.random(784, dtype=np.float32) * 255,
+                    "label": np.array([rng.integers(0, 10)], np.int64),
+                }))
+        jobs = []
+        rc = cli.main([
+            "train", "--job_name", "j", "--distribution_strategy",
+            "AllreduceStrategy", "--num_workers", "0", "--model_zoo", "",
+            "--model_def", "mnist_subclass.mnist_subclass.CustomModel",
+            "--training_data", data, "--minibatch_size", "8",
+            "--checkpoint_dir", os.path.join(%r, "ckpt"),
+            "--checkpoint_steps", "2", "--output", os.path.join(%r, "out"),
+            "--device", "cpu",
+        ], jobs=jobs)
+        leaked = sorted(
+            m for m in sys.modules if m.split(".")[0] in BLOCKED
+        )
+        assert not leaked, leaked
+        assert rc == 0 and jobs[0].worker.trainer.version == 4
+        print("version", jobs[0].worker.trainer.version)
+        """
+        % (REPO, str(tmp_path), str(tmp_path), str(tmp_path))
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.split()[-1] == "4"
 
 
 @pytest.fixture
@@ -109,9 +155,28 @@ def _cuda_trainer(tmp_path):
     return AllReduceTrainer(zoo.custom_model(), zoo.loss, zoo.optimizer())
 
 
+def _cuda_job(tmp_path):
+    from elasticdl_tpu_torch import cli
+
+    (tmp_path / "data").mkdir()
+    return cli.main([
+        "train", "--job_name", "j", "--distribution_strategy",
+        "AllreduceStrategy", "--num_workers", "0", "--model_zoo", "",
+        "--model_def", "mnist_subclass.mnist_subclass.CustomModel",
+        "--training_data", str(tmp_path / "data"), "--minibatch_size", "8",
+    ])
+
+
+def _cuda_prefetch(tmp_path):
+    from elasticdl_tpu_torch.data.dataset import Dataset
+
+    return Dataset.from_tensors([1]).device_prefetch("cuda")
+
+
 @pytest.mark.parametrize(
     "entry",
-    [_resolve_cuda, _build_cuda_scorer, _cuda_scorer_model, _cuda_trainer],
+    [_resolve_cuda, _build_cuda_scorer, _cuda_scorer_model, _cuda_trainer,
+     _cuda_job, _cuda_prefetch],
 )
 def test_cuda_without_a_card_raises(no_card, tmp_path, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
