@@ -52,7 +52,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (idle share, top device ops, the largest device-idle gaps). ResNet-50
    launches none of the flash kernels: the kernels line says so
    (``launches_by_path.job`` = 0).
-7. summary — the kernels line, the card line, then the result line.
+7. eval    — the evaluation plane on the same model and records, through
+   the port's command line: the job again with 256 validation records
+   from the seed and ``--evaluation_steps 4`` (three rounds, pinned to
+   versions 4, 8 and 12, each over all 256 records and within 2/256 of
+   a direct forward of its checkpoint restored into a fresh model; the
+   job's examples/s against the job phase's, and the rounds' seconds);
+   ``evaluate`` on the same images labelled from the final checkpoint's
+   own predictions, half of them off by one, from the checkpoint (0.5
+   within 2/256) and from the export (the direct fresh-statistics
+   forward's accuracy); ``predict`` with a capturing processor (every
+   record once, within 1e-2 relative L2 of the direct forward). No flash
+   kernel launches (``launches_by_path.eval`` = 0).
+8. summary — the kernels line, the card line, then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -1819,6 +1831,432 @@ def phase_job(torch, tmp, fused, card):
     _profile_job(
         torch, data_dir, os.path.join(tmp, "job-ckpt-profiled"), card
     )
+    return counts, rec
+
+
+# ---------------------------------------------------------------------------
+# evaluation: interleaved rounds, evaluation-only and prediction-only jobs
+# ---------------------------------------------------------------------------
+
+EVAL_RECORDS = 256  # validation records: 4 batches, 2 tasks of 128
+EVAL_STEPS = 4  # a round each time the version passes 4, 8, 12
+# a round's accuracy against the direct forward of its checkpoint: at
+# most 2 of the records may differ (cuDNN picks its algorithms per call,
+# so a near-tie can flip)
+EVAL_TOL_RECORDS = 2
+# bf16 outputs of a round or of the predict job against the direct
+# forward, by relative L2 (the same inputs and weights: only cuDNN's
+# choices of algorithm may differ)
+EVAL_REL_L2 = 1e-2
+
+
+def write_records(data_dir, images, labels):
+    """One RecordIO file of (image, label) records; returns seconds."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.data.example import encode_example
+    from elasticdl_tpu_torch.data.recordio import RecordIOWriter
+
+    t0 = time.perf_counter()
+    os.makedirs(data_dir, exist_ok=True)
+    with RecordIOWriter(os.path.join(data_dir, "records-0")) as w:
+        for image, label in zip(images, labels):
+            w.write(encode_example(
+                {"image": image, "label": np.array([label], np.int64)}
+            ))
+    return time.perf_counter() - t0
+
+
+class _Timed:
+    """Times every call of ``cls.name`` while installed: ``calls`` holds
+    (``key(first argument)`` or None, seconds)."""
+
+    def __init__(self, cls, name, key=None):
+        self._cls, self._name, self._key = cls, name, key
+        self._orig = getattr(cls, name)
+        self.calls = []
+
+    def __enter__(self):
+        timer, orig, key = self, self._orig, self._key
+
+        def timed(obj, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return orig(obj, *args, **kwargs)
+            finally:
+                arg = key(args[0]) if key and args else None
+                timer.calls.append((arg, time.perf_counter() - t0))
+
+        setattr(self._cls, self._name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self._cls, self._name, self._orig)
+        return False
+
+
+class _EvalReports:
+    """Every evaluation report's pinned version and outputs, in order,
+    and its labels counted by version."""
+
+    def __init__(self):
+        from elasticdl_tpu_torch.master.servicer import MasterServicer
+
+        self._cls = MasterServicer
+        self._orig = MasterServicer.report_evaluation_metrics
+        self.records = {}
+        self.outputs = []  # (version, outputs of the report's task)
+
+    def __enter__(self):
+        reports, orig = self, self._orig
+
+        def spy(servicer, version, outputs, labels, scored_version=None):
+            reports.records[version] = (
+                reports.records.get(version, 0) + len(labels)
+            )
+            reports.outputs.append((version, outputs["output"]))
+            return orig(servicer, version, outputs, labels,
+                        scored_version=scored_version)
+
+        self._cls.report_evaluation_metrics = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.report_evaluation_metrics = self._orig
+        return False
+
+
+def _checkpoint_weights(torch, directory):
+    """(params, state) of a sharded checkpoint, on the card."""
+    from elasticdl_tpu_torch.common.sharded_checkpoint import (
+        load_sharded_to_host,
+    )
+
+    _, leaves = load_sharded_to_host(directory)
+    params, state = {}, {}
+    for path, value in leaves.items():
+        head, _, name = path.partition("/")
+        if head in ("params", "state"):
+            (params if head == "params" else state)[name] = value.to(DEVICE)
+    return params, state
+
+
+def _export_weights(torch, export_dir):
+    """(params, fresh BatchNorm statistics) of an export artifact: the
+    artifact carries parameters only."""
+    from elasticdl_tpu_torch.common import convert
+    from elasticdl_tpu_torch.common.model_utils import (
+        load_from_checkpoint_file,
+    )
+
+    _, named = load_from_checkpoint_file(export_dir)
+    params = {k: v.to(DEVICE) for k, v in convert.to_state_dict(named).items()}
+    state = {k: b.to(DEVICE) for k, b in job_model().named_buffers()}
+    return params, state
+
+
+def job_model():
+    """The job's model, built from its --model_params."""
+    from elasticdl_tpu_torch.common.model_utils import build_model
+
+    return build_model(
+        JOB_MODEL_DEF, JOB_MODEL_PARAMS or "num_classes=%d" % JOB_CLASSES
+    )
+
+
+def _direct_forward(torch, params, state, images):
+    """The zoo model's inference forward (BatchNorm on running
+    statistics) over ``images`` at JOB_BATCH: outputs as float32 on the
+    card."""
+    from elasticdl_tpu_torch.training.step import make_forward_fn
+
+    fwd = make_forward_fn(job_model().to(DEVICE))
+    out = []
+    for i in range(0, len(images), JOB_BATCH):
+        x = torch.from_numpy(images[i:i + JOB_BATCH]).to(DEVICE)
+        out.append(fwd(params, state, {"image": x}).float())
+    return torch.cat(out)
+
+
+def _accuracy(torch, outputs, labels):
+    """Share of rows whose argmax is the zoo's label (stored label - 1)."""
+    want = torch.as_tensor(labels - 1, device=outputs.device)
+    return float((outputs.argmax(1) == want).float().mean())
+
+
+def serving_argv(verb, data_flag, data_dir, source_flag, source, zoo):
+    return [
+        verb,
+        "--job_name", "chip-smoke-resnet50-" + verb,
+        "--distribution_strategy", "AllreduceStrategy",
+        "--num_workers", "0",
+        "--model_zoo", zoo,
+        "--model_def", JOB_MODEL_DEF,
+        "--model_params", JOB_MODEL_PARAMS or "num_classes=%d" % JOB_CLASSES,
+        data_flag, data_dir,
+        source_flag, source,
+        "--minibatch_size", str(JOB_BATCH),
+        "--num_minibatches_per_task", str(JOB_MINIBATCHES_PER_TASK),
+        "--device", DEVICE,
+        "--log_level", "WARNING",
+    ]
+
+
+def _scoring_job(torch, argv, what):
+    """Run an evaluate or predict job; returns (job, wall seconds, the
+    drain's run seconds, per-eval-task seconds)."""
+    from elasticdl_tpu_torch import cli
+    from elasticdl_tpu_torch.worker.elastic_allreduce_worker import (
+        ElasticAllReduceWorker,
+    )
+
+    jobs = []
+    t0 = time.perf_counter()
+    with _Timed(ElasticAllReduceWorker, "run") as run, _Timed(
+        ElasticAllReduceWorker, "_process_eval_task"
+    ) as tasks:
+        rc = cli.main(argv, jobs=jobs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0 or not jobs[0].master.task_d.finished():
+        raise PhaseError("%s: exit code %s, tasks left %s" % (
+            what, rc, jobs[0].master.task_d.queue_depths()))
+    return jobs[0], wall, run.calls[0][1], [s for _, s in tasks.calls]
+
+
+def phase_eval(torch, tmp, job_rec, card):
+    """The evaluation plane through the port's command line, on
+    ResNet-50 at the job phase's settings. Returns the flash kernels'
+    launch counts over the phase (ResNet-50 launches none)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch import cli
+    from elasticdl_tpu_torch.model_zoo.imagenet_resnet50 import (
+        imagenet_resnet50 as zoo,
+    )
+    from elasticdl_tpu_torch.worker.allreduce_worker import AllReduceWorker
+
+    tol = EVAL_TOL_RECORDS / EVAL_RECORDS
+    problems = []
+    data_dir = os.path.join(tmp, "job-data")  # the job phase's records
+    val_dir = os.path.join(tmp, "eval-val")
+    ckpt_dir = os.path.join(tmp, "eval-ckpt")
+    out_dir = os.path.join(tmp, "eval-export")
+    rng = np.random.default_rng(SEED + 1)
+    images = rng.integers(0, 256, (EVAL_RECORDS, JOB_IMAGE, JOB_IMAGE, 3),
+                          dtype=np.uint8)
+    labels = rng.integers(1, JOB_CLASSES + 1, EVAL_RECORDS)
+    write_s = write_records(val_dir, images, labels)
+    torch.cuda.synchronize()
+    _reset_counters()
+
+    # 1. training with interleaved rounds
+    jobs = []
+    argv = job_argv(data_dir, ckpt_dir, out_dir) + [
+        "--validation_data", val_dir, "--evaluation_steps", str(EVAL_STEPS),
+    ]
+    t0 = time.perf_counter()
+    with _StepClock() as clock, _EvalReports() as reports, _Timed(
+        AllReduceWorker, "_process_eval_task",
+        key=lambda task: (task.model_version, task.start),
+    ) as eval_tasks:
+        rc = cli.main(argv, jobs=jobs)
+    job_s = time.perf_counter() - t0
+    job = jobs[0]
+    steps = JOB_RECORDS // JOB_BATCH
+    want_rounds = list(range(EVAL_STEPS, steps + 1, EVAL_STEPS))
+    published = job.master.evaluation_service.published
+    if rc != 0 or job.worker.trainer.version != steps:
+        problems.append("train with evaluation: exit code %s, version %d"
+                        % (rc, job.worker.trainer.version))
+    if [r["version"] for r in published] != want_rounds:
+        problems.append("rounds at %s, expected %s"
+                        % ([r["version"] for r in published], want_rounds))
+    if reports.records != {v: EVAL_RECORDS for v in want_rounds}:
+        problems.append("records scored per round %s" % reports.records)
+    # each task reports once, in the order the tasks were scored
+    scored = [(key, out) for (key, _), (_, out) in
+              zip(eval_tasks.calls, reports.outputs)]
+    rounds = []
+    for r in published:
+        v = r["version"]
+        directory = os.path.join(ckpt_dir, "ckpt_v%d" % v)
+        params, state = _checkpoint_weights(torch, directory)
+        direct_out = _direct_forward(torch, params, state, images)
+        direct = _accuracy(torch, direct_out, labels)
+        got = r["metrics"]["accuracy"]
+        rows = [out for _, out in sorted(
+            ((k[1], o) for k, o in scored if k[0] == v),
+            key=lambda start_out: start_out[0])]
+        rel = (_rel_l2(torch, torch.from_numpy(np.concatenate(rows)).to(
+            direct_out.device), direct_out) if rows else None)
+        rounds.append({
+            "version": v,
+            "accuracy": got,
+            "direct_accuracy": direct,
+            "outputs_rel_l2": rel,
+            "seconds": sum(sec for k, sec in eval_tasks.calls
+                           if k[0] == v),
+        })
+        if abs(got - direct) > tol + 1e-12:
+            problems.append("round v%d reads %s, its checkpoint's direct "
+                            "forward %s" % (v, got, direct))
+        if rel is None or rel > EVAL_REL_L2:
+            problems.append("round v%d outputs %s from its checkpoint's "
+                            "direct forward (relative L2)" % (v, rel))
+    spans = clock.spans
+    timed_s = spans[-1][1] - spans[0][1] if len(spans) > 1 else float("nan")
+    eps = (len(spans) - 1) * JOB_BATCH / timed_s
+    emit({
+        "phase": "eval",
+        "of": "train_with_evaluation",
+        "card": card,
+        "model": JOB_MODEL_DEF + " (bf16, params float32)",
+        "records": JOB_RECORDS,
+        "eval_records": EVAL_RECORDS,
+        "write_eval_records_s": write_s,
+        "evaluation_steps": EVAL_STEPS,
+        "job_s": job_s,
+        "steps": len(spans),
+        "timed_s": timed_s,
+        "timed_in_step_s": sum(e - b for b, e in spans[1:]),
+        "rounds": rounds,
+        "round_s_total": sum(r["seconds"] for r in rounds),
+        "round_tolerance": tol,
+        "examples_per_s": eps,
+        "examples_per_s_without_evaluation": job_rec["examples_per_s"],
+        "with_over_without": eps / job_rec["examples_per_s"],
+    })
+    del job, jobs
+
+    # 2. evaluation-only: labels planted from the final checkpoint's own
+    # predictions (the first half right, the second half off by one)
+    final = os.path.join(ckpt_dir, "ckpt_v%d" % steps)
+    params, state = _checkpoint_weights(torch, final)
+    direct_out = _direct_forward(torch, params, state, images)
+    pred = direct_out.argmax(1).cpu().numpy()
+    half = EVAL_RECORDS // 2
+    planted = np.concatenate([pred[:half], (pred[half:] + 1) % JOB_CLASSES])
+    planted_dir = os.path.join(tmp, "eval-planted")
+    write_records(planted_dir, images, planted + 1)
+    zoo_dir = os.path.join(REPO, "elasticdl_tpu_torch", "model_zoo")
+    records = {}
+    for source, flag, value in (
+        ("checkpoint", "--checkpoint_dir", ckpt_dir),
+        ("export", "--checkpoint_filename_for_init",
+         os.path.join(out_dir, sorted(os.listdir(out_dir))[-1])),
+    ):
+        job, wall, run_s, task_s = _scoring_job(
+            torch, serving_argv("evaluate", "--validation_data", planted_dir,
+                                flag, value, zoo_dir),
+            "evaluate from the " + source,
+        )
+        got = job.master.evaluation_service.published
+        if source == "checkpoint":
+            want = 0.5
+        else:
+            e_params, e_state = _export_weights(torch, value)
+            want = _accuracy(torch, _direct_forward(
+                torch, e_params, e_state, images), planted + 1)
+        acc = got[0]["metrics"]["accuracy"] if len(got) == 1 else None
+        if acc is None or abs(acc - want) > tol + 1e-12:
+            problems.append("evaluate from the %s reads %s, expected %s"
+                            % (source, got, want))
+        records[source] = rec = {
+            "phase": "eval",
+            "of": "evaluate_" + source,
+            "card": card,
+            "accuracy": acc,
+            "expected": want,
+            "tolerance": tol,
+            "scored_versions": got[0]["scored_versions"] if got else None,
+            "job_s": wall,
+            "worker_run_s": run_s,
+            "task_s": task_s,
+            "examples_per_s": EVAL_RECORDS / sum(task_s),
+            "examples_per_s_job": EVAL_RECORDS / wall,
+        }
+        emit(rec)
+        del job
+    # the checkpoint's evaluation-only job once more, profiled: where its
+    # wall goes (the load, the forwards, the drain's empty polls)
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    t0 = time.perf_counter()
+    with prof:
+        _scoring_job(
+            torch, serving_argv("evaluate", "--validation_data", planted_dir,
+                                "--checkpoint_dir", ckpt_dir, zoo_dir),
+            "evaluate (profiled)",
+        )
+    emit(dict(
+        _window_record(torch, prof, (time.perf_counter() - t0) * 1e3),
+        phase="profile", of="evaluate_checkpoint", card=card,
+    ))
+
+    # 3. prediction-only with a capturing processor installed on the zoo
+    # module (the job resolves it through the port's zoo package)
+    from elasticdl_tpu_torch.master.servicer import MasterServicer
+    from elasticdl_tpu_torch.worker.prediction_outputs_processor import (
+        BasePredictionOutputsProcessor,
+    )
+
+    class Capture(BasePredictionOutputsProcessor):
+        def __init__(self):
+            self.chunks = []
+
+        def process(self, predictions, worker_id):
+            self.chunks.append(np.asarray(predictions))
+
+    capture = Capture()
+    handed = []
+    orig_get = MasterServicer.get_task
+
+    def get_task(servicer, worker_id, task_type=None):
+        res = orig_get(servicer, worker_id, task_type)
+        if res.shard_name:
+            handed.append((res.start, res.end))
+        return res
+
+    zoo.PredictionOutputsProcessor = capture
+    MasterServicer.get_task = get_task
+    try:
+        job, wall, run_s, _ = _scoring_job(
+            torch, serving_argv("predict", "--prediction_data", val_dir,
+                                "--checkpoint_dir", ckpt_dir, ""),
+            "predict",
+        )
+    finally:
+        MasterServicer.get_task = orig_get
+        del zoo.PredictionOutputsProcessor
+    order = [i for start, end in handed for i in range(start, end)]
+    got = np.concatenate(capture.chunks) if capture.chunks else np.zeros(0)
+    once = sorted(order) == list(range(EVAL_RECORDS)) and len(got) == len(
+        order)
+    rel = None
+    if once:
+        want = direct_out[torch.as_tensor(order, device=direct_out.device)]
+        rel = _rel_l2(torch, torch.from_numpy(got).to(want.device), want)
+    if not once or rel > EVAL_REL_L2:
+        problems.append("predict: records %s (%d rows), rel L2 %s"
+                        % (handed, len(got), rel))
+    emit({
+        "phase": "eval",
+        "of": "predict",
+        "card": card,
+        "records": len(got),
+        "every_record_once": once,
+        "rel_l2": rel,
+        "rel_l2_limit": EVAL_REL_L2,
+        "job_s": wall,
+        "worker_run_s": run_s,
+        "examples_per_s": EVAL_RECORDS / run_s,
+        "examples_per_s_job": EVAL_RECORDS / wall,
+    })
+    counts = _counts()
+    if problems:
+        raise PhaseError("eval: " + "; ".join(problems))
     return counts
 
 
@@ -1896,8 +2334,6 @@ def main(argv=None):
         )
         return 2
     sys.path.insert(0, REPO)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     try:
         card = phase_device(torch)
@@ -1910,10 +2346,14 @@ def main(argv=None):
         trained = phase_train(torch)
         fused = phase_fused_step(torch, card)
         with tempfile.TemporaryDirectory() as tmp:
-            job = phase_job(torch, tmp, fused, card)
-        _check_counts(job, {k: 0 for k in KERNELS}, "the ResNet-50 job")
+            job, job_rec = phase_job(torch, tmp, fused, card)
+            _check_counts(job, {k: 0 for k in KERNELS}, "the ResNet-50 job")
+            evaluated = phase_eval(torch, tmp, job_rec, card)
+        _check_counts(evaluated, {k: 0 for k in KERNELS}, "the eval phase")
         line = kernels_line(
-            records, {"serve": served, "train": trained, "job": job}
+            records,
+            {"serve": served, "train": trained, "job": job,
+             "eval": evaluated},
         )
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback

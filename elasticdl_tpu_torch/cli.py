@@ -1,5 +1,6 @@
-"""``python -m elasticdl_tpu_torch.cli train ...``: the port's command
-line (``elasticdl_tpu/cli.py``'s counterpart); see ``api.py``."""
+"""``python -m elasticdl_tpu_torch.cli {train|evaluate|predict} ...``: the
+port's command line (``elasticdl_tpu/cli.py``'s counterpart); see
+``api.py``."""
 
 import sys
 

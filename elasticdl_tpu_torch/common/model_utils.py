@@ -18,6 +18,7 @@ import json
 import os
 import struct
 
+from elasticdl_tpu_torch.common.log_utils import default_logger as logger
 from elasticdl_tpu_torch.common.tensor import (
     Tensor,
     deserialize_tensors,
@@ -135,6 +136,20 @@ def get_model_spec(
     pop = _get_spec_value(
         prediction_outputs_processor, model_zoo, default_module
     )
+    # a class or an instance in the zoo module
+    pop = pop() if isinstance(pop, type) else pop
+    from elasticdl_tpu_torch.worker.prediction_outputs_processor import (
+        BasePredictionOutputsProcessor,
+    )
+
+    if pop is not None and not isinstance(
+        pop, BasePredictionOutputsProcessor
+    ):
+        logger.warning(
+            "prediction_outputs_processor is not inherited from "
+            "BasePredictionOutputsProcessor. Prediction outputs may not "
+            "be processed correctly."
+        )
     return ModelSpec(
         model=model,
         dataset_fn=_get_spec_value(
@@ -147,8 +162,7 @@ def get_model_spec(
         eval_metrics_fn=_get_spec_value(
             eval_metrics_fn, model_zoo, default_module, required=True
         ),
-        # a class or an instance in the zoo module
-        prediction_outputs_processor=pop() if isinstance(pop, type) else pop,
+        prediction_outputs_processor=pop,
     )
 
 

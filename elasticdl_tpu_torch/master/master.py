@@ -1,8 +1,10 @@
 """The master of the single-process ALLREDUCE job, the counterpart of
 ``elasticdl_tpu/master/master.py``: it builds the task dispatcher from the
 data reader's shards, infers the job type from the data flags, keeps the
-checkpoint service and the coordinating servicer, queues the deferred
-SAVE_MODEL task when ``--output`` is set, and polls ``finished()``.
+checkpoint service, the evaluation service (for a job with
+``--validation_data`` or an evaluation trigger) and the coordinating
+servicer, queues the deferred SAVE_MODEL task when ``--output`` is set,
+and polls ``finished()``.
 
 The worker holds the servicer directly, in the same process, so the
 master starts no RPC server: no remote worker exists until the
@@ -13,9 +15,7 @@ dispatch journal (``--master_journal_dir``), the telemetry endpoint and
 event sink (``--telemetry_port``, ``--telemetry_events_path``), the
 flight recorder (``EDL_FLIGHT_RECORDER_DIR``), TensorBoard
 (``--tensorboard_log_dir``), membership and the instance managers
-(``--num_workers > 0``), the evaluation service (``--validation_data``,
-``--evaluation_steps``, ``--evaluation_throttle_secs``) and the
-parameter-server strategy.
+(``--num_workers > 0``) and the parameter-server strategy.
 """
 
 import os
@@ -23,9 +23,13 @@ import threading
 
 from elasticdl_tpu_torch.common.constants import DistributionStrategy, JobType
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
-from elasticdl_tpu_torch.common.model_utils import get_dict_from_params_str
+from elasticdl_tpu_torch.common.model_utils import (
+    get_dict_from_params_str,
+    load_zoo_module,
+)
 from elasticdl_tpu_torch.data.data_reader import create_data_reader
 from elasticdl_tpu_torch.master.checkpoint_service import CheckpointService
+from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
 from elasticdl_tpu_torch.master.servicer import MasterServicer
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 
@@ -87,12 +91,6 @@ def refuse_unported_planes(args):
          getattr(args, "tensorboard_log_dir", "")),
         ("membership and the instance managers (worker processes)",
          "--num_workers > 0", getattr(args, "num_workers", 0) > 0),
-        ("the evaluation service", "--validation_data",
-         getattr(args, "validation_data", "")),
-        ("the evaluation service", "--evaluation_steps",
-         getattr(args, "evaluation_steps", 0)),
-        ("the evaluation service", "--evaluation_throttle_secs",
-         getattr(args, "evaluation_throttle_secs", 0)),
     )
     for plane, flag, asked in checks:
         if asked:
@@ -135,6 +133,12 @@ class Master:
             getattr(args, "keep_checkpoint_max", 0),
             False,
         )
+        self.model_module = load_zoo_module(
+            args.model_def, getattr(args, "model_zoo", "")
+        )
+        self.evaluation_service = self._create_evaluation_service(args)
+        if self.evaluation_service:
+            self.task_d.set_evaluation_service(self.evaluation_service)
         if getattr(args, "output", "") and self._job_has_training():
             self.task_d.add_deferred_callback_create_save_model_task(
                 args.output
@@ -145,6 +149,7 @@ class Master:
             None,
             self.task_d,
             checkpoint_service=self.checkpoint_service,
+            evaluation_service=self.evaluation_service,
         )
         self._stop_requested = threading.Event()
 
@@ -171,21 +176,52 @@ class Master:
             JobType.TRAINING_WITH_EVALUATION,
         )
 
+    def _create_evaluation_service(self, args):
+        if self.job_type == JobType.TRAINING_ONLY:
+            return None
+        name = args.eval_metrics_fn
+        eval_metrics_fn = getattr(self.model_module, name, None)
+        if eval_metrics_fn is None:
+            raise ValueError(
+                "the model module of %s defines no %s" % (args.model_def, name)
+            )
+        return EvaluationService(
+            self.checkpoint_service,
+            None,
+            self.task_d,
+            getattr(args, "evaluation_start_delay_secs", 0),
+            getattr(args, "evaluation_throttle_secs", 0),
+            getattr(args, "evaluation_steps", 0),
+            self.job_type == JobType.EVALUATION_ONLY,
+            eval_metrics_fn,
+        )
+
     def prepare(self):
-        """Ready for the in-process worker: there is no RPC server to
-        start (see the module doc)."""
+        """Start the evaluation service's timer, if any. There is no RPC
+        server to start (see the module doc)."""
+        if self.evaluation_service:
+            self.evaluation_service.start()
         logger.info("Master ready (in-process, %s)", self.job_type)
 
     def run(self, poll_secs=30):
         """Poll until all tasks are done, queuing the deferred SAVE_MODEL
-        task when they are; returns 0."""
-        while not self._stop_requested.is_set():
-            if self.task_d.finished():
-                if self.task_d.invoke_deferred_callback():
-                    continue  # a SAVE_MODEL task was just queued
-                break
-            self._stop_requested.wait(poll_secs)
+        task when they are; returns 0. The evaluation service's timer
+        stops with it."""
+        try:
+            while not self._stop_requested.is_set():
+                if self.task_d.finished():
+                    if self.task_d.invoke_deferred_callback():
+                        continue  # a SAVE_MODEL task was just queued
+                    break
+                self._stop_requested.wait(poll_secs)
+        finally:
+            self._stop_evaluation()
         return 0
 
     def request_stop(self):
         self._stop_requested.set()
+        self._stop_evaluation()
+
+    def _stop_evaluation(self):
+        if self.evaluation_service:
+            self.evaluation_service.stop()

@@ -6,12 +6,15 @@ serves, where the parameters live on the worker.
   are still in flight or a deferred SAVE_MODEL task was just queued;
 - ``report_task_result`` takes the worker's model version from the
   report's ``exec_counters`` (the master applies no gradients, so task
-  reports are its only version clock) and reports the task to the
+  reports are its only version clock), drives the evaluation service's
+  step trigger when that version advances, and reports the task to the
   dispatcher, a failure queuing it again;
+- ``report_evaluation_metrics`` hands a worker's outputs and labels to
+  the evaluation service's running round;
 - ``get_model_version`` and ``restore_version``.
 
 Not ported yet: the master-held model (``optimizer`` not None, the
-master-KV and PS planes), evaluation metrics and the journal.
+master-KV and PS planes) and the journal.
 """
 
 import threading
@@ -64,10 +67,6 @@ class MasterServicer:
                 "a master that holds the model (master-KV or PS plane) is "
                 "not ported yet: the ALLREDUCE master coordinates only"
             )
-        if evaluation_service is not None:
-            raise NotImplementedError(
-                "the evaluation service is not ported yet"
-            )
         if journal is not None:
             raise NotImplementedError(
                 "the master dispatch journal is not ported yet"
@@ -78,6 +77,24 @@ class MasterServicer:
         self._minibatch_size = minibatch_size
         self._version = 0
         self._checkpoint_service = checkpoint_service
+        self._evaluation_service = evaluation_service
+        if evaluation_service:
+            evaluation_service.set_master_servicer(self)
+
+    @property
+    def coordinates_only(self):
+        """Always True here: the master dispatches tasks and applies no
+        gradients, so its version advances only through the workers'
+        reports, and an evaluation round pins a version number rather
+        than an eval checkpoint."""
+        return True
+
+    @property
+    def lock(self):
+        """The version lock. The evaluation service checks and updates
+        its trigger under it, so the step trigger and the timer thread
+        share one lock order."""
+        return self._lock
 
     def get_task(self, worker_id, task_type=None):
         """The next task as a TaskResponse; WAIT while the job is not
@@ -109,12 +126,34 @@ class MasterServicer:
         if exec_counters and TaskExecCounterKey.MODEL_VERSION in exec_counters:
             reported = int(exec_counters[TaskExecCounterKey.MODEL_VERSION])
             with self._lock:
+                advanced = reported > self._version
                 self._version = max(self._version, reported)
+            if advanced and self._evaluation_service:
+                # task reports are this master's only version clock, so
+                # they drive the step trigger (taking the lock: this
+                # thread does not hold it)
+                self._evaluation_service.add_evaluation_task_if_needed(
+                    master_locking=True
+                )
         if err_message:
             logger.warning("Worker reported error: " + err_message)
             self._task_d.report(task_id, False, exec_counters=exec_counters)
         else:
             self._task_d.report(task_id, True, exec_counters=exec_counters)
+
+    def report_evaluation_metrics(
+        self, model_version, model_outputs, labels, scored_version=None
+    ):
+        """Returns (accepted, current version). ``scored_version`` is the
+        version the worker's params were loaded from where it could not
+        score ``model_version`` exactly."""
+        accepted = self._evaluation_service.report_evaluation_metrics(
+            model_version,
+            model_outputs,
+            labels,
+            scored_version=scored_version,
+        )
+        return accepted, self._version
 
     def get_model_version(self):
         return self._version

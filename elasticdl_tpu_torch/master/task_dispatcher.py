@@ -5,7 +5,9 @@ The data is cut into tasks of ``records_per_task`` records over named
 shards; any worker can take any task. Failed or orphaned tasks are
 queued again (``report(success=False)``, ``recover_tasks``). Training
 epochs are created lazily when the todo queue drains, and a deferred
-SAVE_MODEL task is appended once all training tasks are done.
+SAVE_MODEL task is appended once all training tasks are done. Evaluation
+tasks wait in their own queue; each one that succeeds counts down the
+evaluation service's running round (``set_evaluation_service``).
 
 The task order is the reference's: each epoch's tasks are shuffled with
 ``random.Random(EDL_TASK_SHUFFLE_SEED).shuffle`` when that variable is
@@ -100,6 +102,7 @@ class TaskDispatcher:
         self._doing = {}  # task_id -> (worker_id, Task)
         self._task_id = 0
         self._eval_todo = []
+        self._evaluation_service = None
         self._tasks_done_deferred_callbacks = []
         # every Task gets a trace id at its first dispatch (kept across
         # requeues: the same Task object returns to todo); each dispatch
@@ -251,7 +254,10 @@ class TaskDispatcher:
     def report(self, task_id, success, exec_counters=None):
         """Report task completion; a failure queues the task again.
         ``exec_counters`` (from the worker's ack) rides into the per-task
-        timeline event (``consume_s``, the worker's own wall time)."""
+        timeline event (``consume_s``, the worker's own wall time). A
+        successful evaluation task completes its round's task after the
+        lock is released."""
+        evaluation_task_completed = False
         with self._lock:
             worker_id, task = self._doing.pop(task_id, (-1, None))
             meta = self._dispatch_meta.pop(task_id, None)
@@ -267,6 +273,11 @@ class TaskDispatcher:
                     self._eval_todo.append(task)
                 else:
                     self._todo.append(task)
+            elif (
+                task.type == TaskType.EVALUATION
+                and self._evaluation_service is not None
+            ):
+                evaluation_task_completed = True
             else:
                 logger.info(
                     "Task %d done; %d still outstanding",
@@ -288,6 +299,8 @@ class TaskDispatcher:
             profiling.events.emit(
                 "task_done" if success else "task_requeued", **timeline
             )
+        if evaluation_task_completed:
+            self._evaluation_service.complete_task()
 
     def queue_depths(self):
         with self._lock:
@@ -316,3 +329,11 @@ class TaskDispatcher:
             ]
         for tid in ids:
             self.report(tid, False)
+
+    def set_evaluation_service(self, evaluation_service):
+        """Attach the evaluation service; an evaluation-only job's single
+        round counts every evaluation task queued at construction."""
+        with self._lock:
+            self._evaluation_service = evaluation_service
+            if self._evaluation_shards and not self._training_shards:
+                evaluation_service.init_eval_only_job(len(self._eval_todo))

@@ -44,6 +44,16 @@ def to_device(tree, device):
     return tree.to(device, non_blocking=True)
 
 
+def place_module(module, device):
+    """Move ``module`` to ``device``; a module built on the meta device
+    gets uninitialized storage there (its init fills it)."""
+    params = list(module.parameters())
+    if params and params[0].is_meta:
+        module.to_empty(device=device)
+    else:
+        module.to(device)
+
+
 class AllReduceTrainer:
     def __init__(
         self,
@@ -99,18 +109,12 @@ class AllReduceTrainer:
     def version(self):
         return self._ts.version if self._ts is not None else -1
 
-    def _place_module(self):
-        params = list(self._module.parameters())
-        if params and params[0].is_meta:
-            self._module.to_empty(device=self._device)
-        else:
-            self._module.to(self._device)
 
     def init_from_batch(self, global_batch):
         """Create the train state on the device: seeded weights (the
         trainer's seed), then the optimizer over them. The batch is taken
         for the reference's signature; a torch module knows its shapes."""
-        self._place_module()
+        place_module(self._module, self._device)
         variables = init_variables(self._module, self._seed, global_batch)
         params, state = split_variables(variables)
         self._ts = TrainState.create(params, state, self._optimizer)
@@ -126,7 +130,7 @@ class AllReduceTrainer:
         )
 
     def _adopt(self, params, state, opt_state_dict, version):
-        self._place_module()
+        place_module(self._module, self._device)
         params = {
             n: p.detach().to(self._device).requires_grad_(True)
             for n, p in params.items()

@@ -2,29 +2,40 @@
 ``elasticdl_tpu/worker/allreduce_worker.py``: it pulls tasks from the
 master like every worker, but the parameters never leave the device: each
 minibatch is one fused step of ``AllReduceTrainer`` on the card. The
-master runs as a pure control plane (tasks, SAVE_MODEL); this worker
-writes the sharded checkpoints, since only it holds the state.
+master runs as a pure control plane (tasks, evaluation rounds,
+SAVE_MODEL); this worker writes the sharded checkpoints, since only it
+holds the state.
 
 The input pipeline is the reference's (the zoo's ``dataset_fn``, then
 ``batch`` and ``prefetch(1)``) plus ``device_prefetch`` onto the
 trainer's device, so the copy of batch N+1 overlaps the step on batch N.
 
-Not ported yet, each raising ``NotImplementedError``: the interleaved
-evaluation of a TRAINING_WITH_EVALUATION job (the evaluation service),
-and zoo modules that declare a mesh (``mesh_axes``) or a distributed
-model (``build_distributed_model``). Evaluation-only and prediction-only
-jobs are refused, as in the reference.
+A TRAINING_WITH_EVALUATION job drains the evaluation queue before each
+training batch and after each task round (``_evaluate_only``): each
+evaluation task is scored by an inference forward of the current state
+(BatchNorm on its running statistics), its outputs brought to the host
+once per batch and reported to the master's round with the version the
+round pinned.
+
+Not ported yet, each raising ``NotImplementedError``: zoo modules that
+declare a mesh (``mesh_axes``) or a distributed model
+(``build_distributed_model``). Evaluation-only and prediction-only jobs
+are refused, as in the reference: the elastic worker's drain
+(``elastic_allreduce_worker.py``) serves them.
 """
 
 import os
 import time
 
+import numpy as np
 import torch
 
 from elasticdl_tpu_torch.common.constants import (
     JobType,
+    MetricsDictKey,
     Mode,
     SaveModelConfig,
+    TaskType,
 )
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
 from elasticdl_tpu_torch.common.model_utils import (
@@ -32,6 +43,7 @@ from elasticdl_tpu_torch.common.model_utils import (
     load_zoo_module,
 )
 from elasticdl_tpu_torch.data.dataset import tree_map
+from elasticdl_tpu_torch.metrics import to_host
 from elasticdl_tpu_torch.parallel.trainer import AllReduceTrainer
 from elasticdl_tpu_torch.worker.task_data_service import TaskDataService
 
@@ -40,8 +52,6 @@ def _pad_rows(x, pad):
     """``x`` with its last row repeated ``pad`` times."""
     if isinstance(x, torch.Tensor):
         return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
-    import numpy as np
-
     x = np.asarray(x)
     return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
 
@@ -84,11 +94,6 @@ class AllReduceWorker:
                 "(checkpoint-scored), prediction under "
                 "ParameterServerStrategy" % job_type
             )
-        if job_type == JobType.TRAINING_WITH_EVALUATION:
-            raise NotImplementedError(
-                "training with evaluation (the evaluation service) is not "
-                "ported yet"
-            )
         self._worker_id = worker_id
         self._job_type = job_type
         self._minibatch_size = minibatch_size
@@ -119,13 +124,16 @@ class AllReduceWorker:
             remat=parse_remat(remat), device=device,
         )
         self._model = spec.model
+        self._forward_fn = None
         from elasticdl_tpu_torch.common.export import export_provenance
 
         self._export_meta = export_provenance(
             model_zoo, model_def, model_params
         )
         self._task_data_service = TaskDataService(
-            self, False, data_reader_params=data_reader_params
+            self,
+            self._job_type == JobType.TRAINING_WITH_EVALUATION,
+            data_reader_params=data_reader_params,
         )
         # in ALLREDUCE mode the parameters live on this worker, so the
         # worker (not the master) writes the checkpoints
@@ -205,6 +213,65 @@ class AllReduceWorker:
         loss = self.trainer.train_step(features, labels)
         return float(loss), count
 
+    def _forward(self, features):
+        """Inference forward of the current state (BatchNorm on its
+        running statistics)."""
+        if self._forward_fn is None:
+            from elasticdl_tpu_torch.training.step import make_forward_fn
+
+            self._forward_fn = make_forward_fn(self._model)
+        ts = self.trainer.train_state
+        return self._forward_fn(ts.params, ts.state, features)
+
+    # -- evaluation ---------------------------------------------------------
+
+    def _process_eval_task(self, task):
+        eval_info = self._task_data_service.get_validation_dataset(task)
+        if not eval_info:
+            return
+        eval_dataset, model_version, task_id = eval_info
+        eval_dataset = self._dataset_fn(
+            eval_dataset,
+            Mode.EVALUATION,
+            self._task_data_service.data_reader.metadata,
+        )
+        eval_dataset = (
+            eval_dataset.batch(self._minibatch_size)
+            .prefetch(1)
+            .device_prefetch(self.trainer.device)
+        )
+        out_chunks, label_chunks = {}, []
+        for features, labels in eval_dataset:
+            outputs = self._forward(features)
+            if not isinstance(outputs, dict):
+                outputs = {MetricsDictKey.MODEL_OUTPUT: outputs}
+            # one copy to the host per batch (bf16 widened to float32)
+            for k, v in outputs.items():
+                out_chunks.setdefault(k, []).append(to_host(v))
+            label_chunks.append(to_host(labels))
+        if out_chunks:
+            self._stub.report_evaluation_metrics(
+                model_version,
+                {k: np.concatenate(v) for k, v in out_chunks.items()},
+                np.concatenate(label_chunks),
+            )
+        self.report_task_result(task_id, "")
+
+    def _evaluate_only(self):
+        """Score every queued evaluation task; False if there was none.
+        Before the first step there is no state to score: the tasks wait
+        for the next call."""
+        if self.trainer.train_state is None:
+            return False
+        executed = False
+        while True:
+            task = self.get_task(TaskType.EVALUATION)
+            if not task.shard_name:
+                break
+            self._process_eval_task(task)
+            executed = True
+        return executed
+
     def _process_save_model_task_if_needed(self):
         """Export the trained state for a parked SAVE_MODEL task. The
         reference also reads one batch of the task's records, to trace
@@ -231,7 +298,8 @@ class AllReduceWorker:
     # -- main loop ----------------------------------------------------------
 
     def run(self):
-        """Train on every task the master hands out; returns the losses."""
+        """Train on every task the master hands out, scoring the
+        evaluation tasks between steps; returns the losses."""
         losses = []
         while True:
             dataset = self._task_data_service.get_dataset()
@@ -247,9 +315,14 @@ class AllReduceWorker:
                 .prefetch(1)
                 .device_prefetch(self.trainer.device)
             )
+            with_evaluation = (
+                self._job_type == JobType.TRAINING_WITH_EVALUATION
+            )
             batches = 0
             for dataset_batch in dataset:
                 batches += 1
+                if with_evaluation:
+                    self._evaluate_only()
                 err_msg = ""
                 try:
                     loss, count = self._train_batch(dataset_batch)
@@ -266,6 +339,8 @@ class AllReduceWorker:
                     )
                 self._task_data_service.report_record_done(count, err_msg)
                 self._save_ckpt_if_due()
+            if with_evaluation:
+                self._evaluate_only()
             self._process_save_model_task_if_needed()
             if batches == 0:
                 time.sleep(0.2)

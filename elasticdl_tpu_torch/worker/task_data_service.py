@@ -9,7 +9,8 @@ task once the worker has consumed its record range
 task (``remaining_records_in_head_task``) so that exactly that task
 fail-reports and is queued again. Control tasks are handled inline: a
 WAIT ends the current stream so the worker polls again, and a SAVE_MODEL
-task is parked for the export path.
+task is parked for the export path. An evaluation task is read on its own
+(``get_validation_dataset``), outside the training stream.
 
 - ``task_prefetch=N`` runs a background fetcher that keeps up to N
   tasks fetched ahead of the one being consumed, their first records
@@ -331,6 +332,17 @@ class TaskDataService:
     # ------------------------------------------------------------------
     # dataset construction
     # ------------------------------------------------------------------
+
+    def get_validation_dataset(self, eval_task):
+        """(dataset, model_version, task_id) for one evaluation task, or
+        None."""
+        if not eval_task:
+            return None
+        return (
+            create_dataset_from_tasks([eval_task], self.data_reader),
+            eval_task.model_version,
+            eval_task.task_id,
+        )
 
     def get_save_model_task_and_dataset(self):
         task, self._parked_export_task = self._parked_export_task, None

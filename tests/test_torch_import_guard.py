@@ -72,14 +72,16 @@ def test_every_port_module_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     count = int(proc.stdout.split()[-1])
-    # every module of the slices, packages included (master/, worker/
-    # and the zoo's ResNet-50 and MNIST modules among them)
-    assert count >= 50
+    # every module of the slices, packages included (master/, worker/,
+    # metrics/ and the zoo's ResNet-50 and MNIST modules among them)
+    assert count >= 63
 
 
 def test_the_job_runs_with_jax_and_grpc_blocked(tmp_path):
-    """A CPU mnist job through the command-line entry, in a fresh
-    interpreter where jax, grpc and the JAX package cannot be imported."""
+    """CPU mnist jobs through the command-line entry, in a fresh
+    interpreter where jax, grpc and the JAX package cannot be imported: a
+    training job, one with evaluation rounds, and an evaluation-only job
+    on the second one's checkpoints."""
     proc = _run_blocked(
         """
         import os
@@ -112,9 +114,35 @@ def test_the_job_runs_with_jax_and_grpc_blocked(tmp_path):
         )
         assert not leaked, leaked
         assert rc == 0 and jobs[0].worker.trainer.version == 4
+        # with evaluation rounds, then evaluation-only on its checkpoints
+        rc = cli.main([
+            "train", "--job_name", "j", "--distribution_strategy",
+            "AllreduceStrategy", "--num_workers", "0", "--model_zoo", "",
+            "--model_def", "mnist_subclass.mnist_subclass.CustomModel",
+            "--training_data", data, "--validation_data", data,
+            "--evaluation_steps", "2", "--minibatch_size", "8",
+            "--checkpoint_dir", os.path.join(%r, "ckpt2"),
+            "--checkpoint_steps", "2", "--device", "cpu",
+        ], jobs=jobs)
+        rounds = jobs[1].master.evaluation_service.published
+        assert rc == 0 and [r["version"] for r in rounds] == [2, 4], rounds
+        rc = cli.main([
+            "evaluate", "--job_name", "j", "--distribution_strategy",
+            "AllreduceStrategy", "--model_zoo", "",
+            "--model_def", "mnist_subclass.mnist_subclass.CustomModel",
+            "--validation_data", data, "--minibatch_size", "8",
+            "--checkpoint_dir", os.path.join(%r, "ckpt2"), "--device", "cpu",
+        ], jobs=jobs)
+        scored = jobs[2].master.evaluation_service.published
+        assert rc == 0 and scored[0]["scored_versions"] == [4], scored
+        leaked = sorted(
+            m for m in sys.modules if m.split(".")[0] in BLOCKED
+        )
+        assert not leaked, leaked
         print("version", jobs[0].worker.trainer.version)
         """
-        % (REPO, str(tmp_path), str(tmp_path), str(tmp_path))
+        % (REPO, str(tmp_path), str(tmp_path), str(tmp_path),
+           str(tmp_path), str(tmp_path))
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.split()[-1] == "4"
@@ -167,6 +195,19 @@ def _cuda_job(tmp_path):
     ])
 
 
+def _cuda_eval_job(tmp_path):
+    from elasticdl_tpu_torch import cli
+
+    (tmp_path / "data").mkdir()
+    return cli.main([
+        "evaluate", "--job_name", "j", "--distribution_strategy",
+        "AllreduceStrategy", "--model_zoo", "",
+        "--model_def", "mnist_subclass.mnist_subclass.CustomModel",
+        "--validation_data", str(tmp_path / "data"),
+        "--checkpoint_dir", str(tmp_path), "--minibatch_size", "8",
+    ])
+
+
 def _cuda_prefetch(tmp_path):
     from elasticdl_tpu_torch.data.dataset import Dataset
 
@@ -176,7 +217,7 @@ def _cuda_prefetch(tmp_path):
 @pytest.mark.parametrize(
     "entry",
     [_resolve_cuda, _build_cuda_scorer, _cuda_scorer_model, _cuda_trainer,
-     _cuda_job, _cuda_prefetch],
+     _cuda_job, _cuda_eval_job, _cuda_prefetch],
 )
 def test_cuda_without_a_card_raises(no_card, tmp_path, entry):
     with pytest.raises(RuntimeError, match="CUDA"):

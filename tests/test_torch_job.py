@@ -9,7 +9,8 @@
 - Job journeys on ``mnist_subclass``, mirroring
   ``tests/test_allreduce_worker.py``: the job completes at version 16, an
   accumulation tail pads, evaluation- and prediction-only jobs are
-  refused, a second job resumes from the sharded checkpoint, a failing
+  refused by ``AllReduceWorker`` (the elastic worker's drain serves them,
+  tests/test_torch_eval_only.py), a second job resumes from the sharded checkpoint, a failing
   step requeues its task, and the command line finishes a job (exit code
   0) and continues its version on a second run.
 - Job-level parity: float32 ResNet-50 on 32x32 records, one epoch of
@@ -450,12 +451,11 @@ def test_cli_runs_a_job_and_continues_it(tmp_path):
     "flag",
     [
         ["--num_workers", "2"],
-        ["--validation_data", "x"],
-        ["--evaluation_steps", "4"],
         ["--master_journal_dir", "j"],
         ["--telemetry_port", "0"],
         ["--distribution_strategy", "ParameterServerStrategy"],
         ["--docker_image_repository", "r"],
+        ["--tensorboard_log_dir", "tb"],
     ],
 )
 def test_cli_refuses_unported_planes(tmp_path, flag):
