@@ -64,10 +64,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
    forward's accuracy); ``predict`` with a capturing processor (every
    record once, within 1e-2 relative L2 of the direct forward). No flash
    kernel launches (``launches_by_path.eval`` = 0).
-8. summary — the kernels line, the card line, then the result line.
+8. elastic — the multi-process elastic ALLREDUCE job through the port's
+   command line with ``--num_workers 2``: the master in this process,
+   two worker processes sharing the card in one process world (gloo:
+   NCCL refuses two ranks on one device; on a host with a card for each
+   worker they get one each and form an NCCL world), ResNet-50 at the
+   job's width
+   on 1,792 synthetic records, asynchronous checkpoints every 4 versions.
+   First the pinned snapshot on the card: parameters updated in place
+   right after an asynchronous ``save`` returns must not reach the
+   checkpoint. Run A, clean: every task done once, both ranks' final
+   state bits equal (digests in the workers' timelines), the final
+   version equal to the steps with a live rank, the newest checkpoint
+   restored bitwise into a fresh model, the export written; examples/s,
+   the step split into compute, the all-reduce and the rest (the
+   stream's times between CUDA events of the step), and each
+   checkpoint's stall on the step path and background write. Run B,
+   longer: worker 1 SIGKILLed at version 4; the survivor's step breaks,
+   the world re-forms, the relaunched worker joins with the survivor's
+   state bits, every task is done once and the live ranks end equal;
+   the seconds from the kill to the broken step and to the new world's
+   first step, and the relaunch's cold start. The workers report their
+   flash launches (``launches_by_path.elastic`` = 0).
+9. summary — the kernels line, the card line, then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
-non-zero and prints no result.
+non-zero and prints no result. ``--elastic-only`` runs phases 1 and 8
+alone and prints no result line.
 """
 
 import argparse
@@ -1379,9 +1402,10 @@ BF16_OUT_REL_L2 = 5e-2
 BF16_LOSS_RTOL = 1e-2
 
 
-def write_job_records(torch, data_dir):
-    """JOB_RECORDS synthetic records from SEED (uint8 images, labels 1..
-    JOB_CLASSES) as one RecordIO file; returns the seconds it took."""
+def write_job_records(torch, data_dir, n=None):
+    """``n`` (default JOB_RECORDS) synthetic records from SEED (uint8
+    images, labels 1..JOB_CLASSES) as one RecordIO file; returns the
+    seconds it took."""
     import numpy as np
 
     from elasticdl_tpu_torch.data.example import encode_example
@@ -1391,7 +1415,7 @@ def write_job_records(torch, data_dir):
     rng = np.random.default_rng(SEED)
     os.makedirs(data_dir, exist_ok=True)
     with RecordIOWriter(os.path.join(data_dir, "train-0")) as w:
-        for _ in range(JOB_RECORDS):
+        for _ in range(n or JOB_RECORDS):
             w.write(
                 encode_example(
                     {
@@ -2260,6 +2284,423 @@ def phase_eval(torch, tmp, job_rec, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# elastic: the multi-process ALLREDUCE job, two worker processes on one card
+# ---------------------------------------------------------------------------
+
+ELASTIC_RECORDS = 1792  # 28 tasks of one b64 batch: ~14 lockstep steps
+ELASTIC_WORKERS = 2
+# Run B trains this many epochs, so that the job outlasts the relaunched
+# worker's cold start: the survivor, alone, takes a task a step, and a
+# joiner that finds no task left never joins
+ELASTIC_KILL_EPOCHS = 10
+ELASTIC_KILL_AT_VERSION = 4
+ELASTIC_JOB_LIMIT_S = 420  # a run that hangs fails the phase
+SNAPSHOT_CHECK_SLEEP_CYCLES = 200_000_000  # keeps the stream busy ~0.1 s
+
+
+def elastic_argv(data_dir, ckpt_dir, out_dir, epochs):
+    argv = job_argv(data_dir, ckpt_dir, out_dir)
+    argv[argv.index("--num_workers") + 1] = str(ELASTIC_WORKERS)
+    argv[argv.index("--num_minibatches_per_task") + 1] = "1"
+    argv[argv.index("--num_epochs") + 1] = str(epochs)
+    return argv + [
+        "--job_name", "chip-smoke-elastic",
+        "--keep_checkpoint_max", "2",
+        "--restart_policy", "Always",
+    ]
+
+
+def _timeline_events(root):
+    """{worker id: [event, ...]} of the workers' timelines."""
+    import glob
+
+    events = {}
+    for path in glob.glob(os.path.join(root, "worker-*.jsonl")):
+        wid = int(os.path.basename(path)[len("worker-"):-len(".jsonl")])
+        with open(path) as f:
+            events[wid] = [json.loads(line) for line in f]
+    return events
+
+
+def _of(events, kind):
+    return [e for e in events if e["event"] == kind]
+
+
+def _median(values):
+    values = sorted(values)
+    return values[len(values) // 2] if values else None
+
+
+def _run_elastic_job(torch, argv, timeline, kill_at=None):
+    """``cli.main(argv)`` with ELASTIC_WORKERS worker processes, the
+    master in a thread of this process; with ``kill_at``, worker 1 is
+    SIGKILLed once the version reaches it. Returns (exit code, the job,
+    successful task ids, the kill's wall time)."""
+    from elasticdl_tpu_torch import cli
+
+    os.environ["EDL_WORKER_TIMELINE_DIR"] = timeline
+    jobs, rc, errors = [], [], []
+
+    def run():
+        try:
+            rc.append(cli.main(argv, jobs=jobs))
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    runner = threading.Thread(target=run, daemon=True)
+    runner.start()
+    while not jobs and runner.is_alive():
+        time.sleep(0.01)
+    if not jobs:
+        raise PhaseError("elastic: the job did not start: %s" % errors)
+    master = jobs[0].master
+    done = []
+    report = master.task_d.report
+
+    def counting(task_id, success, exec_counters=None):
+        if success:
+            done.append(task_id)
+        return report(task_id, success, exec_counters)
+
+    master.task_d.report = counting
+    killed_at = None
+    deadline = time.time() + ELASTIC_JOB_LIMIT_S
+    if kill_at is not None:
+        while (master.master_servicer.get_model_version() < kill_at
+               and runner.is_alive() and time.time() < deadline):
+            time.sleep(0.01)
+        killed_at = time.time()
+        master.instance_manager.kill_worker(1)
+    runner.join(max(1.0, deadline - time.time()))
+    if runner.is_alive():
+        master.request_stop()
+        runner.join(30)
+        raise PhaseError("elastic: the job ran past %d s" % ELASTIC_JOB_LIMIT_S)
+    if errors:
+        raise PhaseError("elastic: the job raised %r" % errors[0])
+    return rc[0], jobs[0], done, killed_at
+
+
+def _checkpoint_digest(torch, directory):
+    """(version, digest) of a checkpoint restored into a fresh model on
+    the card."""
+    from elasticdl_tpu_torch.model_zoo.imagenet_resnet50 import (
+        imagenet_resnet50 as zoo,
+    )
+    from elasticdl_tpu_torch.parallel.elastic import state_digest
+    from elasticdl_tpu_torch.parallel.trainer import AllReduceTrainer
+
+    fresh = AllReduceTrainer(
+        zoo.custom_model(num_classes=JOB_CLASSES), zoo.loss, zoo.optimizer(),
+        seed=SEED + 1, device=DEVICE,
+    )
+    fresh.init_from_batch(None)
+    version = fresh.restore_sharded(directory)
+    return version, state_digest(fresh.train_state)
+
+
+def _snapshot_check(torch):
+    """The asynchronous manager's pinned snapshot on the card: with the
+    stream kept busy before the save (so its copies land late), the
+    parameters updated in place right after ``save`` returns, and the
+    writer thread held until then, the checkpoint still holds the values
+    of the save."""
+    import tempfile as _tempfile
+
+    from elasticdl_tpu_torch.common.sharded_checkpoint import (
+        ShardedCheckpointManager,
+        load_sharded_to_host,
+    )
+    from elasticdl_tpu_torch.model_zoo.imagenet_resnet50 import (
+        imagenet_resnet50 as zoo,
+    )
+    from elasticdl_tpu_torch.parallel.trainer import AllReduceTrainer
+
+    trainer = AllReduceTrainer(
+        zoo.custom_model(num_classes=JOB_CLASSES), zoo.loss, zoo.optimizer(),
+        seed=SEED, device=DEVICE,
+    )
+    trainer.init_from_batch(None)
+    ts = trainer.train_state
+    want = {n: p.detach().to("cpu", copy=True) for n, p in ts.params.items()}
+    with _tempfile.TemporaryDirectory() as tmp:
+        mgr = ShardedCheckpointManager(tmp, 1, async_io=True)
+        gate = threading.Event()
+        mgr._async.submit(lambda: gate.wait(30))
+        if DEVICE == "cuda":
+            torch.cuda._sleep(SNAPSHOT_CHECK_SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        directory = mgr.save(ts, 1)
+        stall_s = time.perf_counter() - t0
+        with torch.no_grad():
+            for p in ts.params.values():
+                p.add_(1.0)
+        gate.set()
+        mgr.close()
+        _, leaves = load_sharded_to_host(directory)
+    bad = [n for n, t in want.items()
+           if not torch.equal(leaves["params/" + n], t)]
+    return {"ok": not bad, "torn": bad[:5], "stall_s": stall_s,
+            "write_s": mgr.write_seconds.get(1)}
+
+
+def _splits(events):
+    """{host step: its split} of one worker's step events; each event
+    carries the stream-timed split of the step before it."""
+    return {s["split"]["host_step"]: s["split"]
+            for s in _of(events, "step") if s.get("split")}
+
+
+def _step_split(steps, splits):
+    """Medians over one rank's step events ``steps`` of the stream's
+    times of compute, the all-reduce and the rest of the step, and of
+    the card's idle per step: the host clock's period between two step
+    ends less the stream's time of the later step."""
+    timed = [splits[s["host_step"]] for s in steps
+             if s["host_step"] in splits]
+    idle = [b["t"] - a["t"] - splits[b["host_step"]]["step_s"]
+            for a, b in zip(steps, steps[1:]) if b["host_step"] in splits]
+    return {
+        "timed_steps": len(timed),
+        "step_ms": 1e3 * _median([s["step_s"] for s in timed]),
+        "compute_ms": 1e3 * _median([s["compute_s"] for s in timed]),
+        "allreduce_ms": 1e3 * _median([s["allreduce_s"] for s in timed]),
+        "rest_ms": 1e3 * _median([s["rest_s"] for s in timed]),
+        "device_idle_ms": 1e3 * (_median(idle) or 0.0),
+    }
+
+
+def _live_steps(events, epoch):
+    """{worker: its steps of world ``epoch`` with a live rank}."""
+    return {w: [s for s in _of(ev, "step")
+                if s["epoch"] == epoch and s["live"] > 0]
+            for w, ev in events.items()}
+
+
+def _rank0(events, epoch):
+    return next((w for w, ev in events.items()
+                 if any(e["epoch"] == epoch and e["rank"] == 0
+                        for e in _of(ev, "established"))), None)
+
+
+def _examples_per_s(events, epoch):
+    """Job examples/s of world ``epoch`` over its steps after the first
+    (the steps with a live rank): every rank's true rows over the span
+    of rank 0's step ends."""
+    steps = _live_steps(events, epoch)
+    lead = steps.get(_rank0(events, epoch), [])
+    if len(lead) < 2:
+        return None
+    rows = sum(s["rows"] for st in steps.values() for s in st[1:])
+    return rows / (lead[-1]["t"] - lead[0]["t"])
+
+
+def phase_elastic(torch, tmp, job_rec, card):
+    """The multi-process elastic ALLREDUCE job through the port's command
+    line: the master in this process, ELASTIC_WORKERS worker processes
+    sharing the card in one process world. Run A trains one epoch of
+    ELASTIC_RECORDS; Run B kills worker 1 at version
+    ELASTIC_KILL_AT_VERSION and finishes with its replacement. Returns
+    the flash kernels' launches of both runs (the workers report theirs;
+    ResNet-50 launches none)."""
+    from elasticdl_tpu_torch.parallel.distributed import (
+        choose_backend,
+        worker_devices,
+    )
+
+    problems = []
+    torch.cuda.empty_cache()
+    data_dir = os.path.join(tmp, "elastic-data")
+    write_s = write_job_records(torch, data_dir, ELASTIC_RECORDS)
+    snapshot = _snapshot_check(torch)
+    if not snapshot["ok"]:
+        problems.append("the pinned snapshot is torn: %s" % snapshot["torn"])
+    tasks = ELASTIC_RECORDS // JOB_BATCH
+    expected_backend = choose_backend(
+        torch.device(worker_devices(DEVICE, ELASTIC_WORKERS)[0])
+    )
+    launches = {name: 0 for name in KERNELS}
+    records = {}
+    for run, epochs, kill_at in (
+        ("A", 1, None),
+        ("B", ELASTIC_KILL_EPOCHS, ELASTIC_KILL_AT_VERSION),
+    ):
+        root = os.path.join(tmp, "elastic-%s" % run)
+        ckpt_dir, out_dir = root + "-ckpt", root + "-export"
+        t0 = time.perf_counter()
+        rc, job, done, killed_at = _run_elastic_job(
+            torch, elastic_argv(data_dir, ckpt_dir, out_dir, epochs),
+            root + "-timeline", kill_at,
+        )
+        job_s = time.perf_counter() - t0
+        manager = job.master.instance_manager
+        events = _timeline_events(root + "-timeline")
+        bad = []
+        if rc != 0:
+            bad.append("exit code %s" % rc)
+        if not job.master.task_d.finished():
+            bad.append("the dispatcher has tasks left")
+        want_done = tasks * epochs + 1  # + the SAVE_MODEL task
+        if len(done) != want_done or len(set(done)) != len(done):
+            bad.append("%d task completions (%d distinct), expected %d once"
+                       % (len(done), len(set(done)), want_done))
+        finals = {w: _of(ev, "final") for w, ev in events.items()}
+        live_workers = [w for w, f in finals.items() if f]
+        digests = {finals[w][0]["digest"] for w in live_workers}
+        if len(live_workers) != ELASTIC_WORKERS or len(digests) != 1:
+            bad.append("final states of workers %s: %d distinct digests"
+                       % (live_workers, len(digests)))
+        for w in live_workers:
+            for name, n in finals[w][0]["launches"].items():
+                launches[name] += n
+        worlds = {w: _of(ev, "established") for w, ev in events.items()}
+        backends = sorted({e["backend"] for ws in worlds.values()
+                           for e in ws if e["size"] > 1})
+        if backends != [expected_backend]:
+            bad.append("backends %s, expected %s"
+                       % (backends, expected_backend))
+        lead = min(live_workers) if live_workers else 0
+        steps = _of(events.get(lead, []), "step")
+        lead_splits = _splits(events.get(lead, []))
+        version = finals[lead][0]["version"] if live_workers else -1
+        live_steps = sum(1 for s in steps if s["live"] > 0)
+        if version != live_steps:
+            bad.append("final version %d, %d steps with a live rank"
+                       % (version, live_steps))
+        ckpts = {c["version"]: c for c in _of(events.get(0, []),
+                                               "checkpoint")}
+        newest = max(ckpts) if ckpts else None
+        restored = None
+        if newest is None:
+            bad.append("rank 0 wrote no checkpoint")
+        else:
+            got_v, digest = _checkpoint_digest(
+                torch, os.path.join(ckpt_dir, "ckpt_v%d" % newest)
+            )
+            restored = got_v == newest and digest == ckpts[newest]["digest"]
+            if not restored:
+                bad.append("ckpt_v%d does not restore bitwise" % newest)
+        import glob
+
+        if not glob.glob(os.path.join(out_dir, "*", "MANIFEST.json")):
+            bad.append("no export manifest under %s" % out_dir)
+        writes = {}
+        for ev in events.values():
+            for e in _of(ev, "checkpoint_writes"):
+                writes.update({int(k): v for k, v in e["write_s"].items()})
+        first_epoch = min((e["epoch"] for ws in worlds.values() for e in ws),
+                          default=0)
+        live_by_worker = _live_steps(events, first_epoch)
+        rec = {
+            "phase": "elastic",
+            "run": run,
+            "card": card,
+            "model": JOB_MODEL_DEF + " (bf16, params float32)",
+            "workers": ELASTIC_WORKERS,
+            "records": ELASTIC_RECORDS,
+            "epochs": epochs,
+            "batch": JOB_BATCH,
+            "checkpoint_steps": JOB_CKPT_STEPS,
+            "backend": backends,
+            "write_records_s": write_s,
+            "job_s": job_s,
+            "exit_codes": {str(k): v for k, v in manager.exit_codes.items()},
+            "tasks_done": len(done),
+            "version": version,
+            "steps": len(steps),
+            "live_steps": live_steps,
+            "final_digests_equal": len(digests) == 1,
+            "newest_checkpoint": newest,
+            "restore_bitwise": restored,
+            "examples_per_s": _examples_per_s(events, first_epoch),
+            "single_process_job_examples_per_s": job_rec["examples_per_s"],
+            # per worker, over the first world's live steps after its
+            # first: the all-reduce's time includes waiting for the
+            # slower rank
+            "step_split": {str(w): _step_split(st[1:],
+                                               _splits(events[w]))
+                           for w, st in live_by_worker.items()
+                           if len(st) > 2},
+            "lead_steps": [
+                {"t_s": s["t"] - steps[0]["t"], "live": s["live"],
+                 "rows": s["rows"],
+                 "step_ms": 1e3 * lead_splits[s["host_step"]]["step_s"]
+                 if s["host_step"] in lead_splits else None,
+                 "allreduce_ms":
+                 1e3 * lead_splits[s["host_step"]]["allreduce_s"]
+                 if s["host_step"] in lead_splits else None}
+                for s in steps[:40]
+            ],
+            "checkpoint_stall_ms": [1e3 * c["snapshot_s"]
+                                    for _, c in sorted(ckpts.items())],
+            "checkpoint_write_ms": [1e3 * v for _, v in sorted(writes.items())],
+            "sync_checkpoint_s_pr5": "1.1-1.7 (PERF.md)",
+        }
+        if run == "A":
+            rec["snapshot_check"] = snapshot
+            if manager.exit_codes != {0: 0, 1: 0}:
+                bad.append("worker exits %s" % manager.exit_codes)
+        else:
+            survivor = events.get(0, [])
+            broken = [e for e in _of(survivor, "world_broken")
+                      if e["t"] >= killed_at]
+            later = [w for w in worlds.get(0, []) if w["t"] > killed_at]
+            relaunched = sorted(w for w in events if w >= ELASTIC_WORKERS)
+            joined = worlds.get(relaunched[0], []) if relaunched else []
+            by_epoch = {w["epoch"]: w for w in worlds.get(0, [])}
+            joined_equal = bool(joined) and all(
+                w["epoch"] in by_epoch
+                and w["digest"] == by_epoch[w["epoch"]]["digest"]
+                for w in joined
+            )
+            if manager.exit_codes.get(1) != -9:
+                bad.append("worker 1 exited %s, expected SIGKILL"
+                           % manager.exit_codes.get(1))
+            if not broken:
+                bad.append("the survivor's step never broke")
+            if not later:
+                bad.append("the survivor never re-formed")
+            if not joined_equal:
+                bad.append("the relaunched worker did not join with the "
+                           "survivor's state: %s / %s"
+                           % ([w.get("digest") for w in joined],
+                              sorted(by_epoch)))
+            after = [s for s in steps if s["t"] > killed_at
+                     and s["epoch"] > (broken[0]["epoch"] if broken else 0)]
+            spawned = manager.spawned_at.get(relaunched[0]) if relaunched \
+                else None
+            start = _of(events.get(relaunched[0], []), "start") if \
+                relaunched else []
+            rec.update({
+                "killed_at_version": kill_at,
+                "kill_to_world_broken_s": (broken[0]["t"] - killed_at
+                                           if broken else None),
+                "kill_to_first_step_of_new_world_s": (
+                    after[0]["t"] - killed_at if after else None),
+                "worlds_of_survivor": [(w["epoch"], w["size"])
+                                       for w in worlds.get(0, [])],
+                "relaunched": relaunched,
+                "relaunch_spawn_after_kill_s": (
+                    spawned - killed_at if spawned else None),
+                "relaunch_cold_start_s": (start[0]["t"] - spawned
+                                          if start and spawned else None),
+                "relaunch_spawn_to_join_s": (joined[0]["t"] - spawned
+                                             if joined and spawned else None),
+                "relaunch_joined_bitwise": joined_equal,
+                "survivor_alone_examples_per_s": _examples_per_s(
+                    events, later[0]["epoch"]) if later else None,
+                "rejoined_examples_per_s": _examples_per_s(
+                    events, joined[0]["epoch"]) if joined else None,
+            })
+        emit(rec)
+        records[run] = rec
+        problems += ["run %s: %s" % (run, b) for b in bad]
+    if problems:
+        raise PhaseError("elastic: " + "; ".join(problems))
+    return {name: (n, {}) for name, n in launches.items()}, records
+
+
 def _record_at(records, kernel, key):
     b, lq, lk, h, d, dtype, causal = key
     return next(
@@ -2313,10 +2754,33 @@ def kernels_line(records, paths):
     return {"kernels": kernels}
 
 
+def _elastic_only(torch):
+    try:
+        card = phase_device(torch)
+        with tempfile.TemporaryDirectory() as tmp:
+            elastic, _ = phase_elastic(torch, tmp, {"examples_per_s": None},
+                                       card)
+        _check_counts(elastic, {k: 0 for k in KERNELS}, "the elastic job")
+    except Exception as err:  # noqa: BLE001 — reported, exit non-zero
+        import traceback
+
+        traceback.print_exc()
+        print("chip_smoke: FAILED: %s" % err, file=sys.stderr)
+        return 1
+    print(card)
+    return 0
+
+
 def main(argv=None):
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
-        argv
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--elastic-only",
+        action="store_true",
+        help="drive only the elastic phase and print its records, not the "
+        "result line: on a host with a card for each of its workers, they "
+        "form an NCCL world",
     )
+    args = parser.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -2334,6 +2798,8 @@ def main(argv=None):
         )
         return 2
     sys.path.insert(0, REPO)
+    if args.elastic_only:
+        return _elastic_only(torch)
 
     try:
         card = phase_device(torch)
@@ -2349,11 +2815,19 @@ def main(argv=None):
             job, job_rec = phase_job(torch, tmp, fused, card)
             _check_counts(job, {k: 0 for k in KERNELS}, "the ResNet-50 job")
             evaluated = phase_eval(torch, tmp, job_rec, card)
-        _check_counts(evaluated, {k: 0 for k in KERNELS}, "the eval phase")
+            _check_counts(evaluated, {k: 0 for k in KERNELS},
+                          "the eval phase")
+            _reset_counters()
+            elastic, _ = phase_elastic(torch, tmp, job_rec, card)
+            # launched in the workers (which report theirs) or here
+            here = _counts()
+            elastic = {k: (n + here[k][0], here[k][1])
+                       for k, (n, _) in elastic.items()}
+        _check_counts(elastic, {k: 0 for k in KERNELS}, "the elastic job")
         line = kernels_line(
             records,
             {"serve": served, "train": trained, "job": job,
-             "eval": evaluated},
+             "eval": evaluated, "elastic": elastic},
         )
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback

@@ -1,6 +1,5 @@
 """The ``train``, ``evaluate`` and ``predict`` entries of the port's
-command line, the counterpart of ``elasticdl_tpu/api.py``'s local mode
-for one process:
+command line, the counterpart of ``elasticdl_tpu/api.py``'s local mode:
 
     python -m elasticdl_tpu_torch.cli train \\
         --distribution_strategy AllreduceStrategy --num_workers 0 \\
@@ -12,11 +11,17 @@ for one process:
     python -m elasticdl_tpu_torch.cli predict ... --prediction_data P \\
         --checkpoint_filename_for_init F      # or --checkpoint_dir C
 
-``train`` runs the master (task dispatcher, checkpoint service,
-evaluation service, the coordinating servicer) and one
-``AllReduceWorker`` in this process: ``Master(args)``, ``prepare()``, the
-worker's ``run()``, then the master's ``run()``, which queues the
+``train`` with ``--num_workers 0`` runs the master (task dispatcher,
+checkpoint service, evaluation service, the coordinating servicer) and
+one ``AllReduceWorker`` in this process: ``Master(args)``, ``prepare()``,
+the worker's ``run()``, then the master's ``run()``, which queues the
 deferred SAVE_MODEL task and returns once every task is done. With
+``--num_workers N > 0`` the master serves its RPC plane and a
+``LocalInstanceManager`` starts N worker processes (``python -m
+elasticdl_tpu_torch.worker.main``, the master's flags relayed, the
+device included), watches them, relaunches crashed ones and hands their
+tasks back; the elastic workers train in one process world that
+re-forms at every membership change. With
 ``--validation_data`` the worker scores an evaluation round between its
 steps each time the version advances ``--evaluation_steps`` past the
 last round. ``evaluate`` and ``predict`` run an evaluation-only or
@@ -25,13 +30,15 @@ drain (``worker/elastic_allreduce_worker.py``) over a saved model. Both
 need their data flag and a model source, or they exit 2
 (``--checkpoint_dir`` counts only under AllreduceStrategy).
 
-Every flag of the reference parses. Values this slice cannot honour
+Every flag of the reference parses. Values the port cannot honour yet
 raise ``NotImplementedError``: ``--docker_image_repository`` (cluster
 submission), and, through the master, the parameter-server strategy,
-``--num_workers > 0``, ``--master_journal_dir``, ``--telemetry_port`` and
+``--num_standby_workers``, ``--num_workers > 0`` with evaluation,
+``--master_journal_dir``, ``--telemetry_port`` and
 ``--tensorboard_log_dir``.
 """
 
+import os
 import sys
 
 from elasticdl_tpu_torch.common.args import parse_master_args
@@ -110,7 +117,67 @@ class LocalJob:
             **common,
         )
 
+    def _worker_command(self, worker_id, device):
+        from elasticdl_tpu_torch.common.args import (
+            build_arguments_from_parsed_result,
+        )
+
+        return [
+            sys.executable,
+            "-m",
+            "elasticdl_tpu_torch.worker.main",
+            "--worker_id",
+            str(worker_id),
+            "--job_type",
+            self.master.job_type,
+            "--master_addr",
+            "localhost:%d" % self.master.port,
+            "--device",
+            device,
+        ] + build_arguments_from_parsed_result(
+            self.args,
+            filter_args={
+                "port",
+                "num_workers",
+                "training_data",
+                "validation_data",
+                "prediction_data",
+                "job_name",
+                "device",
+            },
+        )
+
+    def _run_workers(self):
+        """The multi-process job: the master serves, N worker processes
+        train; returns the master's exit code once every task is done."""
+        from elasticdl_tpu_torch.master.local_instance_manager import (
+            LocalInstanceManager,
+        )
+        from elasticdl_tpu_torch.parallel.distributed import worker_devices
+
+        env = dict(os.environ)
+        root = os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))
+        )
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        # the workers share this host: the coordinator address they
+        # advertise must be one the siblings can dial
+        env.setdefault("EDL_COMM_HOST", "localhost")
+        self.master.instance_manager = LocalInstanceManager(
+            self.master.task_d,
+            self.args.num_workers,
+            self._worker_command,
+            worker_devices(self.args.device, self.args.num_workers),
+            restart_policy=self.args.restart_policy,
+            env=env,
+            membership=self.master.membership,
+        )
+        self.master.prepare()
+        return self.master.run(poll_secs=1)
+
     def run(self):
+        if self.args.num_workers > 0:
+            return self._run_workers()
         self.master.prepare()
         try:
             self.worker = self._make_worker()

@@ -3,7 +3,10 @@
 - ``parse_scorer_args``: the scorer process's subset, plus ``--device``;
 - ``parse_master_args``: the master's (and the local job's) full flag
   set, copied from the reference, plus ``--device``, with the
-  reference's cross-flag validation.
+  reference's cross-flag validation;
+- ``parse_worker_args``: a worker process's flags, plus ``--device``;
+  the master relays its own parsed flags to each worker it launches
+  through ``build_arguments_from_parsed_result``.
 
 Flags of planes not ported yet still parse, so one argv serves both
 packages; the entry points raise when a flag asks for a missing plane
@@ -723,3 +726,71 @@ def _validate(args):
             logger.warning(
                 "get_model_steps is forced to 1 for sync SGD"
             )
+
+
+def parse_worker_args(worker_args=None):
+    """A worker process (``python -m elasticdl_tpu_torch.worker.main``)."""
+    parser = argparse.ArgumentParser(
+        description="ElasticDL worker (PyTorch/CUDA)"
+    )
+    parser.add_argument("--worker_id", type=int, required=True)
+    parser.add_argument("--job_type", required=True)
+    parser.add_argument("--master_addr", default="")
+    parser.add_argument("--ps_addrs", default="", help="Comma-separated")
+    parser.add_argument(
+        "--comm_host",
+        default="",
+        help="Host other allreduce workers can reach this process at "
+        "(the coordinator address when it is rank 0); defaults to "
+        "$EDL_COMM_HOST or the hostname",
+    )
+    parser.add_argument("--checkpoint_steps", type=non_neg_int, default=0)
+    parser.add_argument("--checkpoint_dir", default="")
+    parser.add_argument(
+        "--replica_refresh_steps", type=non_neg_int, default=8
+    )
+    add_bool_param(
+        parser,
+        "--standby",
+        False,
+        help="Start as a pre-warmed spare (not ported yet: must be false)",
+    )
+    parser.add_argument(
+        "--checkpoint_filename_for_init",
+        default="",
+        help="Exported model file evaluation-only allreduce workers "
+        "score (relayed from the master's flag of the same name)",
+    )
+    parser.add_argument(
+        "--keep_checkpoint_max", type=non_neg_int, default=0
+    )
+    parser.add_argument(
+        "--prediction_outputs_processor",
+        default="PredictionOutputsProcessor",
+    )
+    parser.add_argument(
+        "--device",
+        default="cuda",
+        help="Device the worker trains on: 'cuda' (the default; raises "
+        "without a card) or 'cpu'",
+    )
+    add_common_args_between_master_and_worker(parser)
+    args, _unknown = parser.parse_known_args(args=worker_args)
+    return args
+
+
+def build_arguments_from_parsed_result(args, filter_args=None):
+    """Parsed flags -> an argv that parses back to them (the master
+    relays its own flags to the workers it launches); ``filter_args``
+    names flags to leave out, and unset (None) ones are left out too."""
+    items = vars(args).items()
+    if filter_args:
+        items = [(k, v) for k, v in items if k not in filter_args]
+    arguments = []
+    for key, value in items:
+        if value is None:
+            continue
+        if isinstance(value, bool):
+            value = "true" if value else "false"
+        arguments.extend(["--" + key, str(value)])
+    return arguments

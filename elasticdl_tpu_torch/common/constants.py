@@ -35,6 +35,12 @@ class DistributionStrategy:
     LOCAL = "Local"
 
 
+class InstanceManagerStatus:
+    PENDING = "Pending"
+    RUNNING = "Running"
+    FINISHED = "Finished"
+
+
 class MetricsDictKey:
     MODEL_OUTPUT = "output"
     LABEL = "label"

@@ -19,11 +19,21 @@ optimizer's per-parameter state: SGD's ``momentum_buffer``, AdamW's
 ``exp_avg``/``exp_avg_sq``/``step``) and ``version``.
 :class:`ShardedCheckpointManager` keeps the reference's cadence and ring
 retention, and evicts a version only once a newer one is complete.
+
+A save is the reference's two phases: a snapshot of the leaves on the
+host, then :func:`write_snapshot`, pure file IO. The synchronous path
+(:func:`save_sharded`) feeds the writer one leaf at a time, each copied
+to the host as it is written. With ``async_io`` the manager first takes
+the whole snapshot (:func:`snapshot_leaves`: every device-to-host copy
+queued into pinned memory, then one wait on a CUDA event) and writes it
+on a background thread (``common/async_checkpoint.py``); the files are
+byte-identical either way.
 """
 
 import glob
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -85,9 +95,38 @@ def split_train_state_leaves(leaves, param_names):
     return params, state, opt, int(leaves["version"])
 
 
-def save_sharded(directory, leaves, version=0):
-    """Write {path: tensor} into ``directory``, one leaf at a time (peak
-    host memory is about one leaf), the manifest last."""
+def snapshot_leaves(leaves):
+    """Phase 1 of an asynchronous save: {path: tensor} -> [(path, host
+    tensor)], owned copies that later in-place updates cannot reach.
+
+    Every copy of a card tensor is queued first, into pinned host memory
+    with ``non_blocking=True``, so the transfers overlap; one CUDA event
+    recorded after them is waited on before returning. The wait is what
+    makes the snapshot safe: the optimizer updates the parameters in
+    place, and a copy still in flight when the next step runs would
+    write torn state. A host tensor is cloned."""
+    snap, streams = [], {}
+    for path, value in leaves.items():
+        t = value.detach()
+        if t.is_cuda:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            streams.setdefault(t.device, torch.cuda.current_stream(t.device))
+        else:
+            host = t.clone()
+        snap.append((path, host))
+    for stream in streams.values():
+        done = torch.cuda.Event()
+        done.record(stream)
+        done.synchronize()
+    return snap
+
+
+def write_snapshot(directory, entries, version=0):
+    """Phase 2 of a save: write ``entries`` ((path, tensor) pairs, a
+    snapshot list or a lazy iterable) into ``directory``, one leaf at a
+    time (peak host memory is about one leaf beyond the entries), the
+    manifest last."""
     os.makedirs(directory, exist_ok=True)
     pid = PROCESS_INDEX
     # clear this process's files of an earlier write to the directory
@@ -99,7 +138,7 @@ def save_sharded(directory, leaves, version=0):
         except OSError:
             pass
     manifest = {"version": int(version), "leaves": {}}
-    for path, value in leaves.items():
+    for path, value in entries:
         arr, dtype = _to_numpy(value)
         fname = "%s.p%d.s0.npy" % (path.replace("/", "."), pid)
         np.save(os.path.join(directory, fname), arr)
@@ -123,6 +162,12 @@ def save_sharded(directory, leaves, version=0):
         len(manifest["leaves"]),
         directory,
     )
+
+
+def save_sharded(directory, leaves, version=0):
+    """Write {path: tensor} into ``directory`` synchronously: each leaf
+    is copied to the host as it is written."""
+    write_snapshot(directory, leaves.items(), version)
 
 
 def _merged_manifest(directory):
@@ -177,19 +222,28 @@ def load_sharded_to_host(directory):
 class ShardedCheckpointManager:
     """Ring-retention directory manager: a checkpoint every
     ``checkpoint_steps`` versions, the newest ``keep_max`` directories
-    kept. Asynchronous writes (``async_io``) are not ported yet."""
+    kept.
+
+    With ``async_io=True`` a save blocks only for the device-to-host
+    snapshot; the file writes and the ring eviction run on a background
+    thread, and ``write_seconds[version]`` records each write's duration.
+    Call :meth:`wait` before restoring, :meth:`close` at teardown."""
 
     def __init__(
         self, base_dir, checkpoint_steps=0, keep_max=0, async_io=False
     ):
-        if async_io:
-            raise NotImplementedError(
-                "asynchronous checkpoint writes are not ported yet"
-            )
         self._base = base_dir
         self._steps = checkpoint_steps
         self._keep_max = keep_max
         self._expected_writers = None
+        self._async = None
+        self.write_seconds = {}
+        if async_io:
+            from elasticdl_tpu_torch.common.async_checkpoint import (
+                AsyncCheckpointer,
+            )
+
+            self._async = AsyncCheckpointer()
 
     def set_expected_writers(self, n):
         """Processes writing each version: the bar a newer version must
@@ -211,17 +265,19 @@ class ShardedCheckpointManager:
             glob.glob(os.path.join(directory, _MANIFEST_PREFIX + "*.json"))
         )
 
-    def _evict(self):
+    def _evict(self, expected_writers):
         """Drop the oldest versions past ``keep_max``, each only once a
         newer version is complete, so the last restorable state is never
-        deleted while a newer one is torn."""
+        deleted while a newer one is torn. ``expected_writers`` travels
+        with the save it belongs to: an asynchronous write may land after
+        the worker set a new world's count."""
         kept = sorted(self.versions())
         while len(kept) > self._keep_max:
             victim_dir = self._dir_for(kept[0])
             counts = {
                 v: self._manifest_count(self._dir_for(v)) for v in kept
             }
-            need = self._expected_writers or max(1, *counts.values())
+            need = expected_writers or max(1, *counts.values())
             if not any(counts[v] >= need for v in kept[1:]):
                 break
             kept.pop(0)
@@ -231,12 +287,40 @@ class ShardedCheckpointManager:
 
     def save(self, train_state, version):
         """Write ``train_state`` (a port TrainState) as version
-        ``version``; returns the directory."""
+        ``version``; returns the directory. Asynchronously, it returns
+        once the snapshot is on the host."""
         directory = self._dir_for(version)
-        save_sharded(directory, train_state_leaves(train_state), version)
-        if self._keep_max:
-            self._evict()
+        leaves = train_state_leaves(train_state)
+        expected = self._expected_writers
+        if self._async is None:
+            t0 = time.perf_counter()
+            save_sharded(directory, leaves, version)
+            self.write_seconds[version] = time.perf_counter() - t0
+            if self._keep_max:
+                self._evict(expected)
+            return directory
+        snap = snapshot_leaves(leaves)
+
+        def write():
+            t0 = time.perf_counter()
+            write_snapshot(directory, snap, version)
+            self.write_seconds[version] = time.perf_counter() - t0
+            if self._keep_max:
+                self._evict(expected)
+
+        self._async.submit(write, label="ckpt_v%d" % version)
         return directory
+
+    def wait(self):
+        """Land the in-flight asynchronous saves (a no-op when
+        synchronous); raises the first write error."""
+        if self._async is not None:
+            self._async.wait()
+
+    def close(self):
+        if self._async is not None:
+            self._async.close()
+            self._async = None
 
     def versions(self):
         """Versions with at least one complete manifest."""

@@ -1,25 +1,34 @@
-"""The master of the single-process ALLREDUCE job, the counterpart of
+"""The master of an ALLREDUCE job, the counterpart of
 ``elasticdl_tpu/master/master.py``: it builds the task dispatcher from the
 data reader's shards, infers the job type from the data flags, keeps the
 checkpoint service, the evaluation service (for a job with
-``--validation_data`` or an evaluation trigger) and the coordinating
-servicer, queues the deferred SAVE_MODEL task when ``--output`` is set,
-and polls ``finished()``.
+``--validation_data`` or an evaluation trigger), the coordinating
+servicer and the membership of the elastic plane, queues the deferred
+SAVE_MODEL task when ``--output`` is set, and polls ``finished()``.
 
-The worker holds the servicer directly, in the same process, so the
-master starts no RPC server: no remote worker exists until the
-multi-process job is ported (the reference's ``prepare()`` starts one
-that this job never dials). Every other plane of the reference's master
-raises ``NotImplementedError`` by name when its flag asks for it: the
-dispatch journal (``--master_journal_dir``), the telemetry endpoint and
-event sink (``--telemetry_port``, ``--telemetry_events_path``), the
-flight recorder (``EDL_FLIGHT_RECORDER_DIR``), TensorBoard
-(``--tensorboard_log_dir``), membership and the instance managers
-(``--num_workers > 0``) and the parameter-server strategy.
+``prepare()`` starts the RPC server (``master/rpc_service.py`` over the
+socket transport of ``rpc/socket_transport.py``) on ``--port`` (0 or
+unset: a port the OS picks, exposed as ``port``), then the workers of
+the instance manager, if one is attached. A single-process job's worker
+holds the servicer directly and never dials it. ``run()`` polls until
+every task is done, lingers briefly so that remote workers learn there
+is no more work, and ``stop()`` ends the workers and the server. A
+process entry (:func:`main`) drains on SIGTERM: stop, then exit 75.
+
+Every other plane of the reference's master raises
+``NotImplementedError`` by name when its flag asks for it: the dispatch
+journal and the failover it enables (``--master_journal_dir``), the
+telemetry endpoint and event sink (``--telemetry_port``,
+``--telemetry_events_path``), the flight recorder
+(``EDL_FLIGHT_RECORDER_DIR``), TensorBoard (``--tensorboard_log_dir``),
+standby workers (``--num_standby_workers``), the collective evaluation
+of an elastic job (``--num_workers > 0`` with evaluation) and the
+parameter-server strategy.
 """
 
 import os
 import threading
+import time
 
 from elasticdl_tpu_torch.common.constants import DistributionStrategy, JobType
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
@@ -32,6 +41,10 @@ from elasticdl_tpu_torch.master.checkpoint_service import CheckpointService
 from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
 from elasticdl_tpu_torch.master.servicer import MasterServicer
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+
+# how long the master waits, after the last task, for its worker
+# processes to exit on their own (their last checkpoint writes landing)
+WORKER_EXIT_GRACE_S = 60
 
 
 def _not_ported(plane, flag):
@@ -89,8 +102,18 @@ def refuse_unported_planes(args):
          os.environ.get("EDL_FLIGHT_RECORDER_DIR")),
         ("TensorBoard", "--tensorboard_log_dir",
          getattr(args, "tensorboard_log_dir", "")),
-        ("membership and the instance managers (worker processes)",
-         "--num_workers > 0", getattr(args, "num_workers", 0) > 0),
+        ("standby workers", "--num_standby_workers",
+         getattr(args, "num_standby_workers", 0) > 0),
+        ("the collective evaluation of an elastic job",
+         "--num_workers > 0 with --validation_data or an evaluation "
+         "trigger",
+         getattr(args, "num_workers", 0) > 0
+         and bool(getattr(args, "training_data", ""))
+         and bool(
+             getattr(args, "validation_data", "")
+             or getattr(args, "evaluation_steps", 0)
+             or getattr(args, "evaluation_throttle_secs", 0)
+         )),
     )
     for plane, flag, asked in checks:
         if asked:
@@ -151,6 +174,28 @@ class Master:
             checkpoint_service=self.checkpoint_service,
             evaluation_service=self.evaluation_service,
         )
+        from elasticdl_tpu_torch.master.membership_service import (
+            MembershipService,
+        )
+
+        # membership epochs of the elastic plane; the replicated plane
+        # needs no world-size multiple
+        self.membership = MembershipService(
+            expected_workers=max(1, getattr(args, "num_workers", 0)),
+            base_port=getattr(args, "comm_base_port", 0),
+            # a cold worker start can exceed the default grace on a
+            # loaded host; a partial first world costs a re-form
+            form_grace_secs=float(
+                os.environ.get("EDL_FORM_GRACE_SECS", "30")
+            ),
+        )
+        # this incarnation's boot id, stamped on every RPC reply
+        self.master_epoch = int(time.time_ns() % (1 << 53)) or 1
+        self.instance_manager = None
+        self._server = None
+        self._rpc_service = None
+        self.port = None
+        self._stopped = False
         self._stop_requested = threading.Event()
 
     @staticmethod
@@ -196,27 +241,78 @@ class Master:
             eval_metrics_fn,
         )
 
+    def _master_status(self):
+        return {
+            "finished": self.task_d.finished(),
+            "task_queues": self.task_d.queue_depths(),
+        }
+
     def prepare(self):
-        """Start the evaluation service's timer, if any. There is no RPC
-        server to start (see the module doc)."""
+        """Start the evaluation service's timer, the RPC server and the
+        instance manager's workers."""
         if self.evaluation_service:
             self.evaluation_service.start()
-        logger.info("Master ready (in-process, %s)", self.job_type)
+        from elasticdl_tpu_torch.master.rpc_service import MasterRpcService
+        from elasticdl_tpu_torch.rpc.socket_transport import serve
+
+        port = getattr(self.args, "port", None)
+        self._rpc_service = MasterRpcService(
+            self.master_servicer,
+            membership=self.membership,
+            master_epoch=self.master_epoch,
+            status_fn=self._master_status,
+        )
+        self._server = serve(
+            self._rpc_service.rpc_methods(), port if port else 0
+        )
+        self.port = self._server.port
+        logger.info(
+            "Master RPC server started on port %d (master_epoch %d, %s)",
+            self.port,
+            self.master_epoch,
+            self.job_type,
+        )
+        if self.instance_manager:
+            self.instance_manager.start_workers()
 
     def run(self, poll_secs=30):
         """Poll until all tasks are done, queuing the deferred SAVE_MODEL
-        task when they are; returns 0. The evaluation service's timer
-        stops with it."""
+        task when they are; then stop. Returns 0."""
         try:
             while not self._stop_requested.is_set():
                 if self.task_d.finished():
                     if self.task_d.invoke_deferred_callback():
                         continue  # a SAVE_MODEL task was just queued
+                    self._linger_for_pollers()
                     break
                 self._stop_requested.wait(poll_secs)
         finally:
-            self._stop_evaluation()
+            self.stop()
         return 0
+
+    def _linger_for_pollers(self):
+        """Serve past the last report while remote workers may still
+        poll: a worker learns "no more tasks" only from a get_task reply.
+        The instance manager's workers are waited for (up to
+        ``WORKER_EXIT_GRACE_S``), so that none is stopped while
+        its last checkpoint writes land; other remote pollers get
+        ``EDL_MASTER_EXIT_GRACE_S`` (3 s). In-process jobs never dial the
+        server and exit at once."""
+        if self.instance_manager is not None:
+            if not self.instance_manager.wait(timeout=WORKER_EXIT_GRACE_S):
+                logger.warning(
+                    "workers still running %.0fs after the last task; "
+                    "stopping them",
+                    WORKER_EXIT_GRACE_S,
+                )
+            return
+        grace = float(os.environ.get("EDL_MASTER_EXIT_GRACE_S", "3"))
+        if (
+            grace > 0
+            and self._rpc_service is not None
+            and self._rpc_service.served_get_task
+        ):
+            self._stop_requested.wait(grace)
 
     def request_stop(self):
         self._stop_requested.set()
@@ -225,3 +321,52 @@ class Master:
     def _stop_evaluation(self):
         if self.evaluation_service:
             self.evaluation_service.stop()
+
+    def stop(self):
+        """Stop the evaluation timer, the workers and the server; safe to
+        call twice."""
+        if self._stopped:
+            return
+        self._stopped = True
+        self._stop_evaluation()
+        if self.instance_manager:
+            self.instance_manager.stop_relaunch_and_remove_all_pods()
+        if self._server:
+            self._server.stop()
+            self._server = None
+
+    def install_drain_handler(self):
+        """SIGTERM (a preemption notice) stops the master and exits 75,
+        the code an external supervisor relaunches without spending its
+        crash budget. Installed only by the process entry."""
+        import signal
+        import sys
+
+        def _drain(signum, frame):
+            logger.warning("SIGTERM: stopping the master")
+            self.stop()
+            sys.exit(75)
+
+        signal.signal(signal.SIGTERM, _drain)
+
+
+def main(argv=None):
+    """``python -m elasticdl_tpu_torch.master.master ...``: a master
+    process for workers started elsewhere (``--num_workers`` is then
+    the membership's expected count; none are launched here)."""
+    from elasticdl_tpu_torch.common.args import parse_master_args
+
+    args = parse_master_args(argv)
+    logger.setLevel(args.log_level)
+    master = Master(args)
+    master.prepare()
+    master.install_drain_handler()
+    return master.run(
+        poll_secs=float(os.environ.get("EDL_MASTER_POLL_SECS", "30"))
+    )
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -1,0 +1,247 @@
+"""The master's RPC surface and the worker's client for it, the
+counterpart of ``elasticdl_tpu/master/rpc_service.py``, over the port's
+socket transport (``rpc/socket_transport.py``).
+
+:class:`MasterRpcService` wraps the coordinating ``MasterServicer`` and
+the ``MembershipService`` as dict-message handlers; every reply carries
+this master's ``master_epoch``. :class:`MasterClient` gives a worker
+process the servicer's method surface over a connection to them, so the
+workers run the same code against a remote master as against the
+in-process servicer.
+
+The methods an ALLREDUCE job calls are served: ``get_task``,
+``report_task_result``, ``report_evaluation_metrics``, ``master_status``,
+``get_comm_world`` and ``leave_comm_world``. The methods of planes not
+ported yet raise ``NotImplementedError`` by name: the master-held model
+(``get_model``, ``report_variable``, ``report_gradient``), the embedding
+service (``push_embedding_info``, ``pull_embedding_vectors``,
+``export_embedding_tables``), telemetry (``report_telemetry``) and the
+standby pool (``standby_poll``). The client has no failover channel: it
+retries a refused or reset connection a few times, and a master that
+stays away ends the worker (the journal that would let a relaunched
+master resume is not ported either).
+"""
+
+import numpy as np
+
+from elasticdl_tpu_torch.common.constants import TaskType
+from elasticdl_tpu_torch.common.log_utils import default_logger as logger
+from elasticdl_tpu_torch.common.tensor import Tensor
+from elasticdl_tpu_torch.master.servicer import TaskResponse
+
+# a refused or reset connection is retried this many times, the backoff
+# doubling from 0.2 s
+_CONNECT_RETRIES = 3
+
+_UNPORTED = {
+    "get_model": "the master-held model",
+    "report_variable": "the master-held model",
+    "report_gradient": "the master-held model",
+    "push_embedding_info": "the embedding service",
+    "pull_embedding_vectors": "the embedding service",
+    "export_embedding_tables": "the embedding service",
+    "report_telemetry": "worker telemetry",
+    "standby_poll": "standby workers",
+}
+
+
+def _unported(name):
+    def handler(req):
+        raise NotImplementedError(
+            "%s (%s) is not ported yet" % (_UNPORTED[name], name)
+        )
+
+    return handler
+
+
+class MasterRpcService:
+    """Server side: dict-message handlers around a MasterServicer and the
+    membership. ``master_epoch`` stamps every reply; ``status_fn`` adds
+    to the ``master_status`` probe."""
+
+    def __init__(
+        self, servicer, membership=None, master_epoch=0, status_fn=None
+    ):
+        self._s = servicer
+        self._membership = membership
+        self._master_epoch = int(master_epoch)
+        self._status_fn = status_fn
+        # True once a remote worker polled for work: the master's run
+        # loop then lingers after the last task so the last poller
+        # learns "no more tasks" from a live master
+        self.served_get_task = False
+
+    def get_task(self, req):
+        self.served_get_task = True
+        task_type = req.get("task_type")
+        res = self._s.get_task(
+            req.get("worker_id", -1),
+            TaskType(task_type) if task_type is not None else None,
+        )
+        return {
+            "task_id": res.task_id,
+            "shard_name": res.shard_name,
+            "start": res.start,
+            "end": res.end,
+            "type": int(res.type) if res.type is not None else None,
+            "model_version": res.model_version,
+            "minibatch_size": res.minibatch_size,
+            "extended_config": res.extended_config,
+        }
+
+    def report_task_result(self, req):
+        self._s.report_task_result(
+            req.get("task_id", -1),
+            req.get("err_message", ""),
+            req.get("exec_counters") or None,
+        )
+        return {}
+
+    def master_status(self, req):
+        """This master's boot id, serving state and version, plus what
+        ``status_fn`` adds; answers even if ``status_fn`` fails."""
+        status = {
+            "master_epoch": self._master_epoch,
+            "state": "serving",
+            "version": self._s.get_model_version(),
+        }
+        if self._status_fn is not None:
+            try:
+                status.update(self._status_fn() or {})
+            except Exception:
+                logger.warning(
+                    "master_status status_fn failed", exc_info=True
+                )
+        return status
+
+    def report_evaluation_metrics(self, req):
+        outputs = {t.name: t.values for t in req.get("model_outputs", [])}
+        accepted, version = self._s.report_evaluation_metrics(
+            req.get("model_version", -1),
+            outputs,
+            req.get("labels"),
+            scored_version=req.get("scored_version"),
+        )
+        return {"accepted": accepted, "version": version}
+
+    def get_comm_world(self, req):
+        """The membership poll of the elastic allreduce plane."""
+        if self._membership is None:
+            return {"epoch": -1, "ready": False}
+        return self._membership.get_world(
+            req.get("worker_id", -1),
+            req.get("host", "localhost"),
+            awaiting=req.get("awaiting", True),
+        )
+
+    def leave_comm_world(self, req):
+        """A worker's announced leave (a drain, or its clean end): bump
+        the epoch before its process exits."""
+        if self._membership is not None:
+            self._membership.remove(
+                req.get("worker_id", -1), departing=True
+            )
+        return {}
+
+    def _stamp_epoch(self, fn):
+        epoch = self._master_epoch
+
+        def handler(req):
+            reply = fn(req)
+            if isinstance(reply, dict) and "master_epoch" not in reply:
+                reply["master_epoch"] = epoch
+            return reply
+
+        return handler
+
+    def rpc_methods(self):
+        methods = {
+            name: self._stamp_epoch(fn)
+            for name, fn in {
+                "get_task": self.get_task,
+                "get_comm_world": self.get_comm_world,
+                "leave_comm_world": self.leave_comm_world,
+                "master_status": self.master_status,
+                "report_task_result": self.report_task_result,
+                "report_evaluation_metrics": self.report_evaluation_metrics,
+            }.items()
+        }
+        methods.update({name: _unported(name) for name in _UNPORTED})
+        return methods
+
+
+class MasterClient:
+    """Worker side: the servicer's method surface over a socket client.
+    Calls carry no deadline (a worker parked on a busy master waits), as
+    the reference's master channel; a refused or reset connection is
+    retried ``_CONNECT_RETRIES`` times."""
+
+    def __init__(self, addr):
+        from elasticdl_tpu_torch.rpc.socket_transport import Client
+
+        self._client = Client(addr, retries=_CONNECT_RETRIES)
+        self.master_epoch = None
+
+    def _call(self, name, **fields):
+        resp = self._client.call(name, **fields)
+        self.master_epoch = resp.get("master_epoch", self.master_epoch)
+        return resp
+
+    def get_task(self, worker_id, task_type=None):
+        resp = self._call(
+            "get_task",
+            worker_id=worker_id,
+            task_type=int(task_type) if task_type is not None else None,
+        )
+        return TaskResponse(
+            task_id=resp["task_id"],
+            shard_name=resp["shard_name"],
+            start=resp["start"],
+            end=resp["end"],
+            type=TaskType(resp["type"]) if resp["type"] is not None else None,
+            model_version=resp["model_version"],
+            minibatch_size=resp["minibatch_size"],
+            extended_config=resp.get("extended_config") or {},
+        )
+
+    def report_task_result(self, task_id, err_message="", exec_counters=None):
+        self._call(
+            "report_task_result",
+            task_id=int(task_id),
+            err_message=err_message,
+            exec_counters=exec_counters,
+        )
+
+    def master_status(self):
+        return self._call("master_status")
+
+    def report_evaluation_metrics(
+        self, model_version, model_outputs, labels, scored_version=None
+    ):
+        kwargs = {}
+        if scored_version is not None:
+            kwargs["scored_version"] = int(scored_version)
+        resp = self._call(
+            "report_evaluation_metrics",
+            model_version=int(model_version),
+            model_outputs=[
+                Tensor(n, np.asarray(v)) for n, v in model_outputs.items()
+            ],
+            labels=np.asarray(labels),
+            **kwargs,
+        )
+        return resp["accepted"], resp["version"]
+
+    def get_comm_world(self, worker_id, host="localhost", awaiting=True):
+        return self._call(
+            "get_comm_world",
+            worker_id=int(worker_id),
+            host=host,
+            awaiting=awaiting,
+        )
+
+    def leave_comm_world(self, worker_id):
+        return self._call("leave_comm_world", worker_id=int(worker_id))
+
+    def close(self):
+        self._client.close()

@@ -1,0 +1,282 @@
+"""The job plane's transport: the port's message frames
+(``rpc/core.pack_message``/``unpack_message``) over stdlib TCP sockets.
+
+The reference's master serves gRPC (``elasticdl_tpu/rpc/core.py``); the
+machines the port runs on need not have ``grpcio``, so the master and
+its worker processes talk over plain sockets instead. The frames are the
+reference's, so a handler receives and returns the same dicts either
+way; the wire is not gRPC, and a JAX worker cannot dial the port's
+master (nor the reverse).
+
+One call on one connection::
+
+    request  u32 name_len | name (utf-8) | u64 frame_len | frame
+    reply    u8 status | u64 payload_len | payload
+
+A status of 0 carries the reply frame; any other status carries the
+error's text (utf-8), raised at the caller as :class:`RpcError` with the
+code below. The server runs one thread per connection, a connection
+carries any number of calls in turn, and a client keeps a small pool of
+idle connections so that calls from several threads do not queue behind
+each other. Frames over ``MAX_MESSAGE_BYTES`` (256 MB, the reference's
+cap) are refused on either side.
+"""
+
+import socket
+import struct
+import threading
+import time
+
+from elasticdl_tpu_torch.common.log_utils import default_logger as logger
+from elasticdl_tpu_torch.rpc.core import (
+    MAX_MESSAGE_BYTES,
+    pack_message,
+    unpack_message,
+)
+
+_OK = 0
+_CODES = {
+    1: "INTERNAL",  # the handler raised
+    2: "UNIMPLEMENTED",  # no such method
+    3: "RESOURCE_EXHAUSTED",  # over the size cap
+}
+_STATUS = {code: status for status, code in _CODES.items()}
+
+
+class RpcError(RuntimeError):
+    """A failed call. ``code`` names the failure as gRPC's status codes
+    do: ``UNAVAILABLE`` (refused or reset connection), ``DEADLINE_EXCEEDED``,
+    ``INTERNAL`` (the handler raised; the message is its error),
+    ``UNIMPLEMENTED`` and ``RESOURCE_EXHAUSTED``."""
+
+    def __init__(self, code, message):
+        super().__init__("%s: %s" % (code, message))
+        self.code = code
+
+
+def _recv_exact(sock, n):
+    """``n`` bytes from ``sock``; raises ConnectionResetError on EOF."""
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        k = sock.recv_into(view[got:], n - got)
+        if k == 0:
+            raise ConnectionResetError("connection closed by the peer")
+        got += k
+    return buf
+
+
+def _send_reply(sock, status, payload):
+    sock.sendall(struct.pack("<BQ", status, len(payload)))
+    sock.sendall(payload)
+
+
+class SocketServer:
+    """Serves ``methods`` ({name: fn(dict) -> dict}) on ``host:port``
+    (port 0 binds one the OS picks, exposed as :attr:`port`)."""
+
+    def __init__(self, methods, port=0, host=""):
+        self._methods = dict(methods)
+        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._listener.bind((host, port))
+        self._listener.listen(128)
+        self.port = self._listener.getsockname()[1]
+        self._lock = threading.Lock()
+        self._conns = set()
+        self._stopped = False
+        self._acceptor = threading.Thread(
+            target=self._accept_loop, name="rpc-accept", daemon=True
+        )
+        self._acceptor.start()
+
+    def _accept_loop(self):
+        while True:
+            try:
+                conn, _ = self._listener.accept()
+            except OSError:
+                return  # the listener was closed by stop()
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            with self._lock:
+                if self._stopped:
+                    conn.close()
+                    return
+                self._conns.add(conn)
+            threading.Thread(
+                target=self._serve_connection,
+                args=(conn,),
+                name="rpc-conn",
+                daemon=True,
+            ).start()
+
+    def _serve_connection(self, conn):
+        try:
+            while True:
+                try:
+                    (name_len,) = struct.unpack("<I", _recv_exact(conn, 4))
+                except (ConnectionError, OSError):
+                    return  # the client hung up between calls
+                name = bytes(_recv_exact(conn, name_len)).decode("utf-8")
+                (frame_len,) = struct.unpack("<Q", _recv_exact(conn, 8))
+                if frame_len > MAX_MESSAGE_BYTES:
+                    # the request is not read: answer, then drop the line
+                    _send_reply(
+                        conn,
+                        _STATUS["RESOURCE_EXHAUSTED"],
+                        b"request of %d bytes over the %d-byte cap"
+                        % (frame_len, MAX_MESSAGE_BYTES),
+                    )
+                    return
+                frame = _recv_exact(conn, frame_len)
+                status, payload = self._dispatch(name, frame)
+                _send_reply(conn, status, payload)
+        except (ConnectionError, OSError):
+            return
+        finally:
+            with self._lock:
+                self._conns.discard(conn)
+            conn.close()
+
+    def _dispatch(self, name, frame):
+        fn = self._methods.get(name)
+        if fn is None:
+            return _STATUS["UNIMPLEMENTED"], (
+                "no method %r" % name
+            ).encode("utf-8")
+        try:
+            reply = fn(unpack_message(frame))
+            payload = pack_message(reply if reply is not None else {})
+        except Exception as e:  # noqa: BLE001 - relayed to the caller
+            logger.warning("rpc %s failed", name, exc_info=True)
+            return _STATUS["INTERNAL"], (
+                "%s: %s" % (type(e).__name__, e)
+            ).encode("utf-8")
+        if len(payload) > MAX_MESSAGE_BYTES:
+            return _STATUS["RESOURCE_EXHAUSTED"], (
+                "reply of %d bytes over the %d-byte cap"
+                % (len(payload), MAX_MESSAGE_BYTES)
+            ).encode("utf-8")
+        return _OK, payload
+
+    def stop(self):
+        """Stop accepting and close every connection."""
+        with self._lock:
+            self._stopped = True
+            conns = list(self._conns)
+        try:
+            # wakes the acceptor's accept(), which a close alone does not
+            self._listener.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._listener.close()
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        self._acceptor.join(timeout=5)
+
+
+def serve(methods, port=0):
+    """Start a :class:`SocketServer` for ``methods`` on ``port`` (0: one
+    the OS picks); returns it."""
+    return SocketServer(methods, port)
+
+
+class Client:
+    """``client.call("method", **fields)`` -> reply dict, over the socket
+    transport, with the reference ``Client``'s knobs.
+
+    ``deadline_s``: each attempt's deadline (None blocks: a worker parked
+    on a busy master must wait). ``retries``/``backoff_s``: a refused or
+    reset connection (``UNAVAILABLE``) is retried up to ``retries`` times,
+    the backoff doubling from ``backoff_s``; an expired deadline is not
+    retried, nor is a call with ``_retriable=False``."""
+
+    def __init__(self, addr, deadline_s=None, retries=0, backoff_s=0.2):
+        host, _, port = addr.rpartition(":")
+        self._addr = (host or "localhost", int(port))
+        self._deadline_s = deadline_s if deadline_s else None
+        self._retries = retries
+        self._backoff_s = backoff_s
+        self._lock = threading.Lock()
+        self._idle = []
+        self._closed = False
+
+    def _connection(self):
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("the RPC client is closed")
+            if self._idle:
+                return self._idle.pop()
+        sock = socket.create_connection(self._addr)
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        return sock
+
+    def _release(self, sock):
+        with self._lock:
+            if not self._closed:
+                self._idle.append(sock)
+                return
+        sock.close()
+
+    def _attempt(self, name, frame):
+        sock = self._connection()
+        try:
+            sock.settimeout(self._deadline_s)
+            name_b = name.encode("utf-8")
+            sock.sendall(
+                struct.pack("<I", len(name_b)) + name_b
+                + struct.pack("<Q", len(frame))
+            )
+            sock.sendall(frame)
+            status, length = struct.unpack("<BQ", _recv_exact(sock, 9))
+            if length > MAX_MESSAGE_BYTES:
+                raise RpcError(
+                    "RESOURCE_EXHAUSTED",
+                    "reply of %d bytes over the cap" % length,
+                )
+            payload = _recv_exact(sock, length)
+        except BaseException:
+            sock.close()
+            raise
+        self._release(sock)
+        if status != _OK:
+            raise RpcError(
+                _CODES.get(status, "UNKNOWN"), bytes(payload).decode("utf-8")
+            )
+        return unpack_message(payload)
+
+    def call(self, rpc_name, _retriable=True, **fields):
+        frame = pack_message(fields)
+        if len(frame) > MAX_MESSAGE_BYTES:
+            raise RpcError(
+                "RESOURCE_EXHAUSTED",
+                "request of %d bytes over the %d-byte cap"
+                % (len(frame), MAX_MESSAGE_BYTES),
+            )
+        attempt = 0
+        while True:
+            try:
+                return self._attempt(rpc_name, frame)
+            except socket.timeout as e:
+                raise RpcError(
+                    "DEADLINE_EXCEEDED",
+                    "%s after %ss" % (rpc_name, self._deadline_s),
+                ) from e
+            except (ConnectionError, OSError) as e:
+                if not (_retriable and attempt < self._retries):
+                    raise RpcError(
+                        "UNAVAILABLE", "%s to %s:%d: %s"
+                        % (rpc_name, self._addr[0], self._addr[1], e)
+                    ) from e
+                time.sleep(self._backoff_s * (2 ** attempt))
+                attempt += 1
+
+    def close(self):
+        with self._lock:
+            self._closed = True
+            idle, self._idle = self._idle, []
+        for sock in idle:
+            sock.close()

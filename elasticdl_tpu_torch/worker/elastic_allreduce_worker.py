@@ -1,10 +1,36 @@
-"""The scoring drain of ``elasticdl_tpu/worker/elastic_allreduce_worker.py``:
-the worker that serves an ALLREDUCE job's evaluation-only and
-prediction-only runs.
+"""The elastic multi-process ALLREDUCE worker, the counterpart of
+``elasticdl_tpu/worker/elastic_allreduce_worker.py``: one worker process
+of a job that survives workers joining and leaving mid-epoch.
 
-Such a job trains nothing, so it needs no collective, no membership and
-no trainer state: its tasks drain against an inference forward (BatchNorm
-on running statistics) over parameters loaded once from a saved model:
+**Training.** Each process pulls its own tasks from the master, exactly
+as a single-process worker does, but trains through the weighted
+lockstep step of ``parallel/elastic.py`` in a process world that the
+master's membership re-forms at every change::
+
+    prime (the first local batch in hand; its shapes gate membership)
+    loop:
+        await the world (the master's get_comm_world)
+        establish (join, adopt rank 0's state by broadcast)
+        step until: out of data everywhere | an epoch bump | a broken
+        collective
+    finalize (land the checkpoints, export if the SAVE_MODEL task came)
+
+Every step polls the membership (``awaiting=False``) and hands the
+polled epoch to the step, whose MAX over the members tells every rank at
+the same step that the world is moving on; all ranks then leave at that
+step and re-form. A peer's death instead breaks the step's collective:
+the worker fail-reports the unapplied batch, leaves, waits for the
+master's epoch bump, and re-forms; the state it keeps is the pre-step
+one. Rank 0 writes the checkpoints, asynchronously, every
+``checkpoint_steps`` versions. A SIGTERM (a preemption notice) drains:
+the worker announces its leave, steps on until the world pauses, lands
+its checkpoint writes and exits with ``PREEMPTED_EXIT_CODE``, which the
+instance manager answers with a replacement.
+
+**Scoring.** Evaluation-only and prediction-only jobs train nothing, so
+they need no collective, no membership and no trainer state: their tasks
+drain against an inference forward (BatchNorm on running statistics)
+over parameters loaded once from a saved model:
 
 - the newest restorable sharded checkpoint under ``--checkpoint_dir``
   (``ckpt_v{N}``, a torn newest directory falling through to older
@@ -25,11 +51,29 @@ retries a failed forward up to three times, and hands each batch's
 outputs (host numpy, bf16 widened to float32) to the zoo's
 ``PredictionOutputsProcessor`` once; its failure fail-reports the task.
 
-Every other job type raises ``NotImplementedError``: the collective half
-of the elastic worker (membership, the elastic trainer, resizes) is not
-ported yet.
+With ``EDL_WORKER_TIMELINE_DIR`` set, each worker appends its events to
+``<dir>/worker-<id>.jsonl`` (one JSON object a line, host wall clock in
+``t``): ``start``, each ``established`` world (with the state's digest
+after the broadcast), each ``step`` (its ``host_step``, and in
+``split`` the trainer's compute, all-reduce and rest seconds of the step
+before it), each ``checkpoint`` (the snapshot's stall on the step path and
+the digest of the state saved), ``checkpoint_writes`` (the background
+writes' seconds), ``world_broken`` and ``final`` (the final state's
+digest and the process's flash-attention launches). The digests are
+``parallel/elastic.state_digest``.
+
+Not ported, each raising ``NotImplementedError``: the collective
+evaluation of an elastic job (a TRAINING_WITH_EVALUATION job), sharded,
+pjit and pipelined models (zoo hooks ``mesh_axes`` and
+``build_distributed_model``), standby workers, and the world-size
+rounding's spare members (the replicated plane rounds to 1).
 """
 
+import json
+import os
+import socket
+import sys
+import threading
 import time
 
 import numpy as np
@@ -38,6 +82,7 @@ from elasticdl_tpu_torch.common.constants import (
     JobType,
     MetricsDictKey,
     Mode,
+    SaveModelConfig,
     TaskType,
 )
 from elasticdl_tpu_torch.common.device import resolve_device
@@ -48,6 +93,8 @@ from elasticdl_tpu_torch.common.model_utils import (
 )
 from elasticdl_tpu_torch.data.dataset import tree_map
 from elasticdl_tpu_torch.metrics import to_host
+from elasticdl_tpu_torch.parallel import distributed
+from elasticdl_tpu_torch.parallel.distributed import WorldBroken, WorldSpec
 from elasticdl_tpu_torch.worker.allreduce_worker import _first_leaf
 from elasticdl_tpu_torch.worker.task_data_service import TaskDataService
 
@@ -55,7 +102,55 @@ _ATTEMPTS = 3  # drained rounds before the eval-only drain ends; forward
 # attempts per prediction batch
 
 
+def _flash_launches():
+    """This process's flash-attention kernel launches, by kernel (none
+    where the model never imported the kernels)."""
+    fa = sys.modules.get("elasticdl_tpu_torch.ops.flash_attention")
+    counters = {
+        "flash_fwd": "launches",
+        "flash_bwd_dq": "bwd_dq_launches",
+        "flash_bwd_dkv": "bwd_dkv_launches",
+    }
+    return {
+        name: getattr(fa, attr).count if fa is not None else 0
+        for name, attr in counters.items()
+    }
+
+
+class _Timeline:
+    """JSON lines of a worker's events under ``EDL_WORKER_TIMELINE_DIR``
+    (off when unset); safe from any thread."""
+
+    def __init__(self, worker_id):
+        root = os.environ.get("EDL_WORKER_TIMELINE_DIR", "")
+        self._path = (
+            os.path.join(root, "worker-%d.jsonl" % worker_id) if root else None
+        )
+        self._worker_id = worker_id
+        self._lock = threading.Lock()
+        if self._path:
+            os.makedirs(root, exist_ok=True)
+
+    @property
+    def enabled(self):
+        return self._path is not None
+
+    def __call__(self, event, **fields):
+        if self._path is None:
+            return
+        line = json.dumps(
+            dict(event=event, worker=self._worker_id, t=time.time(),
+                 **fields)
+        )
+        with self._lock, open(self._path, "a") as f:
+            f.write(line + "\n")
+
+
 class ElasticAllReduceWorker:
+    # distinct from 0 ("done, do not replace me") and from crash codes:
+    # the instance manager relaunches a replacement for this exit
+    PREEMPTED_EXIT_CODE = 75  # EX_TEMPFAIL
+
     def __init__(
         self,
         worker_id,
@@ -70,30 +165,44 @@ class ElasticAllReduceWorker:
         eval_metrics_fn="eval_metrics_fn",
         stub=None,
         data_reader_params=None,
+        seed=0,
+        comm_host=None,
+        epoch_poll_secs=10.0,
         checkpoint_dir="",
+        checkpoint_steps=0,
+        keep_checkpoint_max=0,
+        precision=None,
+        accum_steps=1,
         checkpoint_filename_for_init="",
         prediction_outputs_processor="PredictionOutputsProcessor",
+        remat="",
         device="cuda",
     ):
-        if job_type not in (JobType.EVALUATION_ONLY, JobType.PREDICTION_ONLY):
-            raise NotImplementedError(
-                "ElasticAllReduceWorker for %s jobs (membership, the "
-                "elastic trainer) is not ported yet: only the "
-                "evaluation-only and prediction-only drain is" % job_type
-            )
-        if not (checkpoint_dir or checkpoint_filename_for_init):
-            raise ValueError(
-                "%s on the allreduce plane scores a saved model: pass "
-                "--checkpoint_dir (sharded checkpoints) or "
-                "--checkpoint_filename_for_init (an exported model file)"
-                % job_type
-            )
         for hook in ("mesh_axes", "build_distributed_model"):
             if hasattr(load_zoo_module(model_def, model_zoo), hook):
                 raise NotImplementedError(
                     "zoo module %s defines %s: a mesh or distributed model "
                     "is not ported yet" % (model_def, hook)
                 )
+        if job_type == JobType.TRAINING_WITH_EVALUATION:
+            raise NotImplementedError(
+                "the collective evaluation of an elastic job "
+                "(--validation_data with --num_workers > 0) is not ported "
+                "yet"
+            )
+        self._serving_only = job_type in (
+            JobType.EVALUATION_ONLY,
+            JobType.PREDICTION_ONLY,
+        )
+        if self._serving_only and not (
+            checkpoint_dir or checkpoint_filename_for_init
+        ):
+            raise ValueError(
+                "%s on the allreduce plane scores a saved model: pass "
+                "--checkpoint_dir (sharded checkpoints) or "
+                "--checkpoint_filename_for_init (an exported model file)"
+                % job_type
+            )
         self._worker_id = worker_id
         self._job_type = job_type
         self._minibatch_size = minibatch_size
@@ -114,14 +223,38 @@ class ElasticAllReduceWorker:
         self._prediction_outputs_processor = spec.prediction_outputs_processor
         self._init_ckpt_file = checkpoint_filename_for_init
         self._checkpoint_dir = checkpoint_dir
+        self._timeline = _Timeline(worker_id)
         self._ckpt = None
-        if checkpoint_dir:
-            from elasticdl_tpu_torch.common.sharded_checkpoint import (
-                ShardedCheckpointManager,
-            )
+        self.trainer = None
+        self._preempted = False
+        if self._serving_only:
+            if checkpoint_dir:
+                from elasticdl_tpu_torch.common.sharded_checkpoint import (
+                    ShardedCheckpointManager,
+                )
 
-            # read-only: a scoring job loads checkpoints, never writes
-            self._ckpt = ShardedCheckpointManager(checkpoint_dir)
+                # read-only: a scoring job loads checkpoints, never writes
+                self._ckpt = ShardedCheckpointManager(checkpoint_dir)
+        else:
+            self._init_training(
+                spec, seed, precision, accum_steps, remat, checkpoint_dir,
+                checkpoint_steps, keep_checkpoint_max,
+            )
+            from elasticdl_tpu_torch.common.export import export_provenance
+
+            self._export_meta = export_provenance(
+                model_zoo, model_def, model_params
+            )
+        self._host = comm_host or os.environ.get("EDL_COMM_HOST", "")
+        if not self._host:
+            # an address the peers can dial: the hostname may not
+            # resolve from a sibling, its address does
+            hostname = socket.gethostname()
+            try:
+                self._host = socket.gethostbyname(hostname)
+            except OSError:
+                self._host = hostname
+        self._epoch_poll_secs = epoch_poll_secs
         self._task_data_service = TaskDataService(
             self, False, data_reader_params=data_reader_params
         )
@@ -129,17 +262,65 @@ class ElasticAllReduceWorker:
         self._eval_params = None  # (params, state) on the device
         self._eval_scored_version = None  # the version they came from
 
+    def _init_training(self, spec, seed, precision, accum_steps, remat,
+                       checkpoint_dir, checkpoint_steps, keep_checkpoint_max):
+        from elasticdl_tpu_torch.parallel.elastic import ElasticDPTrainer
+        from elasticdl_tpu_torch.training.step import parse_remat
+
+        self.trainer = ElasticDPTrainer(
+            spec.model, spec.loss, spec.optimizer(), seed=seed,
+            precision=precision, accum_steps=accum_steps,
+            remat=parse_remat(remat), device=self._device,
+        )
+        # a collective waiting on a peer that died gives up once the
+        # master lists the peer dead
+        self.trainer.abort_check = self._world_moved_on
+        if checkpoint_dir and checkpoint_steps:
+            from elasticdl_tpu_torch.common.sharded_checkpoint import (
+                ShardedCheckpointManager,
+            )
+
+            # async_io: a save blocks only for the device-to-host
+            # snapshot; the file writes overlap the next steps
+            self._ckpt = ShardedCheckpointManager(
+                checkpoint_dir, checkpoint_steps, keep_checkpoint_max,
+                async_io=True,
+            )
+            # replicated state: rank 0 alone writes each version
+            self._ckpt.set_expected_writers(1)
+        self._restore_attempted = False
+        self._last_ckpt_version = 0
+        self._batch_gen = None
+        self._retry_batch = None
+        self._unreported = []  # counts of stepped-but-unreported batches
+        self._drained = False
+        self._drain_announced = False
+        self._drain_deadline = 0.0
+        self._world_members = ()
+
     # master surface used by TaskDataService
     def get_task(self, task_type=None):
         return self._stub.get_task(self._worker_id, task_type)
 
     def report_task_result(self, task_id, err_msg="", exec_counters=None):
+        if self.trainer is not None:
+            from elasticdl_tpu_torch.worker.reporting import (
+                with_model_version,
+            )
+
+            exec_counters = with_model_version(self.trainer, exec_counters)
         return self._stub.report_task_result(task_id, err_msg, exec_counters)
 
     def run(self):
         if self._job_type == JobType.EVALUATION_ONLY:
             return self._run_eval_only()
-        return self._run_predict_only()
+        if self._job_type == JobType.PREDICTION_ONLY:
+            return self._run_predict_only()
+        try:
+            return self._run()
+        finally:
+            # a crash skips _finalize; writes already queued must land
+            self._drain_ckpt()
 
     # -- the two drains ------------------------------------------------------
 
@@ -423,3 +604,428 @@ class ElasticAllReduceWorker:
             logger.warning("eval task %d report failed: %s", task_id, e)
             self.report_task_result(task_id, err_msg=str(e))
 
+
+    # -- graceful preemption ------------------------------------------------
+
+    def request_drain(self, *_signal_args):
+        """SIGTERM handler: drain at the next batch boundary instead of
+        dying mid-collective. The worker announces its leave, steps on
+        until every member pauses at the same step, lands its checkpoint
+        writes and exits with PREEMPTED_EXIT_CODE."""
+        self._preempted = True
+        logger.info(
+            "preemption notice received; draining at the next batch "
+            "boundary"
+        )
+
+    def enable_drain_on_sigterm(self):
+        """Install the SIGTERM -> request_drain handler (main thread
+        only: in-process workers leave signals to their host)."""
+        import signal
+
+        if threading.current_thread() is threading.main_thread():
+            signal.signal(signal.SIGTERM, self.request_drain)
+
+    @property
+    def preempted(self):
+        return self._preempted
+
+    # -- data ---------------------------------------------------------------
+
+    def _batches(self):
+        """(features, labels) over every task round; None on a WAIT round
+        (no data now, the job not finished), so the caller keeps the
+        collective ticking; the end means no more training work here."""
+        while True:
+            dataset = self._task_data_service.get_dataset()
+            if not dataset:
+                return
+            dataset = self._dataset_fn(
+                dataset,
+                Mode.TRAINING,
+                self._task_data_service.data_reader.metadata,
+            )
+            dataset = (
+                dataset.batch(self._minibatch_size)
+                .prefetch(1)
+                .device_prefetch(self.trainer.device)
+            )
+            got = False
+            for batch in dataset:
+                got = True
+                yield batch
+            self._process_save_model_task_if_needed()
+            if not got:
+                yield None
+
+    def _next_batch(self):
+        if self._retry_batch is not None:
+            batch, self._retry_batch = self._retry_batch, None
+            return batch
+        if self._drained:
+            return None
+        try:
+            return next(self._batch_gen)
+        except StopIteration:
+            self._drained = True
+            return None
+
+    # -- membership ---------------------------------------------------------
+
+    def _poll_world(self, awaiting):
+        return self._stub.get_comm_world(
+            self._worker_id, self._host, awaiting=awaiting
+        )
+
+    def _await_world(self):
+        """Poll the master until a world holding this worker is ready; a
+        WorldSpec, or None when the job finished (or a drain began)
+        meanwhile."""
+        while True:
+            if self._preempted:
+                return None
+            w = self._poll_world(awaiting=True)
+            if w.get("ready"):
+                self._world_members = tuple(w.get("members", ()))
+                return WorldSpec(
+                    coordinator=w["coordinator"],
+                    num_processes=w["num_processes"],
+                    process_id=w["process_id"],
+                    epoch=w["epoch"],
+                )
+            if self._drained and self._retry_batch is None:
+                return None
+            time.sleep(0.2)
+
+    def _await_epoch_bump(self, stale_epoch):
+        """After a broken collective: True once the master bumps the
+        epoch; False if it does not within ``epoch_poll_secs`` (then the
+        failure was no membership event and propagates)."""
+        deadline = time.time() + self._epoch_poll_secs
+        while time.time() < deadline:
+            if self._poll_world(awaiting=False)["epoch"] != stale_epoch:
+                return True
+            time.sleep(0.3)
+        return False
+
+    def _world_moved_on(self):
+        """The trainer's abort probe: True when a member of this world
+        died (the instance manager's report, not a growth bump or a
+        drain, which leave every member stepping)."""
+        if distributed.current_spec() is None:
+            return False
+        try:
+            w = self._poll_world(awaiting=False)
+        except Exception:
+            logger.debug("world probe failed", exc_info=True)
+            return False
+        dead = set(w.get("dead", ()))
+        return any(
+            m in dead for m in self._world_members if m != self._worker_id
+        )
+
+    # -- the run loop -------------------------------------------------------
+
+    def _run(self):
+        losses = []
+        self._timeline("start", pid=os.getpid())
+        self._batch_gen = self._batches()
+        # register before priming: the await loop's confirm comes later
+        try:
+            self._poll_world(awaiting=False)
+        except Exception:
+            logger.debug("pre-registration poll failed", exc_info=True)
+        first = self._prime()
+        if first is None:
+            # no training data ever came: announce the leave, or the
+            # members' formation waits out the confirm window on us
+            self._announce_leave()
+            self._finalize()
+            return losses
+        self._retry_batch = first
+        while True:
+            world = self._await_world()
+            if world is None:
+                break
+            try:
+                example = self._retry_batch or self.trainer._last_local
+                self.trainer.establish(world, example_batch=example)
+                if (
+                    self._ckpt is not None
+                    and not self._restore_attempted
+                ):
+                    self._restore_attempted = True
+                    # resume only when the whole world is new (the
+                    # broadcast state is at version 0): a joiner of a
+                    # live job holds the survivors' state already
+                    if self.trainer.version == 0:
+                        self._restore_latest_checkpoint()
+            except WorldBroken:
+                logger.warning(
+                    "world %d broke during formation; re-polling",
+                    world.epoch,
+                )
+                continue
+            if self._timeline.enabled:
+                self._timeline(
+                    "established", epoch=world.epoch,
+                    rank=world.process_id, size=world.num_processes,
+                    backend=self.trainer.backend,
+                    version=self.trainer.version,
+                    digest=self.trainer.digest(),
+                    **self.trainer.establish_times,
+                )
+            outcome = self._train_epoch(world, losses)
+            if outcome in ("done", "preempted") or self._preempted:
+                break
+        self._finalize()
+        return losses
+
+    def _announce_leave(self):
+        try:
+            self._stub.leave_comm_world(self._worker_id)
+        except Exception:
+            logger.debug(
+                "leave announcement missed; the confirm-timeout fencer "
+                "clears this member",
+                exc_info=True,
+            )
+
+    def _restore_latest_checkpoint(self):
+        """Resume from the newest restorable checkpoint, falling through
+        to older ones past a torn or corrupt directory."""
+        self._ckpt.wait()  # an in-flight save must land first
+        for directory in self._ckpt.dirs_newest_first():
+            try:
+                self._last_ckpt_version = self.trainer.restore_sharded(
+                    directory
+                )
+                logger.info(
+                    "resumed from checkpoint v%d (%s)",
+                    self._last_ckpt_version,
+                    directory,
+                )
+                return True
+            except Exception:
+                logger.warning(
+                    "checkpoint %s unrestorable; trying older",
+                    directory,
+                    exc_info=True,
+                )
+        return False
+
+    def _prime(self):
+        """Block until the first local batch is in hand. A side thread
+        keeps polling the membership meanwhile (``awaiting=False``): the
+        worker is registered already, and a member whose polls go stale
+        looks dead to the confirm-timeout fencer while its reader primes.
+        The beats stop after 120 s, so a truly wedged reader is fenced."""
+        done = threading.Event()
+        deadline = time.time() + 120.0
+
+        def beat():
+            while time.time() < deadline and not done.wait(1.0):
+                try:
+                    self._poll_world(awaiting=False)
+                except Exception:
+                    logger.debug("liveness beat missed", exc_info=True)
+
+        beater = threading.Thread(target=beat, daemon=True)
+        beater.start()
+        try:
+            while True:
+                if self._preempted:
+                    return None
+                batch = self._next_batch()
+                if batch is not None:
+                    return batch
+                if self._drained:
+                    return None
+                time.sleep(0.2)
+        finally:
+            done.set()
+            beater.join(timeout=5.0)
+
+    def _flush_unreported(self, err_msg=""):
+        """Report the records of stepped batches; with ``err_msg`` they
+        count as failures and their task fail-reports and requeues once
+        it drains (the reference's failed-minibatch accounting)."""
+        pending, self._unreported = self._unreported, []
+        for count in pending:
+            self._task_data_service.report_record_done(count, err_msg)
+
+    def _settle_and_leave(self, verdict, ok=True):
+        """The epilogue of every pause: report the stepped records (as
+        failures when the last step did not apply), then leave the
+        world."""
+        self._flush_unreported(
+            "" if ok else "collective failed before the update"
+        )
+        self.trainer.leave()
+        return verdict
+
+    def _train_epoch(self, world, losses):
+        while True:
+            if self._preempted and not self._drain_announced:
+                # the drain rides the ordinary re-form: announce the
+                # leave so the master bumps now, then keep stepping until
+                # every member sees the bump at the same step
+                self._drain_announced = True
+                self._drain_deadline = time.time() + self._epoch_poll_secs
+                try:
+                    self._stub.leave_comm_world(self._worker_id)
+                except Exception:
+                    logger.warning(
+                        "drain announcement failed; will hard-leave",
+                        exc_info=True,
+                    )
+            if (
+                self._drain_announced
+                and self._drain_deadline
+                and time.time() > self._drain_deadline
+            ):
+                # the announcement never landed: leave anyway; the
+                # survivors take the broken-collective path
+                return self._settle_and_leave("preempted")
+            w = self._poll_world(awaiting=False)
+            if self._drain_announced and w["epoch"] != world.epoch:
+                # the bump is visible: the pause lands within one step
+                self._drain_deadline = 0.0
+            batch = self._next_batch()
+            try:
+                if batch is None:
+                    loss, n_active, count = self.trainer.train_step(
+                        None, None, self._minibatch_size,
+                        epoch_hint=w["epoch"],
+                    )
+                else:
+                    loss, n_active, count = self.trainer.train_step(
+                        batch[0], batch[1], self._minibatch_size,
+                        epoch_hint=w["epoch"],
+                    )
+                    losses.append(loss)
+            except Exception as err:
+                logger.warning(
+                    "collective step failed in world %d: %s",
+                    world.epoch,
+                    err,
+                )
+                self._timeline(
+                    "world_broken", epoch=world.epoch, error=str(err)[:200]
+                )
+                # the unapplied batch fail-reports: its task requeues and
+                # its records are read again by whoever takes it
+                if batch is not None:
+                    self._unreported.append(
+                        int(_first_leaf(batch[1]).shape[0])
+                    )
+                self._settle_and_leave("reform", ok=False)
+                if not self._await_epoch_bump(world.epoch):
+                    raise
+                return "reform"
+            if batch is not None:
+                self._unreported.append(count)
+            self._flush_unreported()
+            if self._timeline.enabled:
+                self._timeline(
+                    "step", epoch=world.epoch, version=self.trainer.version,
+                    live=n_active, rows=count,
+                    host_step=self.trainer.host_step,
+                    split=self.trainer.step_times,
+                )
+            if self.trainer.epoch_consensus > world.epoch:
+                # every member reads this consensus at this same step:
+                # the whole world pauses together
+                logger.info(
+                    "epoch bump %d -> %d; pausing",
+                    world.epoch,
+                    self.trainer.epoch_consensus,
+                )
+                return self._settle_and_leave("reform")
+            self._save_ckpt_if_due(world)
+            if n_active == 0:
+                # global quiescence: every rank sees it at the same step
+                if self._drained:
+                    return "done"
+                time.sleep(0.2)
+
+    # -- checkpoints and the end --------------------------------------------
+
+    def _save_ckpt_if_due(self, world):
+        """Rank 0 writes a checkpoint once the version is at least
+        ``checkpoint_steps`` past the last one (it holds a full replica;
+        the versions agree across ranks)."""
+        if (
+            self._ckpt is None
+            or world.process_id != 0
+            or not self._ckpt.is_enabled()
+        ):
+            return
+        version = self.trainer.version
+        if version - self._last_ckpt_version < self._ckpt.steps:
+            return
+        t0 = time.perf_counter()
+        self._ckpt.save(self.trainer.train_state, version)
+        snapshot_s = time.perf_counter() - t0
+        if self._timeline.enabled:
+            self._timeline(
+                "checkpoint", version=version, snapshot_s=snapshot_s,
+                digest=self.trainer.digest(),
+            )
+        self._last_ckpt_version = version
+
+    def _drain_ckpt(self):
+        """Land the queued checkpoint writes; an IO error is logged
+        (teardown must not mask the original failure)."""
+        if self._ckpt is None:
+            return
+        try:
+            self._ckpt.close()
+        except Exception:
+            logger.warning(
+                "asynchronous checkpoint writes failed at teardown",
+                exc_info=True,
+            )
+
+    def _finalize(self):
+        self._drain_ckpt()
+        if self._ckpt is not None and self._ckpt.write_seconds:
+            # the background writes' seconds, by version
+            self._timeline(
+                "checkpoint_writes", write_s=self._ckpt.write_seconds
+            )
+        if not self._preempted:
+            # a drained worker takes no more work (the SAVE_MODEL task)
+            self._process_save_model_task_if_needed()
+        if self._timeline.enabled and self.trainer.has_state:
+            self._timeline(
+                "final", version=self.trainer.version,
+                digest=self.trainer.digest(), launches=_flash_launches(),
+            )
+        if distributed.current_spec() is not None:
+            distributed.leave_world()
+
+    def _process_save_model_task_if_needed(self):
+        """Export the trained state for a parked SAVE_MODEL task; a worker
+        that never trained fail-reports it, for a worker with state."""
+        task, _ = self._task_data_service.get_save_model_task_and_dataset()
+        if task is None:
+            return
+        host_ts = self.trainer.snapshot()
+        if host_ts is None:
+            self.report_task_result(
+                task.task_id, err_msg="no local train state to export"
+            )
+            return
+        saved_model_path = os.path.join(
+            task.extended_config.get(SaveModelConfig.SAVED_MODEL_PATH),
+            str(int(time.time())),
+        )
+        from elasticdl_tpu_torch.common.export import export_train_state
+
+        export_train_state(
+            saved_model_path, host_ts, model=self._model,
+            metadata=self._export_meta,
+        )
+        logger.info("Exported model to %s", saved_model_path)
+        self.report_task_result(task.task_id, err_msg="")

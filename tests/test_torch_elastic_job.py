@@ -1,0 +1,350 @@
+"""The port's multi-process elastic ALLREDUCE job on the CPU: the command
+line with ``--num_workers 2 --device cpu`` on the MNIST CNN, the master
+in a launcher process, two worker processes (``python -m
+elasticdl_tpu_torch.worker.main``) in a gloo world.
+
+- The clean job: exit code 0, every task done once (the dispatcher's
+  successful reports, SAVE_MODEL included), both workers exit 0, both
+  ranks end with the same state bits at a version equal to their steps
+  with a live rank, the newest checkpoint restores bitwise (its state's
+  digest recorded when it was saved), the export exists.
+- The kill drill: worker 1 is SIGKILLed once the version reaches 4; the
+  survivor's step breaks, the world re-forms, the relaunched worker joins
+  with the survivor's state bits, and the job completes with every task
+  done once and the live ranks bitwise equal.
+- The SIGTERM drain: worker 0 (rank 0, the checkpoint writer) drains on
+  a preemption notice: its checkpoint writes land, it exits 75 and is
+  replaced, and the job completes with every task done once.
+- Resume: a second job on the first one's checkpoints starts both ranks
+  at its newest version.
+- Placement: the workers get a card each only when the host has enough
+  (an NCCL world), else share ``cuda`` (a gloo world), with the card
+  count patched; a relaunched worker takes its predecessor's card.
+
+Each job runs in a launcher process under its own wall-clock limit (a hang
+fails the test, and the launcher's process group, workers included, is
+killed). The workers' ``EDL_WORKER_TIMELINE_DIR`` events carry their
+digests and steps; ports come from the OS.
+"""
+
+import glob
+import json
+import os
+import signal
+import subprocess
+import sys
+import textwrap
+import time
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MNIST = "mnist_subclass.mnist_subclass.CustomModel"
+RECORDS = 2048  # over the zoo's 1024-record shuffle buffer: both get data
+BATCH = 16
+PER_TASK = 2  # minibatches per task
+LIMIT_S = 100
+
+LAUNCHER = textwrap.dedent(
+    """
+    import json, os, sys, threading, time
+    cfg = json.loads(sys.argv[1])
+    sys.path.insert(0, cfg["repo"])
+    os.environ["EDL_WORKER_TIMELINE_DIR"] = cfg["timeline"]
+    from elasticdl_tpu_torch import cli
+
+    jobs, rc = [], []
+    runner = threading.Thread(
+        target=lambda: rc.append(cli.main(cfg["argv"], jobs=jobs)),
+        daemon=True,
+    )
+    runner.start()
+    while not jobs and runner.is_alive():
+        time.sleep(0.01)
+    master = jobs[0].master
+    done = []
+    report = master.task_d.report
+
+    def counting(task_id, success, exec_counters=None):
+        if success:
+            done.append(task_id)
+        return report(task_id, success, exec_counters)
+
+    master.task_d.report = counting
+    acted = None
+    if cfg["action"]:
+        while (master.master_servicer.get_model_version() < 4
+               and runner.is_alive()):
+            time.sleep(0.02)
+        acted = time.time()
+        getattr(master.instance_manager, cfg["action"])(cfg["victim"])
+    runner.join()
+    manager = master.instance_manager
+    print(json.dumps({
+        "rc": rc[0] if rc else None,
+        "done": done,
+        "finished": master.task_d.finished(),
+        "exit_codes": {str(k): v for k, v in manager.exit_codes.items()},
+        "acted": acted,
+    }))
+    """
+)
+
+
+def _write_records(data_dir):
+    from elasticdl_tpu_torch.data.example import encode_example
+    from elasticdl_tpu_torch.data.recordio import RecordIOWriter
+
+    os.makedirs(data_dir)
+    rng = np.random.default_rng(0)
+    with RecordIOWriter(os.path.join(data_dir, "f0")) as w:
+        for _ in range(RECORDS):
+            w.write(encode_example({
+                "image": rng.random(784, dtype=np.float32) * 255,
+                "label": np.array([rng.integers(0, 10)], np.int64),
+            }))
+
+
+@pytest.fixture(scope="module")
+def data_dir(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("elastic-job") / "data")
+    _write_records(d)
+    return d
+
+
+def _run_job(tmp, data_dir, epochs=1, action=None, victim=None,
+             ckpt="ckpt", name="run"):
+    out = os.path.join(tmp, name)
+    argv = [
+        "train", "--job_name", "elastic", "--distribution_strategy",
+        "AllreduceStrategy", "--num_workers", "2", "--model_zoo", "",
+        "--model_def", MNIST, "--training_data", data_dir,
+        "--minibatch_size", str(BATCH), "--num_minibatches_per_task",
+        str(PER_TASK), "--num_epochs", str(epochs),
+        "--checkpoint_dir", os.path.join(tmp, ckpt),
+        "--checkpoint_steps", "4", "--keep_checkpoint_max", "3",
+        "--output", os.path.join(out, "export"), "--restart_policy",
+        "Always", "--device", "cpu", "--log_level", "WARNING",
+    ]
+    cfg = dict(repo=REPO, argv=argv, action=action, victim=victim,
+               timeline=os.path.join(out, "timeline"))
+    # one compute thread a process: the launcher's workers share this
+    # host's cores with the other test processes
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", LAUNCHER, json.dumps(cfg)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True, env=env,
+    )
+    try:
+        stdout, stderr = proc.communicate(timeout=LIMIT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        pytest.fail("the job did not finish within %d s" % LIMIT_S)
+    finally:
+        try:  # the workers too, should any outlive the launcher
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    assert proc.returncode == 0, stderr[-4000:]
+    result = json.loads(stdout.strip().splitlines()[-1])
+    result["timeline"] = _timeline(cfg["timeline"])
+    result["export"] = glob.glob(
+        os.path.join(out, "export", "*", "MANIFEST.json")
+    )
+    result["stderr"] = stderr
+    return result
+
+
+def _timeline(root):
+    events = {}
+    for path in glob.glob(os.path.join(root, "worker-*.jsonl")):
+        wid = int(os.path.basename(path)[len("worker-"):-len(".jsonl")])
+        with open(path) as f:
+            events[wid] = [json.loads(line) for line in f]
+    return events
+
+
+def _events(events, kind):
+    return [e for e in events if e["event"] == kind]
+
+
+def _tasks(epochs):
+    return RECORDS // (BATCH * PER_TASK) * epochs + 1  # + SAVE_MODEL
+
+
+def _assert_every_task_once(result, epochs):
+    assert result["rc"] == 0 and result["finished"]
+    assert len(result["done"]) == len(set(result["done"])) == _tasks(epochs)
+    assert result["export"]
+
+
+def _final(events):
+    (final,) = _events(events, "final")
+    return final
+
+
+def _checkpoint_digest(directory):
+    """(version, digest) of a checkpoint restored into a fresh model."""
+    from elasticdl_tpu_torch.model_zoo.mnist_subclass import (
+        mnist_subclass as zoo,
+    )
+    from elasticdl_tpu_torch.parallel.elastic import state_digest
+    from elasticdl_tpu_torch.parallel.trainer import AllReduceTrainer
+
+    fresh = AllReduceTrainer(zoo.CustomModel(), zoo.loss, zoo.optimizer(),
+                             seed=3, device="cpu")
+    fresh.init_from_batch(None)
+    version = fresh.restore_sharded(directory)
+    return version, state_digest(fresh.train_state)
+
+
+def test_clean_job_trains_in_lockstep_and_checkpoints(tmp_path, data_dir):
+    r = _run_job(str(tmp_path), data_dir)
+    _assert_every_task_once(r, 1)
+    assert r["exit_codes"] == {"0": 0, "1": 0}
+    tl = r["timeline"]
+    finals = [_final(tl[w]) for w in (0, 1)]
+    assert finals[0]["digest"] == finals[1]["digest"]
+    assert finals[0]["version"] == finals[1]["version"] > 0
+    for w in (0, 1):
+        (est,) = _events(tl[w], "established")
+        assert est["size"] == 2 and est["backend"] == "gloo"
+        assert est["rank"] == w
+        live_steps = [s for s in _events(tl[w], "step") if s["live"] > 0]
+        assert len(live_steps) == finals[w]["version"]
+        assert not _events(tl[w], "world_broken")
+    # rank 0 wrote the checkpoints; the newest restores bitwise
+    saved = {c["version"]: c["digest"]
+             for c in _events(tl[0], "checkpoint")}
+    assert saved and not _events(tl[1], "checkpoint")
+    newest = max(saved)
+    version, digest = _checkpoint_digest(
+        os.path.join(str(tmp_path), "ckpt", "ckpt_v%d" % newest)
+    )
+    assert version == newest and digest == saved[newest]
+
+
+def test_kill_drill_reforms_and_completes(tmp_path, data_dir):
+    r = _run_job(str(tmp_path), data_dir, epochs=3, action="kill_worker",
+                 victim=1)
+    _assert_every_task_once(r, 3)
+    assert r["exit_codes"]["1"] == -signal.SIGKILL
+    assert r["exit_codes"]["0"] == 0 and r["exit_codes"]["2"] == 0
+    tl = r["timeline"]
+    # the survivor's step broke once, and it re-formed alone
+    broken = _events(tl[0], "world_broken")
+    assert broken and broken[0]["t"] >= r["acted"]
+    worlds = _events(tl[0], "established")
+    assert [w["size"] for w in worlds][:2] == [2, 1]
+    # the relaunched worker joined with the survivor's state bits
+    joined = _events(tl[2], "established")
+    assert joined, "the relaunched worker never joined"
+    survivor = {w["epoch"]: w for w in worlds}
+    for w in joined:
+        assert w["digest"] == survivor[w["epoch"]]["digest"]
+        assert w["version"] == survivor[w["epoch"]]["version"] > 0
+    assert _final(tl[0])["digest"] == _final(tl[2])["digest"]
+
+
+def test_sigterm_drains_rank_zero_and_replaces_it(tmp_path, data_dir):
+    r = _run_job(str(tmp_path), data_dir, epochs=2,
+                 action="terminate_worker", victim=0)
+    _assert_every_task_once(r, 2)
+    assert r["exit_codes"]["0"] == 75  # drained, not crashed
+    assert "2" in r["exit_codes"]  # the replacement ran
+    tl = r["timeline"]
+    assert not _events(tl[0], "world_broken")
+    assert not _events(tl[1], "world_broken")
+    # the drained rank 0 landed its checkpoint writes before exiting
+    written = _events(tl[0], "checkpoint_writes")
+    assert written and "4" in written[0]["write_s"]
+    assert os.path.isdir(os.path.join(str(tmp_path), "ckpt"))
+
+
+def test_second_job_resumes_from_the_checkpoints(tmp_path, data_dir):
+    first = _run_job(str(tmp_path), data_dir, name="first")
+    saved = max(c["version"]
+                for c in _events(first["timeline"][0], "checkpoint"))
+    second = _run_job(str(tmp_path), data_dir, name="second")
+    _assert_every_task_once(second, 1)
+    tl = second["timeline"]
+    starts = [_events(tl[w], "established")[0] for w in (0, 1)]
+    assert starts[0]["version"] == starts[1]["version"] == saved
+    assert starts[0]["digest"] == starts[1]["digest"]
+    assert _final(tl[0])["version"] > saved
+
+
+# ---------------------------------------------------------------------------
+# placement: a card per worker, or one shared, and the backend that follows
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "device,workers,cards,want",
+    [
+        ("cpu", 2, 0, ["cpu", "cpu"]),
+        ("cuda", 2, 1, ["cuda", "cuda"]),  # one card, shared: gloo
+        ("cuda", 2, 2, ["cuda:0", "cuda:1"]),  # a card each: NCCL
+        ("cuda", 2, 4, ["cuda:0", "cuda:1"]),
+        ("cuda", 4, 2, ["cuda"] * 4),
+        ("cuda:3", 1, 4, ["cuda:3"]),
+    ],
+)
+def test_workers_get_a_card_each_only_when_the_host_has_enough(
+    monkeypatch, device, workers, cards, want
+):
+    import torch
+
+    from elasticdl_tpu_torch.parallel.distributed import (
+        choose_backend,
+        worker_devices,
+    )
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    got = worker_devices(device, workers)
+    assert got == want
+    own_cards = len(set(got)) == len(got) and got[0].startswith("cuda:")
+    assert {choose_backend(torch.device(d)) for d in got} == {
+        "nccl" if own_cards else "gloo"
+    }
+
+
+def test_a_card_named_by_index_is_refused_for_several_workers():
+    from elasticdl_tpu_torch.parallel.distributed import worker_devices
+
+    with pytest.raises(ValueError, match="pass --device cuda"):
+        worker_devices("cuda:0", 2)
+
+
+def test_a_relaunched_worker_takes_the_card_of_the_one_it_replaces():
+    from elasticdl_tpu_torch.master.local_instance_manager import (
+        LocalInstanceManager,
+    )
+
+    class Dispatcher:
+        def recover_tasks(self, worker_id):
+            pass
+
+    placed = {}
+
+    def command(worker_id, device):
+        placed[worker_id] = device
+        return [sys.executable, "-c", "import time; time.sleep(60)"]
+
+    manager = LocalInstanceManager(
+        Dispatcher(), 2, command, ["cuda:0", "cuda:1"]
+    )
+    manager.start_workers()
+    try:
+        for victim, replacement in ((1, 2), (0, 3)):
+            manager.kill_worker(victim)
+            deadline = time.monotonic() + 30
+            while replacement not in placed and time.monotonic() < deadline:
+                time.sleep(0.02)
+        assert placed == {0: "cuda:0", 1: "cuda:1", 2: "cuda:1",
+                          3: "cuda:0"}
+    finally:
+        manager.stop_relaunch_and_remove_all_pods(grace_s=1)

@@ -73,8 +73,10 @@ def test_every_port_module_imports_without_jax():
     assert proc.returncode == 0, proc.stderr[-4000:]
     count = int(proc.stdout.split()[-1])
     # every module of the slices, packages included (master/, worker/,
-    # metrics/ and the zoo's ResNet-50 and MNIST modules among them)
-    assert count >= 63
+    # metrics/, the zoo's ResNet-50 and MNIST modules, and the elastic
+    # job's socket transport, membership, instance manager, process
+    # groups, elastic trainer and worker entry among them)
+    assert count >= 71
 
 
 def test_the_job_runs_with_jax_and_grpc_blocked(tmp_path):
@@ -146,6 +148,67 @@ def test_the_job_runs_with_jax_and_grpc_blocked(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.split()[-1] == "4"
+
+
+def test_the_multi_process_job_runs_with_jax_and_grpc_blocked(tmp_path):
+    """``--num_workers 2`` on the CPU: the master in a blocked
+    interpreter, and each ``worker.main`` process blocked the same way
+    (its command line runs the blocker first), over the socket plane."""
+    proc = _run_blocked(
+        """
+        import os, runpy
+        import numpy as np
+        sys.path.insert(0, %r)
+        from elasticdl_tpu_torch import api, cli
+        from elasticdl_tpu_torch.data.example import encode_example
+        from elasticdl_tpu_torch.data.recordio import RecordIOWriter
+        BLOCKER = %r
+
+        def blocked_worker(self, worker_id, device,
+                           _orig=api.LocalJob._worker_command):
+            argv = _orig(self, worker_id, device)
+            code = BLOCKER + (
+                "import runpy; sys.argv = ['worker'] + %%r; "
+                "runpy.run_module('elasticdl_tpu_torch.worker.main', "
+                "run_name='__main__')" %% (argv[3:],)
+            )
+            return [sys.executable, "-c", code]
+
+        api.LocalJob._worker_command = blocked_worker
+        data = os.path.join(%r, "data")
+        os.makedirs(data)
+        rng = np.random.default_rng(0)
+        # twice the zoo's 1024-record shuffle buffer: the first worker's
+        # buffer and prefetch cannot take every task, so both get data
+        with RecordIOWriter(os.path.join(data, "f0")) as w:
+            for _ in range(2048):
+                w.write(encode_example({
+                    "image": rng.random(784, dtype=np.float32) * 255,
+                    "label": np.array([rng.integers(0, 10)], np.int64),
+                }))
+        jobs = []
+        rc = cli.main([
+            "train", "--job_name", "j", "--distribution_strategy",
+            "AllreduceStrategy", "--num_workers", "2", "--model_zoo", "",
+            "--model_def", "mnist_subclass.mnist_subclass.CustomModel",
+            "--training_data", data, "--minibatch_size", "16",
+            "--num_minibatches_per_task", "2", "--device", "cpu",
+            "--log_level", "WARNING",
+        ], jobs=jobs)
+        codes = jobs[0].master.instance_manager.exit_codes
+        assert rc == 0 and codes == {0: 0, 1: 0}, codes
+        assert jobs[0].master.task_d.finished()
+        leaked = sorted(
+            m for m in sys.modules if m.split(".")[0] in BLOCKED
+        )
+        assert not leaked, leaked
+        print("version", jobs[0].master.master_servicer.get_model_version())
+        """
+        % (REPO, BLOCKER, str(tmp_path)),
+        env=dict(os.environ, OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert int(proc.stdout.split()[-1]) > 0
 
 
 @pytest.fixture

@@ -450,7 +450,8 @@ def test_cli_runs_a_job_and_continues_it(tmp_path):
 @pytest.mark.parametrize(
     "flag",
     [
-        ["--num_workers", "2"],
+        ["--num_workers", "2", "--num_standby_workers", "1"],
+        ["--num_workers", "2", "--validation_data", "v"],
         ["--master_journal_dir", "j"],
         ["--telemetry_port", "0"],
         ["--distribution_strategy", "ParameterServerStrategy"],
