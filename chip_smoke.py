@@ -84,8 +84,31 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the world re-forms, the relaunched worker joins with the survivor's
    state bits, every task is done once and the live ranks end equal;
    the seconds from the kill to the broken step and to the new world's
-   first step, and the relaunch's cold start. The workers report their
-   flash launches (``launches_by_path.elastic`` = 0).
+   first step, and the relaunch's cold start. Run C, master SIGKILL:
+   the master runs as ``python -m elasticdl_tpu_torch.master.master``
+   (a journal, a fixed port, ``--num_workers 0``) and the two workers
+   dial it, all three under one LocalInstanceManager in its
+   external-supervisor form; the master is SIGKILLed at version 4 and
+   relaunched with the same argv. Neither worker exits during the
+   outage, ``master_epoch`` advances, the journal counts every task done
+   once (with its ``dup`` count), the version clock continues, the ranks
+   end equal, the newest checkpoint restores bitwise; kill -> serving
+   (replay seconds, records replayed), kill -> the re-formed world's
+   first step, its broadcast's seconds. Run D, Run B with
+   ``--num_standby_workers 1``: the warmed standby is promoted (the pool
+   refills), the survivor re-forms once at full size, Run B's checks;
+   kill -> the promoted worker's join beside Run B's spawn -> join and
+   cold start, what the standby warmed, each process's card memory
+   before the kill. Run E, evaluation while training: 256 validation
+   records, a round every 4 versions, checkpoints every 4 (all kept):
+   rounds at versions > 0, every task done once, each report whose
+   scored version has a checkpoint within 1e-2 relative L2 of that
+   checkpoint's direct forward and each such round's accuracy within
+   2/256; examples/s with rounds beside Run A's, the rounds' seconds,
+   the other rank's lockstep stall while one rank scores. The workers
+   report their flash launches, by run (``launches_by_path`` ``elastic``
+   for A and B, ``elastic_master_kill``, ``elastic_standby`` and
+   ``elastic_eval``, each 0).
 9. summary — the kernels line, the card line, then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -1921,7 +1944,8 @@ class _Timed:
 
 class _EvalReports:
     """Every evaluation report's pinned version and outputs, in order,
-    and its labels counted by version."""
+    and its labels counted by version; ``reports`` keeps each whole:
+    (pinned version, scored version, outputs, labels)."""
 
     def __init__(self):
         from elasticdl_tpu_torch.master.servicer import MasterServicer
@@ -1930,6 +1954,7 @@ class _EvalReports:
         self._orig = MasterServicer.report_evaluation_metrics
         self.records = {}
         self.outputs = []  # (version, outputs of the report's task)
+        self.reports = []
 
     def __enter__(self):
         reports, orig = self, self._orig
@@ -1939,6 +1964,9 @@ class _EvalReports:
                 reports.records.get(version, 0) + len(labels)
             )
             reports.outputs.append((version, outputs["output"]))
+            reports.reports.append(
+                (version, scored_version, outputs["output"], labels)
+            )
             return orig(servicer, version, outputs, labels,
                         scored_version=scored_version)
 
@@ -2297,6 +2325,13 @@ ELASTIC_KILL_EPOCHS = 10
 ELASTIC_KILL_AT_VERSION = 4
 ELASTIC_JOB_LIMIT_S = 420  # a run that hangs fails the phase
 SNAPSHOT_CHECK_SLEEP_CYCLES = 200_000_000  # keeps the stream busy ~0.1 s
+# Run C: the master SIGKILLed once its version reaches this, in a job of
+# this many epochs (long enough to step on after the relaunch)
+MASTER_KILL_AT_VERSION = 4
+MASTER_KILL_EPOCHS = 6
+MASTER_FAILOVER_S = 120  # the workers' outage budget (the default)
+# Run E: two epochs, a round every 4 versions over 256 validation records
+ELASTIC_EVAL_EPOCHS = 2
 
 
 def elastic_argv(data_dir, ckpt_dir, out_dir, epochs):
@@ -2496,14 +2531,144 @@ def _examples_per_s(events, epoch):
     return rows / (lead[-1]["t"] - lead[0]["t"])
 
 
+def _parked_context_mib(torch):
+    """The card memory a parked standby holds: a process warmed as
+    ``worker/main._warm`` warms a standby (the zoo module, the CUDA
+    context, cuDNN and cuBLAS), measured as the card's free memory
+    before it starts less while it parks; the warm's seconds too."""
+    code = (
+        "import json, sys, time, types\n"
+        "sys.path.insert(0, %r)\n"
+        "from elasticdl_tpu_torch.worker.main import _warm\n"
+        "warmed = _warm(types.SimpleNamespace(model_def=%r, model_zoo=%r,"
+        " device=%r))\n"
+        "print(json.dumps(warmed), flush=True)\n"
+        "time.sleep(120)\n"
+    ) % (REPO, JOB_MODEL_DEF,
+         os.path.join(REPO, "elasticdl_tpu_torch", "model_zoo"), DEVICE)
+    torch.cuda.synchronize()
+    free0, total = torch.cuda.mem_get_info()
+    proc = subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        warmed = json.loads(proc.stdout.readline())
+        time.sleep(0.5)
+        free1, _ = torch.cuda.mem_get_info()
+    finally:
+        proc.kill()
+        proc.wait()
+    return {"mib": (free0 - free1) / 2**20, "card_mib": total / 2**20,
+            "warmed": warmed}
+
+
+def _eval_records(torch, val_dir):
+    """EVAL_RECORDS validation records from SEED + 1, as phase_eval
+    writes them; returns (images, labels, seconds)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+    images = rng.integers(0, 256, (EVAL_RECORDS, JOB_IMAGE, JOB_IMAGE, 3),
+                          dtype=np.uint8)
+    labels = rng.integers(1, JOB_CLASSES + 1, EVAL_RECORDS)
+    return images, labels, write_records(val_dir, images, labels)
+
+
+def _hold_rounds(torch, reports, published, ckpt_dir, images, labels):
+    """Each report whose scored version has a checkpoint, against a
+    direct forward of that checkpoint: its rows found by their labels,
+    within EVAL_REL_L2; each round all of whose reports scored one such
+    version, its accuracy within EVAL_TOL_RECORDS of the direct one.
+    Returns (per-round records, problems)."""
+    import numpy as np
+
+    direct = {}
+
+    def forward(version):
+        if version not in direct:
+            directory = os.path.join(ckpt_dir, "ckpt_v%d" % version)
+            if not os.path.isdir(directory):
+                direct[version] = None
+            else:
+                params, state = _checkpoint_weights(torch, directory)
+                direct[version] = _direct_forward(torch, params, state,
+                                                  images)
+        return direct[version]
+
+    tol = EVAL_TOL_RECORDS / EVAL_RECORDS
+    problems, rounds = [], []
+    for r in published:
+        v = r["version"]
+        mine = [rep for rep in reports if rep[0] == v]
+        held = []
+        for _, scored, out, got_labels in mine:
+            want_out = forward(scored) if scored is not None else None
+            if want_out is None:
+                continue
+            n = len(got_labels)
+            starts = [s for s in range(0, EVAL_RECORDS, n)
+                      if np.array_equal(np.ravel(got_labels),
+                                        labels[s:s + n] - 1)]
+            if len(starts) != 1:
+                problems.append("round v%d: a report's labels match %d "
+                                "blocks" % (v, len(starts)))
+                continue
+            s = starts[0]
+            rel = _rel_l2(torch, torch.from_numpy(np.asarray(out)).to(
+                want_out.device).float(), want_out[s:s + n])
+            held.append(rel)
+            if rel > EVAL_REL_L2:
+                problems.append("round v%d: outputs %s from ckpt_v%d's "
+                                "direct forward" % (v, rel, scored))
+        scored_set = sorted({rep[1] for rep in mine})
+        rec = {"version": v, "scored_versions": scored_set,
+               "accuracy": r["metrics"]["accuracy"],
+               "reports": len(mine), "held_reports": len(held),
+               "max_rel_l2": max(held) if held else None}
+        if len(scored_set) == 1 and forward(scored_set[0]) is not None:
+            acc = _accuracy(torch, forward(scored_set[0]), labels)
+            rec["direct_accuracy"] = acc
+            if abs(acc - rec["accuracy"]) > tol + 1e-12:
+                problems.append("round v%d reads %s, ckpt_v%d's direct "
+                                "forward %s" % (v, rec["accuracy"],
+                                                scored_set[0], acc))
+        rounds.append(rec)
+    if not any(r["held_reports"] for r in rounds):
+        problems.append("no round scored a version that has a checkpoint")
+    return rounds, problems
+
+
+def _peer_stalls(events):
+    """Each step period of one rank that spans the end of an evaluation
+    task the other rank scored, less that rank's median period (ms):
+    the peer's lockstep stall while one rank scores."""
+    periods = {}
+    for w, ev in events.items():
+        steps = [s["t"] for s in _of(ev, "step") if s["live"] > 0]
+        periods[w] = list(zip(steps, steps[1:]))
+    stalled = {}  # (peer, its step period) -> that period less its median
+    for w, ev in events.items():
+        for e in _of(ev, "eval"):
+            for peer, spans in periods.items():
+                if peer == w or not spans:
+                    continue
+                median = _median([b - a for a, b in spans])
+                span = next(((a, b) for a, b in spans if b >= e["t"]), None)
+                if span is not None and span[0] <= e["t"]:
+                    stalled[peer, span] = 1e3 * (span[1] - span[0] - median)
+    return [ms for _, ms in sorted(stalled.items())]
+
+
 def phase_elastic(torch, tmp, job_rec, card):
     """The multi-process elastic ALLREDUCE job through the port's command
     line: the master in this process, ELASTIC_WORKERS worker processes
     sharing the card in one process world. Run A trains one epoch of
     ELASTIC_RECORDS; Run B kills worker 1 at version
-    ELASTIC_KILL_AT_VERSION and finishes with its replacement. Returns
-    the flash kernels' launches of both runs (the workers report theirs;
-    ResNet-50 launches none)."""
+    ELASTIC_KILL_AT_VERSION and finishes with its replacement; Run C
+    SIGKILLs a master that runs as its own process (``_master_kill_run``);
+    Run D is Run B with a warmed standby promoted in the dead worker's
+    place; Run E evaluates while it trains. Returns the flash kernels'
+    launches of each run, by path (the workers report theirs; ResNet-50
+    launches none), and the runs' records."""
     from elasticdl_tpu_torch.parallel.distributed import (
         choose_backend,
         worker_devices,
@@ -2513,6 +2678,8 @@ def phase_elastic(torch, tmp, job_rec, card):
     torch.cuda.empty_cache()
     data_dir = os.path.join(tmp, "elastic-data")
     write_s = write_job_records(torch, data_dir, ELASTIC_RECORDS)
+    val_dir = os.path.join(tmp, "elastic-val")
+    images, labels, val_write_s = _eval_records(torch, val_dir)
     snapshot = _snapshot_check(torch)
     if not snapshot["ok"]:
         problems.append("the pinned snapshot is torn: %s" % snapshot["torn"])
@@ -2520,19 +2687,48 @@ def phase_elastic(torch, tmp, job_rec, card):
     expected_backend = choose_backend(
         torch.device(worker_devices(DEVICE, ELASTIC_WORKERS)[0])
     )
-    launches = {name: 0 for name in KERNELS}
+    paths = {}
     records = {}
-    for run, epochs, kill_at in (
-        ("A", 1, None),
-        ("B", ELASTIC_KILL_EPOCHS, ELASTIC_KILL_AT_VERSION),
-    ):
+
+    def add_launches(path, finals_by_worker):
+        counts = paths.setdefault(path, {name: 0 for name in KERNELS})
+        for finals in finals_by_worker:
+            for name, n in finals[0]["launches"].items():
+                counts[name] += n
+
+    parked = _parked_context_mib(torch) if DEVICE == "cuda" else None
+
+    runs = (
+        ("A", 1, None, [], "elastic"),
+        ("B", ELASTIC_KILL_EPOCHS, ELASTIC_KILL_AT_VERSION, [], "elastic"),
+        ("C", MASTER_KILL_EPOCHS, None, None, "elastic_master_kill"),
+        ("D", ELASTIC_KILL_EPOCHS, ELASTIC_KILL_AT_VERSION,
+         ["--num_standby_workers", "1"], "elastic_standby"),
+        ("E", ELASTIC_EVAL_EPOCHS, None,
+         ["--validation_data", val_dir, "--evaluation_steps",
+          str(EVAL_STEPS)], "elastic_eval"),
+    )
+    for run, epochs, kill_at, extra, path in runs:
+        if extra is None:
+            rec, bad, finals = _master_kill_run(
+                torch, tmp, data_dir, epochs, card, records["B"]
+            )
+            add_launches(path, finals)
+            emit(rec)
+            records[run] = rec
+            problems += ["run %s: %s" % (run, b) for b in bad]
+            continue
         root = os.path.join(tmp, "elastic-%s" % run)
         ckpt_dir, out_dir = root + "-ckpt", root + "-export"
+        argv = elastic_argv(data_dir, ckpt_dir, out_dir, epochs) + extra
+        if run == "E":
+            # every checkpoint stays: each round is held against its own
+            argv[argv.index("--keep_checkpoint_max") + 1] = "0"
         t0 = time.perf_counter()
-        rc, job, done, killed_at = _run_elastic_job(
-            torch, elastic_argv(data_dir, ckpt_dir, out_dir, epochs),
-            root + "-timeline", kill_at,
-        )
+        with _EvalReports() as spy:
+            rc, job, done, killed_at = _run_elastic_job(
+                torch, argv, root + "-timeline", kill_at
+            )
         job_s = time.perf_counter() - t0
         manager = job.master.instance_manager
         events = _timeline_events(root + "-timeline")
@@ -2541,7 +2737,11 @@ def phase_elastic(torch, tmp, job_rec, card):
             bad.append("exit code %s" % rc)
         if not job.master.task_d.finished():
             bad.append("the dispatcher has tasks left")
-        want_done = tasks * epochs + 1  # + the SAVE_MODEL task
+        published = (job.master.evaluation_service.published
+                     if job.master.evaluation_service else [])
+        eval_tasks = EVAL_RECORDS // JOB_BATCH
+        # + the SAVE_MODEL task, + each round's evaluation tasks
+        want_done = tasks * epochs + 1 + eval_tasks * len(published)
         if len(done) != want_done or len(set(done)) != len(done):
             bad.append("%d task completions (%d distinct), expected %d once"
                        % (len(done), len(set(done)), want_done))
@@ -2551,9 +2751,7 @@ def phase_elastic(torch, tmp, job_rec, card):
         if len(live_workers) != ELASTIC_WORKERS or len(digests) != 1:
             bad.append("final states of workers %s: %d distinct digests"
                        % (live_workers, len(digests)))
-        for w in live_workers:
-            for name, n in finals[w][0]["launches"].items():
-                launches[name] += n
+        add_launches(path, [finals[w] for w in live_workers])
         worlds = {w: _of(ev, "established") for w, ev in events.items()}
         backends = sorted({e["backend"] for ws in worlds.values()
                            for e in ws if e["size"] > 1})
@@ -2641,6 +2839,30 @@ def phase_elastic(torch, tmp, job_rec, card):
             rec["snapshot_check"] = snapshot
             if manager.exit_codes != {0: 0, 1: 0}:
                 bad.append("worker exits %s" % manager.exit_codes)
+        elif run == "E":
+            rounds, eval_bad = _hold_rounds(torch, spy.reports, published,
+                                            ckpt_dir, images, labels)
+            bad += eval_bad
+            if not published or any(p["version"] <= 0 for p in published):
+                bad.append("rounds published at %s"
+                           % [p["version"] for p in published])
+            scored = {}
+            for ev in events.values():
+                for e in _of(ev, "eval"):
+                    key = e["version"]
+                    scored[key] = scored.get(key, 0) + e["t"] - e["t0"]
+            stalls = _peer_stalls(events)
+            rec.update({
+                "eval_records": EVAL_RECORDS,
+                "write_eval_records_s": val_write_s,
+                "evaluation_steps": EVAL_STEPS,
+                "rounds": rounds,
+                "round_s": {str(v): sec for v, sec in sorted(scored.items())},
+                "examples_per_s_without_rounds_run_a":
+                records["A"]["examples_per_s"],
+                "peer_stall_ms": stalls,
+                "peer_stall_ms_median": _median(stalls),
+            })
         else:
             survivor = events.get(0, [])
             broken = [e for e in _of(survivor, "world_broken")
@@ -2681,24 +2903,290 @@ def phase_elastic(torch, tmp, job_rec, card):
                 "worlds_of_survivor": [(w["epoch"], w["size"])
                                        for w in worlds.get(0, [])],
                 "relaunched": relaunched,
-                "relaunch_spawn_after_kill_s": (
-                    spawned - killed_at if spawned else None),
-                "relaunch_cold_start_s": (start[0]["t"] - spawned
-                                          if start and spawned else None),
-                "relaunch_spawn_to_join_s": (joined[0]["t"] - spawned
-                                             if joined and spawned else None),
                 "relaunch_joined_bitwise": joined_equal,
                 "survivor_alone_examples_per_s": _examples_per_s(
                     events, later[0]["epoch"]) if later else None,
                 "rejoined_examples_per_s": _examples_per_s(
                     events, joined[0]["epoch"]) if joined else None,
             })
+            rec.update({
+                "joiner_start_to_join_s": (joined[0]["t"] - start[0]["t"]
+                                           if joined and start else None),
+                "joiner_world_s": joined[0]["world_s"] if joined else None,
+                # the joiner's wait for its peers inside the broadcast
+                "joiner_source_s": (joined[0].get("source_s")
+                                    if joined else None),
+                "joiner_broadcast_s": (joined[0]["broadcast_s"]
+                                       if joined else None),
+            })
+            if run == "B":
+                rec.update({
+                    "relaunch_spawn_after_kill_s": (
+                        spawned - killed_at if spawned else None),
+                    "relaunch_cold_start_s": (start[0]["t"] - spawned
+                                              if start and spawned else None),
+                    "relaunch_spawn_to_join_s": (
+                        joined[0]["t"] - spawned
+                        if joined and spawned else None),
+                })
+            else:
+                bad += _standby_checks(rec, manager, events, relaunched,
+                                       joined, later, killed_at,
+                                       records["B"], parked)
         emit(rec)
         records[run] = rec
         problems += ["run %s: %s" % (run, b) for b in bad]
     if problems:
         raise PhaseError("elastic: " + "; ".join(problems))
-    return {name: (n, {}) for name, n in launches.items()}, records
+    return ({path: {name: (n, {}) for name, n in counts.items()}
+             for path, counts in paths.items()}, records)
+
+
+def _standby_checks(rec, manager, events, relaunched, joined, later,
+                    killed_at, run_b, parked):
+    """Run D: the warmed standby took the dead worker's place (no cold
+    relaunch), the survivor re-formed once at full size, a fresh standby
+    refilled the pool; records kill -> join beside Run B's relaunch, what
+    the standby warmed while it parked, and (``parked``) the card memory
+    such a parked process holds. Returns the problems."""
+    bad = []
+    promoted = [p[0] for p in manager.promotions]
+    if not manager.promotions or manager.cold_relaunches:
+        bad.append("no standby promotion (promotions %s, cold relaunches "
+                   "%s)" % (manager.promotions, manager.cold_relaunches))
+    if relaunched != promoted:
+        bad.append("workers %s joined, the promoted ones are %s"
+                   % (relaunched, promoted))
+    if len(manager.standby_tokens) < 2:
+        bad.append("the pool was not refilled: standbys %s"
+                   % manager.standby_tokens)
+    sizes = [w["size"] for w in later]
+    if not sizes or any(n != ELASTIC_WORKERS for n in sizes):
+        bad.append("the survivor re-formed at sizes %s, not once at full "
+                   "size" % sizes)
+    standby = _of(events.get(promoted[0], []), "standby") if promoted else []
+    token = manager.promotions[0][1] if manager.promotions else None
+    rec.update({
+        "promotions": manager.promotions,
+        "standby_tokens": manager.standby_tokens,
+        "standby_warmed": standby[0]["warmed"] if standby else None,
+        "standby_parked_s": (standby[0]["promoted_at"]
+                             - standby[0]["parked_at"]) if standby else None,
+        "standby_spawn_to_parked_s": (
+            standby[0]["parked_at"] - manager.spawned_at[token]
+            if standby and token in manager.spawned_at else None),
+        "kill_to_promotion_s": (manager.promotions[0][2] - killed_at
+                                if manager.promotions else None),
+        "kill_to_promoted_join_s": (joined[0]["t"] - killed_at
+                                    if joined else None),
+        "run_b_relaunch_spawn_to_join_s": run_b.get(
+            "relaunch_spawn_to_join_s"),
+        "run_b_relaunch_cold_start_s": run_b.get("relaunch_cold_start_s"),
+        "run_b_kill_to_first_step_of_new_world_s": run_b.get(
+            "kill_to_first_step_of_new_world_s"),
+        "promoted_start_after_promotion_s": (
+            _of(events[promoted[0]], "start")[0]["t"]
+            - manager.promotions[0][2]
+            if promoted and _of(events.get(promoted[0], []), "start")
+            else None),
+        "run_b_joiner_start_to_join_s": run_b.get("joiner_start_to_join_s"),
+        "parked_standby_card_mib": parked["mib"] if parked else
+        "not measured",
+        "parked_standby_warmed": parked["warmed"] if parked else None,
+    })
+    return bad
+
+
+def _master_kill_run(torch, tmp, data_dir, epochs, card, run_b):
+    """Run C: the master as ``python -m elasticdl_tpu_torch.master.master``
+    (a journal, a fixed port, ``--num_workers 0``) and two worker
+    processes dialling it, all supervised by one LocalInstanceManager in
+    its external-supervisor form, which relaunches the master after its
+    SIGKILL at MASTER_KILL_AT_VERSION. Returns (record, problems, the
+    workers' final events)."""
+    import socket
+
+    from elasticdl_tpu_torch.common.args import (
+        build_arguments_from_parsed_result,
+        parse_master_args,
+    )
+    from elasticdl_tpu_torch.master.journal import MasterJournal
+    from elasticdl_tpu_torch.master.local_instance_manager import (
+        LocalInstanceManager,
+    )
+    from elasticdl_tpu_torch.master.rpc_service import MasterClient
+    from elasticdl_tpu_torch.parallel.distributed import worker_devices
+
+    root = os.path.join(tmp, "elastic-C")
+    ckpt_dir, journal_dir, timeline = (root + "-ckpt", root + "-journal",
+                                       root + "-timeline")
+    with socket.socket() as s:
+        s.bind(("", 0))
+        port = s.getsockname()[1]
+    flags = elastic_argv(data_dir, ckpt_dir, None, epochs)[1:]
+    flags[flags.index("--num_workers") + 1] = "0"
+    flags += ["--port", str(port), "--master_journal_dir", journal_dir]
+    master_argv = [sys.executable, "-m",
+                   "elasticdl_tpu_torch.master.master"] + flags
+    relay = build_arguments_from_parsed_result(
+        parse_master_args(flags),
+        filter_args={"port", "num_workers", "training_data",
+                     "validation_data", "prediction_data", "job_name",
+                     "device", "master_journal_dir"},
+    )
+
+    def worker_argv(worker_id, device):
+        return [sys.executable, "-m", "elasticdl_tpu_torch.worker.main",
+                "--worker_id", str(worker_id), "--job_type",
+                "training_only", "--master_addr", "localhost:%d" % port,
+                "--device", device, "--master_failover_s",
+                str(MASTER_FAILOVER_S)] + relay
+
+    env = dict(os.environ, PYTHONPATH=REPO, EDL_COMM_HOST="localhost",
+               EDL_WORKER_TIMELINE_DIR=timeline, EDL_MASTER_POLL_SECS="1",
+               EDL_MASTER_EXIT_GRACE_S="120")
+    manager = LocalInstanceManager(
+        None, ELASTIC_WORKERS, worker_argv,
+        worker_devices(DEVICE, ELASTIC_WORKERS), env=env,
+        master_command=lambda: master_argv,
+    )
+
+    def status():
+        probe = MasterClient("localhost:%d" % port)
+        try:
+            return probe.master_status()
+        except Exception:  # noqa: BLE001 — not serving (yet)
+            return None
+        finally:
+            probe.close()
+
+    bad = []
+    t0 = time.perf_counter()
+    deadline = time.time() + ELASTIC_JOB_LIMIT_S
+    manager.start_master()
+    try:
+        before = None
+        while before is None and time.time() < deadline:
+            before = status()
+            time.sleep(0.05)
+        if before is None:
+            raise PhaseError("elastic C: the master never served")
+        manager.start_workers()
+        at_kill = before
+        while (at_kill or {}).get("version", 0) < MASTER_KILL_AT_VERSION:
+            if time.time() > deadline or not manager.live_workers():
+                raise PhaseError("elastic C: the job never reached v%d"
+                                 % MASTER_KILL_AT_VERSION)
+            at_kill = status() or at_kill
+            time.sleep(0.02)
+        live_at_kill = manager.live_workers()
+        killed_at = time.time()
+        manager.kill_master()
+        after = None
+        while time.time() < deadline:
+            after = status()
+            if after and after["master_epoch"] != before["master_epoch"]:
+                break
+            time.sleep(0.02)
+        serving_at = time.time()
+        live_after = manager.live_workers()
+        if not manager.wait(timeout=max(1.0, deadline - time.time())):
+            bad.append("the workers ran past %d s" % ELASTIC_JOB_LIMIT_S)
+        while manager.live_master() and time.time() < deadline:
+            time.sleep(0.1)
+    finally:
+        manager.stop_relaunch_and_remove_all_pods(grace_s=10)
+    job_s = time.perf_counter() - t0
+    events = _timeline_events(timeline)
+    state = MasterJournal(journal_dir).replay()
+    tasks = ELASTIC_RECORDS // JOB_BATCH
+    if live_at_kill != [0, 1] or live_after != [0, 1]:
+        bad.append("workers live at the kill %s, at the relaunch %s"
+                   % (live_at_kill, live_after))
+    if manager.exit_codes != {0: 0, 1: 0}:
+        bad.append("worker exits %s" % manager.exit_codes)
+    if manager.master_exit_codes != [-9, 0]:
+        bad.append("master exits %s" % manager.master_exit_codes)
+    if not after or after["master_epoch"] != before["master_epoch"] + 1:
+        bad.append("master_epoch %s -> %s" % (
+            before["master_epoch"], after and after["master_epoch"]))
+    if state.counters["done"] != tasks * epochs or state.pending:
+        bad.append("the journal counts %d done (%d pending), expected %d"
+                   % (state.counters["done"], len(state.pending),
+                      tasks * epochs))
+    finals = {w: _of(ev, "final") for w, ev in events.items()}
+    digests = {f[0]["digest"] for f in finals.values() if f}
+    if sorted(w for w, f in finals.items() if f) != [0, 1] or len(
+            digests) != 1:
+        bad.append("final states: %d distinct digests" % len(digests))
+    relaunched = {w: [e for e in _of(ev, "established")
+                      if e["t"] > killed_at] for w, ev in events.items()}
+    reformed = [e for e in relaunched.get(0, [])]
+    first_step = None
+    if reformed:
+        first_step = next((s["t"] for s in _of(events[0], "step")
+                           if s["epoch"] == reformed[0]["epoch"]), None)
+    else:
+        bad.append("rank 0 never re-formed after the relaunch")
+    old_epochs = [e["epoch"] for e in _of(events.get(0, []), "established")
+                  if e["t"] <= killed_at]
+    if reformed and old_epochs and reformed[0]["epoch"] <= max(old_epochs):
+        bad.append("the new world's epoch %d is not past the old %d"
+                   % (reformed[0]["epoch"], max(old_epochs)))
+    final_version = finals[0][0]["version"] if finals.get(0) else -1
+    if final_version < at_kill["version"] or (
+            after and after["version"] < at_kill["version"]):
+        bad.append("the version clock went back: %s at the kill, %s at "
+                   "the relaunch, %s at the end"
+                   % (at_kill["version"], after and after["version"],
+                      final_version))
+    ckpts = {c["version"]: c for c in _of(events.get(0, []), "checkpoint")}
+    restored = None
+    if ckpts:
+        newest = max(ckpts)
+        got_v, digest = _checkpoint_digest(
+            torch, os.path.join(ckpt_dir, "ckpt_v%d" % newest))
+        restored = got_v == newest and digest == ckpts[newest]["digest"]
+        if not restored:
+            bad.append("ckpt_v%d does not restore bitwise" % newest)
+    else:
+        bad.append("rank 0 wrote no checkpoint")
+    recovery = (after or {}).get("recovery") or {}
+    rec = {
+        "phase": "elastic",
+        "run": "C",
+        "card": card,
+        "model": JOB_MODEL_DEF + " (bf16, params float32)",
+        "workers": ELASTIC_WORKERS,
+        "records": ELASTIC_RECORDS,
+        "epochs": epochs,
+        "batch": JOB_BATCH,
+        "job_s": job_s,
+        "killed_at_version": at_kill["version"],
+        "master_epochs": [before["master_epoch"],
+                          after and after["master_epoch"]],
+        "master_exit_codes": manager.master_exit_codes,
+        "exit_codes": {str(k): v for k, v in manager.exit_codes.items()},
+        "journal": dict(state.counters, pending=len(state.pending)),
+        "journal_dup": state.counters["deduped"],
+        "kill_to_serving_s": serving_at - killed_at,
+        "replay_s": recovery.get("replay_s"),
+        "records_replayed": recovery.get("records"),
+        "requeued_at_boot": recovery.get("pending"),
+        "kill_to_first_step_of_new_world_s": (
+            first_step - killed_at if first_step else None),
+        "reestablish_world_s": reformed[0]["world_s"] if reformed else None,
+        "reestablish_broadcast_s": (reformed[0]["broadcast_s"]
+                                    if reformed else None),
+        "worlds_of_rank0": [(e["epoch"], e["size"]) for e in
+                            _of(events.get(0, []), "established")],
+        "final_version": final_version,
+        "final_digests_equal": len(digests) == 1,
+        "restore_bitwise": restored,
+        "run_b_kill_to_first_step_of_new_world_s": run_b.get(
+            "kill_to_first_step_of_new_world_s"),
+    }
+    return rec, bad, [f for f in finals.values() if f]
 
 
 def _record_at(records, kernel, key):
@@ -2760,7 +3248,8 @@ def _elastic_only(torch):
         with tempfile.TemporaryDirectory() as tmp:
             elastic, _ = phase_elastic(torch, tmp, {"examples_per_s": None},
                                        card)
-        _check_counts(elastic, {k: 0 for k in KERNELS}, "the elastic job")
+        for path, counts in elastic.items():
+            _check_counts(counts, {k: 0 for k in KERNELS}, path)
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback
 
@@ -2819,15 +3308,19 @@ def main(argv=None):
                           "the eval phase")
             _reset_counters()
             elastic, _ = phase_elastic(torch, tmp, job_rec, card)
-            # launched in the workers (which report theirs) or here
+            # launched in the workers (which report theirs, by run) or
+            # here (counted with Run A's and B's path)
             here = _counts()
-            elastic = {k: (n + here[k][0], here[k][1])
-                       for k, (n, _) in elastic.items()}
-        _check_counts(elastic, {k: 0 for k in KERNELS}, "the elastic job")
+            elastic["elastic"] = {
+                k: (n + here[k][0], here[k][1])
+                for k, (n, _) in elastic["elastic"].items()
+            }
+        for path, counts in elastic.items():
+            _check_counts(counts, {k: 0 for k in KERNELS}, path)
         line = kernels_line(
             records,
-            {"serve": served, "train": trained, "job": job,
-             "eval": evaluated, "elastic": elastic},
+            dict({"serve": served, "train": trained, "job": job,
+                  "eval": evaluated}, **elastic),
         )
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback

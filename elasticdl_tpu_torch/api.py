@@ -21,7 +21,8 @@ deferred SAVE_MODEL task and returns once every task is done. With
 elasticdl_tpu_torch.worker.main``, the master's flags relayed, the
 device included), watches them, relaunches crashed ones and hands their
 tasks back; the elastic workers train in one process world that
-re-forms at every membership change. With
+re-forms at every membership change; ``--num_standby_workers K`` keeps
+K more started and parked, each promoted in place of a dead worker. With
 ``--validation_data`` the worker scores an evaluation round between its
 steps each time the version advances ``--evaluation_steps`` past the
 last round. ``evaluate`` and ``predict`` run an evaluation-only or
@@ -33,9 +34,7 @@ need their data flag and a model source, or they exit 2
 Every flag of the reference parses. Values the port cannot honour yet
 raise ``NotImplementedError``: ``--docker_image_repository`` (cluster
 submission), and, through the master, the parameter-server strategy,
-``--num_standby_workers``, ``--num_workers > 0`` with evaluation,
-``--master_journal_dir``, ``--telemetry_port`` and
-``--tensorboard_log_dir``.
+``--telemetry_port`` and ``--tensorboard_log_dir``.
 """
 
 import os
@@ -171,6 +170,7 @@ class LocalJob:
             restart_policy=self.args.restart_policy,
             env=env,
             membership=self.master.membership,
+            num_standby=self.args.num_standby_workers,
         )
         self.master.prepare()
         return self.master.run(poll_secs=1)

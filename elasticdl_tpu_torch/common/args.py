@@ -753,7 +753,10 @@ def parse_worker_args(worker_args=None):
         parser,
         "--standby",
         False,
-        help="Start as a pre-warmed spare (not ported yet: must be false)",
+        help="Start as a pre-warmed spare: warm up, park until the master "
+        "promotes this process, then train under the worker id (and on "
+        "the device) the promotion names; --worker_id is the standby's "
+        "token",
     )
     parser.add_argument(
         "--checkpoint_filename_for_init",

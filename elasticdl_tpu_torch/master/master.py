@@ -6,24 +6,35 @@ checkpoint service, the evaluation service (for a job with
 servicer and the membership of the elastic plane, queues the deferred
 SAVE_MODEL task when ``--output`` is set, and polls ``finished()``.
 
-``prepare()`` starts the RPC server (``master/rpc_service.py`` over the
-socket transport of ``rpc/socket_transport.py``) on ``--port`` (0 or
-unset: a port the OS picks, exposed as ``port``), then the workers of
-the instance manager, if one is attached. A single-process job's worker
-holds the servicer directly and never dials it. ``run()`` polls until
-every task is done, lingers briefly so that remote workers learn there
-is no more work, and ``stop()`` ends the workers and the server. A
-process entry (:func:`main`) drains on SIGTERM: stop, then exit 75.
+With ``--master_journal_dir`` the dispatcher, the servicer's version
+clock and the membership append to a write-ahead journal
+(``master/journal.py``). ``prepare()`` replays it before the server
+binds, so no call meets a half-restored ledger (``master_status``
+reports ``state``, ``serving`` by then, the journal's counts and what
+the replay restored): done tasks stay done, tasks in flight at the crash
+requeue once under their traces, the version clock and the membership
+epoch continue. Every boot mints a ``master_epoch``
+(a counter in the journal directory) that stamps every reply.
+
+``prepare()`` then starts the RPC server (``master/rpc_service.py`` over
+the socket transport of ``rpc/socket_transport.py``) on ``--port`` (0 or
+unset: a port the OS picks, exposed as ``port``; a fixed port a killed
+predecessor held is bound again), then the workers of the instance
+manager, if one is attached, and its standby workers
+(``--num_standby_workers``). A single-process job's worker holds the
+servicer directly and never dials it. ``run()`` polls until every task
+is done, lingers so that remote workers learn there is no more work, and
+``stop()`` ends the workers and the server. A process entry
+(:func:`main`) drains on SIGTERM: the journal is flushed, then the
+master stops and exits 75, which an external supervisor answers with a
+relaunch.
 
 Every other plane of the reference's master raises
-``NotImplementedError`` by name when its flag asks for it: the dispatch
-journal and the failover it enables (``--master_journal_dir``), the
-telemetry endpoint and event sink (``--telemetry_port``,
+``NotImplementedError`` by name when its flag asks for it: the telemetry
+endpoint and event sink (``--telemetry_port``,
 ``--telemetry_events_path``), the flight recorder
-(``EDL_FLIGHT_RECORDER_DIR``), TensorBoard (``--tensorboard_log_dir``),
-standby workers (``--num_standby_workers``), the collective evaluation
-of an elastic job (``--num_workers > 0`` with evaluation) and the
-parameter-server strategy.
+(``EDL_FLIGHT_RECORDER_DIR``), TensorBoard (``--tensorboard_log_dir``)
+and the parameter-server strategy.
 """
 
 import os
@@ -92,8 +103,6 @@ def refuse_unported_planes(args):
             "the %s strategy" % strategy, "--distribution_strategy"
         )
     checks = (
-        ("the master dispatch journal", "--master_journal_dir",
-         getattr(args, "master_journal_dir", "")),
         ("the telemetry endpoint", "--telemetry_port",
          getattr(args, "telemetry_port", None) is not None),
         ("the telemetry event sink", "--telemetry_events_path",
@@ -102,18 +111,6 @@ def refuse_unported_planes(args):
          os.environ.get("EDL_FLIGHT_RECORDER_DIR")),
         ("TensorBoard", "--tensorboard_log_dir",
          getattr(args, "tensorboard_log_dir", "")),
-        ("standby workers", "--num_standby_workers",
-         getattr(args, "num_standby_workers", 0) > 0),
-        ("the collective evaluation of an elastic job",
-         "--num_workers > 0 with --validation_data or an evaluation "
-         "trigger",
-         getattr(args, "num_workers", 0) > 0
-         and bool(getattr(args, "training_data", ""))
-         and bool(
-             getattr(args, "validation_data", "")
-             or getattr(args, "evaluation_steps", 0)
-             or getattr(args, "evaluation_throttle_secs", 0)
-         )),
     )
     for plane, flag, asked in checks:
         if asked:
@@ -141,6 +138,29 @@ class Master:
         records_per_task = (
             args.minibatch_size * args.num_minibatches_per_task
         )
+        from elasticdl_tpu_torch.master.journal import (
+            MasterJournal,
+            mint_master_epoch,
+        )
+
+        # the journal is replayed by prepare(), before the server serves
+        journal_dir = getattr(args, "master_journal_dir", "") or ""
+        self.journal = (
+            MasterJournal(
+                journal_dir,
+                fsync_interval_s=float(
+                    getattr(args, "master_journal_fsync_ms", 50)
+                ) / 1000.0,
+                segment_records=int(
+                    getattr(args, "master_journal_segment_records", 4096)
+                ),
+            )
+            if journal_dir
+            else None
+        )
+        # this incarnation's boot id, stamped on every RPC reply
+        self.master_epoch = mint_master_epoch(journal_dir or None)
+        self._health = "restoring"
         self.task_d = _make_task_dispatcher(
             getattr(args, "training_data", ""),
             getattr(args, "validation_data", ""),
@@ -148,6 +168,7 @@ class Master:
             records_per_task,
             args.num_epochs,
             get_dict_from_params_str(getattr(args, "data_reader_params", "")),
+            journal=self.journal,
             streaming=bool(getattr(args, "streaming_tasks", False)),
         )
         self.checkpoint_service = CheckpointService(
@@ -173,6 +194,7 @@ class Master:
             self.task_d,
             checkpoint_service=self.checkpoint_service,
             evaluation_service=self.evaluation_service,
+            journal=self.journal,
         )
         from elasticdl_tpu_torch.master.membership_service import (
             MembershipService,
@@ -188,9 +210,9 @@ class Master:
             form_grace_secs=float(
                 os.environ.get("EDL_FORM_GRACE_SECS", "30")
             ),
+            journal=self.journal,
         )
-        # this incarnation's boot id, stamped on every RPC reply
-        self.master_epoch = int(time.time_ns() % (1 << 53)) or 1
+        self.recovery = None  # what the journal's replay restored
         self.instance_manager = None
         self._server = None
         self._rpc_service = None
@@ -241,15 +263,43 @@ class Master:
             eval_metrics_fn,
         )
 
+    def _recover_from_journal(self):
+        """Replay the journal and fast-forward the ledger, the version
+        clock and the membership epoch, before the server serves."""
+        if self.journal is None:
+            return
+        state = self.journal.replay()
+        self.task_d.apply_recovery(state)
+        self.master_servicer.restore_version(state.version)
+        if state.member_epoch > 0:
+            self.membership.seed_epoch(state.member_epoch)
+        self.recovery = {
+            "replay_s": self.journal.replay_seconds,
+            "records": self.journal.replayed_records,
+            "epoch": state.epoch,
+            "version": state.version,
+            "member_epoch": state.member_epoch,
+            "pending": len(state.pending),
+        }
+        # the boot is a compaction point: a fresh segment headed by the
+        # post-recovery state, and the writer thread
+        self.journal.start()
+
     def _master_status(self):
-        return {
+        status = {
+            "state": self._health,
             "finished": self.task_d.finished(),
             "task_queues": self.task_d.queue_depths(),
         }
+        if self.journal is not None:
+            status["journal"] = self.journal.counts()
+            status["recovery"] = self.recovery
+        return status
 
     def prepare(self):
-        """Start the evaluation service's timer, the RPC server and the
-        instance manager's workers."""
+        """Replay the journal, then start the evaluation service's timer,
+        the RPC server and the instance manager's workers."""
+        self._recover_from_journal()
         if self.evaluation_service:
             self.evaluation_service.start()
         from elasticdl_tpu_torch.master.rpc_service import MasterRpcService
@@ -266,6 +316,7 @@ class Master:
             self._rpc_service.rpc_methods(), port if port else 0
         )
         self.port = self._server.port
+        self._health = "serving"
         logger.info(
             "Master RPC server started on port %d (master_epoch %d, %s)",
             self.port,
@@ -296,7 +347,8 @@ class Master:
         The instance manager's workers are waited for (up to
         ``WORKER_EXIT_GRACE_S``), so that none is stopped while
         its last checkpoint writes land; other remote pollers get
-        ``EDL_MASTER_EXIT_GRACE_S`` (3 s). In-process jobs never dial the
+        up to ``EDL_MASTER_EXIT_GRACE_S`` (3 s), ending early once every
+        member has announced its leave. In-process jobs never dial the
         server and exit at once."""
         if self.instance_manager is not None:
             if not self.instance_manager.wait(timeout=WORKER_EXIT_GRACE_S):
@@ -312,7 +364,13 @@ class Master:
             and self._rpc_service is not None
             and self._rpc_service.served_get_task
         ):
-            self._stop_requested.wait(grace)
+            deadline = time.monotonic() + grace
+            while (
+                self.membership.members()
+                and time.monotonic() < deadline
+                and not self._stop_requested.wait(0.1)
+            ):
+                pass
 
     def request_stop(self):
         self._stop_requested.set()
@@ -334,16 +392,25 @@ class Master:
         if self._server:
             self._server.stop()
             self._server = None
+        if self.journal is not None:
+            # flushed and fsynced: a clean stop is a consistent replay
+            self.journal.close()
 
     def install_drain_handler(self):
-        """SIGTERM (a preemption notice) stops the master and exits 75,
-        the code an external supervisor relaunches without spending its
-        crash budget. Installed only by the process entry."""
+        """SIGTERM (a preemption notice) flushes the journal, stops the
+        master and exits 75, the code an external supervisor relaunches
+        without spending its crash budget. Installed only by the process
+        entry."""
         import signal
         import sys
 
         def _drain(signum, frame):
-            logger.warning("SIGTERM: stopping the master")
+            logger.warning("SIGTERM: draining the journal, then stopping")
+            try:
+                if self.journal is not None:
+                    self.journal.flush()
+            except Exception as err:  # noqa: BLE001 — exit regardless
+                logger.error("journal drain failed: %s", err)
             self.stop()
             sys.exit(75)
 

@@ -11,15 +11,18 @@ in-process servicer.
 
 The methods an ALLREDUCE job calls are served: ``get_task``,
 ``report_task_result``, ``report_evaluation_metrics``, ``master_status``,
-``get_comm_world`` and ``leave_comm_world``. The methods of planes not
-ported yet raise ``NotImplementedError`` by name: the master-held model
-(``get_model``, ``report_variable``, ``report_gradient``), the embedding
-service (``push_embedding_info``, ``pull_embedding_vectors``,
-``export_embedding_tables``), telemetry (``report_telemetry``) and the
-standby pool (``standby_poll``). The client has no failover channel: it
-retries a refused or reset connection a few times, and a master that
-stays away ends the worker (the journal that would let a relaunched
-master resume is not ported either).
+``get_comm_world``, ``leave_comm_world`` and ``standby_poll``. The
+methods of planes not ported yet raise ``NotImplementedError`` by name:
+the master-held model (``get_model``, ``report_variable``,
+``report_gradient``), the embedding service (``push_embedding_info``,
+``pull_embedding_vectors``, ``export_embedding_tables``) and telemetry
+(``report_telemetry``).
+
+The client sends every call through the failover channel
+(``rpc/failover.py``): with ``failover_s`` > 0 it rides out a master
+restart for that long, a master that stays away longer ends the worker
+with the channel's error, and ``set_on_master_epoch_change`` hooks each
+restart it sees.
 """
 
 import numpy as np
@@ -29,10 +32,6 @@ from elasticdl_tpu_torch.common.log_utils import default_logger as logger
 from elasticdl_tpu_torch.common.tensor import Tensor
 from elasticdl_tpu_torch.master.servicer import TaskResponse
 
-# a refused or reset connection is retried this many times, the backoff
-# doubling from 0.2 s
-_CONNECT_RETRIES = 3
-
 _UNPORTED = {
     "get_model": "the master-held model",
     "report_variable": "the master-held model",
@@ -41,7 +40,6 @@ _UNPORTED = {
     "pull_embedding_vectors": "the embedding service",
     "export_embedding_tables": "the embedding service",
     "report_telemetry": "worker telemetry",
-    "standby_poll": "standby workers",
 }
 
 
@@ -132,6 +130,8 @@ class MasterRpcService:
             req.get("worker_id", -1),
             req.get("host", "localhost"),
             awaiting=req.get("awaiting", True),
+            world_size=int(req.get("world_size", 0) or 0),
+            world_epoch=int(req.get("world_epoch", 0) or 0),
         )
 
     def leave_comm_world(self, req):
@@ -142,6 +142,16 @@ class MasterRpcService:
                 req.get("worker_id", -1), departing=True
             )
         return {}
+
+    def standby_poll(self, req):
+        """A parked standby's heartbeat: the worker id (and the device)
+        of its promotion once the instance manager promotes it, else a
+        None id."""
+        if self._membership is None:
+            return {"worker_id": None, "device": None}
+        pool = self._membership.standby
+        token = int(req.get("token", -1))
+        return {"worker_id": pool.poll(token), "device": pool.device(token)}
 
     def _stamp_epoch(self, fn):
         epoch = self._master_epoch
@@ -161,6 +171,7 @@ class MasterRpcService:
                 "get_task": self.get_task,
                 "get_comm_world": self.get_comm_world,
                 "leave_comm_world": self.leave_comm_world,
+                "standby_poll": self.standby_poll,
                 "master_status": self.master_status,
                 "report_task_result": self.report_task_result,
                 "report_evaluation_metrics": self.report_evaluation_metrics,
@@ -171,21 +182,42 @@ class MasterRpcService:
 
 
 class MasterClient:
-    """Worker side: the servicer's method surface over a socket client.
-    Calls carry no deadline (a worker parked on a busy master waits), as
-    the reference's master channel; a refused or reset connection is
-    retried ``_CONNECT_RETRIES`` times."""
+    """Worker side: the servicer's method surface over the failover
+    channel. Calls carry no deadline (a worker parked on a busy master
+    waits); a refused or reset connection is sent again for up to
+    ``failover_s`` seconds (0: once)."""
 
-    def __init__(self, addr):
-        from elasticdl_tpu_torch.rpc.socket_transport import Client
+    def __init__(self, addr, failover_s=0.0):
+        from elasticdl_tpu_torch.rpc.failover import MasterFailoverChannel
 
-        self._client = Client(addr, retries=_CONNECT_RETRIES)
-        self.master_epoch = None
+        self._client = MasterFailoverChannel(
+            addr,
+            outage_budget_s=failover_s,
+            on_epoch_change=self._on_epoch_change,
+        )
+        self._epoch_change_cb = None
 
-    def _call(self, name, **fields):
-        resp = self._client.call(name, **fields)
-        self.master_epoch = resp.get("master_epoch", self.master_epoch)
-        return resp
+    @property
+    def master_epoch(self):
+        """The serving master's boot id, as last seen (None before the
+        first reply)."""
+        return self._client.master_epoch
+
+    @property
+    def outage_budget_s(self):
+        return self._client.outage_budget_s
+
+    def set_on_master_epoch_change(self, callback):
+        """``callback(old_epoch, new_epoch)`` fires once per master
+        restart the channel sees."""
+        self._epoch_change_cb = callback
+
+    def _on_epoch_change(self, old, new):
+        if self._epoch_change_cb is not None:
+            self._epoch_change_cb(old, new)
+
+    def _call(self, name, _budget_s=None, **fields):
+        return self._client.call(name, _budget_s=_budget_s, **fields)
 
     def get_task(self, worker_id, task_type=None):
         resp = self._call(
@@ -213,7 +245,8 @@ class MasterClient:
         )
 
     def master_status(self):
-        return self._call("master_status")
+        """One attempt: a probe must not ride out an outage."""
+        return self._call("master_status", _budget_s=0.0)
 
     def report_evaluation_metrics(
         self, model_version, model_outputs, labels, scored_version=None
@@ -232,16 +265,31 @@ class MasterClient:
         )
         return resp["accepted"], resp["version"]
 
-    def get_comm_world(self, worker_id, host="localhost", awaiting=True):
+    def get_comm_world(self, worker_id, host="localhost", awaiting=True,
+                       world_size=0, world_epoch=0, budget_s=None):
+        """The membership poll; ``world_size`` and ``world_epoch`` name
+        the last world the worker formed (0: none), ``budget_s`` caps
+        this call's outage window (the abort probe's is 0)."""
         return self._call(
             "get_comm_world",
+            _budget_s=budget_s,
             worker_id=int(worker_id),
             host=host,
             awaiting=awaiting,
+            world_size=int(world_size),
+            world_epoch=int(world_epoch),
         )
 
-    def leave_comm_world(self, worker_id):
-        return self._call("leave_comm_world", worker_id=int(worker_id))
+    def leave_comm_world(self, worker_id, budget_s=None):
+        return self._call(
+            "leave_comm_world", _budget_s=budget_s, worker_id=int(worker_id)
+        )
+
+    def standby_poll(self, token):
+        """(worker id, device) of this standby's promotion, or (None,
+        None) while it stays parked."""
+        resp = self._call("standby_poll", token=int(token))
+        return resp["worker_id"], resp.get("device")
 
     def close(self):
         self._client.close()

@@ -11,10 +11,12 @@ serves, where the parameters live on the worker.
   dispatcher, a failure queuing it again;
 - ``report_evaluation_metrics`` hands a worker's outputs and labels to
   the evaluation service's running round;
-- ``get_model_version`` and ``restore_version``.
+- ``get_model_version`` and ``restore_version``, which a relaunched
+  master calls with the journaled version so that its clock continues.
 
-Not ported yet: the master-held model (``optimizer`` not None, the
-master-KV and PS planes) and the journal.
+With a ``journal`` each advance of the version appends a ``version``
+record. Not ported yet: the master-held model (``optimizer`` not None,
+the master-KV and PS planes).
 """
 
 import threading
@@ -67,11 +69,8 @@ class MasterServicer:
                 "a master that holds the model (master-KV or PS plane) is "
                 "not ported yet: the ALLREDUCE master coordinates only"
             )
-        if journal is not None:
-            raise NotImplementedError(
-                "the master dispatch journal is not ported yet"
-            )
         del grads_to_wait
+        self._journal = journal
         self._task_d = task_d
         self._lock = threading.Lock()
         self._minibatch_size = minibatch_size
@@ -128,6 +127,8 @@ class MasterServicer:
             with self._lock:
                 advanced = reported > self._version
                 self._version = max(self._version, reported)
+            if advanced and self._journal is not None:
+                self._journal.append("version", version=reported)
             if advanced and self._evaluation_service:
                 # task reports are this master's only version clock, so
                 # they drive the step trigger (taking the lock: this
@@ -159,6 +160,7 @@ class MasterServicer:
         return self._version
 
     def restore_version(self, version):
-        """Resume a version clock (never moves it back)."""
+        """Resume a version clock (never moves it back): a relaunched
+        master's journaled version."""
         with self._lock:
             self._version = max(self._version, int(version))

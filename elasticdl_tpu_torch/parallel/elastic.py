@@ -145,7 +145,9 @@ class ElasticDPTrainer(AllReduceTrainer):
         # (host step, its timeline points) of the last step and of the
         # one before it, whose end the stream has passed
         self._marks = self._timed = None
-        self.establish_times = {}  # the last establish's world/broadcast
+        # the last establish's seconds: the world's formation, the
+        # source rank's choice, and that with the state's broadcast
+        self.establish_times = {}
 
     @property
     def has_state(self):
@@ -267,6 +269,7 @@ class ElasticDPTrainer(AllReduceTrainer):
         self._spec = spec
         t_world = time.perf_counter()
         source = self._replicated_source_rank()
+        t_source = time.perf_counter()
         if source < 0:
             if example_batch is None:
                 raise ValueError("the first establish() needs a batch")
@@ -275,8 +278,11 @@ class ElasticDPTrainer(AllReduceTrainer):
         elif self._ts is None:
             self._ts = self._empty_state()
         self._broadcast_state(source)
+        # source_s: the first collective of the world, so it holds the
+        # wait for the slowest member to arrive
         self.establish_times = {
             "world_s": t_world - t0,
+            "source_s": t_source - t_world,
             "broadcast_s": time.perf_counter() - t_world,
         }
         logger.info(

@@ -15,7 +15,11 @@ One call on one connection::
 
 A status of 0 carries the reply frame; any other status carries the
 error's text (utf-8), raised at the caller as :class:`RpcError` with the
-code below. The server runs one thread per connection, a connection
+code below. A refused connection, or a reset or end of stream before the
+first reply byte, is ``UNAVAILABLE`` (the master never answered; the
+failover channel of ``rpc/failover.py`` may send the call again); one
+after it is ``DATA_LOSS``, and an expired deadline is
+``DEADLINE_EXCEEDED``, neither of which is ever sent again. The server runs one thread per connection, a connection
 carries any number of calls in turn, and a client keeps a small pool of
 idle connections so that calls from several threads do not queue behind
 each other. Frames over ``MAX_MESSAGE_BYTES`` (256 MB, the reference's
@@ -41,6 +45,9 @@ _CODES = {
     3: "RESOURCE_EXHAUSTED",  # over the size cap
 }
 _STATUS = {code: status for status, code in _CODES.items()}
+# how long a fixed port a killed predecessor held may linger before the
+# bind gives up
+BIND_TIMEOUT_S = 30.0
 
 
 class RpcError(RuntimeError):
@@ -52,6 +59,10 @@ class RpcError(RuntimeError):
     def __init__(self, code, message):
         super().__init__("%s: %s" % (code, message))
         self.code = code
+
+
+class _ReplyCut(ConnectionError):
+    """The connection broke after the first reply byte arrived."""
 
 
 def _recv_exact(sock, n):
@@ -77,10 +88,10 @@ class SocketServer:
     (port 0 binds one the OS picks, exposed as :attr:`port`)."""
 
     def __init__(self, methods, port=0, host=""):
+        """A fixed ``port`` a killed predecessor held may linger for a
+        while: its bind is retried for up to ``BIND_TIMEOUT_S``."""
         self._methods = dict(methods)
-        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._listener.bind((host, port))
+        self._listener = _bind(host, port)
         self._listener.listen(128)
         self.port = self._listener.getsockname()[1]
         self._lock = threading.Lock()
@@ -178,6 +189,23 @@ class SocketServer:
         self._acceptor.join(timeout=5)
 
 
+def _bind(host, port):
+    deadline = time.monotonic() + BIND_TIMEOUT_S
+    while True:
+        listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            listener.bind((host, port))
+            return listener
+        except OSError as e:
+            listener.close()
+            if not port or time.monotonic() >= deadline:
+                raise
+            logger.warning("port %d still held (%s); retrying the bind",
+                           port, e)
+            time.sleep(0.5)
+
+
 def serve(methods, port=0):
     """Start a :class:`SocketServer` for ``methods`` on ``port`` (0: one
     the OS picks); returns it."""
@@ -231,13 +259,22 @@ class Client:
                 + struct.pack("<Q", len(frame))
             )
             sock.sendall(frame)
-            status, length = struct.unpack("<BQ", _recv_exact(sock, 9))
-            if length > MAX_MESSAGE_BYTES:
-                raise RpcError(
-                    "RESOURCE_EXHAUSTED",
-                    "reply of %d bytes over the cap" % length,
-                )
-            payload = _recv_exact(sock, length)
+            first = sock.recv(1)
+            if not first:
+                raise ConnectionResetError("connection closed by the peer")
+            try:
+                rest = _recv_exact(sock, 8)
+                status, length = struct.unpack("<BQ", bytes(first) + rest)
+                if length > MAX_MESSAGE_BYTES:
+                    raise RpcError(
+                        "RESOURCE_EXHAUSTED",
+                        "reply of %d bytes over the cap" % length,
+                    )
+                payload = _recv_exact(sock, length)
+            except (ConnectionError, OSError) as e:
+                if isinstance(e, socket.timeout):
+                    raise
+                raise _ReplyCut(str(e)) from e
         except BaseException:
             sock.close()
             raise
@@ -264,6 +301,13 @@ class Client:
                 raise RpcError(
                     "DEADLINE_EXCEEDED",
                     "%s after %ss" % (rpc_name, self._deadline_s),
+                ) from e
+            except _ReplyCut as e:
+                # the master answered, then the line broke: the call may
+                # have taken effect, so it is not sent again
+                raise RpcError(
+                    "DATA_LOSS", "%s reply from %s:%d cut: %s"
+                    % (rpc_name, self._addr[0], self._addr[1], e)
                 ) from e
             except (ConnectionError, OSError) as e:
                 if not (_retriable and attempt < self._retries):

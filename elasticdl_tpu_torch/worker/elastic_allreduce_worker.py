@@ -27,6 +27,26 @@ the worker announces its leave, steps on until the world pauses, lands
 its checkpoint writes and exits with ``PREEMPTED_EXIT_CODE``, which the
 instance manager answers with a replacement.
 
+**A master restart.** Every call to the master rides out an outage in
+the failover channel (``MasterClient``): the per-step membership poll
+blocks there while the master is away. Once a relaunched master answers
+(its ``master_epoch`` changed), the world the worker is in was formed by
+a membership the new master does not hold, so the step's epoch hint is
+raised past the world's epoch: every rank pauses at the same step,
+leaves, and the workers re-register with the new master, each naming the
+size and epoch of the world it left, and form a new world past that
+epoch. The trained state carries over; the acks of tasks
+the dead master dispatched resolve by their trace ids.
+
+**Evaluation in a training job.** In a ``training_with_evaluation`` job
+each worker drains the queued evaluation tasks between its steps
+(``_evaluate_only``) and once more in ``_finalize``. It scores each task
+with the inference forward (BatchNorm on its running statistics) over a
+snapshot of its replicated train state, taken at the version the
+round pins where it can and cached per version, and reports the version
+it scored (``scored_version``). Its peers wait for it in their next
+step's all-reduce, as the reference's replicated plane does.
+
 **Scoring.** Evaluation-only and prediction-only jobs train nothing, so
 they need no collective, no membership and no trainer state: their tasks
 drain against an inference forward (BatchNorm on running statistics)
@@ -60,13 +80,15 @@ before it), each ``checkpoint`` (the snapshot's stall on the step path and
 the digest of the state saved), ``checkpoint_writes`` (the background
 writes' seconds), ``world_broken`` and ``final`` (the final state's
 digest and the process's flash-attention launches). The digests are
-``parallel/elastic.state_digest``.
+``parallel/elastic.state_digest``. A promoted standby's timeline also
+has a ``standby`` event, and a training job's, one ``eval`` event per
+scored task.
 
-Not ported, each raising ``NotImplementedError``: the collective
-evaluation of an elastic job (a TRAINING_WITH_EVALUATION job), sharded,
-pjit and pipelined models (zoo hooks ``mesh_axes`` and
-``build_distributed_model``), standby workers, and the world-size
-rounding's spare members (the replicated plane rounds to 1).
+Not ported, each raising ``NotImplementedError``: sharded, pjit and
+pipelined models (zoo hooks ``mesh_axes`` and
+``build_distributed_model``), with the collective evaluation
+(``_collective_evaluate``) that scores them in a training job, and the
+world-size rounding's spare members (the replicated plane rounds to 1).
 """
 
 import json
@@ -182,14 +204,14 @@ class ElasticAllReduceWorker:
             if hasattr(load_zoo_module(model_def, model_zoo), hook):
                 raise NotImplementedError(
                     "zoo module %s defines %s: a mesh or distributed model "
-                    "is not ported yet" % (model_def, hook)
+                    "is not ported yet%s" % (
+                        model_def, hook,
+                        ", nor the collective evaluation "
+                        "(_collective_evaluate) that scores it"
+                        if job_type == JobType.TRAINING_WITH_EVALUATION
+                        else "",
+                    )
                 )
-        if job_type == JobType.TRAINING_WITH_EVALUATION:
-            raise NotImplementedError(
-                "the collective evaluation of an elastic job "
-                "(--validation_data with --num_workers > 0) is not ported "
-                "yet"
-            )
         self._serving_only = job_type in (
             JobType.EVALUATION_ONLY,
             JobType.PREDICTION_ONLY,
@@ -256,11 +278,21 @@ class ElasticAllReduceWorker:
                 self._host = hostname
         self._epoch_poll_secs = epoch_poll_secs
         self._task_data_service = TaskDataService(
-            self, False, data_reader_params=data_reader_params
+            self,
+            job_type == JobType.TRAINING_WITH_EVALUATION,
+            data_reader_params=data_reader_params,
         )
         self._forward_fn = None
         self._eval_params = None  # (params, state) on the device
+        self._eval_params_version = None  # a training job's snapshot's
         self._eval_scored_version = None  # the version they came from
+        # master restarts seen by the channel, and the count when the
+        # current world formed
+        self._master_boots = 0
+        self._world_master_boots = 0
+        self._last_world = (0, 0)  # (size, epoch) of the last world formed
+        if hasattr(stub, "set_on_master_epoch_change"):
+            stub.set_on_master_epoch_change(self._on_master_epoch_change)
 
     def _init_training(self, spec, seed, precision, accum_steps, remat,
                        checkpoint_dir, checkpoint_steps, keep_checkpoint_max):
@@ -297,6 +329,17 @@ class ElasticAllReduceWorker:
         self._drain_announced = False
         self._drain_deadline = 0.0
         self._world_members = ()
+
+    def record_event(self, event, **fields):
+        """Append ``event`` to this worker's timeline (when it is on)."""
+        self._timeline(event, **fields)
+
+    def _on_master_epoch_change(self, old, new):
+        """The channel saw a relaunched master: the current world must be
+        left and formed again with it."""
+        self._master_boots += 1
+        logger.warning("master relaunched (epoch %s -> %s)", old, new)
+        self._timeline("master_relaunched", old=old, new=new)
 
     # master surface used by TaskDataService
     def get_task(self, task_type=None):
@@ -537,18 +580,58 @@ class ElasticAllReduceWorker:
 
     # -- evaluation tasks ----------------------------------------------------
 
-    def _evaluate_only(self):
+    def _evaluate_only(self, final=False):
         """Score every queued evaluation task; True if any completed. A
-        deferred task (no scoreable params) requeued: stop grabbing."""
+        deferred task (no scoreable params) requeued: stop grabbing, or,
+        with ``final`` (no later step retries), wait and try again, up to
+        30 times. A training worker that has no state yet leaves the
+        tasks to its peers."""
+        if self.trainer is not None and not self.trainer.has_state:
+            return False
         executed = False
+        retries = 30 if final else 0
         while True:
             task = self.get_task(TaskType.EVALUATION)
             if not task.shard_name:
                 break
             if not self._process_eval_task(task):
-                break
+                if retries <= 0:
+                    break
+                retries -= 1
+                time.sleep(1.0)
+                continue
             executed = True
         return executed
+
+    def _local_forward(self, features, pinned_version=None):
+        """A training job's inference forward over a snapshot of its
+        train state (params and BatchNorm statistics), taken at the
+        current version and cached per version: a round's tasks scored
+        at its pinned version all use one snapshot, even after training
+        moves on. ``_eval_scored_version`` names the version scored."""
+        if self._forward_fn is None:
+            from elasticdl_tpu_torch.training.step import make_forward_fn
+
+            self._forward_fn = make_forward_fn(self._model)
+        if (
+            pinned_version is None
+            or self._eval_params_version != pinned_version
+        ):
+            version = self.trainer.version
+            if self._eval_params_version != version:
+                from elasticdl_tpu_torch.parallel.trainer import to_device
+
+                host_ts = self.trainer.snapshot()
+                if host_ts is None:
+                    raise RuntimeError("no local train state for evaluation")
+                self._eval_params = (
+                    to_device(host_ts.params, self._device),
+                    to_device(host_ts.state, self._device),
+                )
+                self._eval_params_version = version
+        self._eval_scored_version = self._eval_params_version
+        params, state = self._eval_params
+        return self._forward_fn(params, state, features)
 
     def _process_eval_task(self, task):
         """True when the task completed (or fail-reported for a retry);
@@ -557,6 +640,7 @@ class ElasticAllReduceWorker:
         if not eval_info:
             return False
         dataset, model_version, task_id = eval_info
+        t0 = time.time()
         dataset = self._dataset_fn(
             dataset,
             Mode.EVALUATION,
@@ -568,7 +652,13 @@ class ElasticAllReduceWorker:
         out_chunks, label_chunks = {}, []
         try:
             for features, labels in dataset:
-                outputs = self._serving_forward(features)
+                outputs = (
+                    self._serving_forward(features)
+                    if self._serving_only
+                    else self._local_forward(
+                        features, pinned_version=model_version
+                    )
+                )
                 if not isinstance(outputs, dict):
                     outputs = {MetricsDictKey.MODEL_OUTPUT: outputs}
                 # one copy to the host per batch (bf16 widened to float32)
@@ -584,6 +674,12 @@ class ElasticAllReduceWorker:
         self._report_eval_outputs(
             task_id, model_version, out_chunks, label_chunks
         )
+        if self._timeline.enabled:
+            self._timeline(
+                "eval", task=task_id, version=model_version,
+                scored_version=self._eval_scored_version,
+                rows=sum(len(c) for c in label_chunks), t0=t0,
+            )
         return True
 
     def _report_eval_outputs(
@@ -602,7 +698,12 @@ class ElasticAllReduceWorker:
             self.report_task_result(task_id)
         except Exception as e:
             logger.warning("eval task %d report failed: %s", task_id, e)
-            self.report_task_result(task_id, err_msg=str(e))
+            try:
+                self.report_task_result(task_id, err_msg=str(e))
+            except Exception:
+                # the master is unreachable: its boot requeues the task
+                logger.debug("fail-report of eval task %d failed too",
+                             task_id, exc_info=True)
 
 
     # -- graceful preemption ------------------------------------------------
@@ -672,9 +773,14 @@ class ElasticAllReduceWorker:
 
     # -- membership ---------------------------------------------------------
 
-    def _poll_world(self, awaiting):
+    def _poll_world(self, awaiting, budget_s=None):
+        """The membership poll. It names the size and epoch of the last
+        world this worker formed: a relaunched master waits for that many
+        before its first world forms, and forms it past that epoch."""
+        size, epoch = self._last_world
         return self._stub.get_comm_world(
-            self._worker_id, self._host, awaiting=awaiting
+            self._worker_id, self._host, awaiting=awaiting,
+            world_size=size, world_epoch=epoch, budget_s=budget_s,
         )
 
     def _await_world(self):
@@ -715,7 +821,8 @@ class ElasticAllReduceWorker:
         if distributed.current_spec() is None:
             return False
         try:
-            w = self._poll_world(awaiting=False)
+            # one attempt: a master outage must not hold the wait loop
+            w = self._poll_world(awaiting=False, budget_s=0.0)
         except Exception:
             logger.debug("world probe failed", exc_info=True)
             return False
@@ -749,6 +856,7 @@ class ElasticAllReduceWorker:
                 break
             try:
                 example = self._retry_batch or self.trainer._last_local
+                self._world_master_boots = self._master_boots
                 self.trainer.establish(world, example_batch=example)
                 if (
                     self._ckpt is not None
@@ -766,6 +874,7 @@ class ElasticAllReduceWorker:
                     world.epoch,
                 )
                 continue
+            self._last_world = (world.num_processes, world.epoch)
             if self._timeline.enabled:
                 self._timeline(
                     "established", epoch=world.epoch,
@@ -887,21 +996,30 @@ class ElasticAllReduceWorker:
                 # the announcement never landed: leave anyway; the
                 # survivors take the broken-collective path
                 return self._settle_and_leave("preempted")
+            if self._job_type == JobType.TRAINING_WITH_EVALUATION:
+                # the replicated plane scores a local snapshot whenever a
+                # round is queued; the peers wait in their next step
+                self._evaluate_only()
             w = self._poll_world(awaiting=False)
             if self._drain_announced and w["epoch"] != world.epoch:
                 # the bump is visible: the pause lands within one step
                 self._drain_deadline = 0.0
+            epoch_hint = w["epoch"]
+            if self._master_boots != self._world_master_boots:
+                # a relaunched master does not hold this world: every
+                # rank pauses at this step and forms one with it
+                epoch_hint = max(epoch_hint, world.epoch + 1)
             batch = self._next_batch()
             try:
                 if batch is None:
                     loss, n_active, count = self.trainer.train_step(
                         None, None, self._minibatch_size,
-                        epoch_hint=w["epoch"],
+                        epoch_hint=epoch_hint,
                     )
                 else:
                     loss, n_active, count = self.trainer.train_step(
                         batch[0], batch[1], self._minibatch_size,
-                        epoch_hint=w["epoch"],
+                        epoch_hint=epoch_hint,
                     )
                     losses.append(loss)
             except Exception as err:
@@ -995,7 +1113,14 @@ class ElasticAllReduceWorker:
                 "checkpoint_writes", write_s=self._ckpt.write_seconds
             )
         if not self._preempted:
-            # a drained worker takes no more work (the SAVE_MODEL task)
+            # a drained worker takes no more work (the last rounds, the
+            # SAVE_MODEL task)
+            if self._job_type == JobType.TRAINING_WITH_EVALUATION:
+                try:
+                    self._evaluate_only(final=True)
+                except Exception:
+                    logger.warning("final evaluation round failed",
+                                   exc_info=True)
             self._process_save_model_task_if_needed()
         if self._timeline.enabled and self.trainer.has_state:
             self._timeline(

@@ -11,15 +11,27 @@ AllreduceStrategy it runs the elastic worker
 socket transport, with SIGTERM draining it. A clean end announces the
 leave to the membership before exiting 0, so the exit is not read as a
 death; a drained worker exits hard with ``PREEMPTED_EXIT_CODE`` (75),
-which the instance manager answers with a replacement.
+which the instance manager answers with a replacement. Every call to
+the master goes through the failover channel with ``--master_failover_s``
+of outage budget: a master that is relaunched within it is ridden out, a
+master that stays away longer ends the worker with the channel's error.
 
-Not ported, each raising ``NotImplementedError``: the parameter-server
-worker (``--distribution_strategy ParameterServerStrategy``, ``--ps_addrs``)
-and pre-warmed standby workers (``--standby``).
+With ``--standby true`` the process is a pre-warmed spare, its
+``--worker_id`` a token: it imports the worker and the zoo module and,
+where the device it will train on is known already (a card shared by
+every worker, or one named by index), creates its CUDA context and loads
+cuDNN and cuBLAS with one small convolution. Then it parks, polling the
+master's ``standby_poll``, until a promotion names its worker id and
+device; it then trains as that worker, and its timeline's ``standby``
+event records what it warmed and how long it parked.
+
+Not ported, raising ``NotImplementedError``: the parameter-server worker
+(``--distribution_strategy ParameterServerStrategy``, ``--ps_addrs``).
 """
 
 import os
 import sys
+import time
 
 from elasticdl_tpu_torch.common.args import parse_worker_args
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
@@ -36,18 +48,17 @@ def main(argv=None):
             % (args.distribution_strategy,
                ", --ps_addrs" if args.ps_addrs else "")
         )
-    if args.standby:
-        raise NotImplementedError(
-            "standby workers are not ported yet (asked for by --standby)"
-        )
     from elasticdl_tpu_torch.master.rpc_service import MasterClient
     from elasticdl_tpu_torch.worker.elastic_allreduce_worker import (
         ElasticAllReduceWorker,
     )
 
-    stub = MasterClient(args.master_addr)
+    stub = MasterClient(args.master_addr, failover_s=args.master_failover_s)
+    worker_id, device, standby = args.worker_id, args.device, None
+    if args.standby:
+        worker_id, device, standby = _park(stub, args)
     worker = ElasticAllReduceWorker(
-        worker_id=args.worker_id,
+        worker_id=worker_id,
         job_type=args.job_type,
         minibatch_size=args.minibatch_size,
         model_zoo=args.model_zoo,
@@ -68,8 +79,10 @@ def main(argv=None):
         precision=args.precision_policy or None,
         accum_steps=args.grad_accum_steps,
         remat=args.remat,
-        device=args.device,
+        device=device,
     )
+    if standby is not None:
+        worker.record_event("standby", **standby)
     worker.enable_drain_on_sigterm()
     worker.run()
     if worker.preempted:
@@ -79,13 +92,63 @@ def main(argv=None):
         sys.stdout.flush()
         os._exit(ElasticAllReduceWorker.PREEMPTED_EXIT_CODE)
     # announce the clean end before exiting, so the membership leaves
-    # this exit off the dead list
+    # this exit off the dead list; a master already gone is not waited
+    # out for the whole failover budget
     try:
-        stub.leave_comm_world(args.worker_id)
+        stub.leave_comm_world(
+            worker_id, budget_s=min(stub.outage_budget_s, 10.0)
+        )
     except Exception:
         logger.debug("leave announcement missed", exc_info=True)
     stub.close()
     return 0
+
+
+def _warm(args):
+    """What a standby can do before it knows its worker id: the imports
+    and, where its device is known already, the CUDA context with cuDNN
+    and cuBLAS loaded. Returns the seconds of each step."""
+    import torch
+
+    from elasticdl_tpu_torch.common.model_utils import load_zoo_module
+
+    t0 = time.perf_counter()
+    load_zoo_module(args.model_def, args.model_zoo)
+    warmed = {"zoo_s": time.perf_counter() - t0, "context_s": None}
+    device = torch.device(args.device)
+    if device.type == "cuda" and (
+        device.index is not None or torch.cuda.device_count() <= 1
+    ):
+        from elasticdl_tpu_torch.common.device import resolve_device
+
+        t0 = time.perf_counter()
+        dev = resolve_device(args.device)
+        x = torch.ones(1, 3, 16, 16, device=dev)
+        y = torch.nn.functional.conv2d(x, torch.ones(4, 3, 3, 3, device=dev))
+        (y.flatten(1) @ y.flatten(1).T).sum().item()
+        warmed["context_s"] = time.perf_counter() - t0
+    return warmed
+
+
+def _park(stub, args):
+    """Warm, then poll ``standby_poll`` until the master promotes this
+    standby; returns (worker id, device, the timeline's standby event).
+    A master that stays away past the failover budget ends it."""
+    token = args.worker_id
+    warmed = _warm(args)
+    logger.info("standby %d warmed (%s); parking", token, warmed)
+    parked_at = time.time()
+    while True:
+        worker_id, device = stub.standby_poll(token)
+        if worker_id is not None:
+            break
+        time.sleep(0.25)
+    logger.info("standby %d promoted to worker %d on %s", token, worker_id,
+                device or args.device)
+    return int(worker_id), device or args.device, dict(
+        token=token, warmed=warmed, parked_at=parked_at,
+        promoted_at=time.time(),
+    )
 
 
 if __name__ == "__main__":

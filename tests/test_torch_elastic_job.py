@@ -20,6 +20,21 @@ elasticdl_tpu_torch.worker.main``) in a gloo world.
 - Placement: the workers get a card each only when the host has enough
   (an NCCL world), else share ``cuda`` (a gloo world), with the card
   count patched; a relaunched worker takes its predecessor's card.
+- The master SIGKILL drill: the master runs as its own process
+  (``python -m elasticdl_tpu_torch.master.master`` with a journal and a
+  fixed port) and two worker processes dial it, all three supervised by
+  one ``LocalInstanceManager`` in its external-supervisor form; the
+  master is SIGKILLed at version 4 and relaunched. Neither worker exits
+  during the outage, ``master_epoch`` advances, the workers re-form with
+  the relaunched master, the journal counts every task done once (done =
+  tasks x epochs, pending 0), and the ranks end equal.
+- The standby drill: with ``--num_standby_workers 1`` the killed
+  worker's place goes to the warmed standby (its timeline's ``standby``
+  event), the survivor re-forms once at full size, and a fresh standby
+  refills the pool.
+- Evaluation while training: ``--validation_data`` with
+  ``--evaluation_steps``: rounds are published at versions > 0, each over
+  every validation record, and every task is done once.
 
 Each job runs in a launcher process under its own wall-clock limit (a hang
 fails the test, and the launcher's process group, workers included, is
@@ -81,12 +96,79 @@ LAUNCHER = textwrap.dedent(
         getattr(master.instance_manager, cfg["action"])(cfg["victim"])
     runner.join()
     manager = master.instance_manager
+    evaluation = master.evaluation_service
     print(json.dumps({
         "rc": rc[0] if rc else None,
         "done": done,
         "finished": master.task_d.finished(),
         "exit_codes": {str(k): v for k, v in manager.exit_codes.items()},
+        "standby_exit_codes": {
+            str(k): v for k, v in manager.standby_exit_codes.items()},
+        "promotions": manager.promotions,
+        "cold_relaunches": manager.cold_relaunches,
+        "published": evaluation.published if evaluation else [],
         "acted": acted,
+    }, default=float))
+    """
+)
+
+# the master as a process of its own, supervised with its workers by one
+# LocalInstanceManager outside it; the master is SIGKILLed at version 4
+SUPERVISOR = textwrap.dedent(
+    """
+    import json, os, socket, sys, time
+    cfg = json.loads(sys.argv[1])
+    sys.path.insert(0, cfg["repo"])
+    from elasticdl_tpu_torch.master.local_instance_manager import (
+        LocalInstanceManager,
+    )
+    from elasticdl_tpu_torch.master.rpc_service import MasterClient
+
+    def status():
+        probe = MasterClient("localhost:%d" % cfg["port"])
+        try:
+            return probe.master_status()
+        except Exception:
+            return None
+        finally:
+            probe.close()
+
+    env = dict(os.environ, PYTHONPATH=cfg["repo"], EDL_COMM_HOST="localhost",
+               EDL_MASTER_POLL_SECS="1", EDL_MASTER_EXIT_GRACE_S="60",
+               EDL_WORKER_TIMELINE_DIR=cfg["timeline"])
+    manager = LocalInstanceManager(
+        None, 2,
+        lambda wid, dev: cfg["worker"] + ["--worker_id", str(wid),
+                                          "--device", dev],
+        ["cpu", "cpu"], env=env, master_command=lambda: cfg["master"],
+    )
+    manager.start_master()
+    while status() is None:
+        time.sleep(0.1)
+    before = status()
+    manager.start_workers()
+    while (status() or {}).get("version", 0) < 4:
+        time.sleep(0.02)
+    live_at_kill = manager.live_workers()
+    manager.kill_master()
+    killed = time.time()
+    after = None
+    while after is None or after["master_epoch"] == before["master_epoch"]:
+        after = status()
+        time.sleep(0.05)
+    serving_s = time.time() - killed
+    live_after = manager.live_workers()
+    manager.wait()
+    deadline = time.time() + 60
+    while manager.live_master() and time.time() < deadline:
+        time.sleep(0.1)
+    master_exits = list(manager.master_exit_codes)
+    manager.stop_relaunch_and_remove_all_pods(grace_s=5)
+    print(json.dumps({
+        "before": before, "after": after, "serving_s": serving_s,
+        "live_at_kill": live_at_kill, "live_after": live_after,
+        "exit_codes": {str(k): v for k, v in manager.exit_codes.items()},
+        "master_exit_codes": master_exits, "killed": killed,
     }))
     """
 )
@@ -113,27 +195,14 @@ def data_dir(tmp_path_factory):
     return d
 
 
-def _run_job(tmp, data_dir, epochs=1, action=None, victim=None,
-             ckpt="ckpt", name="run"):
-    out = os.path.join(tmp, name)
-    argv = [
-        "train", "--job_name", "elastic", "--distribution_strategy",
-        "AllreduceStrategy", "--num_workers", "2", "--model_zoo", "",
-        "--model_def", MNIST, "--training_data", data_dir,
-        "--minibatch_size", str(BATCH), "--num_minibatches_per_task",
-        str(PER_TASK), "--num_epochs", str(epochs),
-        "--checkpoint_dir", os.path.join(tmp, ckpt),
-        "--checkpoint_steps", "4", "--keep_checkpoint_max", "3",
-        "--output", os.path.join(out, "export"), "--restart_policy",
-        "Always", "--device", "cpu", "--log_level", "WARNING",
-    ]
-    cfg = dict(repo=REPO, argv=argv, action=action, victim=victim,
-               timeline=os.path.join(out, "timeline"))
-    # one compute thread a process: the launcher's workers share this
-    # host's cores with the other test processes
+def _launch(script, cfg):
+    """Run ``script`` with ``cfg`` under the wall limit, its process group
+    killed at the end; its last stdout line as JSON, and its stderr."""
+    # one compute thread a process: the workers share this host's cores
+    # with the other test processes
     env = dict(os.environ, OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
-        [sys.executable, "-c", LAUNCHER, json.dumps(cfg)],
+        [sys.executable, "-c", script, json.dumps(cfg)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         start_new_session=True, env=env,
     )
@@ -150,11 +219,31 @@ def _run_job(tmp, data_dir, epochs=1, action=None, victim=None,
             pass
     assert proc.returncode == 0, stderr[-4000:]
     result = json.loads(stdout.strip().splitlines()[-1])
+    result["stderr"] = stderr
+    return result
+
+
+def _run_job(tmp, data_dir, epochs=1, action=None, victim=None,
+             ckpt="ckpt", name="run", extra=()):
+    out = os.path.join(tmp, name)
+    argv = [
+        "train", "--job_name", "elastic", "--distribution_strategy",
+        "AllreduceStrategy", "--num_workers", "2", "--model_zoo", "",
+        "--model_def", MNIST, "--training_data", data_dir,
+        "--minibatch_size", str(BATCH), "--num_minibatches_per_task",
+        str(PER_TASK), "--num_epochs", str(epochs),
+        "--checkpoint_dir", os.path.join(tmp, ckpt),
+        "--checkpoint_steps", "4", "--keep_checkpoint_max", "3",
+        "--output", os.path.join(out, "export"), "--restart_policy",
+        "Always", "--device", "cpu", "--log_level", "WARNING",
+    ] + list(extra)
+    cfg = dict(repo=REPO, argv=argv, action=action, victim=victim,
+               timeline=os.path.join(out, "timeline"))
+    result = _launch(LAUNCHER, cfg)
     result["timeline"] = _timeline(cfg["timeline"])
     result["export"] = glob.glob(
         os.path.join(out, "export", "*", "MANIFEST.json")
     )
-    result["stderr"] = stderr
     return result
 
 
@@ -348,3 +437,124 @@ def test_a_relaunched_worker_takes_the_card_of_the_one_it_replaces():
                           3: "cuda:0"}
     finally:
         manager.stop_relaunch_and_remove_all_pods(grace_s=1)
+
+
+# ---------------------------------------------------------------------------
+# the master SIGKILL drill, standby promotion, evaluation while training
+# ---------------------------------------------------------------------------
+
+
+def test_master_sigkill_drill_rides_out_the_outage(tmp_path, data_dir):
+    import socket
+
+    from elasticdl_tpu_torch.master.journal import MasterJournal
+
+    epochs = 2
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        port = sock.getsockname()[1]
+    journal = str(tmp_path / "journal")
+    common = [
+        "--model_zoo", "", "--model_def", MNIST, "--minibatch_size",
+        str(BATCH), "--log_level", "WARNING",
+    ]
+    master = [
+        sys.executable, "-m", "elasticdl_tpu_torch.master.master",
+        "--job_name", "drill", "--distribution_strategy",
+        "AllreduceStrategy", "--num_workers", "0", "--training_data",
+        data_dir, "--num_minibatches_per_task", str(PER_TASK),
+        "--num_epochs", str(epochs), "--port", str(port),
+        "--master_journal_dir", journal, "--master_journal_fsync_ms", "20",
+    ] + common
+    worker = [
+        sys.executable, "-m", "elasticdl_tpu_torch.worker.main",
+        "--job_type", "training_only", "--distribution_strategy",
+        "AllreduceStrategy", "--master_addr", "localhost:%d" % port,
+        "--master_failover_s", "60", "--checkpoint_dir",
+        str(tmp_path / "ckpt"), "--checkpoint_steps", "4",
+    ] + common
+    timeline = str(tmp_path / "timeline")
+    r = _launch(SUPERVISOR, dict(repo=REPO, port=port, master=master,
+                                 worker=worker, timeline=timeline))
+    # neither worker exited during the outage; the job ended cleanly
+    assert r["live_at_kill"] == r["live_after"] == [0, 1]
+    assert r["exit_codes"] == {"0": 0, "1": 0}
+    assert r["master_exit_codes"] == [-signal.SIGKILL, 0]
+    assert r["after"]["master_epoch"] == r["before"]["master_epoch"] + 1
+    assert r["after"]["recovery"]["records"] > 0
+    assert r["after"]["version"] >= 4  # the version clock continued
+    # every task done once by the journal's count
+    state = MasterJournal(journal).replay()
+    tasks = RECORDS // (BATCH * PER_TASK)
+    assert state.counters["done"] == tasks * epochs and not state.pending
+    tl = _timeline(timeline)
+    for w in (0, 1):
+        assert _events(tl[w], "master_relaunched")
+        # the workers left the old world and formed one with the new
+        # master, at its seeded epoch, at full size
+        worlds = _events(tl[w], "established")
+        assert worlds[-1]["size"] == 2
+        assert worlds[-1]["epoch"] > worlds[0]["epoch"]
+    finals = [_final(tl[w]) for w in (0, 1)]
+    assert finals[0]["digest"] == finals[1]["digest"]
+    # one version a step with a live rank; the first of the two workers
+    # (the first boot expects one) stepped alone before the other joined
+    assert finals[0]["version"] == max(
+        sum(1 for s in _events(tl[w], "step") if s["live"] > 0)
+        for w in (0, 1)
+    )
+
+
+def test_a_warmed_standby_takes_the_dead_workers_place(tmp_path, data_dir):
+    r = _run_job(str(tmp_path), data_dir, epochs=2, action="kill_worker",
+                 victim=1, extra=("--num_standby_workers", "1"))
+    _assert_every_task_once(r, 2)
+    assert r["exit_codes"]["1"] == -signal.SIGKILL
+    # the standby (token 2) was promoted to worker 3; token 4 refilled
+    assert [p[:2] for p in r["promotions"]] == [[3, 2]]
+    assert not r["cold_relaunches"]
+    assert r["exit_codes"]["0"] == r["exit_codes"]["3"] == 0
+    tl = r["timeline"]
+    (standby,) = _events(tl[3], "standby")
+    assert standby["token"] == 2 and standby["promoted_at"] >= r["acted"]
+    # one re-form at full size: the bump waited for the promoted worker
+    sizes = [w["size"] for w in _events(tl[0], "established")]
+    assert sizes[:2] == [2, 2], sizes
+    joined = _events(tl[3], "established")
+    assert joined[0]["size"] == 2
+    assert _final(tl[0])["digest"] == _final(tl[3])["digest"]
+
+
+def test_evaluation_rounds_run_while_the_workers_train(tmp_path, data_dir):
+    val = str(tmp_path / "val")
+    os.makedirs(val)
+    from elasticdl_tpu_torch.data.example import encode_example
+    from elasticdl_tpu_torch.data.recordio import RecordIOWriter
+
+    rng = np.random.default_rng(1)
+    with RecordIOWriter(os.path.join(val, "f0")) as w:
+        for _ in range(64):
+            w.write(encode_example({
+                "image": rng.random(784, dtype=np.float32) * 255,
+                "label": np.array([rng.integers(0, 10)], np.int64),
+            }))
+    r = _run_job(str(tmp_path), data_dir, extra=(
+        "--validation_data", val, "--evaluation_steps", "16"))
+    rounds = r["published"]
+    assert [p["version"] for p in rounds][:3] == [16, 32, 48]
+    assert all(p["version"] > 0 and 0 <= p["metrics"]["accuracy"] <= 1
+               for p in rounds)
+    # every round scored every validation record, at a version > 0
+    tl = r["timeline"]
+    scored = [e for w in tl for e in _events(tl[w], "eval")]
+    by_round = {}
+    for e in scored:
+        assert e["scored_version"] >= e["version"] > 0
+        by_round[e["version"]] = by_round.get(e["version"], 0) + e["rows"]
+    assert by_round == {p["version"]: 64 for p in rounds}
+    # training tasks, SAVE_MODEL and two evaluation tasks a round, once
+    assert r["rc"] == 0 and r["finished"]
+    assert len(r["done"]) == len(set(r["done"])) == _tasks(1) + 2 * len(
+        rounds)
+    finals = [_final(tl[w]) for w in (0, 1)]
+    assert finals[0]["digest"] == finals[1]["digest"]

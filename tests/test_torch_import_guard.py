@@ -66,6 +66,7 @@ def test_every_port_module_imports_without_jax():
             m for m in sys.modules if m.split(".")[0] in BLOCKED
         )
         assert not leaked, leaked
+        print(" ".join(names))
         print("imported", len(names))
         """
         % REPO
@@ -73,10 +74,13 @@ def test_every_port_module_imports_without_jax():
     assert proc.returncode == 0, proc.stderr[-4000:]
     count = int(proc.stdout.split()[-1])
     # every module of the slices, packages included (master/, worker/,
-    # metrics/, the zoo's ResNet-50 and MNIST modules, and the elastic
-    # job's socket transport, membership, instance manager, process
-    # groups, elastic trainer and worker entry among them)
-    assert count >= 71
+    # metrics/, the zoo's ResNet-50 and MNIST modules, the elastic job's
+    # socket transport, membership, instance manager, process groups,
+    # elastic trainer and worker entry, and the master's journal and the
+    # failover channel among them)
+    assert count >= 73
+    assert "elasticdl_tpu_torch.master.journal" in proc.stdout
+    assert "elasticdl_tpu_torch.rpc.failover" in proc.stdout
 
 
 def test_the_job_runs_with_jax_and_grpc_blocked(tmp_path):
@@ -153,7 +157,8 @@ def test_the_job_runs_with_jax_and_grpc_blocked(tmp_path):
 def test_the_multi_process_job_runs_with_jax_and_grpc_blocked(tmp_path):
     """``--num_workers 2`` on the CPU: the master in a blocked
     interpreter, and each ``worker.main`` process blocked the same way
-    (its command line runs the blocker first), over the socket plane."""
+    (its command line runs the blocker first), over the socket plane;
+    with the master's journal, a parked standby and evaluation rounds."""
     proc = _run_blocked(
         """
         import os, runpy
@@ -168,7 +173,7 @@ def test_the_multi_process_job_runs_with_jax_and_grpc_blocked(tmp_path):
                            _orig=api.LocalJob._worker_command):
             argv = _orig(self, worker_id, device)
             code = BLOCKER + (
-                "import runpy; sys.argv = ['worker'] + %%r; "
+                "import runpy; sys.argv = ['worker'] + %%r + sys.argv[1:]; "
                 "runpy.run_module('elasticdl_tpu_torch.worker.main', "
                 "run_name='__main__')" %% (argv[3:],)
             )
@@ -186,6 +191,14 @@ def test_the_multi_process_job_runs_with_jax_and_grpc_blocked(tmp_path):
                     "image": rng.random(784, dtype=np.float32) * 255,
                     "label": np.array([rng.integers(0, 10)], np.int64),
                 }))
+        val = os.path.join(%r, "val")
+        os.makedirs(val)
+        with RecordIOWriter(os.path.join(val, "f0")) as w:
+            for _ in range(64):
+                w.write(encode_example({
+                    "image": rng.random(784, dtype=np.float32) * 255,
+                    "label": np.array([rng.integers(0, 10)], np.int64),
+                }))
         jobs = []
         rc = cli.main([
             "train", "--job_name", "j", "--distribution_strategy",
@@ -193,18 +206,27 @@ def test_the_multi_process_job_runs_with_jax_and_grpc_blocked(tmp_path):
             "--model_def", "mnist_subclass.mnist_subclass.CustomModel",
             "--training_data", data, "--minibatch_size", "16",
             "--num_minibatches_per_task", "2", "--device", "cpu",
-            "--log_level", "WARNING",
+            "--log_level", "WARNING", "--num_standby_workers", "1",
+            "--master_journal_dir", os.path.join(%r, "journal"),
+            "--validation_data", val, "--evaluation_steps", "32",
         ], jobs=jobs)
-        codes = jobs[0].master.instance_manager.exit_codes
+        master = jobs[0].master
+        codes = master.instance_manager.exit_codes
         assert rc == 0 and codes == {0: 0, 1: 0}, codes
-        assert jobs[0].master.task_d.finished()
+        assert master.task_d.finished()
+        assert master.instance_manager.standby_exit_codes  # stopped
+        assert master.evaluation_service.published
+        from elasticdl_tpu_torch.master.journal import MasterJournal
+        state = MasterJournal(os.path.join(%r, "journal")).replay()
+        assert state.counters["done"] > 0 and not state.pending
         leaked = sorted(
             m for m in sys.modules if m.split(".")[0] in BLOCKED
         )
         assert not leaked, leaked
         print("version", jobs[0].master.master_servicer.get_model_version())
         """
-        % (REPO, BLOCKER, str(tmp_path)),
+        % (REPO, BLOCKER, str(tmp_path), str(tmp_path), str(tmp_path),
+           str(tmp_path)),
         env=dict(os.environ, OMP_NUM_THREADS="1"),
     )
     assert proc.returncode == 0, proc.stderr[-4000:]

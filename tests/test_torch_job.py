@@ -450,10 +450,9 @@ def test_cli_runs_a_job_and_continues_it(tmp_path):
 @pytest.mark.parametrize(
     "flag",
     [
-        ["--num_workers", "2", "--num_standby_workers", "1"],
-        ["--num_workers", "2", "--validation_data", "v"],
-        ["--master_journal_dir", "j"],
         ["--telemetry_port", "0"],
+        ["--telemetry_events_path", "e"],
+        ["--distribution_strategy", "Local"],
         ["--distribution_strategy", "ParameterServerStrategy"],
         ["--docker_image_repository", "r"],
         ["--tensorboard_log_dir", "tb"],

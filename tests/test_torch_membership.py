@@ -9,7 +9,10 @@ Epochs, readiness, ranks, world sizes and members, coordinator changes,
 dead lists, spares and the members fenced must be equal call for call.
 The scripts are those of ``tests/test_elastic_allreduce.py:41-176``
 (epochs and growth, the dead list of real crashes, the confirm timeout,
-the form grace), plus a kill-and-relaunch journey and a drain.
+the form grace), plus a kill-and-relaunch journey and a drain, the
+standby pool, a death's bump deferred for a promoted standby (kept, and
+timed out), and a relaunched master's seeded epoch. Each service also
+writes its ``member`` records to a journal, which must be equal.
 """
 
 import time
@@ -41,8 +44,17 @@ def _normalize(reply, coordinators):
     return out
 
 
+class _Journal:
+    def __init__(self):
+        self.records = []
+
+    def append(self, kind, **fields):
+        self.records.append(dict(fields, k=kind))
+
+
 def _play(cls, kwargs, script, clock):
-    m = cls(**kwargs)
+    journal = _Journal()
+    m = cls(journal=journal, **kwargs)
     fenced = []
     m.set_fencer(fenced.append)
     coordinators = {}
@@ -59,6 +71,13 @@ def _play(cls, kwargs, script, clock):
             log.append(("remove", wid, m.epoch))
         elif kind == "advance":
             clock.now += op[1]
+        elif kind == "seed":
+            m.seed_epoch(op[1])
+        elif kind == "pool":
+            # ("pool", verb, argument): the standby pool's verbs
+            _, verb, arg = op
+            got = getattr(m.standby, verb)(*(() if arg is None else (arg,)))
+            log.append(("pool", verb, arg, got, m.standby.parked_count()))
         elif kind == "train_all":
             # every member of the current world confirms, then trains
             for _ in range(op[1]):
@@ -72,6 +91,7 @@ def _play(cls, kwargs, script, clock):
             raise ValueError(kind)
         log.append(("epoch", m.epoch))
     log.append(("fenced", fenced))
+    log.append(("journal", journal.records))
     return log
 
 
@@ -137,6 +157,46 @@ SCRIPTS = {
         + [R(2, exit_code=75), G(0, awaiting=False),
            R(0, departing=True), R(0, exit_code=0), G(3)],
     ),
+    # the standby pool: tokens park on their first poll, an activation
+    # takes one, its poll returns the worker id, a forgotten token is
+    # gone, and with none parked an activation finds nothing
+    "standby_pool": (
+        dict(expected_workers=1, form_grace_secs=60),
+        [("pool", "poll", 10), ("pool", "poll", 11),
+         ("pool", "activate", 5), ("pool", "poll", 10),
+         ("pool", "poll", 11), ("pool", "forget", 11),
+         ("pool", "activate", 6), ("pool", "poll", 11),
+         ("pool", "activate", 7), ("pool", "parked_count", None)],
+    ),
+    # a death with a standby on its way: the member leaves the live set
+    # and joins the dead list at once, the bump waits, and the promoted
+    # worker's registration forms the full world in one bump
+    "deferred_bump": (
+        dict(expected_workers=2, form_grace_secs=60),
+        [G(0), G(1), G(0), G(1), G(0, awaiting=False),
+         G(1, awaiting=False)]
+        + [R(1, exit_code=-9, defer_bump_secs=6.0),
+           G(0, awaiting=False), ("advance", 2.0), G(0, awaiting=False)]
+        + [G(3, awaiting=False), G(0, awaiting=False), G(0), G(3),
+           G(0), G(3), G(0, awaiting=False), G(3, awaiting=False)],
+    ),
+    # the promoted standby never registers: the deadline bumps without
+    # it, and it joins later as ordinary growth
+    "deferred_bump_deadline": (
+        dict(expected_workers=2, form_grace_secs=60),
+        [G(0), G(1), G(0), G(1), G(0, awaiting=False),
+         G(1, awaiting=False)]
+        + [R(1, exit_code=-9, defer_bump_secs=6.0),
+           G(0, awaiting=False), ("advance", 7.0), G(0, awaiting=False),
+           G(0), G(0), G(0, awaiting=False), G(3, awaiting=False),
+           G(0, awaiting=False), G(3), G(0)],
+    ),
+    # a relaunched master: its service starts past the journaled epoch
+    "seeded_epoch": (
+        dict(expected_workers=2, form_grace_secs=60),
+        [("seed", 7), G(0, awaiting=False), G(1, awaiting=False), G(0),
+         G(1), G(0), ("seed", 3), G(1, awaiting=False)],
+    ),
 }
 
 
@@ -151,8 +211,42 @@ def test_membership_matches_reference(monkeypatch, name):
     assert got == want
     # the script exercises what it names
     replies = [entry[2] for entry in got if entry[0] == "get"]
-    assert any(r["ready"] for r in replies)
+    assert not replies or any(r["ready"] for r in replies)
     if name == "dead_list":
         assert any(r["dead"] for r in replies)
     if name == "confirm_timeout":
-        assert got[-1] == ("fenced", [0])
+        assert got[-2] == ("fenced", [0])
+    if name.startswith("deferred_bump"):
+        assert ("remove", 1, 1) in got  # no bump at the death itself
+    if name == "seeded_epoch":
+        assert min(r["epoch"] for r in replies) == 7
+        assert all(r["epoch"] == 8 for r in replies if r["ready"])
+    if name == "standby_pool":
+        assert ("pool", "poll", 10, 5, 1) in got
+
+
+def test_a_relaunched_master_waits_for_the_world_a_worker_names():
+    """The port's membership (no reference counterpart): before its
+    first world forms, a worker may name the size and epoch of the world
+    it is still in; a relaunched master told ``expected_workers=1`` then
+    forms one world of both workers, not one of the first poller, past
+    the epoch they name."""
+    m = TMembership(expected_workers=1, form_grace_secs=60)
+    m.seed_epoch(5)
+    first = m.get_world(0, awaiting=False, world_size=2)
+    assert not first["ready"] and m.epoch == 5
+    m.get_world(1, awaiting=False, world_size=2)
+    assert m.epoch == 6
+    replies = [m.get_world(w) for w in (0, 1, 0)]
+    assert replies[-1]["ready"] and replies[-1]["members"] == [0, 1]
+    # a formed world ignores the hint
+    m.get_world(0, awaiting=False)
+    m.get_world(1, awaiting=False)
+    m.get_world(2, awaiting=False, world_size=9, world_epoch=40)
+    assert m.epoch == 7 and m._expected == 2
+    # a journal that missed bumps: the epoch a worker names is passed
+    m = TMembership(expected_workers=1, form_grace_secs=60)
+    m.seed_epoch(5)
+    m.get_world(0, awaiting=False, world_size=2, world_epoch=9)
+    m.get_world(1, awaiting=False, world_size=2, world_epoch=9)
+    assert m.epoch == 10

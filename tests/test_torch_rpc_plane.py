@@ -242,7 +242,11 @@ def test_master_client_answers_as_the_servicer(monkeypatch):
         assert remote_m.epoch == direct_m.epoch == 2
         status = client.master_status()
         assert status["master_epoch"] == 42 and status["version"] == 8
-        for name in ("get_model", "report_gradient", "standby_poll",
+        # the standby pool's poll: parked, then promoted with a device
+        assert client.standby_poll(7) == (None, None)
+        remote_m.standby.activate(5, device="cuda:1")
+        assert client.standby_poll(7) == (5, "cuda:1")
+        for name in ("get_model", "report_gradient", "report_variable",
                      "pull_embedding_vectors", "report_telemetry"):
             with pytest.raises(st.RpcError,
                                match="NotImplementedError.*%s" % name):
