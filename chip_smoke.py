@@ -64,7 +64,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
    forward's accuracy); ``predict`` with a capturing processor (every
    record once, within 1e-2 relative L2 of the direct forward). No flash
    kernel launches (``launches_by_path.eval`` = 0).
-8. elastic — the multi-process elastic ALLREDUCE job through the port's
+8. zoo     — the zoo models that need no PS fleet, each at its zoo width
+   through the port's command line: mnist_functional_api,
+   cifar10_subclass and cifar10_functional_api (b64, 1,024 training and
+   256 validation records), resnet50_subclass (float32, b64, 256
+   224x224 uint8 records, 128 validation records), deepfm_functional_api
+   and deepfm_edl_embedding (its tables on the HBM plane) with 1,048,576 x
+   64 tables (b1024 of 10 ids, a tenth of them 0; 16,384 training and
+   4,096 validation records). Each trains with ``--validation_data``
+   (a round and a checkpoint every 8 versions, every 2 for ResNet-50):
+   the version equals the steps, every loss is finite, the newest
+   checkpoint restores bitwise into a fresh model, each round is within
+   2 records (accuracy) and 1e-2 relative L2 (outputs) of a direct
+   forward of its checkpoint; ``evaluate --checkpoint_dir`` reads the
+   newest checkpoint's direct accuracy; ``predict`` with a capturing
+   processor yields every record once within 1e-2 relative L2. Then
+   each model's forward and one SGD step on the card against the CPU
+   from one init and batch, dropout the identity (outputs and loss 1e-4,
+   each parameter's update 1e-3, relative L2); DeepFM on the HBM plane
+   ten steps on the card against ten on the CPU (rtol 2e-4, atol 2e-5),
+   its table a CUDA parameter of 1,048,576 x 64, and a torch.profiler
+   breakdown of three more steps (idle share, top device ops, the
+   embedding backward's share); cifar10_subclass through the two-worker
+   elastic job for one epoch on 2,304 records (every task once, equal
+   final bits). Job examples/s after the first step, peak memory and the
+   rounds' seconds are recorded. No flash kernel launches
+   (``launches_by_path.zoo`` = 0).
+9. elastic — the multi-process elastic ALLREDUCE job through the port's
    command line with ``--num_workers 2``: the master in this process,
    two worker processes sharing the card in one process world (gloo:
    NCCL refuses two ranks on one device; on a host with a card for each
@@ -109,11 +135,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
    report their flash launches, by run (``launches_by_path`` ``elastic``
    for A and B, ``elastic_master_kill``, ``elastic_standby`` and
    ``elastic_eval``, each 0).
-9. summary — the kernels line, the card line, then the result line.
+10. summary — the kernels line, the card line, then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
-non-zero and prints no result. ``--elastic-only`` runs phases 1 and 8
-alone and prints no result line.
+non-zero and prints no result. ``--elastic-only`` runs phases 1 and 9
+alone, ``--zoo-only`` phases 1 and 8, and neither prints the result
+line.
 """
 
 import argparse
@@ -1945,7 +1972,8 @@ class _Timed:
 class _EvalReports:
     """Every evaluation report's pinned version and outputs, in order,
     and its labels counted by version; ``reports`` keeps each whole:
-    (pinned version, scored version, outputs, labels)."""
+    (pinned version, scored version, outputs, labels), and ``by_key``
+    each report's outputs by key (a model may output a dict)."""
 
     def __init__(self):
         from elasticdl_tpu_torch.master.servicer import MasterServicer
@@ -1955,6 +1983,7 @@ class _EvalReports:
         self.records = {}
         self.outputs = []  # (version, outputs of the report's task)
         self.reports = []
+        self.by_key = []
 
     def __enter__(self):
         reports, orig = self, self._orig
@@ -1963,10 +1992,12 @@ class _EvalReports:
             reports.records[version] = (
                 reports.records.get(version, 0) + len(labels)
             )
-            reports.outputs.append((version, outputs["output"]))
-            reports.reports.append(
-                (version, scored_version, outputs["output"], labels)
-            )
+            reports.by_key.append(dict(outputs))
+            if "output" in outputs:
+                reports.outputs.append((version, outputs["output"]))
+                reports.reports.append(
+                    (version, scored_version, outputs["output"], labels)
+                )
             return orig(servicer, version, outputs, labels,
                         scored_version=scored_version)
 
@@ -2310,6 +2341,746 @@ def phase_eval(torch, tmp, job_rec, card):
     if problems:
         raise PhaseError("eval: " + "; ".join(problems))
     return counts
+
+
+# ---------------------------------------------------------------------------
+# zoo: the zoo models that need no PS fleet, through every job of the port
+# ---------------------------------------------------------------------------
+
+ZOO_VOCAB = 1 << 20  # bench.py's "deepfm_edl_embedding shape class"
+ZOO_DEEPFM_ZEROS = 0.1  # the share of ids that are 0 (mask_zero's work)
+# (name, model_def, --model_params, records kind, train records,
+# validation records, batch, evaluation and checkpoint steps); every
+# model at its zoo width, DeepFM's tables at ZOO_VOCAB x 64
+ZOO_MODELS = (
+    ("mnist_functional_api",
+     "mnist_functional_api.mnist_functional_api.custom_model", "",
+     "mnist", 1024, 256, 64, 8),
+    ("cifar10_subclass", "cifar10_subclass.cifar10_subclass.CustomModel",
+     "", "cifar", 1024, 256, 64, 8),
+    ("cifar10_functional_api",
+     "cifar10_functional_api.cifar10_functional_api.custom_model", "",
+     "cifar", 1024, 256, 64, 8),
+    ("resnet50_subclass", "resnet50_subclass.resnet50_subclass.CustomModel",
+     "num_classes=10,dtype='float32'", "imagenet", 256, 128, 64, 2),
+    ("deepfm_functional_api",
+     "deepfm_functional_api.deepfm_functional_api.custom_model",
+     "input_dim=%d" % ZOO_VOCAB, "frappe", 16384, 4096, 1024, 8),
+    ("deepfm_edl_embedding",
+     "deepfm_edl_embedding.deepfm_edl_embedding.custom_model",
+     "vocab_size=%d" % ZOO_VOCAB, "frappe", 16384, 4096, 1024, 8),
+)
+# the reference's "cifar10_subclass (allreduce mode)": two workers, one
+# epoch; over two 1024-record shuffle buffers, so both get data at once
+ZOO_ELASTIC_RECORDS = 2304
+# card against CPU, float32 with TF32 off, dropout the identity: the
+# outputs and the loss by relative L2 / relative difference, each
+# parameter's update (after - before) by relative L2. cuDNN and oneDNN sum
+# in other orders (~1e-6 on the outputs); a wrong layout or scale moves
+# them by O(1)
+ZOO_CARD_CPU_TOL = {"outputs": 1e-4, "loss": 1e-4, "update": 1e-3}
+ZOO_CARD_CPU_RESNET_BATCH = 8  # ResNet-50's CPU step at b64 takes minutes
+ZOO_HBM_STEPS = 10  # DeepFM on the HBM plane, card against CPU
+# the reference's bound for the HBM plane against the dense one
+# (tests/test_hbm_deepfm.py): atomics order the card's scatter-add
+ZOO_HBM_TOL = (2e-4, 2e-5)
+ZOO_PROFILE_STEPS = 3
+
+
+def _zoo_records(kind, n, seed):
+    """``n`` encoded records of a kind, from ``seed``: MNIST and CIFAR-10
+    float pixels in [0, 255), ImageNet-shaped uint8 images with labels
+    1..10, frappe-shaped id rows (ZOO_DEEPFM_ZEROS of them 0) with 0/1
+    labels."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.data.example import encode_example
+
+    rng = np.random.default_rng(seed)
+    if kind == "frappe":
+        ids = rng.integers(1, ZOO_VOCAB, (n, 10), dtype=np.int64)
+        ids[rng.random((n, 10)) < ZOO_DEEPFM_ZEROS] = 0
+        labels = rng.integers(0, 2, n)
+        feats = [{"feature": row} for row in ids]
+    elif kind == "imagenet":
+        feats = [{"image": rng.integers(0, 256, (JOB_IMAGE, JOB_IMAGE, 3),
+                                        dtype=np.uint8)} for _ in range(n)]
+        labels = rng.integers(1, 11, n)
+    else:
+        pixels = 784 if kind == "mnist" else 32 * 32 * 3
+        images = rng.random((n, pixels), dtype=np.float32) * 255
+        feats = [{"image": image} for image in images]
+        labels = rng.integers(0, 10, n)
+    return [
+        encode_example(dict(f, label=np.array([y], np.int64)))
+        for f, y in zip(feats, labels)
+    ]
+
+
+def _write_encoded(data_dir, records):
+    from elasticdl_tpu_torch.data.recordio import RecordIOWriter
+
+    os.makedirs(data_dir, exist_ok=True)
+    with RecordIOWriter(os.path.join(data_dir, "records-0")) as w:
+        for r in records:
+            w.write(r)
+
+
+def _zoo_argv(verb, model_def, params, batch, *extra):
+    argv = [
+        verb,
+        "--job_name", "chip-smoke-zoo-" + verb,
+        "--distribution_strategy", "AllreduceStrategy",
+        "--num_workers", "0",
+        "--model_zoo", "",
+        "--model_def", model_def,
+        "--minibatch_size", str(batch),
+        "--num_minibatches_per_task", "2",
+        "--device", DEVICE,
+        "--log_level", "WARNING",
+    ] + list(extra)
+    return argv + (["--model_params", params] if params else [])
+
+
+def _zoo_batches(torch, zoo, records, batch, mode):
+    """The zoo's own dataset_fn over ``records`` (no shuffle), batched."""
+    from elasticdl_tpu_torch.data.dataset import Dataset
+
+    ds = zoo.dataset_fn(Dataset.from_tensors(records), mode, None)
+    return list(ds.batch(batch))
+
+
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _zoo_model(model_def, params):
+    """The model a direct forward scores: the host twin where the zoo has
+    one, else ``model_def`` itself."""
+    from elasticdl_tpu_torch.common.model_utils import (
+        build_model,
+        get_dict_from_params_str,
+        load_zoo_module,
+    )
+
+    zoo = load_zoo_module(model_def)
+    if hasattr(zoo, "build_host_model"):
+        return zoo.build_host_model(**(get_dict_from_params_str(params)
+                                       or {}))
+    return build_model(model_def, params)
+
+
+def _zoo_direct(torch, model, params, state, batches):
+    """Inference forward of ``params`` over the feature batches: the
+    outputs as {key: float32 rows on the card}."""
+    from elasticdl_tpu_torch.training.step import make_forward_fn
+
+    fwd = make_forward_fn(model.to(DEVICE))
+    out = {}
+    for features in batches:
+        got = fwd(params, state, features)
+        for k, v in (got if isinstance(got, dict) else {"output": got}
+                     ).items():
+            out.setdefault(k, []).append(v.float())
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def _zoo_accuracy(torch, outputs, labels):
+    """Accuracy as the zoo's metric computes it: argmax against the label
+    (the model's labels, 0-based), or for DeepFM logit > 0."""
+    want = torch.as_tensor(labels, device=DEVICE).reshape(-1)
+    if "logits" in outputs:
+        return float(((outputs["logits"].reshape(-1) > 0).long()
+                      == want).float().mean())
+    return float((outputs["output"].argmax(1) == want).float().mean())
+
+
+def _zoo_rel(torch, got, want):
+    """The largest relative L2 over the outputs' keys."""
+    return max(_rel_l2(torch, got[k], want[k]) for k in want)
+
+
+def _zoo_job(torch, tmp, card, entry):
+    """One zoo model through ``train`` (with validation rounds and
+    checkpoints), ``evaluate`` and ``predict``; returns (its record, the
+    problems found)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch import cli
+    from elasticdl_tpu_torch.common.constants import Mode
+    from elasticdl_tpu_torch.common.model_utils import load_zoo_module
+    from elasticdl_tpu_torch.master.servicer import MasterServicer
+    from elasticdl_tpu_torch.parallel.trainer import AllReduceTrainer
+    from elasticdl_tpu_torch.worker.allreduce_worker import AllReduceWorker
+    from elasticdl_tpu_torch.worker.prediction_outputs_processor import (
+        BasePredictionOutputsProcessor,
+    )
+
+    name, model_def, params, kind, n_train, n_val, batch, every = entry
+    problems = []
+    root = os.path.join(tmp, "zoo-" + name)
+    train_dir, val_dir = root + "-train", root + "-val"
+    ckpt_dir, out_dir = root + "-ckpt", root + "-export"
+    t0 = time.perf_counter()
+    _write_encoded(train_dir, _zoo_records(kind, n_train, SEED + 10))
+    val_records = _zoo_records(kind, n_val, SEED + 11)
+    _write_encoded(val_dir, val_records)
+    write_s = time.perf_counter() - t0
+    zoo = load_zoo_module(model_def)
+    val_batches = _zoo_batches(torch, zoo, val_records, batch,
+                               Mode.EVALUATION)
+    val_features = [f for f, _ in val_batches]
+    val_labels = np.concatenate([np.asarray(lab).reshape(-1)
+                                 for _, lab in val_batches])
+    tol = EVAL_TOL_RECORDS / n_val
+    steps = n_train // batch
+
+    # 1. train, with rounds and checkpoints every ``every`` versions
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    jobs = []
+    argv = _zoo_argv(
+        "train", model_def, params, batch, "--training_data", train_dir,
+        "--validation_data", val_dir, "--evaluation_steps", str(every),
+        "--checkpoint_dir", ckpt_dir, "--checkpoint_steps", str(every),
+        "--num_epochs", "1", "--output", out_dir,
+    )
+    t0 = time.perf_counter()
+    with _StepClock() as clock, _EvalReports() as spy, _Timed(
+        AllReduceWorker, "_process_eval_task",
+        key=lambda task: (task.model_version, task.start),
+    ) as eval_tasks:
+        rc = cli.main(argv, jobs=jobs)
+    torch.cuda.synchronize()
+    job_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    job = jobs[0]
+    trainer = job.worker.trainer
+    if rc != 0 or trainer.version != steps:
+        problems.append("train: exit code %s, version %d of %d"
+                        % (rc, trainer.version, steps))
+    if not job.losses or not all(np.isfinite(job.losses)):
+        problems.append("train: losses %s" % job.losses[:4])
+    spans = clock.spans
+    timed_s = spans[-1][1] - spans[0][1] if len(spans) > 1 else float("nan")
+    table = trainer.train_state.params.get("embedding.table",
+                                           trainer.train_state.params.get(
+                                               "embedding.weight"))
+    if table is not None and (
+            table.device.type != torch.device(DEVICE).type
+            or tuple(table.shape) != (ZOO_VOCAB, 64)):
+        problems.append("the embedding table is %s on %s"
+                        % (tuple(table.shape), table.device))
+
+    # the newest checkpoint restores bitwise into a fresh model
+    fresh = AllReduceTrainer(_fresh_model(zoo, model_def, params),
+                             zoo.loss, zoo.optimizer(), seed=SEED + 1,
+                             device=DEVICE)
+    fresh.init_from_batch(None)
+    restored = fresh.restore_sharded(os.path.join(ckpt_dir,
+                                                  "ckpt_v%d" % steps))
+    unequal = [k for k, p in trainer.train_state.params.items()
+               if not torch.equal(fresh.train_state.params[k], p)]
+    if restored != steps or unequal:
+        problems.append("restore: v%s, unequal %s" % (restored, unequal))
+    del fresh
+
+    # each round against a direct forward of its checkpoint
+    model = _zoo_model(model_def, params)
+    published = job.master.evaluation_service.published
+    want_rounds = list(range(every, steps + 1, every))
+    if [r["version"] for r in published] != want_rounds:
+        problems.append("rounds at %s, expected %s"
+                        % ([r["version"] for r in published], want_rounds))
+    scored = [(key, out) for (key, _), out in
+              zip(eval_tasks.calls, spy.by_key)]
+    rounds = []
+    for r in published:
+        v = r["version"]
+        w_params, w_state = _checkpoint_weights(
+            torch, os.path.join(ckpt_dir, "ckpt_v%d" % v))
+        direct = _zoo_direct(torch, model, w_params, w_state, val_features)
+        rows = sorted(((k[1], o) for k, o in scored if k[0] == v),
+                      key=lambda start_out: start_out[0])
+        got = {k: torch.from_numpy(np.concatenate(
+            [np.asarray(o[k]) for _, o in rows])).to(DEVICE)
+            for k in direct} if rows else None
+        rel = _zoo_rel(torch, got, direct) if got else None
+        metrics = r["metrics"]
+        acc = (metrics["logits"]["accuracy"] if "logits" in metrics
+               else metrics["accuracy"])
+        direct_acc = _zoo_accuracy(torch, direct, val_labels)
+        rounds.append({
+            "version": v, "accuracy": acc, "direct_accuracy": direct_acc,
+            "auc": metrics.get("probs", {}).get("auc"),
+            "outputs_rel_l2": rel,
+            "seconds": sum(s for k, s in eval_tasks.calls if k[0] == v),
+        })
+        if abs(acc - direct_acc) > tol + 1e-12:
+            problems.append("round v%d reads %s, its checkpoint's direct "
+                            "forward %s" % (v, acc, direct_acc))
+        if rel is None or rel > EVAL_REL_L2:
+            problems.append("round v%d outputs %s from its checkpoint's "
+                            "direct forward (relative L2)" % (v, rel))
+    export = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    if not export:
+        problems.append("no export under --output")
+    rec = {
+        "phase": "zoo",
+        "of": name,
+        "card": card,
+        "model_def": model_def,
+        "model_params": params,
+        "records": n_train,
+        "eval_records": n_val,
+        "batch": batch,
+        "write_records_s": write_s,
+        "job_s": job_s,
+        "steps": len(spans),
+        "examples_per_s": (len(spans) - 1) * batch / timed_s,
+        "examples_per_s_in_step": (len(spans) - 1) * batch / sum(
+            e - b for b, e in spans[1:]),
+        "peak_memory_mib": peak / 2 ** 20,
+        "loss_first_last": [job.losses[0], job.losses[-1]],
+        "rounds": rounds,
+        "round_s_total": sum(r["seconds"] for r in rounds),
+        "round_tolerance": tol,
+    }
+    if table is not None:
+        rec["table"] = {"shape": list(table.shape),
+                        "device": str(table.device)}
+    del job, jobs, trainer
+
+    # 2. evaluate the checkpoints: the newest, as a direct forward reads
+    w_params, w_state = _checkpoint_weights(
+        torch, os.path.join(ckpt_dir, "ckpt_v%d" % steps))
+    direct = _zoo_direct(torch, model, w_params, w_state, val_features)
+    direct_acc = _zoo_accuracy(torch, direct, val_labels)
+    eval_job, wall, run_s, task_s = _scoring_job(
+        torch, _zoo_argv("evaluate", model_def, params, batch,
+                         "--validation_data", val_dir,
+                         "--checkpoint_dir", ckpt_dir),
+        "evaluate " + name,
+    )
+    got = eval_job.master.evaluation_service.published
+    metrics = got[0]["metrics"] if len(got) == 1 else {}
+    acc = (metrics.get("logits", {}).get("accuracy") if "logits" in metrics
+           else metrics.get("accuracy"))
+    if (acc is None or abs(acc - direct_acc) > tol + 1e-12
+            or got[0]["scored_versions"] != [steps]):
+        problems.append("evaluate reads %s, the direct forward %s"
+                        % (got, direct_acc))
+    rec["evaluate"] = {"accuracy": acc, "direct_accuracy": direct_acc,
+                       "job_s": wall, "worker_run_s": run_s,
+                       "examples_per_s": n_val / sum(task_s)}
+    del eval_job
+
+    # 3. predict with a capturing processor: every record once, as the
+    # direct forward reads it
+    class Capture(BasePredictionOutputsProcessor):
+        def __init__(self):
+            self.chunks = []
+
+        def process(self, predictions, worker_id):
+            self.chunks.append(predictions)
+
+    capture, handed = Capture(), []
+    orig_get = MasterServicer.get_task
+
+    def get_task(servicer, worker_id, task_type=None):
+        res = orig_get(servicer, worker_id, task_type)
+        if res.shard_name:
+            handed.append((res.start, res.end))
+        return res
+
+    had = getattr(zoo, "PredictionOutputsProcessor", None)
+    zoo.PredictionOutputsProcessor = capture
+    MasterServicer.get_task = get_task
+    try:
+        _, wall, run_s, _ = _scoring_job(
+            torch, _zoo_argv("predict", model_def, params, batch,
+                             "--prediction_data", val_dir,
+                             "--checkpoint_dir", ckpt_dir),
+            "predict " + name,
+        )
+    finally:
+        MasterServicer.get_task = orig_get
+        if had is None:
+            del zoo.PredictionOutputsProcessor
+        else:
+            zoo.PredictionOutputsProcessor = had
+    order = [i for start, end in handed for i in range(start, end)]
+    chunks = [c if isinstance(c, dict) else {"output": c}
+              for c in capture.chunks]
+    got = {k: np.concatenate([c[k] for c in chunks]) for k in direct} \
+        if chunks else {}
+    once = sorted(order) == list(range(n_val)) and all(
+        len(v) == len(order) for v in got.values())
+    rel = None
+    if once and got:
+        idx = torch.as_tensor(order, device=DEVICE)
+        rel = _zoo_rel(torch, {k: torch.from_numpy(v).to(DEVICE)
+                               for k, v in got.items()},
+                       {k: v[idx] for k, v in direct.items()})
+    if not once or rel is None or rel > EVAL_REL_L2:
+        problems.append("predict: %d of %d records, rel L2 %s"
+                        % (len(order), n_val, rel))
+    rec["predict"] = {"every_record_once": once, "rel_l2": rel,
+                      "job_s": wall, "worker_run_s": run_s,
+                      "examples_per_s": n_val / run_s}
+    return rec, problems
+
+
+def _fresh_model(zoo, model_def, params, device=None):
+    """A new model as the job's worker built it: through the zoo's
+    ``build_distributed_model`` hook on a one-device mesh (``device``,
+    default the card) where it has one."""
+    from elasticdl_tpu_torch.common.model_utils import (
+        build_model,
+        get_dict_from_params_str,
+    )
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+
+    if hasattr(zoo, "build_distributed_model"):
+        return zoo.build_distributed_model(
+            create_mesh(devices=[device or DEVICE]),
+            **(get_dict_from_params_str(params) or {}))
+    return build_model(model_def, params)
+
+
+def _card_vs_cpu(torch, entry):
+    """One model's forward and one SGD step on the card against the same
+    on the CPU: the same weights (the seeded init, made on the CPU) and
+    batch, dropout the identity. Returns the record (its readings against
+    ZOO_CARD_CPU_TOL)."""
+    import torch.nn.functional as F
+
+    from elasticdl_tpu_torch.common.constants import Mode
+    from elasticdl_tpu_torch.common.model_utils import load_zoo_module
+    from elasticdl_tpu_torch.nn.model_api import (
+        init_variables,
+        split_variables,
+    )
+    from elasticdl_tpu_torch.parallel.trainer import place_module
+    from elasticdl_tpu_torch.training.step import (
+        TrainState,
+        make_forward_fn,
+        make_train_step,
+    )
+
+    name, model_def, params, kind, _, _, batch, _ = entry
+    if name == "resnet50_subclass":
+        batch = ZOO_CARD_CPU_RESNET_BATCH
+    zoo = load_zoo_module(model_def)
+    features, labels = _zoo_batches(
+        torch, zoo, _zoo_records(kind, batch, SEED + 12), batch,
+        Mode.EVALUATION)[0]
+    init = None
+    got = {}
+    dropout = F.dropout
+    F.dropout = lambda x, *args, **kwargs: x
+    try:
+        for device in ("cpu", DEVICE):
+            model = _fresh_model(zoo, model_def, params, device)
+            place_module(model, device)
+            if init is None:
+                init = split_variables(init_variables(model, SEED))
+            p, s = ({k: v.detach().to(device).clone() for k, v in t.items()}
+                    for t in init)
+            out = make_forward_fn(model)(p, s, features)
+            ts = TrainState.create(p, s, zoo.optimizer())
+            ts, loss = make_train_step(model, zoo.loss)(ts, features, labels)
+            got[device] = (
+                _tree(lambda t: t.float().cpu(), out), float(loss),
+                {k: (v.detach().cpu() - init[0][k].detach().cpu())
+                 for k, v in ts.params.items()},
+            )
+            del model, ts
+    finally:
+        F.dropout = dropout
+    (c_out, c_loss, c_upd), (g_out, g_loss, g_upd) = got["cpu"], got[DEVICE]
+    if not isinstance(c_out, dict):
+        c_out, g_out = {"output": c_out}, {"output": g_out}
+    outputs = _zoo_rel(torch, g_out, c_out)
+    loss = abs(g_loss - c_loss) / max(abs(c_loss), 1e-30)
+
+    def update_rel(k):
+        want, have = c_upd[k], g_upd[k]
+        if not want.any():
+            return 0.0 if not have.any() else float("inf")
+        return _rel_l2(torch, have, want)
+
+    updates = {k: update_rel(k) for k in c_upd}
+    worst = max(updates, key=updates.get)
+    return {
+        "model": name,
+        "batch": batch,
+        "outputs_rel_l2": outputs,
+        "loss_rel": loss,
+        "worst_update": worst,
+        "worst_update_rel_l2": updates[worst],
+        "ok": (outputs <= ZOO_CARD_CPU_TOL["outputs"]
+               and loss <= ZOO_CARD_CPU_TOL["loss"]
+               and updates[worst] <= ZOO_CARD_CPU_TOL["update"]),
+    }
+
+
+
+def _hbm_card_vs_cpu(torch, card):
+    """deepfm_edl_embedding on the HBM plane, ZOO_HBM_STEPS SGD steps on
+    the card against as many on the CPU over one batch stream from the
+    seed, from one init; then a torch.profiler breakdown of
+    ZOO_PROFILE_STEPS more steps on the card. Returns (record, problems).
+    """
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from elasticdl_tpu_torch.model_zoo.deepfm_edl_embedding import (
+        deepfm_edl_embedding as zoo,
+    )
+    from elasticdl_tpu_torch.nn.model_api import (
+        init_variables,
+        split_variables,
+    )
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.parallel.trainer import (
+        AllReduceTrainer,
+        place_module,
+    )
+    from elasticdl_tpu_torch.training.step import TrainState
+
+    problems = []
+    rng = np.random.default_rng(SEED + 13)
+    batches = []
+    for _ in range(ZOO_HBM_STEPS + ZOO_PROFILE_STEPS):
+        ids = rng.integers(1, ZOO_VOCAB, (1024, 10), dtype=np.int64)
+        ids[rng.random((1024, 10)) < ZOO_DEEPFM_ZEROS] = 0
+        labels = rng.integers(0, 2, (1024, 1)).astype(np.int32)
+        batches.append(({"feature": torch.from_numpy(ids)},
+                        torch.from_numpy(labels)))
+    trainers = {}
+    init = None
+    for device in (DEVICE, "cpu"):
+        mesh = create_mesh(devices=[device])
+        model = zoo.build_distributed_model(mesh, vocab_size=ZOO_VOCAB)
+        place_module(model, "cpu")
+        if init is None:
+            # owned copies: the trainer moves the module's own tensors
+            init = [{k: v.detach().clone() for k, v in part.items()}
+                    for part in split_variables(init_variables(model, SEED))]
+        trainer = AllReduceTrainer(
+            model, zoo.loss, zoo.optimizer(), mesh=mesh,
+            param_specs=zoo.param_shardings(mesh), device=device,
+        )
+        trainer.load_state(TrainState.create(
+            {k: v.clone() for k, v in init[0].items()}, init[1],
+            zoo.optimizer()))
+        t0 = time.perf_counter()
+        for features, labels in batches[:ZOO_HBM_STEPS]:
+            trainer.train_step(features, labels)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        trainers[device] = (trainer, time.perf_counter() - t0)
+    on_card, cpu = trainers[DEVICE][0], trainers["cpu"][0]
+    steps_s = {str(d): t for d, (_, t) in trainers.items()}
+    table = on_card.train_state.params["embedding.table"]
+    if not (table.device.type == torch.device(DEVICE).type
+            and tuple(table.shape) == (ZOO_VOCAB, 64)
+            and table.requires_grad):
+        problems.append("the embedding table is %s on %s"
+                        % (tuple(table.shape), table.device))
+    worst, worst_err = None, 0.0
+    rtol, atol = ZOO_HBM_TOL
+    for k, want in cpu.train_state.params.items():
+        got = on_card.train_state.params[k].detach().cpu()
+        want = want.detach()
+        err = float(((got - want).abs() - rtol * want.abs()).max())
+        if worst is None or err > worst_err:
+            worst, worst_err = k, err
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            problems.append("HBM plane: %s differs card against CPU "
+                            "(max abs %s)" % (k, float((got - want).abs()
+                                                        .max())))
+    untouched = torch.ones(ZOO_VOCAB, dtype=torch.bool)
+    for features, _ in batches[:ZOO_HBM_STEPS]:
+        untouched[features["feature"].reshape(-1)] = False
+    untouched[0] = True  # mask_zero: row 0 gets no gradient
+    moved = (on_card.train_state.params["embedding.table"].detach().cpu()
+             [untouched] != init[0]["embedding.table"][untouched]).any()
+    if moved:
+        problems.append("HBM plane: rows no id touched moved")
+    del cpu, trainers
+
+    # where a step's device time goes: the steps timed, then the same
+    # batches again under the profiler (whose own host work stretches
+    # the wall, so the idle share is also read against the unprofiled
+    # step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for features, labels in batches[ZOO_HBM_STEPS:]:
+        on_card.train_step(features, labels)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / ZOO_PROFILE_STEPS
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    t0 = time.perf_counter()
+    with prof:
+        for features, labels in batches[ZOO_HBM_STEPS:]:
+            on_card.train_step(features, labels)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    window = _window_record(torch, prof, wall_ms)
+
+    def op_device_ms(key):
+        total = 0.0
+        for evt in prof.key_averages():
+            if evt.key == key:
+                total += getattr(evt, "device_time_total",
+                                 getattr(evt, "cuda_time_total", 0.0))
+        return total / 1e3
+
+    emb_bwd = op_device_ms("aten::embedding_dense_backward")
+    busy = window["device_busy_ms"]
+    rec = dict(
+        window,
+        phase="zoo",
+        of="deepfm_hbm_card_vs_cpu",
+        card=card,
+        vocab=ZOO_VOCAB,
+        batch=1024,
+        steps=ZOO_HBM_STEPS,
+        tolerance=list(ZOO_HBM_TOL),
+        worst_param=worst,
+        worst_excess_over_rtol=worst_err,
+        untouched_rows_unmoved=not moved,
+        steps_s=steps_s,
+        step_ms=step_ms,
+        idle_share_unprofiled=(1 - busy / ZOO_PROFILE_STEPS / step_ms)
+        if busy else None,
+        profiled_steps=ZOO_PROFILE_STEPS,
+        embedding_backward_device_ms=emb_bwd,
+        embedding_backward_share=(emb_bwd / busy) if busy else None,
+        optimizer_device_ms=op_device_ms("Optimizer.step#SGD.step"),
+    )
+    return rec, problems
+
+
+def _zoo_elastic(torch, tmp, card):
+    """cifar10_subclass through the two-worker elastic job, one epoch:
+    every task done once, both ranks' final bits equal, the version equal
+    to the live steps. Returns (record, problems, the workers' flash
+    launches)."""
+    name, model_def = ZOO_MODELS[1][:2]
+    root = os.path.join(tmp, "zoo-elastic")
+    _write_encoded(root + "-data",
+                   _zoo_records("cifar", ZOO_ELASTIC_RECORDS, SEED + 14))
+    batch = 64
+    argv = _zoo_argv(
+        "train", model_def, "", batch, "--training_data", root + "-data",
+        "--num_epochs", "1", "--checkpoint_dir", root + "-ckpt",
+        "--checkpoint_steps", "4", "--keep_checkpoint_max", "2",
+        "--output", root + "-export", "--restart_policy", "Always",
+    )
+    argv[argv.index("--num_workers") + 1] = str(ELASTIC_WORKERS)
+    argv[argv.index("--num_minibatches_per_task") + 1] = "1"
+    t0 = time.perf_counter()
+    rc, job, done, _ = _run_elastic_job(torch, argv, root + "-timeline")
+    job_s = time.perf_counter() - t0
+    events = _timeline_events(root + "-timeline")
+    first_epoch = min((e["epoch"] for ev in events.values()
+                       for e in _of(ev, "established")), default=0)
+    problems = []
+    want_done = ZOO_ELASTIC_RECORDS // batch + 1  # + SAVE_MODEL
+    if rc != 0 or not job.master.task_d.finished():
+        problems.append("elastic %s: exit code %s" % (name, rc))
+    if len(done) != want_done or len(set(done)) != len(done):
+        problems.append("elastic %s: %d task completions (%d distinct), "
+                        "expected %d once"
+                        % (name, len(done), len(set(done)), want_done))
+    finals = {w: _of(ev, "final") for w, ev in events.items()}
+    live = [w for w, f in finals.items() if f]
+    digests = {finals[w][0]["digest"] for w in live}
+    if len(live) != ELASTIC_WORKERS or len(digests) != 1:
+        problems.append("elastic %s: workers %s ended with %d distinct "
+                        "digests" % (name, live, len(digests)))
+    launches = {k: 0 for k in KERNELS}
+    for w in live:
+        for k, n in finals[w][0]["launches"].items():
+            launches[k] += n
+    steps = [e for e in _of(events.get(0, []), "step") if e["live"] > 0]
+    version = finals[0][0]["version"] if finals.get(0) else None
+    if version != len(steps):
+        problems.append("elastic %s: version %s after %d live steps"
+                        % (name, version, len(steps)))
+    rec = {
+        "phase": "zoo",
+        "of": "elastic_" + name,
+        "card": card,
+        "workers": ELASTIC_WORKERS,
+        "records": ZOO_ELASTIC_RECORDS,
+        "batch_per_worker": batch,
+        "job_s": job_s,
+        "version": version,
+        "tasks_done": len(done),
+        "examples_per_s": _examples_per_s(events, first_epoch),
+        "final_digests_equal": len(digests) == 1,
+    }
+    return rec, problems, launches
+
+
+def phase_zoo(torch, tmp, card):
+    """The zoo models that need no PS fleet, each at its zoo width
+    (DeepFM's tables at ZOO_VOCAB x 64), through ``train`` with
+    validation rounds and checkpoints, ``evaluate`` and ``predict``;
+    cifar10_subclass through the two-worker elastic job; each model's
+    forward and one step on the card against the CPU, and DeepFM on the
+    HBM plane ten steps against the CPU with a profile of its step.
+    Returns the flash kernels' launches over the phase (none)."""
+    problems = []
+    _reset_counters()
+    for entry in ZOO_MODELS:
+        rec, bad = _zoo_job(torch, tmp, card, entry)
+        emit(rec)
+        problems += ["%s: %s" % (entry[0], b) for b in bad]
+        torch.cuda.empty_cache()
+    held = []
+    for entry in ZOO_MODELS:
+        rec = _card_vs_cpu(torch, entry)
+        held.append(rec)
+        if not rec["ok"]:
+            problems.append("card against CPU: %s" % rec)
+    emit({"phase": "zoo", "of": "card_vs_cpu", "card": card,
+          "tolerance": ZOO_CARD_CPU_TOL, "models": held})
+    torch.cuda.empty_cache()
+    rec, bad = _hbm_card_vs_cpu(torch, card)
+    emit(rec)
+    problems += bad
+    torch.cuda.empty_cache()
+    rec, bad, launches = _zoo_elastic(torch, tmp, card)
+    emit(rec)
+    problems += bad
+    counts = {k: (n + launches[k], shapes)
+              for k, (n, shapes) in _counts().items()}
+    if problems:
+        raise PhaseError("zoo: " + "; ".join(problems))
+    return counts
+
+
+def _zoo_only(torch):
+    try:
+        card = phase_device(torch)
+        with tempfile.TemporaryDirectory() as tmp:
+            counts = phase_zoo(torch, tmp, card)
+        _check_counts(counts, {k: 0 for k in KERNELS}, "the zoo phase")
+    except Exception as err:  # noqa: BLE001 — reported, exit non-zero
+        import traceback
+
+        traceback.print_exc()
+        print("chip_smoke: FAILED: %s" % err, file=sys.stderr)
+        return 1
+    print(card)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -3269,6 +4040,12 @@ def main(argv=None):
         "result line: on a host with a card for each of its workers, they "
         "form an NCCL world",
     )
+    parser.add_argument(
+        "--zoo-only",
+        action="store_true",
+        help="drive only the zoo phase and print its records, not the "
+        "result line",
+    )
     args = parser.parse_args(argv)
     try:
         import torch
@@ -3289,6 +4066,8 @@ def main(argv=None):
     sys.path.insert(0, REPO)
     if args.elastic_only:
         return _elastic_only(torch)
+    if args.zoo_only:
+        return _zoo_only(torch)
 
     try:
         card = phase_device(torch)
@@ -3306,6 +4085,8 @@ def main(argv=None):
             evaluated = phase_eval(torch, tmp, job_rec, card)
             _check_counts(evaluated, {k: 0 for k in KERNELS},
                           "the eval phase")
+            zoo = phase_zoo(torch, tmp, card)
+            _check_counts(zoo, {k: 0 for k in KERNELS}, "the zoo phase")
             _reset_counters()
             elastic, _ = phase_elastic(torch, tmp, job_rec, card)
             # launched in the workers (which report theirs, by run) or
@@ -3320,7 +4101,7 @@ def main(argv=None):
         line = kernels_line(
             records,
             dict({"serve": served, "train": trained, "job": job,
-                  "eval": evaluated}, **elastic),
+                  "eval": evaluated, "zoo": zoo}, **elastic),
         )
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback

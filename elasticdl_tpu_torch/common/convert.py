@@ -5,9 +5,18 @@ The reference names a parameter by its ``/``-joined flax path
 ``(768, 12, 64)``); export artifacts and checkpoints carry those names.
 The port's modules hold ``nn.Linear`` weights as ``(out, in)`` under
 ``state_dict`` keys. :func:`to_state_dict` and :func:`to_named` map one
-to the other for the transformer LM and the convolutional zoo models
-(ResNet-50, the MNIST CNN), so one set of weights feeds both packages and
-artifacts cross between them unchanged.
+to the other, so one set of weights feeds both packages and artifacts
+cross between them unchanged.
+
+Each architecture has its own weight map (``WEIGHT_MAPS``): the
+transformer LM, ResNet-50, the MNIST CNN, the CIFAR-10 CNN and DeepFM.
+flax's creation-order names collide between them (``Dense_0`` is the
+head of a CNN and the output layer of DeepFM; ``GroupNorm_0`` is the MNIST CNN's
+only norm and the CIFAR-10 CNN's first of six), so a map holds one
+architecture's names alone. A set of names takes the first map, in the
+order of ``WEIGHT_MAPS``, that covers every one of them. Each model's full
+set is covered by its own map first: the MNIST CNN's (one ``GroupNorm_0``)
+is also covered by the CIFAR-10 CNN's map, which therefore comes after it.
 
 flax names a layer by its creation order: ResNet-50's stem is
 ``Conv_0``/``BatchNorm_0``, its blocks ``BottleneckBlock_{0..15}`` with
@@ -16,7 +25,14 @@ shortcut is ``Conv_3``/``BatchNorm_3``), its head ``Dense_0``; the port
 names them ``conv{j}``/``norm{j}``, ``blocks.{i}`` and ``head``. BatchNorm
 ``scale``/``bias`` are the norm's weight and bias, and the ``batch_stats``
 ``mean``/``var`` (model state, named ``batch_stats/...``) its
-``running_mean``/``running_var`` buffers.
+``running_mean``/``running_var`` buffers. The CIFAR-10 CNN's
+``Conv_{0..5}``/``GroupNorm_{0..5}`` are ``conv{j}``/``group_norm{j}``.
+DeepFM's tables are ``embedding`` and ``id_bias`` (flax ``Embed_0`` and
+``Embed_1``, or the HBM plane's ``embedding/table`` and ``id_bias/table``:
+neither is transposed), its ``Dense_1``/``Dense_0`` ``tower``/``out`` (the
+outer ``Dense(1)`` is created first); the
+HBM plane's ``metrics/<table>/a2a_overflow`` counter, which cannot move on
+one device, is dropped.
 
 Layouts:
 
@@ -46,7 +62,7 @@ import torch
 
 from elasticdl_tpu_torch.common.device import resolve_device
 
-_RULES = (  # (reference path, state_dict key, layout)
+_TRANSFORMER_LM = (  # (reference path, state_dict key, layout)
     ("embed/embedding", "embed.weight", None),
     ("block_{i}/RMSNorm_0/scale", "blocks.{i}.attn_norm.weight", None),
     ("block_{i}/RMSNorm_1/scale", "blocks.{i}.mlp_norm.weight", None),
@@ -55,9 +71,16 @@ _RULES = (  # (reference path, state_dict key, layout)
     ("block_{i}/{mlp}/kernel", "blocks.{i}.{mlp}.weight", "dense"),
     ("block_{i}/{mlp}/bias", "blocks.{i}.{mlp}.bias", None),
     ("RMSNorm_0/scale", "norm.weight", None),
-    # the convolutional models (ResNet-50, the MNIST CNN)
+)
+_CONV = (
     ("Conv_{j}/kernel", "conv{j}.weight", "conv"),
     ("Conv_{j}/bias", "conv{j}.bias", None),
+)
+_HEAD = (
+    ("Dense_0/kernel", "head.weight", "dense"),
+    ("Dense_0/bias", "head.bias", None),
+)
+_RESNET50 = _CONV + _HEAD + (
     ("BatchNorm_{j}/scale", "norm{j}.weight", None),
     ("BatchNorm_{j}/bias", "norm{j}.bias", None),
     ("BottleneckBlock_{i}/Conv_{j}/kernel", "blocks.{i}.conv{j}.weight",
@@ -66,42 +89,97 @@ _RULES = (  # (reference path, state_dict key, layout)
      None),
     ("BottleneckBlock_{i}/BatchNorm_{j}/bias", "blocks.{i}.norm{j}.bias",
      None),
-    ("GroupNorm_0/scale", "group_norm.weight", None),
-    ("GroupNorm_0/bias", "group_norm.bias", None),
-    ("Dense_0/kernel", "head.weight", "dense"),
-    ("Dense_0/bias", "head.bias", None),
     ("batch_stats/BatchNorm_{j}/{stat}", "norm{j}.running_{stat}", None),
     ("batch_stats/BottleneckBlock_{i}/BatchNorm_{j}/{stat}",
      "blocks.{i}.norm{j}.running_{stat}", None),
 )
+_MNIST = _CONV + _HEAD + (
+    ("GroupNorm_0/scale", "group_norm.weight", None),
+    ("GroupNorm_0/bias", "group_norm.bias", None),
+)
+_CIFAR10 = _CONV + _HEAD + (
+    ("GroupNorm_{j}/scale", "group_norm{j}.weight", None),
+    ("GroupNorm_{j}/bias", "group_norm{j}.bias", None),
+)
+_DEEPFM = (
+    # deepfm_functional_api's flax nn.Embed tables
+    ("Embed_0/embedding", "embedding.weight", None),
+    ("Embed_1/embedding", "id_bias.weight", None),
+    # deepfm_edl_embedding's HbmEmbedding tables
+    ("{table}/table", "{table}.table", None),
+    # the a2a overflow counter, which cannot move on one device: dropped
+    ("metrics/{table}/a2a_overflow", None, None),
+    # ``nn.Dense(1)(nn.Dense(fc_unit)(x))`` creates the outer, one-wide
+    # layer first: it is Dense_0, the fc_unit tower Dense_1
+    ("Dense_0/kernel", "out.weight", "dense"),
+    ("Dense_0/bias", "out.bias", None),
+    ("Dense_1/kernel", "tower.weight", "dense"),
+    ("Dense_1/bias", "tower.bias", None),
+)
+# one weight map per architecture; a set of names takes the first map, in
+# this order, that covers all of them (mnist's before cifar10's, which
+# also covers the MNIST CNN's names)
+WEIGHT_MAPS = {
+    "transformer_lm": _TRANSFORMER_LM,
+    "resnet50": _RESNET50,
+    "mnist": _MNIST,
+    "cifar10": _CIFAR10,
+    "deepfm": _DEEPFM,
+}
 _FIELDS = {
     "i": r"(?P<i>\d+)",
     "j": r"(?P<j>\d+)",
     "stat": r"(?P<stat>mean|var)",
     "proj": r"(?P<proj>query|key|value)",
     "mlp": r"(?P<mlp>mlp_up|mlp_down)",
+    "table": r"(?P<table>embedding|id_bias)",
 }
 
 
 def _regex(template):
+    if template is None:
+        return None
     out = re.escape(template)
     for field, group in _FIELDS.items():
         out = out.replace(re.escape("{%s}" % field), group)
     return re.compile(out)
 
 
-_COMPILED = [
-    (_regex(ref), _regex(key), ref, key, layout)
-    for ref, key, layout in _RULES
-]
+_COMPILED = {
+    arch: [
+        (_regex(ref), _regex(key), ref, key, layout)
+        for ref, key, layout in rules
+    ]
+    for arch, rules in WEIGHT_MAPS.items()
+}
 
 
-def _match(name, side):
-    for rule in _COMPILED:
-        m = rule[side].fullmatch(name)
-        if m is not None:
-            return rule, m.groupdict()
-    raise KeyError("no parameter mapping for %r" % name)
+def _match_in(rules, name, side):
+    for rule in rules:
+        if rule[side] is not None:
+            m = rule[side].fullmatch(name)
+            if m is not None:
+                return rule, m.groupdict()
+    return None
+
+
+def _rules(names, side):
+    """The rules of the first map that covers every name."""
+    names = list(names)
+    for rules in _COMPILED.values():
+        if all(_match_in(rules, n, side) for n in names):
+            return rules
+    raise KeyError(
+        "no parameter mapping for %r: no one weight map covers them all"
+        % (names,)
+    )
+
+
+def _match(rules, name, side):
+    found = _match_in(rules, name, side)
+    if found is None:
+        raise KeyError("no parameter mapping for %r" % name)
+    return found
 
 
 def _as_torch(value):
@@ -120,8 +198,11 @@ def _as_torch(value):
 def to_state_dict(named):
     """{reference path: array} -> {state_dict key: torch tensor}."""
     state = {}
+    rules = _rules(named, 0) if named else ()
     for name, value in named.items():
-        (_, _, _, key, layout), fields = _match(name, 0)
+        (_, _, _, key, layout), fields = _match(rules, name, 0)
+        if key is None:
+            continue
         t = _as_torch(value)
         if layout == "heads_out":
             t = t.reshape(t.shape[0], -1).T
@@ -139,8 +220,9 @@ def to_named(state_dict, num_heads=None, head_dim=None):
     """{state_dict key: tensor} -> {reference path: CPU torch tensor in
     the reference's layout}."""
     named = {}
+    rules = _rules(state_dict, 1) if state_dict else ()
     for key, value in state_dict.items():
-        (_, _, ref, _, layout), fields = _match(key, 1)
+        (_, _, ref, _, layout), fields = _match(rules, key, 1)
         t = value.detach().to("cpu")
         if layout == "heads_out":
             t = t.T.reshape(t.shape[1], num_heads, head_dim)
@@ -220,7 +302,8 @@ def to_train_state(named_params, optimizer, adam=None, version=0,
 
     device = resolve_device(device)
     params = {
-        k: v.to(device) for k, v in to_state_dict(named_params).items()
+        k: v.to(device)
+        for k, v in to_state_dict(named_params).items()
     }
     state = {
         k: v.to(device) for k, v in to_state_dict(batch_stats or {}).items()

@@ -127,12 +127,18 @@ def get_model_spec(
     optimizer="optimizer",
     eval_metrics_fn="eval_metrics_fn",
     prediction_outputs_processor="PredictionOutputsProcessor",
+    build=True,
 ):
     """Resolve the full model spec from the port's zoo (``model_zoo``
     empty) or a zoo directory. ``optimizer`` resolves to the zoo's
-    ``optimizer(lr)``, which returns a factory ``params -> Optimizer``."""
+    ``optimizer(lr)``, which returns a factory ``params -> Optimizer``.
+    ``build=False`` leaves ``model`` None, for a caller that builds the
+    model through a zoo hook (``build_distributed_model``,
+    ``build_host_model``) instead of ``model_def``."""
     default_module = load_zoo_module(model_def, model_zoo)
-    model = build_model(model_def, model_params, model_zoo)
+    model = (
+        build_model(model_def, model_params, model_zoo) if build else None
+    )
     pop = _get_spec_value(
         prediction_outputs_processor, model_zoo, default_module
     )

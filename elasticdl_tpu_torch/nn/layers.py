@@ -17,6 +17,11 @@
   with -inf where XLA puts the padding (at an even size, one row and
   column after the input and none before) and then pools.
 - :func:`lecun_normal_`: flax's default kernel init.
+- :class:`Embed`: ``nn.Embed``, a ``(num_embeddings, features)`` table
+  looked up by :func:`take_rows`; :func:`embed_normal_` is its init.
+- :func:`take_rows`: ``jnp.take(table, ids, axis=0)``, a gather whose
+  gradient is the dense table gradient, as ``jnp.take``'s is under
+  ``jit``, with the reference's handling of ids outside the table.
 """
 
 import math
@@ -134,3 +139,49 @@ def lecun_normal_(weight, fan_in, generator):
         draw, 0.0, std, -2 * std, 2 * std, generator=generator
     )
     weight.copy_(draw)
+
+
+def embed_normal_(table, generator):
+    """flax's ``variance_scaling(1.0, "fan_in", "normal", out_axis=0)``
+    of a ``(rows, features)`` table: a plain normal of variance 1 /
+    features."""
+    draw = torch.randn(table.shape, device=generator.device,
+                       generator=generator)
+    table.copy_(draw.mul_(1.0 / math.sqrt(table.shape[1])))
+
+
+def take_rows(table, ids, mode="fill"):
+    """The rows of ``table`` at ``ids`` (any shape) -> ids.shape + (D,).
+
+    ``mode="fill"`` is ``jnp.take``'s default: an id in [-V, 0) counts
+    from the end, any other id outside [0, V) reads a row of NaN.
+    ``mode="zero"``: an id outside [0, V) reads a row of zeros, as the
+    reference's vocab-sharded ``psum`` lookup does (no shard owns it).
+    An id outside the table passes no gradient. The ids are checked on
+    the device, with no host sync: the plain gather would fault on the
+    card."""
+    n = table.shape[0]
+    ids = ids.long()
+    if mode == "fill":
+        ids = torch.where(ids < 0, ids + n, ids)
+    inside = (ids >= 0) & (ids < n)
+    rows = F.embedding(ids.clamp(0, n - 1), table)
+    fill = float("nan") if mode == "fill" else 0.0
+    return rows.where(inside[..., None], rows.new_full((), fill))
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: ``weight`` is the ``(num_embeddings, features)``
+    table (the reference's ``embedding``, untransposed)."""
+
+    def __init__(self, num_embeddings, features):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_embeddings, features))
+
+    def forward(self, ids):
+        return take_rows(self.weight, ids)
+
+    def init_parameters(self, generator):
+        with torch.no_grad():
+            embed_normal_(self.weight, generator)
+        return self

@@ -11,8 +11,14 @@ trainer's seed).
 checkpoint layout (common/sharded_checkpoint.py): params, model state,
 the optimizer's per-parameter state and the version.
 
-Not ported yet: more than one device (``resize``, sharded placement via
-``param_specs`` or ``mesh``); each raises ``NotImplementedError``.
+A zoo's distributed hooks hand the trainer a ``mesh`` and its
+``param_specs`` (``parallel/mesh.py``): on a mesh of one device every spec
+must be whole, and every parameter is placed whole on the card, as the
+reference places a spec that splits nothing.
+
+Not ported yet: more than one device (``resize``, a mesh of several
+devices, a spec that splits a parameter); each raises
+``NotImplementedError``.
 """
 
 import numpy as np
@@ -54,6 +60,42 @@ def place_module(module, device):
         module.to(device)
 
 
+def _check_placement(module, mesh, param_specs, device):
+    """Check that ``param_specs`` ({module: {param: spec}}) name
+    parameters of ``module`` and split none of them on ``mesh``, a mesh of
+    one device, ``device``; raises ``NotImplementedError`` for anything
+    that would split."""
+    from elasticdl_tpu_torch.parallel.mesh import (
+        flatten_specs,
+        spec_is_whole,
+    )
+
+    if mesh is None:
+        if param_specs:
+            raise _not_ported("placement by param_specs without a mesh")
+        return
+    if getattr(mesh, "size", None) != 1:
+        raise _not_ported(
+            "placement over a mesh of %s devices"
+            % getattr(mesh, "size", "unknown")
+        )
+    if torch.device(mesh.device) != device:
+        raise ValueError(
+            "the mesh's device %s is not the trainer's %s"
+            % (mesh.device, device)
+        )
+    names = dict(module.named_parameters())
+    for name, spec in flatten_specs(param_specs or {}).items():
+        if name not in names:
+            raise ValueError(
+                "param_specs names %r, not a parameter of the model" % name
+            )
+        if not spec_is_whole(spec, mesh):
+            raise _not_ported(
+                "placement that splits %s by %r" % (name, spec)
+            )
+
+
 class AllReduceTrainer:
     def __init__(
         self,
@@ -75,11 +117,10 @@ class AllReduceTrainer:
         state lives (the card unless the caller names the CPU). One
         device splits no batch, so the reference's ``batch_axis`` has no
         counterpart."""
-        if mesh is not None or param_specs:
-            raise _not_ported("placement over a mesh (mesh/param_specs)")
         if devices is not None and len(devices) != 1:
             raise _not_ported("over %d devices" % len(devices))
         self._device = resolve_device(device)
+        _check_placement(module, mesh, param_specs, self._device)
         self._module = module
         self._optimizer = optimizer
         self._seed = seed

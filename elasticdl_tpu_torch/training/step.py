@@ -162,7 +162,16 @@ def _loss_and_grads(forward, loss_fn, pol, params, state, features, labels,
         name: torch.zeros_like(leaves[name]) if g is None else g
         for name, g in zip(leaves, grads)
     }
-    return loss.detach(), grads, new_state, output.detach()
+    return loss.detach(), grads, new_state, _detached(output)
+
+
+def _detached(tree):
+    """The output tree's tensors detached (a model may return a dict)."""
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_detached(v) for v in tree)
+    return tree.detach()
 
 
 def make_grad_fn(module, loss_fn, precision=None):

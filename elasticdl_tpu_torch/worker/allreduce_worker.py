@@ -17,11 +17,16 @@ evaluation task is scored by an inference forward of the current state
 once per batch and reported to the master's round with the version the
 round pinned.
 
-Not ported yet, each raising ``NotImplementedError``: zoo modules that
-declare a mesh (``mesh_axes``) or a distributed model
-(``build_distributed_model``). Evaluation-only and prediction-only jobs
-are refused, as in the reference: the elastic worker's drain
-(``elastic_allreduce_worker.py``) serves them.
+A zoo module with ``build_distributed_model(mesh, ...)`` gets its model
+from that hook, as in the reference: the mesh is the one card
+(``parallel/mesh.create_mesh``), and ``param_shardings(mesh, ...)``, if
+the zoo has it, gives the trainer each parameter's spec, which must be
+whole on that mesh (DeepFM's HBM tables: a parameter on the card, its
+checkpoint leaf and export name its own). A zoo that declares a mesh
+layout (``mesh_axes``) raises ``NotImplementedError`` (ROADMAP A2.8 /
+A4). Evaluation-only and prediction-only jobs are refused, as in the
+reference: the elastic worker's drain (``elastic_allreduce_worker.py``)
+serves them.
 """
 
 import os
@@ -100,12 +105,13 @@ class AllReduceWorker:
         self._accum_steps = max(1, accum_steps)
         self._stub = stub
         zoo_module = load_zoo_module(model_def, model_zoo)
-        for hook in ("mesh_axes", "build_distributed_model"):
-            if hasattr(zoo_module, hook):
-                raise NotImplementedError(
-                    "zoo module %s defines %s: a mesh or distributed model "
-                    "is not ported yet" % (model_def, hook)
-                )
+        if hasattr(zoo_module, "mesh_axes"):
+            raise NotImplementedError(
+                "zoo module %s defines mesh_axes: a mesh of several axes "
+                "or devices is not ported yet (ROADMAP A2.8 / A4)"
+                % model_def
+            )
+        distributed = hasattr(zoo_module, "build_distributed_model")
         spec = get_model_spec(
             model_zoo=model_zoo,
             model_def=model_def,
@@ -114,13 +120,34 @@ class AllReduceWorker:
             loss=loss,
             optimizer=optimizer,
             eval_metrics_fn=eval_metrics_fn,
+            build=not distributed,
         )
         self._dataset_fn = spec.dataset_fn
         from elasticdl_tpu_torch.training.step import parse_remat
 
+        mesh, param_specs = None, None
+        if distributed:
+            # the zoo's model for the ALLREDUCE strategy (the reference's
+            # ModelHandler rewrite): built for a mesh, here the one card
+            from elasticdl_tpu_torch.common.device import resolve_device
+            from elasticdl_tpu_torch.common.model_utils import (
+                get_dict_from_params_str,
+            )
+            from elasticdl_tpu_torch.parallel.mesh import create_mesh
+
+            params_dict = get_dict_from_params_str(model_params) or {}
+            mesh = create_mesh(devices=[resolve_device(device)])
+            spec.model = zoo_module.build_distributed_model(
+                mesh=mesh, **params_dict
+            )
+            if hasattr(zoo_module, "param_shardings"):
+                param_specs = zoo_module.param_shardings(
+                    mesh, **params_dict
+                )
         self.trainer = AllReduceTrainer(
             spec.model, spec.loss, spec.optimizer(), devices=devices,
-            seed=seed, accum_steps=accum_steps, precision=precision,
+            seed=seed, mesh=mesh, param_specs=param_specs,
+            accum_steps=accum_steps, precision=precision,
             remat=parse_remat(remat), device=device,
         )
         self._model = spec.model

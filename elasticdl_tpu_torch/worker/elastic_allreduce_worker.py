@@ -84,11 +84,19 @@ digest and the process's flash-attention launches). The digests are
 has a ``standby`` event, and a training job's, one ``eval`` event per
 scored task.
 
-Not ported, each raising ``NotImplementedError``: sharded, pjit and
-pipelined models (zoo hooks ``mesh_axes`` and
-``build_distributed_model``), with the collective evaluation
-(``_collective_evaluate``) that scores them in a training job, and the
-world-size rounding's spare members (the replicated plane rounds to 1).
+A zoo with sharded parameters (``build_distributed_model``) is scored as
+the reference scores it: through its host twin (``build_host_model``,
+whole tables and plain gathers) against ``--checkpoint_dir``, the only
+source the twin takes (without it the job raises ``ValueError``), or,
+without a twin, through the degenerate ``build_distributed_model(
+mesh=None)``. Both are built from the job's ``--model_params``.
+
+Not ported, each raising ``NotImplementedError``: training sharded,
+pjit and pipelined models on the elastic plane (zoo hooks ``mesh_axes``
+and ``build_distributed_model``, ROADMAP A2.8), with the collective
+evaluation (``_collective_evaluate``) that scores them in a training job,
+and the world-size rounding's spare members (the replicated plane rounds
+to 1).
 """
 
 import json
@@ -200,11 +208,19 @@ class ElasticAllReduceWorker:
         remat="",
         device="cuda",
     ):
+        self._serving_only = job_type in (
+            JobType.EVALUATION_ONLY,
+            JobType.PREDICTION_ONLY,
+        )
+        zoo_module = load_zoo_module(model_def, model_zoo)
         for hook in ("mesh_axes", "build_distributed_model"):
-            if hasattr(load_zoo_module(model_def, model_zoo), hook):
+            if hasattr(zoo_module, hook) and not (
+                self._serving_only and hook == "build_distributed_model"
+            ):
                 raise NotImplementedError(
-                    "zoo module %s defines %s: a mesh or distributed model "
-                    "is not ported yet%s" % (
+                    "zoo module %s defines %s: the sharded elastic plane "
+                    "(a mesh or distributed model) is not ported yet "
+                    "(ROADMAP A2.8)%s" % (
                         model_def, hook,
                         ", nor the collective evaluation "
                         "(_collective_evaluate) that scores it"
@@ -212,10 +228,6 @@ class ElasticAllReduceWorker:
                         else "",
                     )
                 )
-        self._serving_only = job_type in (
-            JobType.EVALUATION_ONLY,
-            JobType.PREDICTION_ONLY,
-        )
         if self._serving_only and not (
             checkpoint_dir or checkpoint_filename_for_init
         ):
@@ -225,6 +237,21 @@ class ElasticAllReduceWorker:
                 "--checkpoint_filename_for_init (an exported model file)"
                 % job_type
             )
+        # a zoo with a host twin (build_host_model) is scored through it
+        # against sharded checkpoints; one without the twin with the
+        # degenerate (mesh=None) distributed form
+        host_twin = self._serving_only and hasattr(
+            zoo_module, "build_host_model"
+        )
+        if host_twin and not checkpoint_dir:
+            raise ValueError(
+                "%s for sharded-parameter model %s needs --checkpoint_dir "
+                "(sharded checkpoints); an exported model file cannot feed "
+                "the host-twin forward" % (job_type, model_def)
+            )
+        distributed = self._serving_only and hasattr(
+            zoo_module, "build_distributed_model"
+        )
         self._worker_id = worker_id
         self._job_type = job_type
         self._minibatch_size = minibatch_size
@@ -239,9 +266,20 @@ class ElasticAllReduceWorker:
             optimizer=optimizer,
             eval_metrics_fn=eval_metrics_fn,
             prediction_outputs_processor=prediction_outputs_processor,
+            build=not (host_twin or distributed),
         )
         self._dataset_fn = spec.dataset_fn
         self._model = spec.model
+        if host_twin or distributed:
+            from elasticdl_tpu_torch.common.model_utils import (
+                get_dict_from_params_str,
+            )
+
+            extra = get_dict_from_params_str(model_params) or {}
+            self._model = (
+                zoo_module.build_host_model(**extra) if host_twin
+                else zoo_module.build_distributed_model(mesh=None, **extra)
+            )
         self._prediction_outputs_processor = spec.prediction_outputs_processor
         self._init_ckpt_file = checkpoint_filename_for_init
         self._checkpoint_dir = checkpoint_dir
@@ -468,9 +506,8 @@ class ElasticAllReduceWorker:
     # -- scoring -------------------------------------------------------------
 
     def _serving_forward(self, features):
-        """Inference forward over the saved params, loaded on first use.
-        (Sharded-parameter zoos, which the reference scores through a
-        host twin, are not ported.)"""
+        """Inference forward over the saved params, loaded on first use
+        (a sharded-parameter zoo's host twin is ``self._model``)."""
         if self._eval_params is None:
             self._load_eval_only_params()
         if self._forward_fn is None:

@@ -7,7 +7,9 @@ elasticdl_tpu_torch.worker.main``) in a gloo world.
   successful reports, SAVE_MODEL included), both workers exit 0, both
   ranks end with the same state bits at a version equal to their steps
   with a live rank, the newest checkpoint restores bitwise (its state's
-  digest recorded when it was saved), the export exists.
+  digest recorded when it was saved), the export exists; for the MNIST
+  CNN and for the CIFAR-10 CNN (``cifar10_subclass`` on cifar-shaped
+  records, the reference's "cifar10_subclass (allreduce mode)").
 - The kill drill: worker 1 is SIGKILLed once the version reaches 4; the
   survivor's step breaks, the world re-forms, the relaunched worker joins
   with the survivor's state bits, and the job completes with every task
@@ -56,6 +58,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MNIST = "mnist_subclass.mnist_subclass.CustomModel"
+CIFAR10 = "cifar10_subclass.cifar10_subclass.CustomModel"
 RECORDS = 2048  # over the zoo's 1024-record shuffle buffer: both get data
 BATCH = 16
 PER_TASK = 2  # minibatches per task
@@ -174,7 +177,7 @@ SUPERVISOR = textwrap.dedent(
 )
 
 
-def _write_records(data_dir):
+def _write_records(data_dir, pixels=784):
     from elasticdl_tpu_torch.data.example import encode_example
     from elasticdl_tpu_torch.data.recordio import RecordIOWriter
 
@@ -183,7 +186,7 @@ def _write_records(data_dir):
     with RecordIOWriter(os.path.join(data_dir, "f0")) as w:
         for _ in range(RECORDS):
             w.write(encode_example({
-                "image": rng.random(784, dtype=np.float32) * 255,
+                "image": rng.random(pixels, dtype=np.float32) * 255,
                 "label": np.array([rng.integers(0, 10)], np.int64),
             }))
 
@@ -192,6 +195,13 @@ def _write_records(data_dir):
 def data_dir(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("elastic-job") / "data")
     _write_records(d)
+    return d
+
+
+@pytest.fixture(scope="module")
+def cifar_data_dir(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("elastic-job-cifar") / "data")
+    _write_records(d, pixels=32 * 32 * 3)
     return d
 
 
@@ -224,12 +234,12 @@ def _launch(script, cfg):
 
 
 def _run_job(tmp, data_dir, epochs=1, action=None, victim=None,
-             ckpt="ckpt", name="run", extra=()):
+             ckpt="ckpt", name="run", extra=(), model_def=MNIST):
     out = os.path.join(tmp, name)
     argv = [
         "train", "--job_name", "elastic", "--distribution_strategy",
         "AllreduceStrategy", "--num_workers", "2", "--model_zoo", "",
-        "--model_def", MNIST, "--training_data", data_dir,
+        "--model_def", model_def, "--training_data", data_dir,
         "--minibatch_size", str(BATCH), "--num_minibatches_per_task",
         str(PER_TASK), "--num_epochs", str(epochs),
         "--checkpoint_dir", os.path.join(tmp, ckpt),
@@ -275,14 +285,13 @@ def _final(events):
     return final
 
 
-def _checkpoint_digest(directory):
+def _checkpoint_digest(directory, model_def=MNIST):
     """(version, digest) of a checkpoint restored into a fresh model."""
-    from elasticdl_tpu_torch.model_zoo.mnist_subclass import (
-        mnist_subclass as zoo,
-    )
+    from elasticdl_tpu_torch.common.model_utils import load_zoo_module
     from elasticdl_tpu_torch.parallel.elastic import state_digest
     from elasticdl_tpu_torch.parallel.trainer import AllReduceTrainer
 
+    zoo = load_zoo_module(model_def)
     fresh = AllReduceTrainer(zoo.CustomModel(), zoo.loss, zoo.optimizer(),
                              seed=3, device="cpu")
     fresh.init_from_batch(None)
@@ -290,8 +299,13 @@ def _checkpoint_digest(directory):
     return version, state_digest(fresh.train_state)
 
 
-def test_clean_job_trains_in_lockstep_and_checkpoints(tmp_path, data_dir):
-    r = _run_job(str(tmp_path), data_dir)
+@pytest.mark.parametrize("model_def", [MNIST, CIFAR10],
+                         ids=["mnist_subclass", "cifar10_subclass"])
+def test_clean_job_trains_in_lockstep_and_checkpoints(tmp_path, model_def,
+                                                      request):
+    data = request.getfixturevalue(
+        "cifar_data_dir" if model_def == CIFAR10 else "data_dir")
+    r = _run_job(str(tmp_path), data, model_def=model_def)
     _assert_every_task_once(r, 1)
     assert r["exit_codes"] == {"0": 0, "1": 0}
     tl = r["timeline"]
@@ -311,7 +325,7 @@ def test_clean_job_trains_in_lockstep_and_checkpoints(tmp_path, data_dir):
     assert saved and not _events(tl[1], "checkpoint")
     newest = max(saved)
     version, digest = _checkpoint_digest(
-        os.path.join(str(tmp_path), "ckpt", "ckpt_v%d" % newest)
+        os.path.join(str(tmp_path), "ckpt", "ckpt_v%d" % newest), model_def
     )
     assert version == newest and digest == saved[newest]
 

@@ -77,10 +77,18 @@ def test_every_port_module_imports_without_jax():
     # metrics/, the zoo's ResNet-50 and MNIST modules, the elastic job's
     # socket transport, membership, instance manager, process groups,
     # elastic trainer and worker entry, and the master's journal and the
-    # failover channel among them)
-    assert count >= 73
-    assert "elasticdl_tpu_torch.master.journal" in proc.stdout
-    assert "elasticdl_tpu_torch.rpc.failover" in proc.stdout
+    # failover channel among them, and the zoo that needs no PS fleet with
+    # the one-card HBM embedding plane)
+    assert count >= 87
+    for name in ("master.journal", "rpc.failover", "nn.hbm_embedding",
+                 "nn.comm_plane", "parallel.mesh",
+                 "model_zoo.mnist_functional_api.mnist_functional_api",
+                 "model_zoo.cifar10_subclass.cifar10_subclass",
+                 "model_zoo.cifar10_functional_api.cifar10_functional_api",
+                 "model_zoo.resnet50_subclass.resnet50_subclass",
+                 "model_zoo.deepfm_functional_api.deepfm_functional_api",
+                 "model_zoo.deepfm_edl_embedding.deepfm_edl_embedding"):
+        assert "elasticdl_tpu_torch." + name in proc.stdout.split(), name
 
 
 def test_the_job_runs_with_jax_and_grpc_blocked(tmp_path):
