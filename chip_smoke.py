@@ -90,7 +90,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
    final bits). Job examples/s after the first step, peak memory and the
    rounds' seconds are recorded. No flash kernel launches
    (``launches_by_path.zoo`` = 0).
-9. elastic — the multi-process elastic ALLREDUCE job through the port's
+9. ps      — the ParameterServerStrategy job on the master-held model
+   through the port's command line with no strategy flag. P1: DeepFM at
+   its zoo width with both tables on the PS plane (the master's store),
+   b1024 on 16,384 training and 4,096 validation records (ids from
+   1,048,576, a tenth 0), sync, a round and a checkpoint every 8
+   versions, ``--output``, then ``evaluate`` from the export: every task
+   done once, the version equal to the accepted gradients, finite losses,
+   the store holding exactly the ids seen, the newest checkpoint restoring
+   the held model and the tables bitwise, ``evaluate`` reading the last
+   round's metrics; examples/s after the first step, the step's split
+   (``get_model``, plan, the rows' pull, compute with its CUDA-event
+   time, ``report_gradient`` with the master's apply, the host's parse),
+   the master's dense and sparse apply, the store's rows and bytes, peak
+   memory, round seconds. A profiled window of three steps of a second
+   run (the device's idle share). The sync job on the card against the
+   CPU from one init, tasks unshuffled (dense params and touched rows
+   within 1e-4 relative L2); one batch through the PS plane against PR
+   9's HBM plane from the same weights (outputs within 1e-5 relative L2,
+   after one SGD step the touched rows within 1e-6, the untouched ones
+   unchanged). P2: two worker processes, ``--use_async --get_model_steps
+   2``, ten epochs, worker 1 SIGKILLed at version 8 and relaunched: every
+   task done once an epoch, kill -> the relaunched worker's first
+   accepted gradient (the workers' timelines). P3: mnist_functional_api
+   b64 on 1,024 + 256 records. No flash kernel launches
+   (``launches_by_path.ps`` = 0: this process's, and those that P2's
+   worker processes report in their timelines' last event).
+10. elastic — the multi-process elastic ALLREDUCE job through the port's
    command line with ``--num_workers 2``: the master in this process,
    two worker processes sharing the card in one process world (gloo:
    NCCL refuses two ranks on one device; on a host with a card for each
@@ -135,12 +161,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
    report their flash launches, by run (``launches_by_path`` ``elastic``
    for A and B, ``elastic_master_kill``, ``elastic_standby`` and
    ``elastic_eval``, each 0).
-10. summary — the kernels line, the card line, then the result line.
+11. summary — the kernels line, the card line, then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
-non-zero and prints no result. ``--elastic-only`` runs phases 1 and 9
-alone, ``--zoo-only`` phases 1 and 8, and neither prints the result
-line.
+non-zero and prints no result. ``--elastic-only`` runs phases 1 and 10
+alone, ``--zoo-only`` phases 1 and 8, ``--ps-only`` phases 1 and 9, and
+none of them prints the result line.
 """
 
 import argparse
@@ -3084,6 +3110,773 @@ def _zoo_only(torch):
 
 
 # ---------------------------------------------------------------------------
+# ps: the ParameterServerStrategy job on the master-held model
+# ---------------------------------------------------------------------------
+
+PS_DEEPFM = "deepfm_edl_embedding.deepfm_edl_embedding.custom_model"
+PS_MNIST = "mnist_functional_api.mnist_functional_api.custom_model"
+PS_RECORDS = 16384  # DeepFM at its zoo width: 16 b1024 steps an epoch
+PS_VAL_RECORDS = 4096
+PS_BATCH = 1024
+PS_EVAL_STEPS = 8  # a round and a checkpoint every 8 versions
+PS_MNIST_RECORDS = (1024, 256, 64)  # train, validation, batch
+PS_ASYNC_EPOCHS = 10  # Run P2: enough work left for the relaunch
+PS_KILL_AT_VERSION = 8
+PS_JOB_LIMIT_S = 240
+PS_CARD_CPU_RECORDS = 4096  # the sync job on the card and on the CPU
+PS_CARD_CPU_TOL = 1e-4  # relative L2, dense params and touched rows
+PS_HBM_TOL = {"outputs": 1e-5, "rows": 1e-6, "dense": 1e-5}
+PS_PROFILE_STEPS = (2, 5)  # profiled window: before step 2 to before 5
+PS_PROFILE_RECORDS = 6144
+
+
+def _frappe_ids(n, seed):
+    """``n`` rows of 10 ids from ZOO_VOCAB (ZOO_DEEPFM_ZEROS of them 0)
+    and their 0/1 labels, as ``_zoo_records`` draws them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, ZOO_VOCAB, (n, 10), dtype=np.int64)
+    ids[rng.random((n, 10)) < ZOO_DEEPFM_ZEROS] = 0
+    return ids, rng.integers(0, 2, n)
+
+
+def _ps_argv(verb, model_def, batch, *extra):
+    """A job of the ParameterServerStrategy: no strategy flag."""
+    return [
+        verb,
+        "--job_name", "chip-smoke-ps-" + verb,
+        "--model_zoo", "",
+        "--model_def", model_def,
+        "--minibatch_size", str(batch),
+        "--num_minibatches_per_task", "2",
+        "--device", DEVICE,
+        "--log_level", "WARNING",
+    ] + list(extra)
+
+
+class _PsSpies:
+    """While installed: the training tasks the dispatcher marks done, the
+    servicer's accepted gradients, and each evaluation round's seconds
+    (created -> published); ``on_step(i)`` runs before the worker's
+    training minibatch i (from 0), whose (start, end) land in ``spans``."""
+
+    def __init__(self, on_step=None):
+        from elasticdl_tpu_torch.master import evaluation_service as es
+        from elasticdl_tpu_torch.master import servicer as sv
+        from elasticdl_tpu_torch.master import task_dispatcher as td
+        from elasticdl_tpu_torch.worker import worker as wk
+
+        self._patches = [
+            (td.TaskDispatcher, "_mark_done_locked"),
+            (sv.MasterServicer, "report_gradient"),
+            (es.EvaluationService, "try_to_create_new_job"),
+            (es.EvaluationService, "_publish_summary"),
+            (wk.Worker, "_process_minibatch"),
+        ]
+        self._saved = [getattr(c, n) for c, n in self._patches]
+        self.done, self.accepted, self.rounds, self.spans = [], [0], [], []
+        self._round_t0 = []
+        self._on_step = on_step
+
+    def __enter__(self):
+        spies = self
+        mark, report, create, publish, minibatch = self._saved
+
+        def mark_done(d, task, meta):
+            spies.done.append((task.shard_name, task.start, task.end,
+                               int(task.type)))
+            return mark(d, task, meta)
+
+        def report_gradient(s, gradients, version):
+            ok, v = report(s, gradients, version)
+            spies.accepted[0] += bool(ok)
+            return ok, v
+
+        def try_create(e):
+            created = create(e)
+            if created:
+                spies._round_t0.append(time.perf_counter())
+            return created
+
+        def published(e, round_):
+            publish(e, round_)
+            if spies._round_t0:
+                spies.rounds.append(
+                    time.perf_counter() - spies._round_t0.pop(0))
+
+        def process(w, task_type, *args, **kwargs):
+            from elasticdl_tpu_torch.common.constants import TaskType
+
+            if task_type != TaskType.TRAINING:
+                return minibatch(w, task_type, *args, **kwargs)
+            if spies._on_step is not None:
+                spies._on_step(len(spies.spans))
+            t0 = time.perf_counter()
+            try:
+                return minibatch(w, task_type, *args, **kwargs)
+            finally:
+                spies.spans.append((t0, time.perf_counter()))
+
+        for (cls, name), fn in zip(self._patches, (
+                mark_done, report_gradient, try_create, published, process)):
+            setattr(cls, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (cls, name), fn in zip(self._patches, self._saved):
+            setattr(cls, name, fn)
+
+    def training_done(self):
+        from elasticdl_tpu_torch.common.constants import TaskType
+
+        return [d for d in self.done if d[3] == int(TaskType.TRAINING)]
+
+
+def _ps_split(worker):
+    """Median seconds (ms) of each phase of the worker's accepted steps
+    after the first, and the host parse per batch."""
+    splits = worker.step_splits[1:]
+    out = {}
+    for key in ("get_model", "plan", "pull", "compute", "report"):
+        out[key + "_ms"] = _median([s.get(key, 0.0) * 1e3 for s in splits])
+    out["compute_device_ms"] = _median(
+        [s["compute_device_ms"] for s in splits if "compute_device_ms" in s])
+    stats = worker.input_stats.snapshot()
+    if stats.get("batches"):
+        out["parse_ms_per_batch"] = stats["parse_s"] * 1e3 / stats["batches"]
+    return out
+
+
+def _ps_examples_per_s(spans, rounds_s, batch):
+    """Examples/s from the end of the first step to the end of the last,
+    less the rounds run between them."""
+    if len(spans) < 2:
+        return None
+    wall = spans[-1][1] - spans[0][1] - sum(rounds_s)
+    return (len(spans) - 1) * batch / wall if wall > 0 else None
+
+
+def _store_ids(master):
+    store = master.master_servicer.embedding_store.embedding_params
+    return {name: set(t.embedding_vectors) for name, t in store.items()}
+
+
+def _ps_restore_check(torch, master, ckpt_dir):
+    """The newest checkpoint restored into a fresh servicer: the held
+    model and every table bitwise the live ones (a list of problems)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.master.servicer import MasterServicer
+    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+    from elasticdl_tpu_torch.model_zoo.deepfm_edl_embedding import (
+        deepfm_edl_embedding as zoo,
+    )
+
+    live = master.master_servicer
+    files = sorted(
+        (int(f[len("model_v"):-len(".chkpt")]), f)
+        for f in os.listdir(ckpt_dir) if f.startswith("model_v")
+    )
+    version, newest = files[-1]
+    if version != live.get_model_version():
+        return ["the newest checkpoint is v%d, the job ended at v%d"
+                % (version, live.get_model_version())]
+    fresh = MasterServicer(
+        1, PS_BATCH, zoo.optimizer(), TaskDispatcher({}, {}, {}, 1, 1),
+        checkpoint_filename_for_init=os.path.join(ckpt_dir, newest),
+        device=DEVICE,
+    )
+    problems = []
+    _, got = fresh.get_model(version)
+    _, want = live.get_model(version)
+    if sorted(got) != sorted(want) or not all(
+            np.array_equal(got[k], want[k]) for k in want):
+        problems.append("restored dense params differ")
+    for name, table in fresh.embedding_store.embedding_params.items():
+        ids, rows = table.snapshot()
+        if not np.array_equal(
+                rows, live.embedding_store.get_embedding_param(name, ids)):
+            problems.append("restored table %s differs" % name)
+    if sorted(fresh.embedding_store.embedding_params) != sorted(
+            live.embedding_store.embedding_params):
+        problems.append("restored tables %s" % sorted(
+            fresh.embedding_store.embedding_params))
+    return problems
+
+
+def _ps_in_process(torch, tmp, card):
+    """Run P1: the DeepFM job in this process with no strategy flag (sync,
+    grads_to_wait 1), a round and a checkpoint every PS_EVAL_STEPS
+    versions, ``--output``; then ``evaluate`` from the export. Returns
+    (record, problems)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch import cli
+
+    data, val = os.path.join(tmp, "ps-data"), os.path.join(tmp, "ps-val")
+    ckpt, out = os.path.join(tmp, "ps-ckpt"), os.path.join(tmp, "ps-out")
+    problems = []
+    torch.cuda.reset_peak_memory_stats()
+    # earlier phases' tensors that are still alive count in the peak
+    base = torch.cuda.memory_allocated() / 2**20
+    jobs = []
+    t0 = time.perf_counter()
+    with _PsSpies() as spies:
+        rc = cli.main(_ps_argv(
+            "train", PS_DEEPFM, PS_BATCH, "--training_data", data,
+            "--validation_data", val, "--evaluation_steps",
+            str(PS_EVAL_STEPS), "--checkpoint_dir", ckpt,
+            "--checkpoint_steps", str(PS_EVAL_STEPS), "--output", out,
+        ), jobs=jobs)
+    job_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    job = jobs[0]
+    master, worker = job.master, job.worker
+    servicer = master.master_servicer
+    steps = PS_RECORDS // PS_BATCH
+    version = servicer.get_model_version()
+    if rc != 0 or not master.task_d.finished():
+        problems.append("train rc=%s finished=%s" % (
+            rc, master.task_d.finished()))
+    if version != steps or spies.accepted[0] != version:
+        problems.append("version %d, accepted %d, steps %d" % (
+            version, spies.accepted[0], steps))
+    done = spies.training_done()
+    if len(done) != len(set(done)) or len(done) != steps // 2:
+        problems.append("training tasks done %d (%d distinct), want %d"
+                        % (len(done), len(set(done)), steps // 2))
+    losses = job.losses or []
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        problems.append("losses %s" % losses)
+    # the store holds exactly the ids the job saw (training and rounds)
+    seen = set()
+    for n, seed in ((PS_RECORDS, SEED + 40), (PS_VAL_RECORDS, SEED + 41)):
+        seen.update(np.unique(_frappe_ids(n, seed)[0]).tolist())
+    ids = _store_ids(master)
+    if ids != {"embedding": seen, "id_bias": seen}:
+        problems.append("store ids %s, seen %d" % (
+            {k: len(v) for k, v in ids.items()}, len(seen)))
+    problems += _ps_restore_check(torch, master, ckpt)
+    rounds = master.evaluation_service.published
+    if [r["version"] for r in rounds] != list(
+            range(PS_EVAL_STEPS, steps + 1, PS_EVAL_STEPS)) or not all(
+            0.0 <= r["metrics"]["probs"]["auc"] <= 1.0 for r in rounds):
+        problems.append("rounds %s" % rounds)
+    # evaluate from the export: the final round's metrics
+    export = os.path.join(out, sorted(os.listdir(out))[-1])
+    ejobs = []
+    t1 = time.perf_counter()
+    erc = cli.main(_ps_argv(
+        "evaluate", PS_DEEPFM, PS_BATCH, "--validation_data", val,
+        "--checkpoint_filename_for_init", export), jobs=ejobs)
+    eval_s = time.perf_counter() - t1
+    scored = ejobs[0].master.evaluation_service.published if ejobs else []
+    if erc != 0 or not scored or not rounds:
+        problems.append("evaluate rc=%s %s" % (erc, scored))
+    else:
+        got, want = scored[0]["metrics"], rounds[-1]["metrics"]
+        if (abs(got["logits"]["accuracy"] - want["logits"]["accuracy"])
+                > 2.0 / PS_VAL_RECORDS
+                or abs(got["probs"]["auc"] - want["probs"]["auc"]) > 1e-3):
+            problems.append("evaluate %s against the last round %s"
+                            % (got, want))
+    store = servicer.embedding_store.embedding_params
+    rows = sum(len(t) for t in store.values())
+    rec = {
+        "phase": "ps", "of": "in_process", "card": card,
+        # the same calls with no input thread beside them (the job's
+        # parse runs on the prefetch thread, under the same interpreter
+        # lock)
+        "alone_ms": _ps_alone_ms(torch, worker),
+        "model": "deepfm_edl_embedding", "batch": PS_BATCH,
+        "records": PS_RECORDS, "version": version, "job_s": job_s,
+        "examples_per_s": _ps_examples_per_s(spies.spans, spies.rounds,
+                                          PS_BATCH),
+        "step_split": _ps_split(worker),
+        "step_ms_median": _median(
+            [(b - a) * 1e3 for a, b in spies.spans[1:]]),
+        "master_apply_ms_median": {
+            k: _median(list(v)) for k, v in servicer.apply_ms.items()},
+        "store": {"rows": rows, "bytes": sum(
+            len(t) * t.dim * 4 for t in store.values())},
+        "peak_mib": peak, "peak_over_start_mib": peak - base,
+        "rounds_s": spies.rounds,
+        "round_metrics": [r["metrics"] for r in rounds],
+        "evaluate_s": eval_s, "losses_first_last": [losses[0], losses[-1]]
+        if losses else None,
+    }
+    return rec, problems
+
+
+def _ps_alone_ms(torch, worker):
+    """Median ms of ``get_model`` and of the plan-and-pull of one batch
+    of seen ids, called from this thread with the job over."""
+    from elasticdl_tpu_torch.common.constants import GetModelMethod
+
+    ids, _ = _frappe_ids(PS_BATCH, SEED + 40)
+    features = {"feature": ids}
+    out = {}
+    for name, fn in (
+        ("get_model", lambda: worker.get_model(
+            worker._model_version, GetModelMethod.MINIMUM)),
+        ("plan_pull", lambda: worker._prepare_embedding_batch(features)),
+    ):
+        times = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = _median(times)
+    return out
+
+
+def _ps_profile(torch, data_dir, card):
+    """A short DeepFM job with torch.profiler on from before step
+    PS_PROFILE_STEPS[0] to before step PS_PROFILE_STEPS[1]: the device's
+    idle share of that window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from elasticdl_tpu_torch import cli
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    first, last = PS_PROFILE_STEPS
+    marks = {}
+
+    def on_step(i):
+        if i in (first, last):
+            torch.cuda.synchronize()
+            marks[i] = time.perf_counter()
+            (prof.start if i == first else prof.stop)()
+
+    with _PsSpies(on_step):
+        rc = cli.main(_ps_argv("train", PS_DEEPFM, PS_BATCH,
+                               "--training_data", data_dir))
+    if rc != 0 or last not in marks:
+        raise PhaseError("the profiled ps job ended rc=%s before step %d"
+                         % (rc, last))
+    return dict(
+        _window_record(torch, prof, (marks[last] - marks[first]) * 1e3),
+        phase="ps", of="profile", steps=[first, last], batch=PS_BATCH,
+        card=card,
+    )
+
+
+def _ps_async_kill(torch, tmp, card):
+    """Run P2: two worker processes, ``--use_async --get_model_steps 2``,
+    worker 1 SIGKILLed at PS_KILL_AT_VERSION and relaunched. Returns
+    (record, problems)."""
+    import json as _json
+    import threading as _threading
+
+    from elasticdl_tpu_torch import cli
+
+    data = os.path.join(tmp, "ps-data")
+    timeline = os.path.join(tmp, "ps-timeline")
+    os.environ["EDL_WORKER_TIMELINE_DIR"] = timeline
+    problems, jobs, result = [], [], []
+    with _PsSpies() as spies:
+        def run():
+            try:
+                result.append(cli.main(_ps_argv(
+                    "train", PS_DEEPFM, PS_BATCH, "--training_data", data,
+                    "--num_epochs", str(PS_ASYNC_EPOCHS),
+                    "--num_workers", "2", "--use_async", "true",
+                    "--get_model_steps", "2", "--restart_policy", "Always",
+                ), jobs=jobs))
+            except Exception as err:  # noqa: BLE001 — checked below
+                result.append(err)
+
+        t0 = time.perf_counter()
+        thread = _threading.Thread(target=run, daemon=True)
+        thread.start()
+        deadline = time.monotonic() + PS_JOB_LIMIT_S
+        kill_t = None
+        while thread.is_alive() and time.monotonic() < deadline:
+            if jobs and kill_t is None and (
+                    jobs[0].master.master_servicer.get_model_version()
+                    >= PS_KILL_AT_VERSION):
+                jobs[0].master.instance_manager.kill_worker(1)
+                kill_t = time.time()
+            time.sleep(0.01)
+        if thread.is_alive():
+            if jobs:
+                jobs[0].master.request_stop()
+            thread.join(30)
+            raise PhaseError("the async ps job hung past %d s"
+                             % PS_JOB_LIMIT_S)
+        job_s = time.perf_counter() - t0
+    os.environ.pop("EDL_WORKER_TIMELINE_DIR", None)
+    master = jobs[0].master
+    codes = master.instance_manager.exit_codes
+    steps = PS_ASYNC_EPOCHS * PS_RECORDS // PS_BATCH
+    version = master.master_servicer.get_model_version()
+    done = spies.training_done()
+    if result != [0] or not master.task_d.finished() or kill_t is None:
+        problems.append("async job %s, finished %s, killed %s" % (
+            result, master.task_d.finished(), kill_t is not None))
+    if codes.get(1) != -9 or codes.get(0) != 0 or codes.get(2) != 0:
+        problems.append("exit codes %s" % codes)
+    tasks = PS_RECORDS // (2 * PS_BATCH)
+    if len(set(done)) != tasks or any(
+            done.count(t) != PS_ASYNC_EPOCHS for t in set(done)):
+        problems.append("training tasks done %d (%d distinct), want %d "
+                        "%d times each" % (len(done), len(set(done)), tasks,
+                                           PS_ASYNC_EPOCHS))
+    if version != spies.accepted[0] or version < steps:
+        problems.append("version %d, accepted %d, steps %d" % (
+            version, spies.accepted[0], steps))
+    events = {}
+    for name in sorted(os.listdir(timeline)) if os.path.isdir(timeline) \
+            else []:
+        with open(os.path.join(timeline, name)) as f:
+            events[name] = [_json.loads(line) for line in f]
+    relaunch = events.get("worker-2.jsonl", [])
+    first_step = next((e["t"] for e in relaunch if e["event"] == "step"),
+                      None)
+    start = next((e["t"] for e in relaunch if e["event"] == "start"), None)
+    if first_step is None:
+        problems.append("the relaunched worker took no accepted step")
+    steps_by = {n: sum(e["event"] == "step" for e in ev)
+                for n, ev in events.items()}
+    # each worker process's flash launches, as its last event counted them
+    # (the killed worker's too, up to its last accepted step)
+    launches = {k: 0 for k in KERNELS}
+    for name in ("worker-0.jsonl", "worker-1.jsonl", "worker-2.jsonl"):
+        last = [e["launches"] for e in events.get(name, [])
+                if "launches" in e]
+        if not last:
+            problems.append("%s reported no launch counts" % name)
+            continue
+        for k, n in last[-1].items():
+            launches[k] += n
+    step_t = sorted(e["t"] for ev in events.values() for e in ev
+                    if e["event"] == "step")
+    rec = {
+        "phase": "ps", "of": "async_two_workers_kill", "card": card,
+        "epochs": PS_ASYNC_EPOCHS, "version": version,
+        "accepted": spies.accepted[0], "job_s": job_s,
+        # from the first accepted step (of either worker) to the last
+        "examples_per_s": (len(step_t) - 1) * PS_BATCH
+        / (step_t[-1] - step_t[0]) if len(step_t) > 1 else None,
+        "exit_codes": {str(k): v for k, v in codes.items()},
+        "kill_at_version": PS_KILL_AT_VERSION,
+        "kill_to_relaunch_start_s": (start - kill_t) if start and kill_t
+        else None,
+        "kill_to_relaunch_first_accepted_s": (first_step - kill_t)
+        if first_step and kill_t else None,
+        "accepted_steps_by_worker": steps_by,
+        "worker_flash_launches": launches,
+        "master_apply_ms_median": {
+            k: _median(list(v))
+            for k, v in master.master_servicer.apply_ms.items()},
+    }
+    return rec, problems
+
+
+def _ps_init_var(torch):
+    """One set of dense weights for the PS-plane DeepFM (the port's seeded
+    init, on the CPU), under the reference's names."""
+    from elasticdl_tpu_torch.common import convert
+    from elasticdl_tpu_torch.model_zoo.deepfm_edl_embedding import (
+        deepfm_edl_embedding as zoo,
+    )
+
+    model = zoo.custom_model()
+    model.init_parameters(torch.Generator().manual_seed(SEED))
+    return {k: v.numpy() for k, v in convert.to_named(
+        dict(model.named_parameters())).items()}
+
+
+def _ps_direct_job(torch, data_dir, device, init_var):
+    """The sync DeepFM job assembled by hand (dispatcher, servicer,
+    worker) on ``device``, tasks unshuffled; returns the servicer."""
+    from elasticdl_tpu_torch.common.constants import JobType
+    from elasticdl_tpu_torch.master.master import _make_task_dispatcher
+    from elasticdl_tpu_torch.master.servicer import MasterServicer
+    from elasticdl_tpu_torch.model_zoo.deepfm_edl_embedding import (
+        deepfm_edl_embedding as zoo,
+    )
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    task_d = _make_task_dispatcher(data_dir, "", "", 2 * PS_BATCH, 1)
+    master = MasterServicer(1, PS_BATCH, zoo.optimizer(), task_d,
+                            init_var=init_var, device=device)
+    Worker(0, JobType.TRAINING_ONLY, PS_BATCH, "", PS_DEEPFM, stub=master,
+           device=device, loss_log_steps=0).run()
+    if not task_d.finished():
+        raise PhaseError("the hand-built ps job on %s did not finish"
+                         % device)
+    return master
+
+
+def _ps_card_vs_cpu(torch, tmp):
+    """The sync DeepFM job on the card and on the CPU from one init over
+    PS_CARD_CPU_RECORDS records, tasks unshuffled: the dense params and
+    the touched rows by relative L2. Returns (record, problems)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.data.dataset import Dataset
+
+    data = os.path.join(tmp, "ps-card-cpu")
+    ids, labels = _frappe_ids(PS_CARD_CPU_RECORDS, SEED + 42)
+    _write_frappe(data, ids, labels)
+    init_var = _ps_init_var(torch)
+    shuffle = Dataset.shuffle
+    os.environ["EDL_TASK_SHUFFLE_SEED"] = str(SEED)
+    Dataset.shuffle = lambda self, *a, **k: self
+    try:
+        masters = {d: _ps_direct_job(torch, data, d, init_var)
+                   for d in (DEVICE, "cpu")}
+    finally:
+        Dataset.shuffle = shuffle
+        os.environ.pop("EDL_TASK_SHUFFLE_SEED", None)
+    card, cpu = masters[DEVICE], masters["cpu"]
+    rel = {}
+    _, a = card.get_model(card.get_model_version())
+    _, b = cpu.get_model(cpu.get_model_version())
+    for k in b:
+        rel[k] = _np_rel(a[k], b[k])
+    for name in ("embedding", "id_bias"):
+        touched = np.array(sorted(
+            card.embedding_store.embedding_params[name].embedding_vectors))
+        rel["rows:" + name] = _np_rel(
+            card.pull_embedding_vectors(name, touched),
+            cpu.pull_embedding_vectors(name, touched))
+    ok = all(v <= PS_CARD_CPU_TOL for v in rel.values()) and (
+        card.get_model_version() == cpu.get_model_version()
+        == PS_CARD_CPU_RECORDS // PS_BATCH)
+    rec = {"phase": "ps", "of": "card_vs_cpu", "rel_l2": rel,
+           "tolerance": PS_CARD_CPU_TOL, "ok": ok}
+    return rec, ([] if ok else ["card against CPU: %s" % rel])
+
+
+def _np_rel(got, want):
+    import numpy as np
+
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want)
+                 / max(np.linalg.norm(want), 1e-30))
+
+
+def _write_frappe(data_dir, ids, labels):
+    import numpy as np
+
+    from elasticdl_tpu_torch.data.example import encode_example
+
+    _write_encoded(data_dir, [
+        encode_example({"feature": row, "label": np.array([y], np.int64)})
+        for row, y in zip(ids, labels)])
+
+
+def _ps_vs_hbm(torch, tmp):
+    """One batch on the card through the PS plane (the master's store, the
+    sync job) and through the HBM plane (PR 9's table on the card), from
+    the same weights: the outputs, then after one SGD step the touched
+    rows and the dense params; the untouched rows unchanged in both.
+    Returns (record, problems)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common import convert
+    from elasticdl_tpu_torch.model_zoo.deepfm_edl_embedding import (
+        deepfm_edl_embedding as zoo,
+    )
+    from elasticdl_tpu_torch.nn.comm_plane import plan_lookup_multi
+    from elasticdl_tpu_torch.nn.embedding import capture_embedding_ids
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.ps.embedding_table import _make_initializer
+    from elasticdl_tpu_torch.training.step import (
+        make_embedding_forward_fn,
+        make_forward_fn,
+    )
+
+    ids, labels = _frappe_ids(PS_BATCH, SEED + 43)
+    data = os.path.join(tmp, "ps-hbm")
+    _write_frappe(data, ids, labels)
+    features = {"feature": torch.from_numpy(ids)}
+    init_var = _ps_init_var(torch)
+    dense = {k: v.to(DEVICE) for k, v in convert.to_state_dict(
+        init_var).items()}
+    unique = np.unique(ids)
+    minted = {name: _make_initializer("uniform")(unique, dim)
+              for name, dim in (("embedding", 64), ("id_bias", 1))}
+
+    # the PS plane's forward over the rows the store mints
+    ps_model = zoo.custom_model().to(DEVICE)
+    (u, (idx,)) = plan_lookup_multi(
+        capture_embedding_ids(ps_model, dense, {}, features,
+                              expected_count=2)["embedding"])
+    rows = {name: torch.from_numpy(minted[name]).to(DEVICE)
+            for name in ("embedding", "id_bias")}
+    pos = torch.from_numpy(idx.astype(np.int64)).to(DEVICE)
+    ps_out = make_embedding_forward_fn(ps_model)(
+        dense, rows, {}, {"embedding": [pos], "id_bias": [pos]}, features)
+
+    # the HBM plane: the table on the card, the touched rows the store's
+    mesh = create_mesh(devices=[DEVICE])
+    hbm = zoo.build_distributed_model(mesh, vocab_size=ZOO_VOCAB).to(DEVICE)
+    hbm.init_parameters(torch.Generator(device=DEVICE).manual_seed(SEED))
+    with torch.no_grad():
+        for k, v in dense.items():
+            dict(hbm.named_parameters())[k].copy_(v)
+        for name in ("embedding", "id_bias"):
+            table = getattr(hbm, name).table
+            table[torch.from_numpy(unique).to(DEVICE)] = torch.from_numpy(
+                minted[name]).to(DEVICE)
+    before = {n: p.detach().clone() for n, p in hbm.named_parameters()}
+    params = {n: p for n, p in hbm.named_parameters()}
+    hbm_out = make_forward_fn(hbm)(params, {}, features)
+    out_rel = max(_rel_l2(torch, ps_out[k].float(), hbm_out[k].float())
+                  for k in ("logits", "probs"))
+
+    # one SGD step on each plane
+    master = _ps_direct_job(torch, data, DEVICE, init_var)
+    opt = zoo.optimizer()(list(hbm.parameters()))
+    hbm.train()
+    loss = zoo.loss(hbm(features), torch.from_numpy(labels))
+    loss.backward()
+    opt.step()
+    store = master.embedding_store.embedding_params
+    rec = {"phase": "ps", "of": "ps_vs_hbm", "outputs_rel_l2": out_rel}
+    problems = []
+    uidx = torch.from_numpy(unique).to(DEVICE)
+    row_diff = {}
+    for name in ("embedding", "id_bias"):
+        table = getattr(hbm, name).table.detach()
+        got = master.pull_embedding_vectors(name, unique)
+        row_diff[name] = float(np.abs(
+            got - table[uidx].to("cpu").numpy()).max())
+        if set(store[name].embedding_vectors) != set(unique.tolist()):
+            problems.append("the store's %s holds other ids" % name)
+        # untouched rows: the HBM table's unchanged bitwise; the store
+        # minted none of them
+        mask = torch.ones(ZOO_VOCAB, dtype=torch.bool, device=DEVICE)
+        mask[uidx] = False
+        if not torch.equal(table[mask],
+                           before[name + ".table"][mask]):
+            problems.append("untouched HBM %s rows moved" % name)
+    rec["rows_max_abs"] = row_diff
+    _, held = master.get_model(master.get_model_version())
+    dense_rel = {}
+    for k, v in convert.to_state_dict(held).items():
+        dense_rel[k] = _rel_l2(torch, v.to(DEVICE),
+                               dict(hbm.named_parameters())[k].detach())
+    rec["dense_rel_l2"] = dense_rel
+    if out_rel > PS_HBM_TOL["outputs"]:
+        problems.append("outputs %.3g" % out_rel)
+    if max(row_diff.values()) > PS_HBM_TOL["rows"]:
+        problems.append("rows %s" % row_diff)
+    if max(dense_rel.values()) > PS_HBM_TOL["dense"]:
+        problems.append("dense %s" % dense_rel)
+    rec["tolerance"] = PS_HBM_TOL
+    rec["ok"] = not problems
+    return rec, problems
+
+
+def _ps_mnist(torch, tmp, card):
+    """Run P3: mnist_functional_api in this process under the
+    ParameterServerStrategy (b64, rounds every PS_EVAL_STEPS versions).
+    Returns (record, problems)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch import cli
+
+    n_train, n_val, batch = PS_MNIST_RECORDS
+    data = os.path.join(tmp, "ps-mnist")
+    val = os.path.join(tmp, "ps-mnist-val")
+    _write_encoded(data, _zoo_records("mnist", n_train, SEED + 44))
+    _write_encoded(val, _zoo_records("mnist", n_val, SEED + 45))
+    jobs = []
+    t0 = time.perf_counter()
+    with _PsSpies() as spies:
+        rc = cli.main(_ps_argv(
+            "train", PS_MNIST, batch, "--training_data", data,
+            "--validation_data", val, "--evaluation_steps",
+            str(PS_EVAL_STEPS)), jobs=jobs)
+    job_s = time.perf_counter() - t0
+    job = jobs[0]
+    steps = n_train // batch
+    version = job.master.master_servicer.get_model_version()
+    rounds = job.master.evaluation_service.published
+    problems = []
+    if rc != 0 or version != steps or spies.accepted[0] != steps:
+        problems.append("mnist rc=%s version %d accepted %d" % (
+            rc, version, spies.accepted[0]))
+    if len(job.losses) != steps or not np.all(np.isfinite(job.losses)):
+        problems.append("mnist losses %s" % job.losses)
+    if [r["version"] for r in rounds] != list(
+            range(PS_EVAL_STEPS, steps + 1, PS_EVAL_STEPS)):
+        problems.append("mnist rounds %s" % rounds)
+    rec = {
+        "phase": "ps", "of": "mnist_in_process", "card": card,
+        "batch": batch, "version": version, "job_s": job_s,
+        "examples_per_s": _ps_examples_per_s(spies.spans, spies.rounds, batch),
+        "step_split": _ps_split(job.worker), "rounds_s": spies.rounds,
+        "round_metrics": [r["metrics"] for r in rounds],
+    }
+    return rec, problems
+
+
+def phase_ps(torch, tmp, card):
+    """The ParameterServerStrategy job on the master-held model: DeepFM at
+    its zoo width in process (P1) with its profile, card against CPU and
+    PS plane against HBM plane; two worker processes with a worker kill
+    (P2); the MNIST model in process (P3). Returns the flash kernels'
+    launches over the phase (none), this process's and P2's workers'."""
+    t0 = time.perf_counter()
+    ids, labels = _frappe_ids(PS_RECORDS, SEED + 40)
+    _write_frappe(os.path.join(tmp, "ps-data"), ids, labels)
+    ids, labels = _frappe_ids(PS_VAL_RECORDS, SEED + 41)
+    _write_frappe(os.path.join(tmp, "ps-val"), ids, labels)
+    ids, labels = _frappe_ids(PS_PROFILE_RECORDS, SEED + 46)
+    _write_frappe(os.path.join(tmp, "ps-profile"), ids, labels)
+    problems = []
+    worker_launches = {k: 0 for k in KERNELS}
+    _reset_counters()
+    for run in (
+        lambda: _ps_in_process(torch, tmp, card),
+        lambda: (_ps_profile(torch, os.path.join(tmp, "ps-profile"), card),
+                 []),
+        lambda: _ps_card_vs_cpu(torch, tmp),
+        lambda: _ps_vs_hbm(torch, tmp),
+        lambda: _ps_async_kill(torch, tmp, card),
+        lambda: _ps_mnist(torch, tmp, card),
+    ):
+        rec, bad = run()
+        emit(rec)
+        problems += bad
+        for k, n in rec.get("worker_flash_launches", {}).items():
+            worker_launches[k] += n
+        torch.cuda.empty_cache()
+    counts = {k: (n + worker_launches[k], shapes)
+              for k, (n, shapes) in _counts().items()}
+    emit({"phase": "ps", "of": "summary", "seconds":
+          time.perf_counter() - t0, "flash_launches":
+          {k: n for k, (n, _) in counts.items()}})
+    if problems:
+        raise PhaseError("ps: " + "; ".join(problems))
+    return counts
+
+
+def _ps_only(torch):
+    try:
+        card = phase_device(torch)
+        with tempfile.TemporaryDirectory() as tmp:
+            counts = phase_ps(torch, tmp, card)
+        _check_counts(counts, {k: 0 for k in KERNELS}, "the ps phase")
+    except Exception as err:  # noqa: BLE001 — reported, exit non-zero
+        import traceback
+
+        traceback.print_exc()
+        print("chip_smoke: FAILED: %s" % err, file=sys.stderr)
+        return 1
+    print(card)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # elastic: the multi-process ALLREDUCE job, two worker processes on one card
 # ---------------------------------------------------------------------------
 
@@ -4046,6 +4839,12 @@ def main(argv=None):
         help="drive only the zoo phase and print its records, not the "
         "result line",
     )
+    parser.add_argument(
+        "--ps-only",
+        action="store_true",
+        help="drive only the ps phase and print its records, not the "
+        "result line",
+    )
     args = parser.parse_args(argv)
     try:
         import torch
@@ -4068,6 +4867,8 @@ def main(argv=None):
         return _elastic_only(torch)
     if args.zoo_only:
         return _zoo_only(torch)
+    if args.ps_only:
+        return _ps_only(torch)
 
     try:
         card = phase_device(torch)
@@ -4087,6 +4888,8 @@ def main(argv=None):
                           "the eval phase")
             zoo = phase_zoo(torch, tmp, card)
             _check_counts(zoo, {k: 0 for k in KERNELS}, "the zoo phase")
+            ps = phase_ps(torch, tmp, card)
+            _check_counts(ps, {k: 0 for k in KERNELS}, "the ps phase")
             _reset_counters()
             elastic, _ = phase_elastic(torch, tmp, job_rec, card)
             # launched in the workers (which report theirs, by run) or
@@ -4101,7 +4904,7 @@ def main(argv=None):
         line = kernels_line(
             records,
             dict({"serve": served, "train": trained, "job": job,
-                  "eval": evaluated, "zoo": zoo}, **elastic),
+                  "eval": evaluated, "zoo": zoo, "ps": ps}, **elastic),
         )
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback

@@ -11,11 +11,21 @@ command line, the counterpart of ``elasticdl_tpu/api.py``'s local mode:
     python -m elasticdl_tpu_torch.cli predict ... --prediction_data P \\
         --checkpoint_filename_for_init F      # or --checkpoint_dir C
 
-``train`` with ``--num_workers 0`` runs the master (task dispatcher,
-checkpoint service, evaluation service, the coordinating servicer) and
-one ``AllReduceWorker`` in this process: ``Master(args)``, ``prepare()``,
-the worker's ``run()``, then the master's ``run()``, which queues the
-deferred SAVE_MODEL task and returns once every task is done. With
+Without ``--distribution_strategy`` (the ParameterServerStrategy, as in
+the reference) or with ``Local``, the master holds the model: ``train``
+with ``--num_workers 0`` runs it and one parameter-server worker
+(``worker/worker.py``) in this process, and with ``--num_workers N`` the
+master serves N worker processes over the socket plane; ``evaluate`` and
+``predict`` score the model the master restores from
+``--checkpoint_filename_for_init``. The local mode launches no PS pods
+(``--num_ps_pods`` is set to 0, as in the reference).
+
+Under the AllreduceStrategy, ``train`` with ``--num_workers 0`` runs the
+master (task dispatcher, checkpoint service, evaluation service, the
+coordinating servicer) and one ``AllReduceWorker`` in this process:
+``Master(args)``, ``prepare()``, the worker's ``run()``, then the
+master's ``run()``, which queues the deferred SAVE_MODEL task and
+returns once every task is done. With
 ``--num_workers N > 0`` the master serves its RPC plane and a
 ``LocalInstanceManager`` starts N worker processes (``python -m
 elasticdl_tpu_torch.worker.main``, the master's flags relayed, the
@@ -33,8 +43,8 @@ need their data flag and a model source, or they exit 2
 
 Every flag of the reference parses. Values the port cannot honour yet
 raise ``NotImplementedError``: ``--docker_image_repository`` (cluster
-submission), and, through the master, the parameter-server strategy,
-``--telemetry_port`` and ``--tensorboard_log_dir``.
+submission), and, through the master, the PS fleet, ``--telemetry_port``
+and ``--tensorboard_log_dir`` (``master.refuse_unported_planes``).
 """
 
 import os
@@ -48,9 +58,9 @@ from elasticdl_tpu_torch.common.model_utils import get_dict_from_params_str
 
 
 class LocalJob:
-    """One single-process ALLREDUCE job: ``master`` is built at once,
-    ``worker`` by :meth:`run`, which returns the master's exit code and
-    keeps the worker's losses in ``losses``."""
+    """One job on this host: ``master`` is built at once, the in-process
+    ``worker`` (with ``--num_workers 0``) by :meth:`run`, which returns
+    the master's exit code and keeps the worker's losses in ``losses``."""
 
     def __init__(self, args):
         from elasticdl_tpu_torch.master.master import Master
@@ -86,6 +96,18 @@ class LocalJob:
             ),
             device=args.device,
         )
+        if self.master.holds_model:
+            from elasticdl_tpu_torch.worker.worker import Worker
+
+            return Worker(
+                get_model_steps=args.get_model_steps,
+                precision=args.precision_policy or None,
+                prediction_outputs_processor=args.prediction_outputs_processor,
+                task_prefetch=args.task_prefetch,
+                task_ack_queue=args.task_ack_queue,
+                loss_log_steps=args.loss_log_steps,
+                **common,
+            )
         if self.master.job_type in (
             JobType.EVALUATION_ONLY,
             JobType.PREDICTION_ONLY,

@@ -16,6 +16,20 @@ class TaskType(enum.IntEnum):
     SAVE_MODEL = 4
 
 
+class GetModelMethod(enum.IntEnum):
+    """How a worker asks for the master-held model: MINIMUM, any version
+    at least the one asked for (the current one); FIXED, exactly that
+    version (from its checkpoint if it is not the current one)."""
+
+    MINIMUM = 0
+    FIXED = 1
+
+
+# how many times a worker runs one minibatch again after its gradient was
+# rejected as stale, before it gives the task up
+MAX_MINIBATCH_RETRY_NUM = 64
+
+
 class Mode:
     TRAINING = "training"
     EVALUATION = "evaluation"

@@ -49,13 +49,19 @@ def _leaf_spec(named):
     return spec
 
 
-def export_model(export_dir, named, version, metadata=None):
+def export_model(export_dir, named, version, metadata=None, extra_named=None):
     """Write an artifact from ``named`` ({reference path name: numpy
-    array or torch tensor}); returns the manifest dict."""
+    array or torch tensor}); returns the manifest dict. ``extra_named``
+    ({name: array}, the master-held embedding tables' ``edl_embedding:``
+    arrays) goes into ``model.chkpt`` only, not the leaf spec, as in the
+    reference: ``--checkpoint_filename_for_init`` restores the tables
+    from it."""
     export_dir = os.path.abspath(export_dir)
     os.makedirs(export_dir, exist_ok=True)
     save_checkpoint_to_file(
-        named, version, os.path.join(export_dir, LEGACY_CHKPT)
+        {**named, **(extra_named or {})},
+        version,
+        os.path.join(export_dir, LEGACY_CHKPT),
     )
     manifest = {
         "format": EXPORT_FORMAT,
@@ -64,7 +70,7 @@ def export_model(export_dir, named, version, metadata=None):
         "created_unix": int(time.time()),
         "torch_version": torch.__version__,
         "metadata": dict(metadata or {}),
-        "extra_named": [],
+        "extra_named": sorted(extra_named) if extra_named else [],
         "leaves": _leaf_spec(named),
         "artifacts": {
             "params": None,

@@ -6,6 +6,10 @@ indices``: the header carries name, dtype and shape (plus an indices
 count for sparse tensors), the payloads are raw C-order little-endian
 buffers. Frames written by either package decode in the other.
 
+A sparse ``Tensor`` (``indices`` set) is an IndexedSlices analog: the
+sync accumulator sums them by concatenation (``+``), and
+:func:`combine_indexed_slices` merges duplicate ids, as the reference.
+
 Values may be numpy arrays or torch tensors. A torch tensor is copied to
 the host once, inside the frame write. ``bfloat16`` travels as raw
 16-bit words: decoding returns a ``torch.bfloat16`` tensor (numpy has no
@@ -67,8 +71,44 @@ class Tensor:
     def is_indexed_slices(self):
         return self.indices is not None
 
+    def __add__(self, other):
+        """Sparse tensors concatenate (duplicate ids are resolved at apply
+        time); dense tensors add elementwise. ``0 + t`` is ``t``, so
+        ``sum(tensors)`` works."""
+        if not isinstance(other, Tensor):
+            if isinstance(other, int) and other == 0:
+                return self
+            return NotImplemented
+        if self.is_indexed_slices() != other.is_indexed_slices():
+            raise ValueError("cannot add sparse and dense tensors")
+        if self.is_indexed_slices():
+            return Tensor(
+                self.name,
+                np.concatenate([self.values, other.values], axis=0),
+                np.concatenate([self.indices, other.indices], axis=0),
+            )
+        return Tensor(self.name, self.values + other.values)
+
+    __radd__ = __add__
+
     def to_bytes(self):
         return serialize_tensor(self)
+
+
+def combine_indexed_slices(indices, values):
+    """Sum the rows of duplicate ids: ``(unique_indices, summed_values)``,
+    ``unique_indices`` sorted (``np.unique`` order). Duplicate-free input
+    is only reordered (no additions), so a pre-combined gradient combines
+    to itself bit for bit."""
+    indices = np.asarray(indices, dtype=np.int64)
+    values = np.asarray(values, dtype=np.float32)
+    unique, inverse = np.unique(indices, return_inverse=True)
+    if len(unique) == len(indices):
+        order = np.argsort(indices, kind="stable")
+        return unique, values[order]
+    combined = np.zeros((len(unique), values.shape[1]), dtype=np.float32)
+    np.add.at(combined, inverse.reshape(-1), values)
+    return unique, combined
 
 
 def plan_tensor_frame(t):

@@ -10,11 +10,13 @@ advance the version) or from a timer (:class:`PeriodicTrigger`, every
 ``throttle_secs``). An evaluation-only job has one round, unpinned
 (version -1), over every evaluation task.
 
-The port's master coordinates only (an ALLREDUCE job's parameters live on
-the worker), so a round pins a version *number*, and the worker scores
-it with its own state. A master that holds the model, and so writes an
-eval checkpoint per round, is not ported. TensorBoard is not ported
-either: ``tensorboard_service`` is None.
+A coordinating master (an ALLREDUCE job's parameters live on the
+worker) pins a version *number*, and the worker scores it with its own
+state. A master that holds the model (the ParameterServerStrategy job)
+pins an eval checkpoint of that model (``save_eval_checkpoint``); the
+workers fetch it with ``get_model`` FIXED, and the round's checkpoint is
+removed once the round is published. TensorBoard is not ported:
+``tensorboard_service`` is None.
 """
 
 import threading
@@ -164,10 +166,9 @@ class EvaluationService:
         eval_only,
         eval_metrics_fn,
     ):
-        """``checkpoint_service`` is taken for the reference's signature: a
-        round pins a version number, so no eval checkpoint is written or
-        removed."""
-        del checkpoint_service
+        """``checkpoint_service`` holds the eval checkpoints of a master
+        that holds the model."""
+        self._checkpoint_service = checkpoint_service
         if tensorboard_service is not None:
             raise NotImplementedError("TensorBoard is not ported yet")
         self._task_d = task_d
@@ -268,14 +269,17 @@ class EvaluationService:
             and version - self._last_snapshot_version < min_gap
         ):
             return False
-        if not getattr(self._master_servicer, "coordinates_only", False):
-            raise NotImplementedError(
-                "evaluation against a master-held model (an eval "
-                "checkpoint per round) is not ported yet"
+        if getattr(self._master_servicer, "coordinates_only", False):
+            snapshot = version
+        else:
+            snapshot = self._master_servicer.save_eval_checkpoint(
+                locking=False
             )
+            if snapshot is None:
+                return False  # the write failed: nothing to evaluate
         with self._lock:
-            self._pending_versions.append(version)
-        self._last_snapshot_version = version
+            self._pending_versions.append(snapshot)
+        self._last_snapshot_version = snapshot
         return True
 
     def try_to_create_new_job(self):
@@ -322,6 +326,16 @@ class EvaluationService:
                 self._round = None
         self._publish_summary(round_)
         if not self._eval_only:
+            if not getattr(self._master_servicer, "coordinates_only", True):
+                try:
+                    self._checkpoint_service.remove_eval_checkpoint(
+                        round_.model_version
+                    )
+                except OSError:
+                    logger.warning(
+                        "eval checkpoint v%d already gone",
+                        round_.model_version,
+                    )
             self.try_to_create_new_job()
 
     def _publish_summary(self, round_):

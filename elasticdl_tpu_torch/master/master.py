@@ -1,10 +1,19 @@
-"""The master of an ALLREDUCE job, the counterpart of
+"""The master of a job, the counterpart of
 ``elasticdl_tpu/master/master.py``: it builds the task dispatcher from the
 data reader's shards, infers the job type from the data flags, keeps the
 checkpoint service, the evaluation service (for a job with
-``--validation_data`` or an evaluation trigger), the coordinating
-servicer and the membership of the elastic plane, queues the deferred
-SAVE_MODEL task when ``--output`` is set, and polls ``finished()``.
+``--validation_data`` or an evaluation trigger) and the servicer, queues
+the deferred SAVE_MODEL task when ``--output`` is set, and polls
+``finished()``.
+
+Under the AllreduceStrategy the servicer coordinates and the membership
+of the elastic plane forms the workers' worlds. Under the
+ParameterServerStrategy with no PS pods (``--num_ps_pods 0``, which the
+local mode forces) and under the Local strategy the master holds the
+model: the servicer applies the zoo's optimizer (``--optimizer``) on
+``--device``, keeps the elastic embedding tables, restores
+``--checkpoint_filename_for_init`` and writes an eval checkpoint per
+evaluation round; there is no membership.
 
 With ``--master_journal_dir`` the dispatcher, the servicer's version
 clock and the membership append to a write-ahead journal
@@ -33,8 +42,15 @@ Every other plane of the reference's master raises
 ``NotImplementedError`` by name when its flag asks for it: the telemetry
 endpoint and event sink (``--telemetry_port``,
 ``--telemetry_events_path``), the flight recorder
-(``EDL_FLIGHT_RECORDER_DIR``), TensorBoard (``--tensorboard_log_dir``)
-and the parameter-server strategy.
+(``EDL_FLIGHT_RECORDER_DIR``), TensorBoard (``--tensorboard_log_dir``),
+the parameter-server fleet (``--num_ps_pods`` > 0 under the
+ParameterServerStrategy), and, with the master-held model, the master
+journal (``--master_journal_dir``: the workers' model re-push goes with
+the fleet's recovery), the hybrid trainer (``--embedding_plane hybrid``),
+streaming exports (``--export_dir``), the compressed wire
+(``--wire_dtype``), the shared-memory master channel (``--master_shm
+on``), the hot-row cache (``--hot_row_cache_rows``) and standby
+workers (``--num_standby_workers``).
 """
 
 import os
@@ -95,13 +111,36 @@ def _make_task_dispatcher(
     )
 
 
+def master_holds_model(args):
+    """True where the master holds the model: the ParameterServerStrategy
+    with no PS pods, or the Local strategy."""
+    strategy = getattr(args, "distribution_strategy", "")
+    return (
+        strategy == DistributionStrategy.PARAMETER_SERVER
+        and getattr(args, "num_ps_pods", 0) <= 0
+    ) or strategy == DistributionStrategy.LOCAL
+
+
 def refuse_unported_planes(args):
     """Raise for each flag that asks for a plane this master lacks."""
     strategy = getattr(args, "distribution_strategy", "")
-    if strategy != DistributionStrategy.ALLREDUCE:
+    if strategy == DistributionStrategy.PARAMETER_SERVER and (
+        getattr(args, "num_ps_pods", 0) > 0
+    ):
+        raise _not_ported(
+            "the parameter-server fleet (PS pods; pass --num_ps_pods 0 for "
+            "the master-held model)",
+            "--num_ps_pods",
+        )
+    if strategy not in (
+        DistributionStrategy.ALLREDUCE,
+        DistributionStrategy.PARAMETER_SERVER,
+        DistributionStrategy.LOCAL,
+    ):
         raise _not_ported(
             "the %s strategy" % strategy, "--distribution_strategy"
         )
+    held = master_holds_model(args)
     checks = (
         ("the telemetry endpoint", "--telemetry_port",
          getattr(args, "telemetry_port", None) is not None),
@@ -111,6 +150,23 @@ def refuse_unported_planes(args):
          os.environ.get("EDL_FLIGHT_RECORDER_DIR")),
         ("TensorBoard", "--tensorboard_log_dir",
          getattr(args, "tensorboard_log_dir", "")),
+        ("the master journal under the master-held model (the workers' "
+         "model re-push on a new master_epoch)", "--master_journal_dir",
+         held and getattr(args, "master_journal_dir", "")),
+        ("the hybrid trainer", "--embedding_plane hybrid",
+         held and getattr(args, "embedding_plane", "ps") == "hybrid"),
+        ("streaming serving exports", "--export_dir",
+         held and (getattr(args, "export_dir", "")
+                   or getattr(args, "export_every_versions", 0))),
+        ("the compressed tensor wire", "--wire_dtype",
+         held and getattr(args, "wire_dtype", "") not in ("", "float32")),
+        ("the shared-memory master channel", "--master_shm on",
+         held and getattr(args, "master_shm", "auto") == "on"),
+        ("the hot-row cache", "--hot_row_cache_rows",
+         held and getattr(args, "hot_row_cache_rows", 0)),
+        ("standby workers of the master-held model",
+         "--num_standby_workers",
+         held and getattr(args, "num_standby_workers", 0)),
     )
     for plane, flag, asked in checks:
         if asked:
@@ -171,11 +227,14 @@ class Master:
             journal=self.journal,
             streaming=bool(getattr(args, "streaming_tasks", False)),
         )
+        self.holds_model = master_holds_model(args)
+        # a master that holds the model pins each evaluation round to an
+        # eval checkpoint of it
         self.checkpoint_service = CheckpointService(
             getattr(args, "checkpoint_dir", ""),
             getattr(args, "checkpoint_steps", 0),
             getattr(args, "keep_checkpoint_max", 0),
-            False,
+            self.holds_model and self.job_type != JobType.TRAINING_ONLY,
         )
         self.model_module = load_zoo_module(
             args.model_def, getattr(args, "model_zoo", "")
@@ -187,22 +246,42 @@ class Master:
             self.task_d.add_deferred_callback_create_save_model_task(
                 args.output
             )
+        optimizer = None
+        if self.holds_model:
+            optimizer = getattr(self.model_module, args.optimizer, None)
+            if optimizer is None:
+                raise ValueError(
+                    "the model module of %s defines no %s"
+                    % (args.model_def, args.optimizer)
+                )
+            optimizer = optimizer()
         self.master_servicer = MasterServicer(
             args.grads_to_wait,
             args.minibatch_size,
-            None,
+            optimizer,
             self.task_d,
             checkpoint_service=self.checkpoint_service,
             evaluation_service=self.evaluation_service,
             journal=self.journal,
+            checkpoint_filename_for_init=(
+                getattr(args, "checkpoint_filename_for_init", "")
+                if self.holds_model
+                else None
+            ),
+            lr_staleness_modulation=getattr(
+                args, "lr_staleness_modulation", False
+            ),
+            use_async=getattr(args, "use_async", False),
+            device=getattr(args, "device", "cuda"),
         )
         from elasticdl_tpu_torch.master.membership_service import (
             MembershipService,
         )
 
-        # membership epochs of the elastic plane; the replicated plane
-        # needs no world-size multiple
-        self.membership = MembershipService(
+        # membership epochs of the elastic plane (the replicated plane
+        # needs no world-size multiple); the master-held model's workers
+        # form no world
+        self.membership = None if self.holds_model else MembershipService(
             expected_workers=max(1, getattr(args, "num_workers", 0)),
             base_port=getattr(args, "comm_base_port", 0),
             # a cold worker start can exceed the default grace on a
@@ -271,7 +350,7 @@ class Master:
         state = self.journal.replay()
         self.task_d.apply_recovery(state)
         self.master_servicer.restore_version(state.version)
-        if state.member_epoch > 0:
+        if state.member_epoch > 0 and self.membership is not None:
             self.membership.seed_epoch(state.member_epoch)
         self.recovery = {
             "replay_s": self.journal.replay_seconds,
@@ -366,7 +445,8 @@ class Master:
         ):
             deadline = time.monotonic() + grace
             while (
-                self.membership.members()
+                self.membership is not None
+                and self.membership.members()
                 and time.monotonic() < deadline
                 and not self._stop_requested.wait(0.1)
             ):

@@ -11,12 +11,13 @@ in-process servicer.
 
 The methods an ALLREDUCE job calls are served: ``get_task``,
 ``report_task_result``, ``report_evaluation_metrics``, ``master_status``,
-``get_comm_world``, ``leave_comm_world`` and ``standby_poll``. The
-methods of planes not ported yet raise ``NotImplementedError`` by name:
-the master-held model (``get_model``, ``report_variable``,
-``report_gradient``), the embedding service (``push_embedding_info``,
-``pull_embedding_vectors``, ``export_embedding_tables``) and telemetry
-(``report_telemetry``).
+``get_comm_world``, ``leave_comm_world`` and ``standby_poll``; and those
+of the master-held model (a ParameterServerStrategy job): ``get_model``,
+``report_variable``, ``report_gradient``, ``push_embedding_info``,
+``pull_embedding_vectors`` and ``export_embedding_tables``, with the
+fields of the reference's messages and tensors in tensor frames. The
+compressed (bf16) wire and worker telemetry (``report_telemetry``) are
+not ported and raise ``NotImplementedError`` by name.
 
 The client sends every call through the failover channel
 (``rpc/failover.py``): with ``failover_s`` > 0 it rides out a master
@@ -27,20 +28,23 @@ restart it sees.
 
 import numpy as np
 
-from elasticdl_tpu_torch.common.constants import TaskType
+from elasticdl_tpu_torch.common.constants import GetModelMethod, TaskType
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
 from elasticdl_tpu_torch.common.tensor import Tensor
 from elasticdl_tpu_torch.master.servicer import TaskResponse
+from elasticdl_tpu_torch.ps.parameters import EmbeddingTableInfo
 
 _UNPORTED = {
-    "get_model": "the master-held model",
-    "report_variable": "the master-held model",
-    "report_gradient": "the master-held model",
-    "push_embedding_info": "the embedding service",
-    "pull_embedding_vectors": "the embedding service",
-    "export_embedding_tables": "the embedding service",
     "report_telemetry": "worker telemetry",
 }
+
+
+def _plain_wire(req):
+    """Refuse a request that rides the compressed (bf16) wire."""
+    if req.get("compressed_f32"):
+        raise NotImplementedError(
+            "the compressed tensor wire (compressed_f32) is not ported yet"
+        )
 
 
 def _unported(name):
@@ -112,6 +116,53 @@ class MasterRpcService:
                 )
         return status
 
+    def get_model(self, req):
+        version, named = self._s.get_model(
+            req.get("version", 0), GetModelMethod(req.get("method", 0))
+        )
+        return {
+            "version": version,
+            "params": [Tensor(n, v) for n, v in sorted(named.items())],
+            "compressed_f32": [],
+        }
+
+    def report_variable(self, req):
+        self._s.report_variable(
+            {t.name: t.values for t in req.get("params", [])}
+        )
+        return {}
+
+    def report_gradient(self, req):
+        _plain_wire(req)
+        accepted, version = self._s.report_gradient(
+            req.get("gradients", []), req.get("model_version", -1)
+        )
+        return {"accepted": accepted, "version": version}
+
+    def push_embedding_info(self, req):
+        self._s.push_embedding_info(
+            [
+                EmbeddingTableInfo(
+                    i["name"], i["dim"], i.get("initializer", "uniform")
+                )
+                for i in req.get("embedding_infos", [])
+            ]
+        )
+        return {}
+
+    def pull_embedding_vectors(self, req):
+        rows = self._s.pull_embedding_vectors(
+            req["name"], np.asarray(req["ids"], dtype=np.int64)
+        )
+        return {"rows": rows}
+
+    def export_embedding_tables(self, req):
+        named = self._s.export_embedding_tables()
+        return {
+            "params": [Tensor(n, v) for n, v in sorted(named.items())],
+            "compressed_f32": [],
+        }
+
     def report_evaluation_metrics(self, req):
         outputs = {t.name: t.values for t in req.get("model_outputs", [])}
         accepted, version = self._s.report_evaluation_metrics(
@@ -175,6 +226,12 @@ class MasterRpcService:
                 "master_status": self.master_status,
                 "report_task_result": self.report_task_result,
                 "report_evaluation_metrics": self.report_evaluation_metrics,
+                "get_model": self.get_model,
+                "report_variable": self.report_variable,
+                "report_gradient": self.report_gradient,
+                "push_embedding_info": self.push_embedding_info,
+                "pull_embedding_vectors": self.pull_embedding_vectors,
+                "export_embedding_tables": self.export_embedding_tables,
             }.items()
         }
         methods.update({name: _unported(name) for name in _UNPORTED})
@@ -216,8 +273,8 @@ class MasterClient:
         if self._epoch_change_cb is not None:
             self._epoch_change_cb(old, new)
 
-    def _call(self, name, _budget_s=None, **fields):
-        return self._client.call(name, _budget_s=_budget_s, **fields)
+    def _call(self, _method, _budget_s=None, **fields):
+        return self._client.call(_method, _budget_s=_budget_s, **fields)
 
     def get_task(self, worker_id, task_type=None):
         resp = self._call(
@@ -243,6 +300,52 @@ class MasterClient:
             err_message=err_message,
             exec_counters=exec_counters,
         )
+
+    def get_model(self, version, method=GetModelMethod.MINIMUM):
+        resp = self._call(
+            "get_model", version=int(version), method=int(method)
+        )
+        _plain_wire(resp)
+        # the worker keeps these arrays across steps: owned copies
+        return resp["version"], {
+            t.name: np.array(t.values) for t in resp.get("params", [])
+        }
+
+    def report_variable(self, named_arrays):
+        self._call(
+            "report_variable",
+            params=[Tensor(n, v) for n, v in named_arrays.items()],
+        )
+
+    def report_gradient(self, gradients, model_version):
+        resp = self._call(
+            "report_gradient",
+            gradients=list(gradients),
+            model_version=int(model_version),
+            compressed_f32=[],
+        )
+        return resp["accepted"], resp["version"]
+
+    def push_embedding_info(self, embedding_infos):
+        self._call(
+            "push_embedding_info",
+            embedding_infos=[
+                {"name": i.name, "dim": i.dim, "initializer": i.initializer}
+                for i in embedding_infos
+            ],
+        )
+
+    def pull_embedding_vectors(self, layer_name, ids):
+        resp = self._call(
+            "pull_embedding_vectors",
+            name=layer_name,
+            ids=np.asarray(ids, dtype=np.int64),
+        )
+        return resp["rows"]
+
+    def export_embedding_tables(self):
+        resp = self._call("export_embedding_tables")
+        return {t.name: np.array(t.values) for t in resp.get("params", [])}
 
     def master_status(self):
         """One attempt: a probe must not ride out an outage."""

@@ -4,18 +4,20 @@
 The network is ``deepfm_functional_api``'s (``deepfm_forward``); each of
 its two tables (``TABLES``: the ``embedding`` feature table and the
 one-wide ``id_bias`` table) rides the plane the ``embedding_plane`` spec
-gives it (``nn/comm_plane.py``). The port has the HBM plane: the table a
-parameter on the card, updated inside the step (``nn/hbm_embedding.py``).
-The PS plane is not ported, so a table on it raises
-``NotImplementedError`` when the model is built (ROADMAP A5).
+gives it (``nn/comm_plane.py``): the HBM plane, the table a parameter on
+the card updated inside the step (``nn/hbm_embedding.py``), or the PS
+plane, the elastic ``nn/embedding.Embedding`` whose rows live in the
+master's store (the parameter-server worker, ``worker/worker.py``).
 
 The hooks, as the reference's:
 
+- ``custom_model()`` (no mesh, ``embedding_plane=""`` or ``"ps"``): both
+  tables on the PS plane, the ParameterServerStrategy job's model; its
+  parameters are the tower's alone.
 - ``build_distributed_model(mesh, ...)``: the ALLREDUCE worker's model.
   With a mesh (the port's is one card) the tables resolve to the HBM
-  plane. ``custom_model()`` (no mesh, ``embedding_plane=""``) resolves to
-  the PS plane, as in the reference, so a training job must not build
-  it.
+  plane. A PS-plane table on a mesh is the hybrid trainer's form, not
+  ported (ROADMAP A5): it raises ``NotImplementedError``.
 - ``build_host_model(**params)``: ``force_hbm``, a plain gather over
   whole tables; evaluation-only and prediction-only jobs score it against
   ``--checkpoint_dir``.
@@ -78,6 +80,14 @@ class DeepFMEdl(nn.Module):
         self.collective = collective
         planes = self._table_planes()
         for name, dim in zip(TABLES, (embedding_dim, 1)):
+            if planes[name] == "ps" and mesh is not None and not (
+                collective or force_hbm
+            ):
+                raise NotImplementedError(
+                    "table %r rides the PS plane on a mesh: the hybrid "
+                    "trainer (--embedding_plane hybrid) is not ported yet "
+                    "(ROADMAP A5)" % name
+                )
             if planes[name] == "ps" and (collective or force_hbm):
                 raise ValueError(
                     "table %r rides the PS plane, which the collective/"
@@ -117,8 +127,9 @@ class DeepFMEdl(nn.Module):
         return deepfm_forward(self, features)
 
     def init_parameters(self, generator):
-        """The tables by the reference's HBM init, in creation order, then
-        the tower."""
+        """The HBM tables by the reference's HBM init, in creation order
+        (a PS-plane table has no parameters: the store mints its rows),
+        then the tower."""
         self.embedding.init_parameters(generator)
         self.id_bias.init_parameters(generator)
         init_dense(self, generator)

@@ -1,19 +1,33 @@
-"""Per-table embedding planes, the counterpart of the selection half of
+"""Per-table embedding planes, the counterpart of
 ``elasticdl_tpu/nn/comm_plane.py``.
 
-A model that mixes planes names one per table: ``"ps"`` (rows on the
-parameter-server fleet, pulled per batch, sparse gradients pushed) or
-``"hbm"`` (the table a real parameter on the device,
-``nn/hbm_embedding.py``). :func:`resolve_table_planes` parses the
-zoo-facing ``embedding_plane=ps|hbm|hybrid|"table:plane/table:plane"``
-spec with the reference's rules and errors, and :func:`make_embedding`
-builds one table's layer from its plane.
+A model that mixes planes names one per table: ``"ps"`` (the elastic
+``nn/embedding.Embedding``: rows in the master's store, pulled per
+batch, sparse gradients pushed) or ``"hbm"`` (the table a real parameter
+on the device, ``nn/hbm_embedding.py``). :func:`resolve_table_planes`
+parses the zoo-facing ``embedding_plane=ps|hbm|hybrid|"table:plane/
+table:plane"`` spec with the reference's rules and errors, and
+:func:`make_embedding` builds one table's layer from its plane.
 
-The port has the HBM plane on one card. The PS plane (its ``Embedding``
-layer, ``HotRowCache``, ``PsPlane``, ``MasterStorePlane`` and
-``EmbeddingPullPipeline``) is not ported: ``make_embedding("ps", ...)``
-raises ``NotImplementedError`` naming it (ROADMAP A5).
+The PS plane's host data path, ``plan -> pull -> push``:
+
+- :func:`plan_lookup_multi`, the batch-wide unique plan: one pull of a
+  layer's unique ids over all its calls, each call keeping its positions
+  into the shared rows buffer, so the step's row gradients come back
+  already combined, one row per unique id;
+- :class:`MasterStorePlane` pulls the planned rows from the master's
+  store, one call per table; the worker copies them to the card as they
+  are. The reference pads them to a power-of-two bucket to bound XLA
+  recompiles; eager PyTorch has none to bound, and the pushed
+  ``(ids, rows)`` are the unique ids and their rows either way;
+- the master-held model's sparse gradients travel with the dense ones in
+  ``report_gradient``: the plane has no push of its own.
+
+Not ported: the PS fleet's plane (``PsPlane``), its ``HotRowCache`` and
+the hybrid trainer's ``EmbeddingPullPipeline`` (ROADMAP A5).
 """
+
+import numpy as np
 
 PLANES = ("ps", "hbm")
 
@@ -74,18 +88,24 @@ def make_embedding(
     mesh=None,
     axis="data",
     mask_zero=False,
+    combiner=None,
     collective=False,
+    embedding_initializer="uniform",
 ):
-    """Build one table's embedding layer from its plane name: ``"hbm"``
-    -> :class:`~elasticdl_tpu_torch.nn.hbm_embedding.HbmEmbedding` (the
-    table a trainable parameter on the card); ``"ps"`` raises
-    ``NotImplementedError`` (the PS plane is not ported). The caller
-    assigns the layer to its attribute ``name``."""
+    """Build one table's embedding layer from its plane name: ``"ps"`` ->
+    the elastic :class:`~elasticdl_tpu_torch.nn.embedding.Embedding`
+    (unbounded vocabulary, rows pulled per batch); ``"hbm"`` ->
+    :class:`~elasticdl_tpu_torch.nn.hbm_embedding.HbmEmbedding` (the
+    table a trainable parameter on the card). The caller assigns the
+    layer to its attribute ``name``, the table's name."""
     if plane == "ps":
-        raise NotImplementedError(
-            "table %r rides the PS plane (the elastic Embedding layer, "
-            "rows pulled from the parameter-server fleet), which is not "
-            "ported yet (ROADMAP A5); put it on the 'hbm' plane" % name
+        from elasticdl_tpu_torch.nn.embedding import Embedding
+
+        return Embedding(
+            output_dim=output_dim,
+            embedding_initializer=embedding_initializer,
+            mask_zero=mask_zero,
+            combiner=combiner,
         )
     if plane == "hbm":
         from elasticdl_tpu_torch.nn.hbm_embedding import HbmEmbedding
@@ -107,3 +127,37 @@ def make_embedding(
         "unknown embedding plane %r (want one of %s)"
         % (plane, "/".join(PLANES))
     )
+
+
+def plan_lookup_multi(ids_list):
+    """One layer's plan over all its calls in one forward: (unique ids
+    (k,), [positions per call, int32, shaped like the call's ids]). Each
+    call gathers from the one pulled buffer, so only unique rows cross
+    and the step's row gradients come back combined."""
+    arrays = [np.asarray(ids) for ids in ids_list]
+    flat = np.concatenate([a.reshape(-1).astype(np.int64) for a in arrays])
+    unique, inverse = np.unique(flat, return_inverse=True)
+    inverse = inverse.reshape(-1)
+    idxs, off = [], 0
+    for a in arrays:
+        idxs.append(inverse[off:off + a.size].reshape(a.shape).astype(np.int32))
+        off += a.size
+    return unique, idxs
+
+
+class MasterStorePlane:
+    """The master-held store: a pull is one ``pull_embedding_vectors``
+    call per table. ``stub_fn`` gives the master stub at call time."""
+
+    def __init__(self, stub_fn):
+        self._stub_fn = stub_fn
+
+    def pull(self, ids_by_table):
+        """{table: unique ids} -> {table: (k, dim) float32 rows}."""
+        stub = self._stub_fn()
+        return {
+            name: np.asarray(
+                stub.pull_embedding_vectors(name, ids), dtype=np.float32
+            )
+            for name, ids in ids_by_table.items()
+        }

@@ -1,0 +1,151 @@
+"""Sparse-aware optimizer apply on a host parameter store, the port of
+the host half of ``elasticdl_tpu/ps/optimizer_wrapper.py``.
+
+For an embedding layer's gradient the wrapper reads the touched rows
+*and their optimizer-slot rows* from the store, runs the optimizer on
+those rows alone, and writes rows and slots back. Duplicate ids are
+combined first by ``common/tensor.combine_indexed_slices`` (on
+duplicate-free input a pure reorder into unique-id order, no additions),
+so a worker-side pre-combined push and an uncombined one land the same
+rows.
+
+The optimizer is a ``torch.optim`` factory (``params -> Optimizer``, as
+the zoo's ``optimizer()`` returns), and its slot layout is read from
+torch's own state, as the reference reads optax's: one zero-gradient
+step of the optimizer on a scratch one-row parameter, with the state
+dict recording the first value torch writes under each key (a key
+filled at construction, as Adagrad's ``sum``, counts as written then).
+A state tensor shaped like the row is a slot: a slot table
+``"{layer}-{key}"`` is created lazily, its fresh rows the recorded value
+(``momentum_buffer`` 0, ``exp_avg``/``exp_avg_sq`` 0, Adagrad's ``sum``
+its ``initial_accumulator_value``). Anything else (Adam's ``step``) is
+kept whole per layer, starting from its recorded first value, as the
+reference keeps optax's ``count``. No per-optimizer registry.
+
+Each apply builds the optimizer over the gathered ``(k, dim)`` rows on
+the wrapper's device, installs their state, sets the combined gradient
+and steps once; the rows cross host to device and back, as the
+reference's host store crosses into its jitted step. Rows are not padded
+to a power of two: nothing recompiles here. Every apply holds the
+wrapper's lock.
+"""
+
+import threading
+
+import numpy as np
+import torch
+
+from elasticdl_tpu_torch.common.tensor import combine_indexed_slices
+from elasticdl_tpu_torch.ps.embedding_table import get_slot_table_name
+
+
+class _FirstWrites(dict):
+    """An optimizer state dict that remembers the first value written
+    under each key (cloned, so later in-place updates leave it)."""
+
+    def __init__(self, initial):
+        super().__init__(initial)
+        self.first = {k: _clone(v) for k, v in initial.items()}
+
+    def __setitem__(self, key, value):
+        if key not in self.first:
+            self.first[key] = _clone(value)
+        super().__setitem__(key, value)
+
+
+def _clone(value):
+    return value.detach().clone() if isinstance(value, torch.Tensor) else value
+
+
+def probe_row_state(optimizer, dim, device="cpu"):
+    """(slot fresh rows {key: (dim,) float32 ndarray}, per-layer initial
+    state {key: value}) of torch optimizer factory ``optimizer`` for rows
+    ``dim`` wide, read from one zero-gradient step on a scratch row."""
+    scratch = torch.zeros(1, dim, device=device, requires_grad=True)
+    opt = optimizer([scratch])
+    state = _FirstWrites(opt.state.get(scratch, {}))
+    opt.state[scratch] = state
+    scratch.grad = torch.zeros_like(scratch)
+    opt.step()
+    slots, per_layer = {}, {}
+    for key, value in state.first.items():
+        if isinstance(value, torch.Tensor) and tuple(value.shape) == (1, dim):
+            slots[key] = value[0].to("cpu", torch.float32).numpy()
+        else:
+            per_layer[key] = value
+    return slots, per_layer
+
+
+class OptimizerWrapper:
+    def __init__(self, optimizer, parameters=None, device="cpu"):
+        """``optimizer``: a torch optimizer factory; ``parameters``: the
+        ``ps.Parameters`` store holding the embedding tables; ``device``:
+        where the row update runs."""
+        self._opt_fn = optimizer
+        self._params = parameters
+        self._device = torch.device(device)
+        self._lock = threading.Lock()
+        self._non_row_state = {}  # layer -> {key: value}, kept whole
+        self._template_cache = {}  # dim -> (slot fresh rows, per-layer)
+
+    def _row_state_template(self, dim):
+        cached = self._template_cache.get(dim)
+        if cached is None:
+            cached = probe_row_state(self._opt_fn, dim, self._device)
+            self._template_cache[dim] = cached
+        return cached
+
+    def _ensure_slot_tables(self, store, layer_name, row_slot_init):
+        tables = {}
+        for slot, fresh_row in row_slot_init.items():
+            name = get_slot_table_name(layer_name, slot)
+            if name not in store.embedding_params:
+                store.create_slot_params(
+                    [slot], {slot: float(fresh_row.flat[0])}
+                )
+            tables[slot] = store.embedding_params[name]
+        return tables
+
+    def _to_device(self, rows):
+        return torch.from_numpy(np.ascontiguousarray(rows)).to(self._device)
+
+    def apply_sparse_gradients(self, layer_name, indices, values):
+        """Apply one embedding layer's indexed-slice gradient to its rows
+        and slot rows."""
+        store = self._params
+        table = store.embedding_params[layer_name]
+        unique, grad_rows = combine_indexed_slices(
+            np.asarray(indices, dtype=np.int64).reshape(-1),
+            np.asarray(values, dtype=np.float32),
+        )
+        with self._lock:
+            row_slot_init, per_layer_init = self._row_state_template(
+                table.dim
+            )
+            slot_tables = self._ensure_slot_tables(
+                store, layer_name, row_slot_init
+            )
+            rows = self._to_device(table.get(unique)).requires_grad_(True)
+            opt = self._opt_fn([rows])
+            per_layer = self._non_row_state.get(layer_name)
+            if per_layer is None:
+                per_layer = {k: _clone(v) for k, v in per_layer_init.items()}
+            state = dict(per_layer)
+            for key, t in slot_tables.items():
+                state[key] = self._to_device(t.get(unique))
+            opt.state[rows] = state
+            rows.grad = self._to_device(grad_rows)
+            opt.step()
+            table.set(unique, rows.detach().to("cpu").numpy())
+            for key, t in slot_tables.items():
+                t.set(unique, state[key].to("cpu").numpy())
+            self._non_row_state[layer_name] = {
+                k: state[k] for k in per_layer_init
+            }
+
+    def apply_gradients(self, embedding_grads=None):
+        """Apply ``{layer: Tensor}`` indexed-slice gradients."""
+        for layer_name, tensor in (embedding_grads or {}).items():
+            self.apply_sparse_gradients(
+                layer_name, tensor.indices, tensor.values
+            )

@@ -6,6 +6,9 @@
 - :func:`make_local_update_fn` — apply given gradients with the
   worker's own optimizer
 - :func:`make_forward_fn`   — eval/predict forward
+- :func:`make_embedding_grad_fn` / :func:`make_embedding_forward_fn` —
+  the same for a model with elastic embedding layers, whose rows are
+  per-batch inputs (``nn/embedding.py``)
 
 PyTorch runs eagerly: each builder returns a plain function, with no
 compile step. Where the reference donates its state to the jitted step,
@@ -319,6 +322,63 @@ def make_forward_fn(module):
 
     def fwd(params, state, features):
         with torch.no_grad():
+            output, _ = apply_model(
+                module, params, state, features, training=False
+            )
+        return output
+
+    return fwd
+
+
+def make_embedding_grad_fn(module, loss_fn, precision=None):
+    """Gradient step of a model with elastic embedding layers:
+    ``(params, rows, state, idx, features, labels, rng) -> (loss,
+    param_grads, row_grads, new_state, output)``.
+
+    ``rows`` is {layer path: ``(k, dim)`` buffer on the device, one row
+    per unique id} and ``idx`` {layer path: [positions per call]}
+    (``nn/embedding.bind_rows``). The rows buffers are differentiated as
+    extra leaves of :func:`_loss_and_grads`, so ``precision`` casts them
+    with the parameters; both gradients come back in float32 (the
+    master's update is f32)."""
+    from elasticdl_tpu_torch.nn.embedding import bind_rows
+
+    pol = get_policy(precision)
+    forward = make_remat_forward(module, False)
+
+    def step(params, rows, state, idx, features, labels, rng=None):
+        # tagged keys keep a parameter's name apart from a layer's path
+        leaves = {("param", n): p for n, p in params.items()}
+        leaves.update({("rows", n): r for n, r in rows.items()})
+
+        def forward_with_rows(tagged, state, features, rng):
+            with bind_rows(module, {n: tagged[("rows", n)] for n in rows},
+                           idx):
+                return forward({n: tagged[("param", n)] for n in params},
+                               state, features, rng)
+
+        loss, grads, new_state, output = _loss_and_grads(
+            forward_with_rows, loss_fn, pol, leaves, state, features,
+            labels, rng,
+        )
+        return (
+            loss,
+            {n: grads[("param", n)].float() for n in params},
+            {n: grads[("rows", n)].float() for n in rows},
+            new_state,
+            output,
+        )
+
+    return step
+
+
+def make_embedding_forward_fn(module):
+    """Inference forward of a model with elastic embedding layers:
+    ``(params, rows, state, idx, features) -> output``."""
+    from elasticdl_tpu_torch.nn.embedding import bind_rows
+
+    def fwd(params, rows, state, idx, features):
+        with torch.no_grad(), bind_rows(module, rows, idx):
             output, _ = apply_model(
                 module, params, state, features, training=False
             )

@@ -25,8 +25,11 @@ master's ``standby_poll``, until a promotion names its worker id and
 device; it then trains as that worker, and its timeline's ``standby``
 event records what it warmed and how long it parked.
 
-Not ported, raising ``NotImplementedError``: the parameter-server worker
-(``--distribution_strategy ParameterServerStrategy``, ``--ps_addrs``).
+Under the ParameterServerStrategy (the default) and the Local strategy
+it runs the parameter-server worker (``worker/worker.py``) against the
+master-held model: no world forms, so a relaunched worker just asks for
+tasks. Not ported, raising ``NotImplementedError``: the PS fleet
+(``--ps_addrs``).
 """
 
 import os
@@ -41,13 +44,13 @@ from elasticdl_tpu_torch.common.model_utils import get_dict_from_params_str
 def main(argv=None):
     args = parse_worker_args(argv)
     logger.setLevel(args.log_level)
-    if args.distribution_strategy != "AllreduceStrategy" or args.ps_addrs:
+    if args.ps_addrs:
         raise NotImplementedError(
-            "the parameter-server worker is not ported yet (asked for by "
-            "--distribution_strategy %s%s)"
-            % (args.distribution_strategy,
-               ", --ps_addrs" if args.ps_addrs else "")
+            "the parameter-server fleet is not ported yet (asked for by "
+            "--ps_addrs)"
         )
+    if args.distribution_strategy != "AllreduceStrategy":
+        return _ps_main(args)
     from elasticdl_tpu_torch.master.rpc_service import MasterClient
     from elasticdl_tpu_torch.worker.elastic_allreduce_worker import (
         ElasticAllReduceWorker,
@@ -101,6 +104,46 @@ def main(argv=None):
     except Exception:
         logger.debug("leave announcement missed", exc_info=True)
     stub.close()
+    return 0
+
+
+def _ps_main(args):
+    """The parameter-server worker on the master-held model."""
+    from elasticdl_tpu_torch.master.rpc_service import MasterClient
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    if args.standby:
+        raise NotImplementedError(
+            "standby workers of the ParameterServerStrategy job are not "
+            "ported yet (--standby)"
+        )
+    stub = MasterClient(args.master_addr, failover_s=args.master_failover_s)
+    try:
+        Worker(
+            worker_id=args.worker_id,
+            job_type=args.job_type,
+            minibatch_size=args.minibatch_size,
+            model_zoo=args.model_zoo,
+            model_def=args.model_def,
+            model_params=args.model_params,
+            dataset_fn=args.dataset_fn,
+            loss=args.loss,
+            optimizer=args.optimizer,
+            eval_metrics_fn=args.eval_metrics_fn,
+            prediction_outputs_processor=args.prediction_outputs_processor,
+            stub=stub,
+            get_model_steps=args.get_model_steps,
+            data_reader_params=get_dict_from_params_str(
+                args.data_reader_params
+            ),
+            precision=args.precision_policy or None,
+            task_prefetch=args.task_prefetch,
+            task_ack_queue=args.task_ack_queue,
+            loss_log_steps=args.loss_log_steps,
+            device=args.device,
+        ).run()
+    finally:
+        stub.close()
     return 0
 
 

@@ -219,6 +219,10 @@ class TaskDataService:
         self._record_cursor = 0  # records consumed against head of ledger
         self._bad_records = 0  # failed records charged to the head task
 
+    def get_current_task(self):
+        """The ledger's head task: the one the next record belongs to."""
+        return self._inflight[0] if self._inflight else None
+
     def remaining_records_in_head_task(self):
         """Unconsumed record count of the ledger's head task (0 if empty):
         what a failed step charges so that exactly that task fail-reports."""

@@ -1,0 +1,750 @@
+"""The parameter-server worker on the master-held model, the port of
+``elasticdl_tpu/worker/worker.py``: the task loop of the
+ParameterServerStrategy job.
+
+Per minibatch the worker pulls the model from the master (``get_model``),
+plans and pulls the rows of its elastic embedding layers, runs forward
+and backward on its device, and reports the dense gradients and each
+layer's row gradients (indexed slices, one row per unique id) with
+``report_gradient``. The master applies them, and may reject a stale
+one: the worker then runs the minibatch again, up to
+``MAX_MINIBATCH_RETRY_NUM`` (64) times, with a fresh model. With
+``get_model_steps`` N > 1 (async jobs) it pulls the model every N
+minibatches and in between advances its own copy with its own optimizer
+and the dense gradients it just reported (SSP local updates).
+
+The first minibatch creates the variables (the zoo's seeded init) and
+runs one capture pass, which records each elastic layer's calls and
+declared initializer; the worker then registers the tables
+(``push_embedding_info``) before it reports its variables
+(``report_variable``, first write wins on the master).
+
+The lookup stays out of the step (``nn/embedding.py``): the capture pass
+reads the batch's ids on the host, ``MasterStorePlane`` pulls the unique
+rows, they are copied to the card, and the step gathers from them;
+autograd gives the rows' gradients, one row per unique id, which are
+reported with those ids.
+
+Names cross as the reference's (``common/convert.py``: ``Dense_0/kernel``
+and its ``(in, out)`` layout), so the master-held model, its checkpoints
+and its exports are the reference's. A model no weight map covers crosses
+under its ``state_dict`` names.
+
+Evaluation tasks score the model version their round pinned (``get_model``
+FIXED, from the round's eval checkpoint) and report outputs and labels;
+prediction tasks hand their outputs to the zoo's processor; the
+SAVE_MODEL task exports the master's model with the master's embedding
+tables (``export_embedding_tables``) in ``model.chkpt``. Dropout draws
+from a seed of ``(seed, worker_id, step)``.
+"""
+
+import contextlib
+import os
+import time
+import traceback
+
+import numpy as np
+import torch
+
+from elasticdl_tpu_torch.common.constants import (
+    MAX_MINIBATCH_RETRY_NUM,
+    GetModelMethod,
+    JobType,
+    MetricsDictKey,
+    Mode,
+    SaveModelConfig,
+    TaskType,
+)
+from elasticdl_tpu_torch.common.log_utils import default_logger as logger
+from elasticdl_tpu_torch.common.model_utils import get_model_spec
+from elasticdl_tpu_torch.common.tensor import Tensor
+from elasticdl_tpu_torch.metrics import to_host
+from elasticdl_tpu_torch.nn.comm_plane import (
+    MasterStorePlane,
+    plan_lookup_multi,
+)
+from elasticdl_tpu_torch.nn.embedding import (
+    capture_embedding_ids,
+    embedding_layers,
+)
+from elasticdl_tpu_torch.ps.parameters import EmbeddingTableInfo
+from elasticdl_tpu_torch.training.step import fold_in
+from elasticdl_tpu_torch.worker.allreduce_worker import _first_leaf
+from elasticdl_tpu_torch.worker.elastic_allreduce_worker import (
+    _flash_launches,
+    _Timeline,
+)
+from elasticdl_tpu_torch.worker.task_data_service import TaskDataService
+
+
+class _StepTimer:
+    """One minibatch's split: host seconds of each phase, the device
+    milliseconds of the compute (CUDA events; absent on the CPU) and
+    ``t``, the wall time the step was accepted."""
+
+    def __init__(self, device):
+        self._cuda = device.type == "cuda"
+        self.split = {}
+        self._events = None
+
+    def add(self, phase, seconds):
+        self.split[phase] = self.split.get(phase, 0.0) + seconds
+
+    def start_compute(self):
+        if self._cuda:
+            self._events = (
+                torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True),
+            )
+            self._events[0].record()
+
+    def end_compute(self):
+        if self._events is not None:
+            self._events[1].record()
+
+    def finish(self):
+        self.split["t"] = time.time()
+        if self._events is not None:
+            self._events[1].synchronize()
+            self.split["compute_device_ms"] = self._events[0].elapsed_time(
+                self._events[1]
+            )
+        return self.split
+
+
+class Worker:
+    def __init__(
+        self,
+        worker_id,
+        job_type,
+        minibatch_size,
+        model_zoo,
+        model_def,
+        model_params=None,
+        dataset_fn="dataset_fn",
+        loss="loss",
+        optimizer="optimizer",
+        eval_metrics_fn="eval_metrics_fn",
+        prediction_outputs_processor="PredictionOutputsProcessor",
+        stub=None,
+        get_model_steps=1,
+        data_reader_params=None,
+        seed=0,
+        precision=None,
+        task_prefetch=1,
+        task_ack_queue=8,
+        loss_log_steps=20,
+        device="cuda",
+    ):
+        from elasticdl_tpu_torch.common.device import resolve_device
+
+        self._worker_id = worker_id
+        self._job_type = job_type
+        self._minibatch_size = minibatch_size
+        self._stub = stub
+        self._get_model_steps = max(1, int(get_model_steps))
+        self._seed = seed
+        self._loss_log_steps = max(0, int(loss_log_steps))
+        self._device = resolve_device(device)
+        self._sparse_plane = MasterStorePlane(lambda: self._stub)
+        spec = get_model_spec(
+            model_zoo=model_zoo,
+            model_def=model_def,
+            model_params=model_params,
+            dataset_fn=dataset_fn,
+            loss=loss,
+            optimizer=optimizer,
+            eval_metrics_fn=eval_metrics_fn,
+            prediction_outputs_processor=prediction_outputs_processor,
+        )
+        self._model = spec.model.to(self._device)
+        self._dataset_fn = spec.dataset_fn
+        self._loss = spec.loss
+        self._opt_fn = spec.optimizer()
+        self._prediction_outputs_processor = spec.prediction_outputs_processor
+        from elasticdl_tpu_torch.common.export import export_provenance
+
+        self._export_meta = export_provenance(
+            model_zoo, model_def, model_params
+        )
+        from elasticdl_tpu_torch.training.step import (
+            make_embedding_forward_fn,
+            make_embedding_grad_fn,
+            make_forward_fn,
+            make_grad_fn,
+        )
+
+        self._grad_fn = make_grad_fn(self._model, self._loss, precision)
+        self._forward_fn = make_forward_fn(self._model)
+        self._emb_grad_fn = make_embedding_grad_fn(
+            self._model, self._loss, precision
+        )
+        self._emb_forward_fn = make_embedding_forward_fn(self._model)
+
+        self._params = None  # {state_dict key: tensor on the device}
+        self._state = {}
+        self._named_layout = None  # cross under the reference's names?
+        self._model_version = -1
+        self._var_created = False
+        self._step_count = 0
+        self._accepted_steps = 0
+        # elastic embedding layers, learned at variable creation
+        self._embedding_dims = {}  # {path: dim}
+        self._embedding_initializers = {}  # {path: initializer name}
+        self._embedding_num_calls = 0
+        # SSP local updates: the worker's own optimizer and the last
+        # accepted dense gradients
+        self._local_opt = None
+        self._non_embed_grads = None
+        self._evaluation_result = {}
+        self.losses = []
+        # per accepted minibatch: {phase: host seconds, compute_device_ms}
+        self.step_splits = []
+        self._timer = None
+        # JSON lines under EDL_WORKER_TIMELINE_DIR: start, each accepted
+        # step, each with the process's flash launches so far
+        self._timeline = _Timeline(worker_id)
+        self._task_data_service = TaskDataService(
+            self,
+            self._job_type == JobType.TRAINING_WITH_EVALUATION,
+            data_reader_params=data_reader_params,
+            task_prefetch=task_prefetch,
+            ack_queue_size=task_ack_queue,
+        )
+
+    # -- the master's surface -----------------------------------------------
+
+    @property
+    def input_stats(self):
+        return self._task_data_service.stats
+
+    def get_task(self, task_type=None):
+        return self._stub.get_task(self._worker_id, task_type)
+
+    def report_task_result(self, task_id, err_msg="", exec_counters=None):
+        return self._stub.report_task_result(task_id, err_msg, exec_counters)
+
+    @contextlib.contextmanager
+    def _timed(self, phase):
+        """Charge the block's host seconds to ``phase`` of the running
+        training step's split (none outside one); ``compute`` also
+        brackets the block with CUDA events."""
+        timer = self._timer
+        if timer is None:
+            yield
+            return
+        t0 = time.perf_counter()
+        if phase == "compute":
+            timer.start_compute()
+        try:
+            yield
+        finally:
+            if phase == "compute":
+                timer.end_compute()
+            timer.add(phase, time.perf_counter() - t0)
+
+    def _to_wire(self, tensors):
+        """{state_dict key: tensor} -> {wire name: float32 ndarray}."""
+        from elasticdl_tpu_torch.common.convert import to_named
+
+        if self._named_layout is None:
+            try:
+                to_named(tensors, *self._head_layout())
+                self._named_layout = True
+            except KeyError:
+                self._named_layout = False
+        if self._named_layout:
+            tensors = to_named(tensors, *self._head_layout())
+        return {
+            k: v.detach().to("cpu", torch.float32).numpy()
+            for k, v in tensors.items()
+        }
+
+    def _from_wire(self, named):
+        """{wire name: array} -> {state_dict key: CPU tensor}."""
+        from elasticdl_tpu_torch.common.convert import to_state_dict
+
+        if self._named_layout:
+            return to_state_dict(named)
+        return {k: torch.from_numpy(np.array(v)) for k, v in named.items()}
+
+    def _head_layout(self):
+        return (
+            getattr(self._model, "num_heads", None),
+            getattr(self._model, "head_dim", None),
+        )
+
+    def get_model(self, version, method=GetModelMethod.MINIMUM):
+        """Pull the master's model (MINIMUM: the current one; FIXED: that
+        version) into the worker's parameters."""
+        with self._timed("get_model"):
+            got_version, named = self._stub.get_model(version, method)
+            if not named:
+                return
+            host = self._from_wire(named)
+            if set(host) != set(self._params):
+                raise ValueError(
+                    "master model parameters do not match local structure"
+                )
+            with torch.no_grad():
+                for k, v in host.items():
+                    self._params[k].copy_(v)
+            self._model_version = got_version
+
+    def _embedding_table_infos(self):
+        return [
+            EmbeddingTableInfo(
+                path, dim, self._embedding_initializers.get(path, "uniform")
+            )
+            for path, dim in self._embedding_dims.items()
+        ]
+
+    def report_variable(self):
+        self._stub.report_variable(self._to_wire(self._params))
+
+    def report_gradient(self, grads, sparse_tensors=None):
+        tensors = [Tensor(n, v) for n, v in self._to_wire(grads).items()]
+        tensors.extend(sparse_tensors or ())
+        return self._stub.report_gradient(tensors, self._model_version)
+
+    def report_evaluation_metrics(self, model_outputs, labels):
+        outputs = {
+            name: np.concatenate(chunks) for name, chunks in model_outputs.items()
+        }
+        return self._stub.report_evaluation_metrics(
+            self._model_version, outputs, np.concatenate(labels)
+        )
+
+    def report_prediction_outputs(self, predictions):
+        if self._prediction_outputs_processor:
+            from elasticdl_tpu_torch.data.dataset import tree_map
+
+            self._prediction_outputs_processor.process(
+                tree_map(to_host, predictions), self._worker_id
+            )
+        else:
+            logger.warning(
+                "prediction_outputs_processor is not defined in the model "
+                "definition. Prediction outputs are not processed."
+            )
+        return True
+
+    # -- variables ------------------------------------------------------------
+
+    def _run_model_call_before_training(self, features):
+        """Create the variables and learn the elastic layers (one capture
+        pass); register the tables, then report the variables once."""
+        if self._params is None:
+            from elasticdl_tpu_torch.nn.model_api import (
+                init_variables,
+                split_variables,
+            )
+
+            generator = torch.Generator(device=self._device).manual_seed(
+                self._seed
+            )
+            params, state = split_variables(
+                init_variables(self._model, generator, features)
+            )
+            self._params = {
+                k: p.detach().requires_grad_(False) for k, p in params.items()
+            }
+            self._state = state
+            if embedding_layers(self._model):
+                layer_info = {}
+                captured = capture_embedding_ids(
+                    self._model, self._params, self._state, features,
+                    layer_info=layer_info,
+                )
+                self._embedding_dims = {
+                    p: int(info[0]) for p, info in layer_info.items()
+                }
+                self._embedding_initializers = {
+                    p: info[1] for p, info in layer_info.items()
+                }
+                self._embedding_num_calls = sum(
+                    len(ids) for ids in captured.values()
+                )
+        if not self._var_created:
+            if self._embedding_dims:
+                self._stub.push_embedding_info(self._embedding_table_infos())
+            self.report_variable()
+            self._var_created = True
+
+    def _apply_local_dense(self, grads):
+        """One step of the worker's own optimizer on its copy of the
+        model (SSP local updates)."""
+        from elasticdl_tpu_torch.training.step import make_local_update_fn
+
+        if self._local_opt is None:
+            leaves = {
+                k: p.requires_grad_(True) for k, p in self._params.items()
+            }
+            self._params = leaves
+            self._local_opt = self._opt_fn(list(leaves.values()))
+            self._local_update = make_local_update_fn()
+        with torch.no_grad():
+            self._local_update(grads, self._local_opt, self._params)
+
+    def _update_local_model(self):
+        if self._non_embed_grads is None:
+            return
+        grads, self._non_embed_grads = self._non_embed_grads, None
+        self._apply_local_dense(grads)
+
+    # -- the elastic embedding path -------------------------------------------
+
+    def _plan_embedding_lookups(self, features):
+        captured = capture_embedding_ids(
+            self._model, self._params, self._state, features,
+            expected_count=self._embedding_num_calls,
+        )
+        return {
+            path: plan_lookup_multi(ids_list)
+            for path, ids_list in captured.items()
+        }
+
+    def _prepare_embedding_batch(self, features):
+        """Plan the ids and pull the rows: (rows on the device, idx on
+        the device, {path: unique ids})."""
+        with self._timed("plan"):
+            lookups = self._plan_embedding_lookups(features)
+        with self._timed("pull"):
+            pulled = self._sparse_plane.pull(
+                {path: unique for path, (unique, _) in lookups.items()}
+            )
+        rows, idx, plan = {}, {}, {}
+        for path, (unique, idxs) in lookups.items():
+            rows[path] = torch.tensor(pulled[path], device=self._device)
+            idx[path] = [
+                torch.from_numpy(i.astype(np.int64)).to(self._device)
+                for i in idxs
+            ]
+            plan[path] = unique
+        return rows, idx, plan
+
+    @staticmethod
+    def _sparse_grad_tensors(row_grads, plan):
+        return [
+            Tensor(
+                path,
+                row_grads[path].detach().to("cpu").numpy(),
+                indices=unique,
+            )
+            for path, unique in plan.items()
+        ]
+
+    # -- compute ---------------------------------------------------------------
+
+    def training_process(self, features, labels):
+        self._step_count += 1
+        rng = fold_in(
+            self._seed * 100003 + self._worker_id, self._step_count
+        )
+        if self._embedding_dims:
+            rows, idx, plan = self._prepare_embedding_batch(features)
+            with self._timed("compute"):
+                loss, grads, row_grads, new_state, _ = self._emb_grad_fn(
+                    self._params, rows, self._state, idx, features,
+                    labels, rng,
+                )
+            self._state = new_state
+            return loss, grads, self._sparse_grad_tensors(row_grads, plan)
+        with self._timed("compute"):
+            loss, grads, new_state, _ = self._grad_fn(
+                self._params, self._state, features, labels, rng
+            )
+        self._state = new_state
+        return loss, grads, None
+
+    def forward_process(self, features):
+        if self._embedding_dims:
+            rows, idx, _ = self._prepare_embedding_batch(features)
+            return self._emb_forward_fn(
+                self._params, rows, self._state, idx, features
+            )
+        return self._forward_fn(self._params, self._state, features)
+
+    def _run_training_task(self, features, labels):
+        loss, grads, sparse_grads = self.training_process(features, labels)
+        with self._timed("report"):
+            accepted, min_model_version = self.report_gradient(
+                grads, sparse_grads
+            )
+        if accepted and self._get_model_steps > 1:
+            self._non_embed_grads = grads
+        return accepted, min_model_version, loss
+
+    def _collect_evaluation_result(self, outputs, labels):
+        chunks = self._evaluation_result.setdefault(
+            MetricsDictKey.MODEL_OUTPUT, {}
+        )
+        for k, v in outputs.items():
+            chunks.setdefault(k, []).append(to_host(v))
+        self._evaluation_result.setdefault(MetricsDictKey.LABEL, []).append(
+            to_host(labels)
+        )
+
+    def _run_evaluation_task(self, features, labels):
+        outputs = self.forward_process(features)
+        if not isinstance(outputs, dict):
+            outputs = {MetricsDictKey.MODEL_OUTPUT: outputs}
+        self._collect_evaluation_result(outputs, labels)
+        return True
+
+    def _run_prediction_task(self, features):
+        return self.report_prediction_outputs(self.forward_process(features))
+
+    # -- the minibatch state machine -------------------------------------------
+
+    def _process_minibatch(
+        self, task_type, features, labels, min_model_version,
+        train_with_local_model=False,
+    ):
+        if not self._var_created or self._params is None:
+            self._run_model_call_before_training(features)
+        for _ in range(MAX_MINIBATCH_RETRY_NUM):
+            if task_type == TaskType.EVALUATION:
+                if min_model_version == -1:
+                    if self._model_version < 0:
+                        self.get_model(0, GetModelMethod.MINIMUM)
+                elif self._model_version != min_model_version:
+                    self.get_model(min_model_version, GetModelMethod.FIXED)
+                if self._run_evaluation_task(features, labels):
+                    break
+            elif task_type == TaskType.TRAINING:
+                self._timer = _StepTimer(self._device)
+                if not train_with_local_model:
+                    self.get_model(
+                        max(self._model_version, min_model_version),
+                        GetModelMethod.MINIMUM,
+                    )
+                accepted, min_model_version, loss = self._run_training_task(
+                    features, labels
+                )
+                if accepted:
+                    self._accepted_steps += 1
+                    self.step_splits.append(self._timer.finish())
+                    self._timeline(
+                        "step", version=min_model_version,
+                        launches=_flash_launches(),
+                    )
+                    self._timer = None
+                    self.losses.append(loss)
+                    if self._loss_log_steps and (
+                        self._accepted_steps % self._loss_log_steps == 1
+                        or self._loss_log_steps == 1
+                    ):
+                        logger.info(
+                            "Loss is %f (accepted step %d)",
+                            float(loss),
+                            self._accepted_steps,
+                        )
+                    break
+            elif task_type == TaskType.PREDICTION:
+                if self._model_version != min_model_version:
+                    self.get_model(min_model_version, GetModelMethod.FIXED)
+                if self._run_prediction_task(features):
+                    break
+            else:
+                raise RuntimeError("Unrecognized task type, %s" % task_type)
+        else:
+            raise RuntimeError("Worker got stuck")
+        self._timer = None
+        return min_model_version
+
+    def _process_minibatch_and_report(
+        self, dataset_batch, task_type, model_version,
+        train_with_local_model=False,
+    ):
+        err_msg = ""
+        try:
+            if self._job_type == JobType.PREDICTION_ONLY:
+                features, labels = dataset_batch, None
+            else:
+                features, labels = dataset_batch
+            self._process_minibatch(
+                task_type, features, labels, model_version,
+                train_with_local_model,
+            )
+        except RuntimeError as err:
+            err_msg = str(err)
+            traceback.print_exc()
+        return err_msg
+
+    @staticmethod
+    def _batch_count(dataset_batch):
+        leaf = _first_leaf(dataset_batch)
+        shape = getattr(leaf, "shape", None)
+        return int(shape[0]) if shape is not None else len(leaf)
+
+    # -- evaluation and SAVE_MODEL tasks ----------------------------------------
+
+    def _process_eval_task(self, task):
+        logger.info("the evaluation task_id: %d", task.task_id)
+        self._task_data_service.drain_acks()
+        eval_info = self._task_data_service.get_validation_dataset(task)
+        if not eval_info:
+            return
+        eval_dataset, model_version, task_id = eval_info
+        eval_dataset = self._dataset_fn(
+            eval_dataset,
+            Mode.EVALUATION,
+            self._task_data_service.data_reader.metadata,
+        )
+        eval_dataset = eval_dataset.batch(self._minibatch_size).prefetch(1)
+        err_msg = ""
+        for dataset_batch in eval_dataset:
+            data_err_msg = self._process_minibatch_and_report(
+                dataset_batch, TaskType.EVALUATION, model_version
+            )
+            if data_err_msg:
+                err_msg = data_err_msg
+                break
+        if MetricsDictKey.MODEL_OUTPUT in self._evaluation_result:
+            accepted, _ = self.report_evaluation_metrics(
+                self._evaluation_result[MetricsDictKey.MODEL_OUTPUT],
+                self._evaluation_result[MetricsDictKey.LABEL],
+            )
+            if not accepted:
+                raise RuntimeError("Report evaluation metric failed!")
+        self.report_task_result(task_id, err_msg)
+        self._evaluation_result = {}
+
+    def _process_save_model_task_if_needed(self):
+        task, dataset = (
+            self._task_data_service.get_save_model_task_and_dataset()
+        )
+        if task is None or dataset is None:
+            return
+        self._task_data_service.drain_acks()
+        saved_model_path = os.path.join(
+            task.extended_config.get(SaveModelConfig.SAVED_MODEL_PATH),
+            str(int(time.time())),
+        )
+        logger.info("The path to export model is %s", saved_model_path)
+        self.get_model(max(self._model_version, 0), GetModelMethod.MINIMUM)
+        from elasticdl_tpu_torch.common.export import export_model
+
+        # the master-held tables are not model parameters: get_model
+        # leaves them out, so the export pulls them from the master
+        extra_named = (
+            self._stub.export_embedding_tables()
+            if self._embedding_dims
+            else None
+        )
+        export_model(
+            saved_model_path,
+            self._to_wire(self._params),
+            self._model_version,
+            metadata=self._export_meta,
+            extra_named=extra_named,
+        )
+        self.report_task_result(task_id=task.task_id, err_msg="")
+
+    # -- the loops ---------------------------------------------------------------
+
+    def _train_and_evaluate(self):
+        train_with_local_model = False
+        local_update_count = self._get_model_steps
+        last_training_minibatch_failed = False
+        evaluation_task_executed = False
+        while True:
+            dataset = self._task_data_service.get_dataset()
+            if not dataset:
+                break
+            dataset = self._dataset_fn(
+                dataset,
+                Mode.TRAINING,
+                self._task_data_service.data_reader.metadata,
+            )
+            dataset = dataset.batch(self._minibatch_size).prefetch(1)
+            if self._var_created and not self._embedding_dims:
+                # dense models: the next batch's copy to the card overlaps
+                # this step; the elastic path reads its ids on the host
+                dataset = dataset.device_prefetch(self._device)
+            batches_seen = 0
+            for dataset_batch in dataset:
+                batches_seen += 1
+                if self._job_type == JobType.TRAINING_WITH_EVALUATION:
+                    if self._evaluate_only():
+                        evaluation_task_executed = True
+                task = self._task_data_service.get_current_task()
+                if (
+                    evaluation_task_executed
+                    or last_training_minibatch_failed
+                    or local_update_count >= self._get_model_steps
+                ):
+                    local_update_count = 0
+                    train_with_local_model = False
+                else:
+                    train_with_local_model = True
+                batch_count = self._batch_count(dataset_batch)
+                err_msg = self._process_minibatch_and_report(
+                    dataset_batch,
+                    task.type,
+                    task.model_version,
+                    train_with_local_model,
+                )
+                local_update_count += 1
+                if err_msg:
+                    last_training_minibatch_failed = True
+                else:
+                    last_training_minibatch_failed = False
+                    if local_update_count < self._get_model_steps:
+                        self._update_local_model()
+                self._task_data_service.report_record_done(
+                    batch_count, err_msg
+                )
+            del dataset
+            self._task_data_service.drain_acks()
+            if self._job_type == JobType.TRAINING_WITH_EVALUATION:
+                evaluation_task_executed = self._evaluate_only()
+            self._process_save_model_task_if_needed()
+            if batches_seen == 0:
+                time.sleep(0.2)
+
+    def _evaluate_only(self):
+        executed = False
+        while True:
+            task = self.get_task(TaskType.EVALUATION)
+            if not task.shard_name:
+                break
+            self._process_eval_task(task)
+            executed = True
+        return executed
+
+    def _predict_only(self):
+        while True:
+            dataset = self._task_data_service.get_dataset()
+            if not dataset:
+                break
+            dataset = self._dataset_fn(
+                dataset,
+                Mode.PREDICTION,
+                self._task_data_service.data_reader.metadata,
+            )
+            dataset = dataset.batch(self._minibatch_size).prefetch(1)
+            for dataset_batch in dataset:
+                task = self._task_data_service.get_current_task()
+                err_msg = self._process_minibatch_and_report(
+                    dataset_batch, task.type, task.model_version
+                )
+                self._task_data_service.report_record_done(
+                    self._batch_count(dataset_batch), err_msg
+                )
+            del dataset
+            self._task_data_service.drain_acks()
+
+    def run(self):
+        """Fetch tasks from the master and train, evaluate or predict;
+        returns the accepted minibatches' losses."""
+        self._timeline("start", launches=_flash_launches())
+        if self._job_type == JobType.PREDICTION_ONLY:
+            self._predict_only()
+        elif self._job_type == JobType.EVALUATION_ONLY:
+            self._evaluate_only()
+        else:
+            self._train_and_evaluate()
+        self._task_data_service.drain_acks()
+        return [float(loss) for loss in self.losses]

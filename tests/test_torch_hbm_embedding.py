@@ -10,7 +10,8 @@ package's, with everything the port leaves out refusing by name.
   gather is exact, the gradient a sum of a few products.
 - ``resolve_table_planes`` on every spec form, and ``make_embedding``:
   the same planes and the same errors as the reference; the PS plane
-  raises ``NotImplementedError`` by name.
+  builds the elastic ``Embedding`` layer, and a PS-plane table on a mesh
+  (the hybrid trainer's form) raises ``NotImplementedError`` by name.
 - deepfm_edl's ``build_distributed_model`` on a one-device mesh, placed by
   its ``param_shardings``, trained ten SGD steps through the port's
   ``AllReduceTrainer`` against the JAX model on a one-device mesh
@@ -149,9 +150,17 @@ def test_resolve_table_planes_matches_the_reference(spec, split):
 
 
 def test_make_embedding_planes():
-    with pytest.raises(NotImplementedError, match="PS plane.*A5"):
-        tplane.make_embedding("ps", output_dim=4, name="embedding",
-                              vocab_size=8)
+    from elasticdl_tpu_torch.nn.embedding import Embedding
+
+    elastic = tplane.make_embedding("ps", output_dim=4, name="embedding",
+                                    vocab_size=8, mask_zero=True,
+                                    combiner="mean")
+    ref = jplane.make_embedding("ps", output_dim=4, name="embedding",
+                                vocab_size=8, mask_zero=True, combiner="mean")
+    assert isinstance(elastic, Embedding) and not list(elastic.parameters())
+    for field in ("output_dim", "embedding_initializer", "mask_zero",
+                  "combiner"):
+        assert getattr(elastic, field) == getattr(ref, field), field
     for kwargs in (dict(plane="nvme", output_dim=4, name="t",
                         vocab_size=8),
                    dict(plane="hbm", output_dim=4, name="t")):
@@ -263,7 +272,8 @@ def test_param_specs_must_name_parameters_and_be_whole():
         (lambda: HbmEmbedding(8, 4, collective=True), "collective.*A2.8"),
         (lambda: HbmEmbedding(8, 4, mesh=_cpu_mesh(), method="a2a"),
          "a2a.*A4"),
-        (lambda: tzoo.custom_model(), "PS plane.*A5"),
+        (lambda: tzoo.DeepFMEdl(mesh=_cpu_mesh(), embedding_plane="ps"),
+         "PS plane.*A5"),
         (lambda: tzoo.build_distributed_model(_cpu_mesh(),
                                               embedding_plane="hybrid"),
          "PS plane.*A5"),

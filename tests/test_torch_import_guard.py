@@ -77,10 +77,15 @@ def test_every_port_module_imports_without_jax():
     # metrics/, the zoo's ResNet-50 and MNIST modules, the elastic job's
     # socket transport, membership, instance manager, process groups,
     # elastic trainer and worker entry, and the master's journal and the
-    # failover channel among them, and the zoo that needs no PS fleet with
-    # the one-card HBM embedding plane)
-    assert count >= 87
+    # failover channel among them, the zoo that needs no PS fleet with the
+    # one-card HBM embedding plane, and the master-held model's store,
+    # elastic embedding layer and parameter-server worker)
+    assert count >= 95
     for name in ("master.journal", "rpc.failover", "nn.hbm_embedding",
+                 "ps.embedding_table", "ps.parameters",
+                 "ps.optimizer_wrapper", "master.learning_rate_modulator",
+                 "nn.embedding",
+                 "worker.worker",
                  "nn.comm_plane", "parallel.mesh",
                  "model_zoo.mnist_functional_api.mnist_functional_api",
                  "model_zoo.cifar10_subclass.cifar10_subclass",
@@ -239,6 +244,71 @@ def test_the_multi_process_job_runs_with_jax_and_grpc_blocked(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert int(proc.stdout.split()[-1]) > 0
+
+
+def test_the_parameter_server_job_runs_with_jax_and_grpc_blocked(tmp_path):
+    """The ParameterServerStrategy job (no strategy flag) with two worker
+    processes on the CPU, the master and each worker in a blocked
+    interpreter: DeepFM's tables in the master's store."""
+    proc = _run_blocked(
+        """
+        import os
+        import numpy as np
+        sys.path.insert(0, %r)
+        from elasticdl_tpu_torch import api, cli
+        from elasticdl_tpu_torch.data.example import encode_example
+        from elasticdl_tpu_torch.data.recordio import RecordIOWriter
+        BLOCKER = %r
+
+        def blocked_worker(self, worker_id, device,
+                           _orig=api.LocalJob._worker_command):
+            argv = _orig(self, worker_id, device)
+            code = BLOCKER + (
+                "import runpy; sys.argv = ['worker'] + %%r + sys.argv[1:]; "
+                "runpy.run_module('elasticdl_tpu_torch.worker.main', "
+                "run_name='__main__')" %% (argv[3:],)
+            )
+            return [sys.executable, "-c", code]
+
+        api.LocalJob._worker_command = blocked_worker
+        data = os.path.join(%r, "data")
+        os.makedirs(data)
+        rng = np.random.default_rng(0)
+        with RecordIOWriter(os.path.join(data, "f0")) as w:
+            for _ in range(512):
+                w.write(encode_example({
+                    "feature": rng.integers(0, 2000, 10).astype(np.int64),
+                    "label": np.array([rng.integers(0, 2)], np.int64),
+                }))
+        jobs = []
+        rc = cli.main([
+            "train", "--job_name", "j", "--model_zoo", "",
+            "--model_def",
+            "deepfm_edl_embedding.deepfm_edl_embedding.custom_model",
+            "--model_params", "embedding_dim=8,fc_unit=8",
+            "--training_data", data, "--minibatch_size", "32",
+            "--num_workers", "2", "--device", "cpu",
+            "--log_level", "WARNING",
+        ], jobs=jobs)
+        master = jobs[0].master
+        codes = master.instance_manager.exit_codes
+        assert rc == 0 and codes == {0: 0, 1: 0}, codes
+        assert master.task_d.finished()
+        store = master.master_servicer.embedding_store.embedding_params
+        assert sorted(store) == ["embedding", "id_bias"]
+        assert len(store["embedding"]) > 1000
+        leaked = sorted(
+            m for m in sys.modules if m.split(".")[0] in BLOCKED
+        )
+        assert not leaked, leaked
+        print("version", master.master_servicer.get_model_version())
+        """
+        % (REPO, BLOCKER, str(tmp_path)),
+        env=dict(os.environ, OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    # sync SGD: a stale report is run again, so every batch lands once
+    assert int(proc.stdout.split()[-1]) == 512 // 32
 
 
 @pytest.fixture

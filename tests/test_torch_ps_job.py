@@ -1,0 +1,330 @@
+"""The ParameterServerStrategy job on the master-held model, whole: the
+in-process DeepFM job against the JAX package's ``Worker`` +
+``MasterServicer`` from one set of weights; the command line with no
+strategy flag; evaluation rounds, the export with its tables, and the
+``evaluate`` / ``predict`` jobs under the strategy; the two-worker async
+job that survives a worker kill; and the dense MNIST model."""
+
+import os
+import subprocess
+import sys
+import threading
+import time
+
+import jax
+import numpy as np
+import optax
+import pytest
+
+from elasticdl_tpu.common.tensor import pytree_to_named_arrays
+from elasticdl_tpu.data.dataset import Dataset as JDataset
+from elasticdl_tpu.master.checkpoint_service import (
+    CheckpointService as JCheckpointService,
+)
+from elasticdl_tpu.master.servicer import MasterServicer as JServicer
+from elasticdl_tpu.master.task_dispatcher import TaskDispatcher as JDispatcher
+from elasticdl_tpu.nn.model_api import init_variables, split_variables
+from elasticdl_tpu.worker.worker import Worker as JWorker
+from elasticdl_tpu_torch import cli
+from elasticdl_tpu_torch.common.constants import JobType
+from elasticdl_tpu_torch.common.model_utils import load_from_checkpoint_file
+from elasticdl_tpu_torch.data.dataset import Dataset as TDataset
+from elasticdl_tpu_torch.data.example import encode_example
+from elasticdl_tpu_torch.data.recordio import RecordIOWriter
+from elasticdl_tpu_torch.master.servicer import MasterServicer
+from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+from elasticdl_tpu_torch.worker.worker import Worker
+from model_zoo.deepfm_edl_embedding import deepfm_edl_embedding as jzoo
+from tests.in_process_master import InProcessMaster
+from tests.test_utils import MODEL_ZOO_PATH
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_ZOO = os.path.join(REPO, "elasticdl_tpu_torch", "model_zoo")
+DEEPFM = "deepfm_edl_embedding.deepfm_edl_embedding.custom_model"
+SMALL = "embedding_dim=8,fc_unit=8"
+
+
+def write_frappe(directory, n, vocab, seed=0):
+    """``n`` DeepFM records (10 ids from ``vocab``, a tenth of them 0, and
+    a 0/1 label) in one file under ``directory``; returns the file."""
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    path = os.path.join(directory, "f0")
+    with RecordIOWriter(path) as w:
+        for _ in range(n):
+            ids = rng.integers(1, vocab, 10)
+            ids[rng.random(10) < 0.1] = 0
+            w.write(encode_example({
+                "feature": ids.astype(np.int64),
+                "label": np.array([rng.integers(0, 2)], np.int64),
+            }))
+    return path
+
+
+def _identity_shuffle(self, *args, **kwargs):
+    return self
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+
+
+@pytest.mark.parametrize(
+    "use_async,get_model_steps", [(False, 1), (True, 2)],
+    ids=["sync", "async_ssp"],
+)
+def test_deepfm_job_matches_the_jax_job(monkeypatch, tmp_path, use_async,
+                                        get_model_steps):
+    """Sync, and async with SSP local updates every other step (the
+    worker's own optimizer between pulls)."""
+    monkeypatch.setenv("EDL_TASK_SHUFFLE_SEED", "3")
+    monkeypatch.setattr(JDataset, "shuffle", _identity_shuffle)
+    monkeypatch.setattr(TDataset, "shuffle", _identity_shuffle)
+    f = write_frappe(str(tmp_path), 128, 300)
+    shards = {f: (0, 128)}
+    # one set of weights: the flax init of the PS-plane DeepFM
+    model = jzoo.custom_model(embedding_dim=8, fc_unit=8)
+    params, _ = split_variables(init_variables(
+        model, jax.random.PRNGKey(0),
+        {"feature": np.ones((2, 10), np.int64)}))
+    init_var = {k: np.asarray(v) for k, v in
+                pytree_to_named_arrays(params).items()}
+    assert sorted(init_var) == ["Dense_0/bias", "Dense_0/kernel",
+                                "Dense_1/bias", "Dense_1/kernel"]
+
+    j_master = JServicer(1, 32, optax.sgd(0.1), JDispatcher(
+        shards, {}, {}, 32, 1), init_var=init_var,
+        checkpoint_service=JCheckpointService("", 0, 0, False),
+        use_async=use_async)
+    JWorker(worker_id=0, job_type="training_only", minibatch_size=32,
+            model_zoo=MODEL_ZOO_PATH, model_def=DEEPFM, model_params=SMALL,
+            stub=InProcessMaster(j_master),
+            get_model_steps=get_model_steps).run()
+
+    t_task_d = TaskDispatcher(shards, {}, {}, 32, 1)
+    t_master = MasterServicer(1, 32, _port_optimizer(), t_task_d,
+                              init_var=init_var, use_async=use_async,
+                              device="cpu")
+    worker = Worker(worker_id=0, job_type=JobType.TRAINING_ONLY,
+                    minibatch_size=32, model_zoo=PORT_ZOO, model_def=DEEPFM,
+                    model_params=SMALL, stub=t_master,
+                    get_model_steps=get_model_steps, device="cpu")
+    losses = worker.run()
+    assert t_task_d.finished() and len(losses) == 4
+    assert t_master.get_model_version() == j_master.get_model_version() == 4
+    _, got = t_master.get_model(4)
+    _, want = j_master.get_model(4)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert _rel_l2(got[k], want[k]) <= 1e-5, k
+    store = t_master.embedding_store.embedding_params
+    assert sorted(store) == ["embedding", "id_bias"]
+    for table in ("embedding", "id_bias"):
+        ids = np.array(sorted(store[table].embedding_vectors))
+        assert sorted(j_master._embedding_store.embedding_params[
+            table].embedding_vectors) == list(ids)
+        assert _rel_l2(
+            t_master.pull_embedding_vectors(table, ids),
+            j_master.pull_embedding_vectors(table, ids)) <= 1e-5, table
+
+
+def _port_optimizer():
+    from elasticdl_tpu_torch.model_zoo.deepfm_edl_embedding import (
+        deepfm_edl_embedding as tzoo,
+    )
+
+    return tzoo.optimizer()
+
+
+def test_the_command_line_trains_without_a_strategy_flag(tmp_path):
+    data = tmp_path / "data"
+    write_frappe(str(data), 128, 5000)
+    proc = subprocess.run(
+        [sys.executable, "-m", "elasticdl_tpu_torch.cli", "train",
+         "--job_name", "j", "--model_zoo", "elasticdl_tpu_torch/model_zoo",
+         "--model_def", DEEPFM, "--training_data", str(data),
+         "--minibatch_size", "32", "--device", "cpu"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "Loss is" in proc.stderr and "0 still outstanding" in proc.stderr
+
+
+class _Capture:
+    def __init__(self):
+        self.rows = []
+
+    def process(self, predictions, worker_id):
+        self.rows.append(np.asarray(predictions["probs"]))
+
+
+def test_rounds_export_and_scoring_jobs(monkeypatch, tmp_path):
+    from elasticdl_tpu_torch.model_zoo.deepfm_edl_embedding import (
+        deepfm_edl_embedding as tzoo,
+    )
+
+    write_frappe(str(tmp_path / "data"), 128, 400)
+    write_frappe(str(tmp_path / "val"), 64, 400, seed=1)
+    base = ["--job_name", "j", "--model_zoo", "", "--model_def", DEEPFM,
+            "--model_params", SMALL, "--minibatch_size", "32",
+            "--device", "cpu"]
+    jobs = []
+    assert cli.main(["train"] + base + [
+        "--training_data", str(tmp_path / "data"),
+        "--validation_data", str(tmp_path / "val"),
+        "--evaluation_steps", "2", "--checkpoint_dir", str(tmp_path / "ck"),
+        "--checkpoint_steps", "2", "--output", str(tmp_path / "out"),
+    ], jobs=jobs) == 0
+    master = jobs[0].master
+    assert not master.master_servicer.coordinates_only
+    rounds = master.evaluation_service.published
+    assert [r["version"] for r in rounds] == [2, 4], rounds
+    assert all(0 <= r["metrics"]["probs"]["auc"] <= 1 for r in rounds)
+    # the eval checkpoints are gone once their rounds published
+    eval_dir = master.checkpoint_service._eval_checkpoint_dir
+    assert eval_dir and not os.listdir(eval_dir)
+    export = os.path.join(tmp_path / "out", os.listdir(tmp_path / "out")[0])
+    version, named = load_from_checkpoint_file(export)
+    assert version == 4
+    assert {"Dense_0/kernel", "edl_embedding:embedding:ids",
+            "edl_embedding:id_bias:rows"} <= set(named)
+    # the rows the export carries are the store's
+    store = master.master_servicer
+    ids = named["edl_embedding:embedding:ids"]
+    assert np.array_equal(named["edl_embedding:embedding:rows"],
+                          store.pull_embedding_vectors("embedding", ids))
+
+    assert cli.main(["evaluate"] + base + [
+        "--validation_data", str(tmp_path / "val"),
+        "--checkpoint_filename_for_init", export], jobs=jobs) == 0
+    scored = jobs[1].master.evaluation_service.published
+    assert scored[0]["version"] == 4
+    assert scored[0]["metrics"] == rounds[-1]["metrics"]
+
+    capture = _Capture()
+    monkeypatch.setattr(tzoo, "PredictionOutputsProcessor", capture,
+                        raising=False)
+    assert cli.main(["predict"] + base + [
+        "--prediction_data", str(tmp_path / "val"),
+        "--checkpoint_filename_for_init", export], jobs=jobs) == 0
+    probs = np.concatenate(capture.rows)
+    assert probs.shape == (64, 1) and np.all((probs > 0) & (probs < 1))
+
+
+def test_two_worker_async_job_survives_a_worker_kill(monkeypatch, tmp_path):
+    from elasticdl_tpu_torch.master import task_dispatcher as td
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    done = []
+    mark = td.TaskDispatcher._mark_done_locked
+
+    def spy(self, task, meta):
+        done.append((task.shard_name, task.start, task.end, int(task.type)))
+        return mark(self, task, meta)
+
+    monkeypatch.setattr(td.TaskDispatcher, "_mark_done_locked", spy)
+    write_frappe(str(tmp_path / "data"), 1536, 5000)
+    jobs, result = [], []
+
+    def run():
+        result.append(cli.main([
+            "train", "--job_name", "j", "--model_zoo", "",
+            "--model_def", DEEPFM, "--model_params", SMALL,
+            "--training_data", str(tmp_path / "data"),
+            "--minibatch_size", "32", "--num_minibatches_per_task", "2",
+            "--num_workers", "2", "--use_async", "true",
+            "--get_model_steps", "2", "--restart_policy", "Always",
+            "--device", "cpu", "--log_level", "WARNING",
+        ], jobs=jobs))
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    deadline = time.monotonic() + 200
+    while not jobs and time.monotonic() < deadline:
+        time.sleep(0.05)
+    master = jobs[0].master
+    while master.master_servicer.get_model_version() < 8:
+        assert thread.is_alive() and time.monotonic() < deadline
+        time.sleep(0.02)
+    master.instance_manager.kill_worker(1)
+    thread.join(timeout=max(1.0, deadline - time.monotonic()))
+    assert not thread.is_alive() and result == [0]
+    codes = master.instance_manager.exit_codes
+    assert codes[1] == -9 and codes[0] == 0 and codes[2] == 0, codes
+    assert master.task_d.finished()
+    # every training task done exactly once
+    assert len(done) == len(set(done)) == 1536 // 64
+    # each accepted gradient advanced the version once; the killed
+    # worker's requeued task was trained again
+    assert master.master_servicer.get_model_version() >= 1536 // 32
+
+
+def test_the_mnist_job_trains_in_process(tmp_path):
+    from elasticdl_tpu_torch.data.example import encode_example as enc
+
+    data = tmp_path / "data"
+    data.mkdir()
+    rng = np.random.default_rng(0)
+    with RecordIOWriter(str(data / "f0")) as w:
+        for _ in range(64):
+            w.write(enc({
+                "image": rng.random(784, dtype=np.float32) * 255,
+                "label": np.array([rng.integers(0, 10)], np.int64),
+            }))
+    jobs = []
+    assert cli.main([
+        "train", "--job_name", "j", "--distribution_strategy", "Local",
+        "--model_zoo", "", "--model_def",
+        "mnist_functional_api.mnist_functional_api.custom_model",
+        "--training_data", str(data), "--validation_data", str(data),
+        "--evaluation_steps", "2", "--minibatch_size", "16",
+        "--device", "cpu",
+    ], jobs=jobs) == 0
+    job = jobs[0]
+    assert job.master.master_servicer.get_model_version() == 4
+    assert len(job.losses) == 4 and np.all(np.isfinite(job.losses))
+    _, model = job.master.master_servicer.get_model(4)
+    assert {"Conv_0/kernel", "Dense_0/kernel", "GroupNorm_0/scale"} <= set(
+        model)
+    assert job.master.master_servicer.embedding_store.embedding_params == {}
+    assert [r["version"] for r in job.master.evaluation_service.published
+            ] == [2, 4]
+
+
+@pytest.mark.parametrize(
+    "flag",
+    [["--num_ps_pods", "1"], ["--master_journal_dir", "j"],
+     ["--embedding_plane", "hybrid"], ["--export_dir", "e"],
+     ["--num_standby_workers", "1"]],
+    ids=["ps_fleet", "journal", "hybrid", "streaming_export", "standby"],
+)
+def test_unported_planes_of_the_strategy_raise_by_name(tmp_path, flag):
+    from elasticdl_tpu_torch.master.master import Master
+    from elasticdl_tpu_torch.common.args import parse_master_args
+
+    args = parse_master_args([
+        "--job_name", "j", "--model_zoo", "", "--model_def", DEEPFM,
+        "--training_data", str(tmp_path), "--minibatch_size", "8",
+        "--num_ps_pods", "0", "--device", "cpu"] + flag)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Master(args)
+
+
+@pytest.mark.parametrize(
+    "entry", ["ps_main", "ps_addrs"],
+)
+def test_the_parameter_server_fleet_raises_by_name(entry):
+    from elasticdl_tpu_torch.ps import main as ps_main
+    from elasticdl_tpu_torch.worker import main as worker_main
+
+    with pytest.raises(NotImplementedError, match="parameter-server fleet"):
+        if entry == "ps_main":
+            ps_main.main([])
+        else:
+            worker_main.main([
+                "--worker_id", "0", "--job_type", "training_only",
+                "--master_addr", "localhost:1", "--ps_addrs", "h:1",
+                "--model_zoo", "", "--model_def", DEEPFM,
+                "--minibatch_size", "8", "--device", "cpu"])

@@ -11,8 +11,11 @@ service and client over it (``master/rpc_service.py``).
   at the server and an oversized reply; a refused connection is
   ``UNAVAILABLE`` after the client's retries.
 - ``MasterClient`` through ``MasterRpcService`` answers as the servicer
-  and the membership called directly do, under one dispatcher seed; the
-  methods of planes not ported raise by name.
+  and the membership called directly do, under one dispatcher seed; so do
+  the methods of the master-held model (``get_model``,
+  ``report_variable``, ``report_gradient``, ``push_embedding_info``,
+  ``pull_embedding_vectors``, ``export_embedding_tables``), and worker
+  telemetry, not ported, raises by name.
 - The master process (``python -m elasticdl_tpu_torch.master.master``)
   serves its plane and exits 75 on SIGTERM.
 
@@ -246,11 +249,67 @@ def test_master_client_answers_as_the_servicer(monkeypatch):
         assert client.standby_poll(7) == (None, None)
         remote_m.standby.activate(5, device="cuda:1")
         assert client.standby_poll(7) == (5, "cuda:1")
-        for name in ("get_model", "report_gradient", "report_variable",
-                     "pull_embedding_vectors", "report_telemetry"):
-            with pytest.raises(st.RpcError,
-                               match="NotImplementedError.*%s" % name):
-                client._client.call(name)
+        with pytest.raises(st.RpcError,
+                           match="NotImplementedError.*report_telemetry"):
+            client._client.call("report_telemetry")
+    finally:
+        client.close()
+        server.stop()
+    _held_model_methods_answer_as_the_servicer()
+
+
+def _held_model_servicer():
+    from elasticdl_tpu_torch.master.checkpoint_service import (
+        CheckpointService,
+    )
+
+    return MasterServicer(
+        1, 16, lambda p: torch.optim.SGD(p, lr=0.1),
+        TaskDispatcher(dict(SHARDS), {}, {}, 16, 1),
+        checkpoint_service=CheckpointService("", 0, 0, False), device="cpu",
+    )
+
+
+def _held_model_methods_answer_as_the_servicer():
+    """The master-held model's methods through the socket plane give what
+    the servicer gives when called directly."""
+    from elasticdl_tpu_torch.common.constants import GetModelMethod
+    from elasticdl_tpu_torch.ps.parameters import EmbeddingTableInfo
+
+    direct, remote = _held_model_servicer(), _held_model_servicer()
+    server = st.serve(MasterRpcService(remote).rpc_methods(), 0)
+    client = MasterClient("localhost:%d" % server.port)
+    rng = np.random.default_rng(0)
+    model = {"w": rng.normal(size=(3, 2)).astype(np.float32),
+             "b": rng.normal(size=(2,)).astype(np.float32)}
+    try:
+        for stub in (client, direct):
+            stub.report_variable(model)
+            stub.push_embedding_info([EmbeddingTableInfo("emb", 4, "uniform")])
+        ids = np.array([7, 3, 7, 1], np.int64)
+        assert np.array_equal(client.pull_embedding_vectors("emb", ids),
+                              direct.pull_embedding_vectors("emb", ids))
+        for version in (0, 1):
+            grads = [Tensor("w", rng.normal(size=(3, 2)).astype(np.float32)),
+                     Tensor("emb", rng.normal(size=(4, 4)).astype(np.float32),
+                            ids)]
+            assert client.report_gradient(grads, version) == (
+                direct.report_gradient(grads, version))
+        assert client.report_gradient(grads, 0) == (False, 2)
+        for method in (GetModelMethod.MINIMUM, GetModelMethod.FIXED):
+            got, want = client.get_model(2, method), direct.get_model(2, method)
+            assert got[0] == want[0] == 2 and sorted(got[1]) == ["b", "w"]
+            for k in want[1]:
+                assert np.array_equal(got[1][k], want[1][k])
+        got, want = client.export_embedding_tables(), (
+            direct.export_embedding_tables())
+        assert sorted(got) == sorted(want) == [
+            "edl_embedding:emb:ids", "edl_embedding:emb:rows"]
+        for k in want:
+            assert np.array_equal(got[k], want[k])
+        with pytest.raises(st.RpcError, match="compressed"):
+            client._client.call("report_gradient", gradients=grads,
+                                model_version=2, compressed_f32=["w"])
     finally:
         client.close()
         server.stop()
