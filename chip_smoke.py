@@ -116,7 +116,41 @@ Phases, each printing JSON lines; any failure exits non-zero:
    b64 on 1,024 + 256 records. No flash kernel launches
    (``launches_by_path.ps`` = 0: this process's, and those that P2's
    worker processes report in their timelines' last event).
-10. elastic — the multi-process elastic ALLREDUCE job through the port's
+10. ps_fleet — the parameter-server fleet: ``python -m
+   elasticdl_tpu_torch.master.main --num_ps_pods 2``, two ``python -m
+   elasticdl_tpu_torch.ps.main`` shards and ``worker.main --ps_addrs``
+   processes, all on the card under one LocalInstanceManager (the
+   master, the shards and the workers it spawns; a shard or master it
+   sees exit is relaunched at its address). F1: DeepFM at the ps
+   phase's width and data, sync (``--grads_to_wait 1``), one worker,
+   ``--validation_data --evaluation_steps 8 --checkpoint_steps 8
+   --output`` (the fleet's master holds no model: as in the reference,
+   no round or checkpoint fires), ``evaluate`` from the export; held
+   against the held-model job of the same seed run here (dense model and
+   rows within 1e-6 relative L2; bitwise reported), each shard holding
+   exactly the ids ``id % 2`` gives it; examples/s beside the held job's
+   in this call, the worker's step split (``pull_dense``, the rows'
+   fan-out, compute with CUDA events, ``push_gradient``, the parse),
+   each shard's dense and sparse apply, rows, bytes and peak, the
+   worker's peak. A profiled six-step window of the worker, run in this
+   process against the fleet (the shards' applies run outside the
+   trace). F2: two async workers (``--get_model_steps 2``), shard
+   snapshots every 8 versions, shard 1 SIGKILLed at version 8: the
+   relaunch restores ``snap_v8`` or newer under a new ``shard_epoch``,
+   every task done once an epoch (the journal), finite losses; kill ->
+   serving -> the first push it accepts. F3: F2 without snapshots: the
+   shard comes back empty and the workers re-push the model. F4: the
+   MNIST CNN across two shards against the held MNIST job (no dataset
+   shuffle, deterministic cuDNN in both; 1e-6). F5: the held model's
+   ported flags: the master SIGKILLed at version 4 under
+   ``--master_journal_dir`` (the worker's re-push, every task once);
+   MNIST with ``--export_dir --export_every_versions 4 --export_keep
+   2``, the newest artifact served by ``ModelDirectoryWatcher`` replying
+   as the model of its version; F1 again over ``--wire_dtype
+   bfloat16`` (within 2e-2 of F1). No flash kernel launches
+   (``launches_by_path.ps_fleet`` = 0, this process's and the worker
+   processes').
+11. elastic — the multi-process elastic ALLREDUCE job through the port's
    command line with ``--num_workers 2``: the master in this process,
    two worker processes sharing the card in one process world (gloo:
    NCCL refuses two ranks on one device; on a host with a card for each
@@ -161,12 +195,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
    report their flash launches, by run (``launches_by_path`` ``elastic``
    for A and B, ``elastic_master_kill``, ``elastic_standby`` and
    ``elastic_eval``, each 0).
-11. summary — the kernels line, the card line, then the result line.
+12. summary — the kernels line, the card line, then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
-non-zero and prints no result. ``--elastic-only`` runs phases 1 and 10
-alone, ``--zoo-only`` phases 1 and 8, ``--ps-only`` phases 1 and 9, and
-none of them prints the result line.
+non-zero and prints no result. ``--elastic-only`` runs phases 1 and 11
+alone, ``--zoo-only`` phases 1 and 8, ``--ps-only`` phases 1 and 9,
+``--ps-fleet-only`` phases 1 and 10, and none of them prints the result
+line.
 """
 
 import argparse
@@ -3877,6 +3912,906 @@ def _ps_only(torch):
 
 
 # ---------------------------------------------------------------------------
+# ps_fleet: the parameter-server fleet, two shard processes on one card
+# ---------------------------------------------------------------------------
+
+FLEET_SHARDS = 2
+FLEET_ASYNC_EPOCHS = 4  # Runs F2/F3: 32 steps an epoch over two workers
+FLEET_KILL_AT_VERSION = 8
+FLEET_SNAPSHOT_VERSIONS = 8
+FLEET_JOB_LIMIT_S = 300  # a fleet run that hangs fails the phase
+FLEET_TOL = 1e-6  # F1 and F4 against the held model, relative L2
+FLEET_BF16_TOL = 2e-2  # F1 over the bf16 wire against F1, relative L2
+FLEET_PROFILE_STEPS = (2, 8)  # a six-step profiled window
+FLEET_MNIST_RECORDS = (512, 64)  # F4: records, batch
+FLEET_MASTER_KILL_AT_VERSION = 4  # F5: the held model's master SIGKILL
+FLEET_EXPORT = (4, 2)  # F5: --export_every_versions, --export_keep
+FLEET_EXPORT_RECORDS = 1024  # F5: MNIST b64, 16 versions
+
+# the worker of a deterministic run: no dataset shuffle and cuDNN's
+# deterministic algorithms, then worker.main as the entry point runs it
+_DETERMINISTIC_WORKER = (
+    "import runpy, sys, torch; "
+    "from elasticdl_tpu_torch.data.dataset import Dataset; "
+    "Dataset.shuffle = lambda self, *a, **k: self; "
+    "torch.backends.cudnn.deterministic = True; "
+    "torch.backends.cudnn.benchmark = False; "
+    "sys.argv = ['worker'] + %r; "
+    "runpy.run_module('elasticdl_tpu_torch.worker.main', "
+    "run_name='__main__')"
+)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _until(probe, what, limit_s=120.0):
+    """``probe()``'s first answer (it raises until the process serves)."""
+    deadline = time.monotonic() + limit_s
+    while True:
+        try:
+            return probe()
+        except Exception as err:  # noqa: BLE001 — not serving yet
+            if time.monotonic() > deadline:
+                raise PhaseError("%s never served: %s" % (what, err))
+            time.sleep(0.1)
+
+
+def _ps_stub(port, deadline_s=10.0):
+    from elasticdl_tpu_torch.worker.ps_client import BoundPS
+
+    return BoundPS("localhost:%d" % port, deadline_s=deadline_s)
+
+
+def _master_probe(port):
+    from elasticdl_tpu_torch.master.rpc_service import MasterClient
+
+    client = MasterClient("localhost:%d" % port)
+    try:
+        return client.master_status()
+    finally:
+        client.close()
+
+
+class _Fleet:
+    """One job on processes under a LocalInstanceManager: ``python -m
+    elasticdl_tpu_torch.master.main`` (a journal, a fixed port), with
+    ``shards`` > 0 that many ``python -m elasticdl_tpu_torch.ps.main``
+    shards, and ``workers`` ``worker.main`` processes (``--ps_addrs``
+    where there are shards). ``inline`` runs one more worker in this
+    process instead. ``deterministic`` starts the workers with no
+    dataset shuffle and cuDNN's deterministic algorithms."""
+
+    def __init__(self, tmp, name, model_def, data, batch, shards=2,
+                 workers=1, epochs=1, job=(), ps=(), worker=(),
+                 deterministic=False, val=None):
+        from elasticdl_tpu_torch.master.local_instance_manager import (
+            LocalInstanceManager,
+        )
+
+        self.root = os.path.join(tmp, name)
+        os.makedirs(self.root, exist_ok=True)
+        self.journal = os.path.join(self.root, "journal")
+        self.timeline = os.path.join(self.root, "timeline")
+        self.batch = batch
+        self.shards = shards
+        self.master_port = _free_port()
+        self.ps_ports = [_free_port() for _ in range(shards)]
+        self.model_def = model_def
+        common = ["--model_zoo", "", "--model_def", model_def,
+                  "--device", DEVICE, "--log_level", "WARNING"]
+        py = [sys.executable, "-m"]
+        self.master_argv = py + [
+            "elasticdl_tpu_torch.master.main", "--job_name", "fleet-" + name,
+            "--training_data", data, "--minibatch_size", str(batch),
+            "--num_minibatches_per_task", "2", "--num_epochs", str(epochs),
+            "--num_ps_pods", str(shards), "--port", str(self.master_port),
+            "--master_journal_dir", self.journal,
+        ] + (["--validation_data", val] if val else []) + common + list(job)
+        self.ps_argv = lambda i: py + [
+            "elasticdl_tpu_torch.ps.main", "--ps_id", str(i),
+            "--port", str(self.ps_ports[i]),
+        ] + common + list(ps)
+        self.job_type = ("training_with_evaluation" if val
+                         else "training_only")
+        self.worker_flags = [
+            "--job_type", self.job_type,
+            "--master_addr", "localhost:%d" % self.master_port,
+            "--minibatch_size", str(batch), "--master_failover_s", "120",
+        ] + (["--ps_addrs", self.ps_addrs()] if shards else []) + common \
+            + list(worker)
+
+        def worker_command(worker_id, device):
+            flags = ["--worker_id", str(worker_id)] + self.worker_flags
+            if deterministic:
+                return [sys.executable, "-c",
+                        _DETERMINISTIC_WORKER % (flags,)]
+            return py + ["elasticdl_tpu_torch.worker.main"] + flags
+
+        env = dict(os.environ)
+        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        env.update(EDL_WORKER_TIMELINE_DIR=self.timeline,
+                   EDL_MASTER_POLL_SECS="1",
+                   EDL_TASK_SHUFFLE_SEED=str(SEED))
+        self.manager = LocalInstanceManager(
+            None, workers, worker_command, [DEVICE] * workers,
+            num_ps=shards, ps_command=self.ps_argv if shards else None,
+            env=env, master_command=lambda: self.master_argv,
+        )
+
+    def ps_addrs(self):
+        return ",".join("localhost:%d" % p for p in self.ps_ports)
+
+    def status(self, i, deadline_s=10.0):
+        stub = _ps_stub(self.ps_ports[i], deadline_s)
+        try:
+            return stub.ps_status({})
+        finally:
+            stub.close()
+
+    def client(self):
+        from elasticdl_tpu_torch.worker.ps_client import BoundPS, PSClient
+
+        return PSClient([BoundPS("localhost:%d" % p, deadline_s=60)
+                         for p in self.ps_ports])
+
+    def run(self, on_poll=None, inline=None, inspect=None):
+        """Start the master, the shards and the workers; ``on_poll(self)``
+        every 20 ms until the workers exit (``inline(self)`` runs in this
+        thread instead where given); ``inspect(self)`` with the shards
+        still up. Returns the record's raw parts."""
+        m = self.manager
+        out = {}
+        try:
+            m.start_master()
+            _until(lambda: _master_probe(self.master_port), "the master")
+            m.start_all_ps()
+            for i in range(self.shards):
+                _until(lambda i=i: self.status(i, 2.0), "shard %d" % i)
+            t0 = time.time()
+            out["t0"] = t0
+            if inline is not None:
+                out["inline"] = inline(self)
+            else:
+                m.start_workers()
+                deadline = time.monotonic() + FLEET_JOB_LIMIT_S
+                while m.live_workers():
+                    if time.monotonic() > deadline:
+                        raise PhaseError("fleet run %s ran past %d s" % (
+                            os.path.basename(self.root), FLEET_JOB_LIMIT_S))
+                    if on_poll is not None:
+                        on_poll(self)
+                    time.sleep(0.02)
+            out["job_s"] = time.time() - t0
+            deadline = time.monotonic() + 60
+            while m.live_master() and time.monotonic() < deadline:
+                time.sleep(0.1)
+            if inspect is not None:
+                out["inspect"] = inspect(self)
+        finally:
+            m.stop_relaunch_and_remove_all_pods()
+        from elasticdl_tpu_torch.master.journal import MasterJournal
+
+        state = MasterJournal(self.journal).replay()
+        out["journal"] = {"done": state.counters["done"],
+                          "pending": len(state.pending),
+                          "dup": state.counters.get("dup", 0)}
+        out["events"] = _timeline_events(self.timeline) \
+            if os.path.isdir(self.timeline) else {}
+        out["exit_codes"] = {str(k): v for k, v in m.exit_codes.items()}
+        out["master_exit_codes"] = list(m.master_exit_codes)
+        out["ps_exit_codes"] = {str(k): v for k, v in m.ps_exit_codes.items()}
+        return out
+
+
+def _fleet_steps(events):
+    return sorted((e for ev in events.values() for e in _of(ev, "step")),
+                  key=lambda e: e["t"])
+
+
+def _fleet_split(events):
+    """Medians over every worker's accepted steps after its first: host
+    ms of each phase (``get_model`` is the fleet's ``pull_dense``,
+    ``pull`` the rows' fan-out, ``report`` ``push_gradient``), the
+    compute's CUDA-event ms, and the parse per batch on the prefetch
+    thread (the workers' end events)."""
+    splits = [s["split"] for ev in events.values()
+              for s in _of(ev, "step")[1:] if s.get("split")]
+    out = {k + "_ms": _median([s.get(k, 0.0) * 1e3 for s in splits])
+           for k in ("get_model", "plan", "pull", "compute", "report")}
+    out["compute_device_ms"] = _median(
+        [s["compute_device_ms"] for s in splits if "compute_device_ms" in s])
+    parse = [e["input_stats"] for ev in events.values()
+             for e in _of(ev, "end") if e.get("input_stats", {}).get(
+                 "batches")]
+    out["parse_ms_per_batch"] = _median(
+        [st["parse_s"] * 1e3 / st["batches"] for st in parse])
+    return out
+
+
+def _fleet_examples_per_s(events, batch):
+    steps = _fleet_steps(events)
+    if len(steps) < 2:
+        return None
+    return (len(steps) - 1) * batch / (steps[-1]["t"] - steps[0]["t"])
+
+
+def _shard_record(status):
+    apply_ms = status.get("apply_ms", {})
+    return {
+        "version": status["version"],
+        "shard_epoch": status["shard_epoch"],
+        "restored_version": status["restored_version"],
+        "dense_apply_ms_median": _median(apply_ms.get("dense", [])),
+        "sparse_apply_ms_median": _median(apply_ms.get("sparse", [])),
+        "applies": len(apply_ms.get("sparse", []) or apply_ms.get(
+            "dense", [])),
+        # a fresh process's first apply also creates its CUDA context
+        "first_apply_ms": {k: v[:1] for k, v in apply_ms.items()},
+        "rows": status.get("tables"),
+        "table_bytes": status.get("table_bytes"),
+        "peak_mib": status.get("peak_mib"),
+    }
+
+
+def _worker_launches(events, problems):
+    """The flash launches each worker process counted, from its last
+    event that carries them."""
+    launches = {k: 0 for k in KERNELS}
+    for wid, ev in events.items():
+        last = [e["launches"] for e in ev if "launches" in e]
+        if not last:
+            problems.append("worker %s reported no launch counts" % wid)
+            continue
+        for k, n in last[-1].items():
+            launches[k] += n
+    return launches
+
+
+def _end_events(events):
+    return [e for ev in events.values() for e in _of(ev, "end")]
+
+
+def _fleet_state(fleet, ids_by_table):
+    """The fleet's dense model and the rows of ``ids_by_table`` (pulled
+    from each row's shard), and each shard's status; a shard's row count
+    must not move under the pull (it held exactly those ids)."""
+    statuses = [fleet.status(i) for i in range(fleet.shards)]
+    client = fleet.client()
+    try:
+        ready, version, dense = client.pull_dense()
+        rows = {name: client.pull_embedding_vectors(name, ids)
+                for name, ids in ids_by_table.items()}
+    finally:
+        client.close()
+    after = [fleet.status(i) for i in range(fleet.shards)]
+    placement = {}
+    for name, ids in ids_by_table.items():
+        for i in range(fleet.shards):
+            mine = int((ids % fleet.shards == i).sum())
+            placement["%s@%d" % (name, i)] = (
+                statuses[i]["tables"].get(name), after[i]["tables"].get(name),
+                mine)
+    return {"ready": ready, "version": version, "dense": dense,
+            "rows": rows, "statuses": statuses, "placement": placement}
+
+
+def _held_ids(master):
+    import numpy as np
+
+    store = master.embedding_store.embedding_params
+    return {name: np.array(sorted(store[name].embedding_vectors), np.int64)
+            for name in ("embedding", "id_bias")}
+
+
+def _compare(fleet_state, dense, rows):
+    """Relative L2 of each dense name and table against the held model's
+    ``dense`` and ``rows``, and whether all are bitwise equal."""
+    import numpy as np
+
+    rel, bitwise = {}, True
+    for k, v in dense.items():
+        got = fleet_state["dense"].get(k)
+        if got is None:
+            rel[k] = float("inf")
+            bitwise = False
+            continue
+        rel[k] = _np_rel(got, v)
+        bitwise = bitwise and np.array_equal(got, v)
+    for name, v in rows.items():
+        rel["rows:" + name] = _np_rel(fleet_state["rows"][name], v)
+        bitwise = bitwise and np.array_equal(fleet_state["rows"][name], v)
+    return rel, bitwise
+
+
+def _fleet_f1(torch, tmp, card, wire=None):
+    """Run F1 (or F5's bf16-wire repeat with ``wire``): the sync DeepFM
+    job across two shards, one worker process, ``--grads_to_wait 1``,
+    ``--validation_data --evaluation_steps 8 --checkpoint_steps 8
+    --output``; then ``evaluate`` from the export. Returns (record,
+    problems, the fleet's final state)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch import cli
+
+    name = "f1" if wire is None else "f5-bf16"
+    data, val = os.path.join(tmp, "ps-data"), os.path.join(tmp, "ps-val")
+    out = os.path.join(tmp, name + "-out")
+    ckpt = os.path.join(tmp, name + "-ckpt")
+    wire_flags = ["--wire_dtype", wire] if wire else []
+    fleet = _Fleet(
+        tmp, name, PS_DEEPFM, data, PS_BATCH, val=val,
+        job=["--grads_to_wait", "1", "--evaluation_steps",
+             str(PS_EVAL_STEPS), "--checkpoint_steps", str(PS_EVAL_STEPS),
+             "--checkpoint_dir", ckpt, "--output", out] + wire_flags,
+        ps=["--grads_to_wait", "1"] + wire_flags, worker=wire_flags,
+        deterministic=True,
+    )
+    seen = np.unique(_frappe_ids(PS_RECORDS, SEED + 40)[0])
+    ids = {"embedding": seen, "id_bias": seen}
+    raw = fleet.run(inspect=lambda f: _fleet_state(f, ids))
+    state = raw["inspect"]
+    steps = PS_RECORDS // PS_BATCH
+    problems = []
+    events = raw["events"]
+    ends = _end_events(events)
+    if raw["exit_codes"] != {"0": 0} or raw["master_exit_codes"] != [0]:
+        problems.append("%s exits %s, master %s" % (
+            name, raw["exit_codes"], raw["master_exit_codes"]))
+    # the training tasks and the SAVE_MODEL task
+    if raw["journal"]["done"] != steps // 2 + 1 or raw["journal"]["pending"]:
+        problems.append("%s journal %s" % (name, raw["journal"]))
+    if not state["ready"] or state["version"] != steps:
+        problems.append("%s fleet version %s" % (name, state["version"]))
+    if len(_fleet_steps(events)) != steps or not ends or not all(
+            e["losses_finite"] for e in ends):
+        problems.append("%s steps %d, ends %s" % (
+            name, len(_fleet_steps(events)), ends))
+    for key, (before, after, mine) in state["placement"].items():
+        if not before == after == mine:
+            problems.append("%s shard rows %s: %s before, %s after, %d "
+                            "with id %% %d" % (name, key, before, after,
+                                               mine, FLEET_SHARDS))
+    # under the fleet the master holds no model: as in the reference, its
+    # version never moves, so no round and no checkpoint fires
+    rounds = os.listdir(ckpt) if os.path.isdir(ckpt) else []
+    export = os.path.join(out, sorted(os.listdir(out))[-1]) \
+        if os.path.isdir(out) and os.listdir(out) else None
+    eval_rec = None
+    if export is None:
+        problems.append("%s wrote no export" % name)
+    elif wire is None:
+        ejobs = []
+        t1 = time.perf_counter()
+        erc = cli.main(_ps_argv(
+            "evaluate", PS_DEEPFM, PS_BATCH, "--validation_data", val,
+            "--checkpoint_filename_for_init", export), jobs=ejobs)
+        scored = ejobs[0].master.evaluation_service.published \
+            if ejobs else []
+        eval_rec = {"rc": erc, "seconds": time.perf_counter() - t1,
+                    "metrics": scored[0]["metrics"] if scored else None}
+        if erc != 0 or not scored or not all(
+                np.isfinite(v) for m in scored[0]["metrics"].values()
+                for v in m.values()):
+            problems.append("%s evaluate %s" % (name, eval_rec))
+    rec = {
+        "phase": "ps_fleet", "of": name, "card": card,
+        "model": "deepfm_edl_embedding", "batch": PS_BATCH,
+        "records": PS_RECORDS, "shards": FLEET_SHARDS,
+        "wire_dtype": wire or "float32", "version": state["version"],
+        "job_s": raw["job_s"],
+        "examples_per_s": _fleet_examples_per_s(events, PS_BATCH),
+        "step_split": _fleet_split(events),
+        "step_ms_median": _median(
+            [(b["t"] - a["t"]) * 1e3 for a, b in zip(
+                _fleet_steps(events), _fleet_steps(events)[1:])]),
+        "shards_state": [_shard_record(s) for s in state["statuses"]],
+        "worker_peak_mib": [e.get("peak_mib") for e in ends],
+        "master_checkpoints": len(rounds), "journal": raw["journal"],
+        "evaluate": eval_rec, "ps_exit_codes": raw["ps_exit_codes"],
+        "losses_first_last": [e.get("losses_first_last") for e in ends],
+    }
+    rec["worker_flash_launches"] = _worker_launches(events, problems)
+    return rec, problems, state
+
+
+def _fleet_held_deepfm(torch, tmp, card):
+    """The held-model job on F1's data and seed (the hand-built sync
+    job, tasks in the seeded order): the model, the rows it touched and
+    its examples/s, for F1 in the same call."""
+    from elasticdl_tpu_torch.data.dataset import Dataset
+
+    shuffle = Dataset.shuffle
+    os.environ["EDL_TASK_SHUFFLE_SEED"] = str(SEED)
+    Dataset.shuffle = lambda self, *a, **k: self
+    try:
+        with _PsSpies() as spies:
+            master = _ps_direct_job(torch, os.path.join(tmp, "ps-data"),
+                                    DEVICE, None)
+    finally:
+        Dataset.shuffle = shuffle
+        os.environ.pop("EDL_TASK_SHUFFLE_SEED", None)
+    ids = _held_ids(master)
+    _, dense = master.get_model(master.get_model_version())
+    rows = {k: master.pull_embedding_vectors(k, v) for k, v in ids.items()}
+    rec = {
+        "phase": "ps_fleet", "of": "held_same_seed", "card": card,
+        "version": master.get_model_version(),
+        "examples_per_s": _ps_examples_per_s(spies.spans, [], PS_BATCH),
+        "step_ms_median": _median(
+            [(b - a) * 1e3 for a, b in spies.spans[1:]]),
+        "master_apply_ms_median": {
+            k: _median(list(v)) for k, v in master.apply_ms.items()},
+    }
+    return rec, dense, rows
+
+
+def _fleet_profile(torch, tmp, card):
+    """F1's fleet with the worker in this process (``worker.Worker`` over
+    a ``PSClient`` of the shards and a ``MasterClient``) and
+    torch.profiler on for FLEET_PROFILE_STEPS: this process's device
+    idle share (the shards' applies run in their own processes, outside
+    this trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from elasticdl_tpu_torch.common.constants import JobType
+    from elasticdl_tpu_torch.master.rpc_service import MasterClient
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    first, last = FLEET_PROFILE_STEPS
+    marks = {}
+
+    def on_step(i):
+        if i in (first, last):
+            torch.cuda.synchronize()
+            marks[i] = time.perf_counter()
+            (prof.start if i == first else prof.stop)()
+
+    def inline(fleet):
+        stub = MasterClient("localhost:%d" % fleet.master_port,
+                            failover_s=60)
+        client = fleet.client()
+        try:
+            with _PsSpies(on_step):
+                Worker(0, JobType.TRAINING_ONLY, PS_BATCH, "", PS_DEEPFM,
+                       stub=stub, ps_client=client, device=DEVICE,
+                       loss_log_steps=0).run()
+        finally:
+            client.close()
+            stub.close()
+
+    fleet = _Fleet(tmp, "f1-profile", PS_DEEPFM,
+                   os.path.join(tmp, "ps-data"), PS_BATCH, workers=0)
+    fleet.run(inline=inline)
+    if last not in marks:
+        raise PhaseError("the profiled fleet run ended before step %d"
+                         % last)
+    return dict(
+        _window_record(torch, prof, (marks[last] - marks[first]) * 1e3),
+        phase="ps_fleet", of="f1_profile", steps=[first, last],
+        batch=PS_BATCH, card=card,
+    )
+
+
+def _fleet_kill(torch, tmp, card, durable):
+    """Runs F2 (``durable``: snapshots every FLEET_SNAPSHOT_VERSIONS) and
+    F3 (none): two async workers, ``--get_model_steps 2``, shard 1
+    SIGKILLed once its version reaches FLEET_KILL_AT_VERSION and
+    relaunched by the instance manager at its address. Returns (record,
+    problems)."""
+    name = "f2" if durable else "f3"
+    snap = os.path.join(tmp, name + "-snap")
+    snap_flags = (["--ps_snapshot_versions", str(FLEET_SNAPSHOT_VERSIONS),
+                   "--ps_snapshot_dir", snap] if durable else [])
+    from elasticdl_tpu_torch.ps.snapshot import snapshot_versions
+
+    fleet = _Fleet(
+        tmp, name, PS_DEEPFM, os.path.join(tmp, "ps-data"), PS_BATCH,
+        workers=2, epochs=FLEET_ASYNC_EPOCHS,
+        job=["--use_async", "true", "--get_model_steps", "2"] + snap_flags,
+        ps=["--use_async", "true"] + snap_flags,
+        worker=["--get_model_steps", "2"],
+    )
+    marks = {}
+
+    def on_poll(f):
+        if "kill" not in marks:
+            try:
+                status = f.status(1, 2.0)
+            except Exception:  # noqa: BLE001 — between polls
+                return
+            marks.setdefault("epoch0", status["shard_epoch"])
+            # with snapshots, once one of version >= the mark is published
+            published = snapshot_versions(os.path.join(snap, "ps-1")) \
+                if durable else [status["version"]]
+            if published and max(published) >= FLEET_KILL_AT_VERSION:
+                version = status["version"]
+                marks["published"] = max(published)
+                f.manager.kill_ps(1)
+                marks["kill"] = time.time()
+                marks["killed_at_version"] = version
+            return
+        if "first_accepted" in marks:
+            return
+        try:
+            status = f.status(1, 1.0)
+        except Exception:  # noqa: BLE001 — still down
+            return
+        if status["shard_epoch"] == marks.get("epoch0"):
+            return
+        if "serving" not in marks:
+            marks["serving"] = time.time()
+            marks["restored_version"] = status["restored_version"]
+            marks["epoch"] = status["shard_epoch"]
+            marks["version_at_serving"] = status["version"]
+        if status["initialized"] and status["version"] > max(
+                0, marks["version_at_serving"]):
+            marks["first_accepted"] = time.time()
+
+    raw = fleet.run(on_poll=on_poll, inspect=lambda f: [
+        f.status(i) for i in range(f.shards)])
+    events = raw["events"]
+    problems = []
+    tasks = PS_RECORDS // (2 * PS_BATCH)
+    if raw["journal"]["done"] != tasks * FLEET_ASYNC_EPOCHS or (
+            raw["journal"]["pending"]):
+        problems.append("%s journal %s, want %d done" % (
+            name, raw["journal"], tasks * FLEET_ASYNC_EPOCHS))
+    if raw["exit_codes"] != {"0": 0, "1": 0}:
+        problems.append("%s worker exits %s" % (name, raw["exit_codes"]))
+    if "kill" not in marks or "first_accepted" not in marks:
+        problems.append("%s kill marks %s" % (name, marks))
+    if raw["ps_exit_codes"].get("1", [None])[0] != -9:
+        problems.append("%s shard exits %s" % (name, raw["ps_exit_codes"]))
+    restored = marks.get("restored_version", -1)
+    if durable and restored < FLEET_SNAPSHOT_VERSIONS:
+        problems.append("%s restored v%s" % (name, restored))
+    if not durable and restored != -1:
+        problems.append("%s restored v%s without snapshots" % (
+            name, restored))
+    repushes = [e for ev in events.values() for e in _of(ev, "repush")]
+    failed = [e for ev in events.values() for e in _of(ev, "failed")]
+    if not durable and not repushes:
+        problems.append("f3: no worker re-pushed the model")
+    ends = _end_events(events)
+    if len(ends) != 2 or not all(e["losses_finite"] for e in ends):
+        problems.append("%s ends %s" % (name, ends))
+    final = raw["inspect"]
+    if not all(s["initialized"] for s in final):
+        problems.append("%s final shards %s" % (name, final))
+    if final[1]["shard_epoch"] == marks.get("epoch0"):
+        problems.append("%s shard 1 kept its epoch" % name)
+    rec = {
+        "phase": "ps_fleet", "of": name, "card": card,
+        "snapshot_versions": FLEET_SNAPSHOT_VERSIONS if durable else 0,
+        "epochs": FLEET_ASYNC_EPOCHS, "job_s": raw["job_s"],
+        "examples_per_s": _fleet_examples_per_s(events, PS_BATCH),
+        "step_split": _fleet_split(events),
+        "killed_at_version": marks.get("killed_at_version"),
+        "newest_snapshot_at_kill": marks.get("published"),
+        "restored_version": restored,
+        "shard_epochs": [marks.get("epoch0"), marks.get("epoch")],
+        "kill_to_serving_s": marks["serving"] - marks["kill"]
+        if "serving" in marks and "kill" in marks else None,
+        "kill_to_first_accepted_s": marks["first_accepted"] - marks["kill"]
+        if "first_accepted" in marks and "kill" in marks else None,
+        "repush_events": len(repushes), "journal": raw["journal"],
+        "examples_per_s_before_kill": _fleet_examples_per_s(
+            {w: [e for e in ev if e["t"] < marks.get("kill", 0)]
+             for w, ev in events.items()}, PS_BATCH),
+        # the steady rate: from the relaunched shard's first accepted push
+        "examples_per_s_after_recovery": _fleet_examples_per_s(
+            {w: [e for e in ev
+                 if e["t"] >= marks.get("first_accepted", float("inf"))]
+             for w, ev in events.items()}, PS_BATCH),
+        "failed_minibatches": len(failed),
+        "kill_to_last_failure_s": max(e["t"] for e in failed)
+        - marks["kill"] if failed and "kill" in marks else None,
+        "kill_to_first_step_by_worker": {
+            str(w): next((e["t"] - marks["kill"] for e in _of(ev, "step")
+                          if e["t"] > marks.get("kill", 0)), None)
+            for w, ev in events.items()},
+        "shards_state": [_shard_record(s) for s in final],
+        "worker_peak_mib": [e.get("peak_mib") for e in ends],
+        "accepted_steps": len(_fleet_steps(events)),
+        "ps_exit_codes": raw["ps_exit_codes"],
+    }
+    rec["worker_flash_launches"] = _worker_launches(events, problems)
+    return rec, problems
+
+
+def _fleet_mnist(torch, tmp, card):
+    """Run F4: the MNIST CNN, dense only, across two shards, against the
+    held MNIST job from the same seed (no dataset shuffle, cuDNN's
+    deterministic algorithms in both). Returns (record, problems)."""
+    from elasticdl_tpu_torch.common.constants import JobType
+    from elasticdl_tpu_torch.common.hash_utils import string_to_id
+    from elasticdl_tpu_torch.data.dataset import Dataset
+    from elasticdl_tpu_torch.master.master import _make_task_dispatcher
+    from elasticdl_tpu_torch.master.servicer import MasterServicer
+    from elasticdl_tpu_torch.model_zoo.mnist_functional_api import (
+        mnist_functional_api as zoo,
+    )
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    n, batch = FLEET_MNIST_RECORDS
+    data = os.path.join(tmp, "fleet-mnist")
+    _write_encoded(data, _zoo_records("mnist", n, SEED + 50))
+    shuffle = Dataset.shuffle
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    os.environ["EDL_TASK_SHUFFLE_SEED"] = str(SEED)
+    Dataset.shuffle = lambda self, *a, **k: self
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with _PsSpies() as spies:
+            task_d = _make_task_dispatcher(data, "", "", 2 * batch, 1)
+            held = MasterServicer(1, batch, zoo.optimizer(), task_d,
+                                  device=DEVICE)
+            Worker(0, JobType.TRAINING_ONLY, batch, "", PS_MNIST,
+                   stub=held, device=DEVICE, loss_log_steps=0).run()
+    finally:
+        Dataset.shuffle = shuffle
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+        os.environ.pop("EDL_TASK_SHUFFLE_SEED", None)
+    _, want = held.get_model(held.get_model_version())
+    fleet = _Fleet(tmp, "f4", PS_MNIST, data, batch, deterministic=True)
+    raw = fleet.run(inspect=lambda f: _fleet_state(f, {}))
+    state = raw["inspect"]
+    rel, bitwise = _compare(state, want, {})
+    client_names = sorted(state["dense"])
+    problems = []
+    if raw["exit_codes"] != {"0": 0} or sorted(want) != client_names:
+        problems.append("f4 exits %s names %s" % (
+            raw["exit_codes"], client_names))
+    if max(rel.values()) > FLEET_TOL:
+        problems.append("f4 against the held MNIST: %s" % rel)
+    if state["version"] != held.get_model_version() or not state["version"]:
+        problems.append("f4 version %s held %s" % (
+            state["version"], held.get_model_version()))
+    events = raw["events"]
+    rec = {
+        "phase": "ps_fleet", "of": "f4_mnist", "card": card,
+        "batch": batch, "records": n, "version": state["version"],
+        "rel_l2_max": max(rel.values()), "bitwise": bitwise,
+        "tolerance": FLEET_TOL,
+        "dense_on_shard": {k: string_to_id(k, FLEET_SHARDS)
+                           for k in client_names},
+        "examples_per_s": _fleet_examples_per_s(events, batch),
+        "held_examples_per_s": _ps_examples_per_s(spies.spans, [], batch),
+        "step_split": _fleet_split(events),
+        "shards_state": [_shard_record(s) for s in state["statuses"]],
+    }
+    rec["worker_flash_launches"] = _worker_launches(events, problems)
+    return rec, problems
+
+
+def _fleet_master_kill(torch, tmp, card):
+    """F5's journal run: the held DeepFM model (``master.main
+    --num_ps_pods 0 --master_journal_dir``) with one worker process, the
+    master SIGKILLed at FLEET_MASTER_KILL_AT_VERSION and relaunched: the
+    worker re-pushes its model to the new incarnation and every task is
+    done once. Returns (record, problems)."""
+    fleet = _Fleet(tmp, "f5-journal", PS_DEEPFM,
+                   os.path.join(tmp, "ps-data"), PS_BATCH, shards=0,
+                   epochs=2)
+    marks = {}
+
+    def on_poll(f):
+        if "kill" in marks:
+            if "serving" not in marks:
+                try:
+                    _master_probe(f.master_port)
+                    marks["serving"] = time.time()
+                except Exception:  # noqa: BLE001 — still down
+                    pass
+            return
+        try:
+            version = _master_probe(f.master_port)["version"]
+        except Exception:  # noqa: BLE001 — between polls
+            return
+        if version >= FLEET_MASTER_KILL_AT_VERSION:
+            f.manager.kill_master()
+            marks["kill"] = time.time()
+            marks["killed_at_version"] = version
+
+    raw = fleet.run(on_poll=on_poll)
+    events = raw["events"]
+    problems = []
+    tasks = 2 * PS_RECORDS // (2 * PS_BATCH)
+    if raw["journal"]["done"] != tasks or raw["journal"]["pending"]:
+        problems.append("f5 journal %s, want %d" % (raw["journal"], tasks))
+    if raw["master_exit_codes"] != [-9, 0] or raw["exit_codes"] != {"0": 0}:
+        problems.append("f5 exits: master %s worker %s" % (
+            raw["master_exit_codes"], raw["exit_codes"]))
+    repush = [e for ev in events.values() for e in _of(ev, "repush")]
+    after = [e for e in _fleet_steps(events)
+             if "kill" in marks and e["t"] > marks["kill"]]
+    if not repush or not after:
+        problems.append("f5: re-push %s, steps after the kill %d" % (
+            repush, len(after)))
+    rec = {
+        "phase": "ps_fleet", "of": "f5_master_kill", "card": card,
+        "killed_at_version": marks.get("killed_at_version"),
+        "kill_to_serving_s": marks["serving"] - marks["kill"]
+        if "serving" in marks else None,
+        "kill_to_repush_s": repush[0]["t"] - marks["kill"]
+        if repush and "kill" in marks else None,
+        "kill_to_first_accepted_s": after[0]["t"] - marks["kill"]
+        if after else None,
+        "failed_minibatches": sum(len(_of(ev, "failed"))
+                                  for ev in events.values()),
+        "journal": raw["journal"], "accepted_steps": len(
+            _fleet_steps(events)),
+    }
+    rec["worker_flash_launches"] = _worker_launches(events, problems)
+    return rec, problems
+
+
+def _fleet_exports(torch, tmp, card):
+    """F5's streaming exports: held MNIST in process with ``--export_dir
+    --export_every_versions 4 --export_keep 2`` (and a checkpoint each
+    version): the newest artifact, served by ``ModelDirectoryWatcher``
+    on the card, replies as the model of its version. Returns (record,
+    problems)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch import cli
+    from elasticdl_tpu_torch.common.constants import GetModelMethod
+    from elasticdl_tpu_torch.common.convert import to_state_dict
+    from elasticdl_tpu_torch.common.model_utils import build_model
+    from elasticdl_tpu_torch.serving.scorer import (
+        ModelDirectoryWatcher,
+        Scorer,
+    )
+
+    every, keep = FLEET_EXPORT
+    data = os.path.join(tmp, "fleet-export-data")
+    _write_encoded(data, _zoo_records("mnist", FLEET_EXPORT_RECORDS,
+                                      SEED + 51))
+    export_root = os.path.join(tmp, "fleet-exports")
+    jobs = []
+    rc = cli.main(_ps_argv(
+        "train", PS_MNIST, 64, "--training_data", data,
+        "--checkpoint_dir", os.path.join(tmp, "fleet-export-ckpt"),
+        "--checkpoint_steps", "1", "--export_dir", export_root,
+        "--export_every_versions", str(every), "--export_keep", str(keep),
+    ), jobs=jobs)
+    job = jobs[0]
+    exported = [v for v, _ in job.worker.exports]
+    kept = sorted(os.listdir(export_root))
+    problems = []
+    want_versions = list(range(every - 1, FLEET_EXPORT_RECORDS // 64,
+                               every))
+    if rc != 0 or exported != want_versions or kept != [
+            "v%010d" % v for v in want_versions[-keep:]]:
+        problems.append("exports rc=%s %s kept %s" % (rc, exported, kept))
+    scorer = Scorer()
+    watcher = ModelDirectoryWatcher(export_root, scorer, device=DEVICE)
+    newest = watcher.poll_once()
+    images = np.random.default_rng(SEED + 52).random(
+        (64, 28, 28), dtype=np.float32) * 255
+    rel = None
+    if newest is None:
+        problems.append("the watcher loaded no export")
+    else:
+        got, version = scorer.score({"image": images})
+        _, named = job.master.master_servicer.get_model(
+            newest, GetModelMethod.FIXED)
+        model = build_model(PS_MNIST).to(DEVICE)
+        model.load_state_dict(to_state_dict(named))
+        with torch.no_grad():
+            want = model.eval()({"image": torch.from_numpy(images)})
+        rel = _rel_l2(torch, got.float(), want.float())
+        if version != newest or rel > FLEET_TOL:
+            problems.append("the export of v%s scores %.3g off" % (
+                version, rel))
+    scorer.close()
+    rec = {"phase": "ps_fleet", "of": "f5_exports", "card": card,
+           "exported_versions": exported, "kept": kept,
+           "served_version": newest, "reply_rel_l2": rel,
+           "export_s": [s for _, s in job.worker.exports]}
+    return rec, problems
+
+
+def _write_ps_data(tmp):
+    """The ps phase's DeepFM records (its seeds), where not written."""
+    for name, n, seed in (("ps-data", PS_RECORDS, SEED + 40),
+                          ("ps-val", PS_VAL_RECORDS, SEED + 41)):
+        if not os.path.isdir(os.path.join(tmp, name)):
+            ids, labels = _frappe_ids(n, seed)
+            _write_frappe(os.path.join(tmp, name), ids, labels)
+
+
+def phase_ps_fleet(torch, tmp, card):
+    """The PS fleet: F1 sync DeepFM across two shards against the held
+    job from the same seed (and its profile), F2/F3 a shard SIGKILL with
+    and without snapshots, F4 MNIST across two shards, F5 the held
+    model's journal, streaming exports and the bf16 wire. Returns the
+    flash kernels' launches over the phase (none)."""
+    t0 = time.perf_counter()
+    _write_ps_data(tmp)
+    problems = []
+    worker_launches = {k: 0 for k in KERNELS}
+    _reset_counters()
+    f1_state = {}
+
+    def f1():
+        held_rec, dense, rows = _fleet_held_deepfm(torch, tmp, card)
+        emit(held_rec)
+        rec, bad, state = _fleet_f1(torch, tmp, card)
+        rel, bitwise = _compare(state, dense, rows)
+        rec["against_held"] = {"rel_l2_max": max(rel.values()),
+                               "bitwise": bitwise, "tolerance": FLEET_TOL}
+        rec["held_examples_per_s"] = held_rec["examples_per_s"]
+        if max(rel.values()) > FLEET_TOL:
+            bad.append("f1 against the held job: %s" % rel)
+        f1_state.update(state)
+        return rec, bad
+
+    def bf16():
+        rec, bad, state = _fleet_f1(torch, tmp, card, wire="bfloat16")
+        rel, _ = _compare(state, f1_state["dense"], f1_state["rows"])
+        rec["against_f1"] = {"rel_l2_max": max(rel.values()),
+                             "tolerance": FLEET_BF16_TOL}
+        if max(rel.values()) > FLEET_BF16_TOL:
+            bad.append("the bf16 wire against f1: %s" % rel)
+        if max(rel.values()) == 0.0:
+            # a wire that never narrowed trains bitwise like F1
+            bad.append("the bf16 wire left every tensor float32")
+        return rec, bad
+
+    for run in (
+        f1,
+        lambda: (_fleet_profile(torch, tmp, card), []),
+        lambda: _fleet_kill(torch, tmp, card, durable=True),
+        lambda: _fleet_kill(torch, tmp, card, durable=False),
+        lambda: _fleet_mnist(torch, tmp, card),
+        lambda: _fleet_master_kill(torch, tmp, card),
+        lambda: _fleet_exports(torch, tmp, card),
+        bf16,
+    ):
+        rec, bad = run()
+        emit(rec)
+        problems += bad
+        for k, n in rec.get("worker_flash_launches", {}).items():
+            worker_launches[k] += n
+        torch.cuda.empty_cache()
+    counts = {k: (n + worker_launches[k], shapes)
+              for k, (n, shapes) in _counts().items()}
+    emit({"phase": "ps_fleet", "of": "summary", "seconds":
+          time.perf_counter() - t0, "flash_launches":
+          {k: n for k, (n, _) in counts.items()}})
+    if problems:
+        raise PhaseError("ps_fleet: " + "; ".join(problems))
+    return counts
+
+
+def _ps_fleet_only(torch):
+    try:
+        card = phase_device(torch)
+        with tempfile.TemporaryDirectory() as tmp:
+            counts = phase_ps_fleet(torch, tmp, card)
+        _check_counts(counts, {k: 0 for k in KERNELS}, "the ps_fleet phase")
+    except Exception as err:  # noqa: BLE001 — reported, exit non-zero
+        import traceback
+
+        traceback.print_exc()
+        print("chip_smoke: FAILED: %s" % err, file=sys.stderr)
+        return 1
+    print(card)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # elastic: the multi-process ALLREDUCE job, two worker processes on one card
 # ---------------------------------------------------------------------------
 
@@ -4845,6 +5780,12 @@ def main(argv=None):
         help="drive only the ps phase and print its records, not the "
         "result line",
     )
+    parser.add_argument(
+        "--ps-fleet-only",
+        action="store_true",
+        help="drive only the ps_fleet phase and print its records, not "
+        "the result line",
+    )
     args = parser.parse_args(argv)
     try:
         import torch
@@ -4869,6 +5810,8 @@ def main(argv=None):
         return _zoo_only(torch)
     if args.ps_only:
         return _ps_only(torch)
+    if args.ps_fleet_only:
+        return _ps_fleet_only(torch)
 
     try:
         card = phase_device(torch)
@@ -4890,6 +5833,9 @@ def main(argv=None):
             _check_counts(zoo, {k: 0 for k in KERNELS}, "the zoo phase")
             ps = phase_ps(torch, tmp, card)
             _check_counts(ps, {k: 0 for k in KERNELS}, "the ps phase")
+            ps_fleet = phase_ps_fleet(torch, tmp, card)
+            _check_counts(ps_fleet, {k: 0 for k in KERNELS},
+                          "the ps_fleet phase")
             _reset_counters()
             elastic, _ = phase_elastic(torch, tmp, job_rec, card)
             # launched in the workers (which report theirs, by run) or
@@ -4904,7 +5850,8 @@ def main(argv=None):
         line = kernels_line(
             records,
             dict({"serve": served, "train": trained, "job": job,
-                  "eval": evaluated, "zoo": zoo, "ps": ps}, **elastic),
+                  "eval": evaluated, "zoo": zoo, "ps": ps,
+                  "ps_fleet": ps_fleet}, **elastic),
         )
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback

@@ -106,6 +106,9 @@ class LocalJob:
                 task_prefetch=args.task_prefetch,
                 task_ack_queue=args.task_ack_queue,
                 loss_log_steps=args.loss_log_steps,
+                export_dir=args.export_dir,
+                export_every_versions=args.export_every_versions,
+                export_keep=args.export_keep,
                 **common,
             )
         if self.master.job_type in (

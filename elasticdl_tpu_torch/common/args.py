@@ -728,6 +728,47 @@ def _validate(args):
             )
 
 
+def parse_ps_args(ps_args=None):
+    """The flags of a parameter-server shard (``ps/main.py``)."""
+    parser = argparse.ArgumentParser(
+        description="ElasticDL parameter server (PyTorch/CUDA)"
+    )
+    parser.add_argument("--ps_id", type=non_neg_int, required=True)
+    parser.add_argument("--port", type=pos_int, required=True)
+    parser.add_argument("--model_zoo", required=True)
+    parser.add_argument("--model_def", required=True)
+    parser.add_argument("--model_params", default="")
+    parser.add_argument("--optimizer", default="optimizer")
+    parser.add_argument("--grads_to_wait", type=pos_int, default=1)
+    add_bool_param(parser, "--use_async", False, "")
+    add_bool_param(parser, "--lr_staleness_modulation", False, "")
+    add_bool_param(
+        parser, "--ps_device", False,
+        "Device-resident shard (not ported: raises)",
+    )
+    parser.add_argument(
+        "--wire_dtype", default="", choices=["", "bfloat16"]
+    )
+    parser.add_argument(
+        "--ps_shm", default="off", choices=["auto", "on", "off"],
+        help="The shared-memory endpoint ('on' is not ported: raises)",
+    )
+    parser.add_argument(
+        "--device",
+        default="cuda",
+        help="Where the shard's applies run: cuda (the default; raises "
+        "without a card) or cpu",
+    )
+    add_ps_snapshot_params(parser)
+    parser.add_argument(
+        "--log_level",
+        default="INFO",
+        choices=["DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL"],
+    )
+    args, _unknown = parser.parse_known_args(args=ps_args)
+    return args
+
+
 def parse_worker_args(worker_args=None):
     """A worker process (``python -m elasticdl_tpu_torch.worker.main``)."""
     parser = argparse.ArgumentParser(

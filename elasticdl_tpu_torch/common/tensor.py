@@ -16,6 +16,10 @@ the host once, inside the frame write. ``bfloat16`` travels as raw
 bf16 and this package does not use ``ml_dtypes``); every other dtype
 decodes to a READ-ONLY ``np.frombuffer`` view pinned to the received
 buffer, as in the reference.
+
+A tensor marked with ``wire_dtype = "bfloat16"`` (``rpc/wire_compression``)
+whose payload is float32 is narrowed to bf16 words (round to nearest
+even, as the reference's ``ml_dtypes`` cast) when its frame is planned.
 """
 
 import json
@@ -50,7 +54,11 @@ def host_words(values):
 
 class Tensor:
     """A named array (numpy or torch), optionally sparse: ``indices``
-    non-None means ``values[i]`` updates row ``indices[i]``."""
+    non-None means ``values[i]`` updates row ``indices[i]``.
+    ``wire_dtype``: the dtype a float32 payload rides the wire as (None:
+    its own)."""
+
+    wire_dtype = None
 
     def __init__(self, name=None, values=None, indices=None):
         self.name = name
@@ -111,10 +119,19 @@ def combine_indexed_slices(indices, values):
     return unique, combined
 
 
+def _is_f32(values):
+    if isinstance(values, torch.Tensor):
+        return values.dtype == torch.float32
+    return values is not None and values.dtype == np.float32
+
+
 def plan_tensor_frame(t):
     """``(header_bytes, host_values, indices, total_bytes)`` of one
     frame; ``host_values`` is the payload as C-order host words."""
-    host, name = host_words(t.values)
+    values = t.values
+    if t.wire_dtype == BFLOAT16 and _is_f32(values):
+        values = torch.as_tensor(values).to(torch.bfloat16)
+    host, name = host_words(values)
     header = {"name": t.name, "dtype": name, "shape": list(host.shape)}
     if t.indices is not None:
         header["num_indices"] = int(t.indices.shape[0])

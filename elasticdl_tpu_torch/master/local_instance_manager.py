@@ -27,8 +27,13 @@ the budget; a crash is relaunched on the budget, to replay its journal.
 In this form ``task_d`` and ``membership`` may be None: the master's own
 boot recovers its tasks.
 
-Not ported: supervising parameter servers (``num_ps``, ``ps_command``
-raise ``NotImplementedError``).
+**Parameter servers** (``num_ps`` with ``ps_command``): ``start_all_ps``
+spawns shard ``i`` as ``ps_command(i)``. A shard that exits is relaunched
+under the same id, so at the same address, where the workers dial it
+again (the local form of the reference's relaunch with the same id and
+service name): a drain (exit 75, its final snapshot written) spends no
+budget, a crash spends the shared relaunch budget. ``kill_ps`` and
+``terminate_ps`` inject the two faults.
 """
 
 import signal
@@ -67,11 +72,12 @@ class LocalInstanceManager:
         ``devices``: the device of each of the ``num_workers`` slots
         (``distributed.worker_devices``); a relaunched or promoted worker
         takes the slot, and so the card, of the one it replaces.
-        ``master_command() -> argv``: the external-supervisor form."""
-        if num_ps or ps_command:
-            raise NotImplementedError(
-                "parameter-server supervision is not ported yet"
-            )
+        ``master_command() -> argv``: the external-supervisor form.
+        ``ps_command(ps_id) -> argv``: a shard of the ``num_ps``."""
+        if num_ps and ps_command is None:
+            raise ValueError("num_ps shards need a ps_command")
+        self._num_ps = num_ps
+        self._ps_command = ps_command
         self._task_d = task_d
         self._membership = membership
         if membership is not None:
@@ -93,6 +99,8 @@ class LocalInstanceManager:
         self.exit_codes = {}  # worker id -> last observed returncode
         self.standby_exit_codes = {}  # standby token -> returncode
         self.master_exit_codes = []  # each master incarnation's exit
+        self.ps_exit_codes = {}  # ps id -> its incarnations' exits
+        self.ps_spawned_at = {}  # ps id -> its incarnations' start times
         self.spawned_at = {}  # worker id or standby token -> start time
         # (worker id, standby token, wall time) of each promotion
         self.promotions = []
@@ -107,7 +115,9 @@ class LocalInstanceManager:
         proc = subprocess.Popen(argv, env=self._env)
         with self._lock:
             self._procs[key] = proc
-            if key != _MASTER:
+            if key[0] == "ps":
+                self.ps_spawned_at.setdefault(key[1], []).append(time.time())
+            elif key != _MASTER:
                 self.spawned_at[key[1]] = time.time()
         threading.Thread(
             target=self._watch, args=(key, proc), daemon=True
@@ -121,6 +131,11 @@ class LocalInstanceManager:
                 "no master_command: this manager supervises no master"
             )
         self._spawn(_MASTER, self._master_command())
+
+    def start_all_ps(self):
+        """Spawn every PS shard."""
+        for ps_id in range(self._num_ps):
+            self._spawn(("ps", ps_id), self._ps_command(ps_id))
 
     def start_workers(self):
         for _ in range(self._num_workers):
@@ -220,6 +235,10 @@ class LocalInstanceManager:
                 self.exit_codes[instance_id] = returncode
             elif kind == "standby":
                 self.standby_exit_codes[instance_id] = returncode
+            elif kind == "ps":
+                self.ps_exit_codes.setdefault(instance_id, []).append(
+                    returncode
+                )
             else:
                 self.master_exit_codes.append(returncode)
             if self._procs.get(key) is not proc or self._stopping:
@@ -231,6 +250,8 @@ class LocalInstanceManager:
             self._standby_exited(instance_id)
         elif kind == "worker":
             self._worker_exited(instance_id, slot, returncode)
+        elif kind == "ps":
+            self._ps_exited(instance_id, returncode)
         else:
             self._master_exited(returncode)
 
@@ -297,6 +318,23 @@ class LocalInstanceManager:
             self._replace(slot, "worker %d exited %d"
                           % (worker_id, returncode))
 
+    def _ps_exited(self, ps_id, returncode):
+        """Relaunch the shard under its id: a drain (75) on no budget, a
+        crash on the shared budget; none under ``Never``."""
+        with self._lock:
+            relaunch = not self._stopping and self._restart_policy != "Never"
+            if relaunch and returncode != PREEMPTED_EXIT_CODE:
+                relaunch = self._relaunches < self._max_relaunches
+                if relaunch:
+                    self._relaunches += 1
+        if relaunch:
+            logger.warning("PS %d exited with %d; relaunching the same id",
+                           ps_id, returncode)
+            self._spawn(("ps", ps_id), self._ps_command(ps_id))
+        else:
+            logger.error("PS %d exited with %d and is not relaunched",
+                         ps_id, returncode)
+
     def _master_exited(self, returncode):
         if returncode == 0:
             logger.info("Master completed (the job finished)")
@@ -340,6 +378,21 @@ class LocalInstanceManager:
         drains (checkpoint, announced leave, exit 75) and the watcher
         replaces it."""
         self._signal(("worker", worker_id), signal.SIGTERM)
+
+    def kill_ps(self, ps_id):
+        """Fault injection: SIGKILL one shard. No drain snapshot runs: the
+        relaunch restores the last cadence snapshot, or boots empty."""
+        self._signal(("ps", ps_id), signal.SIGKILL)
+
+    def terminate_ps(self, ps_id):
+        """SIGTERM one shard: it writes a final snapshot and exits 75,
+        and is relaunched without spending the budget."""
+        self._signal(("ps", ps_id), signal.SIGTERM)
+
+    def live_ps(self):
+        with self._lock:
+            return [k[1] for k, p in self._procs.items()
+                    if k[0] == "ps" and p.poll() is None]
 
     def kill_master(self):
         """Fault injection: SIGKILL the supervised master. No journal

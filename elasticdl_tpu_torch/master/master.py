@@ -13,7 +13,15 @@ local mode forces) and under the Local strategy the master holds the
 model: the servicer applies the zoo's optimizer (``--optimizer``) on
 ``--device``, keeps the elastic embedding tables, restores
 ``--checkpoint_filename_for_init`` and writes an eval checkpoint per
-evaluation round; there is no membership.
+evaluation round; there is no membership. Under the
+ParameterServerStrategy with ``--num_ps_pods`` > 0 the model lives on
+the PS fleet (``ps/parameter_server.py``, dialed by the workers'
+``--ps_addrs``): the master dispatches tasks and holds no model and no
+optimizer, as the reference's does. Without membership, standby workers
+(``--num_standby_workers``) have nothing to join and are not started,
+and the hot-row cache (``--hot_row_cache_rows``) lives only in the
+fleet's PS client: under the held model both flags are accepted and
+logged as having no effect, as the reference runs.
 
 With ``--master_journal_dir`` the dispatcher, the servicer's version
 clock and the membership append to a write-ahead journal
@@ -26,10 +34,11 @@ epoch continue. Every boot mints a ``master_epoch``
 (a counter in the journal directory) that stamps every reply.
 
 ``prepare()`` then starts the RPC server (``master/rpc_service.py`` over
-the socket transport of ``rpc/socket_transport.py``) on ``--port`` (0 or
+the socket transport of ``rpc/socket_transport.py``, its model replies
+narrowed by ``--wire_dtype``) on ``--port`` (0 or
 unset: a port the OS picks, exposed as ``port``; a fixed port a killed
-predecessor held is bound again), then the workers of the instance
-manager, if one is attached, and its standby workers
+predecessor held is bound again), then the PS processes and workers of
+the instance manager, if one is attached, and its standby workers
 (``--num_standby_workers``). A single-process job's worker holds the
 servicer directly and never dials it. ``run()`` polls until every task
 is done, lingers so that remote workers learn there is no more work, and
@@ -43,14 +52,9 @@ Every other plane of the reference's master raises
 endpoint and event sink (``--telemetry_port``,
 ``--telemetry_events_path``), the flight recorder
 (``EDL_FLIGHT_RECORDER_DIR``), TensorBoard (``--tensorboard_log_dir``),
-the parameter-server fleet (``--num_ps_pods`` > 0 under the
-ParameterServerStrategy), and, with the master-held model, the master
-journal (``--master_journal_dir``: the workers' model re-push goes with
-the fleet's recovery), the hybrid trainer (``--embedding_plane hybrid``),
-streaming exports (``--export_dir``), the compressed wire
-(``--wire_dtype``), the shared-memory master channel (``--master_shm
-on``), the hot-row cache (``--hot_row_cache_rows``) and standby
-workers (``--num_standby_workers``).
+the hybrid trainer (``--embedding_plane hybrid``) and, with the
+master-held model, the shared-memory master channel (``--master_shm
+on``).
 """
 
 import os
@@ -121,17 +125,32 @@ def master_holds_model(args):
     ) or strategy == DistributionStrategy.LOCAL
 
 
+def log_ignored_flags(args):
+    """Log the flags that have no effect on this job, as the reference
+    runs them: standbys without membership (every strategy but
+    ALLREDUCE), the hot-row cache without a PS client (the held
+    model)."""
+    strategy = getattr(args, "distribution_strategy", "")
+    if (
+        strategy != DistributionStrategy.ALLREDUCE
+        and getattr(args, "num_standby_workers", 0)
+    ):
+        logger.info(
+            "--num_standby_workers %d has no effect under %s: standby "
+            "workers join the elastic allreduce membership",
+            args.num_standby_workers, strategy,
+        )
+    if master_holds_model(args) and getattr(args, "hot_row_cache_rows", 0):
+        logger.info(
+            "--hot_row_cache_rows %d has no effect on the master-held "
+            "model: the cache lives in the PS fleet's client",
+            args.hot_row_cache_rows,
+        )
+
+
 def refuse_unported_planes(args):
     """Raise for each flag that asks for a plane this master lacks."""
     strategy = getattr(args, "distribution_strategy", "")
-    if strategy == DistributionStrategy.PARAMETER_SERVER and (
-        getattr(args, "num_ps_pods", 0) > 0
-    ):
-        raise _not_ported(
-            "the parameter-server fleet (PS pods; pass --num_ps_pods 0 for "
-            "the master-held model)",
-            "--num_ps_pods",
-        )
     if strategy not in (
         DistributionStrategy.ALLREDUCE,
         DistributionStrategy.PARAMETER_SERVER,
@@ -150,23 +169,11 @@ def refuse_unported_planes(args):
          os.environ.get("EDL_FLIGHT_RECORDER_DIR")),
         ("TensorBoard", "--tensorboard_log_dir",
          getattr(args, "tensorboard_log_dir", "")),
-        ("the master journal under the master-held model (the workers' "
-         "model re-push on a new master_epoch)", "--master_journal_dir",
-         held and getattr(args, "master_journal_dir", "")),
         ("the hybrid trainer", "--embedding_plane hybrid",
-         held and getattr(args, "embedding_plane", "ps") == "hybrid"),
-        ("streaming serving exports", "--export_dir",
-         held and (getattr(args, "export_dir", "")
-                   or getattr(args, "export_every_versions", 0))),
-        ("the compressed tensor wire", "--wire_dtype",
-         held and getattr(args, "wire_dtype", "") not in ("", "float32")),
+         strategy != DistributionStrategy.ALLREDUCE
+         and getattr(args, "embedding_plane", "ps") == "hybrid"),
         ("the shared-memory master channel", "--master_shm on",
          held and getattr(args, "master_shm", "auto") == "on"),
-        ("the hot-row cache", "--hot_row_cache_rows",
-         held and getattr(args, "hot_row_cache_rows", 0)),
-        ("standby workers of the master-held model",
-         "--num_standby_workers",
-         held and getattr(args, "num_standby_workers", 0)),
     )
     for plane, flag, asked in checks:
         if asked:
@@ -191,6 +198,7 @@ class Master:
                 % self.job_type
             )
         refuse_unported_planes(args)
+        log_ignored_flags(args)
         records_per_task = (
             args.minibatch_size * args.num_minibatches_per_task
         )
@@ -272,6 +280,11 @@ class Master:
                 args, "lr_staleness_modulation", False
             ),
             use_async=getattr(args, "use_async", False),
+            # the fleet's master holds no model and applies nothing
+            coordinates_only=(
+                getattr(args, "distribution_strategy", "")
+                == DistributionStrategy.ALLREDUCE
+            ),
             device=getattr(args, "device", "cuda"),
         )
         from elasticdl_tpu_torch.master.membership_service import (
@@ -279,9 +292,12 @@ class Master:
         )
 
         # membership epochs of the elastic plane (the replicated plane
-        # needs no world-size multiple); the master-held model's workers
-        # form no world
-        self.membership = None if self.holds_model else MembershipService(
+        # needs no world-size multiple); the PS workers form no world
+        allreduce = (
+            getattr(args, "distribution_strategy", "")
+            == DistributionStrategy.ALLREDUCE
+        )
+        self.membership = None if not allreduce else MembershipService(
             expected_workers=max(1, getattr(args, "num_workers", 0)),
             base_port=getattr(args, "comm_base_port", 0),
             # a cold worker start can exceed the default grace on a
@@ -390,6 +406,7 @@ class Master:
             membership=self.membership,
             master_epoch=self.master_epoch,
             status_fn=self._master_status,
+            wire_dtype=getattr(self.args, "wire_dtype", ""),
         )
         self._server = serve(
             self._rpc_service.rpc_methods(), port if port else 0
@@ -403,6 +420,7 @@ class Master:
             self.job_type,
         )
         if self.instance_manager:
+            self.instance_manager.start_all_ps()
             self.instance_manager.start_workers()
 
     def run(self, poll_secs=30):
@@ -427,8 +445,9 @@ class Master:
         ``WORKER_EXIT_GRACE_S``), so that none is stopped while
         its last checkpoint writes land; other remote pollers get
         up to ``EDL_MASTER_EXIT_GRACE_S`` (3 s), ending early once every
-        member has announced its leave. In-process jobs never dial the
-        server and exit at once."""
+        member has announced its leave (a PS job has no membership and
+        lingers the whole grace). In-process jobs never dial the server
+        and exit at once."""
         if self.instance_manager is not None:
             if not self.instance_manager.wait(timeout=WORKER_EXIT_GRACE_S):
                 logger.warning(
@@ -445,8 +464,7 @@ class Master:
         ):
             deadline = time.monotonic() + grace
             while (
-                self.membership is not None
-                and self.membership.members()
+                (self.membership is None or self.membership.members())
                 and time.monotonic() < deadline
                 and not self._stop_requested.wait(0.1)
             ):
@@ -498,9 +516,10 @@ class Master:
 
 
 def main(argv=None):
-    """``python -m elasticdl_tpu_torch.master.master ...``: a master
-    process for workers started elsewhere (``--num_workers`` is then
-    the membership's expected count; none are launched here)."""
+    """``python -m elasticdl_tpu_torch.master.main ...`` (or
+    ``.master.master``): a master process for workers, and PS shards,
+    started elsewhere (``--num_workers`` is then the membership's
+    expected count; none are launched here)."""
     from elasticdl_tpu_torch.common.args import parse_master_args
 
     args = parse_master_args(argv)

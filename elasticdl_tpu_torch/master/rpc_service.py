@@ -15,9 +15,12 @@ The methods an ALLREDUCE job calls are served: ``get_task``,
 of the master-held model (a ParameterServerStrategy job): ``get_model``,
 ``report_variable``, ``report_gradient``, ``push_embedding_info``,
 ``pull_embedding_vectors`` and ``export_embedding_tables``, with the
-fields of the reference's messages and tensors in tensor frames. The
-compressed (bf16) wire and worker telemetry (``report_telemetry``) are
-not ported and raise ``NotImplementedError`` by name.
+fields of the reference's messages and tensors in tensor frames. With
+``wire_dtype`` ``bfloat16`` (``rpc/wire_compression.py``) the master's
+``get_model`` reply and the client's gradients ride the wire as bf16,
+widened to float32 on receipt, as in the reference. Worker telemetry
+(``report_telemetry``) is not ported and raises ``NotImplementedError``
+by name.
 
 The client sends every call through the failover channel
 (``rpc/failover.py``): with ``failover_s`` > 0 it rides out a master
@@ -33,18 +36,14 @@ from elasticdl_tpu_torch.common.log_utils import default_logger as logger
 from elasticdl_tpu_torch.common.tensor import Tensor
 from elasticdl_tpu_torch.master.servicer import TaskResponse
 from elasticdl_tpu_torch.ps.parameters import EmbeddingTableInfo
+from elasticdl_tpu_torch.rpc.wire_compression import (
+    compress_tensors,
+    decompress_tensors,
+)
 
 _UNPORTED = {
     "report_telemetry": "worker telemetry",
 }
-
-
-def _plain_wire(req):
-    """Refuse a request that rides the compressed (bf16) wire."""
-    if req.get("compressed_f32"):
-        raise NotImplementedError(
-            "the compressed tensor wire (compressed_f32) is not ported yet"
-        )
 
 
 def _unported(name):
@@ -59,12 +58,15 @@ def _unported(name):
 class MasterRpcService:
     """Server side: dict-message handlers around a MasterServicer and the
     membership. ``master_epoch`` stamps every reply; ``status_fn`` adds
-    to the ``master_status`` probe."""
+    to the ``master_status`` probe; ``wire_dtype`` narrows the model
+    replies."""
 
     def __init__(
-        self, servicer, membership=None, master_epoch=0, status_fn=None
+        self, servicer, membership=None, master_epoch=0, status_fn=None,
+        wire_dtype="",
     ):
         self._s = servicer
+        self._wire_dtype = wire_dtype
         self._membership = membership
         self._master_epoch = int(master_epoch)
         self._status_fn = status_fn
@@ -120,10 +122,14 @@ class MasterRpcService:
         version, named = self._s.get_model(
             req.get("version", 0), GetModelMethod(req.get("method", 0))
         )
+        params, compressed = compress_tensors(
+            [Tensor(n, v) for n, v in sorted(named.items())],
+            self._wire_dtype,
+        )
         return {
             "version": version,
-            "params": [Tensor(n, v) for n, v in sorted(named.items())],
-            "compressed_f32": [],
+            "params": params,
+            "compressed_f32": compressed,
         }
 
     def report_variable(self, req):
@@ -133,9 +139,11 @@ class MasterRpcService:
         return {}
 
     def report_gradient(self, req):
-        _plain_wire(req)
         accepted, version = self._s.report_gradient(
-            req.get("gradients", []), req.get("model_version", -1)
+            decompress_tensors(
+                req.get("gradients", []), req.get("compressed_f32")
+            ),
+            req.get("model_version", -1),
         )
         return {"accepted": accepted, "version": version}
 
@@ -242,11 +250,13 @@ class MasterClient:
     """Worker side: the servicer's method surface over the failover
     channel. Calls carry no deadline (a worker parked on a busy master
     waits); a refused or reset connection is sent again for up to
-    ``failover_s`` seconds (0: once)."""
+    ``failover_s`` seconds (0: once). ``wire_dtype`` narrows the
+    gradients it sends."""
 
-    def __init__(self, addr, failover_s=0.0):
+    def __init__(self, addr, failover_s=0.0, wire_dtype=""):
         from elasticdl_tpu_torch.rpc.failover import MasterFailoverChannel
 
+        self._wire_dtype = wire_dtype
         self._client = MasterFailoverChannel(
             addr,
             outage_budget_s=failover_s,
@@ -305,11 +315,11 @@ class MasterClient:
         resp = self._call(
             "get_model", version=int(version), method=int(method)
         )
-        _plain_wire(resp)
+        params = decompress_tensors(
+            resp.get("params", []), resp.get("compressed_f32")
+        )
         # the worker keeps these arrays across steps: owned copies
-        return resp["version"], {
-            t.name: np.array(t.values) for t in resp.get("params", [])
-        }
+        return resp["version"], {t.name: np.array(t.values) for t in params}
 
     def report_variable(self, named_arrays):
         self._call(
@@ -318,11 +328,14 @@ class MasterClient:
         )
 
     def report_gradient(self, gradients, model_version):
+        grads, compressed = compress_tensors(
+            list(gradients), self._wire_dtype
+        )
         resp = self._call(
             "report_gradient",
-            gradients=list(gradients),
+            gradients=grads,
             model_version=int(model_version),
-            compressed_f32=[],
+            compressed_f32=compressed,
         )
         return resp["accepted"], resp["version"]
 

@@ -151,7 +151,7 @@ class MasterServicer:
             self._embedding_store = Parameters()
             self._embedding_gradient_applier = OptimizerWrapper(
                 optimizer, self._embedding_store, self._device
-            ).apply_gradients
+            )
         self._opt = optimizer
         self._init_model(checkpoint_filename_for_init, init_var)
         self._checkpoint_service = checkpoint_service
@@ -488,7 +488,9 @@ class MasterServicer:
                     "gradient applier is configured"
                 )
             t0 = time.perf_counter()
-            self._embedding_gradient_applier(edl)
+            self._embedding_gradient_applier.apply_gradients(
+                embedding_grads=edl
+            )
             self.apply_ms["sparse"].append((time.perf_counter() - t0) * 1e3)
         if (dense or indexed) and self._opt is None:
             raise ValueError(

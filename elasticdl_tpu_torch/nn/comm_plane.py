@@ -16,15 +16,18 @@ The PS plane's host data path, ``plan -> pull -> push``:
   into the shared rows buffer, so the step's row gradients come back
   already combined, one row per unique id;
 - :class:`MasterStorePlane` pulls the planned rows from the master's
-  store, one call per table; the worker copies them to the card as they
+  store, one call per table; :class:`PsPlane` pulls them from the PS
+  fleet in one fan-out over every (table, shard) leg
+  (``worker/ps_client.py``); the worker copies them to the card as they
   are. The reference pads them to a power-of-two bucket to bound XLA
   recompiles; eager PyTorch has none to bound, and the pushed
   ``(ids, rows)`` are the unique ids and their rows either way;
-- the master-held model's sparse gradients travel with the dense ones in
-  ``report_gradient``: the plane has no push of its own.
+- the sparse gradients travel with the dense ones (``report_gradient``
+  to the master, ``push_gradient`` to the fleet), and
+  :meth:`PsPlane.drain` settles the fleet client's push window.
 
-Not ported: the PS fleet's plane (``PsPlane``), its ``HotRowCache`` and
-the hybrid trainer's ``EmbeddingPullPipeline`` (ROADMAP A5).
+Not ported: the ``HotRowCache`` and the hybrid trainer's
+``EmbeddingPullPipeline`` (ROADMAP A4).
 """
 
 import numpy as np
@@ -161,3 +164,19 @@ class MasterStorePlane:
             )
             for name, ids in ids_by_table.items()
         }
+
+
+class PsPlane:
+    """The PS fleet's plane over a ``worker.ps_client.PSClient``: a pull
+    is one fan-out round, and :meth:`drain` settles the push window.
+    After a shard relaunch the client abandons the pushes in flight: a
+    drain drops their outcome and never resends them."""
+
+    def __init__(self, ps_client):
+        self._client = ps_client
+
+    def pull(self, ids_by_table):
+        return self._client.pull_embedding_vectors_multi(ids_by_table)
+
+    def drain(self):
+        return self._client.drain()

@@ -152,6 +152,14 @@ class EmbeddingTable:
                 )
         return ids, rows
 
+    def load_snapshot(self, ids, rows):
+        """Replace the rows with a snapshot's ``(ids, rows)``."""
+        rows = np.asarray(rows, dtype=np.float32)
+        with self._lock:
+            self.embedding_vectors = {
+                int(i): rows[pos].copy() for pos, i in enumerate(ids)
+            }
+
     def __len__(self):
         return len(self.embedding_vectors)
 

@@ -1,22 +1,16 @@
 """The parameter-server process entry, the counterpart of
-``elasticdl_tpu/ps/main.py``: not ported. The PS fleet (its servicer,
-the workers' ``--ps_addrs`` client, snapshots, ``--ps_device``) is the
-next slice; until then ``python -m elasticdl_tpu_torch.ps.main`` raises
-``NotImplementedError`` by name. The master-held model
-(ParameterServerStrategy with ``--num_ps_pods 0``) needs no PS process.
+``elasticdl_tpu/ps/main.py``::
+
+    python -m elasticdl_tpu_torch.ps.main --ps_id I --port P \\
+        --model_zoo Z --model_def M [--device cuda|cpu] \\
+        [--ps_snapshot_versions N --ps_snapshot_dir D]
+
+See ``ps/parameter_server.py``.
 """
 
 import sys
 
-
-def main(argv=None):
-    del argv
-    raise NotImplementedError(
-        "the parameter-server fleet (python -m elasticdl_tpu_torch.ps.main, "
-        "--ps_addrs) is not ported yet (ROADMAP A5); the master-held model "
-        "(--num_ps_pods 0) runs without it"
-    )
-
+from elasticdl_tpu_torch.ps.parameter_server import main
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,6 +1,13 @@
 """Sparse-aware optimizer apply on a host parameter store, the port of
 the host half of ``elasticdl_tpu/ps/optimizer_wrapper.py``.
 
+The dense step (a PS shard's subset of the model) runs the optimizer
+over device copies of the store's dense parameters: the copies and the
+optimizer's state persist between applies, each apply sets every
+parameter's gradient (zero where none came) and steps once, and the
+store gets fresh host arrays back. A store whose dense dict was replaced
+from outside (an init, a restore) is copied to the device anew.
+
 For an embedding layer's gradient the wrapper reads the touched rows
 *and their optimizer-slot rows* from the store, runs the optimizer on
 those rows alone, and writes rows and slots back. Duplicate ids are
@@ -26,8 +33,9 @@ Each apply builds the optimizer over the gathered ``(k, dim)`` rows on
 the wrapper's device, installs their state, sets the combined gradient
 and steps once; the rows cross host to device and back, as the
 reference's host store crosses into its jitted step. Rows are not padded
-to a power of two: nothing recompiles here. Every apply holds the
-wrapper's lock.
+to a power of two: nothing recompiles here. Every apply holds
+``apply_lock`` (reentrant: a caller may hold it across a whole apply,
+as a shard's servicer does so that a snapshot never cuts one).
 """
 
 import threading
@@ -57,7 +65,7 @@ def _clone(value):
     return value.detach().clone() if isinstance(value, torch.Tensor) else value
 
 
-def probe_row_state(optimizer, dim, device="cpu"):
+def probe_row_state(optimizer, dim, device):
     """(slot fresh rows {key: (dim,) float32 ndarray}, per-layer initial
     state {key: value}) of torch optimizer factory ``optimizer`` for rows
     ``dim`` wide, read from one zero-gradient step on a scratch row."""
@@ -77,16 +85,50 @@ def probe_row_state(optimizer, dim, device="cpu"):
 
 
 class OptimizerWrapper:
-    def __init__(self, optimizer, parameters=None, device="cpu"):
+    def __init__(self, optimizer, parameters, device):
         """``optimizer``: a torch optimizer factory; ``parameters``: the
-        ``ps.Parameters`` store holding the embedding tables; ``device``:
-        where the row update runs."""
+        ``ps.Parameters`` store; ``device``: where the updates run (every
+        caller names it)."""
         self._opt_fn = optimizer
         self._params = parameters
         self._device = torch.device(device)
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
         self._non_row_state = {}  # layer -> {key: value}, kept whole
         self._template_cache = {}  # dim -> (slot fresh rows, per-layer)
+        self._dense_src = None  # the store dict the device copies mirror
+        self._dense_params = None  # {name: device tensor}
+        self._dense_opt = None
+
+    @property
+    def apply_lock(self):
+        return self._lock
+
+    def apply_dense_gradients(self, grads):
+        """One optimizer step over the store's dense parameters with
+        ``{name: float32 array}`` gradients (a missing one is zero)."""
+        store = self._params
+        with self._lock:
+            if store.non_embedding_params is not self._dense_src:
+                self._dense_params = {
+                    k: self._to_device(v).requires_grad_(True)
+                    for k, v in store.non_embedding_params.items()
+                }
+                self._dense_opt = self._opt_fn(
+                    list(self._dense_params.values())
+                )
+            for k, p in self._dense_params.items():
+                g = grads.get(k)
+                p.grad = (
+                    torch.zeros_like(p) if g is None else self._to_device(
+                        np.asarray(g, dtype=np.float32))
+                )
+            self._dense_opt.step()
+            named = {
+                k: p.detach().to("cpu", copy=True).numpy()
+                for k, p in self._dense_params.items()
+            }
+            store.set_non_embedding_params(named)
+            self._dense_src = named
 
     def _row_state_template(self, dim):
         cached = self._template_cache.get(dim)
@@ -143,8 +185,11 @@ class OptimizerWrapper:
                 k: state[k] for k in per_layer_init
             }
 
-    def apply_gradients(self, embedding_grads=None):
-        """Apply ``{layer: Tensor}`` indexed-slice gradients."""
+    def apply_gradients(self, dense_grads=None, embedding_grads=None):
+        """Apply ``{name: array}`` dense gradients, then ``{layer:
+        Tensor}`` indexed-slice gradients."""
+        if dense_grads:
+            self.apply_dense_gradients(dense_grads)
         for layer_name, tensor in (embedding_grads or {}).items():
             self.apply_sparse_gradients(
                 layer_name, tensor.indices, tensor.values

@@ -1,0 +1,172 @@
+"""A parameter-server shard process, the port of
+``elasticdl_tpu/ps/parameter_server.py``: it loads the zoo's optimizer,
+restores the newest snapshot of its shard directory before it serves
+(``--ps_snapshot_versions`` with ``--ps_snapshot_dir``), mints its
+``shard_epoch``, and serves ``PserverServicer`` on the port's socket
+transport (``rpc/socket_transport.py``) at ``--port``: a relaunch with
+the same id binds the same address, so the workers dial it again. The
+shard's applies run on ``--device`` (``cuda`` by default; raises without
+a card). SIGTERM drains: one final snapshot, then exit 75, which the
+instance manager relaunches without spending its crash budget.
+
+Not ported, each raising ``NotImplementedError`` by name: the
+device-resident store (``--ps_device``, ROADMAP A3), the tiered store
+(``--ps_warm_rows``/``--ps_spill_dir``, A3), the shard's telemetry
+endpoint (``--ps_telemetry_port`` other than -1, A8) and its
+shared-memory endpoint (``--ps_shm on``, A6).
+"""
+
+import os
+import threading
+import time
+
+from elasticdl_tpu_torch.common.log_utils import default_logger as logger
+from elasticdl_tpu_torch.master.local_instance_manager import (
+    PREEMPTED_EXIT_CODE,
+)
+
+
+def refuse_unported_ps_flags(args):
+    checks = (
+        ("the device-resident parameter store", "--ps_device",
+         getattr(args, "ps_device", False)),
+        ("the tiered embedding store", "--ps_warm_rows/--ps_spill_dir",
+         getattr(args, "ps_warm_rows", 0)
+         or getattr(args, "ps_spill_dir", "")),
+        ("the PS shard's telemetry endpoint", "--ps_telemetry_port",
+         getattr(args, "ps_telemetry_port", -1) != -1),
+        ("the PS shard's shared-memory endpoint", "--ps_shm on",
+         getattr(args, "ps_shm", "off") == "on"),
+    )
+    for plane, flag, asked in checks:
+        if asked:
+            raise NotImplementedError(
+                "%s is not ported yet (asked for by %s)" % (plane, flag)
+            )
+
+
+class ParameterServer:
+    def __init__(self, args):
+        from elasticdl_tpu_torch.common.device import resolve_device
+        from elasticdl_tpu_torch.common.model_utils import load_zoo_module
+        from elasticdl_tpu_torch.ps.parameters import Parameters
+        from elasticdl_tpu_torch.ps.servicer import PserverServicer
+        from elasticdl_tpu_torch.ps.snapshot import (
+            ShardSnapshotter,
+            mint_shard_epoch,
+        )
+
+        refuse_unported_ps_flags(args)
+        self._args = args
+        self._server = None
+        self._draining = threading.Event()
+        self.device = resolve_device(getattr(args, "device", "cuda"))
+        module = load_zoo_module(args.model_def, args.model_zoo)
+        optimizer = getattr(module, args.optimizer, None)
+        if optimizer is None:
+            raise ValueError(
+                "the model module of %s defines no %s"
+                % (args.model_def, args.optimizer)
+            )
+        self.parameters = Parameters()
+        snap_dir = getattr(args, "ps_snapshot_dir", "") or ""
+        shard_dir = (
+            os.path.join(snap_dir, "ps-%d" % args.ps_id) if snap_dir else ""
+        )
+        self.shard_epoch = mint_shard_epoch(shard_dir or None)
+        self.snapshotter = ShardSnapshotter(
+            shard_dir,
+            ps_id=args.ps_id,
+            every_versions=getattr(args, "ps_snapshot_versions", 0),
+            keep=getattr(args, "ps_snapshot_keep", 2),
+        )
+        self.snapshotter.set_shard_epoch(self.shard_epoch)
+        # restored before the servicer exists: a restored shard never
+        # serves one call from an empty store
+        self.restored_version = self.snapshotter.restore_into(
+            self.parameters
+        )
+        self.servicer = PserverServicer(
+            self.parameters,
+            args.grads_to_wait,
+            optimizer(),
+            self.device,
+            lr_staleness_modulation=args.lr_staleness_modulation,
+            use_async=args.use_async,
+            wire_dtype=getattr(args, "wire_dtype", ""),
+            snapshotter=(
+                self.snapshotter if self.snapshotter.is_enabled() else None
+            ),
+            shard_epoch=self.shard_epoch,
+            restored_version=self.restored_version,
+        )
+
+    @property
+    def port(self):
+        return self._server.port if self._server else None
+
+    def prepare(self):
+        from elasticdl_tpu_torch.rpc.socket_transport import serve
+
+        self._server = serve(self.servicer.rpc_methods(), self._args.port)
+        logger.info(
+            "PS %d serving on port %d (shard_epoch %d%s, device %s)",
+            self._args.ps_id,
+            self._server.port,
+            self.shard_epoch,
+            (
+                ", restored snapshot v%d" % self.restored_version
+                if self.restored_version is not None
+                else ""
+            ),
+            self.device,
+        )
+
+    def install_drain_handler(self):
+        """SIGTERM: a final snapshot, then exit 75. Installed only by the
+        process entry."""
+        import signal
+        import sys
+
+        def _drain(signum, frame):
+            if self._draining.is_set():
+                return
+            self._draining.set()
+            logger.warning("SIGTERM: draining a final shard snapshot")
+            try:
+                self.servicer.drain_snapshot()
+            except Exception as err:  # noqa: BLE001 - exit regardless
+                logger.error("drain snapshot failed: %s", err)
+            self.stop()
+            sys.exit(PREEMPTED_EXIT_CODE)
+
+        signal.signal(signal.SIGTERM, _drain)
+
+    def run(self):
+        try:
+            while True:
+                time.sleep(60)
+        finally:
+            self.stop()
+
+    def stop(self):
+        if self._server:
+            self._server.stop()
+            self._server = None
+        if self.snapshotter is not None:
+            try:
+                self.snapshotter.close()
+            except Exception as err:  # noqa: BLE001 - teardown
+                logger.warning("snapshotter close failed: %s", err)
+            self.snapshotter = None
+
+
+def main(argv=None):
+    from elasticdl_tpu_torch.common.args import parse_ps_args
+
+    args = parse_ps_args(argv)
+    logger.setLevel(args.log_level)
+    server = ParameterServer(args)
+    server.prepare()
+    server.install_drain_handler()
+    server.run()

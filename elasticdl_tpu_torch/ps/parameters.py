@@ -1,17 +1,28 @@
 """The host parameter store, the port of ``Parameters()`` in
-``elasticdl_tpu/ps/parameters.py``, as the master-held model uses it:
-embedding tables as ``{layer: EmbeddingTable}``, slot tables named
-``"{layer}-{slot}"``, first-write-wins table registration, and the
-embedding gradients' checks.
+``elasticdl_tpu/ps/parameters.py``: the dense parameters of a PS shard
+(``non_embedding_params``, ``{name: float32 ndarray}``) with its
+``version`` and ``initialized`` flag, and the embedding tables as
+``{layer: EmbeddingTable}``, slot tables named ``"{layer}-{slot}"``.
 
-Not ported, each raising ``NotImplementedError`` by name: the
-device-resident store (``Parameters(device=True)``, the reference's
-``--ps_device``) and the tiered store (``tier_config``). The dense
-parameters, which the reference's PS fleet keeps here, come with that
-fleet.
+- ``init_from_model``: the first pushed model initializes the shard
+  (first write wins), tables registered first;
+- ``check_grad``: a dense gradient must match its parameter's shape, an
+  embedding gradient must be indexed and as wide as its table;
+- ``to_named_arrays``: a copy of the dense parameters, taken under the
+  store's lock;
+- ``snapshot_state`` / ``restore_state``: what a shard snapshot
+  (``ps/snapshot.py``) persists and restores: version, dense parameters,
+  every table with its rows.
+
+The master-held model uses only the tables (its dense model is the
+servicer's own). Not ported, each raising ``NotImplementedError`` by
+name: the device-resident store (``Parameters(device=True)``, the
+reference's ``--ps_device``) and the tiered store (``tier_config``).
 """
 
 import threading
+
+import numpy as np
 
 from elasticdl_tpu_torch.ps.embedding_table import (
     EmbeddingTable,
@@ -30,24 +41,25 @@ class EmbeddingTableInfo:
 
 
 class Parameters:
-    """The embedding tables of the master-held model. The dense model is
-    the servicer's own (``master/servicer.py``), which also checks dense
-    gradients; the reference's dense half of this store serves its PS
-    fleet, which is not ported."""
-
     def __init__(self, device=False, tier_config=None):
         if device:
             raise NotImplementedError(
                 "the device-resident parameter store (Parameters(device="
-                "True), --ps_device) is not ported yet"
+                "True), --ps_device) is not ported yet (ROADMAP A3)"
             )
         if tier_config:
             raise NotImplementedError(
                 "the tiered embedding store (tier_config, --ps_warm_rows/"
-                "--ps_spill_dir) is not ported yet"
+                "--ps_spill_dir) is not ported yet (ROADMAP A3)"
             )
+        self.version = 0
+        self.initialized = False
+        self.non_embedding_params = {}
         self.embedding_params = {}
         self._lock = threading.Lock()
+
+    def get_non_embedding_param(self, name, default=None):
+        return self.non_embedding_params.get(name, default)
 
     def get_embedding_param(self, name, indices):
         if name not in self.embedding_params:
@@ -64,20 +76,48 @@ class Parameters:
         self.embedding_params[name].set(indices, values)
 
     def check_grad(self, grad):
-        """Validate an embedding ``Tensor`` gradient: it must name a
-        table, be indexed and be as wide as its table."""
+        """Validate a ``Tensor`` gradient against what it updates."""
         name = grad.name
-        if name not in self.embedding_params:
-            raise ValueError("Name error: %s is not in Parameters" % name)
-        if grad.indices is None:
-            raise ValueError("Embedding gradient %s must be indexed" % name)
-        dim = self.embedding_params[name].dim
-        if grad.values.shape[1] != dim:
-            raise ValueError(
-                "Incompatible embedding dimension for %s: %d vs %d"
-                % (name, grad.values.shape[1], dim)
-            )
+        param = self.get_non_embedding_param(name)
+        if param is None:
+            if name not in self.embedding_params:
+                raise ValueError("Name error: %s is not in Parameters" % name)
+            if grad.indices is None:
+                raise ValueError(
+                    "Embedding gradient %s must be indexed" % name
+                )
+            dim = self.embedding_params[name].dim
+            if grad.values.shape[1] != dim:
+                raise ValueError(
+                    "Incompatible embedding dimension for %s: %d vs %d"
+                    % (name, grad.values.shape[1], dim)
+                )
+            return True
+        if grad.indices is not None:
+            if grad.values.shape[1] != param.shape[1]:
+                raise ValueError(
+                    "Incompatible indexed slice dimension for %s" % name
+                )
+            if int(np.max(grad.indices)) >= param.shape[0]:
+                raise ValueError("Grad indices out of range for %s" % name)
+        elif tuple(grad.values.shape) != param.shape:
+            raise ValueError("Incompatible gradient dimension for %s" % name)
         return True
+
+    def init_from_model(self, version, dense_params, embedding_infos):
+        """First write wins: the first pushed model initializes the
+        shard. Returns True if this call initialized it."""
+        self.init_embedding_params(embedding_infos)
+        with self._lock:
+            if self.initialized:
+                return False
+            self.non_embedding_params = {
+                name: np.array(arr, dtype=np.float32)
+                for name, arr in dense_params.items()
+            }
+            self.version = max(0, int(version))
+            self.initialized = True
+            return True
 
     def init_embedding_params(self, embedding_infos):
         """Create the missing tables; a name that exists always wins."""
@@ -106,3 +146,69 @@ class Parameters:
                         initializer=str(init_values.get(slot_name, 0.0)),
                         is_slot=True,
                     )
+
+    def to_named_arrays(self):
+        """A copy of the dense parameters, taken under the lock (an
+        async apply rebinds the dict)."""
+        with self._lock:
+            return {k: v.copy() for k, v in self.non_embedding_params.items()}
+
+    def set_non_embedding_params(self, named):
+        """Install the dense parameters an apply produced."""
+        with self._lock:
+            self.non_embedding_params = named
+
+    # -- durability (ps/snapshot.py) --------------------------------------
+
+    def snapshot_state(self):
+        """A self-contained copy of everything a shard snapshot keeps:
+        version, initialized, the dense parameters and each table's rows
+        with its width, initializer and slot flag."""
+        with self._lock:
+            version = int(self.version)
+            initialized = bool(self.initialized)
+            dense = {
+                k: np.array(v, dtype=np.float32)
+                for k, v in self.non_embedding_params.items()
+            }
+            tables = list(self.embedding_params.items())
+        table_snaps = {}
+        for name, table in tables:
+            ids, rows = table.snapshot()
+            table_snaps[name] = {
+                "ids": ids,
+                "rows": rows,
+                "dim": int(table.dim or 0),
+                "initializer": table.initializer_name,
+                "is_slot": bool(table.is_slot),
+            }
+        return {
+            "version": version,
+            "initialized": initialized,
+            "dense": dense,
+            "tables": table_snaps,
+        }
+
+    def restore_state(self, state):
+        """Install a :meth:`snapshot_state` capture (a shard's boot): the
+        tables keep their initializers, so rows minted after the restore
+        are the ones the crashed shard would have minted."""
+        tables = {}
+        for name, snap in state["tables"].items():
+            table = EmbeddingTable(
+                name,
+                snap["dim"],
+                initializer=snap["initializer"],
+                is_slot=snap["is_slot"],
+            )
+            table.load_snapshot(snap["ids"], snap["rows"])
+            tables[name] = table
+        dense = {
+            k: np.array(v, dtype=np.float32)
+            for k, v in state["dense"].items()
+        }
+        with self._lock:
+            self.non_embedding_params = dense
+            self.embedding_params = tables
+            self.version = int(state["version"])
+            self.initialized = bool(state.get("initialized", True))

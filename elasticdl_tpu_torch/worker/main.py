@@ -26,10 +26,13 @@ device; it then trains as that worker, and its timeline's ``standby``
 event records what it warmed and how long it parked.
 
 Under the ParameterServerStrategy (the default) and the Local strategy
-it runs the parameter-server worker (``worker/worker.py``) against the
-master-held model: no world forms, so a relaunched worker just asks for
-tasks. Not ported, raising ``NotImplementedError``: the PS fleet
-(``--ps_addrs``).
+it runs the parameter-server worker (``worker/worker.py``): against the
+master-held model, or with ``--ps_addrs host:port,...`` against the PS
+fleet through a ``PSClient`` over one ``BoundPS`` per shard
+(``--rpc_deadline_s``, ``--rpc_retries``, ``--ps_fanout``,
+``--ps_push_inflight``, ``--wire_dtype``). No world forms, so a
+relaunched worker just asks for tasks. ``--export_dir`` with
+``--export_every_versions`` writes streaming exports.
 """
 
 import os
@@ -44,11 +47,6 @@ from elasticdl_tpu_torch.common.model_utils import get_dict_from_params_str
 def main(argv=None):
     args = parse_worker_args(argv)
     logger.setLevel(args.log_level)
-    if args.ps_addrs:
-        raise NotImplementedError(
-            "the parameter-server fleet is not ported yet (asked for by "
-            "--ps_addrs)"
-        )
     if args.distribution_strategy != "AllreduceStrategy":
         return _ps_main(args)
     from elasticdl_tpu_torch.master.rpc_service import MasterClient
@@ -107,8 +105,37 @@ def main(argv=None):
     return 0
 
 
+def make_ps_client(args):
+    """The fleet's ``PSClient`` from ``--ps_addrs`` and its flags; None
+    without shards."""
+    from elasticdl_tpu_torch.worker.ps_client import BoundPS, PSClient
+
+    addrs = [a for a in args.ps_addrs.split(",") if a]
+    if not addrs:
+        return None
+    if args.embedding_plane == "hybrid":
+        raise NotImplementedError(
+            "the hybrid trainer (EmbeddingPullPipeline, --embedding_plane "
+            "hybrid) is not ported yet (ROADMAP A4)"
+        )
+    deadline_s = args.rpc_deadline_s if args.rpc_deadline_s > 0 else None
+    stubs = [
+        BoundPS(a, deadline_s=deadline_s, retries=args.rpc_retries,
+                shm=args.ps_shm)
+        for a in addrs
+    ]
+    return PSClient(
+        stubs,
+        wire_dtype=args.wire_dtype,
+        hot_row_cache_rows=args.hot_row_cache_rows,
+        fanout=args.ps_fanout,
+        push_inflight=args.ps_push_inflight,
+    )
+
+
 def _ps_main(args):
-    """The parameter-server worker on the master-held model."""
+    """The parameter-server worker, on the master-held model or on the
+    fleet."""
     from elasticdl_tpu_torch.master.rpc_service import MasterClient
     from elasticdl_tpu_torch.worker.worker import Worker
 
@@ -117,7 +144,11 @@ def _ps_main(args):
             "standby workers of the ParameterServerStrategy job are not "
             "ported yet (--standby)"
         )
-    stub = MasterClient(args.master_addr, failover_s=args.master_failover_s)
+    ps_client = make_ps_client(args)
+    stub = MasterClient(
+        args.master_addr, failover_s=args.master_failover_s,
+        wire_dtype=args.wire_dtype,
+    )
     try:
         Worker(
             worker_id=args.worker_id,
@@ -141,8 +172,14 @@ def _ps_main(args):
             task_ack_queue=args.task_ack_queue,
             loss_log_steps=args.loss_log_steps,
             device=args.device,
+            ps_client=ps_client,
+            export_dir=args.export_dir,
+            export_every_versions=args.export_every_versions,
+            export_keep=args.export_keep,
         ).run()
     finally:
+        if ps_client is not None:
+            ps_client.close()
         stub.close()
     return 0
 

@@ -1,6 +1,7 @@
-"""The parameter-server worker on the master-held model, the port of
+"""The parameter-server worker, the port of
 ``elasticdl_tpu/worker/worker.py``: the task loop of the
-ParameterServerStrategy job.
+ParameterServerStrategy job, on the master-held model or, with a
+``ps_client`` (``worker/ps_client.py``), on the PS fleet.
 
 Per minibatch the worker pulls the model from the master (``get_model``),
 plans and pulls the rows of its elastic embedding layers, runs forward
@@ -36,6 +37,31 @@ prediction tasks hand their outputs to the zoo's processor; the
 SAVE_MODEL task exports the master's model with the master's embedding
 tables (``export_embedding_tables``) in ``model.chkpt``. Dropout draws
 from a seed of ``(seed, worker_id, step)``.
+
+**On the PS fleet** the model lives on the shards: ``get_model`` is the
+client's ``pull_dense`` (every shard's partition; a fleet that reports
+no model gets the worker's model pushed again first), the variables go
+out with ``push_model`` (table infos included), the gradients with
+``push_gradient``, and the rows with the client's fan-out
+(``PsPlane``). A shard that came back empty after a relaunch gets the
+model and infos pushed again (``_on_ps_shard_reset``). The client's push
+window is drained at every boundary the reference drains it: an
+evaluation task, the end of a round of tasks, a streaming export, the
+SAVE_MODEL task and the end of the run. The SAVE_MODEL export holds the
+dense model only, as the reference's does under the fleet.
+
+**On the master-held model**, a master relaunched with a new
+``master_epoch`` (``--master_journal_dir``) gets the worker's table
+infos and variables pushed again (``_on_master_epoch_change``); until
+they land, the master rejects gradients and the worker retries.
+
+**Streaming exports** (``export_dir`` with ``export_every_versions`` N):
+once the model version has moved N past the last export, the worker
+drains its pushes and writes a params-only artifact under
+``<export_dir>/v<version>``, staged in a dot-directory and renamed into
+place (the first of two workers wins) with the manifest written last;
+``export_keep`` artifacts are kept. The scorer's ``ModelDirectoryWatcher``
+serves them.
 """
 
 import contextlib
@@ -61,6 +87,7 @@ from elasticdl_tpu_torch.common.tensor import Tensor
 from elasticdl_tpu_torch.metrics import to_host
 from elasticdl_tpu_torch.nn.comm_plane import (
     MasterStorePlane,
+    PsPlane,
     plan_lookup_multi,
 )
 from elasticdl_tpu_torch.nn.embedding import (
@@ -135,6 +162,10 @@ class Worker:
         task_ack_queue=8,
         loss_log_steps=20,
         device="cuda",
+        ps_client=None,
+        export_dir=None,
+        export_every_versions=0,
+        export_keep=4,
     ):
         from elasticdl_tpu_torch.common.device import resolve_device
 
@@ -142,11 +173,26 @@ class Worker:
         self._job_type = job_type
         self._minibatch_size = minibatch_size
         self._stub = stub
+        self._ps_client = ps_client
         self._get_model_steps = max(1, int(get_model_steps))
         self._seed = seed
         self._loss_log_steps = max(0, int(loss_log_steps))
         self._device = resolve_device(device)
-        self._sparse_plane = MasterStorePlane(lambda: self._stub)
+        self._sparse_plane = (
+            PsPlane(ps_client)
+            if ps_client is not None
+            else MasterStorePlane(lambda: self._stub)
+        )
+        if stub is not None and hasattr(stub, "set_on_master_epoch_change"):
+            stub.set_on_master_epoch_change(self._on_master_epoch_change)
+        if ps_client is not None:
+            ps_client.set_on_shard_reset(self._on_ps_shard_reset)
+        self._export_dir = export_dir or None
+        self._export_every = max(0, int(export_every_versions))
+        self._export_keep = max(1, int(export_keep))
+        self._last_export_version = -1
+        # (version, seconds) of each streaming export written
+        self.exports = []
         spec = get_model_spec(
             model_zoo=model_zoo,
             model_def=model_def,
@@ -202,7 +248,9 @@ class Worker:
         self.step_splits = []
         self._timer = None
         # JSON lines under EDL_WORKER_TIMELINE_DIR: start, each accepted
-        # step, each with the process's flash launches so far
+        # step with its split, each failed minibatch, each re-push, and
+        # the end with the input plane's counters and the card's peak;
+        # start, step and end carry the process's flash launches so far
         self._timeline = _Timeline(worker_id)
         self._task_data_service = TaskDataService(
             self,
@@ -276,9 +324,13 @@ class Worker:
 
     def get_model(self, version, method=GetModelMethod.MINIMUM):
         """Pull the master's model (MINIMUM: the current one; FIXED: that
-        version) into the worker's parameters."""
+        version), or on the fleet every shard's newest, into the worker's
+        parameters."""
         with self._timed("get_model"):
-            got_version, named = self._stub.get_model(version, method)
+            if self._ps_client is not None:
+                got_version, named = self._pull_dense()
+            else:
+                got_version, named = self._stub.get_model(version, method)
             if not named:
                 return
             host = self._from_wire(named)
@@ -291,6 +343,72 @@ class Worker:
                     self._params[k].copy_(v)
             self._model_version = got_version
 
+    def _pull_dense(self):
+        """The fleet's model; a fleet that reports none (a shard came
+        back empty) gets this worker's model first."""
+        ready, version, named = self._ps_client.pull_dense()
+        if not ready and self._params is not None:
+            self.report_variable()
+            ready, version, named = self._ps_client.pull_dense()
+        return (version, named) if ready else (-1, {})
+
+    def _on_ps_shard_reset(self, shards):
+        """The client's hook: shards came back with no model."""
+        if self._var_created and self._params is not None:
+            logger.warning(
+                "re-pushing the model and table infos after PS shard(s) "
+                "%s relaunched without a snapshot", shards,
+            )
+            self.report_variable()
+            self._timeline("repush", shards=list(shards))
+
+    def _on_master_epoch_change(self, old_epoch, new_epoch):
+        """The master channel's hook: a relaunched master is serving. On
+        the master-held model its store may be empty, so the infos and
+        variables go again (first write wins on the master); a failure
+        here surfaces through the next call's retries."""
+        if (
+            self._ps_client is None
+            and self._var_created
+            and self._params is not None
+        ):
+            logger.warning(
+                "re-pushing the model after a master relaunch (epoch %s "
+                "-> %s)", old_epoch, new_epoch,
+            )
+            try:
+                if self._embedding_dims:
+                    self._stub.push_embedding_info(
+                        self._embedding_table_infos()
+                    )
+                self.report_variable()
+                self._timeline("repush", master_epoch=new_epoch)
+            except Exception:  # noqa: BLE001 - the retries surface it
+                logger.warning(
+                    "model re-push after a master relaunch failed",
+                    exc_info=True,
+                )
+
+    def _drain_ps_pushes(self):
+        """Settle the fleet's push window. A shard failure here lost an
+        already-reported gradient: logged, as a stale rejection is, and
+        the next minibatch's pull meets the shard in the retry loop."""
+        if self._ps_client is None:
+            return
+        try:
+            accepted, _ = self._sparse_plane.drain()
+        except RuntimeError as err:
+            logger.warning(
+                "the gradient push window drained with a shard failure; "
+                "its updates were dropped: %s", err,
+            )
+            return
+        if not accepted:
+            logger.warning(
+                "the gradient push window drained with rejected pushes; "
+                "those updates were dropped"
+            )
+
     def _embedding_table_infos(self):
         return [
             EmbeddingTableInfo(
@@ -300,9 +418,17 @@ class Worker:
         ]
 
     def report_variable(self):
-        self._stub.report_variable(self._to_wire(self._params))
+        named = self._to_wire(self._params)
+        if self._ps_client is not None:
+            self._ps_client.push_model(named, self._embedding_table_infos())
+        else:
+            self._stub.report_variable(named)
 
     def report_gradient(self, grads, sparse_tensors=None):
+        if self._ps_client is not None:
+            return self._ps_client.push_gradient(
+                self._to_wire(grads), sparse_tensors, self._model_version
+            )
         tensors = [Tensor(n, v) for n, v in self._to_wire(grads).items()]
         tensors.extend(sparse_tensors or ())
         return self._stub.report_gradient(tensors, self._model_version)
@@ -366,7 +492,7 @@ class Worker:
                     len(ids) for ids in captured.values()
                 )
         if not self._var_created:
-            if self._embedding_dims:
+            if self._embedding_dims and self._ps_client is None:
                 self._stub.push_embedding_info(self._embedding_table_infos())
             self.report_variable()
             self._var_created = True
@@ -527,6 +653,7 @@ class Worker:
                     self.step_splits.append(self._timer.finish())
                     self._timeline(
                         "step", version=min_model_version,
+                        split=self.step_splits[-1],
                         launches=_flash_launches(),
                     )
                     self._timer = None
@@ -570,6 +697,7 @@ class Worker:
         except RuntimeError as err:
             err_msg = str(err)
             traceback.print_exc()
+            self._timeline("failed", error=err_msg[:200])
         return err_msg
 
     @staticmethod
@@ -582,6 +710,7 @@ class Worker:
 
     def _process_eval_task(self, task):
         logger.info("the evaluation task_id: %d", task.task_id)
+        self._drain_ps_pushes()
         self._task_data_service.drain_acks()
         eval_info = self._task_data_service.get_validation_dataset(task)
         if not eval_info:
@@ -617,6 +746,7 @@ class Worker:
         )
         if task is None or dataset is None:
             return
+        self._drain_ps_pushes()
         self._task_data_service.drain_acks()
         saved_model_path = os.path.join(
             task.extended_config.get(SaveModelConfig.SAVED_MODEL_PATH),
@@ -627,10 +757,11 @@ class Worker:
         from elasticdl_tpu_torch.common.export import export_model
 
         # the master-held tables are not model parameters: get_model
-        # leaves them out, so the export pulls them from the master
+        # leaves them out, so the export pulls them from the master (the
+        # fleet's tables stay on the shards, as in the reference)
         extra_named = (
             self._stub.export_embedding_tables()
-            if self._embedding_dims
+            if self._embedding_dims and self._ps_client is None
             else None
         )
         export_model(
@@ -641,6 +772,74 @@ class Worker:
             extra_named=extra_named,
         )
         self.report_task_result(task_id=task.task_id, err_msg="")
+
+    def _maybe_streaming_export(self):
+        """Write a params-only artifact once the version has moved
+        ``export_every_versions`` past the last one. A failure is logged
+        and the cadence moves on (a full disk must not retry on every
+        minibatch)."""
+        if (
+            not self._export_every
+            or self._export_dir is None
+            or self._params is None
+            or self._model_version < 0
+            or self._model_version
+            < self._last_export_version + self._export_every
+        ):
+            return
+        import shutil
+
+        from elasticdl_tpu_torch.common.export import export_model
+
+        version = self._model_version
+        t0 = time.perf_counter()
+        try:
+            self._drain_ps_pushes()
+            final = os.path.join(self._export_dir, "v%010d" % version)
+            staging = os.path.join(
+                self._export_dir,
+                ".staging-v%010d-w%s" % (version, self._worker_id),
+            )
+            export_model(
+                staging, self._to_wire(self._params), version,
+                metadata=self._export_meta,
+            )
+            try:
+                os.rename(staging, final)
+            except OSError:
+                # another worker exported this version first
+                shutil.rmtree(staging, ignore_errors=True)
+            self._prune_exports()
+            self.exports.append((version, time.perf_counter() - t0))
+        except Exception:  # noqa: BLE001 - the next cadence point retries
+            logger.warning(
+                "streaming export of v%d failed; retrying at the next "
+                "cadence point", version, exc_info=True,
+            )
+        self._last_export_version = version
+
+    def _prune_exports(self):
+        """Drop the oldest complete artifacts beyond ``export_keep``, and
+        staging directories older than the oldest kept (a dead
+        writer's)."""
+        import shutil
+
+        versions = sorted(
+            d for d in os.listdir(self._export_dir)
+            if d.startswith("v") and os.path.exists(
+                os.path.join(self._export_dir, d, "MANIFEST.json"))
+        )
+        for stale in versions[: -self._export_keep]:
+            shutil.rmtree(os.path.join(self._export_dir, stale),
+                          ignore_errors=True)
+        if versions:
+            floor = versions[-self._export_keep:][0]
+            for entry in os.listdir(self._export_dir):
+                if entry.startswith(".staging-") and (
+                    entry.split("-")[1] < floor
+                ):
+                    shutil.rmtree(os.path.join(self._export_dir, entry),
+                                  ignore_errors=True)
 
     # -- the loops ---------------------------------------------------------------
 
@@ -686,6 +885,7 @@ class Worker:
                     task.model_version,
                     train_with_local_model,
                 )
+                self._maybe_streaming_export()
                 local_update_count += 1
                 if err_msg:
                     last_training_minibatch_failed = True
@@ -697,6 +897,7 @@ class Worker:
                     batch_count, err_msg
                 )
             del dataset
+            self._drain_ps_pushes()
             self._task_data_service.drain_acks()
             if self._job_type == JobType.TRAINING_WITH_EVALUATION:
                 evaluation_task_executed = self._evaluate_only()
@@ -746,5 +947,19 @@ class Worker:
             self._evaluate_only()
         else:
             self._train_and_evaluate()
+        self._drain_ps_pushes()
         self._task_data_service.drain_acks()
-        return [float(loss) for loss in self.losses]
+        losses = [float(loss) for loss in self.losses]
+        if self._timeline.enabled:
+            self._timeline(
+                "end", input_stats=self.input_stats.snapshot(),
+                peak_mib=(
+                    torch.cuda.max_memory_allocated(self._device) / 2**20
+                    if self._device.type == "cuda"
+                    else None
+                ),
+                losses_first_last=losses[:1] + losses[-1:],
+                losses_finite=bool(np.all(np.isfinite(losses))),
+                launches=_flash_launches(),
+            )
+        return losses

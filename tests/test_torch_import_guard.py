@@ -78,10 +78,15 @@ def test_every_port_module_imports_without_jax():
     # socket transport, membership, instance manager, process groups,
     # elastic trainer and worker entry, and the master's journal and the
     # failover channel among them, the zoo that needs no PS fleet with the
-    # one-card HBM embedding plane, and the master-held model's store,
-    # elastic embedding layer and parameter-server worker)
-    assert count >= 95
+    # one-card HBM embedding plane, the master-held model's store,
+    # elastic embedding layer and parameter-server worker, and the PS
+    # fleet's shard, snapshots, client, placement hashing, compressed
+    # wire and master entry)
+    assert count >= 102
     for name in ("master.journal", "rpc.failover", "nn.hbm_embedding",
+                 "ps.servicer", "ps.parameter_server", "ps.snapshot",
+                 "ps.main", "worker.ps_client", "common.hash_utils",
+                 "rpc.wire_compression", "master.main",
                  "ps.embedding_table", "ps.parameters",
                  "ps.optimizer_wrapper", "master.learning_rate_modulator",
                  "nn.embedding",
@@ -371,6 +376,25 @@ def _cuda_eval_job(tmp_path):
     ])
 
 
+def _cuda_ps_shard(tmp_path):
+    from elasticdl_tpu_torch.ps.parameter_server import main
+
+    return main(["--ps_id", "0", "--port", "1", "--model_zoo", "",
+                 "--model_def",
+                 "deepfm_edl_embedding.deepfm_edl_embedding.custom_model"])
+
+
+def _cuda_fleet_worker(tmp_path):
+    from elasticdl_tpu_torch.worker.main import main
+
+    return main(["--worker_id", "0", "--job_type", "training_only",
+                 "--master_addr", "localhost:1", "--ps_addrs",
+                 "localhost:2,localhost:3", "--model_zoo", "",
+                 "--model_def",
+                 "deepfm_edl_embedding.deepfm_edl_embedding.custom_model",
+                 "--minibatch_size", "8"])
+
+
 def _cuda_prefetch(tmp_path):
     from elasticdl_tpu_torch.data.dataset import Dataset
 
@@ -380,7 +404,8 @@ def _cuda_prefetch(tmp_path):
 @pytest.mark.parametrize(
     "entry",
     [_resolve_cuda, _build_cuda_scorer, _cuda_scorer_model, _cuda_trainer,
-     _cuda_job, _cuda_eval_job, _cuda_prefetch],
+     _cuda_job, _cuda_eval_job, _cuda_prefetch, _cuda_ps_shard,
+     _cuda_fleet_worker],
 )
 def test_cuda_without_a_card_raises(no_card, tmp_path, entry):
     with pytest.raises(RuntimeError, match="CUDA"):

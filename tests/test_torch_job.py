@@ -453,7 +453,7 @@ def test_cli_runs_a_job_and_continues_it(tmp_path):
         ["--telemetry_port", "0"],
         ["--telemetry_events_path", "e"],
         # the master-held model's planes that are not ported
-        ["--distribution_strategy", "Local", "--master_journal_dir", "j"],
+        ["--distribution_strategy", "Local", "--master_shm", "on"],
         ["--distribution_strategy", "ParameterServerStrategy",
          "--embedding_plane", "hybrid"],
         ["--docker_image_repository", "r"],

@@ -15,6 +15,7 @@ import jax
 import numpy as np
 import optax
 import pytest
+import torch
 
 from elasticdl_tpu.common.tensor import pytree_to_named_arrays
 from elasticdl_tpu.data.dataset import Dataset as JDataset
@@ -26,7 +27,7 @@ from elasticdl_tpu.master.task_dispatcher import TaskDispatcher as JDispatcher
 from elasticdl_tpu.nn.model_api import init_variables, split_variables
 from elasticdl_tpu.worker.worker import Worker as JWorker
 from elasticdl_tpu_torch import cli
-from elasticdl_tpu_torch.common.constants import JobType
+from elasticdl_tpu_torch.common.constants import GetModelMethod, JobType
 from elasticdl_tpu_torch.common.model_utils import load_from_checkpoint_file
 from elasticdl_tpu_torch.data.dataset import Dataset as TDataset
 from elasticdl_tpu_torch.data.example import encode_example
@@ -295,10 +296,8 @@ def test_the_mnist_job_trains_in_process(tmp_path):
 
 @pytest.mark.parametrize(
     "flag",
-    [["--num_ps_pods", "1"], ["--master_journal_dir", "j"],
-     ["--embedding_plane", "hybrid"], ["--export_dir", "e"],
-     ["--num_standby_workers", "1"]],
-    ids=["ps_fleet", "journal", "hybrid", "streaming_export", "standby"],
+    [["--embedding_plane", "hybrid"], ["--master_shm", "on"]],
+    ids=["hybrid", "master_shm"],
 )
 def test_unported_planes_of_the_strategy_raise_by_name(tmp_path, flag):
     from elasticdl_tpu_torch.master.master import Master
@@ -312,19 +311,199 @@ def test_unported_planes_of_the_strategy_raise_by_name(tmp_path, flag):
         Master(args)
 
 
-@pytest.mark.parametrize(
-    "entry", ["ps_main", "ps_addrs"],
-)
-def test_the_parameter_server_fleet_raises_by_name(entry):
-    from elasticdl_tpu_torch.ps import main as ps_main
-    from elasticdl_tpu_torch.worker import main as worker_main
+def test_the_master_of_the_fleet_holds_no_model(tmp_path):
+    """``--num_ps_pods`` > 0: the master dispatches, holds no model or
+    optimizer, and forms no membership, as the reference's."""
+    from elasticdl_tpu_torch.common.args import parse_master_args
+    from elasticdl_tpu_torch.master.master import Master
 
-    with pytest.raises(NotImplementedError, match="parameter-server fleet"):
-        if entry == "ps_main":
-            ps_main.main([])
-        else:
-            worker_main.main([
-                "--worker_id", "0", "--job_type", "training_only",
-                "--master_addr", "localhost:1", "--ps_addrs", "h:1",
+    write_frappe(str(tmp_path / "data"), 64, 300)
+    master = Master(parse_master_args([
+        "--job_name", "j", "--model_zoo", "", "--model_def", DEEPFM,
+        "--training_data", str(tmp_path / "data"), "--minibatch_size", "8",
+        "--num_ps_pods", "2", "--num_standby_workers", "1",
+        "--device", "cpu"]))
+    assert not master.holds_model and master.membership is None
+    servicer = master.master_servicer
+    assert not servicer.coordinates_only and servicer.embedding_store is None
+    assert servicer.get_model(0) == (0, {})
+    assert master.task_d.queue_depths()["todo"] == 4
+
+
+@pytest.mark.parametrize(
+    "flag", [["--num_standby_workers", "1"], ["--hot_row_cache_rows", "64"]],
+    ids=["standby", "hot_row_cache"],
+)
+def test_the_held_model_runs_with_flags_the_reference_ignores(tmp_path, flag):
+    """Standbys need membership and the hot-row cache a PS client: on
+    the held model both are accepted and have no effect."""
+    write_frappe(str(tmp_path / "data"), 64, 300)
+    jobs = []
+    assert cli.main([
+        "train", "--job_name", "j", "--model_zoo", "", "--model_def",
+        DEEPFM, "--model_params", SMALL, "--training_data",
+        str(tmp_path / "data"), "--minibatch_size", "32",
+        "--device", "cpu"] + flag, jobs=jobs) == 0
+    assert jobs[0].master.master_servicer.get_model_version() == 2
+
+
+class _Restartable:
+    """A master stub whose servicer is replaced after the second
+    gradient by a fresh one (empty model and tables, the version clock
+    restored as a journal replay restores it), with the channel's epoch
+    change fired."""
+
+    def __init__(self, servicer, make_fresh):
+        self.servicer, self._make_fresh = servicer, make_fresh
+        self._on_epoch_change, self._reports = None, 0
+        self.model_after_change = None
+
+    def set_on_master_epoch_change(self, callback):
+        self._on_epoch_change = callback
+
+    def report_gradient(self, gradients, model_version):
+        out = self.servicer.report_gradient(gradients, model_version)
+        self._reports += 1
+        if self._reports == 2:
+            fresh = self._make_fresh()
+            fresh.restore_version(self.servicer.get_model_version())
+            self.servicer = fresh
+            self._on_epoch_change(1, 2)
+            self.model_after_change = fresh.get_model(2)[1]
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.servicer, name)
+
+
+def test_the_held_model_re_pushes_on_a_new_master_epoch(tmp_path):
+    from elasticdl_tpu_torch.model_zoo.deepfm_edl_embedding import (
+        deepfm_edl_embedding as tzoo,
+    )
+
+    f = write_frappe(str(tmp_path), 128, 300)
+    task_d = TaskDispatcher({f: (0, 128)}, {}, {}, 32, 1)
+
+    def make():
+        return MasterServicer(1, 32, tzoo.optimizer(), task_d, device="cpu")
+
+    stub = _Restartable(make(), make)
+    worker = Worker(worker_id=0, job_type=JobType.TRAINING_ONLY,
+                    minibatch_size=32, model_zoo=PORT_ZOO, model_def=DEEPFM,
+                    model_params=SMALL, stub=stub, device="cpu")
+    losses = worker.run()
+    assert task_d.finished() and len(losses) == 4
+    # the re-push landed at once: the fresh master had the model and the
+    # tables before the next gradient
+    assert sorted(stub.model_after_change) == [
+        "Dense_0/bias", "Dense_0/kernel", "Dense_1/bias", "Dense_1/kernel"]
+    assert stub.servicer.get_model_version() == 4
+    assert {"embedding", "id_bias"} <= set(
+        stub.servicer.embedding_store.embedding_params)
+
+
+def test_streaming_exports_keep_the_newest_and_score_as_the_model(tmp_path):
+    """``--export_dir --export_every_versions 2 --export_keep 2`` on the
+    held MNIST model: the worker's pulled version passes the cadence at
+    v1, v3, v5 and v7 (the reference's clock, which starts at -1), the
+    two newest are kept, and the newest, served by the watcher, scores as
+    the model at v7."""
+    from elasticdl_tpu_torch.common.model_utils import build_model
+    from elasticdl_tpu_torch.common.convert import to_state_dict
+    from elasticdl_tpu_torch.data.example import encode_example as enc
+    from elasticdl_tpu_torch.serving.scorer import (
+        ModelDirectoryWatcher,
+        Scorer,
+    )
+
+    rng = np.random.default_rng(0)
+    data = tmp_path / "data"
+    os.makedirs(data)
+    with RecordIOWriter(str(data / "f0")) as w:
+        for _ in range(128):
+            w.write(enc({
+                "image": rng.random(784, dtype=np.float32) * 255,
+                "label": np.array([rng.integers(0, 10)], np.int64),
+            }))
+    model_def = "mnist_functional_api.mnist_functional_api.custom_model"
+    jobs = []
+    assert cli.main([
+        "train", "--job_name", "j", "--distribution_strategy", "Local",
+        "--model_zoo", "", "--model_def", model_def,
+        "--training_data", str(data), "--minibatch_size", "16",
+        "--checkpoint_dir", str(tmp_path / "ck"), "--checkpoint_steps", "1",
+        "--export_dir", str(tmp_path / "ex"), "--export_every_versions", "2",
+        "--export_keep", "2", "--device", "cpu",
+    ], jobs=jobs) == 0
+    job = jobs[0]
+    assert job.master.master_servicer.get_model_version() == 8
+    assert [v for v, _ in job.worker.exports] == [1, 3, 5, 7]
+    assert sorted(os.listdir(tmp_path / "ex")) == [
+        "v0000000005", "v0000000007"]
+    _, at_v7 = job.master.master_servicer.get_model(7, GetModelMethod.FIXED)
+    scorer = Scorer()
+    watcher = ModelDirectoryWatcher(str(tmp_path / "ex"), scorer,
+                                    device="cpu")
+    assert watcher.poll_once() == 7
+    images = rng.random((8, 28, 28), dtype=np.float32) * 255
+    got, version = scorer.score({"image": images})
+    assert version == 7
+    model = build_model(model_def)
+    model.load_state_dict(to_state_dict(at_v7))
+    with torch.no_grad():
+        want = model.eval()({"image": torch.from_numpy(images)})
+    assert torch.equal(got, want)
+    scorer.close()
+
+
+@pytest.mark.parametrize("entry", ["ps_main", "ps_addrs"])
+def test_the_fleet_entry_points_serve(tmp_path, entry):
+    """A shard built by ``ps.main``'s flags serves over sockets, and the
+    worker's ``--ps_addrs`` client pushes and pulls through two."""
+    from elasticdl_tpu_torch.common.args import parse_ps_args
+    from elasticdl_tpu_torch.common.args import parse_worker_args
+    from elasticdl_tpu_torch.ps.parameter_server import ParameterServer
+    from elasticdl_tpu_torch.worker.main import make_ps_client
+    from elasticdl_tpu_torch.worker.ps_client import BoundPS
+
+    servers = []
+    try:
+        for i in range(2 if entry == "ps_addrs" else 1):
+            server = ParameterServer(parse_ps_args([
+                "--ps_id", str(i), "--port", str(_free_port()),
                 "--model_zoo", "", "--model_def", DEEPFM,
-                "--minibatch_size", "8", "--device", "cpu"])
+                "--device", "cpu"]))
+            server.prepare()
+            servers.append(server)
+        addrs = ["localhost:%d" % s.port for s in servers]
+        if entry == "ps_main":
+            stub = BoundPS(addrs[0], deadline_s=10)
+            status = stub.ps_status({})
+            stub.close()
+            assert status["initialized"] is False
+            assert status["shard_epoch"] == servers[0].shard_epoch
+            return
+        client = make_ps_client(parse_worker_args([
+            "--worker_id", "0", "--job_type", "training_only",
+            "--ps_addrs", ",".join(addrs), "--model_zoo", "",
+            "--model_def", DEEPFM, "--minibatch_size", "8",
+            "--device", "cpu"]))
+        model = {"a": np.ones((2, 3), np.float32),
+                 "b": np.arange(4, dtype=np.float32)}
+        client.push_model(model, [])
+        ready, version, named = client.pull_dense()
+        client.close()
+        assert ready and version == 0
+        for k, v in model.items():
+            assert np.array_equal(named[k], v)
+    finally:
+        for server in servers:
+            server.stop()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]

@@ -126,7 +126,7 @@ OPTIMIZERS = {
 
 def test_probed_slot_layout_is_optaxs():
     for name, (factory, opt, slots, _, _) in OPTIMIZERS.items():
-        fresh, per_layer = probe_row_state(factory, 4)
+        fresh, per_layer = probe_row_state(factory, 4, "cpu")
         assert sorted(fresh) == sorted(slots), name
         template = JWrapper(opt, JParameters())._row_state_template(4)[2]
         for key, ref_key in slots.items():
@@ -153,7 +153,8 @@ def test_sparse_apply_matches_the_references(name):
         if step % 2:
             ids = np.unique(ids)
         values = rng.normal(size=(len(ids), 8)).astype(np.float32)
-        wrapper.apply_gradients({"emb": Tensor("emb", values, ids)})
+        wrapper.apply_gradients(
+            embedding_grads={"emb": Tensor("emb", values, ids)})
         ref_wrapper.apply_gradients(
             embedding_grads={"emb": JTensor("emb", values, ids)}
         )

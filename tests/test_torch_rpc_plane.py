@@ -307,9 +307,19 @@ def _held_model_methods_answer_as_the_servicer():
             "edl_embedding:emb:ids", "edl_embedding:emb:rows"]
         for k in want:
             assert np.array_equal(got[k], want[k])
-        with pytest.raises(st.RpcError, match="compressed"):
-            client._client.call("report_gradient", gradients=grads,
-                                model_version=2, compressed_f32=["w"])
+        # the bf16 wire: the server applies the bf16-rounded gradient
+        bf16 = MasterClient("localhost:%d" % server.port,
+                            wire_dtype="bfloat16")
+        try:
+            rounded = [Tensor(t.name, torch.from_numpy(t.values).to(
+                torch.bfloat16).float().numpy(), t.indices) for t in grads]
+            assert bf16.report_gradient(grads, 2) == (
+                direct.report_gradient(rounded, 2))
+            got, want = bf16.get_model(3), direct.get_model(3)
+            for k in want[1]:
+                assert np.array_equal(got[1][k], want[1][k])
+        finally:
+            bf16.close()
     finally:
         client.close()
         server.stop()
