@@ -249,7 +249,8 @@ class MasterRpcService:
 class MasterClient:
     """Worker side: the servicer's method surface over the failover
     channel. Calls carry no deadline (a worker parked on a busy master
-    waits); a refused or reset connection is sent again for up to
+    waits); a refused or reset connection, and a cut reply of a call in
+    ``failover.RESEND_AFTER_CUT``, is sent again for up to
     ``failover_s`` seconds (0: once). ``wire_dtype`` narrows the
     gradients it sends."""
 

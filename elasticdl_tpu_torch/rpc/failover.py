@@ -13,11 +13,16 @@ a call again:
   reset or end of stream before the first reply byte, is what a killed
   and relaunching master looks like. The call is sent again, on a freshly
   dialled connection, with a doubling backoff capped at 2 s, until
-  ``outage_budget_s`` is spent; then the error is raised. A connection
-  cut after the first reply byte (``DATA_LOSS``) is not retried. The
-  reads are pure, and ``report_task_result``, the one write whose
-  exactly-once counting matters, is deduped by the new master against
-  its journal by the ack's trace id.
+  ``outage_budget_s`` is spent; then the error is raised.
+- **A cut reply is resent only where a second delivery is harmless.** A
+  connection cut after the first reply byte (``DATA_LOSS``) is how a
+  master killed mid-reply looks over sockets; gRPC, under the reference,
+  calls it ``UNAVAILABLE``. The calls in :data:`RESEND_AFTER_CUT` ride it
+  out like ``UNAVAILABLE``, inside the same budget and backoff: the reads
+  are pure, and ``report_task_result`` is deduped by the new master
+  against its journal by the ack's trace id. Every other call raises it:
+  a cut ``get_task`` whose master lived would leave its task in the doing
+  set, a cut ``report_gradient`` could apply one gradient twice.
 - **Epochs.** Every master reply carries the incarnation's
   ``master_epoch``; ``on_epoch_change(old, new)`` fires once per change,
   so the owner (``MasterClient``'s worker) can re-register.
@@ -33,6 +38,17 @@ from elasticdl_tpu_torch.utils import profiling
 
 _BACKOFF_S = 0.2
 _BACKOFF_CAP_S = 2.0
+
+# the calls a reply cut after its first byte (DATA_LOSS) is resent for
+RESEND_AFTER_CUT = frozenset({
+    "report_task_result",
+    "get_comm_world",
+    "standby_poll",
+    "master_status",
+    "get_model",
+    "pull_embedding_vectors",
+    "export_embedding_tables",
+})
 
 
 class MasterFailoverChannel:
@@ -73,7 +89,8 @@ class MasterFailoverChannel:
 
     def call(self, rpc_name, _retriable=True, _budget_s=None, **fields):
         """One master call, sent again through an ``UNAVAILABLE`` window
-        of at most ``_budget_s`` (the channel's budget by default)."""
+        (or a cut reply, for :data:`RESEND_AFTER_CUT`) of at most
+        ``_budget_s`` (the channel's budget by default)."""
         from elasticdl_tpu_torch.rpc.socket_transport import RpcError
 
         budget = self._budget_s if _budget_s is None else _budget_s
@@ -83,9 +100,12 @@ class MasterFailoverChannel:
             try:
                 resp = self._client.call(rpc_name, **fields)
             except RpcError as err:
+                resendable = err.code == "UNAVAILABLE" or (
+                    err.code == "DATA_LOSS" and rpc_name in RESEND_AFTER_CUT
+                )
                 if not (
                     _retriable
-                    and err.code == "UNAVAILABLE"
+                    and resendable
                     and deadline is not None
                     and time.monotonic() + backoff < deadline
                 ):

@@ -8,8 +8,11 @@ counterpart of the channel cases of ``tests/test_master_journal.py``:
 - a budget of 0 raises at once, with no resend;
 - an expired deadline is never resent;
 - the epoch hook fires once per change;
-- a connection that ends before the first reply byte is resent, one cut
-  after it is not (``DATA_LOSS``);
+- a connection that ends before the first reply byte is resent; one cut
+  after it is resent only for the deduped ack and the reads, and raises
+  ``DATA_LOSS`` for the rest;
+- a ``report_task_result`` whose reply a master SIGKILL cut is resent to
+  the relaunch and deduped against the journal;
 - a fixed port a dead server still holds is bound once it lets go;
 - a worker (or a parked standby) whose master stays away past its
   budget exits non-zero;
@@ -213,21 +216,179 @@ def _raw_server(behaviours):
     return listener.getsockname()[1], served
 
 
-def test_a_drop_before_the_reply_is_resent_a_cut_reply_is_not():
+# each master call, and whether a reply cut after its first byte is sent
+# again: the deduped ack and the pure reads are, the rest raise DATA_LOSS
+_CUT_RESENT = [
+    ("report_task_result", True),
+    ("get_comm_world", True),
+    ("standby_poll", True),
+    ("master_status", True),
+    ("get_model", True),
+    ("pull_embedding_vectors", True),
+    ("export_embedding_tables", True),
+    ("get_task", False),
+    ("report_gradient", False),
+    ("report_variable", False),
+    ("push_embedding_info", False),
+    ("report_evaluation_metrics", False),
+    ("leave_comm_world", False),
+]
+
+
+@pytest.mark.parametrize("method,resent", _CUT_RESENT)
+def test_a_drop_before_the_reply_is_resent_a_cut_reply_is_not(
+    method, resent
+):
+    """A drop before the first reply byte is resent for every call; a
+    cut after it only for the calls in ``RESEND_AFTER_CUT``."""
+    assert (method in failover.RESEND_AFTER_CUT) == resent
     port, served = _raw_server(["drop", "reply"])
     channel = failover.MasterFailoverChannel(
         "localhost:%d" % port, outage_budget_s=10
     )
-    assert channel.call("get_task")["ok"]
-    assert served == [("drop", "get_task"), ("reply", "get_task")]
+    assert channel.call(method)["ok"]
+    assert served == [("drop", method), ("reply", method)]
     port, served = _raw_server(["cut", "reply"])
     channel = failover.MasterFailoverChannel(
         "localhost:%d" % port, outage_budget_s=10
+    )
+    if resent:
+        assert channel.call(method)["ok"]
+        assert served == [("cut", method), ("reply", method)]
+    else:
+        with pytest.raises(st.RpcError) as e:
+            channel.call(method)
+        assert e.value.code == "DATA_LOSS"
+        time.sleep(0.1)
+        assert served == [("cut", method)]
+
+
+def test_a_cut_reply_is_not_resent_past_the_budget():
+    port, served = _raw_server(["cut", "reply"])
+    channel = failover.MasterFailoverChannel(
+        "localhost:%d" % port, outage_budget_s=0
     )
     with pytest.raises(st.RpcError) as e:
         channel.call("report_task_result")
     assert e.value.code == "DATA_LOSS"
     assert served == [("cut", "report_task_result")]
+
+
+class _CuttingProxy:
+    """A TCP relay to ``localhost:target`` that, once armed for a method,
+    forwards that call's request, relays the first byte of its reply,
+    cuts the caller's connection and runs ``on_cut`` (the test's master
+    SIGKILL)."""
+
+    def __init__(self, target, method, on_cut):
+        self.target, self.method, self.on_cut = target, method, on_cut
+        self.armed = False
+        self.cuts = 0
+        self._listener = socket.socket()
+        self._listener.bind(("localhost", 0))
+        self._listener.listen(16)
+        self.port = self._listener.getsockname()[1]
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def _accept(self):
+        while True:
+            try:
+                conn, _ = self._listener.accept()
+            except OSError:
+                return
+            threading.Thread(
+                target=self._serve, args=(conn,), daemon=True
+            ).start()
+
+    def _serve(self, conn):
+        upstream = None
+        try:
+            while True:
+                (n,) = struct.unpack("<I", st._recv_exact(conn, 4))
+                name = st._recv_exact(conn, n)
+                (m,) = struct.unpack("<Q", st._recv_exact(conn, 8))
+                body = st._recv_exact(conn, m)
+                if upstream is None:
+                    upstream = socket.create_connection(
+                        ("localhost", self.target)
+                    )
+                upstream.sendall(struct.pack("<I", n) + bytes(name)
+                                 + struct.pack("<Q", m) + bytes(body))
+                head = st._recv_exact(upstream, 9)
+                status, length = struct.unpack("<BQ", bytes(head))
+                payload = st._recv_exact(upstream, length)
+                if self.armed and bytes(name).decode() == self.method:
+                    self.armed = False
+                    self.cuts += 1
+                    conn.sendall(bytes(head)[:1])
+                    conn.close()
+                    self.on_cut()
+                    return
+                conn.sendall(bytes(head) + bytes(payload))
+        except (ConnectionError, OSError):
+            pass
+        finally:
+            conn.close()
+            if upstream is not None:
+                upstream.close()
+
+    def close(self):
+        self._listener.close()
+
+
+def test_a_cut_task_report_is_resent_to_the_relaunch_and_deduped(
+    tmp_path,
+):
+    """The master is SIGKILLed once it has sent the first byte of a
+    ``report_task_result`` reply (the done record fsynced). The worker's
+    channel resends the ack to the master relaunched at the same address
+    with the journal, which dedupes it by trace id: the journal counts
+    the task done once and the resend as one ``dup``."""
+    from elasticdl_tpu_torch.common.constants import TaskExecCounterKey
+    from elasticdl_tpu_torch.master.journal import MasterJournal
+
+    data = tmp_path / "data"
+    data.mkdir()
+    _write_mnist(data, 16)
+    port = _free_port()
+    journal = tmp_path / "journal"
+    argv = _master_argv(port, data, journal)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen(argv, cwd=REPO, env=env,
+                              stderr=subprocess.DEVNULL)]
+
+    def kill_and_relaunch():
+        time.sleep(0.2)  # past the journal's fsync cadence
+        procs[-1].send_signal(signal.SIGKILL)
+        procs[-1].wait(timeout=10)
+        procs.append(subprocess.Popen(argv, cwd=REPO, env=env,
+                                      stderr=subprocess.DEVNULL))
+
+    proxy = _CuttingProxy(port, "report_task_result", kill_and_relaunch)
+    client = MasterClient("localhost:%d" % proxy.port, failover_s=60)
+    try:
+        first = _wait_serving(port)
+        task = client.get_task(0)
+        trace = task.extended_config["trace_id"]
+        proxy.armed = True
+        client.report_task_result(
+            task.task_id, exec_counters={TaskExecCounterKey.TRACE_ID: trace}
+        )
+        assert proxy.cuts == 1 and len(procs) == 2
+        assert client.master_epoch == first["master_epoch"] + 1
+        status = client.master_status()
+        assert status["journal"]["done"] == 1
+        assert status["journal"]["deduped"] == 1
+    finally:
+        client.close()
+        proxy.close()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    state = MasterJournal(str(journal)).replay()
+    assert state.counters["done"] == 1 and state.counters["deduped"] == 1
+    assert not state.pending and trace in state.done_traces
 
 
 def test_a_fixed_port_is_bound_once_its_holder_lets_go(monkeypatch):
