@@ -744,7 +744,8 @@ def parse_ps_args(ps_args=None):
     add_bool_param(parser, "--lr_staleness_modulation", False, "")
     add_bool_param(
         parser, "--ps_device", False,
-        "Device-resident shard (not ported: raises)",
+        "Device-resident shard: the dense parameters and every table's "
+        "rows live on --device (one arena per table)",
     )
     parser.add_argument(
         "--wire_dtype", default="", choices=["", "bfloat16"]

@@ -26,9 +26,17 @@ The PS plane's host data path, ``plan -> pull -> push``:
   to the master, ``push_gradient`` to the fleet), and
   :meth:`PsPlane.drain` settles the fleet client's push window.
 
-Not ported: the ``HotRowCache`` and the hybrid trainer's
-``EmbeddingPullPipeline`` (ROADMAP A4).
+:class:`HotRowCache` is the worker's tier above the PS fleet: an LRU of
+pulled rows, each tagged with its shard's version, served in place of a
+pull while it lags that shard's newest seen version by at most a window.
+
+Not ported: the hybrid trainer's ``EmbeddingPullPipeline`` (ROADMAP A4),
+and the cache's ``invalidate_table``/``refresh_table``/``max_live_lag``,
+which serve the scorer's delta sync (A5) and raise by name.
 """
+
+import threading
+from collections import OrderedDict
 
 import numpy as np
 
@@ -180,3 +188,149 @@ class PsPlane:
 
     def drain(self):
         return self._client.drain()
+
+
+class HotRowCache:
+    """The worker's LRU of pulled embedding rows, keyed ``(table, id)``,
+    at most ``max_rows`` of them.
+
+    Each entry carries the version of the shard it came from; the client
+    notes the newest version it has seen of each shard (from pull and
+    push replies alike), and an entry more than ``window`` versions
+    behind that is a miss (and dropped). A row served from here is
+    therefore at most ``window`` of its shard's optimizer steps stale,
+    the bound the SSP window (``get_model_steps``) already trains under.
+    Push replies note versions from the client's fan-out threads while
+    the worker probes, so every method takes one lock. ``hits`` and
+    ``misses`` count probes; :meth:`table_stats` splits them, with the
+    capacity evictions, by table.
+    """
+
+    def __init__(self, max_rows, window=1):
+        if max_rows <= 0:
+            raise ValueError("max_rows must be positive")
+        if window < 0:
+            raise ValueError("window must be >= 0")
+        self._max_rows = max_rows
+        self._window = window
+        self._mu = threading.Lock()
+        self._rows = OrderedDict()  # (table, id) -> (shard, version, row)
+        self._latest = {}  # shard -> newest version seen
+        self._table_stats = {}  # table -> [hits, misses, evictions]
+        self.hits = 0
+        self.misses = 0
+
+    def note_version(self, shard, version):
+        """A reply of shard ``shard`` carried ``version``."""
+        if version is None or version < 0:
+            return
+        with self._mu:
+            if version > self._latest.get(shard, -1):
+                self._latest[shard] = version
+
+    def invalidate_shard(self, shard, version=None):
+        """Drop every entry of ``shard`` and set its version clock to
+        ``version`` (the relaunched shard's; None forgets the shard):
+        the reconnect protocol's part. A restored shard's rows are not
+        the dead incarnation's, and the dead one's high-water version
+        would make every fresh entry a miss. Returns the entries
+        dropped."""
+        with self._mu:
+            victims = [
+                key for key, (entry_shard, _, _) in self._rows.items()
+                if entry_shard == shard
+            ]
+            for key in victims:
+                del self._rows[key]
+            if version is not None and version >= 0:
+                self._latest[shard] = version
+            else:
+                self._latest.pop(shard, None)
+            return len(victims)
+
+    def invalidate_table(self, name, below_version=None):
+        raise NotImplementedError(
+            "HotRowCache.invalidate_table serves the scorer's delta sync, "
+            "which is not ported yet (ROADMAP A5)"
+        )
+
+    def refresh_table(self, name, shard, version, changed_ids, since):
+        raise NotImplementedError(
+            "HotRowCache.refresh_table serves the scorer's delta sync, "
+            "which is not ported yet (ROADMAP A5)"
+        )
+
+    def max_live_lag(self):
+        raise NotImplementedError(
+            "HotRowCache.max_live_lag serves the scorer's delta sync, "
+            "which is not ported yet (ROADMAP A5)"
+        )
+
+    def get(self, name, row_id):
+        """The cached row, or None (a miss; a stale entry is dropped)."""
+        with self._mu:
+            return self._get_locked(name, row_id)
+
+    def get_rows(self, name, row_ids):
+        """One probe per id under one lock hold; None for each miss."""
+        with self._mu:
+            return [self._get_locked(name, r) for r in row_ids]
+
+    def _stat_locked(self, name):
+        stat = self._table_stats.get(name)
+        if stat is None:
+            stat = self._table_stats[name] = [0, 0, 0]
+        return stat
+
+    def _get_locked(self, name, row_id):
+        key = (name, int(row_id))
+        entry = self._rows.get(key)
+        if entry is not None:
+            shard, version, row = entry
+            if version < self._latest.get(shard, -1) - self._window:
+                del self._rows[key]
+                entry = None
+        if entry is None:
+            self.misses += 1
+            self._stat_locked(name)[1] += 1
+            return None
+        self._rows.move_to_end(key)
+        self.hits += 1
+        self._stat_locked(name)[0] += 1
+        return row
+
+    def put(self, name, row_id, shard, version, row):
+        if version is None:
+            return  # an unversioned reply: nothing to tag the row with
+        with self._mu:
+            self._put_locked(name, row_id, shard, version, row)
+
+    def put_rows(self, name, row_ids, shard, version, rows):
+        """One pulled batch under one lock hold."""
+        if version is None:
+            return
+        with self._mu:
+            for row_id, row in zip(row_ids, rows):
+                self._put_locked(name, row_id, shard, version, row)
+
+    def _put_locked(self, name, row_id, shard, version, row):
+        key = (name, int(row_id))
+        # a copy: the row is a view of the whole reply, which a kept view
+        # would pin
+        self._rows[key] = (shard, version, np.array(row, np.float32))
+        self._rows.move_to_end(key)
+        while len(self._rows) > self._max_rows:
+            victim, _ = self._rows.popitem(last=False)
+            self._stat_locked(victim[0])[2] += 1  # charged to the victim
+
+    def table_stats(self):
+        """``{table: {"hits", "misses", "evictions"}}``, copied."""
+        with self._mu:
+            return {
+                name: {"hits": s[0], "misses": s[1], "evictions": s[2]}
+                for name, s in self._table_stats.items()
+            }
+
+    def __len__(self):
+        with self._mu:
+            return len(self._rows)

@@ -127,6 +127,31 @@ class EmbeddingTable:
             for pos, i in enumerate(indices):
                 self.embedding_vectors[int(i)] = values[pos].copy()
 
+    def clear(self):
+        with self._lock:
+            self.embedding_vectors.clear()
+
+    def missing_ids(self, indices):
+        """The ids of ``indices`` with no row yet: a membership probe
+        that mints nothing (the tiered store routes ids with it)."""
+        with self._lock:
+            return [
+                int(i) for i in indices
+                if int(i) not in self.embedding_vectors
+            ]
+
+    def evict_rows(self, indices):
+        """Drop these rows (the tiered store's demotion, once it has
+        sealed them into a disk segment); returns how many were held. A
+        later lookup mints the row afresh unless a tier above serves
+        it."""
+        dropped = 0
+        with self._lock:
+            for i in indices:
+                if self.embedding_vectors.pop(int(i), None) is not None:
+                    dropped += 1
+        return dropped
+
     def snapshot(self):
         """Consistent (ids, rows) copy of every materialized row.
 

@@ -1,5 +1,6 @@
-"""Sparse-aware optimizer apply on a host parameter store, the port of
-the host half of ``elasticdl_tpu/ps/optimizer_wrapper.py``.
+"""Sparse-aware optimizer apply on a parameter store, the port of
+``elasticdl_tpu/ps/optimizer_wrapper.py``, with its host and device
+planes.
 
 The dense step (a PS shard's subset of the model) runs the optimizer
 over device copies of the store's dense parameters: the copies and the
@@ -36,6 +37,17 @@ reference's host store crosses into its jitted step. Rows are not padded
 to a power of two: nothing recompiles here. Every apply holds
 ``apply_lock`` (reentrant: a caller may hold it across a whole apply,
 as a shard's servicer does so that a snapshot never cuts one).
+
+**The device plane** (a store built with ``device``, the shard's
+``--ps_device``) keeps everything on the card: the sparse apply takes
+the rows and each slot table's rows with ``ensure_rows`` ->
+``gather_slots``, runs the same torch step as the host plane, writes
+them back with ``scatter_slots`` (unique ids, so ``index_copy_`` is
+defined) and ends on ``sync``; the dense apply leaves device copies of
+the parameters in the store, which ``Parameters.to_named_arrays`` copies
+to host for a reply. Both planes run one step on the same device over
+the same values, so they agree bitwise. After an apply a tiered table's
+demoter is woken, outside the apply lock.
 """
 
 import threading
@@ -110,7 +122,10 @@ class OptimizerWrapper:
         with self._lock:
             if store.non_embedding_params is not self._dense_src:
                 self._dense_params = {
-                    k: self._to_device(v).requires_grad_(True)
+                    k: (
+                        v.detach().clone() if isinstance(v, torch.Tensor)
+                        else self._to_device(v)
+                    ).requires_grad_(True)
                     for k, v in store.non_embedding_params.items()
                 }
                 self._dense_opt = self._opt_fn(
@@ -123,10 +138,18 @@ class OptimizerWrapper:
                         np.asarray(g, dtype=np.float32))
                 )
             self._dense_opt.step()
-            named = {
-                k: p.detach().to("cpu", copy=True).numpy()
-                for k, p in self._dense_params.items()
-            }
+            if store.device is not None:
+                # the store keeps its own device copies: a concurrent
+                # pull copies them to host while the next step runs
+                named = {
+                    k: p.detach().clone()
+                    for k, p in self._dense_params.items()
+                }
+            else:
+                named = {
+                    k: p.detach().to("cpu", copy=True).numpy()
+                    for k, p in self._dense_params.items()
+                }
             store.set_non_embedding_params(named)
             self._dense_src = named
 
@@ -167,23 +190,48 @@ class OptimizerWrapper:
             slot_tables = self._ensure_slot_tables(
                 store, layer_name, row_slot_init
             )
-            rows = self._to_device(table.get(unique)).requires_grad_(True)
+            on_device = store.device is not None
+            if on_device:
+                slots = table.ensure_rows(unique)
+                rows = table.gather_slots(slots)
+                slot_slots = {
+                    key: t.ensure_rows(unique)
+                    for key, t in slot_tables.items()
+                }
+            else:
+                rows = self._to_device(table.get(unique))
+            rows.requires_grad_(True)
             opt = self._opt_fn([rows])
             per_layer = self._non_row_state.get(layer_name)
             if per_layer is None:
                 per_layer = {k: _clone(v) for k, v in per_layer_init.items()}
             state = dict(per_layer)
             for key, t in slot_tables.items():
-                state[key] = self._to_device(t.get(unique))
+                state[key] = (
+                    t.gather_slots(slot_slots[key]) if on_device
+                    else self._to_device(t.get(unique))
+                )
             opt.state[rows] = state
             rows.grad = self._to_device(grad_rows)
             opt.step()
-            table.set(unique, rows.detach().to("cpu").numpy())
-            for key, t in slot_tables.items():
-                t.set(unique, state[key].to("cpu").numpy())
+            if on_device:
+                table.scatter_slots(slots, rows.detach())
+                for key, t in slot_tables.items():
+                    t.scatter_slots(slot_slots[key], state[key])
+                # one stream carries every table's writes: the reply
+                # reads none of them before they have run
+                table.sync()
+            else:
+                table.set(unique, rows.detach().to("cpu").numpy())
+                for key, t in slot_tables.items():
+                    t.set(unique, state[key].to("cpu").numpy())
             self._non_row_state[layer_name] = {
                 k: state[k] for k in per_layer_init
             }
+        for t in (table, *slot_tables.values()):
+            pressure = getattr(t, "signal_pressure", None)
+            if pressure is not None:
+                pressure()
 
     def apply_gradients(self, dense_grads=None, embedding_grads=None):
         """Apply ``{name: array}`` dense gradients, then ``{layer:

@@ -9,10 +9,14 @@ shard's applies run on ``--device`` (``cuda`` by default; raises without
 a card). SIGTERM drains: one final snapshot, then exit 75, which the
 instance manager relaunches without spending its crash budget.
 
-Not ported, each raising ``NotImplementedError`` by name: the
-device-resident store (``--ps_device``, ROADMAP A3), the tiered store
-(``--ps_warm_rows``/``--ps_spill_dir``, A3), the shard's telemetry
-endpoint (``--ps_telemetry_port`` other than -1, A8) and its
+``--ps_device`` keeps the store on ``--device`` (``ps/device_store.py``);
+``--ps_warm_rows`` with ``--ps_spill_dir`` tiers every table
+(``ps/tiered_store.py``), spilling under ``<spill_dir>/ps-{id}``. Only one
+of those two runs untiered with a warning, as the reference does. A stop
+closes the tiered tables' demoters.
+
+Not ported, each raising ``NotImplementedError`` by name: the shard's
+telemetry endpoint (``--ps_telemetry_port`` other than -1, A8) and its
 shared-memory endpoint (``--ps_shm on``, A6).
 """
 
@@ -28,11 +32,6 @@ from elasticdl_tpu_torch.master.local_instance_manager import (
 
 def refuse_unported_ps_flags(args):
     checks = (
-        ("the device-resident parameter store", "--ps_device",
-         getattr(args, "ps_device", False)),
-        ("the tiered embedding store", "--ps_warm_rows/--ps_spill_dir",
-         getattr(args, "ps_warm_rows", 0)
-         or getattr(args, "ps_spill_dir", "")),
         ("the PS shard's telemetry endpoint", "--ps_telemetry_port",
          getattr(args, "ps_telemetry_port", -1) != -1),
         ("the PS shard's shared-memory endpoint", "--ps_shm on",
@@ -43,6 +42,25 @@ def refuse_unported_ps_flags(args):
             raise NotImplementedError(
                 "%s is not ported yet (asked for by %s)" % (plane, flag)
             )
+
+
+def tier_config(args):
+    """The tiered store's config from ``--ps_warm_rows`` and
+    ``--ps_spill_dir`` (spilling under ``<dir>/ps-{id}``), or None; one
+    flag without the other warns and runs untiered."""
+    warm_rows = int(getattr(args, "ps_warm_rows", 0) or 0)
+    spill_dir = getattr(args, "ps_spill_dir", "") or ""
+    if warm_rows > 0 and spill_dir:
+        return {
+            "warm_rows": warm_rows,
+            "spill_dir": os.path.join(spill_dir, "ps-%d" % args.ps_id),
+        }
+    if warm_rows > 0 or spill_dir:
+        logger.warning(
+            "the tiered store needs both --ps_warm_rows and --ps_spill_dir;"
+            " running untiered"
+        )
+    return None
 
 
 class ParameterServer:
@@ -68,7 +86,10 @@ class ParameterServer:
                 "the model module of %s defines no %s"
                 % (args.model_def, args.optimizer)
             )
-        self.parameters = Parameters()
+        self.parameters = Parameters(
+            device=self.device if getattr(args, "ps_device", False) else None,
+            tier_config=tier_config(args),
+        )
         snap_dir = getattr(args, "ps_snapshot_dir", "") or ""
         shard_dir = (
             os.path.join(snap_dir, "ps-%d" % args.ps_id) if snap_dir else ""
@@ -110,7 +131,8 @@ class ParameterServer:
 
         self._server = serve(self.servicer.rpc_methods(), self._args.port)
         logger.info(
-            "PS %d serving on port %d (shard_epoch %d%s, device %s)",
+            "PS %d serving on port %d (shard_epoch %d%s, device %s, %s "
+            "store%s)",
             self._args.ps_id,
             self._server.port,
             self.shard_epoch,
@@ -120,6 +142,13 @@ class ParameterServer:
                 else ""
             ),
             self.device,
+            "device" if self.parameters.device is not None else "host",
+            (
+                ", tiered at %d warm rows"
+                % self.parameters.tier_config["warm_rows"]
+                if self.parameters.tier_config
+                else ""
+            ),
         )
 
     def install_drain_handler(self):
@@ -159,6 +188,7 @@ class ParameterServer:
             except Exception as err:  # noqa: BLE001 - teardown
                 logger.warning("snapshotter close failed: %s", err)
             self.snapshotter = None
+        self.parameters.close()
 
 
 def main(argv=None):

@@ -1,4 +1,4 @@
-"""The host parameter store, the port of ``Parameters()`` in
+"""The parameter store, the port of ``Parameters()`` in
 ``elasticdl_tpu/ps/parameters.py``: the dense parameters of a PS shard
 (``non_embedding_params``, ``{name: float32 ndarray}``) with its
 ``version`` and ``initialized`` flag, and the embedding tables as
@@ -15,19 +15,35 @@
   every table with its rows.
 
 The master-held model uses only the tables (its dense model is the
-servicer's own). Not ported, each raising ``NotImplementedError`` by
-name: the device-resident store (``Parameters(device=True)``, the
-reference's ``--ps_device``) and the tiered store (``tier_config``).
+servicer's own).
+
+``device`` (a shard's ``--ps_device``) makes the store device-resident:
+the dense parameters are tensors on that device and every table is a
+``ps/device_store.DeviceEmbeddingTable`` arena there; a device that is
+not there raises, and nothing falls back to the host store.
+``tier_config`` (``{"warm_rows": n, "spill_dir": d}``) wraps every table,
+rows and slots, in a ``ps/tiered_store.TieredEmbeddingTable`` spilling
+to ``d/<table>``; it wraps the arena where both are asked for. Snapshots,
+replies and minted rows are the same bits either way.
 """
 
+import os
 import threading
 
 import numpy as np
+import torch
 
 from elasticdl_tpu_torch.ps.embedding_table import (
     EmbeddingTable,
     get_slot_table_name,
 )
+
+
+def _host(value):
+    """A float32 ndarray copy of a dense parameter, host or device."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to("cpu", torch.float32).numpy().copy()
+    return np.array(value, dtype=np.float32)
 
 
 class EmbeddingTableInfo:
@@ -41,22 +57,71 @@ class EmbeddingTableInfo:
 
 
 class Parameters:
-    def __init__(self, device=False, tier_config=None):
-        if device:
-            raise NotImplementedError(
-                "the device-resident parameter store (Parameters(device="
-                "True), --ps_device) is not ported yet (ROADMAP A3)"
+    def __init__(self, device=None, tier_config=None):
+        """``device``: None (or False) for the host store; a device name,
+        or True for the card, for the device-resident store.
+        ``tier_config``: ``{"warm_rows": int, "spill_dir": str}``."""
+        from elasticdl_tpu_torch.common.device import resolve_device
+
+        if device is True:
+            device = "cuda"
+        self.device = resolve_device(device) if device else None
+        if tier_config and not (
+            int(tier_config.get("warm_rows") or 0) > 0
+            and tier_config.get("spill_dir")
+        ):
+            raise ValueError(
+                "tier_config needs a positive warm_rows and a spill_dir, "
+                "got %r" % (tier_config,)
             )
-        if tier_config:
-            raise NotImplementedError(
-                "the tiered embedding store (tier_config, --ps_warm_rows/"
-                "--ps_spill_dir) is not ported yet (ROADMAP A3)"
-            )
+        self.tier_config = dict(tier_config) if tier_config else None
         self.version = 0
         self.initialized = False
         self.non_embedding_params = {}
         self.embedding_params = {}
         self._lock = threading.Lock()
+
+    def _new_table(self, name, dim, initializer, is_slot=False):
+        if self.device is not None:
+            from elasticdl_tpu_torch.ps.device_store import (
+                DeviceEmbeddingTable,
+            )
+
+            table = DeviceEmbeddingTable(
+                name, dim, initializer, is_slot=is_slot, device=self.device
+            )
+        else:
+            table = EmbeddingTable(name, dim, initializer, is_slot=is_slot)
+        if self.tier_config:
+            from elasticdl_tpu_torch.ps.tiered_store import (
+                TieredEmbeddingTable,
+            )
+
+            table = TieredEmbeddingTable(
+                table,
+                spill_dir=os.path.join(
+                    self.tier_config["spill_dir"], name.replace("/", "_")
+                ),
+                warm_rows=int(self.tier_config["warm_rows"]),
+            )
+        return table
+
+    def _dense_value(self, arr):
+        """A dense parameter as the store keeps it: a float32 ndarray, or
+        a tensor on the store's device."""
+        host = np.array(arr, dtype=np.float32)
+        if self.device is None:
+            return host
+        return torch.from_numpy(host).to(self.device)
+
+    def close(self):
+        """Stop the tiered tables' demoters (nothing to stop otherwise)."""
+        with self._lock:
+            tables = list(self.embedding_params.values())
+        for table in tables:
+            closer = getattr(table, "close", None)
+            if closer is not None:
+                closer()
 
     def get_non_embedding_param(self, name, default=None):
         return self.non_embedding_params.get(name, default)
@@ -112,7 +177,7 @@ class Parameters:
             if self.initialized:
                 return False
             self.non_embedding_params = {
-                name: np.array(arr, dtype=np.float32)
+                name: self._dense_value(arr)
                 for name, arr in dense_params.items()
             }
             self.version = max(0, int(version))
@@ -120,13 +185,25 @@ class Parameters:
             return True
 
     def init_embedding_params(self, embedding_infos):
-        """Create the missing tables; a name that exists always wins."""
+        """Create the missing tables; a name that exists always wins. The
+        tables are built with no lock held (a tiered table reads its
+        segments from disk); one that loses the race is closed."""
+        candidates = {
+            info.name: self._new_table(info.name, info.dim, info.initializer)
+            for info in embedding_infos or ()
+            if info.name not in self.embedding_params
+        }
+        losers = []
         with self._lock:
-            for info in embedding_infos or ():
-                if info.name not in self.embedding_params:
-                    self.embedding_params[info.name] = EmbeddingTable(
-                        info.name, info.dim, info.initializer
-                    )
+            for name, table in candidates.items():
+                if name in self.embedding_params:
+                    losers.append(table)
+                else:
+                    self.embedding_params[name] = table
+        for table in losers:
+            closer = getattr(table, "close", None)
+            if closer is not None:
+                closer()
 
     def create_slot_params(self, slot_names, init_values):
         """Create a slot table per embedding table for each of
@@ -140,7 +217,7 @@ class Parameters:
             for slot_name in slot_names:
                 key = get_slot_table_name(layer_name, slot_name)
                 if key not in self.embedding_params:
-                    self.embedding_params[key] = EmbeddingTable(
+                    self.embedding_params[key] = self._new_table(
                         key,
                         dim,
                         initializer=str(init_values.get(slot_name, 0.0)),
@@ -148,10 +225,10 @@ class Parameters:
                     )
 
     def to_named_arrays(self):
-        """A copy of the dense parameters, taken under the lock (an
+        """A host copy of the dense parameters, taken under the lock (an
         async apply rebinds the dict)."""
         with self._lock:
-            return {k: v.copy() for k, v in self.non_embedding_params.items()}
+            return {k: _host(v) for k, v in self.non_embedding_params.items()}
 
     def set_non_embedding_params(self, named):
         """Install the dense parameters an apply produced."""
@@ -168,8 +245,7 @@ class Parameters:
             version = int(self.version)
             initialized = bool(self.initialized)
             dense = {
-                k: np.array(v, dtype=np.float32)
-                for k, v in self.non_embedding_params.items()
+                k: _host(v) for k, v in self.non_embedding_params.items()
             }
             tables = list(self.embedding_params.items())
         table_snaps = {}
@@ -192,10 +268,14 @@ class Parameters:
     def restore_state(self, state):
         """Install a :meth:`snapshot_state` capture (a shard's boot): the
         tables keep their initializers, so rows minted after the restore
-        are the ones the crashed shard would have minted."""
+        are the ones the crashed shard would have minted. Tiered tables
+        are replaced by tables over the same spill directories, so the
+        outgoing demoters stop first."""
+        if self.tier_config:
+            self.close()
         tables = {}
         for name, snap in state["tables"].items():
-            table = EmbeddingTable(
+            table = self._new_table(
                 name,
                 snap["dim"],
                 initializer=snap["initializer"],
@@ -204,8 +284,7 @@ class Parameters:
             table.load_snapshot(snap["ids"], snap["rows"])
             tables[name] = table
         dense = {
-            k: np.array(v, dtype=np.float32)
-            for k, v in state["dense"].items()
+            k: self._dense_value(v) for k, v in state["dense"].items()
         }
         with self._lock:
             self.non_embedding_params = dense

@@ -18,7 +18,12 @@
 - ``ps_status``: version, initialized, the restored version and the
   snapshot cadence, plus the port's counters: each recent apply's
   dense and sparse milliseconds, each table's rows and their bytes, and
-  the card's peak memory.
+  the card's peak memory; a tiered store adds its tables' counters
+  summed under ``tiered``.
+
+Each apply tells the tables of every layer it wrote which ids its
+version touched (``note_applied``: a tiered table pins them against
+demotion).
 
 Every reply carries the shard's ``shard_epoch``, so a client sees a
 relaunch. Methods take and return dicts, so one object serves the
@@ -134,7 +139,24 @@ class PserverServicer:
                 self.apply_ms["dense"].append((t1 - t0) * 1e3)
             if sparse:
                 self.apply_ms["sparse"].append((t2 - t1) * 1e3)
-            self._parameters.version += 1
+            version = self._parameters.version + 1
+            for name, t in sparse.items():
+                self._note_applied(name, t.indices, version)
+            self._parameters.version = version
+
+    def _note_applied(self, name, ids, version):
+        """Tell a tiered table which rows ``version`` applied to (its
+        demoter pins them): the layer's rows and every ``"{layer}-
+        {slot}"`` table, which the same update wrote."""
+        tables = self._parameters.embedding_params
+        family = [tables.get(name)] + [
+            t for key, t in list(tables.items())
+            if t.is_slot and key.startswith(name + "-")
+        ]
+        for t in family:
+            note = getattr(t, "note_applied", None)
+            if note is not None:
+                note(ids, version)
 
     def _maybe_snapshot(self):
         if self._snapshotter is not None:
@@ -260,11 +282,17 @@ class PserverServicer:
     def ps_status(self, req):
         """Liveness and identity (a client probes it after a failure),
         with the shard's apply times and table sizes."""
-        tables, nbytes = {}, 0
+        tables, nbytes, tiered = {}, 0, None
         for name, table in list(self._parameters.embedding_params.items()):
             rows = len(table)
             tables[name] = rows
             nbytes += rows * (8 + 4 * int(table.dim or 0))
+            stats = getattr(table, "stats", None)
+            if stats is not None:
+                tiered = tiered or {}
+                for key, value in stats().items():
+                    tiered[key] = tiered.get(key, 0) + int(value)
+        extra = {} if tiered is None else {"tiered": tiered}
         return self._reply({
             "version": self._parameters.version,
             "initialized": bool(self._parameters.initialized),
@@ -282,6 +310,7 @@ class PserverServicer:
                 if self._device.type == "cuda"
                 else None
             ),
+            **extra,
         })
 
     def serving_status(self, req):

@@ -22,6 +22,13 @@ there, so those rows do not cross)::
 - **Shard epochs.** Every boot mints a fresh ``shard_epoch`` (a counter
   in ``epoch.json`` where the shard has a directory), which every reply
   carries, so a client sees the relaunch.
+
+The tiered store's spill segments (``ps/tiered_store.py``) are this
+layout too: one table a segment, its generation as the version, written
+with :func:`write_shard_snapshot` and read with
+:func:`read_shard_snapshot`; :func:`snapshot_versions`,
+:func:`snapshot_path` and :func:`remove_snapshot_dir` are what it builds
+on.
 """
 
 import contextlib
@@ -80,7 +87,9 @@ def snapshot_path(shard_dir, version):
     return os.path.join(shard_dir, "%s%d" % (_SNAP_PREFIX, int(version)))
 
 
-def _remove_dir(directory):
+def remove_snapshot_dir(directory):
+    """Delete one snapshot (or spill segment) directory; best effort,
+    never raises."""
     for f in glob.glob(os.path.join(directory, "*")):
         try:
             os.remove(f)
@@ -133,7 +142,7 @@ def write_shard_snapshot(shard_dir, state, ps_id=0, shard_epoch=0):
     if os.path.isdir(final):
         # the same version again (a drain right after a cadence
         # snapshot): clear the way for the atomic rename
-        _remove_dir(final)
+        remove_snapshot_dir(final)
     os.replace(tmp, final)
     return final
 
@@ -260,11 +269,11 @@ class ShardSnapshotter:
     def _evict(self):
         versions = snapshot_versions(self._dir)
         while len(versions) > self._keep:
-            _remove_dir(snapshot_path(self._dir, versions.pop(0)))
+            remove_snapshot_dir(snapshot_path(self._dir, versions.pop(0)))
         for tmp in glob.glob(os.path.join(self._dir, _TMP_PREFIX + "*")):
             # a crashed predecessor's torn write, never restorable
             if os.path.isdir(tmp):
-                _remove_dir(tmp)
+                remove_snapshot_dir(tmp)
 
     def restore_into(self, parameters):
         """Install the newest snapshot that reads back whole; returns its

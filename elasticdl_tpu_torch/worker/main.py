@@ -124,10 +124,16 @@ def make_ps_client(args):
                 shm=args.ps_shm)
         for a in addrs
     ]
+    # the cache's staleness bound defaults to the SSP window the worker
+    # already trains under between model pulls
+    window = args.hot_row_staleness_window
+    if window <= 0:
+        window = args.get_model_steps
     return PSClient(
         stubs,
         wire_dtype=args.wire_dtype,
         hot_row_cache_rows=args.hot_row_cache_rows,
+        staleness_window=window,
         fanout=args.ps_fanout,
         push_inflight=args.ps_push_inflight,
     )

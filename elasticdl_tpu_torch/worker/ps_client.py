@@ -32,10 +32,19 @@ rather than the process. The wire is the port's sockets, not the
 reference's gRPC: the packages' workers and shards do not dial each
 other.
 
-Not ported, raising ``NotImplementedError`` by name: the hot-row cache
-(``hot_row_cache_rows`` > 0, ``cache=``; ROADMAP A4) and the
-shared-memory channel (``shm="on"``; A6). ``shm="auto"`` keeps the
-socket path, as the reference does where no ring can be negotiated.
+**The hot-row cache.** ``hot_row_cache_rows`` > 0 (or a ``cache=`` the
+caller owns) puts a ``nn/comm_plane.HotRowCache`` in front of the rows'
+fan-out: each distinct id is probed once, only the misses cross the
+wire (a shard all of whose ids hit is skipped), and the pulled rows go
+in tagged with the reply's version. Pull and push replies note each
+shard's newest version, which ages the entries; an entry more than
+``staleness_window`` versions behind is a miss. A relaunched shard's
+entries are dropped in the reconnect protocol, its clock set to the
+restored version.
+
+Not ported, raising ``NotImplementedError`` by name: the shared-memory
+channel (``shm="on"``; A6). ``shm="auto"`` keeps the socket path, as
+the reference does where no ring can be negotiated.
 """
 
 import threading
@@ -51,6 +60,7 @@ from elasticdl_tpu_torch.common.hash_utils import (
 )
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
 from elasticdl_tpu_torch.common.tensor import Tensor, combine_indexed_slices
+from elasticdl_tpu_torch.nn.comm_plane import HotRowCache
 from elasticdl_tpu_torch.rpc.wire_compression import (
     compress_tensors,
     decompress_tensors,
@@ -70,6 +80,7 @@ class PSClient:
         ps_stubs,
         wire_dtype="",
         hot_row_cache_rows=0,
+        staleness_window=1,
         fanout=True,
         push_inflight=0,
         cache=None,
@@ -77,11 +88,11 @@ class PSClient:
     ):
         """``ps_stubs``: one object per shard with the PS dict methods
         (``BoundPS``, or an in-process ``PserverServicer``)."""
-        if hot_row_cache_rows > 0 or cache is not None:
-            raise NotImplementedError(
-                "the PS client's hot-row cache (HotRowCache, "
-                "--hot_row_cache_rows) is not ported yet (ROADMAP A4)"
-            )
+        self._cache = cache if cache is not None else (
+            HotRowCache(hot_row_cache_rows, staleness_window)
+            if hot_row_cache_rows > 0
+            else None
+        )
         self._ps = list(ps_stubs)
         self._wire_dtype = wire_dtype
         self._fanout_enabled = bool(fanout)
@@ -108,6 +119,11 @@ class PSClient:
     @property
     def num_ps(self):
         return len(self._ps)
+
+    @property
+    def hot_row_cache(self):
+        """The ``HotRowCache`` (None without one): its counters."""
+        return self._cache
 
     @property
     def shard_epochs(self):
@@ -146,6 +162,8 @@ class PSClient:
                     (shard, prev, epoch, version, time.time())
                 )
         if changed:
+            if self._cache is not None:
+                self._cache.invalidate_shard(shard, version=version)
             logger.warning(
                 "PS shard %s relaunched (epoch %s -> %s) at version %s; "
                 "the in-flight push window is abandoned",
@@ -302,6 +320,8 @@ class PSClient:
                 ready = False
                 continue
             versions.append(resp["version"])
+            if self._cache is not None:
+                self._cache.note_version(shard, resp["version"])
             for t in decompress_tensors(
                 resp.get("params", []), resp.get("compressed_f32")
             ):
@@ -374,6 +394,9 @@ class PSClient:
                 resp["version"] if out_version is None
                 else min(out_version, resp["version"])
             )
+            if self._cache is not None:
+                # the apply this push made ages the cached rows it wrote
+                self._cache.note_version(shard, resp["version"])
         return accepted, (-1 if out_version is None else out_version)
 
     def _reap_push(self, entry):
@@ -412,7 +435,8 @@ class PSClient:
 
     def pull_embedding_vectors_multi(self, ids_by_name):
         """``{table: ids} -> {table: rows}`` in one fan-out round over
-        every (table, shard) leg, rows in the ids' order."""
+        every (table, shard) leg, rows in the ids' order; the cache's
+        hits stay off the wire."""
         self._service_reinit()
         state, calls = {}, []
         for name, ids in ids_by_name.items():
@@ -423,9 +447,29 @@ class PSClient:
                 st["out"] = np.zeros((0, 0), np.float32)
                 continue
             shard_ids = ids % self.num_ps
-            for shard in np.unique(shard_ids):
+            hit = np.zeros(ids.shape, dtype=bool)
+            if self._cache is not None:
+                uniq, inverse = np.unique(ids, return_inverse=True)
+                inverse = inverse.reshape(-1)
+                uniq_rows = self._cache.get_rows(name, uniq)
+                uniq_hit = np.fromiter(
+                    (r is not None for r in uniq_rows), dtype=bool,
+                    count=len(uniq_rows),
+                )
+                hit = uniq_hit[inverse]
+                if uniq_hit.any():
+                    hit_rows = np.stack(
+                        [r for r in uniq_rows if r is not None]
+                    )
+                    st["out"] = np.empty(
+                        (len(ids), hit_rows.shape[1]), np.float32
+                    )
+                    # each hitting unique id's row in hit_rows
+                    to_hit = np.cumsum(uniq_hit) - 1
+                    st["out"][hit] = hit_rows[to_hit[inverse[hit]]]
+            for shard in np.unique(shard_ids[~hit]):
                 shard = int(shard)
-                positions = np.nonzero(shard_ids == shard)[0]
+                positions = np.nonzero((shard_ids == shard) & ~hit)[0]
                 st["positions"][shard] = positions
                 req = {"name": name, "ids": ids[positions]}
                 calls.append((
@@ -449,6 +493,12 @@ class PSClient:
                 st["out"] = np.empty((len(st["ids"]), got.shape[1]),
                                      np.float32)
             st["out"][positions] = got
+            if self._cache is not None:
+                version = resp.get("version")
+                self._cache.note_version(shard, version)
+                self._cache.put_rows(
+                    name, st["ids"][positions], shard, version, got
+                )
         return {name: st["out"] for name, st in state.items()}
 
 

@@ -249,7 +249,8 @@ class Worker:
         self._timer = None
         # JSON lines under EDL_WORKER_TIMELINE_DIR: start, each accepted
         # step with its split, each failed minibatch, each re-push, and
-        # the end with the input plane's counters and the card's peak;
+        # the end with the input plane's counters, the card's peak and
+        # the hot-row cache's counters;
         # start, step and end carry the process's flash launches so far
         self._timeline = _Timeline(worker_id)
         self._task_data_service = TaskDataService(
@@ -961,5 +962,14 @@ class Worker:
                 losses_first_last=losses[:1] + losses[-1:],
                 losses_finite=bool(np.all(np.isfinite(losses))),
                 launches=_flash_launches(),
+                hot_row_cache=self._cache_stats(),
             )
         return losses
+
+    def _cache_stats(self):
+        """The PS client's hot-row cache counters, or None without one."""
+        cache = getattr(self._ps_client, "hot_row_cache", None)
+        if cache is None:
+            return None
+        return {"hits": cache.hits, "misses": cache.misses,
+                "rows": len(cache), "tables": cache.table_stats()}

@@ -529,20 +529,35 @@ def test_the_fleet_job_matches_the_held_job(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize(
-    "flags",
-    [["--ps_device", "true"], ["--ps_warm_rows", "8", "--ps_spill_dir", "d"],
-     ["--ps_telemetry_port", "0"], ["--ps_shm", "on"]],
+    "flags,refused",
+    [(["--ps_device", "true"], False),
+     (["--ps_warm_rows", "8", "--ps_spill_dir", "d"], False),
+     (["--ps_telemetry_port", "0"], True), (["--ps_shm", "on"], True)],
     ids=["ps_device", "tiered", "telemetry", "shm"],
 )
-def test_unported_shard_planes_raise_by_name(flags):
-    from elasticdl_tpu_torch.ps.parameter_server import main
+def test_unported_shard_planes_raise_by_name(flags, refused):
+    """Only the telemetry and shared-memory endpoints are still refused;
+    ``--ps_device`` and the tier flags pass ``refuse_unported_ps_flags``
+    (a shard built from them: tests/test_torch_tiered_store.py)."""
+    from elasticdl_tpu_torch.common.args import parse_ps_args
+    from elasticdl_tpu_torch.ps.parameter_server import (
+        main,
+        refuse_unported_ps_flags,
+    )
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["--ps_id", "0", "--port", "1", "--model_zoo", "",
-              "--model_def", DEEPFM, "--device", "cpu"] + flags)
+    argv = ["--ps_id", "0", "--port", "1", "--model_zoo", "",
+            "--model_def", DEEPFM, "--device", "cpu"] + flags
+    if refused:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            main(argv)
+    else:
+        refuse_unported_ps_flags(parse_ps_args(argv))
 
 
 def test_the_hot_row_cache_raises_in_the_client():
+    """The client's cache is ported: ``--hot_row_cache_rows`` builds it,
+    its window bound to ``--get_model_steps`` by default, as the
+    reference's worker binds it."""
     from elasticdl_tpu_torch.worker.main import make_ps_client
     from elasticdl_tpu_torch.common.args import parse_worker_args
 
@@ -551,8 +566,12 @@ def test_the_hot_row_cache_raises_in_the_client():
         "--ps_addrs", "localhost:1,localhost:2", "--model_zoo", "",
         "--model_def", DEEPFM, "--minibatch_size", "8",
         "--hot_row_cache_rows", "64", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="HotRowCache"):
-        make_ps_client(args)
+    client = make_ps_client(args)
+    try:
+        assert client.hot_row_cache._max_rows == 64
+        assert client.hot_row_cache._window == 1
+    finally:
+        client.close()
 
 
 def test_the_scorer_reads_raise_by_name():

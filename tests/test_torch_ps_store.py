@@ -93,8 +93,14 @@ def test_parameters_store_matches_the_reference():
 
 @pytest.mark.parametrize("kwargs", [dict(device=True),
                                     dict(tier_config={"warm_rows": 4})])
-def test_unported_stores_raise_by_name(kwargs):
-    with pytest.raises(NotImplementedError, match="not ported"):
+def test_unported_stores_raise_by_name(kwargs, monkeypatch):
+    """The device and tiered stores are ported; a store that cannot be
+    built as asked raises, naming what is missing: the arena on a host
+    without a card (no fallback to the host store), a tier without its
+    spill directory."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises((RuntimeError, ValueError),
+                       match="CUDA" if "device" in kwargs else "spill_dir"):
         Parameters(**kwargs)
 
 
