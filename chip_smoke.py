@@ -150,7 +150,24 @@ Phases, each printing JSON lines; any failure exits non-zero:
    bfloat16`` (within 2e-2 of F1). No flash kernel launches
    (``launches_by_path.ps_fleet`` = 0, this process's and the worker
    processes').
-11. elastic — the multi-process elastic ALLREDUCE job through the port's
+11. ps_tiers — the three tiers of embedding-row residence on the fleet:
+   F1's job (sync DeepFM b1024, two shard processes, one deterministic
+   worker process) on 16,384 records of 10 ids drawn with weights
+   1 / rank^1.05 from 262,144 ids permuted out of 1,048,576 (bench.py's
+   tiered bench at the zoo's vocabulary). Z0 the host store; Z1
+   ``--ps_device`` (one arena per table on the card), bitwise Z0; Z2
+   ``--ps_device --ps_warm_rows 4096 --ps_spill_dir``, bitwise Z0, the
+   disk tier used (summed ``ps_status`` ``tiered``: rows spilled and
+   pulled back cold), each shard holding at least 4 x 4,096 distinct ids
+   (counted from the written data); Z3 the host store with the worker's
+   hot-row cache (65,536 rows, a window of one version): hits, and
+   within (0, 5e-2] relative L2 of Z0 (a cache that never hits trains
+   bitwise and fails). Each run's examples/s, step split, each shard's
+   dense and sparse apply, peak and tier counters, the cache's hits,
+   misses and hit rate. Then an arena on the card restored into a host
+   table and back, bitwise. No flash kernel launches
+   (``launches_by_path.ps_tiers`` = 0).
+12. elastic — the multi-process elastic ALLREDUCE job through the port's
    command line with ``--num_workers 2``: the master in this process,
    two worker processes sharing the card in one process world (gloo:
    NCCL refuses two ranks on one device; on a host with a card for each
@@ -195,13 +212,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
    report their flash launches, by run (``launches_by_path`` ``elastic``
    for A and B, ``elastic_master_kill``, ``elastic_standby`` and
    ``elastic_eval``, each 0).
-12. summary — the kernels line, the card line, then the result line.
+13. summary — the kernels line, the card line, then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
-non-zero and prints no result. ``--elastic-only`` runs phases 1 and 11
+non-zero and prints no result. ``--elastic-only`` runs phases 1 and 12
 alone, ``--zoo-only`` phases 1 and 8, ``--ps-only`` phases 1 and 9,
-``--ps-fleet-only`` phases 1 and 10, and none of them prints the result
-line.
+``--ps-fleet-only`` phases 1 and 10, ``--ps-tiers-only`` phases 1 and
+11, and none of them prints the result line.
 """
 
 import argparse
@@ -4812,6 +4829,256 @@ def _ps_fleet_only(torch):
 
 
 # ---------------------------------------------------------------------------
+# ps_tiers: the three tiers of row residence on the fleet, on zipf ids
+# ---------------------------------------------------------------------------
+
+Z_RECORDS = PS_RECORDS  # one epoch of b1024 steps
+Z_POOL = 1 << 18  # the ids drawn, permuted out of ZOO_VOCAB
+Z_ZIPF = 1.05  # each id's weight 1 / rank^Z_ZIPF (bench.py's tiered bench)
+Z_WARM_ROWS = 4096  # Z2's --ps_warm_rows, per table and shard
+Z_WARM_FACTOR = 4  # distinct ids per shard and table >= this x warm rows
+Z_CACHE = (65536, 1)  # Z3's --hot_row_cache_rows, --hot_row_staleness_window
+Z_CACHE_TOL = 5e-2  # Z3 against Z0, relative L2: (0, this]
+Z_ROUND_TRIP_DIM = 64  # the arena round trip: DeepFM's embedding width
+
+
+def _zipf_ids(n, seed):
+    """``n`` records of 10 ids drawn with weights 1 / rank^Z_ZIPF from
+    Z_POOL ids permuted out of ZOO_VOCAB, and their 0/1 labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pool = rng.permutation(ZOO_VOCAB)[:Z_POOL]
+    weights = 1.0 / np.arange(1, Z_POOL + 1) ** Z_ZIPF
+    ids = pool[rng.choice(Z_POOL, size=(n, 10), p=weights / weights.sum())]
+    return ids.astype(np.int64), rng.integers(0, 2, n)
+
+
+def _z_cache(events):
+    """The workers' hot-row cache counters (their end events)."""
+    caches = [e["hot_row_cache"] for e in _end_events(events)
+              if e.get("hot_row_cache")]
+    if not caches:
+        return None
+    hits = sum(c["hits"] for c in caches)
+    misses = sum(c["misses"] for c in caches)
+    return {"hits": hits, "misses": misses,
+            "hit_rate": hits / (hits + misses) if hits + misses else None,
+            "rows": sum(c["rows"] for c in caches),
+            "tables": [c["tables"] for c in caches]}
+
+
+def _z_run(torch, tmp, card, name, seen, ps=(), worker=()):
+    """One Z run: the sync DeepFM job on the zipf data across two shards,
+    one deterministic worker process. Returns (record, problems, the
+    fleet's final state)."""
+    data = os.path.join(tmp, "z-data")
+    fleet = _Fleet(tmp, name, PS_DEEPFM, data, PS_BATCH,
+                   job=["--grads_to_wait", "1"],
+                   ps=["--grads_to_wait", "1"] + list(ps),
+                   worker=list(worker), deterministic=True)
+    ids = {"embedding": seen, "id_bias": seen}
+    raw = fleet.run(inspect=lambda f: _fleet_state(f, ids))
+    state = raw["inspect"]
+    steps = Z_RECORDS // PS_BATCH
+    events = raw["events"]
+    ends = _end_events(events)
+    problems = []
+    if raw["exit_codes"] != {"0": 0} or raw["master_exit_codes"] != [0]:
+        problems.append("%s exits %s, master %s" % (
+            name, raw["exit_codes"], raw["master_exit_codes"]))
+    if raw["journal"]["done"] != steps // 2 or raw["journal"]["pending"]:
+        problems.append("%s journal %s" % (name, raw["journal"]))
+    if not state["ready"] or state["version"] != steps:
+        problems.append("%s fleet version %s" % (name, state["version"]))
+    if len(_fleet_steps(events)) != steps or not ends or not all(
+            e["losses_finite"] for e in ends):
+        problems.append("%s steps %d, ends %s" % (
+            name, len(_fleet_steps(events)), ends))
+    for key, (before, after, mine) in state["placement"].items():
+        if not before == after == mine:
+            problems.append("%s shard rows %s: %s before, %s after, %d "
+                            "with id %% %d" % (name, key, before, after,
+                                               mine, FLEET_SHARDS))
+    tiered = [s.get("tiered") for s in state["statuses"]]
+    rec = {
+        "phase": "ps_tiers", "of": name, "card": card,
+        "model": "deepfm_edl_embedding", "batch": PS_BATCH,
+        "records": Z_RECORDS, "shards": FLEET_SHARDS,
+        "ps_flags": list(ps), "worker_flags": list(worker),
+        "version": state["version"], "job_s": raw["job_s"],
+        "examples_per_s": _fleet_examples_per_s(events, PS_BATCH),
+        "step_split": _fleet_split(events),
+        "step_ms_median": _median(
+            [(b["t"] - a["t"]) * 1e3 for a, b in zip(
+                _fleet_steps(events), _fleet_steps(events)[1:])]),
+        "shards_state": [_shard_record(s) for s in state["statuses"]],
+        "tiered": tiered if any(tiered) else None,
+        "hot_row_cache": _z_cache(events),
+        "worker_peak_mib": [e.get("peak_mib") for e in ends],
+        "journal": raw["journal"], "ps_exit_codes": raw["ps_exit_codes"],
+        "losses_first_last": [e.get("losses_first_last") for e in ends],
+    }
+    rec["worker_flash_launches"] = _worker_launches(events, problems)
+    if any(rec["worker_flash_launches"].values()):
+        problems.append("%s launched flash kernels: %s" % (
+            name, rec["worker_flash_launches"]))
+    return rec, problems, state
+
+
+def _z_grouped_rel(state, base):
+    """Relative L2 of the dense parameters taken together, and of each
+    table's touched rows, against ``base`` (a zero-initialized bias alone
+    moves so little in 16 steps that its own ratio says nothing)."""
+    import numpy as np
+
+    names = sorted(base["dense"])
+    out = {"dense": _np_rel(
+        np.concatenate([np.ravel(state["dense"][k]) for k in names]),
+        np.concatenate([np.ravel(base["dense"][k]) for k in names]))}
+    for table, rows in base["rows"].items():
+        out["rows:" + table] = _np_rel(state["rows"][table], rows)
+    return out
+
+
+def _z_round_trip(torch, ids):
+    """An arena on the card: its snapshot restored into a host table and
+    the host table's into a fresh arena, bitwise, rows minted after each
+    restore included."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.ps.device_store import DeviceEmbeddingTable
+    from elasticdl_tpu_torch.ps.embedding_table import EmbeddingTable
+
+    rng = np.random.default_rng(SEED + 52)
+    dim = Z_ROUND_TRIP_DIM
+    arena = DeviceEmbeddingTable("embedding", dim, "uniform", device=DEVICE)
+    arena.get(ids)
+    written = ids[: len(ids) // 4]
+    arena.set(written, rng.normal(size=(len(written), dim)).astype(
+        np.float32))
+    arena.evict_rows(ids[-len(ids) // 8:])  # slots on the free list
+    host = EmbeddingTable("embedding", dim, "uniform")
+    host.load_snapshot(*arena.snapshot())
+    back = DeviceEmbeddingTable("embedding", dim, "uniform", device=DEVICE)
+    back.load_snapshot(*host.snapshot())
+    probe = np.concatenate([ids, rng.integers(0, ZOO_VOCAB, 512)])
+    want = arena.get(probe)
+    rec = {"phase": "ps_tiers", "of": "arena_round_trip", "rows": len(ids),
+           "dim": dim, "arena_rows": arena.capacity,
+           "arena_to_host_bitwise": bool(np.array_equal(host.get(probe),
+                                                        want)),
+           "host_to_arena_bitwise": bool(np.array_equal(back.get(probe),
+                                                        want))}
+    bad = [] if rec["arena_to_host_bitwise"] and rec[
+        "host_to_arena_bitwise"] else ["the arena round trip: %s" % rec]
+    return rec, bad
+
+
+def _write_z_data(tmp):
+    """Z's records, and each shard's distinct ids (one set for both
+    tables: DeepFM looks every feature id up in both)."""
+    import numpy as np
+
+    ids, labels = _zipf_ids(Z_RECORDS, SEED + 50)
+    _write_frappe(os.path.join(tmp, "z-data"), ids, labels)
+    seen = np.unique(ids)
+    return seen, [int((seen % FLEET_SHARDS == s).sum())
+                  for s in range(FLEET_SHARDS)]
+
+
+def phase_ps_tiers(torch, tmp, card):
+    """The three tiers of row residence on the fleet, DeepFM on zipf ids:
+    Z0 the host store, Z1 ``--ps_device``, Z2 ``--ps_device`` tiered
+    (``--ps_warm_rows --ps_spill_dir``), Z3 the host store with the
+    worker's hot-row cache; Z1 and Z2 bitwise against Z0, Z3 within
+    Z_CACHE_TOL of it and not bitwise; an arena's snapshot round trip
+    through a host table. Returns the flash kernels' launches over the
+    phase (none)."""
+    t0 = time.perf_counter()
+    seen, per_shard = _write_z_data(tmp)
+    problems = []
+    worker_launches = {k: 0 for k in KERNELS}
+    _reset_counters()
+    spill = os.path.join(tmp, "z-spill")
+    runs = (
+        ("z0", (), ()),
+        ("z1", ("--ps_device", "true"), ()),
+        ("z2", ("--ps_device", "true", "--ps_warm_rows", str(Z_WARM_ROWS),
+                "--ps_spill_dir", spill), ()),
+        ("z3", (), ("--hot_row_cache_rows", str(Z_CACHE[0]),
+                    "--hot_row_staleness_window", str(Z_CACHE[1]))),
+    )
+    base = None
+    for name, ps, worker in runs:
+        rec, bad, state = _z_run(torch, tmp, card, name, seen, ps, worker)
+        if base is None:
+            base = state
+        else:
+            rel, bitwise = _compare(state, base["dense"], base["rows"])
+            rec["against_z0"] = {"rel_l2_max": max(rel.values()),
+                                 "bitwise": bitwise}
+            if name in ("z1", "z2") and not bitwise:
+                bad.append("%s is not bitwise Z0: %s" % (name, rel))
+            if name == "z3":
+                cache = rec["hot_row_cache"] or {}
+                if not cache.get("hits"):
+                    bad.append("z3's cache never hit: %s" % cache)
+                grouped = _z_grouped_rel(state, base)
+                rec["against_z0"].update(per_tensor=rel, grouped=grouped,
+                                         tolerance=Z_CACHE_TOL)
+                if not all(0.0 < v <= Z_CACHE_TOL for v in grouped.values()):
+                    bad.append("z3 against z0 %s, not in (0, %g]" % (
+                        grouped, Z_CACHE_TOL))
+        if name == "z2":
+            summed = {}
+            for shard in rec["tiered"] or ():
+                for k, v in (shard or {}).items():
+                    summed[k] = summed.get(k, 0) + v
+            rec["tiered_summed"] = summed
+            rec["distinct_ids_per_shard"] = per_shard
+            rec["warm_rows"] = Z_WARM_ROWS
+            if not (summed.get("spilled_rows", 0) > 0
+                    and summed.get("cold_pull_rows", 0) > 0):
+                bad.append("z2's disk tier went unused: %s" % summed)
+            if min(per_shard) < Z_WARM_FACTOR * Z_WARM_ROWS:
+                bad.append("z2's shards hold %s distinct ids, under %d x "
+                           "%d" % (per_shard, Z_WARM_FACTOR, Z_WARM_ROWS))
+        emit(rec)
+        problems += bad
+        for k, n in rec["worker_flash_launches"].items():
+            worker_launches[k] += n
+        torch.cuda.empty_cache()
+    rec, bad = _z_round_trip(torch, seen[: min(len(seen), 16384)])
+    emit(rec)
+    problems += bad
+    counts = {k: (n + worker_launches[k], shapes)
+              for k, (n, shapes) in _counts().items()}
+    emit({"phase": "ps_tiers", "of": "summary", "seconds":
+          time.perf_counter() - t0, "flash_launches":
+          {k: n for k, (n, _) in counts.items()}})
+    if problems:
+        raise PhaseError("ps_tiers: " + "; ".join(problems))
+    return counts
+
+
+def _ps_tiers_only(torch):
+    try:
+        card = phase_device(torch)
+        with tempfile.TemporaryDirectory() as tmp:
+            counts = phase_ps_tiers(torch, tmp, card)
+        _check_counts(counts, {k: 0 for k in KERNELS}, "the ps_tiers phase")
+    except Exception as err:  # noqa: BLE001 — reported, exit non-zero
+        import traceback
+
+        traceback.print_exc()
+        print("chip_smoke: FAILED: %s" % err, file=sys.stderr)
+        return 1
+    print(card)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # elastic: the multi-process ALLREDUCE job, two worker processes on one card
 # ---------------------------------------------------------------------------
 
@@ -5786,6 +6053,12 @@ def main(argv=None):
         help="drive only the ps_fleet phase and print its records, not "
         "the result line",
     )
+    parser.add_argument(
+        "--ps-tiers-only",
+        action="store_true",
+        help="drive only the ps_tiers phase and print its records, not "
+        "the result line",
+    )
     args = parser.parse_args(argv)
     try:
         import torch
@@ -5812,6 +6085,8 @@ def main(argv=None):
         return _ps_only(torch)
     if args.ps_fleet_only:
         return _ps_fleet_only(torch)
+    if args.ps_tiers_only:
+        return _ps_tiers_only(torch)
 
     try:
         card = phase_device(torch)
@@ -5836,6 +6111,9 @@ def main(argv=None):
             ps_fleet = phase_ps_fleet(torch, tmp, card)
             _check_counts(ps_fleet, {k: 0 for k in KERNELS},
                           "the ps_fleet phase")
+            ps_tiers = phase_ps_tiers(torch, tmp, card)
+            _check_counts(ps_tiers, {k: 0 for k in KERNELS},
+                          "the ps_tiers phase")
             _reset_counters()
             elastic, _ = phase_elastic(torch, tmp, job_rec, card)
             # launched in the workers (which report theirs, by run) or
@@ -5851,7 +6129,7 @@ def main(argv=None):
             records,
             dict({"serve": served, "train": trained, "job": job,
                   "eval": evaluated, "zoo": zoo, "ps": ps,
-                  "ps_fleet": ps_fleet}, **elastic),
+                  "ps_fleet": ps_fleet, "ps_tiers": ps_tiers}, **elastic),
         )
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback
