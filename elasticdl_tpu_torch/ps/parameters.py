@@ -42,7 +42,7 @@ from elasticdl_tpu_torch.ps.embedding_table import (
 def _host(value):
     """A float32 ndarray copy of a dense parameter, host or device."""
     if isinstance(value, torch.Tensor):
-        return value.detach().to("cpu", torch.float32).numpy().copy()
+        return value.detach().to("cpu", torch.float32, copy=True).numpy()
     return np.array(value, dtype=np.float32)
 
 
