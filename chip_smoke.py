@@ -4096,9 +4096,10 @@ class _Fleet:
         m = self.manager
         out = {}
         try:
+            # the shards need no master: both boot at once
             m.start_master()
-            _until(lambda: _master_probe(self.master_port), "the master")
             m.start_all_ps()
+            _until(lambda: _master_probe(self.master_port), "the master")
             for i in range(self.shards):
                 _until(lambda i=i: self.status(i, 2.0), "shard %d" % i)
             t0 = time.time()
