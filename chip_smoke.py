@@ -4880,6 +4880,54 @@ def _z_cache(events):
             "tables": [c["tables"] for c in caches]}
 
 
+def _dispatched_ranges(journal_dir):
+    """The record ranges of the tasks the master handed out, in the order
+    its journal's dispatch records give."""
+    import glob
+
+    out = []
+    for path in sorted(glob.glob(os.path.join(journal_dir, "seg-*.jsonl"))):
+        with open(path) as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec.get("k") == "dispatch":
+                    out.append(tuple(rec["key"][3:5]))
+    return out
+
+
+def _z_cache_recount(ids, ranges, batch, tables, max_rows, window):
+    """The hits and misses per table that a correct hot-row cache scores
+    on one sync worker's stream, counted from the written ids: the
+    batches in dispatch order, each table probed once a step with the
+    batch's distinct ids. At step s every shard's newest version is s
+    (one apply a step), so a row pulled at step p serves at step s while
+    p >= s - window, and a miss pulls it afresh. None where the LRU could
+    evict a row that still serves (``max_rows`` under the distinct ids
+    of window + 1 steps, all tables): then the count depends on its
+    order."""
+    import numpy as np
+
+    pulled = {}  # id -> the step it was last pulled at
+    hits = misses = 0
+    sizes = []
+    for start, end in ranges:
+        for b in range(start, end, batch):
+            s = len(sizes)
+            uniq = np.unique(ids[b:min(b + batch, end)])
+            sizes.append(len(uniq))
+            if len(tables) * sum(sizes[-window - 1:]) > max_rows:
+                return None
+            for i in uniq.tolist():
+                p = pulled.get(i)
+                if p is not None and p >= s - window:
+                    hits += 1
+                else:
+                    misses += 1
+                    pulled[i] = s
+    # every table is looked up with the same feature ids
+    return {t: {"hits": hits, "misses": misses} for t in tables}
+
+
 def _z_run(torch, tmp, card, name, seen, ps=(), worker=()):
     """One Z run: the sync DeepFM job on the zipf data across two shards,
     one worker process with torch's deterministic algorithms. Returns
@@ -4931,6 +4979,7 @@ def _z_run(torch, tmp, card, name, seen, ps=(), worker=()):
         "worker_peak_mib": [e.get("peak_mib") for e in ends],
         "journal": raw["journal"], "ps_exit_codes": raw["ps_exit_codes"],
         "losses_first_last": [e.get("losses_first_last") for e in ends],
+        "dispatched": _dispatched_ranges(fleet.journal),
     }
     rec["worker_flash_launches"] = _worker_launches(events, problems)
     if any(rec["worker_flash_launches"].values()):
@@ -4996,8 +5045,8 @@ def _write_z_data(tmp):
     ids, labels = _zipf_ids(Z_RECORDS, SEED + 50)
     _write_frappe(os.path.join(tmp, "z-data"), ids, labels)
     seen = np.unique(ids)
-    return seen, [int((seen % FLEET_SHARDS == s).sum())
-                  for s in range(FLEET_SHARDS)]
+    return ids, seen, [int((seen % FLEET_SHARDS == s).sum())
+                       for s in range(FLEET_SHARDS)]
 
 
 def phase_ps_tiers(torch, tmp, card):
@@ -5005,11 +5054,12 @@ def phase_ps_tiers(torch, tmp, card):
     Z0 the host store, Z1 ``--ps_device``, Z2 ``--ps_device`` tiered
     (``--ps_warm_rows --ps_spill_dir``), Z3 the host store with the
     worker's hot-row cache; Z1 and Z2 bitwise against Z0, Z3 within
-    Z_CACHE_TOL of it and not bitwise; an arena's snapshot round trip
+    Z_CACHE_TOL of it and not bitwise, its cache's hits and misses those
+    recounted from the written ids; an arena's snapshot round trip
     through a host table. Returns the flash kernels' launches over the
     phase (none)."""
     t0 = time.perf_counter()
-    seen, per_shard = _write_z_data(tmp)
+    ids, seen, per_shard = _write_z_data(tmp)
     problems = []
     worker_launches = {k: 0 for k in KERNELS}
     _reset_counters()
@@ -5037,6 +5087,18 @@ def phase_ps_tiers(torch, tmp, card):
                 cache = rec["hot_row_cache"] or {}
                 if not cache.get("hits"):
                     bad.append("z3's cache never hit: %s" % cache)
+                # a cache that served rows past its window, or dropped
+                # rows inside it, scores other counts than these
+                want = _z_cache_recount(
+                    ids, rec["dispatched"], PS_BATCH, ("embedding",
+                                                       "id_bias"), *Z_CACHE)
+                got = {t: {k: st[k] for k in ("hits", "misses")}
+                       for tables in cache.get("tables", ())
+                       for t, st in tables.items()}
+                rec["hot_row_cache"]["recounted"] = want
+                if want is None or got != want:
+                    bad.append("z3's cache counted %s, the written ids give "
+                               "%s" % (got, want))
                 grouped = _z_grouped_rel(state, base)
                 rec["against_z0"].update(per_tensor=rel, grouped=grouped,
                                          tolerance=Z_CACHE_TOL)

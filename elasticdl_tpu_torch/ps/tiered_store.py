@@ -27,7 +27,7 @@ one of three tiers::
   SIGKILL anywhere in a demotion loses no row.
 - **Victims** are the oldest-touched warm rows, leaving out the rows a
   read holds, the rows of the apply in flight, and the rows the last
-  ``pin_versions`` versions applied to (:meth:`note_applied`, which the
+  ``_PIN_VERSIONS`` versions applied to (:meth:`note_applied`, which the
   shard's servicer calls on every apply). The warm hit rate sets the
   depth: a table that almost never misses is demoted to 90 % of its
   budget, one that misses only down to the budget.
@@ -66,6 +66,8 @@ from elasticdl_tpu_torch.ps.snapshot import (
 # at most this many rows a segment: bounded files, a short window between
 # the capture and the eviction
 _SPILL_BATCH = 4096
+# the rows the last this many applied versions wrote are never victims
+_PIN_VERSIONS = 2
 # a table whose warm hit rate is at least this keeps _SLACK of its budget
 _SLACK_HIT_RATE = 0.98
 _SLACK = 0.9
@@ -80,22 +82,19 @@ class TieredEmbeddingTable:
 
     ``inner``: the warm store (with ``missing_ids``/``evict_rows``);
     ``spill_dir``: this table's segment directory; ``warm_rows``: the
-    warm budget in rows. ``reattach`` indexes the sealed segments found
-    in ``spill_dir``.
+    warm budget in rows. The sealed segments already in ``spill_dir``
+    are re-attached.
 
     Lock order: the tier lock ``_mu`` before the inner table's. No disk
     IO runs under ``_mu``.
     """
 
-    def __init__(
-        self, inner, spill_dir, warm_rows, pin_versions=2, reattach=True
-    ):
+    def __init__(self, inner, spill_dir, warm_rows):
         if warm_rows <= 0:
             raise ValueError("warm_rows must be positive")
         self._inner = inner
         self._dir = spill_dir
         self._warm_rows = int(warm_rows)
-        self._pin_versions = max(0, int(pin_versions))
         self._mu = threading.Lock()
         self._ticks = {}  # warm id -> last touch
         self._tick = 0
@@ -113,8 +112,7 @@ class TieredEmbeddingTable:
         self._promoted_rows = 0
         self._warm_hit_rows = 0
         os.makedirs(self._dir, exist_ok=True)
-        if reattach:
-            self._reattach()
+        self._reattach()
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._thread = threading.Thread(
@@ -146,9 +144,6 @@ class TieredEmbeddingTable:
         """Every row the table holds, warm or on disk."""
         with self._mu:
             return len(self._inner) + len(self._disk)
-
-    def warm_len(self):
-        return len(self._inner)
 
     # -- re-attach ------------------------------------------------------------
 
@@ -420,13 +415,13 @@ class TieredEmbeddingTable:
 
     def note_applied(self, ids, version):
         """An apply of ``version`` wrote these rows: touch them and pin
-        them against demotion for ``pin_versions`` versions."""
+        them against demotion for ``_PIN_VERSIONS`` versions."""
         uniq = set(_id_list(ids))
         version = int(version)
         with self._mu:
             self._touch_locked(uniq)
             self._applied.append((version, uniq))
-            floor = version - self._pin_versions
+            floor = version - _PIN_VERSIONS
             while self._applied and self._applied[0][0] < floor:
                 self._applied.popleft()
 

@@ -99,7 +99,7 @@ def test_spill_then_cold_pull_roundtrip(tmp_path, kind):
     _drain(t)
     s = t.stats()
     assert s["spilled_rows"] > 0 and s["spill_segments"] > 0
-    assert t.warm_len() <= 8 and len(t) == 32
+    assert t.stats()["warm_rows"] <= 8 and len(t) == 32
     warm = _warm_ids(t)
     assert not warm & set(t._disk) and set(t._ticks) == warm
     np.testing.assert_array_equal(t.get(ids), rows)
@@ -288,7 +288,7 @@ def test_failed_segment_write_keeps_rows_warm(tmp_path, monkeypatch):
 
     monkeypatch.setattr(ts, "write_shard_snapshot", boom)
     assert t._demote_once() == 0
-    assert t.warm_len() == 6 and t.stats()["disk_rows"] == 0
+    assert t.stats()["warm_rows"] == 6 and t.stats()["disk_rows"] == 0
     np.testing.assert_array_equal(t.get(ids), rows)
 
 
@@ -326,7 +326,7 @@ def test_note_applied_pins_recent_rows_against_demotion(tmp_path):
     assert {0, 1} <= set(t._inner.embedding_vectors)
     assert 0 not in t._disk and 1 not in t._disk
     assert t.stats()["disk_rows"] == 6
-    # the pin ring keeps pin_versions (2) behind the newest note
+    # the pin ring keeps _PIN_VERSIONS (2) behind the newest note
     t.note_applied([0], version=30)
     _drain(t)
     assert 1 in t._disk and 0 not in t._disk
@@ -366,7 +366,7 @@ def test_hit_rate_signal_sets_eviction_depth(tmp_path):
     with t._mu:
         assert t._demote_target_locked() == 9  # no pulls: hit rate 1.0
     _drain(t)
-    assert t.warm_len() == 9
+    assert t.stats()["warm_rows"] == 9
     t.get(sorted(t._disk))
     _drain(t)
     while True:
@@ -451,7 +451,7 @@ def test_close_stops_the_demoter(tmp_path):
     t.close()  # a second close is a no-op
     _fill(t, 6)  # the table still serves, without spilling
     time.sleep(0.05)
-    assert t.stats()["spilled_rows"] == 0 and t.warm_len() == 6
+    assert t.stats()["spilled_rows"] == 0 and t.stats()["warm_rows"] == 6
 
 
 def test_the_background_demoter_spills_the_overflow(tmp_path):
@@ -462,7 +462,7 @@ def test_the_background_demoter_spills_the_overflow(tmp_path):
         while t.stats()["disk_rows"] == 0 and time.time() < deadline:
             t.signal_pressure()
             time.sleep(0.02)
-        assert t.stats()["disk_rows"] > 0 and t.warm_len() <= 4
+        assert t.stats()["disk_rows"] > 0 and t.stats()["warm_rows"] <= 4
         np.testing.assert_array_equal(t.get(ids), rows)
     finally:
         t.close()
