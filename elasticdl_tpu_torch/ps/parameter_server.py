@@ -6,7 +6,9 @@ restores the newest snapshot of its shard directory before it serves
 transport (``rpc/socket_transport.py``) at ``--port``: a relaunch with
 the same id binds the same address, so the workers dial it again. The
 shard's applies run on ``--device`` (``cuda`` by default; raises without
-a card). SIGTERM drains: one final snapshot, then exit 75, which the
+a card); once it serves, a background thread runs one scratch step of
+the optimizer there, so the first apply does not pay for the device's
+context and torch's lazy imports. SIGTERM drains: one final snapshot, then exit 75, which the
 instance manager relaunches without spending its crash budget.
 
 ``--ps_device`` keeps the store on ``--device`` (``ps/device_store.py``);
@@ -78,6 +80,7 @@ class ParameterServer:
         self._args = args
         self._server = None
         self._draining = threading.Event()
+        self._warm_thread = None
         self.device = resolve_device(getattr(args, "device", "cuda"))
         module = load_zoo_module(args.model_def, args.model_zoo)
         optimizer = getattr(module, args.optimizer, None)
@@ -107,10 +110,11 @@ class ParameterServer:
         self.restored_version = self.snapshotter.restore_into(
             self.parameters
         )
+        self._optimizer = optimizer()
         self.servicer = PserverServicer(
             self.parameters,
             args.grads_to_wait,
-            optimizer(),
+            self._optimizer,
             self.device,
             lr_staleness_modulation=args.lr_staleness_modulation,
             use_async=args.use_async,
@@ -150,6 +154,26 @@ class ParameterServer:
                 else ""
             ),
         )
+        # the first apply would pay for the device's context and torch's
+        # lazy imports (seconds): they are paid here while the workers boot
+        self._warm_thread = threading.Thread(
+            target=self._warm, name="ps-warm", daemon=True
+        )
+        self._warm_thread.start()
+
+    def _warm(self):
+        """One zero-gradient step of the optimizer on a scratch row of
+        the device; the store is not touched."""
+        import torch
+
+        from elasticdl_tpu_torch.ps.optimizer_wrapper import probe_row_state
+
+        try:
+            probe_row_state(self._optimizer, 1, self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        except Exception as err:  # noqa: BLE001 - the first apply raises it
+            logger.warning("warming the shard's device failed: %s", err)
 
     def install_drain_handler(self):
         """SIGTERM: a final snapshot, then exit 75. Installed only by the

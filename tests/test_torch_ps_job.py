@@ -456,6 +456,28 @@ def test_streaming_exports_keep_the_newest_and_score_as_the_model(tmp_path):
     scorer.close()
 
 
+@pytest.mark.parametrize("ps_device", ["false", "true"])
+def test_a_serving_shard_warms_its_optimizer_off_the_store(ps_device):
+    """Once it serves, a shard steps its optimizer once on a scratch row
+    of its device, in the background; the store stays empty."""
+    from elasticdl_tpu_torch.common.args import parse_ps_args
+    from elasticdl_tpu_torch.ps.parameter_server import ParameterServer
+
+    server = ParameterServer(parse_ps_args([
+        "--ps_id", "0", "--port", str(_free_port()), "--model_zoo", "",
+        "--model_def", DEEPFM, "--device", "cpu", "--ps_device", ps_device]))
+    try:
+        server.prepare()
+        server._warm_thread.join(60)
+        assert not server._warm_thread.is_alive()
+        status = server.servicer.ps_status({})
+        assert status["version"] == 0 and not status["initialized"]
+        assert not server.parameters.non_embedding_params
+        assert not server.parameters.embedding_params
+    finally:
+        server.stop()
+
+
 @pytest.mark.parametrize("entry", ["ps_main", "ps_addrs"])
 def test_the_fleet_entry_points_serve(tmp_path, entry):
     """A shard built by ``ps.main``'s flags serves over sockets, and the
