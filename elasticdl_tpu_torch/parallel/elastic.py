@@ -28,7 +28,8 @@ The reference's three problems, and the port's answers:
 One step carries its whole exchange in **one flattened SUM all-reduce**
 (each gradient times ``w``, the loss times ``w``, each float state leaf
 times ``w``, then ``w`` and ``w > 0``) plus one MAX of the members'
-polled membership epochs; the sums are divided by ``max(Σw, 1e-6)``
+polled membership epochs and of whether their task streams are still
+open; the sums are divided by ``max(Σw, 1e-6)``
 afterwards, which equals the reference's scaling of each contribution by
 ``w / Σw``. Integer state leaves keep the rank's own values. With no live
 rank the step changes nothing: no update, no version.
@@ -139,6 +140,8 @@ class ElasticDPTrainer(AllReduceTrainer):
         self.backend = None
         self._last_local = None  # (features, labels) for weight-0 steps
         self.epoch_consensus = None  # newest epoch any member has seen
+        # whether any member's task stream was still open at the step
+        self.pending_consensus = False
         # the worker sets it to a "did one of my peers die?" probe; a
         # collective waiting on a dead peer then gives up
         self.abort_check = None
@@ -361,12 +364,15 @@ class ElasticDPTrainer(AllReduceTrainer):
             ts.params,
         )
 
-    def train_step(self, features, labels, minibatch_size, epoch_hint=0):
+    def train_step(self, features, labels, minibatch_size, epoch_hint=0,
+                   pending=False):
         """One weighted lockstep step; ``features=None`` takes part at
         weight 0 on the previous batch. Returns (loss, live count, this
         process's true rows). ``epoch_hint`` is this process's last
-        polled membership epoch; the step's MAX over the members lands
-        in :attr:`epoch_consensus`, the same value on every rank.
+        polled membership epoch and ``pending`` whether its task stream
+        is still open; the step's MAX over the members lands in
+        :attr:`epoch_consensus` and :attr:`pending_consensus`, the same
+        values on every rank.
 
         Raises :class:`WorldBroken` when a collective fails; the state
         is then as it was before the step."""
@@ -408,7 +414,8 @@ class ElasticDPTrainer(AllReduceTrainer):
             torch.mul(new_state[n].reshape(-1).float(), w, out=part)
         parts[-2].fill_(w)
         parts[-1].fill_(1.0 if w > 0 else 0.0)
-        epoch = self._small([int(epoch_hint)], torch.int64)
+        epoch = self._small([int(epoch_hint), int(bool(pending))],
+                            torch.int64)
         m1 = self._mark()
         if self._spec.num_processes > 1:
             self._wait([
@@ -421,7 +428,8 @@ class ElasticDPTrainer(AllReduceTrainer):
         w_sum, live, loss_sum = tail
         live = int(round(live))
         denom = max(w_sum, 1e-6)
-        self.epoch_consensus = int(epoch.item())
+        self.epoch_consensus, pending = epoch.tolist()
+        self.pending_consensus = bool(pending)
         if live > 0:
             ts.state = dict(new_state)
             for part, n in zip(parts[k + 1:], floats):

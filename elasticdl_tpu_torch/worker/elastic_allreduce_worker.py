@@ -11,9 +11,16 @@ master's membership re-forms at every change::
     loop:
         await the world (the master's get_comm_world)
         establish (join, adopt rank 0's state by broadcast)
-        step until: out of data everywhere | an epoch bump | a broken
-        collective
+        step until: every member's task stream ended | an epoch bump |
+        a broken collective
     finalize (land the checkpoints, export if the SAVE_MODEL task came)
+
+The world ends at one step for every member: each step also carries
+whether this member's task stream is still open (a WAIT from the master
+keeps it open), so a member whose stream ended steps on with no data
+until its peers' streams end too. The reference ends each member on its
+own stream; its first member to end then breaks its peers' next
+collective, and they finish in a world of one.
 
 Every step polls the membership (``awaiting=False``) and hands the
 polled epoch to the step, whose MAX over the members tells every rank at
@@ -93,7 +100,7 @@ mesh=None)``. Both are built from the job's ``--model_params``.
 
 Not ported, each raising ``NotImplementedError``: training sharded,
 pjit and pipelined models on the elastic plane (zoo hooks ``mesh_axes``
-and ``build_distributed_model``, ROADMAP A2.8), with the collective
+and ``build_distributed_model``, ROADMAP A9), with the collective
 evaluation (``_collective_evaluate``) that scores them in a training job,
 and the world-size rounding's spare members (the replicated plane rounds
 to 1).
@@ -220,7 +227,7 @@ class ElasticAllReduceWorker:
                 raise NotImplementedError(
                     "zoo module %s defines %s: the sharded elastic plane "
                     "(a mesh or distributed model) is not ported yet "
-                    "(ROADMAP A2.8)%s" % (
+                    "(ROADMAP A9)%s" % (
                         model_def, hook,
                         ", nor the collective evaluation "
                         "(_collective_evaluate) that scores it"
@@ -1051,12 +1058,12 @@ class ElasticAllReduceWorker:
                 if batch is None:
                     loss, n_active, count = self.trainer.train_step(
                         None, None, self._minibatch_size,
-                        epoch_hint=epoch_hint,
+                        epoch_hint=epoch_hint, pending=not self._drained,
                     )
                 else:
                     loss, n_active, count = self.trainer.train_step(
                         batch[0], batch[1], self._minibatch_size,
-                        epoch_hint=epoch_hint,
+                        epoch_hint=epoch_hint, pending=not self._drained,
                     )
                     losses.append(loss)
             except Exception as err:
@@ -1099,8 +1106,14 @@ class ElasticAllReduceWorker:
                 return self._settle_and_leave("reform")
             self._save_ckpt_if_due(world)
             if n_active == 0:
-                # global quiescence: every rank sees it at the same step
-                if self._drained:
+                # global quiescence: every rank sees it at the same step,
+                # and the world ends at the first such step at which no
+                # member's task stream is open. A rank whose stream ended
+                # steps on with no data while a peer still waits on the
+                # master (the reference ends each rank on its own stream:
+                # the first to end leaves, and its peer's next collective
+                # breaks into a world of one)
+                if not self.trainer.pending_consensus:
                     return "done"
                 time.sleep(0.2)
 

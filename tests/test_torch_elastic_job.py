@@ -90,6 +90,26 @@ LAUNCHER = textwrap.dedent(
         return report(task_id, success, exec_counters)
 
     master.task_d.report = counting
+    if cfg.get("hold_wait"):
+        # one worker is told WAIT, where it would learn the job has no
+        # more tasks, for a few seconds: its peer learns it first
+        from elasticdl_tpu_torch.common.constants import TaskType
+
+        held_id, hold_s = cfg["hold_wait"]
+        servicer = master.master_servicer
+        get_task = servicer.get_task
+        first_held = []
+
+        def holding(worker_id, task_type=None):
+            res = get_task(worker_id, task_type)
+            if (worker_id == held_id and task_type != TaskType.EVALUATION
+                    and not res.shard_name and res.type != TaskType.WAIT):
+                first_held[:] = first_held or [time.time()]
+                if time.time() < first_held[0] + hold_s:
+                    res.type = TaskType.WAIT
+            return res
+
+        servicer.get_task = holding
     acted = None
     if cfg["action"]:
         while (master.master_servicer.get_model_version() < 4
@@ -234,7 +254,8 @@ def _launch(script, cfg):
 
 
 def _run_job(tmp, data_dir, epochs=1, action=None, victim=None,
-             ckpt="ckpt", name="run", extra=(), model_def=MNIST):
+             ckpt="ckpt", name="run", extra=(), model_def=MNIST,
+             hold_wait=None):
     out = os.path.join(tmp, name)
     argv = [
         "train", "--job_name", "elastic", "--distribution_strategy",
@@ -248,7 +269,7 @@ def _run_job(tmp, data_dir, epochs=1, action=None, victim=None,
         "Always", "--device", "cpu", "--log_level", "WARNING",
     ] + list(extra)
     cfg = dict(repo=REPO, argv=argv, action=action, victim=victim,
-               timeline=os.path.join(out, "timeline"))
+               timeline=os.path.join(out, "timeline"), hold_wait=hold_wait)
     result = _launch(LAUNCHER, cfg)
     result["timeline"] = _timeline(cfg["timeline"])
     result["export"] = glob.glob(
@@ -517,6 +538,30 @@ def test_master_sigkill_drill_rides_out_the_outage(tmp_path, data_dir):
         sum(1 for s in _events(tl[w], "step") if s["live"] > 0)
         for w in (0, 1)
     )
+
+
+def test_the_world_ends_together_when_one_worker_waits_longer(tmp_path,
+                                                             data_dir):
+    """Worker 1 is told WAIT for 3 s where it would learn that no task is
+    left, so worker 0 learns it first. The two end at one step, in the
+    world they trained in: worker 0 steps on with no data until worker
+    1's stream ends too. (Were each to end on its own stream, worker 0
+    would leave while worker 1 still stepped: a broken collective and a
+    world of one at the job's end.)"""
+    r = _run_job(str(tmp_path), data_dir, hold_wait=(1, 3.0))
+    _assert_every_task_once(r, 1)
+    assert r["exit_codes"] == {"0": 0, "1": 0}
+    tl = r["timeline"]
+    for w in (0, 1):
+        assert not _events(tl[w], "world_broken"), _events(tl[w],
+                                                            "world_broken")
+        assert _events(tl[w], "established")[-1]["size"] == 2
+    finals = [_final(tl[w]) for w in (0, 1)]
+    assert finals[0]["digest"] == finals[1]["digest"]
+    assert finals[0]["version"] == finals[1]["version"] > 0
+    # both stepped, with no data, through the held seconds
+    idle = [s for s in _events(tl[0], "step") if s["live"] == 0]
+    assert len(idle) >= 5, len(idle)
 
 
 def test_a_warmed_standby_takes_the_dead_workers_place(tmp_path, data_dir):
