@@ -132,9 +132,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    in this call, the worker's step split (``pull_dense``, the rows'
    fan-out, compute with CUDA events, ``push_gradient``, the parse),
    each shard's dense and sparse apply, rows, bytes and peak, the
-   worker's peak. A profiled six-step window of the worker, run in this
-   process against the fleet (the shards' applies run outside the
-   trace). F2: two async workers (``--get_model_steps 2``), shard
+   worker's peak. F2: two async workers (``--get_model_steps 2``), shard
    snapshots every 8 versions, shard 1 SIGKILLed at version 8: the
    relaunch restores ``snap_v8`` or newer under a new ``shard_epoch``,
    every task done once an epoch (the journal), finite losses; kill ->
@@ -154,9 +152,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    F1's job (sync DeepFM b1024, two shard processes, one deterministic
    worker process) on 16,384 records of 10 ids drawn with weights
    1 / rank^1.05 from 262,144 ids permuted out of 1,048,576 (bench.py's
-   tiered bench at the zoo's vocabulary). Z0 the host store; Z1
-   ``--ps_device`` (one arena per table on the card), bitwise Z0; Z2
-   ``--ps_device --ps_warm_rows 4096 --ps_spill_dir``, bitwise Z0, the
+   tiered bench at the zoo's vocabulary). Z0 the host store; Z2
+   ``--ps_device --ps_warm_rows 4096 --ps_spill_dir`` (the disk tier over
+   one arena per table on the card), bitwise Z0, the
    disk tier used (summed ``ps_status`` ``tiered``: rows spilled and
    pulled back cold), each shard holding at least 4 x 4,096 distinct ids
    (counted from the written data); Z3 the host store with the worker's
@@ -167,7 +165,35 @@ Phases, each printing JSON lines; any failure exits non-zero:
    misses and hit rate. Then an arena on the card restored into a host
    table and back, bitwise. No flash kernel launches
    (``launches_by_path.ps_tiers`` = 0).
-12. elastic — the multi-process elastic ALLREDUCE job through the port's
+12. ps_hybrid — the hybrid trainer (``--embedding_plane hybrid``: the
+   Dense layers and the ``id_bias`` table on the worker, the
+   ``embedding`` table on the fleet, the next batch's rows pulled while
+   the current one computes) on ps_tiers' data, DeepFM with a 1,048,576
+   vocabulary, SGD 0.1, b1024. H0, in this process under torch's
+   deterministic algorithms, the reference bench's equivalence pre-pass:
+   a PS arm and a hybrid arm over two sync servicers each, from one
+   initialization (the Dense layers copied, the hybrid ``id_bias`` rows
+   of every id in the data minted by the store); one batch bitwise
+   (logits, loss, Dense gradients, ``embedding`` row gradients and ids;
+   the hybrid ``id_bias`` gradient against the PS arm's rows scattered
+   into a zero table, bitwise or within 1e-6); 16 steps of each through
+   ``Worker.run`` over an in-process master, the end states (dense
+   model, the rows of every id in the data) within 1e-6 relative L2
+   (bitwise reported); the hybrid arm again with its prefetch on: it
+   serves every step but each round's first, drops none, and lies within
+   5e-2 of the prefetch-off arm. H1, the bench's hybrid arm on F1's
+   fleet (processes, async shards, one worker with ``--ps_push_inflight
+   1``): every task done once, finite losses, no dense gradient on any
+   shard (no dense apply; their dense model the worker's first push,
+   bitwise), each shard exactly its ``id % 2`` rows of ``embedding`` and
+   no ``id_bias`` table, the pipeline serving all steps but one a round
+   and the first round's second. H2, the bench's PS-everything arm on
+   the same fleet and data (``--get_model_steps 4 --ps_push_inflight
+   1``). Each run's examples/s (and H1 / H2), the step split (the
+   pull's tail, the background pull, compute, the push, the local
+   update, the parse), each shard's applies, peaks. No flash kernel
+   launches (``launches_by_path.ps_hybrid`` = 0).
+13. elastic — the multi-process elastic ALLREDUCE job through the port's
    command line with ``--num_workers 2``: the master in this process,
    two worker processes sharing the card in one process world (gloo:
    NCCL refuses two ranks on one device; on a host with a card for each
@@ -212,13 +238,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
    report their flash launches, by run (``launches_by_path`` ``elastic``
    for A and B, ``elastic_master_kill``, ``elastic_standby`` and
    ``elastic_eval``, each 0).
-13. summary — the kernels line, the card line, then the result line.
+14. summary — the kernels line, the card line, then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
-non-zero and prints no result. ``--elastic-only`` runs phases 1 and 12
+non-zero and prints no result. ``--elastic-only`` runs phases 1 and 13
 alone, ``--zoo-only`` phases 1 and 8, ``--ps-only`` phases 1 and 9,
 ``--ps-fleet-only`` phases 1 and 10, ``--ps-tiers-only`` phases 1 and
-11, and none of them prints the result line.
+11, ``--ps-hybrid-only`` phases 1 and 12, and none of them prints the
+result line.
 """
 
 import argparse
@@ -3939,7 +3966,6 @@ FLEET_SNAPSHOT_VERSIONS = 8
 FLEET_JOB_LIMIT_S = 300  # a fleet run that hangs fails the phase
 FLEET_TOL = 1e-6  # F1 and F4 against the held model, relative L2
 FLEET_BF16_TOL = 2e-2  # F1 over the bf16 wire against F1, relative L2
-FLEET_PROFILE_STEPS = (2, 8)  # a six-step profiled window
 FLEET_MNIST_RECORDS = (512, 64)  # F4: records, batch
 FLEET_MASTER_KILL_AT_VERSION = 4  # F5: the held model's master SIGKILL
 FLEET_EXPORT = (4, 2)  # F5: --export_every_versions, --export_keep
@@ -4380,54 +4406,6 @@ def _fleet_held_deepfm(torch, tmp, card):
     return rec, dense, rows
 
 
-def _fleet_profile(torch, tmp, card):
-    """F1's fleet with the worker in this process (``worker.Worker`` over
-    a ``PSClient`` of the shards and a ``MasterClient``) and
-    torch.profiler on for FLEET_PROFILE_STEPS: this process's device
-    idle share (the shards' applies run in their own processes, outside
-    this trace)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from elasticdl_tpu_torch.common.constants import JobType
-    from elasticdl_tpu_torch.master.rpc_service import MasterClient
-    from elasticdl_tpu_torch.worker.worker import Worker
-
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    first, last = FLEET_PROFILE_STEPS
-    marks = {}
-
-    def on_step(i):
-        if i in (first, last):
-            torch.cuda.synchronize()
-            marks[i] = time.perf_counter()
-            (prof.start if i == first else prof.stop)()
-
-    def inline(fleet):
-        stub = MasterClient("localhost:%d" % fleet.master_port,
-                            failover_s=60)
-        client = fleet.client()
-        try:
-            with _PsSpies(on_step):
-                Worker(0, JobType.TRAINING_ONLY, PS_BATCH, "", PS_DEEPFM,
-                       stub=stub, ps_client=client, device=DEVICE,
-                       loss_log_steps=0).run()
-        finally:
-            client.close()
-            stub.close()
-
-    fleet = _Fleet(tmp, "f1-profile", PS_DEEPFM,
-                   os.path.join(tmp, "ps-data"), PS_BATCH, workers=0)
-    fleet.run(inline=inline)
-    if last not in marks:
-        raise PhaseError("the profiled fleet run ended before step %d"
-                         % last)
-    return dict(
-        _window_record(torch, prof, (marks[last] - marks[first]) * 1e3),
-        phase="ps_fleet", of="f1_profile", steps=[first, last],
-        batch=PS_BATCH, card=card,
-    )
-
-
 def _fleet_kill(torch, tmp, card, durable):
     """Runs F2 (``durable``: snapshots every FLEET_SNAPSHOT_VERSIONS) and
     F3 (none): two async workers, ``--get_model_steps 2``, shard 1
@@ -4762,7 +4740,7 @@ def _write_ps_data(tmp):
 
 def phase_ps_fleet(torch, tmp, card):
     """The PS fleet: F1 sync DeepFM across two shards against the held
-    job from the same seed (and its profile), F2/F3 a shard SIGKILL with
+    job from the same seed, F2/F3 a shard SIGKILL with
     and without snapshots, F4 MNIST across two shards, F5 the held
     model's journal, streaming exports and the bf16 wire. Returns the
     flash kernels' launches over the phase (none)."""
@@ -4800,7 +4778,6 @@ def phase_ps_fleet(torch, tmp, card):
 
     for run in (
         f1,
-        lambda: (_fleet_profile(torch, tmp, card), []),
         lambda: _fleet_kill(torch, tmp, card, durable=True),
         lambda: _fleet_kill(torch, tmp, card, durable=False),
         lambda: _fleet_mnist(torch, tmp, card),
@@ -5051,9 +5028,9 @@ def _write_z_data(tmp):
 
 def phase_ps_tiers(torch, tmp, card):
     """The three tiers of row residence on the fleet, DeepFM on zipf ids:
-    Z0 the host store, Z1 ``--ps_device``, Z2 ``--ps_device`` tiered
-    (``--ps_warm_rows --ps_spill_dir``), Z3 the host store with the
-    worker's hot-row cache; Z1 and Z2 bitwise against Z0, Z3 within
+    Z0 the host store, Z2 ``--ps_device`` tiered (``--ps_warm_rows
+    --ps_spill_dir``: the tier over the arena), Z3 the host store with
+    the worker's hot-row cache; Z2 bitwise against Z0, Z3 within
     Z_CACHE_TOL of it and not bitwise, its cache's hits and misses those
     recounted from the written ids; an arena's snapshot round trip
     through a host table. Returns the flash kernels' launches over the
@@ -5064,9 +5041,10 @@ def phase_ps_tiers(torch, tmp, card):
     worker_launches = {k: 0 for k in KERNELS}
     _reset_counters()
     spill = os.path.join(tmp, "z-spill")
+    # Z2's tier wraps the arena, so its run holds --ps_device to Z0 too
+    # (a run of the arena alone was cut for the every-phase run's time)
     runs = (
         ("z0", (), ()),
-        ("z1", ("--ps_device", "true"), ()),
         ("z2", ("--ps_device", "true", "--ps_warm_rows", str(Z_WARM_ROWS),
                 "--ps_spill_dir", spill), ()),
         ("z3", (), ("--hot_row_cache_rows", str(Z_CACHE[0]),
@@ -5081,7 +5059,7 @@ def phase_ps_tiers(torch, tmp, card):
             rel, bitwise = _compare(state, base["dense"], base["rows"])
             rec["against_z0"] = {"rel_l2_max": max(rel.values()),
                                  "bitwise": bitwise}
-            if name in ("z1", "z2") and not bitwise:
+            if name == "z2" and not bitwise:
                 bad.append("%s is not bitwise Z0: %s" % (name, rel))
             if name == "z3":
                 cache = rec["hot_row_cache"] or {}
@@ -5154,6 +5132,438 @@ def _ps_tiers_only(torch):
 
 
 # ---------------------------------------------------------------------------
+# ps_hybrid: the hybrid trainer on the fleet, DeepFM on zipf ids
+# ---------------------------------------------------------------------------
+
+H_PREFETCH_TOL = 5e-2  # H0's prefetch arm against the prefetch-off arm
+
+
+def _h_params(plane):
+    """The zoo DeepFM's params on ``plane``: the ids span ZOO_VOCAB, the
+    size of the hybrid arm's ``id_bias`` table."""
+    return "vocab_size=%d,embedding_plane='%s'" % (ZOO_VOCAB, plane)
+
+
+def _h_arm(torch, plane, prefetch, data=None):
+    """An H0 arm in this process: two fresh sync servicers on the card
+    (the zoo's SGD 0.1), a client, and a worker on ``plane`` (the zoo's
+    and the worker's); with ``data``, an in-process master handing out
+    one epoch of it. Returns (worker, client, shards, dispatcher)."""
+    from elasticdl_tpu_torch.common.constants import JobType
+    from elasticdl_tpu_torch.master.servicer import MasterServicer
+    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+    from elasticdl_tpu_torch.model_zoo.deepfm_edl_embedding import (
+        deepfm_edl_embedding as zoo,
+    )
+    from elasticdl_tpu_torch.ps.parameters import Parameters
+    from elasticdl_tpu_torch.ps.servicer import PserverServicer
+    from elasticdl_tpu_torch.worker.ps_client import PSClient
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    shards = [PserverServicer(Parameters(), 1, zoo.optimizer(), DEVICE)
+              for _ in range(FLEET_SHARDS)]
+    client = PSClient(shards)
+    task_d = master = None
+    if data is not None:
+        task_d = TaskDispatcher({data: (0, Z_RECORDS)}, {}, {},
+                                2 * PS_BATCH, 1)
+        master = MasterServicer(1, PS_BATCH, None, task_d,
+                                coordinates_only=False, device=DEVICE)
+    worker = Worker(
+        worker_id=0, job_type=JobType.TRAINING_ONLY,
+        minibatch_size=PS_BATCH, model_zoo="", model_def=PS_DEEPFM,
+        model_params=_h_params(plane), stub=master, device=DEVICE,
+        ps_client=client, embedding_plane=plane,
+        embedding_prefetch=prefetch,
+    )
+    return worker, client, shards, task_d
+
+
+def _h_init(torch, features, seen, pair):
+    """Give both arms of ``pair`` (PS first, then hybrid) one
+    initialization: both create their variables on ``features``, the
+    hybrid arm takes the PS arm's Dense layers and, for every id in
+    ``seen``, the ``id_bias`` rows the PS arm's store mints. Returns the
+    hybrid arm's own first push (before the copy)."""
+    (ps, ps_client), (hy, _) = pair
+    ps._run_model_call_before_training(features)
+    hy._run_model_call_before_training(features)
+    # copies: on the CPU the wire arrays can be views of the parameters
+    first_push = {k: v.copy() for k, v in hy._to_wire(hy._params).items()}
+    bias = ps_client.pull_embedding_vectors("id_bias", seen)
+    with torch.no_grad():
+        for k, v in ps._params.items():
+            hy._params[k].copy_(v)
+        hy._params["id_bias.table"][torch.from_numpy(seen).to(DEVICE)] = (
+            torch.from_numpy(bias).to(DEVICE))
+    return first_push
+
+
+def _h_state(worker, client, seen):
+    """An arm's end state: the dense model (the fleet's under PS, the
+    worker's own under hybrid), the ``embedding`` rows of ``seen`` and
+    the ``id_bias`` rows of ``seen``."""
+    if worker._dense_local:
+        dense = worker._to_wire(worker._params)
+        bias = dense.pop("id_bias/table")[seen]
+    else:
+        ready, _, dense = client.pull_dense()
+        if not ready:
+            raise PhaseError("h0: the PS arm's shards hold no model")
+        bias = client.pull_embedding_vectors("id_bias", seen)
+    return {"dense": dense, "rows": {
+        "embedding": client.pull_embedding_vectors("embedding", seen),
+        "id_bias": bias}}
+
+
+def _h_compare(got, want):
+    """Per tensor relative L2 of ``got`` against ``want``, and whether
+    every tensor is bitwise equal."""
+    import numpy as np
+
+    rel = {k: _np_rel(got["dense"][k], v) for k, v in want["dense"].items()}
+    rel.update({"rows:" + k: _np_rel(got["rows"][k], v)
+                for k, v in want["rows"].items()})
+    bitwise = sorted(got["dense"]) == sorted(want["dense"]) and all(
+        np.array_equal(got["dense"][k], v)
+        for k, v in want["dense"].items()) and all(
+        np.array_equal(got["rows"][k], v) for k, v in want["rows"].items())
+    return rel, bitwise
+
+
+def _h_one_batch(torch, ps, hy, features, labels):
+    """One batch through both arms: logits, loss, the Dense gradients,
+    the ``embedding`` row gradients and ids bitwise; the hybrid arm's
+    dense ``id_bias`` gradient against the PS arm's rows scattered into a
+    zero table (bitwise, or within FLEET_TOL where the card's two scatter
+    paths add in other orders)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common import convert
+
+    def host(t):
+        return t.detach().to("cpu").float().numpy()
+
+    out = {}
+    fp = host(ps.forward_process(features)["logits"])
+    fh = host(hy.forward_process(features)["logits"])
+    out["logits_bitwise"] = bool(np.array_equal(fp, fh))
+    lp, gp, sp = ps.training_process(features, labels)
+    lh, gh, sh = hy.training_process(features, labels)
+    out["loss_bitwise"] = float(lp) == float(lh)
+    gp = {k: host(v) for k, v in convert.to_named(gp).items()}
+    gh = {k: host(v) for k, v in convert.to_named(gh).items()}
+    out["dense_grads_bitwise"] = all(
+        np.array_equal(gp[k], gh[k]) for k in gp)
+    sp = {t.name: t for t in sp}
+    sh = {t.name: t for t in sh}
+    out["pushed_tables"] = {"ps": sorted(sp), "hybrid": sorted(sh)}
+    out["embedding_rows_bitwise"] = bool(
+        np.array_equal(sp["embedding"].values, sh["embedding"].values)
+        and np.array_equal(sp["embedding"].indices,
+                           sh["embedding"].indices))
+    scattered = np.zeros((ZOO_VOCAB, 1), np.float32)
+    scattered[sp["id_bias"].indices] = sp["id_bias"].values
+    out["id_bias_bitwise"] = bool(
+        np.array_equal(scattered, gh["id_bias/table"]))
+    out["id_bias_rel_l2"] = _np_rel(gh["id_bias/table"], scattered)
+    bad = [k for k in ("logits_bitwise", "loss_bitwise",
+                       "dense_grads_bitwise", "embedding_rows_bitwise")
+           if not out[k]]
+    if out["pushed_tables"] != {"ps": ["embedding", "id_bias"],
+                                "hybrid": ["embedding"]}:
+        bad.append("pushed tables %s" % out["pushed_tables"])
+    if out["id_bias_rel_l2"] > FLEET_TOL:
+        bad.append("id_bias %g" % out["id_bias_rel_l2"])
+    return out, bad
+
+
+def _h0(torch, tmp, card, ids, labels, seen):
+    """H0: the equivalence pre-pass in this process on the card (the
+    reference bench's), then 16 steps of each arm through ``Worker.run``,
+    then the hybrid arm with its prefetch on. Returns (record, problems,
+    the hybrid arm's first push)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.data.dataset import Dataset
+
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, "z-data", "records-0")
+    features = {"feature": ids[:PS_BATCH]}
+    batch_labels = labels[:PS_BATCH].reshape(-1, 1).astype(np.int32)
+    problems = []
+    rec = {"phase": "ps_hybrid", "of": "h0", "card": card,
+           "model": "deepfm_edl_embedding", "batch": PS_BATCH,
+           "records": Z_RECORDS, "shards": FLEET_SHARDS,
+           "vocab": ZOO_VOCAB, "seen_ids": len(seen)}
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    shuffle = Dataset.shuffle
+    seed_env = os.environ.get("EDL_TASK_SHUFFLE_SEED")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    Dataset.shuffle = lambda self, *a, **k: self
+    os.environ["EDL_TASK_SHUFFLE_SEED"] = str(SEED)
+    opened = []
+    try:
+        # the one-batch equivalence
+        arms = [_h_arm(torch, plane, False) for plane in ("ps", "hybrid")]
+        opened += [a[1] for a in arms]
+        first_push = _h_init(torch, features, seen,
+                             [(a[0], a[1]) for a in arms])
+        rec["one_batch"], bad = _h_one_batch(
+            torch, arms[0][0], arms[1][0], features, batch_labels)
+        problems += ["h0 one batch: " + b for b in bad]
+
+        # 16 steps of each arm, then the hybrid arm with its prefetch
+        arms = [_h_arm(torch, plane, prefetch, data) for plane, prefetch in
+                (("ps", False), ("hybrid", False), ("hybrid", True))]
+        opened += [a[1] for a in arms]
+        _h_init(torch, features, seen, [(a[0], a[1]) for a in arms[:2]])
+        _h_init(torch, features, seen, [(a[0], a[1]) for a in arms[::2]])
+        states, runs = [], []
+        for name, (worker, client, _, task_d) in zip(
+                ("ps", "hybrid", "hybrid_prefetch"), arms):
+            t1 = time.perf_counter()
+            losses = worker.run()
+            run = {"arm": name, "steps": len(losses),
+                   "finished": task_d.finished(),
+                   "losses_finite": bool(np.all(np.isfinite(losses))),
+                   "seconds": time.perf_counter() - t1,
+                   "rounds": worker.rounds,
+                   "dense_tensors_pushed": worker.dense_tensors_pushed}
+            if worker._emb_pipeline is not None:
+                run["pipeline"] = {
+                    "served": worker._emb_pipeline.served,
+                    "dropped": worker._emb_pipeline.dropped,
+                    "pull_s": worker._emb_pipeline.pull_s}
+            runs.append(run)
+            states.append(_h_state(worker, client, seen))
+        rec["runs"] = runs
+        steps = Z_RECORDS // PS_BATCH
+        for run in runs:
+            if run["steps"] != steps or not run["finished"] or not run[
+                    "losses_finite"]:
+                problems.append("h0 %s: %s" % (run["arm"], run))
+        if runs[1]["dense_tensors_pushed"] or runs[2][
+                "dense_tensors_pushed"]:
+            problems.append("h0: a hybrid arm pushed dense tensors")
+        rel, bitwise = _h_compare(states[1], states[0])
+        rec["hybrid_vs_ps"] = {"rel_l2_max": max(rel.values()),
+                               "per_tensor": rel, "bitwise": bitwise,
+                               "tolerance": FLEET_TOL}
+        if max(rel.values()) > FLEET_TOL:
+            problems.append("h0 hybrid against ps: %s" % rel)
+        pipe = runs[2]["pipeline"]
+        want_served = runs[2]["steps"] - runs[2]["rounds"]
+        if pipe["served"] != want_served or pipe["dropped"]:
+            problems.append("h0 prefetch served %d (want %d), dropped %d"
+                            % (pipe["served"], want_served, pipe["dropped"]))
+        rel, bitwise = _h_compare(states[2], states[1])
+        grouped = _z_grouped_rel(states[2], states[1])
+        rec["prefetch_vs_inline"] = {
+            "grouped": grouped, "rel_l2_max": max(rel.values()),
+            "bitwise": bitwise, "tolerance": H_PREFETCH_TOL}
+        if max(grouped.values()) > H_PREFETCH_TOL:
+            problems.append("h0 prefetch against inline: %s" % grouped)
+    finally:
+        for client in opened:
+            client.close()
+        torch.use_deterministic_algorithms(was_deterministic)
+        Dataset.shuffle = shuffle
+        if seed_env is None:
+            os.environ.pop("EDL_TASK_SHUFFLE_SEED", None)
+        else:
+            os.environ["EDL_TASK_SHUFFLE_SEED"] = seed_env
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, problems, first_push
+
+
+def _h_split(events):
+    """The fleet split plus the hybrid trainer's phases: the background
+    pull (``pull_bg``, on the pipeline's thread) and the local update;
+    the pipelined steps' count and the workers' pipeline counters."""
+    out = _fleet_split(events)
+    splits = [s["split"] for ev in events.values()
+              for s in _of(ev, "step")[1:] if s.get("split")]
+    for k in ("pull_bg", "local_update"):
+        out[k + "_ms"] = _median([s.get(k, 0.0) * 1e3 for s in splits])
+    out["pipelined_steps"] = sum(
+        1 for ev in events.values() for s in _of(ev, "step")
+        if s.get("pipelined"))
+    return out
+
+
+def _h_fleet(torch, tmp, card, name, plane, seen, first_push=None):
+    """H1 (``plane`` hybrid) or H2 (ps), the reference bench's two arms
+    on F1's fleet and Z's data: async shards, one worker with a push
+    window of one. Returns (record, problems)."""
+    data = os.path.join(tmp, "z-data")
+    params = ["--model_params", _h_params(plane)]
+    if plane == "hybrid":
+        job = ["--use_async", "true", "--embedding_plane", "hybrid"]
+        worker = ["--embedding_plane", "hybrid", "--ps_push_inflight", "1"]
+    else:
+        job = ["--use_async", "true", "--get_model_steps", "4"]
+        worker = ["--get_model_steps", "4", "--ps_push_inflight", "1"]
+    fleet = _Fleet(tmp, name, PS_DEEPFM, data, PS_BATCH, job=job + params,
+                   ps=["--use_async", "true"] + params,
+                   worker=worker + params, deterministic=True)
+    tables = {"embedding": seen} if plane == "hybrid" else {
+        "embedding": seen, "id_bias": seen}
+    raw = fleet.run(inspect=lambda f: _fleet_state(f, tables))
+    state = raw["inspect"]
+    events = raw["events"]
+    ends = _end_events(events)
+    steps = Z_RECORDS // PS_BATCH
+    problems = []
+    if raw["exit_codes"] != {"0": 0} or raw["master_exit_codes"] != [0]:
+        problems.append("%s exits %s, master %s" % (
+            name, raw["exit_codes"], raw["master_exit_codes"]))
+    if raw["journal"]["done"] != steps // 2 or raw["journal"]["pending"]:
+        problems.append("%s journal %s" % (name, raw["journal"]))
+    if len(_fleet_steps(events)) != steps or len(ends) != 1 or not all(
+            e["losses_finite"] for e in ends):
+        problems.append("%s steps %d, ends %s" % (
+            name, len(_fleet_steps(events)), ends))
+    for key, (before, after, mine) in state["placement"].items():
+        if not before == after == mine:
+            problems.append("%s shard rows %s: %s before, %s after, %d "
+                            "with id %% %d" % (name, key, before, after,
+                                               mine, FLEET_SHARDS))
+    shards = [_shard_record(s) for s in state["statuses"]]
+    step_ms = _median([(b["t"] - a["t"]) * 1e3 for a, b in zip(
+        _fleet_steps(events), _fleet_steps(events)[1:])])
+    rec = {
+        "phase": "ps_hybrid", "of": name, "card": card, "plane": plane,
+        "model": "deepfm_edl_embedding", "batch": PS_BATCH,
+        "records": Z_RECORDS, "shards": FLEET_SHARDS,
+        "job_flags": job, "worker_flags": worker, "job_s": raw["job_s"],
+        "examples_per_s": _fleet_examples_per_s(events, PS_BATCH),
+        # the median step's rate: a one-time stall after the first step
+        # (the worker's first local optimizer step loads torch's lazy
+        # imports, under SSP at step 2) weighs on examples_per_s alone
+        "examples_per_s_median_step": (
+            PS_BATCH * 1e3 / step_ms if step_ms else None),
+        "step_split": _h_split(events),
+        "step_ms_median": step_ms,
+        # every step: the ms since the one before and its split's ms
+        "steps": [
+            dict({k + "_ms": round(v * 1e3, 3) for k, v in s["split"].items()
+                  if k not in ("t", "compute_device_ms")},
+                 since_ms=round((s["t"] - p["t"]) * 1e3, 3) if p else None,
+                 pipelined=s.get("pipelined"))
+            for p, s in zip([None] + _fleet_steps(events),
+                            _fleet_steps(events))],
+        "shards_state": shards,
+        "shard_tables": [sorted(s["tables"]) for s in state["statuses"]],
+        "worker_peak_mib": [e.get("peak_mib") for e in ends],
+        "journal": raw["journal"], "ps_exit_codes": raw["ps_exit_codes"],
+        "losses_first_last": [e.get("losses_first_last") for e in ends],
+        "pipeline": [e.get("pipeline") for e in ends],
+        "rounds": [e.get("rounds") for e in ends],
+        "dense_tensors_pushed": [e.get("dense_tensors_pushed")
+                                 for e in ends],
+    }
+    if plane == "hybrid" and ends:
+        end = ends[0]
+        pipe = end.get("pipeline") or {}
+        # the first round's second batch is staged before the variables
+        # exist, as in the reference: it pulls inline too
+        floor = steps - end["rounds"] - 1
+        if pipe.get("served", -1) < floor or pipe.get("dropped"):
+            problems.append("%s pipeline %s over %d rounds" % (
+                name, pipe, end["rounds"]))
+        if end["dense_tensors_pushed"]:
+            problems.append("%s pushed %d dense tensors" % (
+                name, end["dense_tensors_pushed"]))
+        if any(s["dense_apply_ms_median"] is not None for s in shards):
+            problems.append("%s: a shard applied a dense gradient: %s" % (
+                name, shards))
+        if any("id_bias" in t for t in rec["shard_tables"]):
+            problems.append("%s: a shard holds id_bias: %s" % (
+                name, rec["shard_tables"]))
+        if first_push is not None:
+            import numpy as np
+
+            differ = sorted(
+                k for k in set(state["dense"]) | set(first_push)
+                if k not in state["dense"] or k not in first_push
+                or not np.array_equal(state["dense"][k], first_push[k]))
+            rec["shards_dense_is_first_push"] = not differ
+            if differ:
+                problems.append("%s: the shards' dense model is not the "
+                                "worker's first push: %s" % (name, differ))
+    rec["worker_flash_launches"] = _worker_launches(events, problems)
+    if any(rec["worker_flash_launches"].values()):
+        problems.append("%s launched flash kernels: %s" % (
+            name, rec["worker_flash_launches"]))
+    return rec, problems
+
+
+def phase_ps_hybrid(torch, tmp, card):
+    """The hybrid trainer on Z's zipf data at zoo width: H0 in this
+    process (PS against hybrid on one batch and over 16 steps, then the
+    hybrid arm's prefetch), H1 the hybrid arm of the reference's bench on
+    F1's fleet, H2 its PS-everything arm on the same fleet and data.
+    Returns the flash kernels' launches over the phase (none)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    if not os.path.isdir(os.path.join(tmp, "z-data")):
+        _write_z_data(tmp)
+    ids, labels = _zipf_ids(Z_RECORDS, SEED + 50)
+    seen = np.unique(ids)
+    problems = []
+    worker_launches = {k: 0 for k in KERNELS}
+    _reset_counters()
+    rec, bad, first_push = _h0(torch, tmp, card, ids, labels, seen)
+    emit(rec)
+    problems += bad
+    torch.cuda.empty_cache()
+    rates, steady = {}, {}
+    for name, plane in (("h1", "hybrid"), ("h2", "ps")):
+        rec, bad = _h_fleet(torch, tmp, card, name, plane, seen,
+                            first_push if plane == "hybrid" else None)
+        rates[name] = rec["examples_per_s"]
+        steady[name] = rec["examples_per_s_median_step"]
+        emit(rec)
+        problems += bad
+        for k, n in rec["worker_flash_launches"].items():
+            worker_launches[k] += n
+        torch.cuda.empty_cache()
+    counts = {k: (n + worker_launches[k], shapes)
+              for k, (n, shapes) in _counts().items()}
+    emit({"phase": "ps_hybrid", "of": "summary", "card": card,
+          "examples_per_s": rates,
+          "h1_over_h2": (rates["h1"] / rates["h2"]
+                         if rates["h1"] and rates["h2"] else None),
+          "examples_per_s_median_step": steady,
+          "h1_over_h2_median_step": (steady["h1"] / steady["h2"]
+                                     if steady["h1"] and steady["h2"]
+                                     else None),
+          "seconds": time.perf_counter() - t0,
+          "flash_launches": {k: n for k, (n, _) in counts.items()}})
+    if problems:
+        raise PhaseError("ps_hybrid: " + "; ".join(problems))
+    return counts
+
+
+def _ps_hybrid_only(torch):
+    try:
+        card = phase_device(torch)
+        with tempfile.TemporaryDirectory() as tmp:
+            counts = phase_ps_hybrid(torch, tmp, card)
+        _check_counts(counts, {k: 0 for k in KERNELS}, "the ps_hybrid phase")
+    except Exception as err:  # noqa: BLE001 — reported, exit non-zero
+        import traceback
+
+        traceback.print_exc()
+        print("chip_smoke: FAILED: %s" % err, file=sys.stderr)
+        return 1
+    print(card)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # elastic: the multi-process ALLREDUCE job, two worker processes on one card
 # ---------------------------------------------------------------------------
 
@@ -5162,14 +5572,14 @@ ELASTIC_WORKERS = 2
 # Run B trains this many epochs, so that the job outlasts the relaunched
 # worker's cold start: the survivor, alone, takes a task a step, and a
 # joiner that finds no task left never joins
-ELASTIC_KILL_EPOCHS = 10
+ELASTIC_KILL_EPOCHS = 7
 ELASTIC_KILL_AT_VERSION = 4
 ELASTIC_JOB_LIMIT_S = 420  # a run that hangs fails the phase
 SNAPSHOT_CHECK_SLEEP_CYCLES = 200_000_000  # keeps the stream busy ~0.1 s
 # Run C: the master SIGKILLed once its version reaches this, in a job of
 # this many epochs (long enough to step on after the relaunch)
 MASTER_KILL_AT_VERSION = 4
-MASTER_KILL_EPOCHS = 6
+MASTER_KILL_EPOCHS = 5
 MASTER_FAILOVER_S = 120  # the workers' outage budget (the default)
 # Run E: two epochs, a round every 4 versions over 256 validation records
 ELASTIC_EVAL_EPOCHS = 2
@@ -6134,6 +6544,12 @@ def main(argv=None):
         help="drive only the ps_tiers phase and print its records, not "
         "the result line",
     )
+    parser.add_argument(
+        "--ps-hybrid-only",
+        action="store_true",
+        help="drive only the ps_hybrid phase and print its records, not "
+        "the result line",
+    )
     args = parser.parse_args(argv)
     try:
         import torch
@@ -6162,6 +6578,8 @@ def main(argv=None):
         return _ps_fleet_only(torch)
     if args.ps_tiers_only:
         return _ps_tiers_only(torch)
+    if args.ps_hybrid_only:
+        return _ps_hybrid_only(torch)
 
     try:
         card = phase_device(torch)
@@ -6189,6 +6607,9 @@ def main(argv=None):
             ps_tiers = phase_ps_tiers(torch, tmp, card)
             _check_counts(ps_tiers, {k: 0 for k in KERNELS},
                           "the ps_tiers phase")
+            ps_hybrid = phase_ps_hybrid(torch, tmp, card)
+            _check_counts(ps_hybrid, {k: 0 for k in KERNELS},
+                          "the ps_hybrid phase")
             _reset_counters()
             elastic, _ = phase_elastic(torch, tmp, job_rec, card)
             # launched in the workers (which report theirs, by run) or
@@ -6204,7 +6625,8 @@ def main(argv=None):
             records,
             dict({"serve": served, "train": trained, "job": job,
                   "eval": evaluated, "zoo": zoo, "ps": ps,
-                  "ps_fleet": ps_fleet, "ps_tiers": ps_tiers}, **elastic),
+                  "ps_fleet": ps_fleet, "ps_tiers": ps_tiers,
+                  "ps_hybrid": ps_hybrid}, **elastic),
         )
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback

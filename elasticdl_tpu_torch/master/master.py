@@ -169,9 +169,6 @@ def refuse_unported_planes(args):
          os.environ.get("EDL_FLIGHT_RECORDER_DIR")),
         ("TensorBoard", "--tensorboard_log_dir",
          getattr(args, "tensorboard_log_dir", "")),
-        ("the hybrid trainer", "--embedding_plane hybrid",
-         strategy != DistributionStrategy.ALLREDUCE
-         and getattr(args, "embedding_plane", "ps") == "hybrid"),
         ("the shared-memory master channel", "--master_shm on",
          held and getattr(args, "master_shm", "auto") == "on"),
     )

@@ -16,15 +16,17 @@ The hooks, as the reference's:
   parameters are the tower's alone.
 - ``build_distributed_model(mesh, ...)``: the ALLREDUCE worker's model.
   With a mesh (the port's is one card) the tables resolve to the HBM
-  plane. A PS-plane table on a mesh is the hybrid trainer's form, not
-  ported (ROADMAP A5): it raises ``NotImplementedError``.
+  plane. A PS-plane table on a mesh raises ``NotImplementedError``: such
+  a table trains on the parameter-server worker, in hybrid mode
+  (``custom_model(embedding_plane="hybrid")``: the feature table on the
+  fleet, ``id_bias`` a dense parameter of the worker).
 - ``build_host_model(**params)``: ``force_hbm``, a plain gather over
   whole tables; evaluation-only and prediction-only jobs score it against
   ``--checkpoint_dir``.
 - ``param_shardings(mesh, ...)``: each HBM table's spec
   (``PadDim0(P(table_axis, None))``), whole on a world of one.
 - ``build_collective_model``: the lookup inside the sharded elastic
-  plane's step, not ported (ROADMAP A2.8).
+  plane's step, not ported (ROADMAP A9).
 
 Layers: ``embedding``/``id_bias`` (their ``table``), ``tower``/``out``,
 the ``deepfm`` weight map of ``common/convert.py``.
@@ -84,9 +86,10 @@ class DeepFMEdl(nn.Module):
                 collective or force_hbm
             ):
                 raise NotImplementedError(
-                    "table %r rides the PS plane on a mesh: the hybrid "
-                    "trainer (--embedding_plane hybrid) is not ported yet "
-                    "(ROADMAP A5)" % name
+                    "table %r rides the PS plane on a mesh, which the "
+                    "ALLREDUCE plane cannot serve -- train PS-plane tables "
+                    "on the parameter-server worker (hybrid mode: "
+                    "--embedding_plane hybrid with --ps_addrs)" % name
                 )
             if planes[name] == "ps" and (collective or force_hbm):
                 raise ValueError(
@@ -162,7 +165,7 @@ def build_collective_model(table_axis="data", **params):
     plane's step): not ported."""
     raise NotImplementedError(
         "deepfm_edl_embedding.build_collective_model: the sharded elastic "
-        "plane's collective lookup is not ported yet (ROADMAP A2.8)"
+        "plane's collective lookup is not ported yet (ROADMAP A9)"
     )
 
 

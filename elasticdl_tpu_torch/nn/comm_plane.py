@@ -2,41 +2,50 @@
 ``elasticdl_tpu/nn/comm_plane.py``.
 
 A model that mixes planes names one per table: ``"ps"`` (the elastic
-``nn/embedding.Embedding``: rows in the master's store, pulled per
-batch, sparse gradients pushed) or ``"hbm"`` (the table a real parameter
-on the device, ``nn/hbm_embedding.py``). :func:`resolve_table_planes`
-parses the zoo-facing ``embedding_plane=ps|hbm|hybrid|"table:plane/
-table:plane"`` spec with the reference's rules and errors, and
-:func:`make_embedding` builds one table's layer from its plane.
+``nn/embedding.Embedding``: rows in the master's store or on the PS
+fleet, pulled per batch, sparse gradients pushed) or ``"hbm"`` (the table
+a real parameter on the device, ``nn/hbm_embedding.py``).
+:func:`resolve_table_planes` parses the zoo-facing ``embedding_plane=ps|
+hbm|hybrid|"table:plane/table:plane"`` spec with the reference's rules
+and errors, and :func:`make_embedding` builds one table's layer from its
+plane.
 
-The PS plane's host data path, ``plan -> pull -> push``:
+:class:`CommPlane` is the one interface the worker's embedding data
+path talks to, ``plan -> pull -> push -> drain``:
 
 - :func:`plan_lookup_multi`, the batch-wide unique plan: one pull of a
   layer's unique ids over all its calls, each call keeping its positions
   into the shared rows buffer, so the step's row gradients come back
   already combined, one row per unique id;
 - :class:`MasterStorePlane` pulls the planned rows from the master's
-  store, one call per table; :class:`PsPlane` pulls them from the PS
-  fleet in one fan-out over every (table, shard) leg
-  (``worker/ps_client.py``); the worker copies them to the card as they
+  store, one call per table (its sparse gradients ride
+  ``report_gradient`` with the dense ones); :class:`PsPlane` pulls them
+  from the PS fleet in one fan-out over every (table, shard) leg
+  (``worker/ps_client.py``) and pushes the sparse gradients alone (the
+  hybrid trainer's push); :class:`HbmPlane` is the in-graph plane, whose
+  table updates inside the step, so it neither pulls nor pushes;
+- the worker copies the pulled ``(k, dim)`` rows to the card as they
   are. The reference pads them to a power-of-two bucket to bound XLA
   recompiles; eager PyTorch has none to bound, and the pushed
   ``(ids, rows)`` are the unique ids and their rows either way;
-- the sparse gradients travel with the dense ones (``report_gradient``
-  to the master, ``push_gradient`` to the fleet), and
-  :meth:`PsPlane.drain` settles the fleet client's push window.
+- :meth:`CommPlane.drain` settles the fleet client's push window.
+
+:class:`EmbeddingPullPipeline` is the hybrid trainer's overlapped pull:
+the worker plans the next batch on its own thread and hands the fan-out
+to the pipeline's one thread, so it runs while the current batch
+computes.
 
 :class:`HotRowCache` is the worker's tier above the PS fleet: an LRU of
 pulled rows, each tagged with its shard's version, served in place of a
 pull while it lags that shard's newest seen version by at most a window.
-
-Not ported: the hybrid trainer's ``EmbeddingPullPipeline`` (ROADMAP A4),
-and the cache's ``invalidate_table``/``refresh_table``/``max_live_lag``,
-which serve the scorer's delta sync (A5) and raise by name.
+Its ``invalidate_table``/``refresh_table``/``max_live_lag``, which serve
+the scorer's delta sync (ROADMAP A5), raise by name.
 """
 
 import threading
+import time
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -156,15 +165,50 @@ def plan_lookup_multi(ids_list):
     return unique, idxs
 
 
-class MasterStorePlane:
+class CommPlane:
+    """The embedding plane of one or more tables. ``in_graph`` planes
+    look their rows up inside the step (the HBM plane); host planes pull
+    rows before the step and push the combined row gradients after
+    it."""
+
+    in_graph = False
+
+    def plan_lookup_multi(self, ids_list):
+        """The shared unique planner (:func:`plan_lookup_multi`)."""
+        return plan_lookup_multi(ids_list)
+
+    def pull(self, ids_by_table):
+        """{table: unique ids} -> {table: (k, dim) rows} in one round."""
+        raise NotImplementedError
+
+    def push(self, sparse_tensors, version):
+        """Send the combined row gradients; ``(accepted, version)``."""
+        raise NotImplementedError
+
+    def drain(self):
+        """Settle the pushes in flight; ``(accepted, version)``, or
+        ``(True, -1)`` for a plane without a push window."""
+        return True, -1
+
+    @property
+    def cache(self):
+        """The shared :class:`HotRowCache`, or None."""
+        return None
+
+    def close(self):
+        """Release the plane's threads and channels."""
+
+
+class MasterStorePlane(CommPlane):
     """The master-held store: a pull is one ``pull_embedding_vectors``
-    call per table. ``stub_fn`` gives the master stub at call time."""
+    call per table. Sparse gradients travel with the dense ones in
+    ``report_gradient``, so :meth:`push` has no path of its own.
+    ``stub_fn`` gives the master stub at call time."""
 
     def __init__(self, stub_fn):
         self._stub_fn = stub_fn
 
     def pull(self, ids_by_table):
-        """{table: unique ids} -> {table: (k, dim) float32 rows}."""
         stub = self._stub_fn()
         return {
             name: np.asarray(
@@ -173,21 +217,176 @@ class MasterStorePlane:
             for name, ids in ids_by_table.items()
         }
 
+    def push(self, sparse_tensors, version):
+        raise NotImplementedError(
+            "master-store sparse gradients ride report_gradient with the "
+            "dense tensors; push() has no separate wire path here"
+        )
 
-class PsPlane:
+
+class PsPlane(CommPlane):
     """The PS fleet's plane over a ``worker.ps_client.PSClient``: a pull
-    is one fan-out round, and :meth:`drain` settles the push window.
-    After a shard relaunch the client abandons the pushes in flight: a
-    drain drops their outcome and never resends them."""
+    is one fan-out round, a push sends the sparse tensors alone (the
+    hybrid trainer keeps the dense half off the fleet), and
+    :meth:`drain` settles the push window. After a shard relaunch the
+    client abandons the pushes in flight: a drain drops their outcome
+    and never resends them."""
 
     def __init__(self, ps_client):
         self._client = ps_client
 
+    @property
+    def cache(self):
+        return getattr(self._client, "hot_row_cache", None)
+
     def pull(self, ids_by_table):
         return self._client.pull_embedding_vectors_multi(ids_by_table)
 
+    def push(self, sparse_tensors, version):
+        return self._client.push_gradient({}, sparse_tensors, version)
+
     def drain(self):
         return self._client.drain()
+
+    def close(self):
+        self._client.close()
+
+
+class HbmPlane(CommPlane):
+    """The in-graph plane: the table is a parameter on the card, looked
+    up and updated inside the step (``nn/hbm_embedding.py``). Its
+    ``pull`` and ``push`` never run; the plane lets a planner treat every
+    table alike, and can front its tables with a shared cache."""
+
+    in_graph = True
+
+    def __init__(self, shared_cache=None):
+        self._cache = shared_cache
+
+    @property
+    def cache(self):
+        return self._cache
+
+    def pull(self, ids_by_table):
+        raise RuntimeError(
+            "hbm tables are looked up inside the step on the device; "
+            "there is no host-side pull to perform"
+        )
+
+    def push(self, sparse_tensors, version):
+        raise RuntimeError(
+            "hbm table gradients apply inside the step on the device; "
+            "there is no host-side push to perform"
+        )
+
+
+class EmbeddingPullPipeline:
+    """The next batch's row pull, run on one background thread while the
+    current batch computes (the hybrid trainer).
+
+    The worker plans the lookahead batch on its own thread (the capture
+    pass runs the model) and submits only the fan-out. Entries are keyed
+    by the batch object's identity; at most ``depth`` are staged, the
+    oldest evicted first. A staged pull misses at most the worker's own
+    push of the batch in flight: one optimizer step of staleness.
+
+    :meth:`invalidate` drops every staged pull exactly once: it waits
+    each out (no pull is left touching the client's cache) and swallows
+    its error, so a requeued task's staged pull is never served to a
+    later batch. ``served`` and ``dropped`` count consumed and discarded
+    pulls; ``pull_s`` sums the background pulls' seconds and
+    ``last_pull_s`` is the last consumed one's.
+    """
+
+    def __init__(self, depth=2):
+        self._mu = threading.Lock()
+        self._pool = None
+        self._depth = max(1, int(depth))
+        self._entries = OrderedDict()  # id(batch) -> (batch, plan, future)
+        self._closed = False
+        self.dropped = 0
+        self.served = 0
+        self.pull_s = 0.0
+        self.last_pull_s = 0.0
+
+    def _get_pool(self):
+        with self._mu:
+            if self._closed:
+                raise RuntimeError("EmbeddingPullPipeline is closed")
+            if self._pool is None:
+                # one thread: pulls run in order, and the client's
+                # fan-out pool gives the per-shard concurrency
+                self._pool = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="edl-emb-pull"
+                )
+            return self._pool
+
+    def submit(self, key_obj, plan, pull_fn):
+        """Stage ``pull_fn()`` for the batch ``key_obj``; ``plan`` comes
+        back with its rows. Entries past the depth are dropped, oldest
+        first."""
+        fut = self._get_pool().submit(self._timed_pull, pull_fn)
+        with self._mu:
+            self._entries[id(key_obj)] = (key_obj, plan, fut)
+            evicted = []
+            while len(self._entries) > self._depth:
+                evicted.append(self._entries.popitem(last=False)[1])
+        for _, _, old in evicted:
+            self._drop(old)
+
+    def _timed_pull(self, pull_fn):
+        t0 = time.perf_counter()
+        try:
+            return pull_fn(), time.perf_counter() - t0
+        finally:
+            with self._mu:
+                self.pull_s += time.perf_counter() - t0
+
+    def consume(self, key_obj):
+        """``(plan, rows)`` staged for this batch, or None. Waits for a
+        pull still in flight (the tail of the overlapped round trip) and
+        raises its error."""
+        with self._mu:
+            entry = self._entries.pop(id(key_obj), None)
+        if entry is None:
+            return None
+        _, plan, fut = entry
+        rows, self.last_pull_s = fut.result()
+        self.served += 1
+        return plan, rows
+
+    def invalidate(self):
+        """Drop every staged pull; returns how many."""
+        with self._mu:
+            entries = list(self._entries.values())
+            self._entries = OrderedDict()
+        for _, _, fut in entries:
+            self._drop(fut)
+        return len(entries)
+
+    def _drop(self, fut):
+        try:
+            fut.result()
+        except Exception:  # noqa: BLE001 - an abandoned pull's outcome
+            from elasticdl_tpu_torch.common.log_utils import (
+                default_logger,
+            )
+
+            default_logger.debug(
+                "an abandoned staged embedding pull failed; dropped",
+                exc_info=True,
+            )
+        self.dropped += 1
+
+    def close(self):
+        """Drop what is staged and stop the thread; :meth:`submit`
+        raises after it."""
+        self.invalidate()
+        with self._mu:
+            self._closed = True
+            pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
 
 
 class HotRowCache:

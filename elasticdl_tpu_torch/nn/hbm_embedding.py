@@ -20,9 +20,9 @@ negatives counted from the end), on the mesh as rows no shard owns
 a2a_overflow`` counter cannot move (nothing is routed). The port keeps
 no counter: ``common/convert.py`` drops it from the reference's state.
 Not ported, each raising ``NotImplementedError`` by name: the
-``all_to_all`` routing (``method="a2a"``, ROADMAP A4), a mesh of more
-than one device (A4), and the collective form that looks up inside the
-sharded elastic plane's step (``collective=True``, A2.8).
+``all_to_all`` routing (``method="a2a"``, ROADMAP A9), a mesh of more
+than one device (A9), and the collective form that looks up inside the
+sharded elastic plane's step (``collective=True``, A9).
 """
 
 import torch
@@ -53,7 +53,7 @@ class HbmEmbedding(nn.Module):
             raise NotImplementedError(
                 "HbmEmbedding(collective=True), the lookup inside the "
                 "sharded elastic plane's step, is not ported yet "
-                "(ROADMAP A2.8)"
+                "(ROADMAP A9)"
             )
         if method not in METHODS:
             raise ValueError(
@@ -65,7 +65,7 @@ class HbmEmbedding(nn.Module):
                 raise NotImplementedError(
                     "HbmEmbedding over a mesh of %d devices (the "
                     "vocab-sharded psum lookup) is not ported yet "
-                    "(ROADMAP A4)" % mesh.size
+                    "(ROADMAP A9)" % mesh.size
                 )
             if axis not in mesh.axis_names:
                 raise ValueError(
@@ -74,7 +74,7 @@ class HbmEmbedding(nn.Module):
             if method == "a2a":
                 raise NotImplementedError(
                     "HbmEmbedding(method='a2a'), the all_to_all row "
-                    "routing, is not ported yet (ROADMAP A4)"
+                    "routing, is not ported yet (ROADMAP A9)"
                 )
         self.vocab_size = vocab_size
         self.features = features

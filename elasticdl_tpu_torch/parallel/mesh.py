@@ -7,7 +7,7 @@ the zoo's hooks (``build_distributed_model(mesh)``, ``param_shardings(
 mesh)``) receive it. The port runs on one card, so its :class:`Mesh` is
 that mesh over one device: the axis names, their sizes (all 1) and the
 device list. A mesh of more than one device raises
-``NotImplementedError`` (ROADMAP A4).
+``NotImplementedError`` (ROADMAP A9).
 
 :class:`PartitionSpec` names, per tensor dimension, the mesh axis it is
 split over (or None); :class:`PadDim0` is the reference's wrapper
@@ -24,7 +24,7 @@ from elasticdl_tpu_torch.common.device import resolve_device
 
 def _not_ported(n):
     return NotImplementedError(
-        "a mesh of %d devices is not ported yet (ROADMAP A4: the port "
+        "a mesh of %d devices is not ported yet (ROADMAP A9: the port "
         "runs on one card)" % n
     )
 

@@ -23,8 +23,8 @@ from that hook, as in the reference: the mesh is the one card
 the zoo has it, gives the trainer each parameter's spec, which must be
 whole on that mesh (DeepFM's HBM tables: a parameter on the card, its
 checkpoint leaf and export name its own). A zoo that declares a mesh
-layout (``mesh_axes``) raises ``NotImplementedError`` (ROADMAP A2.8 /
-A4). Evaluation-only and prediction-only jobs are refused, as in the
+layout (``mesh_axes``) raises ``NotImplementedError`` (ROADMAP A9).
+Evaluation-only and prediction-only jobs are refused, as in the
 reference: the elastic worker's drain (``elastic_allreduce_worker.py``)
 serves them.
 """
@@ -108,7 +108,7 @@ class AllReduceWorker:
         if hasattr(zoo_module, "mesh_axes"):
             raise NotImplementedError(
                 "zoo module %s defines mesh_axes: a mesh of several axes "
-                "or devices is not ported yet (ROADMAP A2.8 / A4)"
+                "or devices is not ported yet (ROADMAP A9)"
                 % model_def
             )
         distributed = hasattr(zoo_module, "build_distributed_model")

@@ -113,11 +113,6 @@ def make_ps_client(args):
     addrs = [a for a in args.ps_addrs.split(",") if a]
     if not addrs:
         return None
-    if args.embedding_plane == "hybrid":
-        raise NotImplementedError(
-            "the hybrid trainer (EmbeddingPullPipeline, --embedding_plane "
-            "hybrid) is not ported yet (ROADMAP A4)"
-        )
     deadline_s = args.rpc_deadline_s if args.rpc_deadline_s > 0 else None
     stubs = [
         BoundPS(a, deadline_s=deadline_s, retries=args.rpc_retries,
@@ -182,6 +177,7 @@ def _ps_main(args):
             export_dir=args.export_dir,
             export_every_versions=args.export_every_versions,
             export_keep=args.export_keep,
+            embedding_plane=args.embedding_plane,
         ).run()
     finally:
         if ps_client is not None:

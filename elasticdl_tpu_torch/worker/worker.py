@@ -50,6 +50,20 @@ evaluation task, the end of a round of tasks, a streaming export, the
 SAVE_MODEL task and the end of the run. The SAVE_MODEL export holds the
 dense model only, as the reference's does under the fleet.
 
+**The hybrid trainer** (``embedding_plane="hybrid"``, on the fleet
+only): the dense parameters, an HBM-plane table among them, stay on the
+worker, which updates its own copy with its own optimizer on every
+accepted minibatch; the fleet serves the PS-plane tables alone. The
+worker pushes its model once (the shards keep it, unused) and never
+pulls it: ``get_model`` does nothing, so evaluation and the SAVE_MODEL
+export score and write the local copy, and the model version advances
+from the sparse pushes' replies. With ``embedding_prefetch`` (the
+default under hybrid) the next batch's rows are pulled on the
+``EmbeddingPullPipeline``'s thread while the current batch computes: the
+worker plans the lookahead batch on its own thread and submits only the
+fan-out; a failed minibatch and the end of every round drop what is
+staged.
+
 **On the master-held model**, a master relaunched with a new
 ``master_epoch`` (``--master_journal_dir``) gets the worker's table
 infos and variables pushed again (``_on_master_epoch_change``); until
@@ -86,9 +100,9 @@ from elasticdl_tpu_torch.common.model_utils import get_model_spec
 from elasticdl_tpu_torch.common.tensor import Tensor
 from elasticdl_tpu_torch.metrics import to_host
 from elasticdl_tpu_torch.nn.comm_plane import (
+    EmbeddingPullPipeline,
     MasterStorePlane,
     PsPlane,
-    plan_lookup_multi,
 )
 from elasticdl_tpu_torch.nn.embedding import (
     capture_embedding_ids,
@@ -113,6 +127,7 @@ class _StepTimer:
         self._cuda = device.type == "cuda"
         self.split = {}
         self._events = None
+        self.pipelined = False  # the rows came from the pipeline
 
     def add(self, phase, seconds):
         self.split[phase] = self.split.get(phase, 0.0) + seconds
@@ -166,8 +181,37 @@ class Worker:
         export_dir=None,
         export_every_versions=0,
         export_keep=4,
+        embedding_plane="ps",
+        embedding_prefetch=None,
     ):
         from elasticdl_tpu_torch.common.device import resolve_device
+
+        # "ps": the parameter-server trainer (the dense model round-trips
+        # through get_model and the gradient report); "hybrid": the dense
+        # model stays on this worker and the fleet serves only the
+        # PS-plane tables
+        if embedding_plane not in ("ps", "hybrid"):
+            raise ValueError(
+                "embedding_plane must be 'ps' or 'hybrid', got %r"
+                % (embedding_plane,)
+            )
+        self._dense_local = embedding_plane == "hybrid"
+        if self._dense_local and ps_client is None:
+            raise ValueError(
+                "embedding_plane='hybrid' needs a ps_client: the PS "
+                "fleet serves the sparse tables while dense stays local"
+            )
+        if self._dense_local and job_type in (
+            JobType.EVALUATION_ONLY,
+            JobType.PREDICTION_ONLY,
+        ):
+            # the local copy is made by training (get_model does
+            # nothing): a scoring-only job would score the random init
+            raise ValueError(
+                "embedding_plane='hybrid' only supports training job "
+                "types: %s has no training loop to populate the local "
+                "dense replica" % job_type
+            )
 
         self._worker_id = worker_id
         self._job_type = job_type
@@ -186,7 +230,20 @@ class Worker:
         if stub is not None and hasattr(stub, "set_on_master_epoch_change"):
             stub.set_on_master_epoch_change(self._on_master_epoch_change)
         if ps_client is not None:
+            # a hybrid worker never pulls the model, so a shard that came
+            # back empty learns it (and the table infos) only from here
             ps_client.set_on_shard_reset(self._on_ps_shard_reset)
+        if embedding_prefetch is None:
+            embedding_prefetch = self._dense_local
+        self._emb_pipeline = (
+            EmbeddingPullPipeline()
+            if embedding_prefetch and ps_client is not None
+            else None
+        )
+        # dense tensors sent with gradients (0 under hybrid), and the
+        # rounds of the task stream that held a batch
+        self.dense_tensors_pushed = 0
+        self.rounds = 0
         self._export_dir = export_dir or None
         self._export_every = max(0, int(export_every_versions))
         self._export_keep = max(1, int(export_keep))
@@ -326,7 +383,10 @@ class Worker:
     def get_model(self, version, method=GetModelMethod.MINIMUM):
         """Pull the master's model (MINIMUM: the current one; FIXED: that
         version), or on the fleet every shard's newest, into the worker's
-        parameters."""
+        parameters. Under hybrid the worker's copy is the model: nothing
+        is pulled."""
+        if self._dense_local:
+            return
         with self._timed("get_model"):
             if self._ps_client is not None:
                 got_version, named = self._pull_dense()
@@ -426,11 +486,13 @@ class Worker:
             self._stub.report_variable(named)
 
     def report_gradient(self, grads, sparse_tensors=None):
+        named = self._to_wire(grads)
+        self.dense_tensors_pushed += len(named)
         if self._ps_client is not None:
             return self._ps_client.push_gradient(
-                self._to_wire(grads), sparse_tensors, self._model_version
+                named, sparse_tensors, self._model_version
             )
-        tensors = [Tensor(n, v) for n, v in self._to_wire(grads).items()]
+        tensors = [Tensor(n, v) for n, v in named.items()]
         tensors.extend(sparse_tensors or ())
         return self._stub.report_gradient(tensors, self._model_version)
 
@@ -500,7 +562,8 @@ class Worker:
 
     def _apply_local_dense(self, grads):
         """One step of the worker's own optimizer on its copy of the
-        model (SSP local updates)."""
+        model: every accepted minibatch under hybrid, and the SSP local
+        updates between pulls."""
         from elasticdl_tpu_torch.training.step import make_local_update_fn
 
         if self._local_opt is None:
@@ -522,24 +585,73 @@ class Worker:
     # -- the elastic embedding path -------------------------------------------
 
     def _plan_embedding_lookups(self, features):
+        """The capture pass and the unique plan: {path: (unique ids,
+        positions per call)}. Runs on the worker thread only (it runs the
+        model)."""
         captured = capture_embedding_ids(
             self._model, self._params, self._state, features,
             expected_count=self._embedding_num_calls,
         )
         return {
-            path: plan_lookup_multi(ids_list)
+            path: self._sparse_plane.plan_lookup_multi(ids_list)
             for path, ids_list in captured.items()
         }
 
+    def _pull_embedding_rows(self, lookups):
+        """One round for every layer's rows; also what the pipeline runs
+        on its thread."""
+        return self._sparse_plane.pull(
+            {path: unique for path, (unique, _) in lookups.items()}
+        )
+
+    def _kick_embedding_prefetch(self, batch):
+        """Stage the next batch's pull so its fan-out overlaps the
+        current batch's step: planned here, pulled on the pipeline's
+        thread. A planning error leaves the batch to pull inline."""
+        if (
+            self._emb_pipeline is None
+            or not self._embedding_dims
+            or self._params is None
+        ):
+            return
+        features = batch[0] if isinstance(batch, tuple) else batch
+        t0 = time.perf_counter()
+        try:
+            lookups = self._plan_embedding_lookups(features)
+        except Exception:  # noqa: BLE001 - the batch pulls inline
+            logger.warning(
+                "embedding prefetch planning failed; next batch pulls "
+                "inline", exc_info=True,
+            )
+            return
+        plan_s = time.perf_counter() - t0
+        self._emb_pipeline.submit(
+            features,
+            (lookups, plan_s),
+            lambda lookups=lookups: self._pull_embedding_rows(lookups),
+        )
+
     def _prepare_embedding_batch(self, features):
         """Plan the ids and pull the rows: (rows on the device, idx on
-        the device, {path: unique ids})."""
-        with self._timed("plan"):
-            lookups = self._plan_embedding_lookups(features)
-        with self._timed("pull"):
-            pulled = self._sparse_plane.pull(
-                {path: unique for path, (unique, _) in lookups.items()}
-            )
+        the device, {path: unique ids}). A pull staged for this very batch
+        is consumed (the split's ``pull`` is then its tail wait and
+        ``pull_bg`` the background pull); otherwise (the first batch, a
+        retry after a rejection, a dropped round) it runs inline."""
+        pre = None
+        if self._emb_pipeline is not None:
+            with self._timed("pull"):
+                pre = self._emb_pipeline.consume(features)
+        if pre is not None:
+            (lookups, plan_s), pulled = pre
+            if self._timer is not None:
+                self._timer.add("plan", plan_s)
+                self._timer.add("pull_bg", self._emb_pipeline.last_pull_s)
+                self._timer.pipelined = True
+        else:
+            with self._timed("plan"):
+                lookups = self._plan_embedding_lookups(features)
+            with self._timed("pull"):
+                pulled = self._pull_embedding_rows(lookups)
         rows, idx, plan = {}, {}, {}
         for path, (unique, idxs) in lookups.items():
             rows[path] = torch.tensor(pulled[path], device=self._device)
@@ -594,6 +706,21 @@ class Worker:
 
     def _run_training_task(self, features, labels):
         loss, grads, sparse_grads = self.training_process(features, labels)
+        if self._dense_local:
+            # hybrid: only the PS-plane tables' row gradients go out; the
+            # dense ones update this worker's copy once accepted
+            accepted, version = True, -1
+            if sparse_grads:
+                with self._timed("report"):
+                    accepted, version = self._sparse_plane.push(
+                        sparse_grads, max(self._model_version, 0)
+                    )
+            if version is not None and version >= 0:
+                self._model_version = max(self._model_version, version)
+            if accepted:
+                with self._timed("local_update"):
+                    self._apply_local_dense(grads)
+            return accepted, self._model_version, loss
         with self._timed("report"):
             accepted, min_model_version = self.report_gradient(
                 grads, sparse_grads
@@ -655,6 +782,7 @@ class Worker:
                     self._timeline(
                         "step", version=min_model_version,
                         split=self.step_splits[-1],
+                        pipelined=self._timer.pipelined,
                         launches=_flash_launches(),
                     )
                     self._timer = None
@@ -864,8 +992,12 @@ class Worker:
                 # this step; the elastic path reads its ids on the host
                 dataset = dataset.device_prefetch(self._device)
             batches_seen = 0
-            for dataset_batch in dataset:
+            for dataset_batch, next_batch in self._lookahead_pairs(dataset):
                 batches_seen += 1
+                if next_batch is not None:
+                    # the next batch's rows are pulled while this one
+                    # computes
+                    self._kick_embedding_prefetch(next_batch)
                 if self._job_type == JobType.TRAINING_WITH_EVALUATION:
                     if self._evaluate_only():
                         evaluation_task_executed = True
@@ -890,6 +1022,10 @@ class Worker:
                 local_update_count += 1
                 if err_msg:
                     last_training_minibatch_failed = True
+                    if self._emb_pipeline is not None:
+                        # the task requeues: what is staged for it is
+                        # dropped once; whoever reruns it pulls afresh
+                        self._emb_pipeline.invalidate()
                 else:
                     last_training_minibatch_failed = False
                     if local_update_count < self._get_model_steps:
@@ -898,6 +1034,10 @@ class Worker:
                     batch_count, err_msg
                 )
             del dataset
+            self.rounds += batches_seen > 0
+            if self._emb_pipeline is not None:
+                # a pull staged past the stream's end has no batch
+                self._emb_pipeline.invalidate()
             self._drain_ps_pushes()
             self._task_data_service.drain_acks()
             if self._job_type == JobType.TRAINING_WITH_EVALUATION:
@@ -905,6 +1045,22 @@ class Worker:
             self._process_save_model_task_if_needed()
             if batches_seen == 0:
                 time.sleep(0.2)
+
+    @staticmethod
+    def _lookahead_pairs(iterable):
+        """``(batch, next batch)`` with a lookahead of one; the next batch
+        is None on the last. The dataset already runs a batch ahead
+        (``prefetch(1)``), and the task ledger moves on
+        ``report_record_done``, not on iteration."""
+        it = iter(iterable)
+        try:
+            cur = next(it)
+        except StopIteration:
+            return
+        for nxt in it:
+            yield cur, nxt
+            cur = nxt
+        yield cur, None
 
     def _evaluate_only(self):
         executed = False
@@ -942,12 +1098,17 @@ class Worker:
         """Fetch tasks from the master and train, evaluate or predict;
         returns the accepted minibatches' losses."""
         self._timeline("start", launches=_flash_launches())
-        if self._job_type == JobType.PREDICTION_ONLY:
-            self._predict_only()
-        elif self._job_type == JobType.EVALUATION_ONLY:
-            self._evaluate_only()
-        else:
-            self._train_and_evaluate()
+        try:
+            if self._job_type == JobType.PREDICTION_ONLY:
+                self._predict_only()
+            elif self._job_type == JobType.EVALUATION_ONLY:
+                self._evaluate_only()
+            else:
+                self._train_and_evaluate()
+        finally:
+            # the pipeline's thread must not outlive the run
+            if self._emb_pipeline is not None:
+                self._emb_pipeline.close()
         self._drain_ps_pushes()
         self._task_data_service.drain_acks()
         losses = [float(loss) for loss in self.losses]
@@ -963,8 +1124,19 @@ class Worker:
                 losses_finite=bool(np.all(np.isfinite(losses))),
                 launches=_flash_launches(),
                 hot_row_cache=self._cache_stats(),
+                pipeline=self._pipeline_stats(),
+                dense_tensors_pushed=self.dense_tensors_pushed,
+                rounds=self.rounds,
             )
         return losses
+
+    def _pipeline_stats(self):
+        """The pull pipeline's counters, or None without one."""
+        pipe = self._emb_pipeline
+        if pipe is None:
+            return None
+        return {"served": pipe.served, "dropped": pipe.dropped,
+                "pull_s": pipe.pull_s}
 
     def _cache_stats(self):
         """The PS client's hot-row cache counters, or None without one."""
