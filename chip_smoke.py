@@ -186,8 +186,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    1``): every task done once, finite losses, no dense gradient on any
    shard (no dense apply; their dense model the worker's first push,
    bitwise), each shard exactly its ``id % 2`` rows of ``embedding`` and
-   no ``id_bias`` table, the pipeline serving all steps but one a round
-   and the first round's second. H2, the bench's PS-everything arm on
+   no ``id_bias`` table, the pipeline serving all steps but one a round.
+   H2, the bench's PS-everything arm on
    the same fleet and data (``--get_model_steps 4 --ps_push_inflight
    1``). Each run's examples/s (and H1 / H2), the step split (the
    pull's tail, the background pull, compute, the push, the local
@@ -5466,9 +5466,8 @@ def _h_fleet(torch, tmp, card, name, plane, seen, first_push=None):
     if plane == "hybrid" and ends:
         end = ends[0]
         pipe = end.get("pipeline") or {}
-        # the first round's second batch is staged before the variables
-        # exist, as in the reference: it pulls inline too
-        floor = steps - end["rounds"] - 1
+        # every step but each round's first is served from the pipeline
+        floor = steps - end["rounds"]
         if pipe.get("served", -1) < floor or pipe.get("dropped"):
             problems.append("%s pipeline %s over %d rounds" % (
                 name, pipe, end["rounds"]))

@@ -62,7 +62,7 @@ default under hybrid) the next batch's rows are pulled on the
 ``EmbeddingPullPipeline``'s thread while the current batch computes: the
 worker plans the lookahead batch on its own thread and submits only the
 fan-out; a failed minibatch and the end of every round drop what is
-staged.
+staged. A round's first batch pulls inline; every later one is staged.
 
 **On the master-held model**, a master relaunched with a new
 ``master_epoch`` (``--master_journal_dir``) gets the worker's table
@@ -604,15 +604,28 @@ class Worker:
             {path: unique for path, (unique, _) in lookups.items()}
         )
 
-    def _kick_embedding_prefetch(self, batch):
-        """Stage the next batch's pull so its fan-out overlaps the
-        current batch's step: planned here, pulled on the pipeline's
-        thread. A planning error leaves the batch to pull inline."""
-        if (
-            self._emb_pipeline is None
-            or not self._embedding_dims
-            or self._params is None
-        ):
+    def _kick_embedding_prefetch(self, batch, current):
+        """Stage ``batch``'s pull so its fan-out overlaps the step of
+        ``current``, the batch about to run: planned here, pulled on the
+        pipeline's thread. Before the first step the variables are made
+        from ``current`` first, so the second batch is staged too (the
+        reference stages from the third); a failure there is left to
+        ``current``'s own step, which makes them again. A planning error
+        leaves the batch to pull inline."""
+        if self._emb_pipeline is None:
+            return
+        if self._params is None:
+            try:
+                self._run_model_call_before_training(
+                    current[0] if isinstance(current, tuple) else current
+                )
+            except Exception:  # noqa: BLE001 - the step retries it
+                logger.warning(
+                    "variable creation before the first step failed; the "
+                    "step retries it", exc_info=True,
+                )
+                return
+        if not self._embedding_dims:
             return
         features = batch[0] if isinstance(batch, tuple) else batch
         t0 = time.perf_counter()
@@ -997,7 +1010,7 @@ class Worker:
                 if next_batch is not None:
                     # the next batch's rows are pulled while this one
                     # computes
-                    self._kick_embedding_prefetch(next_batch)
+                    self._kick_embedding_prefetch(next_batch, dataset_batch)
                 if self._job_type == JobType.TRAINING_WITH_EVALUATION:
                     if self._evaluate_only():
                         evaluation_task_executed = True

@@ -99,6 +99,12 @@ def _shards(n=2, epoch=1):
             for _ in range(n)]
 
 
+def _table_info(name, dim):
+    from elasticdl_tpu_torch.ps.parameters import EmbeddingTableInfo
+
+    return EmbeddingTableInfo(name, dim, "uniform")
+
+
 def _worker(client, zoo_plane, worker_plane, fc_unit=16, **kwargs):
     return Worker(
         worker_id=1, job_type=kwargs.pop("job_type", JobType.TRAINING_ONLY),
@@ -238,7 +244,7 @@ def test_ps_plane_shares_external_cache():
     shared = tplane.HotRowCache(64, window=2)
     shards = _shards()
     client = PSClient(shards, cache=shared)
-    client.push_model({}, [tplane_info("embedding", 4)])
+    client.push_model({}, [_table_info("embedding", 4)])
     plane = tplane.PsPlane(client)
     assert plane.cache is shared
     assert tplane.HbmPlane(shared_cache=shared).cache is shared
@@ -252,19 +258,13 @@ def test_ps_plane_shares_external_cache():
     plane.close()
 
 
-def tplane_info(name, dim):
-    from elasticdl_tpu_torch.ps.parameters import EmbeddingTableInfo
-
-    return EmbeddingTableInfo(name, dim, "uniform")
-
-
 def test_ps_plane_push_sends_the_sparse_tensors_alone():
     from elasticdl_tpu_torch.common.tensor import Tensor
 
     shards = _shards()
     client = PSClient(shards)
     client.push_model({"w": np.ones(3, np.float32)},
-                      [tplane_info("embedding", 2)])
+                      [_table_info("embedding", 2)])
     plane = tplane.PsPlane(client)
     before = [s._parameters.get_non_embedding_param("w") for s in shards]
     before = [None if b is None else np.array(b) for b in before]
@@ -612,7 +612,10 @@ def test_hybrid_job_end_to_end(tmp_path, monkeypatch):
     assert len(steps) == 8
     pipelined = [e["pipelined"] for e in steps]
     assert sum(pipelined) == worker._emb_pipeline.served
-    assert not pipelined[0]
+    # each round's first batch pulls inline, every later one is staged
+    # (the first round's second too: the variables are made before it)
+    rounds = worker.rounds
+    assert worker._emb_pipeline.served == 8 - rounds and not pipelined[0]
     for e in steps:
         assert "get_model" not in e["split"]
         assert {"compute", "report", "local_update"} <= set(e["split"])
@@ -791,7 +794,6 @@ def test_a_hybrid_fleet_of_processes_trains(tmp_path):
     with open(os.path.join(timeline, "worker-0.jsonl")) as f:
         (end,) = [e for e in map(json.loads, f) if e["event"] == "end"]
     assert end["dense_tensors_pushed"] == 0 and end["rounds"] == 1
-    # every step but the round's first two: the second is staged before
-    # the variables exist, as in the reference
-    assert end["pipeline"]["served"] == 8 - 2
+    # every step but the round's first
+    assert end["pipeline"]["served"] == 8 - 1
     assert end["pipeline"]["dropped"] == 0
