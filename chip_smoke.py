@@ -5136,6 +5136,7 @@ def _ps_tiers_only(torch):
 # ---------------------------------------------------------------------------
 
 H_PREFETCH_TOL = 5e-2  # H0's prefetch arm against the prefetch-off arm
+H_MAX_MISSED = 1  # pushes a staged pull may miss: the batch in flight's
 
 
 def _h_params(plane):
@@ -5197,6 +5198,56 @@ def _h_init(torch, features, seen, pair):
         hy._params["id_bias.table"][torch.from_numpy(seen).to(DEVICE)] = (
             torch.from_numpy(bias).to(DEVICE))
     return first_push
+
+
+def _h_staleness_probe(worker, shards):
+    """Hold every staged pull of an in-process arm to one step of
+    staleness. When the pipeline's thread starts a pull, the shards'
+    versions are noted; when the worker consumes it for batch N+1, the
+    steps it has computed (N) less the pushes those versions already
+    hold is what the rows miss, and only batch N's push may be missing.
+    A pull staged two batches ahead, or before the previous push was
+    applied, or a push held back a step, misses two. Returns the list
+    that gets one count per served step."""
+    plane, pipe = worker._sparse_plane, worker._emb_pipeline
+    pull, push, consume = plane.pull, plane.push, pipe.consume
+    train = worker.training_process
+
+    def versions():
+        return tuple(s._parameters.version for s in shards)
+
+    after = [versions()]  # before the first push, then after each
+    started, missed, steps = {}, [], [0]
+
+    def probe_pull(ids_by_table, **kwargs):
+        at = versions()
+        rows = pull(ids_by_table, **kwargs)
+        if threading.current_thread().name.startswith("edl-emb-pull"):
+            started[id(rows)] = at
+        return rows
+
+    def probe_push(sparse, version):
+        out = push(sparse, version)
+        after.append(versions())
+        return out
+
+    def probe_consume(key):
+        got = consume(key)
+        if got is not None:
+            at = started.pop(id(got[1]))
+            held = sum(1 for v in after[1:]
+                       if all(a <= b for a, b in zip(v, at)))
+            missed.append(steps[0] - held)
+        return got
+
+    def probe_train(features, labels):
+        out = train(features, labels)
+        steps[0] += 1
+        return out
+
+    plane.pull, plane.push, pipe.consume = probe_pull, probe_push, probe_consume
+    worker.training_process = probe_train
+    return missed
 
 
 def _h_state(worker, client, seen):
@@ -5319,6 +5370,7 @@ def _h0(torch, tmp, card, ids, labels, seen):
         opened += [a[1] for a in arms]
         _h_init(torch, features, seen, [(a[0], a[1]) for a in arms[:2]])
         _h_init(torch, features, seen, [(a[0], a[1]) for a in arms[::2]])
+        missed = _h_staleness_probe(arms[2][0], arms[2][2])
         states, runs = [], []
         for name, (worker, client, _, task_d) in zip(
                 ("ps", "hybrid", "hybrid_prefetch"), arms):
@@ -5357,6 +5409,13 @@ def _h0(torch, tmp, card, ids, labels, seen):
         if pipe["served"] != want_served or pipe["dropped"]:
             problems.append("h0 prefetch served %d (want %d), dropped %d"
                             % (pipe["served"], want_served, pipe["dropped"]))
+        rec["prefetch_missed_pushes"] = {
+            str(k): missed.count(k) for k in sorted(set(missed))}
+        if len(missed) != pipe["served"] or max(missed, default=0) > (
+                H_MAX_MISSED):
+            problems.append("h0 prefetch: %d served steps, missed pushes %s "
+                            "(at most %d)" % (len(missed), missed,
+                                              H_MAX_MISSED))
         rel, bitwise = _h_compare(states[2], states[1])
         grouped = _z_grouped_rel(states[2], states[1])
         rec["prefetch_vs_inline"] = {
@@ -5438,13 +5497,15 @@ def _h_fleet(torch, tmp, card, name, plane, seen, first_push=None):
         "records": Z_RECORDS, "shards": FLEET_SHARDS,
         "job_flags": job, "worker_flags": worker, "job_s": raw["job_s"],
         "examples_per_s": _fleet_examples_per_s(events, PS_BATCH),
-        # the median step's rate: a one-time stall after the first step
-        # (the worker's first local optimizer step loads torch's lazy
-        # imports, under SSP at step 2) weighs on examples_per_s alone
+        # the median step's rate; a one-time stall after the first step
+        # would weigh on examples_per_s alone (the worker warms its
+        # optimizer before the first task, so step_ms_max shows none)
         "examples_per_s_median_step": (
             PS_BATCH * 1e3 / step_ms if step_ms else None),
         "step_split": _h_split(events),
         "step_ms_median": step_ms,
+        "step_ms_max": max([(b["t"] - a["t"]) * 1e3 for a, b in zip(
+            _fleet_steps(events), _fleet_steps(events)[1:])], default=None),
         # every step: the ms since the one before and its split's ms
         "steps": [
             dict({k + "_ms": round(v * 1e3, 3) for k, v in s["split"].items()
@@ -5518,12 +5579,13 @@ def phase_ps_hybrid(torch, tmp, card):
     emit(rec)
     problems += bad
     torch.cuda.empty_cache()
-    rates, steady = {}, {}
+    rates, steady, slowest = {}, {}, {}
     for name, plane in (("h1", "hybrid"), ("h2", "ps")):
         rec, bad = _h_fleet(torch, tmp, card, name, plane, seen,
                             first_push if plane == "hybrid" else None)
         rates[name] = rec["examples_per_s"]
         steady[name] = rec["examples_per_s_median_step"]
+        slowest[name] = rec["step_ms_max"]
         emit(rec)
         problems += bad
         for k, n in rec["worker_flash_launches"].items():
@@ -5539,6 +5601,9 @@ def phase_ps_hybrid(torch, tmp, card):
           "h1_over_h2_median_step": (steady["h1"] / steady["h2"]
                                      if steady["h1"] and steady["h2"]
                                      else None),
+          # the slowest step after the first in each window: a stall in
+          # one arm alone would make the first ratio unlike the second
+          "step_ms_max": slowest,
           "seconds": time.perf_counter() - t0,
           "flash_launches": {k: n for k, (n, _) in counts.items()}})
     if problems:

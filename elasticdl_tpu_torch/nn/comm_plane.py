@@ -22,8 +22,8 @@ path talks to, ``plan -> pull -> push -> drain``:
   ``report_gradient`` with the dense ones); :class:`PsPlane` pulls them
   from the PS fleet in one fan-out over every (table, shard) leg
   (``worker/ps_client.py``) and pushes the sparse gradients alone (the
-  hybrid trainer's push); :class:`HbmPlane` is the in-graph plane, whose
-  table updates inside the step, so it neither pulls nor pushes;
+  hybrid trainer's push). An HBM-plane table is looked up and updated
+  inside the step and has no plane object;
 - the worker copies the pulled ``(k, dim)`` rows to the card as they
   are. The reference pads them to a power-of-two bucket to bound XLA
   recompiles; eager PyTorch has none to bound, and the pushed
@@ -166,16 +166,8 @@ def plan_lookup_multi(ids_list):
 
 
 class CommPlane:
-    """The embedding plane of one or more tables. ``in_graph`` planes
-    look their rows up inside the step (the HBM plane); host planes pull
-    rows before the step and push the combined row gradients after
-    it."""
-
-    in_graph = False
-
-    def plan_lookup_multi(self, ids_list):
-        """The shared unique planner (:func:`plan_lookup_multi`)."""
-        return plan_lookup_multi(ids_list)
+    """The host side of a table's plane: rows are pulled before the step
+    and the combined row gradients pushed after it."""
 
     def pull(self, ids_by_table):
         """{table: unique ids} -> {table: (k, dim) rows} in one round."""
@@ -189,14 +181,6 @@ class CommPlane:
         """Settle the pushes in flight; ``(accepted, version)``, or
         ``(True, -1)`` for a plane without a push window."""
         return True, -1
-
-    @property
-    def cache(self):
-        """The shared :class:`HotRowCache`, or None."""
-        return None
-
-    def close(self):
-        """Release the plane's threads and channels."""
 
 
 class MasterStorePlane(CommPlane):
@@ -230,54 +214,23 @@ class PsPlane(CommPlane):
     hybrid trainer keeps the dense half off the fleet), and
     :meth:`drain` settles the push window. After a shard relaunch the
     client abandons the pushes in flight: a drain drops their outcome
-    and never resends them."""
+    and never resends them. A pull with ``service_reinit=False`` (the
+    pull pipeline's) leaves a pending re-push to a shard that came back
+    empty to the worker thread's next call."""
 
     def __init__(self, ps_client):
         self._client = ps_client
 
-    @property
-    def cache(self):
-        return getattr(self._client, "hot_row_cache", None)
-
-    def pull(self, ids_by_table):
-        return self._client.pull_embedding_vectors_multi(ids_by_table)
+    def pull(self, ids_by_table, service_reinit=True):
+        return self._client.pull_embedding_vectors_multi(
+            ids_by_table, service_reinit=service_reinit
+        )
 
     def push(self, sparse_tensors, version):
         return self._client.push_gradient({}, sparse_tensors, version)
 
     def drain(self):
         return self._client.drain()
-
-    def close(self):
-        self._client.close()
-
-
-class HbmPlane(CommPlane):
-    """The in-graph plane: the table is a parameter on the card, looked
-    up and updated inside the step (``nn/hbm_embedding.py``). Its
-    ``pull`` and ``push`` never run; the plane lets a planner treat every
-    table alike, and can front its tables with a shared cache."""
-
-    in_graph = True
-
-    def __init__(self, shared_cache=None):
-        self._cache = shared_cache
-
-    @property
-    def cache(self):
-        return self._cache
-
-    def pull(self, ids_by_table):
-        raise RuntimeError(
-            "hbm tables are looked up inside the step on the device; "
-            "there is no host-side pull to perform"
-        )
-
-    def push(self, sparse_tensors, version):
-        raise RuntimeError(
-            "hbm table gradients apply inside the step on the device; "
-            "there is no host-side push to perform"
-        )
 
 
 class EmbeddingPullPipeline:

@@ -433,11 +433,14 @@ class PSClient:
     def pull_embedding_vectors(self, name, ids):
         return self.pull_embedding_vectors_multi({name: ids})[name]
 
-    def pull_embedding_vectors_multi(self, ids_by_name):
+    def pull_embedding_vectors_multi(self, ids_by_name, service_reinit=True):
         """``{table: ids} -> {table: rows}`` in one fan-out round over
         every (table, shard) leg, rows in the ids' order; the cache's
-        hits stay off the wire."""
-        self._service_reinit()
+        hits stay off the wire. ``service_reinit=False`` leaves a pending
+        re-push to the next call that services it (a caller off the
+        worker's thread)."""
+        if service_reinit:
+            self._service_reinit()
         state, calls = {}, []
         for name, ids in ids_by_name.items():
             ids = np.asarray(ids, dtype=np.int64)

@@ -63,6 +63,9 @@ default under hybrid) the next batch's rows are pulled on the
 worker plans the lookahead batch on its own thread and submits only the
 fan-out; a failed minibatch and the end of every round drop what is
 staged. A round's first batch pulls inline; every later one is staged.
+A worker that updates its own copy (under hybrid, or SSP's
+``get_model_steps`` > 1) steps its optimizer once on a scratch tensor
+before the first task, so torch's lazy loading stays out of the steps.
 
 **On the master-held model**, a master relaunched with a new
 ``master_epoch`` (``--master_journal_dir``) gets the worker's table
@@ -103,6 +106,7 @@ from elasticdl_tpu_torch.nn.comm_plane import (
     EmbeddingPullPipeline,
     MasterStorePlane,
     PsPlane,
+    plan_lookup_multi,
 )
 from elasticdl_tpu_torch.nn.embedding import (
     capture_embedding_ids,
@@ -414,7 +418,10 @@ class Worker:
         return (version, named) if ready else (-1, {})
 
     def _on_ps_shard_reset(self, shards):
-        """The client's hook: shards came back with no model."""
+        """The client's hook: shards came back with no model. It runs on
+        the worker thread only (the pull pipeline's thread leaves it
+        pending), so the pushed model is never one torn by a local
+        update."""
         if self._var_created and self._params is not None:
             logger.warning(
                 "re-pushing the model and table infos after PS shard(s) "
@@ -576,6 +583,22 @@ class Worker:
         with torch.no_grad():
             self._local_update(grads, self._local_opt, self._params)
 
+    def _warm_local_optimizer(self):
+        """One zero-gradient step of the model's optimizer on a scratch
+        tensor on the device, before the first task: the first local
+        update (every step under hybrid, the SSP steps between pulls)
+        then does not pay torch's lazy loading inside the job. The model
+        is not touched."""
+        try:
+            scratch = torch.zeros(1, device=self._device, requires_grad=True)
+            opt = self._opt_fn([scratch])
+            scratch.grad = torch.zeros_like(scratch)
+            opt.step()
+            if self._device.type == "cuda":
+                torch.cuda.synchronize(self._device)
+        except Exception as err:  # noqa: BLE001 - the first update raises it
+            logger.warning("warming the local optimizer failed: %s", err)
+
     def _update_local_model(self):
         if self._non_embed_grads is None:
             return
@@ -593,15 +616,19 @@ class Worker:
             expected_count=self._embedding_num_calls,
         )
         return {
-            path: self._sparse_plane.plan_lookup_multi(ids_list)
+            path: plan_lookup_multi(ids_list)
             for path, ids_list in captured.items()
         }
 
-    def _pull_embedding_rows(self, lookups):
-        """One round for every layer's rows; also what the pipeline runs
-        on its thread."""
+    def _pull_embedding_rows(self, lookups, **kwargs):
+        """One round for every layer's rows. The pipeline's thread passes
+        ``service_reinit=False``: a re-push to a shard that came back
+        empty reads the parameters that the worker thread updates in
+        place, so it waits for that thread's next call. Until then a pull
+        from that shard fails, and so does the batch it was staged for;
+        its retry pulls inline."""
         return self._sparse_plane.pull(
-            {path: unique for path, (unique, _) in lookups.items()}
+            {path: unique for path, (unique, _) in lookups.items()}, **kwargs
         )
 
     def _kick_embedding_prefetch(self, batch, current):
@@ -641,7 +668,9 @@ class Worker:
         self._emb_pipeline.submit(
             features,
             (lookups, plan_s),
-            lambda lookups=lookups: self._pull_embedding_rows(lookups),
+            lambda lookups=lookups: self._pull_embedding_rows(
+                lookups, service_reinit=False
+            ),
         )
 
     def _prepare_embedding_batch(self, features):
@@ -1110,6 +1139,11 @@ class Worker:
     def run(self):
         """Fetch tasks from the master and train, evaluate or predict;
         returns the accepted minibatches' losses."""
+        if self._job_type in (
+            JobType.TRAINING_ONLY,
+            JobType.TRAINING_WITH_EVALUATION,
+        ) and (self._dense_local or self._get_model_steps > 1):
+            self._warm_local_optimizer()
         self._timeline("start", launches=_flash_launches())
         try:
             if self._job_type == JobType.PREDICTION_ONLY:

@@ -7,10 +7,10 @@ case).
   ``invalidate`` drops exactly once, the depth evicts the oldest, a failed
   pull surfaces at ``consume``, ``close`` stops the thread and a later
   ``submit`` raises.
-- The planes: ``HbmPlane`` is in-graph only, ``PsPlane`` shares an
-  external cache and pushes the sparse tensors alone,
-  ``MasterStorePlane.push`` raises; a hybrid worker refuses evaluate- and
-  predict-only jobs and a missing PS client.
+- The planes: ``PsPlane`` pulls through the client's hot-row cache and
+  pushes the sparse tensors alone, ``MasterStorePlane.push`` raises; a
+  hybrid worker refuses evaluate- and predict-only jobs and a missing PS
+  client, and warms its optimizer before the first task.
 - Plane parity across the packages: one power-law batch and one set of
   weights (the JAX workers' init, carried with ``common/convert.py``, and
   the JAX store's rows seeded into the port's shards); the port's PS, HBM
@@ -24,7 +24,8 @@ case).
   staged pull dropped exactly once, the SAVE_MODEL export carrying the
   worker's trained copy, the timeline's ``pipelined`` steps and its
   ``end`` counters, and a shard replaced by an empty one getting the
-  model and infos again while the worker trains on.
+  model and infos again, from the worker thread, while the worker trains
+  on.
 """
 
 import json
@@ -225,29 +226,12 @@ def test_pipeline_times_the_background_pulls():
 # ---------------------------------------------------------------------------
 
 
-def test_hbm_plane_is_in_graph_only():
-    plane = tplane.HbmPlane()
-    assert plane.in_graph and plane.cache is None
-    with pytest.raises(RuntimeError, match="inside the step"):
-        plane.pull({"t": np.array([1])})
-    with pytest.raises(RuntimeError, match="inside the step"):
-        plane.push([], 0)
-    # the planner is still the shared host-side one, the reference's
-    ids = [np.array([5, 5, 7]), np.array([[7, 9]])]
-    unique, idxs = plane.plan_lookup_multi(ids)
-    want_unique, want_idxs, _ = jplane.HbmPlane().plan_lookup_multi(ids)
-    assert np.array_equal(unique, want_unique)
-    assert all(np.array_equal(a, b) for a, b in zip(idxs, want_idxs))
-
-
 def test_ps_plane_shares_external_cache():
     shared = tplane.HotRowCache(64, window=2)
     shards = _shards()
     client = PSClient(shards, cache=shared)
     client.push_model({}, [_table_info("embedding", 4)])
     plane = tplane.PsPlane(client)
-    assert plane.cache is shared
-    assert tplane.HbmPlane(shared_cache=shared).cache is shared
     rows = plane.pull({"embedding": np.array([1, 2, 3], np.int64)})
     assert rows["embedding"].shape == (3, 4)
     assert len(shared) == 3
@@ -255,7 +239,37 @@ def test_ps_plane_shares_external_cache():
     again = plane.pull({"embedding": np.array([1, 2, 3], np.int64)})
     assert shared.hits == before + 3
     assert np.array_equal(again["embedding"], rows["embedding"])
-    plane.close()
+    client.close()
+
+
+@pytest.mark.parametrize("service_reinit", [True, False])
+def test_ps_plane_pull_services_a_pending_repush_when_asked(service_reinit):
+    """A shard that came back empty gets the worker's re-push before a
+    pull that services it; the pipeline thread's pull leaves it pending
+    (and fails on the empty shard), so the next call runs it."""
+    shards = [_Remote(s) for s in _shards()]
+    client = PSClient(shards)
+    client.push_model({}, [_table_info("embedding", 4)])
+    repushes = []
+
+    def repush(which):
+        repushes.append(which)
+        client.push_model({}, [_table_info("embedding", 4)])
+
+    client.set_on_shard_reset(repush)
+    client._ps[1] = _Remote(_shards(1, epoch=2)[0])
+    client._note_shard_failures({1})  # the probe sees the new, empty shard
+    plane = tplane.PsPlane(client)
+    ids = {"embedding": np.array([1, 2, 3], np.int64)}
+    if service_reinit:
+        assert plane.pull(ids)["embedding"].shape == (3, 4)
+        assert repushes == [[1]]
+    else:
+        with pytest.raises(Exception, match="initialize embedding param"):
+            plane.pull(ids, service_reinit=False)
+        assert repushes == []
+        assert plane.push([], 0)[0] and repushes == [[1]]
+    client.close()
 
 
 def test_ps_plane_push_sends_the_sparse_tensors_alone():
@@ -280,7 +294,7 @@ def test_ps_plane_push_sends_the_sparse_tensors_alone():
         got = shard._parameters.get_non_embedding_param("w")
         assert (b is None and got is None) or np.array_equal(
             np.array(got), b)
-    plane.close()
+    client.close()
 
 
 def test_master_store_plane_pulls_per_table_and_refuses_push():
@@ -295,7 +309,7 @@ def test_master_store_plane_pulls_per_table_and_refuses_push():
     out = plane.pull({"a": np.array([1, 2]), "b": np.array([3, 4, 5])})
     assert out["a"].shape == (2, 4) and out["b"].shape == (3, 4)
     assert calls == {"a": 1, "b": 1}
-    assert plane.drain() == (True, -1) and not plane.in_graph
+    assert plane.drain() == (True, -1)
     with pytest.raises(NotImplementedError, match="report_gradient"):
         plane.push([], 0)
     with pytest.raises(NotImplementedError):
@@ -696,6 +710,59 @@ def test_hybrid_worker_repushes_to_an_empty_shard(tmp_path):
     assert sorted(fresh.embedding_params) == ["embedding"]
     assert fresh.embedding_params["embedding"].embedding_vectors
     assert [r[:3] for r in worker._ps_client.relaunches] == [(1, 1, 2)]
+
+
+def test_hybrid_repush_runs_on_the_worker_thread(tmp_path, monkeypatch):
+    """The re-push reads the parameters that the worker thread updates in
+    place, so it never runs on the pull pipeline's thread: here that
+    thread's staged pull is the first call after the relaunch is seen."""
+    threads = []
+    reset = Worker._on_ps_shard_reset
+
+    def recording_reset(self, shards):
+        threads.append(threading.current_thread().name)
+        return reset(self, shards)
+
+    monkeypatch.setattr(Worker, "_on_ps_shard_reset", recording_reset)
+    shards = [_Remote(s) for s in _shards()]
+
+    def swap(step, worker):
+        if step == 3:
+            worker._ps_client._ps[1] = _Remote(_shards(1, epoch=2)[0])
+            worker._ps_client._note_shard_failures({1})
+
+    worker, task_d, _, losses, _ = _run_hybrid_job(
+        tmp_path, shards=shards, on_step=swap)
+    assert task_d.finished() and len(losses) == 8
+    assert threads and set(threads) == {threading.main_thread().name}
+
+
+@pytest.mark.parametrize(
+    "plane,get_model_steps,warms",
+    [("hybrid", 1, True), ("ps", 4, True), ("ps", 1, False)],
+    ids=["hybrid", "ssp", "ps"],
+)
+def test_local_optimizer_warms_before_the_first_task(
+        plane, get_model_steps, warms):
+    """A worker that updates its own copy (every step under hybrid, the
+    SSP steps) steps its optimizer once on a scratch tensor before the
+    first task; the model and its optimizer are untouched."""
+    worker = _worker(PSClient(_shards()), plane, plane,
+                     get_model_steps=get_model_steps,
+                     stub=type("NoTasks", (), {})())
+    built = []
+    opt_fn = worker._opt_fn
+
+    def recording_opt_fn(params):
+        built.append([tuple(p.shape) for p in params])
+        return opt_fn(params)
+
+    worker._opt_fn = recording_opt_fn
+    worker._train_and_evaluate = lambda: None
+    worker.run()
+    assert built == ([[(1,)]] if warms else [])
+    assert worker._local_opt is None and worker._params is None
+    worker._ps_client.close()
 
 
 def test_the_worker_entry_point_refuses_hybrid_without_a_fleet():
