@@ -103,8 +103,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (``get_model``, plan, the rows' pull, compute with its CUDA-event
    time, ``report_gradient`` with the master's apply, the host's parse),
    the master's dense and sparse apply, the store's rows and bytes, peak
-   memory, round seconds. A profiled window of three steps of a second
-   run (the device's idle share). The sync job on the card against the
+   memory, round seconds. The sync job on the card against the
    CPU from one init, tasks unshuffled (dense params and touched rows
    within 1e-4 relative L2); one batch through the PS plane against PR
    9's HBM plane from the same weights (outputs within 1e-5 relative L2,
@@ -193,7 +192,36 @@ Phases, each printing JSON lines; any failure exits non-zero:
    pull's tail, the background pull, compute, the push, the local
    update, the parse), each shard's applies, peaks. No flash kernel
    launches (``launches_by_path.ps_hybrid`` = 0).
-13. elastic — the multi-process elastic ALLREDUCE job through the port's
+13. ps_serve — serving's PS plane, scoring while the fleet trains: two
+   ``ps.main`` shards (async, a snapshot every 8 versions) hold DeepFM's
+   tables at zoo width (``embedding`` 64 wide, ``id_bias`` 1 wide, ids
+   from 1,048,576); a PS-everything worker in this process
+   (``--get_model_steps 4``) trains on ps_tiers' zipf records from a
+   streaming dispatcher and exports every 8 versions (4 kept). Two
+   scorers serve the exports with ``--ps_addrs``: a ``python -m
+   elasticdl_tpu_torch.serving.main`` process over its socket transport,
+   and a ``build_scorer`` stack in this process behind a socket
+   ``ScorerServer`` (each with a window of 4 versions, a delta sync every
+   0.25 s, micro-batching to 64 rows). One client thread per scorer sends
+   32-row requests of 10 zipf ids, closed loop, for 20 s; shard 0 is
+   SIGKILLed at 40 % of the drive and relaunched on its port. Checks:
+   every reply issued outside [kill - 1 s, shard serving + 5 s] succeeds
+   with finite logits; both scorers serve after recovery; each
+   hot-swapped (its final version above its first); every staleness
+   sample (``scorer_status``, 0.5 s apart) at most 4; the in-process
+   client saw shard 0's relaunch and its sync re-tagged and dropped rows
+   and invalidated no table; once the trainer has drained and one
+   ``sync_once`` has run, a fixed 32-row batch scored in process within
+   1e-6 relative L2 of the newest export's Dense layers on the card bound
+   to rows read from the shards with no cache (bitwise reported), and
+   the micro-batcher's reply to it bitwise the solo score's. Records
+   requests/s, p50/p99 per scorer, the in-process request's split
+   (capture and plan, pull, forward with sync; timed from here), the
+   sync round's and ``refresh_table`` walk's seconds, its counters, the
+   highest staleness, kill -> serving -> first good reply, the scorer
+   process's peak memory. No flash kernel launches
+   (``launches_by_path.ps_serve`` = 0, this process's).
+14. elastic — the multi-process elastic ALLREDUCE job through the port's
    command line with ``--num_workers 2``: the master in this process,
    two worker processes sharing the card in one process world (gloo:
    NCCL refuses two ranks on one device; on a host with a card for each
@@ -238,14 +266,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
    report their flash launches, by run (``launches_by_path`` ``elastic``
    for A and B, ``elastic_master_kill``, ``elastic_standby`` and
    ``elastic_eval``, each 0).
-14. summary — the kernels line, the card line, then the result line.
+15. summary — the kernels line, the card line, then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
-non-zero and prints no result. ``--elastic-only`` runs phases 1 and 13
+non-zero and prints no result. ``--elastic-only`` runs phases 1 and 14
 alone, ``--zoo-only`` phases 1 and 8, ``--ps-only`` phases 1 and 9,
 ``--ps-fleet-only`` phases 1 and 10, ``--ps-tiers-only`` phases 1 and
-11, ``--ps-hybrid-only`` phases 1 and 12, and none of them prints the
-result line.
+11, ``--ps-hybrid-only`` phases 1 and 12, ``--ps-serve-only`` phases 1
+and 13, and none of them prints the result line.
 """
 
 import argparse
@@ -1117,7 +1145,7 @@ def phase_slice(torch, tmp):
             "--serve_batch_timeout_ms", "50",
         ]
     )
-    scorer, watcher, batcher = build_scorer(args)
+    scorer, watcher, _, _, batcher = build_scorer(args)
     t0 = time.perf_counter()
     if watcher.poll_once() != 1:
         raise PhaseError("the watcher did not install the v1 artifact")
@@ -3205,8 +3233,6 @@ PS_JOB_LIMIT_S = 240
 PS_CARD_CPU_RECORDS = 4096  # the sync job on the card and on the CPU
 PS_CARD_CPU_TOL = 1e-4  # relative L2, dense params and touched rows
 PS_HBM_TOL = {"outputs": 1e-5, "rows": 1e-6, "dense": 1e-5}
-PS_PROFILE_STEPS = (2, 5)  # profiled window: before step 2 to before 5
-PS_PROFILE_RECORDS = 6144
 
 
 def _frappe_ids(n, seed):
@@ -3237,10 +3263,10 @@ def _ps_argv(verb, model_def, batch, *extra):
 class _PsSpies:
     """While installed: the training tasks the dispatcher marks done, the
     servicer's accepted gradients, and each evaluation round's seconds
-    (created -> published); ``on_step(i)`` runs before the worker's
-    training minibatch i (from 0), whose (start, end) land in ``spans``."""
+    (created -> published); each training minibatch's (start, end) lands
+    in ``spans``."""
 
-    def __init__(self, on_step=None):
+    def __init__(self):
         from elasticdl_tpu_torch.master import evaluation_service as es
         from elasticdl_tpu_torch.master import servicer as sv
         from elasticdl_tpu_torch.master import task_dispatcher as td
@@ -3256,7 +3282,6 @@ class _PsSpies:
         self._saved = [getattr(c, n) for c, n in self._patches]
         self.done, self.accepted, self.rounds, self.spans = [], [0], [], []
         self._round_t0 = []
-        self._on_step = on_step
 
     def __enter__(self):
         spies = self
@@ -3289,8 +3314,6 @@ class _PsSpies:
 
             if task_type != TaskType.TRAINING:
                 return minibatch(w, task_type, *args, **kwargs)
-            if spies._on_step is not None:
-                spies._on_step(len(spies.spans))
             t0 = time.perf_counter()
             try:
                 return minibatch(w, task_type, *args, **kwargs)
@@ -3509,37 +3532,6 @@ def _ps_alone_ms(torch, worker):
             times.append((time.perf_counter() - t0) * 1e3)
         out[name] = _median(times)
     return out
-
-
-def _ps_profile(torch, data_dir, card):
-    """A short DeepFM job with torch.profiler on from before step
-    PS_PROFILE_STEPS[0] to before step PS_PROFILE_STEPS[1]: the device's
-    idle share of that window."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from elasticdl_tpu_torch import cli
-
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    first, last = PS_PROFILE_STEPS
-    marks = {}
-
-    def on_step(i):
-        if i in (first, last):
-            torch.cuda.synchronize()
-            marks[i] = time.perf_counter()
-            (prof.start if i == first else prof.stop)()
-
-    with _PsSpies(on_step):
-        rc = cli.main(_ps_argv("train", PS_DEEPFM, PS_BATCH,
-                               "--training_data", data_dir))
-    if rc != 0 or last not in marks:
-        raise PhaseError("the profiled ps job ended rc=%s before step %d"
-                         % (rc, last))
-    return dict(
-        _window_record(torch, prof, (marks[last] - marks[first]) * 1e3),
-        phase="ps", of="profile", steps=[first, last], batch=PS_BATCH,
-        card=card,
-    )
 
 
 def _ps_async_kill(torch, tmp, card):
@@ -3900,7 +3892,7 @@ def _ps_mnist(torch, tmp, card):
 
 def phase_ps(torch, tmp, card):
     """The ParameterServerStrategy job on the master-held model: DeepFM at
-    its zoo width in process (P1) with its profile, card against CPU and
+    its zoo width in process (P1), card against CPU and
     PS plane against HBM plane; two worker processes with a worker kill
     (P2); the MNIST model in process (P3). Returns the flash kernels'
     launches over the phase (none), this process's and P2's workers'."""
@@ -3909,15 +3901,11 @@ def phase_ps(torch, tmp, card):
     _write_frappe(os.path.join(tmp, "ps-data"), ids, labels)
     ids, labels = _frappe_ids(PS_VAL_RECORDS, SEED + 41)
     _write_frappe(os.path.join(tmp, "ps-val"), ids, labels)
-    ids, labels = _frappe_ids(PS_PROFILE_RECORDS, SEED + 46)
-    _write_frappe(os.path.join(tmp, "ps-profile"), ids, labels)
     problems = []
     worker_launches = {k: 0 for k in KERNELS}
     _reset_counters()
     for run in (
         lambda: _ps_in_process(torch, tmp, card),
-        lambda: (_ps_profile(torch, os.path.join(tmp, "ps-profile"), card),
-                 []),
         lambda: _ps_card_vs_cpu(torch, tmp),
         lambda: _ps_vs_hbm(torch, tmp),
         lambda: _ps_async_kill(torch, tmp, card),
@@ -3960,7 +3948,7 @@ def _ps_only(torch):
 # ---------------------------------------------------------------------------
 
 FLEET_SHARDS = 2
-FLEET_ASYNC_EPOCHS = 3  # Runs F2/F3: 16 steps an epoch over two workers
+FLEET_ASYNC_EPOCHS = 2  # Runs F2/F3: 16 steps an epoch over two workers
 FLEET_KILL_AT_VERSION = 8
 FLEET_SNAPSHOT_VERSIONS = 8
 FLEET_JOB_LIMIT_S = 300  # a fleet run that hangs fails the phase
@@ -5628,6 +5616,622 @@ def _ps_hybrid_only(torch):
 
 
 # ---------------------------------------------------------------------------
+# ps_serve: serving's PS plane, scoring zipf DeepFM while the fleet trains
+# ---------------------------------------------------------------------------
+
+S_REQUEST_ROWS = 32  # the reference bench's request: 32 rows of 10 ids
+S_DRIVE_S = 20.0  # the closed-loop drive
+S_KILL_AT = 0.4  # shard 0 is SIGKILLed at this share of the drive
+S_WINDOW = 4  # --serving_staleness_versions
+S_SYNC_INTERVAL_S = 0.25
+S_SNAPSHOT_VERSIONS = 8
+S_EXPORT = (8, 4)  # --export_every_versions, --export_keep
+S_GET_MODEL_STEPS = 4
+S_OUTAGE = (1.0, 5.0)  # failures issued in [kill - 1 s, serving + 5 s] pass
+S_SAMPLE_S = 0.5  # the staleness samples' cadence
+S_TOL = 1e-6  # the drained scorer against the direct forward, relative L2
+S_LIMIT_S = 240  # a boot, a first export or a drain that hangs fails
+
+
+def _s_scorer_flags(export_root, addrs):
+    return ["--export_dir", export_root, "--ps_addrs", addrs,
+            "--device", DEVICE, "--scorer_transport", "socket",
+            "--serving_staleness_versions", str(S_WINDOW),
+            "--serving_sync_interval_s", str(S_SYNC_INTERVAL_S),
+            "--watch_interval_s", "0.5", "--serve_max_batch", "64",
+            "--serve_batch_timeout_ms", "2", "--serve_p99_slo_ms", "2000",
+            "--log_level", "WARNING"]
+
+
+def _s_sampler(seed):
+    """Draws of ``S_REQUEST_ROWS`` x 10 ids from the trainer's zipf
+    distribution (``_zipf_ids``'s pool and weights)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 50)
+    pool = rng.permutation(ZOO_VOCAB)[:Z_POOL]
+    cdf = np.cumsum(1.0 / np.arange(1, Z_POOL + 1) ** Z_ZIPF)
+    cdf /= cdf[-1]
+    draws = np.random.default_rng(seed)
+
+    def sample(rows=S_REQUEST_ROWS):
+        at = np.minimum(np.searchsorted(cdf, draws.random((rows, 10))),
+                        Z_POOL - 1)
+        return {"feature": pool[at].astype(np.int64)}
+
+    return sample
+
+
+class _STimer:
+    """Times the in-process scorer's requests from outside the package:
+    ``Scorer.score`` and its plane's ``pull`` (instance attributes
+    wrapped), the sync's rounds, the cache's ``refresh_table`` walk and
+    the request path's ``get_rows`` probe (both under the cache's
+    lock)."""
+
+    def __init__(self, scorer, sync, cache):
+        self.requests = []  # (capture + plan, pull, forward with sync) s
+        self.rounds = []  # seconds of each sync round
+        self.walks = []  # (seconds, entries) of each refresh_table
+        self.probes = []  # seconds of each get_rows
+        self._tl = threading.local()
+        self._mu = threading.Lock()
+        score, pull = scorer.score, scorer._plane.pull
+        sync_once, refresh = sync.sync_once, cache.refresh_table
+        get_rows = cache.get_rows
+
+        def timed_pull(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return pull(*a, **k)
+            finally:
+                self._tl.pull = (t0, time.perf_counter())
+
+        def timed_score(features):
+            self._tl.pull = None
+            t0 = time.perf_counter()
+            out = score(features)
+            t1 = time.perf_counter()
+            if self._tl.pull is not None:
+                p0, p1 = self._tl.pull
+                with self._mu:
+                    self.requests.append((p0 - t0, p1 - p0, t1 - p1))
+            return out
+
+        def timed_round():
+            t0 = time.perf_counter()
+            try:
+                return sync_once()
+            finally:
+                with self._mu:
+                    self.rounds.append(time.perf_counter() - t0)
+
+        def timed_refresh(*a, **k):
+            t0 = time.perf_counter()
+            out = refresh(*a, **k)
+            with self._mu:
+                self.walks.append((time.perf_counter() - t0, len(cache)))
+            return out
+
+        def timed_probe(*a, **k):
+            t0 = time.perf_counter()
+            out = get_rows(*a, **k)
+            with self._mu:
+                self.probes.append(time.perf_counter() - t0)
+            return out
+
+        scorer.score, scorer._plane.pull = timed_score, timed_pull
+        sync.sync_once, cache.refresh_table = timed_round, timed_refresh
+        cache.get_rows = timed_probe
+
+    def summary(self):
+        def ms(values):
+            values = sorted(values)
+            if not values:
+                return None
+            return {"p50": values[len(values) // 2] * 1e3,
+                    "p99": values[min(len(values) - 1,
+                                      int(0.99 * len(values)))] * 1e3,
+                    "max": values[-1] * 1e3, "n": len(values)}
+
+        with self._mu:
+            reqs, rounds = list(self.requests), list(self.rounds)
+            walks, probes = list(self.walks), list(self.probes)
+        return {
+            "capture_and_plan_ms": ms([r[0] for r in reqs]),
+            "pull_ms": ms([r[1] for r in reqs]),
+            "forward_with_sync_ms": ms([r[2] for r in reqs]),
+            "sync_round_ms": ms(rounds),
+            "refresh_walk_ms": ms([w[0] for w in walks]),
+            "refresh_walk_entries_max": max((w[1] for w in walks),
+                                            default=None),
+            "get_rows_ms": ms(probes),
+        }
+
+
+# the scorer process: serving.main as ``python -m`` runs it, writing its
+# peaks to a file at exit: its resident set's largest reading (sampled
+# every 0.1 s from /proc/self/statm; on the card's machine VmHWM is not in
+# /proc/self/status, and getrusage's ru_maxrss after fork and exec counts
+# the parent's pages) and the card allocator's (the CUDA context is not
+# in it)
+_S_SCORER_PROCESS = (
+    "import atexit, json, os, runpy, sys, threading, time\n"
+    "peak = [None]\n"
+    "def _sample():\n"
+    "    page = os.sysconf('SC_PAGE_SIZE')\n"
+    "    while True:\n"
+    "        with open('/proc/self/statm') as f:\n"
+    "            rss = int(f.read().split()[1]) * page / 2**20\n"
+    "        peak[0] = max(peak[0] or 0.0, rss)\n"
+    "        time.sleep(0.1)\n"
+    "threading.Thread(target=_sample, daemon=True).start()\n"
+    "def _peaks():\n"
+    "    import torch\n"
+    "    card = torch.cuda.is_available() and torch.cuda.is_initialized()\n"
+    "    with open(%r, 'w') as f:\n"
+    "        json.dump({'host_rss_peak_mib': peak[0],\n"
+    "            'card_allocated_peak_mib': torch.cuda.max_memory_allocated()"
+    " / 2**20 if card else None,\n"
+    "            'card_reserved_peak_mib': torch.cuda.max_memory_reserved()"
+    " / 2**20 if card else None}, f)\n"
+    "atexit.register(_peaks)\n"
+    "sys.argv = ['scorer'] + %r\n"
+    "runpy.run_module('elasticdl_tpu_torch.serving.main', "
+    "run_name='__main__')\n"
+)
+
+
+def _s_direct(torch, export_dir, addrs, features):
+    """The newest export's Dense layers on the card, bound to rows read
+    straight from the shards (a client with no cache): the logits."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.convert import to_state_dict
+    from elasticdl_tpu_torch.common.export import load_export
+    from elasticdl_tpu_torch.common.model_utils import build_model
+    from elasticdl_tpu_torch.nn.comm_plane import plan_lookup_multi
+    from elasticdl_tpu_torch.nn.embedding import (
+        bind_rows,
+        capture_embedding_ids,
+    )
+    from elasticdl_tpu_torch.worker.ps_client import BoundPS, PSClient
+
+    exported = load_export(export_dir)
+    model = build_model(PS_DEEPFM, exported.metadata.get("model_params")
+                        or None, "")
+    model.load_state_dict(to_state_dict(exported.named))
+    model = model.to(DEVICE).eval()
+    captured = capture_embedding_ids(model, {}, {}, features)
+    lookups = {p: plan_lookup_multi(ids) for p, ids in captured.items()}
+    client = PSClient([BoundPS(a, deadline_s=30) for a in addrs.split(",")])
+    try:
+        pulled = client.pull_embedding_vectors_multi(
+            {p: unique for p, (unique, _) in lookups.items()})
+    finally:
+        client.close()
+    rows = {p: torch.from_numpy(np.ascontiguousarray(pulled[p])).to(DEVICE)
+            for p in lookups}
+    idx = {p: [torch.from_numpy(i.astype(np.int64)).to(DEVICE)
+               for i in lookups[p][1]] for p in lookups}
+    with torch.inference_mode(), bind_rows(model, rows, idx):
+        out = model(features)
+    return out["logits"].float().cpu().numpy()
+
+
+def _s_note_cost(torch, reps=200):
+    """Microseconds of one ``DeltaLog.note`` of a b1024 batch's 10,240
+    ids: from the numpy array a shard's apply hands it, and from a tensor
+    on the card (one copy to the host)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.ps.delta_log import DeltaLog
+
+    ids = np.random.default_rng(SEED).integers(0, ZOO_VOCAB, PS_BATCH * 10)
+    out = {}
+    for name, arg in (("numpy", ids),
+                      ("card_tensor", torch.from_numpy(ids).to(DEVICE))):
+        log = DeltaLog(keep_versions=reps + 1, max_rows=1 << 30)
+        log.note("t", arg, 0)
+        t0 = time.perf_counter()
+        for v in range(1, reps + 1):
+            log.note("t", arg, v)
+        out[name + "_us"] = (time.perf_counter() - t0) / reps * 1e6
+    return out
+
+
+def phase_ps_serve(torch, tmp, card):
+    """Serving's PS plane: two ``ps.main`` shards (async, snapshots every
+    8 versions) train zipf DeepFM at zoo width under an in-process
+    PS-everything worker on a streaming dispatcher that exports every 8
+    versions; a ``serving.main --ps_addrs`` process and a
+    ``build_scorer`` stack in this process score 32-row requests from
+    the live fleet through their hot-row caches and delta syncs while
+    shard 0 is SIGKILLed and relaunched. Returns the flash kernels'
+    launches in this process (none)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.args import parse_scorer_args
+    from elasticdl_tpu_torch.common.constants import JobType
+    from elasticdl_tpu_torch.master.servicer import MasterServicer
+    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+    from elasticdl_tpu_torch.rpc.socket_transport import Client
+    from elasticdl_tpu_torch.serving.main import build_scorer
+    from elasticdl_tpu_torch.serving.server import ScorerServer
+    from elasticdl_tpu_torch.worker.ps_client import BoundPS, PSClient
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    t_phase = time.perf_counter()
+    if not os.path.isdir(os.path.join(tmp, "z-data")):
+        _write_z_data(tmp)
+    root = os.path.join(tmp, "ps-serve")
+    export_root = os.path.join(root, "exports")
+    snap = os.path.join(root, "snap")
+    os.makedirs(export_root, exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    ps_ports = [_free_port() for _ in range(FLEET_SHARDS)]
+    addrs = ",".join("localhost:%d" % p for p in ps_ports)
+    ps_argv = [[
+        sys.executable, "-m", "elasticdl_tpu_torch.ps.main", "--ps_id",
+        str(i), "--port", str(ps_ports[i]), "--model_zoo", "",
+        "--model_def", PS_DEEPFM, "--device", DEVICE, "--use_async", "true",
+        "--ps_snapshot_versions", str(S_SNAPSHOT_VERSIONS),
+        "--ps_snapshot_dir", snap, "--log_level", "WARNING",
+    ] for i in range(FLEET_SHARDS)]
+    logs = []
+
+    def spawn(argv, name):
+        log = open(os.path.join(root, name + ".log"), "ab")
+        logs.append(log)
+        return subprocess.Popen(argv, env=env, cwd=REPO,
+                                stdout=subprocess.DEVNULL, stderr=log)
+
+    def status(i, deadline_s=2.0):
+        stub = _ps_stub(ps_ports[i], deadline_s)
+        try:
+            return stub.ps_status({})
+        finally:
+            stub.close()
+
+    _reset_counters()
+    problems = []
+    rec = {"phase": "ps_serve", "card": card, "model": "deepfm_edl_embedding",
+           "vocab": ZOO_VOCAB, "embedding_dim": 64, "train_batch": PS_BATCH,
+           "request_rows": S_REQUEST_ROWS, "shards": FLEET_SHARDS,
+           "staleness_window": S_WINDOW, "drive_s": S_DRIVE_S,
+           "sync_interval_s": S_SYNC_INTERVAL_S}
+    procs = {"ps0": spawn(ps_argv[0], "ps-0"), "ps1": spawn(ps_argv[1],
+                                                            "ps-1")}
+    task_d = trainer = None
+    trainer_err, trainer_done = [], threading.Event()
+    local = local_server = None
+    clients = []
+    try:
+        for i in range(FLEET_SHARDS):
+            _until(lambda i=i: status(i), "shard %d" % i)
+        rec["fleet_boot_s"] = time.perf_counter() - t_phase
+
+        # the streaming trainer, in this process, as the reference's bench
+        task_d = TaskDispatcher(
+            {os.path.join(tmp, "z-data", "records-0"): (0, Z_RECORDS)}, {},
+            {}, 2 * PS_BATCH, 1, streaming=True)
+        master = MasterServicer(1, PS_BATCH, None, task_d, use_async=True,
+                                device=DEVICE)
+        trainer_client = PSClient([BoundPS(a, deadline_s=20.0, retries=3)
+                                   for a in addrs.split(",")])
+        worker = Worker(
+            worker_id=0, job_type=JobType.TRAINING_ONLY,
+            minibatch_size=PS_BATCH, model_zoo="", model_def=PS_DEEPFM,
+            stub=master, device=DEVICE, ps_client=trainer_client,
+            get_model_steps=S_GET_MODEL_STEPS, export_dir=export_root,
+            export_every_versions=S_EXPORT[0], export_keep=S_EXPORT[1])
+
+        def train():
+            try:
+                worker.run()
+            except Exception as err:  # noqa: BLE001 - reported below
+                trainer_err.append(err)
+            finally:
+                trainer_done.set()
+
+        trainer = threading.Thread(target=train, daemon=True,
+                                   name="ps-serve-trainer")
+        trainer.start()
+        t_trainer = time.monotonic()
+
+        # the scorer process and the stack in this process
+        port = _free_port()
+        peaks = os.path.join(root, "scorer-peaks.json")
+        procs["scorer"] = spawn(
+            [sys.executable, "-c", _S_SCORER_PROCESS % (
+                peaks, ["--port", str(port)]
+                + _s_scorer_flags(export_root, addrs))], "scorer")
+        local = build_scorer(parse_scorer_args(
+            _s_scorer_flags(export_root, addrs)))
+        scorer, watcher, sync, bound, batcher = local
+        cache = scorer._client.hot_row_cache
+        timer = _STimer(scorer, sync, cache)
+        local_server = ScorerServer(scorer, port=0, batcher=batcher,
+                                    transport="socket")
+        watcher.start()
+        sync.start()
+        clients = [Client("localhost:%d" % port, deadline_s=60.0),
+                   Client("localhost:%d" % local_server.port,
+                          deadline_s=60.0)]
+        names = ("process", "in_process")
+
+        def scorer_status(i):
+            if procs["scorer"].poll() is not None:
+                raise PhaseError("the scorer process exited %d" %
+                                 procs["scorer"].returncode)
+            if trainer_err:
+                raise PhaseError("the trainer failed: %s" % trainer_err[0])
+            return clients[i].call("scorer_status")
+
+        def first_model(i):
+            st = scorer_status(i)
+            if st["model_version"] < 0:
+                raise RuntimeError("no model yet")
+            return st["model_version"]
+
+        first_versions = [
+            _until(lambda i=i: first_model(i),
+                   "the %s scorer's first model" % names[i], S_LIMIT_S)
+            for i in range(2)]
+        rec["first_model_versions"] = first_versions
+        rec["scorers_ready_s"] = time.perf_counter() - t_phase
+        warm = _s_sampler(SEED + 60)
+        for client in clients:
+            for _ in range(3):
+                reply = client.call("score", **warm())
+                if "error" in reply:
+                    raise PhaseError("warm score: %s" % reply["error"])
+
+        # the drive, the samples and the kill
+        records, records_mu = [], threading.Lock()  # (scorer, t, ok, s, v)
+        samples = []  # (t, scorer, staleness, model version)
+        stop = threading.Event()
+
+        def drive(i):
+            sample = _s_sampler(SEED + 70 + i)
+            while not stop.is_set():
+                feats = sample()
+                t_issued = time.monotonic()
+                t0 = time.perf_counter()
+                version = None
+                try:
+                    reply = clients[i].call("score", **feats)
+                    ok = "error" not in reply and bool(np.all(np.isfinite(
+                        np.asarray(reply["out:logits"]))))
+                    version = reply.get("model_version")
+                except Exception:  # noqa: BLE001 - counted: the outage
+                    ok = False
+                with records_mu:
+                    records.append((i, t_issued, ok,
+                                    time.perf_counter() - t0, version))
+
+        def sampler():
+            while not stop.wait(S_SAMPLE_S):
+                for i in range(2):
+                    try:
+                        st = (scorer.status() if i == 1
+                              else clients[0].call("scorer_status"))
+                        samples.append((time.monotonic(), i,
+                                        st.get("staleness_versions"),
+                                        st.get("model_version")))
+                    except Exception as err:  # noqa: BLE001 - recorded
+                        samples.append((time.monotonic(), i, None, str(err)))
+
+        threads = [threading.Thread(target=drive, args=(i,), daemon=True)
+                   for i in range(2)]
+        threads.append(threading.Thread(target=sampler, daemon=True))
+        timed_before = len(timer.requests)
+        t_start = time.monotonic()
+        for t in threads:
+            t.start()
+        time.sleep(S_DRIVE_S * S_KILL_AT)
+        before = [status(i, 10.0) for i in range(FLEET_SHARDS)]
+        kill_t = time.monotonic()
+        procs["ps0"].kill()
+        procs["ps0"].wait(timeout=30)
+        procs["ps0"] = spawn(ps_argv[0], "ps-0")
+        relaunched = _until(lambda: status(0), "the relaunched shard 0")
+        serving_t = time.monotonic()
+        time.sleep(max(0.0, S_DRIVE_S - (time.monotonic() - t_start)))
+        stop.set()
+        for t in threads:
+            t.join(timeout=90)
+        drive_s = time.monotonic() - t_start
+        rec["drive_requests_timed"] = len(timer.requests) - timed_before
+
+        # after the drive: both scorers serve, the trainer drains
+        post = {}
+        for i in range(2):
+            reply = clients[i].call("score", **warm())
+            post[names[i]] = "error" not in reply
+            if "error" in reply:
+                problems.append("%s scorer after recovery: %s" % (
+                    names[i], reply["error"]))
+        final_versions = [clients[0].call("scorer_status")["model_version"],
+                          scorer.model_version]
+        task_d.set_streaming(False)
+        if not trainer_done.wait(S_LIMIT_S):
+            raise PhaseError("the streaming trainer did not drain")
+        if trainer_err:
+            raise PhaseError("the trainer failed: %s" % trainer_err[0])
+        trainer_client.close()
+
+        # the drained scorer against the direct forward, then batched
+        rounds = sync.sync_once()
+        watcher.poll_once()
+        newest, newest_version = watcher.newest_manifest()
+        fixed = _s_sampler(SEED + 77)()
+        out, version = scorer.score(fixed)
+        got = out["logits"].float().cpu().numpy()
+        want = _s_direct(torch, newest, addrs, fixed)
+        rel = _np_rel(got, want)
+        batched, _ = batcher.submit(fixed)
+        batched_bitwise = all(torch.equal(out[k], batched[k]) for k in out)
+
+        # classify by issue time, as the reference's bench
+        lo, hi = kill_t - S_OUTAGE[0], serving_t + S_OUTAGE[1]
+        per = {}
+        for i, name in enumerate(names):
+            mine = [r for r in records if r[0] == i]
+            oks = sorted(r[3] for r in mine if r[2])
+            bad = [r for r in mine if not r[2] and not lo <= r[1] <= hi]
+            after = [r[1] for r in mine if r[2] and r[1] >= serving_t]
+            failed_in = [r[1] for r in mine if not r[2]]
+            per[name] = {
+                "requests": len(mine), "ok": len(oks),
+                "failed": len(mine) - len(oks),
+                "failed_outside_outage": len(bad),
+                "requests_per_s": len(oks) / drive_s,
+                "p50_ms": oks[len(oks) // 2] * 1e3 if oks else None,
+                "p99_ms": (oks[min(len(oks) - 1, int(0.99 * len(oks)))]
+                           * 1e3 if oks else None),
+                "first_ok_after_serving_s": (min(after) - kill_t
+                                             if after else None),
+                "last_failure_after_kill_s": (max(failed_in) - kill_t
+                                              if failed_in else None),
+                "model_versions_seen": sorted({r[4] for r in mine
+                                               if r[4] is not None}),
+            }
+            if bad:
+                problems.append("%s scorer: %d replies failed outside the "
+                                "outage" % (name, len(bad)))
+            if not oks:
+                problems.append("%s scorer: no reply succeeded" % name)
+        stale = [s for s in samples if s[2] is not None]
+        missing = [s for s in samples if s[2] is None]
+        over = [s for s in stale if s[2] > S_WINDOW]
+        if over or not stale:
+            problems.append("staleness over %d (or no sample): %s" % (
+                S_WINDOW, over[:5]))
+        if missing:
+            problems.append("scorer_status failed in %d samples: %s" % (
+                len(missing), missing[:3]))
+        for i, name in enumerate(names):
+            if not final_versions[i] > first_versions[i]:
+                problems.append("%s scorer: no hot swap (%d -> %d)" % (
+                    name, first_versions[i], final_versions[i]))
+        client = scorer._client
+        relaunches = [r[:4] for r in client.relaunches]
+        if not any(r[0] == 0 for r in relaunches):
+            problems.append("the in-process client saw no relaunch of "
+                            "shard 0: %s" % relaunches)
+        counters = {k: getattr(sync, k) for k in (
+            "rounds", "rows_dropped", "rows_retagged", "rows_refreshed",
+            "tables_invalidated")}
+        if not (counters["rows_retagged"] > 0 and counters["rows_dropped"]
+                > 0 and counters["tables_invalidated"] == 0):
+            problems.append("delta sync counters %s" % counters)
+        if version != newest_version or rel > S_TOL:
+            problems.append("drained scorer v%d (newest export v%d) %.3g "
+                            "from the direct forward" % (
+                                version, newest_version, rel))
+        if not batched_bitwise:
+            problems.append("the micro-batcher's reply is not bitwise the "
+                            "solo score's")
+        probes = cache.hits + cache.misses
+        rec.update({
+            "kill_to_serving_s": serving_t - kill_t,
+            "restored_version": relaunched.get("restored_version"),
+            "shard_versions_at_kill": [s["version"] for s in before],
+            "trainer_versions_per_s_to_kill": max(
+                s["version"] for s in before) / (kill_t - t_trainer),
+            "scorers": per,
+            "first_model_versions": first_versions,
+            "final_model_versions": final_versions,
+            "hot_swaps_in_process": scorer.status()["swaps"],
+            "staleness_max": max((s[2] for s in stale), default=None),
+            "staleness_samples": len(stale),
+            "post_recovery_ok": post,
+            "sync": dict(counters, last_error=sync.last_error,
+                         final_round=rounds),
+            "relaunches": relaunches,
+            "shard_epochs": client.shard_epochs,
+            "cache": {"hits": cache.hits, "misses": cache.misses,
+                      "hit_rate": cache.hits / probes if probes else None,
+                      "rows": len(cache), "tables": cache.table_stats()},
+            "in_process_split": timer.summary(),
+            "drained": {"model_version": version,
+                        "newest_export": newest_version,
+                        "rel_l2": rel, "tolerance": S_TOL,
+                        "bitwise": bool(np.array_equal(got, want)),
+                        "batched_bitwise": batched_bitwise,
+                        "sync_round": rounds},
+            "trainer": {"steps": len(worker.losses),
+                        "exports": len(worker.exports),
+                "shard_versions_end": [status(i, 10.0)["version"]
+                                       for i in range(FLEET_SHARDS)]},
+            "delta_log_note": _s_note_cost(torch),
+        })
+    finally:
+        if task_d is not None:
+            task_d.set_streaming(False)
+        for client in clients:
+            client.close()
+        if local_server is not None:
+            local_server.stop()
+        if local is not None:
+            local[1].stop()
+            local[2].stop()
+            local[0].close()
+            for channel in local[3]:
+                channel.close()
+        if trainer is not None:
+            trainer_done.wait(60)
+        for name in ("scorer", "ps0", "ps1"):
+            proc = procs.get(name)
+            if proc is not None and proc.poll() is None:
+                proc.terminate()
+        for proc in procs.values():
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        for log in logs:
+            log.close()
+    try:
+        with open(os.path.join(root, "scorer-peaks.json")) as f:
+            rec["scorer_process_peaks"] = json.load(f)
+    except (OSError, ValueError):
+        problems.append("the scorer process wrote no peaks at its exit")
+    counts = _counts()
+    rec["flash_launches"] = {k: n for k, (n, _) in counts.items()}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    if problems:
+        for name in ("scorer", "ps-0", "ps-1"):
+            path = os.path.join(root, name + ".log")
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    tail = f.read()[-1500:].decode("utf-8", "replace")
+                print("%s log tail:\n%s" % (name, tail), file=sys.stderr)
+        raise PhaseError("ps_serve: " + "; ".join(problems))
+    return counts
+
+
+def _ps_serve_only(torch):
+    try:
+        card = phase_device(torch)
+        with tempfile.TemporaryDirectory() as tmp:
+            counts = phase_ps_serve(torch, tmp, card)
+        _check_counts(counts, {k: 0 for k in KERNELS}, "the ps_serve phase")
+    except Exception as err:  # noqa: BLE001 — reported, exit non-zero
+        import traceback
+
+        traceback.print_exc()
+        print("chip_smoke: FAILED: %s" % err, file=sys.stderr)
+        return 1
+    print(card)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # elastic: the multi-process ALLREDUCE job, two worker processes on one card
 # ---------------------------------------------------------------------------
 
@@ -5636,17 +6240,17 @@ ELASTIC_WORKERS = 2
 # Run B trains this many epochs, so that the job outlasts the relaunched
 # worker's cold start: the survivor, alone, takes a task a step, and a
 # joiner that finds no task left never joins
-ELASTIC_KILL_EPOCHS = 7
+ELASTIC_KILL_EPOCHS = 4
 ELASTIC_KILL_AT_VERSION = 4
 ELASTIC_JOB_LIMIT_S = 420  # a run that hangs fails the phase
 SNAPSHOT_CHECK_SLEEP_CYCLES = 200_000_000  # keeps the stream busy ~0.1 s
 # Run C: the master SIGKILLed once its version reaches this, in a job of
 # this many epochs (long enough to step on after the relaunch)
 MASTER_KILL_AT_VERSION = 4
-MASTER_KILL_EPOCHS = 5
+MASTER_KILL_EPOCHS = 3
 MASTER_FAILOVER_S = 120  # the workers' outage budget (the default)
-# Run E: two epochs, a round every 4 versions over 256 validation records
-ELASTIC_EVAL_EPOCHS = 2
+# Run E: one epoch, a round every 4 versions over 256 validation records
+ELASTIC_EVAL_EPOCHS = 1
 
 
 def elastic_argv(data_dir, ckpt_dir, out_dir, epochs):
@@ -6614,6 +7218,12 @@ def main(argv=None):
         help="drive only the ps_hybrid phase and print its records, not "
         "the result line",
     )
+    parser.add_argument(
+        "--ps-serve-only",
+        action="store_true",
+        help="drive only the ps_serve phase and print its records, not "
+        "the result line",
+    )
     args = parser.parse_args(argv)
     try:
         import torch
@@ -6644,6 +7254,8 @@ def main(argv=None):
         return _ps_tiers_only(torch)
     if args.ps_hybrid_only:
         return _ps_hybrid_only(torch)
+    if args.ps_serve_only:
+        return _ps_serve_only(torch)
 
     try:
         card = phase_device(torch)
@@ -6674,6 +7286,9 @@ def main(argv=None):
             ps_hybrid = phase_ps_hybrid(torch, tmp, card)
             _check_counts(ps_hybrid, {k: 0 for k in KERNELS},
                           "the ps_hybrid phase")
+            ps_serve = phase_ps_serve(torch, tmp, card)
+            _check_counts(ps_serve, {k: 0 for k in KERNELS},
+                          "the ps_serve phase")
             _reset_counters()
             elastic, _ = phase_elastic(torch, tmp, job_rec, card)
             # launched in the workers (which report theirs, by run) or
@@ -6690,7 +7305,8 @@ def main(argv=None):
             dict({"serve": served, "train": trained, "job": job,
                   "eval": evaluated, "zoo": zoo, "ps": ps,
                   "ps_fleet": ps_fleet, "ps_tiers": ps_tiers,
-                  "ps_hybrid": ps_hybrid}, **elastic),
+                  "ps_hybrid": ps_hybrid, "ps_serve": ps_serve},
+                 **elastic),
         )
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback

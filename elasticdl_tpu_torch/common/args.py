@@ -60,8 +60,8 @@ def parse_scorer_args(scorer_args=None):
     parser.add_argument(
         "--ps_addrs",
         default="",
-        help="PS shard addresses for PS-resident embedding tables "
-        "(not ported yet: must be empty)",
+        help="Comma-separated PS shard addresses serving the model's "
+        "PS-resident embedding tables (empty for a dense model)",
     )
     parser.add_argument(
         "--port",
@@ -70,10 +70,40 @@ def parse_scorer_args(scorer_args=None):
         help="Scorer RPC port (0 binds ephemeral)",
     )
     parser.add_argument(
+        "--scorer_transport",
+        default="grpc",
+        choices=["grpc", "socket"],
+        help="The scorer's RPC wire: gRPC, the reference's, or the port's "
+        "socket transport (the same frames) for a host without grpcio",
+    )
+    parser.add_argument(
         "--scorer_telemetry_port",
         type=int,
         default=-1,
         help="Telemetry HTTP endpoint (not ported yet: must be -1)",
+    )
+    parser.add_argument(
+        "--serving_staleness_versions",
+        type=pos_int,
+        default=2,
+        help="Freshness bound: a served embedding row is never more than "
+        "this many shard versions behind the newest version this scorer "
+        "has seen (the hot-row cache's window, kept cheap by the delta "
+        "sync)",
+    )
+    parser.add_argument(
+        "--serving_sync_interval_s",
+        type=float,
+        default=0.5,
+        help="Delta-sync poll cadence against each PS shard's "
+        "serving_status; doubles, up to 8 s, while no shard answers",
+    )
+    parser.add_argument(
+        "--hot_row_cache_rows",
+        type=pos_int,
+        default=65536,
+        help="Read-through hot-row cache capacity (rows), shared by the "
+        "request path and the delta sync",
     )
     parser.add_argument(
         "--watch_interval_s",
@@ -115,6 +145,27 @@ def parse_scorer_args(scorer_args=None):
         default="",
         help="Directory to load the artifact's model_def module from; "
         "empty resolves it against the port's own zoo",
+    )
+    parser.add_argument(
+        "--rpc_deadline_s",
+        type=float,
+        default=20.0,
+        help="Deadline of each PS call on the scorer's pull path "
+        "(0 disables)",
+    )
+    parser.add_argument(
+        "--rpc_retries",
+        type=non_neg_int,
+        default=3,
+        help="Bounded UNAVAILABLE resends (doubling backoff) of the "
+        "scorer's idempotent PS reads",
+    )
+    parser.add_argument(
+        "--ps_shm",
+        default="auto",
+        choices=["auto", "on", "off"],
+        help="Shared-memory transport toward co-located PS shards; 'on' "
+        "is not ported yet, 'auto' keeps the socket path",
     )
     parser.add_argument(
         "--log_level",

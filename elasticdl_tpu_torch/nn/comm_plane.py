@@ -38,8 +38,10 @@ computes.
 :class:`HotRowCache` is the worker's tier above the PS fleet: an LRU of
 pulled rows, each tagged with its shard's version, served in place of a
 pull while it lags that shard's newest seen version by at most a window.
-Its ``invalidate_table``/``refresh_table``/``max_live_lag``, which serve
-the scorer's delta sync (ROADMAP A5), raise by name.
+A scorer's delta sync (``serving/delta_sync.py``) keeps it fresh through
+``refresh_table`` (drop the rows a delta names, re-tag the rest) and
+``invalidate_table`` (an incomplete delta's fallback), and reads its
+staleness from ``max_live_lag``.
 """
 
 import threading
@@ -401,22 +403,59 @@ class HotRowCache:
             return len(victims)
 
     def invalidate_table(self, name, below_version=None):
-        raise NotImplementedError(
-            "HotRowCache.invalidate_table serves the scorer's delta sync, "
-            "which is not ported yet (ROADMAP A5)"
-        )
+        """Drop ``name``'s entries tagged below ``below_version`` (all of
+        them with None), and nothing else: no other table's rows, no
+        version clock. The delta sync's fallback when a table's delta is
+        incomplete, which is no relaunch. Tags of every shard are held
+        to the one version, which can only drop too much. Returns the
+        entries dropped."""
+        with self._mu:
+            victims = [
+                key for key, (_, version, _) in self._rows.items()
+                if key[0] == name
+                and (below_version is None or version < below_version)
+            ]
+            for key in victims:
+                del self._rows[key]
+            return len(victims)
 
     def refresh_table(self, name, shard, version, changed_ids, since):
-        raise NotImplementedError(
-            "HotRowCache.refresh_table serves the scorer's delta sync, "
-            "which is not ported yet (ROADMAP A5)"
-        )
+        """Apply one table's delta from ``shard``: its entries whose id is
+        in ``changed_ids``, or whose tag is below ``since`` (the delta
+        says nothing of them), drop; every other entry of (``name``,
+        ``shard``) is unchanged through ``version`` and is re-tagged to
+        it. The shard's clock moves to ``version``. Returns
+        ``(dropped ids, re-tagged count)``: the sync re-pulls the
+        dropped ids."""
+        changed = {int(i) for i in changed_ids}
+        dropped, retagged = [], 0
+        with self._mu:
+            for key in list(self._rows):
+                entry_shard, entry_version, row = self._rows[key]
+                if key[0] != name or entry_shard != shard:
+                    continue
+                if key[1] in changed or entry_version < since:
+                    del self._rows[key]
+                    dropped.append(key[1])
+                else:
+                    self._rows[key] = (shard, version, row)
+                    retagged += 1
+            if version > self._latest.get(shard, -1):
+                self._latest[shard] = version
+        return dropped, retagged
 
     def max_live_lag(self):
-        raise NotImplementedError(
-            "HotRowCache.max_live_lag serves the scorer's delta sync, "
-            "which is not ported yet (ROADMAP A5)"
-        )
+        """The most versions a hit could lag its shard's newest seen
+        version now: the largest ``latest - tag`` over the entries inside
+        the window (one past it is a miss). Never above the window: the
+        scorer's ``staleness_versions``."""
+        with self._mu:
+            worst = 0
+            for shard, version, _ in self._rows.values():
+                lag = self._latest.get(shard, -1) - version
+                if 0 < lag <= self._window and lag > worst:
+                    worst = lag
+            return worst
 
     def get(self, name, row_id):
         """The cached row, or None (a miss; a stale entry is dropped)."""

@@ -21,6 +21,13 @@
   the card's peak memory; a tiered store adds its tables' counters
   summed under ``tiered``.
 
+- ``serving_status`` and ``pull_embedding_delta``: the scorer's reads
+  (``serving/delta_sync.py``). Each apply notes the ids it wrote in a
+  ``ps/delta_log.DeltaLog`` before its version becomes visible, so the
+  first tells a scorer, per table that is not an optimizer slot, the
+  newest version that wrote it (the log's floor beside it), and the
+  second which ids moved after a given version.
+
 Each apply tells the tables of every layer it wrote which ids its
 version touched (``note_applied``: a tiered table pins them against
 demotion).
@@ -30,10 +37,6 @@ relaunch. Methods take and return dicts, so one object serves the
 socket transport (``rpc_methods``) or an in-process caller. A whole
 apply holds the optimizer's apply lock (the LR multiplier is one value
 per modulator, and a snapshot must not cut an apply).
-
-Not ported, raising ``NotImplementedError`` by name: the scorer's reads
-``serving_status`` and ``pull_embedding_delta`` with the delta log
-behind them (ROADMAP A5).
 """
 
 import threading
@@ -45,6 +48,7 @@ import torch
 
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
 from elasticdl_tpu_torch.common.tensor import Tensor
+from elasticdl_tpu_torch.ps.delta_log import DeltaLog
 from elasticdl_tpu_torch.ps.parameters import EmbeddingTableInfo
 from elasticdl_tpu_torch.rpc.wire_compression import (
     compress_tensors,
@@ -104,6 +108,10 @@ class PserverServicer:
         self._restored_version = (
             -1 if restored_version is None else int(restored_version)
         )
+        # the rows each version wrote, for the scorers' delta sync; what
+        # this boot restored is older than its log (a scorer drops that
+        # shard's rows when it sees the new shard_epoch)
+        self._delta = DeltaLog(base_version=parameters.version)
         # the recent applies' host milliseconds, dense and sparse
         self.apply_ms = {"dense": deque(maxlen=1024),
                          "sparse": deque(maxlen=1024)}
@@ -139,8 +147,18 @@ class PserverServicer:
                 self.apply_ms["dense"].append((t1 - t0) * 1e3)
             if sparse:
                 self.apply_ms["sparse"].append((t2 - t1) * 1e3)
+            # noted before the version is visible: serving_status reads
+            # the version first and the log after, so the log may run
+            # ahead of the version but never behind it (a scorer would
+            # re-tag rows this version wrote as unchanged). A sync
+            # apply's summed slices repeat ids: the log keeps each once.
             version = self._parameters.version + 1
             for name, t in sparse.items():
+                self._delta.note(
+                    name,
+                    t.indices if self._use_async else np.unique(t.indices),
+                    version,
+                )
                 self._note_applied(name, t.indices, version)
             self._parameters.version = version
 
@@ -314,16 +332,42 @@ class PserverServicer:
         })
 
     def serving_status(self, req):
-        raise NotImplementedError(
-            "the scorer's PS plane (serving_status, with the delta log) "
-            "is not ported yet (ROADMAP A5)"
-        )
+        """What a scorer's delta sync polls: the version, and per table
+        that is not an optimizer slot the newest version that wrote it
+        (``tables``) and the oldest since-version the log answers
+        completely (``floors``). A table with no update noted since boot
+        reports the base, the restored version (0 on a fresh boot): a
+        row changes only through a noted apply."""
+        # the version first, the log after (see _apply)
+        version = self._parameters.version
+        last = self._delta.table_versions()
+        floors = self._delta.floors()
+        base = max(self._restored_version, 0)
+        tables, table_floors = {}, {}
+        for name, table in list(self._parameters.embedding_params.items()):
+            if table.is_slot:
+                continue
+            tables[name] = int(last.get(name, base))
+            table_floors[name] = int(floors.get(name, base))
+        return self._reply({
+            "version": version,
+            "initialized": bool(self._parameters.initialized),
+            "tables": tables,
+            "floors": table_floors,
+        })
 
     def pull_embedding_delta(self, req):
-        raise NotImplementedError(
-            "the scorer's PS plane (pull_embedding_delta, with the delta "
-            "log) is not ported yet (ROADMAP A5)"
+        """The ids of ``req["name"]`` written after
+        ``req["since_version"]``, the newest version the answer covers
+        (the caller's next since-version) and whether it is complete: a
+        since-version below the log's floor is not, and the scorer then
+        drops the table's stale rows. A read: resending it is safe."""
+        ids, covered, complete = self._delta.since(
+            req["name"], int(req.get("since_version", -1))
         )
+        return self._reply({
+            "ids": ids, "version": int(covered), "complete": bool(complete),
+        })
 
     def rpc_methods(self):
         return {

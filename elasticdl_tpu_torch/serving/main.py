@@ -1,13 +1,17 @@
 """Scorer process entry: one pod of the serving fleet, on one device.
 
-    python -m elasticdl_tpu_torch.serving.main --export_dir E [--device cuda]
+    python -m elasticdl_tpu_torch.serving.main --export_dir E \\
+        [--ps_addrs A,B] [--device cuda] [--scorer_transport socket]
 
-Boot order: build the scorer, start the export-directory watcher (the
-first artifact makes ``score`` answer), then serve. A scorer answers
-``scorer_status`` immediately and ``score`` errors cleanly until the
-first export lands. SIGTERM drains: the micro-batcher stops admitting
-and answers everything already queued, then the RPC plane stops, the
-watcher joins, and the process exits 0.
+Boot order: with ``--ps_addrs``, the PS channels (a deadline and bounded
+resends of the idempotent reads) and one hot-row cache shared by the
+request path and the delta sync; then the scorer and the export-directory
+watcher (the first artifact makes ``score`` answer), the delta sync, and
+the server. A scorer answers ``scorer_status`` immediately and ``score``
+errors cleanly until the first export lands. SIGTERM drains: the
+micro-batcher stops admitting and answers everything already queued,
+then the RPC plane stops, the watcher and the sync join, the channels
+close, and the process exits 0.
 """
 
 import logging
@@ -19,29 +23,49 @@ from elasticdl_tpu_torch.common.log_utils import default_logger as logger
 
 
 def build_scorer(args):
-    """The scorer stack from parsed args -> ``(scorer, watcher, batcher)``;
-    ``batcher`` is None when ``--serve_max_batch <= 1``. Raises for the
-    planes not ported yet (PS-resident embeddings, telemetry HTTP) and
-    when ``--device cuda`` finds no card."""
+    """The scorer stack from parsed args -> ``(scorer, watcher, sync,
+    bound channels, batcher)``. ``sync`` is None and the channels empty
+    without ``--ps_addrs``; ``batcher`` is None when ``--serve_max_batch
+    <= 1``. Raises for the planes not ported yet (telemetry HTTP, the
+    shared-memory PS channel) and when ``--device cuda`` finds no
+    card."""
     from elasticdl_tpu_torch.common.device import resolve_device
+    from elasticdl_tpu_torch.nn.comm_plane import HotRowCache
     from elasticdl_tpu_torch.serving.batcher import MicroBatcher
+    from elasticdl_tpu_torch.serving.delta_sync import EmbeddingDeltaSync
     from elasticdl_tpu_torch.serving.scorer import (
         ModelDirectoryWatcher,
         Scorer,
     )
+    from elasticdl_tpu_torch.worker.ps_client import BoundPS, PSClient
 
-    if any(a for a in (args.ps_addrs or "").split(",")):
-        raise NotImplementedError(
-            "--ps_addrs: the scorer's PS/embedding plane is not ported "
-            "yet; the PyTorch scorer serves dense models only"
-        )
     if args.scorer_telemetry_port >= 0:
         raise NotImplementedError(
             "--scorer_telemetry_port: the telemetry HTTP endpoint is not "
             "ported yet"
         )
     device = resolve_device(args.device)
-    scorer = Scorer()
+    bound, ps_client, cache, sync = [], None, None, None
+    addrs = [a for a in (args.ps_addrs or "").split(",") if a]
+    if addrs:
+        cache = HotRowCache(
+            args.hot_row_cache_rows, window=args.serving_staleness_versions
+        )
+        bound = [
+            BoundPS(
+                addr,
+                deadline_s=args.rpc_deadline_s or None,
+                retries=args.rpc_retries,
+                shm=args.ps_shm,
+            )
+            for addr in addrs
+        ]
+        ps_client = PSClient(bound, cache=cache)
+    scorer = Scorer(
+        ps_client=ps_client,
+        staleness_versions=args.serving_staleness_versions,
+        model_zoo=args.model_zoo or None,
+    )
     watcher = ModelDirectoryWatcher(
         args.export_dir,
         scorer,
@@ -49,6 +73,10 @@ def build_scorer(args):
         model_zoo=args.model_zoo or None,
         device=device,
     )
+    if ps_client is not None:
+        sync = EmbeddingDeltaSync(
+            ps_client, cache, interval_s=args.serving_sync_interval_s
+        )
     batcher = None
     if args.serve_max_batch > 1:
         batcher = MicroBatcher(
@@ -60,7 +88,7 @@ def build_scorer(args):
         )
         # hot swaps warm every bucket shape, never a request
         scorer.set_warm_batch_sizes(batcher.buckets)
-    return scorer, watcher, batcher
+    return scorer, watcher, sync, bound, batcher
 
 
 def main(argv=None):
@@ -72,9 +100,12 @@ def main(argv=None):
     logger.setLevel(getattr(logging, args.log_level))
     profiling.spans.set_process("scorer-%d" % args.scorer_id)
 
-    scorer, watcher, batcher = build_scorer(args)
-    server = ScorerServer(scorer, port=args.port, batcher=batcher)
+    scorer, watcher, sync, bound, batcher = build_scorer(args)
+    server = ScorerServer(scorer, port=args.port, batcher=batcher,
+                          transport=args.scorer_transport)
     watcher.start()
+    if sync is not None:
+        sync.start()
 
     stop = threading.Event()
 
@@ -92,7 +123,11 @@ def main(argv=None):
     finally:
         server.stop()
         watcher.stop()
+        if sync is not None:
+            sync.stop()
         scorer.close()
+        for channel in bound:
+            channel.close()
     return 0
 
 

@@ -1,22 +1,29 @@
 """The scorer: inference over exported models, with hot swap.
 
-The port of ``elasticdl_tpu/serving/scorer.py`` for dense models.
+The port of ``elasticdl_tpu/serving/scorer.py``.
 
 - :class:`ScorerModel` loads one export artifact (common/export.py),
   rebuilds the module its manifest names (``metadata['model_def']``,
   resolved against the port's zoo), loads the weights through
-  common/convert.py and scores on its device.
+  common/convert.py and scores on its device. A model with elastic
+  embedding layers (``nn/embedding.py``) scores as the trainer steps: a
+  capture pass learns the batch's ids, ``plan_lookup_multi`` plans one
+  pull of each layer's unique ids, the rows come through the scorer's
+  ``PsPlane`` (the PS fleet, read through the ``HotRowCache``), and the
+  forward gathers from them on the device (``bind_rows``).
 - :class:`Scorer` is the double buffer over one model slot: new
   requests route to the newest installed version, requests in flight
   finish on the version they acquired, and a superseded version leaves
   the ledger when its in-flight count drains to zero. It keeps the
-  request-latency histogram the micro-batcher's SLO admission reads.
+  request-latency histogram the micro-batcher's SLO admission reads,
+  and, over a ``PSClient``, the plane, the capture lock and the cache's
+  staleness and hit gauges (``serving/delta_sync.py`` keeps the cache
+  fresh).
 - :class:`ModelDirectoryWatcher` polls an export root, loads and warms
   the newest complete artifact off the request path, and installs it.
 
-Not ported yet: the PS/embedding plane (read-through embeddings and the
-delta sync) and the source-free ``serving_fn.jaxexport`` plane, which
-cannot exist without JAX. Both raise ``NotImplementedError``.
+Not ported: the source-free ``serving_fn.jaxexport`` plane, which cannot
+exist without JAX; it raises ``NotImplementedError``.
 """
 
 import json
@@ -68,10 +75,17 @@ class ScorerModel:
         self._model_zoo = model_zoo
         self._mu = threading.Lock()
         self._model = None
+        self._elastic = False  # has elastic embedding layers
+        # the embedding surface, learned by the first capture pass
+        self._embedding_dims = {}  # {layer path: row width}
+        self._embedding_initializers = {}
+        self._num_calls = None
 
     def _rebuild(self):
         """The module the manifest names, holding this artifact's
-        weights, on this model's device."""
+        weights, on this model's device. An elastic layer has no weights
+        (its rows live on the PS fleet), so a PS-plane model's artifact
+        carries only its dense layers."""
         from elasticdl_tpu_torch.common.convert import to_state_dict
         from elasticdl_tpu_torch.common.model_utils import build_model
 
@@ -96,9 +110,12 @@ class ScorerModel:
     def prepare(self):
         """Build the module once (thread-safe: the watcher warms on its
         own thread while a first request may race in)."""
+        from elasticdl_tpu_torch.nn.embedding import embedding_layers
+
         with self._mu:
             if self._model is None:
                 self._model = self._rebuild()
+                self._elastic = bool(embedding_layers(self._model))
 
     @property
     def module(self):
@@ -106,27 +123,137 @@ class ScorerModel:
         self.prepare()
         return self._model
 
-    def predict(self, features):
+    @property
+    def embedding_tables(self):
+        """{table: (dim, initializer)} once a request has been scored:
+        what a shard that came back empty needs pushed again."""
+        return {
+            path: (dim, self._embedding_initializers.get(path, "uniform"))
+            for path, dim in self._embedding_dims.items()
+        }
+
+    def _capture(self, features):
+        """{layer path: [ids per call]} of ``features``; the first pass
+        learns the layers' widths, initializers and number of calls."""
+        from elasticdl_tpu_torch.nn.embedding import capture_embedding_ids
+
+        # the module runs with its own weights: nothing to substitute
+        model = self._model
+        if self._num_calls is not None:
+            return capture_embedding_ids(
+                model, {}, {}, features, expected_count=self._num_calls
+            )
+        layer_info = {}
+        captured = capture_embedding_ids(
+            model, {}, {}, features, layer_info=layer_info
+        )
+        self._embedding_dims = {p: int(i[0]) for p, i in layer_info.items()}
+        self._embedding_initializers = {
+            p: i[1] for p, i in layer_info.items()
+        }
+        self._num_calls = sum(len(ids) for ids in captured.values())
+        return captured
+
+    def _to_device(self, lookups, pulled):
+        """Each layer's pulled rows and positions on the device: one
+        host-to-device copy for all the rows, one for all the
+        positions."""
+        paths = list(lookups)
+        flat = np.concatenate(
+            [np.asarray(pulled[p], np.float32).reshape(-1) for p in paths]
+        )
+        pos = np.concatenate(
+            [i.reshape(-1) for p in paths for i in lookups[p][1]]
+        ).astype(np.int64)
+        flat = torch.from_numpy(flat).to(self.device)
+        pos = torch.from_numpy(pos).to(self.device)
+        rows, idx, off, at = {}, {}, 0, 0
+        for p in paths:
+            unique, idxs = lookups[p]
+            n = len(unique) * self._embedding_dims[p]
+            rows[p] = flat[off:off + n].view(len(unique),
+                                             self._embedding_dims[p])
+            off += n
+            idx[p] = []
+            for i in idxs:
+                idx[p].append(pos[at:at + i.size].view(i.shape))
+                at += i.size
+        return rows, idx
+
+    def predict(self, features, plane=None, capture_lock=None):
         """Score one features batch; returns the output on the device,
-        complete (the device work has finished)."""
-        with torch.inference_mode():
-            out = self.module(features)
+        complete (the device work has finished).
+
+        A model with elastic layers needs ``plane``, the comm plane over
+        the PS fleet. Its capture pass and plan run under
+        ``capture_lock`` (one capture at a time, as the worker runs it on
+        one thread), its pull and forward outside it."""
+        from elasticdl_tpu_torch.nn.comm_plane import plan_lookup_multi
+        from elasticdl_tpu_torch.nn.embedding import bind_rows
+
+        model = self.module
+        if not self._elastic:
+            with torch.inference_mode():
+                out = model(features)
+        else:
+            if plane is None:
+                raise RuntimeError(
+                    "model %s has PS-resident embedding tables; the scorer "
+                    "needs a comm plane over the PS fleet to serve them "
+                    "(--ps_addrs)" % self.export_dir
+                )
+            with capture_lock if capture_lock is not None else self._mu:
+                lookups = {
+                    path: plan_lookup_multi(ids_list)
+                    for path, ids_list in self._capture(features).items()
+                }
+            pulled = plane.pull(
+                {path: unique for path, (unique, _) in lookups.items()}
+            )
+            rows, idx = self._to_device(lookups, pulled)
+            with torch.inference_mode(), bind_rows(model, rows, idx):
+                out = model(features)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         return out
 
 
 class Scorer:
-    """The double-buffered scoring surface over one model slot."""
+    """The double-buffered scoring surface over one model slot.
 
-    def __init__(self):
+    ``ps_client``: a ``worker.ps_client.PSClient`` over the shards that
+    hold an embedding model's tables; the scorer pulls through a
+    ``PsPlane`` over it and, when a shard comes back with no state, pushes
+    the tables' infos again so its rows are minted anew (the trainer
+    pushes the model on its own schedule). ``staleness_versions``: the
+    window reported beside the cache's staleness (the cache's own by
+    default)."""
+
+    def __init__(self, ps_client=None, staleness_versions=None,
+                 model_zoo=None):
+        from elasticdl_tpu_torch.nn.comm_plane import PsPlane
+
+        self._client = ps_client
+        self._plane = PsPlane(ps_client) if ps_client is not None else None
+        self._model_zoo = model_zoo
         self._mu = threading.Lock()
+        self._capture_mu = threading.Lock()
         self._current = None
         self._inflight = {}  # model_version -> in-flight request count
         self._draining = {}  # model_version -> ScorerModel awaiting drain
+        self._drained = threading.Condition(self._mu)
         self._features_template = None
         self._warm_batch_sizes = ()
         self._swaps = 0
+        self._cache = (
+            ps_client.hot_row_cache if ps_client is not None else None
+        )
+        self._staleness_versions = (
+            staleness_versions if staleness_versions is not None
+            else (self._cache._window if self._cache is not None else 0)
+        )
+        if ps_client is not None:
+            ps_client.set_on_shard_reset(self._on_ps_shard_reset)
         r = profiling.metrics
         self._h_latency = r.histogram(
             "edl_scorer_request_latency_seconds",
@@ -148,17 +275,29 @@ class Scorer:
     # -- telemetry -----------------------------------------------------------
 
     def _collect(self):
+        out = []
+        cache = self._cache
+        if cache is not None:
+            probes = cache.hits + cache.misses
+            out.append(("edl_scorer_row_staleness_versions", {},
+                        cache.max_live_lag()))
+            out.append(("edl_scorer_hot_row_hit_rate", {},
+                        cache.hits / probes if probes else 0.0))
+            for table, stats in cache.table_stats().items():
+                labels = {"table": table}
+                for key in ("hits", "misses", "evictions"):
+                    out.append(("edl_cache_%s_total" % key, labels,
+                                stats[key]))
         with self._mu:
             version = (
                 self._current.version if self._current is not None else -1
             )
             draining = len(self._draining)
             swaps = self._swaps
-        return [
-            ("edl_scorer_model_version", {}, version),
-            ("edl_scorer_draining_versions", {}, draining),
-            ("edl_scorer_model_swaps_total", {}, swaps),
-        ]
+        out.append(("edl_scorer_model_version", {}, version))
+        out.append(("edl_scorer_draining_versions", {}, draining))
+        out.append(("edl_scorer_model_swaps_total", {}, swaps))
+        return out
 
     def note_error(self, kind):
         """Count a degraded-path failure (``bad_request``/``no_model``/
@@ -172,6 +311,22 @@ class Scorer:
 
     def close(self):
         profiling.metrics.unregister_collector(self._collect)
+
+    def _on_ps_shard_reset(self, shards):
+        model = self.model()
+        tables = model.embedding_tables if model is not None else {}
+        if not tables:
+            return
+        from elasticdl_tpu_torch.ps.parameters import EmbeddingTableInfo
+
+        logger.warning(
+            "re-pushing embedding table infos after PS shard(s) %s "
+            "relaunched without restorable state", shards,
+        )
+        self._client.push_embedding_info([
+            EmbeddingTableInfo(name, dim, init)
+            for name, (dim, init) in sorted(tables.items())
+        ])
 
     # -- the double buffer ---------------------------------------------------
 
@@ -220,7 +375,10 @@ class Scorer:
                         if n is None or n == t_rows
                         else _resize_rows(template, n)
                     )
-                    model.predict(shaped)
+                    model.predict(
+                        shaped, plane=self._plane,
+                        capture_lock=self._capture_mu,
+                    )
             except Exception:  # noqa: BLE001 — warm is best-effort
                 logger.warning(
                     "warming export v%d failed; the first request pays "
@@ -279,10 +437,28 @@ class Scorer:
                 return
             self._inflight.pop(model.version, None)
             drained = self._draining.pop(model.version, None)
+            self._drained.notify_all()
         if drained is not None:
             profiling.events.emit(
                 "scorer_version_drained", version=model.version
             )
+
+    def inflight_versions(self):
+        """{model_version: in-flight count}, copied."""
+        with self._mu:
+            return dict(self._inflight)
+
+    def wait_drained(self, version, timeout=10.0):
+        """Wait until no request of ``version`` is in flight; False on
+        the timeout."""
+        deadline = time.monotonic() + timeout
+        with self._mu:
+            while self._inflight.get(version):
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._drained.wait(left)
+            return True
 
     # -- the request path ----------------------------------------------------
 
@@ -307,7 +483,9 @@ class Scorer:
                     if self._features_template is None:
                         self._features_template = template
             t0 = time.perf_counter()
-            out = model.predict(features)
+            out = model.predict(
+                features, plane=self._plane, capture_lock=self._capture_mu
+            )
             self._h_latency.observe(time.perf_counter() - t0)
             self._c_requests.inc(outcome="ok")
             return out, model.version
@@ -325,7 +503,14 @@ class Scorer:
             )
             inflight = {str(v): n for v, n in self._inflight.items()}
             swaps = self._swaps
-        return {"model_version": version, "inflight": inflight, "swaps": swaps}
+        out = {"model_version": version, "inflight": inflight, "swaps": swaps}
+        cache = self._cache
+        if cache is not None:
+            out["cache_hits"] = cache.hits
+            out["cache_misses"] = cache.misses
+            out["staleness_versions"] = cache.max_live_lag()
+            out["staleness_window"] = self._staleness_versions
+        return out
 
 
 class ModelDirectoryWatcher:

@@ -8,8 +8,11 @@ it, or ``{"error": ...}`` when the plane is degraded or shedding
 client may retry freely.
 
 Outputs leave the device here: a reply holds a CPU tensor (a bf16 model's
-logits stay bf16 and travel as a ``bfloat16`` frame). Not ported yet: the
-shared-memory endpoint and the telemetry HTTP endpoint.
+logits stay bf16 and travel as a ``bfloat16`` frame). The server speaks
+gRPC, the reference's wire, or (``transport="socket"``) the port's socket
+transport (``rpc/socket_transport.py``) with the same frames, for a host
+without ``grpcio``. Not ported yet: the shared-memory endpoint and the
+telemetry HTTP endpoint.
 """
 
 import numpy as np
@@ -83,20 +86,30 @@ class ScorerServicer:
 
 class ScorerServer:
     """One scorer process's RPC server. ``port=0`` binds an ephemeral
-    port (exposed as ``.port``); ``stop`` drains the batcher before the
-    transport goes."""
+    port (exposed as ``.port``); ``transport`` is ``"grpc"`` or
+    ``"socket"``; ``stop`` drains the batcher before the transport
+    goes."""
 
-    def __init__(self, scorer, port=0, batcher=None):
-        from elasticdl_tpu_torch.rpc.core import serve
-
+    def __init__(self, scorer, port=0, batcher=None, transport="grpc"):
+        if transport not in ("grpc", "socket"):
+            raise ValueError("transport must be 'grpc' or 'socket'")
         self._scorer = scorer
         self._batcher = batcher
+        self.servicer = ScorerServicer(scorer, batcher=batcher)
+        if transport == "grpc":
+            from elasticdl_tpu_torch.rpc.core import serve
+
+            self._server = serve(self.servicer.rpc_methods(), port)
+            self.port = self._server._edl_port
+        else:
+            from elasticdl_tpu_torch.rpc.socket_transport import serve
+
+            self._server = serve(self.servicer.rpc_methods(), port)
+            self.port = self._server.port
+        self._transport = transport
         if batcher is not None:
             batcher.start()
-        self.servicer = ScorerServicer(scorer, batcher=batcher)
-        self._server = serve(self.servicer.rpc_methods(), port)
-        self.port = self._server._edl_port
-        logger.info("scorer RPC server on port %d", self.port)
+        logger.info("scorer %s server on port %d", transport, self.port)
 
     def stop(self):
         if self._batcher is not None:
@@ -106,5 +119,8 @@ class ScorerServer:
             self._batcher.close()
             self._batcher = None
         if self._server is not None:
-            self._server.stop(grace=None)
+            if self._transport == "grpc":
+                self._server.stop(grace=None)
+            else:
+                self._server.stop()
             self._server = None

@@ -42,6 +42,11 @@ shard's newest version, which ages the entries; an entry more than
 entries are dropped in the reconnect protocol, its clock set to the
 restored version.
 
+**The scorer's reads.** ``serving_status`` and ``pull_embedding_delta``
+(the delta sync's poll, ``serving/delta_sync.py``) run their replies
+through the reconnect protocol too, so a poll alone sees a relaunched
+shard and drops its cache entries.
+
 Not ported, raising ``NotImplementedError`` by name: the shared-memory
 channel (``shm="on"``; A6). ``shm="auto"`` keeps the socket path, as
 the reference does where no ring can be negotiated.
@@ -211,6 +216,38 @@ class PSClient:
             with self._epoch_mu:
                 self._needs_reinit.update(shards)
             raise
+
+    # -- the scorer's reads --------------------------------------------------
+
+    def serving_status(self, shard):
+        """Shard ``shard``'s ``{version, shard_epoch, initialized,
+        tables, floors}`` (``ps/servicer.serving_status``). A new
+        ``shard_epoch`` in the reply runs the reconnect protocol here, so
+        a scorer's poll sees a relaunch without a failed pull."""
+        resp = self._ps[shard].serving_status({})
+        self._note_shard_reply(shard, resp)
+        return {
+            "version": int(resp.get("version", -1)),
+            "shard_epoch": resp.get("shard_epoch"),
+            "initialized": bool(resp.get("initialized", False)),
+            "tables": dict(resp.get("tables") or {}),
+            "floors": dict(resp.get("floors") or {}),
+        }
+
+    def pull_embedding_delta(self, shard, name, since_version):
+        """The ids of ``name`` shard ``shard`` wrote after
+        ``since_version``: ``(ids int64, covered version, complete)``.
+        A read, so the socket channel may resend it."""
+        resp = self._ps[shard].pull_embedding_delta(
+            {"name": name, "since_version": int(since_version)}
+        )
+        self._note_shard_reply(shard, resp)
+        # a copy: the decoded ids are a view of the reply's buffer
+        return (
+            np.array(resp["ids"], dtype=np.int64, copy=True).reshape(-1),
+            int(resp.get("version", since_version)),
+            bool(resp.get("complete", False)),
+        )
 
     # -- the fan-out ----------------------------------------------------------
 

@@ -142,6 +142,7 @@ SUPERVISOR = textwrap.dedent(
     import json, os, socket, sys, time
     cfg = json.loads(sys.argv[1])
     sys.path.insert(0, cfg["repo"])
+    from elasticdl_tpu_torch.master.journal import MasterJournal
     from elasticdl_tpu_torch.master.local_instance_manager import (
         LocalInstanceManager,
     )
@@ -171,6 +172,10 @@ SUPERVISOR = textwrap.dedent(
     before = status()
     manager.start_workers()
     while (status() or {}).get("version", 0) < 4:
+        time.sleep(0.02)
+    # the journal writes its records on a batched cadence: kill once
+    # version 4 is on disk, or the relaunch rightly replays an older one
+    while MasterJournal(cfg["journal"]).replay().version < 4:
         time.sleep(0.02)
     live_at_kill = manager.live_workers()
     manager.kill_master()
@@ -510,6 +515,7 @@ def test_master_sigkill_drill_rides_out_the_outage(tmp_path, data_dir):
     ] + common
     timeline = str(tmp_path / "timeline")
     r = _launch(SUPERVISOR, dict(repo=REPO, port=port, master=master,
+                                 journal=journal,
                                  worker=worker, timeline=timeline))
     # neither worker exited during the outage; the job ended cleanly
     assert r["live_at_kill"] == r["live_after"] == [0, 1]

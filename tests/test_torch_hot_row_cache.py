@@ -108,16 +108,6 @@ def test_an_entry_past_the_window_is_a_miss_and_dropped():
     assert c.get("t", 5) is not None
 
 
-@pytest.mark.parametrize("method,args", [
-    ("invalidate_table", ("t",)),
-    ("refresh_table", ("t", 0, 1, [], 0)),
-    ("max_live_lag", ()),
-])
-def test_the_delta_sync_methods_raise_by_name(method, args):
-    with pytest.raises(NotImplementedError, match="A5"):
-        getattr(HotRowCache(4), method)(*args)
-
-
 # -- the client over in-process shards, both packages ----------------------
 
 

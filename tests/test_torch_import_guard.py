@@ -82,7 +82,7 @@ def test_every_port_module_imports_without_jax():
     # elastic embedding layer and parameter-server worker, and the PS
     # fleet's shard, snapshots, client, placement hashing, compressed
     # wire and master entry)
-    assert count >= 102
+    assert count >= 104
     for name in ("master.journal", "rpc.failover", "nn.hbm_embedding",
                  "ps.servicer", "ps.parameter_server", "ps.snapshot",
                  "ps.main", "worker.ps_client", "common.hash_utils",
@@ -90,7 +90,7 @@ def test_every_port_module_imports_without_jax():
                  "ps.embedding_table", "ps.parameters",
                  "ps.optimizer_wrapper", "master.learning_rate_modulator",
                  "nn.embedding",
-                 "worker.worker",
+                 "worker.worker", "ps.delta_log", "serving.delta_sync",
                  "nn.comm_plane", "parallel.mesh",
                  "model_zoo.mnist_functional_api.mnist_functional_api",
                  "model_zoo.cifar10_subclass.cifar10_subclass",
@@ -330,6 +330,16 @@ def _build_cuda_scorer(tmp_path):
     )
 
 
+def _build_cuda_ps_scorer(tmp_path):
+    from elasticdl_tpu_torch.common.args import parse_scorer_args
+    from elasticdl_tpu_torch.serving.main import build_scorer
+
+    return build_scorer(
+        parse_scorer_args(["--export_dir", str(tmp_path), "--ps_addrs",
+                           "localhost:1,localhost:2"])
+    )
+
+
 def _cuda_scorer_model(tmp_path):
     from elasticdl_tpu_torch.serving.scorer import ScorerModel
 
@@ -403,7 +413,8 @@ def _cuda_prefetch(tmp_path):
 
 @pytest.mark.parametrize(
     "entry",
-    [_resolve_cuda, _build_cuda_scorer, _cuda_scorer_model, _cuda_trainer,
+    [_resolve_cuda, _build_cuda_scorer, _build_cuda_ps_scorer,
+     _cuda_scorer_model, _cuda_trainer,
      _cuda_job, _cuda_eval_job, _cuda_prefetch, _cuda_ps_shard,
      _cuda_fleet_worker],
 )

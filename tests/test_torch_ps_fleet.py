@@ -574,13 +574,6 @@ def test_the_hot_row_cache_raises_in_the_client():
         client.close()
 
 
-def test_the_scorer_reads_raise_by_name():
-    port, _ = _pair("momentum")
-    for method in (port.serving_status, port.pull_embedding_delta):
-        with pytest.raises(NotImplementedError, match="A5"):
-            method({"name": "emb", "since_version": 0})
-
-
 def test_a_shard_on_cuda_without_a_card_raises(monkeypatch):
     from elasticdl_tpu_torch.ps.parameter_server import main
 

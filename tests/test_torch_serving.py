@@ -60,7 +60,9 @@ def _export_jax(root, version, seed=0):
 
 
 def _stack(root, max_batch=4, timeout_ms=200.0):
-    return build_scorer(
+    """A dense model's stack: (scorer, watcher, batcher); with no
+    ``--ps_addrs`` there is no delta sync and no PS channel."""
+    scorer, watcher, sync, bound, batcher = build_scorer(
         parse_scorer_args(
             [
                 "--export_dir", str(root),
@@ -70,6 +72,8 @@ def _stack(root, max_batch=4, timeout_ms=200.0):
             ]
         )
     )
+    assert sync is None and bound == []
+    return scorer, watcher, batcher
 
 
 def _out(reply):
@@ -255,7 +259,8 @@ def test_bf16_reply_travels_as_bf16(tmp_path):
 def test_unported_planes_raise(tmp_path):
     base = ["--export_dir", str(tmp_path), "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_scorer(parse_scorer_args(base + ["--ps_addrs", "h:1"]))
+        build_scorer(parse_scorer_args(
+            base + ["--ps_addrs", "h:1", "--ps_shm", "on"]))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_scorer(
             parse_scorer_args(base + ["--scorer_telemetry_port", "0"])
@@ -278,13 +283,24 @@ def test_scorer_args_parse_like_the_reference():
         "--export_dir", "/x", "--port", "5", "--serve_max_batch", "8",
         "--serve_batch_timeout_ms", "3", "--serve_p99_slo_ms", "50",
         "--serve_queue_rows", "9", "--watch_interval_s", "0.5",
-        "--hot_row_cache_rows", "7",  # the reference's; ignored here
+        "--hot_row_cache_rows", "7", "--serving_staleness_versions", "3",
+        "--serving_sync_interval_s", "0.25", "--rpc_deadline_s", "5",
+        "--rpc_retries", "1", "--ps_shm", "off", "--ps_addrs", "a:1,b:2",
     ]
     ours, ref = parse_scorer_args(argv), jparse(argv)
     for name, value in vars(ours).items():
-        if name != "device":
+        # the port's own: the device, and the wire for a host without grpc
+        if name not in ("device", "scorer_transport"):
             assert getattr(ref, name) == value, name
-    assert ours.device == "cuda"
+    assert ours.device == "cuda" and ours.scorer_transport == "grpc"
+    defaults = parse_scorer_args(["--export_dir", "/x"])
+    assert vars(defaults).items() >= {
+        "serving_staleness_versions": 2, "serving_sync_interval_s": 0.5,
+        "hot_row_cache_rows": 65536, "rpc_deadline_s": 20.0,
+        "rpc_retries": 3, "ps_shm": "auto", "ps_addrs": "",
+    }.items()
+    for name, value in vars(jparse(["--export_dir", "/x"])).items():
+        assert getattr(defaults, name) == value, name
 
 
 def _free_port():
