@@ -278,6 +278,7 @@ and 13, and none of them prints the result line.
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4026,11 +4027,12 @@ class _Fleet:
     where there are shards). ``inline`` runs one more worker in this
     process instead. ``deterministic`` starts the workers with no
     dataset shuffle and cuDNN's deterministic algorithms (or through the
-    wrapper it names)."""
+    wrapper it names). ``ps_by_shard`` maps a shard to flags of its
+    own."""
 
     def __init__(self, tmp, name, model_def, data, batch, shards=2,
                  workers=1, epochs=1, job=(), ps=(), worker=(),
-                 deterministic=False, val=None):
+                 deterministic=False, val=None, ps_by_shard=None):
         from elasticdl_tpu_torch.master.local_instance_manager import (
             LocalInstanceManager,
         )
@@ -4057,7 +4059,7 @@ class _Fleet:
         self.ps_argv = lambda i: py + [
             "elasticdl_tpu_torch.ps.main", "--ps_id", str(i),
             "--port", str(self.ps_ports[i]),
-        ] + common + list(ps)
+        ] + common + list(ps) + list((ps_by_shard or {}).get(i, ()))
         self.job_type = ("training_with_evaluation" if val
                          else "training_only")
         self.worker_flags = [
@@ -4358,6 +4360,7 @@ def _fleet_f1(torch, tmp, card, wire=None):
         "master_checkpoints": len(rounds), "journal": raw["journal"],
         "evaluate": eval_rec, "ps_exit_codes": raw["ps_exit_codes"],
         "losses_first_last": [e.get("losses_first_last") for e in ends],
+        "wire": [e.get("wire") for e in ends],
     }
     rec["worker_flash_launches"] = _worker_launches(events, problems)
     return rec, problems, state
@@ -4516,6 +4519,9 @@ def _fleet_kill(torch, tmp, card, durable):
         "worker_peak_mib": [e.get("peak_mib") for e in ends],
         "accepted_steps": len(_fleet_steps(events)),
         "ps_exit_codes": raw["ps_exit_codes"],
+        # the relaunched shard answers the old ring with _shm_error: each
+        # worker's channel to it goes off and resends inline
+        "wire": [e.get("wire") for e in ends],
     }
     rec["worker_flash_launches"] = _worker_launches(events, problems)
     return rec, problems
@@ -5840,6 +5846,59 @@ def _s_note_cost(torch, reps=200):
     return out
 
 
+S_SHM_REQUESTS = 16  # the scorer process's ring against its socket
+
+
+def _s_shm_arm(plain, port, version, problems):
+    """The scorer process over a shared-memory ring: once it serves the
+    newest export, ``S_SHM_REQUESTS`` requests each sent on its socket and
+    then through a ``ShmChannel``; the replies must be bitwise equal,
+    every one through the ring."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.tensor import release_message
+    from elasticdl_tpu_torch.rpc.shm_transport import ShmChannel
+    from elasticdl_tpu_torch.rpc.socket_transport import Client
+
+    def newest():
+        got = plain.call("scorer_status")["model_version"]
+        if got != version:
+            raise RuntimeError("at v%s, not v%s" % (got, version))
+
+    _until(newest, "the scorer process's newest export", S_LIMIT_S)
+    ring_client = Client("localhost:%d" % port, deadline_s=60.0)
+    chan = ShmChannel(ring_client, n_slots=SHM_SLOTS, slot_mb=SHM_SLOT_MB)
+    sample = _s_sampler(SEED + 80)
+    equal, ms = 0, {"socket": [], "shm": []}
+    try:
+        for _ in range(S_SHM_REQUESTS):
+            feats = sample()
+            t0 = time.perf_counter()
+            a = plain.call("score", **feats)
+            t1 = time.perf_counter()
+            b = chan.call("score", **feats)
+            ms["socket"].append((t1 - t0) * 1e3)
+            ms["shm"].append((time.perf_counter() - t1) * 1e3)
+            equal += int(
+                "error" not in a and "error" not in b
+                and a["model_version"] == b["model_version"]
+                and all(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+                        for k in ("out:logits", "out:probs")))
+            release_message(b)
+            del b
+        rec = {"requests": S_SHM_REQUESTS, "bitwise_equal": equal,
+               "state": chan.state, "stats": dict(chan.stats),
+               "socket_ms_median": _median(ms["socket"]),
+               "shm_ms_median": _median(ms["shm"])}
+    finally:
+        chan.close()
+        ring_client.close()
+    if equal != S_SHM_REQUESTS or rec["state"] != "on" or (
+            rec["stats"]["shm"] != S_SHM_REQUESTS):
+        problems.append("the scorer's ring against its socket: %s" % rec)
+    return rec
+
+
 def phase_ps_serve(torch, tmp, card):
     """Serving's PS plane: two ``ps.main`` shards (async, snapshots every
     8 versions) train zipf DeepFM at zoo width under an in-process
@@ -6073,6 +6132,13 @@ def phase_ps_serve(torch, tmp, card):
         rel = _np_rel(got, want)
         batched, _ = batcher.submit(fixed)
         batched_bitwise = all(torch.equal(out[k], batched[k]) for k in out)
+        rec["shm_scorer"] = _s_shm_arm(clients[0], port, newest_version,
+                                       problems)
+        # the in-process scorer's channel to each shard, after shard 0's
+        # relaunch
+        rec["wire"] = {
+            "ps%d" % i: dict(b.shm_channel.stats, state=b.shm_channel.state)
+            for i, b in enumerate(bound) if b.shm_channel is not None}
 
         # classify by issue time, as the reference's bench
         lo, hi = kill_t - S_OUTAGE[0], serving_t + S_OUTAGE[1]
@@ -6229,6 +6295,301 @@ def _ps_serve_only(torch):
         return 1
     print(card)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# wire: the shared-memory wire under the fleet, against the socket path
+# ---------------------------------------------------------------------------
+
+W_STEPS = PS_RECORDS // PS_BATCH  # one epoch of F1's data
+W2_CALLS = 200  # each of the wire-alone loops
+W2_IDS = 2048  # ~0.5 MiB of 64-wide f32 rows: a shard's share of F1's pull
+W_DIM = 64  # DeepFM's embedding width at the zoo's
+SHM_SLOTS, SHM_SLOT_MB = 4, 8  # the ring every worker and scorer asks for
+# the most rings each phase negotiates at once: (worker processes, shards,
+# a master channel each, the scorers' rings)
+SHM_RING_SETS = {
+    "ps P2": (2, 0, 1, 0),
+    "ps_fleet F2/F3": (2, 2, 1, 0),
+    "ps_tiers / ps_hybrid": (1, 2, 1, 0),
+    # the scorer process's and the in-process stack's channel to each
+    # shard, and the wire arm's client of the process scorer
+    "ps_serve": (0, 2, 0, 2 * 2 + 1),
+    # W1's worker and W2's stub to shard 0
+    "wire": (1, 2, 1, 1),
+}
+
+
+def _shm_ring_bytes():
+    """One ring's size in ``/dev/shm``, as ``ShmChannel`` lays it out."""
+    from elasticdl_tpu_torch.rpc.shm_transport import ShmChannel
+
+    return ShmChannel(None, SHM_SLOTS, SHM_SLOT_MB).ring_bytes
+
+
+def phase_shm_room():
+    """``/dev/shm``'s size and free room, held against the largest ring
+    set any phase negotiates: tmpfs allocates lazily, so a ring past its
+    room is made without error and SIGBUSes the first process that
+    writes past it. Returns the record."""
+    try:
+        st = os.statvfs("/dev/shm")
+    except OSError as err:
+        raise PhaseError("/dev/shm is not there: %s" % err)
+    ring = _shm_ring_bytes()
+    need = {name: (w * (s + m) + sc) * ring
+            for name, (w, s, m, sc) in SHM_RING_SETS.items()}
+    worst = max(need, key=need.get)
+    rec = {"phase": "device", "of": "dev_shm",
+           "size_mib": st.f_blocks * st.f_frsize / 2**20,
+           "free_mib": st.f_bavail * st.f_frsize / 2**20,
+           "ring_mib": ring / 2**20,
+           "need_mib": {k: v / 2**20 for k, v in need.items()},
+           "largest": worst}
+    emit(rec)
+    if need[worst] > st.f_bavail * st.f_frsize:
+        raise PhaseError(
+            "/dev/shm has %.1f MiB free, but %s negotiates %.1f MiB of rings "
+            "(%d slots of %d MiB each): give the machine a larger /dev/shm "
+            "(docker run --shm-size)" % (
+                rec["free_mib"], worst, need[worst] / 2**20, SHM_SLOTS,
+                SHM_SLOT_MB))
+    return rec
+
+
+def shm_segments():
+    """The wire's segment names in ``/dev/shm`` now."""
+    try:
+        return {n for n in os.listdir("/dev/shm") if n.startswith("edlw-")}
+    except OSError:
+        return set()
+
+
+def _w_inline(torch, shm):
+    """The inline worker of a W arm: ``worker.main``'s PS worker built in
+    this process over ``--ps_shm``/``--master_shm`` ``shm``, with no
+    dataset shuffle and torch's deterministic algorithms (the Z phases'
+    worker); its channels are read before they close."""
+    from elasticdl_tpu_torch.common.args import parse_worker_args
+    from elasticdl_tpu_torch.data.dataset import Dataset
+    from elasticdl_tpu_torch.worker.main import (
+        close_clients,
+        make_ps_client,
+        master_client,
+        ps_worker,
+    )
+
+    def run(fleet):
+        args = parse_worker_args(
+            ["--worker_id", "0"] + fleet.worker_flags
+            + ["--ps_shm", shm, "--master_shm", shm])
+        saved = (Dataset.shuffle, torch.are_deterministic_algorithms_enabled(),
+                 torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+        Dataset.shuffle = lambda self, *a, **k: self
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        ps_client = make_ps_client(args)
+        stub = master_client(args)
+        try:
+            worker = ps_worker(args, stub, ps_client)
+            losses = worker.run()
+            return {"losses": losses, "splits": list(worker.step_splits),
+                    "wire": worker.wire_stats()}
+        finally:
+            close_clients(stub, ps_client)
+            Dataset.shuffle = saved[0]
+            torch.use_deterministic_algorithms(saved[1])
+            torch.backends.cudnn.deterministic = saved[2]
+            torch.backends.cudnn.benchmark = saved[3]
+
+    return run
+
+
+def _w2(fleet, seen):
+    """W2, the wire alone, on shard 0 of W1's fleet: ``W2_CALLS`` pulls of
+    ``W2_IDS`` rows, then as many pushes of as many rows below the
+    shard's version (answered after their decode, before any apply), once
+    over the socket path and once over a ring. p50/p99 in ms."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.tensor import Tensor, release_message
+    from elasticdl_tpu_torch.worker.ps_client import BoundPS
+
+    ids = seen[seen % FLEET_SHARDS == 0][:W2_IDS]
+    rows = np.random.default_rng(SEED + 90).standard_normal(
+        (len(ids), W_DIM)).astype(np.float32)
+    grad = [Tensor("embedding", rows, ids)]
+    out, problems = {}, []
+
+    def pct(values, q):
+        values = sorted(values)
+        return values[min(len(values) - 1, int(q * len(values)))]
+
+    for path, shm in (("socket", "off"), ("shm", "auto")):
+        stub = BoundPS("localhost:%d" % fleet.ps_ports[0], deadline_s=30,
+                       shm=shm, shm_slots=SHM_SLOTS,
+                       shm_slot_mb=SHM_SLOT_MB)
+        try:
+            pulls, pushes = [], []
+            for _ in range(W2_CALLS):
+                t0 = time.perf_counter()
+                resp = stub.pull_embedding_vector(
+                    {"name": "embedding", "ids": ids})
+                shape = tuple(resp["rows"].shape)
+                release_message(resp)
+                pulls.append((time.perf_counter() - t0) * 1e3)
+                if shape != (len(ids), W_DIM):
+                    problems.append("W2 %s pull shape %s" % (path, shape))
+                    break
+            for _ in range(W2_CALLS):
+                t0 = time.perf_counter()
+                resp = stub.push_gradient(
+                    {"model_version": 0, "gradients": grad})
+                accepted = resp["accepted"]
+                release_message(resp)
+                pushes.append((time.perf_counter() - t0) * 1e3)
+                if accepted:
+                    problems.append("W2 %s: a stale push was applied" % path)
+                    break
+            chan = stub.shm_channel
+            out[path] = {
+                "pull_p50_ms": pct(pulls, 0.5), "pull_p99_ms": pct(pulls, 0.99),
+                "push_p50_ms": pct(pushes, 0.5),
+                "push_p99_ms": pct(pushes, 0.99),
+                "channel": None if chan is None else dict(
+                    chan.stats, state=chan.state),
+            }
+        finally:
+            stub.close()
+    chan = out.get("shm", {}).get("channel")
+    if not chan or chan["state"] != "on" or chan["shm"] != 2 * W2_CALLS:
+        problems.append("W2's ring: %s" % chan)
+    out["payload_mib"] = rows.nbytes / 2**20
+    return out, problems
+
+
+def _w_arm(torch, tmp, card, name, shm, seen, then=None):
+    """One W arm: F1's sync job (``--grads_to_wait 1``, one epoch of b1024)
+    across two ``ps.main`` shards, shard 0 on the host store and shard 1
+    with ``--ps_device`` (the writable slot views' import), the worker in
+    this process over ``shm``. ``then(fleet)`` runs after the state is
+    read, with the shards still up. Returns (record, problems, state)."""
+    fleet = _Fleet(
+        tmp, name, PS_DEEPFM, os.path.join(tmp, "ps-data"), PS_BATCH,
+        workers=0, job=["--grads_to_wait", "1"],
+        # W2's stale pushes would log a warning each
+        ps=["--grads_to_wait", "1", "--log_level", "ERROR"],
+        ps_by_shard={1: ["--ps_device", "true"]},
+    )
+    ids = {"embedding": seen, "id_bias": seen}
+
+    def inspect(f):
+        state = _fleet_state(f, ids)
+        return state, (then(f) if then is not None else None)
+
+    raw = fleet.run(inline=_w_inline(torch, shm), inspect=inspect)
+    state, after = raw["inspect"]
+    run = raw["inline"]
+    problems = []
+    splits = run["splits"]
+    steps_t = [sp["t"] for sp in splits]
+    step_ms = _median([(b - a) * 1e3 for a, b in zip(steps_t, steps_t[1:])])
+    if len(run["losses"]) != W_STEPS or not all(
+            math.isfinite(x) for x in run["losses"]):
+        problems.append("%s losses %s" % (name, run["losses"]))
+    if not state["ready"] or state["version"] != W_STEPS:
+        problems.append("%s fleet version %s" % (name, state["version"]))
+    if raw["master_exit_codes"] != [0] or raw["journal"]["pending"]:
+        problems.append("%s master %s, journal %s" % (
+            name, raw["master_exit_codes"], raw["journal"]))
+    wire = run["wire"] or {}
+    if shm == "off" and wire:
+        problems.append("%s: channels with the wire off: %s" % (name, wire))
+    if shm != "off":
+        for key in ("ps%d" % i for i in range(FLEET_SHARDS)):
+            chan = wire.get(key)
+            # a silent fallback would hide the path this arm measures
+            if not chan or chan["state"] != "on" or chan["shm"] <= 0:
+                problems.append("%s channel %s: %s" % (name, key, chan))
+        if (wire.get("master") or {}).get("state") == "off":
+            problems.append("%s master channel off: %s" % (name, wire))
+    rec = {
+        "phase": "wire", "of": name, "card": card, "ps_shm": shm,
+        "master_shm": shm, "model": "deepfm_edl_embedding",
+        "batch": PS_BATCH, "steps": len(splits), "shards": FLEET_SHARDS,
+        "shard_stores": ["host", "device"], "job_s": raw["job_s"],
+        "step_ms_median": step_ms,
+        "examples_per_s_median_step": PS_BATCH * 1e3 / step_ms
+        if step_ms else None,
+        "step_split": {k + "_ms_median": _median(
+            [sp.get(k, 0.0) * 1e3 for sp in splits[1:]])
+            for k in ("get_model", "pull", "report", "compute")},
+        "channels": wire,
+        "shards_state": [_shard_record(s) for s in state["statuses"]],
+    }
+    return rec, problems, state, after
+
+
+def phase_wire(torch, tmp, card):
+    """The shared-memory wire at F1's width: W0 with the wire off, W1 with
+    the default ``auto`` (bitwise W0: dense model and every touched row;
+    every PS channel on), W2 the wire alone on W1's shards. Returns the
+    flash kernels' launches in this process (none)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    _write_ps_data(tmp)
+    _reset_counters()
+    seen = np.unique(_frappe_ids(PS_RECORDS, SEED + 40)[0])
+    w0, problems, s0, _ = _w_arm(torch, tmp, card, "w0", "off", seen)
+    emit(w0)
+    w1, bad, s1, (w2, bad2) = _w_arm(
+        torch, tmp, card, "w1", "auto", seen, then=lambda f: _w2(f, seen))
+    problems += bad + bad2
+    rel, bitwise = _compare(s1, s0["dense"], s0["rows"])
+    w1["against_w0"] = {"bitwise": bitwise, "rel_l2_max": max(rel.values())}
+    if not bitwise:
+        problems.append("W1 is not bitwise W0: %s" % rel)
+    emit(w1)
+    emit(dict(w2, phase="wire", of="w2", card=card, calls=W2_CALLS,
+              ids=W2_IDS, width=W_DIM))
+    counts = _counts()
+    emit({"phase": "wire", "of": "summary",
+          "seconds": time.perf_counter() - t0,
+          "flash_launches": {k: n for k, (n, _) in counts.items()}})
+    if problems:
+        raise PhaseError("wire: " + "; ".join(problems))
+    return counts
+
+
+def _wire_only(torch):
+    try:
+        card = phase_device(torch)
+        before = shm_segments()
+        phase_shm_room()
+        with tempfile.TemporaryDirectory() as tmp:
+            counts = phase_wire(torch, tmp, card)
+        _check_counts(counts, {k: 0 for k in KERNELS}, "the wire phase")
+        _check_no_leaked_segments(before)
+    except Exception as err:  # noqa: BLE001 — reported, exit non-zero
+        import traceback
+
+        traceback.print_exc()
+        print("chip_smoke: FAILED: %s" % err, file=sys.stderr)
+        return 1
+    print(card)
+    return 0
+
+
+def _check_no_leaked_segments(before):
+    """No ``edlw-`` segment the run made may outlive it: every process it
+    started has exited and every channel of this one is closed."""
+    left = sorted(shm_segments() - before)
+    emit({"phase": "summary", "of": "dev_shm", "segments_left": left})
+    if left:
+        raise PhaseError("shared-memory segments left: %s" % left)
 
 
 # ---------------------------------------------------------------------------
@@ -7224,6 +7585,12 @@ def main(argv=None):
         help="drive only the ps_serve phase and print its records, not "
         "the result line",
     )
+    parser.add_argument(
+        "--wire-only",
+        action="store_true",
+        help="drive only the wire phase and print its records, not the "
+        "result line",
+    )
     args = parser.parse_args(argv)
     try:
         import torch
@@ -7256,9 +7623,13 @@ def main(argv=None):
         return _ps_hybrid_only(torch)
     if args.ps_serve_only:
         return _ps_serve_only(torch)
+    if args.wire_only:
+        return _wire_only(torch)
 
     try:
         card = phase_device(torch)
+        segments_before = shm_segments()
+        phase_shm_room()
         phase_build()
         records = phase_kernels(torch)
         records += phase_bwd_kernels(torch)
@@ -7289,6 +7660,8 @@ def main(argv=None):
             ps_serve = phase_ps_serve(torch, tmp, card)
             _check_counts(ps_serve, {k: 0 for k in KERNELS},
                           "the ps_serve phase")
+            wire = phase_wire(torch, tmp, card)
+            _check_counts(wire, {k: 0 for k in KERNELS}, "the wire phase")
             _reset_counters()
             elastic, _ = phase_elastic(torch, tmp, job_rec, card)
             # launched in the workers (which report theirs, by run) or
@@ -7300,12 +7673,14 @@ def main(argv=None):
             }
         for path, counts in elastic.items():
             _check_counts(counts, {k: 0 for k in KERNELS}, path)
+        _check_no_leaked_segments(segments_before)
         line = kernels_line(
             records,
             dict({"serve": served, "train": trained, "job": job,
                   "eval": evaluated, "zoo": zoo, "ps": ps,
                   "ps_fleet": ps_fleet, "ps_tiers": ps_tiers,
-                  "ps_hybrid": ps_hybrid, "ps_serve": ps_serve},
+                  "ps_hybrid": ps_hybrid, "ps_serve": ps_serve,
+                  "wire": wire},
                  **elastic),
         )
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero

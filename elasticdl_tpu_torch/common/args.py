@@ -164,8 +164,9 @@ def parse_scorer_args(scorer_args=None):
         "--ps_shm",
         default="auto",
         choices=["auto", "on", "off"],
-        help="Shared-memory transport toward co-located PS shards; 'on' "
-        "is not ported yet, 'auto' keeps the socket path",
+        help="Shared-memory payload transport toward co-located PS "
+        "shards (rpc/shm_transport.py), same negotiation and fallback as "
+        "the worker's flag",
     )
     parser.add_argument(
         "--log_level",
@@ -576,7 +577,7 @@ def add_common_args_between_master_and_worker(parser):
         default="auto",
         choices=["auto", "on", "off"],
         help="Shared-memory payload transport toward PS pods "
-        "co-located on this host (docs/wire.md): 'auto' (default) "
+        "co-located on this host (rpc/shm_transport.py): 'auto' (default) "
         "negotiates per channel at first call and silently keeps the "
         "bytes path cross-host or on attach failure; 'off' never "
         "negotiates",
@@ -602,7 +603,7 @@ def add_common_args_between_master_and_worker(parser):
         choices=["auto", "on", "off"],
         help="Shared-memory payload path for the master channel's "
         "get_model replies when the master pod is co-located on this "
-        "host (docs/wire.md): same negotiation and silent bytes-path "
+        "host (rpc/shm_transport.py): same negotiation and silent bytes-path "
         "fallback as --ps_shm; only the reply-heavy model pull rides "
         "slots — requests stay on the bytes path",
     )
@@ -803,7 +804,9 @@ def parse_ps_args(ps_args=None):
     )
     parser.add_argument(
         "--ps_shm", default="off", choices=["auto", "on", "off"],
-        help="The shared-memory endpoint ('on' is not ported: raises)",
+        help="Accepted and ignored: the shard always offers the "
+        "shared-memory endpoint, which engages when a co-located client "
+        "negotiates a ring (the reference's shard has no such flag)",
     )
     parser.add_argument(
         "--device",

@@ -62,3 +62,14 @@ def dtype_name_to_numpy(name):
     if name not in _NAME_TO_NP:
         raise ValueError("Unsupported wire dtype name: %s" % name)
     return _NAME_TO_NP[name]
+
+
+_NAME_TO_TORCH = {v: k for k, v in _TORCH_TO_NAME.items()}
+
+
+def dtype_name_to_torch(name):
+    """torch dtype of a wire name; raises for names torch lacks (the
+    unsigned words above uint8)."""
+    if name not in _NAME_TO_TORCH:
+        raise ValueError("No torch dtype for wire name: %s" % name)
+    return _NAME_TO_TORCH[name]

@@ -26,8 +26,10 @@ import os
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from elasticdl_tpu_torch.common.dtypes import dtype_name
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
 from elasticdl_tpu_torch.common.model_utils import (
     LEGACY_CHKPT,
@@ -35,7 +37,6 @@ from elasticdl_tpu_torch.common.model_utils import (
     load_from_checkpoint_file,
     save_checkpoint_to_file,
 )
-from elasticdl_tpu_torch.common.tensor import host_words
 
 EXPORT_FORMAT = "elasticdl-tpu-export"
 EXPORT_FORMAT_VERSION = 1
@@ -44,8 +45,10 @@ EXPORT_FORMAT_VERSION = 1
 def _leaf_spec(named):
     spec = {}
     for name, value in named.items():
-        host, dtype = host_words(value)
-        spec[name] = {"shape": list(host.shape), "dtype": dtype}
+        if not isinstance(value, torch.Tensor):
+            value = np.asarray(value)
+        spec[name] = {"shape": [int(d) for d in value.shape],
+                      "dtype": dtype_name(value.dtype)}
     return spec
 
 

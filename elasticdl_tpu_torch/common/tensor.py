@@ -10,20 +10,31 @@ A sparse ``Tensor`` (``indices`` set) is an IndexedSlices analog: the
 sync accumulator sums them by concatenation (``+``), and
 :func:`combine_indexed_slices` merges duplicate ids, as the reference.
 
-Values may be numpy arrays or torch tensors. A torch tensor is copied to
-the host once, inside the frame write. ``bfloat16`` travels as raw
-16-bit words: decoding returns a ``torch.bfloat16`` tensor (numpy has no
-bf16 and this package does not use ``ml_dtypes``); every other dtype
-decodes to a READ-ONLY ``np.frombuffer`` view pinned to the received
-buffer, as in the reference.
+**One copy out.** Values may be numpy arrays or torch tensors, on the
+host or on the card. Planning a frame reads only shape and dtype; the
+frame write is the payload's one copy, straight out of its buffer into
+the frame (or a shared-memory slot): ``np.copyto`` for a numpy array,
+``torch.frombuffer(dest).view(shape).copy_(src)`` for a tensor, which for
+a CUDA tensor is the one device-to-host copy. A tensor marked with
+``wire_dtype = "bfloat16"`` (``rpc/wire_compression``) whose payload is
+float32 narrows to bf16 words inside that same ``copy_`` (round to
+nearest even, as the reference's ``ml_dtypes`` cast).
 
-A tensor marked with ``wire_dtype = "bfloat16"`` (``rpc/wire_compression``)
-whose payload is float32 is narrowed to bf16 words (round to nearest
-even, as the reference's ``ml_dtypes`` cast) when its frame is planned.
+**Decoding copies nothing.** ``bfloat16`` travels as raw 16-bit words
+and decodes to a ``torch.bfloat16`` tensor (numpy has no bf16 and this
+package does not use ``ml_dtypes``): one owned copy from a read-only
+buffer, an alias under ``writable=True``. Every other dtype decodes to a
+READ-ONLY ``np.frombuffer`` view pinned to the received buffer. A
+consumer that keeps a decoded tensor past its message calls
+:meth:`Tensor.materialize`. :class:`WireArena` is the buffer's lifetime
+handle: advisory for a socket or gRPC reply, whose views hold their
+buffer alive, and load-bearing for a shared-memory slot
+(``rpc/shm_transport.py``), where ``release()`` recycles the slot.
 """
 
 import json
 import struct
+import warnings
 
 import numpy as np
 import torch
@@ -32,6 +43,7 @@ from elasticdl_tpu_torch.common.dtypes import (
     BFLOAT16,
     dtype_name,
     dtype_name_to_numpy,
+    dtype_name_to_torch,
 )
 
 _MAGIC = b"EDLT"
@@ -39,24 +51,68 @@ _VERSION = 1
 _FIXED = 9  # magic(4) + version(1) + header_len(4)
 
 
-def host_words(values):
-    """(C-contiguous numpy array of the payload's bytes, wire name).
-    bf16 torch tensors become their uint16 storage words."""
-    if isinstance(values, torch.Tensor):
-        t = values.detach().to("cpu").contiguous()
-        name = dtype_name(t.dtype)
-        if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16), name
-        return t.numpy(), name
-    arr = np.asarray(values)
-    return arr, dtype_name(arr.dtype)
+def is_device_array(x):
+    """True for a torch tensor on a device other than the CPU: the
+    planner reads only its shape and dtype, and its one copy to the host
+    is the frame write."""
+    return isinstance(x, torch.Tensor) and x.device.type != "cpu"
+
+
+def _torch_view(arr):
+    """A torch tensor over a numpy array's buffer, no copy. A read-only
+    array is wrapped all the same (the tensor is only ever a copy
+    source), without torch's warning about it."""
+    if any(s < 0 for s in arr.strides):
+        arr = np.ascontiguousarray(arr)
+    if arr.flags.writeable:
+        return torch.from_numpy(arr)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(arr)
+
+
+def device_host_view(values):
+    """A host numpy array of a payload's wire words: zero-copy for a
+    numpy array or a CPU tensor, the one device-to-host copy for a
+    tensor on the card; bf16 as its uint16 words."""
+    if not isinstance(values, torch.Tensor):
+        return np.asarray(values)
+    t = values.detach()
+    if t.device.type != "cpu":
+        t = t.to("cpu")
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def device_from_host_view(arr, device):
+    """The inverse bridge: a tensor on ``device`` over a host payload, as
+    a decoded slot view enters a ``--ps_device`` shard's apply.
+
+    A writable float32 C-contiguous numpy view imports with
+    ``torch.from_numpy``, which ALIASES the buffer on the CPU, then one
+    ``.to(device)`` (the one host-to-device copy on the card). The
+    caller consumes everything computed from the import before the
+    buffer recycles (the shm endpoint overwrites the request slot with
+    the reply once the handler returns). A read-only or other view gets
+    one owned copy; a tensor is moved as it is."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
+    arr = np.asarray(arr)
+    device = torch.device(device)
+    flags = arr.flags
+    if flags.writeable and flags.c_contiguous and arr.dtype == np.float32:
+        return torch.from_numpy(arr).to(device)
+    if device.type == "cpu":
+        return torch.from_numpy(np.array(arr, copy=True))
+    return _torch_view(arr).to(device)
 
 
 class Tensor:
     """A named array (numpy or torch), optionally sparse: ``indices``
     non-None means ``values[i]`` updates row ``indices[i]``.
     ``wire_dtype``: the dtype a float32 payload rides the wire as (None:
-    its own)."""
+    its own); a mark only, the values are never converted here."""
 
     wire_dtype = None
 
@@ -99,6 +155,26 @@ class Tensor:
 
     __radd__ = __add__
 
+    def materialize(self):
+        """An owned, writable twin of a decoded tensor, for a consumer
+        that keeps it past its message's arena or writes to it. A tensor
+        whose payloads are already writable (built locally, a torch
+        tensor, or materialized before) is returned as it is, so the
+        call costs nothing but at the decode edge. A ``writable=True``
+        decode looks owned: its consumers copy what they keep."""
+        v = self.values
+        v_owned = (
+            v is None or isinstance(v, torch.Tensor) or v.flags.writeable
+        )
+        i_owned = self.indices is None or self.indices.flags.writeable
+        if v_owned and i_owned:
+            return self
+        return Tensor(
+            self.name,
+            v if v_owned else v.copy(),
+            self.indices if i_owned else self.indices.copy(),
+        )
+
     def to_bytes(self):
         return serialize_tensor(self)
 
@@ -119,50 +195,82 @@ def combine_indexed_slices(indices, values):
     return unique, combined
 
 
-def _is_f32(values):
-    if isinstance(values, torch.Tensor):
-        return values.dtype == torch.float32
-    return values is not None and values.dtype == np.float32
+def _itemsize(name):
+    return 2 if name == BFLOAT16 else dtype_name_to_numpy(name).itemsize
 
 
 def plan_tensor_frame(t):
-    """``(header_bytes, host_values, indices, total_bytes)`` of one
-    frame; ``host_values`` is the payload as C-order host words."""
+    """The exact layout of one frame, from metadata alone:
+    ``(header_bytes, values, wire name, indices, total_bytes)``. A torch
+    tensor on the card is not touched: its copy to the host happens in
+    :func:`write_tensor_frame`."""
     values = t.values
-    if t.wire_dtype == BFLOAT16 and _is_f32(values):
-        values = torch.as_tensor(values).to(torch.bfloat16)
-    host, name = host_words(values)
-    header = {"name": t.name, "dtype": name, "shape": list(host.shape)}
-    if t.indices is not None:
-        header["num_indices"] = int(t.indices.shape[0])
+    name = dtype_name(values.dtype)
+    if t.wire_dtype == BFLOAT16 and name == "float32":
+        name = BFLOAT16
+    shape = [int(d) for d in values.shape]
+    header = {"name": t.name, "dtype": name, "shape": shape}
+    indices = t.indices
+    if indices is not None:
+        header["num_indices"] = int(indices.shape[0])
     hdr = json.dumps(header).encode("utf-8")
-    total = _FIXED + len(hdr) + host.nbytes
-    if t.indices is not None:
-        total += t.indices.shape[0] * 8
-    return hdr, host, t.indices, total
+    total = _FIXED + len(hdr) + int(np.prod(shape, dtype=np.int64)) * (
+        _itemsize(name)
+    )
+    if indices is not None:
+        total += indices.shape[0] * 8
+    return hdr, values, name, indices, total
+
+
+def _write_array(buf, off, arr, name):
+    """The payload's one copy into ``buf[off:]`` as C-order ``name``
+    words; returns the offset past it. A tensor (or a float32 array
+    narrowing to bf16) copies through ``torch.frombuffer(...).copy_``,
+    the narrowing fused into that copy; any other array through
+    ``np.copyto``. Both walk strided sources without staging."""
+    shape = tuple(int(d) for d in arr.shape)
+    nbytes = int(np.prod(shape, dtype=np.int64)) * _itemsize(name)
+    if not nbytes:
+        return off
+    dest = buf[off : off + nbytes]
+    if isinstance(arr, torch.Tensor) or name == BFLOAT16:
+        src = arr.detach() if isinstance(arr, torch.Tensor) else (
+            _torch_view(arr)
+        )
+        torch.frombuffer(dest, dtype=dtype_name_to_torch(name)).view(
+            shape
+        ).copy_(src)
+    else:
+        np.copyto(
+            np.frombuffer(dest, dtype=dtype_name_to_numpy(name)).reshape(
+                shape
+            ),
+            arr,
+            casting="unsafe",
+        )
+    return off + nbytes
 
 
 def write_tensor_frame(plan, buf, off=0):
-    """Write one planned frame into ``buf`` at ``off``; returns the
-    offset past the frame."""
+    """Write one planned frame into ``buf`` (a writable buffer) at
+    ``off``; returns the offset past the frame."""
     if not isinstance(buf, memoryview):
+        # a bytearray slice copies: every write goes through one view
         buf = memoryview(buf)
-    hdr, host, indices, _total = plan
+    hdr, values, name, indices, _total = plan
     struct.pack_into("<4sBI", buf, off, _MAGIC, _VERSION, len(hdr))
     off += _FIXED
     buf[off : off + len(hdr)] = hdr
     off += len(hdr)
-    for arr in (host,) if indices is None else (host, indices):
-        if arr.nbytes:
-            dest = np.frombuffer(buf[off : off + arr.nbytes], dtype=arr.dtype)
-            np.copyto(dest.reshape(arr.shape), arr)
-        off += arr.nbytes
+    off = _write_array(buf, off, values, name)
+    if indices is not None:
+        off = _write_array(buf, off, indices, "int64")
     return off
 
 
 def serialize_tensor(t):
     plan = plan_tensor_frame(t)
-    buf = bytearray(plan[3])
+    buf = bytearray(plan[4])
     write_tensor_frame(plan, buf)
     return buf
 
@@ -172,8 +280,18 @@ def _readonly(data):
     return view if view.readonly else view.toreadonly()
 
 
-def deserialize_tensor(data):
-    view = _readonly(data)
+def deserialize_tensor(data, writable=False):
+    """Decode one frame without copying: values and indices are views of
+    ``data``, read-only unless ``writable=True`` and ``data`` itself is
+    writable (the ``--ps_device`` shard's slot requests, which enter the
+    device through :func:`device_from_host_view`; a writable view looks
+    owned to :meth:`Tensor.materialize`, so its consumers copy what they
+    keep). A bf16 payload is a ``torch.bfloat16`` tensor: an alias of a
+    writable buffer, one owned copy of a read-only one."""
+    view = (
+        _readonly(data) if not writable
+        else (data if isinstance(data, memoryview) else memoryview(data))
+    )
     if view[:4] != _MAGIC:
         raise ValueError("bad tensor frame magic")
     ver, hlen = struct.unpack_from("<BI", view, 4)
@@ -190,10 +308,11 @@ def deserialize_tensor(data):
         shape
     )
     if name == BFLOAT16:
-        # torch tensors cannot alias a read-only buffer: one owned copy
-        values = torch.from_numpy(values.view(np.int16).copy()).view(
-            torch.bfloat16
-        )
+        words = values.view(np.int16)
+        if not words.flags.writeable:
+            # torch tensors cannot alias a read-only buffer
+            words = words.copy()
+        values = torch.from_numpy(words).view(torch.bfloat16)
     off += nbytes
     indices = None
     if "num_indices" in header:
@@ -205,10 +324,10 @@ def deserialize_tensor(data):
 def serialize_tensors(tensors):
     """Frames with a u64 length prefix each, in one buffer."""
     plans = [plan_tensor_frame(t) for t in tensors]
-    buf = bytearray(sum(8 + p[3] for p in plans))
+    buf = bytearray(sum(8 + p[4] for p in plans))
     off = 0
     for plan in plans:
-        struct.pack_into("<Q", buf, off, plan[3])
+        struct.pack_into("<Q", buf, off, plan[4])
         off = write_tensor_frame(plan, buf, off + 8)
     return buf
 
@@ -223,6 +342,57 @@ def deserialize_tensors(data):
         tensors.append(deserialize_tensor(view[off : off + n]))
         off += n
     return tensors
+
+
+class WireArena:
+    """The lifetime handle of the buffer a decoded message's views pin.
+
+    On the socket and gRPC paths the views hold their buffer alive
+    themselves, so ``release()`` is advisory: views of this or any other
+    message stay valid after it. On the shared-memory path
+    (``rpc/shm_transport.py``) ``release()`` RECYCLES the slot and the
+    views turn to garbage at the next call, which is why a consumer that
+    keeps a decoded tensor materializes it first. ``__del__`` is the
+    backstop: a dropped reply never leaks its slot."""
+
+    __slots__ = ("_buf", "_on_release", "released")
+
+    def __init__(self, buf, on_release=None):
+        self._buf = buf
+        self._on_release = on_release
+        self.released = False
+
+    @property
+    def recycles(self):
+        """True while ``release()`` would invalidate the views (a slot's
+        arena): a consumer that keeps decoded tensors materializes them
+        first. False for an advisory arena, whose views stay valid."""
+        return self._on_release is not None and not self.released
+
+    def release(self):
+        if self.released:
+            return
+        self.released = True
+        self._buf = None
+        callback, self._on_release = self._on_release, None
+        if callback is not None:
+            callback()
+
+    def __del__(self):
+        try:
+            self.release()
+        except Exception:  # noqa: BLE001 - a destructor at teardown
+            pass
+
+
+def release_message(msg):
+    """Release the arena pinning a decoded message's buffer (a no-op for
+    a message without one: an in-process dict, a handler's request).
+    After it, tensors decoded from a shared-memory reply are invalid."""
+    if isinstance(msg, dict):
+        arena = msg.pop("_wire_arena", None)
+        if arena is not None:
+            arena.release()
 
 
 def named_arrays_to_nested(named):

@@ -52,9 +52,12 @@ Every other plane of the reference's master raises
 endpoint and event sink (``--telemetry_port``,
 ``--telemetry_events_path``), the flight recorder
 (``EDL_FLIGHT_RECORDER_DIR``), TensorBoard (``--tensorboard_log_dir``),
-the hybrid trainer (``--embedding_plane hybrid``) and, with the
-master-held model, the shared-memory master channel (``--master_shm
-on``).
+the hybrid trainer (``--embedding_plane hybrid``).
+
+The RPC server always offers the shared-memory endpoint
+(``rpc/shm_transport.py``): a co-located worker's ``MasterClient``
+negotiates a ring and pulls ``get_model`` through it; every other call
+passes the endpoint untouched. A stop reclaims every attached ring.
 """
 
 import os
@@ -159,7 +162,6 @@ def refuse_unported_planes(args):
         raise _not_ported(
             "the %s strategy" % strategy, "--distribution_strategy"
         )
-    held = master_holds_model(args)
     checks = (
         ("the telemetry endpoint", "--telemetry_port",
          getattr(args, "telemetry_port", None) is not None),
@@ -169,8 +171,6 @@ def refuse_unported_planes(args):
          os.environ.get("EDL_FLIGHT_RECORDER_DIR")),
         ("TensorBoard", "--tensorboard_log_dir",
          getattr(args, "tensorboard_log_dir", "")),
-        ("the shared-memory master channel", "--master_shm on",
-         held and getattr(args, "master_shm", "auto") == "on"),
     )
     for plane, flag, asked in checks:
         if asked:
@@ -307,6 +307,7 @@ class Master:
         self.recovery = None  # what the journal's replay restored
         self.instance_manager = None
         self._server = None
+        self._shm_registry = None
         self._rpc_service = None
         self.port = None
         self._stopped = False
@@ -395,6 +396,7 @@ class Master:
         if self.evaluation_service:
             self.evaluation_service.start()
         from elasticdl_tpu_torch.master.rpc_service import MasterRpcService
+        from elasticdl_tpu_torch.rpc.shm_transport import install_shm_endpoint
         from elasticdl_tpu_torch.rpc.socket_transport import serve
 
         port = getattr(self.args, "port", None)
@@ -405,9 +407,10 @@ class Master:
             status_fn=self._master_status,
             wire_dtype=getattr(self.args, "wire_dtype", ""),
         )
-        self._server = serve(
-            self._rpc_service.rpc_methods(), port if port else 0
+        methods, self._shm_registry = install_shm_endpoint(
+            self._rpc_service.rpc_methods()
         )
+        self._server = serve(methods, port if port else 0)
         self.port = self._server.port
         self._health = "serving"
         logger.info(
@@ -487,6 +490,10 @@ class Master:
         if self._server:
             self._server.stop()
             self._server = None
+        if self._shm_registry is not None:
+            # SIGKILLed workers' rings included: their atexit never ran
+            self._shm_registry.close()
+            self._shm_registry = None
         if self.journal is not None:
             # flushed and fsynced: a clean stop is a consistent replay
             self.journal.close()

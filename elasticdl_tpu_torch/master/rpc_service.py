@@ -26,14 +26,18 @@ The client sends every call through the failover channel
 (``rpc/failover.py``): with ``failover_s`` > 0 it rides out a master
 restart for that long, a master that stays away longer ends the worker
 with the channel's error, and ``set_on_master_epoch_change`` hooks each
-restart it sees.
+restart it sees. With ``shm`` ``"auto"`` (or ``"on"``) it negotiates a
+shared-memory ring with a co-located master (``rpc/shm_transport.py``)
+and sends ``get_model`` alone through it, as the reference does: the
+master keeps decoded request tensors past its reply (the held model,
+the sync accumulator), so requests stay on the socket path.
 """
 
 import numpy as np
 
 from elasticdl_tpu_torch.common.constants import GetModelMethod, TaskType
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
-from elasticdl_tpu_torch.common.tensor import Tensor
+from elasticdl_tpu_torch.common.tensor import Tensor, release_message
 from elasticdl_tpu_torch.master.servicer import TaskResponse
 from elasticdl_tpu_torch.ps.parameters import EmbeddingTableInfo
 from elasticdl_tpu_torch.rpc.wire_compression import (
@@ -252,11 +256,18 @@ class MasterClient:
     waits); a refused or reset connection, and a cut reply of a call in
     ``failover.RESEND_AFTER_CUT``, is sent again for up to
     ``failover_s`` seconds (0: once). ``wire_dtype`` narrows the
-    gradients it sends."""
+    gradients it sends. ``shm``: ``"auto"`` or ``"on"`` sends
+    ``get_model`` through a shared-memory ring negotiated with a
+    co-located master (``shm_slots`` x ``shm_slot_mb``), the socket path
+    otherwise; ``"off"`` (the default for direct constructions) never
+    negotiates."""
 
-    def __init__(self, addr, failover_s=0.0, wire_dtype=""):
+    def __init__(self, addr, failover_s=0.0, wire_dtype="", shm="off",
+                 shm_slots=4, shm_slot_mb=8):
         from elasticdl_tpu_torch.rpc.failover import MasterFailoverChannel
 
+        if shm not in ("auto", "on", "off", "", None, False):
+            raise ValueError("shm must be 'auto', 'on' or 'off'")
         self._wire_dtype = wire_dtype
         self._client = MasterFailoverChannel(
             addr,
@@ -264,6 +275,18 @@ class MasterClient:
             on_epoch_change=self._on_epoch_change,
         )
         self._epoch_change_cb = None
+        self._shm = None
+        if shm in ("auto", "on"):
+            from elasticdl_tpu_torch.rpc.shm_transport import ShmChannel
+
+            self._shm = ShmChannel(
+                self._client, n_slots=shm_slots, slot_mb=shm_slot_mb
+            )
+
+    @property
+    def shm_channel(self):
+        """The ``ShmChannel`` of ``get_model`` (None when off)."""
+        return self._shm
 
     @property
     def master_epoch(self):
@@ -313,14 +336,29 @@ class MasterClient:
         )
 
     def get_model(self, version, method=GetModelMethod.MINIMUM):
-        resp = self._call(
-            "get_model", version=int(version), method=int(method)
-        )
-        params = decompress_tensors(
-            resp.get("params", []), resp.get("compressed_f32")
-        )
-        # the worker keeps these arrays across steps: owned copies
-        return resp["version"], {t.name: np.array(t.values) for t in params}
+        if self._shm is None:
+            resp = self._call(
+                "get_model", version=int(version), method=int(method)
+            )
+        else:
+            resp = self._shm.call(
+                "get_model", version=int(version), method=int(method)
+            )
+            # a slot reply decodes outside the failover channel (its
+            # control reply carries only the slot spec): the epoch watch
+            # is fed by hand, so a relaunch is still seen
+            self._client.note_reply(resp)
+        try:
+            params = decompress_tensors(
+                resp.get("params", []), resp.get("compressed_f32")
+            )
+            # the worker keeps these arrays across steps: owned copies,
+            # made before a slot's reply is released
+            return resp["version"], {
+                t.name: np.array(t.values) for t in params
+            }
+        finally:
+            release_message(resp)
 
     def report_variable(self, named_arrays):
         self._call(
@@ -409,4 +447,6 @@ class MasterClient:
         return resp["worker_id"], resp.get("device")
 
     def close(self):
+        if self._shm is not None:
+            self._shm.close()
         self._client.close()

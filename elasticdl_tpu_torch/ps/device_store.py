@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch.common.device import resolve_device
+from elasticdl_tpu_torch.common.tensor import device_from_host_view
 from elasticdl_tpu_torch.ps.embedding_table import _make_initializer
 
 _MIN_CAPACITY = 64
@@ -83,9 +84,11 @@ class DeviceEmbeddingTable:
         )
 
     def _to_device(self, rows):
-        return torch.from_numpy(
-            np.ascontiguousarray(rows, dtype=np.float32)
-        ).to(self.device)
+        # every caller copies the result into the arena at once, so an
+        # aliased import of a writable request view is safe
+        return device_from_host_view(
+            np.ascontiguousarray(rows, dtype=np.float32), self.device
+        )
 
     # -- the device plane ----------------------------------------------------
 

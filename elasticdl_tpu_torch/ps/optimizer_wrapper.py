@@ -48,6 +48,11 @@ the parameters in the store, which ``Parameters.to_named_arrays`` copies
 to host for a reply. Both planes run one step on the same device over
 the same values, so they agree bitwise. After an apply a tiered table's
 demoter is woken, outside the apply lock.
+
+Gradients enter the device through ``common/tensor.device_from_host_view``:
+a writable request view (a ``--ps_device`` shard's shared-memory slot) is
+imported without a host copy, and the apply consumes it before the
+handler returns and the slot carries the reply.
 """
 
 import threading
@@ -55,7 +60,10 @@ import threading
 import numpy as np
 import torch
 
-from elasticdl_tpu_torch.common.tensor import combine_indexed_slices
+from elasticdl_tpu_torch.common.tensor import (
+    combine_indexed_slices,
+    device_from_host_view,
+)
 from elasticdl_tpu_torch.ps.embedding_table import get_slot_table_name
 
 
@@ -133,9 +141,13 @@ class OptimizerWrapper:
                 )
             for k, p in self._dense_params.items():
                 g = grads.get(k)
+                # a decoded request view enters the device through the
+                # bridge (an alias on the CPU when the view is writable):
+                # the step consumes it before the handler returns
                 p.grad = (
-                    torch.zeros_like(p) if g is None else self._to_device(
-                        np.asarray(g, dtype=np.float32))
+                    torch.zeros_like(p) if g is None
+                    else device_from_host_view(
+                        np.asarray(g, dtype=np.float32), self._device)
                 )
             self._dense_opt.step()
             if store.device is not None:
@@ -212,7 +224,7 @@ class OptimizerWrapper:
                     else self._to_device(t.get(unique))
                 )
             opt.state[rows] = state
-            rows.grad = self._to_device(grad_rows)
+            rows.grad = device_from_host_view(grad_rows, self._device)
             opt.step()
             if on_device:
                 table.scatter_slots(slots, rows.detach())

@@ -11,15 +11,23 @@ the optimizer there, so the first apply does not pay for the device's
 context and torch's lazy imports. SIGTERM drains: one final snapshot, then exit 75, which the
 instance manager relaunches without spending its crash budget.
 
+The shard always offers the shared-memory endpoint
+(``rpc/shm_transport.py``), as the reference does: a client on the same
+host negotiates a ring through ``transport_hello`` (whose reply carries
+the ``shard_epoch``), after which payloads travel in its slots; a
+``--ps_device`` shard decodes slot requests as writable views, which
+enter the device without a host copy. A stop reclaims every attached
+ring, those of SIGKILLed clients included. The shard's ``--ps_shm`` flag
+(the reference's shard has none) is accepted and ignored.
+
 ``--ps_device`` keeps the store on ``--device`` (``ps/device_store.py``);
 ``--ps_warm_rows`` with ``--ps_spill_dir`` tiers every table
 (``ps/tiered_store.py``), spilling under ``<spill_dir>/ps-{id}``. Only one
 of those two runs untiered with a warning, as the reference does. A stop
 closes the tiered tables' demoters.
 
-Not ported, each raising ``NotImplementedError`` by name: the shard's
-telemetry endpoint (``--ps_telemetry_port`` other than -1, A8) and its
-shared-memory endpoint (``--ps_shm on``, A6).
+Not ported, raising ``NotImplementedError`` by name: the shard's
+telemetry endpoint (``--ps_telemetry_port`` other than -1, A8).
 """
 
 import os
@@ -36,8 +44,6 @@ def refuse_unported_ps_flags(args):
     checks = (
         ("the PS shard's telemetry endpoint", "--ps_telemetry_port",
          getattr(args, "ps_telemetry_port", -1) != -1),
-        ("the PS shard's shared-memory endpoint", "--ps_shm on",
-         getattr(args, "ps_shm", "off") == "on"),
     )
     for plane, flag, asked in checks:
         if asked:
@@ -79,6 +85,7 @@ class ParameterServer:
         refuse_unported_ps_flags(args)
         self._args = args
         self._server = None
+        self._shm_registry = None
         self._draining = threading.Event()
         self._warm_thread = None
         self.device = resolve_device(getattr(args, "device", "cuda"))
@@ -131,9 +138,17 @@ class ParameterServer:
         return self._server.port if self._server else None
 
     def prepare(self):
+        from elasticdl_tpu_torch.rpc.shm_transport import install_shm_endpoint
         from elasticdl_tpu_torch.rpc.socket_transport import serve
 
-        self._server = serve(self.servicer.rpc_methods(), self._args.port)
+        # offered always: it engages only when a co-located client
+        # negotiates a ring, and costs nothing otherwise
+        methods, self._shm_registry = install_shm_endpoint(
+            self.servicer.rpc_methods(),
+            hello_extra={"shard_epoch": self.shard_epoch},
+            writable_request_views=self.parameters.device is not None,
+        )
+        self._server = serve(methods, self._args.port)
         logger.info(
             "PS %d serving on port %d (shard_epoch %d%s, device %s, %s "
             "store%s)",
@@ -206,6 +221,10 @@ class ParameterServer:
         if self._server:
             self._server.stop()
             self._server = None
+        if self._shm_registry is not None:
+            # reclaims every attached ring, SIGKILLed clients' included
+            self._shm_registry.close()
+            self._shm_registry = None
         if self.snapshotter is not None:
             try:
                 self.snapshotter.close()

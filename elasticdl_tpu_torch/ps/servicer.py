@@ -65,6 +65,16 @@ def _infos(req):
     ]
 
 
+def _owned(t):
+    """A copy of a sparse gradient that aliases nothing of its request."""
+    values = t.values
+    values = (
+        values.detach().clone() if isinstance(values, torch.Tensor)
+        else np.array(values, copy=True)
+    )
+    return Tensor(t.name, values, np.array(t.indices, copy=True))
+
+
 class PserverServicer:
     def __init__(
         self,
@@ -264,12 +274,17 @@ class PserverServicer:
                 return self._reply({
                     "accepted": False, "version": self._parameters.version,
                 })
+            # the sums outlive this request, whose tensors may be views
+            # of a shared-memory slot the client recycles after the
+            # reply (writable ones, on a --ps_device shard, which
+            # materialize() takes for owned): the first round copies,
+            # later rounds allocate through ``+``
             for t in gradients:
                 self._parameters.check_grad(t)
                 if t.is_indexed_slices():
                     prev = self._indexed_sum.get(t.name)
                     self._indexed_sum[t.name] = (
-                        t if prev is None else prev + t
+                        _owned(t) if prev is None else prev + t
                     )
                 else:
                     prev = self._dense_sum.get(t.name)

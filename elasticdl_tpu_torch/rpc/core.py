@@ -7,9 +7,18 @@ json | u32 n_segments | (u64 len | segment)*`` with arrays riding as
 tensor frames (common/tensor.py). Handlers are generic bytes-in/bytes-out
 methods, so either package's client can call either package's server.
 
+Packing is two steps: :func:`plan_message` lays the message out from
+metadata alone (:class:`MessagePlan`, every length known), and
+:func:`pack_message_into` writes it into any writable buffer with one
+copy per payload: a ``bytearray`` here and in the socket transport, a
+shared-memory slot in ``rpc/shm_transport.py``. :func:`unpack_message`
+decodes without copying (read-only views of the buffer) and carries the
+buffer's :class:`~elasticdl_tpu_torch.common.tensor.WireArena` under
+``"_wire_arena"``.
+
 ``grpc`` is imported only where a server or channel is made, so nothing
-that merely packs messages needs it. Not ported yet: the shared-memory
-transport and the failover channel.
+that merely packs messages needs it. The failover channel of the master
+is ``rpc/failover.py``, over the socket transport.
 """
 
 import json
@@ -22,6 +31,7 @@ import torch
 
 from elasticdl_tpu_torch.common.tensor import (
     Tensor,
+    WireArena,
     deserialize_tensor,
     plan_tensor_frame,
     write_tensor_frame,
@@ -36,17 +46,34 @@ _GRPC_OPTIONS = [
 ]
 
 
-def pack_message(msg):
-    """dict -> one exactly-sized ``bytearray``."""
+class MessagePlan:
+    """The exact layout of one packed message: ``segments`` holds
+    ``("frame", tensor frame plan, n)`` or ``("raw", bytes-like, n)``
+    entries, ``total`` the message's bytes, so a writer allocates once
+    and copies each payload once."""
+
+    __slots__ = ("header", "segments", "total")
+
+    def __init__(self, header, segments, total):
+        self.header = header
+        self.segments = segments
+        self.total = total
+
+
+def plan_message(msg):
+    """dict -> :class:`MessagePlan`, reading only the payloads'
+    metadata (a tensor on the card is not touched)."""
     header = {}
-    segments = []  # ("frame", plan, n) | ("raw", bytes_like, n)
+    segments = []
 
     def add_frame(t):
         plan = plan_tensor_frame(t)
-        segments.append(("frame", plan, plan[3]))
+        segments.append(("frame", plan, plan[4]))
         return len(segments) - 1
 
     for key, value in msg.items():
+        if key == "_wire_arena":
+            continue  # the decode side's lifetime handle, never a field
         if isinstance(value, Tensor):
             header[key] = {"t": "tensor", "i": add_frame(value)}
         elif isinstance(value, (np.ndarray, torch.Tensor)):
@@ -58,36 +85,56 @@ def pack_message(msg):
         ):
             header[key] = {"t": "tensors", "i": [add_frame(t) for t in value]}
         elif isinstance(value, (bytes, bytearray, memoryview)):
+            # len() of a typed memoryview counts elements: size in bytes
             value = memoryview(value).cast("B")
             segments.append(("raw", value, len(value)))
             header[key] = {"t": "bytes", "i": len(segments) - 1}
         else:
             header[key] = {"t": "json", "v": value}
     hdr = json.dumps(header).encode("utf-8")
-    buf = bytearray(8 + len(hdr) + sum(8 + n for _, _, n in segments))
-    view = memoryview(buf)
-    struct.pack_into("<I", view, 0, len(hdr))
-    off = 4
-    view[off : off + len(hdr)] = hdr
-    off += len(hdr)
-    struct.pack_into("<I", view, off, len(segments))
+    total = 8 + len(hdr) + sum(8 + n for _, _, n in segments)
+    return MessagePlan(hdr, segments, total)
+
+
+def pack_message_into(plan, buf, off=0):
+    """Write a planned message into ``buf`` (a writable buffer) at
+    ``off``; returns the offset past it."""
+    if not isinstance(buf, memoryview):
+        buf = memoryview(buf)  # bytearray slices copy; views do not
+    hdr = plan.header
+    struct.pack_into("<I", buf, off, len(hdr))
     off += 4
-    for kind, payload, nbytes in segments:
-        struct.pack_into("<Q", view, off, nbytes)
+    buf[off : off + len(hdr)] = hdr
+    off += len(hdr)
+    struct.pack_into("<I", buf, off, len(plan.segments))
+    off += 4
+    for kind, payload, nbytes in plan.segments:
+        struct.pack_into("<Q", buf, off, nbytes)
         off += 8
         if kind == "frame":
-            off = write_tensor_frame(payload, view, off)
+            off = write_tensor_frame(payload, buf, off)
         else:
-            view[off : off + nbytes] = payload
+            buf[off : off + nbytes] = payload
             off += nbytes
+    return off
+
+
+def pack_message(msg):
+    """dict -> one exactly-sized ``bytearray`` (plan, then pack)."""
+    plan = plan_message(msg)
+    buf = bytearray(plan.total)
+    pack_message_into(plan, buf)
     return buf
 
 
-def unpack_message(data):
-    """bytes-like -> dict. Array fields decode to read-only numpy views
-    of ``data`` (``torch.bfloat16`` tensors for bf16 frames)."""
-    view = memoryview(data)
-    if not view.readonly:
+def unpack_message(data, arena=None, writable=False):
+    """bytes-like -> dict without copying: array fields decode to views
+    of ``data`` (read-only unless ``writable`` and ``data`` is writable;
+    ``torch.bfloat16`` tensors for bf16 frames), ``bytes`` fields to
+    ``bytes``. ``arena`` rides along under ``"_wire_arena"``
+    (``common/tensor.release_message``)."""
+    view = data if isinstance(data, memoryview) else memoryview(data)
+    if not view.readonly and not writable:
         view = view.toreadonly()
     (hlen,) = struct.unpack_from("<I", view, 0)
     header = json.loads(bytes(view[4 : 4 + hlen]))
@@ -108,13 +155,17 @@ def unpack_message(data):
         elif kind == "bytes":
             msg[key] = bytes(segments[spec["i"]])
         elif kind == "tensor":
-            msg[key] = deserialize_tensor(segments[spec["i"]])
+            msg[key] = deserialize_tensor(segments[spec["i"]], writable)
         elif kind == "array":
-            msg[key] = deserialize_tensor(segments[spec["i"]]).values
+            msg[key] = deserialize_tensor(segments[spec["i"]], writable).values
         elif kind == "tensors":
-            msg[key] = [deserialize_tensor(segments[i]) for i in spec["i"]]
+            msg[key] = [
+                deserialize_tensor(segments[i], writable) for i in spec["i"]
+            ]
         else:
             raise ValueError("unknown field kind %r" % kind)
+    if arena is not None:
+        msg["_wire_arena"] = arena
     return msg
 
 
@@ -163,15 +214,19 @@ def serve(methods, port, max_workers=64):
 class Client:
     """``client.call("method", **fields)`` -> reply dict.
 
-    ``deadline_s``: the call's deadline (None blocks). Failures raise
-    ``grpc.RpcError``; both scorer RPCs are idempotent, so a caller may
-    retry on its own policy."""
+    ``deadline_s``: each attempt's deadline (None blocks). ``retries``/
+    ``backoff_s``: an ``UNAVAILABLE`` attempt is sent again up to
+    ``retries`` times, the backoff doubling, unless the call passes
+    ``_retriable=False``; other failures raise ``grpc.RpcError`` at
+    once."""
 
-    def __init__(self, addr, deadline_s=None):
+    def __init__(self, addr, deadline_s=None, retries=0, backoff_s=0.2):
         import grpc
 
         self._grpc = grpc
         self._deadline_s = deadline_s if deadline_s else None
+        self._retries = retries
+        self._backoff_s = backoff_s
         self._latency = profiling.metrics.histogram(
             "edl_rpc_client_latency_seconds",
             "Client-observed RPC latency by method (successes only)",
@@ -185,7 +240,11 @@ class Client:
         self._channel = grpc.insecure_channel(addr, options=_GRPC_OPTIONS)
         self._stubs = {}
 
-    def call(self, rpc_name, **fields):
+    def call(self, rpc_name, _retriable=True, _plan=None, **fields):
+        """``_retriable=False`` never resends the call (a gradient push a
+        server may have applied); ``_plan``: a :class:`MessagePlan` of
+        ``fields`` already made (the shared-memory channel's fallback
+        does not plan a message twice)."""
         stub = self._stubs.get(rpc_name)
         if stub is None:
             stub = self._channel.unary_unary(
@@ -194,19 +253,36 @@ class Client:
                 response_deserializer=lambda b: b,
             )
             stub = self._stubs.setdefault(rpc_name, stub)
-        request = bytes(pack_message(fields))
-        t0 = time.perf_counter()
-        try:
-            reply = stub(request, timeout=self._deadline_s)
-        except self._grpc.RpcError as err:
-            code = err.code() if callable(getattr(err, "code", None)) else None
-            self._errors.inc(
-                method=rpc_name,
-                code=code.name if code is not None else "UNKNOWN",
-            )
-            raise
-        self._latency.observe(time.perf_counter() - t0, method=rpc_name)
-        return unpack_message(reply)
+        plan = _plan if _plan is not None else plan_message(fields)
+        buf = bytearray(plan.total)
+        pack_message_into(plan, buf)
+        # grpc sends exactly ``bytes``: the transport's one handoff copy
+        request = bytes(buf)
+        attempt = 0
+        while True:
+            t0 = time.perf_counter()
+            try:
+                reply = stub(request, timeout=self._deadline_s)
+            except self._grpc.RpcError as err:
+                code = (
+                    err.code() if callable(getattr(err, "code", None))
+                    else None
+                )
+                self._errors.inc(
+                    method=rpc_name,
+                    code=code.name if code is not None else "UNKNOWN",
+                )
+                if not (
+                    _retriable
+                    and code == self._grpc.StatusCode.UNAVAILABLE
+                    and attempt < self._retries
+                ):
+                    raise
+                time.sleep(self._backoff_s * (2 ** attempt))
+                attempt += 1
+                continue
+            self._latency.observe(time.perf_counter() - t0, method=rpc_name)
+            return unpack_message(reply, arena=WireArena(reply))
 
     def close(self):
         self._channel.close()

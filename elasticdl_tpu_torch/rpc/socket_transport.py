@@ -35,6 +35,8 @@ from elasticdl_tpu_torch.common.log_utils import default_logger as logger
 from elasticdl_tpu_torch.rpc.core import (
     MAX_MESSAGE_BYTES,
     pack_message,
+    pack_message_into,
+    plan_message,
     unpack_message,
 )
 
@@ -283,16 +285,24 @@ class Client:
             raise RpcError(
                 _CODES.get(status, "UNKNOWN"), bytes(payload).decode("utf-8")
             )
+        # the views hold the reply's buffer alive: no arena is needed
+        # (release_message is a no-op without one)
         return unpack_message(payload)
 
-    def call(self, rpc_name, _retriable=True, **fields):
-        frame = pack_message(fields)
-        if len(frame) > MAX_MESSAGE_BYTES:
+    def call(self, rpc_name, _retriable=True, _plan=None, **fields):
+        """``_plan``: a ``rpc.core.MessagePlan`` of ``fields`` already
+        made (the shared-memory channel's fallback does not plan a
+        message twice). A ``_shm_req`` control message is an ordinary
+        field."""
+        plan = _plan if _plan is not None else plan_message(fields)
+        if plan.total > MAX_MESSAGE_BYTES:
             raise RpcError(
                 "RESOURCE_EXHAUSTED",
                 "request of %d bytes over the %d-byte cap"
-                % (len(frame), MAX_MESSAGE_BYTES),
+                % (plan.total, MAX_MESSAGE_BYTES),
             )
+        frame = bytearray(plan.total)
+        pack_message_into(plan, frame)
         attempt = 0
         while True:
             try:

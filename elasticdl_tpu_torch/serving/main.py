@@ -26,9 +26,10 @@ def build_scorer(args):
     """The scorer stack from parsed args -> ``(scorer, watcher, sync,
     bound channels, batcher)``. ``sync`` is None and the channels empty
     without ``--ps_addrs``; ``batcher`` is None when ``--serve_max_batch
-    <= 1``. Raises for the planes not ported yet (telemetry HTTP, the
-    shared-memory PS channel) and when ``--device cuda`` finds no
-    card."""
+    <= 1``. Each PS channel negotiates the shared-memory wire with a
+    co-located shard under ``--ps_shm auto`` or ``on``. Raises for the
+    plane not ported yet (telemetry HTTP) and when ``--device cuda``
+    finds no card."""
     from elasticdl_tpu_torch.common.device import resolve_device
     from elasticdl_tpu_torch.nn.comm_plane import HotRowCache
     from elasticdl_tpu_torch.serving.batcher import MicroBatcher

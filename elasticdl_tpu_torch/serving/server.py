@@ -11,8 +11,11 @@ Outputs leave the device here: a reply holds a CPU tensor (a bf16 model's
 logits stay bf16 and travel as a ``bfloat16`` frame). The server speaks
 gRPC, the reference's wire, or (``transport="socket"``) the port's socket
 transport (``rpc/socket_transport.py``) with the same frames, for a host
-without ``grpcio``. Not ported yet: the shared-memory endpoint and the
-telemetry HTTP endpoint.
+without ``grpcio``. On either, the shared-memory endpoint
+(``rpc/shm_transport.py``) is always offered, as in the reference: a
+co-located client's ``ShmChannel`` sends its requests and takes its
+replies through a ring of slots. Not ported yet: the telemetry HTTP
+endpoint.
 """
 
 import numpy as np
@@ -88,23 +91,28 @@ class ScorerServer:
     """One scorer process's RPC server. ``port=0`` binds an ephemeral
     port (exposed as ``.port``); ``transport`` is ``"grpc"`` or
     ``"socket"``; ``stop`` drains the batcher before the transport
-    goes."""
+    goes, the attached rings after it."""
 
     def __init__(self, scorer, port=0, batcher=None, transport="grpc"):
+        from elasticdl_tpu_torch.rpc.shm_transport import install_shm_endpoint
+
         if transport not in ("grpc", "socket"):
             raise ValueError("transport must be 'grpc' or 'socket'")
         self._scorer = scorer
         self._batcher = batcher
         self.servicer = ScorerServicer(scorer, batcher=batcher)
+        methods, self._shm_registry = install_shm_endpoint(
+            self.servicer.rpc_methods()
+        )
         if transport == "grpc":
             from elasticdl_tpu_torch.rpc.core import serve
 
-            self._server = serve(self.servicer.rpc_methods(), port)
+            self._server = serve(methods, port)
             self.port = self._server._edl_port
         else:
             from elasticdl_tpu_torch.rpc.socket_transport import serve
 
-            self._server = serve(self.servicer.rpc_methods(), port)
+            self._server = serve(methods, port)
             self.port = self._server.port
         self._transport = transport
         if batcher is not None:
@@ -124,3 +132,6 @@ class ScorerServer:
             else:
                 self._server.stop()
             self._server = None
+        if self._shm_registry is not None:
+            self._shm_registry.close()
+            self._shm_registry = None

@@ -33,6 +33,13 @@ fleet through a ``PSClient`` over one ``BoundPS`` per shard
 ``--ps_push_inflight``, ``--wire_dtype``). No world forms, so a
 relaunched worker just asks for tasks. ``--export_dir`` with
 ``--export_every_versions`` writes streaming exports.
+
+``--ps_shm`` (``auto`` by default) negotiates a shared-memory ring with
+each co-located shard (``--ps_shm_slots`` x ``--ps_shm_slot_mb``), and
+``--master_shm`` (``auto``) one with a co-located master for
+``get_model``; cross-host, or on any failure to attach, the socket path
+stays (``rpc/shm_transport.py``). The worker closes every channel at
+exit, which unlinks its rings.
 """
 
 import os
@@ -54,7 +61,8 @@ def main(argv=None):
         ElasticAllReduceWorker,
     )
 
-    stub = MasterClient(args.master_addr, failover_s=args.master_failover_s)
+    stub = MasterClient(args.master_addr, failover_s=args.master_failover_s,
+                        shm=args.master_shm)
     worker_id, device, standby = args.worker_id, args.device, None
     if args.standby:
         worker_id, device, standby = _park(stub, args)
@@ -116,7 +124,8 @@ def make_ps_client(args):
     deadline_s = args.rpc_deadline_s if args.rpc_deadline_s > 0 else None
     stubs = [
         BoundPS(a, deadline_s=deadline_s, retries=args.rpc_retries,
-                shm=args.ps_shm)
+                shm=args.ps_shm, shm_slots=args.ps_shm_slots,
+                shm_slot_mb=args.ps_shm_slot_mb)
         for a in addrs
     ]
     # the cache's staleness bound defaults to the SSP window the worker
@@ -134,55 +143,76 @@ def make_ps_client(args):
     )
 
 
+def ps_worker(args, stub, ps_client):
+    """The parameter-server worker of ``args`` over the master ``stub``
+    and the fleet's ``ps_client`` (None: the master-held model)."""
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    return Worker(
+        worker_id=args.worker_id,
+        job_type=args.job_type,
+        minibatch_size=args.minibatch_size,
+        model_zoo=args.model_zoo,
+        model_def=args.model_def,
+        model_params=args.model_params,
+        dataset_fn=args.dataset_fn,
+        loss=args.loss,
+        optimizer=args.optimizer,
+        eval_metrics_fn=args.eval_metrics_fn,
+        prediction_outputs_processor=args.prediction_outputs_processor,
+        stub=stub,
+        get_model_steps=args.get_model_steps,
+        data_reader_params=get_dict_from_params_str(args.data_reader_params),
+        precision=args.precision_policy or None,
+        task_prefetch=args.task_prefetch,
+        task_ack_queue=args.task_ack_queue,
+        loss_log_steps=args.loss_log_steps,
+        device=args.device,
+        ps_client=ps_client,
+        export_dir=args.export_dir,
+        export_every_versions=args.export_every_versions,
+        export_keep=args.export_keep,
+        embedding_plane=args.embedding_plane,
+    )
+
+
+def master_client(args):
+    """The worker's ``MasterClient``: ``--master_failover_s`` of outage
+    budget, ``--wire_dtype`` and ``--master_shm``."""
+    from elasticdl_tpu_torch.master.rpc_service import MasterClient
+
+    return MasterClient(
+        args.master_addr, failover_s=args.master_failover_s,
+        wire_dtype=args.wire_dtype, shm=args.master_shm,
+    )
+
+
+def close_clients(stub, ps_client):
+    """Settle the push window, then close every shard's channel and the
+    master's (which unlinks their rings)."""
+    try:
+        if ps_client is not None:
+            ps_client.close()
+            for bound in ps_client.stubs:
+                bound.close()
+    finally:
+        stub.close()
+
+
 def _ps_main(args):
     """The parameter-server worker, on the master-held model or on the
     fleet."""
-    from elasticdl_tpu_torch.master.rpc_service import MasterClient
-    from elasticdl_tpu_torch.worker.worker import Worker
-
     if args.standby:
         raise NotImplementedError(
             "standby workers of the ParameterServerStrategy job are not "
             "ported yet (--standby)"
         )
     ps_client = make_ps_client(args)
-    stub = MasterClient(
-        args.master_addr, failover_s=args.master_failover_s,
-        wire_dtype=args.wire_dtype,
-    )
+    stub = master_client(args)
     try:
-        Worker(
-            worker_id=args.worker_id,
-            job_type=args.job_type,
-            minibatch_size=args.minibatch_size,
-            model_zoo=args.model_zoo,
-            model_def=args.model_def,
-            model_params=args.model_params,
-            dataset_fn=args.dataset_fn,
-            loss=args.loss,
-            optimizer=args.optimizer,
-            eval_metrics_fn=args.eval_metrics_fn,
-            prediction_outputs_processor=args.prediction_outputs_processor,
-            stub=stub,
-            get_model_steps=args.get_model_steps,
-            data_reader_params=get_dict_from_params_str(
-                args.data_reader_params
-            ),
-            precision=args.precision_policy or None,
-            task_prefetch=args.task_prefetch,
-            task_ack_queue=args.task_ack_queue,
-            loss_log_steps=args.loss_log_steps,
-            device=args.device,
-            ps_client=ps_client,
-            export_dir=args.export_dir,
-            export_every_versions=args.export_every_versions,
-            export_keep=args.export_keep,
-            embedding_plane=args.embedding_plane,
-        ).run()
+        ps_worker(args, stub, ps_client).run()
     finally:
-        if ps_client is not None:
-            ps_client.close()
-        stub.close()
+        close_clients(stub, ps_client)
     return 0
 
 

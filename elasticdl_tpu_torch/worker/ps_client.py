@@ -47,9 +47,14 @@ restored version.
 through the reconnect protocol too, so a poll alone sees a relaunched
 shard and drops its cache entries.
 
-Not ported, raising ``NotImplementedError`` by name: the shared-memory
-channel (``shm="on"``; A6). ``shm="auto"`` keeps the socket path, as
-the reference does where no ring can be negotiated.
+**The shared-memory wire.** ``BoundPS(shm="auto")`` (or ``"on"``, the
+same) negotiates a ring of shared-memory slots with a shard on the same
+host at its first call (``rpc/shm_transport.py``); payloads then travel
+in the slots and the socket carries ~100 bytes a call. Cross-host, or on
+any failure to attach, it keeps the socket path. A slot reply's views
+turn to garbage once its message is released, so every call site here
+copies what it keeps (the rows into the caller's output and the cache,
+the dense pull, the delta's ids) and then releases the reply.
 """
 
 import threading
@@ -64,7 +69,11 @@ from elasticdl_tpu_torch.common.hash_utils import (
     string_to_id,
 )
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
-from elasticdl_tpu_torch.common.tensor import Tensor, combine_indexed_slices
+from elasticdl_tpu_torch.common.tensor import (
+    Tensor,
+    combine_indexed_slices,
+    release_message,
+)
 from elasticdl_tpu_torch.nn.comm_plane import HotRowCache
 from elasticdl_tpu_torch.rpc.wire_compression import (
     compress_tensors,
@@ -124,6 +133,12 @@ class PSClient:
     @property
     def num_ps(self):
         return len(self._ps)
+
+    @property
+    def stubs(self):
+        """The per-shard stubs, in shard order (their owner closes
+        them)."""
+        return list(self._ps)
 
     @property
     def hot_row_cache(self):
@@ -195,6 +210,7 @@ class PSClient:
                              exc_info=True)
                 continue
             self._note_shard_reply(shard, status)
+            release_message(status)
 
     def _gen_snapshot(self):
         with self._epoch_mu:
@@ -226,13 +242,16 @@ class PSClient:
         a scorer's poll sees a relaunch without a failed pull."""
         resp = self._ps[shard].serving_status({})
         self._note_shard_reply(shard, resp)
-        return {
-            "version": int(resp.get("version", -1)),
-            "shard_epoch": resp.get("shard_epoch"),
-            "initialized": bool(resp.get("initialized", False)),
-            "tables": dict(resp.get("tables") or {}),
-            "floors": dict(resp.get("floors") or {}),
-        }
+        try:
+            return {
+                "version": int(resp.get("version", -1)),
+                "shard_epoch": resp.get("shard_epoch"),
+                "initialized": bool(resp.get("initialized", False)),
+                "tables": dict(resp.get("tables") or {}),
+                "floors": dict(resp.get("floors") or {}),
+            }
+        finally:
+            release_message(resp)
 
     def pull_embedding_delta(self, shard, name, since_version):
         """The ids of ``name`` shard ``shard`` wrote after
@@ -242,12 +261,15 @@ class PSClient:
             {"name": name, "since_version": int(since_version)}
         )
         self._note_shard_reply(shard, resp)
-        # a copy: the decoded ids are a view of the reply's buffer
-        return (
-            np.array(resp["ids"], dtype=np.int64, copy=True).reshape(-1),
-            int(resp.get("version", since_version)),
-            bool(resp.get("complete", False)),
-        )
+        try:
+            # a copy: the decoded ids are a view of the reply's buffer
+            return (
+                np.array(resp["ids"], dtype=np.int64, copy=True).reshape(-1),
+                int(resp.get("version", since_version)),
+                bool(resp.get("complete", False)),
+            )
+        finally:
+            release_message(resp)
 
     # -- the fan-out ----------------------------------------------------------
 
@@ -329,6 +351,7 @@ class PSClient:
         ]
         for shard, resp in self._run_sharded(calls).items():
             self._note_shard_reply(shard, resp)
+            release_message(resp)
 
     def push_embedding_info(self, embedding_infos):
         infos = _infos_wire(embedding_infos)
@@ -339,6 +362,7 @@ class PSClient:
         ])
         for shard, resp in resps.items():
             self._note_shard_reply(shard, resp)
+            release_message(resp)
 
     def pull_dense(self):
         """``(all initialized, min version, {name: ndarray})`` over every
@@ -350,20 +374,26 @@ class PSClient:
             for shard, ps in enumerate(self._ps)
         ])
         named, versions, ready = {}, [], True
-        for shard in range(self.num_ps):
-            resp = resps[shard]
-            self._note_shard_reply(shard, resp)
-            if not resp.get("model_init_status"):
-                ready = False
-                continue
-            versions.append(resp["version"])
-            if self._cache is not None:
-                self._cache.note_version(shard, resp["version"])
-            for t in decompress_tensors(
-                resp.get("params", []), resp.get("compressed_f32")
-            ):
-                # kept across steps: owned copies of the reply's views
-                named[t.name] = np.array(t.values, dtype=np.float32)
+        try:
+            for shard in range(self.num_ps):
+                resp = resps[shard]
+                self._note_shard_reply(shard, resp)
+                if not resp.get("model_init_status"):
+                    ready = False
+                    continue
+                versions.append(resp["version"])
+                if self._cache is not None:
+                    self._cache.note_version(shard, resp["version"])
+                for t in decompress_tensors(
+                    resp.get("params", []), resp.get("compressed_f32")
+                ):
+                    # kept across steps: owned copies, made before the
+                    # reply is released (an in-process shard's own
+                    # arrays are copied too)
+                    named[t.name] = np.array(t.values, dtype=np.float32)
+        finally:
+            for resp in resps.values():
+                release_message(resp)
         if not ready:
             return False, -1, {}
         return True, min(versions), named
@@ -434,6 +464,7 @@ class PSClient:
             if self._cache is not None:
                 # the apply this push made ages the cached rows it wrote
                 self._cache.note_version(shard, resp["version"])
+            release_message(resp)  # a scalar reply: its slot recycles
         return accepted, (-1 if out_version is None else out_version)
 
     def _reap_push(self, entry):
@@ -532,6 +563,9 @@ class PSClient:
             if st["out"] is None:
                 st["out"] = np.empty((len(st["ids"]), got.shape[1]),
                                      np.float32)
+            # the scatter into the caller's output and the cache's own row
+            # copies are this path's one decode copy: the view ``got``
+            # never outlives its message
             st["out"][positions] = got
             if self._cache is not None:
                 version = resp.get("version")
@@ -539,6 +573,7 @@ class PSClient:
                 self._cache.put_rows(
                     name, st["ids"][positions], shard, version, got
                 )
+            release_message(resp)
         return {name: st["out"] for name, st in state.items()}
 
 
@@ -559,22 +594,41 @@ class BoundPS:
     """The PS dict-method interface over the port's socket ``Client``:
     ``deadline_s`` bounds each call, ``retries`` resends an
     ``UNAVAILABLE`` one (never ``push_gradient``, which a shard may
-    have applied)."""
+    have applied).
 
-    def __init__(self, addr, deadline_s=None, retries=0, shm="off"):
+    ``shm``: ``"auto"`` (or ``"on"``) negotiates the shared-memory
+    payload path with a co-located shard at the first call
+    (``transport_hello``) and keeps the socket path cross-host or on any
+    failure to attach; ``"off"``, the default for direct constructions,
+    never negotiates. The ring is ``shm_slots`` x ``shm_slot_mb``."""
+
+    def __init__(self, addr, deadline_s=None, retries=0, shm="off",
+                 shm_slots=4, shm_slot_mb=8):
         from elasticdl_tpu_torch.rpc.socket_transport import Client
 
-        if shm == "on":
-            raise NotImplementedError(
-                "the shared-memory PS channel (--ps_shm on) is not "
-                "ported yet (ROADMAP A6)"
-            )
-        if shm not in ("auto", "off", "", None, False):
+        if shm not in ("auto", "on", "off", "", None, False):
             raise ValueError("shm must be 'auto', 'on' or 'off'")
         self._addr = addr
         self._client = Client(addr, deadline_s=deadline_s, retries=retries)
+        self._shm = None
+        if shm in ("auto", "on"):
+            from elasticdl_tpu_torch.rpc.shm_transport import ShmChannel
+
+            self._shm = ShmChannel(
+                self._client, n_slots=shm_slots, slot_mb=shm_slot_mb
+            )
+
+    @property
+    def shm_channel(self):
+        """The ``ShmChannel`` (None when off): its ``state`` and
+        ``stats``."""
+        return self._shm
 
     def close(self):
+        """Unlink the negotiated ring, if any, and close the socket
+        client; safe to call twice."""
+        if self._shm is not None:
+            self._shm.close()
         self._client.close()
 
     def __getattr__(self, method):
@@ -585,6 +639,9 @@ class BoundPS:
             from elasticdl_tpu_torch.rpc.socket_transport import RpcError
 
             try:
+                if self._shm is not None:
+                    # the channel keeps the same resend guard
+                    return self._shm.call(method, **req)
                 return self._client.call(
                     method, _retriable=(method != "push_gradient"), **req
                 )

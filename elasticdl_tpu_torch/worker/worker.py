@@ -1174,8 +1174,26 @@ class Worker:
                 pipeline=self._pipeline_stats(),
                 dense_tensors_pushed=self.dense_tensors_pushed,
                 rounds=self.rounds,
+                wire=self.wire_stats(),
             )
         return losses
+
+    def wire_stats(self):
+        """Each shared-memory channel's ``state`` and counts (``shm``,
+        ``inline``, ``quarantined``): ``ps<i>`` per shard, ``master`` for
+        ``get_model``; None where no channel was asked for."""
+        from elasticdl_tpu_torch.rpc.shm_transport import ShmChannel
+
+        named = [("master", self._stub)] + [
+            ("ps%d" % i, stub) for i, stub in enumerate(
+                getattr(self._ps_client, "stubs", None) or ())
+        ]
+        out = {}
+        for name, stub in named:
+            chan = getattr(stub, "shm_channel", None)
+            if isinstance(chan, ShmChannel):
+                out[name] = dict(chan.stats, state=chan.state)
+        return out or None
 
     def _pipeline_stats(self):
         """The pull pipeline's counters, or None without one."""

@@ -84,6 +84,10 @@ def test_every_port_module_imports_without_jax():
     # wire and master entry)
     assert count >= 104
     for name in ("master.journal", "rpc.failover", "nn.hbm_embedding",
+                 "rpc.shm_transport", "rpc.socket_transport", "rpc.core",
+                 "common.tensor", "master.rpc_service", "master.master",
+                 "worker.main", "serving.server", "serving.main",
+                 "ps.device_store",
                  "ps.servicer", "ps.parameter_server", "ps.snapshot",
                  "ps.main", "worker.ps_client", "common.hash_utils",
                  "rpc.wire_compression", "master.main",

@@ -532,12 +532,13 @@ def test_the_fleet_job_matches_the_held_job(monkeypatch, tmp_path):
     "flags,refused",
     [(["--ps_device", "true"], False),
      (["--ps_warm_rows", "8", "--ps_spill_dir", "d"], False),
-     (["--ps_telemetry_port", "0"], True), (["--ps_shm", "on"], True)],
+     (["--ps_telemetry_port", "0"], True), (["--ps_shm", "on"], False)],
     ids=["ps_device", "tiered", "telemetry", "shm"],
 )
 def test_unported_shard_planes_raise_by_name(flags, refused):
-    """Only the telemetry and shared-memory endpoints are still refused;
-    ``--ps_device`` and the tier flags pass ``refuse_unported_ps_flags``
+    """Only the telemetry endpoint is still refused; ``--ps_device``, the
+    tier flags and ``--ps_shm`` (accepted and ignored: the shard always
+    offers the shared-memory endpoint) pass ``refuse_unported_ps_flags``
     (a shard built from them: tests/test_torch_tiered_store.py)."""
     from elasticdl_tpu_torch.common.args import parse_ps_args
     from elasticdl_tpu_torch.ps.parameter_server import (

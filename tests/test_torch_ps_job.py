@@ -300,26 +300,25 @@ def test_the_mnist_job_trains_in_process(tmp_path):
     ids=["hybrid", "master_shm"],
 )
 def test_unported_planes_of_the_strategy_raise_by_name(tmp_path, flag):
-    """The shared-memory master channel is refused on the held model; the
-    hybrid trainer is accepted on the fleet's master (its workers keep
-    the dense model and pull only the PS-plane tables' rows)."""
+    """Both are accepted: the shared-memory master channel on the held
+    model (its workers' ``get_model`` rides the ring), and the hybrid
+    trainer on the fleet's master (its workers keep the dense model and
+    pull only the PS-plane tables' rows)."""
     from elasticdl_tpu_torch.master.master import Master
     from elasticdl_tpu_torch.common.args import parse_master_args
 
     hybrid = "hybrid" in flag
-    if hybrid:
-        write_frappe(str(tmp_path), 64, 300)
+    write_frappe(str(tmp_path), 64, 300)
     args = parse_master_args([
         "--job_name", "j", "--model_zoo", "", "--model_def", DEEPFM,
         "--training_data", str(tmp_path), "--minibatch_size", "8",
         "--num_ps_pods", "2" if hybrid else "0", "--device", "cpu"] + flag)
+    master = Master(args)
     if hybrid:
-        master = Master(args)
         assert not master.holds_model and master.args.embedding_plane == (
             "hybrid")
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Master(args)
+    assert master.holds_model and master.args.master_shm == "on"
 
 
 def test_the_master_of_the_fleet_holds_no_model(tmp_path):

@@ -258,9 +258,15 @@ def test_bf16_reply_travels_as_bf16(tmp_path):
 
 def test_unported_planes_raise(tmp_path):
     base = ["--export_dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_scorer(parse_scorer_args(
-            base + ["--ps_addrs", "h:1", "--ps_shm", "on"]))
+    # --ps_shm on builds: each PS channel negotiates at its first call
+    scorer, _, sync, bound, _ = build_scorer(parse_scorer_args(
+        base + ["--ps_addrs", "localhost:1", "--ps_shm", "on"]))
+    assert sync is not None and len(bound) == 1
+    assert bound[0].shm_channel is not None
+    assert bound[0].shm_channel.state == "new"
+    scorer.close()
+    for channel in bound:
+        channel.close()
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_scorer(
             parse_scorer_args(base + ["--scorer_telemetry_port", "0"])
