@@ -220,8 +220,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
    sync round's and ``refresh_table`` walk's seconds, its counters, the
    highest staleness, kill -> serving -> first good reply, the scorer
    process's peak memory. No flash kernel launches
-   (``launches_by_path.ps_serve`` = 0, this process's).
-14. elastic — the multi-process elastic ALLREDUCE job through the port's
+   (``launches_by_path.ps_serve`` = 0, this process's). At its end, once
+   the scorer process serves the newest export, 16 requests go to it on
+   its socket and through a ``ShmChannel``: the replies bitwise equal,
+   every one through the ring.
+14. wire — the shared-memory wire (``rpc/shm_transport.py``) at F1's
+   width: F1's sync job for one epoch (16 steps of b1024) across two
+   ``ps.main`` shards, shard 1 with ``--ps_device`` (the writable slot
+   views' import), the worker built in this process as ``worker.main``
+   builds it, with Z's deterministic settings. W0 ``--ps_shm off
+   --master_shm off``, W1 the default ``auto``: the shards' dense model
+   and every touched row bitwise W0, every PS channel ``on`` with calls
+   through the ring (a silent fallback fails), the master channel never
+   off. W2 on W1's shard 0: 200 pulls of 2,048 ids x 64 f32 and 200
+   pushes of as many rows below the shard's version (decoded, never
+   applied), on a socket and on a ring, p50 / p99 each. Examples/s of
+   the median step, the fan-out, ``push_gradient`` and ``pull_dense``
+   medians, each channel's counts. No flash kernel launches
+   (``launches_by_path.wire`` = 0). Every fleet phase above rides rings
+   too (the workers' and scorers' ``--ps_shm``/``--master_shm`` default
+   to ``auto``); at the start the run checks that ``/dev/shm`` holds the
+   largest ring set a phase negotiates, and at its end that no ``edlw-``
+   segment it made is left.
+15. elastic — the multi-process elastic ALLREDUCE job through the port's
    command line with ``--num_workers 2``: the master in this process,
    two worker processes sharing the card in one process world (gloo:
    NCCL refuses two ranks on one device; on a host with a card for each
@@ -266,14 +287,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
    report their flash launches, by run (``launches_by_path`` ``elastic``
    for A and B, ``elastic_master_kill``, ``elastic_standby`` and
    ``elastic_eval``, each 0).
-15. summary — the kernels line, the card line, then the result line.
+16. summary — the kernels line, the card line, then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
-non-zero and prints no result. ``--elastic-only`` runs phases 1 and 14
+non-zero and prints no result. ``--elastic-only`` runs phases 1 and 15
 alone, ``--zoo-only`` phases 1 and 8, ``--ps-only`` phases 1 and 9,
 ``--ps-fleet-only`` phases 1 and 10, ``--ps-tiers-only`` phases 1 and
 11, ``--ps-hybrid-only`` phases 1 and 12, ``--ps-serve-only`` phases 1
-and 13, and none of them prints the result line.
+and 13, ``--wire-only`` phases 1 and 14, and none of them prints the
+result line.
 """
 
 import argparse
@@ -4104,6 +4126,14 @@ class _Fleet:
         return PSClient([BoundPS("localhost:%d" % p, deadline_s=60)
                          for p in self.ps_ports])
 
+    def start(self):
+        """Start the master and the shards without waiting for them (the
+        shards need no master: all boot at once). ``run`` then finds them
+        started."""
+        self.manager.start_master()
+        self.manager.start_all_ps()
+        self.started = True
+
     def run(self, on_poll=None, inline=None, inspect=None):
         """Start the master, the shards and the workers; ``on_poll(self)``
         every 20 ms until the workers exit (``inline(self)`` runs in this
@@ -4112,9 +4142,8 @@ class _Fleet:
         m = self.manager
         out = {}
         try:
-            # the shards need no master: both boot at once
-            m.start_master()
-            m.start_all_ps()
+            if not getattr(self, "started", False):
+                self.start()
             _until(lambda: _master_probe(self.master_port), "the master")
             for i in range(self.shards):
                 _until(lambda i=i: self.status(i, 2.0), "shard %d" % i)
@@ -6470,19 +6499,26 @@ def _w2(fleet, seen):
     return out, problems
 
 
-def _w_arm(torch, tmp, card, name, shm, seen, then=None):
-    """One W arm: F1's sync job (``--grads_to_wait 1``, one epoch of b1024)
-    across two ``ps.main`` shards, shard 0 on the host store and shard 1
-    with ``--ps_device`` (the writable slot views' import), the worker in
-    this process over ``shm``. ``then(fleet)`` runs after the state is
-    read, with the shards still up. Returns (record, problems, state)."""
-    fleet = _Fleet(
+def _w_fleet(tmp, name):
+    """A W arm's fleet: F1's sync job (``--grads_to_wait 1``) across two
+    ``ps.main`` shards, shard 0 on the host store and shard 1 with
+    ``--ps_device`` (the writable slot views' import), no worker
+    process."""
+    return _Fleet(
         tmp, name, PS_DEEPFM, os.path.join(tmp, "ps-data"), PS_BATCH,
         workers=0, job=["--grads_to_wait", "1"],
         # W2's stale pushes would log a warning each
         ps=["--grads_to_wait", "1", "--log_level", "ERROR"],
         ps_by_shard={1: ["--ps_device", "true"]},
     )
+
+
+def _w_arm(torch, card, fleet, shm, seen, then=None):
+    """One W arm: ``fleet``'s job for one epoch of b1024, the worker in
+    this process over ``shm``. ``then(fleet)`` runs after the state is
+    read, with the shards still up. Returns (record, problems, state,
+    what ``then`` returned)."""
+    name = os.path.basename(fleet.root)
     ids = {"embedding": seen, "id_bias": seen}
 
     def inspect(f):
@@ -6543,10 +6579,20 @@ def phase_wire(torch, tmp, card):
     _write_ps_data(tmp)
     _reset_counters()
     seen = np.unique(_frappe_ids(PS_RECORDS, SEED + 40)[0])
-    w0, problems, s0, _ = _w_arm(torch, tmp, card, "w0", "off", seen)
-    emit(w0)
-    w1, bad, s1, (w2, bad2) = _w_arm(
-        torch, tmp, card, "w1", "auto", seen, then=lambda f: _w2(f, seen))
+    fleets = [_w_fleet(tmp, "w0"), _w_fleet(tmp, "w1")]
+    try:
+        # both arms' masters and shards boot at once: W1's wait behind
+        # W0's run instead of booting after it
+        for fleet in fleets:
+            fleet.start()
+        w0, problems, s0, _ = _w_arm(torch, card, fleets[0], "off", seen)
+        emit(w0)
+        w1, bad, s1, (w2, bad2) = _w_arm(
+            torch, card, fleets[1], "auto", seen,
+            then=lambda f: _w2(f, seen))
+    finally:
+        for fleet in fleets:
+            fleet.manager.stop_relaunch_and_remove_all_pods()
     problems += bad + bad2
     rel, bitwise = _compare(s1, s0["dense"], s0["rows"])
     w1["against_w0"] = {"bitwise": bitwise, "rel_l2_max": max(rel.values())}

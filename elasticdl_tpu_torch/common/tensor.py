@@ -78,7 +78,7 @@ def device_host_view(values):
     if not isinstance(values, torch.Tensor):
         return np.asarray(values)
     t = values.detach()
-    if t.device.type != "cpu":
+    if is_device_array(t):
         t = t.to("cpu")
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)

@@ -312,6 +312,11 @@ class PSClient:
             except Exception as err:  # noqa: BLE001 - raised below
                 errors.append((key, err))
         if errors:
+            # the legs that answered go unread: release their replies, or
+            # the raised error's traceback (which keeps this frame) would
+            # pin their shared-memory slots
+            for result in results.values():
+                release_message(result)
             errors.sort(key=lambda pair: pair[0])
             self._note_shard_failures({shard_of(k) for k, _ in errors})
             raise errors[0][1]
@@ -549,31 +554,34 @@ class PSClient:
                         shard].pull_embedding_vector(req),
                 ))
         resps = self._run_sharded(calls)
-        for name, shard in sorted(resps):
-            resp = resps[(name, shard)]
-            self._note_shard_reply(shard, resp)
-            st = state[name]
-            positions = st["positions"][shard]
-            got = np.asarray(resp["rows"], dtype=np.float32)
-            if got.shape[0] != len(positions):
-                raise ValueError(
-                    "PS shard %d returned %d rows for %d ids of %r"
-                    % (shard, got.shape[0], len(positions), name)
-                )
-            if st["out"] is None:
-                st["out"] = np.empty((len(st["ids"]), got.shape[1]),
-                                     np.float32)
-            # the scatter into the caller's output and the cache's own row
-            # copies are this path's one decode copy: the view ``got``
-            # never outlives its message
-            st["out"][positions] = got
-            if self._cache is not None:
-                version = resp.get("version")
-                self._cache.note_version(shard, version)
-                self._cache.put_rows(
-                    name, st["ids"][positions], shard, version, got
-                )
-            release_message(resp)
+        try:
+            for name, shard in sorted(resps):
+                resp = resps[(name, shard)]
+                self._note_shard_reply(shard, resp)
+                st = state[name]
+                positions = st["positions"][shard]
+                got = np.asarray(resp["rows"], dtype=np.float32)
+                if got.shape[0] != len(positions):
+                    raise ValueError(
+                        "PS shard %d returned %d rows for %d ids of %r"
+                        % (shard, got.shape[0], len(positions), name)
+                    )
+                if st["out"] is None:
+                    st["out"] = np.empty((len(st["ids"]), got.shape[1]),
+                                         np.float32)
+                # the scatter into the caller's output and the cache's
+                # own row copies are this path's one decode copy: the
+                # view ``got`` never outlives its message
+                st["out"][positions] = got
+                if self._cache is not None:
+                    version = resp.get("version")
+                    self._cache.note_version(shard, version)
+                    self._cache.put_rows(
+                        name, st["ids"][positions], shard, version, got
+                    )
+        finally:
+            for resp in resps.values():
+                release_message(resp)
         return {name: st["out"] for name, st in state.items()}
 
 

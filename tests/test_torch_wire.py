@@ -41,6 +41,7 @@ from elasticdl_tpu_torch.common.tensor import (
     deserialize_tensor,
     device_from_host_view,
     device_host_view,
+    is_device_array,
     release_message,
     serialize_tensor,
 )
@@ -264,6 +265,7 @@ def test_the_host_view_bridge_aliases_a_writable_f32_view():
     # and the forward bridge: a CPU tensor's host view is zero-copy, bf16
     # comes back as its 16-bit words
     src = torch.arange(4, dtype=torch.float32)
+    assert not is_device_array(src) and not is_device_array(np.ones(2))
     assert device_host_view(src).ctypes.data == src.data_ptr()
     words = device_host_view(src.to(torch.bfloat16))
     assert words.dtype == np.uint16 and np.array_equal(
@@ -513,6 +515,48 @@ def test_release_under_load_returns_every_slot(shm_fleet):
         assert sorted(chan._free) == [0, 1]
     assert chan.stats["shm"] + chan.stats["inline"] == 24
     assert chan.stats["shm"] > 0 and chan.stats["quarantined"] == 0
+
+
+def test_a_failed_fan_out_returns_the_answered_legs_slots():
+    """One shard of a fan-out fails: the other shard's reply goes unread,
+    and its slot comes home although the raised error's traceback keeps
+    the fan-out's frame."""
+    from elasticdl_tpu_torch.worker.ps_client import (
+        BoundPS,
+        PSClient,
+        PSRpcError,
+    )
+
+    def pull_variable(req):
+        return {"model_init_status": True, "version": 1,
+                "params": [Tensor("w", _dense())]}
+
+    def broken(req):
+        raise ValueError("no model")
+
+    servers = []
+    for fn in (pull_variable, broken):
+        methods, registry = install_shm_endpoint({"pull_variable": fn})
+        servers.append((serve(methods, 0), registry))
+    bound = [BoundPS("localhost:%d" % srv.port, deadline_s=30, shm="auto",
+                     shm_slots=2, shm_slot_mb=1) for srv, _ in servers]
+    client = PSClient(bound)
+    try:
+        with pytest.raises(PSRpcError) as excinfo:
+            client.pull_dense()
+        assert excinfo.value.__traceback__ is not None
+        chan = bound[0].shm_channel
+        assert chan.stats["shm"] == 1
+        with chan._mu:
+            assert sorted(chan._free) == [0, 1]
+        del excinfo
+    finally:
+        client.close()
+        for b in bound:
+            b.close()
+        for srv, registry in servers:
+            srv.stop()
+            registry.close()
 
 
 def test_a_transport_error_mid_call_quarantines_the_slot():
