@@ -222,8 +222,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    process's peak memory. No flash kernel launches
    (``launches_by_path.ps_serve`` = 0, this process's). At its end, once
    the scorer process serves the newest export, 16 requests go to it on
-   its socket and through a ``ShmChannel``: the replies bitwise equal,
-   every one through the ring.
+   its socket and through a ``ShmChannel``, the path that goes first
+   alternating: the replies bitwise equal, every one through the ring.
 14. wire — the shared-memory wire (``rpc/shm_transport.py``) at F1's
    width: F1's sync job for one epoch (16 steps of b1024) across two
    ``ps.main`` shards, shard 1 with ``--ps_device`` (the writable slot
@@ -234,7 +234,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
    through the ring (a silent fallback fails), the master channel never
    off. W2 on W1's shard 0: 200 pulls of 2,048 ids x 64 f32 and 200
    pushes of as many rows below the shard's version (decoded, never
-   applied), on a socket and on a ring, p50 / p99 each. Examples/s of
+   applied) on a socket stub and on a ring stub, each warmed first, the
+   two paths' calls interleaved with the first alternating, p50 / p99
+   each. A frame written straight out of a CUDA tensor (the PS worker
+   hands its dense gradients and parameters over on the card) equals
+   the host-staged frame byte for byte, f32 and bf16, contiguous and
+   strided. ``--wire-only --wire-order off,auto,auto,off`` runs W's arms
+   in that order (an A/B in turns, each bitwise the first). Examples/s of
    the median step, the fan-out, ``push_gradient`` and ``pull_dense``
    medians, each channel's counts. No flash kernel launches
    (``launches_by_path.wire`` = 0). Every fleet phase above rides rings
@@ -5881,8 +5887,9 @@ S_SHM_REQUESTS = 16  # the scorer process's ring against its socket
 def _s_shm_arm(plain, port, version, problems):
     """The scorer process over a shared-memory ring: once it serves the
     newest export, ``S_SHM_REQUESTS`` requests each sent on its socket and
-    then through a ``ShmChannel``; the replies must be bitwise equal,
-    every one through the ring."""
+    through a ``ShmChannel``, the path that goes first alternating
+    request by request (the second finds the request's rows cached); the
+    replies must be bitwise equal, every one through the ring."""
     import numpy as np
 
     from elasticdl_tpu_torch.common.tensor import release_message
@@ -5900,14 +5907,16 @@ def _s_shm_arm(plain, port, version, problems):
     sample = _s_sampler(SEED + 80)
     equal, ms = 0, {"socket": [], "shm": []}
     try:
-        for _ in range(S_SHM_REQUESTS):
+        for i in range(S_SHM_REQUESTS):
             feats = sample()
-            t0 = time.perf_counter()
-            a = plain.call("score", **feats)
-            t1 = time.perf_counter()
-            b = chan.call("score", **feats)
-            ms["socket"].append((t1 - t0) * 1e3)
-            ms["shm"].append((time.perf_counter() - t1) * 1e3)
+            got = {}
+            for path in (("socket", "shm") if i % 2 == 0
+                         else ("shm", "socket")):
+                t0 = time.perf_counter()
+                got[path] = (plain if path == "socket" else chan).call(
+                    "score", **feats)
+                ms[path].append((time.perf_counter() - t0) * 1e3)
+            a, b = got["socket"], got.pop("shm")
             equal += int(
                 "error" not in a and "error" not in b
                 and a["model_version"] == b["model_version"]
@@ -6331,7 +6340,8 @@ def _ps_serve_only(torch):
 # ---------------------------------------------------------------------------
 
 W_STEPS = PS_RECORDS // PS_BATCH  # one epoch of F1's data
-W2_CALLS = 200  # each of the wire-alone loops
+W2_CALLS = 200  # each of the wire-alone loops, on each path
+W2_WARM = 20  # untimed calls of each kind on each path before them
 W2_IDS = 2048  # ~0.5 MiB of 64-wide f32 rows: a shard's share of F1's pull
 W_DIM = 64  # DeepFM's embedding width at the zoo's
 SHM_SLOTS, SHM_SLOT_MB = 4, 8  # the ring every worker and scorer asks for
@@ -6437,10 +6447,12 @@ def _w_inline(torch, shm):
 
 
 def _w2(fleet, seen):
-    """W2, the wire alone, on shard 0 of W1's fleet: ``W2_CALLS`` pulls of
-    ``W2_IDS`` rows, then as many pushes of as many rows below the
-    shard's version (answered after their decode, before any apply), once
-    over the socket path and once over a ring. p50/p99 in ms."""
+    """W2, the wire alone, on shard 0 of a ring arm's fleet: a socket stub
+    and a ring stub, each warmed with ``W2_WARM`` calls of each kind,
+    then ``W2_CALLS`` pulls of ``W2_IDS`` rows and as many pushes of as
+    many rows below the shard's version (answered after their decode,
+    before any apply), the two stubs' calls interleaved and the one that
+    goes first alternating call by call. p50/p99 in ms."""
     import numpy as np
 
     from elasticdl_tpu_torch.common.tensor import Tensor, release_message
@@ -6450,53 +6462,91 @@ def _w2(fleet, seen):
     rows = np.random.default_rng(SEED + 90).standard_normal(
         (len(ids), W_DIM)).astype(np.float32)
     grad = [Tensor("embedding", rows, ids)]
-    out, problems = {}, []
+    problems = []
 
     def pct(values, q):
         values = sorted(values)
         return values[min(len(values) - 1, int(q * len(values)))]
 
-    for path, shm in (("socket", "off"), ("shm", "auto")):
-        stub = BoundPS("localhost:%d" % fleet.ps_ports[0], deadline_s=30,
-                       shm=shm, shm_slots=SHM_SLOTS,
-                       shm_slot_mb=SHM_SLOT_MB)
-        try:
-            pulls, pushes = [], []
-            for _ in range(W2_CALLS):
-                t0 = time.perf_counter()
-                resp = stub.pull_embedding_vector(
-                    {"name": "embedding", "ids": ids})
-                shape = tuple(resp["rows"].shape)
-                release_message(resp)
-                pulls.append((time.perf_counter() - t0) * 1e3)
-                if shape != (len(ids), W_DIM):
-                    problems.append("W2 %s pull shape %s" % (path, shape))
-                    break
-            for _ in range(W2_CALLS):
-                t0 = time.perf_counter()
-                resp = stub.push_gradient(
-                    {"model_version": 0, "gradients": grad})
-                accepted = resp["accepted"]
-                release_message(resp)
-                pushes.append((time.perf_counter() - t0) * 1e3)
-                if accepted:
-                    problems.append("W2 %s: a stale push was applied" % path)
-                    break
-            chan = stub.shm_channel
-            out[path] = {
-                "pull_p50_ms": pct(pulls, 0.5), "pull_p99_ms": pct(pulls, 0.99),
-                "push_p50_ms": pct(pushes, 0.5),
-                "push_p99_ms": pct(pushes, 0.99),
-                "channel": None if chan is None else dict(
-                    chan.stats, state=chan.state),
-            }
-        finally:
+    def pull(stub):
+        resp = stub.pull_embedding_vector({"name": "embedding", "ids": ids})
+        shape = tuple(resp["rows"].shape)
+        release_message(resp)
+        return None if shape == (len(ids), W_DIM) else "pull shape %s" % (
+            shape,)
+
+    def push(stub):
+        resp = stub.push_gradient({"model_version": 0, "gradients": grad})
+        accepted = resp["accepted"]
+        release_message(resp)
+        return "a stale push was applied" if accepted else None
+
+    stubs = {path: BoundPS("localhost:%d" % fleet.ps_ports[0], deadline_s=30,
+                           shm=shm, shm_slots=SHM_SLOTS,
+                           shm_slot_mb=SHM_SLOT_MB)
+             for path, shm in (("socket", "off"), ("shm", "auto"))}
+    ms = {(path, kind): [] for path in stubs for kind in ("pull", "push")}
+    try:
+        for kind, call in (("pull", pull), ("push", push)):
+            for path, stub in stubs.items():
+                for _ in range(W2_WARM):
+                    call(stub)
+            for i in range(W2_CALLS):
+                for path in (("socket", "shm") if i % 2 == 0
+                             else ("shm", "socket")):
+                    t0 = time.perf_counter()
+                    bad = call(stubs[path])
+                    ms[(path, kind)].append((time.perf_counter() - t0) * 1e3)
+                    if bad:
+                        problems.append("W2 %s: %s" % (path, bad))
+            if problems:
+                break
+        chan = stubs["shm"].shm_channel
+        out = {path: {"%s_p%d_ms" % (kind, q): pct(ms[(path, kind)], q / 100)
+                      for kind in ("pull", "push") for q in (50, 99)}
+               for path in stubs}
+        out["shm"]["channel"] = dict(chan.stats, state=chan.state)
+    finally:
+        for stub in stubs.values():
             stub.close()
-    chan = out.get("shm", {}).get("channel")
-    if not chan or chan["state"] != "on" or chan["shm"] != 2 * W2_CALLS:
-        problems.append("W2's ring: %s" % chan)
+    want = 2 * (W2_WARM + W2_CALLS)
+    chan = out["shm"]["channel"]
+    if chan["state"] != "on" or chan["shm"] != want:
+        problems.append("W2's ring: %s (%d ring calls wanted)" % (chan, want))
     out["payload_mib"] = rows.nbytes / 2**20
+    out["order"] = "interleaved, the first alternating"
     return out, problems
+
+
+def _w_frames(torch):
+    """The frame write's copy out of a CUDA tensor, held against the
+    frame of the same values staged on the host first: byte for byte,
+    float32 and narrowed to bf16 in the copy, contiguous and strided (a
+    worker hands its dense gradients to the PS client on the card)."""
+    from elasticdl_tpu_torch.common.tensor import Tensor, serialize_tensor
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 91)
+    src = torch.randn(W2_IDS, W_DIM, device=DEVICE, generator=gen)
+    cases, bad = {}, []
+    for layout, t in (("contiguous", src), ("strided", src.T)):
+        for mark in (None, "bfloat16"):
+            card_t, host_t = (Tensor("g", t), Tensor("g", t.cpu().numpy()))
+            card_t.wire_dtype = host_t.wire_dtype = mark
+            t0 = time.perf_counter()
+            got = serialize_tensor(card_t)
+            ms = (time.perf_counter() - t0) * 1e3
+            want = serialize_tensor(host_t)
+            name = "%s %s" % (layout, mark or "float32")
+            cases[name] = {"bytes": len(got), "equal": got == want,
+                           "ms": ms}
+            if got != want:
+                bad.append(name)
+    rec = {"phase": "wire", "of": "frames_from_the_card", "cases": cases}
+    emit(rec)
+    if bad:
+        raise PhaseError("the frame write from the card differs from the "
+                         "host-staged frame: %s" % bad)
+    return rec
 
 
 def _w_fleet(tmp, name):
@@ -6557,6 +6607,7 @@ def _w_arm(torch, card, fleet, shm, seen, then=None):
         "batch": PS_BATCH, "steps": len(splits), "shards": FLEET_SHARDS,
         "shard_stores": ["host", "device"], "job_s": raw["job_s"],
         "step_ms_median": step_ms,
+        "steps_ms": [(b - a) * 1e3 for a, b in zip(steps_t, steps_t[1:])],
         "examples_per_s_median_step": PS_BATCH * 1e3 / step_ms
         if step_ms else None,
         "step_split": {k + "_ms_median": _median(
@@ -6568,55 +6619,76 @@ def _w_arm(torch, card, fleet, shm, seen, then=None):
     return rec, problems, state, after
 
 
-def phase_wire(torch, tmp, card):
-    """The shared-memory wire at F1's width: W0 with the wire off, W1 with
-    the default ``auto`` (bitwise W0: dense model and every touched row;
-    every PS channel on), W2 the wire alone on W1's shards. Returns the
-    flash kernels' launches in this process (none)."""
+def phase_wire(torch, tmp, card, order=("off", "auto")):
+    """The shared-memory wire at F1's width, one arm per entry of
+    ``order`` (``--ps_shm``/``--master_shm`` ``off`` or ``auto``, run in
+    that order on the card): by default W0 with the wire off and W1 with
+    ``auto``, every arm bitwise the first (dense model and every touched
+    row), every PS channel of an ``auto`` arm on; W2 the wire alone on
+    the first ``auto`` arm's shards; the frame write out of a CUDA
+    tensor against the host-staged frame. Returns the flash kernels'
+    launches in this process (none)."""
     import numpy as np
 
     t0 = time.perf_counter()
     _write_ps_data(tmp)
     _reset_counters()
+    _w_frames(torch)
     seen = np.unique(_frappe_ids(PS_RECORDS, SEED + 40)[0])
-    fleets = [_w_fleet(tmp, "w0"), _w_fleet(tmp, "w1")]
+    # W0 and W1; an A/B in turns names its arms apart from W2
+    fleets = [_w_fleet(tmp, ("w%d" if len(order) == 2 else "ab%02d") % i)
+              for i in range(len(order))]
+    problems, arms, w2 = [], [], None
     try:
-        # both arms' masters and shards boot at once: W1's wait behind
-        # W0's run instead of booting after it
-        for fleet in fleets:
-            fleet.start()
-        w0, problems, s0, _ = _w_arm(torch, card, fleets[0], "off", seen)
-        emit(w0)
-        w1, bad, s1, (w2, bad2) = _w_arm(
-            torch, card, fleets[1], "auto", seen,
-            then=lambda f: _w2(f, seen))
+        # one fleet boots ahead of the arm that runs: an arm's master and
+        # shards wait behind the arm before it instead of booting after it
+        fleets[0].start()
+        for i, shm in enumerate(order):
+            if i + 1 < len(fleets):
+                fleets[i + 1].start()
+            then = None
+            if shm == "auto" and w2 is None:
+                then = lambda f: _w2(f, seen)  # noqa: E731
+            rec, bad, state, after = _w_arm(
+                torch, card, fleets[i], shm, seen, then=then)
+            problems += bad
+            if after is not None:
+                w2, bad2 = after
+                problems += bad2
+            if arms:
+                rel, bitwise = _compare(
+                    state, arms[0][1]["dense"], arms[0][1]["rows"])
+                rec["against_w0"] = {"bitwise": bitwise,
+                                     "rel_l2_max": max(rel.values())}
+                if not bitwise:
+                    problems.append("%s is not bitwise %s: %s" % (
+                        rec["of"], arms[0][0]["of"], rel))
+            emit(rec)
+            arms.append((rec, state))
     finally:
         for fleet in fleets:
             fleet.manager.stop_relaunch_and_remove_all_pods()
-    problems += bad + bad2
-    rel, bitwise = _compare(s1, s0["dense"], s0["rows"])
-    w1["against_w0"] = {"bitwise": bitwise, "rel_l2_max": max(rel.values())}
-    if not bitwise:
-        problems.append("W1 is not bitwise W0: %s" % rel)
-    emit(w1)
-    emit(dict(w2, phase="wire", of="w2", card=card, calls=W2_CALLS,
-              ids=W2_IDS, width=W_DIM))
+    if w2 is not None:
+        emit(dict(w2, phase="wire", of="w2", card=card, calls=W2_CALLS,
+                  warm=W2_WARM, ids=W2_IDS, width=W_DIM))
     counts = _counts()
     emit({"phase": "wire", "of": "summary",
           "seconds": time.perf_counter() - t0,
+          "arms": [[rec["ps_shm"], rec["step_ms_median"]]
+                   for rec, _ in arms],
           "flash_launches": {k: n for k, (n, _) in counts.items()}})
     if problems:
         raise PhaseError("wire: " + "; ".join(problems))
     return counts
 
 
-def _wire_only(torch):
+def _wire_only(torch, order):
     try:
         card = phase_device(torch)
         before = shm_segments()
         phase_shm_room()
         with tempfile.TemporaryDirectory() as tmp:
-            counts = phase_wire(torch, tmp, card)
+            counts = phase_wire(torch, tmp, card, order)
         _check_counts(counts, {k: 0 for k in KERNELS}, "the wire phase")
         _check_no_leaked_segments(before)
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
@@ -7637,7 +7709,17 @@ def main(argv=None):
         help="drive only the wire phase and print its records, not the "
         "result line",
     )
+    parser.add_argument(
+        "--wire-order",
+        default="off,auto",
+        help="with --wire-only, the W arms' --ps_shm values in the order "
+        "they run (each off or auto; an A/B in turns, e.g. "
+        "off,auto,auto,off,off,auto)",
+    )
     args = parser.parse_args(argv)
+    order = tuple(args.wire_order.split(","))
+    if set(order) - {"off", "auto"}:
+        parser.error("each --wire-order arm is off or auto")
     try:
         import torch
     except ImportError:
@@ -7670,7 +7752,7 @@ def main(argv=None):
     if args.ps_serve_only:
         return _ps_serve_only(torch)
     if args.wire_only:
-        return _wire_only(torch)
+        return _wire_only(torch, order)
 
     try:
         card = phase_device(torch)

@@ -803,12 +803,6 @@ def parse_ps_args(ps_args=None):
         "--wire_dtype", default="", choices=["", "bfloat16"]
     )
     parser.add_argument(
-        "--ps_shm", default="off", choices=["auto", "on", "off"],
-        help="Accepted and ignored: the shard always offers the "
-        "shared-memory endpoint, which engages when a co-located client "
-        "negotiates a ring (the reference's shard has no such flag)",
-    )
-    parser.add_argument(
         "--device",
         default="cuda",
         help="Where the shard's applies run: cuda (the default; raises "

@@ -216,14 +216,15 @@ def to_state_dict(named):
     return state
 
 
-def to_named(state_dict, num_heads=None, head_dim=None):
+def to_named(state_dict, num_heads=None, head_dim=None, keep_device=False):
     """{state_dict key: tensor} -> {reference path: CPU torch tensor in
-    the reference's layout}."""
+    the reference's layout}; with ``keep_device``, each stays where it
+    was."""
     named = {}
     rules = _rules(state_dict, 1) if state_dict else ()
     for key, value in state_dict.items():
         (_, _, ref, _, layout), fields = _match(rules, key, 1)
-        t = value.detach().to("cpu")
+        t = value.detach() if keep_device else value.detach().to("cpu")
         if layout == "heads_out":
             t = t.T.reshape(t.shape[1], num_heads, head_dim)
         elif layout == "heads_in":

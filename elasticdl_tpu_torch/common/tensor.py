@@ -18,7 +18,11 @@ the frame (or a shared-memory slot): ``np.copyto`` for a numpy array,
 a CUDA tensor is the one device-to-host copy. A tensor marked with
 ``wire_dtype = "bfloat16"`` (``rpc/wire_compression``) whose payload is
 float32 narrows to bf16 words inside that same ``copy_`` (round to
-nearest even, as the reference's ``ml_dtypes`` cast).
+nearest even, as the reference's ``ml_dtypes`` cast). The PS worker
+hands its dense gradients and parameters over on the card, so their
+frame write is their one copy out; its sparse row gradients are staged
+to the host first, where the client combines them and splits them by
+shard.
 
 **Decoding copies nothing.** ``bfloat16`` travels as raw 16-bit words
 and decodes to a ``torch.bfloat16`` tensor (numpy has no bf16 and this
@@ -115,6 +119,9 @@ class Tensor:
     its own); a mark only, the values are never converted here."""
 
     wire_dtype = None
+    # a bf16 payload decoded as an alias of a writable frame: a torch
+    # tensor cannot say whose memory it is
+    _wire_alias = False
 
     def __init__(self, name=None, values=None, indices=None):
         self.name = name
@@ -157,21 +164,24 @@ class Tensor:
 
     def materialize(self):
         """An owned, writable twin of a decoded tensor, for a consumer
-        that keeps it past its message's arena or writes to it. A tensor
-        whose payloads are already writable (built locally, a torch
-        tensor, or materialized before) is returned as it is, so the
-        call costs nothing but at the decode edge. A ``writable=True``
-        decode looks owned: its consumers copy what they keep."""
-        v = self.values
-        v_owned = (
-            v is None or isinstance(v, torch.Tensor) or v.flags.writeable
+        that keeps it past its message's arena or writes to it. A payload
+        over a buffer no array owns (a frame's bytes, a shared-memory
+        slot; read-only or, under ``writable=True``, writable) is
+        copied; one that owns its memory (built locally, a torch tensor,
+        materialized before) is kept, so the call costs nothing but at
+        the decode edge."""
+        v_owned = self.values is None or (
+            _owns(self.values) and not self._wire_alias
         )
-        i_owned = self.indices is None or self.indices.flags.writeable
+        i_owned = self.indices is None or _owns(self.indices)
         if v_owned and i_owned:
             return self
         return Tensor(
             self.name,
-            v if v_owned else v.copy(),
+            self.values if v_owned else (
+                self.values.clone() if isinstance(self.values, torch.Tensor)
+                else self.values.copy()
+            ),
             self.indices if i_owned else self.indices.copy(),
         )
 
@@ -193,6 +203,19 @@ def combine_indexed_slices(indices, values):
     combined = np.zeros((len(unique), values.shape[1]), dtype=np.float32)
     np.add.at(combined, inverse.reshape(-1), values)
     return unique, combined
+
+
+def _owns(x):
+    """False for a numpy array over memory no array owns (a view of a
+    frame or a slot, read-only or not); a torch tensor owns its memory
+    unless a decode marked it (``Tensor._wire_alias``)."""
+    if isinstance(x, torch.Tensor):
+        return True
+    if not x.flags.writeable:
+        return False
+    while isinstance(x, np.ndarray) and not x.flags.owndata:
+        x = x.base
+    return x is None or isinstance(x, np.ndarray)
 
 
 def _itemsize(name):
@@ -284,9 +307,9 @@ def deserialize_tensor(data, writable=False):
     """Decode one frame without copying: values and indices are views of
     ``data``, read-only unless ``writable=True`` and ``data`` itself is
     writable (the ``--ps_device`` shard's slot requests, which enter the
-    device through :func:`device_from_host_view`; a writable view looks
-    owned to :meth:`Tensor.materialize`, so its consumers copy what they
-    keep). A bf16 payload is a ``torch.bfloat16`` tensor: an alias of a
+    device through :func:`device_from_host_view`; :meth:`Tensor.
+    materialize` copies writable views as it copies read-only ones). A
+    bf16 payload is a ``torch.bfloat16`` tensor: an alias of a
     writable buffer, one owned copy of a read-only one."""
     view = (
         _readonly(data) if not writable
@@ -307,9 +330,11 @@ def deserialize_tensor(data, writable=False):
     values = np.frombuffer(view[off : off + nbytes], dtype=dtype).reshape(
         shape
     )
+    alias = False
     if name == BFLOAT16:
         words = values.view(np.int16)
-        if not words.flags.writeable:
+        alias = words.flags.writeable
+        if not alias:
             # torch tensors cannot alias a read-only buffer
             words = words.copy()
         values = torch.from_numpy(words).view(torch.bfloat16)
@@ -318,7 +343,9 @@ def deserialize_tensor(data, writable=False):
     if "num_indices" in header:
         n = header["num_indices"]
         indices = np.frombuffer(view[off : off + 8 * n], dtype=np.int64)
-    return Tensor(header["name"], values, indices)
+    t = Tensor(header["name"], values, indices)
+    t._wire_alias = alias
+    return t
 
 
 def serialize_tensors(tensors):
@@ -361,13 +388,6 @@ class WireArena:
         self._buf = buf
         self._on_release = on_release
         self.released = False
-
-    @property
-    def recycles(self):
-        """True while ``release()`` would invalidate the views (a slot's
-        arena): a consumer that keeps decoded tensors materializes them
-        first. False for an advisory arena, whose views stay valid."""
-        return self._on_release is not None and not self.released
 
     def release(self):
         if self.released:

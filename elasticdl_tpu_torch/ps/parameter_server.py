@@ -16,9 +16,9 @@ The shard always offers the shared-memory endpoint
 host negotiates a ring through ``transport_hello`` (whose reply carries
 the ``shard_epoch``), after which payloads travel in its slots; a
 ``--ps_device`` shard decodes slot requests as writable views, which
-enter the device without a host copy. A stop reclaims every attached
-ring, those of SIGKILLed clients included. The shard's ``--ps_shm`` flag
-(the reference's shard has none) is accepted and ignored.
+enter the device in one host-to-device copy. A stop reclaims every
+attached ring, those of SIGKILLed clients included. The shard has no
+``--ps_shm`` flag, as the reference's has none.
 
 ``--ps_device`` keeps the store on ``--device`` (``ps/device_store.py``);
 ``--ps_warm_rows`` with ``--ps_spill_dir`` tiers every table

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
-from elasticdl_tpu_torch.common.tensor import Tensor
+from elasticdl_tpu_torch.common.tensor import Tensor, device_host_view
 from elasticdl_tpu_torch.ps.delta_log import DeltaLog
 from elasticdl_tpu_torch.ps.parameters import EmbeddingTableInfo
 from elasticdl_tpu_torch.rpc.wire_compression import (
@@ -65,14 +65,17 @@ def _infos(req):
     ]
 
 
-def _owned(t):
-    """A copy of a sparse gradient that aliases nothing of its request."""
-    values = t.values
-    values = (
-        values.detach().clone() if isinstance(values, torch.Tensor)
-        else np.array(values, copy=True)
-    )
-    return Tensor(t.name, values, np.array(t.indices, copy=True))
+def _on_host(tensors):
+    """Payloads as host arrays: an in-process caller's torch tensors (a
+    worker hands its dense gradients and parameters over on the card,
+    for a frame write's one copy out) stage here. A decoded frame passes
+    as it is: numpy, or a bf16 tensor the decompression widened."""
+    return [
+        Tensor(t.name, device_host_view(t.values), t.indices)
+        if isinstance(t.values, torch.Tensor)
+        and t.values.dtype != torch.bfloat16 else t
+        for t in tensors
+    ]
 
 
 class PserverServicer:
@@ -238,7 +241,7 @@ class PserverServicer:
     def push_model(self, req):
         self._parameters.init_from_model(
             req.get("version", 0),
-            {t.name: t.values for t in req.get("params", [])},
+            {t.name: t.values for t in _on_host(req.get("params", []))},
             _infos(req),
         )
         return self._reply({})
@@ -249,9 +252,9 @@ class PserverServicer:
 
     def push_gradient(self, req):
         version = int(req.get("model_version", -1))
-        gradients = decompress_tensors(
+        gradients = _on_host(decompress_tensors(
             req.get("gradients", []), req.get("compressed_f32")
-        )
+        ))
         if self._use_async:
             dense, sparse = {}, {}
             for t in gradients:
@@ -276,15 +279,14 @@ class PserverServicer:
                 })
             # the sums outlive this request, whose tensors may be views
             # of a shared-memory slot the client recycles after the
-            # reply (writable ones, on a --ps_device shard, which
-            # materialize() takes for owned): the first round copies,
-            # later rounds allocate through ``+``
+            # reply: the first round materializes, later rounds
+            # allocate through ``+``
             for t in gradients:
                 self._parameters.check_grad(t)
                 if t.is_indexed_slices():
                     prev = self._indexed_sum.get(t.name)
                     self._indexed_sum[t.name] = (
-                        _owned(t) if prev is None else prev + t
+                        t.materialize() if prev is None else prev + t
                     )
                 else:
                     prev = self._dense_sum.get(t.name)

@@ -214,19 +214,15 @@ def serve(methods, port, max_workers=64):
 class Client:
     """``client.call("method", **fields)`` -> reply dict.
 
-    ``deadline_s``: each attempt's deadline (None blocks). ``retries``/
-    ``backoff_s``: an ``UNAVAILABLE`` attempt is sent again up to
-    ``retries`` times, the backoff doubling, unless the call passes
-    ``_retriable=False``; other failures raise ``grpc.RpcError`` at
-    once."""
+    ``deadline_s``: the call's deadline (None blocks). Failures raise
+    ``grpc.RpcError``; both scorer RPCs are idempotent, so a caller may
+    retry on its own policy."""
 
-    def __init__(self, addr, deadline_s=None, retries=0, backoff_s=0.2):
+    def __init__(self, addr, deadline_s=None):
         import grpc
 
         self._grpc = grpc
         self._deadline_s = deadline_s if deadline_s else None
-        self._retries = retries
-        self._backoff_s = backoff_s
         self._latency = profiling.metrics.histogram(
             "edl_rpc_client_latency_seconds",
             "Client-observed RPC latency by method (successes only)",
@@ -241,9 +237,9 @@ class Client:
         self._stubs = {}
 
     def call(self, rpc_name, _retriable=True, _plan=None, **fields):
-        """``_retriable=False`` never resends the call (a gradient push a
-        server may have applied); ``_plan``: a :class:`MessagePlan` of
-        ``fields`` already made (the shared-memory channel's fallback
+        """One attempt. ``_retriable``: the transports' common signature
+        (this client never resends); ``_plan``: a :class:`MessagePlan`
+        of ``fields`` already made (the shared-memory channel's fallback
         does not plan a message twice)."""
         stub = self._stubs.get(rpc_name)
         if stub is None:
@@ -258,31 +254,18 @@ class Client:
         pack_message_into(plan, buf)
         # grpc sends exactly ``bytes``: the transport's one handoff copy
         request = bytes(buf)
-        attempt = 0
-        while True:
-            t0 = time.perf_counter()
-            try:
-                reply = stub(request, timeout=self._deadline_s)
-            except self._grpc.RpcError as err:
-                code = (
-                    err.code() if callable(getattr(err, "code", None))
-                    else None
-                )
-                self._errors.inc(
-                    method=rpc_name,
-                    code=code.name if code is not None else "UNKNOWN",
-                )
-                if not (
-                    _retriable
-                    and code == self._grpc.StatusCode.UNAVAILABLE
-                    and attempt < self._retries
-                ):
-                    raise
-                time.sleep(self._backoff_s * (2 ** attempt))
-                attempt += 1
-                continue
-            self._latency.observe(time.perf_counter() - t0, method=rpc_name)
-            return unpack_message(reply, arena=WireArena(reply))
+        t0 = time.perf_counter()
+        try:
+            reply = stub(request, timeout=self._deadline_s)
+        except self._grpc.RpcError as err:
+            code = err.code() if callable(getattr(err, "code", None)) else None
+            self._errors.inc(
+                method=rpc_name,
+                code=code.name if code is not None else "UNKNOWN",
+            )
+            raise
+        self._latency.observe(time.perf_counter() - t0, method=rpc_name)
+        return unpack_message(reply, arena=WireArena(reply))
 
     def close(self):
         self._channel.close()

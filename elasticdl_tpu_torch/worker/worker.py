@@ -353,8 +353,10 @@ class Worker:
                 timer.end_compute()
             timer.add(phase, time.perf_counter() - t0)
 
-    def _to_wire(self, tensors):
-        """{state_dict key: tensor} -> {wire name: float32 ndarray}."""
+    def _to_wire(self, tensors, keep_device=False):
+        """{state_dict key: tensor} -> {wire name: float32 ndarray}; with
+        ``keep_device``, {wire name: float32 tensor where it was}: a PS
+        push's frame write is then its one copy to the host."""
         from elasticdl_tpu_torch.common.convert import to_named
 
         if self._named_layout is None:
@@ -364,7 +366,13 @@ class Worker:
             except KeyError:
                 self._named_layout = False
         if self._named_layout:
-            tensors = to_named(tensors, *self._head_layout())
+            tensors = to_named(
+                tensors, *self._head_layout(), keep_device=keep_device
+            )
+        if keep_device:
+            return {
+                k: v.detach().to(torch.float32) for k, v in tensors.items()
+            }
         return {
             k: v.detach().to("cpu", torch.float32).numpy()
             for k, v in tensors.items()
@@ -486,14 +494,19 @@ class Worker:
         ]
 
     def report_variable(self):
-        named = self._to_wire(self._params)
+        # PS pushes keep the tensors on the card (the frame write is
+        # their one copy out); the master stub takes host arrays, which
+        # an in-process master keeps
+        named = self._to_wire(
+            self._params, keep_device=self._ps_client is not None
+        )
         if self._ps_client is not None:
             self._ps_client.push_model(named, self._embedding_table_infos())
         else:
             self._stub.report_variable(named)
 
     def report_gradient(self, grads, sparse_tensors=None):
-        named = self._to_wire(grads)
+        named = self._to_wire(grads, keep_device=self._ps_client is not None)
         self.dense_tensors_pushed += len(named)
         if self._ps_client is not None:
             return self._ps_client.push_gradient(

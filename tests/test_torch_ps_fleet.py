@@ -529,17 +529,20 @@ def test_the_fleet_job_matches_the_held_job(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize(
-    "flags,refused",
-    [(["--ps_device", "true"], False),
-     (["--ps_warm_rows", "8", "--ps_spill_dir", "d"], False),
-     (["--ps_telemetry_port", "0"], True), (["--ps_shm", "on"], False)],
+    "flags,outcome",
+    [(["--ps_device", "true"], "built"),
+     (["--ps_warm_rows", "8", "--ps_spill_dir", "d"], "built"),
+     (["--ps_telemetry_port", "0"], "refused"),
+     (["--ps_shm", "on"], "unknown")],
     ids=["ps_device", "tiered", "telemetry", "shm"],
 )
-def test_unported_shard_planes_raise_by_name(flags, refused):
-    """Only the telemetry endpoint is still refused; ``--ps_device``, the
-    tier flags and ``--ps_shm`` (accepted and ignored: the shard always
-    offers the shared-memory endpoint) pass ``refuse_unported_ps_flags``
-    (a shard built from them: tests/test_torch_tiered_store.py)."""
+def test_unported_shard_planes_raise_by_name(flags, outcome):
+    """Only the telemetry endpoint is still refused; ``--ps_device`` and
+    the tier flags pass ``refuse_unported_ps_flags`` (a shard built from
+    them: tests/test_torch_tiered_store.py). The shard has no
+    ``--ps_shm``, as the reference's has none (it always offers the
+    shared-memory endpoint): the parser leaves it among the unknown
+    flags, as the reference's does."""
     from elasticdl_tpu_torch.common.args import parse_ps_args
     from elasticdl_tpu_torch.ps.parameter_server import (
         main,
@@ -548,9 +551,15 @@ def test_unported_shard_planes_raise_by_name(flags, refused):
 
     argv = ["--ps_id", "0", "--port", "1", "--model_zoo", "",
             "--model_def", DEEPFM, "--device", "cpu"] + flags
-    if refused:
+    if outcome == "refused":
         with pytest.raises(NotImplementedError, match="not ported"):
             main(argv)
+    elif outcome == "unknown":
+        from elasticdl_tpu.common import args as ref_args
+
+        args = parse_ps_args(argv)
+        assert not hasattr(args, "ps_shm")
+        assert not hasattr(ref_args.parse_ps_args(argv), "ps_shm")
     else:
         refuse_unported_ps_flags(parse_ps_args(argv))
 

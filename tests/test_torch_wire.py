@@ -214,6 +214,24 @@ def test_materialize_is_the_escape_hatch_and_free_for_owned():
     assert owned.materialize() is owned
     t = Tensor("t", torch.ones(2))
     assert t.materialize() is t
+    # a writable decode (a --ps_device shard's slot request) is no owner
+    # either: what it keeps must not change with the buffer
+    buf = bytearray(serialize_tensor(_sparse()))
+    view = deserialize_tensor(buf, writable=True)
+    assert view.values.flags.writeable
+    kept = view.materialize()
+    assert kept is not view
+    buf[-1] ^= 0xFF
+    assert not np.array_equal(view.indices, kept.indices)
+    assert np.array_equal(kept.values, view.values)
+    bf16 = Tensor("b", np.arange(4, dtype=np.float32))
+    bf16.wire_dtype = "bfloat16"
+    frame = bytearray(serialize_tensor(bf16))
+    alias = deserialize_tensor(frame, writable=True)
+    owned = alias.materialize()
+    frame[-1] ^= 0xFF
+    assert torch.equal(owned.values, torch.arange(4, dtype=torch.bfloat16))
+    assert not torch.equal(alias.values, owned.values)
 
 
 def test_views_survive_arena_release_of_other_messages():
@@ -236,10 +254,9 @@ def test_views_survive_arena_release_of_other_messages():
 def test_arena_release_callback_fires_once_even_via_del():
     fired = []
     arena = WireArena(b"x", on_release=lambda: fired.append(1))
-    assert arena.recycles
     msg = {"_wire_arena": arena}
     release_message(msg)
-    assert "_wire_arena" not in msg and not arena.recycles
+    assert "_wire_arena" not in msg and arena.released
     release_message(msg)
     arena.release()
     arena.__del__()
@@ -247,7 +264,6 @@ def test_arena_release_callback_fires_once_even_via_del():
     dropped = []
     WireArena(b"y", on_release=lambda: dropped.append(1))  # never released
     assert dropped == [1]
-    assert not WireArena(b"z").recycles
 
 
 def test_the_host_view_bridge_aliases_a_writable_f32_view():
