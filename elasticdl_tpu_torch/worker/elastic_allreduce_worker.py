@@ -5,7 +5,11 @@ of a job that survives workers joining and leaving mid-epoch.
 **Training.** Each process pulls its own tasks from the master, exactly
 as a single-process worker does, but trains through the weighted
 lockstep step of ``parallel/elastic.py`` in a process world that the
-master's membership re-forms at every change::
+master's membership re-forms at every change. With ``task_prefetch``
+(the worker process passes ``--task_prefetch``, 1 by default) a
+background fetcher keeps that many tasks fetched ahead of the one being
+consumed; a fetched task that is never consumed goes back to the master
+when its round ends, and a dead worker's with the dispatcher's recovery::
 
     prime (the first local batch in hand; its shapes gate membership)
     loop:
@@ -213,6 +217,7 @@ class ElasticAllReduceWorker:
         checkpoint_filename_for_init="",
         prediction_outputs_processor="PredictionOutputsProcessor",
         remat="",
+        task_prefetch=0,
         device="cuda",
     ):
         self._serving_only = job_type in (
@@ -326,6 +331,7 @@ class ElasticAllReduceWorker:
             self,
             job_type == JobType.TRAINING_WITH_EVALUATION,
             data_reader_params=data_reader_params,
+            task_prefetch=task_prefetch,
         )
         self._forward_fn = None
         self._eval_params = None  # (params, state) on the device
@@ -1176,6 +1182,7 @@ class ElasticAllReduceWorker:
             self._timeline(
                 "final", version=self.trainer.version,
                 digest=self.trainer.digest(), launches=_flash_launches(),
+                fetched_ahead=self._task_data_service.fetched_ahead,
             )
         if distributed.current_spec() is not None:
             distributed.leave_world()

@@ -88,6 +88,7 @@ def main(argv=None):
         precision=args.precision_policy or None,
         accum_steps=args.grad_accum_steps,
         remat=args.remat,
+        task_prefetch=args.task_prefetch,
         device=device,
     )
     if standby is not None:

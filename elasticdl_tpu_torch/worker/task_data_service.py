@@ -106,6 +106,8 @@ class _TaskFetcher:
                 if not self._offer((task, records)):
                     self._hand_back(task)
                     return
+                if task.shard_name:
+                    service.fetched_ahead += 1
                 if not task.shard_name:
                     return  # WAIT or exhausted ends the round's fetching
         except BaseException as e:  # propagate into the consumer
@@ -204,6 +206,7 @@ class TaskDataService:
         self._task_prefetch = max(0, int(task_prefetch))
         self._prefetch_warm_records = max(0, int(prefetch_warm_records))
         self._fetcher = None
+        self.fetched_ahead = 0  # tasks the background fetcher fetched
         self._ack_queue_size = max(0, int(ack_queue_size))
         self._ack_queue = deque()
         self._ack_lock = threading.Lock()

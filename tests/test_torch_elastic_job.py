@@ -378,6 +378,22 @@ def test_kill_drill_reforms_and_completes(tmp_path, data_dir):
     assert _final(tl[0])["digest"] == _final(tl[2])["digest"]
 
 
+def test_each_worker_fetches_a_task_ahead_and_every_task_runs_once(
+        tmp_path, data_dir):
+    """``--task_prefetch`` (1 by default) reaches the elastic worker: each
+    worker holds a task fetched ahead of the one it consumes, and the
+    tasks held by the killed worker and those fetched ahead when the job
+    ends still run exactly once."""
+    r = _run_job(str(tmp_path), data_dir, epochs=2, action="kill_worker",
+                 victim=1)
+    _assert_every_task_once(r, 2)
+    assert r["exit_codes"]["1"] == -signal.SIGKILL
+    tl = r["timeline"]
+    # the survivor and the relaunched worker fed tasks fetched ahead
+    assert _final(tl[0])["fetched_ahead"] > 0
+    assert _final(tl[2])["fetched_ahead"] > 0
+
+
 def test_sigterm_drains_rank_zero_and_replaces_it(tmp_path, data_dir):
     r = _run_job(str(tmp_path), data_dir, epochs=2,
                  action="terminate_worker", victim=0)
