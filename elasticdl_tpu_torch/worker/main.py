@@ -31,7 +31,8 @@ master-held model, or with ``--ps_addrs host:port,...`` against the PS
 fleet through a ``PSClient`` over one ``BoundPS`` per shard
 (``--rpc_deadline_s``, ``--rpc_retries``, ``--ps_fanout``,
 ``--ps_push_inflight``, ``--wire_dtype``). No world forms, so a
-relaunched worker just asks for tasks. ``--export_dir`` with
+relaunched worker just asks for tasks. ``--standby`` has no effect there
+and is logged, as the reference ignores it. ``--export_dir`` with
 ``--export_every_versions`` writes streaming exports.
 
 ``--ps_shm`` (``auto`` by default) negotiates a shared-memory ring with
@@ -202,11 +203,13 @@ def close_clients(stub, ps_client):
 
 def _ps_main(args):
     """The parameter-server worker, on the master-held model or on the
-    fleet."""
+    fleet. ``--standby`` has no effect here, as in the reference: a
+    standby parks only on the elastic allreduce membership."""
     if args.standby:
-        raise NotImplementedError(
-            "standby workers of the ParameterServerStrategy job are not "
-            "ported yet (--standby)"
+        logger.info(
+            "--standby has no effect under %s: standby workers park on "
+            "the elastic allreduce membership; running as worker %d",
+            args.distribution_strategy, args.worker_id,
         )
     ps_client = make_ps_client(args)
     stub = master_client(args)
