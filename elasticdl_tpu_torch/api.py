@@ -97,8 +97,12 @@ class LocalJob:
             device=args.device,
         )
         if self.master.holds_model:
+            from elasticdl_tpu_torch.common.args import (
+                warn_accum_unsupported,
+            )
             from elasticdl_tpu_torch.worker.worker import Worker
 
+            warn_accum_unsupported(args, "the in-process PS worker")
             return Worker(
                 get_model_steps=args.get_model_steps,
                 precision=args.precision_policy or None,

@@ -38,6 +38,30 @@ def pos_int(value):
     return ivalue
 
 
+def warn_accum_unsupported(args, plane="this training plane"):
+    """Warn when ``--grad_accum_steps`` or ``--remat`` is set on a plane
+    that ignores it: only the ALLREDUCE trainers accumulate gradients
+    and rematerialize (``training/step.make_train_step``), the
+    parameter-server worker runs without either, and silence would let a
+    user believe their activation memory was bounded."""
+    if getattr(args, "grad_accum_steps", 1) > 1:
+        logger.warning(
+            "--grad_accum_steps=%d is only honored by the ALLREDUCE "
+            "strategy (single- and multi-process); %s runs WITHOUT "
+            "gradient accumulation",
+            args.grad_accum_steps,
+            plane,
+        )
+    if getattr(args, "remat", ""):
+        logger.warning(
+            "--remat=%s is only honored by the ALLREDUCE strategy; %s "
+            "runs WITHOUT activation rematerialization (memory will "
+            "NOT be bounded as requested)",
+            args.remat,
+            plane,
+        )
+
+
 def parse_scorer_args(scorer_args=None):
     """One scorer pod: answers ``score`` from the newest export artifact
     under ``--export_dir`` on ``--device``."""

@@ -32,7 +32,8 @@ fleet through a ``PSClient`` over one ``BoundPS`` per shard
 (``--rpc_deadline_s``, ``--rpc_retries``, ``--ps_fanout``,
 ``--ps_push_inflight``, ``--wire_dtype``). No world forms, so a
 relaunched worker just asks for tasks. ``--standby`` has no effect there
-and is logged, as the reference ignores it. ``--export_dir`` with
+and is logged, as the reference ignores it; ``--grad_accum_steps`` and
+``--remat``, which the PS worker does not honor, draw a warning. ``--export_dir`` with
 ``--export_every_versions`` writes streaming exports.
 
 ``--ps_shm`` (``auto`` by default) negotiates a shared-memory ring with
@@ -47,7 +48,10 @@ import os
 import sys
 import time
 
-from elasticdl_tpu_torch.common.args import parse_worker_args
+from elasticdl_tpu_torch.common.args import (
+    parse_worker_args,
+    warn_accum_unsupported,
+)
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
 from elasticdl_tpu_torch.common.model_utils import get_dict_from_params_str
 
@@ -211,6 +215,7 @@ def _ps_main(args):
             "the elastic allreduce membership; running as worker %d",
             args.distribution_strategy, args.worker_id,
         )
+    warn_accum_unsupported(args, "the parameter-server worker")
     ps_client = make_ps_client(args)
     stub = master_client(args)
     try:

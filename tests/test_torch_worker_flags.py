@@ -65,3 +65,48 @@ def test_a_ps_worker_runs_with_standby_set_and_logs_it(ran, log):
     assert ran == [3]
     assert "--standby has no effect under ParameterServerStrategy" in (
         log.text)
+
+
+def _frappe(directory, n=64, vocab=300):
+    """``n`` DeepFM records (10 ids and a 0/1 label) in one file."""
+    import os
+
+    import numpy as np
+
+    from elasticdl_tpu_torch.data.example import encode_example
+    from elasticdl_tpu_torch.data.recordio import RecordIOWriter
+
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.default_rng(0)
+    with RecordIOWriter(os.path.join(directory, "f0")) as w:
+        for _ in range(n):
+            w.write(encode_example({
+                "feature": rng.integers(1, vocab, 10).astype(np.int64),
+                "label": np.array([rng.integers(0, 2)], np.int64),
+            }))
+
+
+@pytest.mark.parametrize("site", ["worker_process", "in_process"])
+def test_a_ps_worker_warns_that_it_ignores_accumulation_and_remat(
+        site, ran, log, tmp_path):
+    flags = ["--grad_accum_steps", "2", "--remat", "full"]
+    if site == "worker_process":
+        assert worker_main.main(PS_ARGV + flags) == 0
+        assert ran == [3]
+        plane = "the parameter-server worker"
+    else:
+        from elasticdl_tpu_torch import cli
+
+        _frappe(str(tmp_path / "data"))
+        assert cli.main([
+            "train", "--job_name", "j", "--model_zoo", "", "--model_def",
+            "deepfm_edl_embedding.deepfm_edl_embedding.custom_model",
+            "--model_params", "embedding_dim=8,fc_unit=8",
+            "--training_data", str(tmp_path / "data"),
+            "--minibatch_size", "32", "--device", "cpu"] + flags) == 0
+        plane = "the in-process PS worker"
+    assert ("--grad_accum_steps=2 is only honored by the ALLREDUCE "
+            "strategy (single- and multi-process); %s runs WITHOUT "
+            "gradient accumulation" % plane) in log.text
+    assert "--remat=full is only honored by the ALLREDUCE strategy; %s" % (
+        plane) in log.text
