@@ -43,8 +43,9 @@ need their data flag and a model source, or they exit 2
 
 Every flag of the reference parses. Values the port cannot honour yet
 raise ``NotImplementedError``: ``--docker_image_repository`` (cluster
-submission), and, through the master, the PS fleet, ``--telemetry_port``
-and ``--tensorboard_log_dir`` (``master.refuse_unported_planes``).
+submission), and, through the master, the PS fleet, ``--telemetry_port``,
+``--tensorboard_log_dir`` and ``--speculative_compile true``
+(``master.refuse_unported_planes``).
 """
 
 import os

@@ -672,7 +672,8 @@ def add_common_args_between_master_and_worker(parser):
         "background thread during steady-state training, so a resize to "
         "a pre-compiled size pays state re-placement only; pair with "
         "EDL_COMPILE_CACHE_DIR so relaunched processes skip XLA "
-        "compiles too (docs/compile_plane.md)",
+        "compiles too (docs/compile_plane.md). Not ported: true raises "
+        "NotImplementedError (ROADMAP A9)",
     )
     parser.add_argument(
         "--telemetry_report_secs",

@@ -171,6 +171,9 @@ def refuse_unported_planes(args):
          os.environ.get("EDL_FLIGHT_RECORDER_DIR")),
         ("TensorBoard", "--tensorboard_log_dir",
          getattr(args, "tensorboard_log_dir", "")),
+        ("the speculative compile plane (ROADMAP A9)",
+         "--speculative_compile",
+         getattr(args, "speculative_compile", False)),
     )
     for plane, flag, asked in checks:
         if asked:

@@ -110,3 +110,24 @@ def test_a_ps_worker_warns_that_it_ignores_accumulation_and_remat(
             "gradient accumulation" % plane) in log.text
     assert "--remat=full is only honored by the ALLREDUCE strategy; %s" % (
         plane) in log.text
+
+
+@pytest.mark.parametrize("strategy", ["AllreduceStrategy",
+                                      "ParameterServerStrategy"])
+def test_speculative_compile_raises_by_name(strategy, tmp_path):
+    from elasticdl_tpu_torch.common.args import parse_master_args
+    from elasticdl_tpu_torch.master.master import Master
+
+    _frappe(str(tmp_path / "data"))
+    argv = [
+        "--job_name", "j", "--model_zoo", "", "--model_def",
+        "deepfm_edl_embedding.deepfm_edl_embedding.custom_model",
+        "--training_data", str(tmp_path / "data"), "--minibatch_size", "8",
+        "--distribution_strategy", strategy, "--device", "cpu",
+    ]
+    with pytest.raises(NotImplementedError, match=(
+            r"speculative compile plane \(ROADMAP A9\) is not ported yet "
+            r"\(asked for by --speculative_compile\)")):
+        Master(parse_master_args(argv + ["--speculative_compile", "true"]))
+    # off (the default) is no request
+    Master(parse_master_args(argv + ["--speculative_compile", "false"]))
