@@ -20,6 +20,12 @@ and then dQ, and dK with dV, blockwise.
 - On CPU tensors they compute :func:`plain_flash_with_lse` and
   :func:`plain_flash_bwd`, the same functions in float32 — the tests'
   path, through the same Function.
+
+The forward goes through the registered op ``edl_tpu_torch::flash_fwd``
+(:func:`flash_fwd`), whose fake implementation gives ``torch.export``
+the outputs' shapes, so an exported graph holds the op as one node and
+a process that loads the graph dispatches it here: importing this module
+registers it.
 """
 
 import ctypes
@@ -298,6 +304,42 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, causal):
     return dk, dv
 
 
+@torch.library.custom_op("edl_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flash forward as a registered op, ``(out, lse)``: what
+    ``torch.export`` records in a graph that takes the flash branch
+    (``common/export.py``'s serving member), and what
+    :class:`_FlashWithLse` calls. Its CUDA implementation launches
+    ``csrc/flash_fwd.cu`` or raises, its CPU implementation is
+    :func:`plain_flash_with_lse`; a tensor on any other device has
+    neither."""
+    raise ValueError(
+        "flash_fwd runs on CUDA (the kernel) or CPU (its plain version) "
+        "tensors; got %s" % q.device
+    )
+
+
+@flash_fwd.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, causal):
+    return _flash_fwd_kernel(q, k, v, causal)
+
+
+@flash_fwd.register_kernel("cpu")
+def _flash_fwd_cpu(q, k, v, causal):
+    return plain_flash_with_lse(q, k, v, causal)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal):
+    # the kernel's outputs: out contiguous in q's shape and dtype, lse
+    # (B, H, Lq) float32
+    b, lq, h, _ = q.shape
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    return out, q.new_empty((b, h, lq), dtype=torch.float32)
+
+
 class _FlashWithLse(torch.autograd.Function):
     """(out, lse) with the blockwise backward; an lse cotangent (a z-loss,
     a ring merge) propagates through ``delta``. Autograd passes ``None``
@@ -305,10 +347,7 @@ class _FlashWithLse(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        if q.device.type == "cpu":
-            out, lse = plain_flash_with_lse(q, k, v, causal)
-        else:
-            out, lse = _flash_fwd_kernel(q, k, v, causal)
+        out, lse = flash_fwd(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         ctx.set_materialize_grads(False)

@@ -12,6 +12,12 @@ errors cleanly until the first export lands. SIGTERM drains: the
 micro-batcher stops admitting and answers everything already queued,
 then the RPC plane stops, the watcher and the sync join, the channels
 close, and the process exits 0.
+
+An artifact with the port's serving member (``serving_fn.pt2``) is
+served through it, on ``--device``, with no rebuild and no zoo lookup:
+``--model_zoo`` is read only for an artifact without the member (a
+params-only one, a PS-plane model's, or the reference's with a JAX
+member; ``serving/scorer.py``).
 """
 
 import logging

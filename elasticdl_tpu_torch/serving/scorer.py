@@ -2,10 +2,19 @@
 
 The port of ``elasticdl_tpu/serving/scorer.py``.
 
-- :class:`ScorerModel` loads one export artifact (common/export.py),
-  rebuilds the module its manifest names (``metadata['model_def']``,
-  resolved against the port's zoo), loads the weights through
-  common/convert.py and scores on its device. A model with elastic
+- :class:`ScorerModel` loads one export artifact (common/export.py).
+  An artifact with the port's serving member (``serving_fn.pt2``) is
+  served through it: no rebuild and no zoo lookup, the member loaded
+  once on the scorer's device, as the reference serves its
+  ``serving_fn.jaxexport``. An artifact without it is served by the
+  module its manifest names (``metadata['model_def']``, resolved against
+  the port's zoo), rebuilt with the weights of ``model.chkpt`` through
+  common/convert.py. That is also how a reference artifact whose member
+  is JAX's is served: the port cannot read StableHLO, so it logs that
+  the member is not read and rebuilds, as the reference does without a
+  member. A BatchNorm model's running statistics live only in that
+  member, so a rebuild would serve wrong answers: such an artifact
+  raises ``NotImplementedError``. A model with elastic
   embedding layers (``nn/embedding.py``) scores as the trainer steps: a
   capture pass learns the batch's ids, ``plan_lookup_multi`` plans one
   pull of each layer's unique ids, the rows come through the scorer's
@@ -22,8 +31,6 @@ The port of ``elasticdl_tpu/serving/scorer.py``.
 - :class:`ModelDirectoryWatcher` polls an export root, loads and warms
   the newest complete artifact off the request path, and installs it.
 
-Not ported: the source-free ``serving_fn.jaxexport`` plane, which cannot
-exist without JAX; it raises ``NotImplementedError``.
 """
 
 import json
@@ -64,14 +71,16 @@ class ScorerModel:
         self.export_dir = os.path.abspath(export_dir)
         self.device = resolve_device(device)
         self.exported = load_export(export_dir)
-        if self.exported.has_serving_fn():
-            raise NotImplementedError(
-                "export at %s serves through serving_fn.jaxexport, a "
-                "serialized JAX function; that plane is not ported yet "
-                "(export params-only for the PyTorch scorer)"
-                % self.export_dir
-            )
         self.version = int(self.exported.version)
+        # the source-free plane: the port's own member
+        self.serves_member = self.exported.has_torch_serving_fn()
+        if self.exported.has_serving_fn() and not self.serves_member:
+            logger.info(
+                "export at %s carries a serialized JAX serving function "
+                "(serving_fn.jaxexport), which the port cannot read; "
+                "scoring it by the model rebuilt from its model_def and "
+                "model.chkpt", self.export_dir,
+            )
         self._model_zoo = model_zoo
         self._mu = threading.Lock()
         self._model = None
@@ -81,13 +90,15 @@ class ScorerModel:
         self._embedding_initializers = {}
         self._num_calls = None
 
-    def _rebuild(self):
+    def rebuild(self):
         """The module the manifest names, holding this artifact's
         weights, on this model's device. An elastic layer has no weights
         (its rows live on the PS fleet), so a PS-plane model's artifact
-        carries only its dense layers."""
+        carries only its dense layers. A reference artifact whose
+        running statistics live only in its JAX member raises."""
         from elasticdl_tpu_torch.common.convert import to_state_dict
         from elasticdl_tpu_torch.common.model_utils import build_model
+        from elasticdl_tpu_torch.nn.layers import BatchNorm
 
         meta = self.exported.metadata
         model_def = meta.get("model_def")
@@ -102,24 +113,39 @@ class ScorerModel:
                 meta.get("model_params") or None,
                 self._model_zoo,
             )
+        if self.exported.has_serving_fn() and any(
+            isinstance(m, BatchNorm) for m in model.modules()
+        ):
+            raise NotImplementedError(
+                "export at %s is a BatchNorm model (%s) whose running "
+                "statistics live only in its serving_fn.jaxexport member, "
+                "a serialized JAX function the port cannot read; rebuilt "
+                "from model.chkpt it would serve fresh statistics"
+                % (self.export_dir, model_def)
+            )
         model.load_state_dict(
             to_state_dict(self.exported.named), assign=True
         )
         return model.to(self.device).eval()
 
     def prepare(self):
-        """Build the module once (thread-safe: the watcher warms on its
-        own thread while a first request may race in)."""
+        """Load the serving member, or build the module, once
+        (thread-safe: the watcher warms on its own thread while a first
+        request may race in)."""
         from elasticdl_tpu_torch.nn.embedding import embedding_layers
 
         with self._mu:
             if self._model is None:
-                self._model = self._rebuild()
-                self._elastic = bool(embedding_layers(self._model))
+                if self.serves_member:
+                    self._model = self.exported.serving_program(self.device)
+                else:
+                    self._model = self.rebuild()
+                    self._elastic = bool(embedding_layers(self._model))
 
     @property
     def module(self):
-        """The rebuilt ``nn.Module`` holding this artifact's weights."""
+        """What scores: the serving member's module, or the rebuilt
+        ``nn.Module`` holding this artifact's weights."""
         self.prepare()
         return self._model
 
@@ -192,7 +218,9 @@ class ScorerModel:
         from elasticdl_tpu_torch.nn.embedding import bind_rows
 
         model = self.module
-        if not self._elastic:
+        if self.serves_member:
+            out = self.exported.serve(features, self.device)
+        elif not self._elastic:
             with torch.inference_mode():
                 out = model(features)
         else:

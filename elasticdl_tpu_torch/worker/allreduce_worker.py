@@ -300,24 +300,38 @@ class AllReduceWorker:
         return executed
 
     def _process_save_model_task_if_needed(self):
-        """Export the trained state for a parked SAVE_MODEL task. The
-        reference also reads one batch of the task's records, to trace
-        its serialized serving function; the port has no such member,
-        so the records are not read."""
-        task, _ = self._task_data_service.get_save_model_task_and_dataset()
+        """Export the trained state for a parked SAVE_MODEL task. One
+        prediction-mode batch of the task's records is the example the
+        serving member is traced from, on this worker's card, as the
+        reference traces its serving function."""
+        task, dataset = (
+            self._task_data_service.get_save_model_task_and_dataset()
+        )
         if task is None:
             return
         saved_model_path = os.path.join(
             task.extended_config.get(SaveModelConfig.SAVED_MODEL_PATH),
             str(int(time.time())),
         )
-        from elasticdl_tpu_torch.common.export import export_train_state
+        from elasticdl_tpu_torch.common.export import (
+            example_batch_for_export,
+            export_train_state,
+        )
 
+        example = example_batch_for_export(
+            dataset,
+            self._dataset_fn,
+            self._task_data_service.data_reader.metadata,
+            self._minibatch_size,
+            Mode.PREDICTION,
+        )
         export_train_state(
             saved_model_path,
             self.trainer.get_host_state(),
             model=self._model,
             metadata=self._export_meta,
+            example_features=example,
+            serving_ts=self.trainer.train_state,
         )
         logger.info("Exported model to %s", saved_model_path)
         self.report_task_result(task_id=task.task_id, err_msg="")

@@ -68,9 +68,10 @@ over parameters loaded once from a saved model:
   ones), params and BatchNorm statistics both; or else
 - ``--checkpoint_filename_for_init``: a ``.chkpt`` file or an export
   directory, in either package's naming (``common/convert.py`` maps the
-  reference's parameter paths). An exported model carries no BatchNorm
-  statistics in either package, so it scores with fresh ones, as the
-  reference does.
+  reference's parameter paths). The drain reads an artifact's
+  ``model.chkpt``, which carries no BatchNorm statistics in either
+  package (only the serving members do), so it scores with fresh ones,
+  as the reference does.
 
 Evaluation-only (``_run_eval_only``) drains the evaluation queue, each
 task's outputs reported to the master's single round with the version
@@ -1188,9 +1189,13 @@ class ElasticAllReduceWorker:
             distributed.leave_world()
 
     def _process_save_model_task_if_needed(self):
-        """Export the trained state for a parked SAVE_MODEL task; a worker
-        that never trained fail-reports it, for a worker with state."""
-        task, _ = self._task_data_service.get_save_model_task_and_dataset()
+        """Export the trained state for a parked SAVE_MODEL task, with the
+        serving member traced on this worker's card from one
+        prediction-mode batch of the task's records; a worker that never
+        trained fail-reports it, for a worker with state."""
+        task, dataset = (
+            self._task_data_service.get_save_model_task_and_dataset()
+        )
         if task is None:
             return
         host_ts = self.trainer.snapshot()
@@ -1203,11 +1208,22 @@ class ElasticAllReduceWorker:
             task.extended_config.get(SaveModelConfig.SAVED_MODEL_PATH),
             str(int(time.time())),
         )
-        from elasticdl_tpu_torch.common.export import export_train_state
+        from elasticdl_tpu_torch.common.export import (
+            example_batch_for_export,
+            export_train_state,
+        )
 
+        example = example_batch_for_export(
+            dataset,
+            self._dataset_fn,
+            self._task_data_service.data_reader.metadata,
+            self._minibatch_size,
+            Mode.PREDICTION,
+        )
         export_train_state(
             saved_model_path, host_ts, model=self._model,
-            metadata=self._export_meta,
+            metadata=self._export_meta, example_features=example,
+            serving_ts=self.trainer.train_state,
         )
         logger.info("Exported model to %s", saved_model_path)
         self.report_task_result(task.task_id, err_msg="")

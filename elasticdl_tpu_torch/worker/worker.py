@@ -35,7 +35,11 @@ Evaluation tasks score the model version their round pinned (``get_model``
 FIXED, from the round's eval checkpoint) and report outputs and labels;
 prediction tasks hand their outputs to the zoo's processor; the
 SAVE_MODEL task exports the master's model with the master's embedding
-tables (``export_embedding_tables``) in ``model.chkpt``. Dropout draws
+tables (``export_embedding_tables``) in ``model.chkpt``; a model without
+elastic layers also gets the serving member (``common/export.py``),
+traced on the worker's device from one prediction-mode batch of the
+task's records, as the reference's does. Streaming exports stay
+params-only, as the reference's do. Dropout draws
 from a seed of ``(seed, worker_id, step)``.
 
 **On the PS fleet** the model lives on the shards: ``get_model`` is the
@@ -938,8 +942,27 @@ class Worker:
         )
         logger.info("The path to export model is %s", saved_model_path)
         self.get_model(max(self._model_version, 0), GetModelMethod.MINIMUM)
-        from elasticdl_tpu_torch.common.export import export_model
+        from elasticdl_tpu_torch.common.export import (
+            example_batch_for_export,
+            export_model,
+            make_serving_module,
+        )
 
+        serving_module = example = None
+        if not self._embedding_dims:
+            # an elastic layer's rows are pulled per batch, outside the
+            # graph: only a dense model ships the serving member, traced
+            # from the pulled parameters on this worker's device
+            example = example_batch_for_export(
+                dataset,
+                self._dataset_fn,
+                self._task_data_service.data_reader.metadata,
+                self._minibatch_size,
+                Mode.PREDICTION,
+            )
+            serving_module = make_serving_module(
+                self._model, self._params, self._state
+            )
         # the master-held tables are not model parameters: get_model
         # leaves them out, so the export pulls them from the master (the
         # fleet's tables stay on the shards, as in the reference)
@@ -954,6 +977,8 @@ class Worker:
             self._model_version,
             metadata=self._export_meta,
             extra_named=extra_named,
+            serving_module=serving_module,
+            example_features=example,
         )
         self.report_task_result(task_id=task.task_id, err_msg="")
 

@@ -7,9 +7,10 @@ elasticdl_tpu_torch.worker.main``) in a gloo world.
   successful reports, SAVE_MODEL included), both workers exit 0, both
   ranks end with the same state bits at a version equal to their steps
   with a live rank, the newest checkpoint restores bitwise (its state's
-  digest recorded when it was saved), the export exists; for the MNIST
-  CNN and for the CIFAR-10 CNN (``cifar10_subclass`` on cifar-shaped
-  records, the reference's "cifar10_subclass (allreduce mode)").
+  digest recorded when it was saved), the export exists with its
+  serving member; for the MNIST CNN and for the CIFAR-10 CNN
+  (``cifar10_subclass`` on cifar-shaped records, the reference's
+  "cifar10_subclass (allreduce mode)").
 - The kill drill: worker 1 is SIGKILLed once the version reaches 4; the
   survivor's step breaks, the world re-forms, the relaunched worker joins
   with the survivor's state bits, and the job completes with every task
@@ -304,6 +305,10 @@ def _assert_every_task_once(result, epochs):
     assert result["rc"] == 0 and result["finished"]
     assert len(result["done"]) == len(set(result["done"])) == _tasks(epochs)
     assert result["export"]
+    # the SAVE_MODEL artifact carries the serving member
+    for path in result["export"]:
+        with open(path) as f:
+            assert json.load(f)["artifacts"]["torch_serving_fn"]
 
 
 def _final(events):

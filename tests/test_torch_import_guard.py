@@ -108,8 +108,9 @@ def test_every_port_module_imports_without_jax():
 def test_the_job_runs_with_jax_and_grpc_blocked(tmp_path):
     """CPU mnist jobs through the command-line entry, in a fresh
     interpreter where jax, grpc and the JAX package cannot be imported: a
-    training job, one with evaluation rounds, and an evaluation-only job
-    on the second one's checkpoints."""
+    training job (its artifact's serving member served), one with
+    evaluation rounds, and an evaluation-only job on the second one's
+    checkpoints."""
     proc = _run_blocked(
         """
         import os
@@ -142,6 +143,15 @@ def test_the_job_runs_with_jax_and_grpc_blocked(tmp_path):
         )
         assert not leaked, leaked
         assert rc == 0 and jobs[0].worker.trainer.version == 4
+        # its artifact's serving member, served without the zoo's source
+        import glob
+        from elasticdl_tpu_torch.common.export import load_export
+        (manifest,) = glob.glob(os.path.join(%r, "out", "*", "MANIFEST.json"))
+        exported = load_export(os.path.dirname(manifest))
+        assert exported.has_torch_serving_fn()
+        served = exported.serve(
+            {"image": np.zeros((3, 28, 28), np.float32)}, "cpu")
+        assert tuple(served.shape) == (3, 10)
         # with evaluation rounds, then evaluation-only on its checkpoints
         rc = cli.main([
             "train", "--job_name", "j", "--distribution_strategy",
@@ -170,7 +180,7 @@ def test_the_job_runs_with_jax_and_grpc_blocked(tmp_path):
         print("version", jobs[0].worker.trainer.version)
         """
         % (REPO, str(tmp_path), str(tmp_path), str(tmp_path),
-           str(tmp_path), str(tmp_path))
+           str(tmp_path), str(tmp_path), str(tmp_path))
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.split()[-1] == "4"
