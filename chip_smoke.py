@@ -25,13 +25,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (the kernel's own, even where the host's enqueue time per call nears
    it), both for SDPA too.
 4. slice   — the 110M transformer LM (bf16, random weights from a seed)
-   exported, then served through the scorer's entry points
-   (build_scorer -> ScorerServicer -> MicroBatcher -> Scorer) on
-   concurrent 1024-token requests. Replies are checked against solo
-   scoring and against the model with attention swapped for the plain
-   version; kernel launches are counted over the served requests alone
-   (12 forward, 0 backward per forward). Then a torch.profiler breakdown
-   of one batched forward.
+   exported with its serving member (``torch.export`` of the module on
+   the card, the flash forward a registered op in its graph), then
+   served through the scorer's entry points (build_scorer ->
+   ScorerServicer -> MicroBatcher -> Scorer -> the member) on concurrent
+   1024-token requests. The graph holds 12 flash op nodes; kernel
+   launches are counted over the served requests alone (12 forward, 0
+   backward per forward). The same requests go through a second scorer
+   over a params-only artifact of the same weights (the module rebuilt
+   from the manifest): p50 / p99 both ways, and each member reply held
+   against the rebuilt one's. Replies are also checked against solo
+   scoring and against the rebuilt model with attention swapped for the
+   plain version. A small member (the LM at two layers) written on the
+   CPU is served on the card, where it launches the kernel, and held
+   against the same weights' member written on the card. Then a
+   torch.profiler breakdown of one batched forward through the member.
 5. train   — the same model trained through AllReduceTrainer.train_step
    (AdamW, 16 x 1024-token batches): finite losses, a finite, nonzero
    gradient for every parameter, 12 launches of each kernel per step;
@@ -46,7 +54,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
    records from the seed: the dispatcher finishes at version 14, every
    loss and parameter finite, every batch statistic moved, the newest
    checkpoint restores bitwise into a fresh trainer, the export manifest
-   exists; the bf16 model held against the f32 one on one batch; the
+   exists, and its serving member, served on the card on 64 images from
+   the seed, is within 1e-2 relative L2 of the direct forward of the
+   newest checkpoint (its running statistics) and further than that from
+   the export's parameters with fresh statistics (what a rebuild from
+   ``model.chkpt`` would serve); the bf16 model held against the f32 one
+   on one batch; the
    job's examples/s over its steps after the first and its ratio to the
    fused step; a torch.profiler breakdown of a few steps of a second run
    (idle share, top device ops, the largest device-idle gaps). ResNet-50
@@ -76,7 +89,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the version equals the steps, every loss is finite, the newest
    checkpoint restores bitwise into a fresh model, each round is within
    2 records (accuracy) and 1e-2 relative L2 (outputs) of a direct
-   forward of its checkpoint; ``evaluate --checkpoint_dir`` reads the
+   forward of its checkpoint; each artifact carries the serving member
+   (DeepFM-edl's too: on the HBM plane its rows are in the graph, and
+   the reference's ALLREDUCE worker writes one for it as well);
+   ``evaluate --checkpoint_dir`` reads the
    newest checkpoint's direct accuracy; ``predict`` with a capturing
    processor yields every record once within 1e-2 relative L2. Then
    each model's forward and one SGD step on the card against the CPU
@@ -98,8 +114,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    versions, ``--output``, then ``evaluate`` from the export: every task
    done once, the version equal to the accepted gradients, finite losses,
    the store holding exactly the ids seen, the newest checkpoint restoring
-   the held model and the tables bitwise, ``evaluate`` reading the last
-   round's metrics; examples/s after the first step, the step's split
+   the held model and the tables bitwise, the export without a serving
+   member (the elastic layers' rows are pulled outside the graph, as in
+   the reference), ``evaluate`` reading the last round's metrics;
+   examples/s after the first step, the step's split
    (``get_model``, plan, the rows' pull, compute with its CUDA-event
    time, ``report_gradient`` with the master's apply, the host's parse),
    the master's dense and sparse apply, the store's rows and bytes, peak
@@ -144,7 +162,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    MNIST with ``--export_dir --export_every_versions 4 --export_keep
    2``, the newest artifact served by ``ModelDirectoryWatcher`` replying
    as the model of its version; F1 again over ``--wire_dtype
-   bfloat16`` (within 2e-2 of F1). No flash kernel launches
+   bfloat16`` (within 2e-2 of F1; its fleet boots and runs beside the
+   exports). Each fleet's worker processes start with its master and
+   shards, importing and creating their CUDA context while those boot,
+   and wait for them to answer before they run. No flash kernel launches
    (``launches_by_path.ps_fleet`` = 0, this process's and the worker
    processes').
 11. ps_tiers — the three tiers of embedding-row residence on the fleet:
@@ -260,7 +281,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    checkpoint. Run A, clean: every task done once, both ranks' final
    state bits equal (digests in the workers' timelines), the final
    version equal to the steps with a live rank, the newest checkpoint
-   restored bitwise into a fresh model, the export written; examples/s,
+   restored bitwise into a fresh model, the export written with its
+   serving member (each run's export, in a worker, traced on the card);
+   examples/s,
    the step split into compute, the all-reduce and the rest (the
    stream's times between CUDA events of the step), and each
    checkpoint's stall on the step path and background write. Run B,
@@ -293,7 +316,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    report their flash launches, by run (``launches_by_path`` ``elastic``
    for A and B, ``elastic_master_kill``, ``elastic_standby`` and
    ``elastic_eval``, each 0).
-16. summary — the kernels line, the card line, then the result line.
+16. summary — each phase's seconds with the serving-member exports it
+   made (their count and seconds: this process's trace and save, a
+   worker's whole SAVE_MODEL export), the kernels line, the card line,
+   then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
 non-zero and prints no result. ``--elastic-only`` runs phases 1 and 15
@@ -311,6 +337,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import textwrap
 import threading
 import time
 
@@ -395,6 +422,69 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
         "elasticdl_tpu/ops/flash_attention.py:175",
     ),
 }
+
+
+# The seconds of each phase of the run, and of each serving-member export
+# by phase: this process's timed around common/export's
+# ``_export_serving_fn`` (the trace and its save), a worker process's from
+# its timeline's ``export`` event (the whole SAVE_MODEL export there).
+PHASE = ["device"]
+PHASE_SECONDS = {}
+MEMBER_EXPORTS = {}
+
+
+def _note_export(seconds, where):
+    MEMBER_EXPORTS.setdefault(PHASE[0], []).append(
+        {"seconds": seconds, "in": where})
+
+
+def _time_member_exports():
+    from elasticdl_tpu_torch.common import export
+
+    inner = export._export_serving_fn
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args)
+        finally:
+            _note_export(time.perf_counter() - t0, "this process")
+
+    export._export_serving_fn = timed
+
+
+def _note_worker_exports(events_by_worker):
+    for worker, events in events_by_worker.items():
+        for e in events:
+            if e["event"] == "export" and e.get("serving_member"):
+                _note_export(e["seconds"], "worker %s" % worker)
+
+
+def _run_phase(name, fn, *args):
+    """``fn(*args)``, its seconds kept under ``name``."""
+    PHASE[0] = name
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+
+
+def timing_record():
+    """Each phase's seconds and the serving-member exports it made."""
+    return {
+        "phase": "timing",
+        "seconds": dict(PHASE_SECONDS),
+        "total_s": sum(PHASE_SECONDS.values()),
+        "member_exports": {
+            phase: {"count": len(each),
+                    "seconds": sum(e["seconds"] for e in each),
+                    "each": each}
+            for phase, each in MEMBER_EXPORTS.items()
+        },
+        "member_exports_s": sum(e["seconds"] for each in
+                                MEMBER_EXPORTS.values() for e in each),
+    }
 
 
 def emit(obj):
@@ -993,37 +1083,79 @@ def phase_bwd_memory(torch):
     return rec
 
 
-def _make_artifact(torch, export_root):
-    """The 110M bf16 artifact: seeded random weights through the port's
-    ``export_model``; returns the seconds it took."""
+def _lm_weights(torch, cfg, device):
+    """The LM of ``cfg`` with seeded random weights, on ``device``."""
+    from elasticdl_tpu_torch.model_zoo.transformer_lm import (
+        transformer_lm as zoo,
+    )
+
+    with torch.device("meta"):
+        model = zoo.custom_model(**cfg)
+    model = model.to_empty(device=device)
+    zoo.init_parameters(
+        model, torch.Generator(device=device).manual_seed(SEED)
+    )
+    return model.eval()
+
+
+def _lm_member(torch, model, cfg, export_dir):
+    """``model``'s artifact at ``export_dir`` with its serving member,
+    traced where the model lies over two SEQ_LEN-token rows; returns the
+    seconds the artifact took."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.convert import to_named
+    from elasticdl_tpu_torch.common.export import (
+        export_model,
+        export_provenance,
+        make_serving_module,
+    )
+
+    example = {"tokens": np.random.default_rng(SEED + 5).integers(
+        0, cfg["vocab_size"], (2, SEQ_LEN), dtype=np.int32)}
+    params = ",".join("%s=%r" % kv for kv in cfg.items())
+    t0 = time.perf_counter()
+    manifest = export_model(
+        export_dir,
+        to_named(model.state_dict(), cfg["num_heads"], cfg["head_dim"]),
+        1,
+        metadata=export_provenance("", MODEL_DEF, params),
+        serving_module=make_serving_module(
+            model, dict(model.named_parameters()), {}),
+        example_features=example,
+    )
+    if not manifest["artifacts"]["torch_serving_fn"]:
+        raise PhaseError("the LM's artifact at %s has no serving member"
+                         % export_dir)
+    return time.perf_counter() - t0
+
+
+def _make_artifacts(torch, export_root, rebuild_root):
+    """The 110M bf16 LM's artifacts, from seeded random weights through
+    the port's ``export_model``: under ``export_root`` with the serving
+    member traced from the module on the card, and under
+    ``rebuild_root`` params-only (the scorer rebuilds that one). Returns
+    the seconds of each."""
     from elasticdl_tpu_torch.common.convert import to_named
     from elasticdl_tpu_torch.common.export import (
         export_model,
         export_provenance,
     )
-    from elasticdl_tpu_torch.model_zoo.transformer_lm import (
-        transformer_lm as zoo,
-    )
 
+    model = _lm_weights(torch, SLICE_CFG, DEVICE)
+    member_s = _lm_member(torch, model, SLICE_CFG,
+                          os.path.join(export_root, "v1"))
     t0 = time.perf_counter()
-    with torch.device("meta"):
-        model = zoo.custom_model(**SLICE_CFG)
-    model = model.to_empty(device=DEVICE)
-    zoo.init_parameters(
-        model, torch.Generator(device=DEVICE).manual_seed(SEED)
-    )
-    named = to_named(
-        model.state_dict(), SLICE_CFG["num_heads"], SLICE_CFG["head_dim"]
-    )
-    del model
     params = ",".join("%s=%r" % kv for kv in SLICE_CFG.items())
     export_model(
-        os.path.join(export_root, "v1"),
-        named,
+        os.path.join(rebuild_root, "v1"),
+        to_named(model.state_dict(), SLICE_CFG["num_heads"],
+                 SLICE_CFG["head_dim"]),
         1,
         metadata=export_provenance("", MODEL_DEF, params),
     )
-    return time.perf_counter() - t0
+    return {"member_artifact_s": member_s,
+            "params_only_artifact_s": time.perf_counter() - t0}
 
 
 def _counter(name):
@@ -1126,12 +1258,8 @@ def _profile(torch, label, fn, **fields):
     return rec
 
 
-def _profile_forward(torch, model, tokens):
-    def forward():
-        with torch.inference_mode():
-            model({"tokens": tokens})
-
-    _profile(torch, "forward", forward, rows=int(tokens.shape[0]))
+def _profile_forward(torch, forward, rows):
+    _profile(torch, "forward", forward, rows=rows)
 
 
 def _reset_counters():
@@ -1153,10 +1281,11 @@ def _counts():
     }
 
 
-def phase_slice(torch, tmp):
-    """Serve the 110M LM through the scorer's entry points; returns
-    {"launches": flash launches of the served requests, "shapes": their
-    launch shapes}."""
+def _serve(torch, export_root, requests):
+    """Serve ``requests`` through the scorer's entry points over the
+    artifact under ``export_root``: a warm-up of MAX_BATCH requests, then
+    all of them at once with the flash launches counted over them alone.
+    Returns what the checks read."""
     import numpy as np
 
     from elasticdl_tpu_torch.common.args import parse_scorer_args
@@ -1164,8 +1293,6 @@ def phase_slice(torch, tmp):
     from elasticdl_tpu_torch.serving.main import build_scorer
     from elasticdl_tpu_torch.serving.server import ScorerServicer
 
-    export_root = os.path.join(tmp, "exports")
-    export_s = _make_artifact(torch, export_root)
     args = parse_scorer_args(
         [
             "--export_dir", export_root,
@@ -1177,55 +1304,139 @@ def phase_slice(torch, tmp):
     scorer, watcher, _, _, batcher = build_scorer(args)
     t0 = time.perf_counter()
     if watcher.poll_once() != 1:
-        raise PhaseError("the watcher did not install the v1 artifact")
-    load_s = time.perf_counter() - t0
+        raise PhaseError("the watcher did not install the v1 artifact "
+                         "under %s" % export_root)
+    out = {"scorer": scorer, "load_s": time.perf_counter() - t0}
     servicer = ScorerServicer(scorer, batcher=batcher)
     batcher.start()
     try:
-        rng = np.random.default_rng(SEED)
-        requests = [
-            rng.integers(0, SLICE_CFG["vocab_size"], (1, SEQ_LEN),
-                         dtype=np.int32)
-            for _ in range(N_REQUESTS)
-        ]
         # warm-up (not counted): allocator, cuBLAS handles, a first batch
-        _, _, warm_s = _fire(servicer, requests[:MAX_BATCH])
+        _, _, out["warmup_s"] = _fire(servicer, requests[:MAX_BATCH])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ok = _counter("edl_scorer_requests_total")
         forwards0 = ok.value(outcome="ok")
         forward_s0 = _forward_seconds()
         _reset_counters()
-        replies, latency, wall = _fire(servicer, requests)
-        launches = fa.launches.count
-        shapes = fa.launches.shapes()
-        bwd_launches = fa.bwd_dq_launches.count + fa.bwd_dkv_launches.count
-        counts = _counts()
-        forwards = int(ok.value(outcome="ok") - forwards0)
-        forward_s = _forward_seconds() - forward_s0
-        peak = torch.cuda.max_memory_allocated()
+        replies, latency, out["wall_s"] = _fire(servicer, requests)
+        out["launches"] = fa.launches.count
+        out["bwd_launches"] = (fa.bwd_dq_launches.count
+                               + fa.bwd_dkv_launches.count)
+        out["counts"] = _counts()
+        out["forwards"] = int(ok.value(outcome="ok") - forwards0)
+        out["forward_s"] = _forward_seconds() - forward_s0
+        out["peak"] = torch.cuda.max_memory_allocated()
     finally:
         batcher.stop(drain=True)
         batcher.close()
     for i, reply in enumerate(replies):
         _check_reply(torch, reply, i)
+    out["replies"] = [r["output"] for r in replies]
+    lat_ms = np.asarray(latency) * 1e3
+    out["p50_ms"] = float(np.percentile(lat_ms, 50))
+    out["p99_ms"] = float(np.percentile(lat_ms, 99))
+    return out
+
+
+def _flash_nodes(module):
+    """The flash op's nodes in a serving member's graph."""
+    return sum(1 for n in module.graph.nodes
+               if str(n.target) == "edl_tpu_torch.flash_fwd.default")
+
+
+def _member_across_devices(torch, tmp, requests):
+    """One small member (the LM at two layers) written on the CPU and
+    served on the card, held against the same weights' member written on
+    the card: the moved graph (its parameters, constants and the devices
+    written into it) launches the kernel and answers alike."""
+    from elasticdl_tpu_torch.common.export import load_export
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    cfg = dict(SLICE_CFG, num_layers=2)
+    cpu_model = _lm_weights(torch, cfg, "cpu")
+    card_model = _lm_weights(torch, cfg, "cpu").to(DEVICE)
+    rec = {"layers": cfg["num_layers"]}
+    outs = {}
+    for where, model in (("cpu", cpu_model), ("card", card_model)):
+        d = os.path.join(tmp, "member-%s" % where)
+        rec["%s_artifact_s" % where] = _lm_member(torch, model, cfg, d)
+        exported = load_export(d)
+        rec["%s_traced_on" % where] = exported.manifest["torch_serving"][
+            "device"]
+        tokens = {"tokens": requests[0]}
+        exported.serve(tokens, DEVICE)  # loads (and moves) the member
+        torch.cuda.synchronize()
+        fa.launches.reset()
+        outs[where] = exported.serve(
+            {"tokens": requests[0].repeat(3, 0)}, DEVICE).float()
+        torch.cuda.synchronize()
+        rec["%s_launches" % where] = fa.launches.count
+        rec["%s_output_device" % where] = str(outs[where].device)
+    err = float((outs["cpu"] - outs["card"]).abs().max())
+    rec.update(max_abs_err=err, bitwise=bool(torch.equal(
+        outs["cpu"], outs["card"])), atol=REPLY_ATOL)
+    if not (err <= REPLY_ATOL and rec["cpu_launches"] == cfg["num_layers"]
+            and rec["card_launches"] == cfg["num_layers"]
+            and rec["cpu_output_device"].startswith("cuda")):
+        raise PhaseError("the member written on the CPU, served on the "
+                         "card: %s" % rec)
+    return rec
+
+
+def phase_slice(torch, tmp):
+    """Serve the 110M LM through the scorer's entry points, from the
+    artifact's serving member (the main path) and, for the same
+    requests, from the module the scorer rebuilds from a params-only
+    artifact; returns {kernel: (launches over the member's served
+    requests, their launch shapes)}."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    export_root = os.path.join(tmp, "exports")
+    rebuild_root = os.path.join(tmp, "exports-rebuild")
+    export_s = _make_artifacts(torch, export_root, rebuild_root)
+    rng = np.random.default_rng(SEED)
+    requests = [
+        rng.integers(0, SLICE_CFG["vocab_size"], (1, SEQ_LEN),
+                     dtype=np.int32)
+        for _ in range(N_REQUESTS)
+    ]
+    member = _serve(torch, export_root, requests)
+    scorer = member["scorer"]
+    served = scorer.model()
     layers = SLICE_CFG["num_layers"]
-    if forwards < 1 or launches != layers * forwards or bwd_launches:
+    forwards, launches = member["forwards"], member["launches"]
+    if not served.serves_member or _flash_nodes(served.module) != layers:
+        raise PhaseError(
+            "the scorer did not serve through the member's graph with %d "
+            "flash_fwd op nodes (serves_member %s)"
+            % (layers, served.serves_member))
+    if (forwards < 1 or launches != layers * forwards
+            or member["bwd_launches"]):
         raise PhaseError(
             "flash_fwd launched %d times over %d forwards (expected %d "
             "per forward), the backward kernels %d times (expected 0)"
-            % (launches, forwards, layers, bwd_launches)
+            % (launches, forwards, layers, member["bwd_launches"])
         )
+    counts = member.pop("counts")
+    rebuilt = _serve(torch, rebuild_root, requests)
+    rebuilt_model = rebuilt["scorer"].model()
+    if rebuilt_model.serves_member:
+        raise PhaseError("the params-only artifact served a member")
 
-    # checks (not counted): each reply against its request scored solo,
-    # and against the model with attention swapped for the plain version
-    model = scorer.model().module
+    # checks (not counted): each reply against the rebuilt module's reply
+    # to the same request, against its request scored solo, and against
+    # the rebuilt model with attention swapped for the plain version
+    rebuilt_err = max(
+        float((a.float() - b.float()).abs().max())
+        for a, b in zip(member["replies"], rebuilt["replies"]))
     solo_err = 0.0
     for i, req in enumerate(requests):
         solo, _ = scorer.score({"tokens": req})
         solo_err = max(
             solo_err,
-            float((solo.float().cpu() - replies[i]["output"].float())
+            float((solo.float().cpu() - member["replies"][i].float())
                   .abs().max()),
         )
 
@@ -1233,48 +1444,67 @@ def phase_slice(torch, tmp):
         return fa.plain_flash_with_lse(q, k, v, True)[0]
 
     plain_err = 0.0
+    module = rebuilt_model.module
     with torch.inference_mode():
         for s in range(0, N_REQUESTS, MAX_BATCH):
             chunk = np.concatenate(requests[s : s + MAX_BATCH])
-            ref = model({"tokens": chunk}, attention_fn=plain_attention)
-            got = torch.cat(
-                [r["output"] for r in replies[s : s + MAX_BATCH]]
-            )
+            ref = module({"tokens": chunk}, attention_fn=plain_attention)
+            got = torch.cat(member["replies"][s : s + MAX_BATCH])
             plain_err = max(
                 plain_err,
                 float((ref.float().cpu() - got.float()).abs().max()),
             )
-    lat_ms = np.asarray(latency) * 1e3
+    across = _member_across_devices(torch, tmp, requests)
     rec = {
         "phase": "slice",
         "model": dict(SLICE_CFG, params="float32"),
         "export_s": export_s,
-        "load_s": load_s,
-        "warmup_s": warm_s,
+        "served_through": "serving member (torch.export)",
+        "member_flash_nodes": _flash_nodes(served.module),
+        "load_s": member["load_s"],
+        "warmup_s": member["warmup_s"],
         "requests": N_REQUESTS,
         "seq_len": SEQ_LEN,
         "forwards": forwards,
         "rows_per_forward": N_REQUESTS / forwards,
-        "forward_ms_mean": forward_s / forwards * 1e3,
+        "forward_ms_mean": member["forward_s"] / forwards * 1e3,
         "flash_launches": launches,
         "flash_launches_per_forward": launches / forwards,
-        "flash_bwd_launches": bwd_launches,
-        "latency_p50_ms": float(np.percentile(lat_ms, 50)),
-        "latency_p99_ms": float(np.percentile(lat_ms, 99)),
-        "wall_s": wall,
-        "tokens_per_s": N_REQUESTS * SEQ_LEN / wall,
-        "max_memory_allocated": int(peak),
+        "flash_bwd_launches": member["bwd_launches"],
+        "latency_p50_ms": member["p50_ms"],
+        "latency_p99_ms": member["p99_ms"],
+        "wall_s": member["wall_s"],
+        "tokens_per_s": N_REQUESTS * SEQ_LEN / member["wall_s"],
+        "max_memory_allocated": int(member["peak"]),
+        "rebuilt": {
+            "load_s": rebuilt["load_s"],
+            "forwards": rebuilt["forwards"],
+            "forward_ms_mean": rebuilt["forward_s"] / max(
+                rebuilt["forwards"], 1) * 1e3,
+            "flash_launches": rebuilt["launches"],
+            "latency_p50_ms": rebuilt["p50_ms"],
+            "latency_p99_ms": rebuilt["p99_ms"],
+            "wall_s": rebuilt["wall_s"],
+            "tokens_per_s": N_REQUESTS * SEQ_LEN / rebuilt["wall_s"],
+            "max_memory_allocated": int(rebuilt["peak"]),
+        },
+        "member_vs_rebuilt_max_abs_err": rebuilt_err,
         "solo_max_abs_err": solo_err,
         "plain_attention_max_abs_err": plain_err,
         "atol": REPLY_ATOL,
+        "member_across_devices": across,
     }
     emit(rec)
-    if not (solo_err <= REPLY_ATOL and plain_err <= REPLY_ATOL):
+    if not (rebuilt_err <= REPLY_ATOL and solo_err <= REPLY_ATOL
+            and plain_err <= REPLY_ATOL):
         raise PhaseError(
-            "served logits disagree: solo %.4g, plain attention %.4g "
-            "(atol %g)" % (solo_err, plain_err, REPLY_ATOL)
+            "served logits disagree: the rebuilt module %.4g, solo %.4g, "
+            "plain attention %.4g (atol %g)"
+            % (rebuilt_err, solo_err, plain_err, REPLY_ATOL)
         )
-    _profile_forward(torch, model, np.concatenate(requests[:MAX_BATCH]))
+    chunk = np.concatenate(requests[:MAX_BATCH])
+    _profile_forward(torch, lambda: served.predict({"tokens": chunk}),
+                     rows=MAX_BATCH)
     return counts
 
 
@@ -2017,8 +2247,13 @@ def phase_job(torch, tmp, fused, card):
                             % newest)
         del fresh, rs
     manifests = glob.glob(os.path.join(out_dir, "*", "MANIFEST.json"))
+    member = None
     if not manifests:
         problems.append("no export manifest under %s" % out_dir)
+    elif newest is not None:
+        member = _job_member(torch, os.path.dirname(manifests[0]), newest)
+        if not member["ok"]:
+            problems.append("the artifact's serving member: %s" % member)
     bf16 = _bf16_vs_f32(torch, data_dir)
     if not bf16["ok"]:
         problems.append("bf16 against f32: %s" % bf16)
@@ -2057,6 +2292,7 @@ def phase_job(torch, tmp, fused, card):
         "checkpoints": [os.path.basename(d) for d in ckpts],
         "restore_bitwise": restored_equal,
         "export_manifests": len(manifests),
+        "serving_member": member,
         "bf16_vs_f32": bf16,
         "launches": {k: v[0] for k, v in counts.items()},
     }
@@ -2198,6 +2434,51 @@ def _export_weights(torch, export_dir):
     params = {k: v.to(DEVICE) for k, v in convert.to_state_dict(named).items()}
     state = {k: b.to(DEVICE) for k, b in job_model().named_buffers()}
     return params, state
+
+
+def _has_member(export_dir):
+    """Whether the artifact at ``export_dir`` lists a serving member."""
+    with open(os.path.join(export_dir, "MANIFEST.json")) as f:
+        return bool(json.load(f)["artifacts"].get("torch_serving_fn"))
+
+
+def _job_member(torch, export_dir, newest):
+    """The job's artifact served through its member on the card, against
+    the direct forward of the newest checkpoint (its running statistics)
+    and of the export's parameters with fresh statistics (what a rebuild
+    from ``model.chkpt`` serves), on one batch of JOB_BATCH images from
+    the seed."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.export import load_export
+
+    images = np.random.default_rng(SEED + 7).integers(
+        0, 256, (JOB_BATCH, JOB_IMAGE, JOB_IMAGE, 3), dtype=np.uint8)
+    exported = load_export(export_dir)
+    if not exported.has_torch_serving_fn():
+        return {"ok": False, "member": False}
+    t0 = time.perf_counter()
+    got = exported.serve({"image": images}, DEVICE).float()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    want = _direct_forward(torch, *_checkpoint_weights(torch, newest),
+                           images)
+    fresh = _direct_forward(torch, *_export_weights(torch, export_dir),
+                            images)
+    rel = _rel_l2(torch, got, want)
+    rel_fresh = _rel_l2(torch, got, fresh)
+    return {
+        "ok": rel <= EVAL_REL_L2 < rel_fresh,
+        "member": True,
+        "traced_on": exported.manifest["torch_serving"]["device"],
+        "images": JOB_BATCH,
+        "first_serve_s": first_s,
+        "rel_l2_vs_checkpoint": rel,
+        "max_abs_err_vs_checkpoint": float((got - want).abs().max()),
+        "bitwise_vs_checkpoint": bool(torch.equal(got, want)),
+        "rel_l2_vs_fresh_statistics": rel_fresh,
+        "tolerance": EVAL_REL_L2,
+    }
 
 
 def job_model():
@@ -2720,6 +3001,14 @@ def _zoo_job(torch, tmp, card, entry):
     peak = torch.cuda.max_memory_allocated()
     job = jobs[0]
     trainer = job.worker.trainer
+    # every zoo model's artifact carries the serving member, DeepFM-edl's
+    # too: on the HBM plane its rows are in the graph, and the
+    # reference's ALLREDUCE worker writes one for it as well
+    artifacts = os.listdir(out_dir) if os.path.isdir(out_dir) else []
+    member = len(artifacts) == 1 and _has_member(
+        os.path.join(out_dir, artifacts[0]))
+    if not member:
+        problems.append("train: artifacts %s, no serving member" % artifacts)
     if rc != 0 or trainer.version != steps:
         problems.append("train: exit code %s, version %d of %d"
                         % (rc, trainer.version, steps))
@@ -2800,6 +3089,7 @@ def _zoo_job(torch, tmp, card, entry):
         "batch": batch,
         "write_records_s": write_s,
         "job_s": job_s,
+        "serving_member": member,
         "steps": len(spans),
         "examples_per_s": (len(spans) - 1) * batch / timed_s,
         "examples_per_s_in_step": (len(spans) - 1) * batch / sum(
@@ -3150,6 +3440,7 @@ def _zoo_elastic(torch, tmp, card):
     rc, job, done, _ = _run_elastic_job(torch, argv, root + "-timeline")
     job_s = time.perf_counter() - t0
     events = _timeline_events(root + "-timeline")
+    _note_worker_exports(events)
     first_epoch = min((e["epoch"] for ev in events.values()
                        for e in _of(ev, "established")), default=0)
     problems = []
@@ -3496,6 +3787,12 @@ def _ps_in_process(torch, tmp, card):
         problems.append("rounds %s" % rounds)
     # evaluate from the export: the final round's metrics
     export = os.path.join(out, sorted(os.listdir(out))[-1])
+    # the elastic layers' rows are pulled outside the graph: no member,
+    # as the reference's PS worker writes none
+    member = _has_member(export)
+    if member:
+        problems.append("the PS plane's DeepFM artifact has a serving "
+                        "member")
     ejobs = []
     t1 = time.perf_counter()
     erc = cli.main(_ps_argv(
@@ -3522,6 +3819,7 @@ def _ps_in_process(torch, tmp, card):
         "alone_ms": _ps_alone_ms(torch, worker),
         "model": "deepfm_edl_embedding", "batch": PS_BATCH,
         "records": PS_RECORDS, "version": version, "job_s": job_s,
+        "serving_member": member,
         "examples_per_s": _ps_examples_per_s(spies.spans, spies.rounds,
                                           PS_BATCH),
         "step_split": _ps_split(worker),
@@ -4011,6 +4309,39 @@ _DETERMINISTIC_ALGORITHMS_WORKER = (
 ) + _DETERMINISTIC_WORKER
 
 
+# A fleet's worker process starts with its master and shards: it imports
+# the worker and creates its CUDA context while they boot, then waits
+# until the master and each shard answer before it runs worker.main (the
+# order the harness once kept by starting it only then). The probes use
+# the socket transport with the wire off.
+_FLEET_WORKER_WAITS = textwrap.dedent("""
+    import time, torch
+    torch.zeros(1, device=%(device)r)
+    import elasticdl_tpu_torch.worker.worker
+    from elasticdl_tpu_torch.master.rpc_service import MasterClient
+    from elasticdl_tpu_torch.worker.ps_client import BoundPS
+
+    def _answers(make, call):
+        stub = make()
+        try:
+            call(stub)
+            return True
+        except Exception:
+            return False
+        finally:
+            stub.close()
+
+    _deadline = time.monotonic() + %(limit)r
+    _probes = [(lambda: MasterClient("localhost:%(master)d"),
+                lambda c: c.master_status())] + [
+        (lambda p=p: BoundPS("localhost:%%d" %% p, deadline_s=2.0),
+         lambda c: c.ps_status({})) for p in %(shards)r]
+    for _make, _call in _probes:
+        while not _answers(_make, _call) and time.monotonic() < _deadline:
+            time.sleep(0.1)
+""")
+
+
 def _free_port():
     import socket
 
@@ -4067,6 +4398,7 @@ class _Fleet:
 
         self.root = os.path.join(tmp, name)
         os.makedirs(self.root, exist_ok=True)
+        self.workers = workers
         self.journal = os.path.join(self.root, "journal")
         self.timeline = os.path.join(self.root, "timeline")
         self.batch = batch
@@ -4097,13 +4429,21 @@ class _Fleet:
         ] + (["--ps_addrs", self.ps_addrs()] if shards else []) + common \
             + list(worker)
 
+        waits = _FLEET_WORKER_WAITS % dict(
+            device=DEVICE, limit=float(FLEET_JOB_LIMIT_S),
+            master=self.master_port, shards=self.ps_ports)
+
         def worker_command(worker_id, device):
             flags = ["--worker_id", str(worker_id)] + self.worker_flags
             if deterministic:
                 wrapper = deterministic if isinstance(
                     deterministic, str) else _DETERMINISTIC_WORKER
-                return [sys.executable, "-c", wrapper % (flags,)]
-            return py + ["elasticdl_tpu_torch.worker.main"] + flags
+            else:
+                wrapper = (
+                    "import runpy, sys; sys.argv = ['worker'] + %r; "
+                    "runpy.run_module('elasticdl_tpu_torch.worker.main', "
+                    "run_name='__main__')")
+            return [sys.executable, "-c", waits + wrapper % (flags,)]
 
         env = dict(os.environ)
         env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -4132,33 +4472,38 @@ class _Fleet:
         return PSClient([BoundPS("localhost:%d" % p, deadline_s=60)
                          for p in self.ps_ports])
 
-    def start(self):
-        """Start the master and the shards without waiting for them (the
-        shards need no master: all boot at once). ``run`` then finds them
-        started."""
+    def start(self, workers=True):
+        """Start the master, the shards and (unless ``inline`` will run
+        the worker here) the workers, without waiting for them: all boot
+        at once, each worker waiting for the master and the shards to
+        answer. ``run`` then finds them started."""
         self.manager.start_master()
         self.manager.start_all_ps()
-        self.started = True
+        if workers and self.workers:
+            self.manager.start_workers()
+        self.started = time.time()
 
     def run(self, on_poll=None, inline=None, inspect=None):
         """Start the master, the shards and the workers; ``on_poll(self)``
         every 20 ms until the workers exit (``inline(self)`` runs in this
-        thread instead where given); ``inspect(self)`` with the shards
-        still up. Returns the record's raw parts."""
+        thread instead where given, once the master and the shards
+        answer); ``inspect(self)`` with the shards still up. Returns the
+        record's raw parts: ``job_s`` runs from the workers' start (the
+        fleet's boot included) to their exit."""
         m = self.manager
         out = {}
         try:
-            if not getattr(self, "started", False):
-                self.start()
-            _until(lambda: _master_probe(self.master_port), "the master")
-            for i in range(self.shards):
-                _until(lambda i=i: self.status(i, 2.0), "shard %d" % i)
-            t0 = time.time()
-            out["t0"] = t0
+            if not getattr(self, "started", None):
+                self.start(workers=inline is None)
+            t0 = out["t0"] = self.started
             if inline is not None:
+                _until(lambda: _master_probe(self.master_port),
+                       "the master")
+                for i in range(self.shards):
+                    _until(lambda i=i: self.status(i, 2.0), "shard %d" % i)
+                t0 = out["t0"] = time.time()
                 out["inline"] = inline(self)
             else:
-                m.start_workers()
                 deadline = time.monotonic() + FLEET_JOB_LIMIT_S
                 while m.live_workers():
                     if time.monotonic() > deadline:
@@ -4309,29 +4654,44 @@ def _compare(fleet_state, dense, rows):
     return rel, bitwise
 
 
-def _fleet_f1(torch, tmp, card, wire=None):
-    """Run F1 (or F5's bf16-wire repeat with ``wire``): the sync DeepFM
-    job across two shards, one worker process, ``--grads_to_wait 1``,
-    ``--validation_data --evaluation_steps 8 --checkpoint_steps 8
-    --output``; then ``evaluate`` from the export. Returns (record,
-    problems, the fleet's final state)."""
-    import numpy as np
-
-    from elasticdl_tpu_torch import cli
-
+def _f1_paths(tmp, wire):
+    """F1's (or the bf16 repeat's) name, validation data, export and
+    checkpoint directories."""
     name = "f1" if wire is None else "f5-bf16"
-    data, val = os.path.join(tmp, "ps-data"), os.path.join(tmp, "ps-val")
-    out = os.path.join(tmp, name + "-out")
-    ckpt = os.path.join(tmp, name + "-ckpt")
+    return (name, os.path.join(tmp, "ps-val"),
+            os.path.join(tmp, name + "-out"),
+            os.path.join(tmp, name + "-ckpt"))
+
+
+def _f1_fleet(tmp, wire=None):
+    """F1's fleet (F5's bf16-wire repeat's with ``wire``)."""
+    name, val, out, ckpt = _f1_paths(tmp, wire)
     wire_flags = ["--wire_dtype", wire] if wire else []
-    fleet = _Fleet(
-        tmp, name, PS_DEEPFM, data, PS_BATCH, val=val,
+    return _Fleet(
+        tmp, name, PS_DEEPFM, os.path.join(tmp, "ps-data"), PS_BATCH,
+        val=val,
         job=["--grads_to_wait", "1", "--evaluation_steps",
              str(PS_EVAL_STEPS), "--checkpoint_steps", str(PS_EVAL_STEPS),
              "--checkpoint_dir", ckpt, "--output", out] + wire_flags,
         ps=["--grads_to_wait", "1"] + wire_flags, worker=wire_flags,
         deterministic=True,
     )
+
+
+def _fleet_f1(torch, tmp, card, wire=None, fleet=None):
+    """Run F1 (or F5's bf16-wire repeat with ``wire``): the sync DeepFM
+    job across two shards, one worker process, ``--grads_to_wait 1``,
+    ``--validation_data --evaluation_steps 8 --checkpoint_steps 8
+    --output``; then ``evaluate`` from the export. ``fleet``: the run's
+    fleet, started already. Returns (record, problems, the fleet's final
+    state)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch import cli
+
+    name, val, out, ckpt = _f1_paths(tmp, wire)
+    if fleet is None:
+        fleet = _f1_fleet(tmp, wire)
     seen = np.unique(_frappe_ids(PS_RECORDS, SEED + 40)[0])
     ids = {"embedding": seen, "id_bias": seen}
     raw = fleet.run(inspect=lambda f: _fleet_state(f, ids))
@@ -4793,8 +5153,19 @@ def phase_ps_fleet(torch, tmp, card):
         f1_state.update(state)
         return rec, bad
 
+    bf16_fleet = []
+
+    def exports():
+        # the bf16 repeat's fleet boots, and runs, beside F5's exports
+        # (in this process): its state is held against F1's, and no rate
+        # of it is kept
+        bf16_fleet.append(_f1_fleet(tmp, "bfloat16"))
+        bf16_fleet[0].start()
+        return _fleet_exports(torch, tmp, card)
+
     def bf16():
-        rec, bad, state = _fleet_f1(torch, tmp, card, wire="bfloat16")
+        rec, bad, state = _fleet_f1(torch, tmp, card, wire="bfloat16",
+                                    fleet=bf16_fleet[0])
         rel, _ = _compare(state, f1_state["dense"], f1_state["rows"])
         rec["against_f1"] = {"rel_l2_max": max(rel.values()),
                              "tolerance": FLEET_BF16_TOL}
@@ -4811,7 +5182,7 @@ def phase_ps_fleet(torch, tmp, card):
         lambda: _fleet_kill(torch, tmp, card, durable=False),
         lambda: _fleet_mnist(torch, tmp, card),
         lambda: _fleet_master_kill(torch, tmp, card),
-        lambda: _fleet_exports(torch, tmp, card),
+        exports,
         bf16,
     ):
         rec, bad = run()
@@ -7130,6 +7501,7 @@ def phase_elastic(torch, tmp, job_rec, card):
         job_s = time.perf_counter() - t0
         manager = job.master.instance_manager
         events = _timeline_events(root + "-timeline")
+        _note_worker_exports(events)
         bad = []
         if rc != 0:
             bad.append("exit code %s" % rc)
@@ -7496,6 +7868,7 @@ def _master_kill_run(torch, tmp, data_dir, epochs, card, run_b):
         manager.stop_relaunch_and_remove_all_pods(grace_s=10)
     job_s = time.perf_counter() - t0
     events = _timeline_events(timeline)
+    _note_worker_exports(events)
     state = MasterJournal(journal_dir).replay()
     tasks = ELASTIC_RECORDS // JOB_BATCH
     if live_at_kill != [0, 1] or live_after != [0, 1]:
@@ -7755,43 +8128,51 @@ def main(argv=None):
         return _wire_only(torch, order)
 
     try:
-        card = phase_device(torch)
+        card = _run_phase("device", phase_device, torch)
         segments_before = shm_segments()
-        phase_shm_room()
-        phase_build()
-        records = phase_kernels(torch)
-        records += phase_bwd_kernels(torch)
-        phase_bwd_memory(torch)
+        _time_member_exports()
+        _run_phase("shm_room", phase_shm_room)
+        _run_phase("build", phase_build)
+        records = _run_phase("kernels", phase_kernels, torch)
+        records += _run_phase("bwd_kernels", phase_bwd_kernels, torch)
+        _run_phase("bwd_memory", phase_bwd_memory, torch)
         with tempfile.TemporaryDirectory() as tmp:
-            served = phase_slice(torch, tmp)
-        trained = phase_train(torch)
-        fused = phase_fused_step(torch, card)
+            served = _run_phase("slice", phase_slice, torch, tmp)
+        trained = _run_phase("train", phase_train, torch)
+        fused = _run_phase("fused", phase_fused_step, torch, card)
         with tempfile.TemporaryDirectory() as tmp:
-            job, job_rec = phase_job(torch, tmp, fused, card)
+            job, job_rec = _run_phase("job", phase_job, torch, tmp, fused,
+                                      card)
             _check_counts(job, {k: 0 for k in KERNELS}, "the ResNet-50 job")
-            evaluated = phase_eval(torch, tmp, job_rec, card)
+            evaluated = _run_phase("eval", phase_eval, torch, tmp, job_rec,
+                                   card)
             _check_counts(evaluated, {k: 0 for k in KERNELS},
                           "the eval phase")
-            zoo = phase_zoo(torch, tmp, card)
+            zoo = _run_phase("zoo", phase_zoo, torch, tmp, card)
             _check_counts(zoo, {k: 0 for k in KERNELS}, "the zoo phase")
-            ps = phase_ps(torch, tmp, card)
+            ps = _run_phase("ps", phase_ps, torch, tmp, card)
             _check_counts(ps, {k: 0 for k in KERNELS}, "the ps phase")
-            ps_fleet = phase_ps_fleet(torch, tmp, card)
+            ps_fleet = _run_phase("ps_fleet", phase_ps_fleet, torch, tmp,
+                                  card)
             _check_counts(ps_fleet, {k: 0 for k in KERNELS},
                           "the ps_fleet phase")
-            ps_tiers = phase_ps_tiers(torch, tmp, card)
+            ps_tiers = _run_phase("ps_tiers", phase_ps_tiers, torch, tmp,
+                                  card)
             _check_counts(ps_tiers, {k: 0 for k in KERNELS},
                           "the ps_tiers phase")
-            ps_hybrid = phase_ps_hybrid(torch, tmp, card)
+            ps_hybrid = _run_phase("ps_hybrid", phase_ps_hybrid, torch, tmp,
+                                   card)
             _check_counts(ps_hybrid, {k: 0 for k in KERNELS},
                           "the ps_hybrid phase")
-            ps_serve = phase_ps_serve(torch, tmp, card)
+            ps_serve = _run_phase("ps_serve", phase_ps_serve, torch, tmp,
+                                  card)
             _check_counts(ps_serve, {k: 0 for k in KERNELS},
                           "the ps_serve phase")
-            wire = phase_wire(torch, tmp, card)
+            wire = _run_phase("wire", phase_wire, torch, tmp, card)
             _check_counts(wire, {k: 0 for k in KERNELS}, "the wire phase")
             _reset_counters()
-            elastic, _ = phase_elastic(torch, tmp, job_rec, card)
+            elastic, _ = _run_phase("elastic", phase_elastic, torch, tmp,
+                                    job_rec, card)
             # launched in the workers (which report theirs, by run) or
             # here (counted with Run A's and B's path)
             here = _counts()
@@ -7815,8 +8196,10 @@ def main(argv=None):
         import traceback
 
         traceback.print_exc()
+        emit(timing_record())
         print("chip_smoke: FAILED: %s" % err, file=sys.stderr)
         return 1
+    emit(timing_record())
     emit(line)
     print(card)
     # the result line, keys in the contract's order

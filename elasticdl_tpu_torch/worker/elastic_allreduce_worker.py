@@ -90,8 +90,10 @@ after the broadcast), each ``step`` (its ``host_step``, and in
 ``split`` the trainer's compute, all-reduce and rest seconds of the step
 before it), each ``checkpoint`` (the snapshot's stall on the step path and
 the digest of the state saved), ``checkpoint_writes`` (the background
-writes' seconds), ``world_broken`` and ``final`` (the final state's
-digest and the process's flash-attention launches). The digests are
+writes' seconds), ``world_broken``, ``export`` (the SAVE_MODEL export's
+seconds, and whether it wrote the serving member) and ``final`` (the
+final state's digest, the process's flash-attention launches and the
+tasks its fetcher fetched ahead). The digests are
 ``parallel/elastic.state_digest``. A promoted standby's timeline also
 has a ``standby`` event, and a training job's, one ``eval`` event per
 scored task.
@@ -1220,10 +1222,15 @@ class ElasticAllReduceWorker:
             self._minibatch_size,
             Mode.PREDICTION,
         )
-        export_train_state(
+        t0 = time.perf_counter()
+        manifest = export_train_state(
             saved_model_path, host_ts, model=self._model,
             metadata=self._export_meta, example_features=example,
             serving_ts=self.trainer.train_state,
+        )
+        self._timeline(
+            "export", seconds=time.perf_counter() - t0,
+            serving_member=bool(manifest["artifacts"]["torch_serving_fn"]),
         )
         logger.info("Exported model to %s", saved_model_path)
         self.report_task_result(task.task_id, err_msg="")

@@ -33,8 +33,9 @@ fleet through a ``PSClient`` over one ``BoundPS`` per shard
 ``--ps_push_inflight``, ``--wire_dtype``). No world forms, so a
 relaunched worker just asks for tasks. ``--standby`` has no effect there
 and is logged, as the reference ignores it; ``--grad_accum_steps`` and
-``--remat``, which the PS worker does not honor, draw a warning. ``--export_dir`` with
-``--export_every_versions`` writes streaming exports.
+``--remat``, which the PS worker does not honor, draw a warning.
+``--export_dir`` with ``--export_every_versions`` writes streaming
+exports.
 
 ``--ps_shm`` (``auto`` by default) negotiates a shared-memory ring with
 each co-located shard (``--ps_shm_slots`` x ``--ps_shm_slot_mb``), and

@@ -106,10 +106,9 @@ class _TaskFetcher:
                 if not self._offer((task, records)):
                     self._hand_back(task)
                     return
-                if task.shard_name:
-                    service.fetched_ahead += 1
                 if not task.shard_name:
                     return  # WAIT or exhausted ends the round's fetching
+                service.fetched_ahead += 1
         except BaseException as e:  # propagate into the consumer
             self._offer(e)
 
