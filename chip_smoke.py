@@ -33,8 +33,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    launches are counted over the served requests alone (12 forward, 0
    backward per forward). The same requests go through a second scorer
    over a params-only artifact of the same weights (the module rebuilt
-   from the manifest): p50 / p99 both ways, and each member reply held
-   against the rebuilt one's. Replies are also checked against solo
+   from the manifest), the two in turns (member, rebuilt, rebuilt,
+   member): p50 / p99 both ways, and each member reply held against the
+   rebuilt one's. Replies are also checked against solo
    scoring and against the rebuilt model with attention swapped for the
    plain version. A small member (the LM at two layers) written on the
    CPU is served on the card, where it launches the kernel, and held
@@ -1281,15 +1282,11 @@ def _counts():
     }
 
 
-def _serve(torch, export_root, requests):
-    """Serve ``requests`` through the scorer's entry points over the
-    artifact under ``export_root``: a warm-up of MAX_BATCH requests, then
-    all of them at once with the flash launches counted over them alone.
-    Returns what the checks read."""
-    import numpy as np
-
+def _stack(torch, export_root, requests):
+    """The scorer's entry points over the artifact under ``export_root``
+    (build_scorer -> ScorerServicer -> MicroBatcher), its v1 installed
+    and warmed by MAX_BATCH requests; stop its ``batcher`` when done."""
     from elasticdl_tpu_torch.common.args import parse_scorer_args
-    from elasticdl_tpu_torch.ops import flash_attention as fa
     from elasticdl_tpu_torch.serving.main import build_scorer
     from elasticdl_tpu_torch.serving.server import ScorerServicer
 
@@ -1306,36 +1303,70 @@ def _serve(torch, export_root, requests):
     if watcher.poll_once() != 1:
         raise PhaseError("the watcher did not install the v1 artifact "
                          "under %s" % export_root)
-    out = {"scorer": scorer, "load_s": time.perf_counter() - t0}
-    servicer = ScorerServicer(scorer, batcher=batcher)
+    stack = {"scorer": scorer, "batcher": batcher,
+             "load_s": time.perf_counter() - t0,
+             "servicer": ScorerServicer(scorer, batcher=batcher)}
     batcher.start()
-    try:
-        # warm-up (not counted): allocator, cuBLAS handles, a first batch
-        _, _, out["warmup_s"] = _fire(servicer, requests[:MAX_BATCH])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ok = _counter("edl_scorer_requests_total")
-        forwards0 = ok.value(outcome="ok")
-        forward_s0 = _forward_seconds()
-        _reset_counters()
-        replies, latency, out["wall_s"] = _fire(servicer, requests)
-        out["launches"] = fa.launches.count
-        out["bwd_launches"] = (fa.bwd_dq_launches.count
-                               + fa.bwd_dkv_launches.count)
-        out["counts"] = _counts()
-        out["forwards"] = int(ok.value(outcome="ok") - forwards0)
-        out["forward_s"] = _forward_seconds() - forward_s0
-        out["peak"] = torch.cuda.max_memory_allocated()
-    finally:
-        batcher.stop(drain=True)
-        batcher.close()
+    # warm-up (not counted): allocator, cuBLAS handles, a first batch
+    _, _, stack["warmup_s"] = _fire(stack["servicer"], requests[:MAX_BATCH])
+    return stack
+
+
+def _serve_round(torch, stack, requests):
+    """All of ``requests`` at once through ``stack``, the flash launches
+    counted over them alone; returns what the checks read."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ok = _counter("edl_scorer_requests_total")
+    forwards0 = ok.value(outcome="ok")
+    forward_s0 = _forward_seconds()
+    _reset_counters()
+    replies, latency, wall = _fire(stack["servicer"], requests)
+    out = {
+        "wall_s": wall,
+        "launches": fa.launches.count,
+        "bwd_launches": fa.bwd_dq_launches.count + fa.bwd_dkv_launches.count,
+        "counts": _counts(),
+        "forwards": int(ok.value(outcome="ok") - forwards0),
+        "forward_s": _forward_seconds() - forward_s0,
+        "peak": torch.cuda.max_memory_allocated(),
+    }
     for i, reply in enumerate(replies):
         _check_reply(torch, reply, i)
     out["replies"] = [r["output"] for r in replies]
-    lat_ms = np.asarray(latency) * 1e3
-    out["p50_ms"] = float(np.percentile(lat_ms, 50))
-    out["p99_ms"] = float(np.percentile(lat_ms, 99))
+    out["latency_ms"] = [x * 1e3 for x in latency]
+    lat = np.asarray(out["latency_ms"])
+    out["p50_ms"] = float(np.percentile(lat, 50))
+    out["p99_ms"] = float(np.percentile(lat, 99))
     return out
+
+
+def _arm_record(rounds, stack):
+    """One way of serving, over its rounds."""
+    import numpy as np
+
+    lat = np.concatenate([r["latency_ms"] for r in rounds])
+    forwards = sum(r["forwards"] for r in rounds)
+    wall = sum(r["wall_s"] for r in rounds)
+    return {
+        "load_s": stack["load_s"],
+        "warmup_s": stack["warmup_s"],
+        "rounds": len(rounds),
+        "round_p50_p99_ms": [[r["p50_ms"], r["p99_ms"]] for r in rounds],
+        "latency_p50_ms": float(np.percentile(lat, 50)),
+        "latency_p99_ms": float(np.percentile(lat, 99)),
+        "forwards": forwards,
+        "forward_ms_mean": sum(r["forward_s"] for r in rounds)
+        / max(forwards, 1) * 1e3,
+        "flash_launches": [r["launches"] for r in rounds],
+        "wall_s": wall,
+        "tokens_per_s": len(rounds) * N_REQUESTS * SEQ_LEN / wall,
+        "max_memory_allocated": max(int(r["peak"]) for r in rounds),
+    }
 
 
 def _flash_nodes(module):
@@ -1387,7 +1418,8 @@ def phase_slice(torch, tmp):
     """Serve the 110M LM through the scorer's entry points, from the
     artifact's serving member (the main path) and, for the same
     requests, from the module the scorer rebuilds from a params-only
-    artifact; returns {kernel: (launches over the member's served
+    artifact, in turns (member, rebuilt, rebuilt, member); returns
+    {kernel: (launches over the member's first round of served
     requests, their launch shapes)}."""
     import numpy as np
 
@@ -1402,41 +1434,51 @@ def phase_slice(torch, tmp):
                      dtype=np.int32)
         for _ in range(N_REQUESTS)
     ]
-    member = _serve(torch, export_root, requests)
-    scorer = member["scorer"]
+    stacks = {}
+    rounds = {"member": [], "rebuilt": []}
+    try:
+        stacks["member"] = _stack(torch, export_root, requests)
+        stacks["rebuilt"] = _stack(torch, rebuild_root, requests)
+        for arm in ("member", "rebuilt", "rebuilt", "member"):
+            rounds[arm].append(_serve_round(torch, stacks[arm], requests))
+    finally:
+        for stack in stacks.values():
+            stack["batcher"].stop(drain=True)
+            stack["batcher"].close()
+    scorer = stacks["member"]["scorer"]
     served = scorer.model()
+    rebuilt_model = stacks["rebuilt"]["scorer"].model()
     layers = SLICE_CFG["num_layers"]
-    forwards, launches = member["forwards"], member["launches"]
     if not served.serves_member or _flash_nodes(served.module) != layers:
         raise PhaseError(
             "the scorer did not serve through the member's graph with %d "
             "flash_fwd op nodes (serves_member %s)"
             % (layers, served.serves_member))
-    if (forwards < 1 or launches != layers * forwards
-            or member["bwd_launches"]):
-        raise PhaseError(
-            "flash_fwd launched %d times over %d forwards (expected %d "
-            "per forward), the backward kernels %d times (expected 0)"
-            % (launches, forwards, layers, member["bwd_launches"])
-        )
-    counts = member.pop("counts")
-    rebuilt = _serve(torch, rebuild_root, requests)
-    rebuilt_model = rebuilt["scorer"].model()
     if rebuilt_model.serves_member:
         raise PhaseError("the params-only artifact served a member")
+    for r in rounds["member"]:
+        if (r["forwards"] < 1 or r["launches"] != layers * r["forwards"]
+                or r["bwd_launches"]):
+            raise PhaseError(
+                "flash_fwd launched %d times over %d forwards (expected "
+                "%d per forward), the backward kernels %d times (expected "
+                "0)" % (r["launches"], r["forwards"], layers,
+                        r["bwd_launches"]))
+    main = rounds["member"][0]
 
     # checks (not counted): each reply against the rebuilt module's reply
     # to the same request, against its request scored solo, and against
     # the rebuilt model with attention swapped for the plain version
     rebuilt_err = max(
         float((a.float() - b.float()).abs().max())
-        for a, b in zip(member["replies"], rebuilt["replies"]))
+        for m, r in zip(rounds["member"], rounds["rebuilt"])
+        for a, b in zip(m["replies"], r["replies"]))
     solo_err = 0.0
     for i, req in enumerate(requests):
         solo, _ = scorer.score({"tokens": req})
         solo_err = max(
             solo_err,
-            float((solo.float().cpu() - member["replies"][i].float())
+            float((solo.float().cpu() - main["replies"][i].float())
                   .abs().max()),
         )
 
@@ -1449,45 +1491,31 @@ def phase_slice(torch, tmp):
         for s in range(0, N_REQUESTS, MAX_BATCH):
             chunk = np.concatenate(requests[s : s + MAX_BATCH])
             ref = module({"tokens": chunk}, attention_fn=plain_attention)
-            got = torch.cat(member["replies"][s : s + MAX_BATCH])
+            got = torch.cat(main["replies"][s : s + MAX_BATCH])
             plain_err = max(
                 plain_err,
                 float((ref.float().cpu() - got.float()).abs().max()),
             )
     across = _member_across_devices(torch, tmp, requests)
+    member = _arm_record(rounds["member"], stacks["member"])
     rec = {
         "phase": "slice",
         "model": dict(SLICE_CFG, params="float32"),
         "export_s": export_s,
         "served_through": "serving member (torch.export)",
         "member_flash_nodes": _flash_nodes(served.module),
-        "load_s": member["load_s"],
-        "warmup_s": member["warmup_s"],
         "requests": N_REQUESTS,
         "seq_len": SEQ_LEN,
-        "forwards": forwards,
-        "rows_per_forward": N_REQUESTS / forwards,
-        "forward_ms_mean": member["forward_s"] / forwards * 1e3,
-        "flash_launches": launches,
-        "flash_launches_per_forward": launches / forwards,
-        "flash_bwd_launches": member["bwd_launches"],
-        "latency_p50_ms": member["p50_ms"],
-        "latency_p99_ms": member["p99_ms"],
-        "wall_s": member["wall_s"],
-        "tokens_per_s": N_REQUESTS * SEQ_LEN / member["wall_s"],
-        "max_memory_allocated": int(member["peak"]),
-        "rebuilt": {
-            "load_s": rebuilt["load_s"],
-            "forwards": rebuilt["forwards"],
-            "forward_ms_mean": rebuilt["forward_s"] / max(
-                rebuilt["forwards"], 1) * 1e3,
-            "flash_launches": rebuilt["launches"],
-            "latency_p50_ms": rebuilt["p50_ms"],
-            "latency_p99_ms": rebuilt["p99_ms"],
-            "wall_s": rebuilt["wall_s"],
-            "tokens_per_s": N_REQUESTS * SEQ_LEN / rebuilt["wall_s"],
-            "max_memory_allocated": int(rebuilt["peak"]),
-        },
+        "order": ["member", "rebuilt", "rebuilt", "member"],
+        "forwards": main["forwards"],
+        "rows_per_forward": N_REQUESTS / main["forwards"],
+        "flash_launches": main["launches"],
+        "flash_launches_per_forward": main["launches"] / main["forwards"],
+        "flash_bwd_launches": main["bwd_launches"],
+        "member": member,
+        "rebuilt": _arm_record(rounds["rebuilt"], stacks["rebuilt"]),
+        "latency_p50_ms": member["latency_p50_ms"],
+        "latency_p99_ms": member["latency_p99_ms"],
         "member_vs_rebuilt_max_abs_err": rebuilt_err,
         "solo_max_abs_err": solo_err,
         "plain_attention_max_abs_err": plain_err,
@@ -1505,7 +1533,7 @@ def phase_slice(torch, tmp):
     chunk = np.concatenate(requests[:MAX_BATCH])
     _profile_forward(torch, lambda: served.predict({"tokens": chunk}),
                      rows=MAX_BATCH)
-    return counts
+    return main["counts"]
 
 
 def _n_params(named):
