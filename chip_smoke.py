@@ -28,8 +28,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
    exported with its serving member (``torch.export`` of the module on
    the card, the flash forward a registered op in its graph), then
    served through the scorer's entry points (build_scorer ->
-   ScorerServicer -> MicroBatcher -> Scorer -> the member) on concurrent
-   1024-token requests. The graph holds 12 flash op nodes; kernel
+   ScorerServicer's instrumented handlers -> MicroBatcher -> Scorer ->
+   the member) on concurrent 1024-token requests, behind a
+   ``ScorerServer`` whose telemetry endpoint (``--scorer_telemetry_port
+   0``) is scraped mid-round: ``/metrics`` shows the server's service
+   histogram (``role="scorer"``, one count per request), the scorer's
+   and the batcher's families, ``/healthz`` reads ``serving``; the same
+   round with the telemetry plane off (``EDL_METRICS=0``'s switch)
+   replies bitwise alike with the same launches. The graph holds 12
+   flash op nodes; kernel
    launches are counted over the served requests alone (12 forward, 0
    backward per forward). The same requests go through a second scorer
    over a params-only artifact of the same weights (the module rebuilt
@@ -76,8 +83,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
    own predictions, half of them off by one, from the checkpoint (0.5
    within 2/256) and from the export (the direct fresh-statistics
    forward's accuracy); ``predict`` with a capturing processor (every
-   record once, within 1e-2 relative L2 of the direct forward). No flash
-   kernel launches (``launches_by_path.eval`` = 0).
+   record once, within 1e-2 relative L2 of the direct forward). The
+   training job runs with ``--tensorboard_log_dir``: the rounds' metrics
+   read back from the evaluation service's event file at their versions,
+   and the registry's scalars from the exporter's ``*.telemetry`` file
+   (``common/tb_events.read_events``). No flash kernel launches
+   (``launches_by_path.eval`` = 0).
 8. zoo     — the zoo models that need no PS fleet, each at its zoo width
    through the port's command line: mnist_functional_api,
    cifar10_subclass and cifar10_functional_api (b64, 1,024 training and
@@ -150,11 +161,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
    in this call, the worker's step split (``pull_dense``, the rows'
    fan-out, compute with CUDA events, ``push_gradient``, the parse),
    each shard's dense and sparse apply, rows, bytes and peak, the
-   worker's peak. F2: two async workers (``--get_model_steps 2``), shard
+   worker's peak. F1 runs the telemetry plane (``--telemetry_port
+   --telemetry_events_path``, each shard's ``--ps_telemetry_port``, the
+   worker's ``--telemetry_report_secs 1`` with its task acks inline):
+   mid-job the master's ``/metrics`` carries the worker's examples/s and
+   the task-queue depth, each shard's its applies, its ``/trace`` the
+   ``ps/apply`` spans; the master's ``/trace`` holds its report spans
+   joined to the worker's ``task/ack`` spans (``_sctx``), and through the
+   port's tracetool attributes at least 90 % of traced step time to
+   named phases; the event file parses line by line. The telemetry
+   plane's overhead, measured first in the phase: the reference's A/B
+   harness (its telemetry and trace benches' first arm, at four times
+   its tasks, run serially), six arms with the plane engaged and six off,
+   each a process of its own, all at once: the median extra process CPU
+   over the off arms' median wall, below 2 %, printed beside F1's
+   examples/s. F2: two async workers (``--get_model_steps 2``), shard
    snapshots every 8 versions, shard 1 SIGKILLed at version 8: the
    relaunch restores ``snap_v8`` or newer under a new ``shard_epoch``,
    every task done once an epoch (the journal), finite losses; kill ->
-   serving -> the first push it accepts. F3: F2 without snapshots: the
+   serving -> the first push it accepts; with every flight recorder
+   armed (the master's beside its journal, the shards' beside their
+   snapshots, the workers' by ``EDL_FLIGHT_RECORDER_DIR``), every
+   postmortem parses line by line and one that ``ps_shard_failure``
+   triggered holds recent spans. F3: F2 without snapshots: the
    shard comes back empty and the workers re-push the model. F4: the
    MNIST CNN across two shards against the held MNIST job (no dataset
    shuffle, deterministic cuDNN in both; 1e-6). F5: the held model's
@@ -1176,8 +1205,9 @@ def _forward_seconds():
     return got[1] if got else 0.0
 
 
-def _fire(servicer, requests):
-    """Every request at once, one thread each -> (replies, latencies in
+def _fire(score, requests):
+    """Every request at once, one thread each, through ``score`` (the
+    servicer's instrumented ``score`` handler) -> (replies, latencies in
     s, wall s from the first issue to the last reply)."""
     replies = [None] * len(requests)
     latency = [None] * len(requests)
@@ -1186,7 +1216,7 @@ def _fire(servicer, requests):
     def one(i):
         gate.wait()
         t0 = time.perf_counter()
-        replies[i] = servicer.score({"tokens": requests[i]})
+        replies[i] = score({"tokens": requests[i]})
         latency[i] = time.perf_counter() - t0
 
     threads = [
@@ -1282,13 +1312,16 @@ def _counts():
     }
 
 
-def _stack(torch, export_root, requests):
+def _stack(torch, export_root, requests, telemetry=False):
     """The scorer's entry points over the artifact under ``export_root``
-    (build_scorer -> ScorerServicer -> MicroBatcher), its v1 installed
-    and warmed by MAX_BATCH requests; stop its ``batcher`` when done."""
+    (build_scorer -> ScorerServicer's instrumented handlers ->
+    MicroBatcher), its v1 installed and warmed by MAX_BATCH requests;
+    with ``telemetry`` behind a ``ScorerServer`` whose telemetry
+    endpoint (``--scorer_telemetry_port 0``) serves this process's
+    registry. Stop it with ``_stop_stack``."""
     from elasticdl_tpu_torch.common.args import parse_scorer_args
     from elasticdl_tpu_torch.serving.main import build_scorer
-    from elasticdl_tpu_torch.serving.server import ScorerServicer
+    from elasticdl_tpu_torch.serving.server import ScorerServer, ScorerServicer
 
     args = parse_scorer_args(
         [
@@ -1296,23 +1329,77 @@ def _stack(torch, export_root, requests):
             "--device", DEVICE,
             "--serve_max_batch", str(MAX_BATCH),
             "--serve_batch_timeout_ms", "50",
-        ]
+        ] + (["--scorer_telemetry_port", "0"] if telemetry else [])
     )
     scorer, watcher, _, _, batcher = build_scorer(args)
     t0 = time.perf_counter()
     if watcher.poll_once() != 1:
         raise PhaseError("the watcher did not install the v1 artifact "
                          "under %s" % export_root)
-    stack = {"scorer": scorer, "batcher": batcher,
-             "load_s": time.perf_counter() - t0,
-             "servicer": ScorerServicer(scorer, batcher=batcher)}
-    batcher.start()
+    stack = {"scorer": scorer, "batcher": batcher, "server": None,
+             "load_s": time.perf_counter() - t0}
+    if telemetry:
+        # the socket transport carries no request here: the rounds call
+        # the server's handlers in this process, as the reference's
+        # in-process path does, through the same instrumented dict
+        server = ScorerServer(
+            scorer, port=0, batcher=batcher, transport="socket",
+            telemetry_port=args.scorer_telemetry_port)
+        stack["server"] = server
+        stack["url"] = "http://127.0.0.1:%d" % server.telemetry_port
+        servicer = server.servicer
+    else:
+        servicer = ScorerServicer(scorer, batcher=batcher)
+        batcher.start()
+    stack["score"] = servicer.rpc_methods()["score"]
     # warm-up (not counted): allocator, cuBLAS handles, a first batch
-    _, _, stack["warmup_s"] = _fire(stack["servicer"], requests[:MAX_BATCH])
+    _, _, stack["warmup_s"] = _fire(stack["score"], requests[:MAX_BATCH])
     return stack
 
 
-def _serve_round(torch, stack, requests):
+def _stop_stack(stack):
+    if stack["server"] is not None:
+        stack["server"].stop()  # drains and closes the batcher first
+    else:
+        stack["batcher"].stop(drain=True)
+        stack["batcher"].close()
+
+
+def _get(url, timeout=30):
+    """(status, body text) of one GET; an HTTP error's status too."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read().decode()
+
+
+def _prom_value(text, sample):
+    """The value of the exposition line that starts with ``sample``
+    (its name and labels), or None."""
+    for line in text.splitlines():
+        if line.startswith(sample + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+SCORE_COUNT = ('edl_rpc_server_latency_seconds_count{role="scorer",'
+               'method="score"}')
+SCORER_FAMILIES = (  # what a mid-round scrape of the scorer must show
+    'edl_rpc_server_latency_seconds_bucket{role="scorer",method="score"',
+    'edl_scorer_requests_total{outcome="ok"}',
+    "edl_scorer_request_latency_seconds_bucket",
+    "edl_scorer_batch_size_bucket",
+    "edl_scorer_batches_total",
+    "edl_scorer_queue_depth",
+    "edl_scorer_queue_rows",
+)
+
+
+def _serve_round(torch, stack, requests, scrape_endpoint=True):
     """All of ``requests`` at once through ``stack``, the flash launches
     counted over them alone; returns what the checks read."""
     import numpy as np
@@ -1324,9 +1411,30 @@ def _serve_round(torch, stack, requests):
     ok = _counter("edl_scorer_requests_total")
     forwards0 = ok.value(outcome="ok")
     forward_s0 = _forward_seconds()
+    count0 = _score_count()
     _reset_counters()
-    replies, latency, wall = _fire(stack["servicer"], requests)
+    scrape = {}
+    scraper = None
+    if stack.get("url") and scrape_endpoint:
+        # mid-round: once the first request has answered, while the
+        # rest of the round is still queued or running
+        def mid_round():
+            deadline = time.monotonic() + 120
+            while (_score_count() == count0
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
+            scrape["after_requests"] = _score_count() - count0
+            scrape["metrics"] = _get(stack["url"] + "/metrics")
+            scrape["healthz"] = _get(stack["url"] + "/healthz")
+
+        scraper = threading.Thread(target=mid_round, daemon=True)
+        scraper.start()
+    replies, latency, wall = _fire(stack["score"], requests)
+    if scraper is not None:
+        scraper.join(timeout=120)
+        scrape["final"] = _get(stack["url"] + "/metrics")
     out = {
+        "score_counts": [count0, _score_count()],
         "wall_s": wall,
         "launches": fa.launches.count,
         "bwd_launches": fa.bwd_dq_launches.count + fa.bwd_dkv_launches.count,
@@ -1342,7 +1450,57 @@ def _serve_round(torch, stack, requests):
     lat = np.asarray(out["latency_ms"])
     out["p50_ms"] = float(np.percentile(lat, 50))
     out["p99_ms"] = float(np.percentile(lat, 99))
+    out["scrape"] = scrape
     return out
+
+
+def _score_count():
+    """Requests the scorer's instrumented ``score`` has answered in
+    this process."""
+    from elasticdl_tpu_torch.utils import profiling
+
+    got = profiling.metrics.histogram(
+        "edl_rpc_server_latency_seconds", labels=("role", "method")
+    ).data(role="scorer", method="score")
+    return got[2] if got else 0
+
+
+def _scorer_telemetry(stack, rounds, requests):
+    """The scorer's endpoint over the member's rounds, each scraped
+    mid-round (once its first forward answered) and after it: the
+    mid-round scrape shows every family and ``serving``, a ``score``
+    count inside the round, and the scrape after it one count per
+    request of the round; the events and the trace answer."""
+    rec = {"rounds": []}
+    bad = []
+    for r in rounds:
+        scrape = r["scrape"]
+        status, text = scrape.get("metrics", (None, ""))
+        health = scrape.get("healthz", (None, ""))
+        c0, c1 = r["score_counts"]
+        one = {
+            "mid_round_after_requests": scrape.get("after_requests"),
+            "mid_round_status": status,
+            "missing": [f for f in SCORER_FAMILIES if f not in text],
+            "mid_round_score_count": _prom_value(text, SCORE_COUNT),
+            "healthz": [health[0], health[1].strip()],
+            "score_count_before_after": [c0, c1],
+            "scraped_after": _prom_value(
+                scrape.get("final", (None, ""))[1], SCORE_COUNT),
+        }
+        rec["rounds"].append(one)
+        mid = one["mid_round_score_count"]
+        if (status != 200 or one["missing"]
+                or one["healthz"] != [200, "serving"]
+                or c1 - c0 != len(requests) or one["scraped_after"] != c1
+                or mid is None or not c0 < mid <= c1):
+            bad.append(one)
+    rec["families"] = list(SCORER_FAMILIES)
+    rec["events_status"] = _get(stack["url"] + "/events")[0]
+    rec["trace_status"] = _get(stack["url"] + "/trace")[0]
+    if bad or rec["events_status"] != 200 or rec["trace_status"] != 200:
+        raise PhaseError("the scorer's telemetry endpoint: %s" % rec)
+    return rec
 
 
 def _arm_record(rounds, stack):
@@ -1434,17 +1592,51 @@ def phase_slice(torch, tmp):
                      dtype=np.int32)
         for _ in range(N_REQUESTS)
     ]
+    from elasticdl_tpu_torch.utils import profiling
+
     stacks = {}
     rounds = {"member": [], "rebuilt": []}
     try:
-        stacks["member"] = _stack(torch, export_root, requests)
+        stacks["member"] = _stack(torch, export_root, requests,
+                                  telemetry=True)
         stacks["rebuilt"] = _stack(torch, rebuild_root, requests)
         for arm in ("member", "rebuilt", "rebuilt", "member"):
             rounds[arm].append(_serve_round(torch, stacks[arm], requests))
+        telemetry = _scorer_telemetry(stacks["member"], rounds["member"],
+                                      requests)
+        # the same round with the plane off (EDL_METRICS=0's switch):
+        # the replies and the launches do not move
+        profiling.set_metrics_enabled(False)
+        try:
+            # nothing is counted with the plane off: no scrape waits
+            off = _serve_round(torch, stacks["member"], requests,
+                               scrape_endpoint=False)
+        finally:
+            profiling.set_metrics_enabled(True)
     finally:
         for stack in stacks.values():
-            stack["batcher"].stop(drain=True)
-            stack["batcher"].close()
+            _stop_stack(stack)
+    main_round = rounds["member"][0]
+    bitwise = all(torch.equal(a, b) for a, b in zip(
+        main_round["replies"], off["replies"]))
+    telemetry["metrics_off"] = {
+        "bitwise": bitwise,
+        # the replies are host copies: a difference is read only when
+        # there is one
+        "max_abs_err": 0.0 if bitwise else max(
+            float((a.float() - b.float()).abs().max())
+            for a, b in zip(main_round["replies"], off["replies"])),
+        "flash_launches": off["launches"],
+        "latency_p50_ms": off["p50_ms"],
+        "score_counts": off["score_counts"],
+    }
+    telemetry["metrics_on_latency_p50_ms"] = [
+        r["p50_ms"] for r in rounds["member"]]
+    if not (telemetry["metrics_off"]["bitwise"]
+            and off["launches"] == main_round["launches"]
+            and off["score_counts"][0] == off["score_counts"][1]):
+        raise PhaseError("the member's round with the telemetry plane off "
+                         "against it on: %s" % telemetry["metrics_off"])
     scorer = stacks["member"]["scorer"]
     served = scorer.model()
     rebuilt_model = stacks["rebuilt"]["scorer"].model()
@@ -1521,6 +1713,7 @@ def phase_slice(torch, tmp):
         "plain_attention_max_abs_err": plain_err,
         "atol": REPLY_ATOL,
         "member_across_devices": across,
+        "telemetry": telemetry,
     }
     emit(rec)
     if not (rebuilt_err <= REPLY_ATOL and solo_err <= REPLY_ATOL
@@ -2578,6 +2771,43 @@ def _scoring_job(torch, argv, what):
     return jobs[0], wall, run.calls[0][1], [s for _, s in tasks.calls]
 
 
+def _tensorboard_files(tb_dir, published):
+    """The job's TensorBoard files read back with the port's reader:
+    the evaluation service's holds one event per published round at its
+    version with the round's metrics (float32), the registry exporter's
+    (``*.telemetry``) the process's scalars under ``telemetry/``."""
+    import glob
+
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.tb_events import read_events
+
+    rec = {"problems": []}
+    files = sorted(glob.glob(os.path.join(tb_dir, "events.out.tfevents.*")))
+    rounds = [f for f in files if not f.endswith(".telemetry")]
+    exported = [f for f in files if f.endswith(".telemetry")]
+    rec["files"] = [os.path.basename(f) for f in files]
+    if len(rounds) != 1 or len(exported) != 1:
+        rec["problems"].append("tensorboard files %s" % rec["files"])
+        return rec
+    events = read_events(rounds[0])[1:]  # after the file_version record
+    rec["rounds"] = [(step, dict(scalars)) for _, step, scalars in events]
+    want = [(r["version"], {k: float(np.float32(v))
+                            for k, v in r["metrics"].items()})
+            for r in published]
+    if rec["rounds"] != want:
+        rec["problems"].append("tensorboard rounds %s, published %s"
+                               % (rec["rounds"], want))
+    telemetry = read_events(exported[0])[1:]
+    tags = {t for _, _, scalars in telemetry for t, _ in scalars}
+    rec["telemetry_events"] = len(telemetry)
+    rec["telemetry_tags"] = len(tags)
+    if not telemetry or not all(t.startswith("telemetry/") for t in tags):
+        rec["problems"].append("the telemetry exporter's file: %d events, "
+                               "tags %s" % (len(telemetry), sorted(tags)))
+    return rec
+
+
 def phase_eval(torch, tmp, job_rec, card):
     """The evaluation plane through the port's command line, on
     ResNet-50 at the job phase's settings. Returns the flash kernels'
@@ -2604,10 +2834,12 @@ def phase_eval(torch, tmp, job_rec, card):
     torch.cuda.synchronize()
     _reset_counters()
 
-    # 1. training with interleaved rounds
+    # 1. training with interleaved rounds, and TensorBoard
     jobs = []
+    tb_dir = os.path.join(tmp, "eval-tb")
     argv = job_argv(data_dir, ckpt_dir, out_dir) + [
         "--validation_data", val_dir, "--evaluation_steps", str(EVAL_STEPS),
+        "--tensorboard_log_dir", tb_dir,
     ]
     t0 = time.perf_counter()
     with _StepClock() as clock, _EvalReports() as reports, _Timed(
@@ -2658,12 +2890,16 @@ def phase_eval(torch, tmp, job_rec, card):
         if rel is None or rel > EVAL_REL_L2:
             problems.append("round v%d outputs %s from its checkpoint's "
                             "direct forward (relative L2)" % (v, rel))
+    tensorboard = _tensorboard_files(tb_dir, published)
+    if tensorboard["problems"]:
+        problems += tensorboard["problems"]
     spans = clock.spans
     timed_s = spans[-1][1] - spans[0][1] if len(spans) > 1 else float("nan")
     eps = (len(spans) - 1) * JOB_BATCH / timed_s
     emit({
         "phase": "eval",
         "of": "train_with_evaluation",
+        "tensorboard": tensorboard,
         "card": card,
         "model": JOB_MODEL_DEF + " (bf16, params float32)",
         "records": JOB_RECORDS,
@@ -4313,6 +4549,10 @@ FLEET_MNIST_RECORDS = (512, 64)  # F4: records, batch
 FLEET_MASTER_KILL_AT_VERSION = 4  # F5: the held model's master SIGKILL
 FLEET_EXPORT = (4, 2)  # F5: --export_every_versions, --export_keep
 FLEET_EXPORT_RECORDS = 1024  # F5: MNIST b64, 16 versions
+F1_REPORT_SECS = 1  # F1's workers: --telemetry_report_secs
+# F1's /trace: the share of traced step time the tracetool must attribute
+# to named phases (the reference's gate, bench.py's bench_trace)
+TRACE_ATTRIBUTION = 0.90
 
 # the worker of a deterministic run: no dataset shuffle and cuDNN's
 # deterministic algorithms, then worker.main as the entry point runs it
@@ -4415,11 +4655,13 @@ class _Fleet:
     process instead. ``deterministic`` starts the workers with no
     dataset shuffle and cuDNN's deterministic algorithms (or through the
     wrapper it names). ``ps_by_shard`` maps a shard to flags of its
-    own."""
+    own. ``worker_postmortem``: each worker's flight recorder is armed
+    at ``<it>/worker-<id>`` (``EDL_FLIGHT_RECORDER_DIR``)."""
 
     def __init__(self, tmp, name, model_def, data, batch, shards=2,
                  workers=1, epochs=1, job=(), ps=(), worker=(),
-                 deterministic=False, val=None, ps_by_shard=None):
+                 deterministic=False, val=None, ps_by_shard=None,
+                 worker_postmortem=None):
         from elasticdl_tpu_torch.master.local_instance_manager import (
             LocalInstanceManager,
         )
@@ -4434,6 +4676,7 @@ class _Fleet:
         self.master_port = _free_port()
         self.ps_ports = [_free_port() for _ in range(shards)]
         self.model_def = model_def
+        self.telemetry = None  # F1's endpoints (_f1_fleet)
         common = ["--model_zoo", "", "--model_def", model_def,
                   "--device", DEVICE, "--log_level", "WARNING"]
         py = [sys.executable, "-m"]
@@ -4463,6 +4706,11 @@ class _Fleet:
 
         def worker_command(worker_id, device):
             flags = ["--worker_id", str(worker_id)] + self.worker_flags
+            # a worker's flight recorder: armed by the environment, a
+            # directory of its own (dumps are numbered per process)
+            arm = ("import os; os.environ['EDL_FLIGHT_RECORDER_DIR'] = %r\n"
+                   % os.path.join(worker_postmortem, "worker-%d" % worker_id)
+                   if worker_postmortem else "")
             if deterministic:
                 wrapper = deterministic if isinstance(
                     deterministic, str) else _DETERMINISTIC_WORKER
@@ -4471,12 +4719,16 @@ class _Fleet:
                     "import runpy, sys; sys.argv = ['worker'] + %r; "
                     "runpy.run_module('elasticdl_tpu_torch.worker.main', "
                     "run_name='__main__')")
-            return [sys.executable, "-c", waits + wrapper % (flags,)]
+            return [sys.executable, "-c", arm + waits + wrapper % (flags,)]
 
         env = dict(os.environ)
         env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        # the master lingers one second past the last task, not three:
+        # its worker processes learn "no more tasks" in milliseconds, and
+        # each fleet run waits the linger out
         env.update(EDL_WORKER_TIMELINE_DIR=self.timeline,
                    EDL_MASTER_POLL_SECS="1",
+                   EDL_MASTER_EXIT_GRACE_S="1",
                    EDL_TASK_SHUFFLE_SEED=str(SEED))
         self.manager = LocalInstanceManager(
             None, workers, worker_command, [DEVICE] * workers,
@@ -4511,11 +4763,14 @@ class _Fleet:
             self.manager.start_workers()
         self.started = time.time()
 
-    def run(self, on_poll=None, inline=None, inspect=None):
+    def run(self, on_poll=None, inline=None, inspect=None,
+            after_workers=None):
         """Start the master, the shards and the workers; ``on_poll(self)``
         every 20 ms until the workers exit (``inline(self)`` runs in this
         thread instead where given, once the master and the shards
-        answer); ``inspect(self)`` with the shards still up. Returns the
+        answer); ``after_workers(self)`` once they exited, while the
+        master lingers; ``inspect(self)`` with the shards still up.
+        Returns the
         record's raw parts: ``job_s`` runs from the workers' start (the
         fleet's boot included) to their exit."""
         m = self.manager
@@ -4541,6 +4796,8 @@ class _Fleet:
                         on_poll(self)
                     time.sleep(0.02)
             out["job_s"] = time.time() - t0
+            if after_workers is not None:
+                after_workers(self)
             deadline = time.monotonic() + 60
             while m.live_master() and time.monotonic() < deadline:
                 time.sleep(0.1)
@@ -4692,18 +4949,161 @@ def _f1_paths(tmp, wire):
 
 
 def _f1_fleet(tmp, wire=None):
-    """F1's fleet (F5's bf16-wire repeat's with ``wire``)."""
+    """F1's fleet (F5's bf16-wire repeat's with ``wire``). F1 runs the
+    telemetry plane: the master's endpoint and event file, each shard's
+    endpoint, the worker's snapshot every second (its task acks inline,
+    so each one carries the snapshot due)."""
     name, val, out, ckpt = _f1_paths(tmp, wire)
     wire_flags = ["--wire_dtype", wire] if wire else []
-    return _Fleet(
+    job, ps_by_shard, worker = [], None, []
+    telemetry = None
+    if wire is None:
+        telemetry = {
+            "master": _free_port(),
+            "shards": [_free_port() for _ in range(FLEET_SHARDS)],
+            "events": os.path.join(tmp, name, "events.jsonl"),
+        }
+        job = ["--telemetry_port", str(telemetry["master"]),
+               "--telemetry_events_path", telemetry["events"]]
+        ps_by_shard = {i: ["--ps_telemetry_port", str(p)]
+                       for i, p in enumerate(telemetry["shards"])}
+        worker = ["--telemetry_report_secs", str(F1_REPORT_SECS),
+                  "--task_ack_queue", "0"]
+    fleet = _Fleet(
         tmp, name, PS_DEEPFM, os.path.join(tmp, "ps-data"), PS_BATCH,
         val=val,
         job=["--grads_to_wait", "1", "--evaluation_steps",
              str(PS_EVAL_STEPS), "--checkpoint_steps", str(PS_EVAL_STEPS),
-             "--checkpoint_dir", ckpt, "--output", out] + wire_flags,
-        ps=["--grads_to_wait", "1"] + wire_flags, worker=wire_flags,
-        deterministic=True,
+             "--checkpoint_dir", ckpt, "--output", out] + wire_flags + job,
+        ps=["--grads_to_wait", "1"] + wire_flags, worker=wire_flags + worker,
+        deterministic=True, ps_by_shard=ps_by_shard,
     )
+    fleet.telemetry = telemetry
+    return fleet
+
+
+class _Scraper:
+    """F1's endpoints read during the job (``poll``, at most every
+    SCRAPE_EVERY_S): the master's ``/metrics`` and ``/trace``, each
+    shard's ``/metrics`` and ``/trace``. Keeps each endpoint's newest
+    answer, and the master's first ``/metrics`` that carries every
+    family the job must show."""
+
+    SCRAPE_EVERY_S = 0.25
+
+    def __init__(self, telemetry, workers):
+        self.t = telemetry
+        self.last = 0.0
+        self.scrapes = 0
+        self.newest = {}
+        self.master_full = None
+        self.required = ["edl_task_queue_depth"] + [
+            'edl_worker_examples_per_sec{worker="%d"}' % w
+            for w in range(workers)]
+
+    def _read(self, key, url):
+        try:
+            status, body = _get(url, timeout=10)
+        except OSError:
+            return None
+        if status == 200:
+            self.newest[key] = body
+            return body
+        return None
+
+    def poll(self, fleet=None, final=False):
+        """One round of reads while the workers run; ``final``: the
+        one after they exit (the master lingers), which sees the
+        workers' last snapshot but counts as no mid-job read."""
+        now = time.monotonic()
+        if not final and now - self.last < self.SCRAPE_EVERY_S:
+            return
+        self.last = now
+        self.scrapes += 1
+        base = "http://127.0.0.1:%d"
+        text = self._read("master", base % self.t["master"] + "/metrics")
+        if text and not final and self.master_full is None and all(
+                r in text for r in self.required):
+            self.master_full = text
+        self._read("master_trace", base % self.t["master"] + "/trace")
+        for i, port in enumerate(self.t["shards"]):
+            self._read("shard%d" % i, base % port + "/metrics")
+            self._read("shard%d_trace" % i, base % port + "/trace")
+
+
+def _f1_telemetry(scraper, shards):
+    """F1's telemetry checks -> (record, problems): mid-job the
+    master's ``/metrics`` carried each worker's examples/s and the queue
+    depth; each shard's carried its applies (``push_gradient``'s service
+    histogram) and its ``/trace`` the ``ps/apply`` spans; the master's
+    ``/trace`` holds its ``rpc/report_task_result`` spans parented on
+    the worker's ``task/ack`` spans (the ``_sctx`` the worker sent); the
+    event file parses line by line; the tracetool attributes at least
+    TRACE_ATTRIBUTION of the traced step time to named phases. (The
+    shard's spans join no worker trace: a fan-out leg runs on the
+    client's pool, whose threads carry no span context, as in the
+    reference.)"""
+    from elasticdl_tpu_torch.tools.tracetool import critical_path
+
+    def spans_of(key):
+        doc = json.loads(scraper.newest.get(key) or '{"traceEvents": []}')
+        return doc, [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+
+    problems = []
+    rec = {"scrapes": scraper.scrapes,
+           "master_mid_job": scraper.master_full is not None}
+    if scraper.master_full is None:
+        problems.append("f1: no mid-job /metrics of the master carried %s"
+                        % scraper.required)
+    else:
+        rec["master_examples_per_s"] = [
+            _prom_value(scraper.master_full, r) for r in scraper.required
+            if r.startswith("edl_worker_examples_per_sec")]
+    applies = 'edl_rpc_server_latency_seconds_count{role="ps",' \
+        'method="push_gradient"}'
+    rec["shard_applies"] = []
+    rec["shard_apply_spans"] = []
+    for i in range(shards):
+        n = _prom_value(scraper.newest.get("shard%d" % i, ""), applies)
+        _, spans = spans_of("shard%d_trace" % i)
+        n_spans = sum(1 for e in spans if e["name"] == "ps/apply")
+        rec["shard_applies"].append(n)
+        rec["shard_apply_spans"].append(n_spans)
+        if not n or not n_spans:
+            problems.append("f1 shard %d: %s applies in /metrics, %d "
+                            "ps/apply spans in /trace" % (i, n, n_spans))
+    doc, spans = spans_of("master_trace")
+    by_span = {e["args"].get("span"): e for e in spans}
+    joined = [e for e in spans if e["name"] == "rpc/report_task_result"
+              and by_span.get(e["args"].get("parent"), {}).get("name")
+              == "task/ack"]
+    rec["master_spans_joined_to_worker_acks"] = len(joined)
+    if not joined:
+        problems.append("f1 /trace: no rpc/report_task_result span under "
+                        "a worker's task/ack span")
+    kinds = {}
+    try:
+        with open(scraper.t["events"]) as f:
+            for line in f:
+                kind = json.loads(line)["kind"]
+                kinds[kind] = kinds.get(kind, 0) + 1
+    except (OSError, ValueError) as err:
+        problems.append("f1 event file: %s" % err)
+    rec["events"] = kinds
+    if not kinds.get("task_done"):
+        problems.append("f1 event file holds no task_done: %s" % kinds)
+    report = critical_path(doc)
+    rec["trace"] = {
+        "steps": report["steps"], "attribution": report["attribution"],
+        "total_step_s": report["total_step_s"], "p99_s": report["p99_s"],
+        "phases": report["phases"],
+        "spans": len(spans),
+    }
+    if not report["steps"] or report["attribution"] < TRACE_ATTRIBUTION:
+        problems.append("f1 /trace: %d steps, attribution %.4f (gate %.2f)"
+                        % (report["steps"], report["attribution"],
+                           TRACE_ATTRIBUTION))
+    return rec, problems
 
 
 def _fleet_f1(torch, tmp, card, wire=None, fleet=None):
@@ -4722,10 +5122,20 @@ def _fleet_f1(torch, tmp, card, wire=None, fleet=None):
         fleet = _f1_fleet(tmp, wire)
     seen = np.unique(_frappe_ids(PS_RECORDS, SEED + 40)[0])
     ids = {"embedding": seen, "id_bias": seen}
-    raw = fleet.run(inspect=lambda f: _fleet_state(f, ids))
+    scraper = (_Scraper(fleet.telemetry, fleet.workers)
+               if fleet.telemetry else None)
+    raw = fleet.run(
+        on_poll=scraper.poll if scraper else None,
+        after_workers=(lambda f: scraper.poll(final=True))
+        if scraper else None,
+        inspect=lambda f: _fleet_state(f, ids))
     state = raw["inspect"]
     steps = PS_RECORDS // PS_BATCH
     problems = []
+    telemetry = None
+    if scraper is not None:
+        telemetry, bad = _f1_telemetry(scraper, fleet.shards)
+        problems += bad
     events = raw["events"]
     ends = _end_events(events)
     if raw["exit_codes"] != {"0": 0} or raw["master_exit_codes"] != [0]:
@@ -4784,9 +5194,265 @@ def _fleet_f1(torch, tmp, card, wire=None, fleet=None):
         "evaluate": eval_rec, "ps_exit_codes": raw["ps_exit_codes"],
         "losses_first_last": [e.get("losses_first_last") for e in ends],
         "wire": [e.get("wire") for e in ends],
+        "telemetry": telemetry,
     }
     rec["worker_flash_launches"] = _worker_launches(events, problems)
     return rec, problems, state
+
+
+# The telemetry plane's overhead A/B: the reference's arm 1 of its
+# telemetry and trace benches (bench.py bench_telemetry, bench_trace), one
+# harness: the task data service under an injected get_task round trip,
+# per-record read latency and ack latency, with the worker's step spans,
+# per-batch rate accounting, snapshots shipped every 0.25 s into a
+# JobTelemetry, and the stub's handlers instrumented; against the same
+# harness with the plane off (EDL_METRICS=0's switch). The harness sleeps
+# most of its time, so the gate reads process CPU: the median extra CPU
+# of the engaged arms over the off arms' median wall. Each arm runs in a
+# process of its own, whose CPU time is the harness's alone (this one's
+# background threads of earlier phases would count too), all arms at
+# once after a warm-up, at four times the reference's tasks (the card
+# host's process clock ticks in 10 ms), and serially: no task prefetch,
+# no parse threads, no prefetch buffer. On the card host a short timed
+# wait spins, so the reference's threads made the CPU of one arm vary by
+# several times the plane's cost; serial, every wait is a sleep of 9.6 ms
+# or more.
+OVERHEAD_TASKS, OVERHEAD_RECORDS = 40, 64  # tasks, records per task
+# the reader's injected latency, 0.3 ms a record as in the reference, is
+# slept once for each group of this many records: the card host's sleeps
+# under ~1 ms spin (a 0.3 ms one costs its wall in user CPU, the record's
+# sleep_cpu), which would charge the harness's latency to its CPU basis
+OVERHEAD_READ_GROUP = 32
+# arms of each side, run at once, each in a process of its own
+OVERHEAD_REPS = 6
+OVERHEAD_GATE_PCT = 2.0
+
+
+def _overhead_arm(metrics_on):
+    """One run of the harness -> (examples/s, process CPU s, wall s,
+    the aggregator's worker snapshots)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.constants import TaskType
+    from elasticdl_tpu_torch.data.data_reader import Metadata
+    from elasticdl_tpu_torch.master.servicer import TaskResponse
+    from elasticdl_tpu_torch.master.telemetry import JobTelemetry
+    from elasticdl_tpu_torch.utils import profiling
+    from elasticdl_tpu_torch.worker.task_data_service import TaskDataService
+    from elasticdl_tpu_torch.worker.telemetry import WorkerTelemetry
+
+    rtt_s, read_s, ack_s, batch = 0.020, 0.0003, 0.010, 16
+
+    class Stub:
+        def __init__(self, telemetry):
+            self._lock = threading.Lock()
+            self._todo = [
+                TaskResponse(shard_name="shard_%d" % i, start=0,
+                             end=OVERHEAD_RECORDS, type=TaskType.TRAINING,
+                             model_version=0,
+                             extended_config={"trace_id": "t%06d" % i})
+                for i in range(OVERHEAD_TASKS)]
+            self._next_id = 0
+            self._telemetry = telemetry
+            # the servicer's wrap: its service histograms and server
+            # spans are part of the measured plane
+            wrapped = profiling.instrument_service_methods(
+                {"get_task": self._get_task,
+                 "report_task_result": self._report}, role="bench")
+            self.get_task = wrapped["get_task"]
+            self._wrapped_report = wrapped["report_task_result"]
+
+        def _get_task(self, task_type=None):
+            time.sleep(rtt_s)
+            with self._lock:
+                if not self._todo:
+                    return TaskResponse()
+                task = self._todo.pop(0)
+                self._next_id += 1
+                task.task_id = self._next_id
+                return task
+
+        def _report(self, task_id, err_msg="", exec_counters=None):
+            time.sleep(ack_s)
+
+        def report_task_result(self, task_id, err_msg="",
+                               exec_counters=None):
+            return self._wrapped_report(task_id, err_msg, exec_counters)
+
+        def report_telemetry(self, snapshot):
+            self._telemetry.ingest(snapshot)
+
+    class Reader:
+        metadata = Metadata()
+
+        def read_records(self, task):
+            shard = int(task.shard_name.split("_")[1])
+            for i in range(task.start, task.end):
+                if (i - task.start) % OVERHEAD_READ_GROUP == 0:
+                    time.sleep(read_s * OVERHEAD_READ_GROUP)
+                yield np.int64(shard * OVERHEAD_RECORDS + i).tobytes()
+
+        def create_shards(self):
+            return {}
+
+    def parse(record):
+        seed = int(np.frombuffer(record[:8], np.int64)[0])
+        x = np.random.default_rng(seed).standard_normal(128)
+        return {"x": np.tanh(x).astype(np.float32), "y": np.int64(seed)}
+
+    profiling.set_metrics_enabled(metrics_on)
+    aggregator = JobTelemetry(registry=profiling.MetricsRegistry(),
+                              event_log=profiling.EventLog(),
+                              span_log=profiling.SpanLog())
+    try:
+        stub = Stub(aggregator)
+        tds = TaskDataService(stub, False, data_reader=Reader(),
+                              task_prefetch=0, ack_queue_size=8,
+                              prefetch_warm_records=OVERHEAD_RECORDS)
+        wt = WorkerTelemetry(0, stats=tds.stats, interval_s=0.25)
+        n = 0
+        t0, c0, u0 = time.perf_counter(), time.process_time(), os.times()
+        while True:
+            ds = tds.get_dataset()
+            if ds is None:
+                break
+            ds = ds.map(parse).batch(batch, vectorized=True)
+            for b in ds:
+                count = int(b["y"].shape[0])
+                n += count
+                task = tds.get_current_task()
+                trace = (task.extended_config or {}).get("trace_id") \
+                    if task is not None else None
+                # the worker's step spans, fully engaged
+                with profiling.span("step", trace_id=trace, examples=count):
+                    with profiling.span("step/compute"):
+                        float(np.tanh(b["x"]).sum())
+                    with profiling.span("step/grad_push"):
+                        pass
+                wt.on_batch(count)
+                tds.report_record_done(count)
+                wt.ship(stub)
+            tds.drain_acks()
+        wt.ship(stub, force=True)
+        wall = time.perf_counter() - t0
+        cpu = time.process_time() - c0
+        u1 = os.times()
+        split = (u1.user - u0.user, u1.system - u0.system)
+    finally:
+        profiling.set_metrics_enabled(True)
+    if n != OVERHEAD_TASKS * OVERHEAD_RECORDS:
+        raise PhaseError("the overhead harness read %d records" % n)
+    return n / wall, cpu, wall, aggregator.worker_snapshots(), split
+
+
+def _overhead_child(metrics_on, sync_dir, index):
+    """One arm of the A/B, in a process of its own: a warm-up run, then,
+    once every arm is ready (``sync_dir``'s ``go`` file), the measured
+    run; prints it as one JSON line."""
+    _overhead_arm(metrics_on)  # warm-up: imports, the page cache
+    with open(os.path.join(sync_dir, "ready-%d" % index), "w"):
+        pass
+    deadline = time.monotonic() + 300
+    while not os.path.exists(os.path.join(sync_dir, "go")):
+        if time.monotonic() > deadline:
+            raise PhaseError("the overhead A/B never started")
+        time.sleep(0.02)
+    eps, cpu, wall, snaps, split = _overhead_arm(metrics_on)
+    print(json.dumps({"run": [eps, cpu, wall] + list(split),
+                      "examples_total": snaps.get("0", {}).get(
+                          "examples_total") if metrics_on else None}),
+          flush=True)
+
+
+def _sleep_cpu_probe():
+    """What sleeps cost this host's CPU alone (user, system s): a
+    record's 0.3 ms, and a read group's; one JSON line."""
+    out = {}
+    for seconds, n in ((0.0003, 2000), (0.0003 * OVERHEAD_READ_GROUP, 60)):
+        u0 = os.times()
+        for _ in range(n):
+            time.sleep(seconds)
+        u1 = os.times()
+        out["%gx%d" % (seconds, n)] = [u1.user - u0.user,
+                                       u1.system - u0.system]
+    print(json.dumps(out), flush=True)
+
+
+def _telemetry_overhead():
+    """The A/B -> (record, problems): OVERHEAD_REPS arms engaged and as
+    many off, each in a process of its own, all measured at once after a
+    warm-up (every arm under the same load of the host); the median
+    extra process CPU of the engaged plane over the off arm's median
+    wall, gated below OVERHEAD_GATE_PCT. Then the sleeps' CPU alone."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("EDL_METRICS", None)
+
+    def child(code):
+        return subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; " + code],
+            cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    def result(proc, what):
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise PhaseError("the overhead A/B's %s exited %d: %s"
+                             % (what, proc.returncode, err[-2000:]))
+        return json.loads(out.strip().splitlines()[-1])
+
+    with tempfile.TemporaryDirectory() as sync_dir:
+        arms = [(i % 2 == 0, child(
+            "chip_smoke._overhead_child(%r, %r, %d)"
+            % (i % 2 == 0, sync_dir, i)))
+            for i in range(2 * OVERHEAD_REPS)]
+        try:
+            deadline = time.monotonic() + 300
+            while len([n for n in os.listdir(sync_dir)
+                       if n.startswith("ready-")]) < len(arms):
+                if time.monotonic() > deadline or any(
+                        p.poll() is not None for _, p in arms):
+                    break
+                time.sleep(0.05)
+            with open(os.path.join(sync_dir, "go"), "w"):
+                pass
+            runs = [(on, result(p, "arm")) for on, p in arms]
+        finally:
+            for _, p in arms:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    sleep_cpu = result(child("chip_smoke._sleep_cpu_probe()"), "probe")
+    on = [r["run"] for is_on, r in runs if is_on]
+    off = [r["run"] for is_on, r in runs if not is_on]
+
+    def med(rows, i):
+        return _median([r[i] for r in rows])
+
+    pct = max(0.0, med(on, 1) - med(off, 1)) / med(off, 2) * 100.0
+    rec = {
+        "phase": "ps_fleet", "of": "telemetry_overhead",
+        "basis": "median process CPU over the off arm's median wall",
+        "overhead_pct": pct, "gate_pct": OVERHEAD_GATE_PCT,
+        "arms": {"on": on, "off": off},
+        "examples_per_s_on": med(on, 0), "examples_per_s_off": med(off, 0),
+        "cpu_s_on": med(on, 1), "cpu_s_off": med(off, 1),
+        "wall_s_off": med(off, 2),
+        "user_s_on": med(on, 3), "user_s_off": med(off, 3),
+        "system_s_on": med(on, 4), "system_s_off": med(off, 4),
+        "sleep_cpu": sleep_cpu,
+    }
+    problems = []
+    if pct >= OVERHEAD_GATE_PCT:
+        problems.append("the telemetry plane's overhead %.3f %% (gate %s %%)"
+                        % (pct, OVERHEAD_GATE_PCT))
+    if not all(r["examples_total"] for is_on, r in runs if is_on):
+        problems.append("an engaged arm aggregated no snapshot")
+    return rec, problems
 
 
 def _fleet_held_deepfm(torch, tmp, card):
@@ -4824,20 +5490,25 @@ def _fleet_kill(torch, tmp, card, durable):
     """Runs F2 (``durable``: snapshots every FLEET_SNAPSHOT_VERSIONS) and
     F3 (none): two async workers, ``--get_model_steps 2``, shard 1
     SIGKILLed once its version reaches FLEET_KILL_AT_VERSION and
-    relaunched by the instance manager at its address. Returns (record,
-    problems)."""
+    relaunched by the instance manager at its address. F2 arms every
+    flight recorder: the master's beside its journal, each shard's
+    beside its snapshots, the workers' by the environment. Returns
+    (record, problems)."""
     name = "f2" if durable else "f3"
     snap = os.path.join(tmp, name + "-snap")
     snap_flags = (["--ps_snapshot_versions", str(FLEET_SNAPSHOT_VERSIONS),
                    "--ps_snapshot_dir", snap] if durable else [])
     from elasticdl_tpu_torch.ps.snapshot import snapshot_versions
 
+    worker_postmortem = (os.path.join(tmp, name, "postmortem")
+                         if durable else None)
     fleet = _Fleet(
         tmp, name, PS_DEEPFM, os.path.join(tmp, "ps-data"), PS_BATCH,
         workers=2, epochs=FLEET_ASYNC_EPOCHS,
         job=["--use_async", "true", "--get_model_steps", "2"] + snap_flags,
         ps=["--use_async", "true"] + snap_flags,
         worker=["--get_model_steps", "2"],
+        worker_postmortem=worker_postmortem,
     )
     marks = {}
 
@@ -4906,6 +5577,14 @@ def _fleet_kill(torch, tmp, card, durable):
     final = raw["inspect"]
     if not all(s["initialized"] for s in final):
         problems.append("%s final shards %s" % (name, final))
+    postmortems = None
+    if durable:
+        postmortems = _postmortems(
+            [os.path.join(fleet.journal, "postmortem"), worker_postmortem]
+            + [os.path.join(snap, "ps-%d" % i, "postmortem")
+               for i in range(fleet.shards)], tmp)
+        if postmortems["unparsed"] or not postmortems["shard_failure"]:
+            problems.append("%s postmortems %s" % (name, postmortems))
     if final[1]["shard_epoch"] == marks.get("epoch0"):
         problems.append("%s shard 1 kept its epoch" % name)
     rec = {
@@ -4945,9 +5624,46 @@ def _fleet_kill(torch, tmp, card, durable):
         # the relaunched shard answers the old ring with _shm_error: each
         # worker's channel to it goes off and resends inline
         "wire": [e.get("wire") for e in ends],
+        "postmortems": postmortems,
     }
     rec["worker_flash_launches"] = _worker_launches(events, problems)
     return rec, problems
+
+
+def _postmortems(directories, tmp):
+    """The flight recorders' dumps under ``directories``: each file by
+    its path under ``tmp``, with its trigger and its event and span
+    lines; ``unparsed``, the lines that are no JSON object;
+    ``shard_failure``, the dumps a ``ps_shard_failure`` triggered that
+    hold recent spans."""
+    import glob
+
+    out = {"dumps": {}, "unparsed": [], "shard_failure": []}
+    for d in directories:
+        for path in sorted(glob.glob(os.path.join(d, "**", "*.jsonl"),
+                                     recursive=True)):
+            lines = []
+            with open(path) as f:
+                for n, line in enumerate(f):
+                    try:
+                        lines.append(json.loads(line))
+                    except ValueError:
+                        out["unparsed"].append("%s:%d" % (path, n + 1))
+            if not lines or not isinstance(lines[0], dict):
+                out["unparsed"].append(path)
+                continue
+            key = os.path.relpath(path, tmp)
+            types = [ln.get("type") for ln in lines[1:]]
+            out["dumps"][key] = {
+                "trigger": lines[0].get("postmortem"),
+                "proc": lines[0].get("proc"),
+                "events": types.count("event"),
+                "spans": types.count("span"),
+            }
+            if (lines[0].get("postmortem") == "ps_shard_failure"
+                    and types.count("span")):
+                out["shard_failure"].append(key)
+    return out
 
 
 def _fleet_mnist(torch, tmp, card):
@@ -5179,6 +5895,7 @@ def phase_ps_fleet(torch, tmp, card):
         if max(rel.values()) > FLEET_TOL:
             bad.append("f1 against the held job: %s" % rel)
         f1_state.update(state)
+        f1_state["examples_per_s"] = rec["examples_per_s"]
         return rec, bad
 
     bf16_fleet = []
@@ -5204,8 +5921,17 @@ def phase_ps_fleet(torch, tmp, card):
             bad.append("the bf16 wire left every tensor float32")
         return rec, bad
 
+    # the plane's overhead A/B first, on a host with no fleet running;
+    # its record follows F1's, with F1's examples/s beside it
+    overhead, overhead_bad = _telemetry_overhead()
+
+    def overhead_record():
+        return dict(overhead, f1_examples_per_s=f1_state.get(
+            "examples_per_s")), overhead_bad
+
     for run in (
         f1,
+        overhead_record,
         lambda: _fleet_kill(torch, tmp, card, durable=True),
         lambda: _fleet_kill(torch, tmp, card, durable=False),
         lambda: _fleet_mnist(torch, tmp, card),
@@ -8111,6 +8837,12 @@ def main(argv=None):
         "result line",
     )
     parser.add_argument(
+        "--overhead-only",
+        action="store_true",
+        help="run only the telemetry plane's overhead A/B and print its "
+        "record, not the result line",
+    )
+    parser.add_argument(
         "--wire-order",
         default="off,auto",
         help="with --wire-only, the W arms' --ps_shm values in the order "
@@ -8154,6 +8886,14 @@ def main(argv=None):
         return _ps_serve_only(torch)
     if args.wire_only:
         return _wire_only(torch, order)
+    if args.overhead_only:
+        rec, problems = _telemetry_overhead()
+        emit(rec)
+        if problems:
+            print("chip_smoke: FAILED: %s" % "; ".join(problems),
+                  file=sys.stderr)
+            return 1
+        return 0
 
     try:
         card = _run_phase("device", phase_device, torch)

@@ -43,9 +43,10 @@ need their data flag and a model source, or they exit 2
 
 Every flag of the reference parses. Values the port cannot honour yet
 raise ``NotImplementedError``: ``--docker_image_repository`` (cluster
-submission), and, through the master, the PS fleet, ``--telemetry_port``,
-``--tensorboard_log_dir`` and ``--speculative_compile true``
-(``master.refuse_unported_planes``).
+submission), and, through the master, ``--speculative_compile true``
+(``master.refuse_unported_planes``). ``--telemetry_port``,
+``--telemetry_events_path`` and ``--tensorboard_log_dir`` run the
+master's telemetry plane (``master/telemetry.py``).
 """
 
 import os
@@ -114,6 +115,7 @@ class LocalJob:
                 export_dir=args.export_dir,
                 export_every_versions=args.export_every_versions,
                 export_keep=args.export_keep,
+                telemetry_report_secs=args.telemetry_report_secs,
                 **common,
             )
         if self.master.job_type in (

@@ -104,7 +104,10 @@ def parse_scorer_args(scorer_args=None):
         "--scorer_telemetry_port",
         type=int,
         default=-1,
-        help="Telemetry HTTP endpoint (not ported yet: must be -1)",
+        help="Serve this scorer's /metrics + /healthz + /events + "
+        "/trace on this port (0 = ephemeral, -1 disables): the "
+        "request-latency histogram, the batcher's families and the "
+        "cache hit rate (docs/serving.md)",
     )
     parser.add_argument(
         "--serving_staleness_versions",

@@ -54,6 +54,30 @@ class InputPlaneStats:
         with self._lock:
             return dict(self._values)
 
+    def publish_to(self, registry, worker=""):
+        """Mirror the current counters into ``registry`` gauges
+        (``edl_input_stage_seconds{stage=...}``, ``edl_input_count``) so
+        a stalled stream is visible mid-epoch; called at the telemetry
+        snapshot cadence, never per record. Returns the snapshot."""
+        snap = self.snapshot()
+        # gauges, not counters (the stats reset at stream boundaries)
+        seconds = registry.gauge(
+            "edl_input_stage_seconds",
+            "Input-plane stage seconds since the last stream boundary",
+            labels=("worker", "stage"),
+        )
+        counts = registry.gauge(
+            "edl_input_count",
+            "Input-plane item counts since the last stream boundary",
+            labels=("worker", "kind"),
+        )
+        worker = str(worker)
+        for f in self.TIME_FIELDS:
+            seconds.set(snap[f], worker=worker, stage=f[: -len("_s")])
+        for f in self.COUNT_FIELDS:
+            counts.set(snap[f], worker=worker, kind=f)
+        return snap
+
 
 class _Timed:
     def __init__(self, stats, field):

@@ -15,8 +15,9 @@ worker) pins a version *number*, and the worker scores it with its own
 state. A master that holds the model (the ParameterServerStrategy job)
 pins an eval checkpoint of that model (``save_eval_checkpoint``); the
 workers fetch it with ``get_model`` FIXED, and the round's checkpoint is
-removed once the round is published. TensorBoard is not ported:
-``tensorboard_service`` is None.
+removed once the round is published. With a ``tensorboard_service``
+(``--tensorboard_log_dir``) each published round's metrics are written
+as TensorBoard scalars at the round's version.
 """
 
 import threading
@@ -169,8 +170,7 @@ class EvaluationService:
         """``checkpoint_service`` holds the eval checkpoints of a master
         that holds the model."""
         self._checkpoint_service = checkpoint_service
-        if tensorboard_service is not None:
-            raise NotImplementedError("TensorBoard is not ported yet")
+        self._tensorboard_service = tensorboard_service
         self._task_d = task_d
         self._eval_metrics_fn = eval_metrics_fn
         self._eval_steps = eval_steps
@@ -340,6 +340,10 @@ class EvaluationService:
 
     def _publish_summary(self, round_):
         metrics = round_.get_evaluation_summary()
+        if self._tensorboard_service and metrics:
+            self._tensorboard_service.write_dict_to_summary(
+                metrics, version=round_.model_version
+            )
         shown_version = (
             round_.model_version
             if round_.model_version >= 0

@@ -47,12 +47,17 @@ is done, lingers so that remote workers learn there is no more work, and
 master stops and exits 75, which an external supervisor answers with a
 relaunch.
 
-Every other plane of the reference's master raises
-``NotImplementedError`` by name when its flag asks for it: the telemetry
-endpoint and event sink (``--telemetry_port``,
-``--telemetry_events_path``), the flight recorder
-(``EDL_FLIGHT_RECORDER_DIR``), TensorBoard (``--tensorboard_log_dir``),
-the hybrid trainer (``--embedding_plane hybrid``).
+The telemetry plane (``master/telemetry.py``, docs/observability.md):
+a ``JobTelemetry`` always aggregates the workers' ``report_telemetry``
+snapshots (their gauges, events and spans) with the live task-queue
+depth; ``--telemetry_port`` serves ``/metrics``, ``/events``, ``/trace``
+and ``/healthz`` (``restoring`` while the journal replays, then
+``serving``); ``--telemetry_events_path`` appends every job event as a
+JSON line; ``--tensorboard_log_dir`` writes the evaluation rounds'
+metrics and, every 15 s, the registry's scalars as TensorBoard event
+files; the flight recorder is armed at ``<master_journal_dir>/postmortem``
+(or ``EDL_FLIGHT_RECORDER_DIR``). The speculative compile plane
+(``--speculative_compile true``) raises ``NotImplementedError`` by name.
 
 The RPC server always offers the shared-memory endpoint
 (``rpc/shm_transport.py``): a co-located worker's ``MasterClient``
@@ -75,6 +80,13 @@ from elasticdl_tpu_torch.master.checkpoint_service import CheckpointService
 from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
 from elasticdl_tpu_torch.master.servicer import MasterServicer
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+from elasticdl_tpu_torch.master.telemetry import (
+    JobTelemetry,
+    TelemetryHTTPServer,
+    TelemetryTBExporter,
+)
+from elasticdl_tpu_torch.master.tensorboard_service import TensorboardService
+from elasticdl_tpu_torch.utils import profiling
 
 # how long the master waits, after the last task, for its worker
 # processes to exit on their own (their last checkpoint writes landing)
@@ -162,22 +174,11 @@ def refuse_unported_planes(args):
         raise _not_ported(
             "the %s strategy" % strategy, "--distribution_strategy"
         )
-    checks = (
-        ("the telemetry endpoint", "--telemetry_port",
-         getattr(args, "telemetry_port", None) is not None),
-        ("the telemetry event sink", "--telemetry_events_path",
-         getattr(args, "telemetry_events_path", "")),
-        ("the flight recorder", "EDL_FLIGHT_RECORDER_DIR",
-         os.environ.get("EDL_FLIGHT_RECORDER_DIR")),
-        ("TensorBoard", "--tensorboard_log_dir",
-         getattr(args, "tensorboard_log_dir", "")),
-        ("the speculative compile plane (ROADMAP A9)",
-         "--speculative_compile",
-         getattr(args, "speculative_compile", False)),
-    )
-    for plane, flag, asked in checks:
-        if asked:
-            raise _not_ported(plane, flag)
+    if getattr(args, "speculative_compile", False):
+        raise _not_ported(
+            "the speculative compile plane (ROADMAP A9)",
+            "--speculative_compile",
+        )
 
 
 class Master:
@@ -224,6 +225,15 @@ class Master:
         )
         # this incarnation's boot id, stamped on every RPC reply
         self.master_epoch = mint_master_epoch(journal_dir or None)
+        # the flight recorder's postmortems land next to the journal
+        # (durable across the relaunch); EDL_FLIGHT_RECORDER_DIR
+        # overrides for journal-less masters
+        fr_dir = os.environ.get("EDL_FLIGHT_RECORDER_DIR") or (
+            os.path.join(journal_dir, "postmortem") if journal_dir else ""
+        )
+        self._owns_flight_recorder = bool(fr_dir)
+        if fr_dir:
+            profiling.flight_recorder.arm(fr_dir)
         self._health = "restoring"
         self.task_d = _make_task_dispatcher(
             getattr(args, "training_data", ""),
@@ -247,6 +257,7 @@ class Master:
         self.model_module = load_zoo_module(
             args.model_def, getattr(args, "model_zoo", "")
         )
+        self.tb_service = self._create_tensorboard_service(args)
         self.evaluation_service = self._create_evaluation_service(args)
         if self.evaluation_service:
             self.task_d.set_evaluation_service(self.evaluation_service)
@@ -263,6 +274,17 @@ class Master:
                     % (args.model_def, args.optimizer)
                 )
             optimizer = optimizer()
+        # the job-wide telemetry plane: fleet aggregation is always on
+        # (report cadence, not a hot path); the HTTP endpoint and the
+        # JSONL sink are opt-in flags
+        self.telemetry = JobTelemetry(task_dispatcher=self.task_d)
+        events_path = getattr(args, "telemetry_events_path", "")
+        self._owns_event_sink = bool(events_path)
+        if events_path:
+            profiling.events.attach_file(events_path)
+        self._telemetry_http = None
+        self._telemetry_tb = None
+        self.telemetry_port = None
         self.master_servicer = MasterServicer(
             args.grads_to_wait,
             args.minibatch_size,
@@ -286,6 +308,7 @@ class Master:
                 == DistributionStrategy.ALLREDUCE
             ),
             device=getattr(args, "device", "cuda"),
+            telemetry=self.telemetry,
         )
         from elasticdl_tpu_torch.master.membership_service import (
             MembershipService,
@@ -350,7 +373,7 @@ class Master:
             )
         return EvaluationService(
             self.checkpoint_service,
-            None,
+            self.tb_service,
             self.task_d,
             getattr(args, "evaluation_start_delay_secs", 0),
             getattr(args, "evaluation_throttle_secs", 0),
@@ -358,6 +381,15 @@ class Master:
             self.job_type == JobType.EVALUATION_ONLY,
             eval_metrics_fn,
         )
+
+    @staticmethod
+    def _create_tensorboard_service(args):
+        logdir = getattr(args, "tensorboard_log_dir", "")
+        if not logdir:
+            return None
+        service = TensorboardService(logdir)
+        service.start()
+        return service
 
     def _recover_from_journal(self):
         """Replay the journal and fast-forward the ledger, the version
@@ -394,7 +426,17 @@ class Master:
 
     def prepare(self):
         """Replay the journal, then start the evaluation service's timer,
-        the RPC server and the instance manager's workers."""
+        the RPC server and the instance manager's workers. The telemetry
+        endpoint binds first, so a probe reads ``restoring`` while the
+        journal replays."""
+        telemetry_port = getattr(self.args, "telemetry_port", None)
+        if telemetry_port is not None and telemetry_port >= 0:
+            self._telemetry_http = TelemetryHTTPServer(
+                self.telemetry,
+                port=telemetry_port,
+                health_fn=lambda: self._health,
+            )
+            self.telemetry_port = self._telemetry_http.port
         self._recover_from_journal()
         if self.evaluation_service:
             self.evaluation_service.start()
@@ -422,6 +464,11 @@ class Master:
             self.master_epoch,
             self.job_type,
         )
+        logdir = getattr(self.args, "tensorboard_log_dir", "")
+        if logdir:
+            self._telemetry_tb = TelemetryTBExporter(
+                logdir, step_fn=self.master_servicer.get_model_version
+            )
         if self.instance_manager:
             self.instance_manager.start_all_ps()
             self.instance_manager.start_workers()
@@ -488,6 +535,25 @@ class Master:
             return
         self._stopped = True
         self._stop_evaluation()
+        if self.tb_service:
+            self.tb_service.close()
+        if self._telemetry_tb:
+            self._telemetry_tb.close()
+            self._telemetry_tb = None
+        if self._telemetry_http:
+            self._telemetry_http.close()
+            self._telemetry_http = None
+        self.telemetry.close()
+        if self._owns_event_sink:
+            # the EventLog is process-wide: a later in-process job must
+            # not keep appending to this job's file
+            profiling.events.close_file()
+            self._owns_event_sink = False
+        if self._owns_flight_recorder:
+            # same hygiene: a later in-process job must not dump into
+            # this job's directory
+            profiling.flight_recorder.disarm()
+            self._owns_flight_recorder = False
         if self.instance_manager:
             self.instance_manager.stop_relaunch_and_remove_all_pods()
         if self._server:
@@ -531,6 +597,9 @@ def main(argv=None):
 
     args = parse_master_args(argv)
     logger.setLevel(args.log_level)
+    # name this process in every span id and postmortem header (entry
+    # points only: in-process masters keep the owning process's tag)
+    profiling.spans.set_process("master")
     master = Master(args)
     master.prepare()
     master.install_drain_handler()

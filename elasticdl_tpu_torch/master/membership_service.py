@@ -46,6 +46,7 @@ import threading
 import time
 
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
+from elasticdl_tpu_torch.utils import profiling
 
 # How long a death bump may wait for a promoted standby's registration.
 # It stays below the survivors' wait for a bump after a broken collective
@@ -256,7 +257,14 @@ class MembershipService:
         forms past, before its first world forms."""
         epoch = self._register_locked(worker_id, host, world_size,
                                       world_epoch)
-        if epoch is not None and self._journal is not None:
+        if epoch is None:
+            return
+        # emitted outside the lock: the event sink's write is disk IO
+        profiling.events.emit(
+            "worker_join", _ship=False, worker_id=worker_id, host=host,
+            epoch=epoch,
+        )
+        if self._journal is not None:
             self._journal.append(
                 "member", event="join", worker=worker_id, epoch=epoch
             )
@@ -311,7 +319,13 @@ class MembershipService:
         epoch = self._remove_locked(
             worker_id, departing, defer_bump_secs, exit_code
         )
-        if epoch is not None and self._journal is not None:
+        if epoch is None:
+            return
+        profiling.events.emit(
+            "worker_leave", _ship=False, worker_id=worker_id,
+            departing=departing, exit_code=exit_code, epoch=epoch,
+        )
+        if self._journal is not None:
             self._journal.append(
                 "member", event="leave", worker=worker_id, epoch=epoch
             )

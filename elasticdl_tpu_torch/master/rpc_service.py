@@ -19,8 +19,8 @@ fields of the reference's messages and tensors in tensor frames. With
 ``wire_dtype`` ``bfloat16`` (``rpc/wire_compression.py``) the master's
 ``get_model`` reply and the client's gradients ride the wire as bf16,
 widened to float32 on receipt, as in the reference. Worker telemetry
-(``report_telemetry``) is not ported and raises ``NotImplementedError``
-by name.
+snapshots (``report_telemetry``) go to the servicer's ``JobTelemetry``,
+a no-op without one.
 
 The client sends every call through the failover channel
 (``rpc/failover.py``): with ``failover_s`` > 0 it rides out a master
@@ -44,20 +44,7 @@ from elasticdl_tpu_torch.rpc.wire_compression import (
     compress_tensors,
     decompress_tensors,
 )
-
-_UNPORTED = {
-    "report_telemetry": "worker telemetry",
-}
-
-
-def _unported(name):
-    def handler(req):
-        raise NotImplementedError(
-            "%s (%s) is not ported yet" % (_UNPORTED[name], name)
-        )
-
-    return handler
-
+from elasticdl_tpu_torch.utils import profiling
 
 class MasterRpcService:
     """Server side: dict-message handlers around a MasterServicer and the
@@ -175,6 +162,10 @@ class MasterRpcService:
             "compressed_f32": [],
         }
 
+    def report_telemetry(self, req):
+        self._s.report_telemetry(req.get("snapshot") or {})
+        return {}
+
     def report_evaluation_metrics(self, req):
         outputs = {t.name: t.values for t in req.get("model_outputs", [])}
         accepted, version = self._s.report_evaluation_metrics(
@@ -228,6 +219,9 @@ class MasterRpcService:
         return handler
 
     def rpc_methods(self):
+        """The handlers, each stamped with the epoch and recording its
+        service time into ``edl_rpc_server_latency_seconds{role="master"}``
+        (and the ``rpc/<method>`` span of a caller's trace)."""
         methods = {
             name: self._stamp_epoch(fn)
             for name, fn in {
@@ -244,10 +238,10 @@ class MasterRpcService:
                 "push_embedding_info": self.push_embedding_info,
                 "pull_embedding_vectors": self.pull_embedding_vectors,
                 "export_embedding_tables": self.export_embedding_tables,
+                "report_telemetry": self.report_telemetry,
             }.items()
         }
-        methods.update({name: _unported(name) for name in _UNPORTED})
-        return methods
+        return profiling.instrument_service_methods(methods, role="master")
 
 
 class MasterClient:
@@ -359,6 +353,17 @@ class MasterClient:
             }
         finally:
             release_message(resp)
+
+    def report_telemetry(self, snapshot):
+        # telemetry is lossy-tolerant (a failed snapshot requeues its
+        # events and spans), so its outage budget is capped: a worker's
+        # final forced ship at job end must not park behind a master
+        # that already exited cleanly
+        self._call(
+            "report_telemetry",
+            _budget_s=min(self._client.outage_budget_s, 10.0),
+            snapshot=snapshot,
+        )
 
     def report_variable(self, named_arrays):
         self._call(

@@ -101,8 +101,11 @@ class MasterServicer:
         lr_staleness_modulation=False,
         use_async=False,
         device="cuda",
+        telemetry=None,
     ):
-        """``optimizer``: a torch optimizer factory (``params ->
+        """``telemetry``: the master's ``JobTelemetry``, which ingests
+        the workers' ``report_telemetry`` snapshots (None: ignored).
+        ``optimizer``: a torch optimizer factory (``params ->
         Optimizer``) for a master that holds the model, None for one that
         coordinates. ``coordinates_only`` defaults to ``optimizer is
         None``. ``device``: where the updates run (used only with an
@@ -113,6 +116,7 @@ class MasterServicer:
             raise ValueError("a coordinating master applies no optimizer")
         self._coordinates_only = bool(coordinates_only)
         self._journal = journal
+        self.telemetry = telemetry
         self._task_d = task_d
         self._lock = threading.Lock()
         self._minibatch_size = minibatch_size
@@ -414,6 +418,13 @@ class MasterServicer:
             self._task_d.report(task_id, False, exec_counters=exec_counters)
         else:
             self._task_d.report(task_id, True, exec_counters=exec_counters)
+
+    def report_telemetry(self, snapshot):
+        """Low-frequency worker telemetry snapshot
+        (docs/observability.md); ignored unless a JobTelemetry
+        aggregator is attached."""
+        if self.telemetry is not None:
+            self.telemetry.ingest(snapshot)
 
     def report_evaluation_metrics(
         self, model_version, model_outputs, labels, scored_version=None

@@ -282,7 +282,18 @@ class TaskDispatcher:
 
     def get(self, worker_id):
         """Return the next (task_id, Task), or (-1, None) when drained.
-        Rolls over to the next training epoch when todo empties."""
+        Rolls over to the next training epoch when todo empties. The
+        dispatch is a ``master/dispatch`` span bound to the task's trace
+        after the stamp, so a worker's ``_sctx``-carrying ``get_task``
+        shows the ledger time inside the caller's trace."""
+        sp = profiling.span("master/dispatch", worker=worker_id)
+        with sp:
+            task_id, task = self._get_next(worker_id)
+            if task is not None:
+                sp.set_trace(task.extended_config.get("trace_id"))
+            return task_id, task
+
+    def _get_next(self, worker_id):
         with self._lock:
             if not self._todo and self._training_shards and (
                 self._streaming or self._epoch < self._num_epochs - 1
@@ -315,10 +326,20 @@ class TaskDispatcher:
         of the dead boot, and its trace resolves it here, marking the
         recovered task done once or deduping an ack the dead boot already
         counted. A successful evaluation task completes its round's task
-        after the lock is released."""
+        after the lock is released. The report is a ``master/report``
+        span bound to the ack's trace."""
+        sp = profiling.span(
+            "master/report", task=task_id, success=bool(success)
+        )
+        with sp:
+            self._report(task_id, success, exec_counters, sp)
+
+    def _report(self, task_id, success, exec_counters, sp):
         evaluation_task_completed = False
         counters = exec_counters or {}
         ack_trace = counters.get(TaskExecCounterKey.TRACE_ID)
+        if ack_trace is not None:
+            sp.set_trace(str(ack_trace))
         with self._lock:
             worker_id, task = self._doing.pop(task_id, (-1, None))
             meta = self._dispatch_meta.pop(task_id, None)
@@ -391,8 +412,12 @@ class TaskDispatcher:
             }
             if "consume_s" in counters:
                 timeline["consume_s"] = counters["consume_s"]
+            # _ship=False: master-side events are already home; only a
+            # worker process's events ride its snapshots upstream
             profiling.events.emit(
-                "task_done" if success else "task_requeued", **timeline
+                "task_done" if success else "task_requeued",
+                _ship=False,
+                **timeline,
             )
         if evaluation_task_completed:
             self._evaluation_service.complete_task()
@@ -562,6 +587,7 @@ class TaskDispatcher:
             )
         profiling.events.emit(
             "master_recovery",
+            _ship=False,
             epoch=state.epoch,
             done_tasks=len(state.done_keys),
             requeued=len(requeued),

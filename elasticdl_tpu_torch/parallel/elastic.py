@@ -65,9 +65,18 @@ from elasticdl_tpu_torch.training.step import (
     fold_in,
     make_remat_forward,
 )
+from elasticdl_tpu_torch.utils import profiling
 
 _WAIT_POLL_S = 0.001  # collective completion poll
 _ABORT_CHECK_S = 1.0  # how often a waiting collective asks abort_check
+
+# the establish pause, scraped through /metrics: one observation per
+# establish()
+_RESIZE_PAUSE = profiling.metrics.histogram(
+    "edl_resize_pause_seconds",
+    "establish() wall seconds, world re-form through step-fn acquire",
+    labels=("compile_phase",),
+)
 
 
 def _pad_rows(x, rows):
@@ -266,8 +275,17 @@ class ElasticDPTrainer(AllReduceTrainer):
         """Join ``spec``'s world and adopt the state of its lowest rank
         that has one. When nobody has state (the first world), every
         rank initializes from the trainer's seed, identically, and rank
-        0's copy is broadcast all the same."""
+        0's copy is broadcast all the same. Each establish emits the
+        ``resize_begin`` and ``resize_end`` events and observes
+        ``edl_resize_pause_seconds`` (its ``compile_phase`` label reads
+        ``none``: nothing is compiled here)."""
         t0 = time.perf_counter()
+        profiling.events.emit(
+            "resize_begin",
+            epoch=spec.epoch,
+            rank=spec.process_id,
+            world_size=spec.num_processes,
+        )
         self.backend = distributed.ensure_world(spec, self._device)
         self._spec = spec
         t_world = time.perf_counter()
@@ -300,6 +318,16 @@ class ElasticDPTrainer(AllReduceTrainer):
             self.establish_times["world_s"],
             self.establish_times["broadcast_s"],
         )
+        profiling.events.emit(
+            "resize_end",
+            epoch=spec.epoch,
+            rank=spec.process_id,
+            world_size=spec.num_processes,
+            backend=self.backend,
+            compile_phase="none",
+            **{k: round(v, 3) for k, v in self.establish_times.items()},
+        )
+        _RESIZE_PAUSE.observe(time.perf_counter() - t0, compile_phase="none")
 
     # -- the weighted step --------------------------------------------------
 

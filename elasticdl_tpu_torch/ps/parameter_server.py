@@ -26,8 +26,14 @@ attached ring, those of SIGKILLed clients included. The shard has no
 of those two runs untiered with a warning, as the reference does. A stop
 closes the tiered tables' demoters.
 
-Not ported, raising ``NotImplementedError`` by name: the shard's
-telemetry endpoint (``--ps_telemetry_port`` other than -1, A8).
+``--ps_telemetry_port`` (0: ephemeral, exposed as ``ps_telemetry_port``;
+-1: off) serves the shard's own registry (the service histograms under
+``role=ps``, ``edl_ps_snapshot_age_seconds``), ``/events``, ``/trace``
+(the shard's ``ps/apply`` and snapshot spans, joined to the workers'
+traces by ``_sctx``) and ``/healthz`` (``restoring`` until the RPC plane
+serves, then ``serving``, ``draining`` through SIGTERM). The flight
+recorder is armed at ``<ps_snapshot_dir>/ps-<id>/postmortem`` (or
+``EDL_FLIGHT_RECORDER_DIR``).
 """
 
 import os
@@ -38,18 +44,7 @@ from elasticdl_tpu_torch.common.log_utils import default_logger as logger
 from elasticdl_tpu_torch.master.local_instance_manager import (
     PREEMPTED_EXIT_CODE,
 )
-
-
-def refuse_unported_ps_flags(args):
-    checks = (
-        ("the PS shard's telemetry endpoint", "--ps_telemetry_port",
-         getattr(args, "ps_telemetry_port", -1) != -1),
-    )
-    for plane, flag, asked in checks:
-        if asked:
-            raise NotImplementedError(
-                "%s is not ported yet (asked for by %s)" % (plane, flag)
-            )
+from elasticdl_tpu_torch.utils import profiling
 
 
 def tier_config(args):
@@ -82,11 +77,16 @@ class ParameterServer:
             mint_shard_epoch,
         )
 
-        refuse_unported_ps_flags(args)
         self._args = args
         self._server = None
         self._shm_registry = None
+        self._telemetry_http = None
+        self.ps_telemetry_port = None
         self._draining = threading.Event()
+        # /healthz: "restoring" until the RPC plane serves, then
+        # "serving", "draining" through SIGTERM
+        self._health = "restoring"
+        self._owns_flight_recorder = False
         self._warm_thread = None
         self.device = resolve_device(getattr(args, "device", "cuda"))
         module = load_zoo_module(args.model_def, args.model_zoo)
@@ -112,6 +112,15 @@ class ParameterServer:
             keep=getattr(args, "ps_snapshot_keep", 2),
         )
         self.snapshotter.set_shard_epoch(self.shard_epoch)
+        # postmortems land next to the shard's snapshots (durable across
+        # the relaunch); EDL_FLIGHT_RECORDER_DIR overrides for
+        # snapshot-less shards
+        fr_dir = os.environ.get("EDL_FLIGHT_RECORDER_DIR") or (
+            os.path.join(shard_dir, "postmortem") if shard_dir else ""
+        )
+        if fr_dir:
+            profiling.flight_recorder.arm(fr_dir)
+            self._owns_flight_recorder = True
         # restored before the servicer exists: a restored shard never
         # serves one call from an empty store
         self.restored_version = self.snapshotter.restore_into(
@@ -148,7 +157,21 @@ class ParameterServer:
             hello_extra={"shard_epoch": self.shard_epoch},
             writable_request_views=self.parameters.device is not None,
         )
+        telemetry_port = getattr(self._args, "ps_telemetry_port", -1)
+        if telemetry_port is not None and telemetry_port >= 0:
+            from elasticdl_tpu_torch.master.telemetry import (
+                ProcessTelemetry,
+                TelemetryHTTPServer,
+            )
+
+            self._telemetry_http = TelemetryHTTPServer(
+                ProcessTelemetry(),
+                port=telemetry_port,
+                health_fn=lambda: self._health,
+            )
+            self.ps_telemetry_port = self._telemetry_http.port
         self._server = serve(methods, self._args.port)
+        self._health = "serving"
         logger.info(
             "PS %d serving on port %d (shard_epoch %d%s, device %s, %s "
             "store%s)",
@@ -200,6 +223,7 @@ class ParameterServer:
             if self._draining.is_set():
                 return
             self._draining.set()
+            self._health = "draining"
             logger.warning("SIGTERM: draining a final shard snapshot")
             try:
                 self.servicer.drain_snapshot()
@@ -221,6 +245,9 @@ class ParameterServer:
         if self._server:
             self._server.stop()
             self._server = None
+        if self._telemetry_http is not None:
+            self._telemetry_http.close()
+            self._telemetry_http = None
         if self._shm_registry is not None:
             # reclaims every attached ring, SIGKILLed clients' included
             self._shm_registry.close()
@@ -232,6 +259,11 @@ class ParameterServer:
                 logger.warning("snapshotter close failed: %s", err)
             self.snapshotter = None
         self.parameters.close()
+        if self._owns_flight_recorder:
+            # the recorder is process-wide: an embedded shard must not
+            # leave it pointed at a torn-down directory
+            profiling.flight_recorder.disarm()
+            self._owns_flight_recorder = False
 
 
 def main(argv=None):
@@ -239,6 +271,9 @@ def main(argv=None):
 
     args = parse_ps_args(argv)
     logger.setLevel(args.log_level)
+    # name this process in every span id and postmortem header (entry
+    # points only: embedded shards keep the pid default)
+    profiling.spans.set_process("ps-%d" % args.ps_id)
     server = ParameterServer(args)
     server.prepare()
     server.install_drain_handler()

@@ -54,6 +54,7 @@ from elasticdl_tpu_torch.rpc.wire_compression import (
     compress_tensors,
     decompress_tensors,
 )
+from elasticdl_tpu_torch.utils import profiling
 
 
 def _infos(req):
@@ -191,19 +192,24 @@ class PserverServicer:
 
     def _maybe_snapshot(self):
         if self._snapshotter is not None:
-            self._snapshotter.maybe_snapshot(
-                self._parameters, apply_lock=self._optimizer.apply_lock
-            )
+            # the span times the capture's submit (the copy under the
+            # apply lock); the disk write runs on the snapshotter's
+            # thread, off every trace
+            with profiling.span("ps/snapshot_submit"):
+                self._snapshotter.maybe_snapshot(
+                    self._parameters, apply_lock=self._optimizer.apply_lock
+                )
 
     def drain_snapshot(self):
         """The SIGTERM drain's final snapshot: queued cadence writes land
         first, then the store as it is now; its directory, or None."""
         if self._snapshotter is None:
             return None
-        self._snapshotter.wait()
-        return self._snapshotter.snapshot_now(
-            self._parameters, apply_lock=self._optimizer.apply_lock
-        )
+        with profiling.span("ps/snapshot_drain"):
+            self._snapshotter.wait()
+            return self._snapshotter.snapshot_now(
+                self._parameters, apply_lock=self._optimizer.apply_lock
+            )
 
     # -- RPC methods ---------------------------------------------------------
 
@@ -263,7 +269,11 @@ class PserverServicer:
                     sparse[t.name] = t
                 else:
                     dense[t.name] = t.values
-            self._apply(dense, sparse, version)
+            # nests under the rpc/push_gradient server span when the
+            # caller shipped its span context: a trace shows the wire
+            # against the apply
+            with profiling.span("ps/apply"):
+                self._apply(dense, sparse, version)
             self._maybe_snapshot()
             return self._reply(
                 {"accepted": True, "version": self._parameters.version}
@@ -302,7 +312,8 @@ class PserverServicer:
                     for k, v in self._dense_sum.items()
                 }
                 try:
-                    self._apply(dense, self._indexed_sum, version)
+                    with profiling.span("ps/apply", sync=True):
+                        self._apply(dense, self._indexed_sum, version)
                 finally:
                     self._dense_sum = {}
                     self._indexed_sum = {}
@@ -387,13 +398,19 @@ class PserverServicer:
         })
 
     def rpc_methods(self):
-        return {
-            "pull_variable": self.pull_variable,
-            "pull_embedding_vector": self.pull_embedding_vector,
-            "push_model": self.push_model,
-            "push_embedding_info": self.push_embedding_info,
-            "push_gradient": self.push_gradient,
-            "ps_status": self.ps_status,
-            "serving_status": self.serving_status,
-            "pull_embedding_delta": self.pull_embedding_delta,
-        }
+        """The handlers, each recording its service time into
+        ``edl_rpc_server_latency_seconds{role="ps"}`` and opening the
+        ``rpc/<method>`` span of a caller's trace."""
+        return profiling.instrument_service_methods(
+            {
+                "pull_variable": self.pull_variable,
+                "pull_embedding_vector": self.pull_embedding_vector,
+                "push_model": self.push_model,
+                "push_embedding_info": self.push_embedding_info,
+                "push_gradient": self.push_gradient,
+                "ps_status": self.ps_status,
+                "serving_status": self.serving_status,
+                "pull_embedding_delta": self.pull_embedding_delta,
+            },
+            role="ps",
+        )

@@ -41,6 +41,7 @@ import time
 import numpy as np
 
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
+from elasticdl_tpu_torch.utils import profiling
 
 _SNAP_PREFIX = "snap_v"
 _TMP_PREFIX = "tmp-"
@@ -191,6 +192,7 @@ class ShardSnapshotter:
         self._keep = max(1, int(keep))
         self._mu = threading.Lock()
         self._last_submitted = -1
+        self._last_published = -1.0  # unix time of the last publish
         self._shard_epoch = 0
         self._async = None
         if self._every:
@@ -200,6 +202,22 @@ class ShardSnapshotter:
             )
 
             self._async = AsyncCheckpointer(name="ps-snap-%d" % ps_id)
+            # the age is collector-only: a Gauge series beside it would
+            # emit a second sample under the same name and labels
+            profiling.metrics.register_collector(self._collect_age)
+
+    def _collect_age(self):
+        """``edl_ps_snapshot_age_seconds{ps_id}`` at scrape time (none
+        before the first publish)."""
+        with self._mu:
+            last = self._last_published
+        if last <= 0:
+            return []
+        return [(
+            "edl_ps_snapshot_age_seconds",
+            {"ps_id": str(self._ps_id)},
+            round(time.time() - last, 3),
+        )]
 
     @property
     def every_versions(self):
@@ -259,7 +277,15 @@ class ShardSnapshotter:
         final = write_shard_snapshot(
             self._dir, state, ps_id=self._ps_id, shard_epoch=epoch
         )
+        with self._mu:
+            self._last_published = time.time()
         self._evict()
+        profiling.events.emit(
+            "ps_shard_snapshot",
+            ps_id=self._ps_id,
+            version=state["version"],
+            write_s=round(time.perf_counter() - t0, 4),
+        )
         logger.info(
             "ps %d: published snapshot v%d to %s in %.3f s",
             self._ps_id, state["version"], final, time.perf_counter() - t0,
@@ -282,6 +308,7 @@ class ShardSnapshotter:
         write wins, so it would ignore the workers' model."""
         if not self.is_enabled() or not os.path.isdir(self._dir):
             return None
+        t0 = time.perf_counter()
         for version in reversed(snapshot_versions(self._dir)):
             directory = snapshot_path(self._dir, version)
             try:
@@ -295,6 +322,13 @@ class ShardSnapshotter:
             parameters.restore_state(state)
             with self._mu:
                 self._last_submitted = version
+                self._last_published = time.time()
+            profiling.events.emit(
+                "ps_shard_restore_local",
+                ps_id=self._ps_id,
+                version=version,
+                restore_s=round(time.perf_counter() - t0, 4),
+            )
             logger.info(
                 "ps %d: restored snapshot v%d (%d dense, %d tables)",
                 self._ps_id, version, len(state["dense"]),
@@ -310,5 +344,6 @@ class ShardSnapshotter:
 
     def close(self):
         if self._async is not None:
+            profiling.metrics.unregister_collector(self._collect_age)
             self._async.close()
             self._async = None

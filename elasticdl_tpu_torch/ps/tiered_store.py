@@ -43,9 +43,9 @@ untiered table's, and :meth:`load_snapshot` lands everything warm and
 drops the old segments. An id indexed on disk is never minted afresh:
 every read promotes before it touches the warm store.
 
-The reference exports its counters through its telemetry registry; here
-they are attributes that :meth:`stats` reads (the port has no registry
-yet).
+The counters, which :meth:`stats` reads, reach the process registry
+through a scrape-time collector (``edl_tiered_*{table}``, the
+reference's families), and each spill emits a ``tiered_spill`` event.
 """
 
 import collections
@@ -55,6 +55,7 @@ import threading
 import numpy as np
 
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
+from elasticdl_tpu_torch.utils import profiling
 from elasticdl_tpu_torch.ps.snapshot import (
     read_shard_snapshot,
     remove_snapshot_dir,
@@ -121,6 +122,7 @@ class TieredEmbeddingTable:
             daemon=True,
         )
         self._thread.start()
+        profiling.metrics.register_collector(self._collect)
 
     # -- the inner table's identity -------------------------------------------
 
@@ -507,6 +509,9 @@ class TieredEmbeddingTable:
             self._seg_live[gen] = len(clean)
             self._spilled_rows += len(clean)
             self._spill_segments += 1
+        profiling.events.emit(
+            "tiered_spill", table=self.name, rows=len(clean), generation=gen
+        )
         return len(clean)
 
     def _drain_gc(self):
@@ -548,11 +553,29 @@ class TieredEmbeddingTable:
                 "warm_hit_rows": self._warm_hit_rows,
             }
 
+    def _collect(self):
+        s = self.stats()
+        labels = {"table": self.name}
+        pulls = s["warm_hit_rows"] + s["cold_pull_rows"]
+        return [
+            ("edl_tiered_warm_rows", labels, s["warm_rows"]),
+            ("edl_tiered_disk_rows", labels, s["disk_rows"]),
+            ("edl_tiered_spilled_rows_total", labels, s["spilled_rows"]),
+            ("edl_tiered_cold_pull_rows_total", labels,
+             s["cold_pull_rows"]),
+            ("edl_tiered_cold_pull_segments_total", labels,
+             s["cold_pull_segments"]),
+            ("edl_tiered_promoted_rows_total", labels, s["promoted_rows"]),
+            ("edl_tiered_warm_hit_rate", labels,
+             (s["warm_hit_rows"] / pulls) if pulls else 1.0),
+        ]
+
     def close(self):
         """Stop the demoter and delete the dead segments; the rows stay
         where they are (durability is the snapshots')."""
         if self._thread is None:
             return
+        profiling.metrics.unregister_collector(self._collect)
         self._stop.set()
         self._wake.set()
         self._thread.join(timeout=10.0)

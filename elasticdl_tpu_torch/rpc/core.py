@@ -60,6 +60,45 @@ class MessagePlan:
         self.total = total
 
 
+
+def client_metrics():
+    """The client-side families every client of the process shares
+    (docs/observability.md): (latency histogram, error counter, retry
+    counter), with the reference's names, labels and help."""
+    return (
+        profiling.metrics.histogram(
+            "edl_rpc_client_latency_seconds",
+            "Client-observed RPC latency by method "
+            "(per attempt, successes only)",
+            labels=("method",),
+        ),
+        profiling.metrics.counter(
+            "edl_rpc_client_errors_total",
+            "Client-observed RPC failures by method and "
+            "gRPC status code (per attempt)",
+            labels=("method", "code"),
+        ),
+        profiling.metrics.counter(
+            "edl_rpc_client_retries_total",
+            "UNAVAILABLE retries by method",
+            labels=("method",),
+        ),
+    )
+
+
+def inject_span_context(fields):
+    """Cross-process tracing (docs/observability.md): the innermost open
+    span's ``[trace_id, span_id]`` rides as the ``_sctx`` field, so the
+    serving process's ``rpc/<method>`` span joins the caller's trace.
+    A field already there (a shared-memory call injects into the slot's
+    payload, whose control message needs no copy) and a ``_shm_req``
+    control message are left as they are."""
+    if "_sctx" in fields or "_shm_req" in fields:
+        return
+    sctx = profiling.wire_span_context()
+    if sctx is not None:
+        fields["_sctx"] = sctx
+
 def plan_message(msg):
     """dict -> :class:`MessagePlan`, reading only the payloads'
     metadata (a tensor on the card is not touched)."""
@@ -223,16 +262,7 @@ class Client:
 
         self._grpc = grpc
         self._deadline_s = deadline_s if deadline_s else None
-        self._latency = profiling.metrics.histogram(
-            "edl_rpc_client_latency_seconds",
-            "Client-observed RPC latency by method (successes only)",
-            labels=("method",),
-        )
-        self._errors = profiling.metrics.counter(
-            "edl_rpc_client_errors_total",
-            "Client-observed RPC failures by method and gRPC status code",
-            labels=("method", "code"),
-        )
+        self._latency, self._errors, _ = client_metrics()
         self._channel = grpc.insecure_channel(addr, options=_GRPC_OPTIONS)
         self._stubs = {}
 
@@ -249,6 +279,8 @@ class Client:
                 response_deserializer=lambda b: b,
             )
             stub = self._stubs.setdefault(rpc_name, stub)
+        if _plan is None:
+            inject_span_context(fields)
         plan = _plan if _plan is not None else plan_message(fields)
         buf = bytearray(plan.total)
         pack_message_into(plan, buf)

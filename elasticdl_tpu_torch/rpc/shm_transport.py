@@ -42,8 +42,9 @@ Protocol:
 A slot reply decodes with a ``common/tensor.WireArena`` whose
 ``release()`` recycles the slot: consumers (``worker/ps_client.py``,
 ``master/rpc_service.py``) materialize what they keep, then release.
-The reference also carries a telemetry span context in the slot; the
-port has no span registry yet, so none is carried.
+The caller's telemetry span context rides in the slot's payload as the
+``_sctx`` field, as in the reference: the inline fallbacks reuse the
+same fields, and the control message carries none.
 """
 
 import atexit
@@ -326,11 +327,16 @@ class ShmChannel:
         # positional-only: a wire field may be named "method" (get_model's
         # method selector) and must land in ``fields``
         from elasticdl_tpu_torch.rpc.core import (
+            inject_span_context,
             pack_message_into,
             plan_message,
             unpack_message,
         )
 
+        # the span context rides the slot's payload (the control message
+        # carries only the slot spec), so it goes in before planning;
+        # the inline fallbacks reuse these fields
+        inject_span_context(fields)
         if self._ensure() != "on":
             return self._inline(method, fields)
         plan = plan_message(fields)

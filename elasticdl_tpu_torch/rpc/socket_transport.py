@@ -34,6 +34,8 @@ import time
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
 from elasticdl_tpu_torch.rpc.core import (
     MAX_MESSAGE_BYTES,
+    client_metrics,
+    inject_span_context,
     pack_message,
     pack_message_into,
     plan_message,
@@ -222,7 +224,9 @@ class Client:
     on a busy master must wait). ``retries``/``backoff_s``: a refused or
     reset connection (``UNAVAILABLE``) is retried up to ``retries`` times,
     the backoff doubling from ``backoff_s``; an expired deadline is not
-    retried, nor is a call with ``_retriable=False``."""
+    retried, nor is a call with ``_retriable=False``. Each attempt is
+    counted in the reference's client families: its latency (successes),
+    its error code, each retry."""
 
     def __init__(self, addr, deadline_s=None, retries=0, backoff_s=0.2):
         host, _, port = addr.rpartition(":")
@@ -230,6 +234,7 @@ class Client:
         self._deadline_s = deadline_s if deadline_s else None
         self._retries = retries
         self._backoff_s = backoff_s
+        self._latency, self._errors, self._retried = client_metrics()
         self._lock = threading.Lock()
         self._idle = []
         self._closed = False
@@ -293,7 +298,10 @@ class Client:
         """``_plan``: a ``rpc.core.MessagePlan`` of ``fields`` already
         made (the shared-memory channel's fallback does not plan a
         message twice). A ``_shm_req`` control message is an ordinary
-        field."""
+        field; the caller's span context rides as ``_sctx``
+        (``rpc.core.inject_span_context``)."""
+        if _plan is None:
+            inject_span_context(fields)
         plan = _plan if _plan is not None else plan_message(fields)
         if plan.total > MAX_MESSAGE_BYTES:
             raise RpcError(
@@ -305,9 +313,11 @@ class Client:
         pack_message_into(plan, frame)
         attempt = 0
         while True:
+            t0 = time.perf_counter()
             try:
-                return self._attempt(rpc_name, frame)
+                reply = self._attempt(rpc_name, frame)
             except socket.timeout as e:
+                self._errors.inc(method=rpc_name, code="DEADLINE_EXCEEDED")
                 raise RpcError(
                     "DEADLINE_EXCEEDED",
                     "%s after %ss" % (rpc_name, self._deadline_s),
@@ -315,18 +325,27 @@ class Client:
             except _ReplyCut as e:
                 # the master answered, then the line broke: the call may
                 # have taken effect, so it is not sent again
+                self._errors.inc(method=rpc_name, code="DATA_LOSS")
                 raise RpcError(
                     "DATA_LOSS", "%s reply from %s:%d cut: %s"
                     % (rpc_name, self._addr[0], self._addr[1], e)
                 ) from e
+            except RpcError as e:
+                self._errors.inc(method=rpc_name, code=e.code)
+                raise
             except (ConnectionError, OSError) as e:
+                self._errors.inc(method=rpc_name, code="UNAVAILABLE")
                 if not (_retriable and attempt < self._retries):
                     raise RpcError(
                         "UNAVAILABLE", "%s to %s:%d: %s"
                         % (rpc_name, self._addr[0], self._addr[1], e)
                     ) from e
+                self._retried.inc(method=rpc_name)
                 time.sleep(self._backoff_s * (2 ** attempt))
                 attempt += 1
+                continue
+            self._latency.observe(time.perf_counter() - t0, method=rpc_name)
+            return reply
 
     def close(self):
         with self._lock:

@@ -1,7 +1,8 @@
 """Scorer process entry: one pod of the serving fleet, on one device.
 
     python -m elasticdl_tpu_torch.serving.main --export_dir E \\
-        [--ps_addrs A,B] [--device cuda] [--scorer_transport socket]
+        [--ps_addrs A,B] [--device cuda] [--scorer_transport socket] \\
+        [--scorer_telemetry_port 0]
 
 Boot order: with ``--ps_addrs``, the PS channels (a deadline and bounded
 resends of the idempotent reads) and one hot-row cache shared by the
@@ -33,9 +34,8 @@ def build_scorer(args):
     bound channels, batcher)``. ``sync`` is None and the channels empty
     without ``--ps_addrs``; ``batcher`` is None when ``--serve_max_batch
     <= 1``. Each PS channel negotiates the shared-memory wire with a
-    co-located shard under ``--ps_shm auto`` or ``on``. Raises for the
-    plane not ported yet (telemetry HTTP) and when ``--device cuda``
-    finds no card."""
+    co-located shard under ``--ps_shm auto`` or ``on``. Raises when
+    ``--device cuda`` finds no card."""
     from elasticdl_tpu_torch.common.device import resolve_device
     from elasticdl_tpu_torch.nn.comm_plane import HotRowCache
     from elasticdl_tpu_torch.serving.batcher import MicroBatcher
@@ -46,11 +46,6 @@ def build_scorer(args):
     )
     from elasticdl_tpu_torch.worker.ps_client import BoundPS, PSClient
 
-    if args.scorer_telemetry_port >= 0:
-        raise NotImplementedError(
-            "--scorer_telemetry_port: the telemetry HTTP endpoint is not "
-            "ported yet"
-        )
     device = resolve_device(args.device)
     bound, ps_client, cache, sync = [], None, None, None
     addrs = [a for a in (args.ps_addrs or "").split(",") if a]
@@ -106,10 +101,12 @@ def main(argv=None):
     args = parse_scorer_args(argv)
     logger.setLevel(getattr(logging, args.log_level))
     profiling.spans.set_process("scorer-%d" % args.scorer_id)
+    profiling.maybe_arm_flight_recorder()
 
     scorer, watcher, sync, bound, batcher = build_scorer(args)
     server = ScorerServer(scorer, port=args.port, batcher=batcher,
-                          transport=args.scorer_transport)
+                          transport=args.scorer_transport,
+                          telemetry_port=args.scorer_telemetry_port)
     watcher.start()
     if sync is not None:
         sync.start()

@@ -14,9 +14,13 @@ transport (``rpc/socket_transport.py``) with the same frames, for a host
 without ``grpcio``. On either, the shared-memory endpoint
 (``rpc/shm_transport.py``) is always offered, as in the reference: a
 co-located client's ``ShmChannel`` sends its requests and takes its
-replies through a ring of slots. Not ported yet: the telemetry HTTP
-endpoint.
+replies through a ring of slots. With ``telemetry_port >= 0`` the
+server also serves ``/metrics``, ``/events``, ``/trace`` and ``/healthz``
+(``loading`` until the first model installs, then ``serving``,
+``draining`` through stop) from this process's registry.
 """
+
+import threading
 
 import numpy as np
 import torch
@@ -88,12 +92,15 @@ class ScorerServicer:
 
 
 class ScorerServer:
-    """One scorer process's RPC server. ``port=0`` binds an ephemeral
-    port (exposed as ``.port``); ``transport`` is ``"grpc"`` or
-    ``"socket"``; ``stop`` drains the batcher before the transport
-    goes, the attached rings after it."""
+    """One scorer process's RPC server and telemetry endpoint.
+    ``port=0`` binds an ephemeral port (exposed as ``.port``);
+    ``transport`` is ``"grpc"`` or ``"socket"``; ``telemetry_port >= 0``
+    serves the process registry over HTTP (exposed as
+    ``.telemetry_port``); ``stop`` drains the batcher before the
+    transport goes, the attached rings and the endpoint after it."""
 
-    def __init__(self, scorer, port=0, batcher=None, transport="grpc"):
+    def __init__(self, scorer, port=0, batcher=None, transport="grpc",
+                 telemetry_port=-1):
         from elasticdl_tpu_torch.rpc.shm_transport import install_shm_endpoint
 
         if transport not in ("grpc", "socket"):
@@ -101,6 +108,20 @@ class ScorerServer:
         self._scorer = scorer
         self._batcher = batcher
         self.servicer = ScorerServicer(scorer, batcher=batcher)
+        self._draining = threading.Event()
+        self._telemetry_http = None
+        if telemetry_port is not None and telemetry_port >= 0:
+            from elasticdl_tpu_torch.master.telemetry import (
+                ProcessTelemetry,
+                TelemetryHTTPServer,
+            )
+
+            self._telemetry_http = TelemetryHTTPServer(
+                ProcessTelemetry(),
+                port=telemetry_port,
+                health_fn=self._health,
+            )
+            self.telemetry_port = self._telemetry_http.port
         methods, self._shm_registry = install_shm_endpoint(
             self.servicer.rpc_methods()
         )
@@ -117,9 +138,19 @@ class ScorerServer:
         self._transport = transport
         if batcher is not None:
             batcher.start()
-        logger.info("scorer %s server on port %d", transport, self.port)
+        logger.info(
+            "scorer %s server on port %d%s", transport, self.port,
+            (" (telemetry on %d)" % self.telemetry_port
+             if self._telemetry_http is not None else ""),
+        )
+
+    def _health(self):
+        if self._draining.is_set():
+            return "draining"
+        return "serving" if self._scorer.model_version >= 0 else "loading"
 
     def stop(self):
+        self._draining.set()
         if self._batcher is not None:
             # drain before the transport goes: new submits shed as
             # "draining", queued requests get their replies
@@ -135,3 +166,6 @@ class ScorerServer:
         if self._shm_registry is not None:
             self._shm_registry.close()
             self._shm_registry = None
+        if self._telemetry_http is not None:
+            self._telemetry_http.close()
+            self._telemetry_http = None

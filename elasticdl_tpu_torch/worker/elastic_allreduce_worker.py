@@ -139,8 +139,10 @@ from elasticdl_tpu_torch.data.dataset import tree_map
 from elasticdl_tpu_torch.metrics import to_host
 from elasticdl_tpu_torch.parallel import distributed
 from elasticdl_tpu_torch.parallel.distributed import WorldBroken, WorldSpec
+from elasticdl_tpu_torch.utils import profiling
 from elasticdl_tpu_torch.worker.allreduce_worker import _first_leaf
 from elasticdl_tpu_torch.worker.task_data_service import TaskDataService
+from elasticdl_tpu_torch.worker.telemetry import WorkerTelemetry
 
 _ATTEMPTS = 3  # drained rounds before the eval-only drain ends; forward
 # attempts per prediction batch
@@ -222,6 +224,7 @@ class ElasticAllReduceWorker:
         remat="",
         task_prefetch=0,
         device="cuda",
+        telemetry_report_secs=5.0,
     ):
         self._serving_only = job_type in (
             JobType.EVALUATION_ONLY,
@@ -336,6 +339,13 @@ class ElasticAllReduceWorker:
             data_reader_params=data_reader_params,
             task_prefetch=task_prefetch,
         )
+        # job telemetry: step and example rates and the resize events
+        # ride the task-report channel (docs/observability.md)
+        self._telemetry = WorkerTelemetry(
+            worker_id,
+            stats=self._task_data_service.stats,
+            interval_s=telemetry_report_secs,
+        )
         self._forward_fn = None
         self._eval_params = None  # (params, state) on the device
         self._eval_params_version = None  # a training job's snapshot's
@@ -406,16 +416,28 @@ class ElasticAllReduceWorker:
             )
 
             exec_counters = with_model_version(self.trainer, exec_counters)
-        return self._stub.report_task_result(task_id, err_msg, exec_counters)
+        result = self._stub.report_task_result(
+            task_id, err_msg, exec_counters
+        )
+        # piggyback the (rate-limited) telemetry snapshot: the resize
+        # events reach the master's event log here
+        self._telemetry.ship(self._stub)
+        return result
 
     def run(self):
-        if self._job_type == JobType.EVALUATION_ONLY:
-            return self._run_eval_only()
-        if self._job_type == JobType.PREDICTION_ONLY:
-            return self._run_predict_only()
         try:
+            if self._job_type == JobType.EVALUATION_ONLY:
+                return self._run_eval_only()
+            if self._job_type == JobType.PREDICTION_ONLY:
+                return self._run_predict_only()
             return self._run()
         finally:
+            # the final flush: a job shorter than the report interval
+            # still lands one snapshot (best effort: the master may be
+            # gone already)
+            self._telemetry.ship(self._stub, force=True)
+            # the trace is flushed on the crash path too
+            profiling.maybe_stop_trace()
             # a crash skips _finalize; writes already queued must land
             self._drain_ckpt()
 
@@ -937,6 +959,9 @@ class ElasticAllReduceWorker:
                     digest=self.trainer.digest(),
                     **self.trainer.establish_times,
                 )
+            # one trace per world: started once it formed, stopped when
+            # it is left
+            profiling.maybe_start_trace()
             outcome = self._train_epoch(world, losses)
             if outcome in ("done", "preempted") or self._preempted:
                 break
@@ -1023,6 +1048,7 @@ class ElasticAllReduceWorker:
         self._flush_unreported(
             "" if ok else "collective failed before the update"
         )
+        profiling.maybe_stop_trace()  # the trace must not outlive its world
         self.trainer.leave()
         return verdict
 
@@ -1096,6 +1122,7 @@ class ElasticAllReduceWorker:
                 return "reform"
             if batch is not None:
                 self._unreported.append(count)
+                self._telemetry.on_batch(count)
             self._flush_unreported()
             if self._timeline.enabled:
                 self._timeline(
@@ -1181,6 +1208,7 @@ class ElasticAllReduceWorker:
                     logger.warning("final evaluation round failed",
                                    exc_info=True)
             self._process_save_model_task_if_needed()
+        profiling.maybe_stop_trace()
         if self._timeline.enabled and self.trainer.has_state:
             self._timeline(
                 "final", version=self.trainer.version,

@@ -43,6 +43,15 @@ each co-located shard (``--ps_shm_slots`` x ``--ps_shm_slot_mb``), and
 ``get_model``; cross-host, or on any failure to attach, the socket path
 stays (``rpc/shm_transport.py``). The worker closes every channel at
 exit, which unlinks its rings.
+
+Telemetry (docs/observability.md): every span and postmortem of the
+process names it ``worker-N``; ``EDL_FLIGHT_RECORDER_DIR`` arms the
+flight recorder (a worker owns no durable directory of its own); the
+worker ships a snapshot (its rates, input-plane counters, events and
+spans) behind its task reports every ``--telemetry_report_secs``.
+``EDL_PROFILE_DIR`` writes a ``torch.profiler`` Chrome trace there: of
+the whole run for the parameter-server worker, of each world for the
+elastic one (it starts once the world forms).
 """
 
 import os
@@ -58,10 +67,16 @@ from elasticdl_tpu_torch.common.model_utils import get_dict_from_params_str
 
 
 def main(argv=None):
+    from elasticdl_tpu_torch.utils import profiling
+
     args = parse_worker_args(argv)
     logger.setLevel(args.log_level)
+    profiling.spans.set_process("worker-%d" % args.worker_id)
+    profiling.maybe_arm_flight_recorder()
     if args.distribution_strategy != "AllreduceStrategy":
-        return _ps_main(args)
+        # the elastic worker traces each world itself, once it forms
+        with profiling.maybe_profile():
+            return _ps_main(args)
     from elasticdl_tpu_torch.master.rpc_service import MasterClient
     from elasticdl_tpu_torch.worker.elastic_allreduce_worker import (
         ElasticAllReduceWorker,
@@ -72,6 +87,7 @@ def main(argv=None):
     worker_id, device, standby = args.worker_id, args.device, None
     if args.standby:
         worker_id, device, standby = _park(stub, args)
+        profiling.spans.set_process("worker-%d" % worker_id)
     worker = ElasticAllReduceWorker(
         worker_id=worker_id,
         job_type=args.job_type,
@@ -96,6 +112,7 @@ def main(argv=None):
         remat=args.remat,
         task_prefetch=args.task_prefetch,
         device=device,
+        telemetry_report_secs=args.telemetry_report_secs,
     )
     if standby is not None:
         worker.record_event("standby", **standby)
@@ -180,6 +197,7 @@ def ps_worker(args, stub, ps_client):
         export_every_versions=args.export_every_versions,
         export_keep=args.export_keep,
         embedding_plane=args.embedding_plane,
+        telemetry_report_secs=args.telemetry_report_secs,
     )
 
 

@@ -75,6 +75,7 @@ from elasticdl_tpu_torch.common.tensor import (
     release_message,
 )
 from elasticdl_tpu_torch.nn.comm_plane import HotRowCache
+from elasticdl_tpu_torch.utils import profiling
 from elasticdl_tpu_torch.rpc.wire_compression import (
     compress_tensors,
     decompress_tensors,
@@ -182,8 +183,17 @@ class PSClient:
                     (shard, prev, epoch, version, time.time())
                 )
         if changed:
+            dropped = 0
             if self._cache is not None:
-                self._cache.invalidate_shard(shard, version=version)
+                dropped = self._cache.invalidate_shard(shard, version=version)
+            profiling.events.emit(
+                "ps_shard_restore",
+                shard=shard,
+                old_epoch=prev,
+                new_epoch=epoch,
+                version=version,
+                cache_rows_invalidated=dropped,
+            )
             logger.warning(
                 "PS shard %s relaunched (epoch %s -> %s) at version %s; "
                 "the in-flight push window is abandoned",
@@ -478,6 +488,9 @@ class PSClient:
             accepted, version = fut.result()
         except Exception as err:  # noqa: BLE001 - raised unless abandoned
             if self._gen_snapshot() != gen:
+                profiling.events.emit(
+                    "ps_push_window_dropped", reason=str(err)[:200]
+                )
                 logger.warning(
                     "an in-flight gradient push was abandoned across a PS "
                     "shard relaunch (dropped, not resent): %s", err,
@@ -654,6 +667,16 @@ class BoundPS:
                     method, _retriable=(method != "push_gradient"), **req
                 )
             except RpcError as err:
-                raise PSRpcError(self._addr, method, err) from err
+                wrapped = PSRpcError(self._addr, method, err)
+                # a fleet-visible event: it rides the worker's next
+                # telemetry snapshot into the master's job log, and arms
+                # the flight recorder's postmortem
+                profiling.events.emit(
+                    "ps_shard_failure",
+                    addr=self._addr,
+                    method=method,
+                    code=getattr(wrapped.code, "name", wrapped.code),
+                )
+                raise wrapped from err
 
         return call

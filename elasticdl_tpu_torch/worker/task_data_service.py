@@ -32,6 +32,7 @@ from elasticdl_tpu_torch.common.log_utils import default_logger as logger
 from elasticdl_tpu_torch.data.data_reader import create_data_reader
 from elasticdl_tpu_torch.data.dataset import Dataset, create_dataset_from_tasks
 from elasticdl_tpu_torch.data.input_stats import InputPlaneStats
+from elasticdl_tpu_torch.utils import profiling
 
 _ABANDON_MSG = "round abandoned (spare park)"
 _SENTINEL = object()
@@ -272,7 +273,10 @@ class TaskDataService:
         outbox.append((task.task_id, err_msg, counters))
 
     def _send_ack(self, task_id, err_msg, counters):
-        with self.stats.timed("ack_s"):
+        with profiling.span(
+            "task/ack",
+            trace_id=(counters or {}).get(TaskExecCounterKey.TRACE_ID),
+        ), self.stats.timed("ack_s"):
             self._worker.report_task_result(
                 task_id, err_msg, exec_counters=counters
             )
@@ -395,7 +399,16 @@ class TaskDataService:
             warm = self._prefetch_warm_records
         it = iter(self.data_reader.read_records(task))
         head = []
-        with self.stats.timed("read_s"):
+        # the dispatcher's trace id labels the warm read, so a timeline
+        # joins it to the same task's train span on the consumer thread
+        trace_id = (getattr(task, "extended_config", None) or {}).get(
+            "trace_id", "untraced"
+        )
+        with profiling.annotate(
+            "edl/task/%s/warm" % trace_id
+        ), profiling.span(
+            "task/warm", trace_id=trace_id, records=warm
+        ), self.stats.timed("read_s"):
             for _ in range(max(0, warm)):
                 rec = next(it, _SENTINEL)
                 if rec is _SENTINEL:
@@ -457,7 +470,9 @@ class TaskDataService:
             with self._ledger_lock:
                 task, self._primed_task = self._primed_task, None
             if task is None:
-                with self.stats.timed("task_starved_s"):
+                with profiling.span("task/wait"), self.stats.timed(
+                    "task_starved_s"
+                ):
                     task = self._worker.get_task()
             if self._round_id != gen_id:
                 if task.shard_name:
@@ -489,7 +504,9 @@ class TaskDataService:
         fetcher.start()
         try:
             while True:
-                with self.stats.timed("task_starved_s"):
+                with profiling.span("task/wait"), self.stats.timed(
+                    "task_starved_s"
+                ):
                     item = fetcher.next_item()
                 if item is None:
                     return

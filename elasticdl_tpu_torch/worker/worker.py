@@ -118,12 +118,14 @@ from elasticdl_tpu_torch.nn.embedding import (
 )
 from elasticdl_tpu_torch.ps.parameters import EmbeddingTableInfo
 from elasticdl_tpu_torch.training.step import fold_in
+from elasticdl_tpu_torch.utils import profiling
 from elasticdl_tpu_torch.worker.allreduce_worker import _first_leaf
 from elasticdl_tpu_torch.worker.elastic_allreduce_worker import (
     _flash_launches,
     _Timeline,
 )
 from elasticdl_tpu_torch.worker.task_data_service import TaskDataService
+from elasticdl_tpu_torch.worker.telemetry import WorkerTelemetry
 
 
 class _StepTimer:
@@ -191,6 +193,7 @@ class Worker:
         export_keep=4,
         embedding_plane="ps",
         embedding_prefetch=None,
+        telemetry_report_secs=5.0,
     ):
         from elasticdl_tpu_torch.common.device import resolve_device
 
@@ -325,6 +328,14 @@ class Worker:
             task_prefetch=task_prefetch,
             ack_queue_size=task_ack_queue,
         )
+        # job telemetry: per-batch rate accounting and low-frequency
+        # snapshots shipped behind task reports (docs/observability.md)
+        self._telemetry = WorkerTelemetry(
+            worker_id,
+            stats=self._task_data_service.stats,
+            interval_s=telemetry_report_secs,
+            ps_client=ps_client,
+        )
 
     # -- the master's surface -----------------------------------------------
 
@@ -336,7 +347,13 @@ class Worker:
         return self._stub.get_task(self._worker_id, task_type)
 
     def report_task_result(self, task_id, err_msg="", exec_counters=None):
-        return self._stub.report_task_result(task_id, err_msg, exec_counters)
+        result = self._stub.report_task_result(
+            task_id, err_msg, exec_counters
+        )
+        # the piggyback point: a task ack already cost a master round
+        # trip, so the (rate-limited) telemetry snapshot rides here
+        self._telemetry.ship(self._stub)
+        return result
 
     @contextlib.contextmanager
     def _timed(self, phase):
@@ -403,7 +420,7 @@ class Worker:
         is pulled."""
         if self._dense_local:
             return
-        with self._timed("get_model"):
+        with profiling.span("step/pull_model"), self._timed("get_model"):
             if self._ps_client is not None:
                 got_version, named = self._pull_dense()
             else:
@@ -476,7 +493,8 @@ class Worker:
         if self._ps_client is None:
             return
         try:
-            accepted, _ = self._sparse_plane.drain()
+            with profiling.span("task/push_drain"):
+                accepted, _ = self._sparse_plane.drain()
         except RuntimeError as err:
             logger.warning(
                 "the gradient push window drained with a shard failure; "
@@ -696,21 +714,26 @@ class Worker:
         is consumed (the split's ``pull`` is then its tail wait and
         ``pull_bg`` the background pull); otherwise (the first batch, a
         retry after a rejection, a dropped round) it runs inline."""
-        pre = None
-        if self._emb_pipeline is not None:
-            with self._timed("pull"):
-                pre = self._emb_pipeline.consume(features)
-        if pre is not None:
-            (lookups, plan_s), pulled = pre
-            if self._timer is not None:
-                self._timer.add("plan", plan_s)
-                self._timer.add("pull_bg", self._emb_pipeline.last_pull_s)
-                self._timer.pipelined = True
-        else:
-            with self._timed("plan"):
-                lookups = self._plan_embedding_lookups(features)
-            with self._timed("pull"):
-                pulled = self._pull_embedding_rows(lookups)
+        with profiling.span("step/embedding_pull") as sp:
+            pre = None
+            if self._emb_pipeline is not None:
+                with self._timed("pull"):
+                    pre = self._emb_pipeline.consume(features)
+            if pre is not None:
+                # the wait here is the tail of the overlapped pull
+                sp.add(pipelined=True)
+                (lookups, plan_s), pulled = pre
+                if self._timer is not None:
+                    self._timer.add("plan", plan_s)
+                    self._timer.add(
+                        "pull_bg", self._emb_pipeline.last_pull_s
+                    )
+                    self._timer.pipelined = True
+            else:
+                with self._timed("plan"):
+                    lookups = self._plan_embedding_lookups(features)
+                with self._timed("pull"):
+                    pulled = self._pull_embedding_rows(lookups)
         rows, idx, plan = {}, {}, {}
         for path, (unique, idxs) in lookups.items():
             rows[path] = torch.tensor(pulled[path], device=self._device)
@@ -739,21 +762,30 @@ class Worker:
         rng = fold_in(
             self._seed * 100003 + self._worker_id, self._step_count
         )
-        if self._embedding_dims:
-            rows, idx, plan = self._prepare_embedding_batch(features)
+        # step/compute: the rows' preparation (which nests
+        # step/embedding_pull) and forward and backward; the device work
+        # that outlives the dispatch lands in step/grad_push, where the
+        # gradients leave the card
+        with profiling.span("step/compute"):
+            if self._embedding_dims:
+                rows, idx, plan = self._prepare_embedding_batch(features)
+                with self._timed("compute"):
+                    loss, grads, row_grads, new_state, _ = (
+                        self._emb_grad_fn(
+                            self._params, rows, self._state, idx, features,
+                            labels, rng,
+                        )
+                    )
+                self._state = new_state
+                return (
+                    loss, grads, self._sparse_grad_tensors(row_grads, plan)
+                )
             with self._timed("compute"):
-                loss, grads, row_grads, new_state, _ = self._emb_grad_fn(
-                    self._params, rows, self._state, idx, features,
-                    labels, rng,
+                loss, grads, new_state, _ = self._grad_fn(
+                    self._params, self._state, features, labels, rng
                 )
             self._state = new_state
-            return loss, grads, self._sparse_grad_tensors(row_grads, plan)
-        with self._timed("compute"):
-            loss, grads, new_state, _ = self._grad_fn(
-                self._params, self._state, features, labels, rng
-            )
-        self._state = new_state
-        return loss, grads, None
+            return loss, grads, None
 
     def forward_process(self, features):
         if self._embedding_dims:
@@ -770,17 +802,19 @@ class Worker:
             # dense ones update this worker's copy once accepted
             accepted, version = True, -1
             if sparse_grads:
-                with self._timed("report"):
+                with profiling.span("step/grad_push", sparse=True), \
+                        self._timed("report"):
                     accepted, version = self._sparse_plane.push(
                         sparse_grads, max(self._model_version, 0)
                     )
             if version is not None and version >= 0:
                 self._model_version = max(self._model_version, version)
             if accepted:
-                with self._timed("local_update"):
+                with profiling.span("step/local_update"), \
+                        self._timed("local_update"):
                     self._apply_local_dense(grads)
             return accepted, self._model_version, loss
-        with self._timed("report"):
+        with profiling.span("step/grad_push"), self._timed("report"):
             accepted, min_model_version = self.report_gradient(
                 grads, sparse_grads
             )
@@ -815,7 +849,11 @@ class Worker:
         train_with_local_model=False,
     ):
         if not self._var_created or self._params is None:
-            self._run_model_call_before_training(features)
+            # variable creation (the init pass and its report) takes
+            # seconds on a cold device; its own span keeps the first
+            # step's attribution whole
+            with profiling.span("step/var_init"):
+                self._run_model_call_before_training(features)
         for _ in range(MAX_MINIBATCH_RETRY_NUM):
             if task_type == TaskType.EVALUATION:
                 if min_model_version == -1:
@@ -996,29 +1034,11 @@ class Worker:
             < self._last_export_version + self._export_every
         ):
             return
-        import shutil
-
-        from elasticdl_tpu_torch.common.export import export_model
-
         version = self._model_version
         t0 = time.perf_counter()
         try:
-            self._drain_ps_pushes()
-            final = os.path.join(self._export_dir, "v%010d" % version)
-            staging = os.path.join(
-                self._export_dir,
-                ".staging-v%010d-w%s" % (version, self._worker_id),
-            )
-            export_model(
-                staging, self._to_wire(self._params), version,
-                metadata=self._export_meta,
-            )
-            try:
-                os.rename(staging, final)
-            except OSError:
-                # another worker exported this version first
-                shutil.rmtree(staging, ignore_errors=True)
-            self._prune_exports()
+            with profiling.span("step/export", version=version):
+                self._streaming_export(version)
             self.exports.append((version, time.perf_counter() - t0))
         except Exception:  # noqa: BLE001 - the next cadence point retries
             logger.warning(
@@ -1026,6 +1046,30 @@ class Worker:
                 "cadence point", version, exc_info=True,
             )
         self._last_export_version = version
+
+    def _streaming_export(self, version):
+        """Stage ``version``'s params-only artifact and rename it into
+        place (another worker's rename of the same version wins)."""
+        import shutil
+
+        from elasticdl_tpu_torch.common.export import export_model
+
+        self._drain_ps_pushes()
+        final = os.path.join(self._export_dir, "v%010d" % version)
+        staging = os.path.join(
+            self._export_dir,
+            ".staging-v%010d-w%s" % (version, self._worker_id),
+        )
+        export_model(
+            staging, self._to_wire(self._params), version,
+            metadata=self._export_meta,
+        )
+        try:
+            os.rename(staging, final)
+        except OSError:
+            # another worker exported this version first
+            shutil.rmtree(staging, ignore_errors=True)
+        self._prune_exports()
 
     def _prune_exports(self):
         """Drop the oldest complete artifacts beyond ``export_keep``, and
@@ -1092,12 +1136,28 @@ class Worker:
                 else:
                     train_with_local_model = True
                 batch_count = self._batch_count(dataset_batch)
-                err_msg = self._process_minibatch_and_report(
-                    dataset_batch,
-                    task.type,
-                    task.model_version,
-                    train_with_local_model,
+                # the dispatcher's task trace id roots the per-minibatch
+                # "step" span that tools/tracetool.py decomposes; its
+                # children (pull_model, compute, grad_push, ...) inherit
+                # trace and parent from the thread's span stack
+                trace_id = (task.extended_config or {}).get(
+                    "trace_id", "untraced"
                 )
+                with profiling.annotate(
+                    "edl/task/%s/train" % trace_id
+                ), profiling.span(
+                    "step",
+                    trace_id=trace_id,
+                    task=getattr(task, "task_id", None),
+                    examples=batch_count,
+                ):
+                    err_msg = self._process_minibatch_and_report(
+                        dataset_batch,
+                        task.type,
+                        task.model_version,
+                        train_with_local_model,
+                    )
+                self._telemetry.on_batch(batch_count)
                 self._maybe_streaming_export()
                 local_update_count += 1
                 if err_msg:
@@ -1165,11 +1225,13 @@ class Worker:
             dataset = dataset.batch(self._minibatch_size).prefetch(1)
             for dataset_batch in dataset:
                 task = self._task_data_service.get_current_task()
+                batch_count = self._batch_count(dataset_batch)
                 err_msg = self._process_minibatch_and_report(
                     dataset_batch, task.type, task.model_version
                 )
+                self._telemetry.on_batch(batch_count)
                 self._task_data_service.report_record_done(
-                    self._batch_count(dataset_batch), err_msg
+                    batch_count, err_msg
                 )
             del dataset
             self._task_data_service.drain_acks()
@@ -1196,6 +1258,8 @@ class Worker:
                 self._emb_pipeline.close()
         self._drain_ps_pushes()
         self._task_data_service.drain_acks()
+        # the final flush: a short job still lands one snapshot
+        self._telemetry.ship(self._stub, force=True)
         losses = [float(loss) for loss in self.losses]
         if self._timeline.enabled:
             self._timeline(

@@ -82,7 +82,7 @@ def test_every_port_module_imports_without_jax():
     # elastic embedding layer and parameter-server worker, and the PS
     # fleet's shard, snapshots, client, placement hashing, compressed
     # wire and master entry)
-    assert count >= 104
+    assert count >= 109
     for name in ("master.journal", "rpc.failover", "nn.hbm_embedding",
                  "rpc.shm_transport", "rpc.socket_transport", "rpc.core",
                  "common.tensor", "master.rpc_service", "master.master",
@@ -101,7 +101,11 @@ def test_every_port_module_imports_without_jax():
                  "model_zoo.cifar10_functional_api.cifar10_functional_api",
                  "model_zoo.resnet50_subclass.resnet50_subclass",
                  "model_zoo.deepfm_functional_api.deepfm_functional_api",
-                 "model_zoo.deepfm_edl_embedding.deepfm_edl_embedding"):
+                 "model_zoo.deepfm_edl_embedding.deepfm_edl_embedding",
+                 # the telemetry plane
+                 "utils.profiling", "common.tb_events",
+                 "master.tensorboard_service", "master.telemetry",
+                 "worker.telemetry", "tools.tracetool"):
         assert "elasticdl_tpu_torch." + name in proc.stdout.split(), name
 
 

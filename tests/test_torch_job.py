@@ -450,6 +450,7 @@ def test_cli_runs_a_job_and_continues_it(tmp_path):
 @pytest.mark.parametrize(
     "flag",
     [
+        # accepted: the telemetry plane runs
         ["--telemetry_port", "0"],
         ["--telemetry_events_path", "e"],
         # accepted: the shared-memory master channel is ported, and the
@@ -460,6 +461,8 @@ def test_cli_runs_a_job_and_continues_it(tmp_path):
         ["--distribution_strategy", "ParameterServerStrategy",
          "--embedding_plane", "hybrid"],
         ["--docker_image_repository", "r"],
+        # accepted: the telemetry plane runs (the endpoint, the event
+        # sink, TensorBoard)
         ["--tensorboard_log_dir", "tb"],
     ],
 )
@@ -472,6 +475,22 @@ def test_cli_refuses_unported_planes(tmp_path, flag):
     ] + flag
     if "hybrid" in flag or "--master_shm" in flag:
         assert api.cli_main(argv) == 0
+        return
+    telemetry = {"--telemetry_port", "--telemetry_events_path",
+                 "--tensorboard_log_dir"}
+    if flag[0] in telemetry:
+        # accepted: the master's telemetry plane is ported; a path
+        # flag's value lands under tmp_path
+        if flag[0] != "--telemetry_port":
+            argv[-1] = str(tmp_path / flag[1])
+        assert api.cli_main(argv) == 0
+        if flag[0] == "--telemetry_events_path":
+            assert os.path.isfile(argv[-1])
+        elif flag[0] == "--tensorboard_log_dir":
+            names = os.listdir(argv[-1])
+            # the evaluation scalars' file and the registry exporter's
+            assert "scalars.jsonl" in names
+            assert any(n.endswith(".telemetry") for n in names), names
         return
     with pytest.raises(NotImplementedError):
         api.cli_main(argv)

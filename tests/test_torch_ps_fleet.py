@@ -531,37 +531,55 @@ def test_the_fleet_job_matches_the_held_job(monkeypatch, tmp_path):
 @pytest.mark.parametrize(
     "flags,outcome",
     [(["--ps_device", "true"], "built"),
-     (["--ps_warm_rows", "8", "--ps_spill_dir", "d"], "built"),
-     (["--ps_telemetry_port", "0"], "refused"),
+     (["--ps_warm_rows", "8", "--ps_spill_dir", "{tmp}"], "built"),
+     (["--ps_telemetry_port", "0"], "serves"),
      (["--ps_shm", "on"], "unknown")],
     ids=["ps_device", "tiered", "telemetry", "shm"],
 )
-def test_unported_shard_planes_raise_by_name(flags, outcome):
-    """Only the telemetry endpoint is still refused; ``--ps_device`` and
-    the tier flags pass ``refuse_unported_ps_flags`` (a shard built from
-    them: tests/test_torch_tiered_store.py). The shard has no
-    ``--ps_shm``, as the reference's has none (it always offers the
-    shared-memory endpoint): the parser leaves it among the unknown
-    flags, as the reference's does."""
-    from elasticdl_tpu_torch.common.args import parse_ps_args
-    from elasticdl_tpu_torch.ps.parameter_server import (
-        main,
-        refuse_unported_ps_flags,
-    )
+def test_unported_shard_planes_raise_by_name(flags, outcome, tmp_path):
+    """No shard plane is refused any more: a shard builds from
+    ``--ps_device`` and the tier flags, and one with
+    ``--ps_telemetry_port 0`` serves its registry on ``/metrics`` and
+    ``serving`` on ``/healthz``. The shard has no ``--ps_shm``, as the
+    reference's has none (it always offers the shared-memory endpoint):
+    the parser leaves it among the unknown flags, as the reference's
+    does."""
+    import urllib.request
 
-    argv = ["--ps_id", "0", "--port", "1", "--model_zoo", "",
-            "--model_def", DEEPFM, "--device", "cpu"] + flags
-    if outcome == "refused":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            main(argv)
-    elif outcome == "unknown":
+    from elasticdl_tpu_torch.common.args import parse_ps_args
+    from elasticdl_tpu_torch.ps.parameter_server import ParameterServer
+
+    import socket
+
+    with socket.socket() as probe:
+        probe.bind(("", 0))
+        port = probe.getsockname()[1]
+    argv = ["--ps_id", "0", "--port", str(port), "--model_zoo", "",
+            "--model_def", DEEPFM, "--device", "cpu"]
+    argv += [f.replace("{tmp}", str(tmp_path)) for f in flags]
+    if outcome == "unknown":
         from elasticdl_tpu.common import args as ref_args
 
         args = parse_ps_args(argv)
         assert not hasattr(args, "ps_shm")
         assert not hasattr(ref_args.parse_ps_args(argv), "ps_shm")
-    else:
-        refuse_unported_ps_flags(parse_ps_args(argv))
+        return
+    server = ParameterServer(parse_ps_args(argv))
+    try:
+        if outcome == "serves":
+            server.prepare()
+            base = "http://127.0.0.1:%d" % server.ps_telemetry_port
+            server.servicer.rpc_methods()["ps_status"]({})
+            with urllib.request.urlopen(base + "/metrics", timeout=10) as r:
+                text = r.read().decode()
+            assert ('edl_rpc_server_latency_seconds_count{role="ps",'
+                    'method="ps_status"}') in text
+            with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
+                assert r.read().decode().strip() == "serving"
+        else:
+            assert server.ps_telemetry_port is None
+    finally:
+        server.stop()
 
 
 def test_the_hot_row_cache_raises_in_the_client():

@@ -249,9 +249,26 @@ def test_master_client_answers_as_the_servicer(monkeypatch):
         assert client.standby_poll(7) == (None, None)
         remote_m.standby.activate(5, device="cuda:1")
         assert client.standby_poll(7) == (5, "cuda:1")
-        with pytest.raises(st.RpcError,
-                           match="NotImplementedError.*report_telemetry"):
-            client._client.call("report_telemetry")
+        # a worker's telemetry snapshot is accepted: a no-op without a
+        # JobTelemetry, ingested into the servicer's when it has one
+        client.report_telemetry({"worker_id": 3})
+        from elasticdl_tpu_torch.master.telemetry import JobTelemetry
+        from elasticdl_tpu_torch.utils.profiling import (
+            EventLog,
+            MetricsRegistry,
+            SpanLog,
+        )
+
+        registry = MetricsRegistry()
+        remote.telemetry = JobTelemetry(
+            registry=registry, event_log=EventLog(), span_log=SpanLog()
+        )
+        client.report_telemetry(
+            {"worker_id": 3, "examples_per_sec": 12.5}
+        )
+        assert registry.gauge(
+            "edl_worker_examples_per_sec", labels=("worker",)
+        ).value(worker="3") == 12.5
     finally:
         client.close()
         server.stop()

@@ -267,10 +267,26 @@ def test_unported_planes_raise(tmp_path):
     scorer.close()
     for channel in bound:
         channel.close()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_scorer(
-            parse_scorer_args(base + ["--scorer_telemetry_port", "0"])
-        )
+    # the telemetry endpoint answers: loading before the first model
+    scorer, _, _, _, batcher = build_scorer(
+        parse_scorer_args(base + ["--scorer_telemetry_port", "0"])
+    )
+    server = ScorerServer(scorer, batcher=batcher, transport="socket",
+                          telemetry_port=0)
+    try:
+        import urllib.error
+        import urllib.request
+
+        url = "http://127.0.0.1:%d" % server.telemetry_port
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(url + "/healthz", timeout=10)
+        assert err.value.code == 503
+        assert err.value.read().decode().strip() == "loading"
+        with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+            assert "edl_scorer_model_version" in r.read().decode()
+    finally:
+        server.stop()
+        scorer.close()
     path = _export_jax(tmp_path, 1)
     manifest_path = os.path.join(path, "MANIFEST.json")
     with open(manifest_path) as f:
