@@ -171,11 +171,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
    port's tracetool attributes at least 90 % of traced step time to
    named phases; the event file parses line by line. The telemetry
    plane's overhead, measured first in the phase: the reference's A/B
-   harness (its telemetry and trace benches' first arm, at four times
-   its tasks, run serially), six arms with the plane engaged and six off,
-   each a process of its own, all at once: the median extra process CPU
-   over the off arms' median wall, below 2 %, printed beside F1's
-   examples/s. F2: two async workers (``--get_model_steps 2``), shard
+   harness (its telemetry and trace benches' first arm, at sixteen times
+   its tasks, run serially), twelve arms with the plane engaged and
+   twelve off, each a process of its own forked from one that imported
+   and warmed it, all at once: the engaged arms' median process CPU less
+   the off arms', over the off arms' median wall, below 2 %, with its
+   noise (the bootstrap's) below 1 % and each side's spread, printed
+   beside F1's examples/s (taken with the plane on and the task acks
+   inline; ``--f1-order`` runs F1 in turns with and without the plane). F2: two async workers (``--get_model_steps 2``), shard
    snapshots every 8 versions, shard 1 SIGKILLed at version 8: the
    relaunch restores ``snap_v8`` or newer under a new ``shard_epoch``,
    every task done once an epoch (the journal), finite losses; kill ->
@@ -4656,12 +4659,13 @@ class _Fleet:
     dataset shuffle and cuDNN's deterministic algorithms (or through the
     wrapper it names). ``ps_by_shard`` maps a shard to flags of its
     own. ``worker_postmortem``: each worker's flight recorder is armed
-    at ``<it>/worker-<id>`` (``EDL_FLIGHT_RECORDER_DIR``)."""
+    at ``<it>/worker-<id>`` (``EDL_FLIGHT_RECORDER_DIR``). ``env``:
+    variables every process of the fleet gets."""
 
     def __init__(self, tmp, name, model_def, data, batch, shards=2,
                  workers=1, epochs=1, job=(), ps=(), worker=(),
                  deterministic=False, val=None, ps_by_shard=None,
-                 worker_postmortem=None):
+                 worker_postmortem=None, env=None):
         from elasticdl_tpu_torch.master.local_instance_manager import (
             LocalInstanceManager,
         )
@@ -4721,19 +4725,20 @@ class _Fleet:
                     "run_name='__main__')")
             return [sys.executable, "-c", arm + waits + wrapper % (flags,)]
 
-        env = dict(os.environ)
-        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        fleet_env = dict(os.environ)
+        fleet_env["PYTHONPATH"] = REPO + os.pathsep + fleet_env.get(
+            "PYTHONPATH", "")
         # the master lingers one second past the last task, not three:
         # its worker processes learn "no more tasks" in milliseconds, and
         # each fleet run waits the linger out
-        env.update(EDL_WORKER_TIMELINE_DIR=self.timeline,
-                   EDL_MASTER_POLL_SECS="1",
-                   EDL_MASTER_EXIT_GRACE_S="1",
-                   EDL_TASK_SHUFFLE_SEED=str(SEED))
+        fleet_env.update(EDL_WORKER_TIMELINE_DIR=self.timeline,
+                         EDL_MASTER_POLL_SECS="1",
+                         EDL_MASTER_EXIT_GRACE_S="1",
+                         EDL_TASK_SHUFFLE_SEED=str(SEED), **(env or {}))
         self.manager = LocalInstanceManager(
             None, workers, worker_command, [DEVICE] * workers,
             num_ps=shards, ps_command=self.ps_argv if shards else None,
-            env=env, master_command=lambda: self.master_argv,
+            env=fleet_env, master_command=lambda: self.master_argv,
         )
 
     def ps_addrs(self):
@@ -4948,16 +4953,30 @@ def _f1_paths(tmp, wire):
             os.path.join(tmp, name + "-ckpt"))
 
 
-def _f1_fleet(tmp, wire=None):
-    """F1's fleet (F5's bf16-wire repeat's with ``wire``). F1 runs the
-    telemetry plane: the master's endpoint and event file, each shard's
-    endpoint, the worker's snapshot every second (its task acks inline,
-    so each one carries the snapshot due)."""
+# F1's telemetry plane, by arm (``--f1-order`` runs F1 once per arm, in
+# turns): "on" as the every-phase run has it (the master's endpoint and
+# event file, each shard's endpoint, the worker's snapshot every second
+# with its task acks sent inline, so that each ack carries the snapshot
+# due, the endpoints scraped); "acks" only the acks inline; "plain" no
+# flag of the plane, as F1 ran before the plane (acks queued, sent at the
+# end); "off" plain with EDL_METRICS=0 in every process of the fleet
+F1_PLANES = ("on", "acks", "plain", "off")
+
+
+def _f1_fleet(tmp, wire=None, plane="on"):
+    """F1's fleet with its telemetry ``plane`` (one of F1_PLANES; the
+    flags, the environment and the scraper go together), or F5's
+    bf16-wire repeat's with ``wire`` (plain)."""
     name, val, out, ckpt = _f1_paths(tmp, wire)
     wire_flags = ["--wire_dtype", wire] if wire else []
+    if wire is not None:
+        plane = "plain"
+    if plane not in F1_PLANES:
+        raise PhaseError("F1's plane is one of %s, not %r"
+                         % (F1_PLANES, plane))
     job, ps_by_shard, worker = [], None, []
     telemetry = None
-    if wire is None:
+    if plane == "on":
         telemetry = {
             "master": _free_port(),
             "shards": [_free_port() for _ in range(FLEET_SHARDS)],
@@ -4967,8 +4986,9 @@ def _f1_fleet(tmp, wire=None):
                "--telemetry_events_path", telemetry["events"]]
         ps_by_shard = {i: ["--ps_telemetry_port", str(p)]
                        for i, p in enumerate(telemetry["shards"])}
-        worker = ["--telemetry_report_secs", str(F1_REPORT_SECS),
-                  "--task_ack_queue", "0"]
+        worker = ["--telemetry_report_secs", str(F1_REPORT_SECS)]
+    if plane in ("on", "acks"):
+        worker += ["--task_ack_queue", "0"]
     fleet = _Fleet(
         tmp, name, PS_DEEPFM, os.path.join(tmp, "ps-data"), PS_BATCH,
         val=val,
@@ -4977,8 +4997,10 @@ def _f1_fleet(tmp, wire=None):
              "--checkpoint_dir", ckpt, "--output", out] + wire_flags + job,
         ps=["--grads_to_wait", "1"] + wire_flags, worker=wire_flags + worker,
         deterministic=True, ps_by_shard=ps_by_shard,
+        env={"EDL_METRICS": "0"} if plane == "off" else None,
     )
     fleet.telemetry = telemetry
+    fleet.plane = plane
     return fleet
 
 
@@ -5194,6 +5216,9 @@ def _fleet_f1(torch, tmp, card, wire=None, fleet=None):
         "evaluate": eval_rec, "ps_exit_codes": raw["ps_exit_codes"],
         "losses_first_last": [e.get("losses_first_last") for e in ends],
         "wire": [e.get("wire") for e in ends],
+        # the plane F1 ran with (F1_PLANES): "on" sends the task acks
+        # inline, inside the steps that examples_per_s spans
+        "telemetry_plane": fleet.plane,
         "telemetry": telemetry,
     }
     rec["worker_flash_launches"] = _worker_launches(events, problems)
@@ -5207,30 +5232,37 @@ def _fleet_f1(torch, tmp, card, wire=None, fleet=None):
 # per-batch rate accounting, snapshots shipped every 0.25 s into a
 # JobTelemetry, and the stub's handlers instrumented; against the same
 # harness with the plane off (EDL_METRICS=0's switch). The harness sleeps
-# most of its time, so the gate reads process CPU: the median extra CPU
-# of the engaged arms over the off arms' median wall. Each arm runs in a
-# process of its own, whose CPU time is the harness's alone (this one's
-# background threads of earlier phases would count too), all arms at
-# once after a warm-up, at four times the reference's tasks (the card
-# host's process clock ticks in 10 ms), and serially: no task prefetch,
-# no parse threads, no prefetch buffer. On the card host a short timed
-# wait spins, so the reference's threads made the CPU of one arm vary by
-# several times the plane's cost; serial, every wait is a sleep of 9.6 ms
-# or more.
-OVERHEAD_TASKS, OVERHEAD_RECORDS = 40, 64  # tasks, records per task
+# most of its time, so the gate reads process CPU: the signed difference
+# of the engaged arms' median CPU and the off arms', over the off arms'
+# median wall. Each arm runs in a process of its own, forked from one
+# that imported and warmed the harness (its CPU time is the harness's
+# alone; this one's background threads of earlier phases would count
+# too), all arms at once (every arm under the same load of the host), and
+# serially: no task prefetch, no parse threads, no prefetch buffer. On
+# the card host a short timed wait spins, so the reference's threads made
+# the CPU of one arm vary by several times the plane's cost; serial,
+# every wait is a sleep of 9.6 ms or more. The sleeps still cost CPU
+# there, which varies from arm to arm: the noise of the reading (the
+# bootstrap's standard deviation of the difference of medians) is
+# reported beside it and must stay under half the gate.
+OVERHEAD_TASKS, OVERHEAD_RECORDS = 160, 64  # tasks, records per task
+OVERHEAD_WARM_TASKS = 8  # the warm-up run, in the process the arms fork
 # the reader's injected latency, 0.3 ms a record as in the reference, is
 # slept once for each group of this many records: the card host's sleeps
 # under ~1 ms spin (a 0.3 ms one costs its wall in user CPU, the record's
 # sleep_cpu), which would charge the harness's latency to its CPU basis
 OVERHEAD_READ_GROUP = 32
 # arms of each side, run at once, each in a process of its own
-OVERHEAD_REPS = 6
+OVERHEAD_REPS = 12
 OVERHEAD_GATE_PCT = 2.0
+OVERHEAD_NOISE_PCT = OVERHEAD_GATE_PCT / 2  # the reading resolves its gate
+OVERHEAD_BOOTSTRAP = 2000  # resamples of each side for the noise
 
 
-def _overhead_arm(metrics_on):
-    """One run of the harness -> (examples/s, process CPU s, wall s,
-    the aggregator's worker snapshots)."""
+def _overhead_arm(metrics_on, tasks):
+    """One run of the harness over ``tasks`` tasks -> (examples/s,
+    process CPU s, wall s, the aggregator's worker snapshots, (user,
+    system) CPU s)."""
     import numpy as np
 
     from elasticdl_tpu_torch.common.constants import TaskType
@@ -5251,7 +5283,7 @@ def _overhead_arm(metrics_on):
                              end=OVERHEAD_RECORDS, type=TaskType.TRAINING,
                              model_version=0,
                              extended_config={"trace_id": "t%06d" % i})
-                for i in range(OVERHEAD_TASKS)]
+                for i in range(tasks)]
             self._next_id = 0
             self._telemetry = telemetry
             # the servicer's wrap: its service histograms and server
@@ -5340,33 +5372,29 @@ def _overhead_arm(metrics_on):
         split = (u1.user - u0.user, u1.system - u0.system)
     finally:
         profiling.set_metrics_enabled(True)
-    if n != OVERHEAD_TASKS * OVERHEAD_RECORDS:
+    if n != tasks * OVERHEAD_RECORDS:
         raise PhaseError("the overhead harness read %d records" % n)
     return n / wall, cpu, wall, aggregator.worker_snapshots(), split
 
 
-def _overhead_child(metrics_on, sync_dir, index):
-    """One arm of the A/B, in a process of its own: a warm-up run, then,
-    once every arm is ready (``sync_dir``'s ``go`` file), the measured
-    run; prints it as one JSON line."""
-    _overhead_arm(metrics_on)  # warm-up: imports, the page cache
-    with open(os.path.join(sync_dir, "ready-%d" % index), "w"):
-        pass
-    deadline = time.monotonic() + 300
-    while not os.path.exists(os.path.join(sync_dir, "go")):
-        if time.monotonic() > deadline:
-            raise PhaseError("the overhead A/B never started")
-        time.sleep(0.02)
-    eps, cpu, wall, snaps, split = _overhead_arm(metrics_on)
-    print(json.dumps({"run": [eps, cpu, wall] + list(split),
-                      "examples_total": snaps.get("0", {}).get(
-                          "examples_total") if metrics_on else None}),
-          flush=True)
+def _overhead_forked(metrics_on, tasks, barrier, conn):
+    """One arm, in a process forked from ``_overhead_arms``: once every
+    arm is ready, the measured run, sent back over ``conn``."""
+    try:
+        barrier.wait(timeout=300)
+        eps, cpu, wall, snaps, split = _overhead_arm(metrics_on, tasks)
+        conn.send({"run": [eps, cpu, wall] + list(split),
+                   "examples_total": snaps.get("0", {}).get(
+                       "examples_total") if metrics_on else None})
+    except Exception as err:  # noqa: BLE001 — sent to the parent
+        conn.send({"error": repr(err)})
+    finally:
+        conn.close()
 
 
-def _sleep_cpu_probe():
+def _sleep_cpu():
     """What sleeps cost this host's CPU alone (user, system s): a
-    record's 0.3 ms, and a read group's; one JSON line."""
+    record's 0.3 ms, and a read group's."""
     out = {}
     for seconds, n in ((0.0003, 2000), (0.0003 * OVERHEAD_READ_GROUP, 60)):
         u0 = os.times()
@@ -5375,81 +5403,114 @@ def _sleep_cpu_probe():
         u1 = os.times()
         out["%gx%d" % (seconds, n)] = [u1.user - u0.user,
                                        u1.system - u0.system]
-    print(json.dumps(out), flush=True)
+    return out
 
 
-def _telemetry_overhead():
-    """The A/B -> (record, problems): OVERHEAD_REPS arms engaged and as
-    many off, each in a process of its own, all measured at once after a
-    warm-up (every arm under the same load of the host); the median
-    extra process CPU of the engaged plane over the off arm's median
-    wall, gated below OVERHEAD_GATE_PCT. Then the sleeps' CPU alone."""
+def _overhead_arms(tasks, reps):
+    """The A/B's arms, in the process ``_telemetry_overhead`` starts: the
+    harness imported and warmed once here (both sides), ``reps`` arms
+    engaged and as many off forked from it and measured at once, then the
+    sleeps' CPU alone; one JSON line."""
+    import multiprocessing
+
+    _overhead_arm(True, OVERHEAD_WARM_TASKS)
+    _overhead_arm(False, OVERHEAD_WARM_TASKS)
+    ctx = multiprocessing.get_context("fork")
+    barrier = ctx.Barrier(2 * reps)
+    arms = []
+    for i in range(2 * reps):
+        receive, send = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=_overhead_forked,
+                           args=(i % 2 == 0, tasks, barrier, send))
+        proc.start()
+        send.close()
+        arms.append((i % 2 == 0, proc, receive))
+    runs = []
+    for on, proc, receive in arms:
+        try:
+            got = receive.recv()
+        except EOFError:
+            got = {"error": "the arm exited without a result"}
+        proc.join()
+        if "error" in got:
+            raise PhaseError("an overhead arm failed: %s" % got["error"])
+        runs.append([on, got])
+    print(json.dumps({"runs": runs, "sleep_cpu": _sleep_cpu()}),
+          flush=True)
+
+
+def _telemetry_overhead(tasks=OVERHEAD_TASKS, reps=OVERHEAD_REPS):
+    """The A/B -> (record, problems): ``reps`` arms engaged and as many
+    off, each in a process of its own, all measured at once; the signed
+    difference of the engaged arms' median process CPU and the off arms',
+    over the off arms' median wall, gated below OVERHEAD_GATE_PCT, with
+    its noise (under OVERHEAD_NOISE_PCT) and each side's spread."""
+    import numpy as np
+
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env.pop("EDL_METRICS", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         "chip_smoke._overhead_arms(%d, %d)" % (tasks, reps)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise PhaseError("the overhead A/B exited %d: %s"
+                         % (proc.returncode, err[-2000:]))
+    got = json.loads(out.strip().splitlines()[-1])
+    runs = got["runs"]
+    on = np.array([r["run"] for is_on, r in runs if is_on])
+    off = np.array([r["run"] for is_on, r in runs if not is_on])
+    wall = float(np.median(off[:, 2]))
 
-    def child(code):
-        return subprocess.Popen(
-            [sys.executable, "-c", "import chip_smoke; " + code],
-            cwd=REPO, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
+    def pct_of_wall(x):
+        return float(x) / wall * 100.0
 
-    def result(proc, what):
-        try:
-            out, err = proc.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, err = proc.communicate()
-        if proc.returncode != 0:
-            raise PhaseError("the overhead A/B's %s exited %d: %s"
-                             % (what, proc.returncode, err[-2000:]))
-        return json.loads(out.strip().splitlines()[-1])
+    pct = pct_of_wall(np.median(on[:, 1]) - np.median(off[:, 1]))
+    rng = np.random.default_rng(SEED)
+    boot = [np.median(rng.choice(on[:, 1], len(on)))
+            - np.median(rng.choice(off[:, 1], len(off)))
+            for _ in range(OVERHEAD_BOOTSTRAP)]
+    noise = pct_of_wall(np.std(boot))
 
-    with tempfile.TemporaryDirectory() as sync_dir:
-        arms = [(i % 2 == 0, child(
-            "chip_smoke._overhead_child(%r, %r, %d)"
-            % (i % 2 == 0, sync_dir, i)))
-            for i in range(2 * OVERHEAD_REPS)]
-        try:
-            deadline = time.monotonic() + 300
-            while len([n for n in os.listdir(sync_dir)
-                       if n.startswith("ready-")]) < len(arms):
-                if time.monotonic() > deadline or any(
-                        p.poll() is not None for _, p in arms):
-                    break
-                time.sleep(0.05)
-            with open(os.path.join(sync_dir, "go"), "w"):
-                pass
-            runs = [(on, result(p, "arm")) for on, p in arms]
-        finally:
-            for _, p in arms:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-    sleep_cpu = result(child("chip_smoke._sleep_cpu_probe()"), "probe")
-    on = [r["run"] for is_on, r in runs if is_on]
-    off = [r["run"] for is_on, r in runs if not is_on]
+    def spread(cpu):
+        # min, quartiles and max of one side's CPU, in % of the wall
+        return [pct_of_wall(q) for q in np.percentile(
+            cpu, [0, 25, 50, 75, 100])]
 
-    def med(rows, i):
-        return _median([r[i] for r in rows])
-
-    pct = max(0.0, med(on, 1) - med(off, 1)) / med(off, 2) * 100.0
     rec = {
         "phase": "ps_fleet", "of": "telemetry_overhead",
-        "basis": "median process CPU over the off arm's median wall",
-        "overhead_pct": pct, "gate_pct": OVERHEAD_GATE_PCT,
-        "arms": {"on": on, "off": off},
-        "examples_per_s_on": med(on, 0), "examples_per_s_off": med(off, 0),
-        "cpu_s_on": med(on, 1), "cpu_s_off": med(off, 1),
-        "wall_s_off": med(off, 2),
-        "user_s_on": med(on, 3), "user_s_off": med(off, 3),
-        "system_s_on": med(on, 4), "system_s_off": med(off, 4),
-        "sleep_cpu": sleep_cpu,
+        "basis": "median process CPU engaged less off, over the off "
+                 "arms' median wall",
+        "overhead_pct": pct, "noise_pct": noise,
+        "gate_pct": OVERHEAD_GATE_PCT, "noise_gate_pct": OVERHEAD_NOISE_PCT,
+        "tasks": tasks, "reps": reps,
+        "cpu_spread_pct": {"on": spread(on[:, 1]), "off": spread(off[:, 1])},
+        "arms": {"on": on.tolist(), "off": off.tolist()},
+        "examples_per_s_on": float(np.median(on[:, 0])),
+        "examples_per_s_off": float(np.median(off[:, 0])),
+        "cpu_s_on": float(np.median(on[:, 1])),
+        "cpu_s_off": float(np.median(off[:, 1])),
+        "wall_s_off": wall,
+        "user_s_on": float(np.median(on[:, 3])),
+        "user_s_off": float(np.median(off[:, 3])),
+        "system_s_on": float(np.median(on[:, 4])),
+        "system_s_off": float(np.median(off[:, 4])),
+        "sleep_cpu": got["sleep_cpu"],
     }
     problems = []
     if pct >= OVERHEAD_GATE_PCT:
         problems.append("the telemetry plane's overhead %.3f %% (gate %s %%)"
                         % (pct, OVERHEAD_GATE_PCT))
+    if noise >= OVERHEAD_NOISE_PCT:
+        problems.append("the overhead A/B's noise %.3f %% cannot resolve "
+                        "its gate (under %s %%)" % (noise, OVERHEAD_NOISE_PCT))
     if not all(r["examples_total"] for is_on, r in runs if is_on):
         problems.append("an engaged arm aggregated no snapshot")
     return rec, problems
@@ -5961,6 +6022,49 @@ def _ps_fleet_only(torch):
         with tempfile.TemporaryDirectory() as tmp:
             counts = phase_ps_fleet(torch, tmp, card)
         _check_counts(counts, {k: 0 for k in KERNELS}, "the ps_fleet phase")
+    except Exception as err:  # noqa: BLE001 — reported, exit non-zero
+        import traceback
+
+        traceback.print_exc()
+        print("chip_smoke: FAILED: %s" % err, file=sys.stderr)
+        return 1
+    print(card)
+    return 0
+
+
+def _f1_order(torch, order):
+    """F1 once per arm of ``order`` (each one of F1_PLANES), in turns,
+    on one copy of its data: a record per run (its examples/s, the median
+    step and its split, its problems), then each arm's runs side by
+    side. Exits non-zero if any run had a problem (only "on" runs the
+    telemetry checks)."""
+    try:
+        card = phase_device(torch)
+        by_arm = {}
+        failed = []
+        with tempfile.TemporaryDirectory() as tmp:
+            _write_ps_data(tmp)
+            for i, plane in enumerate(order):
+                root = os.path.join(tmp, "run-%d" % i)
+                os.makedirs(root)
+                for d in ("ps-data", "ps-val"):
+                    os.symlink(os.path.join(tmp, d), os.path.join(root, d))
+                rec, bad, _ = _fleet_f1(torch, root, card,
+                                        fleet=_f1_fleet(root, plane=plane))
+                emit({"phase": "ps_fleet", "of": "f1_arm", "run": i,
+                      "plane": plane, "card": card,
+                      "examples_per_s": rec["examples_per_s"],
+                      "step_ms_median": rec["step_ms_median"],
+                      "step_split": rec["step_split"],
+                      "shards_state": rec["shards_state"],
+                      "job_s": rec["job_s"], "problems": bad})
+                by_arm.setdefault(plane, []).append(rec["examples_per_s"])
+                failed += bad
+                torch.cuda.empty_cache()
+        emit({"phase": "ps_fleet", "of": "f1_arms", "card": card,
+              "order": list(order), "examples_per_s": by_arm})
+        if failed:
+            raise PhaseError("; ".join(failed))
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback
 
@@ -8843,6 +8947,22 @@ def main(argv=None):
         "record, not the result line",
     )
     parser.add_argument(
+        "--overhead-tasks", type=int, default=OVERHEAD_TASKS,
+        help="with --overhead-only, each arm's tasks (sizing the A/B)",
+    )
+    parser.add_argument(
+        "--overhead-reps", type=int, default=OVERHEAD_REPS,
+        help="with --overhead-only, the arms of each side (sizing the A/B)",
+    )
+    parser.add_argument(
+        "--f1-order",
+        help="drive only the ps_fleet phase's F1, once per arm in this "
+        "order (each of %s: the telemetry plane as F1 runs it, its task "
+        "acks inline alone, F1 without the plane, and that with "
+        "EDL_METRICS=0; an A/B in turns, e.g. on,plain,plain,on), and "
+        "print its records, not the result line" % ",".join(F1_PLANES),
+    )
+    parser.add_argument(
         "--wire-order",
         default="off,auto",
         help="with --wire-only, the W arms' --ps_shm values in the order "
@@ -8853,6 +8973,9 @@ def main(argv=None):
     order = tuple(args.wire_order.split(","))
     if set(order) - {"off", "auto"}:
         parser.error("each --wire-order arm is off or auto")
+    f1_order = tuple(args.f1_order.split(",")) if args.f1_order else None
+    if f1_order and set(f1_order) - set(F1_PLANES):
+        parser.error("each --f1-order arm is one of %s" % (F1_PLANES,))
     try:
         import torch
     except ImportError:
@@ -8886,8 +9009,11 @@ def main(argv=None):
         return _ps_serve_only(torch)
     if args.wire_only:
         return _wire_only(torch, order)
+    if f1_order:
+        return _f1_order(torch, f1_order)
     if args.overhead_only:
-        rec, problems = _telemetry_overhead()
+        rec, problems = _telemetry_overhead(args.overhead_tasks,
+                                            args.overhead_reps)
         emit(rec)
         if problems:
             print("chip_smoke: FAILED: %s" % "; ".join(problems),
