@@ -24,7 +24,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    autograd wrapper, and the device time per call from torch.profiler
    (the kernel's own, even where the host's enqueue time per call nears
    it), both for SDPA too.
-4. slice   — the 110M transformer LM (bf16, random weights from a seed)
+4. slice   — the transformer LM at bench.py's 110M widths cut to 6 layers
+   (bf16, random weights from a seed)
    exported with its serving member (``torch.export`` of the module on
    the card, the flash forward a registered op in its graph), then
    served through the scorer's entry points (build_scorer ->
@@ -35,9 +36,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    histogram (``role="scorer"``, one count per request), the scorer's
    and the batcher's families, ``/healthz`` reads ``serving``; the same
    round with the telemetry plane off (``EDL_METRICS=0``'s switch)
-   replies bitwise alike with the same launches. The graph holds 12
+   replies bitwise alike with the same launches. The graph holds 6
    flash op nodes; kernel
-   launches are counted over the served requests alone (12 forward, 0
+   launches are counted over the served requests alone (6 forward, 0
    backward per forward). The same requests go through a second scorer
    over a params-only artifact of the same weights (the module rebuilt
    from the manifest), the two in turns (member, rebuilt, rebuilt,
@@ -50,11 +51,46 @@ Phases, each printing JSON lines; any failure exits non-zero:
    torch.profiler breakdown of one batched forward through the member.
 5. train   — the same model trained through AllReduceTrainer.train_step
    (AdamW, 16 x 1024-token batches): finite losses, a finite, nonzero
-   gradient for every parameter, 12 launches of each kernel per step;
+   gradient for every parameter, 6 launches of each kernel per step;
    gradients against the plain-attention model and against
    plain_flash_bwd on the same forward; one rematerialized step; step
    time, tokens/s, MFU, peak memory and a profiler breakdown of one step.
-6. job     — bench.py's fused ResNet-50 step (b128, 224x224, bf16, SGD
+6. moe     — the mixture-of-experts LM at Switch-Base-8's widths (d 768,
+   d_ff 3072, 8 experts, top-1, capacity factor 2, balance loss 0.01; the
+   slice's vocabulary, bf16 compute, 4 layers) on the card, its MLP the
+   dense fallback: trained through AllReduceTrainer.train_step (AdamW,
+   16 x 1024-token batches): finite losses and gradients, the balance
+   loss in every block's ``aux_loss`` entry and in the loss, 4 launches
+   of each kernel a step; the first step (from the seeded init) records
+   its routing, and its gradient reaches every parameter and exactly the
+   experts routed a token (an expert routed none gets exactly zero);
+   from the seeded init the kernels' gradients against plain
+   attention's, the plain forward routed as the kernels' was (5e-2
+   relative L2 each; the freely routed comparison and the tokens whose
+   top-1 expert bf16 rounding moved are reported); step time, tokens/s,
+   peak memory. Then the trained weights' member served behind a
+   ``ScorerServer`` on 16 one-row requests, 4 forward launches a
+   forward, its replies within 0.1 of the module the scorer rebuilds
+   from a params-only artifact of the same weights; p50 / p99.
+7. ring    — the sequence axis: two ``--ring-rank`` processes, started
+   before the moe phase so that they boot while it runs, share the
+   card in a gloo world (a mesh of data 1 x seq 2); each runs the LM at
+   SLICE_CFG's widths cut to 2 layers on its 1,024-token shard of B = 2
+   x 2,048 (global rotary positions, the ring of flash kernels, the
+   shifted next-token targets, the gradients summed over ``seq``): the
+   counted step launches 1 forward a layer on rank 0 and 2 on rank 1,
+   and as many of each backward kernel; the loss and every gradient,
+   gathered, against this process on the whole 2,048 (the flash kernels,
+   the same weights; 1e-2 and 5e-2); per rank, every block the kernels
+   ran against its plain version on the same inputs and the kernel
+   ring's out, dq, dk, dv against the plain ring's (2e-2 relative L2);
+   in the same ranks, a 1-layer MoE LM with 2 experts routed over an
+   ``expert`` group of the two against its dense fallback (logits 0.1,
+   gradients 5e-2). Each rank's step time, and what its host staging
+   (every K/V rotation and all-reduce through a host buffer: gloo
+   moves no CUDA tensor between processes) costs in bytes and seconds,
+   by kind of exchange.
+8. job     — bench.py's fused ResNet-50 step (b128, 224x224, bf16, SGD
    with momentum, data resident on the card): step time, examples/s,
    MFU, peak memory. Then the single-process ALLREDUCE job through the
    port's command line in this process (master -> task dispatcher ->
@@ -73,7 +109,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (idle share, top device ops, the largest device-idle gaps). ResNet-50
    launches none of the flash kernels: the kernels line says so
    (``launches_by_path.job`` = 0).
-7. eval    — the evaluation plane on the same model and records, through
+9. eval    — the evaluation plane on the same model and records, through
    the port's command line: the job again with 256 validation records
    from the seed and ``--evaluation_steps 4`` (three rounds, pinned to
    versions 4, 8 and 12, each over all 256 records and within 2/256 of
@@ -89,7 +125,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    and the registry's scalars from the exporter's ``*.telemetry`` file
    (``common/tb_events.read_events``). No flash kernel launches
    (``launches_by_path.eval`` = 0).
-8. zoo     — the zoo models that need no PS fleet, each at its zoo width
+10. zoo     — the zoo models that need no PS fleet, each at its zoo width
    through the port's command line: mnist_functional_api,
    cifar10_subclass and cifar10_functional_api (b64, 1,024 training and
    256 validation records), resnet50_subclass (float32, b64, 256
@@ -118,7 +154,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    final bits). Job examples/s after the first step, peak memory and the
    rounds' seconds are recorded. No flash kernel launches
    (``launches_by_path.zoo`` = 0).
-9. ps      — the ParameterServerStrategy job on the master-held model
+11. ps      — the ParameterServerStrategy job on the master-held model
    through the port's command line with no strategy flag. P1: DeepFM at
    its zoo width with both tables on the PS plane (the master's store),
    b1024 on 16,384 training and 4,096 validation records (ids from
@@ -145,7 +181,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    b64 on 1,024 + 256 records. No flash kernel launches
    (``launches_by_path.ps`` = 0: this process's, and those that P2's
    worker processes report in their timelines' last event).
-10. ps_fleet — the parameter-server fleet: ``python -m
+12. ps_fleet — the parameter-server fleet: ``python -m
    elasticdl_tpu_torch.master.main --num_ps_pods 2``, two ``python -m
    elasticdl_tpu_torch.ps.main`` shards and ``worker.main --ps_addrs``
    processes, all on the card under one LocalInstanceManager (the
@@ -179,7 +215,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    noise (the bootstrap's) below 1 % and each side's spread, printed
    beside F1's examples/s (taken with the plane on and the task acks
    inline; ``--f1-order`` runs F1 in turns with and without the plane). F2: two async workers (``--get_model_steps 2``), shard
-   snapshots every 8 versions, shard 1 SIGKILLed at version 8: the
+   snapshots every 8 versions, shard 1 SIGKILLed at version 8 (by
+   ``tools/chaos.py``'s ``FleetChaos``, once a snapshot of version 8 or
+   newer is published; the run holds its ``executed`` log): the
    relaunch restores ``snap_v8`` or newer under a new ``shard_epoch``,
    every task done once an epoch (the journal), finite losses; kill ->
    serving -> the first push it accepts; with every flight recorder
@@ -190,7 +228,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    shard comes back empty and the workers re-push the model. F4: the
    MNIST CNN across two shards against the held MNIST job (no dataset
    shuffle, deterministic cuDNN in both; 1e-6). F5: the held model's
-   ported flags: the master SIGKILLed at version 4 under
+   ported flags: the master SIGKILLed at version 4 (``tools/chaos.py``'s
+   ``FleetChaos``, as F2/F3's shard kill) under
    ``--master_journal_dir`` (the worker's re-push, every task once);
    MNIST with ``--export_dir --export_every_versions 4 --export_keep
    2``, the newest artifact served by ``ModelDirectoryWatcher`` replying
@@ -201,7 +240,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    and wait for them to answer before they run. No flash kernel launches
    (``launches_by_path.ps_fleet`` = 0, this process's and the worker
    processes').
-11. ps_tiers — the three tiers of embedding-row residence on the fleet:
+13. ps_tiers — the three tiers of embedding-row residence on the fleet:
    F1's job (sync DeepFM b1024, two shard processes, one deterministic
    worker process) on 16,384 records of 10 ids drawn with weights
    1 / rank^1.05 from 262,144 ids permuted out of 1,048,576 (bench.py's
@@ -218,7 +257,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    misses and hit rate. Then an arena on the card restored into a host
    table and back, bitwise. No flash kernel launches
    (``launches_by_path.ps_tiers`` = 0).
-12. ps_hybrid — the hybrid trainer (``--embedding_plane hybrid``: the
+14. ps_hybrid — the hybrid trainer (``--embedding_plane hybrid``: the
    Dense layers and the ``id_bias`` table on the worker, the
    ``embedding`` table on the fleet, the next batch's rows pulled while
    the current one computes) on ps_tiers' data, DeepFM with a 1,048,576
@@ -246,7 +285,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    pull's tail, the background pull, compute, the push, the local
    update, the parse), each shard's applies, peaks. No flash kernel
    launches (``launches_by_path.ps_hybrid`` = 0).
-13. ps_serve — serving's PS plane, scoring while the fleet trains: two
+15. ps_serve — serving's PS plane, scoring while the fleet trains: two
    ``ps.main`` shards (async, a snapshot every 8 versions) hold DeepFM's
    tables at zoo width (``embedding`` 64 wide, ``id_bias`` 1 wide, ids
    from 1,048,576); a PS-everything worker in this process
@@ -278,7 +317,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the scorer process serves the newest export, 16 requests go to it on
    its socket and through a ``ShmChannel``, the path that goes first
    alternating: the replies bitwise equal, every one through the ring.
-14. wire — the shared-memory wire (``rpc/shm_transport.py``) at F1's
+16. wire — the shared-memory wire (``rpc/shm_transport.py``) at F1's
    width: F1's sync job for one epoch (16 steps of b1024) across two
    ``ps.main`` shards, shard 1 with ``--ps_device`` (the writable slot
    views' import), the worker built in this process as ``worker.main``
@@ -302,7 +341,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    to ``auto``); at the start the run checks that ``/dev/shm`` holds the
    largest ring set a phase negotiates, and at its end that no ``edlw-``
    segment it made is left.
-15. elastic — the multi-process elastic ALLREDUCE job through the port's
+17. elastic — the multi-process elastic ALLREDUCE job through the port's
    command line with ``--num_workers 2``: the master in this process,
    two worker processes sharing the card in one process world (gloo:
    NCCL refuses two ranks on one device; on a host with a card for each
@@ -335,7 +374,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    end equal, the newest checkpoint restores bitwise; kill -> serving
    (replay seconds, records replayed), kill -> the re-formed world's
    first step, its broadcast's seconds. Run D, Run B with
-   ``--num_standby_workers 1``: the warmed standby is promoted (the pool
+   ``--num_standby_workers 1`` over two epochs (the survivor waits for
+   the warmed standby and re-forms at full size, so it needs no longer
+   job to be joined): the warmed standby is promoted (the pool
    refills), the survivor re-forms once at full size, Run B's checks;
    kill -> the promoted worker's join beside Run B's spawn -> join and
    cold start, what the standby warmed, each process's card memory
@@ -349,24 +390,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
    report their flash launches, by run (``launches_by_path`` ``elastic``
    for A and B, ``elastic_master_kill``, ``elastic_standby`` and
    ``elastic_eval``, each 0).
-16. summary — each phase's seconds with the serving-member exports it
+18. summary — each phase's seconds with the serving-member exports it
    made (their count and seconds: this process's trace and save, a
    worker's whole SAVE_MODEL export), the kernels line, the card line,
    then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
-non-zero and prints no result. ``--elastic-only`` runs phases 1 and 15
-alone, ``--zoo-only`` phases 1 and 8, ``--ps-only`` phases 1 and 9,
-``--ps-fleet-only`` phases 1 and 10, ``--ps-tiers-only`` phases 1 and
-11, ``--ps-hybrid-only`` phases 1 and 12, ``--ps-serve-only`` phases 1
-and 13, ``--wire-only`` phases 1 and 14, and none of them prints the
-result line.
+non-zero and prints no result. ``--elastic-only`` runs phases 1 and 17
+alone, ``--zoo-only`` phases 1 and 10, ``--ps-only`` phases 1 and 11,
+``--ps-fleet-only`` phases 1 and 12, ``--ps-tiers-only`` phases 1 and
+13, ``--ps-hybrid-only`` phases 1 and 14, ``--ps-serve-only`` phases 1
+and 15, ``--wire-only`` phases 1 and 16, ``--moe-only`` phases 1, 2 and
+6, ``--ring-only`` phases 1, 2 and 7, and none of them prints the
+result line. (``--ring-rank`` is the ring phase's rank process.)
 """
 
 import argparse
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -375,6 +418,7 @@ import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+BYTECODE_DIR = os.path.join(REPO, "_bytecode")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, dense
 # bf16 tensor-core rate, f32 rate outside the tensor cores.
@@ -413,9 +457,11 @@ REL_L2 = {"float32": 1e-5, "bfloat16": 2e-2}
 FAULT_TILE = 64  # the kernels' tile: the planted mask fault is one tile off
 MEM_SHAPE = (1, 12, 64, 8192)  # the backward's no-(L, L) check, bf16
 
-# The repo's headline transformer_lm width (bench.py's 110M config).
+# The repo's headline transformer_lm width (bench.py's 110M config), its
+# depth cut from 12 layers to 6 so that the every-phase run keeps inside
+# its limit with the moe and ring phases (67.6M parameters).
 SLICE_CFG = dict(
-    vocab_size=32768, num_layers=12, num_heads=12, head_dim=64,
+    vocab_size=32768, num_layers=6, num_heads=12, head_dim=64,
     embed_dim=768, mlp_dim=3072, dtype="bfloat16",
 )
 MODEL_DEF = "transformer_lm.transformer_lm.custom_model"
@@ -494,21 +540,171 @@ def _note_worker_exports(events_by_worker):
 
 
 def _run_phase(name, fn, *args):
-    """``fn(*args)``, its seconds kept under ``name``."""
+    """``fn(*args)``, its seconds kept under ``name``. A process below
+    this one that is still alive at its end, and that no later phase was
+    handed (``HANDED_ON``), is kept in ALIVE_AFTER and stopped: left
+    running, it would take the host's cores from the phases after."""
     PHASE[0] = name
     t0 = time.perf_counter()
     try:
         return fn(*args)
     finally:
         PHASE_SECONDS[name] = time.perf_counter() - t0
+        alive = [p for p in _descendants()
+                 if not _own_tracker(p) and p[0] not in HANDED_ON]
+        if alive:
+            ALIVE_AFTER[name] = alive
+            print("chip_smoke: %d process(es) alive after the %s phase: %s"
+                  % (len(alive), name, alive), file=sys.stderr)
+            _stop([pid for pid, _ in alive])
+
+
+# Every process this run starts ends before it does. The run is its
+# processes' subreaper (PR_SET_CHILD_SUBREAPER, on this process only): a
+# process orphaned below it (the child of a SIGKILLed shard or worker)
+# is re-parented here and not to init, so the end of the run still finds
+# it, stops it and names it.
+PR_SET_CHILD_SUBREAPER = 36
+ALIVE_AFTER = {}  # phase -> [[pid, command]] alive below this process
+HANDED_ON = set()  # pids that live on past the phase that started them
+LEFT_AT_END = []  # [[pid, command]] that the end of the run had to stop
+STOP_GRACE_S = 10.0
+
+
+def _bytecode_cache():
+    """One cache of compiled bytecode for this process and every one it
+    starts, in the checkout (BYTECODE_DIR, which git ignores).
+
+    The card's machine runs Python with PYTHONDONTWRITEBYTECODE=1 and
+    ships torch with no compiled bytecode, so each process compiled
+    torch from source: ``import torch`` 6.5-8.7 s and the first
+    optimizer step (torch._dynamo's import) 7.8-9.8 s, on every worker,
+    shard, master and scorer this run starts. Here the first process to
+    import a module writes its bytecode under PYTHONPYCACHEPREFIX (atomic
+    writes; no file beside any source) and every later one reads it."""
+    prefix = os.environ.setdefault("PYTHONPYCACHEPREFIX", BYTECODE_DIR)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+
+
+def _become_subreaper():
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    return libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) == 0
+
+
+def _command(pid):
+    try:
+        with open("/proc/%d/cmdline" % pid, "rb") as f:
+            argv = f.read().split(b"\0")
+    except OSError:
+        return ""
+    return " ".join(a.decode(errors="replace") for a in argv if a)[:300]
+
+
+def _descendants():
+    """[[pid, command]] of every live process below this one, from
+    /proc; a zombie has ended and is left out."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open("/proc/%s/stat" % entry) as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # the command in stat is in parentheses and may hold spaces
+        state, ppid = stat[stat.rfind(")") + 2:].split()[:2]
+        children.setdefault(int(ppid), []).append((int(entry), state))
+    found, todo = [], [os.getpid()]
+    while todo:
+        for pid, state in children.get(todo.pop(), []):
+            todo.append(pid)
+            if state != "Z":
+                found.append([pid, _command(pid)])
+    return found
+
+
+def _own_tracker(proc):
+    """This process's multiprocessing resource tracker: it lives as long
+    as this process by design and ends with it (``_stop_processes``)."""
+    pid, command = proc
+    return "resource_tracker" in command and _ppid(pid) == os.getpid()
+
+
+def _ppid(pid):
+    try:
+        with open("/proc/%d/stat" % pid) as f:
+            stat = f.read()
+    except OSError:
+        return None
+    return int(stat[stat.rfind(")") + 2:].split()[1])
+
+
+def _reap_zombies():
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def _stop(pids):
+    """SIGTERM each of ``pids`` and SIGKILL those alive STOP_GRACE_S
+    later. What ends stays a zombie until ``_stop_processes`` reaps it:
+    reaped here, a child's ``Popen`` would read a wrong exit code."""
+    def alive():
+        below = {pid for pid, _ in _descendants()}
+        return [pid for pid in pids if pid in below]
+
+    for sig, wait_s in ((signal.SIGTERM, STOP_GRACE_S),
+                        (signal.SIGKILL, STOP_GRACE_S)):
+        for pid in alive():
+            try:
+                os.kill(pid, sig)
+            except OSError:
+                pass
+        deadline = time.monotonic() + wait_s
+        while alive() and time.monotonic() < deadline:
+            time.sleep(0.05)
+
+
+def _stop_processes():
+    """End every process still below this one: the resource tracker
+    through its own stop, the rest by SIGTERM and, STOP_GRACE_S later,
+    SIGKILL; each of the rest is kept in LEFT_AT_END. Returns them."""
+    from multiprocessing import resource_tracker
+
+    tracker = getattr(resource_tracker, "_resource_tracker", None)
+    if tracker is not None and getattr(tracker, "_pid", None) is not None:
+        try:
+            tracker._stop()
+        except OSError:  # ended already
+            pass
+    left = _descendants()
+    _stop([pid for pid, _ in left])
+    _reap_zombies()
+    LEFT_AT_END.extend(left)
+    if left:
+        print("chip_smoke: stopped %d process(es) left at the end: %s"
+              % (len(left), left), file=sys.stderr)
+    return left
 
 
 def timing_record():
-    """Each phase's seconds and the serving-member exports it made."""
+    """Each phase's seconds and the serving-member exports it made, and
+    the processes alive after each phase and stopped at the end."""
     return {
         "phase": "timing",
         "seconds": dict(PHASE_SECONDS),
         "total_s": sum(PHASE_SECONDS.values()),
+        "processes": {"alive_after_phase": dict(ALIVE_AFTER),
+                      "stopped_at_end": list(LEFT_AT_END)},
         "member_exports": {
             phase: {"count": len(each),
                     "seconds": sum(e["seconds"] for e in each),
@@ -1164,7 +1360,7 @@ def _lm_member(torch, model, cfg, export_dir):
 
 
 def _make_artifacts(torch, export_root, rebuild_root):
-    """The 110M bf16 LM's artifacts, from seeded random weights through
+    """The slice's bf16 LM's artifacts, from seeded random weights through
     the port's ``export_model``: under ``export_root`` with the serving
     member traced from the module on the card, and under
     ``rebuild_root`` params-only (the scorer rebuilds that one). Returns
@@ -1576,7 +1772,7 @@ def _member_across_devices(torch, tmp, requests):
 
 
 def phase_slice(torch, tmp):
-    """Serve the 110M LM through the scorer's entry points, from the
+    """Serve the slice's LM through the scorer's entry points, from the
     artifact's serving member (the main path) and, for the same
     requests, from the module the scorer rebuilds from a params-only
     artifact, in turns (member, rebuilt, rebuilt, member); returns
@@ -1852,7 +2048,7 @@ def _check_counts(counts, want, what):
 
 
 def phase_train(torch):
-    """Train the 110M LM through ``AllReduceTrainer.train_step``; returns
+    """Train the slice's LM through ``AllReduceTrainer.train_step``; returns
     the launch counts of the timed steps (the main path)."""
     import numpy as np
 
@@ -2036,6 +2232,728 @@ def phase_train(torch):
         batch=TRAIN_BATCH, seq_len=SEQ_LEN,
     )
     return counts
+
+
+# ---------------------------------------------------------------------------
+# the mixture of experts on one card, the sequence axis over two ranks
+# ---------------------------------------------------------------------------
+
+# Switch-Base-8's widths (Fedus et al., "Switch Transformers", 2021:
+# d_model 768, d_ff 3072, 8 experts, top-1; the reference zoo's routing
+# defaults) at the slice's vocabulary, cut to 4 layers for time
+MOE_CFG = dict(
+    SLICE_CFG, num_layers=4, num_experts=8, moe_num_selected=1,
+    moe_capacity_factor=2.0, moe_aux_loss_coef=0.01,
+)
+MOE_TRAIN_STEPS = 3  # timed, after one warm-up step
+MOE_REQUESTS = 16
+# the ring: SLICE_CFG's widths at 2 layers, two ranks on one card (gloo),
+# data 1 x seq 2, B = 2 at L = 2048: each shard 1024 long, the
+# reference's flash threshold
+RING_CFG = dict(SLICE_CFG, num_layers=2)
+RING_RANKS = 2
+RING_BATCH = 2
+RING_LEN = 2048
+RING_STEPS = 3  # timed per rank, after the counted step
+# the ring's loss against the whole sequence's: that one is the zoo's
+# loss on bf16 logits, a bf16 scalar (a step of 2^-8 to 2^-7 of its
+# value), the ring's the float32 sum of its shards' terms
+RING_LOSS_RTOL = 1e-2
+RING_LIMIT_S = 420  # the ranks' processes, boot included
+# in the same ranks: a 1-layer MoE LM with 2 experts over an expert group
+# of 2 (capacity = every token: none overflows) against its dense fallback
+RING_MOE_CFG = dict(SLICE_CFG, num_layers=1, num_experts=2,
+                    moe_capacity_factor=2.0)
+RING_MOE_TOKENS = (2, SEQ_LEN)
+
+
+class _Routing:
+    """Records the expert choices of the MoE blocks' forwards (one
+    ``parallel/expert.topk_gate`` call a block, in order) and, with
+    ``replay`` set, hands recorded choices back in their place, with the
+    gate probabilities of the current logits (so the gate's gradient
+    flows as before): a forward routed as another one was."""
+
+    def __init__(self, replay=None):
+        from elasticdl_tpu_torch.parallel import expert
+
+        self._expert = expert
+        self._orig = expert.topk_gate
+        self.replay = replay
+        self.calls = []
+
+    def __enter__(self):
+        self._expert.topk_gate = self._gate
+        return self
+
+    def __exit__(self, *exc):
+        self._expert.topk_gate = self._orig
+
+    def _gate(self, logits, k):
+        import torch
+
+        if self.replay is None:
+            idx, gate = self._orig(logits, k)
+        else:
+            idx = self.replay[len(self.calls)]
+            gate = torch.softmax(logits.float(), dim=-1).gather(-1, idx)
+            if k > 1:
+                gate = gate / gate.sum(dim=-1, keepdim=True)
+        self.calls.append(idx.detach())
+        return idx, gate
+
+    def histogram(self, n_experts):
+        """Tokens routed to each expert, per block."""
+        import torch
+
+        return [torch.bincount(i.reshape(-1), minlength=n_experts).tolist()
+                for i in self.calls]
+
+
+def _moe_grad_check(torch, model, loss_fn, weights, tokens):
+    """Gradients of one batch from ``weights`` through the kernels
+    (``make_grad_fn``, with the balance loss) against the same model on
+    plain attention: routed as the kernels' forward was (the gated
+    comparison), and routed freely (reported: where bf16 rounding moves
+    a token's top-1 expert, its whole contribution moves with it; the
+    tokens that moved are counted). The losses, the aux terms, the worst
+    and median per-tensor relative L2 difference."""
+    from elasticdl_tpu_torch.training.step import aux_loss_total, make_grad_fn
+
+    grad_fn = make_grad_fn(model, loss_fn)
+    feats = {"tokens": tokens}
+    with _Routing() as kernel_routes:
+        kernel = grad_fn(weights, {}, feats, tokens)
+    model.use_flash = False
+    try:
+        with _Routing(replay=kernel_routes.calls):
+            pinned = grad_fn(weights, {}, feats, tokens)
+        with _Routing() as free_routes:
+            free = grad_fn(weights, {}, feats, tokens)
+    finally:
+        model.use_flash = True
+
+    def compare(other):
+        rel = {n: _rel_l2(torch, kernel[1][n], other[1][n])
+               for n in kernel[1]}
+        worst = max(rel, key=rel.get)
+        return {
+            "loss": float(kernel[0]),
+            "loss_other": float(other[0]),
+            "aux": float(aux_loss_total(kernel[2])),
+            "aux_other": float(aux_loss_total(other[2])),
+            "max_rel_l2": rel[worst],
+            "worst_tensor": worst,
+            "median_rel_l2": float(sorted(rel.values())[len(rel) // 2]),
+        }
+
+    return dict(
+        compare(pinned),
+        free_routing=dict(
+            compare(free),
+            tokens_rerouted_by_block=[
+                int((a != b).any(dim=-1).sum())
+                for a, b in zip(kernel_routes.calls, free_routes.calls)],
+        ),
+    )
+
+
+def _moe_gradients_reach(torch, params, routed):
+    """Names (an expert's with its index) whose gradient is wrong: not
+    finite, or zero where it must move (every parameter but the expert
+    stacks, and every expert's slice that ``routed`` (tokens per expert,
+    per block) gave a token), or nonzero for an expert routed none."""
+    bad = []
+    for name, p in params.items():
+        g = p.grad
+        if not name.endswith(("experts_up", "experts_down")):
+            if not (bool(torch.isfinite(g).all())
+                    and float(g.abs().max()) > 0):
+                bad.append(name)
+            continue
+        block = int(name.split(".")[1])
+        for e in range(g.shape[0]):
+            moved = float(g[e].abs().max())
+            want = routed[block][e] > 0
+            if not bool(torch.isfinite(g[e]).all()) or (moved > 0) != want:
+                bad.append("%s[%d] (%d tokens, max |g| %g)"
+                           % (name, e, routed[block][e], moved))
+    return bad
+
+
+def _moe_artifacts(torch, model, export_root, rebuild_root):
+    """The trained MoE LM's artifacts: with the serving member under
+    ``export_root``, params-only under ``rebuild_root``."""
+    from elasticdl_tpu_torch.common.convert import to_named
+    from elasticdl_tpu_torch.common.export import (
+        export_model,
+        export_provenance,
+    )
+
+    member_s = _lm_member(torch, model, MOE_CFG,
+                          os.path.join(export_root, "v1"))
+    t0 = time.perf_counter()
+    export_model(
+        os.path.join(rebuild_root, "v1"),
+        to_named(model.state_dict(), MOE_CFG["num_heads"],
+                 MOE_CFG["head_dim"]),
+        1,
+        metadata=export_provenance(
+            "", MODEL_DEF, ",".join("%s=%r" % kv for kv in MOE_CFG.items())),
+    )
+    return {"member_artifact_s": member_s,
+            "params_only_artifact_s": time.perf_counter() - t0}
+
+
+def phase_moe(torch, tmp):
+    """The MoE LM (MOE_CFG, the dense fallback) trained through
+    ``AllReduceTrainer.train_step`` on TRAIN_BATCH x SEQ_LEN tokens, then
+    served through its member behind the scorer's entry points; returns
+    {"moe_train": launches of the timed steps, "moe_serve": launches of
+    the member's round}."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.model_zoo.transformer_lm import (
+        transformer_lm as zoo,
+    )
+    from elasticdl_tpu_torch.parallel.trainer import AllReduceTrainer
+    from elasticdl_tpu_torch.training.step import aux_loss_total
+
+    layers, vocab = MOE_CFG["num_layers"], MOE_CFG["vocab_size"]
+    with torch.device("meta"):
+        model = zoo.custom_model(**MOE_CFG)
+    trainer = AllReduceTrainer(model, zoo.loss, zoo.optimizer(LR), seed=SEED,
+                               device=DEVICE)
+    rng = np.random.default_rng(SEED + 11)
+    batches = [
+        rng.integers(0, vocab, (TRAIN_BATCH, SEQ_LEN), dtype=np.int32)
+        for _ in range(1 + MOE_TRAIN_STEPS)
+    ]
+    trainer.init_from_batch(batches[0])
+    # checks (not counted): the kernels' gradients against plain
+    # attention's from the seeded init
+    check_tokens = rng.integers(0, vocab, (GRAD_CHECK_BATCH, SEQ_LEN),
+                                dtype=np.int32)
+    grad_check = _moe_grad_check(
+        torch, model, zoo.loss,
+        {n: p.detach().clone() for n, p in trainer.train_state.params.items()},
+        check_tokens,
+    )
+    # the first step, from the seeded init, routes as it is recorded:
+    # its gradients reach exactly the experts that were given tokens
+    t0 = time.perf_counter()
+    with _Routing() as first_routes:
+        warm_loss = float(trainer.train_step({"tokens": batches[0]},
+                                             batches[0]))
+    warm_s = time.perf_counter() - t0
+    routed = first_routes.histogram(MOE_CFG["num_experts"])
+    unreached = _moe_gradients_reach(torch, trainer.train_state.params,
+                                     routed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    step_ms, losses, aux = [], [], []
+    for tokens in batches[1:]:
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step({"tokens": tokens}, tokens))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        aux.append(float(aux_loss_total(trainer.train_state.state)))
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [warm_loss] + [float(x) for x in losses]
+    params = trainer.train_state.params
+    aux_entries = sorted(n for n in trainer.train_state.state
+                         if "aux_loss" in n.split("."))
+    problems = []
+    if not all(np.isfinite(losses)):
+        problems.append("non-finite loss %s" % losses)
+    try:
+        _check_counts(counts, {k: layers * MOE_TRAIN_STEPS for k in KERNELS},
+                      "%d MoE train steps" % MOE_TRAIN_STEPS)
+    except PhaseError as e:
+        problems.append(str(e))
+    if unreached:
+        problems.append("first step's gradients: %s" % unreached)
+    nonfinite = [n for n, p in params.items()
+                 if not bool(torch.isfinite(p.grad).all())]
+    if nonfinite:
+        problems.append("non-finite gradients: %s" % nonfinite)
+    if len(aux_entries) != layers or not all(
+            np.isfinite(a) and a > 0 for a in aux):
+        problems.append("aux_loss entries %s, values %s" % (aux_entries, aux))
+    if grad_check["max_rel_l2"] > GRAD_REL_L2 or not np.isclose(
+            grad_check["loss"], grad_check["loss_other"], rtol=GRAD_REL_L2):
+        problems.append("kernel gradients against plain attention: %s "
+                        "(limit %g)" % (grad_check, GRAD_REL_L2))
+    med = float(np.median(step_ms))
+    train = {
+        "step_ms": step_ms,
+        "step_ms_median": med,
+        "tokens_per_s": TRAIN_BATCH * SEQ_LEN / med * 1e3,
+        "warmup_s": warm_s,
+        "max_memory_allocated": int(peak),
+        "losses": losses,
+        "aux_loss": aux,
+        "aux_loss_entries": aux_entries,
+        "launches": {k: v[0] for k, v in counts.items()},
+        "launches_per_step": {k: v[0] / MOE_TRAIN_STEPS
+                              for k, v in counts.items()},
+        "grad_check": dict(grad_check, batch=GRAD_CHECK_BATCH,
+                           rel_l2_limit=GRAD_REL_L2,
+                           gated="seeded_init, the kernels' routing"),
+        "first_step_tokens_per_expert": routed,
+        "n_params": _n_params(params),
+    }
+
+    # serving: the trained weights' member behind a ScorerServer, the
+    # rebuilt module's replies to the same requests beside it
+    export_root = os.path.join(tmp, "moe-exports")
+    rebuild_root = os.path.join(tmp, "moe-exports-rebuild")
+    export_s = _moe_artifacts(torch, model, export_root, rebuild_root)
+    del trainer, params
+    torch.cuda.empty_cache()
+    requests = [
+        rng.integers(0, vocab, (1, SEQ_LEN), dtype=np.int32)
+        for _ in range(MOE_REQUESTS)
+    ]
+    stack = _stack(torch, export_root, requests, telemetry=True)
+    try:
+        main = _serve_round(torch, stack, requests, scrape_endpoint=False)
+    finally:
+        _stop_stack(stack)
+    served = stack["scorer"].model()
+    # the module the scorer rebuilds from the params-only artifact, on
+    # the same requests in the batcher's batches
+    from elasticdl_tpu_torch.serving.scorer import ScorerModel
+
+    rebuilt = ScorerModel(os.path.join(rebuild_root, "v1"),
+                          device=DEVICE).rebuild()
+    with torch.inference_mode():
+        rebuilt_replies = [
+            rebuilt({"tokens": np.concatenate(requests[i:i + MAX_BATCH])})
+            for i in range(0, len(requests), MAX_BATCH)
+        ]
+    rebuilt_replies = [r.float().cpu() for r in torch.cat(rebuilt_replies)]
+    del rebuilt
+    if not served.serves_member or _flash_nodes(served.module) != layers:
+        problems.append("the MoE member is not served through %d flash "
+                        "op nodes" % layers)
+    if (main["forwards"] < 1 or main["launches"] != layers * main["forwards"]
+            or main["bwd_launches"]):
+        problems.append(
+            "served: flash_fwd %d over %d forwards (want %d each), "
+            "backward %d" % (main["launches"], main["forwards"], layers,
+                             main["bwd_launches"]))
+    rebuilt_err = max(
+        float((a.float()[0] - b).abs().max())
+        for a, b in zip(main["replies"], rebuilt_replies))
+    if rebuilt_err > REPLY_ATOL:
+        problems.append("member against rebuilt module: %.4g (atol %g)"
+                        % (rebuilt_err, REPLY_ATOL))
+    rec = {
+        "phase": "moe",
+        "model": dict(MOE_CFG, params="float32"),
+        "source": "Switch-Base-8 widths (Fedus et al. 2021), 4 layers",
+        "batch": TRAIN_BATCH,
+        "seq_len": SEQ_LEN,
+        "steps_timed": MOE_TRAIN_STEPS,
+        "train": train,
+        "export_s": export_s,
+        "serve": {
+            "requests": MOE_REQUESTS,
+            "forwards": main["forwards"],
+            "flash_launches": main["launches"],
+            "flash_launches_per_forward": main["launches"]
+            / max(1, main["forwards"]),
+            "latency_p50_ms": main["p50_ms"],
+            "latency_p99_ms": main["p99_ms"],
+            "served_by": "ScorerServer -> MicroBatcher -> the member",
+            "member_vs_rebuilt_max_abs_err": rebuilt_err,
+            "atol": REPLY_ATOL,
+            "peak": main["peak"],
+        },
+        "problems": problems,
+    }
+    emit(rec)
+    if problems:
+        raise PhaseError("moe: " + "; ".join(problems))
+    return {"moe_train": counts, "moe_serve": main["counts"]}
+
+
+def _ring_tokens(vocab):
+    import numpy as np
+
+    return np.random.default_rng(SEED + 21).integers(
+        0, vocab, (RING_BATCH, RING_LEN), dtype=np.int32)
+
+
+def _counts_json(counts):
+    return {k: [n, [[list(key), c] for key, c in shapes.items()]]
+            for k, (n, shapes) in counts.items()}
+
+
+def _counts_from_json(counts):
+    return {k: (n, {tuple(key): c for key, c in shapes})
+            for k, (n, shapes) in counts.items()}
+
+
+def _ring_block_checks(torch, axis):
+    """The kernel ring against the plain ring (every block through
+    ``plain_flash_with_lse``/``plain_flash_bwd``) on this rank's shards of
+    seeded bf16 q, k, v (RING_BATCH x RING_LEN, SLICE_CFG's heads): each
+    block the kernels run against its plain version on the same inputs,
+    and the ring's out, dq, dk, dv against the plain ring's, by relative
+    L2."""
+    from elasticdl_tpu_torch.parallel import ring_attention as ra
+
+    h, d = RING_CFG["num_heads"], RING_CFG["head_dim"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    full = [torch.randn((RING_BATCH, RING_LEN, h, d), device=DEVICE,
+                        generator=gen, dtype=torch.bfloat16)
+            for _ in range(4)]
+    part = RING_LEN // axis.size
+    mine = [t[:, axis.index * part:(axis.index + 1) * part].contiguous()
+            for t in full]
+    blocks = []
+    fwd, bwd = ra._block_fwd, ra._block_bwd
+
+    def checked_fwd(q, kk, vv, causal, plain):
+        got = fwd(q, kk, vv, causal, plain)
+        want = fwd(q, kk, vv, causal, True)
+        blocks.append({"pass": "fwd", "causal": causal,
+                       "out": _rel_l2(torch, got[0], want[0]),
+                       "lse": _rel_l2(torch, got[1], want[1])})
+        return got
+
+    def checked_bwd(q, kk, vv, out, lse, g, delta, causal, plain):
+        got = bwd(q, kk, vv, out, lse, g, delta, causal, plain)
+        want = bwd(q, kk, vv, out, lse, g, delta, causal, True)
+        blocks.append(dict(
+            {"pass": "bwd", "causal": causal},
+            **{n: _rel_l2(torch, a, b)
+               for n, a, b in zip(("dq", "dk", "dv"), got, want)}))
+        return got
+
+    def ring(plain):
+        q, k, v = (t.clone().requires_grad_(True) for t in mine[:3])
+        out = ra.ring_flash_attention(q, k, v, axis, causal=True,
+                                      plain=plain)
+        out.backward(mine[3])
+        return [out.detach(), q.grad, k.grad, v.grad]
+
+    ra._block_fwd, ra._block_bwd = checked_fwd, checked_bwd
+    try:
+        kernel = ring(False)
+    finally:
+        ra._block_fwd, ra._block_bwd = fwd, bwd
+    plain = ring(True)
+    totals = {n: _rel_l2(torch, a, b)
+              for n, a, b in zip(("out", "dq", "dk", "dv"), kernel, plain)}
+    return blocks, totals
+
+
+def _ring_moe_check(torch, mesh_shape):
+    """The 1-layer MoE LM routed over an ``expert`` group of the ranks
+    against its dense fallback from the same weights: the logits (max
+    abs error) and every gradient (relative L2)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.model_zoo.transformer_lm import (
+        transformer_lm as zoo,
+    )
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.training.step import make_grad_fn
+
+    mesh = create_mesh(mesh_shape, devices=[DEVICE])
+    tokens = np.random.default_rng(SEED + 41).integers(
+        0, RING_MOE_CFG["vocab_size"], RING_MOE_TOKENS, dtype=np.int32)
+    got = {}
+    for arm, cfg, m in (("routed", dict(RING_MOE_CFG, mesh=mesh), mesh),
+                        ("dense", RING_MOE_CFG, None)):
+        model = _lm_weights(torch, cfg, DEVICE)
+        got[arm] = make_grad_fn(model, zoo.loss, mesh=m)(
+            dict(model.named_parameters()), dict(model.named_buffers()),
+            {"tokens": tokens}, tokens)
+        del model
+    rel = {n: _rel_l2(torch, got["routed"][1][n], got["dense"][1][n])
+           for n in got["dense"][1]}
+    worst = max(rel, key=rel.get)
+    return {
+        "mesh": mesh_shape,
+        "tokens": list(RING_MOE_TOKENS),
+        "loss": float(got["routed"][0]),
+        "loss_dense": float(got["dense"][0]),
+        "logits_max_abs_err": float(
+            (got["routed"][3].float() - got["dense"][3].float()).abs().max()),
+        "grad_max_rel_l2": rel[worst],
+        "worst_tensor": worst,
+    }
+
+
+def ring_rank_main(torch, rank, port, out):
+    """One rank of the ring phase (``--ring-rank``): a gloo world of
+    RING_RANKS on the card, the sequence-sharded LM's counted gradient
+    step and RING_STEPS timed ones, the block checks, the routed MoE
+    check; writes ``rank-<r>.json`` (and rank 0 its gradients) under
+    ``out``. Returns the exit code."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from elasticdl_tpu_torch.model_zoo.transformer_lm import (
+        transformer_lm as zoo,
+    )
+    from elasticdl_tpu_torch.parallel import collectives
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.training.step import make_grad_fn
+
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
+                            rank=rank, world_size=RING_RANKS)
+    rec = {"rank": rank, "problems": []}
+    try:
+        mesh = create_mesh({"data": 1, "seq": RING_RANKS}, devices=[DEVICE])
+        layers = RING_CFG["num_layers"]
+        model = _lm_weights(
+            torch, dict(RING_CFG, mesh=mesh, seq_axis="seq"), DEVICE)
+        tokens = _ring_tokens(RING_CFG["vocab_size"])
+        grad_fn = make_grad_fn(model, zoo.loss, mesh=mesh, seq_axis="seq")
+        params = dict(model.named_parameters())
+
+        def step():
+            return grad_fn(params, {}, {"tokens": tokens}, tokens)
+
+        # booted (imports, the world, the model on the card): wait for
+        # the phase to start
+        go = os.path.join(out, "go")
+        deadline = time.monotonic() + RING_LIMIT_S
+        while not os.path.exists(go):
+            if time.monotonic() > deadline:
+                raise PhaseError("no go after %d s" % RING_LIMIT_S)
+            time.sleep(0.05)
+
+        # the main path: one counted gradient step of the ring
+        torch.cuda.synchronize()
+        _reset_counters()
+        loss, grads, _, _ = step()
+        torch.cuda.synchronize()
+        counts = _counts()
+        rec["counts"] = _counts_json(counts)
+        want = layers * (mesh.axis("seq").index + 1)
+        try:
+            _check_counts(counts, {k: want for k in KERNELS},
+                          "ring rank %d's step" % rank)
+        except PhaseError as e:
+            rec["problems"].append(str(e))
+        rec["loss"] = float(loss)
+        rec["grad_digest"] = float(sum(
+            g.double().sum() for g in grads.values()))
+        if rank == 0:
+            np.savez(os.path.join(out, "grads.npz"), **{
+                n: g.float().cpu().numpy() for n, g in grads.items()})
+        del grads
+        step_ms, staged = [], []
+        for _ in range(RING_STEPS):
+            collectives.staging.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            staged.append(collectives.staging.snapshot())
+        rec.update(step_ms=step_ms, staging=staged)
+        blocks, totals = _ring_block_checks(torch, mesh.axis("seq"))
+        rec.update(blocks=blocks, ring_vs_plain_ring=totals)
+        limit = REL_L2["bfloat16"]
+        worst = max([v for b in blocks for k, v in b.items()
+                     if k not in ("pass", "causal")] + list(totals.values()))
+        rec["worst_rel_l2"] = worst
+        if worst > limit:
+            rec["problems"].append(
+                "kernel ring against the plain ring: %.4g (limit %g)"
+                % (worst, limit))
+        fwd_blocks = sum(1 for b in blocks if b["pass"] == "fwd")
+        if fwd_blocks != mesh.axis("seq").index + 1:
+            rec["problems"].append("%d forward blocks" % fwd_blocks)
+        rec["moe"] = _ring_moe_check(torch, {"expert": RING_RANKS})
+        if (rec["moe"]["logits_max_abs_err"] > REPLY_ATOL
+                or rec["moe"]["grad_max_rel_l2"] > GRAD_REL_L2):
+            rec["problems"].append("routed MoE against dense: %s"
+                                   % rec["moe"])
+    except Exception as err:  # noqa: BLE001 — reported to the parent
+        import traceback
+
+        traceback.print_exc()
+        rec["problems"].append("raised %r" % err)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, "rank-%d.json" % rank), "w") as f:
+        json.dump(rec, f)
+    return 1 if rec["problems"] else 0
+
+
+class _RingRanks:
+    """The ring phase's RING_RANKS processes of ``--ring-rank``, started
+    before the phase: each boots (its imports, the gloo world, the model
+    on the card) while the phase before it runs, then waits for
+    :meth:`go` before its counted step. :meth:`stop` ends what is left."""
+
+    def __init__(self, tmp):
+        self.out = os.path.join(tmp, "ring")
+        os.makedirs(self.out, exist_ok=True)
+        port = _free_port()
+        env = dict(os.environ)
+        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        self.started = time.perf_counter()
+        self.procs = []
+        for r in range(RING_RANKS):
+            log = open(os.path.join(self.out, "rank-%d.log" % r), "w")
+            self.procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ring-rank",
+                 str(r), "--ring-port", str(port), "--ring-out", self.out],
+                env=env, stdout=log, stderr=subprocess.STDOUT), log))
+        # they boot while the phase before the ring's runs
+        HANDED_ON.update(proc.pid for proc, _ in self.procs)
+
+    def go(self):
+        with open(os.path.join(self.out, "go"), "w"):
+            pass
+        return time.perf_counter()
+
+    def wait(self):
+        deadline = time.monotonic() + RING_LIMIT_S
+        try:
+            for proc, _ in self.procs:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            self.stop()
+
+    def stop(self):
+        for proc, log in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+            HANDED_ON.discard(proc.pid)
+
+
+def phase_ring(torch, ring_ranks):
+    """The whole sequence in this process, then ``go`` to the
+    ``_RingRanks`` (booted meanwhile) and their records, from the same
+    weights; returns {"ring_rank<r>": the launches of rank r's counted
+    step}."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.model_zoo.transformer_lm import (
+        transformer_lm as zoo,
+    )
+    from elasticdl_tpu_torch.training.step import make_grad_fn
+
+    out = ring_ranks.out
+    # the whole 2,048 in this process, the same weights, the flash
+    # kernels, before the ranks step
+    model = _lm_weights(torch, RING_CFG, DEVICE)
+    tokens = _ring_tokens(RING_CFG["vocab_size"])
+    loss, grads, _, _ = make_grad_fn(model, zoo.loss)(
+        dict(model.named_parameters()), {}, {"tokens": tokens}, tokens)
+    del model
+    torch.cuda.synchronize()
+    t0 = ring_ranks.go()
+    boot_s = t0 - ring_ranks.started
+    ring_ranks.wait()
+    ranks_s = time.perf_counter() - t0
+    procs = ring_ranks.procs
+    ranks, problems = [], []
+    for r, (proc, _) in enumerate(procs):
+        path = os.path.join(out, "rank-%d.json" % r)
+        if not os.path.exists(path):
+            with open(os.path.join(out, "rank-%d.log" % r)) as f:
+                tail = f.read()[-3000:]
+            raise PhaseError("ring rank %d exited %s with no record:\n%s"
+                             % (r, proc.returncode, tail))
+        with open(path) as f:
+            ranks.append(json.load(f))
+        problems += ["rank %d: %s" % (r, p) for p in ranks[-1]["problems"]]
+    gathered = dict(np.load(os.path.join(out, "grads.npz")))
+    rel = {n: _rel_l2(torch, torch.from_numpy(gathered[n]).to(DEVICE), g)
+           for n, g in grads.items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(ranks[0]["loss"] - float(loss)) / abs(float(loss))
+    if sorted(gathered) != sorted(grads):
+        problems.append("gathered gradients %s, the model's %s"
+                        % (sorted(gathered), sorted(grads)))
+    if rel[worst] > GRAD_REL_L2 or loss_rel > RING_LOSS_RTOL:
+        problems.append(
+            "the ring against the whole sequence: loss %.6g / %.6g, "
+            "gradients %.4g at %s (limits %g, %g)"
+            % (ranks[0]["loss"], float(loss), rel[worst], worst,
+               RING_LOSS_RTOL, GRAD_REL_L2))
+    if len({r["grad_digest"] for r in ranks}) != 1:
+        problems.append("the ranks' reduced gradients differ: %s"
+                        % [r["grad_digest"] for r in ranks])
+    rec = {
+        "phase": "ring",
+        "model": dict(RING_CFG, params="float32"),
+        "mesh": {"data": 1, "seq": RING_RANKS},
+        "batch": RING_BATCH,
+        "seq_len": RING_LEN,
+        "shard_len": RING_LEN // RING_RANKS,
+        "ranks_after_go_s": ranks_s,
+        "ranks_started_before_go_s": boot_s,
+        "loss_ring": ranks[0]["loss"],
+        "loss_whole": float(loss),
+        "loss_rel": loss_rel,
+        "loss_rtol": RING_LOSS_RTOL,
+        "grad_max_rel_l2": rel[worst],
+        "grad_worst_tensor": worst,
+        "grad_median_rel_l2": float(sorted(rel.values())[len(rel) // 2]),
+        "grad_rel_l2_limit": GRAD_REL_L2,
+        "ranks": [
+            {k: r.get(k) for k in (
+                "rank", "step_ms", "staging", "ring_vs_plain_ring",
+                "worst_rel_l2", "moe", "blocks")}
+            for r in ranks
+        ],
+        "launches_by_rank": [
+            {k: v[0] for k, v in r.get("counts", {}).items()} for r in ranks
+        ],
+        "block_rel_l2_limit": REL_L2["bfloat16"],
+        "problems": problems,
+    }
+    emit(rec)
+    if problems:
+        raise PhaseError("ring: " + "; ".join(problems))
+    return {"ring_rank%d" % r["rank"]: _counts_from_json(r["counts"])
+            for r in ranks}
+
+
+def _moe_ring_only(torch, which):
+    """``--moe-only`` / ``--ring-only``: phases device, build and the one
+    named, no result line."""
+    try:
+        card = phase_device(torch)
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            if which == "moe":
+                got = phase_moe(torch, tmp)
+            else:
+                ring_ranks = _RingRanks(tmp)
+                try:
+                    got = phase_ring(torch, ring_ranks)
+                finally:
+                    ring_ranks.stop()
+        emit({"phase": which + "_launches",
+              "launches": {path: {k: v[0] for k, v in c.items()}
+                           for path, c in got.items()}})
+    except Exception as err:  # noqa: BLE001 — reported, exit non-zero
+        import traceback
+
+        traceback.print_exc()
+        print("chip_smoke: FAILED: %s" % err, file=sys.stderr)
+        return 1
+    print(card)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -5571,24 +6489,32 @@ def _fleet_kill(torch, tmp, card, durable):
         worker=["--get_model_steps", "2"],
         worker_postmortem=worker_postmortem,
     )
+    from elasticdl_tpu_torch.tools.chaos import ChaosOp, FleetChaos
+
     marks = {}
+
+    def trigger(shard):
+        """Shard 1's status for the chaos poller: its version, or with
+        snapshots the newest one it has published, so that the kill
+        follows a snapshot of version >= the mark."""
+        status = fleet.status(shard, 2.0)
+        marks.setdefault("epoch0", status["shard_epoch"])
+        published = snapshot_versions(os.path.join(snap, "ps-1")) \
+            if durable else [status["version"]]
+        marks["version_seen"] = status["version"]
+        return {"version": max(published) if published else -1}
+
+    chaos = FleetChaos(fleet.manager, trigger,
+                       [ChaosOp("kill", 1, at_version=FLEET_KILL_AT_VERSION)],
+                       poll_s=0.02)
 
     def on_poll(f):
         if "kill" not in marks:
-            try:
-                status = f.status(1, 2.0)
-            except Exception:  # noqa: BLE001 — between polls
-                return
-            marks.setdefault("epoch0", status["shard_epoch"])
-            # with snapshots, once one of version >= the mark is published
-            published = snapshot_versions(os.path.join(snap, "ps-1")) \
-                if durable else [status["version"]]
-            if published and max(published) >= FLEET_KILL_AT_VERSION:
-                version = status["version"]
-                marks["published"] = max(published)
-                f.manager.kill_ps(1)
-                marks["kill"] = time.time()
-                marks["killed_at_version"] = version
+            if chaos.executed:
+                _, published, killed = chaos.executed[0]
+                marks["published"] = published
+                marks["kill"] = killed
+                marks["killed_at_version"] = marks.get("version_seen")
             return
         if "first_accepted" in marks:
             return
@@ -5607,10 +6533,17 @@ def _fleet_kill(torch, tmp, card, durable):
                 0, marks["version_at_serving"]):
             marks["first_accepted"] = time.time()
 
-    raw = fleet.run(on_poll=on_poll, inspect=lambda f: [
-        f.status(i) for i in range(f.shards)])
+    chaos.start()
+    try:
+        raw = fleet.run(on_poll=on_poll, inspect=lambda f: [
+            f.status(i) for i in range(f.shards)])
+    finally:
+        chaos.stop()
     events = raw["events"]
     problems = []
+    if not chaos.done() or [(op.kind, op.shard) for op, _, _ in
+                            chaos.executed] != [("kill", 1)]:
+        problems.append("%s chaos executed %s" % (name, chaos.executed))
     tasks = PS_RECORDS // (2 * PS_BATCH)
     if raw["journal"]["done"] != tasks * FLEET_ASYNC_EPOCHS or (
             raw["journal"]["pending"]):
@@ -5682,6 +6615,9 @@ def _fleet_kill(torch, tmp, card, durable):
         "worker_peak_mib": [e.get("peak_mib") for e in ends],
         "accepted_steps": len(_fleet_steps(events)),
         "ps_exit_codes": raw["ps_exit_codes"],
+        "chaos_executed": [
+            {"op": repr(op), "trigger": trigger_v, "t": t}
+            for op, trigger_v, t in chaos.executed],
         # the relaunched shard answers the old ring with _shm_error: each
         # worker's channel to it goes off and resends inline
         "wire": [e.get("wire") for e in ends],
@@ -5804,7 +6740,16 @@ def _fleet_master_kill(torch, tmp, card):
     fleet = _Fleet(tmp, "f5-journal", PS_DEEPFM,
                    os.path.join(tmp, "ps-data"), PS_BATCH, shards=0,
                    epochs=2)
+    from elasticdl_tpu_torch.tools.chaos import ChaosOp, FleetChaos
+
     marks = {}
+    chaos = FleetChaos(
+        fleet.manager, lambda shard: {},
+        [ChaosOp("kill_master", -1,
+                 at_version=FLEET_MASTER_KILL_AT_VERSION)],
+        poll_s=0.02,
+        master_status_fn=lambda: _master_probe(fleet.master_port),
+    )
 
     def on_poll(f):
         if "kill" in marks:
@@ -5815,18 +6760,21 @@ def _fleet_master_kill(torch, tmp, card):
                 except Exception:  # noqa: BLE001 — still down
                     pass
             return
-        try:
-            version = _master_probe(f.master_port)["version"]
-        except Exception:  # noqa: BLE001 — between polls
-            return
-        if version >= FLEET_MASTER_KILL_AT_VERSION:
-            f.manager.kill_master()
-            marks["kill"] = time.time()
+        if chaos.executed:
+            _, version, killed = chaos.executed[0]
+            marks["kill"] = killed
             marks["killed_at_version"] = version
 
-    raw = fleet.run(on_poll=on_poll)
+    chaos.start()
+    try:
+        raw = fleet.run(on_poll=on_poll)
+    finally:
+        chaos.stop()
     events = raw["events"]
     problems = []
+    if not chaos.done() or [op.kind for op, _, _ in chaos.executed] != [
+            "kill_master"]:
+        problems.append("f5 chaos executed %s" % chaos.executed)
     tasks = 2 * PS_RECORDS // (2 * PS_BATCH)
     if raw["journal"]["done"] != tasks or raw["journal"]["pending"]:
         problems.append("f5 journal %s, want %d" % (raw["journal"], tasks))
@@ -5852,6 +6800,9 @@ def _fleet_master_kill(torch, tmp, card):
                                   for ev in events.values()),
         "journal": raw["journal"], "accepted_steps": len(
             _fleet_steps(events)),
+        "chaos_executed": [
+            {"op": repr(op), "trigger": trigger_v, "t": t}
+            for op, trigger_v, t in chaos.executed],
     }
     rec["worker_flash_launches"] = _worker_launches(events, problems)
     return rec, problems
@@ -7949,13 +8900,16 @@ ELASTIC_WORKERS = 2
 # worker's cold start: the survivor, alone, takes a task a step, and a
 # joiner that finds no task left never joins
 ELASTIC_KILL_EPOCHS = 4
+# Run D: the promoted standby is warm and the survivor waits for it (it
+# re-forms once, at full size), so two epochs leave it work to join
+ELASTIC_STANDBY_EPOCHS = 2
 ELASTIC_KILL_AT_VERSION = 4
 ELASTIC_JOB_LIMIT_S = 420  # a run that hangs fails the phase
 SNAPSHOT_CHECK_SLEEP_CYCLES = 200_000_000  # keeps the stream busy ~0.1 s
 # Run C: the master SIGKILLed once its version reaches this, in a job of
-# this many epochs (long enough to step on after the relaunch)
+# this many epochs (24 lockstep steps left to take after the relaunch)
 MASTER_KILL_AT_VERSION = 4
-MASTER_KILL_EPOCHS = 3
+MASTER_KILL_EPOCHS = 2
 MASTER_FAILOVER_S = 120  # the workers' outage budget (the default)
 # Run E: one epoch, a round every 4 versions over 256 validation records
 ELASTIC_EVAL_EPOCHS = 1
@@ -8329,7 +9283,7 @@ def phase_elastic(torch, tmp, job_rec, card):
         ("A", 1, None, [], "elastic"),
         ("B", ELASTIC_KILL_EPOCHS, ELASTIC_KILL_AT_VERSION, [], "elastic"),
         ("C", MASTER_KILL_EPOCHS, None, None, "elastic_master_kill"),
-        ("D", ELASTIC_KILL_EPOCHS, ELASTIC_KILL_AT_VERSION,
+        ("D", ELASTIC_STANDBY_EPOCHS, ELASTIC_KILL_AT_VERSION,
          ["--num_standby_workers", "1"], "elastic_standby"),
         ("E", ELASTIC_EVAL_EPOCHS, None,
          ["--validation_data", val_dir, "--evaluation_steps",
@@ -8463,6 +9417,32 @@ def phase_elastic(torch, tmp, job_rec, card):
             "checkpoint_write_ms": [1e3 * v for _, v in sorted(writes.items())],
             "sync_checkpoint_s_pr5": "1.1-1.7 (PERF.md)",
         }
+        # where a run's seconds go: each first worker's boot (spawn ->
+        # its start event -> its first step), and the job's tail after
+        # the last step
+        rec["boot"] = {
+            str(w): {
+                "spawn_to_start_s": _of(ev, "start")[0]["t"]
+                - manager.spawned_at[w]
+                if _of(ev, "start") and w in manager.spawned_at else None,
+                "start_to_first_step_s": _of(ev, "step")[0]["t"]
+                - _of(ev, "start")[0]["t"]
+                if _of(ev, "start") and _of(ev, "step") else None,
+                "start_to_established_s": _of(ev, "established")[0]["t"]
+                - _of(ev, "start")[0]["t"]
+                if _of(ev, "start") and _of(ev, "established") else None,
+                "establish": {k: v for k, v in (_of(ev, "established")
+                                                or [{}])[0].items()
+                              if k.endswith("_s")},
+            }
+            for w, ev in sorted(events.items()) if w < ELASTIC_WORKERS
+        }
+        rec["first_step_after_job_start_s"] = (
+            steps[0]["t"] - (time.time() - (time.perf_counter() - t0))
+            if steps else None)
+        rec["last_step_to_job_end_s"] = (
+            time.time() - steps[-1]["t"] - (time.perf_counter() - t0 - job_s)
+            if steps else None)
         if run == "A":
             rec["snapshot_check"] = snapshot
             if manager.exit_codes != {0: 0, 1: 0}:
@@ -8963,6 +9943,21 @@ def main(argv=None):
         "print its records, not the result line" % ",".join(F1_PLANES),
     )
     parser.add_argument(
+        "--moe-only",
+        action="store_true",
+        help="drive only the moe phase (after device and build) and print "
+        "its records, not the result line",
+    )
+    parser.add_argument(
+        "--ring-only",
+        action="store_true",
+        help="drive only the ring phase (after device and build) and print "
+        "its records, not the result line",
+    )
+    parser.add_argument("--ring-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--ring-port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--ring-out", help=argparse.SUPPRESS)
+    parser.add_argument(
         "--wire-order",
         default="off,auto",
         help="with --wire-only, the W arms' --ps_shm values in the order "
@@ -8976,6 +9971,12 @@ def main(argv=None):
     f1_order = tuple(args.f1_order.split(",")) if args.f1_order else None
     if f1_order and set(f1_order) - set(F1_PLANES):
         parser.error("each --f1-order arm is one of %s" % (F1_PLANES,))
+    return _checked(args, order, f1_order)
+
+
+def _checked(args, order, f1_order):
+    """``main`` past its arguments: a card and a checkout, then the
+    phases, every process they start stopped at the end."""
     try:
         import torch
     except ImportError:
@@ -8992,7 +9993,31 @@ def main(argv=None):
             file=sys.stderr,
         )
         return 2
+    _bytecode_cache()
     sys.path.insert(0, REPO)
+    if args.ring_rank is not None:
+        return ring_rank_main(torch, args.ring_rank, args.ring_port,
+                              args.ring_out)
+    _become_subreaper()
+    # a stop from outside (SIGTERM) unwinds the phases, and this finally
+    # still stops every process below this one
+    signal.signal(signal.SIGTERM, _on_sigterm)
+    try:
+        return _main(torch, args, order, f1_order)
+    finally:
+        _stop_processes()
+
+
+def _on_sigterm(signum, frame):
+    raise SystemExit(128 + signum)
+
+
+def _main(torch, args, order, f1_order):
+    """``main`` past its checks: the phases that ``args`` ask for."""
+    if args.moe_only:
+        return _moe_ring_only(torch, "moe")
+    if args.ring_only:
+        return _moe_ring_only(torch, "ring")
     if args.elastic_only:
         return _elastic_only(torch)
     if args.zoo_only:
@@ -9033,6 +10058,14 @@ def main(argv=None):
         with tempfile.TemporaryDirectory() as tmp:
             served = _run_phase("slice", phase_slice, torch, tmp)
         trained = _run_phase("train", phase_train, torch)
+        with tempfile.TemporaryDirectory() as tmp:
+            # the ring's ranks boot while the moe phase runs
+            ring_ranks = _RingRanks(tmp)
+            try:
+                moe = _run_phase("moe", phase_moe, torch, tmp)
+                ring = _run_phase("ring", phase_ring, torch, ring_ranks)
+            finally:
+                ring_ranks.stop()
         fused = _run_phase("fused", phase_fused_step, torch, card)
         with tempfile.TemporaryDirectory() as tmp:
             job, job_rec = _run_phase("job", phase_job, torch, tmp, fused,
@@ -9084,15 +10117,17 @@ def main(argv=None):
                   "ps_fleet": ps_fleet, "ps_tiers": ps_tiers,
                   "ps_hybrid": ps_hybrid, "ps_serve": ps_serve,
                   "wire": wire},
-                 **elastic),
+                 **moe, **ring, **elastic),
         )
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback
 
         traceback.print_exc()
+        _stop_processes()
         emit(timing_record())
         print("chip_smoke: FAILED: %s" % err, file=sys.stderr)
         return 1
+    _stop_processes()
     emit(timing_record())
     emit(line)
     print(card)

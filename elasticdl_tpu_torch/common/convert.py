@@ -37,7 +37,10 @@ one device, is dropped.
 Layouts:
 
 - ``dense``: a flax ``Dense`` kernel ``(in, out)`` is the transposed
-  ``nn.Linear`` weight ``(out, in)``.
+  ``nn.Linear`` weight ``(out, in)`` (the MoE gate's too). The stacked
+  expert weights ``experts_up`` (E, D, F) and ``experts_down`` (E, F,
+  D) keep their layout, and the ``aux_loss`` collection's
+  ``moe_balance`` is the block's ``aux_loss.moe_balance`` buffer.
 - ``heads_out``: a ``DenseGeneral`` kernel ``(E, H, D)`` (q/k/v
   projections) is ``(H*D, E)`` once its head axes are flattened.
 - ``heads_in``: the output projection's ``(H, D, E)`` is ``(E, H*D)``.
@@ -70,6 +73,12 @@ _TRANSFORMER_LM = (  # (reference path, state_dict key, layout)
     ("block_{i}/out/kernel", "blocks.{i}.out.weight", "heads_in"),
     ("block_{i}/{mlp}/kernel", "blocks.{i}.{mlp}.weight", "dense"),
     ("block_{i}/{mlp}/bias", "blocks.{i}.{mlp}.bias", None),
+    # the mixture of experts: the gate a Dense, the stacks as they are
+    ("block_{i}/moe_mlp/gate/kernel", "blocks.{i}.moe_mlp.gate.weight",
+     "dense"),
+    ("block_{i}/moe_mlp/{experts}", "blocks.{i}.moe_mlp.{experts}", None),
+    ("aux_loss/block_{i}/moe_mlp/moe_balance",
+     "blocks.{i}.moe_mlp.aux_loss.moe_balance", None),
     ("RMSNorm_0/scale", "norm.weight", None),
 )
 _CONV = (
@@ -132,6 +141,7 @@ _FIELDS = {
     "stat": r"(?P<stat>mean|var)",
     "proj": r"(?P<proj>query|key|value)",
     "mlp": r"(?P<mlp>mlp_up|mlp_down)",
+    "experts": r"(?P<experts>experts_up|experts_down)",
     "table": r"(?P<table>embedding|id_bias)",
 }
 

@@ -58,6 +58,7 @@ EXPORT_FORMAT = "elasticdl-tpu-export"
 EXPORT_FORMAT_VERSION = 1
 SERVING_FILE = "serving_fn.pt2"
 SERVING_KEY = "torch_serving_fn"  # the member's key under "artifacts"
+_AUX_LOSS = "aux_loss"  # training/step.py's AUX_LOSS_COLLECTION
 
 
 def _leaf_spec(named):
@@ -84,7 +85,23 @@ def make_serving_module(model, params, state):
     for name, b in model.named_buffers():
         if name in (state or {}):
             memo[id(b)] = state[name].detach()
-    return copy.deepcopy(model, memo).eval()
+    served = copy.deepcopy(model, memo).eval()
+    # the auxiliary losses a training forward writes (the MoE's balance
+    # loss) are no input of a forward: they stay out of the served graph
+    for module in served.modules():
+        for name, _ in list(module.named_buffers(recurse=False)):
+            if name not in module._non_persistent_buffers_set:
+                continue
+            if _AUX_LOSS in _path_of(served, module).split("."):
+                del module._buffers[name]
+    return served
+
+
+def _path_of(root, module):
+    for path, m in root.named_modules():
+        if m is module:
+            return path
+    return ""
 
 
 def _module_device(module):

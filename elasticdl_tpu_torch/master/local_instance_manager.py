@@ -112,8 +112,15 @@ class LocalInstanceManager:
         self.status = InstanceManagerStatus.PENDING
 
     def _spawn(self, key, argv):
-        proc = subprocess.Popen(argv, env=self._env)
+        """Start ``argv`` as ``key``; None once the manager is stopping.
+        The check and the start share one hold of the lock: a relaunch
+        or a standby refill racing :meth:`stop_relaunch_and_remove_all_pods`
+        either starts before the stop collects the processes, or not at
+        all (a process started after it would outlive the job)."""
         with self._lock:
+            if self._stopping:
+                return None
+            proc = subprocess.Popen(argv, env=self._env)
             self._procs[key] = proc
             if key[0] == "ps":
                 self.ps_spawned_at.setdefault(key[1], []).append(time.time())

@@ -1,20 +1,33 @@
-"""The device mesh, the counterpart of ``elasticdl_tpu/parallel/mesh.py``,
-in its one-device form.
+"""The device mesh, the counterpart of ``elasticdl_tpu/parallel/mesh.py``.
 
 The reference's ``create_mesh`` builds a ``jax.sharding.Mesh`` over the
-devices a job uses, with named axes (``data``, ``model``, ``seq``), and
-the zoo's hooks (``build_distributed_model(mesh)``, ``param_shardings(
-mesh)``) receive it. The port runs on one card, so its :class:`Mesh` is
-that mesh over one device: the axis names, their sizes (all 1) and the
-device list. A mesh of more than one device raises
-``NotImplementedError`` (ROADMAP A9).
+devices a job uses, with named axes (``data``, ``model``, ``seq``,
+``expert``), and the zoo's hooks (``build_distributed_model(mesh)``,
+``param_shardings(mesh)``) and the LM family's axes receive it. The port
+has two forms:
+
+- A mesh of one device (:class:`Mesh`): the axis names, their sizes (all
+  1) and the device. Every spec on it is whole: :func:`spec_is_whole`
+  says so, and the trainer places every parameter whole on the card.
+- A mesh over the ranks of an initialised ``torch.distributed`` world
+  (:class:`WorldMesh`), one process per position: the world's ranks laid
+  out row-major over the axes, as the reference lays its devices out,
+  and one process group for each axis slice (:meth:`WorldMesh.axis`).
+  Each rank holds its own shard of what the reference's mesh holds
+  globally; the expert and sequence axes (``parallel/expert.py``,
+  ``parallel/ring_attention.py``) run their collectives over these
+  groups. The groups take gloo when the ranks share a card or run on
+  the CPU, NCCL only when each rank names a card of its own (the port's
+  backend rule, ``parallel/distributed.choose_backend``).
+
+A mesh that needs a device per position beyond the world (more than one
+device and no world of that size) raises ``NotImplementedError``
+(ROADMAP A9: the sharded dense plane).
 
 :class:`PartitionSpec` names, per tensor dimension, the mesh axis it is
 split over (or None); :class:`PadDim0` is the reference's wrapper
 (``parallel/elastic.py``) that lets the elastic plane pad dim 0 to a
-world size it does not divide. On a mesh of one device every spec is
-whole: :func:`spec_is_whole` says so, and the trainer places every
-parameter whole on the card.
+world size it does not divide.
 """
 
 import numpy as np
@@ -24,8 +37,9 @@ from elasticdl_tpu_torch.common.device import resolve_device
 
 def _not_ported(n):
     return NotImplementedError(
-        "a mesh of %d devices is not ported yet (ROADMAP A9: the port "
-        "runs on one card)" % n
+        "a mesh of %d devices is not ported yet (ROADMAP A9: outside a "
+        "torch.distributed world of that many ranks, the port runs on "
+        "one card)" % n
     )
 
 
@@ -62,19 +76,137 @@ class Mesh:
         return "Mesh(%s, %s)" % (self.shape, self.device)
 
 
+class Axis:
+    """One axis of a :class:`WorldMesh` as this rank sees it: ``name``,
+    ``size``, ``index`` (this rank's position on it), ``ranks`` (the
+    world ranks of its slice, in axis order) and ``group`` (their
+    process group; None for an axis of size 1)."""
+
+    def __init__(self, name, size, index, ranks, group):
+        self.name = name
+        self.size = int(size)
+        self.index = int(index)
+        self.ranks = tuple(int(r) for r in ranks)
+        self.group = group
+
+    def __repr__(self):
+        return "Axis(%r, size=%d, index=%d)" % (
+            self.name, self.size, self.index,
+        )
+
+
+class WorldMesh(Mesh):
+    """A mesh over the ranks of the current ``torch.distributed`` world,
+    one per position: ``ranks`` is the world's ranks in the mesh's shape
+    (row-major, as the reference reshapes its device list), ``device``
+    this rank's device. Built by :func:`create_mesh` inside a world."""
+
+    def __init__(self, mesh_shape, device, rank, groups):
+        self.axis_names = tuple(mesh_shape)
+        sizes = tuple(int(mesh_shape[a]) for a in self.axis_names)
+        self.ranks = np.arange(int(np.prod(sizes))).reshape(sizes)
+        self.rank = int(rank)
+        self._device = device
+        coords = np.argwhere(self.ranks == self.rank)[0]
+        self._axes = {}
+        for i, name in enumerate(self.axis_names):
+            index = list(coords)
+            index[i] = slice(None)
+            ranks = self.ranks[tuple(index)]
+            self._axes[name] = Axis(
+                name, sizes[i], coords[i], ranks, groups.get(name)
+            )
+        self.devices = None
+
+    @property
+    def shape(self):
+        return {a: self._axes[a].size for a in self.axis_names}
+
+    @property
+    def size(self):
+        return int(self.ranks.size)
+
+    @property
+    def device(self):
+        """This rank's device."""
+        return self._device
+
+    def axis(self, name):
+        """This rank's :class:`Axis` ``name``."""
+        if name not in self._axes:
+            raise ValueError("mesh %r has no axis %r" % (self, name))
+        return self._axes[name]
+
+    def __repr__(self):
+        return "WorldMesh(%s, rank %d, %s)" % (
+            self.shape, self.rank, self._device,
+        )
+
+
+def axis_of(mesh, name):
+    """``mesh``'s :class:`Axis` ``name``, or None where the mesh lacks
+    that axis or it has size 1 (nothing is split over it)."""
+    if mesh is None or name is None or name not in mesh.axis_names:
+        return None
+    if not isinstance(mesh, WorldMesh):
+        return None
+    ax = mesh.axis(name)
+    return ax if ax.size > 1 else None
+
+
+def _world_mesh(mesh_shape, device):
+    """The :class:`WorldMesh` of ``mesh_shape`` over the current world:
+    every rank creates every axis slice's group, in one order, as
+    ``new_group`` requires; each keeps its own."""
+    import torch.distributed as dist
+
+    from elasticdl_tpu_torch.parallel.distributed import choose_backend
+
+    names = tuple(mesh_shape)
+    sizes = tuple(int(mesh_shape[a]) for a in names)
+    layout = np.arange(int(np.prod(sizes))).reshape(sizes)
+    rank = dist.get_rank()
+    backend = choose_backend(device)
+    groups = {}
+    for i, name in enumerate(names):
+        if sizes[i] == 1:
+            continue
+        # every slice along axis i: the other axes' coordinates fixed
+        slices = np.moveaxis(layout, i, -1).reshape(-1, sizes[i])
+        for ranks in slices:
+            group = dist.new_group([int(r) for r in ranks], backend=backend)
+            if rank in ranks:
+                groups[name] = group
+    return WorldMesh(mesh_shape, device, rank, groups)
+
+
 def create_mesh(mesh_shape=None, devices=None):
-    """Build the one-device :class:`Mesh`: ``mesh_shape`` {axis_name:
-    size} (default one ``data`` axis), ``devices`` the device list
-    (default: the card). A mesh of more than one device raises
-    ``NotImplementedError``."""
+    """Build a mesh: ``mesh_shape`` {axis_name: size} (default one
+    ``data`` axis), ``devices`` the device list (default: the card).
+
+    A mesh of one position is the one-device :class:`Mesh` over
+    ``devices[0]``. A larger one is a :class:`WorldMesh` when this
+    process is a rank of an initialised ``torch.distributed`` world of
+    exactly that many ranks, ``devices`` naming this rank's one device;
+    anything else raises ``NotImplementedError``."""
     devices = [resolve_device(d) for d in (devices or ["cuda"])]
     mesh_shape = mesh_shape or {"data": len(devices)}
     n = int(np.prod(list(mesh_shape.values())))
-    if n != 1 or len(devices) != 1:
-        raise _not_ported(max(n, len(devices)))
-    dev_array = np.empty((1,) * len(mesh_shape), dtype=object)
-    dev_array.reshape(-1)[0] = devices[0]
-    return Mesh(dev_array, tuple(mesh_shape))
+    if n == 1 and len(devices) == 1:
+        dev_array = np.empty((1,) * len(mesh_shape), dtype=object)
+        dev_array.reshape(-1)[0] = devices[0]
+        return Mesh(dev_array, tuple(mesh_shape))
+    if len(devices) == 1 and _world_size() == n:
+        return _world_mesh(mesh_shape, devices[0])
+    raise _not_ported(max(n, len(devices)))
+
+
+def _world_size():
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 0
 
 
 class PartitionSpec(tuple):

@@ -126,6 +126,14 @@ class ScorerModel:
         model.load_state_dict(
             to_state_dict(self.exported.named), assign=True
         )
+        for module in model.modules():
+            # a buffer no artifact carries (non-persistent: the MoE's
+            # aux_loss) starts at zero
+            for name, buf in module.named_buffers(recurse=False):
+                if buf.is_meta:
+                    module._buffers[name] = torch.zeros(
+                        buf.shape, dtype=buf.dtype
+                    )
         return model.to(self.device).eval()
 
     def prepare(self):

@@ -77,14 +77,15 @@ AUX_LOSS_COLLECTION = "aux_loss"
 
 
 def aux_loss_total(state):
-    """Sum of the model's auxiliary losses (the MoE load-balancing loss in
-    the reference), a float32 scalar: buffers under ``aux_loss``. No
-    ported model writes one yet, so this is 0 — a 0-dim CPU tensor, which
-    adds to a loss on any device and, as in the reference, promotes a
-    bf16 loss to float32."""
+    """Sum of the model's auxiliary losses (the MoE load-balancing loss),
+    a float32 scalar: the state entries with an ``aux_loss`` component in
+    their name (``blocks.0.moe_mlp.aux_loss.moe_balance``, the
+    reference's ``aux_loss/block_0/moe_mlp/moe_balance``). Without one
+    this is 0 — a 0-dim CPU tensor, which adds to a loss on any device
+    and, as in the reference, promotes a bf16 loss to float32."""
     total = torch.zeros((), dtype=torch.float32)
     for name, value in (state or {}).items():
-        if name.split(".")[0] == AUX_LOSS_COLLECTION:
+        if AUX_LOSS_COLLECTION in name.split("."):
             total = total.to(value.device) + value.float().sum()
     return total
 
@@ -146,7 +147,8 @@ def _loss_and_grads(forward, loss_fn, pol, params, state, features, labels,
                     rng):
     """(loss, grads, new_state, output) of one differentiated forward.
     A parameter the loss does not reach gets a zero gradient, as under
-    ``jax.value_and_grad``."""
+    ``jax.value_and_grad``. The new state is detached: an auxiliary loss
+    keeps its graph only for this step's backward."""
     leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
     with torch.enable_grad():
         p = leaves
@@ -165,7 +167,32 @@ def _loss_and_grads(forward, loss_fn, pol, params, state, features, labels,
         name: torch.zeros_like(leaves[name]) if g is None else g
         for name, g in zip(leaves, grads)
     }
+    new_state = {k: v.detach() for k, v in (new_state or {}).items()}
     return loss.detach(), grads, new_state, _detached(output)
+
+
+def _on_mesh(module, loss_fn, mesh, seq_axis):
+    """``(shard, loss_fn, reduce)`` of a step over a ``WorldMesh``
+    (``parallel/spmd.py``): this rank's cut of the global batch, the loss
+    on it, and the gradients and loss of the whole batch; identities on
+    no mesh or a mesh of one device."""
+    from elasticdl_tpu_torch.parallel import spmd
+    from elasticdl_tpu_torch.parallel.mesh import WorldMesh
+
+    if not isinstance(mesh, WorldMesh):
+        return (lambda f, l: (f, l)), loss_fn, (lambda loss, grads: (
+            loss, grads))
+
+    def shard(features, labels):
+        return spmd.shard_batch(features, labels, mesh, seq_axis)
+
+    def reduce(loss, grads):
+        return (
+            spmd.reduce_loss(loss, mesh, seq_axis),
+            spmd.reduce_gradients(grads, module, mesh, seq_axis),
+        )
+
+    return shard, spmd.make_loss(loss_fn, mesh, seq_axis), reduce
 
 
 def _detached(tree):
@@ -177,17 +204,22 @@ def _detached(tree):
     return tree.detach()
 
 
-def make_grad_fn(module, loss_fn, precision=None):
+def make_grad_fn(module, loss_fn, precision=None, mesh=None, seq_axis=None):
     """``(params, state, features, labels, rng) -> (loss, grads,
-    new_state, output)``; ``precision`` as in :func:`make_train_step`
-    (gradients come back in the parameters' dtype)."""
+    new_state, output)``; ``precision``, ``mesh`` and ``seq_axis`` as in
+    :func:`make_train_step` (gradients come back in the parameters'
+    dtype; on a mesh, the output is this rank's shard)."""
     pol = get_policy(precision)
     forward = make_remat_forward(module, False)
+    shard, loss_fn, reduce = _on_mesh(module, loss_fn, mesh, seq_axis)
 
     def step(params, state, features, labels, rng=None):
-        return _loss_and_grads(
+        features, labels = shard(features, labels)
+        loss, grads, new_state, output = _loss_and_grads(
             forward, loss_fn, pol, params, state, features, labels, rng
         )
+        loss, grads = reduce(loss, grads)
+        return loss, grads, new_state, output
 
     return step
 
@@ -246,6 +278,8 @@ def make_train_step(
     accum_steps=1,
     precision=None,
     remat=False,
+    mesh=None,
+    seq_axis=None,
 ):
     """Fused step ``(train_state, features, labels, rng) -> (train_state,
     loss)`` that updates ``train_state`` in place.
@@ -258,6 +292,11 @@ def make_train_step(
     differentiated function and the output to ``output_dtype`` before the
     loss. ``remat``: see :func:`make_remat_forward`.
 
+    ``mesh``: a ``parallel/mesh.WorldMesh`` the model runs over (its
+    ``data``, ``seq_axis`` and ``expert`` axes): every rank is handed the
+    global batch and steps on its shard of it, and the gradients and the
+    loss are the whole batch's on every rank (``parallel/spmd.py``).
+
     The step drives the optimizer in ``train_state.opt_state``, which
     ``TrainState.create`` bound to the parameters, so unlike the
     reference's builder this one takes no optimizer. ``pmean_axis`` (the
@@ -268,6 +307,7 @@ def make_train_step(
         )
     pol = get_policy(precision)
     forward = make_remat_forward(module, remat)
+    shard, loss_fn, reduce = _on_mesh(module, loss_fn, mesh, seq_axis)
 
     def grads_of(params, state, features, labels, rng):
         loss, grads, new_state, _ = _loss_and_grads(
@@ -276,6 +316,7 @@ def make_train_step(
         return loss, grads, new_state
 
     def step(ts, features, labels, rng=None):
+        features, labels = shard(features, labels)
         if accum_steps == 1:
             loss, grads, new_state = grads_of(
                 ts.params, ts.state, features, labels, rng
@@ -290,6 +331,7 @@ def make_train_step(
                 accum_steps,
                 ts.params,
             )
+        loss, grads = reduce(loss, grads)
         _apply(ts.opt_state, ts.params, grads)
         ts.state = new_state
         ts.version += 1

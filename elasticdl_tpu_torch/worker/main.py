@@ -246,8 +246,11 @@ def _ps_main(args):
 
 def _warm(args):
     """What a standby can do before it knows its worker id: the imports
-    and, where its device is known already, the CUDA context with cuDNN
-    and cuBLAS loaded. Returns the seconds of each step."""
+    (the zoo's, and torch's compile stack, which every torch optimizer's
+    constructor imports on its first call: seconds that would otherwise
+    fall inside the join) and, where its device is known already, the
+    CUDA context with cuDNN and cuBLAS loaded. Returns the seconds of
+    each step."""
     import torch
 
     from elasticdl_tpu_torch.common.model_utils import load_zoo_module
@@ -255,6 +258,9 @@ def _warm(args):
     t0 = time.perf_counter()
     load_zoo_module(args.model_def, args.model_zoo)
     warmed = {"zoo_s": time.perf_counter() - t0, "context_s": None}
+    t0 = time.perf_counter()
+    torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=0.0)
+    warmed["optimizer_s"] = time.perf_counter() - t0
     device = torch.device(args.device)
     if device.type == "cuda" and (
         device.index is not None or torch.cuda.device_count() <= 1
