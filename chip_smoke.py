@@ -89,7 +89,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
    gradients 5e-2). Each rank's step time, and what its host staging
    (every K/V rotation and all-reduce through a host buffer: gloo
    moves no CUDA tensor between processes) costs in bytes and seconds,
-   by kind of exchange.
+   by kind of exchange. Then, in the same ranks and world, tensor
+   parallelism: ``mesh_axes(2, tensor_parallel=2)`` -> a mesh of data 1
+   x model 2 -> ``build_distributed_model`` / ``param_shardings`` ->
+   ``AllReduceTrainer`` (the whole model drawn from the seed, each rank
+   keeping its 6 heads, 1,536 hidden units and 16,384 vocabulary rows)
+   on B 4 x 1,024 tokens: the counted AdamW step launches each kernel
+   once a layer on each rank (at H = 6), its gathered gradients and
+   loss against this process's whole model on the same weights and
+   batch (5e-2 and 1e-2); 3 timed steps with their staging; each rank's
+   parameter bytes (at most 0.55 of the whole's) and peak memory; the
+   gathered logits against the whole model's forward on the card (0.1);
+   both ranks' ``save_sharded``, which this process's
+   ``load_sharded_to_host`` must read back bitwise the gathered state,
+   and the whole model restored from it answering the batch through
+   the flash forward (a launch a layer) within 0.1 of the TP logits.
 8. job     — bench.py's fused ResNet-50 step (b128, 224x224, bf16, SGD
    with momentum, data resident on the card): step time, examples/s,
    MFU, peak memory. Then the single-process ALLREDUCE job through the
@@ -1083,7 +1097,8 @@ def phase_kernels(torch):
     where the shape is square; returns the records."""
     records = []
     seed = 0
-    cases = [(b, h, d, l, l) for b, h, d, l in KERNEL_SHAPES + [TRAIN_SHAPE]]
+    cases = [(b, h, d, l, l)
+             for b, h, d, l in KERNEL_SHAPES + [TRAIN_SHAPE, TP_SHAPE]]
     for b, h, d, lq, lk in cases + EXTRA_CASES:
         for dtype in ("float32", "bfloat16"):
             for causal in (False, True):
@@ -1260,7 +1275,8 @@ def phase_bwd_kernels(torch):
     square; returns the records."""
     records = []
     seed = 100
-    cases = [(b, h, d, l, l) for b, h, d, l in KERNEL_SHAPES + [TRAIN_SHAPE]]
+    cases = [(b, h, d, l, l)
+             for b, h, d, l in KERNEL_SHAPES + [TRAIN_SHAPE, TP_SHAPE]]
     for b, h, d, lq, lk in cases + EXTRA_CASES:
         for dtype in ("float32", "bfloat16"):
             for causal in (False, True):
@@ -2265,6 +2281,15 @@ RING_LIMIT_S = 420  # the ranks' processes, boot included
 RING_MOE_CFG = dict(SLICE_CFG, num_layers=1, num_experts=2,
                     moe_capacity_factor=2.0)
 RING_MOE_TOKENS = (2, SEQ_LEN)
+# and tensor parallelism: RING_CFG over a {"data": 1, "model": 2} mesh of
+# the same two ranks (6 heads, 1,536 hidden units, 16,384 vocabulary rows
+# a rank), B 4 x L 1,024 through mesh_axes / param_shardings /
+# AllReduceTrainer: one counted AdamW step, then TP_STEPS timed ones
+TP_BATCH = 4
+TP_STEPS = 3
+TP_BYTES_SHARE = 0.55  # a rank's parameter bytes, of the whole model's
+TP_SHAPE = (TP_BATCH, RING_CFG["num_heads"] // RING_RANKS,
+            RING_CFG["head_dim"], SEQ_LEN)  # a rank's attention (B, H, D, L)
 
 
 class _Routing:
@@ -2691,12 +2716,238 @@ def _ring_moe_check(torch, mesh_shape):
     }
 
 
+def _tp_tokens(vocab):
+    import numpy as np
+
+    return np.random.default_rng(SEED + 51).integers(
+        0, vocab, (TP_BATCH, SEQ_LEN), dtype=np.int32)
+
+
+def _digest(t):
+    import hashlib
+
+    return hashlib.sha256(
+        t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def _state_digests(params, opt_state, names):
+    """{checkpoint leaf path: sha256 of its bytes} of host params and an
+    optimizer state dict (``names``: the parameters in order)."""
+    leaves = {"params/" + n: p for n, p in params.items()}
+    for idx, slots in opt_state["state"].items():
+        for slot, value in slots.items():
+            leaves["opt_state/%s/%s" % (names[idx], slot)] = value
+    return {path: _digest(t) for path, t in leaves.items()}
+
+
+def _tp_trainer(torch, model, mesh=None, specs=None):
+    from elasticdl_tpu_torch.model_zoo.transformer_lm import (
+        transformer_lm as zoo,
+    )
+    from elasticdl_tpu_torch.parallel.trainer import AllReduceTrainer
+
+    trainer = AllReduceTrainer(model, zoo.loss, zoo.optimizer(LR), seed=SEED,
+                               mesh=mesh, param_specs=specs, device=DEVICE)
+    tokens = _tp_tokens(RING_CFG["vocab_size"])
+    trainer.init_from_batch(({"tokens": tokens}, tokens))
+    return trainer, tokens
+
+
+def _tp_rank(torch, rank, out):
+    """The TP phase in one ring rank: ``mesh_axes`` -> a ``WorldMesh``
+    {"data": 1, "model": RING_RANKS} over the ring's world ->
+    ``build_distributed_model`` / ``param_shardings`` ->
+    ``AllReduceTrainer`` drawing the whole model from SEED; the counted
+    step's launches and gathered gradients (rank 0 writes them), the
+    timed steps, the gathered logits against the whole model's on the
+    card, each rank's ``save_sharded``, and rank 0's digests of the
+    gathered host state. Returns the rank's record."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from elasticdl_tpu_torch.parallel.sharding import gather_part
+    from elasticdl_tpu_torch.model_zoo.transformer_lm import (
+        transformer_lm as zoo,
+    )
+    from elasticdl_tpu_torch.parallel import collectives
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh, global_shape
+    from elasticdl_tpu_torch.training.step import make_forward_fn
+
+    t = RING_RANKS
+    rec = {"problems": []}
+    mesh = create_mesh(zoo.mesh_axes(t, tensor_parallel=t), devices=[DEVICE])
+    model = zoo.build_distributed_model(mesh, tensor_parallel=t, **RING_CFG)
+    trainer, tokens = _tp_trainer(
+        torch, model, mesh, zoo.param_shardings(mesh, tensor_parallel=t))
+    specs = trainer.param_specs
+    params = trainer.train_state.params
+    rec["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in params.values())
+    rec["whole_param_bytes"] = sum(
+        int(np.prod(global_shape(specs[n], tuple(p.shape), mesh)
+                    if n in specs else p.shape)) * p.element_size()
+        for n, p in params.items())
+    rec["param_share"] = rec["param_bytes"] / rec["whole_param_bytes"]
+    if rec["param_share"] > TP_BYTES_SHARE:
+        rec["problems"].append("rank %d holds %.4f of the whole model's "
+                               "parameter bytes" % (rank, rec["param_share"]))
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: one counted AdamW step
+    torch.cuda.synchronize()
+    _reset_counters()
+    loss = trainer.train_step({"tokens": tokens}, tokens)
+    torch.cuda.synchronize()
+    counts = _counts()
+    rec["counts"] = _counts_json(counts)
+    try:
+        _check_counts(counts, {k: RING_CFG["num_layers"] for k in KERNELS},
+                      "tp rank %d's step" % rank)
+    except PhaseError as e:
+        rec["problems"].append(str(e))
+    rec["loss"] = float(loss)
+    grads = {n: gather_part(p.grad, specs.get(n), mesh)
+             for n, p in params.items()}
+    if rank == 0:
+        np.savez(os.path.join(out, "tp_grads.npz"), **{
+            n: g.float().cpu().numpy() for n, g in grads.items()})
+    del grads
+    step_ms, staged = [], []
+    for _ in range(TP_STEPS):
+        collectives.staging.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step({"tokens": tokens}, tokens)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        staged.append(collectives.staging.snapshot())
+    rec.update(step_ms=step_ms, staging=staged,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    # the trained parts: the gathered logits, the checkpoint
+    ts = trainer.train_state
+    local = make_forward_fn(model)(ts.params, ts.state, {"tokens": tokens})
+    logits = collectives.all_gather(local, mesh.axis("model"), dim=-1)
+    del local
+    trainer.save_sharded(os.path.join(out, "tp_ckpt", "ckpt_v%d"
+                                      % trainer.version))
+    host = trainer.get_host_state()
+    dist.barrier()
+    rec["version"] = trainer.version
+    if rank == 0:
+        rec["digests"] = _state_digests(host.params, host.opt_state,
+                                        list(host.params))
+        np.save(os.path.join(out, "tp_logits.npy"),
+                logits.cpu().view(torch.int16).numpy())
+        whole = _lm_weights(torch, RING_CFG, DEVICE)
+        whole.load_state_dict(host.params)
+        want = make_forward_fn(whole)(dict(whole.named_parameters()), {},
+                                      {"tokens": tokens})
+        rec["logits_vs_whole_max_abs_err"] = float(
+            (logits.float() - want.float()).abs().max())
+        if rec["logits_vs_whole_max_abs_err"] > REPLY_ATOL:
+            rec["problems"].append(
+                "gathered TP logits against the whole model's: %.4g "
+                "(limit %g)" % (rec["logits_vs_whole_max_abs_err"],
+                                REPLY_ATOL))
+    return rec
+
+
+def _tp_whole(torch):
+    """The whole model's counted step on the TP batch in this process,
+    from the same seed: (model, trainer, loss, {name: gradient})."""
+    from elasticdl_tpu_torch.model_zoo.transformer_lm import (
+        transformer_lm as zoo,
+    )
+
+    model = zoo.custom_model(**RING_CFG)
+    trainer, tokens = _tp_trainer(torch, model)
+    loss = float(trainer.train_step({"tokens": tokens}, tokens))
+    grads = {n: p.grad.detach().clone()
+             for n, p in trainer.train_state.params.items()}
+    return model, trainer, loss, grads
+
+
+def _tp_checks(torch, whole, ranks, out):
+    """The TP ranks' records against the whole model in this process:
+    the gathered gradients and the loss of the counted step, the
+    checkpoint (``load_sharded_to_host`` against rank 0's digests of the
+    gathered state, bitwise), and the whole model restored from it on
+    the card answering the batch through the flash forward against the
+    ranks' gathered logits. Returns (record, problems)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.sharded_checkpoint import (
+        load_sharded_to_host,
+    )
+    from elasticdl_tpu_torch.training.step import make_forward_fn
+
+    model, trainer, loss, grads = whole
+    tps = [r["tp"] for r in ranks]
+    problems = []
+    gathered = dict(np.load(os.path.join(out, "tp_grads.npz")))
+    rel = {n: _rel_l2(torch, torch.from_numpy(gathered[n]).to(DEVICE), g)
+           for n, g in grads.items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(tps[0]["loss"] - loss) / abs(loss)
+    if rel[worst] > GRAD_REL_L2 or loss_rel > RING_LOSS_RTOL:
+        problems.append(
+            "TP against the whole model: loss %.6g / %.6g, gradients %.4g "
+            "at %s (limits %g, %g)" % (tps[0]["loss"], loss, rel[worst],
+                                       worst, RING_LOSS_RTOL, GRAD_REL_L2))
+    directory = os.path.join(out, "tp_ckpt", "ckpt_v%d" % tps[0]["version"])
+    _, leaves = load_sharded_to_host(directory)
+    digests = {p: _digest(v) for p, v in leaves.items()
+               if p.startswith(("params/", "opt_state/"))}
+    if digests != tps[0]["digests"]:
+        differ = sorted(set(digests.items()) ^ set(tps[0]["digests"].items()))
+        problems.append("the TP checkpoint is not the gathered state "
+                        "bitwise: %s" % differ[:4])
+    trainer.restore_sharded(directory)
+    tokens = _tp_tokens(RING_CFG["vocab_size"])
+    ts = trainer.train_state
+    torch.cuda.synchronize()
+    _reset_counters()
+    restored = make_forward_fn(model)(ts.params, ts.state,
+                                      {"tokens": tokens})
+    torch.cuda.synchronize()
+    counts = _counts()
+    tp_logits = torch.from_numpy(
+        np.load(os.path.join(out, "tp_logits.npy"))).view(torch.bfloat16)
+    err = float((restored.float().cpu() - tp_logits.float()).abs().max())
+    if err > REPLY_ATOL or counts["flash_fwd"][0] != RING_CFG["num_layers"]:
+        problems.append(
+            "the restored whole model against the TP logits: %.4g (limit "
+            "%g), %d flash forwards" % (err, REPLY_ATOL,
+                                        counts["flash_fwd"][0]))
+    rec = {
+        "mesh": {"data": 1, "model": RING_RANKS},
+        "batch": TP_BATCH,
+        "seq_len": SEQ_LEN,
+        "heads_per_rank": TP_SHAPE[1],
+        "loss_tp": tps[0]["loss"],
+        "loss_whole": loss,
+        "loss_rel": loss_rel,
+        "grad_max_rel_l2": rel[worst],
+        "grad_worst_tensor": worst,
+        "grad_median_rel_l2": float(sorted(rel.values())[len(rel) // 2]),
+        "checkpoint_leaves": len(leaves),
+        "checkpoint_bitwise": digests == tps[0]["digests"],
+        "restored_vs_tp_logits_max_abs_err": err,
+        "restored_flash_fwd": counts["flash_fwd"][0],
+        "ranks": [{k: r["tp"].get(k) for k in (
+            "param_bytes", "whole_param_bytes", "param_share",
+            "max_memory_allocated", "step_ms", "staging",
+            "logits_vs_whole_max_abs_err")} for r in ranks],
+    }
+    return rec, problems
+
+
 def ring_rank_main(torch, rank, port, out):
     """One rank of the ring phase (``--ring-rank``): a gloo world of
     RING_RANKS on the card, the sequence-sharded LM's counted gradient
     step and RING_STEPS timed ones, the block checks, the routed MoE
-    check; writes ``rank-<r>.json`` (and rank 0 its gradients) under
-    ``out``. Returns the exit code."""
+    check, then the TP phase (``_tp_rank``) over the same world; writes
+    ``rank-<r>.json`` (and rank 0 its gradients) under ``out``. Returns
+    the exit code."""
     import numpy as np
     import torch.distributed as dist
 
@@ -2779,6 +3030,10 @@ def ring_rank_main(torch, rank, port, out):
                 or rec["moe"]["grad_max_rel_l2"] > GRAD_REL_L2):
             rec["problems"].append("routed MoE against dense: %s"
                                    % rec["moe"])
+        t0 = time.perf_counter()
+        rec["tp"] = _tp_rank(torch, rank, out)
+        rec["tp"]["seconds"] = time.perf_counter() - t0
+        rec["problems"] += rec["tp"].pop("problems")
     except Exception as err:  # noqa: BLE001 — reported to the parent
         import traceback
 
@@ -2858,6 +3113,8 @@ def phase_ring(torch, ring_ranks):
     loss, grads, _, _ = make_grad_fn(model, zoo.loss)(
         dict(model.named_parameters()), {}, {"tokens": tokens}, tokens)
     del model
+    # and the whole model's step on the TP phase's batch
+    tp_whole = _tp_whole(torch)
     torch.cuda.synchronize()
     t0 = ring_ranks.go()
     boot_s = t0 - ring_ranks.started
@@ -2892,6 +3149,12 @@ def phase_ring(torch, ring_ranks):
     if len({r["grad_digest"] for r in ranks}) != 1:
         problems.append("the ranks' reduced gradients differ: %s"
                         % [r["grad_digest"] for r in ranks])
+    t_tp = time.perf_counter()
+    tp, tp_problems = _tp_checks(torch, tp_whole, ranks, out)
+    del tp_whole
+    tp["checks_s"] = time.perf_counter() - t_tp
+    tp["ranks_s"] = [r["tp"]["seconds"] for r in ranks]
+    problems += tp_problems
     rec = {
         "phase": "ring",
         "model": dict(RING_CFG, params="float32"),
@@ -2919,13 +3182,20 @@ def phase_ring(torch, ring_ranks):
             {k: v[0] for k, v in r.get("counts", {}).items()} for r in ranks
         ],
         "block_rel_l2_limit": REL_L2["bfloat16"],
+        "tp": tp,
+        "tp_launches_by_rank": [
+            {k: v[0] for k, v in r["tp"]["counts"].items()} for r in ranks
+        ],
         "problems": problems,
     }
     emit(rec)
     if problems:
         raise PhaseError("ring: " + "; ".join(problems))
-    return {"ring_rank%d" % r["rank"]: _counts_from_json(r["counts"])
-            for r in ranks}
+    paths = {"ring_rank%d" % r["rank"]: _counts_from_json(r["counts"])
+             for r in ranks}
+    paths.update({"tp_rank%d" % r["rank"]: _counts_from_json(
+        r["tp"]["counts"]) for r in ranks})
+    return paths
 
 
 def _moe_ring_only(torch, which):
@@ -9951,8 +10221,8 @@ def main(argv=None):
     parser.add_argument(
         "--ring-only",
         action="store_true",
-        help="drive only the ring phase (after device and build) and print "
-        "its records, not the result line",
+        help="drive only the ring phase and its TP phase (after device and "
+        "build) and print their records, not the result line",
     )
     parser.add_argument("--ring-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--ring-port", type=int, help=argparse.SUPPRESS)

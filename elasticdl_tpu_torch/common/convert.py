@@ -47,6 +47,11 @@ Layouts:
 - ``conv``: a ``Conv`` kernel ``(kh, kw, in, out)`` is the ``(out, in, kh,
   kw)`` convolution weight.
 
+Over a tensor-parallel mesh each rank holds its part of the split
+parameters under the same keys: :func:`shard_state_dict` cuts a whole
+``state_dict`` to this rank's parts, :func:`gather_state_dict` joins the
+ranks' parts back (``parallel/sharding.py`` has the rules).
+
 Gradients, Adam moments and the SGD momentum trace have their parameter's
 layout, so they cross by the same rules. :func:`load_adam_state` and
 :func:`adam_state_named` carry optax's Adam state (``mu``, ``nu``,
@@ -245,6 +250,36 @@ def to_named(state_dict, num_heads=None, head_dim=None, keep_device=False):
             t = t.permute(2, 3, 1, 0)
         named[ref.format(**fields)] = t.contiguous()
     return named
+
+
+def shard_state_dict(state_dict, specs, mesh):
+    """{state_dict key: whole tensor} -> this rank's parts on ``mesh``
+    (a ``parallel/mesh.WorldMesh``): ``specs`` is the nested or flat
+    {key: spec} form a zoo's ``param_shardings`` gives (None: the TP
+    rules); a key no spec covers stays whole. Owned copies."""
+    from elasticdl_tpu_torch.parallel.mesh import resolve_specs
+    from elasticdl_tpu_torch.parallel.sharding import shard_params
+
+    flat = resolve_specs(state_dict, specs) if specs is not None else None
+    return {
+        k: v.clone()
+        for k, v in shard_params(mesh, dict(state_dict), flat).items()
+    }
+
+
+def gather_state_dict(state_dict, specs, mesh):
+    """The inverse of :func:`shard_state_dict`: this rank's parts ->
+    the whole tensors, the same on every rank (an all-gather over each
+    split dim's axis; every rank must call it)."""
+    from elasticdl_tpu_torch.parallel.mesh import resolve_specs
+    from elasticdl_tpu_torch.parallel.sharding import gather_part, param_spec
+
+    flat = resolve_specs(state_dict, specs) if specs is not None else None
+    return {
+        k: gather_part(
+            v, param_spec(k, mesh) if flat is None else flat.get(k), mesh)
+        for k, v in state_dict.items()
+    }
 
 
 def load_adam_state(opt, params, mu, nu, count):

@@ -9,9 +9,15 @@ leaves a directory without a manifest, which restores skip::
                              #   per-shard global index -> data file
       shard files *.npy      # one per (leaf, shard)
 
-The port trains on one device, so it writes one process's manifest and
-one shard per leaf (``<path>.p0.s0.npy``). bfloat16 is stored as its
-uint16 bits and read back by view, without ``ml_dtypes``.
+A process writes one shard per leaf it holds (``<path>.p<proc>.s0.npy``)
+with the part's global index: on one device process 0 writes every
+leaf whole; over a tensor-parallel world each rank writes its part of a
+split leaf, and a replicated leaf is written once, by the rank that
+holds its first replica (``parallel/trainer.py``). A restore assembles
+any part of a leaf from the shards that cover it (:class:`_LeafReader`,
+the reference's), so a checkpoint written over T ranks restores onto
+any other T. bfloat16 is stored as its uint16 bits and read back by
+view, without ``ml_dtypes``.
 
 A train state's leaves are named ``params/<name>``, ``state/<name>``
 (BatchNorm statistics), ``opt_state/<param name>/<slot>`` (the torch
@@ -41,7 +47,7 @@ import torch
 from elasticdl_tpu_torch.common.log_utils import default_logger as logger
 
 _MANIFEST_PREFIX = "manifest-"
-PROCESS_INDEX = 0  # one process holds the whole state
+PROCESS_INDEX = 0  # the writer on one device
 
 
 def _to_numpy(t):
@@ -122,13 +128,17 @@ def snapshot_leaves(leaves):
     return snap
 
 
-def write_snapshot(directory, entries, version=0):
+def write_snapshot(directory, entries, version=0, process_index=None,
+                   layout=None):
     """Phase 2 of a save: write ``entries`` ((path, tensor) pairs, a
     snapshot list or a lazy iterable) into ``directory``, one leaf at a
     time (peak host memory is about one leaf beyond the entries), the
-    manifest last."""
+    manifest last, as ``manifest-<process_index>.json``. ``layout``
+    ({path: (global shape, this part's slices)}) places a part in its
+    leaf; a leaf it does not name is whole."""
     os.makedirs(directory, exist_ok=True)
-    pid = PROCESS_INDEX
+    pid = PROCESS_INDEX if process_index is None else int(process_index)
+    layout = layout or {}
     # clear this process's files of an earlier write to the directory
     for stale in glob.glob(
         os.path.join(directory, "*.p%d.s*.npy" % pid)
@@ -142,12 +152,16 @@ def write_snapshot(directory, entries, version=0):
         arr, dtype = _to_numpy(value)
         fname = "%s.p%d.s0.npy" % (path.replace("/", "."), pid)
         np.save(os.path.join(directory, fname), arr)
+        shape, slices = layout.get(path, (arr.shape, None))
+        if slices is None:
+            slices = [slice(0, int(d)) for d in arr.shape]
         manifest["leaves"][path] = {
-            "shape": list(arr.shape),
+            "shape": [int(d) for d in shape],
             "dtype": dtype,
-            "shards": [
-                {"slices": [[0, int(d)] for d in arr.shape], "file": fname}
-            ],
+            "shards": [{
+                "slices": [[int(sl.start), int(sl.stop)] for sl in slices],
+                "file": fname,
+            }],
         }
     manifest_path = os.path.join(
         directory, "%s%d.json" % (_MANIFEST_PREFIX, pid)
@@ -164,10 +178,12 @@ def write_snapshot(directory, entries, version=0):
     )
 
 
-def save_sharded(directory, leaves, version=0):
+def save_sharded(directory, leaves, version=0, process_index=None,
+                 layout=None):
     """Write {path: tensor} into ``directory`` synchronously: each leaf
-    is copied to the host as it is written."""
-    write_snapshot(directory, leaves.items(), version)
+    is copied to the host as it is written (``process_index`` and
+    ``layout`` as in :func:`write_snapshot`)."""
+    write_snapshot(directory, leaves.items(), version, process_index, layout)
 
 
 def _merged_manifest(directory):
@@ -190,32 +206,83 @@ def _merged_manifest(directory):
     return version, leaves
 
 
-def _read_leaf(directory, entry):
-    """The full array of one leaf, assembled from its shard files; raises
-    when the shards do not cover it (a torn or partial checkpoint)."""
-    shape = entry["shape"]
-    dtype = np.uint16 if entry["dtype"] == "bfloat16" else entry["dtype"]
-    out = np.zeros(shape, dtype=dtype)
-    covered = 0
-    for shard in entry["shards"]:
-        src = np.load(os.path.join(directory, shard["file"]))
-        dst = tuple(slice(s, e) for s, e in shard["slices"])
-        out[dst] = src
-        covered += int(np.prod([e - s for s, e in shard["slices"]]))
-    total = int(np.prod(shape))
-    if covered < total:
-        raise ValueError(
-            "checkpoint shards cover %d/%d elements (missing process "
-            "manifests?)" % (covered, total)
-        )
-    return _to_tensor(out, entry["dtype"])
+def _index_to_slices(index, shape):
+    """Normalized [(start, stop), ...] of a part's global index."""
+    out = []
+    for sl, dim in zip(index, shape):
+        start = 0 if sl.start is None else sl.start
+        stop = dim if sl.stop is None else sl.stop
+        out.append((int(start), int(stop)))
+    return out
 
 
-def load_sharded_to_host(directory):
-    """(version, {path: CPU tensor}) of a checkpoint directory."""
+class _LeafReader:
+    """Assembles any requested part of a leaf from its shard files."""
+
+    def __init__(self, directory, entry):
+        self._dir = directory
+        self._entry = entry
+        self._cache = {}
+
+    def _shard_array(self, fname):
+        if fname not in self._cache:
+            self._cache[fname] = np.load(os.path.join(self._dir, fname))
+        return self._cache[fname]
+
+    def read(self, index):
+        """The part ``index`` (a slice per dim) of the leaf as a CPU
+        tensor; raises when the shards do not cover it (a torn or
+        partial checkpoint)."""
+        entry = self._entry
+        want = _index_to_slices(index, entry["shape"])
+        dtype = np.uint16 if entry["dtype"] == "bfloat16" else entry["dtype"]
+        out = np.zeros([stop - start for start, stop in want], dtype=dtype)
+        covered = 0
+        for shard in entry["shards"]:
+            have = [tuple(sl) for sl in shard["slices"]]
+            inter = [
+                (max(ws, hs), min(we, he))
+                for (ws, we), (hs, he) in zip(want, have)
+            ]
+            if any(s >= e for s, e in inter):
+                continue
+            src = self._shard_array(shard["file"])
+            src_sl = tuple(
+                slice(s - hs, e - hs) for (s, e), (hs, _) in zip(inter, have)
+            )
+            dst_sl = tuple(
+                slice(s - ws, e - ws) for (s, e), (ws, _) in zip(inter, want)
+            )
+            out[dst_sl] = src[src_sl]
+            covered += int(np.prod([e - s for s, e in inter], dtype=np.int64))
+        total = int(np.prod(out.shape, dtype=np.int64))
+        if covered < total:
+            raise ValueError(
+                "checkpoint shards cover %d/%d elements of the requested "
+                "part (missing process manifests?)" % (covered, total)
+            )
+        return _to_tensor(out, entry["dtype"])
+
+
+def load_sharded_to_host(directory, parts=None):
+    """(version, {path: CPU tensor}) of a checkpoint directory: every
+    leaf whole, or the part ``parts[path]`` (a slice per dim) of a leaf
+    that ``parts`` names."""
     version, leaves = _merged_manifest(directory)
-    return version, {
-        path: _read_leaf(directory, entry) for path, entry in leaves.items()
+    parts = parts or {}
+    out = {}
+    for path, entry in leaves.items():
+        index = parts.get(path) or tuple(slice(0, d) for d in entry["shape"])
+        out[path] = _LeafReader(directory, entry).read(index)
+    return version, out
+
+
+def leaf_shapes(directory):
+    """{path: global shape} of a checkpoint's leaves, from its
+    manifests alone."""
+    return {
+        path: tuple(entry["shape"])
+        for path, entry in _merged_manifest(directory)[1].items()
     }
 
 

@@ -31,9 +31,29 @@ plus ``arange``) and attention is the ring over the axis
 (``parallel/ring_attention.make_ring_attention``). The step builder
 shards the batch and the next-token targets (``parallel/spmd.py``).
 
-Not ported yet (ROADMAP A9): a ``model`` axis (tensor parallelism),
-pipeline stages over a ``pipe`` axis, and the mixture of experts over a
-sequence-sharded mesh; each raises by name.
+With a ``mesh`` whose ``model`` axis has T > 1 ranks the model is
+tensor-parallel, Megatron-LM's layout of the reference's TP rules
+(``parallel/sharding.py``): each rank holds its part of the split
+parameters under the same ``state_dict`` names. ``query``/``key``/
+``value`` give this rank's H/T heads, which run the causal attention
+(the flash kernels) alone; ``out`` and ``mlp_down`` take the heads' and
+the hidden units' part and their partial outputs are summed over
+``model`` in float32 before the cast (``mlp_down``'s bias added once,
+after the sum); ``mlp_up`` gives this rank's hidden units. The
+embedding holds the rank's V/T vocabulary rows: the lookup is masked to
+them and summed over ``model``, and the tied head gives the rank's
+vocabulary part of the logits, which the step's loss takes as it is
+(``parallel/spmd.make_loss``: a vocabulary-parallel cross entropy).
+The norms replicate; their input's gradient is summed over ``model``
+(``collectives.sum_grad``), so every replicated parameter's gradient
+comes out the same on every ``model`` rank. A mixture of experts over
+``model`` runs its dense fallback replicated, as the reference's rules
+leave its stacks whole. :func:`param_shardings`, :func:`mesh_axes` and
+:func:`build_distributed_model` are the reference's hooks.
+
+Not ported yet (ROADMAP A9): pipeline stages over a ``pipe`` axis,
+experts over an ``expert`` axis together with ``model``, and the
+mixture of experts over a sequence-sharded mesh; each raises by name.
 """
 
 import functools
@@ -46,6 +66,7 @@ import torch.nn.functional as F
 from elasticdl_tpu_torch.common.constants import Mode
 from elasticdl_tpu_torch.data.example import FixedLenFeature, parse_example
 from elasticdl_tpu_torch.ops.flash_attention import pick_causal_attention
+from elasticdl_tpu_torch.parallel import collectives
 from elasticdl_tpu_torch.parallel.mesh import axis_of
 
 
@@ -192,14 +213,25 @@ class MoEMlp(nn.Module):
         )
 
 
+def _row_parallel(partial, axis):
+    """The sum over ``axis`` of this rank's partial output, in float32,
+    cast back to the partial's dtype."""
+    return collectives.all_reduce(partial.float(), axis).to(partial.dtype)
+
+
 class Block(nn.Module):
+    """One decoder block; with ``model_axis`` (a mesh :class:`Axis` of T
+    ranks) its ``num_heads`` and ``mlp_dim`` are this rank's parts."""
+
     def __init__(self, embed_dim, num_heads, head_dim, mlp_dim, dtype,
                  num_experts=0, mesh=None, moe_capacity_factor=2.0,
-                 moe_num_selected=1, moe_aux_loss_coef=0.01):
+                 moe_num_selected=1, moe_aux_loss_coef=0.01,
+                 model_axis=None):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = head_dim
         self.dtype = dtype
+        self.model_axis = model_axis
         inner = num_heads * head_dim
         self.attn_norm = RMSNorm(embed_dim, dtype)
         self.query = nn.Linear(embed_dim, inner, bias=False)
@@ -220,18 +252,28 @@ class Block(nn.Module):
 
     def forward(self, x, positions, attention_fn):
         b, l, _ = x.shape
+        tp = self.model_axis
         heads = (b, l, self.num_heads, self.head_dim)
         h = self.attn_norm(x)
+        if tp is not None:
+            h = collectives.sum_grad(h, tp)
         q = _rotary(_dense(self.query, h, self.dtype).view(heads), positions)
         k = _rotary(_dense(self.key, h, self.dtype).view(heads), positions)
         v = _dense(self.value, h, self.dtype).view(heads)
         attn = attention_fn(q, k, v)
-        x = x + _dense(self.out, attn.reshape(b, l, -1), self.dtype)
+        out = _dense(self.out, attn.reshape(b, l, -1), self.dtype)
+        x = x + (out if tp is None else _row_parallel(out, tp))
         h = self.mlp_norm(x)
         if hasattr(self, "moe_mlp"):
             return x + self.moe_mlp(h)
+        if tp is None:
+            h = F.gelu(_dense(self.mlp_up, h, self.dtype), approximate="tanh")
+            return x + _dense(self.mlp_down, h, self.dtype)
+        h = collectives.sum_grad(h, tp)
         h = F.gelu(_dense(self.mlp_up, h, self.dtype), approximate="tanh")
-        return x + _dense(self.mlp_down, h, self.dtype)
+        down = F.linear(h, self.mlp_down.weight.to(self.dtype))
+        return x + (_row_parallel(down, tp)
+                    + self.mlp_down.bias.to(self.dtype))
 
 
 class TransformerLM(nn.Module):
@@ -259,14 +301,31 @@ class TransformerLM(nn.Module):
         self.use_flash = use_flash
         self.mesh = mesh
         self.seq_axis = seq_axis if mesh is not None else None
-        self.embed = nn.Embedding(vocab_size, embed_dim)
+        # tensor parallelism: this rank's parts of the heads, the hidden
+        # units and the vocabulary
+        self.model_axis = axis_of(mesh, "model")
+        t = self.model_axis.size if self.model_axis is not None else 1
+        for what, n in (("num_heads", num_heads), ("mlp_dim", mlp_dim),
+                        ("vocab_size", vocab_size)):
+            if n % t and not (what == "mlp_dim" and num_experts):
+                raise ValueError(
+                    "%s=%d does not split over a 'model' axis of %d"
+                    % (what, n, t)
+                )
+        vocab_part = vocab_size // t
+        self.vocab_start = (
+            self.model_axis.index * vocab_part if t > 1 else 0
+        )
+        self.embed = nn.Embedding(vocab_part, embed_dim)
         self.blocks = nn.ModuleList(
             Block(
-                embed_dim, num_heads, head_dim, mlp_dim, dtype,
+                embed_dim, num_heads // t, head_dim,
+                mlp_dim if num_experts else mlp_dim // t, dtype,
                 num_experts=num_experts, mesh=mesh,
                 moe_capacity_factor=moe_capacity_factor,
                 moe_num_selected=moe_num_selected,
                 moe_aux_loss_coef=moe_aux_loss_coef,
+                model_axis=self.model_axis,
             )
             for _ in range(num_layers)
         )
@@ -278,7 +337,8 @@ class TransformerLM(nn.Module):
         ``attention_fn(q, k, v)`` overrides the causal attention the
         length picks (a check swaps in the kernel's plain version). On a
         sequence axis, the tokens are this rank's shard: positions start
-        at its offset and attention is the ring."""
+        at its offset and attention is the ring. On a ``model`` axis the
+        logits are this rank's vocabulary part, (B, L, vocab / T)."""
         tokens = features["tokens"] if isinstance(features, dict) else features
         device = self.embed.weight.device
         if not isinstance(tokens, torch.Tensor):
@@ -303,12 +363,36 @@ class TransformerLM(nn.Module):
         if attention_fn is None:
             attention_fn = pick_causal_attention(l, self.use_flash)
         table = self.embed.weight.to(self.dtype)
-        x = F.embedding(tokens, table)
+        tp = self.model_axis
+        if tp is None:
+            x = F.embedding(tokens, table)
+        else:
+            # this rank's vocabulary rows: the others' tokens look up 0
+            local = tokens - self.vocab_start
+            mine = (local >= 0) & (local < table.shape[0])
+            x = F.embedding(torch.where(mine, local, 0), table)
+            x = collectives.all_reduce(x * mine[..., None].to(x.dtype), tp)
         for block in self.blocks:
             x = block(x, positions, attention_fn)
         x = self.norm(x)
+        if tp is not None:
+            x = collectives.sum_grad(x, tp)
         # weight-tied head
         return F.linear(x, table)
+
+    def param_layout(self):
+        """{parameter name: spec} of the parameters this model splits
+        over its ``model`` axis (empty without one)."""
+        from elasticdl_tpu_torch.parallel.sharding import param_spec
+
+        if self.model_axis is None:
+            return {}
+        out = {}
+        for name, _ in self.named_parameters():
+            spec = param_spec(name, self.mesh)
+            if any(spec):
+                out[name] = spec
+        return out
 
     def init_parameters(self, generator):
         """Seeded weights (see :func:`init_parameters`); the hook
@@ -321,8 +405,13 @@ def init_parameters(model, generator):
     linear kernels and the embedding ~ N(0, 1/fan_in), biases 0, norm
     scales 1; the stacked expert weights (E, in, out) take flax's
     ``lecun_normal`` fan-in for that shape, E x in; buffers 0. Draws on
-    the generator's device, then copies in."""
+    the generator's device, then copies in. A tensor-parallel model
+    draws each split parameter whole and keeps its part, so it starts
+    from the weights the whole model draws from the same seed."""
+    from elasticdl_tpu_torch.parallel.mesh import global_shape, shard_slices
+
     dev = generator.device
+    layout = model.param_layout() if hasattr(model, "param_layout") else {}
     with torch.no_grad():
         for name, param in model.named_parameters():
             if name.endswith(".bias"):
@@ -330,12 +419,18 @@ def init_parameters(model, generator):
             elif "norm" in name:
                 param.fill_(1.0)
             else:
-                fan_in = param.shape[-1]
+                spec = layout.get(name)
+                shape = tuple(param.shape)
+                if spec is not None:
+                    shape = global_shape(spec, shape, model.mesh)
+                fan_in = shape[-1]
                 if name.split(".")[-1] in MoEMlp.EXPERT_SHARDED:
-                    fan_in = param.shape[0] * param.shape[1]
-                draw = torch.empty(param.shape, device=dev).normal_(
+                    fan_in = shape[0] * shape[1]
+                draw = torch.empty(shape, device=dev).normal_(
                     0.0, fan_in ** -0.5, generator=generator
                 )
+                if spec is not None:
+                    draw = draw[shard_slices(spec, shape, model.mesh)]
                 param.copy_(draw)
         for buf in model.buffers():
             # the aux_loss buffers: no value before a training forward
@@ -386,18 +481,23 @@ def custom_model(
 
 
 def _check_mesh(mesh, seq_axis, num_experts):
-    """Raise by name for the mesh forms that are not ported: a ``model``
-    or ``pipe`` axis that splits, and experts over a split sequence."""
+    """Raise by name for the mesh forms that are not ported: a ``pipe``
+    axis that splits, an ``expert`` axis with a ``model`` axis, and
+    experts over a split sequence."""
     if mesh is None:
         return
     shape = mesh.shape
-    for axis, what in (("model", "tensor parallelism over a 'model' axis"),
-                       ("pipe", "pipeline stages over a 'pipe' axis")):
-        if shape.get(axis, 1) > 1:
-            raise NotImplementedError(
-                "transformer_lm with %s of %d is not ported yet (ROADMAP "
-                "A9)" % (what, shape[axis])
-            )
+    if shape.get("pipe", 1) > 1:
+        raise NotImplementedError(
+            "transformer_lm with pipeline stages over a 'pipe' axis of %d "
+            "is not ported yet (ROADMAP A9)" % shape["pipe"]
+        )
+    if shape.get("expert", 1) > 1 and shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            "transformer_lm with experts over an 'expert' axis and tensor "
+            "parallelism over a 'model' axis together is not ported yet "
+            "(ROADMAP A9)"
+        )
     if seq_axis is not None and seq_axis not in shape:
         raise ValueError("mesh %r has no axis %r" % (mesh, seq_axis))
     if num_experts and seq_axis is not None and shape[seq_axis] > 1:
@@ -405,6 +505,104 @@ def _check_mesh(mesh, seq_axis, num_experts):
             "transformer_lm with experts over a sequence-sharded mesh is "
             "not ported yet (ROADMAP A9)"
         )
+
+
+def build_distributed_model(
+    mesh, pipeline_stages=0, microbatches=0, dtype="float32", **params
+):
+    """Zoo hook for the ALLREDUCE trainers: the model over ``mesh`` (on
+    a ``model`` axis, its tensor-parallel form; pair with
+    :func:`param_shardings` and :func:`mesh_axes`). The pipelined form
+    (``pipeline_stages > 1``) raises."""
+    for placement in ("shard_vocab", "tensor_parallel", "min_tensor_parallel"):
+        params.pop(placement, None)
+    if int(pipeline_stages) > 1:
+        raise NotImplementedError(
+            "transformer_lm with pipeline_stages=%d (PipelinedTransformerLM)"
+            " is not ported yet (ROADMAP A9)" % int(pipeline_stages)
+        )
+    return custom_model(mesh=mesh, dtype=dtype, **params)
+
+
+def param_shardings(
+    mesh,
+    pipeline_stages=0,
+    shard_vocab=False,
+    tensor_parallel=0,
+    min_tensor_parallel=0,
+    num_experts=0,
+    **_params,
+):
+    """With ``tensor_parallel > 1`` the TP rules (``parallel/sharding.
+    tp_param_specs``) as suffix specs over ``model`` (a mixture of
+    experts has no ``mlp_up``/``mlp_down``: its stacks replicate); with
+    ``pipeline_stages > 1`` the stacked stages over ``pipe``; with
+    ``shard_vocab`` the embedding's rows over ``data``. ``mesh=None`` is
+    the probe: does this configuration split anything? None when not.
+    The reference's checks and messages."""
+    from elasticdl_tpu_torch.parallel.mesh import PartitionSpec as P
+
+    specs = {}
+    tp = max(int(tensor_parallel), int(min_tensor_parallel))
+    if tp > 1 and int(pipeline_stages) > 1:
+        raise ValueError(
+            "tensor_parallel and pipeline_stages cannot combine yet: "
+            "the pjit dense path and the collective pipeline use "
+            "different step builders — pick one"
+        )
+    if tp > 1 and shard_vocab:
+        raise ValueError(
+            "shard_vocab is redundant with tensor_parallel (the TP "
+            "rules already vocab-shard the embed table, over 'model')"
+        )
+    if tp > 1 and (mesh is None or "model" in mesh.axis_names):
+        from elasticdl_tpu_torch.parallel.sharding import tp_param_specs
+
+        specs.update(tp_param_specs())
+        if num_experts:
+            specs.pop("mlp_up")
+            specs.pop("mlp_down")
+    if int(pipeline_stages) > 1 and (
+        mesh is None or "pipe" in mesh.axis_names
+    ):
+        specs["pipe"] = {"stages": {"**": P("pipe")}}
+    if shard_vocab and (mesh is None or "data" in mesh.axis_names):
+        specs["embed"] = {"weight": P("data", None)}
+    return specs or None
+
+
+def mesh_axes(
+    n_devices,
+    pipeline_stages=0,
+    tensor_parallel=0,
+    min_tensor_parallel=0,
+    **_params,
+):
+    """Zoo hook: the mesh shape of this configuration, the reference's
+    answers: ``{"data": n / T, "model": T}`` (row-major: consecutive
+    ranks fill the model axis), ``{"data": n / S, "pipe": S}``, or None
+    (the default all-data mesh)."""
+    stages = int(pipeline_stages)
+    tp = max(int(tensor_parallel), int(min_tensor_parallel))
+    if tp > 1:
+        if stages > 1:
+            raise ValueError(
+                "tensor_parallel does not combine with pipeline_stages"
+            )
+        if n_devices % tp:
+            raise ValueError(
+                "%d devices do not divide into tensor_parallel=%d"
+                % (n_devices, tp)
+            )
+        return {"data": n_devices // tp, "model": tp}
+    if stages > 1:
+        if n_devices % stages:
+            raise ValueError(
+                "%d devices do not divide into %d pipeline stages"
+                % (n_devices, stages)
+            )
+        return {"data": n_devices // stages, "pipe": stages}
+    return None
 
 
 def loss(output, labels):

@@ -14,6 +14,13 @@ counterparts of the ``lax`` collectives that the reference's
   are what ``shard_map``'s transpose does to an input and an output that
   are replicated over an axis (the input's cotangent ``psum``-ed, the
   output's divided by the axis size).
+- :func:`all_reduce`: the sum over the axis whose backward is the
+  identity. With :func:`sum_grad` it is the pair a tensor-parallel block
+  puts around its split products (Megatron-LM's ``g`` and ``f``): the
+  replicated input's gradient summed, the partial outputs summed.
+- :func:`all_reduce_max` and :func:`all_gather` (not differentiable): a
+  vocabulary-parallel softmax's shift, and the whole tensor of the
+  shards (gathered state, gathered logits).
 
 gloo moves no CUDA tensor through ``send``/``recv``, and the port's ranks
 that share one card form a gloo world. There every exchange is staged:
@@ -33,7 +40,8 @@ import torch.distributed as dist
 
 
 class StagingStats:
-    """By kind of exchange (``shift``, ``all_to_all``, ``all_reduce``):
+    """By kind of exchange (``shift``, ``all_to_all``, ``all_reduce``,
+    ``all_reduce_max``, ``all_gather``):
     how many, the bytes and seconds of their host staging (CUDA tensors
     over gloo), and the seconds of the exchanges themselves."""
 
@@ -86,7 +94,8 @@ def _exchange(kind, t, axis, run):
     torch.cuda.current_stream(device).synchronize()
     done = time.perf_counter()
     staging.add(
-        kind, 2 * host.numel() * host.element_size(),
+        kind,
+        host.numel() * host.element_size() + out.numel() * out.element_size(),
         (copied - start) + (done - exchanged),
         exchanged - copied,
     )
@@ -124,6 +133,24 @@ def _shift(t, axis, step):
     return _exchange("shift", t, axis, run)
 
 
+def _all_reduce(t, axis, op=dist.ReduceOp.SUM, kind="all_reduce"):
+    def run(x):
+        out = x.clone()
+        dist.all_reduce(out, op=op, group=axis.group)
+        return out
+
+    return _exchange(kind, t.detach(), axis, run)
+
+
+def _all_gather(t, axis, dim):
+    def run(x):
+        parts = [torch.empty_like(x) for _ in range(axis.size)]
+        dist.all_gather(parts, x, group=axis.group)
+        return torch.cat(parts, dim=dim)
+
+    return _exchange("all_gather", t.detach(), axis, run)
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, axis):
@@ -155,6 +182,16 @@ class _SumGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_reduce_sum(g.contiguous(), ctx.axis), None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        return _all_reduce(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 class _ScaleGrad(torch.autograd.Function):
@@ -193,12 +230,24 @@ def ring_shift_raw(t, axis, step=1):
 def all_reduce_sum(t, axis):
     """The sum of ``t`` over the ranks of ``axis`` (a new tensor; not
     differentiable)."""
-    def run(x):
-        out = x.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis.group)
-        return out
+    return _all_reduce(t, axis)
 
-    return _exchange("all_reduce", t.detach(), axis, run)
+
+def all_reduce(t, axis):
+    """The sum of ``t`` over ``axis``; its gradient passes unchanged (the
+    sum's output is replicated, each rank's input a partial)."""
+    return _AllReduce.apply(t, axis)
+
+
+def all_reduce_max(t, axis):
+    """The elementwise max of ``t`` over ``axis`` (not differentiable)."""
+    return _all_reduce(t, axis, dist.ReduceOp.MAX, "all_reduce_max")
+
+
+def all_gather(t, axis, dim=0):
+    """The ranks' ``t`` of ``axis`` concatenated along ``dim``, in axis
+    order (not differentiable)."""
+    return _all_gather(t, axis, dim)
 
 
 def sum_grad(t, axis):

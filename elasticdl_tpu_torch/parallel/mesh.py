@@ -253,6 +253,72 @@ def spec_is_whole(spec, mesh):
     return all(shape[axis] == 1 for axis in spec_axes(spec))
 
 
+def _dim_axes(entry):
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def _parts(mesh, entry):
+    """(number of parts, this rank's part) of a dim split over the axes
+    of ``entry``, row-major over them as the reference's mesh splits a
+    dim over several axes; (1, 0) on a mesh of one device."""
+    parts, index = 1, 0
+    for name in _dim_axes(entry):
+        if not isinstance(mesh, WorldMesh):
+            continue
+        ax = mesh.axis(name)
+        parts, index = parts * ax.size, index * ax.size + ax.index
+    return parts, index
+
+
+def _spec_entries(spec, ndim):
+    if isinstance(spec, PadDim0):
+        spec = spec.spec
+    entries = tuple(spec or ())
+    if len(entries) > ndim:
+        raise ValueError("spec %r has more dims than %d" % (spec, ndim))
+    return entries + (None,) * (ndim - len(entries))
+
+
+def shard_slices(spec, global_shape, mesh):
+    """This rank's part of an array of ``global_shape`` split by ``spec``
+    on ``mesh``: one ``slice`` per dim. A split dim must divide evenly
+    (the reference's NamedSharding of an unpadded spec)."""
+    out = []
+    entries = _spec_entries(spec, len(global_shape))
+    for dim, entry in zip(global_shape, entries):
+        parts, index = _parts(mesh, entry)
+        if dim % parts:
+            raise ValueError(
+                "dim of %d does not split into %d parts over %r"
+                % (dim, parts, entry)
+            )
+        size = dim // parts
+        out.append(slice(index * size, (index + 1) * size))
+    return tuple(out)
+
+
+def global_shape(spec, local_shape, mesh):
+    """The whole array's shape of this rank's ``local_shape`` part."""
+    return tuple(
+        int(d) * _parts(mesh, entry)[0]
+        for d, entry in zip(local_shape, _spec_entries(spec, len(local_shape)))
+    )
+
+
+def holds_first_replica(spec, mesh):
+    """True when this rank's index is 0 on every axis ``spec`` does not
+    split over: the one rank that writes its part of a leaf (the
+    reference's ``replica_id == 0``)."""
+    if not isinstance(mesh, WorldMesh):
+        return True
+    split = set(spec_axes(spec))
+    return all(
+        mesh.axis(a).index == 0 for a in mesh.axis_names if a not in split
+    )
+
+
 def flatten_specs(specs, prefix=""):
     """A nested {module: {param: spec}} tree (the reference's
     ``param_shardings`` form) -> {state_dict key: spec}."""
@@ -264,3 +330,26 @@ def flatten_specs(specs, prefix=""):
         else:
             flat[key] = value
     return flat
+
+
+def resolve_specs(names, specs):
+    """{parameter name: spec} for the ``names`` that ``specs`` covers.
+    ``specs`` is the nested {module: {param: spec}} form; a key is a
+    whole ``state_dict`` name or a suffix of one (the reference's suffix
+    specs: ``{"query": {"weight": ...}}`` covers every block's query),
+    and a name takes the longest key it ends with at a ``.``. A key
+    that covers no name raises ValueError."""
+    flat = flatten_specs(specs or {})
+    out, used = {}, set()
+    for name in names:
+        keys = [k for k in flat if name == k or name.endswith("." + k)]
+        if keys:
+            key = max(keys, key=len)
+            out[name] = flat[key]
+            used.add(key)
+    unused = sorted(set(flat) - used)
+    if unused:
+        raise ValueError(
+            "param_specs names %s, not a parameter of the model" % unused
+        )
+    return out

@@ -241,17 +241,12 @@ def make_ring_attention(mesh, seq_axis="seq", causal=False, use_flash=True,
 
     ``use_flash`` (default) runs the flash kernels per block with the
     blockwise ring backward; shard lengths the kernel cannot tile take
-    the plain ring. Heads sharded over a ``model`` axis are not ported
-    (ROADMAP A9)."""
+    the plain ring. On a mesh with a ``model`` axis the heads are split
+    over it (the reference's ``P(data, seq, model, None)``): this rank's
+    q, k, v already hold its heads, so the ring runs over its ``seq``
+    group alone, each ``model`` slice its own ring."""
     from elasticdl_tpu_torch.parallel.mesh import Axis, WorldMesh
 
-    model = mesh.shape.get("model", 1) if seq_axis != "model" else 1
-    if model > 1:
-        raise NotImplementedError(
-            "ring attention with heads sharded over a 'model' axis of %d "
-            "is not ported yet (ROADMAP A9: the DTensor dense plane)"
-            % model
-        )
     if isinstance(mesh, WorldMesh):
         axis = mesh.axis(seq_axis)
     elif seq_axis in mesh.shape:

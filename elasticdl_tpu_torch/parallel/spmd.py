@@ -1,25 +1,35 @@
 """The training step over a :class:`~elasticdl_tpu_torch.parallel.mesh.
 WorldMesh`: what the reference's GSPMD inserts around a model whose
-batch is split over ``data`` and ``seq`` and whose experts are split
-over ``expert``, made explicit for ranks that each run their own shard.
+batch is split over ``data`` and ``seq``, whose experts are split over
+``expert`` and whose heads, hidden units and vocabulary are split over
+``model``, made explicit for ranks that each run their own shard.
 
 The reference runs the whole model on global arrays; the port runs each
-rank on its shard of the batch, (B / data, L / seq). So the step builder
-(``training/step.py``, given a ``mesh``) calls these:
+rank on its shard of the batch, (B / data, L / seq), and its part of
+the split parameters. So the step builder (``training/step.py``, given
+a ``mesh``) calls these:
 
 - :func:`shard_batch`: this rank's rows (its ``data`` slice) and
-  columns (its ``seq`` slice) of every feature, and of the labels. On a
-  sequence axis the labels become next-token targets before they are
-  cut: a shard's last position targets the first token of the next
-  shard, and the sequence's last position is masked (``IGNORE``).
+  columns (its ``seq`` slice) of every feature, and of the labels; every
+  ``model`` rank gets the same. On a sequence or a ``model`` axis the
+  labels become next-token targets before they are cut: a shard's last
+  position targets the first token of the next shard, and the
+  sequence's last position is masked (``IGNORE``).
 - :func:`make_loss`: on a sequence axis, the next-token cross entropy
   summed over this shard's targets and divided by the whole sequence's
   count of targets, so the shards' losses sum to the loss of the
   sequence (the LM family's ``loss``: position ``t`` predicts token ``t
-  + 1``, the mean over every target). Otherwise the zoo's loss as it is.
+  + 1``, the mean over every target). On a ``model`` axis the same, on
+  the rank's vocabulary part of the logits (:func:`vocab_parallel_ce`).
+  Otherwise the zoo's loss as it is.
 - :func:`reduce_gradients`: the routed experts' stacks summed over
   ``expert`` (each rank holds the gradient of its own expert's slice),
   then every gradient summed over ``seq`` and averaged over ``data``.
+  Nothing is reduced over ``model``: a split parameter's gradient is
+  its part's, and a replicated one's is already the whole gradient on
+  every ``model`` rank, the same there (the model sums its replicated
+  activations' gradients over ``model`` where they enter the split
+  products, ``collectives.sum_grad``).
 - :func:`reduce_loss`: the loss of the whole batch, for the report.
 """
 
@@ -63,7 +73,8 @@ def _cut(t, dim, axis):
 
 def shard_batch(features, labels, mesh, seq_axis=None):
     """``(features, labels)`` of the global batch -> this rank's shard;
-    on a sequence axis the labels come back as next-token targets."""
+    on a sequence or a ``model`` axis the labels come back as
+    next-token targets."""
     data = axis_of(mesh, "data")
     seq = axis_of(mesh, seq_axis)
 
@@ -74,7 +85,7 @@ def shard_batch(features, labels, mesh, seq_axis=None):
     features = _map(cut, features)
     if labels is None:
         return features, None
-    if seq is not None:
+    if seq is not None or axis_of(mesh, "model") is not None:
         labels = _as_tensor(labels).long()
         targets = torch.full_like(labels, IGNORE)
         targets[:, :-1] = labels[:, 1:]
@@ -82,17 +93,42 @@ def shard_batch(features, labels, mesh, seq_axis=None):
     return features, cut(labels)
 
 
+def vocab_parallel_ce(logits, targets, axis):
+    """The cross entropy of each position, float32, from this rank's
+    vocabulary part of the logits, (B, L, V / T) with the rank's part
+    the ``axis.index``-th, and the targets' global ids (B, L): the max,
+    the sum of exponentials and the target's logit, each taken over the
+    rank's part and maxed or summed over ``axis`` in float32. The
+    gradient reaches only this rank's logits (softmax minus one-hot on
+    its part). An ``IGNORE`` target reads 0."""
+    lf = logits.float()
+    part = lf.shape[-1]
+    shift = collectives.all_reduce_max(lf.detach().amax(dim=-1), axis)
+    sumexp = collectives.all_reduce(
+        torch.exp(lf - shift[..., None]).sum(dim=-1), axis
+    )
+    local = targets - axis.index * part
+    mine = (local >= 0) & (local < part)
+    picked = lf.gather(-1, torch.where(mine, local, 0)[..., None])[..., 0]
+    target = collectives.all_reduce(torch.where(mine, picked, 0.0), axis)
+    ce = torch.log(sumexp) + shift - target
+    return torch.where(targets != IGNORE, ce, 0.0)
+
+
 def make_loss(loss_fn, mesh, seq_axis=None):
     """The step's loss on this rank's shard (see the module's text)."""
-    if axis_of(mesh, seq_axis) is None:
+    seq = axis_of(mesh, seq_axis)
+    model = axis_of(mesh, "model")
+    if seq is None and model is None:
         return loss_fn
 
     def next_token_loss(output, targets):
         targets = targets.to(device=output.device, dtype=torch.long)
         b, l = targets.shape
-        seq = axis_of(mesh, seq_axis)
         # every position of the sequence but the last has a target
-        count = b * (l * seq.size - 1)
+        count = b * (l * (seq.size if seq is not None else 1) - 1)
+        if model is not None:
+            return vocab_parallel_ce(output, targets, model).sum() / count
         ce = F.cross_entropy(
             output.reshape(-1, output.shape[-1]), targets.reshape(-1),
             ignore_index=IGNORE, reduction="none",

@@ -12,12 +12,24 @@ checkpoint layout (common/sharded_checkpoint.py): params, model state,
 the optimizer's per-parameter state and the version.
 
 A zoo's distributed hooks hand the trainer a ``mesh`` and its
-``param_specs`` (``parallel/mesh.py``): on a mesh of one device every spec
-must be whole, and every parameter is placed whole on the card, as the
-reference places a spec that splits nothing.
+``param_specs`` (``parallel/mesh.py``; nested, full names or the
+reference's suffix specs). On a mesh of one device every spec must be
+whole, and every parameter is placed whole on the card, as the
+reference places a spec that splits nothing. On a ``WorldMesh`` (this
+process one rank of a ``torch.distributed`` world, the mesh's device
+its card) the specs may split a parameter over the mesh's axes: the
+module then holds this rank's parts (the LM's tensor-parallel form,
+whose own layout the specs must match), ``init_from_batch`` draws the
+whole model from the seed and keeps the parts, the step runs over the
+mesh (``training/step.py``, ``parallel/spmd.py``), the optimizer's
+state co-shards with its parameter, :meth:`get_host_state` gathers the
+parts, and :meth:`save_sharded`/:meth:`restore_sharded` write and read
+each rank's parts with their global index, so a checkpoint restores
+onto any other split of the same model.
 
-Not ported yet: more than one device (``resize``, a mesh of several
-devices, a spec that splits a parameter); each raises
+Not ported yet: more than one device in one process (``devices``), and
+``resize``, a membership change of the world, which is the elastic
+plane's world re-form (ROADMAP A9.2); both raise
 ``NotImplementedError``.
 """
 
@@ -61,22 +73,24 @@ def place_module(module, device):
 
 
 def _check_placement(module, mesh, param_specs, device):
-    """Check that ``param_specs`` ({module: {param: spec}}) name
-    parameters of ``module`` and split none of them on ``mesh``, a mesh of
-    one device, ``device``; raises ``NotImplementedError`` for anything
-    that would split."""
+    """Check ``param_specs`` against ``module`` and ``mesh``; returns
+    {parameter name: spec} of the parameters they split. On a mesh of
+    one device every spec must be whole; on a ``WorldMesh`` the specs
+    name its axes and must match the module's own layout
+    (``param_layout``) where it has one."""
     from elasticdl_tpu_torch.parallel.mesh import (
-        flatten_specs,
+        WorldMesh,
+        resolve_specs,
         spec_is_whole,
     )
 
     if mesh is None:
         if param_specs:
             raise _not_ported("placement by param_specs without a mesh")
-        return
-    if getattr(mesh, "size", None) != 1:
+        return {}
+    if not isinstance(mesh, WorldMesh) and getattr(mesh, "size", None) != 1:
         raise _not_ported(
-            "placement over a mesh of %s devices"
+            "placement over a mesh of %s devices outside a world"
             % getattr(mesh, "size", "unknown")
         )
     if torch.device(mesh.device) != device:
@@ -84,16 +98,34 @@ def _check_placement(module, mesh, param_specs, device):
             "the mesh's device %s is not the trainer's %s"
             % (mesh.device, device)
         )
-    names = dict(module.named_parameters())
-    for name, spec in flatten_specs(param_specs or {}).items():
-        if name not in names:
-            raise ValueError(
-                "param_specs names %r, not a parameter of the model" % name
-            )
-        if not spec_is_whole(spec, mesh):
-            raise _not_ported(
-                "placement that splits %s by %r" % (name, spec)
-            )
+    specs = resolve_specs(
+        [n for n, _ in module.named_parameters()], param_specs
+    )
+    split = {n: sp for n, sp in specs.items() if not spec_is_whole(sp, mesh)}
+    if not isinstance(mesh, WorldMesh):
+        # a mesh of one device splits nothing
+        return {}
+    layout = getattr(module, "param_layout", lambda: None)()
+    if layout is not None and layout != split:
+        raise ValueError(
+            "param_specs split %s, the model %s on mesh %r"
+            % (sorted(split), sorted(layout), mesh)
+        )
+    return split
+
+
+def _leaf_spec(path, value, params, split):
+    """The spec of a train-state leaf: a parameter's, and an optimizer
+    slot's of its parameter's shape (AdamW's moments) that of its
+    parameter; None (whole) for the rest."""
+    head, _, rest = path.partition("/")
+    if head == "params":
+        return split.get(rest)
+    if head == "opt_state":
+        name = rest.rpartition("/")[0]
+        if name in split and tuple(value.shape) == tuple(params[name].shape):
+            return split[name]
+    return None
 
 
 class AllReduceTrainer:
@@ -117,10 +149,15 @@ class AllReduceTrainer:
         state lives (the card unless the caller names the CPU). One
         device splits no batch, so the reference's ``batch_axis`` has no
         counterpart."""
+        from elasticdl_tpu_torch.parallel.mesh import WorldMesh
+
         if devices is not None and len(devices) != 1:
             raise _not_ported("over %d devices" % len(devices))
         self._device = resolve_device(device)
-        _check_placement(module, mesh, param_specs, self._device)
+        self._split = _check_placement(
+            module, mesh, param_specs, self._device
+        )
+        self._mesh = mesh if isinstance(mesh, WorldMesh) else None
         self._module = module
         self._optimizer = optimizer
         self._seed = seed
@@ -130,6 +167,8 @@ class AllReduceTrainer:
             accum_steps=accum_steps,
             precision=precision,
             remat=remat,
+            mesh=self._mesh,
+            seq_axis=getattr(module, "seq_axis", None),
         )
         self._ts = None
         self._host_step = 0
@@ -197,12 +236,24 @@ class AllReduceTrainer:
         return loss
 
     def resize(self, devices):
-        raise _not_ported("resize (membership change)")
+        raise _not_ported(
+            "resize (a membership change of the world is the elastic "
+            "plane's world re-form, ROADMAP A9.2)"
+        )
+
+    @property
+    def param_specs(self):
+        """{parameter name: spec} of the parameters split over the
+        mesh (empty when nothing is split)."""
+        return dict(self._split)
 
     def get_host_state(self):
         """The train state as owned host copies (for checkpointing):
         params and state as CPU tensors, ``opt_state`` as the optimizer's
-        ``state_dict`` with its tensors copied to the CPU."""
+        ``state_dict`` with its tensors copied to the CPU. Split
+        parameters and their optimizer slots come whole, gathered over
+        the mesh (every rank must call it)."""
+        from elasticdl_tpu_torch.parallel.sharding import gather_part
 
         def host(x):
             if isinstance(x, torch.Tensor):
@@ -214,21 +265,61 @@ class AllReduceTrainer:
             return x
 
         ts = self._ts
+        names = list(ts.params)
+        opt = ts.opt_state.state_dict()
+        if self._split:
+            opt = dict(opt, state={
+                idx: {slot: gather_part(v, _leaf_spec(
+                    "opt_state/%s/%s" % (names[idx], slot), v, ts.params,
+                    self._split), self._mesh)
+                    if isinstance(v, torch.Tensor) else v
+                    for slot, v in slots.items()}
+                for idx, slots in opt["state"].items()
+            })
+        params = {
+            n: gather_part(p, self._split.get(n), self._mesh)
+            for n, p in ts.params.items()
+        }
         return TrainState(
-            params=host(ts.params),
+            params=host(params),
             state=host(ts.state),
-            opt_state=host(ts.opt_state.state_dict()),
+            opt_state=host(opt),
             version=ts.version,
         )
 
+    def _leaf_layout(self, leaves):
+        """({path: tensor} this rank writes, {path: (global shape, its
+        slices)} of its split leaves)."""
+        from elasticdl_tpu_torch.parallel.mesh import (
+            global_shape,
+            holds_first_replica,
+            shard_slices,
+        )
+
+        mine, layout = {}, {}
+        for path, value in leaves.items():
+            spec = _leaf_spec(path, value, self._ts.params, self._split)
+            if not holds_first_replica(spec, self._mesh):
+                continue
+            mine[path] = value
+            if spec is not None:
+                whole = global_shape(spec, tuple(value.shape), self._mesh)
+                layout[path] = (whole, shard_slices(spec, whole, self._mesh))
+        return mine, layout
+
     def save_sharded(self, directory):
-        """Write the train state as one sharded checkpoint directory."""
+        """Write the train state into one sharded checkpoint directory:
+        this rank's manifest and the leaves (or parts of leaves) it
+        holds the first replica of."""
         from elasticdl_tpu_torch.common.sharded_checkpoint import (
+            PROCESS_INDEX,
             save_sharded,
             train_state_leaves,
         )
 
-        save_sharded(directory, train_state_leaves(self._ts), self.version)
+        mine, layout = self._leaf_layout(train_state_leaves(self._ts))
+        rank = self._mesh.rank if self._mesh is not None else PROCESS_INDEX
+        save_sharded(directory, mine, self.version, rank, layout)
 
     def restore_sharded(self, directory):
         """Adopt the checkpoint in ``directory`` (the state must exist,
@@ -236,11 +327,32 @@ class AllReduceTrainer:
         returns the restored version. Raises, leaving the state as it
         was, when the checkpoint does not cover this model."""
         from elasticdl_tpu_torch.common.sharded_checkpoint import (
+            leaf_shapes,
             load_sharded_to_host,
             split_train_state_leaves,
         )
+        from elasticdl_tpu_torch.parallel.mesh import (
+            global_shape,
+            shard_slices,
+        )
 
-        _, leaves = load_sharded_to_host(directory)
+        # this rank's part of each split leaf: a parameter, and an
+        # optimizer slot of its parameter's whole shape
+        parts = {}
+        for path, shape in (leaf_shapes(directory) if self._split
+                            else {}).items():
+            head, _, rest = path.partition("/")
+            name = rest if head == "params" else rest.rpartition("/")[0]
+            spec = self._split.get(name) if head in (
+                "params", "opt_state") else None
+            if spec is None:
+                continue
+            whole = global_shape(
+                spec, tuple(self._ts.params[name].shape), self._mesh
+            )
+            if head == "params" or shape == whole:
+                parts[path] = shard_slices(spec, shape, self._mesh)
+        _, leaves = load_sharded_to_host(directory, parts)
         params, state, opt, version = split_train_state_leaves(
             leaves, list(self._ts.params)
         )

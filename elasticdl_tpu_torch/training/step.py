@@ -293,17 +293,20 @@ def make_train_step(
     loss. ``remat``: see :func:`make_remat_forward`.
 
     ``mesh``: a ``parallel/mesh.WorldMesh`` the model runs over (its
-    ``data``, ``seq_axis`` and ``expert`` axes): every rank is handed the
-    global batch and steps on its shard of it, and the gradients and the
-    loss are the whole batch's on every rank (``parallel/spmd.py``).
+    ``data``, ``seq_axis``, ``expert`` and ``model`` axes): every rank is
+    handed the global batch and steps on its shard of it, and the loss
+    and the gradients are the whole batch's on every rank, each split
+    parameter's for this rank's part (``parallel/spmd.py``).
 
     The step drives the optimizer in ``train_state.opt_state``, which
     ``TrainState.create`` bound to the parameters, so unlike the
     reference's builder this one takes no optimizer. ``pmean_axis`` (the
-    cross-device mean) belongs to the multi-device slice and raises."""
+    cross-device mean inside the elastic plane's step) belongs to the
+    sharded elastic planes and raises."""
     if pmean_axis is not None:
         raise NotImplementedError(
-            "make_train_step(pmean_axis=...) is not ported yet"
+            "make_train_step(pmean_axis=...) is not ported yet (ROADMAP "
+            "A9.2: the sharded elastic planes)"
         )
     pol = get_policy(precision)
     forward = make_remat_forward(module, remat)

@@ -17,13 +17,17 @@ evaluation task is scored by an inference forward of the current state
 once per batch and reported to the master's round with the version the
 round pinned.
 
-A zoo module with ``build_distributed_model(mesh, ...)`` gets its model
-from that hook, as in the reference: the mesh is the one card
-(``parallel/mesh.create_mesh``), and ``param_shardings(mesh, ...)``, if
-the zoo has it, gives the trainer each parameter's spec, which must be
-whole on that mesh (DeepFM's HBM tables: a parameter on the card, its
-checkpoint leaf and export name its own). A zoo that declares a mesh
-layout (``mesh_axes``) raises ``NotImplementedError`` (ROADMAP A9).
+The mesh is the reference's: ``mesh_axes(n, ...)``, where the zoo has
+it, gives its shape for the worker's one card (n = 1), else one
+``data`` axis (``parallel/mesh.create_mesh``). A zoo module with
+``build_distributed_model(mesh, ...)`` gets its model from that hook,
+and ``param_shardings(mesh, ...)``, if the zoo has it, gives the trainer
+each parameter's spec, which must be whole on that mesh (DeepFM's HBM
+tables: a parameter on the card, its checkpoint leaf and export name
+its own). A layout one card cannot hold raises the zoo's own error
+(the LM's ``tensor_parallel=2``: "1 devices do not divide into
+tensor_parallel=2"); tensor parallelism trains through
+``AllReduceTrainer`` on the ranks of a world (``parallel/trainer.py``).
 Evaluation-only and prediction-only jobs are refused, as in the
 reference: the elastic worker's drain (``elastic_allreduce_worker.py``)
 serves them.
@@ -105,12 +109,6 @@ class AllReduceWorker:
         self._accum_steps = max(1, accum_steps)
         self._stub = stub
         zoo_module = load_zoo_module(model_def, model_zoo)
-        if hasattr(zoo_module, "mesh_axes"):
-            raise NotImplementedError(
-                "zoo module %s defines mesh_axes: a mesh of several axes "
-                "or devices is not ported yet (ROADMAP A9)"
-                % model_def
-            )
         distributed = hasattr(zoo_module, "build_distributed_model")
         spec = get_model_spec(
             model_zoo=model_zoo,
@@ -126,9 +124,9 @@ class AllReduceWorker:
         from elasticdl_tpu_torch.training.step import parse_remat
 
         mesh, param_specs = None, None
-        if distributed:
-            # the zoo's model for the ALLREDUCE strategy (the reference's
-            # ModelHandler rewrite): built for a mesh, here the one card
+        if distributed or hasattr(zoo_module, "mesh_axes"):
+            # the zoo's mesh, and its model for the ALLREDUCE strategy
+            # (the reference's ModelHandler rewrite), for the one card
             from elasticdl_tpu_torch.common.device import resolve_device
             from elasticdl_tpu_torch.common.model_utils import (
                 get_dict_from_params_str,
@@ -136,7 +134,13 @@ class AllReduceWorker:
             from elasticdl_tpu_torch.parallel.mesh import create_mesh
 
             params_dict = get_dict_from_params_str(model_params) or {}
-            mesh = create_mesh(devices=[resolve_device(device)])
+            mesh_shape = None
+            if hasattr(zoo_module, "mesh_axes"):
+                mesh_shape = zoo_module.mesh_axes(
+                    len(devices) if devices else 1, **params_dict
+                )
+            mesh = create_mesh(mesh_shape, devices=[resolve_device(device)])
+        if distributed:
             spec.model = zoo_module.build_distributed_model(
                 mesh=mesh, **params_dict
             )

@@ -105,12 +105,19 @@ source the twin takes (without it the job raises ``ValueError``), or,
 without a twin, through the degenerate ``build_distributed_model(
 mesh=None)``. Both are built from the job's ``--model_params``.
 
-Not ported, each raising ``NotImplementedError``: training sharded,
-pjit and pipelined models on the elastic plane (zoo hooks ``mesh_axes``
-and ``build_distributed_model``, ROADMAP A9), with the collective
-evaluation (``_collective_evaluate``) that scores them in a training job,
-and the world-size rounding's spare members (the replicated plane rounds
-to 1).
+A training job takes the reference's route by its probes of
+``param_shardings`` (``mesh=None``: does this configuration split
+anything, and over ``model``?), not by which hooks the zoo defines: a
+configuration that splits nothing trains the plain module replicated
+(the LM without ``tensor_parallel``, a zoo whose ``mesh_axes`` alone
+names a layout). Not ported, each raising ``NotImplementedError``
+(ROADMAP A9.2): training a configuration that splits parameters on the
+elastic plane, over ``model`` (the pjit dense plane) or otherwise (the
+collective plane of ``build_distributed_model``), with the collective
+evaluation (``_collective_evaluate``) that scores them in a training
+job, and the world-size rounding's spare members (the replicated plane
+rounds to 1). A tensor-parallel checkpoint is scored whole on one
+device: ``load_sharded_to_host`` assembles its parts.
 """
 
 import json
@@ -197,6 +204,63 @@ class ElasticAllReduceWorker:
     # the instance manager relaunches a replacement for this exit
     PREEMPTED_EXIT_CODE = 75  # EX_TEMPFAIL
 
+    @staticmethod
+    def _probe_specs(zoo_module, model_params):
+        """The zoo's ``param_shardings(None, ...)`` (the reference's
+        probe: answered from the params alone), or None when it has
+        none."""
+        from elasticdl_tpu_torch.common.model_utils import (
+            get_dict_from_params_str,
+        )
+
+        ps = getattr(zoo_module, "param_shardings", None)
+        if ps is None:
+            return None
+        return ps(None, **(get_dict_from_params_str(model_params) or {}))
+
+    @classmethod
+    def _zoo_wants_sharded_params(cls, zoo_module, model_params):
+        """Does this configuration split parameters? A zoo with
+        ``build_distributed_model`` and no ``param_shardings`` is taken
+        to (the reference's conservative answer)."""
+        if not hasattr(zoo_module, "param_shardings"):
+            return hasattr(zoo_module, "build_distributed_model")
+        return bool(cls._probe_specs(zoo_module, model_params))
+
+    @classmethod
+    def _zoo_wants_pjit_dense(cls, zoo_module, model_params):
+        """Does this configuration split the dense model over the
+        ``model`` axis (the reference's pjit dense plane)?"""
+        from elasticdl_tpu_torch.parallel.mesh import flatten_specs, spec_axes
+
+        specs = cls._probe_specs(zoo_module, model_params) or {}
+        return any(
+            "model" in spec_axes(spec)
+            for spec in flatten_specs(specs).values()
+        )
+
+    @classmethod
+    def _refuse_sharded_training(cls, zoo_module, model_def, model_params,
+                                 job_type):
+        if not cls._zoo_wants_sharded_params(zoo_module, model_params):
+            return
+        what = (
+            "tensor parallelism over a 'model' axis (the pjit dense plane)"
+            if cls._zoo_wants_pjit_dense(zoo_module, model_params)
+            else "sharded parameters (build_distributed_model, "
+            "param_shardings)"
+        )
+        raise NotImplementedError(
+            "zoo module %s defines build_distributed_model with %s for "
+            "this configuration: training it on the sharded elastic plane "
+            "is not ported yet (ROADMAP A9.2)%s" % (
+                model_def, what,
+                ", nor the collective evaluation (_collective_evaluate) "
+                "that scores it"
+                if job_type == JobType.TRAINING_WITH_EVALUATION else "",
+            )
+        )
+
     def __init__(
         self,
         worker_id,
@@ -231,21 +295,10 @@ class ElasticAllReduceWorker:
             JobType.PREDICTION_ONLY,
         )
         zoo_module = load_zoo_module(model_def, model_zoo)
-        for hook in ("mesh_axes", "build_distributed_model"):
-            if hasattr(zoo_module, hook) and not (
-                self._serving_only and hook == "build_distributed_model"
-            ):
-                raise NotImplementedError(
-                    "zoo module %s defines %s: the sharded elastic plane "
-                    "(a mesh or distributed model) is not ported yet "
-                    "(ROADMAP A9)%s" % (
-                        model_def, hook,
-                        ", nor the collective evaluation "
-                        "(_collective_evaluate) that scores it"
-                        if job_type == JobType.TRAINING_WITH_EVALUATION
-                        else "",
-                    )
-                )
+        if not self._serving_only:
+            self._refuse_sharded_training(
+                zoo_module, model_def, model_params, job_type
+            )
         if self._serving_only and not (
             checkpoint_dir or checkpoint_filename_for_init
         ):

@@ -419,27 +419,35 @@ def test_cli_gate_exits_2_as_the_jax_cli_does(verb, argv):
     [JobType.TRAINING_ONLY, JobType.TRAINING_WITH_EVALUATION],
 )
 def test_elastic_worker_refuses_training_jobs_by_name(job_type, tmp_path):
-    """The elastic worker trains a training-only job and a job with
-    evaluation rounds on the replicated plane (the multi-process plane,
-    tests/test_torch_elastic_job.py); it refuses by name what is not
-    ported: for any training job a zoo that declares a mesh, and with
-    evaluation rounds the collective evaluation that would score it."""
+    """The elastic worker routes a training job by the reference's
+    probes of ``param_shardings``: it refuses by name what splits
+    parameters, not ported (the LM's tensor_parallel=2: the pjit dense
+    plane, ROADMAP A9.2, and with evaluation rounds the collective
+    evaluation that would score it), and trains on the replicated plane
+    what splits nothing: a zoo whose ``mesh_axes`` alone names a layout,
+    as the reference's does, and the LM without tensor_parallel."""
+    lm = "transformer_lm.transformer_lm.custom_model"
+    with pytest.raises(NotImplementedError,
+                       match="model.*pjit dense.*A9.2") as refused:
+        ElasticAllReduceWorker(0, job_type, BATCH, "", lm,
+                               model_params="tensor_parallel=2",
+                               checkpoint_dir="c", device="cpu")
+    assert ("_collective_evaluate" in str(refused.value)) == (
+        job_type == JobType.TRAINING_WITH_EVALUATION
+    )
     zoo = tmp_path / "zoo" / "meshed"
     zoo.mkdir(parents=True)
     (zoo / "meshed.py").write_text(
         "from elasticdl_tpu_torch.model_zoo.mnist_subclass.mnist_subclass "
         "import *  # noqa\n\n\ndef mesh_axes(n):\n    return {'data': n}\n"
     )
-    with pytest.raises(NotImplementedError, match="mesh_axes") as refused:
-        ElasticAllReduceWorker(0, job_type, BATCH, str(tmp_path / "zoo"),
-                               "meshed.meshed.CustomModel",
-                               checkpoint_dir="c", device="cpu")
-    assert ("_collective_evaluate" in str(refused.value)) == (
-        job_type == JobType.TRAINING_WITH_EVALUATION
-    )
-    worker = ElasticAllReduceWorker(0, job_type, BATCH, "", MNIST,
-                                    checkpoint_dir="c", device="cpu")
-    assert worker.trainer is not None
+    for zoo_dir, model_def in ((str(tmp_path / "zoo"),
+                                "meshed.meshed.CustomModel"),
+                               ("", MNIST), ("", lm)):
+        worker = ElasticAllReduceWorker(0, job_type, BATCH, zoo_dir,
+                                        model_def, checkpoint_dir="c",
+                                        device="cpu")
+        assert worker.trainer is not None, model_def
 
 
 def test_eval_only_gives_up_on_an_empty_checkpoint_dir(tmp_path):

@@ -296,6 +296,11 @@ def test_the_host_twin_of_a_ps_table_refuses_as_the_reference():
 
 
 def test_allreduce_worker_refuses_mesh_axes_by_name(tmp_path):
+    """A zoo's ``mesh_axes`` gives the worker's mesh, as in the
+    reference: ``{'data': n}`` on the one device is a mesh of one, and
+    the HBM tables train on it; a layout one device cannot hold is
+    refused by the zoo's own ValueError (the LM's tensor_parallel=2)."""
+    from elasticdl_tpu_torch.parallel.mesh import Mesh
     from elasticdl_tpu_torch.worker.allreduce_worker import AllReduceWorker
 
     zoo = tmp_path / "zoo" / "meshed"
@@ -303,11 +308,23 @@ def test_allreduce_worker_refuses_mesh_axes_by_name(tmp_path):
     (zoo / "meshed.py").write_text(
         "from elasticdl_tpu_torch.model_zoo.deepfm_edl_embedding."
         "deepfm_edl_embedding import *  # noqa\n\n\n"
-        "def mesh_axes(n):\n    return {'data': n}\n"
+        "def mesh_axes(n, **_params):\n    return {'data': n}\n"
     )
-    with pytest.raises(NotImplementedError, match="mesh_axes.*A9"):
-        AllReduceWorker(0, JobType.TRAINING_ONLY, 4, str(tmp_path / "zoo"),
-                        "meshed.meshed.custom_model", device="cpu")
+    worker = AllReduceWorker(0, JobType.TRAINING_ONLY, 4,
+                             str(tmp_path / "zoo"),
+                             "meshed.meshed.custom_model",
+                             model_params=EDL_PARAMS, device="cpu")
+    assert isinstance(worker._model.embedding.mesh, Mesh)
+    ids = np.random.default_rng(0).integers(0, 32, (4, 10))
+    labels = np.array([[0], [1], [1], [0]])
+    losses = [float(worker.trainer.train_step({"feature": ids}, labels))
+              for _ in range(2)]
+    assert all(np.isfinite(losses)) and worker.trainer.version == 2
+    with pytest.raises(ValueError,
+                       match="1 devices do not divide into tensor_parallel=2"):
+        AllReduceWorker(0, JobType.TRAINING_ONLY, 4, "",
+                        "transformer_lm.transformer_lm.custom_model",
+                        model_params="tensor_parallel=2", device="cpu")
 
 
 @pytest.mark.parametrize(

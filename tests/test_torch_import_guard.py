@@ -95,7 +95,7 @@ def test_every_port_module_imports_without_jax():
                  "ps.optimizer_wrapper", "master.learning_rate_modulator",
                  "nn.embedding",
                  "worker.worker", "ps.delta_log", "serving.delta_sync",
-                 "nn.comm_plane", "parallel.mesh",
+                 "nn.comm_plane", "parallel.mesh", "parallel.sharding",
                  "model_zoo.mnist_functional_api.mnist_functional_api",
                  "model_zoo.cifar10_subclass.cifar10_subclass",
                  "model_zoo.cifar10_functional_api.cifar10_functional_api",

@@ -294,21 +294,21 @@ def test_a_ring_on_one_device_is_flash_attention():
 
 
 def test_heads_over_a_model_axis_raise_by_name():
+    """Heads over ``model`` run since tensor parallelism is ported
+    (tests/test_torch_tensor_parallel.py holds the ring on seq x model
+    against the JAX ring); what still raises by name is the LM with
+    experts over an ``expert`` axis and a ``model`` axis together."""
     from elasticdl_tpu_torch.model_zoo.transformer_lm import (
         transformer_lm as tzoo,
     )
-    from elasticdl_tpu_torch.parallel.ring_attention import (
-        make_ring_attention,
-    )
 
     class _Mesh:
-        axis_names = ("seq", "model")
-        shape = {"seq": 2, "model": 2}
+        axis_names = ("expert", "model")
+        shape = {"expert": 2, "model": 2}
 
-    with pytest.raises(NotImplementedError, match="model.*ROADMAP A9"):
-        make_ring_attention(_Mesh(), "seq")
-    with pytest.raises(NotImplementedError, match="model.*ROADMAP A9"):
-        tzoo.custom_model(mesh=_Mesh(), seq_axis="seq")
+    with pytest.raises(NotImplementedError,
+                       match="expert.*model.*ROADMAP A9"):
+        tzoo.custom_model(mesh=_Mesh(), num_experts=2)
 
 
 # -- the sequence-sharded LM -------------------------------------------------

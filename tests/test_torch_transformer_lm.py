@@ -108,7 +108,8 @@ class _Mesh:
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(mesh=_Mesh(data=2, model=2)), dict(mesh=_Mesh(pipe=2)),
+    [dict(mesh=_Mesh(expert=2, model=2), num_experts=2),
+     dict(mesh=_Mesh(pipe=2)),
      dict(mesh=_Mesh(seq=2), seq_axis="seq", num_experts=4)],
 )
 def test_unported_forms_raise(kwargs):
