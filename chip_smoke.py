@@ -388,7 +388,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    end equal, the newest checkpoint restores bitwise; kill -> serving
    (replay seconds, records replayed), kill -> the re-formed world's
    first step, its broadcast's seconds. Run D, Run B with
-   ``--num_standby_workers 1`` over two epochs (the survivor waits for
+   ``--num_standby_workers 1`` over one epoch (the survivor waits for
    the warmed standby and re-forms at full size, so it needs no longer
    job to be joined): the warmed standby is promoted (the pool
    refills), the survivor re-forms once at full size, Run B's checks;
@@ -404,15 +404,36 @@ Phases, each printing JSON lines; any failure exits non-zero:
    report their flash launches, by run (``launches_by_path`` ``elastic``
    for A and B, ``elastic_master_kill``, ``elastic_standby`` and
    ``elastic_eval``, each 0).
-18. summary — each phase's seconds with the serving-member exports it
+18. elastic_tp — transformer_lm's tensor-parallel shards on the elastic
+   plane: ``cli train --num_workers 3`` of the LM at the slice's widths
+   cut to 2 layers with ``tensor_parallel=2`` (three worker processes on
+   the card over gloo, ``--replica_refresh_steps 0``, a checkpoint every
+   2 versions, all kept, a round every 4 over 8 validation records),
+   the layout solver's budget below the whole model's state so each
+   world of two is data 1 x model 2. The first world forms of workers 0
+   and 1, worker 2 parks as a spare and hands back what it fetched;
+   worker 1 is SIGKILLed once both ranks' ckpt_v4 manifests are on disk
+   and the spare is promoted into a re-formed world of 2. Each rank's
+   parts after the re-form bitwise the restored checkpoint's, the
+   version continuing from it; every task done once; each round whose
+   scored version has a checkpoint within 1e-2 relative L2 of that
+   checkpoint's whole-model forward; each rank's final parts bitwise the
+   newest checkpoint's; the SAVE_MODEL member within REPLY_ATOL of the
+   whole model; each rank's share of the parameter bytes and its peak
+   memory, kill -> the re-formed world's first step, the restore's
+   seconds, tokens/s before and after the kill, the host staging's
+   share of a step; no flash launch (``launches_by_path.elastic_tp``,
+   64-token records) and no process left.
+19. summary — each phase's seconds with the serving-member exports it
    made (their count and seconds: this process's trace and save, a
    worker's whole SAVE_MODEL export), the kernels line, the card line,
    then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
 non-zero and prints no result. ``--elastic-only`` runs phases 1 and 17
-alone, ``--zoo-only`` phases 1 and 10, ``--ps-only`` phases 1 and 11,
-``--ps-fleet-only`` phases 1 and 12, ``--ps-tiers-only`` phases 1 and
+alone, ``--elastic-tp-only`` phases 1 and 18, ``--zoo-only`` phases 1
+and 10, ``--ps-only`` phases 1 and 11, ``--ps-fleet-only`` phases 1 and
+12, ``--ps-tiers-only`` phases 1 and
 13, ``--ps-hybrid-only`` phases 1 and 14, ``--ps-serve-only`` phases 1
 and 15, ``--wire-only`` phases 1 and 16, ``--moe-only`` phases 1, 2 and
 6, ``--ring-only`` phases 1, 2 and 7, and none of them prints the
@@ -9171,15 +9192,17 @@ ELASTIC_WORKERS = 2
 # joiner that finds no task left never joins
 ELASTIC_KILL_EPOCHS = 4
 # Run D: the promoted standby is warm and the survivor waits for it (it
-# re-forms once, at full size), so two epochs leave it work to join
-ELASTIC_STANDBY_EPOCHS = 2
+# re-forms once, at full size), so one epoch (a kill at v4 of ~14 steps)
+# leaves it work to join
+ELASTIC_STANDBY_EPOCHS = 1
 ELASTIC_KILL_AT_VERSION = 4
 ELASTIC_JOB_LIMIT_S = 420  # a run that hangs fails the phase
 SNAPSHOT_CHECK_SLEEP_CYCLES = 200_000_000  # keeps the stream busy ~0.1 s
 # Run C: the master SIGKILLed once its version reaches this, in a job of
-# this many epochs (24 lockstep steps left to take after the relaunch)
+# this many epochs (about 10 lockstep steps left to take after the
+# relaunch; the every-phase run's limit took the second epoch)
 MASTER_KILL_AT_VERSION = 4
-MASTER_KILL_EPOCHS = 2
+MASTER_KILL_EPOCHS = 1
 MASTER_FAILOVER_S = 120  # the workers' outage budget (the default)
 # Run E: one epoch, a round every 4 versions over 256 validation records
 ELASTIC_EVAL_EPOCHS = 1
@@ -10081,6 +10104,564 @@ def _record_at(records, kernel, key):
     )
 
 
+# ---------------------------------------------------------------------------
+# elastic_tp: transformer_lm's tensor-parallel shards on the elastic plane
+# ---------------------------------------------------------------------------
+
+# SLICE_CFG's widths (d 768, 12 heads of 64, d_ff 3072, vocabulary 32,768,
+# bf16 compute) at 2 layers, tensor_parallel=2: the first world of two
+# processes is data 1 x model 2, the third worker a spare
+ELASTIC_TP_CFG = dict(SLICE_CFG, num_layers=2)
+ELASTIC_TP_WORKERS = 3
+ELASTIC_TP_BATCH = 16  # records a rank steps on: 16 x 64 tokens
+# two ranks of ELASTIC_TP_BATCH a version; 16 versions read 42.8-45.8 s
+# for the phase on slower hosts, over its 45 s budget, so 12
+ELASTIC_TP_VERSIONS = 12
+ELASTIC_TP_RECORDS = ELASTIC_TP_VERSIONS * 2 * ELASTIC_TP_BATCH
+ELASTIC_TP_VAL_RECORDS = 8  # one evaluation task a round
+ELASTIC_TP_CKPT_STEPS = 2
+ELASTIC_TP_EVAL_STEPS = 4
+ELASTIC_TP_KILL_AT = 4  # once both ranks' ckpt_v4 manifests are on disk
+ELASTIC_TP_LIMIT_S = 240  # a run that hangs fails the phase
+ELASTIC_TP_REL_L2 = 1e-2  # a round's outputs against its checkpoint's
+# The zoo module the job names: the port's LM, its 64-token records parsed
+# as the zoo parses them, without the training shuffle (with a
+# 1,024-record buffer in each worker, the first worker to prime would
+# take every task of a job of a few hundred records)
+ELASTIC_TP_ZOO = textwrap.dedent(
+    """
+    from elasticdl_tpu_torch.model_zoo.transformer_lm.transformer_lm import *  # noqa
+    from elasticdl_tpu_torch.model_zoo.transformer_lm.transformer_lm import (
+        FixedLenFeature, Mode, np, parse_example)
+
+
+    def dataset_fn(dataset, mode, _):
+        def _parse_data(record):
+            r = parse_example(
+                record, {"tokens": FixedLenFeature([64], np.int64)})
+            tokens = r["tokens"].astype(np.int32)
+            if mode == Mode.PREDICTION:
+                return {"tokens": tokens}
+            return {"tokens": tokens}, tokens
+
+        return dataset.map(_parse_data)
+    """
+)
+
+
+def _tp_params():
+    return ",".join("%s=%s" % (k, v) for k, v in ELASTIC_TP_CFG.items()) + (
+        ",tensor_parallel=2")
+
+
+def write_lm_records(data_dir, n, seed):
+    """``n`` 64-token records from ``seed``; returns the tokens."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.data.example import encode_example
+    from elasticdl_tpu_torch.data.recordio import RecordIOWriter
+
+    os.makedirs(data_dir, exist_ok=True)
+    tokens = np.random.default_rng(seed).integers(
+        0, ELASTIC_TP_CFG["vocab_size"], (n, 64)).astype(np.int64)
+    with RecordIOWriter(os.path.join(data_dir, "f0")) as w:
+        for row in tokens:
+            w.write(encode_example({"tokens": row}))
+    return tokens
+
+
+def _tp_budget_mb():
+    """(the layout solver's per-device budget, the model profile): the
+    whole model's state (parameters and AdamW moments) does not fit, its
+    two-way split does, so every world of two lays out data 1 x model 2.
+    The profile is the pjit plane's, from the whole model on the meta
+    device."""
+    from elasticdl_tpu_torch.model_zoo.transformer_lm import (
+        transformer_lm as zoo,
+    )
+    from elasticdl_tpu_torch.parallel.elastic import (
+        derive_model_profile,
+        reference_state_leaves,
+    )
+
+    import torch
+
+    params = dict(ELASTIC_TP_CFG, tensor_parallel=2)
+    with torch.device("meta"):
+        whole = zoo.custom_model(**ELASTIC_TP_CFG)
+    profile = derive_model_profile(reference_state_leaves(
+        whole, zoo.param_shardings(None, **params), zoo.optimizer()))
+    budget = (profile.replicated_bytes + 0.75 * profile.tp_bytes) / 2 ** 20
+    return budget, profile
+
+
+def _tp_mesh(mesh_shape, rank):
+    """A stand-in for ``rank``'s WorldMesh of ``mesh_shape`` (its axes'
+    sizes and this rank's coordinates), without a process group."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.parallel.mesh import Axis, WorldMesh
+
+    class _Mesh(WorldMesh):
+        def __init__(self):
+            names = tuple(mesh_shape)
+            sizes = tuple(mesh_shape[a] for a in names)
+            self.axis_names = names
+            self._axes = {a: Axis(a, n, c, (), None) for a, n, c in zip(
+                names, sizes, np.unravel_index(rank, sizes))}
+
+    return _Mesh()
+
+
+def _tp_rank_params(leaves, rank, mesh_shape):
+    """``rank``'s parts of a checkpoint's parameters (host tensors)."""
+    from elasticdl_tpu_torch.parallel.mesh import shard_slices
+    from elasticdl_tpu_torch.parallel.sharding import param_spec
+
+    mesh = _tp_mesh(mesh_shape, rank)
+    return {
+        path[len("params/"):]: t[shard_slices(
+            param_spec(path[len("params/"):], mesh), tuple(t.shape), mesh)]
+        for path, t in leaves.items() if path.startswith("params/")
+    }
+
+
+def _tp_digest(leaves, rank, mesh_shape):
+    from elasticdl_tpu_torch.parallel.elastic import state_digest
+    from elasticdl_tpu_torch.training.step import TrainState
+
+    return state_digest(TrainState(
+        _tp_rank_params(leaves, rank, mesh_shape), {}, None))
+
+
+class _TpCheckpoints:
+    """The job's checkpoints as the checks read them: each one's
+    parameters read once (``params/`` leaves only), and the whole LM
+    built once, on the meta device, then placed on the card uninitialized
+    (every forward is given its parameters)."""
+
+    def __init__(self, torch, ckpt_dir):
+        self._torch = torch
+        self._dir = ckpt_dir
+        self._params = {}
+        self._forward = None
+
+    def params(self, version):
+        """{parameter path: host tensor} of ckpt_v{version}, or None
+        when there is no such checkpoint."""
+        from elasticdl_tpu_torch.common.sharded_checkpoint import (
+            load_sharded_to_host,
+        )
+
+        if version not in self._params:
+            directory = os.path.join(self._dir, "ckpt_v%d" % version)
+            self._params[version] = (
+                load_sharded_to_host(directory, prefix="params/")[1]
+                if os.path.isdir(directory) else None)
+        return self._params[version]
+
+    def forward(self, version, tokens):
+        """The whole LM's logits on the card from ckpt_v{version}."""
+        import numpy as np
+
+        from elasticdl_tpu_torch.model_zoo.transformer_lm import (
+            transformer_lm as zoo,
+        )
+        from elasticdl_tpu_torch.parallel.trainer import (
+            place_module,
+            to_device,
+        )
+        from elasticdl_tpu_torch.training.step import make_forward_fn
+
+        torch = self._torch
+        if self._forward is None:
+            with torch.device("meta"):
+                model = zoo.custom_model(**ELASTIC_TP_CFG)
+            place_module(model, DEVICE)
+            self._forward = make_forward_fn(model)
+        params = to_device({k[len("params/"):]: v for k, v in
+                            self.params(version).items()}, DEVICE)
+        return self._forward(params, {}, {"tokens": torch.as_tensor(
+            np.asarray(tokens, np.int64)).to(DEVICE)})
+
+
+def _run_elastic_tp_job(argv, timeline, ckpt_dir):
+    """``cli.main(argv)``, the master in a thread of this process, worker
+    1 SIGKILLed once both ranks' ckpt_v{ELASTIC_TP_KILL_AT} manifests are
+    on disk. Returns (exit code, the job, successful task ids, the
+    kill's wall time and the master's version then)."""
+    import glob
+
+    from elasticdl_tpu_torch import cli
+
+    os.environ["EDL_WORKER_TIMELINE_DIR"] = timeline
+    jobs, rc, errors = [], [], []
+
+    def run():
+        try:
+            rc.append(cli.main(argv, jobs=jobs))
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    runner = threading.Thread(target=run, daemon=True)
+    runner.start()
+    while not jobs and runner.is_alive():
+        time.sleep(0.01)
+    if not jobs:
+        raise PhaseError("elastic_tp: the job did not start: %s" % errors)
+    master = jobs[0].master
+    done = []
+    report = master.task_d.report
+
+    def counting(task_id, success, exec_counters=None):
+        if success:
+            done.append(task_id)
+        return report(task_id, success, exec_counters)
+
+    master.task_d.report = counting
+    deadline = time.time() + ELASTIC_TP_LIMIT_S
+    manifests = os.path.join(ckpt_dir, "ckpt_v%d" % ELASTIC_TP_KILL_AT,
+                             "manifest-*.json")
+    while (len(glob.glob(manifests)) < 2 and runner.is_alive()
+           and time.time() < deadline):
+        time.sleep(0.005)
+    killed = (time.time(), master.master_servicer.get_model_version())
+    master.instance_manager.kill_worker(1)
+    runner.join(max(1.0, deadline - time.time()))
+    if runner.is_alive():
+        master.request_stop()
+        runner.join(30)
+        raise PhaseError("elastic_tp: the job ran past %d s"
+                         % ELASTIC_TP_LIMIT_S)
+    if errors:
+        raise PhaseError("elastic_tp: the job raised %r" % errors[0])
+    return rc[0], jobs[0], done, killed
+
+
+def _tp_staging_share(steps, key="copy_s"):
+    """Median over a rank's live steps of the host staging's seconds
+    (``copy_s``: the copies of the exchanges staged through the host;
+    ``exchange_s``: the exchanges between the host buffers) over the
+    host clock's step period."""
+    shares = [b["staging"][key] / (b["t"] - a["t"])
+              for a, b in zip(steps, steps[1:])
+              if b.get("staging") and b["t"] > a["t"]]
+    return _median(shares)
+
+
+def phase_elastic_tp(torch, tmp, card):
+    """transformer_lm's tensor-parallel shards on the elastic plane,
+    through the port's command line: ``cli train --num_workers 3`` of the
+    LM at ELASTIC_TP_CFG with ``tensor_parallel=2``, the master in this
+    process and three worker processes on the card over gloo,
+    ``--replica_refresh_steps 0``, a checkpoint every
+    ELASTIC_TP_CKPT_STEPS versions (all kept) and an evaluation round
+    every ELASTIC_TP_EVAL_STEPS. The layout solver's budget
+    (``EDL_LAYOUT_MEM_BUDGET_MB``, below the whole model's state) makes
+    every world of two data 1 x model 2. The first world forms of
+    workers 0 and 1, worker 2 parks as a spare and hands its fetched
+    tasks back; worker 1 is SIGKILLed once both ranks' ckpt_v4 manifests
+    are on disk, the spare is promoted and the world re-forms at 2.
+
+    Checks: each rank's parts after the re-form bitwise the restored
+    checkpoint's, at its version; every task done once (none twice);
+    each round whose scored version has a checkpoint within
+    ELASTIC_TP_REL_L2 relative L2 of that checkpoint's whole-model
+    forward on the card; each rank's final parts bitwise the newest
+    checkpoint's; the SAVE_MODEL export's member within REPLY_ATOL of the
+    whole model; no flash launch (64-token records: the plain attention)
+    and no process left. Returns the launches by path."""
+    import glob
+
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.export import load_export
+
+    problems = []
+    torch.cuda.empty_cache()
+    root = os.path.join(tmp, "elastic-tp")
+    zoo_dir = os.path.join(root, "zoo", "lm_tp")
+    os.makedirs(zoo_dir)
+    with open(os.path.join(zoo_dir, "lm_tp.py"), "w") as f:
+        f.write(ELASTIC_TP_ZOO)
+    t0 = time.perf_counter()
+    write_lm_records(os.path.join(root, "data"), ELASTIC_TP_RECORDS, SEED)
+    val_tokens = write_lm_records(os.path.join(root, "val"),
+                                  ELASTIC_TP_VAL_RECORDS, SEED + 1)
+    write_s = time.perf_counter() - t0
+    budget_mb, profile = _tp_budget_mb()
+    ckpt_dir = os.path.join(root, "ckpt")
+    argv = [
+        "train", "--job_name", "chip-smoke-elastic-tp",
+        "--distribution_strategy", "AllreduceStrategy",
+        "--num_workers", str(ELASTIC_TP_WORKERS),
+        "--model_zoo", os.path.join(root, "zoo"),
+        "--model_def", "lm_tp.lm_tp.custom_model",
+        "--model_params", _tp_params(),
+        "--training_data", os.path.join(root, "data"),
+        "--validation_data", os.path.join(root, "val"),
+        "--evaluation_steps", str(ELASTIC_TP_EVAL_STEPS),
+        "--minibatch_size", str(ELASTIC_TP_BATCH),
+        "--num_minibatches_per_task", "1", "--num_epochs", "1",
+        "--checkpoint_dir", ckpt_dir,
+        "--checkpoint_steps", str(ELASTIC_TP_CKPT_STEPS),
+        "--keep_checkpoint_max", "0", "--replica_refresh_steps", "0",
+        "--output", os.path.join(root, "export"),
+        "--restart_policy", "Never", "--device", DEVICE,
+        "--log_level", "WARNING",
+    ]
+    old_budget = os.environ.get("EDL_LAYOUT_MEM_BUDGET_MB")
+    os.environ["EDL_LAYOUT_MEM_BUDGET_MB"] = repr(budget_mb)
+    t0, wall0 = time.perf_counter(), time.time()
+    try:
+        with _EvalReports() as spy:
+            rc, job, done, (killed_t, killed_v) = _run_elastic_tp_job(
+                argv, os.path.join(root, "timeline"), ckpt_dir)
+    finally:
+        if old_budget is None:
+            os.environ.pop("EDL_LAYOUT_MEM_BUDGET_MB", None)
+        else:
+            os.environ["EDL_LAYOUT_MEM_BUDGET_MB"] = old_budget
+    job_s = time.perf_counter() - t0
+    wall1 = time.time()
+    events = _timeline_events(os.path.join(root, "timeline"))
+    _note_worker_exports(events)
+    manager = job.master.instance_manager
+    if rc != 0:
+        problems.append("exit code %s" % rc)
+    if not job.master.task_d.finished():
+        problems.append("the dispatcher has tasks left")
+    exits = {str(k): v for k, v in manager.exit_codes.items()}
+    if exits != {"0": 0, "1": -9, "2": 0}:
+        problems.append("worker exits %s" % exits)
+    published = job.master.evaluation_service.published
+    training_tasks = ELASTIC_TP_RECORDS // ELASTIC_TP_BATCH
+    want_done = training_tasks + 1 + len(published)
+    dup = len(done) - len(set(done))
+    if len(set(done)) != want_done or dup:
+        problems.append("%d task completions (%d twice), expected %d once"
+                        % (len(done), dup, want_done))
+    alive = [p for p in _descendants() if not _own_tracker(p)]
+    if alive:
+        problems.append("processes alive after the job: %s" % alive)
+    # the spare: parked, its fetched tasks handed back, then promoted
+    spare = events.get(2, [])
+    kinds = [e["event"] for e in spare]
+    if "spare" not in kinds or "established" not in kinds or (
+            kinds.index("spare") > kinds.index("established")):
+        problems.append("worker 2 did not park as a spare before it joined:"
+                        " %s" % kinds)
+    first = [e for w in (0, 1) for e in _of(events.get(w, []),
+                                             "established")
+             if e["t"] < killed_t]
+    reformed = [e for w in (0, 2) for e in _of(events.get(w, []),
+                                                "established")
+                if e["t"] >= killed_t]
+    for e in first + reformed:
+        if e["mesh"] != {"data": 1, "model": 2}:
+            problems.append("world %d laid out %s" % (e["epoch"], e["mesh"]))
+    ckpts = _TpCheckpoints(torch, ckpt_dir)
+    checks_s = {}
+    t0 = time.perf_counter()
+    restore = {}
+    if sorted(e["rank"] for e in reformed) != [0, 1]:
+        problems.append("the re-formed world's ranks: %s"
+                        % [(e["rank"], e["epoch"]) for e in reformed])
+    else:
+        directory = reformed[0]["restored_from"]
+        version = int(os.path.basename(directory)[len("ckpt_v"):])
+        bitwise = all(
+            e["restored_from"] == directory
+            and e["restored_version"] == version
+            and e["digest"] == _tp_digest(ckpts.params(version), e["rank"],
+                                          e["mesh"])
+            for e in reformed)
+        if version < ELASTIC_TP_KILL_AT or not bitwise:
+            problems.append("the re-formed world restored %s, bitwise %s"
+                            % (directory, bitwise))
+        if any(e["version"] < version for e in reformed):
+            problems.append("the version clock went back from v%d: %s"
+                            % (version, [e["version"] for e in reformed]))
+        reepoch = reformed[0]["epoch"]
+        lead = [w for w in (0, 2) for e in _of(events.get(w, []),
+                                                "established")
+                if e["epoch"] == reepoch and e["rank"] == 0][0]
+        after = [s for s in _of(events[lead], "step")
+                 if s["epoch"] == reepoch]
+        restore = {
+            "restored_from": os.path.basename(directory),
+            "restored_version": version,
+            "version_after_reform": reformed[0]["version"],
+            "bitwise": bitwise,
+            "killed_at_master_version": killed_v,
+            "establish": {str(e["rank"]): {
+                k: v for k, v in e.items()
+                if k.endswith("_s") and isinstance(v, float)}
+                for e in reformed},
+            "kill_to_first_step_s": (after[0]["t"] - killed_t
+                                     if after else None),
+        }
+    checks_s["restore"] = time.perf_counter() - t0
+    # evaluation: each round whose scored version has a checkpoint
+    t0 = time.perf_counter()
+    rounds = []
+    for version, scored, out, labels in spy.reports:
+        rec = {"version": version, "scored_version": scored,
+               "rows": int(len(labels))}
+        if ckpts.params(scored) is not None:
+            want = ckpts.forward(scored, labels)
+            rec["rel_l2"] = _rel_l2(torch, torch.as_tensor(
+                np.asarray(out)).to(DEVICE), want)
+            if rec["rel_l2"] > ELASTIC_TP_REL_L2:
+                problems.append("round v%d: outputs %s from ckpt_v%d's "
+                                "whole-model forward"
+                                % (version, rec["rel_l2"], scored))
+        rounds.append(rec)
+    if not any("rel_l2" in r for r in rounds):
+        problems.append("no round scored a version that has a checkpoint")
+    if len(published) < 3:
+        problems.append("%d rounds published" % len(published))
+    checks_s["rounds"] = time.perf_counter() - t0
+    # the final state and the export
+    t0 = time.perf_counter()
+    final_v = max(int(os.path.basename(d)[len("ckpt_v"):])
+                  for d in glob.glob(os.path.join(ckpt_dir, "ckpt_v*")))
+    final_params = ckpts.params(final_v)
+    finals = {w: _of(events.get(w, []), "final") for w in (0, 2)}
+    final_ok = all(finals[w] for w in finals)
+    ranks = {w: [e for e in _of(events[w], "established")
+                 if e["t"] >= killed_t] for w in finals}
+    if final_ok:
+        final_ok = all(
+            finals[w][0]["version"] == final_v
+            and finals[w][0]["digest"] == _tp_digest(
+                final_params, ranks[w][-1]["rank"], ranks[w][-1]["mesh"])
+            for w in finals)
+    if not final_ok:
+        problems.append("final parts are not ckpt_v%d's" % final_v)
+    checks_s["final"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exports = glob.glob(os.path.join(root, "export", "*", "MANIFEST.json"))
+    export_rec = {}
+    if len(exports) != 1:
+        problems.append("%d export manifests" % len(exports))
+    else:
+        artifact = load_export(os.path.dirname(exports[0]))
+        served = artifact.serve({"tokens": val_tokens.astype(np.int32)},
+                                DEVICE).float()
+        whole = ckpts.forward(final_v, val_tokens).float()
+        err = float((served - whole).abs().max())
+        export_rec = {"version": artifact.manifest.get("model_version"),
+                      "serving_member": bool(
+                          artifact.manifest["artifacts"]["torch_serving_fn"]),
+                      "max_abs_err": err}
+        if err > REPLY_ATOL or not export_rec["serving_member"]:
+            problems.append("the export's member: %s" % export_rec)
+    checks_s["export"] = time.perf_counter() - t0
+    # records
+    whole_bytes = sum(t.numel() * t.element_size()
+                      for t in final_params.values())
+    share = {}
+    for rank in (0, 1):
+        part = _tp_rank_params(final_params, rank, {"data": 1, "model": 2})
+        share[str(rank)] = sum(t.numel() * t.element_size()
+                               for t in part.values()) / whole_bytes
+    first_epoch = min((e["epoch"] for e in first), default=None)
+    launches = {name: 0 for name in KERNELS}
+    for w, f in finals.items():
+        for e in f:
+            for name, n in e["launches"].items():
+                launches[name] += n
+    lead0 = [s for s in _of(events.get(0, []), "step")
+             if s["live"] > 0 and s["epoch"] == first_epoch]
+    steps_all = sorted(st["t"] for ev in events.values()
+                       for st in _of(ev, "step"))
+    # where the job's seconds go: each worker's boot to its first world,
+    # the steps before and after the kill, the tail after the last step
+    # (the final rounds, the export, the master's linger)
+    seconds = {
+        "boot_s": {str(w): _of(ev, "established")[0]["t"] - wall0
+                   for w, ev in sorted(events.items())
+                   if _of(ev, "established")},
+        "first_world_establish": {
+            str(e["rank"]): {k: v for k, v in e.items()
+                             if k.endswith("_s") and isinstance(v, float)}
+            for e in first},
+        "first_step_s": steps_all[0] - wall0 if steps_all else None,
+        "steps_before_kill_s": (killed_t - lead0[0]["t"]) if lead0 else None,
+        "last_step_to_job_end_s": wall1 - steps_all[-1] if steps_all
+        else None,
+        "spare_warm_s": [e.get("warmed") for e in _of(spare, "spare")],
+        "export_s": [e["seconds"] for ev in events.values()
+                     for e in _of(ev, "export")],
+    }
+    rec = {
+        "phase": "elastic_tp",
+        "card": card,
+        "model": "transformer_lm %s, tensor_parallel=2 (bf16 compute, "
+                 "params float32)" % ELASTIC_TP_CFG,
+        "workers": ELASTIC_TP_WORKERS,
+        "records": ELASTIC_TP_RECORDS,
+        "batch_per_rank": ELASTIC_TP_BATCH,
+        "tokens_per_record": 64,
+        "budget_mb": budget_mb,
+        "profile": profile.__dict__,
+        "write_records_s": write_s,
+        "job_s": job_s,
+        "job_seconds": seconds,
+        "checks_s": checks_s,
+        "exit_codes": exits,
+        "tasks_done": len(done),
+        "tasks_done_twice": dup,
+        "rounds": rounds,
+        "restore": restore,
+        "final_version": final_v,
+        "final_parts_bitwise": final_ok,
+        "export": export_rec,
+        "param_bytes_share_by_rank": share,
+        "peak_mib_by_worker": {str(w): f[0].get("peak_mib")
+                               for w, f in finals.items() if f},
+        "tokens_per_s_before_kill": (
+            _examples_per_s(events, first_epoch) or 0.0) * 64
+        if first_epoch is not None else None,
+        "tokens_per_s_after_kill": (
+            (_examples_per_s(events, reformed[0]["epoch"]) or 0.0) * 64
+            if reformed else None),
+        "host_staging_share_of_step": _tp_staging_share(lead0),
+        "host_exchange_share_of_step": _tp_staging_share(lead0,
+                                                         "exchange_s"),
+        "step_period_ms": 1e3 * (_median([b["t"] - a["t"] for a, b in
+                                          zip(lead0, lead0[1:])]) or 0.0),
+        "staging_bytes_per_step": _median(
+            [s["staging"]["staged_bytes"] for s in lead0
+             if s.get("staging")]),
+        "flash_launches": launches,
+    }
+    emit(rec)
+    if problems:
+        raise PhaseError("elastic_tp: %s" % "; ".join(problems))
+    return {"elastic_tp": {name: (n, []) for name, n in launches.items()}}
+
+
+def _elastic_tp_only(torch):
+    try:
+        card = phase_device(torch)
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = _run_phase("elastic_tp", phase_elastic_tp, torch, tmp,
+                               card)
+        for path, counts in paths.items():
+            _check_counts(counts, {k: 0 for k in KERNELS}, path)
+    except Exception as err:  # noqa: BLE001 — reported, exit non-zero
+        import traceback
+
+        traceback.print_exc()
+        print("chip_smoke: FAILED: %s" % err, file=sys.stderr)
+        return 1
+    emit(timing_record())
+    print(card)
+    return 0
+
+
 def kernels_line(records, paths):
     """The contract line: each kernel with its launches summed over the
     main paths (``paths``: {path: counts}), at the shape those paths
@@ -10147,6 +10728,13 @@ def main(argv=None):
         help="drive only the elastic phase and print its records, not the "
         "result line: on a host with a card for each of its workers, they "
         "form an NCCL world",
+    )
+    parser.add_argument(
+        "--elastic-tp-only",
+        action="store_true",
+        help="drive only the elastic_tp phase (transformer_lm's "
+        "tensor-parallel shards on the elastic plane) and print its "
+        "records, not the result line",
     )
     parser.add_argument(
         "--zoo-only",
@@ -10290,6 +10878,8 @@ def _main(torch, args, order, f1_order):
         return _moe_ring_only(torch, "ring")
     if args.elastic_only:
         return _elastic_only(torch)
+    if args.elastic_tp_only:
+        return _elastic_tp_only(torch)
     if args.zoo_only:
         return _zoo_only(torch)
     if args.ps_only:
@@ -10377,7 +10967,15 @@ def _main(torch, args, order, f1_order):
                 k: (n + here[k][0], here[k][1])
                 for k, (n, _) in elastic["elastic"].items()
             }
-        for path, counts in elastic.items():
+            _reset_counters()
+            elastic_tp = _run_phase("elastic_tp", phase_elastic_tp, torch,
+                                    tmp, card)
+            here = _counts()
+            elastic_tp["elastic_tp"] = {
+                k: (n + here[k][0], here[k][1])
+                for k, (n, _) in elastic_tp["elastic_tp"].items()
+            }
+        for path, counts in dict(elastic, **elastic_tp).items():
             _check_counts(counts, {k: 0 for k in KERNELS}, path)
         _check_no_leaked_segments(segments_before)
         line = kernels_line(
@@ -10387,7 +10985,7 @@ def _main(torch, args, order, f1_order):
                   "ps_fleet": ps_fleet, "ps_tiers": ps_tiers,
                   "ps_hybrid": ps_hybrid, "ps_serve": ps_serve,
                   "wire": wire},
-                 **moe, **ring, **elastic),
+                 **moe, **ring, **elastic, **elastic_tp),
         )
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback

@@ -252,6 +252,35 @@ def to_named(state_dict, num_heads=None, head_dim=None, keep_device=False):
     return named
 
 
+def reference_layouts(keys):
+    """{state_dict key: (reference path, layout)} of ``keys``: the names
+    and layouts of :func:`to_named`, without the tensors."""
+    keys = list(keys)
+    rules = _rules(keys, 1) if keys else ()
+    out = {}
+    for key in keys:
+        (_, _, ref, _, layout), fields = _match(rules, key, 1)
+        out[key] = (ref.format(**fields), layout)
+    return out
+
+
+def to_reference_spec(spec, layout, ndim):
+    """A partition spec of a ``state_dict`` tensor of ``ndim`` dims ->
+    the spec of the reference's kernel, one entry per dim (the head
+    axis of a flattened head dim carries its split)."""
+    entries = tuple(spec or ())
+    entries += (None,) * (ndim - len(entries))
+    if layout == "heads_out":
+        return (entries[1], entries[0], None)
+    if layout == "heads_in":
+        return (entries[1], None, entries[0])
+    if layout == "dense":
+        return entries[::-1]
+    if layout == "conv":
+        return (entries[2], entries[3], entries[1], entries[0])
+    return entries
+
+
 def shard_state_dict(state_dict, specs, mesh):
     """{state_dict key: whole tensor} -> this rank's parts on ``mesh``
     (a ``parallel/mesh.WorldMesh``): ``specs`` is the nested or flat

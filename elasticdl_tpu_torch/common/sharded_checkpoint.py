@@ -264,14 +264,17 @@ class _LeafReader:
         return _to_tensor(out, entry["dtype"])
 
 
-def load_sharded_to_host(directory, parts=None):
+def load_sharded_to_host(directory, parts=None, prefix=""):
     """(version, {path: CPU tensor}) of a checkpoint directory: every
     leaf whole, or the part ``parts[path]`` (a slice per dim) of a leaf
-    that ``parts`` names."""
+    that ``parts`` names; with ``prefix`` (``"params/"``), only the
+    leaves whose path starts with it."""
     version, leaves = _merged_manifest(directory)
     parts = parts or {}
     out = {}
     for path, entry in leaves.items():
+        if not path.startswith(prefix):
+            continue
         index = parts.get(path) or tuple(slice(0, d) for d in entry["shape"])
         out[path] = _LeafReader(directory, entry).read(index)
     return version, out
@@ -352,16 +355,21 @@ class ShardedCheckpointManager:
                 os.remove(f)
             os.rmdir(victim_dir)
 
-    def save(self, train_state, version):
+    def save(self, train_state, version, parts=None):
         """Write ``train_state`` (a port TrainState) as version
-        ``version``; returns the directory. Asynchronously, it returns
-        once the snapshot is on the host."""
+        ``version``; returns the directory. ``parts`` (``(leaves,
+        layout, process index)``, a sharded trainer's
+        ``checkpoint_parts()``) writes this process's parts instead.
+        Asynchronously, it returns once the snapshot is on the host."""
         directory = self._dir_for(version)
-        leaves = train_state_leaves(train_state)
+        if parts is None:
+            leaves, layout, pid = train_state_leaves(train_state), None, None
+        else:
+            leaves, layout, pid = parts
         expected = self._expected_writers
         if self._async is None:
             t0 = time.perf_counter()
-            save_sharded(directory, leaves, version)
+            save_sharded(directory, leaves, version, pid, layout)
             self.write_seconds[version] = time.perf_counter() - t0
             if self._keep_max:
                 self._evict(expected)
@@ -370,7 +378,7 @@ class ShardedCheckpointManager:
 
         def write():
             t0 = time.perf_counter()
-            write_snapshot(directory, snap, version)
+            write_snapshot(directory, snap, version, pid, layout)
             self.write_seconds[version] = time.perf_counter() - t0
             if self._keep_max:
                 self._evict(expected)

@@ -181,6 +181,52 @@ def refuse_unported_planes(args):
         )
 
 
+def world_size_multiple(args):
+    """The multiple every formed world rounds down to, the overflow
+    members staying live as spares (the reference's derivation): a
+    pipelined or tensor-parallel model needs worlds whose process count
+    divides its stages or its ``model`` axis, from ``--model_params``
+    (``pipeline_stages``, ``tensor_parallel`` and its solver floor
+    ``min_tensor_parallel``), one device per worker process, and only
+    with more than one worker; ``EDL_WORLD_SIZE_MULTIPLE`` overrides.
+    A multiple larger than ``--num_workers`` (every world would round
+    down to 0) raises ValueError."""
+    from elasticdl_tpu_torch.common.model_utils import (
+        get_dict_from_params_str,
+    )
+
+    stages = 0
+    tp = 0
+    try:
+        mp = get_dict_from_params_str(
+            getattr(args, "model_params", "") or ""
+        ) or {}
+        stages = int(mp.get("pipeline_stages", 0) or 0)
+        tp = int(mp.get("tensor_parallel", 0) or 0)
+        tp = max(tp, int(mp.get("min_tensor_parallel", 0) or 0))
+    except (TypeError, ValueError):
+        pass
+    raw_workers = int(getattr(args, "num_workers", 0) or 0)
+    need = max(stages, tp)
+    multiple = need if need > 1 and raw_workers > 1 else 1
+    env_multiple = os.environ.get("EDL_WORLD_SIZE_MULTIPLE")
+    if env_multiple:
+        multiple = max(1, int(env_multiple))
+    num_workers = max(1, raw_workers)
+    if multiple > num_workers:
+        raise ValueError(
+            "num_workers=%d cannot hold a world-size multiple "
+            "of %d (pipeline_stages=%d / tensor_parallel=%d "
+            "would round every world down to 0 processes). "
+            "Raise num_workers, lower the parallelism degree, "
+            "or — on multi-device hosts where it divides each "
+            "worker's devices — set EDL_WORLD_SIZE_MULTIPLE "
+            "to the true process multiple."
+            % (num_workers, multiple, stages, tp)
+        )
+    return multiple
+
+
 class Master:
     def __init__(self, args):
         self.args = args
@@ -314,8 +360,8 @@ class Master:
             MembershipService,
         )
 
-        # membership epochs of the elastic plane (the replicated plane
-        # needs no world-size multiple); the PS workers form no world
+        # membership epochs of the elastic plane; the PS workers form no
+        # world
         allreduce = (
             getattr(args, "distribution_strategy", "")
             == DistributionStrategy.ALLREDUCE
@@ -328,6 +374,7 @@ class Master:
             form_grace_secs=float(
                 os.environ.get("EDL_FORM_GRACE_SECS", "30")
             ),
+            world_size_multiple=world_size_multiple(args),
             journal=self.journal,
         )
         self.recovery = None  # what the journal's replay restored

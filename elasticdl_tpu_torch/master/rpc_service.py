@@ -177,16 +177,21 @@ class MasterRpcService:
         return {"accepted": accepted, "version": version}
 
     def get_comm_world(self, req):
-        """The membership poll of the elastic allreduce plane."""
+        """The membership poll of the elastic allreduce plane. A spare's
+        reply also says whether the job has finished (``job_finished``):
+        a parked spare holds no work, and exits once nothing is left."""
         if self._membership is None:
             return {"epoch": -1, "ready": False}
-        return self._membership.get_world(
+        reply = self._membership.get_world(
             req.get("worker_id", -1),
             req.get("host", "localhost"),
             awaiting=req.get("awaiting", True),
             world_size=int(req.get("world_size", 0) or 0),
             world_epoch=int(req.get("world_epoch", 0) or 0),
         )
+        if reply.get("spare"):
+            reply = dict(reply, job_finished=self._s.job_finished())
+        return reply
 
     def leave_comm_world(self, req):
         """A worker's announced leave (a drain, or its clean end): bump

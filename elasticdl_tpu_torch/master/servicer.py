@@ -539,6 +539,11 @@ class MasterServicer:
     def get_model_version(self):
         return self._version
 
+    def job_finished(self):
+        """True once the dispatcher has nothing left to hand out or to
+        finish (``TaskDispatcher.job_done``)."""
+        return self._task_d.job_done()
+
     def restore_version(self, version):
         """Resume a version clock (never moves it back): a relaunched
         master's journaled version."""

@@ -618,6 +618,18 @@ class TaskDispatcher:
                 not self._todo and not self._eval_todo and not self._doing
             )
 
+    def job_done(self):
+        """True once the job has nothing left: no task queued or in
+        flight, no training epoch to roll over, and no deferred callback
+        (the SAVE_MODEL task) still to invoke."""
+        with self._lock:
+            return (
+                not self._todo and not self._eval_todo and not self._doing
+                and not self._tasks_done_deferred_callbacks
+                and not (self._training_shards and (
+                    self._streaming or self._epoch < self._num_epochs - 1))
+            )
+
     def recover_tasks(self, worker_id):
         """Queue again all in-flight tasks of a dead worker."""
         with self._lock:

@@ -34,14 +34,53 @@ afterwards, which equals the reference's scaling of each contribution by
 ``w / Σw``. Integer state leaves keep the rank's own values. With no live
 rank the step changes nothing: no update, no version.
 
-The reference's sharded, pjit and pipelined planes (mirrors, the layout
-solver, the compile plane) are not ported; neither are deferred loss
-fetches: every step ends in a host read of its live count.
+**The pjit dense plane** (a configuration whose ``param_shardings``
+split the dense model over a ``model`` axis: the LM's tensor
+parallelism). A ``distributed_builder`` hook (``mesh -> (module,
+param_specs)``) makes the trainer sharded. Each establish lays the world
+out as ``{"data": D, "model": T}`` (the layout solver's pick,
+``parallel/layout_solver.py``, from a model profile that every process
+derives alike; the zoo's ``mesh_axes`` before a profile exists), builds
+this rank's part of the model on that ``WorldMesh``, refuses what the
+reference refuses (``accum_steps > 1``, an optimizer that couples
+leaves, split dims that do not divide the world, the replica plane on a
+leaf split past dim 0; the messages name the reference's flax paths),
+and restores the newest checkpoint whose parts every rank can read
+(each rank reads only its own parts, whatever split wrote them),
+falling back through older ones, else re-initializes from the seed. A
+dead rank's parts are gone with it, so the sharded state is never
+broadcast: the workers checkpoint at every pause, and every re-form
+restores.
+
+The weighted step there is the reference's ``make_pjit_train_step`` made
+explicit. Each process's rows are one block of the global batch; the
+``model`` ranks of a data group gather their blocks (and weights) and
+run the tensor-parallel forward on the group's rows, so each block's
+loss (vocabulary-parallel cross entropy, ``parallel/spmd.py``) is
+weighted by its process's ``w`` inside the differentiated function.
+The gradients, the weighted loss, ``w`` and ``w > 0`` then ride one flat
+SUM over ``data`` (never over ``model``: a split parameter's gradient is
+its part's, a replicated one's is already whole and bitwise the same on
+every ``model`` rank), the epochs one MAX over the world, and the sums
+are divided by ``max(Σw, 1e-6)``. With no live process the state and
+the version stand still. Evaluation is in-plane: every rank takes part
+in every tensor-parallel forward (:meth:`eval_step`), ranks without
+work feeding their last rows until :meth:`eval_have_consensus` reads 0.
+
+Not ported (each raising ``NotImplementedError`` where it would be
+reached, ROADMAP A9.2): the collective plane (sharded parameters that
+do not split over ``model``: HBM tables, stacked pipeline stages), the
+in-memory replica plane (``ShardMirror``, the mirror refresh and
+assembly), ``PadDim0`` padding, the same-backend relayout (one process
+holding several devices) and the compile plane. Every step ends in a
+host read of its live count: no deferred loss fetches.
 """
 
 import hashlib
+import os
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -51,7 +90,8 @@ from elasticdl_tpu_torch.common.sharded_checkpoint import (
     train_state_leaves,
 )
 from elasticdl_tpu_torch.data.dataset import tree_map
-from elasticdl_tpu_torch.parallel import distributed
+from elasticdl_tpu_torch.parallel import distributed, layout_solver
+from elasticdl_tpu_torch.parallel.mesh import PadDim0, spec_axes
 from elasticdl_tpu_torch.parallel.trainer import (
     AllReduceTrainer,
     place_module,
@@ -62,6 +102,7 @@ from elasticdl_tpu_torch.training.step import (
     _apply,
     _loss_and_grads,
     accumulate_gradients,
+    aux_loss_total,
     fold_in,
     make_remat_forward,
 )
@@ -81,8 +122,6 @@ _RESIZE_PAUSE = profiling.metrics.histogram(
 
 def _pad_rows(x, rows):
     """``x`` cut or padded to ``rows`` rows, the last row repeated."""
-    import numpy as np
-
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.array(x))
     short = rows - x.shape[0]
@@ -123,8 +162,210 @@ def state_digest(ts):
     return h.hexdigest()
 
 
+# -- the sharded plane's specs, profile and refusals ---------------------------
+
+
+def collect_sharded_paths(param_specs):
+    """A nested ``param_specs`` dict -> {key path tuple: spec}; a
+    :class:`PadDim0` marker is unwrapped (:func:`collect_paddable_paths`
+    names the paths that carried one)."""
+    paths = {}
+
+    def walk(tree, prefix):
+        if hasattr(tree, "items"):
+            for key, sub in tree.items():
+                walk(sub, prefix + (key,))
+        else:
+            paths[prefix] = tree.spec if isinstance(tree, PadDim0) else tree
+
+    walk(param_specs or {}, ())
+    return paths
+
+
+def collect_paddable_paths(param_specs):
+    """The key paths whose spec was marked :class:`PadDim0`."""
+    paddable = set()
+
+    def walk(tree, prefix):
+        if hasattr(tree, "items"):
+            for key, sub in tree.items():
+                walk(sub, prefix + (key,))
+        elif isinstance(tree, PadDim0):
+            paddable.add(prefix)
+
+    walk(param_specs or {}, ())
+    return paddable
+
+
+def specs_use_axis(sharded_paths, axis):
+    """True when any collected spec splits over ``axis``: the pjit dense
+    plane is ``specs_use_axis(paths, "model")``."""
+    return any(
+        axis in spec_axes(spec) for spec in (sharded_paths or {}).values()
+    )
+
+
+def _path_spec(name, sharded_paths):
+    """The spec of the ``state_dict`` key ``name``: the longest key path
+    it ends with (a suffix spec covers every block's parameter)."""
+    parts = tuple(name.split("."))
+    best = None
+    for path, spec in sharded_paths.items():
+        if parts[-len(path):] == tuple(path) and (
+            best is None or len(path) > len(best[0])
+        ):
+            best = (path, spec)
+    return best[1] if best is not None else None
+
+
+# the torch optimizer's per-parameter slots under optax's names
+_OPTAX_SLOTS = {
+    "exp_avg": "mu", "exp_avg_sq": "nu", "momentum_buffer": "trace",
+}
+
+
+def _optimizer_slots(optimizer):
+    """(slots of a parameter's shape, whether a scalar step count) of the
+    torch optimizer the factory ``optimizer`` makes, by stepping it once
+    on a two-element parameter."""
+    p = torch.zeros(2, requires_grad=True)
+    opt = optimizer([p])
+    p.grad = torch.zeros(2)
+    opt.step()
+    state = opt.state[p]
+    shaped = sorted(k for k, v in state.items()
+                    if isinstance(v, torch.Tensor) and v.shape == p.shape)
+    counts = any(isinstance(v, torch.Tensor) and v.dim() == 0
+                 for v in state.values())
+    return shaped, counts
+
+
+def reference_state_leaves(module, param_specs, optimizer):
+    """The train state the reference's pjit plane holds for ``module``
+    (the whole model, on any device: only shapes are read) as ``[(path,
+    shape, item size, spec)]``, under the reference's flax paths and
+    layouts (``common/convert``): the parameters, optax's moments in
+    their parameter's layout and spec (``mu``/``nu``, ``trace``), one
+    int32 ``count`` for a step-counting optimizer, the model state and
+    the int32 ``version``: the reference's ``build_state_specs`` over its
+    abstract state, in one list. ``param_specs`` is the zoo's nested
+    ``param_shardings`` answer."""
+    from elasticdl_tpu_torch.common import convert
+
+    paths = collect_sharded_paths(param_specs)
+    params = dict(module.named_parameters())
+    names = convert.reference_layouts(params)
+    heads = (getattr(module, "num_heads", None),
+             getattr(module, "head_dim", None))
+    meta = {k: torch.empty(p.shape, device="meta") for k, p in params.items()}
+    shapes = {k: tuple(v.shape) for k, v in convert.to_named(
+        meta, *heads, keep_device=True).items()}
+    leaves, slot_leaves = [], []
+    shaped, counts = _optimizer_slots(optimizer)
+    for key, p in params.items():
+        ref, layout = names[key]
+        shape = shapes[ref]
+        spec = convert.to_reference_spec(
+            _path_spec(key, paths), layout, p.dim()
+        )
+        size = p.element_size()
+        leaves.append(("params/" + ref, shape, size, spec))
+        for slot in shaped:
+            slot_leaves.append((
+                "opt_state/%s/%s" % (_OPTAX_SLOTS.get(slot, slot), ref),
+                shape, size, spec,
+            ))
+    if counts:
+        leaves.append(("opt_state/count", (), 4, ()))
+    leaves += slot_leaves
+    buffers = {k: torch.empty(b.shape, dtype=b.dtype, device="meta")
+               for k, b in module.named_buffers()}
+    for ref, b in (convert.to_named(buffers, keep_device=True).items()
+                   if buffers else ()):
+        leaves.append(("state/" + ref, tuple(b.shape), b.element_size(), ()))
+    leaves.append(("version", (), 4, ()))
+    return leaves
+
+
+def derive_model_profile(leaves):
+    """:class:`layout_solver.ModelProfile` of :func:`reference_state_
+    leaves`, the reference's ``derive_model_profile``: bytes of the
+    leaves split over ``model`` and of the rest, activation bytes per
+    row 4 x the sum of the split dims, 6 x the parameter count flops per
+    row, and the TP degrees every split dim admits. A function of the
+    model's structure alone, so every process derives the same."""
+    from elasticdl_tpu_torch.parallel.sharding import tp_degree_candidates
+
+    replicated_bytes = tp_bytes = 0.0
+    model_dims = []
+    for _, shape, itemsize, spec in leaves:
+        nbytes = float(np.prod(shape)) * itemsize
+        axes = tuple(spec or ())
+        if "model" in axes:
+            tp_bytes += nbytes
+            model_dims.append(int(shape[axes.index("model")]))
+        else:
+            replicated_bytes += nbytes
+    param_count = sum(
+        float(np.prod(shape)) for path, shape, _, _ in leaves
+        if path.startswith("params/")
+    )
+    return layout_solver.ModelProfile(
+        replicated_bytes=replicated_bytes,
+        tp_bytes=tp_bytes,
+        activation_bytes_per_row=4.0 * float(sum(model_dims)),
+        flops_per_row=6.0 * param_count,
+        tp_degrees=tp_degree_candidates(model_dims),
+    )
+
+
+def optimizer_couples_leaves(optimizer):
+    """Behavioural probe: does one leaf's update depend on another
+    leaf's gradient? Two leaves of ones take gradients (0.5, 0.5), then
+    (0.5, 64.0), each from a fresh optimizer; leaf a's update must not
+    move. A cross-leaf transform (a global-norm clip) folds each rank's
+    different parts into one scale and desynchronizes the replicated
+    parameters. An optimizer the probe cannot drive passes."""
+
+    def update_of_a(b_grad):
+        a = torch.ones(4, requires_grad=True)
+        b = torch.ones(4, requires_grad=True)
+        opt = optimizer([a, b])
+        a.grad = torch.full((4,), 0.5)
+        b.grad = torch.full((4,), b_grad)
+        opt.step()
+        return a.detach() - 1.0
+
+    try:
+        u1, u2 = update_of_a(0.5), update_of_a(64.0)
+    except Exception:
+        logger.warning(
+            "optimizer cross-leaf probe failed; skipping the sharded-"
+            "plane coupling check",
+            exc_info=True,
+        )
+        return False
+    return not np.allclose(u1.numpy(), u2.numpy(), rtol=1e-6, atol=1e-8)
+
+
+def _checkpoint_version(directory):
+    """N of a ``ckpt_v{N}`` directory path (0 for any other name)."""
+    import re
+
+    m = re.match(r"ckpt_v(\d+)$", os.path.basename(str(directory)))
+    return int(m.group(1)) if m else 0
+
+
+def _unported_plane(what):
+    return NotImplementedError(
+        "%s is not ported yet (ROADMAP A9.2: the collective plane)" % what
+    )
+
+
 class ElasticDPTrainer(AllReduceTrainer):
-    """One process's handle on the replicated elastic plane."""
+    """One process's handle on the elastic plane: replicated, or with a
+    ``distributed_builder`` the pjit dense plane (see the module's
+    text)."""
 
     def __init__(
         self,
@@ -136,7 +377,21 @@ class ElasticDPTrainer(AllReduceTrainer):
         accum_steps=1,
         remat=False,
         device="cuda",
+        distributed_builder=None,
+        restore_provider=None,
+        mesh_axes_fn=None,
+        layout_planner=None,
     ):
+        """``distributed_builder``: ``mesh -> (module, param_specs)``,
+        the zoo's hooks over a mesh (``mesh=None``: the whole model and
+        the probe's specs); the module may come as a zero-argument
+        callable, built once the establish checks have passed.
+        ``restore_provider``: ``() -> [checkpoint directory, newest
+        first]``, what a sharded establish restores from.
+        ``mesh_axes_fn``: ``n -> {axis: size} | None``, the zoo's
+        ``mesh_axes``; ``layout_planner`` (a :class:`layout_solver.
+        LayoutPlanner`) re-solves the layout of each world and falls
+        back to ``mesh_axes_fn`` before a profile exists."""
         super().__init__(
             module, loss_fn, optimizer, seed=seed, accum_steps=accum_steps,
             precision=precision, remat=remat, device=device,
@@ -144,7 +399,30 @@ class ElasticDPTrainer(AllReduceTrainer):
         self._loss_fn = loss_fn
         self._accum_steps = max(1, accum_steps)
         self._pol = get_policy(precision)
+        self._remat = remat
         self._forward = make_remat_forward(module, remat)
+        self._builder = distributed_builder
+        self._planner = layout_planner
+        if layout_planner is not None:
+            if layout_planner.fallback_axes_fn is None:
+                layout_planner.fallback_axes_fn = mesh_axes_fn
+            mesh_axes_fn = layout_planner.axes_for
+        self._mesh_axes_fn = mesh_axes_fn
+        self.restore_provider = restore_provider
+        self._sharded_paths = {}
+        self._pjit_dense = False
+        self._coupling_checked = False
+        self._whole = None  # (whole model on meta, probe specs)
+        self._mesh_shape = None  # {axis: size} of this world's mesh
+        # the in-memory replica plane's cadence (0: off); the worker
+        # sets it from --replica_refresh_steps
+        self.mirror_steps = 0
+        # the worker's fixed minibatch (the layout record's micro-batch
+        # when no plan names one)
+        self.default_minibatch_size = None
+        # host staging of the last sharded step's exchanges (collectives
+        # .staging: bytes, copy and exchange seconds)
+        self.last_staging = {}
         self._spec = None
         self.backend = None
         self._last_local = None  # (features, labels) for weight-0 steps
@@ -164,6 +442,18 @@ class ElasticDPTrainer(AllReduceTrainer):
     @property
     def has_state(self):
         return self._ts is not None
+
+    @property
+    def is_sharded(self):
+        """True when the parameters split over the world's mesh (a
+        ``distributed_builder`` was given)."""
+        return bool(self._sharded_paths) or self._builder is not None
+
+    @property
+    def mesh_shape(self):
+        """{axis: size} of this world's mesh (None before a sharded
+        establish)."""
+        return dict(self._mesh_shape) if self._mesh_shape else None
 
     # -- forming a world ----------------------------------------------------
 
@@ -272,51 +562,77 @@ class ElasticDPTrainer(AllReduceTrainer):
         )
 
     def establish(self, spec, example_batch=None):
-        """Join ``spec``'s world and adopt the state of its lowest rank
-        that has one. When nobody has state (the first world), every
-        rank initializes from the trainer's seed, identically, and rank
-        0's copy is broadcast all the same. Each establish emits the
-        ``resize_begin`` and ``resize_end`` events and observes
-        ``edl_resize_pause_seconds`` (its ``compile_phase`` label reads
-        ``none``: nothing is compiled here)."""
+        """Join ``spec``'s world and place the train state in it.
+
+        Replicated: adopt the state of the world's lowest rank that has
+        one. When nobody has state (the first world), every rank
+        initializes from the trainer's seed, identically, and rank 0's
+        copy is broadcast all the same. Sharded: lay the world's mesh
+        out, build this rank's part of the model and restore (see
+        :meth:`_establish_sharded`). Each establish emits the
+        ``resize_begin`` and ``resize_end`` events (on the sharded
+        plane with the old and new ``{"dp", "tp", "microbatch"}``) and
+        observes ``edl_resize_pause_seconds`` (its ``compile_phase``
+        label reads ``none``: nothing is compiled here)."""
         t0 = time.perf_counter()
+        old_layout = None
+        if self.is_sharded:
+            old_layout = self._layout_fields()
+            # the planner answers from the profile on every process,
+            # from the very first establish on (its optimizer probe is
+            # the process's first optimizer: torch imports its compile
+            # stack there)
+            self._maybe_derive_profile()
+        t_profile = time.perf_counter()
         profiling.events.emit(
             "resize_begin",
             epoch=spec.epoch,
             rank=spec.process_id,
             world_size=spec.num_processes,
+            **({"layout": old_layout} if self.is_sharded else {}),
         )
         self.backend = distributed.ensure_world(spec, self._device)
         self._spec = spec
         t_world = time.perf_counter()
-        source = self._replicated_source_rank()
-        t_source = time.perf_counter()
-        if source < 0:
-            if example_batch is None:
-                raise ValueError("the first establish() needs a batch")
-            self.init_from_batch(example_batch)
-            source = 0
-        elif self._ts is None:
-            self._ts = self._empty_state()
-        self._broadcast_state(source)
-        # source_s: the first collective of the world, so it holds the
-        # wait for the slowest member to arrive
-        self.establish_times = {
-            "world_s": t_world - t0,
-            "source_s": t_source - t_world,
-            "broadcast_s": time.perf_counter() - t_world,
-        }
+        if self.is_sharded:
+            source = -1
+            self._establish_sharded(example_batch)
+            self.establish_times = dict(
+                self.establish_times, profile_s=t_profile - t0,
+                world_s=t_world - t_profile,
+                establish_s=time.perf_counter() - t0,
+            )
+        else:
+            source = self._replicated_source_rank()
+            t_source = time.perf_counter()
+            if source < 0:
+                if example_batch is None:
+                    raise ValueError("the first establish() needs a batch")
+                self.init_from_batch(example_batch)
+                source = 0
+            elif self._ts is None:
+                self._ts = self._empty_state()
+            self._broadcast_state(source)
+            # source_s: the first collective of the world, so it holds
+            # the wait for the slowest member to arrive
+            self.establish_times = {
+                "world_s": t_world - t0,
+                "source_s": t_source - t_world,
+                "broadcast_s": time.perf_counter() - t_world,
+            }
         logger.info(
             "elastic plane established: epoch=%d rank=%d/%d backend=%s "
-            "source=%d version=%d (world %.2fs, broadcast %.2fs)",
+            "%s version=%d (%s)",
             spec.epoch,
             spec.process_id,
             spec.num_processes,
             self.backend,
-            source,
+            "mesh=%s" % self._mesh_shape if self.is_sharded
+            else "source=%d" % source,
             self.version,
-            self.establish_times["world_s"],
-            self.establish_times["broadcast_s"],
+            ", ".join("%s %.2fs" % (k, v) for k, v in
+                      self.establish_times.items()
+                      if isinstance(v, float)),
         )
         profiling.events.emit(
             "resize_end",
@@ -325,9 +641,300 @@ class ElasticDPTrainer(AllReduceTrainer):
             world_size=spec.num_processes,
             backend=self.backend,
             compile_phase="none",
-            **{k: round(v, 3) for k, v in self.establish_times.items()},
+            **({"resize_layout": {"old": old_layout,
+                                  "new": self._layout_fields()}}
+               if self.is_sharded else {}),
+            **{k: round(v, 3) for k, v in self.establish_times.items()
+               if isinstance(v, float)},
         )
         _RESIZE_PAUSE.observe(time.perf_counter() - t0, compile_phase="none")
+
+    # -- the sharded establish ----------------------------------------------
+
+    def _layout_fields(self):
+        """``{"dp", "tp", "microbatch"}`` of the current mesh (None
+        before a sharded establish): the ``resize_layout`` record."""
+        if self._mesh_shape is None:
+            return None
+        mb = None
+        if self._planner is not None and self._planner.last_plan is not None:
+            mb = int(self._planner.last_plan.layout.microbatch)
+        elif self.default_minibatch_size:
+            mb = int(self.default_minibatch_size)
+        size = int(np.prod(list(self._mesh_shape.values())))
+        return {
+            "dp": int(self._mesh_shape.get("data", size)),
+            "tp": int(self._mesh_shape.get("model", 1)),
+            "microbatch": mb,
+        }
+
+    def _whole_model(self):
+        """(the whole model, built on the meta device, and the probe's
+        specs): ``distributed_builder(None)``, made once."""
+        if self._whole is None:
+            with torch.device("meta"):
+                module, specs = self._builder(None)
+                if not isinstance(module, torch.nn.Module):
+                    module = module()
+            self._whole = (module, specs)
+        return self._whole
+
+    def _reference_leaves(self, param_specs):
+        """:func:`reference_state_leaves` of the whole model under
+        ``param_specs``."""
+        return reference_state_leaves(
+            self._whole_model()[0], param_specs, self._optimizer
+        )
+
+    def _maybe_derive_profile(self):
+        """Feed the layout planner its model profile before the first
+        mesh is laid out, from the whole model on the meta device and
+        the probe's specs: a function of the model's structure, so a
+        fresh joiner solves exactly as a survivor does."""
+        planner = self._planner
+        if planner is None or planner.profile is not None:
+            return
+        if self._builder is None:
+            return
+        try:
+            specs = self._whole_model()[1]
+            if not specs_use_axis(collect_sharded_paths(specs), "model"):
+                return
+            planner.set_profile(
+                derive_model_profile(self._reference_leaves(specs))
+            )
+        except Exception:
+            logger.warning(
+                "layout-planner profile derivation failed; the static "
+                "mesh_axes fallback stays in effect",
+                exc_info=True,
+            )
+
+    def _world_mesh_for(self, n_devices):
+        """The mesh shape ({axis: size}, insertion order the axis order)
+        of a world of ``n_devices`` processes, one device each: the
+        layout hook's answer (the planner's), else one ``data`` axis;
+        None when that layout does not cover the world."""
+        n_devices = int(n_devices)
+        if n_devices <= 0:
+            return None
+        axes = self._mesh_axes_fn(n_devices) if self._mesh_axes_fn else None
+        if not axes:
+            return {"data": n_devices}
+        axes = {name: int(size) for name, size in axes.items()}
+        if int(np.prod(list(axes.values()))) != n_devices:
+            return None
+        return axes
+
+    def _check_optimizer_coupling(self):
+        """Refuse an optimizer that couples leaves on the sharded plane
+        (once per trainer), unless ``EDL_ALLOW_CROSS_LEAF_OPT`` is set."""
+        if self._coupling_checked or not self._sharded_paths:
+            return
+        self._coupling_checked = True
+        if not optimizer_couples_leaves(self._optimizer):
+            return
+        if os.environ.get("EDL_ALLOW_CROSS_LEAF_OPT"):
+            logger.warning(
+                "cross-leaf optimizer on the sharded plane allowed by "
+                "EDL_ALLOW_CROSS_LEAF_OPT=1; replicated parameters may "
+                "silently desynchronize"
+            )
+            return
+        raise ValueError(
+            "the optimizer couples gradients across leaves (e.g. "
+            "optax.clip_by_global_norm) but this job shards parameters "
+            "across ranks: each rank would fold its own DIFFERENT local "
+            "table-shard gradients into the coupled quantity and the "
+            "replicated parameters would silently desynchronize. Use "
+            "per-leaf transforms instead (e.g. optax.clip / "
+            "optax.adaptive_grad_clip), or set "
+            "EDL_ALLOW_CROSS_LEAF_OPT=1 if the coupling is known to "
+            "exclude the sharded leaves."
+        )
+
+    def mirror_enabled(self):
+        """True when the replica plane is asked for (a sharded job with
+        ``mirror_steps``); the same answer on every rank."""
+        return bool(self.mirror_steps) and self.is_sharded
+
+    def _check_shard_divisibility(self, leaves):
+        """Every split dim of a parameter (``leaves`` of
+        :func:`reference_state_leaves`, the reference's names) divides
+        its axis of this world's mesh, and with the replica plane on,
+        no parameter is split past dim 0; the reference's messages."""
+        problems, mirror_problems = [], []
+        params = sorted(
+            (path[len("params/"):], shape, spec)
+            for path, shape, _, spec in leaves if path.startswith("params/")
+        )
+        params.sort(key=lambda leaf: tuple(leaf[0].split("/")))
+        for path, shape, spec in params:
+            for dim, axis_name in enumerate(spec or ()):
+                if axis_name is None:
+                    continue
+                n = self._mesh_shape[axis_name]
+                if shape[dim] % n:
+                    problems.append(
+                        "%s: dim %d (=%d) %% %d devices != 0"
+                        % (path, dim, shape[dim], n)
+                    )
+                if dim != 0:
+                    mirror_problems.append(path)
+        if problems:
+            raise ValueError(
+                "sharded parameters do not divide the %d-device world: "
+                "%s. For row tables whose extra rows are inert "
+                "(embeddings), mark the spec PadDim0 in the zoo's "
+                "param_shardings and the elastic plane pads/reshards "
+                "automatically; otherwise pad the sharded dimension "
+                "(e.g. vocab_size) to a multiple of every world size "
+                "the job can shrink/grow to."
+                % (int(np.prod(list(self._mesh_shape.values()))),
+                   "; ".join(problems))
+            )
+        if mirror_problems and self.mirror_enabled():
+            raise ValueError(
+                "the replica plane (--replica_refresh_steps) supports "
+                "only leading-dim sharded parameters, but these leaves "
+                "shard a later dim: %s. Reshape so the sharded axis is "
+                "dim 0, or disable the mirror (replica_refresh_steps=0) "
+                "to fall back to checkpoint-based recovery."
+                % "; ".join(mirror_problems)
+            )
+
+    def _check_sharded_layout(self, param_specs):
+        """The establish refusals, in the reference's order, for the
+        specs of this world's mesh (``_mesh_shape``)."""
+        self._sharded_paths = collect_sharded_paths(param_specs)
+        if collect_paddable_paths(param_specs):
+            raise _unported_plane(
+                "PadDim0 (padding a split dim 0 to the world size)"
+            )
+        self._pjit_dense = specs_use_axis(self._sharded_paths, "model")
+        if not self._pjit_dense:
+            raise _unported_plane(
+                "training parameters split over %s without a 'model' "
+                "axis (the shard_map step make_elastic_train_step)"
+                % sorted({a for sp in self._sharded_paths.values()
+                          for a in spec_axes(sp)})
+            )
+        if self._accum_steps > 1:
+            raise ValueError(
+                "accum_steps > 1 is not supported on the pjit dense "
+                "plane yet: global-batch microbatching would regroup "
+                "rows across devices and change the weighted-step "
+                "semantics — use the replicated plane, or accum_steps=1"
+            )
+        self._check_optimizer_coupling()
+        self._check_shard_divisibility(self._reference_leaves(param_specs))
+        if self.mirror_enabled():
+            raise _unported_plane(
+                "the in-memory replica plane (ShardMirror, "
+                "refresh_mirror, _try_assemble_from_mirrors)"
+            )
+
+    def _world_min(self, flag):
+        """The MIN of an int over the world (the flag itself alone)."""
+        if self._spec.num_processes <= 1:
+            return int(flag)
+        t = self._small([int(flag)], torch.int64)
+        self._all_reduce(t, dist.ReduceOp.MIN)
+        return int(t.item())
+
+    def _establish_sharded(self, example_batch):
+        """Place the sharded state in this world: lay the mesh out (the
+        planner's ``{"data", "model"}`` for this world size), check the
+        layout, build this rank's part of the model on it, then restore
+        the newest checkpoint every rank can read its parts of, falling
+        back through older ones (a killed rank can leave the newest
+        torn), else initialize from the seed (deterministic, logged). A
+        restored or re-initialized version never falls below the newest
+        checkpoint's, so later saves number past a torn directory."""
+        from elasticdl_tpu_torch.parallel.mesh import WorldMesh, create_mesh
+        from elasticdl_tpu_torch.parallel.trainer import _check_placement
+
+        if example_batch is None and self._last_local is None:
+            raise ValueError("the first establish() needs a batch")
+        n = self._spec.num_processes
+        axes = self._world_mesh_for(n)
+        if axes is None:
+            raise ValueError(
+                "mesh_axes %r does not cover the %d-device world"
+                % (self._mesh_axes_fn(n), n)
+            )
+        self._mesh_shape = axes
+        was_live = self._host_step > 0
+        self._ts = None
+        t0 = time.perf_counter()
+        try:
+            # the axes' process groups: a rendezvous of every rank
+            mesh = create_mesh(axes, devices=[self._device])
+        except RuntimeError as e:
+            raise distributed.WorldBroken(
+                "the mesh of world epoch %d did not form: %s"
+                % (self._spec.epoch, e)
+            ) from e
+        t_mesh = time.perf_counter()
+        module, param_specs = self._builder(mesh)
+        self._check_sharded_layout(param_specs)
+        if not isinstance(module, torch.nn.Module):
+            with torch.device("meta"):
+                module = module()
+        place_module(module, self._device)
+        self._module = module
+        self._forward = make_remat_forward(module, self._remat)
+        self._split = _check_placement(
+            module, mesh, param_specs, self._device
+        )
+        self._mesh = mesh if isinstance(mesh, WorldMesh) else None
+        self._ts = self._empty_state()
+        t_build = time.perf_counter()
+        candidates = (
+            self.restore_provider() if self.restore_provider else None
+        ) or []
+        if isinstance(candidates, str):
+            candidates = [candidates]
+        floor = max(
+            (_checkpoint_version(d) for d in candidates), default=0
+        )
+        restored = None
+        for directory in candidates:
+            try:
+                read = self._read_sharded(directory)
+            except Exception:
+                read = None
+                logger.warning(
+                    "sharded checkpoint %s unrestorable onto this mesh",
+                    directory, exc_info=True,
+                )
+            # every rank must restore the same checkpoint
+            if self._world_min(read is not None):
+                restored = directory
+                self._adopt(*read)
+                break
+            logger.warning("checkpoint %s not restorable on every rank; "
+                           "trying older", directory)
+        if restored is None:
+            if was_live:
+                logger.warning(
+                    "membership change with sharded parameters and no "
+                    "restorable checkpoint: state RE-INITIALIZED "
+                    "(enable --checkpoint_steps to bound this loss)"
+                )
+            self.init_from_batch(example_batch)
+        else:
+            logger.info("sharded state restored at v%d from %s",
+                        self._ts.version, restored)
+        if floor > self._ts.version:
+            self._ts.version = floor
+        self.establish_times = {
+            "mesh_s": t_mesh - t0,
+            "build_s": t_build - t_mesh,
+            "restore_s": time.perf_counter() - t_build,
+            "restored_from": restored,
+            "restored_version": self._ts.version if restored else None,
+        }
 
     # -- the weighted step --------------------------------------------------
 
@@ -419,6 +1026,8 @@ class ElasticDPTrainer(AllReduceTrainer):
                 )
             local = self._last_local
             w = 0.0
+        if self.is_sharded:
+            return self._sharded_step(local, count, w, epoch_hint, pending)
         ts = self._ts
         self._host_step += 1
         # decorrelate stochastic layers (dropout) across the ranks
@@ -475,30 +1084,252 @@ class ElasticDPTrainer(AllReduceTrainer):
         self._marks = (self._host_step, (m0, m1, m2, self._mark()))
         return loss_sum / denom, live, count
 
+    # -- the pjit dense plane's step and evaluation ---------------------------
+
+    def _group_rows(self, tree):
+        """``tree`` (this process's padded rows) -> the data group's
+        rows: every ``model`` rank's block, in ``model`` order (the
+        reference's flattened device order of the global batch)."""
+        from elasticdl_tpu_torch.parallel import collectives
+        from elasticdl_tpu_torch.parallel.mesh import axis_of
+
+        model = axis_of(self._mesh, "model")
+        if model is None:
+            return tree
+        return tree_map(
+            lambda t: collectives.all_gather(t.contiguous(), model, 0), tree
+        )
+
+    def _block_losses(self, output, labels, blocks):
+        """(blocks,) float32: each block's mean loss (a block is one
+        process's rows). Over a ``model`` axis the output is this rank's
+        vocabulary part and the loss the next-token cross entropy of
+        ``spmd.vocab_parallel_ce``; otherwise the zoo's loss per
+        block."""
+        from elasticdl_tpu_torch.parallel import spmd
+        from elasticdl_tpu_torch.parallel.mesh import axis_of
+
+        model = axis_of(self._mesh, "model")
+        if model is None:
+            outs = torch.chunk(output, blocks)
+            labs = torch.chunk(torch.as_tensor(labels), blocks)
+            return torch.stack([
+                self._loss_fn(o, l).float() for o, l in zip(outs, labs)
+            ])
+        labels = torch.as_tensor(labels).to(output.device).long()
+        targets = torch.full_like(labels, spmd.IGNORE)
+        targets[:, :-1] = labels[:, 1:]
+        ce = spmd.vocab_parallel_ce(output, targets, model)
+        per_block = ce.reshape(blocks, -1).sum(dim=1)
+        rows, length = labels.shape[0] // blocks, labels.shape[1]
+        return per_block / float(rows * (length - 1))
+
+    def _sharded_step(self, local, count, w, epoch_hint, pending):
+        """:meth:`train_step` on the pjit dense plane (see the module's
+        text): returns (loss, live processes, this process's rows)."""
+        from elasticdl_tpu_torch.parallel import collectives
+        from elasticdl_tpu_torch.parallel.mesh import axis_of
+
+        ts = self._ts
+        self._host_step += 1
+        # one draw for the whole global batch, as the reference's
+        rng = fold_in(self._seed, self._host_step)
+        before = collectives.staging.snapshot()
+        m0 = self._mark()
+        try:
+            weights = self._group_rows(
+                torch.tensor([w], dtype=torch.float32, device=self._device)
+            )
+            features = self._group_rows(local[0])
+            labels = self._group_rows(local[1])
+            leaves = {
+                n: p.detach().requires_grad_(True)
+                for n, p in ts.params.items()
+            }
+            pol = self._pol
+            with torch.enable_grad():
+                p, f = leaves, features
+                if pol is not None:
+                    p = pol.cast_to_compute(p)
+                    f = pol.cast_to_compute(features)
+                output, new_state = self._forward(p, ts.state, f, rng)
+                if pol is not None:
+                    output = pol.cast_output(output)
+                blocks = self._block_losses(output, labels, weights.numel())
+                group_w = weights.sum()
+                # the weights ride the loss: the gradient of each block
+                # carries its process's weight from the start
+                weighted = (blocks * weights).sum()
+                total = weighted + group_w * aux_loss_total(new_state).to(
+                    weighted.device)
+                grads = torch.autograd.grad(
+                    total, list(leaves.values()), allow_unused=True
+                )
+            new_state = {k: v.detach() for k, v in (new_state or {}).items()}
+            floats = [n for n, v in new_state.items()
+                      if v.is_floating_point()]
+            grads = [
+                torch.zeros_like(leaves[n]) if g is None else g
+                for n, g in zip(leaves, grads)
+            ]
+            # one flat f32 buffer: grads | weighted loss | W*float state
+            # | W | live, W and live this data group's
+            sizes = [g.numel() for g in grads]
+            sizes += [1] + [new_state[n].numel() for n in floats] + [1, 1]
+            flat = torch.empty(sum(sizes), dtype=torch.float32,
+                               device=self._device)
+            parts = list(flat.split(sizes))
+            for part, g in zip(parts, grads):
+                part.copy_(g.reshape(-1))
+            k = len(grads)
+            parts[k].copy_(weighted.detach().reshape(1).float())
+            for part, n in zip(parts[k + 1:], floats):
+                torch.mul(new_state[n].reshape(-1).float(), group_w, out=part)
+            parts[-2].copy_(group_w.reshape(1))
+            parts[-1].copy_((weights > 0).sum().reshape(1).float())
+            epoch = self._small([int(epoch_hint), int(bool(pending))],
+                                torch.int64)
+            m1 = self._mark()
+            works = [dist.all_reduce(epoch, op=dist.ReduceOp.MAX,
+                                     async_op=True)]
+            data = axis_of(self._mesh, "data")
+            if data is not None:
+                works.append(dist.all_reduce(
+                    flat, op=dist.ReduceOp.SUM, group=data.group,
+                    async_op=True,
+                ))
+            if self._spec.num_processes > 1:
+                self._wait(works)
+        except distributed.WorldBroken:
+            raise
+        except RuntimeError as e:
+            # the model's collectives raise on a peer's death
+            raise distributed.WorldBroken(
+                "sharded step of world epoch %d failed: %s"
+                % (self._spec.epoch, e)
+            ) from e
+        m2 = self._mark()
+        tail = parts[-2].tolist() + parts[-1].tolist() + parts[k].tolist()
+        w_sum, live, loss_sum = tail
+        live = int(round(live))
+        denom = max(w_sum, 1e-6)
+        self.epoch_consensus, pending = epoch.tolist()
+        self.pending_consensus = bool(pending)
+        if live > 0:
+            ts.state = dict(new_state)
+            for part, n in zip(parts[k + 1:], floats):
+                ts.state[n] = (part / denom).reshape(
+                    new_state[n].shape
+                ).to(new_state[n].dtype)
+            _apply(
+                ts.opt_state,
+                ts.params,
+                {n: part.div_(denom).reshape(p.shape)
+                 for (n, p), part in zip(ts.params.items(), parts)},
+            )
+            ts.version += 1
+        self._timed = self._marks
+        self._marks = (self._host_step, (m0, m1, m2, self._mark()))
+        after = collectives.staging.snapshot()
+        self.last_staging = {
+            key: sum(after.get(kind, {}).get(key, 0)
+                     - before.get(kind, {}).get(key, 0) for kind in after)
+            for key in ("staged_bytes", "copy_s", "exchange_s")
+        }
+        return loss_sum / denom, live, count
+
+    def eval_have_consensus(self, have):
+        """The number of ranks with evaluation work pending (a world
+        SUM; every rank calls it at the same point)."""
+        flag = self._small([1 if have else 0], torch.int64)
+        if self._spec.num_processes > 1:
+            self._all_reduce(flag, dist.ReduceOp.SUM)
+        return int(flag.item())
+
+    def eval_step(self, features, minibatch_size):
+        """The inference forward of this process's evaluation rows on
+        the current parameters, in which every rank of the mesh takes
+        part; ``features=None`` feeds the last rows and its output is
+        to be dropped. Returns this process's padded rows of the output,
+        the whole vocabulary (the caller cuts its true rows)."""
+        from elasticdl_tpu_torch.parallel import collectives
+        from elasticdl_tpu_torch.parallel.mesh import axis_of
+        from elasticdl_tpu_torch.nn.model_api import apply_model
+
+        rows = self.local_rows(minibatch_size)
+        if features is None:
+            if self._last_local is None:
+                raise RuntimeError(
+                    "cannot run a dummy eval step before the first data "
+                    "step"
+                )
+            features = self._last_local[0]
+        pad = lambda x: _pad_rows(x, rows).to(self._device)  # noqa: E731
+        group = self._group_rows(tree_map(pad, features))
+        params, pol = self._ts.params, self._pol
+        with torch.no_grad():
+            if pol is not None:
+                params = pol.cast_to_compute(params)
+                group = pol.cast_to_compute(group)
+            output, _ = apply_model(
+                self._module, params, self._ts.state, group, training=False
+            )
+            if pol is not None:
+                output = pol.cast_output(output)
+        model = axis_of(self._mesh, "model")
+        if model is None:
+            return output
+        whole = collectives.all_gather(output.contiguous(), model, -1)
+        return whole[model.index * rows:(model.index + 1) * rows]
+
     # -- state on the host, checkpoints, leaving ----------------------------
 
     def snapshot(self):
         """The train state as owned host copies (the export's source), or
-        None before any state exists."""
-        return self.get_host_state() if self._ts is not None else None
+        None before any state exists. None on the sharded plane: a
+        process holds its parts alone, and the sharded checkpoints are
+        that plane's snapshots."""
+        if self.is_sharded or self._ts is None:
+            return None
+        return self.get_host_state()
 
     def host_params(self):
-        return self.snapshot().params
+        snap = self.snapshot()
+        return snap.params if snap is not None else None
 
     def load_host_state(self, host_ts):
         """Adopt a host train state (``snapshot()``'s form: the optimizer
-        state as its ``state_dict``, or the optimizer) before
-        establish."""
+        state as its ``state_dict``, or the optimizer) before establish.
+        A sharded trainer's state comes from its checkpoints
+        (``restore_provider``), as the reference's does."""
+        if self.is_sharded:
+            raise ValueError(
+                "a sharded trainer restores its state from sharded "
+                "checkpoints at establish (restore_provider)"
+            )
         opt = host_ts.opt_state
         if not isinstance(opt, dict):
             opt = opt.state_dict()
         self._adopt(host_ts.params, host_ts.state, opt, host_ts.version)
 
+    def checkpoint_parts(self):
+        """({path: tensor} this rank writes, {path: (global shape, its
+        slices)}, this rank's manifest index): what a sharded checkpoint
+        manager saves for this rank (``AllReduceTrainer.save_sharded``'s
+        layout)."""
+        mine, layout = self._leaf_layout(train_state_leaves(self._ts))
+        return mine, layout, self._spec.process_id
+
     def digest(self):
         return state_digest(self._ts)
 
     def leave(self):
-        """Leave the world at an epoch boundary; the state stays on the
-        device for the next one."""
+        """Leave the world at an epoch boundary. Replicated, the state
+        stays on the device for the next one; sharded, it is dropped (a
+        dead rank's parts are gone: the next establish restores the
+        checkpoint the pause wrote)."""
         distributed.leave_world()
         self._spec = None
+        if self.is_sharded:
+            self._ts = None
+            self._mesh = None

@@ -28,9 +28,10 @@ each rank's parts with their global index, so a checkpoint restores
 onto any other split of the same model.
 
 Not ported yet: more than one device in one process (``devices``), and
-``resize``, a membership change of the world, which is the elastic
-plane's world re-form (ROADMAP A9.2); both raise
-``NotImplementedError``.
+``resize`` of those devices in place (ROADMAP A9.2); both raise
+``NotImplementedError``. A membership change of a world of processes is
+the elastic plane's re-form (``parallel/elastic.py``), tensor-parallel
+worlds included.
 """
 
 import numpy as np
@@ -237,8 +238,9 @@ class AllReduceTrainer:
 
     def resize(self, devices):
         raise _not_ported(
-            "resize (a membership change of the world is the elastic "
-            "plane's world re-form, ROADMAP A9.2)"
+            "resize (the devices of one process re-laid out in place, "
+            "ROADMAP A9.2; a world of processes re-forms on the elastic "
+            "plane, parallel/elastic.py)"
         )
 
     @property
@@ -326,6 +328,14 @@ class AllReduceTrainer:
         e.g. from ``init_from_batch``: its optimizer settings are kept);
         returns the restored version. Raises, leaving the state as it
         was, when the checkpoint does not cover this model."""
+        read = self._read_sharded(directory)
+        self._adopt(*read)
+        return read[3]
+
+    def _read_sharded(self, directory):
+        """(params, state, optimizer state dict, version) of this rank's
+        parts of the checkpoint in ``directory``, checked against the
+        state's names and shapes (raises when it does not cover them)."""
         from elasticdl_tpu_torch.common.sharded_checkpoint import (
             leaf_shapes,
             load_sharded_to_host,
@@ -373,10 +383,9 @@ class AllReduceTrainer:
                            tuple(want[name].shape))
                     )
         groups = self._ts.opt_state.state_dict()["param_groups"]
-        self._adopt(
+        return (
             {n: params[n] for n in self._ts.params},
             state,
             {"state": opt, "param_groups": groups},
             version,
         )
-        return version

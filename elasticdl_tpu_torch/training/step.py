@@ -301,12 +301,13 @@ def make_train_step(
     The step drives the optimizer in ``train_state.opt_state``, which
     ``TrainState.create`` bound to the parameters, so unlike the
     reference's builder this one takes no optimizer. ``pmean_axis`` (the
-    cross-device mean inside the elastic plane's step) belongs to the
-    sharded elastic planes and raises."""
+    cross-device mean inside a shard_map step) belongs to the collective
+    plane and raises (the pjit dense plane's weighted step is
+    ``parallel/elastic.py``'s)."""
     if pmean_axis is not None:
         raise NotImplementedError(
             "make_train_step(pmean_axis=...) is not ported yet (ROADMAP "
-            "A9.2: the sharded elastic planes)"
+            "A9.2: the collective plane's shard_map step)"
         )
     pol = get_policy(precision)
     forward = make_remat_forward(module, remat)

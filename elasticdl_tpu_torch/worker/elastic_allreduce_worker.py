@@ -93,10 +93,12 @@ the digest of the state saved), ``checkpoint_writes`` (the background
 writes' seconds), ``world_broken``, ``export`` (the SAVE_MODEL export's
 seconds, and whether it wrote the serving member) and ``final`` (the
 final state's digest, the process's flash-attention launches and the
-tasks its fetcher fetched ahead). The digests are
-``parallel/elastic.state_digest``. A promoted standby's timeline also
-has a ``standby`` event, and a training job's, one ``eval`` event per
-scored task.
+tasks its fetcher fetched ahead, and on a card its peak memory). The
+digests are ``parallel/elastic.state_digest`` (on the sharded plane, of
+this rank's parts). A promoted standby's timeline also has a ``standby``
+event, a parked spare's a ``spare`` event, a sharded step's event its
+host ``staging`` (bytes and seconds of the exchanges staged through the
+host), and a training job's, one ``eval`` event per scored task.
 
 A zoo with sharded parameters (``build_distributed_model``) is scored as
 the reference scores it: through its host twin (``build_host_model``,
@@ -110,14 +112,36 @@ A training job takes the reference's route by its probes of
 anything, and over ``model``?), not by which hooks the zoo defines: a
 configuration that splits nothing trains the plain module replicated
 (the LM without ``tensor_parallel``, a zoo whose ``mesh_axes`` alone
-names a layout). Not ported, each raising ``NotImplementedError``
-(ROADMAP A9.2): training a configuration that splits parameters on the
-elastic plane, over ``model`` (the pjit dense plane) or otherwise (the
-collective plane of ``build_distributed_model``), with the collective
-evaluation (``_collective_evaluate``) that scores them in a training
-job, and the world-size rounding's spare members (the replicated plane
-rounds to 1). A tensor-parallel checkpoint is scored whole on one
-device: ``load_sharded_to_host`` assembles its parts.
+names a layout).
+
+**The pjit dense plane.** A configuration that splits the dense model
+over ``model`` (the LM's ``tensor_parallel`` or ``min_tensor_parallel``)
+trains sharded: the trainer gets the zoo's ``build_distributed_model``
+and ``param_shardings`` as its builder, ``mesh_axes`` as the layout
+fallback and a ``LayoutPlanner`` (``parallel/layout_solver.py``) that
+picks each world's ``data x model`` layout. The master rounds every
+world down to a multiple of the ``model`` axis; a worker left out is a
+**spare**: it hands every task it fetched (prefetched ones included)
+back to the master once, parks until a death promotes it (then primes
+a fresh batch), and exits once the master says the job has finished.
+Every rank writes its parts of each checkpoint (at the cadence, at
+every pause, at the end), and every establish restores the newest
+checkpoint all ranks can read (``restore_provider``). Evaluation is
+in-plane (``_collective_evaluate``): at each step the ranks agree on
+how many hold an evaluation task, and every rank takes part in every
+tensor-parallel forward, feeding its last rows when it has none. The
+SAVE_MODEL export is assembled whole from the final checkpoint and its
+serving member traced from the whole model. A TP job needs
+``--replica_refresh_steps 0``: the replica plane covers only leading-dim
+splits, as the reference's.
+
+Not ported, each raising ``NotImplementedError`` (ROADMAP A9.2):
+training a configuration that splits parameters without a ``model``
+axis (the collective plane of ``build_distributed_model``: deepfm_edl's
+HBM tables, the LM's ``pipeline_stages``), and with it the collective
+evaluation that would score it. A tensor-parallel checkpoint is scored
+whole on one device in a scoring job: ``load_sharded_to_host``
+assembles its parts.
 """
 
 import json
@@ -146,6 +170,7 @@ from elasticdl_tpu_torch.data.dataset import tree_map
 from elasticdl_tpu_torch.metrics import to_host
 from elasticdl_tpu_torch.parallel import distributed
 from elasticdl_tpu_torch.parallel.distributed import WorldBroken, WorldSpec
+from elasticdl_tpu_torch.training.step import TrainState
 from elasticdl_tpu_torch.utils import profiling
 from elasticdl_tpu_torch.worker.allreduce_worker import _first_leaf
 from elasticdl_tpu_torch.worker.task_data_service import TaskDataService
@@ -242,21 +267,23 @@ class ElasticAllReduceWorker:
     @classmethod
     def _refuse_sharded_training(cls, zoo_module, model_def, model_params,
                                  job_type):
+        """Raise for a configuration that splits parameters without a
+        ``model`` axis: the collective plane (ROADMAP A9.2). The pjit
+        dense plane trains."""
         if not cls._zoo_wants_sharded_params(zoo_module, model_params):
             return
-        what = (
-            "tensor parallelism over a 'model' axis (the pjit dense plane)"
-            if cls._zoo_wants_pjit_dense(zoo_module, model_params)
-            else "sharded parameters (build_distributed_model, "
-            "param_shardings)"
-        )
+        if cls._zoo_wants_pjit_dense(zoo_module, model_params):
+            return
         raise NotImplementedError(
-            "zoo module %s defines build_distributed_model with %s for "
-            "this configuration: training it on the sharded elastic plane "
-            "is not ported yet (ROADMAP A9.2)%s" % (
-                model_def, what,
+            "zoo module %s defines build_distributed_model with sharded "
+            "parameters (build_distributed_model, param_shardings) that "
+            "do not split over a 'model' axis for this configuration: "
+            "training it on the collective plane (build_collective_model,"
+            " make_elastic_train_step) is not ported yet (ROADMAP A9.2)%s"
+            % (
+                model_def,
                 ", nor the collective evaluation (_collective_evaluate) "
-                "that scores it"
+                "that scores it there"
                 if job_type == JobType.TRAINING_WITH_EVALUATION else "",
             )
         )
@@ -286,6 +313,7 @@ class ElasticAllReduceWorker:
         checkpoint_filename_for_init="",
         prediction_outputs_processor="PredictionOutputsProcessor",
         remat="",
+        replica_refresh_steps=8,
         task_prefetch=0,
         device="cuda",
         telemetry_report_secs=5.0,
@@ -370,6 +398,8 @@ class ElasticAllReduceWorker:
             self._init_training(
                 spec, seed, precision, accum_steps, remat, checkpoint_dir,
                 checkpoint_steps, keep_checkpoint_max,
+                self._pjit_dense_hooks(zoo_module, model_params),
+                replica_refresh_steps,
             )
             from elasticdl_tpu_torch.common.export import export_provenance
 
@@ -411,16 +441,54 @@ class ElasticAllReduceWorker:
         if hasattr(stub, "set_on_master_epoch_change"):
             stub.set_on_master_epoch_change(self._on_master_epoch_change)
 
+    @classmethod
+    def _pjit_dense_hooks(cls, zoo_module, model_params):
+        """The trainer's keyword arguments of the pjit dense plane for a
+        configuration that splits over ``model``: the builder (the
+        zoo's ``build_distributed_model`` on the meta device, built once
+        the establish checks pass, and its ``param_shardings``), the
+        zoo's ``mesh_axes`` and a layout planner over it (the memory
+        budget from ``EDL_LAYOUT_MEM_BUDGET_MB``); empty otherwise."""
+        if not cls._zoo_wants_pjit_dense(zoo_module, model_params):
+            return {}
+        from elasticdl_tpu_torch.common.model_utils import (
+            get_dict_from_params_str,
+        )
+        from elasticdl_tpu_torch.parallel.layout_solver import LayoutPlanner
+
+        extra = get_dict_from_params_str(model_params) or {}
+
+        def builder(mesh):
+            return (
+                lambda: zoo_module.build_distributed_model(mesh, **extra),
+                zoo_module.param_shardings(mesh, **extra),
+            )
+
+        mesh_axes_fn = None
+        if hasattr(zoo_module, "mesh_axes"):
+            def mesh_axes_fn(n):
+                return zoo_module.mesh_axes(n, **extra)
+        return dict(
+            distributed_builder=builder, mesh_axes_fn=mesh_axes_fn,
+            layout_planner=LayoutPlanner(fallback_axes_fn=mesh_axes_fn),
+        )
+
     def _init_training(self, spec, seed, precision, accum_steps, remat,
-                       checkpoint_dir, checkpoint_steps, keep_checkpoint_max):
+                       checkpoint_dir, checkpoint_steps, keep_checkpoint_max,
+                       pjit_dense, replica_refresh_steps):
         from elasticdl_tpu_torch.parallel.elastic import ElasticDPTrainer
         from elasticdl_tpu_torch.training.step import parse_remat
 
         self.trainer = ElasticDPTrainer(
             spec.model, spec.loss, spec.optimizer(), seed=seed,
             precision=precision, accum_steps=accum_steps,
-            remat=parse_remat(remat), device=self._device,
+            remat=parse_remat(remat), device=self._device, **pjit_dense
         )
+        # the replica plane's cadence reaches every rank alike through
+        # the flag relay; the sharded establish refuses it where the
+        # reference does
+        self.trainer.mirror_steps = max(0, int(replica_refresh_steps))
+        self.trainer.default_minibatch_size = self._minibatch_size
         # a collective waiting on a peer that died gives up once the
         # master lists the peer dead
         self.trainer.abort_check = self._world_moved_on
@@ -435,8 +503,15 @@ class ElasticAllReduceWorker:
                 checkpoint_dir, checkpoint_steps, keep_checkpoint_max,
                 async_io=True,
             )
-            # replicated state: rank 0 alone writes each version
+            # replicated state: rank 0 alone writes each version (a
+            # sharded world sets its size at each establish)
             self._ckpt.set_expected_writers(1)
+            self.trainer.restore_provider = self._ckpt_dirs_newest_first
+        elif self.trainer.is_sharded:
+            logger.warning(
+                "sharded-parameter elastic job without --checkpoint_steps:"
+                " any membership change RE-INITIALIZES the model"
+            )
         self._restore_attempted = False
         self._last_ckpt_version = 0
         self._batch_gen = None
@@ -736,7 +811,8 @@ class ElasticAllReduceWorker:
         train state (params and BatchNorm statistics), taken at the
         current version and cached per version: a round's tasks scored
         at its pinned version all use one snapshot, even after training
-        moves on. ``_eval_scored_version`` names the version scored."""
+        moves on. ``_eval_scored_version`` names the version scored. (A
+        sharded world scores in-plane: :meth:`_collective_evaluate`.)"""
         if self._forward_fn is None:
             from elasticdl_tpu_torch.training.step import make_forward_fn
 
@@ -809,6 +885,89 @@ class ElasticAllReduceWorker:
                 rows=sum(len(c) for c in label_chunks), t0=t0,
             )
         return True
+
+    def _collective_evaluate(self, final=False):
+        """In-plane evaluation on the sharded plane: every rank takes
+        part in every tensor-parallel forward. Each round the ranks
+        agree on how many hold a task (``eval_have_consensus``); a rank
+        without one feeds its last rows and drops the output, until the
+        count is 0. It scores the current parameters, at the version
+        reported as scored. Called at the same step on every rank (and
+        from ``_finalize``, which every rank enters from the same
+        quiescent step); ``final`` waits out three empty rounds, so a
+        task one rank fail-reported is not left behind. A task in hand
+        when the world breaks is fail-reported: it queues again."""
+        pending = None  # [task_id, version, batches, outputs, labels]
+        empty_rounds = 0
+        try:
+            while True:
+                if pending is None:
+                    task = self.get_task(TaskType.EVALUATION)
+                    if task.shard_name:
+                        pending = self._start_eval_task(task)
+                if self.trainer.eval_have_consensus(pending is not None) == 0:
+                    empty_rounds += 1
+                    if not final or empty_rounds >= _ATTEMPTS:
+                        return
+                    time.sleep(0.5)
+                    continue
+                empty_rounds = 0
+                features, labels, count = None, None, 0
+                if pending is not None:
+                    features, labels, count = pending[2].pop(0)
+                outputs = self.trainer.eval_step(features,
+                                                 self._minibatch_size)
+                if pending is None:
+                    continue  # a dummy forward for a busy peer
+                if not isinstance(outputs, dict):
+                    outputs = {MetricsDictKey.MODEL_OUTPUT: outputs}
+                for k, v in outputs.items():
+                    pending[3].setdefault(k, []).append(to_host(v)[:count])
+                pending[4].append(to_host(labels))
+                if not pending[2]:
+                    self._eval_scored_version = self.trainer.version
+                    self._report_eval_outputs(*pending[:2], *pending[3:])
+                    if self._timeline.enabled:
+                        self._timeline(
+                            "eval", task=pending[0], version=pending[1],
+                            scored_version=self._eval_scored_version,
+                            rows=sum(len(c) for c in pending[4]),
+                        )
+                    pending = None
+        except Exception as e:
+            if pending is not None:
+                self.report_task_result(
+                    pending[0], err_msg="collective evaluation failed: %s" % e
+                )
+            raise
+
+    def _start_eval_task(self, task):
+        """One evaluation task's batches for the lockstep rounds:
+        ``[task_id, version, [(features, labels, rows)], {}, []]``, or
+        None (the task fail-reported, or completed when empty)."""
+        eval_info = self._task_data_service.get_validation_dataset(task)
+        if not eval_info:
+            return None
+        dataset, model_version, task_id = eval_info
+        dataset = self._dataset_fn(
+            dataset,
+            Mode.EVALUATION,
+            self._task_data_service.data_reader.metadata,
+        ).batch(self._minibatch_size)
+        batches = []
+        try:
+            for features, labels in dataset:
+                batches.append(
+                    (features, labels, int(_first_leaf(features).shape[0]))
+                )
+        except Exception as e:
+            logger.warning("eval task %d unreadable: %s", task_id, e)
+            self.report_task_result(task_id, err_msg=str(e))
+            return None
+        if not batches:
+            self.report_task_result(task_id)
+            return None
+        return [task_id, model_version, batches, {}, []]
 
     def _report_eval_outputs(
         self, task_id, model_version, out_chunks, label_chunks
@@ -883,7 +1042,15 @@ class ElasticAllReduceWorker:
             for batch in dataset:
                 got = True
                 yield batch
-            self._process_save_model_task_if_needed()
+            if (
+                not self.trainer.is_sharded
+                or self._last_ckpt_version >= self.trainer.version
+            ):
+                # a sharded export is assembled from the checkpoint of
+                # the current version (the SAVE_MODEL task comes once
+                # training is over: every rank writes its final parts at
+                # the quiescent step)
+                self._process_save_model_task_if_needed()
             if not got:
                 yield None
 
@@ -914,7 +1081,13 @@ class ElasticAllReduceWorker:
     def _await_world(self):
         """Poll the master until a world holding this worker is ready; a
         WorldSpec, or None when the job finished (or a drain began)
-        meanwhile."""
+        meanwhile.
+
+        A ``spare`` reply means the world-size rounding left this live
+        worker out of the world: it hands back everything it fetched,
+        once (:meth:`_requeue_as_spare`), and parks here until a death
+        promotes it, or until the master says the job has finished."""
+        spare_flushed = False
         while True:
             if self._preempted:
                 return None
@@ -927,9 +1100,48 @@ class ElasticAllReduceWorker:
                     process_id=w["process_id"],
                     epoch=w["epoch"],
                 )
+            if w.get("spare"):
+                if not spare_flushed:
+                    spare_flushed = True
+                    self._requeue_as_spare()
+                if w.get("job_finished"):
+                    logger.info("parked spare: the job has finished")
+                    return None
             if self._drained and self._retry_batch is None:
                 return None
             time.sleep(0.2)
+
+    def _requeue_as_spare(self):
+        """Hand every in-flight task back to the master (fail-reported,
+        so it queues again), prefetched ones included, drop the primed
+        batch and abandon the open round: a spare trains nothing, and a
+        world member finishes what it held. The batch stream restarts;
+        a promotion primes from a fresh round."""
+        msg = "parked as spare (world size rounding)"
+        logger.info(
+            "parked as spare (world-size rounding); requeueing in-flight "
+            "work and abandoning the open round"
+        )
+        self._retry_batch = None
+        self._flush_unreported(msg)
+        self._task_data_service.requeue_inflight(msg)
+        self._batch_gen = self._batches()
+        self._timeline("spare", warmed=self._warm_for_promotion())
+
+    def _warm_for_promotion(self):
+        """What a parked spare can do ahead of its promotion, as a
+        standby does (``worker/main._warm``): its optimizer's first
+        construction (torch imports its compile stack there: seconds)
+        and, on a card, the CUDA context with cuBLAS loaded. Returns the
+        seconds."""
+        import torch
+
+        t0 = time.perf_counter()
+        p = torch.zeros(2, device=self._device, requires_grad=True)
+        self.trainer._optimizer([p])
+        if self._device.type == "cuda":
+            (p.detach()[:, None] @ p.detach()[None, :]).sum().item()
+        return time.perf_counter() - t0
 
     def _await_epoch_bump(self, stale_epoch):
         """After a broken collective: True once the master bumps the
@@ -984,9 +1196,23 @@ class ElasticAllReduceWorker:
                 break
             try:
                 example = self._retry_batch or self.trainer._last_local
+                if example is None:
+                    # promoted after a spare park requeued everything:
+                    # prime a fresh batch first
+                    first = self._prime()
+                    if first is None:
+                        self._announce_leave()
+                        break
+                    self._retry_batch = example = first
                 self._world_master_boots = self._master_boots
                 self.trainer.establish(world, example_batch=example)
-                if (
+                if self._ckpt is not None and self.trainer.is_sharded:
+                    # every rank writes its parts of each version
+                    self._ckpt.set_expected_writers(world.num_processes)
+                if self.trainer.is_sharded:
+                    # sharded state restores inside every establish
+                    self._last_ckpt_version = max(0, self.trainer.version)
+                elif (
                     self._ckpt is not None
                     and not self._restore_attempted
                 ):
@@ -1010,6 +1236,7 @@ class ElasticAllReduceWorker:
                     backend=self.trainer.backend,
                     version=self.trainer.version,
                     digest=self.trainer.digest(),
+                    mesh=self.trainer.mesh_shape,
                     **self.trainer.establish_times,
                 )
             # one trace per world: started once it formed, stopped when
@@ -1030,6 +1257,24 @@ class ElasticAllReduceWorker:
                 "clears this member",
                 exc_info=True,
             )
+
+    def _ckpt_dirs_newest_first(self):
+        """Candidate checkpoint directories, newest first, once every
+        in-flight save of this process has landed (a restore never reads
+        a half-written one). More than one matters: a killed rank can
+        leave the newest version torn while an older complete one sits
+        behind it."""
+        if self._ckpt is None:
+            return []
+        try:
+            self._ckpt.wait()
+        except Exception:
+            logger.warning(
+                "async checkpoint write failed; restoring from the "
+                "previous complete checkpoint",
+                exc_info=True,
+            )
+        return self._ckpt.dirs_newest_first()
 
     def _restore_latest_checkpoint(self):
         """Resume from the newest restorable checkpoint, falling through
@@ -1101,6 +1346,10 @@ class ElasticAllReduceWorker:
         self._flush_unreported(
             "" if ok else "collective failed before the update"
         )
+        if ok and self.trainer.is_sharded:
+            # every member pauses at the same version: a checkpoint
+            # written here makes the re-form's restore lossless
+            self._save_ckpt_if_newer()
         profiling.maybe_stop_trace()  # the trace must not outlive its world
         self.trainer.leave()
         return verdict
@@ -1128,9 +1377,13 @@ class ElasticAllReduceWorker:
                 # the announcement never landed: leave anyway; the
                 # survivors take the broken-collective path
                 return self._settle_and_leave("preempted")
-            if self._job_type == JobType.TRAINING_WITH_EVALUATION:
+            if (
+                self._job_type == JobType.TRAINING_WITH_EVALUATION
+                and not self.trainer.is_sharded
+            ):
                 # the replicated plane scores a local snapshot whenever a
-                # round is queued; the peers wait in their next step
+                # round is queued; the peers wait in their next step (a
+                # sharded world evaluates in-plane, below)
                 self._evaluate_only()
             w = self._poll_world(awaiting=False)
             if self._drain_announced and w["epoch"] != world.epoch:
@@ -1183,6 +1436,8 @@ class ElasticAllReduceWorker:
                     live=n_active, rows=count,
                     host_step=self.trainer.host_step,
                     split=self.trainer.step_times,
+                    **({"staging": self.trainer.last_staging}
+                       if self.trainer.is_sharded else {}),
                 )
             if self.trainer.epoch_consensus > world.epoch:
                 # every member reads this consensus at this same step:
@@ -1194,7 +1449,29 @@ class ElasticAllReduceWorker:
                 )
                 return self._settle_and_leave("reform")
             self._save_ckpt_if_due(world)
+            if (
+                self.trainer.is_sharded
+                and self._job_type == JobType.TRAINING_WITH_EVALUATION
+            ):
+                # in-plane evaluation of the version just reached (and
+                # checkpointed): a lockstep protocol, so every rank runs
+                # it here, at the same step of the world
+                try:
+                    self._collective_evaluate()
+                except Exception as err:
+                    logger.warning(
+                        "collective evaluation failed in world %d: %s",
+                        world.epoch, err,
+                    )
+                    self._settle_and_leave("reform", ok=False)
+                    if not self._await_epoch_bump(world.epoch):
+                        raise
+                    return "reform"
             if n_active == 0:
+                if self.trainer.is_sharded:
+                    # land this rank's parts now: the export (one rank,
+                    # in _finalize) needs every rank's manifest
+                    self._save_ckpt_if_newer()
                 # global quiescence: every rank sees it at the same step,
                 # and the world ends at the first such step at which no
                 # member's task stream is open. A rank whose stream ended
@@ -1209,20 +1486,38 @@ class ElasticAllReduceWorker:
     # -- checkpoints and the end --------------------------------------------
 
     def _save_ckpt_if_due(self, world):
-        """Rank 0 writes a checkpoint once the version is at least
-        ``checkpoint_steps`` past the last one (it holds a full replica;
-        the versions agree across ranks)."""
+        """A checkpoint once the version is at least
+        ``checkpoint_steps`` past the last one (the versions agree
+        across ranks): rank 0 alone on the replicated plane (it holds a
+        full replica), every rank its parts on the sharded plane."""
         if (
             self._ckpt is None
-            or world.process_id != 0
+            or (world.process_id != 0 and not self.trainer.is_sharded)
             or not self._ckpt.is_enabled()
         ):
             return
+        if self.trainer.version - self._last_ckpt_version >= self._ckpt.steps:
+            self._save_ckpt()
+
+    def _save_ckpt_if_newer(self):
+        """Checkpoint the state if its version moved past the last save
+        (the sharded plane's pause, quiescence and end)."""
+        if (
+            self._ckpt is not None
+            and self._ckpt.is_enabled()
+            and self.trainer.has_state
+            and self.trainer.version > self._last_ckpt_version
+        ):
+            self._save_ckpt()
+
+    def _save_ckpt(self):
         version = self.trainer.version
-        if version - self._last_ckpt_version < self._ckpt.steps:
-            return
         t0 = time.perf_counter()
-        self._ckpt.save(self.trainer.train_state, version)
+        self._ckpt.save(
+            self.trainer.train_state, version,
+            parts=(self.trainer.checkpoint_parts()
+                   if self.trainer.is_sharded else None),
+        )
         snapshot_s = time.perf_counter() - t0
         if self._timeline.enabled:
             self._timeline(
@@ -1245,6 +1540,11 @@ class ElasticAllReduceWorker:
             )
 
     def _finalize(self):
+        sharded = self.trainer.is_sharded and self.trainer.has_state
+        if sharded and not self._preempted:
+            # every rank lands its final parts: the export (one rank)
+            # and a resume see the finished state
+            self._save_ckpt_if_newer()
         self._drain_ckpt()
         if self._ckpt is not None and self._ckpt.write_seconds:
             # the background writes' seconds, by version
@@ -1256,17 +1556,29 @@ class ElasticAllReduceWorker:
             # SAVE_MODEL task)
             if self._job_type == JobType.TRAINING_WITH_EVALUATION:
                 try:
-                    self._evaluate_only(final=True)
+                    if sharded:
+                        # the world is still formed, and every rank
+                        # enters here from the same quiescent step
+                        self._collective_evaluate(final=True)
+                    else:
+                        self._evaluate_only(final=True)
                 except Exception:
                     logger.warning("final evaluation round failed",
                                    exc_info=True)
             self._process_save_model_task_if_needed()
         profiling.maybe_stop_trace()
         if self._timeline.enabled and self.trainer.has_state:
+            peak_mib = None
+            if self._device.type == "cuda":
+                import torch
+
+                peak_mib = torch.cuda.max_memory_allocated(
+                    self._device) / 2 ** 20
             self._timeline(
                 "final", version=self.trainer.version,
                 digest=self.trainer.digest(), launches=_flash_launches(),
                 fetched_ahead=self._task_data_service.fetched_ahead,
+                peak_mib=peak_mib,
             )
         if distributed.current_spec() is not None:
             distributed.leave_world()
@@ -1281,7 +1593,29 @@ class ElasticAllReduceWorker:
         )
         if task is None:
             return
-        host_ts = self.trainer.snapshot()
+        serving_ts = self.trainer.train_state
+        if self.trainer.is_sharded:
+            host_ts = self._assemble_sharded_export()
+            if host_ts is None:
+                self.report_task_result(
+                    task.task_id,
+                    err_msg="no complete sharded checkpoint to export",
+                )
+                return
+            # the member is traced from the whole model on this card
+            from elasticdl_tpu_torch.parallel.trainer import (
+                place_module,
+                to_device,
+            )
+
+            place_module(self._model, self._device)
+            serving_ts = TrainState(
+                params=to_device(host_ts.params, self._device),
+                state=to_device(host_ts.state, self._device),
+                opt_state=None, version=host_ts.version,
+            )
+        else:
+            host_ts = self.trainer.snapshot()
         if host_ts is None:
             self.report_task_result(
                 task.task_id, err_msg="no local train state to export"
@@ -1307,7 +1641,7 @@ class ElasticAllReduceWorker:
         manifest = export_train_state(
             saved_model_path, host_ts, model=self._model,
             metadata=self._export_meta, example_features=example,
-            serving_ts=self.trainer.train_state,
+            serving_ts=serving_ts,
         )
         self._timeline(
             "export", seconds=time.perf_counter() - t0,
@@ -1315,3 +1649,46 @@ class ElasticAllReduceWorker:
         )
         logger.info("Exported model to %s", saved_model_path)
         self.report_task_result(task.task_id, err_msg="")
+
+    def _assemble_sharded_export(self):
+        """The whole model from the newest complete sharded checkpoint, a
+        host ``TrainState`` (params, state, version), or None. The final
+        checkpoint of a peer may still be landing: the newest directory
+        is retried for up to 10 s before the previous complete one is
+        taken."""
+        from elasticdl_tpu_torch.common.sharded_checkpoint import (
+            load_sharded_to_host,
+            split_train_state_leaves,
+        )
+
+        names = [n for n, _ in self._model.named_parameters()]
+
+        def load(directory):
+            _, leaves = load_sharded_to_host(directory)
+            params, state, _, version = split_train_state_leaves(
+                leaves, names
+            )
+            return TrainState(params=params, state=state, opt_state=None,
+                              version=version)
+
+        dirs = self._ckpt_dirs_newest_first()
+        if not dirs:
+            return None
+        last_err = None
+        for _ in range(10):
+            try:
+                return load(dirs[0])
+            except Exception as e:  # noqa: BLE001 - retried, then logged
+                last_err = e
+                time.sleep(1.0)
+        logger.warning(
+            "newest checkpoint %s never completed (%s); exporting the "
+            "previous one", dirs[0], last_err,
+        )
+        for older in dirs[1:]:
+            try:
+                return load(older)
+            except Exception:
+                logger.debug("export skipped torn checkpoint %s", older,
+                             exc_info=True)
+        return None

@@ -110,6 +110,7 @@ def main(argv=None):
         precision=args.precision_policy or None,
         accum_steps=args.grad_accum_steps,
         remat=args.remat,
+        replica_refresh_steps=args.replica_refresh_steps,
         task_prefetch=args.task_prefetch,
         device=device,
         telemetry_report_secs=args.telemetry_report_secs,

@@ -421,20 +421,26 @@ def test_cli_gate_exits_2_as_the_jax_cli_does(verb, argv):
 def test_elastic_worker_refuses_training_jobs_by_name(job_type, tmp_path):
     """The elastic worker routes a training job by the reference's
     probes of ``param_shardings``: it refuses by name what splits
-    parameters, not ported (the LM's tensor_parallel=2: the pjit dense
-    plane, ROADMAP A9.2, and with evaluation rounds the collective
-    evaluation that would score it), and trains on the replicated plane
-    what splits nothing: a zoo whose ``mesh_axes`` alone names a layout,
-    as the reference's does, and the LM without tensor_parallel."""
+    parameters without a ``model`` axis, not ported (the LM's
+    pipeline_stages=2: the collective plane, ROADMAP A9.2, and with
+    evaluation rounds the collective evaluation there), trains the
+    LM's tensor_parallel=2 on the pjit dense plane, and trains on the
+    replicated plane what splits nothing: a zoo whose ``mesh_axes``
+    alone names a layout, as the reference's does, and the LM without
+    tensor_parallel."""
     lm = "transformer_lm.transformer_lm.custom_model"
     with pytest.raises(NotImplementedError,
-                       match="model.*pjit dense.*A9.2") as refused:
+                       match="collective plane.*A9.2") as refused:
         ElasticAllReduceWorker(0, job_type, BATCH, "", lm,
-                               model_params="tensor_parallel=2",
+                               model_params="pipeline_stages=2",
                                checkpoint_dir="c", device="cpu")
     assert ("_collective_evaluate" in str(refused.value)) == (
         job_type == JobType.TRAINING_WITH_EVALUATION
     )
+    tp = ElasticAllReduceWorker(0, job_type, BATCH, "", lm,
+                                model_params="tensor_parallel=2",
+                                checkpoint_dir="c", device="cpu")
+    assert tp.trainer.is_sharded
     zoo = tmp_path / "zoo" / "meshed"
     zoo.mkdir(parents=True)
     (zoo / "meshed.py").write_text(
@@ -448,6 +454,7 @@ def test_elastic_worker_refuses_training_jobs_by_name(job_type, tmp_path):
                                         model_def, checkpoint_dir="c",
                                         device="cpu")
         assert worker.trainer is not None, model_def
+        assert not worker.trainer.is_sharded, model_def
 
 
 def test_eval_only_gives_up_on_an_empty_checkpoint_dir(tmp_path):

@@ -96,6 +96,11 @@ def test_every_port_module_imports_without_jax():
                  "nn.embedding",
                  "worker.worker", "ps.delta_log", "serving.delta_sync",
                  "nn.comm_plane", "parallel.mesh", "parallel.sharding",
+                 # the pjit dense plane's solver, elastic trainer and
+                 # parts of the checkpoint it restores
+                 "parallel.layout_solver", "parallel.elastic",
+                 "parallel.spmd", "parallel.collectives",
+                 "common.sharded_checkpoint",
                  "model_zoo.mnist_functional_api.mnist_functional_api",
                  "model_zoo.cifar10_subclass.cifar10_subclass",
                  "model_zoo.cifar10_functional_api.cifar10_functional_api",
