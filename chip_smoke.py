@@ -104,6 +104,18 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``load_sharded_to_host`` must read back bitwise the gathered state,
    and the whole model restored from it answering the batch through
    the flash forward (a launch a layer) within 0.1 of the TP logits.
+   Then, in the same two ranks (their world left, a new one formed by
+   ``ElasticDPTrainer.establish``), the collective plane's step:
+   deepfm_edl at the zoo's widths (tables of 1,048,576 x 64 and x 1,
+   f32) through ``build_collective_model`` on data 2, each rank holding
+   half of each table drawn whole from the seed, PS_BATCH zipf records
+   a rank (``_zipf_ids``, as the Z cells draw them): one counted SGD
+   step (no flash launch: ``launches_by_path.collective_rank0/1``), its
+   loss, the touched rows of both tables and the tower against this
+   process's whole model stepped on both ranks' rows (1e-5 relative
+   L2), the overflow count (0), the routed unique ids against their
+   occurrences, then 3 timed steps with their staging by kind of
+   exchange, each rank's table bytes and peak memory.
 8. job     — bench.py's fused ResNet-50 step (b128, 224x224, bf16, SGD
    with momentum, data resident on the card): step time, examples/s,
    MFU, peak memory. Then the single-process ALLREDUCE job through the
@@ -424,14 +436,38 @@ Phases, each printing JSON lines; any failure exits non-zero:
    seconds, tokens/s before and after the kill, the host staging's
    share of a step; no flash launch (``launches_by_path.elastic_tp``,
    64-token records) and no process left.
-19. summary — each phase's seconds with the serving-member exports it
+19. elastic_collective — deepfm_edl's vocabulary-split HBM tables on the
+   elastic collective plane: ``cli train --num_workers 3`` of
+   deepfm_edl at the zoo's widths (tables of 1,048,576 x 64 and x 1,
+   f32) on PS_BATCH zipf records a rank a step, three worker processes
+   on the card over gloo, ``--replica_refresh_steps 0``, a checkpoint
+   every 2 versions, all kept, a round every 4 over PS_BATCH validation
+   records. The first world of three pads each table to 1,048,578 rows
+   (349,526 a rank); worker 1 is SIGKILLed once all three ranks'
+   ckpt_v4 manifests are on disk, and the world re-forms at 2 (524,288
+   rows a rank) from the newest checkpoint every rank can read, across
+   the paddings. Each world's mesh and each rank's rows (the
+   manifests); each rank's parts after the re-form bitwise the
+   checkpoint's logical rows for its range, the version going on from
+   it; every task done once; each round whose scored version has a
+   checkpoint within 1e-5 relative L2 of the host twin's forward on that
+   checkpoint's clipped tables, its accuracy and AUC equal; each rank's
+   final parts bitwise the newest checkpoint's; the SAVE_MODEL member
+   within REPLY_ATOL of the host twin; each rank's table bytes and peak
+   at 3 ranks and at 2, kill -> first step, the restore's seconds,
+   examples/s before and after the kill, a step's split (the routed
+   exchanges, the tower's SUM, host copies, the rest), the routed
+   unique ids against their occurrences; no overflow, no flash launch
+   (``launches_by_path.elastic_collective``) and no process left.
+20. summary — each phase's seconds with the serving-member exports it
    made (their count and seconds: this process's trace and save, a
    worker's whole SAVE_MODEL export), the kernels line, the card line,
    then the result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
 non-zero and prints no result. ``--elastic-only`` runs phases 1 and 17
-alone, ``--elastic-tp-only`` phases 1 and 18, ``--zoo-only`` phases 1
+alone, ``--elastic-tp-only`` phases 1 and 18,
+``--elastic-collective-only`` phases 1, 2 and 19, ``--zoo-only`` phases 1
 and 10, ``--ps-only`` phases 1 and 11, ``--ps-fleet-only`` phases 1 and
 12, ``--ps-tiers-only`` phases 1 and
 13, ``--ps-hybrid-only`` phases 1 and 14, ``--ps-serve-only`` phases 1
@@ -2962,13 +2998,199 @@ def _tp_checks(torch, whole, ranks, out):
     return rec, problems
 
 
-def ring_rank_main(torch, rank, port, out):
+# the collective step in the ring's ranks: deepfm_edl at the zoo's widths
+# (tables of ZOO_VOCAB x 64 and ZOO_VOCAB x 1, f32) through
+# build_collective_model on data RING_RANKS, PS_BATCH zipf records a rank
+COLLECTIVE_PARAMS = "vocab_size=%d" % (1 << 20)
+COLLECTIVE_STEPS = 3  # timed per rank, after the counted step
+COLLECTIVE_REL_L2 = 1e-5  # f32: the ranks against the whole model
+
+
+def _collective_batch(rank):
+    """Rank ``rank``'s PS_BATCH records: 10 zipf ids each (as the Z
+    cells draw them) and 0/1 labels."""
+    ids, labels = _zipf_ids(PS_BATCH, SEED + 70 + rank)
+    return {"feature": ids}, labels.reshape(-1, 1).astype("int32")
+
+
+def _collective_trainer(torch):
+    """The collective plane's trainer as the elastic worker builds it for
+    deepfm_edl (``_collective_hooks``), on the card, from SEED."""
+    from elasticdl_tpu_torch.common.model_utils import (
+        get_dict_from_params_str,
+    )
+    from elasticdl_tpu_torch.model_zoo.deepfm_edl_embedding import (
+        deepfm_edl_embedding as zoo,
+    )
+    from elasticdl_tpu_torch.parallel.elastic import ElasticDPTrainer
+    from elasticdl_tpu_torch.worker.elastic_allreduce_worker import (
+        ElasticAllReduceWorker,
+    )
+
+    with torch.device("meta"):
+        host = zoo.build_host_model(
+            **get_dict_from_params_str(COLLECTIVE_PARAMS))
+    return ElasticDPTrainer(
+        host, zoo.loss, zoo.optimizer(), seed=SEED, device=DEVICE,
+        **ElasticAllReduceWorker._collective_hooks(zoo, COLLECTIVE_PARAMS))
+
+
+def _collective_rank(torch, rank, port, out):
+    """The collective step in one ring rank, after its TP step: the
+    ring's world is left and the trainer forms its own on ``port``
+    (``ElasticDPTrainer.establish``: the mesh {"data": RING_RANKS}, each
+    rank's half of the tables drawn whole from SEED); one counted step on
+    the rank's PS_BATCH zipf records (its flash launches, loss, routed
+    ids, overflow and staging), the touched rows and the tower written
+    for the parent, then COLLECTIVE_STEPS timed steps, each rank's table
+    bytes and peak. Returns the rank's record."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from elasticdl_tpu_torch.nn.hbm_embedding import a2a_overflow_total
+    from elasticdl_tpu_torch.parallel.distributed import WorldSpec
+
+    rec = {"problems": []}
+    dist.destroy_process_group()  # the ring's; the trainer forms its own
+    trainer = _collective_trainer(torch)
+    batch = _collective_batch(rank)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.establish(WorldSpec("127.0.0.1:%d" % port, RING_RANKS, rank, 1),
+                      example_batch=batch)
+    rec["establish_s"] = time.perf_counter() - t0
+    params = trainer.train_state.params
+    tables = [n for n in params if n.endswith(".table")]
+    rec["mesh"] = trainer.mesh_shape
+    rec["table_rows"] = {n: params[n].shape[0] for n in tables}
+    rec["table_bytes"] = sum(params[n].numel() * params[n].element_size()
+                             for n in tables)
+    # the main path: one counted step
+    torch.cuda.synchronize()
+    _reset_counters()
+    loss, live, _ = trainer.train_step(batch[0], batch[1], PS_BATCH)
+    torch.cuda.synchronize()
+    counts = _counts()
+    rec["counts"] = _counts_json(counts)
+    try:
+        _check_counts(counts, {k: 0 for k in KERNELS},
+                      "collective rank %d's step" % rank)
+    except PhaseError as e:
+        rec["problems"].append(str(e))
+    rec.update(loss=loss, live=live, routing=trainer.last_routing,
+               overflow=a2a_overflow_total(trainer._module),
+               staging_counted=trainer.last_staging)
+    if live != RING_RANKS or rec["overflow"] != 0:
+        rec["problems"].append("collective step: live %d, overflow %s"
+                               % (live, rec["overflow"]))
+    # the touched rows this rank holds, and rank 0 the tower
+    ids = np.unique(np.concatenate([_collective_batch(r)[0]["feature"]
+                                    for r in range(RING_RANKS)]))
+    rows = params[tables[0]].shape[0]
+    lo = rank * rows
+    mine = ids[(ids >= lo) & (ids < lo + rows)]
+    index = torch.as_tensor(mine - lo, device=DEVICE)
+    np.savez(os.path.join(out, "collective-%d.npz" % rank), ids=mine, **{
+        n: (params[n][index] if n in tables else params[n]).detach().cpu()
+        .numpy() for n in params if n in tables or rank == 0})
+    step_ms, staged, split = [], [], []
+    for _ in range(COLLECTIVE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch[0], batch[1], PS_BATCH)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        staged.append(trainer.last_staging)
+        split.append(trainer.step_times)
+    rec.update(step_ms=step_ms, staging=staged, split=split,
+               routing_timed=trainer.last_routing,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    trainer.leave()
+    return rec
+
+
+def _collective_whole(torch):
+    """The whole deepfm_edl (the host twin, whole tables) on the card
+    from SEED, one SGD step on the ranks' rows: (loss, {name: parameter
+    after the step})."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.model_utils import (
+        get_dict_from_params_str,
+    )
+    from elasticdl_tpu_torch.model_zoo.deepfm_edl_embedding import (
+        deepfm_edl_embedding as zoo,
+    )
+    from elasticdl_tpu_torch.parallel.trainer import AllReduceTrainer
+
+    model = zoo.build_host_model(**get_dict_from_params_str(
+        COLLECTIVE_PARAMS))
+    trainer = AllReduceTrainer(model, zoo.loss, zoo.optimizer(), seed=SEED,
+                               device=DEVICE)
+    batches = [_collective_batch(r) for r in range(RING_RANKS)]
+    features = {"feature": np.concatenate([b[0]["feature"]
+                                           for b in batches])}
+    labels = np.concatenate([b[1] for b in batches])
+    trainer.init_from_batch((features, labels))
+    loss = float(trainer.train_step(features, labels))
+    return loss, trainer.train_state.params
+
+
+def _collective_checks(torch, whole, ranks, out):
+    """The ranks' collective step against the whole model in this
+    process: the loss, the touched rows of both tables (each rank's own)
+    and the tower, by relative L2 (COLLECTIVE_REL_L2). Returns (record,
+    problems)."""
+    import numpy as np
+
+    loss, params = whole
+    recs = [r["collective"] for r in ranks]
+    problems = []
+    got = [dict(np.load(os.path.join(out, "collective-%d.npz" % r)))
+           for r in range(RING_RANKS)]
+    rel = {}
+    for name, p in params.items():
+        if name.endswith(".table"):
+            ids = np.concatenate([g["ids"] for g in got])
+            mine = np.concatenate([g[name] for g in got])
+            want = p.detach()[torch.as_tensor(ids, device=DEVICE)]
+        else:
+            mine, want = got[0][name], p.detach()
+        rel[name] = _rel_l2(torch, torch.as_tensor(mine).to(DEVICE), want)
+    loss_rel = abs(recs[0]["loss"] - loss) / abs(loss)
+    worst = max(rel, key=rel.get)
+    if rel[worst] > COLLECTIVE_REL_L2 or loss_rel > COLLECTIVE_REL_L2:
+        problems.append(
+            "the collective step against the whole model: loss %.8g / "
+            "%.8g, %s %.4g (limit %g)" % (recs[0]["loss"], loss, worst,
+                                          rel[worst], COLLECTIVE_REL_L2))
+    rec = {
+        "model": "deepfm_edl_embedding %s (f32), build_collective_model"
+                 % COLLECTIVE_PARAMS,
+        "mesh": {"data": RING_RANKS},
+        "batch_per_rank": PS_BATCH,
+        "loss_collective": recs[0]["loss"],
+        "loss_whole": loss,
+        "loss_rel": loss_rel,
+        "rel_l2": rel,
+        "rel_l2_limit": COLLECTIVE_REL_L2,
+        "touched_rows": int(sum(len(g["ids"]) for g in got)),
+        "ranks": [{k: r.get(k) for k in (
+            "mesh", "table_rows", "table_bytes", "establish_s", "routing",
+            "routing_timed", "overflow", "staging_counted", "step_ms",
+            "staging", "split", "max_memory_allocated")} for r in recs],
+    }
+    return rec, problems
+
+
+def ring_rank_main(torch, rank, port, out, collective_port):
     """One rank of the ring phase (``--ring-rank``): a gloo world of
     RING_RANKS on the card, the sequence-sharded LM's counted gradient
     step and RING_STEPS timed ones, the block checks, the routed MoE
-    check, then the TP phase (``_tp_rank``) over the same world; writes
-    ``rank-<r>.json`` (and rank 0 its gradients) under ``out``. Returns
-    the exit code."""
+    check, then the TP phase (``_tp_rank``) over the same world and the
+    collective step (``_collective_rank``) in a world of its own on
+    ``collective_port``; writes ``rank-<r>.json`` (and rank 0 its
+    gradients) under ``out``. Returns the exit code."""
     import numpy as np
     import torch.distributed as dist
 
@@ -3055,13 +3277,19 @@ def ring_rank_main(torch, rank, port, out):
         rec["tp"] = _tp_rank(torch, rank, out)
         rec["tp"]["seconds"] = time.perf_counter() - t0
         rec["problems"] += rec["tp"].pop("problems")
+        t0 = time.perf_counter()
+        rec["collective"] = _collective_rank(torch, rank, collective_port,
+                                             out)
+        rec["collective"]["seconds"] = time.perf_counter() - t0
+        rec["problems"] += rec["collective"].pop("problems")
     except Exception as err:  # noqa: BLE001 — reported to the parent
         import traceback
 
         traceback.print_exc()
         rec["problems"].append("raised %r" % err)
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
     with open(os.path.join(out, "rank-%d.json" % rank), "w") as f:
         json.dump(rec, f)
     return 1 if rec["problems"] else 0
@@ -3076,7 +3304,7 @@ class _RingRanks:
     def __init__(self, tmp):
         self.out = os.path.join(tmp, "ring")
         os.makedirs(self.out, exist_ok=True)
-        port = _free_port()
+        port, collective_port = _free_port(), _free_port()
         env = dict(os.environ)
         env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
         self.started = time.perf_counter()
@@ -3085,7 +3313,8 @@ class _RingRanks:
             log = open(os.path.join(self.out, "rank-%d.log" % r), "w")
             self.procs.append((subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--ring-rank",
-                 str(r), "--ring-port", str(port), "--ring-out", self.out],
+                 str(r), "--ring-port", str(port), "--ring-out", self.out,
+                 "--collective-port", str(collective_port)],
                 env=env, stdout=log, stderr=subprocess.STDOUT), log))
         # they boot while the phase before the ring's runs
         HANDED_ON.update(proc.pid for proc, _ in self.procs)
@@ -3134,8 +3363,10 @@ def phase_ring(torch, ring_ranks):
     loss, grads, _, _ = make_grad_fn(model, zoo.loss)(
         dict(model.named_parameters()), {}, {"tokens": tokens}, tokens)
     del model
-    # and the whole model's step on the TP phase's batch
+    # and the whole model's step on the TP batch, and deepfm_edl's on
+    # the collective step's
     tp_whole = _tp_whole(torch)
+    collective_whole = _collective_whole(torch)
     torch.cuda.synchronize()
     t0 = ring_ranks.go()
     boot_s = t0 - ring_ranks.started
@@ -3176,6 +3407,13 @@ def phase_ring(torch, ring_ranks):
     tp["checks_s"] = time.perf_counter() - t_tp
     tp["ranks_s"] = [r["tp"]["seconds"] for r in ranks]
     problems += tp_problems
+    t_collective = time.perf_counter()
+    collective, collective_problems = _collective_checks(
+        torch, collective_whole, ranks, out)
+    del collective_whole
+    collective["checks_s"] = time.perf_counter() - t_collective
+    collective["ranks_s"] = [r["collective"]["seconds"] for r in ranks]
+    problems += collective_problems
     rec = {
         "phase": "ring",
         "model": dict(RING_CFG, params="float32"),
@@ -3207,6 +3445,11 @@ def phase_ring(torch, ring_ranks):
         "tp_launches_by_rank": [
             {k: v[0] for k, v in r["tp"]["counts"].items()} for r in ranks
         ],
+        "collective": collective,
+        "collective_launches_by_rank": [
+            {k: v[0] for k, v in r["collective"]["counts"].items()}
+            for r in ranks
+        ],
         "problems": problems,
     }
     emit(rec)
@@ -3216,6 +3459,8 @@ def phase_ring(torch, ring_ranks):
              for r in ranks}
     paths.update({"tp_rank%d" % r["rank"]: _counts_from_json(
         r["tp"]["counts"]) for r in ranks})
+    paths.update({"collective_rank%d" % r["rank"]: _counts_from_json(
+        r["collective"]["counts"]) for r in ranks})
     return paths
 
 
@@ -3804,7 +4049,8 @@ class _EvalReports:
     """Every evaluation report's pinned version and outputs, in order,
     and its labels counted by version; ``reports`` keeps each whole:
     (pinned version, scored version, outputs, labels), and ``by_key``
-    each report's outputs by key (a model may output a dict)."""
+    each report's outputs by key (a model may output a dict), with
+    ``keyed`` the same four of every report, its outputs by key."""
 
     def __init__(self):
         from elasticdl_tpu_torch.master.servicer import MasterServicer
@@ -3815,6 +4061,7 @@ class _EvalReports:
         self.outputs = []  # (version, outputs of the report's task)
         self.reports = []
         self.by_key = []
+        self.keyed = []
 
     def __enter__(self):
         reports, orig = self, self._orig
@@ -3824,6 +4071,8 @@ class _EvalReports:
                 reports.records.get(version, 0) + len(labels)
             )
             reports.by_key.append(dict(outputs))
+            reports.keyed.append(
+                (version, scored_version, dict(outputs), labels))
             if "output" in outputs:
                 reports.outputs.append((version, outputs["output"]))
                 reports.reports.append(
@@ -10662,6 +10911,569 @@ def _elastic_tp_only(torch):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# elastic_collective: deepfm_edl's vocabulary-split tables on the elastic
+# collective plane
+# ---------------------------------------------------------------------------
+
+# deepfm_edl at the zoo's widths (tables of ZOO_VOCAB x 64 and ZOO_VOCAB x
+# 1, f32), three workers: the first world pads each table to 1,048,578
+# rows (349,526 a rank), the re-formed world of two holds 524,288 a rank
+ELASTIC_COLLECTIVE_WORKERS = 3
+ELASTIC_COLLECTIVE_KILL_AT = 4  # once all three ranks' ckpt_v4 manifests
+# 4 versions at three ranks before the kill (the steps past ckpt_v4 are
+# lost with it, their tasks queued again), 4 at two after: 12 read
+# 50.8 s for the phase on a slow host, over its 35 s budget
+ELASTIC_COLLECTIVE_VERSIONS = 8
+ELASTIC_COLLECTIVE_RECORDS = PS_BATCH * (
+    3 * ELASTIC_COLLECTIVE_KILL_AT
+    + 2 * (ELASTIC_COLLECTIVE_VERSIONS - ELASTIC_COLLECTIVE_KILL_AT))
+ELASTIC_COLLECTIVE_VAL_RECORDS = PS_BATCH  # one evaluation task a round
+ELASTIC_COLLECTIVE_CKPT_STEPS = 2
+ELASTIC_COLLECTIVE_EVAL_STEPS = 4
+ELASTIC_COLLECTIVE_LIMIT_S = 240  # a run that hangs fails the phase
+ELASTIC_COLLECTIVE_REL_L2 = 1e-5  # f32: a round's logits against its ckpt
+# The zoo module the job names: deepfm_edl, its records parsed as the zoo
+# parses them, without the training shuffle (with a 1,024-record buffer
+# in each worker, the first worker to prime would take every task)
+ELASTIC_COLLECTIVE_ZOO = textwrap.dedent(
+    """
+    from elasticdl_tpu_torch.model_zoo.deepfm_edl_embedding.deepfm_edl_embedding import *  # noqa
+    from elasticdl_tpu_torch.model_zoo.deepfm_functional_api.deepfm_functional_api import (  # noqa
+        FixedLenFeature, Mode, np, parse_example)
+
+
+    def dataset_fn(dataset, mode, _):
+        spec = {"feature": FixedLenFeature([10], np.int64)}
+        if mode != Mode.PREDICTION:
+            spec["label"] = FixedLenFeature([1], np.int64)
+
+        def _parse_data(record):
+            r = parse_example(record, spec)
+            features = {"feature": r["feature"].astype(np.int64)}
+            if mode == Mode.PREDICTION:
+                return features
+            return features, r["label"].astype(np.int32)
+
+        return dataset.map(_parse_data)
+    """
+)
+
+
+def _collective_parts_digest(leaves, rank, n):
+    """The state digest of ``rank``'s parameter parts in a world of
+    ``n`` (the tables' logical rows padded to a multiple of ``n``), from
+    a checkpoint's host leaves."""
+    import torch
+
+    from elasticdl_tpu_torch.parallel.elastic import state_digest
+    from elasticdl_tpu_torch.training.step import TrainState
+
+    params = {}
+    for path, t in leaves.items():
+        name = path[len("params/"):]
+        if name.endswith(".table"):
+            rows = -(-t.shape[0] // n)
+            t = t[rank * rows:(rank + 1) * rows]
+            if t.shape[0] < rows:  # the padding rows read zero
+                t = torch.cat([t, t.new_zeros((rows - t.shape[0],)
+                                              + tuple(t.shape[1:]))])
+        params[name] = t
+    return state_digest(TrainState(params, {}, None))
+
+
+class _CollectiveCheckpoints:
+    """The job's checkpoints as the checks read them: each one's
+    parameters read once (clipped to the logical rows), and the host twin
+    built once on the card (every forward is given its parameters)."""
+
+    def __init__(self, torch, ckpt_dir):
+        self._torch = torch
+        self._dir = ckpt_dir
+        self._params = {}
+        self._forward = None
+
+    def params(self, version):
+        """{parameter path: host tensor} of ckpt_v{version}, or None
+        when there is no such checkpoint."""
+        from elasticdl_tpu_torch.common.sharded_checkpoint import (
+            load_sharded_to_host,
+        )
+
+        if version not in self._params:
+            directory = os.path.join(self._dir, "ckpt_v%d" % version)
+            self._params[version] = (
+                load_sharded_to_host(directory, prefix="params/")[1]
+                if os.path.isdir(directory) else None)
+        return self._params[version]
+
+    def forward(self, version, features):
+        """The host twin's outputs on the card from ckpt_v{version}."""
+        from elasticdl_tpu_torch.common.model_utils import (
+            get_dict_from_params_str,
+        )
+        from elasticdl_tpu_torch.model_zoo.deepfm_edl_embedding import (
+            deepfm_edl_embedding as zoo,
+        )
+        from elasticdl_tpu_torch.parallel.trainer import (
+            place_module,
+            to_device,
+        )
+        from elasticdl_tpu_torch.training.step import make_forward_fn
+
+        torch = self._torch
+        if self._forward is None:
+            with torch.device("meta"):
+                model = zoo.build_host_model(
+                    **get_dict_from_params_str(COLLECTIVE_PARAMS))
+            place_module(model, DEVICE)
+            self._forward = make_forward_fn(model)
+        params = to_device({k[len("params/"):]: v for k, v in
+                            self.params(version).items()}, DEVICE)
+        return self._forward(params, {}, to_device(features, DEVICE))
+
+
+def _write_collective_records(data_dir, n, seed):
+    """``n`` zipf records (``_zipf_ids``) of 10 ids and a label; returns
+    (ids, labels)."""
+    from elasticdl_tpu_torch.data.example import encode_example
+    from elasticdl_tpu_torch.data.recordio import RecordIOWriter
+
+    os.makedirs(data_dir, exist_ok=True)
+    ids, labels = _zipf_ids(n, seed)
+    with RecordIOWriter(os.path.join(data_dir, "f0")) as w:
+        for row, label in zip(ids, labels):
+            w.write(encode_example({"feature": row,
+                                    "label": label.reshape(1)}))
+    return ids, labels.reshape(-1, 1)
+
+
+def _run_collective_job(argv, timeline, ckpt_dir):
+    """``cli.main(argv)``, the master in a thread of this process, worker
+    1 SIGKILLed once all three ranks' ckpt_v{ELASTIC_COLLECTIVE_KILL_AT}
+    manifests are on disk. Returns (exit code, the job, successful task
+    ids, the kill's wall time and the master's version then)."""
+    import glob
+
+    from elasticdl_tpu_torch import cli
+
+    os.environ["EDL_WORKER_TIMELINE_DIR"] = timeline
+    jobs, rc, errors = [], [], []
+
+    def run():
+        try:
+            rc.append(cli.main(argv, jobs=jobs))
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    runner = threading.Thread(target=run, daemon=True)
+    runner.start()
+    while not jobs and runner.is_alive():
+        time.sleep(0.01)
+    if not jobs:
+        raise PhaseError("elastic_collective: the job did not start: %s"
+                         % errors)
+    master = jobs[0].master
+    done = []
+    report = master.task_d.report
+
+    def counting(task_id, success, exec_counters=None):
+        if success:
+            done.append(task_id)
+        return report(task_id, success, exec_counters)
+
+    master.task_d.report = counting
+    deadline = time.time() + ELASTIC_COLLECTIVE_LIMIT_S
+    manifests = os.path.join(ckpt_dir, "ckpt_v%d" % ELASTIC_COLLECTIVE_KILL_AT,
+                             "manifest-*.json")
+    while (len(glob.glob(manifests)) < ELASTIC_COLLECTIVE_WORKERS
+           and runner.is_alive() and time.time() < deadline):
+        time.sleep(0.005)
+    killed = (time.time(), master.master_servicer.get_model_version())
+    master.instance_manager.kill_worker(1)
+    runner.join(max(1.0, deadline - time.time()))
+    if runner.is_alive():
+        master.request_stop()
+        runner.join(30)
+        raise PhaseError("elastic_collective: the job ran past %d s"
+                         % ELASTIC_COLLECTIVE_LIMIT_S)
+    if errors:
+        raise PhaseError("elastic_collective: the job raised %r" % errors[0])
+    return rc[0], jobs[0], done, killed
+
+
+def _manifest_parts(ckpt_dir, version):
+    """{process: (stored rows, logical rows, its rows' slice)} of
+    ckpt_v{version}'s embedding table, from the manifests."""
+    import glob
+
+    parts = {}
+    for path in glob.glob(os.path.join(ckpt_dir, "ckpt_v%d" % version,
+                                       "manifest-*.json")):
+        with open(path) as f:
+            entry = json.load(f)["leaves"]["params/embedding.table"]
+        pid = int(os.path.basename(path)[len("manifest-"):-len(".json")])
+        parts[pid] = (entry["shape"][0], entry.get("logical_dim0"),
+                      entry["shards"][0]["slices"][0])
+    return parts
+
+
+def _collective_step_split(steps):
+    """The median share of a rank's step period, over its live steps, of
+    the routed exchanges (the lookups' all_to_all, host copies
+    excluded), the tower's SUM (the flat all-reduce, its gloo exchange
+    included), the host copies of every staged exchange, and the rest."""
+    shares = {"routed_exchanges": [], "tower_sum": [], "host_copies": [],
+              "rest": []}
+    for a, b in zip(steps, steps[1:]):
+        period = b["t"] - a["t"]
+        staging, split = b.get("staging") or {}, b.get("split") or {}
+        if period <= 0 or not staging or not split:
+            continue
+        routed = staging.get("by_kind", {}).get("all_to_all", {})
+        parts = {"routed_exchanges": routed.get("exchange_s", 0.0),
+                 "tower_sum": split.get("allreduce_s", 0.0),
+                 "host_copies": staging.get("copy_s", 0.0)}
+        parts["rest"] = period - sum(parts.values())
+        for key, v in parts.items():
+            shares[key].append(v / period)
+    return {key: _median(v) for key, v in shares.items()}
+
+
+def phase_elastic_collective(torch, tmp, card):
+    """deepfm_edl's vocabulary-split HBM tables on the elastic collective
+    plane, through the port's command line: ``cli train --num_workers 3``
+    of deepfm_edl at the zoo's widths, the master in this process and
+    three worker processes on the card over gloo,
+    ``--replica_refresh_steps 0``, a checkpoint every
+    ELASTIC_COLLECTIVE_CKPT_STEPS versions (all kept), a round every
+    ELASTIC_COLLECTIVE_EVAL_STEPS over PS_BATCH validation records, on
+    PS_BATCH zipf records a rank a step. The first world of three pads
+    each table to 1,048,578 rows (349,526 a rank); worker 1 is SIGKILLed
+    once all three ranks' ckpt_v4 manifests are on disk, and the world
+    re-forms at 2 (524,288 rows a rank) from the newest checkpoint all
+    can read, across the paddings.
+
+    Checks: the first world's and the re-formed one's meshes and each
+    rank's rows (the manifests); each rank's parts after the re-form
+    bitwise the restored checkpoint's logical rows for its range, the
+    version going on from it; every task done once (none twice); each
+    round whose scored version has a checkpoint within
+    ELASTIC_COLLECTIVE_REL_L2 of the host twin's forward on that
+    checkpoint's clipped tables, its accuracy and AUC equal; each rank's
+    final parts bitwise the newest checkpoint's; the SAVE_MODEL member
+    within REPLY_ATOL of the host twin; no overflow, no flash launch and
+    no process left. Returns the launches by path."""
+    import glob
+
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.export import load_export
+    from elasticdl_tpu_torch.metrics import AUC
+
+    problems = []
+    torch.cuda.empty_cache()
+    root = os.path.join(tmp, "elastic-collective")
+    zoo_dir = os.path.join(root, "zoo", "edl")
+    os.makedirs(zoo_dir)
+    with open(os.path.join(zoo_dir, "edl.py"), "w") as f:
+        f.write(ELASTIC_COLLECTIVE_ZOO)
+    t0 = time.perf_counter()
+    _write_collective_records(os.path.join(root, "data"),
+                              ELASTIC_COLLECTIVE_RECORDS, SEED + 80)
+    val_ids, val_labels = _write_collective_records(
+        os.path.join(root, "val"), ELASTIC_COLLECTIVE_VAL_RECORDS, SEED + 81)
+    write_s = time.perf_counter() - t0
+    ckpt_dir = os.path.join(root, "ckpt")
+    argv = [
+        "train", "--job_name", "chip-smoke-elastic-collective",
+        "--distribution_strategy", "AllreduceStrategy",
+        "--num_workers", str(ELASTIC_COLLECTIVE_WORKERS),
+        "--model_zoo", os.path.join(root, "zoo"),
+        "--model_def", "edl.edl.custom_model",
+        "--model_params", COLLECTIVE_PARAMS,
+        "--training_data", os.path.join(root, "data"),
+        "--validation_data", os.path.join(root, "val"),
+        "--evaluation_steps", str(ELASTIC_COLLECTIVE_EVAL_STEPS),
+        "--minibatch_size", str(PS_BATCH),
+        "--num_minibatches_per_task", "1", "--num_epochs", "1",
+        "--checkpoint_dir", ckpt_dir,
+        "--checkpoint_steps", str(ELASTIC_COLLECTIVE_CKPT_STEPS),
+        "--keep_checkpoint_max", "0", "--replica_refresh_steps", "0",
+        "--output", os.path.join(root, "export"),
+        "--restart_policy", "Never", "--device", DEVICE,
+        "--log_level", "WARNING",
+    ]
+    t0, wall0 = time.perf_counter(), time.time()
+    with _EvalReports() as spy:
+        rc, job, done, (killed_t, killed_v) = _run_collective_job(
+            argv, os.path.join(root, "timeline"), ckpt_dir)
+    job_s = time.perf_counter() - t0
+    events = _timeline_events(os.path.join(root, "timeline"))
+    _note_worker_exports(events)
+    manager = job.master.instance_manager
+    if rc != 0:
+        problems.append("exit code %s" % rc)
+    if not job.master.task_d.finished():
+        problems.append("the dispatcher has tasks left")
+    exits = {str(k): v for k, v in manager.exit_codes.items()}
+    if exits != {"0": 0, "1": -9, "2": 0}:
+        problems.append("worker exits %s" % exits)
+    published = job.master.evaluation_service.published
+    training_tasks = ELASTIC_COLLECTIVE_RECORDS // PS_BATCH
+    want_done = training_tasks + 1 + len(published)
+    dup = len(done) - len(set(done))
+    if len(set(done)) != want_done or dup:
+        problems.append("%d task completions (%d twice), expected %d once"
+                        % (len(done), dup, want_done))
+    alive = [p for p in _descendants() if not _own_tracker(p)]
+    if alive:
+        problems.append("processes alive after the job: %s" % alive)
+    first = [e for w in (0, 1, 2) for e in _of(events.get(w, []),
+                                                "established")
+             if e["t"] < killed_t]
+    reformed = [e for w in (0, 2) for e in _of(events.get(w, []),
+                                                "established")
+                if e["t"] >= killed_t]
+    for e in first:
+        if e["mesh"] != {"data": 3}:
+            problems.append("world %d laid out %s" % (e["epoch"], e["mesh"]))
+    for e in reformed:
+        if e["mesh"] != {"data": 2}:
+            problems.append("world %d laid out %s" % (e["epoch"], e["mesh"]))
+    ckpts = _CollectiveCheckpoints(torch, ckpt_dir)
+    checks_s = {}
+    t0 = time.perf_counter()
+    # each world's rows a rank, from the manifests the ranks wrote
+    rows3 = -(-ZOO_VOCAB // 3)
+    at3 = _manifest_parts(ckpt_dir, ELASTIC_COLLECTIVE_KILL_AT)
+    layout = {"at_3": at3}
+    if at3 != {r: (3 * rows3, ZOO_VOCAB, [r * rows3, (r + 1) * rows3])
+               for r in range(3)}:
+        problems.append("ckpt_v%d's table parts: %s"
+                        % (ELASTIC_COLLECTIVE_KILL_AT, at3))
+    restore = {}
+    if sorted(e["rank"] for e in reformed) != [0, 1]:
+        problems.append("the re-formed world's ranks: %s"
+                        % [(e["rank"], e["epoch"]) for e in reformed])
+    else:
+        directory = reformed[0]["restored_from"]
+        version = int(os.path.basename(directory)[len("ckpt_v"):])
+        restored = ckpts.params(version)
+        bitwise = all(
+            e["restored_from"] == directory
+            and e["restored_version"] == version
+            and e["digest"] == _collective_parts_digest(restored, e["rank"],
+                                                        2)
+            for e in reformed)
+        if version < ELASTIC_COLLECTIVE_KILL_AT or not bitwise:
+            problems.append("the re-formed world restored %s, bitwise %s"
+                            % (directory, bitwise))
+        if any(e["version"] != version for e in reformed):
+            problems.append("the version after the re-form: %s, not v%d"
+                            % ([e["version"] for e in reformed], version))
+        reepoch = reformed[0]["epoch"]
+        lead = [w for w in (0, 2) for e in _of(events.get(w, []),
+                                                "established")
+                if e["epoch"] == reepoch and e["rank"] == 0][0]
+        after = [s for s in _of(events[lead], "step")
+                 if s["epoch"] == reepoch]
+        final_v = max(int(os.path.basename(d)[len("ckpt_v"):])
+                      for d in glob.glob(os.path.join(ckpt_dir, "ckpt_v*")))
+        at2 = _manifest_parts(ckpt_dir, final_v)
+        layout["at_2"] = at2
+        if at2 != {r: (ZOO_VOCAB, None, [r * (ZOO_VOCAB // 2),
+                                         (r + 1) * (ZOO_VOCAB // 2)])
+                   for r in range(2)}:
+            problems.append("ckpt_v%d's table parts: %s" % (final_v, at2))
+        restore = {
+            "restored_from": os.path.basename(directory),
+            "restored_version": version,
+            "versions_after_reform": [e["version"] for e in reformed],
+            "bitwise": bitwise,
+            "killed_at_master_version": killed_v,
+            "establish": {str(e["rank"]): {
+                k: v for k, v in e.items()
+                if k.endswith("_s") and isinstance(v, float)}
+                for e in reformed},
+            "kill_to_first_step_s": (after[0]["t"] - killed_t
+                                     if after else None),
+        }
+    checks_s["restore"] = time.perf_counter() - t0
+    # evaluation: each round whose scored version has a checkpoint
+    t0 = time.perf_counter()
+    rounds = []
+    features = {"feature": val_ids}
+    for version, scored, out, labels in spy.keyed:
+        rec = {"version": version, "scored_version": scored,
+               "rows": int(len(labels))}
+        if scored is not None and ckpts.params(scored) is not None:
+            want = ckpts.forward(scored, features)
+            rec["rel_l2"] = _rel_l2(torch, torch.as_tensor(
+                np.asarray(out["logits"])).to(DEVICE), want["logits"])
+            logits = want["logits"].cpu().numpy()
+            rec["accuracy"] = float(np.mean(
+                (logits > 0).astype(np.int32) == val_labels.reshape(-1)))
+            auc = AUC()
+            auc.update_state(val_labels, want["probs"].cpu().numpy())
+            rec["auc"] = float(auc.result())
+            (round_,) = [p for p in published if p["version"] == version]
+            rec["published"] = round_["metrics"]
+            if (rec["rel_l2"] > ELASTIC_COLLECTIVE_REL_L2
+                    or round_["metrics"]["logits"]["accuracy"]
+                    != rec["accuracy"]
+                    or round_["metrics"]["probs"]["auc"] != rec["auc"]):
+                problems.append("round v%d against ckpt_v%d's host twin: "
+                                "%s" % (version, scored, rec))
+        rounds.append(rec)
+    if not any("rel_l2" in r for r in rounds):
+        problems.append("no round scored a version that has a checkpoint")
+    checks_s["rounds"] = time.perf_counter() - t0
+    # the final state and the export
+    t0 = time.perf_counter()
+    final_v = max(int(os.path.basename(d)[len("ckpt_v"):])
+                  for d in glob.glob(os.path.join(ckpt_dir, "ckpt_v*")))
+    final_params = ckpts.params(final_v)
+    finals = {w: _of(events.get(w, []), "final") for w in (0, 2)}
+    final_ok = all(finals[w] for w in finals)
+    ranks = {w: [e for e in _of(events[w], "established")
+                 if e["t"] >= killed_t] for w in finals}
+    if final_ok:
+        final_ok = all(
+            finals[w][0]["version"] == final_v
+            and finals[w][0]["digest"] == _collective_parts_digest(
+                final_params, ranks[w][-1]["rank"], 2)
+            for w in finals)
+    if not final_ok:
+        problems.append("final parts are not ckpt_v%d's" % final_v)
+    overflow = {str(w): f[0].get("overflow") for w, f in finals.items() if f}
+    if any(v != 0 for v in overflow.values()):
+        problems.append("overflowed ids: %s" % overflow)
+    checks_s["final"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exports = glob.glob(os.path.join(root, "export", "*", "MANIFEST.json"))
+    export_rec = {}
+    if len(exports) != 1:
+        problems.append("%d export manifests" % len(exports))
+    else:
+        artifact = load_export(os.path.dirname(exports[0]))
+        served = artifact.serve(features, DEVICE)
+        whole = ckpts.forward(final_v, features)
+        err = float((torch.as_tensor(served["logits"]).to(DEVICE).float()
+                     - whole["logits"].float()).abs().max())
+        export_rec = {"version": artifact.manifest.get("model_version"),
+                      "serving_member": bool(
+                          artifact.manifest["artifacts"]["torch_serving_fn"]),
+                      "max_abs_err": err}
+        if (err > REPLY_ATOL or not export_rec["serving_member"]
+                or export_rec["version"] != final_v):
+            problems.append("the export's member: %s" % export_rec)
+    checks_s["export"] = time.perf_counter() - t0
+    # records
+    first_epoch = min((e["epoch"] for e in first), default=None)
+    launches = {name: 0 for name in KERNELS}
+    for w, f in finals.items():
+        for e in f:
+            for name, n in e["launches"].items():
+                launches[name] += n
+    steps = {w: [s for s in _of(ev, "step") if s["live"] > 0]
+             for w, ev in events.items()}
+    lead0 = [s for s in steps.get(0, []) if s["epoch"] == first_epoch]
+    lead2 = ([s for s in steps.get(lead, []) if s["epoch"] == reepoch]
+             if restore else [])
+    routed = [s["routing"] for ev in steps.values() for s in ev
+              if s.get("routing")]
+    by_world = {}
+    for name, world in (("at_3", first), ("at_2", reformed)):
+        by_world[name] = {
+            str(e["worker"]): {
+                "split_bytes": e.get("split_bytes"),
+                "peak_mib": max([s.get("peak_mib") or 0 for s in
+                                 steps.get(e["worker"], [])
+                                 if s["epoch"] == e["epoch"]] or [None]),
+            } for e in world}
+    steps_all = sorted(st["t"] for ev in events.values()
+                       for st in _of(ev, "step"))
+    seconds = {
+        "boot_s": {str(w): _of(ev, "established")[0]["t"] - wall0
+                   for w, ev in sorted(events.items())
+                   if _of(ev, "established")},
+        "first_world_establish": {
+            str(e["rank"]): {k: v for k, v in e.items()
+                             if k.endswith("_s") and isinstance(v, float)}
+            for e in first},
+        "first_step_s": steps_all[0] - wall0 if steps_all else None,
+        "last_step_to_job_end_s": time.time() - steps_all[-1]
+        if steps_all else None,
+        "export_s": [e["seconds"] for ev in events.values()
+                     for e in _of(ev, "export")],
+    }
+    rec = {
+        "phase": "elastic_collective",
+        "card": card,
+        "model": "deepfm_edl_embedding %s (f32), build_collective_model"
+                 % COLLECTIVE_PARAMS,
+        "workers": ELASTIC_COLLECTIVE_WORKERS,
+        "records": ELASTIC_COLLECTIVE_RECORDS,
+        "batch_per_rank": PS_BATCH,
+        "write_records_s": write_s,
+        "job_s": job_s,
+        "job_seconds": seconds,
+        "checks_s": checks_s,
+        "exit_codes": exits,
+        "tasks_done": len(done),
+        "tasks_done_twice": dup,
+        "layout": {k: {str(p): v for p, v in parts.items()}
+                   for k, parts in layout.items()},
+        "rounds": rounds,
+        "restore": restore,
+        "final_version": final_v,
+        "final_parts_bitwise": final_ok,
+        "export": export_rec,
+        "overflow_by_worker": overflow,
+        "bytes_and_peak_by_world": by_world,
+        "examples_per_s_before_kill": _examples_per_s(events, first_epoch)
+        if first_epoch is not None else None,
+        "examples_per_s_after_kill": (
+            _examples_per_s(events, reformed[0]["epoch"])
+            if reformed else None),
+        "step_split_before_kill": _collective_step_split(lead0),
+        "step_split_after_kill": _collective_step_split(lead2),
+        "step_period_ms": 1e3 * (_median([b["t"] - a["t"] for a, b in
+                                          zip(lead0, lead0[1:])]) or 0.0),
+        "routed_ids": {
+            "routed": sum(r["routed"] for r in routed),
+            "occurrences": sum(r["occurrences"] for r in routed),
+        },
+        "flash_launches": launches,
+    }
+    emit(rec)
+    if problems:
+        raise PhaseError("elastic_collective: %s" % "; ".join(problems))
+    return {"elastic_collective": {name: (n, []) for name, n in
+                                   launches.items()}}
+
+
+def _elastic_collective_only(torch):
+    try:
+        card = _run_phase("device", phase_device, torch)
+        _run_phase("build", phase_build)
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = _run_phase("elastic_collective",
+                               phase_elastic_collective, torch, tmp, card)
+        for path, counts in paths.items():
+            _check_counts(counts, {k: 0 for k in KERNELS}, path)
+    except Exception as err:  # noqa: BLE001 — reported, exit non-zero
+        import traceback
+
+        traceback.print_exc()
+        print("chip_smoke: FAILED: %s" % err, file=sys.stderr)
+        return 1
+    emit(timing_record())
+    print(card)
+    return 0
+
+
 def kernels_line(records, paths):
     """The contract line: each kernel with its launches summed over the
     main paths (``paths``: {path: counts}), at the shape those paths
@@ -10735,6 +11547,13 @@ def main(argv=None):
         help="drive only the elastic_tp phase (transformer_lm's "
         "tensor-parallel shards on the elastic plane) and print its "
         "records, not the result line",
+    )
+    parser.add_argument(
+        "--elastic-collective-only",
+        action="store_true",
+        help="drive only the elastic_collective phase (deepfm_edl's "
+        "vocabulary-split tables on the elastic collective plane, after "
+        "device and build) and print its records, not the result line",
     )
     parser.add_argument(
         "--zoo-only",
@@ -10815,6 +11634,8 @@ def main(argv=None):
     parser.add_argument("--ring-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--ring-port", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--ring-out", help=argparse.SUPPRESS)
+    parser.add_argument("--collective-port", type=int,
+                        help=argparse.SUPPRESS)
     parser.add_argument(
         "--wire-order",
         default="off,auto",
@@ -10855,7 +11676,7 @@ def _checked(args, order, f1_order):
     sys.path.insert(0, REPO)
     if args.ring_rank is not None:
         return ring_rank_main(torch, args.ring_rank, args.ring_port,
-                              args.ring_out)
+                              args.ring_out, args.collective_port)
     _become_subreaper()
     # a stop from outside (SIGTERM) unwinds the phases, and this finally
     # still stops every process below this one
@@ -10880,6 +11701,8 @@ def _main(torch, args, order, f1_order):
         return _elastic_only(torch)
     if args.elastic_tp_only:
         return _elastic_tp_only(torch)
+    if args.elastic_collective_only:
+        return _elastic_collective_only(torch)
     if args.zoo_only:
         return _zoo_only(torch)
     if args.ps_only:
@@ -10975,7 +11798,18 @@ def _main(torch, args, order, f1_order):
                 k: (n + here[k][0], here[k][1])
                 for k, (n, _) in elastic_tp["elastic_tp"].items()
             }
-        for path, counts in dict(elastic, **elastic_tp).items():
+            _reset_counters()
+            elastic_collective = _run_phase(
+                "elastic_collective", phase_elastic_collective, torch, tmp,
+                card)
+            here = _counts()
+            elastic_collective["elastic_collective"] = {
+                k: (n + here[k][0], here[k][1])
+                for k, (n, _) in
+                elastic_collective["elastic_collective"].items()
+            }
+        for path, counts in dict(elastic, **elastic_tp,
+                                 **elastic_collective).items():
             _check_counts(counts, {k: 0 for k in KERNELS}, path)
         _check_no_leaked_segments(segments_before)
         line = kernels_line(
@@ -10985,7 +11819,8 @@ def _main(torch, args, order, f1_order):
                   "ps_fleet": ps_fleet, "ps_tiers": ps_tiers,
                   "ps_hybrid": ps_hybrid, "ps_serve": ps_serve,
                   "wire": wire},
-                 **moe, **ring, **elastic, **elastic_tp),
+                 **moe, **ring, **elastic, **elastic_tp,
+                 **elastic_collective),
         )
     except Exception as err:  # noqa: BLE001 — reported, exit non-zero
         import traceback

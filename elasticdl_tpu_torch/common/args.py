@@ -676,7 +676,7 @@ def add_common_args_between_master_and_worker(parser):
         "a pre-compiled size pays state re-placement only; pair with "
         "EDL_COMPILE_CACHE_DIR so relaunched processes skip XLA "
         "compiles too (docs/compile_plane.md). Not ported: true raises "
-        "NotImplementedError (ROADMAP A9)",
+        "NotImplementedError (ROADMAP A9.2.2)",
     )
     parser.add_argument(
         "--telemetry_report_secs",

@@ -31,8 +31,8 @@ DeepFM's tables are ``embedding`` and ``id_bias`` (flax ``Embed_0`` and
 ``Embed_1``, or the HBM plane's ``embedding/table`` and ``id_bias/table``:
 neither is transposed), its ``Dense_1``/``Dense_0`` ``tower``/``out`` (the
 outer ``Dense(1)`` is created first); the
-HBM plane's ``metrics/<table>/a2a_overflow`` counter, which cannot move on
-one device, is dropped.
+HBM plane's ``metrics/<table>/a2a_overflow`` counter is dropped (the port
+keeps that count outside the ``state_dict``, ``nn/hbm_embedding.py``).
 
 Layouts:
 
@@ -121,7 +121,7 @@ _DEEPFM = (
     ("Embed_1/embedding", "id_bias.weight", None),
     # deepfm_edl_embedding's HbmEmbedding tables
     ("{table}/table", "{table}.table", None),
-    # the a2a overflow counter, which cannot move on one device: dropped
+    # the a2a overflow counter: dropped (kept outside the state_dict)
     ("metrics/{table}/a2a_overflow", None, None),
     # ``nn.Dense(1)(nn.Dense(fc_unit)(x))`` creates the outer, one-wide
     # layer first: it is Dense_0, the fc_unit tower Dense_1

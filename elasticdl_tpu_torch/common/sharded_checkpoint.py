@@ -16,7 +16,12 @@ split leaf, and a replicated leaf is written once, by the rank that
 holds its first replica (``parallel/trainer.py``). A restore assembles
 any part of a leaf from the shards that cover it (:class:`_LeafReader`,
 the reference's), so a checkpoint written over T ranks restores onto
-any other T. bfloat16 is stored as its uint16 bits and read back by
+any other T. A leaf whose dim 0 the elastic plane zero-pads to a world
+size (``PadDim0``: deepfm_edl's vocabulary-split tables and their
+optimizer slots) is stored padded, its manifest entry recording the
+logical rows (``logical_dim0``): a restore into another padding reads
+only the logical rows and zeros past them, and a host load clips the
+padding off. bfloat16 is stored as its uint16 bits and read back by
 view, without ``ml_dtypes``.
 
 A train state's leaves are named ``params/<name>``, ``state/<name>``
@@ -129,16 +134,20 @@ def snapshot_leaves(leaves):
 
 
 def write_snapshot(directory, entries, version=0, process_index=None,
-                   layout=None):
+                   layout=None, logical_dim0=None):
     """Phase 2 of a save: write ``entries`` ((path, tensor) pairs, a
     snapshot list or a lazy iterable) into ``directory``, one leaf at a
     time (peak host memory is about one leaf beyond the entries), the
     manifest last, as ``manifest-<process_index>.json``. ``layout``
     ({path: (global shape, this part's slices)}) places a part in its
-    leaf; a leaf it does not name is whole."""
+    leaf; a leaf it does not name is whole. ``logical_dim0`` ({path:
+    rows}) records the true rows of a leaf whose dim 0 this world
+    zero-pads (``PadDim0``): a host load clips the padding off, and a
+    restore into another padding reads only the logical rows."""
     os.makedirs(directory, exist_ok=True)
     pid = PROCESS_INDEX if process_index is None else int(process_index)
     layout = layout or {}
+    logical_dim0 = logical_dim0 or {}
     # clear this process's files of an earlier write to the directory
     for stale in glob.glob(
         os.path.join(directory, "*.p%d.s*.npy" % pid)
@@ -155,7 +164,7 @@ def write_snapshot(directory, entries, version=0, process_index=None,
         shape, slices = layout.get(path, (arr.shape, None))
         if slices is None:
             slices = [slice(0, int(d)) for d in arr.shape]
-        manifest["leaves"][path] = {
+        entry = manifest["leaves"][path] = {
             "shape": [int(d) for d in shape],
             "dtype": dtype,
             "shards": [{
@@ -163,6 +172,8 @@ def write_snapshot(directory, entries, version=0, process_index=None,
                 "file": fname,
             }],
         }
+        if path in logical_dim0:
+            entry["logical_dim0"] = int(logical_dim0[path])
     manifest_path = os.path.join(
         directory, "%s%d.json" % (_MANIFEST_PREFIX, pid)
     )
@@ -179,11 +190,12 @@ def write_snapshot(directory, entries, version=0, process_index=None,
 
 
 def save_sharded(directory, leaves, version=0, process_index=None,
-                 layout=None):
+                 layout=None, logical_dim0=None):
     """Write {path: tensor} into ``directory`` synchronously: each leaf
-    is copied to the host as it is written (``process_index`` and
-    ``layout`` as in :func:`write_snapshot`)."""
-    write_snapshot(directory, leaves.items(), version, process_index, layout)
+    is copied to the host as it is written (``process_index``,
+    ``layout`` and ``logical_dim0`` as in :func:`write_snapshot`)."""
+    write_snapshot(directory, leaves.items(), version, process_index, layout,
+                   logical_dim0)
 
 
 def _merged_manifest(directory):
@@ -203,6 +215,8 @@ def _merged_manifest(directory):
                 {"shape": entry["shape"], "dtype": entry["dtype"], "shards": []},
             )
             merged["shards"].extend(entry["shards"])
+            if "logical_dim0" in entry:
+                merged["logical_dim0"] = entry["logical_dim0"]
     return version, leaves
 
 
@@ -232,17 +246,27 @@ class _LeafReader:
     def read(self, index):
         """The part ``index`` (a slice per dim) of the leaf as a CPU
         tensor; raises when the shards do not cover it (a torn or
-        partial checkpoint)."""
+        partial checkpoint). The part may reach past the stored rows, or
+        past the logical rows of a padded leaf (another world's
+        padding): those rows read zero, and only the logical rows are
+        read from the files."""
         entry = self._entry
         want = _index_to_slices(index, entry["shape"])
         dtype = np.uint16 if entry["dtype"] == "bfloat16" else entry["dtype"]
         out = np.zeros([stop - start for start, stop in want], dtype=dtype)
+        # the extent that holds data: the stored shape, dim 0 clipped to
+        # the logical rows
+        extent = [int(d) for d in entry["shape"]]
+        if extent and "logical_dim0" in entry:
+            extent[0] = min(extent[0], int(entry["logical_dim0"]))
+        want_in = [(ws, max(ws, min(we, d)))
+                   for (ws, we), d in zip(want, extent)]
         covered = 0
         for shard in entry["shards"]:
             have = [tuple(sl) for sl in shard["slices"]]
             inter = [
                 (max(ws, hs), min(we, he))
-                for (ws, we), (hs, he) in zip(want, have)
+                for (ws, we), (hs, he) in zip(want_in, have)
             ]
             if any(s >= e for s, e in inter):
                 continue
@@ -255,7 +279,7 @@ class _LeafReader:
             )
             out[dst_sl] = src[src_sl]
             covered += int(np.prod([e - s for s, e in inter], dtype=np.int64))
-        total = int(np.prod(out.shape, dtype=np.int64))
+        total = int(np.prod([e - s for s, e in want_in], dtype=np.int64))
         if covered < total:
             raise ValueError(
                 "checkpoint shards cover %d/%d elements of the requested "
@@ -266,23 +290,29 @@ class _LeafReader:
 
 def load_sharded_to_host(directory, parts=None, prefix=""):
     """(version, {path: CPU tensor}) of a checkpoint directory: every
-    leaf whole, or the part ``parts[path]`` (a slice per dim) of a leaf
-    that ``parts`` names; with ``prefix`` (``"params/"``), only the
-    leaves whose path starts with it."""
+    leaf whole (a padded leaf clipped to its logical rows), or the part
+    ``parts[path]`` (a slice per dim) of a leaf that ``parts`` names;
+    with ``prefix`` (``"params/"``), only the leaves whose path starts
+    with it."""
     version, leaves = _merged_manifest(directory)
     parts = parts or {}
     out = {}
     for path, entry in leaves.items():
         if not path.startswith(prefix):
             continue
-        index = parts.get(path) or tuple(slice(0, d) for d in entry["shape"])
+        index = parts.get(path)
+        if index is None:
+            shape = list(entry["shape"])
+            if shape and "logical_dim0" in entry:
+                shape[0] = min(shape[0], int(entry["logical_dim0"]))
+            index = tuple(slice(0, d) for d in shape)
         out[path] = _LeafReader(directory, entry).read(index)
     return version, out
 
 
 def leaf_shapes(directory):
-    """{path: global shape} of a checkpoint's leaves, from its
-    manifests alone."""
+    """{path: global shape} of a checkpoint's leaves as stored (a padded
+    leaf with its padding), from its manifests alone."""
     return {
         path: tuple(entry["shape"])
         for path, entry in _merged_manifest(directory)[1].items()
@@ -306,6 +336,7 @@ class ShardedCheckpointManager:
         self._steps = checkpoint_steps
         self._keep_max = keep_max
         self._expected_writers = None
+        self._logical_dim0 = None
         self._async = None
         self.write_seconds = {}
         if async_io:
@@ -319,6 +350,11 @@ class ShardedCheckpointManager:
         """Processes writing each version: the bar a newer version must
         meet before an older one is evicted."""
         self._expected_writers = max(1, int(n)) if n else None
+
+    def set_logical_dim0(self, by_path):
+        """{leaf path: logical rows} of the leaves this world pads, for
+        the manifests of the saves that follow (None: none padded)."""
+        self._logical_dim0 = dict(by_path) if by_path else None
 
     @property
     def steps(self):
@@ -367,9 +403,10 @@ class ShardedCheckpointManager:
         else:
             leaves, layout, pid = parts
         expected = self._expected_writers
+        logical = self._logical_dim0
         if self._async is None:
             t0 = time.perf_counter()
-            save_sharded(directory, leaves, version, pid, layout)
+            save_sharded(directory, leaves, version, pid, layout, logical)
             self.write_seconds[version] = time.perf_counter() - t0
             if self._keep_max:
                 self._evict(expected)
@@ -378,7 +415,7 @@ class ShardedCheckpointManager:
 
         def write():
             t0 = time.perf_counter()
-            write_snapshot(directory, snap, version, pid, layout)
+            write_snapshot(directory, snap, version, pid, layout, logical)
             self.write_seconds[version] = time.perf_counter() - t0
             if self._keep_max:
                 self._evict(expected)

@@ -176,7 +176,7 @@ def refuse_unported_planes(args):
         )
     if getattr(args, "speculative_compile", False):
         raise _not_ported(
-            "the speculative compile plane (ROADMAP A9)",
+            "the speculative compile plane (ROADMAP A9.2.2)",
             "--speculative_compile",
         )
 

@@ -25,8 +25,13 @@ The hooks, as the reference's:
   ``--checkpoint_dir``.
 - ``param_shardings(mesh, ...)``: each HBM table's spec
   (``PadDim0(P(table_axis, None))``), whole on a world of one.
-- ``build_collective_model``: the lookup inside the sharded elastic
-  plane's step, not ported (ROADMAP A9).
+- ``build_collective_model(table_axis, mesh=None, **params)``: the
+  multi-process elastic hook. Its tables are looked up with the
+  ``all_to_all`` routing inside the collective plane's weighted step
+  (``parallel/elastic.py``); over a ``WorldMesh`` (``mesh``, the port's
+  explicit form of the reference's outer ``shard_map``) each table holds
+  this rank's padded rows, without one the whole table. A PS-plane
+  table raises the reference's ``ValueError``.
 
 Layers: ``embedding``/``id_bias`` (their ``table``), ``tower``/``out``,
 the ``deepfm`` weight map of ``common/convert.py``.
@@ -160,13 +165,12 @@ def build_distributed_model(mesh, table_axis="data", **params):
     return DeepFMEdl(mesh=mesh, table_axis=table_axis, **params)
 
 
-def build_collective_model(table_axis="data", **params):
-    """The multi-process elastic hook (lookups inside the sharded elastic
-    plane's step): not ported."""
-    raise NotImplementedError(
-        "deepfm_edl_embedding.build_collective_model: the sharded elastic "
-        "plane's collective lookup is not ported yet (ROADMAP A9)"
-    )
+def build_collective_model(table_axis="data", mesh=None, **params):
+    """The multi-process elastic hook: tables looked up with the routed
+    collectives inside the collective plane's step; ``mesh`` the world's
+    ``WorldMesh`` (this rank's rows), None for the whole tables."""
+    return DeepFMEdl(collective=True, mesh=mesh, table_axis=table_axis,
+                     **params)
 
 
 def build_host_model(**params):

@@ -51,9 +51,10 @@ comes out the same on every ``model`` rank. A mixture of experts over
 leave its stacks whole. :func:`param_shardings`, :func:`mesh_axes` and
 :func:`build_distributed_model` are the reference's hooks.
 
-Not ported yet (ROADMAP A9): pipeline stages over a ``pipe`` axis,
-experts over an ``expert`` axis together with ``model``, and the
-mixture of experts over a sequence-sharded mesh; each raises by name.
+Not ported yet, each raising by name: pipeline stages over a ``pipe``
+axis (ROADMAP A9.3), experts over an ``expert`` axis together with
+``model``, and the mixture of experts over a sequence-sharded mesh
+(A9.6).
 """
 
 import functools
@@ -490,20 +491,20 @@ def _check_mesh(mesh, seq_axis, num_experts):
     if shape.get("pipe", 1) > 1:
         raise NotImplementedError(
             "transformer_lm with pipeline stages over a 'pipe' axis of %d "
-            "is not ported yet (ROADMAP A9)" % shape["pipe"]
+            "is not ported yet (ROADMAP A9.3)" % shape["pipe"]
         )
     if shape.get("expert", 1) > 1 and shape.get("model", 1) > 1:
         raise NotImplementedError(
             "transformer_lm with experts over an 'expert' axis and tensor "
             "parallelism over a 'model' axis together is not ported yet "
-            "(ROADMAP A9)"
+            "(ROADMAP A9.6)"
         )
     if seq_axis is not None and seq_axis not in shape:
         raise ValueError("mesh %r has no axis %r" % (mesh, seq_axis))
     if num_experts and seq_axis is not None and shape[seq_axis] > 1:
         raise NotImplementedError(
             "transformer_lm with experts over a sequence-sharded mesh is "
-            "not ported yet (ROADMAP A9)"
+            "not ported yet (ROADMAP A9.6)"
         )
 
 
@@ -519,7 +520,7 @@ def build_distributed_model(
     if int(pipeline_stages) > 1:
         raise NotImplementedError(
             "transformer_lm with pipeline_stages=%d (PipelinedTransformerLM)"
-            " is not ported yet (ROADMAP A9)" % int(pipeline_stages)
+            " is not ported yet (ROADMAP A9.3)" % int(pipeline_stages)
         )
     return custom_model(mesh=mesh, dtype=dtype, **params)
 

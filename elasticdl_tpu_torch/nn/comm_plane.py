@@ -23,7 +23,8 @@ path talks to, ``plan -> pull -> push -> drain``:
   from the PS fleet in one fan-out over every (table, shard) leg
   (``worker/ps_client.py``) and pushes the sparse gradients alone (the
   hybrid trainer's push). An HBM-plane table is looked up and updated
-  inside the step and has no plane object;
+  inside the step; its :class:`HbmPlane` (``in_graph``) pulls and
+  pushes nothing;
 - the worker copies the pulled ``(k, dim)`` rows to the card as they
   are. The reference pads them to a power-of-two bucket to bound XLA
   recompiles; eager PyTorch has none to bound, and the pushed
@@ -113,13 +114,15 @@ def make_embedding(
     combiner=None,
     collective=False,
     embedding_initializer="uniform",
+    **hbm_kwargs,
 ):
     """Build one table's embedding layer from its plane name: ``"ps"`` ->
     the elastic :class:`~elasticdl_tpu_torch.nn.embedding.Embedding`
     (unbounded vocabulary, rows pulled per batch); ``"hbm"`` ->
     :class:`~elasticdl_tpu_torch.nn.hbm_embedding.HbmEmbedding` (the
-    table a trainable parameter on the card). The caller assigns the
-    layer to its attribute ``name``, the table's name."""
+    table a trainable parameter on the card; ``hbm_kwargs`` such as
+    ``capacity`` and ``dedup`` pass through to it). The caller assigns
+    the layer to its attribute ``name``, the table's name."""
     if plane == "ps":
         from elasticdl_tpu_torch.nn.embedding import Embedding
 
@@ -144,6 +147,7 @@ def make_embedding(
             axis=axis,
             mask_zero=mask_zero,
             collective=collective,
+            **hbm_kwargs,
         )
     raise ValueError(
         "unknown embedding plane %r (want one of %s)"
@@ -168,8 +172,12 @@ def plan_lookup_multi(ids_list):
 
 
 class CommPlane:
-    """The host side of a table's plane: rows are pulled before the step
-    and the combined row gradients pushed after it."""
+    """A table's plane: a host plane pulls rows before the step and
+    pushes the combined row gradients after it; an ``in_graph`` plane
+    (:class:`HbmPlane`) looks up and updates inside the step."""
+
+    name = "abstract"
+    in_graph = False
 
     def pull(self, ids_by_table):
         """{table: unique ids} -> {table: (k, dim) rows} in one round."""
@@ -184,12 +192,22 @@ class CommPlane:
         ``(True, -1)`` for a plane without a push window."""
         return True, -1
 
+    @property
+    def cache(self):
+        """The shared :class:`HotRowCache`, or None."""
+        return None
+
+    def close(self):
+        """Release the plane's resources (threads, channels)."""
+
 
 class MasterStorePlane(CommPlane):
     """The master-held store: a pull is one ``pull_embedding_vectors``
     call per table. Sparse gradients travel with the dense ones in
     ``report_gradient``, so :meth:`push` has no path of its own.
     ``stub_fn`` gives the master stub at call time."""
+
+    name = "ps"  # the host pull's semantics; the storage differs
 
     def __init__(self, stub_fn):
         self._stub_fn = stub_fn
@@ -220,8 +238,18 @@ class PsPlane(CommPlane):
     pull pipeline's) leaves a pending re-push to a shard that came back
     empty to the worker thread's next call."""
 
+    name = "ps"
+
     def __init__(self, ps_client):
         self._client = ps_client
+
+    @property
+    def client(self):
+        return self._client
+
+    @property
+    def cache(self):
+        return getattr(self._client, "hot_row_cache", None)
 
     def pull(self, ids_by_table, service_reinit=True):
         return self._client.pull_embedding_vectors_multi(
@@ -233,6 +261,42 @@ class PsPlane(CommPlane):
 
     def drain(self):
         return self._client.drain()
+
+    def close(self):
+        if hasattr(self._client, "close"):
+            self._client.close()
+
+
+class HbmPlane(CommPlane):
+    """The in-graph HBM plane: the table is a (vocab-split) parameter
+    and its lookup and update run inside the step
+    (``nn/hbm_embedding.py``: the ``all_to_all`` routing with
+    ``padded_unique``'s dedup, the in-graph twin of
+    :func:`plan_lookup_multi`). ``pull`` and ``push`` never run; the
+    plane lets a planner treat every table alike, and holds a cache a
+    serving worker may share."""
+
+    name = "hbm"
+    in_graph = True
+
+    def __init__(self, shared_cache=None):
+        self._cache = shared_cache
+
+    @property
+    def cache(self):
+        return self._cache
+
+    def pull(self, ids_by_table):
+        raise RuntimeError(
+            "hbm tables are looked up inside the jitted step (a2a "
+            "collective); there is no host-side pull to perform"
+        )
+
+    def push(self, sparse_tensors, version):
+        raise RuntimeError(
+            "hbm table gradients apply inside the jitted step; there "
+            "is no host-side push to perform"
+        )
 
 
 class EmbeddingPullPipeline:

@@ -67,13 +67,36 @@ the version stand still. Evaluation is in-plane: every rank takes part
 in every tensor-parallel forward (:meth:`eval_step`), ranks without
 work feeding their last rows until :meth:`eval_have_consensus` reads 0.
 
+**The collective plane** (a configuration whose ``param_shardings``
+split parameters over the world's ``data`` axis and not over ``model``:
+deepfm_edl's vocabulary-split HBM tables, whose zoo builds the model with
+``build_collective_model``). The world's mesh is ``{"data": n}`` (or the
+zoo's ``mesh_axes``); the layout solver stays on the pjit plane. A spec
+marked :class:`~elasticdl_tpu_torch.parallel.mesh.PadDim0` whose dim 0
+the world does not divide is zero-padded up to the next multiple
+(``padded_dim0``; the co-sharded optimizer slots pad with it), and the
+logical rows are recorded (:meth:`ElasticDPTrainer.logical_dim0_by_path`)
+for the checkpoints. The step is the reference's
+``make_elastic_train_step`` made explicit: each rank's loss on its own
+rows is scaled by its weight ``w`` inside the differentiated function,
+so the row gradients that the lookups' ``all_to_all`` backward routes to
+their owners carry their source rank's weight; a table split over
+``data`` is then not reduced (its routed gradient is already the sum),
+while the replicated leaves, the weighted loss, the weighted float
+state, ``w``, ``w > 0`` and the layers' overflow counts ride one flat SUM
+over the world and the epochs one MAX; the sums and the tables'
+gradients are divided by ``max(Σw, 1e-6)`` after. A rank without data
+joins every lookup at weight 0; with no live rank nothing moves.
+``padded_dim0`` and ``dim0_shard_count``, the reference's, are in
+``parallel/mesh.py``.
+
 Not ported (each raising ``NotImplementedError`` where it would be
-reached, ROADMAP A9.2): the collective plane (sharded parameters that
-do not split over ``model``: HBM tables, stacked pipeline stages), the
-in-memory replica plane (``ShardMirror``, the mirror refresh and
-assembly), ``PadDim0`` padding, the same-backend relayout (one process
-holding several devices) and the compile plane. Every step ends in a
-host read of its live count: no deferred loss fetches.
+reached): the in-memory replica plane (``ShardMirror``, the mirror
+refresh and assembly; ROADMAP A2), a split leaf that must also be
+reduced over another axis (the pipeline's stage stacks over ``pipe``,
+A9.3), the same-backend relayout (one process holding several devices,
+A9.2.3) and the compile plane (A9.2.2). Every step ends in a host read
+of its live count: no deferred loss fetches.
 """
 
 import hashlib
@@ -91,7 +114,7 @@ from elasticdl_tpu_torch.common.sharded_checkpoint import (
 )
 from elasticdl_tpu_torch.data.dataset import tree_map
 from elasticdl_tpu_torch.parallel import distributed, layout_solver
-from elasticdl_tpu_torch.parallel.mesh import PadDim0, spec_axes
+from elasticdl_tpu_torch.parallel.mesh import PadDim0, padded_dim0, spec_axes
 from elasticdl_tpu_torch.parallel.trainer import (
     AllReduceTrainer,
     place_module,
@@ -197,6 +220,22 @@ def collect_paddable_paths(param_specs):
     return paddable
 
 
+def spec_path_matches(spec_path, leaf_names):
+    """True when a collected spec path claims a leaf's key path: by
+    suffix (so an optimizer slot under its parameter's path matches),
+    or, for a path ending in ``"**"``, when its prefix runs anywhere in
+    the leaf's path."""
+    names = tuple(leaf_names)
+    if spec_path and spec_path[-1] == "**":
+        prefix = tuple(spec_path[:-1])
+        span = len(prefix)
+        return not prefix or any(
+            names[i:i + span] == prefix
+            for i in range(len(names) - span + 1)
+        )
+    return names[-len(spec_path):] == tuple(spec_path)
+
+
 def specs_use_axis(sharded_paths, axis):
     """True when any collected spec splits over ``axis``: the pjit dense
     plane is ``specs_use_axis(paths, "model")``."""
@@ -240,7 +279,7 @@ def _optimizer_slots(optimizer):
     return shaped, counts
 
 
-def reference_state_leaves(module, param_specs, optimizer):
+def reference_state_leaves(module, param_specs, optimizer, pad_axes=None):
     """The train state the reference's pjit plane holds for ``module``
     (the whole model, on any device: only shapes are read) as ``[(path,
     shape, item size, spec)]``, under the reference's flax paths and
@@ -249,10 +288,13 @@ def reference_state_leaves(module, param_specs, optimizer):
     int32 ``count`` for a step-counting optimizer, the model state and
     the int32 ``version``: the reference's ``build_state_specs`` over its
     abstract state, in one list. ``param_specs`` is the zoo's nested
-    ``param_shardings`` answer."""
+    ``param_shardings`` answer. With ``pad_axes`` ({axis: size}, a
+    world's mesh) a :class:`PadDim0` leaf's dim 0 is that world's padded
+    rows (the reference's ``_pad_abstract``)."""
     from elasticdl_tpu_torch.common import convert
 
     paths = collect_sharded_paths(param_specs)
+    paddable = collect_paddable_paths(param_specs)
     params = dict(module.named_parameters())
     names = convert.reference_layouts(params)
     heads = (getattr(module, "num_heads", None),
@@ -268,6 +310,10 @@ def reference_state_leaves(module, param_specs, optimizer):
         spec = convert.to_reference_spec(
             _path_spec(key, paths), layout, p.dim()
         )
+        if pad_axes and spec and any(
+            spec_path_matches(sp, key.split(".")) for sp in paddable
+        ):
+            shape = (padded_dim0(shape[0], spec, pad_axes),) + shape[1:]
         size = p.element_size()
         leaves.append(("params/" + ref, shape, size, spec))
         for slot in shaped:
@@ -356,10 +402,24 @@ def _checkpoint_version(directory):
     return int(m.group(1)) if m else 0
 
 
-def _unported_plane(what):
-    return NotImplementedError(
-        "%s is not ported yet (ROADMAP A9.2: the collective plane)" % what
-    )
+def _staging_since(before):
+    """``collectives.staging`` since the snapshot ``before``: the totals
+    (``staged_bytes``, ``copy_s``, ``exchange_s``) and ``by_kind``
+    ({kind: its exchanges, bytes and seconds})."""
+    from elasticdl_tpu_torch.parallel import collectives
+
+    after = collectives.staging.snapshot()
+    by_kind = {
+        kind: {key: v - before.get(kind, {}).get(key, 0)
+               for key, v in stats.items()}
+        for kind, stats in after.items()
+    }
+    by_kind = {kind: v for kind, v in by_kind.items() if v["exchanges"]}
+    totals = {
+        key: sum(v[key] for v in by_kind.values())
+        for key in ("staged_bytes", "copy_s", "exchange_s")
+    }
+    return dict(totals, by_kind=by_kind)
 
 
 class ElasticDPTrainer(AllReduceTrainer):
@@ -410,6 +470,7 @@ class ElasticDPTrainer(AllReduceTrainer):
         self._mesh_axes_fn = mesh_axes_fn
         self.restore_provider = restore_provider
         self._sharded_paths = {}
+        self._logical_rows = {}  # {parameter name: rows} of padded ones
         self._pjit_dense = False
         self._coupling_checked = False
         self._whole = None  # (whole model on meta, probe specs)
@@ -423,6 +484,9 @@ class ElasticDPTrainer(AllReduceTrainer):
         # host staging of the last sharded step's exchanges (collectives
         # .staging: bytes, copy and exchange seconds)
         self.last_staging = {}
+        # the collective plane's last step: ids its lookups routed (the
+        # unique ones with dedup) and their occurrences, on this rank
+        self.last_routing = {}
         self._spec = None
         self.backend = None
         self._last_local = None  # (features, labels) for weight-0 steps
@@ -679,11 +743,12 @@ class ElasticDPTrainer(AllReduceTrainer):
             self._whole = (module, specs)
         return self._whole
 
-    def _reference_leaves(self, param_specs):
+    def _reference_leaves(self, param_specs, pad_axes=None):
         """:func:`reference_state_leaves` of the whole model under
-        ``param_specs``."""
+        ``param_specs`` (padded for the mesh ``pad_axes``)."""
         return reference_state_leaves(
-            self._whole_model()[0], param_specs, self._optimizer
+            self._whole_model()[0], param_specs, self._optimizer,
+            pad_axes=pad_axes,
         )
 
     def _maybe_derive_profile(self):
@@ -805,34 +870,48 @@ class ElasticDPTrainer(AllReduceTrainer):
 
     def _check_sharded_layout(self, param_specs):
         """The establish refusals, in the reference's order, for the
-        specs of this world's mesh (``_mesh_shape``)."""
+        specs of this world's mesh (``_mesh_shape``), the divisibility
+        checked at this world's padding."""
         self._sharded_paths = collect_sharded_paths(param_specs)
-        if collect_paddable_paths(param_specs):
-            raise _unported_plane(
-                "PadDim0 (padding a split dim 0 to the world size)"
-            )
         self._pjit_dense = specs_use_axis(self._sharded_paths, "model")
-        if not self._pjit_dense:
-            raise _unported_plane(
-                "training parameters split over %s without a 'model' "
-                "axis (the shard_map step make_elastic_train_step)"
-                % sorted({a for sp in self._sharded_paths.values()
-                          for a in spec_axes(sp)})
-            )
-        if self._accum_steps > 1:
+        if self._pjit_dense and self._accum_steps > 1:
             raise ValueError(
                 "accum_steps > 1 is not supported on the pjit dense "
                 "plane yet: global-batch microbatching would regroup "
                 "rows across devices and change the weighted-step "
                 "semantics — use the replicated plane, or accum_steps=1"
             )
+        if not self._pjit_dense:
+            self._check_collective_reductions()
         self._check_optimizer_coupling()
-        self._check_shard_divisibility(self._reference_leaves(param_specs))
+        self._check_shard_divisibility(self._reference_leaves(
+            param_specs, pad_axes=self._mesh_shape
+        ))
         if self.mirror_enabled():
-            raise _unported_plane(
+            raise NotImplementedError(
                 "the in-memory replica plane (ShardMirror, "
-                "refresh_mirror, _try_assemble_from_mirrors)"
+                "refresh_mirror, _try_assemble_from_mirrors) is not "
+                "ported yet (ROADMAP A2); pass --replica_refresh_steps 0 "
+                "to fall back to checkpoint-based recovery"
             )
+
+    def _check_collective_reductions(self):
+        """On the collective plane a split leaf is reduced over the mesh
+        axes it does not split (the reference's ``_unsharded_axes``);
+        the port reduces every replicated leaf over the world and no
+        split one, so a split leaf must split every axis of more than
+        one rank (a ``pipe`` stage stack over ``data`` does not)."""
+        wide = {a for a, n in self._mesh_shape.items() if n > 1}
+        for path, spec in sorted(self._sharded_paths.items()):
+            rest = sorted(wide - set(spec_axes(spec)))
+            if spec_axes(spec) and rest:
+                raise NotImplementedError(
+                    "%s split over %s must also be reduced over %s: the "
+                    "collective plane's reduction of a split leaf over "
+                    "another axis (the pipeline's stage stacks) is not "
+                    "ported yet (ROADMAP A9.3)"
+                    % ("/".join(path), spec_axes(spec), rest)
+                )
 
     def _world_min(self, flag):
         """The MIN of an int over the world (the flag itself alone)."""
@@ -851,7 +930,11 @@ class ElasticDPTrainer(AllReduceTrainer):
         torn), else initialize from the seed (deterministic, logged). A
         restored or re-initialized version never falls below the newest
         checkpoint's, so later saves number past a torn directory."""
-        from elasticdl_tpu_torch.parallel.mesh import WorldMesh, create_mesh
+        from elasticdl_tpu_torch.parallel.mesh import (
+            WorldMesh,
+            create_mesh,
+            global_shape,
+        )
         from elasticdl_tpu_torch.parallel.trainer import _check_placement
 
         if example_batch is None and self._last_local is None:
@@ -888,6 +971,15 @@ class ElasticDPTrainer(AllReduceTrainer):
             module, mesh, param_specs, self._device
         )
         self._mesh = mesh if isinstance(mesh, WorldMesh) else None
+        # the logical rows of the parameters this world pads
+        whole = dict(self._whole_model()[0].named_parameters())
+        self._logical_rows = {
+            name: int(whole[name].shape[0])
+            for name, p in module.named_parameters()
+            if isinstance(self._split.get(name), PadDim0)
+            and global_shape(self._split[name], tuple(p.shape), self._mesh)[0]
+            != whole[name].shape[0]
+        }
         self._ts = self._empty_state()
         t_build = time.perf_counter()
         candidates = (
@@ -1130,6 +1222,8 @@ class ElasticDPTrainer(AllReduceTrainer):
         from elasticdl_tpu_torch.parallel import collectives
         from elasticdl_tpu_torch.parallel.mesh import axis_of
 
+        if not self._pjit_dense:
+            return self._collective_step(local, count, w, epoch_hint, pending)
         ts = self._ts
         self._host_step += 1
         # one draw for the whole global batch, as the reference's
@@ -1230,12 +1324,156 @@ class ElasticDPTrainer(AllReduceTrainer):
             ts.version += 1
         self._timed = self._marks
         self._marks = (self._host_step, (m0, m1, m2, self._mark()))
-        after = collectives.staging.snapshot()
-        self.last_staging = {
-            key: sum(after.get(kind, {}).get(key, 0)
-                     - before.get(kind, {}).get(key, 0) for kind in after)
-            for key in ("staged_bytes", "copy_s", "exchange_s")
+        self.last_staging = _staging_since(before)
+        return loss_sum / denom, live, count
+
+    def _collective_layers(self):
+        """The model's collective HBM tables (``nn/hbm_embedding``)."""
+        from elasticdl_tpu_torch.nn.hbm_embedding import HbmEmbedding
+
+        return [m for m in self._module.modules()
+                if isinstance(m, HbmEmbedding) and m.collective]
+
+    def _collective_grads(self, features, labels, w, rng):
+        """(raw loss, {name: gradient of w x loss}, new state) of this
+        rank's rows: the weight rides the loss, so the row gradients the
+        lookups route to their owners carry it from the source."""
+        ts = self._ts
+        pol = self._pol
+
+        def grads_of(state, f, l, r):
+            leaves = {n: p.detach().requires_grad_(True)
+                      for n, p in ts.params.items()}
+            with torch.enable_grad():
+                p = leaves
+                if pol is not None:
+                    p = pol.cast_to_compute(p)
+                    f = pol.cast_to_compute(f)
+                output, new_state = self._forward(p, state, f, r)
+                if pol is not None:
+                    output = pol.cast_output(output)
+                raw = self._loss_fn(output, l).float()
+                raw = raw + aux_loss_total(new_state).to(raw.device)
+                grads = torch.autograd.grad(
+                    raw * w, list(leaves.values()), allow_unused=True
+                )
+            grads = {n: torch.zeros_like(leaves[n]) if g is None else g
+                     for n, g in zip(leaves, grads)}
+            new_state = {k: v.detach() for k, v in (new_state or {}).items()}
+            return raw.detach(), grads, new_state
+
+        if self._accum_steps == 1:
+            return grads_of(ts.state, features, labels, rng)
+        return accumulate_gradients(
+            grads_of, ts.state, features, labels, rng, self._accum_steps,
+            ts.params,
+        )
+
+    def _collective_step(self, local, count, w, epoch_hint, pending):
+        """:meth:`train_step` on the collective plane (see the module's
+        text): returns (loss, live processes, this process's rows)."""
+        from elasticdl_tpu_torch.parallel import collectives
+
+        ts = self._ts
+        self._host_step += 1
+        # decorrelate stochastic layers across the ranks
+        rng = fold_in(
+            fold_in(self._seed, self._host_step), self._spec.process_id
+        )
+        layers = self._collective_layers()
+        for layer in layers:
+            layer.pending_overflow = None
+        before = collectives.staging.snapshot()
+        m0 = self._mark()
+        try:
+            loss, grads, new_state = self._collective_grads(
+                local[0], local[1], w, rng
+            )
+            # one flat f32 buffer: w*grads of the replicated leaves |
+            # w*loss | w*float state | w | w>0 | each table's overflow
+            shared = [n for n in ts.params if n not in self._split]
+            floats = [n for n, v in new_state.items()
+                      if v.is_floating_point() and n not in self._split]
+            sizes = [grads[n].numel() for n in shared]
+            sizes += [1] + [new_state[n].numel() for n in floats]
+            sizes += [1, 1] + [1] * len(layers)
+            flat = torch.empty(sum(sizes), dtype=torch.float32,
+                               device=self._device)
+            parts = list(flat.split(sizes))
+            for part, n in zip(parts, shared):
+                part.copy_(grads[n].reshape(-1))
+            k = len(shared)
+            torch.mul(loss.reshape(1), w, out=parts[k])
+            for part, n in zip(parts[k + 1:], floats):
+                torch.mul(new_state[n].reshape(-1).float(), w, out=part)
+            tail = k + 1 + len(floats)
+            parts[tail].fill_(w)
+            parts[tail + 1].fill_(1.0 if w > 0 else 0.0)
+            for part, layer in zip(parts[tail + 2:], layers):
+                if layer.pending_overflow is None:
+                    part.zero_()
+                else:
+                    part.copy_(layer.pending_overflow.reshape(1))
+            epoch = self._small([int(epoch_hint), int(bool(pending))],
+                                torch.int64)
+            m1 = self._mark()
+            if self._spec.num_processes > 1:
+                self._wait([
+                    dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                                    async_op=True),
+                    dist.all_reduce(epoch, op=dist.ReduceOp.MAX,
+                                    async_op=True),
+                ])
+        except distributed.WorldBroken:
+            raise
+        except RuntimeError as e:
+            # the lookups' exchanges raise on a peer's death
+            raise distributed.WorldBroken(
+                "collective step of world epoch %d failed: %s"
+                % (self._spec.epoch, e)
+            ) from e
+        m2 = self._mark()
+        # the step's one host read: the loss, the live count, and the
+        # tables' overflow and routing counts
+        routing = [
+            layer.last_routing[key] for layer in layers
+            for key in ("routed", "occurrences")
+            if layer.last_routing is not None
+        ]
+        read = torch.cat(
+            [parts[k].double(), flat[sum(sizes[:tail]):].double()]
+            + ([torch.stack(routing).double().to(flat.device)]
+               if routing else [])
+        ).tolist()
+        loss_sum, w_sum, live = read[0], read[1], int(round(read[2]))
+        denom = max(w_sum, 1e-6)
+        self.epoch_consensus, pending = epoch.tolist()
+        self.pending_consensus = bool(pending)
+        for layer, n_over in zip(layers, read[3:3 + len(layers)]):
+            layer.settle_overflow(int(round(n_over)))
+        counts = read[3 + len(layers):]
+        self.last_routing = {
+            "routed": int(sum(counts[0::2])),
+            "occurrences": int(sum(counts[1::2])),
         }
+        if live > 0:
+            for part, n in zip(parts[k + 1:], floats):
+                new_state[n] = (part / denom).reshape(
+                    new_state[n].shape
+                ).to(new_state[n].dtype)
+            ts.state = new_state  # int leaves keep this rank's values
+            reduced = dict(zip(shared, parts))
+            _apply(
+                ts.opt_state,
+                ts.params,
+                {n: (reduced[n] if n in reduced else grads[n]).div_(
+                    denom).reshape(p.shape)
+                 for n, p in ts.params.items()},
+            )
+            ts.version += 1
+        self._timed = self._marks
+        self._marks = (self._host_step, (m0, m1, m2, self._mark()))
+        self.last_staging = _staging_since(before)
         return loss_sum / denom, live, count
 
     def eval_have_consensus(self, have):
@@ -1311,6 +1549,25 @@ class ElasticDPTrainer(AllReduceTrainer):
         if not isinstance(opt, dict):
             opt = opt.state_dict()
         self._adopt(host_ts.params, host_ts.state, opt, host_ts.version)
+
+    def logical_dim0_by_path(self):
+        """{checkpoint leaf path: logical rows} of the leaves this world
+        pads (a ``PadDim0`` parameter and its co-sharded optimizer
+        slots): what the checkpoint manager records so that a host load
+        clips the padding off."""
+        from elasticdl_tpu_torch.parallel.trainer import _leaf_spec
+
+        if self._ts is None or not self._logical_rows:
+            return {}
+        out = {}
+        for path, value in train_state_leaves(self._ts).items():
+            head, _, rest = path.partition("/")
+            name = rest if head == "params" else rest.rpartition("/")[0]
+            if name in self._logical_rows and _leaf_spec(
+                path, value, self._ts.params, self._split
+            ) is not None:
+                out[path] = self._logical_rows[name]
+        return out
 
     def checkpoint_parts(self):
         """({path: tensor} this rank writes, {path: (global shape, its

@@ -22,12 +22,12 @@ has two forms:
 
 A mesh that needs a device per position beyond the world (more than one
 device and no world of that size) raises ``NotImplementedError``
-(ROADMAP A9: the sharded dense plane).
+(ROADMAP A9.2.3: several devices in one process).
 
 :class:`PartitionSpec` names, per tensor dimension, the mesh axis it is
 split over (or None); :class:`PadDim0` is the reference's wrapper
-(``parallel/elastic.py``) that lets the elastic plane pad dim 0 to a
-world size it does not divide.
+(``parallel/elastic.py``) that lets the elastic plane zero-pad dim 0 to
+a world size it does not divide (:func:`padded_dim0`).
 """
 
 import numpy as np
@@ -37,8 +37,8 @@ from elasticdl_tpu_torch.common.device import resolve_device
 
 def _not_ported(n):
     return NotImplementedError(
-        "a mesh of %d devices is not ported yet (ROADMAP A9: outside a "
-        "torch.distributed world of that many ranks, the port runs on "
+        "a mesh of %d devices is not ported yet (ROADMAP A9.2.3: outside "
+        "a torch.distributed world of that many ranks, the port runs on "
         "one card)" % n
     )
 
@@ -226,6 +226,24 @@ class PadDim0:
 
     def __repr__(self):
         return "PadDim0(%r)" % (self.spec,)
+
+
+def dim0_shard_count(spec, axes):
+    """How many ways a leaf's dim 0 splits on a mesh laid out ``axes``
+    ({axis: size}); a :class:`PadDim0` unwrapped."""
+    if isinstance(spec, PadDim0):
+        spec = spec.spec
+    entry = spec[0] if spec is not None and len(spec) else None
+    count = 1
+    for a in _dim_axes(entry):
+        count *= int(axes[a])
+    return count
+
+
+def padded_dim0(shape0, spec, axes):
+    """dim 0 rounded up to the next multiple of its shard count."""
+    count = dim0_shard_count(spec, axes)
+    return -(-int(shape0) // count) * count
 
 
 def spec_axes(spec):

@@ -26,6 +26,8 @@ over such a mesh (``model_zoo/transformer_lm``) builds its layers at
 those shapes.
 """
 
+import torch
+
 from elasticdl_tpu_torch.parallel.mesh import PartitionSpec as P
 from elasticdl_tpu_torch.parallel.mesh import (
     axis_of,
@@ -85,17 +87,25 @@ def param_spec(name, mesh):
 def shard_params(mesh, state_dict, specs=None):
     """This rank's part of each tensor of a whole ``state_dict`` by
     ``specs`` ({name: spec}; a name it lacks stays whole) or, without
-    it, by the TP rules. Views of the whole tensors."""
+    it, by the TP rules. Views of the whole tensors; a ``PadDim0``
+    tensor whose dim 0 the mesh does not divide is zero-padded first."""
+    from elasticdl_tpu_torch.parallel.mesh import PadDim0, padded_dim0
 
     def spec(name):
         if specs is None:
             return param_spec(name, mesh)
         return specs.get(name) or P()
 
-    return {
-        name: t[shard_slices(spec(name), tuple(t.shape), mesh)]
-        for name, t in state_dict.items()
-    }
+    out = {}
+    for name, t in state_dict.items():
+        sp = spec(name)
+        if isinstance(sp, PadDim0):
+            rows = padded_dim0(t.shape[0], sp, mesh.shape)
+            if rows != t.shape[0]:
+                t = torch.cat([t, t.new_zeros((rows - t.shape[0],)
+                                              + tuple(t.shape[1:]))])
+        out[name] = t[shard_slices(sp, tuple(t.shape), mesh)]
+    return out
 
 
 def gather_part(t, spec, mesh):
@@ -103,7 +113,10 @@ def gather_part(t, spec, mesh):
     axis per split dim): an all-gather over each split dim's axis (every
     rank of the axis must call it). ``spec`` None: ``t`` is whole."""
     from elasticdl_tpu_torch.parallel import collectives
+    from elasticdl_tpu_torch.parallel.mesh import PadDim0
 
+    if isinstance(spec, PadDim0):
+        spec = spec.spec
     for dim, entry in enumerate(spec or ()):
         if isinstance(entry, (tuple, list)):
             raise NotImplementedError(

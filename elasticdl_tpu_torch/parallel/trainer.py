@@ -25,10 +25,12 @@ mesh (``training/step.py``, ``parallel/spmd.py``), the optimizer's
 state co-shards with its parameter, :meth:`get_host_state` gathers the
 parts, and :meth:`save_sharded`/:meth:`restore_sharded` write and read
 each rank's parts with their global index, so a checkpoint restores
-onto any other split of the same model.
+onto any other split of the same model. A ``PadDim0`` part is read at
+this world's padded rows whatever padding wrote it, the rows past the
+logical ones zero.
 
 Not ported yet: more than one device in one process (``devices``), and
-``resize`` of those devices in place (ROADMAP A9.2); both raise
+``resize`` of those devices in place (ROADMAP A9.2.3); both raise
 ``NotImplementedError``. A membership change of a world of processes is
 the elastic plane's re-form (``parallel/elastic.py``), tensor-parallel
 worlds included.
@@ -239,7 +241,7 @@ class AllReduceTrainer:
     def resize(self, devices):
         raise _not_ported(
             "resize (the devices of one process re-laid out in place, "
-            "ROADMAP A9.2; a world of processes re-forms on the elastic "
+            "ROADMAP A9.2.3; a world of processes re-forms on the elastic "
             "plane, parallel/elastic.py)"
         )
 
@@ -342,12 +344,15 @@ class AllReduceTrainer:
             split_train_state_leaves,
         )
         from elasticdl_tpu_torch.parallel.mesh import (
+            PadDim0,
             global_shape,
             shard_slices,
         )
 
         # this rank's part of each split leaf: a parameter, and an
-        # optimizer slot of its parameter's whole shape
+        # optimizer slot of its parameter's whole shape. A PadDim0 leaf
+        # is read at this world's padded rows, whatever padding wrote it
+        # (the rows past its logical ones read zero)
         parts = {}
         for path, shape in (leaf_shapes(directory) if self._split
                             else {}).items():
@@ -360,7 +365,10 @@ class AllReduceTrainer:
             whole = global_shape(
                 spec, tuple(self._ts.params[name].shape), self._mesh
             )
-            if head == "params" or shape == whole:
+            padded = isinstance(spec, PadDim0) and shape[1:] == whole[1:]
+            if padded:
+                parts[path] = shard_slices(spec, whole, self._mesh)
+            elif head == "params" or shape == whole:
                 parts[path] = shard_slices(spec, shape, self._mesh)
         _, leaves = load_sharded_to_host(directory, parts)
         params, state, opt, version = split_train_state_leaves(

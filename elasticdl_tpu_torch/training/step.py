@@ -195,6 +195,32 @@ def _on_mesh(module, loss_fn, mesh, seq_axis):
     return shard, spmd.make_loss(loss_fn, mesh, seq_axis), reduce
 
 
+def _pmean(mesh, axis_name):
+    """``reduce(loss, grads)``: both averaged over the ranks of the
+    mesh's axis ``axis_name`` (``lax.pmean``), in one flat exchange."""
+    from elasticdl_tpu_torch.parallel import collectives
+    from elasticdl_tpu_torch.parallel.mesh import axis_of
+
+    if mesh is not None and axis_name not in mesh.axis_names:
+        raise ValueError("mesh %r has no axis %r" % (mesh, axis_name))
+    axis = axis_of(mesh, axis_name)
+
+    def reduce(loss, grads):
+        if axis is None:
+            return loss, grads
+        names = list(grads)
+        flat = torch.cat([grads[n].reshape(-1).float() for n in names]
+                         + [loss.reshape(1).float()])
+        flat = collectives.all_reduce_sum(flat, axis) / axis.size
+        parts = flat.split([grads[n].numel() for n in names] + [1])
+        return parts[-1].reshape(()).to(loss.dtype), {
+            n: part.reshape(grads[n].shape).to(grads[n].dtype)
+            for n, part in zip(names, parts)
+        }
+
+    return reduce
+
+
 def _detached(tree):
     """The output tree's tensors detached (a model may return a dict)."""
     if isinstance(tree, dict):
@@ -298,20 +324,22 @@ def make_train_step(
     and the gradients are the whole batch's on every rank, each split
     parameter's for this rank's part (``parallel/spmd.py``).
 
+    ``pmean_axis`` (an axis name of ``mesh``): the step is the body of
+    the reference's ``shard_map`` over that axis. Each rank is handed
+    its own batch, and the gradients and the loss are averaged over the
+    axis's ranks (one flat SUM of ``parallel/collectives``, divided by
+    the axis size) before the update; on an axis of one rank, or
+    without a ``WorldMesh``, the mean is the identity.
+
     The step drives the optimizer in ``train_state.opt_state``, which
     ``TrainState.create`` bound to the parameters, so unlike the
-    reference's builder this one takes no optimizer. ``pmean_axis`` (the
-    cross-device mean inside a shard_map step) belongs to the collective
-    plane and raises (the pjit dense plane's weighted step is
-    ``parallel/elastic.py``'s)."""
-    if pmean_axis is not None:
-        raise NotImplementedError(
-            "make_train_step(pmean_axis=...) is not ported yet (ROADMAP "
-            "A9.2: the collective plane's shard_map step)"
-        )
+    reference's builder this one takes no optimizer."""
     pol = get_policy(precision)
     forward = make_remat_forward(module, remat)
-    shard, loss_fn, reduce = _on_mesh(module, loss_fn, mesh, seq_axis)
+    if pmean_axis is not None:
+        shard, reduce = (lambda f, l: (f, l)), _pmean(mesh, pmean_axis)
+    else:
+        shard, loss_fn, reduce = _on_mesh(module, loss_fn, mesh, seq_axis)
 
     def grads_of(params, state, features, labels, rng):
         loss, grads, new_state, _ = _loss_and_grads(

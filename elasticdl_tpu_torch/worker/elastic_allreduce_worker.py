@@ -98,7 +98,12 @@ digests are ``parallel/elastic.state_digest`` (on the sharded plane, of
 this rank's parts). A promoted standby's timeline also has a ``standby``
 event, a parked spare's a ``spare`` event, a sharded step's event its
 host ``staging`` (bytes and seconds of the exchanges staged through the
-host), and a training job's, one ``eval`` event per scored task.
+host, in all and by kind) and, on a card, the process's peak memory so
+far (``peak_mib``), a collective-plane step's its ``routing`` (ids its
+lookups routed against their occurrences), a sharded ``established``
+event the bytes of this rank's split parameters (``split_bytes``), the
+``final`` event the tables' overflow count (``overflow``), and a
+training job's, one ``eval`` event per scored task.
 
 A zoo with sharded parameters (``build_distributed_model``) is scored as
 the reference scores it: through its host twin (``build_host_model``,
@@ -135,13 +140,31 @@ serving member traced from the whole model. A TP job needs
 ``--replica_refresh_steps 0``: the replica plane covers only leading-dim
 splits, as the reference's.
 
-Not ported, each raising ``NotImplementedError`` (ROADMAP A9.2):
-training a configuration that splits parameters without a ``model``
-axis (the collective plane of ``build_distributed_model``: deepfm_edl's
-HBM tables, the LM's ``pipeline_stages``), and with it the collective
-evaluation that would score it. A tensor-parallel checkpoint is scored
-whole on one device in a scoring job: ``load_sharded_to_host``
-assembles its parts.
+**The collective plane.** A configuration that splits parameters
+without a ``model`` axis, from a zoo with ``build_collective_model``
+(deepfm_edl's vocabulary-split HBM tables), trains sharded the same way,
+with the collective model as the builder (``_collective_hooks``: built
+once on the meta device at construction, so an unsupported
+configuration fails there), the zoo's ``mesh_axes`` where it has one,
+and no layout planner. Each establish tells the checkpoint manager the
+rows this world pads (``logical_dim0_by_path``), so host loads clip the
+padding off. Every step reads the tables' overflow counts
+(``_alarm_on_embedding_overflow``), and a step's timeline event carries
+its ``routing`` (ids routed against their occurrences). Rounds are
+scored in-plane; the SAVE_MODEL export is assembled from the final
+checkpoint with the padding clipped and its member traced from the
+host twin (``build_host_model``), which also scores a padded checkpoint
+in a scoring job. Until the replica plane is ported (ROADMAP A2) such a
+job needs ``--replica_refresh_steps 0`` and recovers from its per-rank
+checkpoints. Refused at construction, with the reference's messages: an
+``embedding_plane`` that puts a table on the PS plane
+(``_refuse_ps_plane_tables``), and a zoo with sharded specs but no
+``build_collective_model``.
+
+Not ported, raising ``NotImplementedError``: a configuration that splits
+parameters over a ``pipe`` axis (the LM's ``pipeline_stages``, ROADMAP
+A9.3). A tensor-parallel checkpoint is scored whole on one device in a
+scoring job: ``load_sharded_to_host`` assembles its parts.
 """
 
 import json
@@ -267,26 +290,81 @@ class ElasticAllReduceWorker:
     @classmethod
     def _refuse_sharded_training(cls, zoo_module, model_def, model_params,
                                  job_type):
-        """Raise for a configuration that splits parameters without a
-        ``model`` axis: the collective plane (ROADMAP A9.2). The pjit
-        dense plane trains."""
+        """Raise for a training configuration the sharded planes cannot
+        take: parameters split over a ``pipe`` axis (the LM's
+        ``pipeline_stages``, ROADMAP A9.3), and, as the reference, a zoo
+        whose configuration splits parameters without a ``model`` axis
+        and has no ``build_collective_model``."""
+        from elasticdl_tpu_torch.parallel.mesh import flatten_specs, spec_axes
+
         if not cls._zoo_wants_sharded_params(zoo_module, model_params):
             return
         if cls._zoo_wants_pjit_dense(zoo_module, model_params):
             return
-        raise NotImplementedError(
-            "zoo module %s defines build_distributed_model with sharded "
-            "parameters (build_distributed_model, param_shardings) that "
-            "do not split over a 'model' axis for this configuration: "
-            "training it on the collective plane (build_collective_model,"
-            " make_elastic_train_step) is not ported yet (ROADMAP A9.2)%s"
-            % (
-                model_def,
-                ", nor the collective evaluation (_collective_evaluate) "
-                "that scores it there"
-                if job_type == JobType.TRAINING_WITH_EVALUATION else "",
+        specs = flatten_specs(cls._probe_specs(zoo_module, model_params)
+                              or {})
+        if any("pipe" in spec_axes(sp) for sp in specs.values()):
+            raise NotImplementedError(
+                "zoo module %s splits parameters over a 'pipe' axis for "
+                "this configuration (pipeline_stages): training the "
+                "pipeline's stage stacks on the collective plane "
+                "(PipelinedTransformerLM, parallel/pipeline.py) is not "
+                "ported yet (ROADMAP A9.3)%s"
+                % (
+                    model_def,
+                    ", nor its in-plane evaluation (_collective_evaluate)"
+                    if job_type == JobType.TRAINING_WITH_EVALUATION else "",
+                )
             )
+        if (hasattr(zoo_module, "build_distributed_model")
+                and not hasattr(zoo_module, "build_collective_model")):
+            # training the plain replicated model instead would either
+            # run out of memory or silently change the declared strategy
+            raise NotImplementedError(
+                "model %s declares sharded parameters for this config "
+                "(param_shardings is non-empty) but no "
+                "build_collective_model hook; the multi-process elastic "
+                "plane needs the collective-lookup form — add "
+                "build_collective_model (see "
+                "model_zoo/deepfm_edl_embedding or "
+                "model_zoo/transformer_lm) or run the "
+                "single-process ALLREDUCE strategy" % model_def
+            )
+
+    @staticmethod
+    def _refuse_ps_plane_tables(zoo_module, model_params):
+        """The reference's per-table plane guard: a PS-plane table has no
+        parameter (its rows are pulled per batch), which no elastic
+        allreduce plane can serve; raised at construction, not after a
+        world formed."""
+        from elasticdl_tpu_torch.common.model_utils import (
+            get_dict_from_params_str,
         )
+
+        extra = get_dict_from_params_str(model_params) or {}
+        plane_spec = str(extra.get("embedding_plane", "") or "")
+        if not plane_spec:
+            return
+        tables = getattr(zoo_module, "TABLES", None)
+        if tables:
+            from elasticdl_tpu_torch.nn.comm_plane import resolve_table_planes
+
+            planes = resolve_table_planes(
+                plane_spec, tables,
+                hybrid_default=getattr(zoo_module, "HYBRID_SPLIT", None),
+            )
+            has_ps_tables = "ps" in planes.values()
+        else:
+            has_ps_tables = plane_spec != "hbm"
+        if has_ps_tables:
+            raise NotImplementedError(
+                "model config embedding_plane=%r places tables on "
+                "the PS plane, which the elastic allreduce worker "
+                "cannot serve; run PS-resident tables on the "
+                "parameter-server worker (--embedding_plane=hybrid "
+                "keeps dense local while the PS fleet serves the "
+                "sparse tables)" % plane_spec
+            )
 
     def __init__(
         self,
@@ -323,6 +401,7 @@ class ElasticAllReduceWorker:
             JobType.PREDICTION_ONLY,
         )
         zoo_module = load_zoo_module(model_def, model_zoo)
+        self._refuse_ps_plane_tables(zoo_module, model_params)
         if not self._serving_only:
             self._refuse_sharded_training(
                 zoo_module, model_def, model_params, job_type
@@ -380,6 +459,8 @@ class ElasticAllReduceWorker:
                 else zoo_module.build_distributed_model(mesh=None, **extra)
             )
         self._prediction_outputs_processor = spec.prediction_outputs_processor
+        # the collective plane's export traces the host twin
+        self._host_model_factory = None
         self._init_ckpt_file = checkpoint_filename_for_init
         self._checkpoint_dir = checkpoint_dir
         self._timeline = _Timeline(worker_id)
@@ -395,10 +476,21 @@ class ElasticAllReduceWorker:
                 # read-only: a scoring job loads checkpoints, never writes
                 self._ckpt = ShardedCheckpointManager(checkpoint_dir)
         else:
+            hooks = self._pjit_dense_hooks(zoo_module, model_params)
+            if not hooks:
+                hooks = self._collective_hooks(zoo_module, model_params)
+                if hooks and hasattr(zoo_module, "build_host_model"):
+                    from elasticdl_tpu_torch.common.model_utils import (
+                        get_dict_from_params_str,
+                    )
+
+                    extra = get_dict_from_params_str(model_params) or {}
+                    self._host_model_factory = (
+                        lambda: zoo_module.build_host_model(**extra)
+                    )
             self._init_training(
                 spec, seed, precision, accum_steps, remat, checkpoint_dir,
-                checkpoint_steps, keep_checkpoint_max,
-                self._pjit_dense_hooks(zoo_module, model_params),
+                checkpoint_steps, keep_checkpoint_max, hooks,
                 replica_refresh_steps,
             )
             from elasticdl_tpu_torch.common.export import export_provenance
@@ -473,6 +565,42 @@ class ElasticAllReduceWorker:
             layout_planner=LayoutPlanner(fallback_axes_fn=mesh_axes_fn),
         )
 
+    @classmethod
+    def _collective_hooks(cls, zoo_module, model_params):
+        """The trainer's keyword arguments of the collective plane for a
+        configuration that splits parameters without a ``model`` axis
+        (deepfm_edl's HBM tables): the builder (the zoo's
+        ``build_collective_model`` over the world's mesh, on the meta
+        device, and its ``param_shardings``) and the zoo's ``mesh_axes``;
+        empty otherwise. The collective model is built once here, on
+        the meta device, so an unsupported configuration fails at
+        construction."""
+        import torch
+
+        if not (cls._zoo_wants_sharded_params(zoo_module, model_params)
+                and hasattr(zoo_module, "build_collective_model")):
+            return {}
+        from elasticdl_tpu_torch.common.model_utils import (
+            get_dict_from_params_str,
+        )
+
+        extra = get_dict_from_params_str(model_params) or {}
+        with torch.device("meta"):
+            zoo_module.build_collective_model(**extra)
+
+        def builder(mesh):
+            return (
+                lambda: zoo_module.build_collective_model(mesh=mesh,
+                                                          **extra),
+                zoo_module.param_shardings(mesh, **extra),
+            )
+
+        mesh_axes_fn = None
+        if hasattr(zoo_module, "mesh_axes"):
+            def mesh_axes_fn(n):
+                return zoo_module.mesh_axes(n, **extra)
+        return dict(distributed_builder=builder, mesh_axes_fn=mesh_axes_fn)
+
     def _init_training(self, spec, seed, precision, accum_steps, remat,
                        checkpoint_dir, checkpoint_steps, keep_checkpoint_max,
                        pjit_dense, replica_refresh_steps):
@@ -521,6 +649,7 @@ class ElasticAllReduceWorker:
         self._drain_announced = False
         self._drain_deadline = 0.0
         self._world_members = ()
+        self._overflow_alarmed = 0
 
     def record_event(self, event, **fields):
         """Append ``event`` to this worker's timeline (when it is on)."""
@@ -1137,11 +1266,18 @@ class ElasticAllReduceWorker:
         import torch
 
         t0 = time.perf_counter()
-        p = torch.zeros(2, device=self._device, requires_grad=True)
-        self.trainer._optimizer([p])
+        self._warm_optimizer()
         if self._device.type == "cuda":
-            (p.detach()[:, None] @ p.detach()[None, :]).sum().item()
+            p = torch.zeros(2, device=self._device)
+            (p[:, None] @ p[None, :]).sum().item()
         return time.perf_counter() - t0
+
+    def _warm_optimizer(self):
+        """Construct the zoo's optimizer once over a throwaway tensor: its
+        first construction in a process imports torch's compile stack."""
+        import torch
+
+        self.trainer._optimizer([torch.zeros(2, requires_grad=True)])
 
     def _await_epoch_bump(self, stale_epoch):
         """After a broken collective: True once the master bumps the
@@ -1176,6 +1312,11 @@ class ElasticAllReduceWorker:
     def _run(self):
         losses = []
         self._timeline("start", pid=os.getpid())
+        # the first optimizer imports torch's compile stack (seconds):
+        # that runs while this process registers, primes and waits for
+        # its first world, not inside the world's establish
+        threading.Thread(target=self._warm_optimizer, daemon=True,
+                         name="edl-optimizer-warm").start()
         self._batch_gen = self._batches()
         # register before priming: the await loop's confirm comes later
         try:
@@ -1207,8 +1348,12 @@ class ElasticAllReduceWorker:
                 self._world_master_boots = self._master_boots
                 self.trainer.establish(world, example_batch=example)
                 if self._ckpt is not None and self.trainer.is_sharded:
-                    # every rank writes its parts of each version
+                    # every rank writes its parts of each version, and
+                    # the manifests record the rows this world pads
                     self._ckpt.set_expected_writers(world.num_processes)
+                    self._ckpt.set_logical_dim0(
+                        self.trainer.logical_dim0_by_path()
+                    )
                 if self.trainer.is_sharded:
                     # sharded state restores inside every establish
                     self._last_ckpt_version = max(0, self.trainer.version)
@@ -1237,6 +1382,7 @@ class ElasticAllReduceWorker:
                     version=self.trainer.version,
                     digest=self.trainer.digest(),
                     mesh=self.trainer.mesh_shape,
+                    split_bytes=self._split_bytes(),
                     **self.trainer.establish_times,
                 )
             # one trace per world: started once it formed, stopped when
@@ -1430,6 +1576,7 @@ class ElasticAllReduceWorker:
                 self._unreported.append(count)
                 self._telemetry.on_batch(count)
             self._flush_unreported()
+            self._alarm_on_embedding_overflow()
             if self._timeline.enabled:
                 self._timeline(
                     "step", epoch=world.epoch, version=self.trainer.version,
@@ -1437,6 +1584,10 @@ class ElasticAllReduceWorker:
                     host_step=self.trainer.host_step,
                     split=self.trainer.step_times,
                     **({"staging": self.trainer.last_staging}
+                       if self.trainer.is_sharded else {}),
+                    **({"routing": self.trainer.last_routing}
+                       if self.trainer.last_routing else {}),
+                    **({"peak_mib": self._peak_mib()}
                        if self.trainer.is_sharded else {}),
                 )
             if self.trainer.epoch_consensus > world.epoch:
@@ -1482,6 +1633,43 @@ class ElasticAllReduceWorker:
                 if not self.trainer.pending_consensus:
                     return "done"
                 time.sleep(0.2)
+
+    def _peak_mib(self):
+        """This process's peak card memory so far (MiB), None on the
+        CPU."""
+        if self._device.type != "cuda":
+            return None
+        import torch
+
+        return torch.cuda.max_memory_allocated(self._device) / 2 ** 20
+
+    def _split_bytes(self):
+        """The bytes of this rank's parts of the split parameters (0 on
+        the replicated plane)."""
+        params = self.trainer.train_state.params
+        return sum(params[n].numel() * params[n].element_size()
+                   for n in self.trainer.param_specs)
+
+    def _alarm_on_embedding_overflow(self):
+        """Warn when the tables' routed lookups overflowed their buckets
+        (ids trained on zero rows) since the last warning; the counts
+        are the trainer's settled ones, a host read that waits for
+        nothing."""
+        if self.trainer._module is None:
+            return
+        from elasticdl_tpu_torch.nn.hbm_embedding import a2a_overflow_total
+
+        total = a2a_overflow_total(self.trainer._module)
+        if total and total > self._overflow_alarmed:
+            logger.warning(
+                "embedding a2a capacity overflow: %d ids have read zero "
+                "rows since job start (+%d since last sync) — increase "
+                "HbmEmbedding capacity (or leave it None for the exact "
+                "worst case)",
+                total,
+                total - self._overflow_alarmed,
+            )
+            self._overflow_alarmed = total
 
     # -- checkpoints and the end --------------------------------------------
 
@@ -1568,17 +1756,16 @@ class ElasticAllReduceWorker:
             self._process_save_model_task_if_needed()
         profiling.maybe_stop_trace()
         if self._timeline.enabled and self.trainer.has_state:
-            peak_mib = None
-            if self._device.type == "cuda":
-                import torch
+            from elasticdl_tpu_torch.nn.hbm_embedding import (
+                a2a_overflow_total,
+            )
 
-                peak_mib = torch.cuda.max_memory_allocated(
-                    self._device) / 2 ** 20
             self._timeline(
                 "final", version=self.trainer.version,
                 digest=self.trainer.digest(), launches=_flash_launches(),
                 fetched_ahead=self._task_data_service.fetched_ahead,
-                peak_mib=peak_mib,
+                peak_mib=self._peak_mib(),
+                overflow=a2a_overflow_total(self.trainer._module),
             )
         if distributed.current_spec() is not None:
             distributed.leave_world()
@@ -1602,12 +1789,15 @@ class ElasticAllReduceWorker:
                     err_msg="no complete sharded checkpoint to export",
                 )
                 return
-            # the member is traced from the whole model on this card
+            # the member is traced from the whole model on this card:
+            # the host twin on the collective plane
             from elasticdl_tpu_torch.parallel.trainer import (
                 place_module,
                 to_device,
             )
 
+            if self._host_model_factory is not None:
+                self._model = self._host_model_factory()
             place_module(self._model, self._device)
             serving_ts = TrainState(
                 params=to_device(host_ts.params, self._device),

@@ -423,6 +423,7 @@ def _left_cases():
     from elasticdl_tpu_torch.model_zoo.transformer_lm import (
         transformer_lm as tzoo,
     )
+    from elasticdl_tpu_torch.parallel import mesh as tmesh
     from elasticdl_tpu_torch.parallel.mesh import PadDim0
     from elasticdl_tpu_torch.parallel.mesh import PartitionSpec as P
     from elasticdl_tpu_torch.training.step import make_train_step
@@ -433,33 +434,63 @@ def _left_cases():
         t._mesh_shape = {"data": 1, "model": 2}
         t._check_sharded_layout(specs)
 
+    def pipe_layout():
+        t = _trainer()
+        t._mesh_shape = {"data": 2, "pipe": 2}
+        t._check_sharded_layout({"pipe": {"stages": {"**": P("pipe")}}})
+
+    def unpadded_layout():
+        t = _trainer()
+        t._mesh_shape = {"data": 3, "model": 1}
+        t._check_sharded_layout({"embed": {"weight": P("data", None)}})
+
     tp = tzoo.param_shardings(None, tensor_parallel=2)
     return {
         "pmean_axis": (lambda: make_train_step(
-            tzoo.custom_model(**CFG), tzoo.loss, pmean_axis="data"),
-            "pmean_axis.*A9.2"),
+            tzoo.custom_model(**CFG), tzoo.loss, pmean_axis="seq",
+            mesh=tmesh.create_mesh({"data": 1}, devices=["cpu"])),
+            ValueError, "has no axis 'seq'"),
         "resize": (lambda: _trainer().resize(["cpu", "cpu"]),
-                   "resize.*A9.2"),
-        "pad_dim0": (lambda: layout(dict(tp, embed={
-            "weight": PadDim0(P("model", None))})), "PadDim0.*A9.2"),
-        "collective_plane": (lambda: layout(
-            {"embed": {"weight": P("data", None)}}),
-            "make_elastic_train_step.*A9.2"),
-        "mirrors": (lambda: layout({"embed": {"weight": P("model", None)}},
-                                   mirror_steps=8),
-                    "replica plane.*ShardMirror.*A9.2"),
+                   NotImplementedError, "resize.*A9.2.3"),
+        "pad_dim0": (unpadded_layout, ValueError,
+                     "embed/embedding: dim 0 .*3 devices.*mark the spec "
+                     "PadDim0"),
+        "collective_plane": (pipe_layout, NotImplementedError,
+                             "pipe.*stage stacks.*A9.3"),
+        "mirrors": (lambda: layout(dict(tp, embed={
+            "weight": PadDim0(P("model", None))}), mirror_steps=8),
+            ValueError, "replica plane.*leading-dim"),
     }
 
 
 @pytest.mark.parametrize("case", ["pmean_axis", "resize", "pad_dim0",
                                   "collective_plane", "mirrors"])
 def test_what_is_left_of_the_sharded_planes_raises_by_name(case):
-    """What the sharded planes still lack raises NotImplementedError
-    naming ROADMAP A9.2 (the mirrors where no split leaf is past dim 0,
-    else the reference's ValueError comes first)."""
-    call, match = _left_cases()[case]
-    with pytest.raises(NotImplementedError, match=match):
+    """What the sharded planes still refuse, now that ``pmean_axis``,
+    ``PadDim0`` and the collective plane's step are ported
+    (tests/test_torch_elastic_collective.py): a pmean over an axis the
+    mesh lacks; ``resize`` (ROADMAP A9.2.3); an unmarked split leaf that
+    does not divide the world (the reference's ValueError, which names
+    PadDim0); a split leaf that must also be reduced over another axis,
+    the pipeline's stage stacks (A9.3); and the mirrors over a leaf split
+    past dim 0 (the reference's ValueError), a PadDim0 marker
+    notwithstanding."""
+    call, exc, match = _left_cases()[case]
+    with pytest.raises(exc, match=match):
         call()
+
+
+def test_the_replica_plane_raises_by_name_on_the_collective_plane():
+    """With no split leaf past dim 0 the mirrors are what is missing:
+    NotImplementedError naming ROADMAP A2 and the checkpoint fallback."""
+    from elasticdl_tpu_torch.parallel.mesh import PartitionSpec as P
+
+    t = _trainer()
+    t.mirror_steps = 8
+    t._mesh_shape = {"data": 2, "model": 1}
+    with pytest.raises(NotImplementedError,
+                       match="ShardMirror.*A2.*replica_refresh_steps 0"):
+        t._check_sharded_layout({"embed": {"weight": P("data", None)}})
 
 
 # -- four gloo ranks -----------------------------------------------------------

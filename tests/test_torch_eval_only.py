@@ -421,16 +421,17 @@ def test_cli_gate_exits_2_as_the_jax_cli_does(verb, argv):
 def test_elastic_worker_refuses_training_jobs_by_name(job_type, tmp_path):
     """The elastic worker routes a training job by the reference's
     probes of ``param_shardings``: it refuses by name what splits
-    parameters without a ``model`` axis, not ported (the LM's
-    pipeline_stages=2: the collective plane, ROADMAP A9.2, and with
-    evaluation rounds the collective evaluation there), trains the
-    LM's tensor_parallel=2 on the pjit dense plane, and trains on the
+    parameters over a ``pipe`` axis, not ported (the LM's
+    pipeline_stages=2: the stage stacks on the collective plane, ROADMAP
+    A9.3, and with evaluation rounds their in-plane evaluation), trains
+    the LM's tensor_parallel=2 on the pjit dense plane and deepfm_edl's
+    vocabulary-split tables on the collective plane, and trains on the
     replicated plane what splits nothing: a zoo whose ``mesh_axes``
     alone names a layout, as the reference's does, and the LM without
     tensor_parallel."""
     lm = "transformer_lm.transformer_lm.custom_model"
     with pytest.raises(NotImplementedError,
-                       match="collective plane.*A9.2") as refused:
+                       match="pipeline_stages.*A9.3") as refused:
         ElasticAllReduceWorker(0, job_type, BATCH, "", lm,
                                model_params="pipeline_stages=2",
                                checkpoint_dir="c", device="cpu")
@@ -440,7 +441,13 @@ def test_elastic_worker_refuses_training_jobs_by_name(job_type, tmp_path):
     tp = ElasticAllReduceWorker(0, job_type, BATCH, "", lm,
                                 model_params="tensor_parallel=2",
                                 checkpoint_dir="c", device="cpu")
-    assert tp.trainer.is_sharded
+    assert tp.trainer.is_sharded and tp._host_model_factory is None
+    edl = ElasticAllReduceWorker(
+        0, job_type, BATCH, "",
+        "deepfm_edl_embedding.deepfm_edl_embedding.custom_model",
+        model_params="vocab_size=97,embedding_dim=8,fc_unit=8",
+        checkpoint_dir="c", device="cpu")
+    assert edl.trainer.is_sharded and edl._host_model_factory is not None
     zoo = tmp_path / "zoo" / "meshed"
     zoo.mkdir(parents=True)
     (zoo / "meshed.py").write_text(

@@ -20,9 +20,12 @@ package's, with everything the port leaves out refusing by name.
   that test's bound (rtol 2e-4, atol 2e-5).
 - The worker hooks: ``AllReduceWorker`` builds the distributed model on
   the one-card mesh with whole specs; the elastic worker scores the host
-  twin from ``--checkpoint_dir`` and refuses without it; training with
-  the hooks on the elastic plane, ``build_collective_model``, ``mesh_axes``
-  and meshes of two devices raise by name.
+  twin from ``--checkpoint_dir`` and refuses without it, and trains the
+  hooked zoo on the collective plane, refusing a PS-plane table; a
+  PS-plane table in the collective form, meshes of two devices in one
+  process and the psum form inside the collective step raise by name;
+  ``method="a2a"`` on a mesh of one device equals the reference's
+  ``all_to_all_lookup``, overflow count included.
 """
 
 import jax
@@ -261,30 +264,69 @@ def test_param_specs_must_name_parameters_and_be_whole():
         "table"], mesh)
 
 
+def _two_rank_mesh():
+    """A ``WorldMesh`` of two ranks, seen from rank 0, without a world:
+    only its shape is read."""
+    return tmesh.WorldMesh({"data": 2}, torch.device("cpu"), 0, {})
+
+
 @pytest.mark.parametrize(
-    "call,match",
+    "call,exc,match",
     [
-        (lambda: tzoo.build_collective_model(), "build_collective_model.*"
-         "A9"),
+        (lambda: tzoo.build_collective_model(embedding_plane="hybrid"),
+         ValueError, "PS plane.*collective"),
         (lambda: tmesh.create_mesh({"data": 2}, devices=["cpu", "cpu"]),
-         "mesh of 2 devices.*A9"),
+         NotImplementedError, "mesh of 2 devices.*A9"),
         (lambda: tmesh.create_mesh(devices=["cpu", "cpu"]),
-         "mesh of 2 devices.*A9"),
-        (lambda: HbmEmbedding(8, 4, collective=True), "collective.*A9"),
-        (lambda: HbmEmbedding(8, 4, mesh=_cpu_mesh(), method="a2a"),
-         "a2a.*A9"),
+         NotImplementedError, "mesh of 2 devices.*A9"),
+        (lambda: HbmEmbedding(8, 4, mesh=_two_rank_mesh()),
+         NotImplementedError, "2 devices outside the collective.*A9.2.3"),
+        (lambda: HbmEmbedding(8, 4, mesh=_cpu_mesh(), collective=True,
+                              method="psum")(torch.ones(2, 3)),
+         ValueError, "only supports a2a"),
         (lambda: tzoo.DeepFMEdl(mesh=_cpu_mesh(), embedding_plane="ps"),
-         "PS plane.*hybrid mode"),
+         NotImplementedError, "PS plane.*hybrid mode"),
         (lambda: tzoo.build_distributed_model(_cpu_mesh(),
                                               embedding_plane="hybrid"),
-         "PS plane.*hybrid mode"),
+         NotImplementedError, "PS plane.*hybrid mode"),
     ],
     ids=["build_collective_model", "mesh_shape_2", "devices_2",
          "collective_layer", "a2a", "custom_model_ps", "hybrid_ps"],
 )
-def test_unported_forms_raise_by_name(call, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_forms_raise_by_name(call, exc, match):
+    """What the HBM plane still refuses: a PS-plane table in the
+    collective form (the reference's ValueError), meshes of two devices
+    in one process and the vocab-sharded lookups over them (ROADMAP
+    A9.2.3), and the psum form inside the collective step (the
+    reference's ValueError). ``build_collective_model``, the collective
+    layer and the a2a routing themselves are ported
+    (tests/test_torch_elastic_collective.py)."""
+    with pytest.raises(exc, match=match):
         call()
+
+
+def test_the_a2a_lookup_on_a_one_device_mesh_equals_the_reference():
+    """``method="a2a"`` on a mesh of one device: the routing body over
+    an axis of one rank, its rows and overflow count as the reference's
+    ``all_to_all_lookup`` gives them (a capacity of 5 drops ids)."""
+    from elasticdl_tpu.nn.hbm_embedding import all_to_all_lookup
+
+    ids = _ids((3, 4), seed=4)
+    table = np.random.default_rng(5).standard_normal(
+        (VOCAB, DIM)).astype(np.float32)
+    for capacity in (None, 5):
+        layer = HbmEmbedding(VOCAB, DIM, mesh=_cpu_mesh(), method="a2a")
+        layer.capacity = capacity
+        with torch.no_grad():
+            layer.table.copy_(torch.from_numpy(table))
+        got = layer.train()(torch.from_numpy(ids)).detach().numpy()
+        want, n_over = all_to_all_lookup(
+            jnp.asarray(table), jnp.asarray(ids), jcreate_mesh(
+                {"data": 1}, devices=jax.devices()[:1]), "data",
+            capacity=capacity, return_overflow=True, dedup=True)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        assert layer.a2a_overflow == int(n_over)
+    assert layer.a2a_overflow > 0
 
 
 def test_the_host_twin_of_a_ps_table_refuses_as_the_reference():
@@ -330,16 +372,22 @@ def test_allreduce_worker_refuses_mesh_axes_by_name(tmp_path):
 @pytest.mark.parametrize(
     "job_type", [JobType.TRAINING_ONLY, JobType.TRAINING_WITH_EVALUATION])
 def test_elastic_worker_refuses_to_train_the_hooked_zoo(job_type):
+    """The hooked zoo trains on the collective plane (its tables split
+    over ``data``, the host twin the export's model); what the worker
+    still refuses is a table on the PS plane, by the reference's
+    message."""
     from elasticdl_tpu_torch.worker.elastic_allreduce_worker import (
         ElasticAllReduceWorker,
     )
 
-    with pytest.raises(NotImplementedError,
-                       match="build_distributed_model.*A9") as refused:
+    worker = ElasticAllReduceWorker(0, job_type, 4, "", EDL,
+                                    model_params=EDL_PARAMS, device="cpu")
+    assert worker.trainer.is_sharded
+    assert worker._host_model_factory().force_hbm
+    with pytest.raises(NotImplementedError, match="PS plane.*hybrid"):
         ElasticAllReduceWorker(0, job_type, 4, "", EDL,
-                               model_params=EDL_PARAMS, device="cpu")
-    assert ("_collective_evaluate" in str(refused.value)) == (
-        job_type == JobType.TRAINING_WITH_EVALUATION)
+                               model_params=EDL_PARAMS
+                               + ",embedding_plane=hybrid", device="cpu")
 
 
 @pytest.mark.parametrize(

@@ -7,7 +7,7 @@ or lacks, against the reference's ``worker/main.py`` and ``api.py``:
   reference's ``warn_accum_unsupported`` warning, at the worker process
   and at the in-process PS worker of ``api.py``;
 - ``--speculative_compile true`` raises by name (the compile plane is
-  unported, ROADMAP A9).
+  unported, ROADMAP A9.2.2).
 """
 
 import logging
@@ -126,7 +126,7 @@ def test_speculative_compile_raises_by_name(strategy, tmp_path):
         "--distribution_strategy", strategy, "--device", "cpu",
     ]
     with pytest.raises(NotImplementedError, match=(
-            r"speculative compile plane \(ROADMAP A9\) is not ported yet "
+            r"speculative compile plane \(ROADMAP A9\.2\.2\) is not ported yet "
             r"\(asked for by --speculative_compile\)")):
         Master(parse_master_args(argv + ["--speculative_compile", "true"]))
     # off (the default) is no request
